@@ -1,16 +1,25 @@
 """Smoke check of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
-Drives pyrite_tpu_torch's main path (``.lua`` -> PNG through the CUDA
-bounce and NEE kernels) on the card and exits non-zero on any failure:
+Drives pyrite_tpu_torch's paths (``.lua`` -> PNG through the CUDA bounce
+and NEE kernels, on dense and on mesh scenes, and the mesh ray queries) on
+the card and exits non-zero on any failure:
 
 1. device: the card's name and power limit;
 2. build: the kernels, from the sources, into an empty build directory;
-3. kernels against their plain PyTorch version on the card, on four dense
-   scenes (flagship spheres, examples/prism.lua, a triangle-lamp mesh, a
-   many-materials scene), at the wavefront the main path launches;
-4. per-launch times of the kernels and of the plain version at that size;
-5. end to end: the CLI renders the flagship and prism.lua through the
-   kernels, with launch counts that show no bounce took the plain path.
+3. kernels against their plain PyTorch version on the card, at the
+   wavefront the main path launches: the dense bounce and NEE kernels on
+   four dense scenes (flagship spheres, examples/prism.lua, a triangle-lamp
+   mesh, a many-materials scene); the wide-BVH traversal kernels on the
+   328,050- and 871,200-triangle terrains (tools/synthetic.terrain_scene,
+   cells 405 and 660); the wide bounce and NEE kernels on terrain_405;
+4. per-launch times of the kernels and of the plain version at that size
+   (the traversal queries on both terrains);
+5. the paths, each with the launch counts zeroed just before it and read
+   just after: the CLI renders the flagship and prism.lua (dense kernels),
+   the CLI renders terrain_405 (wide bounce and NEE kernels), and the ray
+   queries closest_wide / shadow_wide trace one step's camera rays of
+   terrain_405 and their shadow rays (wide traversal kernels). No bounce
+   may take the plain path.
 
 The last line is one JSON object {"ok": true, "device": {...}}; the line
 before it lists each kernel's launches, error and times.
@@ -49,7 +58,7 @@ return {
                 },
             },
             shape.mesh {
-                file = "terrain_5.obj", materials = {
+                file = "terrain_%(cells)d.obj", materials = {
                     terrain = {surface = material.diffuse {color = rgb(0.7, 0.6, 0.5)}},
                 },
             },
@@ -68,18 +77,21 @@ f 1 3 4
 """
 
 
-def write_tri_lamp_scene(directory, width=64, height=32, spectrum_samples=4, bounces=4):
-    """A triangle-lamp scene: a two-triangle emissive quad over a 50-triangle
-    heightfield (tools/synthetic.terrain_obj, 5 cells). Returns the .lua path."""
+def write_tri_lamp_scene(directory, width=64, height=32, spectrum_samples=4, bounces=4, cells=5):
+    """A triangle-lamp scene: a two-triangle emissive quad over a
+    2 * cells^2-triangle heightfield (tools/synthetic.terrain_obj; 5 cells
+    make a dense scene of 52 triangles, 24 cells a mesh scene of 1154).
+    Returns the .lua path."""
     sys.path.insert(0, ROOT)
     from tools.synthetic import terrain_obj
 
     with open(os.path.join(directory, "lamp_quad.obj"), "w") as fh:
         fh.write(LAMP_QUAD_OBJ)
-    terrain_obj(os.path.join(directory, "terrain_5.obj"), cells=5)
-    path = os.path.join(directory, "tri_lamp.lua")
+    terrain_obj(os.path.join(directory, f"terrain_{cells}.obj"), cells=cells)
+    path = os.path.join(directory, "tri_lamp.lua" if cells == 5 else f"tri_lamp_{cells}.lua")
     with open(path, "w") as fh:
-        fh.write(TRI_LAMP_SCENE % {"w": width, "h": height, "s": spectrum_samples, "b": bounces})
+        fh.write(TRI_LAMP_SCENE % {
+            "w": width, "h": height, "s": spectrum_samples, "b": bounces, "cells": cells})
     return path
 
 
@@ -154,8 +166,34 @@ def scene_paths(directory, width=64, height=32, spectrum_samples=4, bounces=4):
     }
 
 
+def terrain_paths(directory, cells=(405, 660), width=256, height=128, spp=8, bounces=4):
+    """The mesh scenes: tools/synthetic.terrain_scene at the configuration
+    bench.py measured on the TPU (256x128, 8 spp, 4 bounces, S = 4, one
+    light sample; 2 * cells^2 diffuse triangles and one emissive D65
+    sphere; 405 cells make 328,050 triangles, 660 cells 871,200, whose
+    leaves grow past 128 rows to fit the wide tree). Returns
+    {"terrain_<cells>": .lua path}."""
+    sys.path.insert(0, ROOT)
+    from tools.synthetic import terrain_scene
+
+    return {
+        f"terrain_{c}": terrain_scene(directory, cells=c, width=width, height=height, spp=spp,
+                                      bounces=bounces)[0]
+        for c in cells
+    }
+
+
+_SCENES = {}
+
+
 def _gpu_scene(path):
-    """(scene, film, camera, cfg) of a .lua project, built on the GPU."""
+    """(scene, film, camera, cfg) of a .lua project, built on the GPU once."""
+    if path not in _SCENES:
+        _SCENES[path] = _build_gpu_scene(path)
+    return _SCENES[path]
+
+
+def _build_gpu_scene(path):
     from pyrite_tpu_torch._shared.project import load_project
     from pyrite_tpu_torch.film import Film
     from pyrite_tpu_torch.scene import CameraModel, build_scene
@@ -277,6 +315,102 @@ def check_kernels(name, path, lanes=None, bounces=3, seed=0):
     return worst
 
 
+def _prim_t(scene, kind, idx, origin, direction):
+    """t of the given triangle or sphere (tracer kinds) along each ray."""
+    import torch
+
+    from pyrite_tpu_torch import geometry as geom, tracer
+
+    a = scene.arrays
+    ti = torch.clamp(idx, max=a["tri_v0"].shape[0] - 1)
+    si = torch.clamp(idx, max=a["sph_center"].shape[0] - 1)
+    _, t_tri, _, _ = geom.ray_triangle(origin, direction, a["tri_v0"][ti], a["tri_e1"][ti],
+                                       a["tri_e2"][ti])
+    _, t_sph = geom.ray_sphere(origin, direction, a["sph_center"][si], a["sph_radius"][si])
+    return torch.where(kind == tracer.KIND_TRIANGLE, t_tri, t_sph)
+
+
+def _shadow_rays(scene, cfg, origin, direction, hit, rng):
+    """The shadow rays of bounce 0: from each triangle hit (the terrain is
+    diffuse, so every such lane takes NEE) toward its sampled lamp point, as
+    tracer._direct_sample casts them. Returns (origin, direction, max_dist,
+    block_below, squared lamp distance)."""
+    import torch
+
+    from pyrite_tpu_torch import tracer
+
+    lanes = torch.nonzero(hit["kind"] == tracer.KIND_TRIANGLE)[:, 0]
+    n = origin.shape[0]
+    draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
+    position = (origin + direction * hit["t"][:, None])[lanes]
+    samp = tracer.sample_lamp(scene, draws["lamp_idx"].long()[lanes], position,
+                              draws["u_nee"][0][lanes])
+    sq = samp["sq_distance"]
+    block = torch.sqrt(torch.clamp(sq - tracer.DIST_EPSILON, min=0.0))
+    return position, samp["direction"], torch.sqrt(sq), block, sq
+
+
+def check_queries(name, path, lanes=None, seed=0):
+    """Phase 3 for the wide-BVH traversal kernels on one mesh scene, at the
+    main path's wavefront (``lanes`` cuts it): kernels.closest_wide (CUDA)
+    against tracer.intersect_scene (plain, on the card) on the camera rays,
+    t to rtol 1e-6 and idx equal wherever the two winners are not a tie (a
+    tie: both primitives give the same t along the ray); kernels.shadow_wide
+    against tracer.intersect_shadow on the shadow rays of bounce 0, blocked
+    flags exact. Returns the errors and counts."""
+    import torch
+
+    from pyrite_tpu_torch import kernels, tracer
+
+    scene, film, camera, cfg = _gpu_scene(path)
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(seed)
+    origin, direction, _ = _wavefront(film, camera, cfg, rng, lanes)
+    n = origin.shape[0]
+    plain = tracer.intersect_scene(scene, origin, direction)
+    got = kernels.closest_wide(scene, origin, direction)
+    torch.cuda.synchronize()
+    assert torch.isclose(got["t"], plain["t"], rtol=1e-6, atol=0.0).all(), f"{name}: t differs"
+    t_equal = int((got["t"] == plain["t"]).sum())
+    finite = torch.isfinite(plain["t"])
+    t_err = float((got["t"] - plain["t"])[finite].abs().max()) if bool(finite.any()) else 0.0
+    other = (got["idx"] != plain["idx"]) | (got["kind"] != plain["kind"])
+    ties = 0
+    if bool(other.any()):
+        sel = torch.nonzero(other)[:, 0]
+        t_p = _prim_t(scene, plain["kind"][sel], plain["idx"][sel], origin[sel], direction[sel])
+        t_k = _prim_t(scene, got["kind"][sel], got["idx"][sel], origin[sel], direction[sel])
+        assert torch.isclose(t_p, t_k, rtol=1e-6, atol=0.0).all(), (
+            f"{name}: idx differs off ties on {int((~torch.isclose(t_p, t_k, rtol=1e-6)).sum())} lanes"
+        )
+        ties = int(sel.numel())
+    for k in ("u", "v"):
+        assert torch.isclose(got[k], plain[k], rtol=1e-5, atol=1e-6)[~other].all(), f"{name}: {k}"
+
+    so, sd, max_dist, block, sq = _shadow_rays(scene, cfg, origin, direction, plain, rng)
+    t_plain = tracer.intersect_shadow(scene, so, sd, max_dist, block)
+    t_got = kernels.shadow_wide(scene, so, sd, max_dist, block)
+    torch.cuda.synchronize()
+
+    def blocked(t):
+        return torch.isfinite(t) & (t * t < sq - tracer.DIST_EPSILON)
+
+    bad = int((blocked(t_plain) != blocked(t_got)).sum())
+    assert bad == 0, f"{name}: {bad} shadow rays disagree on blocked"
+    both = torch.isfinite(t_plain) & torch.isfinite(t_got)
+    s_err = float((t_got - t_plain)[both].abs().max()) if bool(both.any()) else 0.0
+    print(
+        f"[kernels] {name}: closest_wide on {n} camera rays: hit share "
+        f"{float(finite.float().mean()):.4f}, t equal on {t_equal}/{n} (max abs err {t_err:.3g}, "
+        f"rtol 1e-6), idx/kind differ on {ties} lanes, all ties; shadow_wide on "
+        f"{so.shape[0]} shadow rays of bounce 0: blocked share "
+        f"{float(blocked(t_plain).float().mean()):.4f}, 0 blocked flags differ, t equal on "
+        f"{int((t_got == t_plain).sum())} (max abs err {s_err:.3g}); leaf "
+        f"{scene.cluster_leaf}, {scene.num_triangles} triangles"
+    )
+    return {"closest": t_err, "shadow": s_err, "ties": ties, "n": n, "shadow_n": so.shape[0]}
+
+
 def _event_ms(fn, reps):
     """Mean milliseconds of ``fn`` over ``reps`` calls, by CUDA events."""
     import torch
@@ -290,10 +424,11 @@ def _event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def time_kernels(path, card, seed=1):
+def time_kernels(path, card, seed=1, plain_reps=10):
     """Phase 4: per-launch milliseconds at the first bounce of the main
-    path's wavefront (every lane alive), kernels against the plain version,
-    each timed in the order plain, kernel, kernel, plain after a warm-up."""
+    path's wavefront (every lane alive), the scene's bounce and NEE kernels
+    against the plain version, each timed in the order plain, kernel,
+    kernel, plain after a warm-up."""
     import dataclasses
 
     import torch
@@ -309,50 +444,102 @@ def time_kernels(path, card, seed=1):
     bank = kd.precompute_bank_values(scene, wl)
     draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
     lib = _build.load()
+    bounce_name, nee_name = kd.kernel_names(scene)
+    bounce_fn = getattr(lib, kd._LAUNCHERS[bounce_name])
+    nee_fn = getattr(lib, kd._LAUNCHERS[nee_name])
     b_args, out, ctx = kd.bounce_kernel_args(scene, cfg, wl, state, draws, bank)
-    lib.pyrite_dense_bounce(*b_args)
+    bounce_fn(*b_args)
     n_args = kd.nee_kernel_args(scene, cfg, wl, out, ctx, draws, bank)
     cfg_no_nee = dataclasses.replace(cfg, light_samples=0)
 
     runs = {
-        "dense_bounce_kernel": lambda: lib.pyrite_dense_bounce(*b_args),
-        "dense_nee_kernel": lambda: lib.pyrite_dense_nee(*n_args),
+        bounce_name: lambda: bounce_fn(*b_args),
+        nee_name: lambda: nee_fn(*n_args),
         "bounce_dense": lambda: kd.bounce_dense(scene, cfg, wl, state, draws, bank),
     }
     plains = {
-        "dense_bounce_kernel": lambda: tracer.bounce_core(scene, cfg_no_nee, wl, state, draws),
-        "dense_nee_kernel": lambda: tracer.trace_direct(
+        bounce_name: lambda: tracer.bounce_core(scene, cfg_no_nee, wl, state, draws),
+        nee_name: lambda: tracer.trace_direct(
             scene, cfg, draws, ctx["nee"], out["origin"], ctx["flip"], -ctx["flip"], wl,
             ctx["refl_nee"], out["aux_alive"],
         ),
         "bounce_dense": lambda: tracer.bounce_core(scene, cfg, wl, state, draws),
     }
+    return _time_pairs(runs, plains, plain_reps, (
+        f"per bounce at {n} lanes, S={wl.shape[1]}, light_samples={cfg.light_samples} ({card})"
+    ))
+
+
+def _time_pairs(runs, plains, plain_reps, what):
+    """Mean ms of each kernel run and of its plain version, in the order
+    plain, kernel, kernel, plain after a warm-up; {key: (kernel, plain)}."""
+    import torch
+
     times = {}
     for key in runs:
         for fn in (runs[key], plains[key]):
-            for _ in range(3):
+            for _ in range(2):
                 fn()
         torch.cuda.synchronize()
-        p1 = _event_ms(plains[key], 10)
+        p1 = _event_ms(plains[key], plain_reps)
         k1 = _event_ms(runs[key], 50)
         k2 = _event_ms(runs[key], 50)
-        p2 = _event_ms(plains[key], 10)
+        p2 = _event_ms(plains[key], plain_reps)
         times[key] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        print(
-            f"[times] {key}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms per "
-            f"bounce at {n} lanes, S={wl.shape[1]}, light_samples={cfg.light_samples} ({card})"
-        )
+        print(f"[times] {key}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms {what}")
     return times
 
 
-def render_end_to_end(path, samples, card, out_dir):
+def time_queries(path, card, seed=1, plain_reps=3):
+    """Phase 4 for the traversal kernels: closest_wide on the main path's
+    camera wavefront and shadow_wide on its shadow rays of bounce 0, against
+    tracer.intersect_scene / intersect_shadow."""
+    import torch
+
+    from pyrite_tpu_torch import kernels, tracer
+
+    scene, film, camera, cfg = _gpu_scene(path)
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(seed)
+    origin, direction, _ = _wavefront(film, camera, cfg, rng)
+    hit = tracer.intersect_scene(scene, origin, direction)
+    so, sd, max_dist, block, _ = _shadow_rays(scene, cfg, origin, direction, hit, rng)
+    runs = {
+        "wide_closest_kernel": lambda: kernels.closest_wide(scene, origin, direction),
+        "wide_shadow_kernel": lambda: kernels.shadow_wide(scene, so, sd, max_dist, block),
+    }
+    plains = {
+        "wide_closest_kernel": lambda: tracer.intersect_scene(scene, origin, direction),
+        "wide_shadow_kernel": lambda: tracer.intersect_shadow(scene, so, sd, max_dist, block),
+    }
+    return _time_pairs(runs, plains, plain_reps, (
+        f"per query, {origin.shape[0]} camera rays / {so.shape[0]} shadow rays ({card})"
+    ))
+
+
+def _zero_counts():
+    from pyrite_tpu_torch import kernels, kernels_dense as kd, tracer
+
+    for counts in (kd.launches, kernels.launches, tracer.launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def _read_counts():
+    from pyrite_tpu_torch import kernels, kernels_dense as kd, tracer
+
+    return dict(kd.launches, **kernels.launches, **tracer.launches)
+
+
+def render_end_to_end(path, samples, card, out_dir, kernels=("dense_bounce_kernel", "dense_nee_kernel")):
     """Phase 5: the CLI on the GPU; checks the PNG, the film and that every
-    bounce went through the CUDA kernels. Returns the launch counts."""
+    bounce went through the scene's CUDA ``kernels`` (bounce, NEE). Returns
+    the launch counts of the run."""
     import numpy as np
     import torch
     from PIL import Image
 
-    from pyrite_tpu_torch import cli, kernels_dense as kd, tracer
+    from pyrite_tpu_torch import cli
     from pyrite_tpu_torch.renderers import simple
 
     result = {}
@@ -368,14 +555,12 @@ def render_end_to_end(path, samples, card, out_dir):
 
     out_png = os.path.join(out_dir, os.path.basename(path) + ".png")
     simple.render = recording_render
-    for counts in (kd.launches, tracer.launches):
-        for k in counts:
-            counts[k] = 0
+    _zero_counts()
     try:
         rc = cli.main([path, "--samples", str(samples), "--device", "cuda", "--output", out_png])
     finally:
         simple.render = render
-    launches = dict(kd.launches, **tracer.launches)
+    launches = _read_counts()
     assert rc == 0, f"cli.main returned {rc}"
     film, acc, wt = result["film"], result["acc"], result["wt"]
     assert bool(torch.isfinite(acc).all() and torch.isfinite(wt).all()), "film is not finite"
@@ -384,8 +569,8 @@ def render_end_to_end(path, samples, card, out_dir):
     assert pixels.shape == (film.height, film.width, 3), pixels.shape
     assert pixels.max() > 0, "the image is all black"
     bounces = launches["bounces"]
-    assert bounces > 0 and launches["dense_bounce_kernel"] == bounces, launches
-    assert launches["dense_nee_kernel"] == bounces, launches
+    assert bounces > 0 and launches[kernels[0]] == bounces, launches
+    assert launches[kernels[1]] == bounces, launches
     assert launches["bounce_core"] == 0, launches
     project = cli.load_project(path).project
     r = project.renderer
@@ -393,8 +578,44 @@ def render_end_to_end(path, samples, card, out_dir):
     print(
         f"[end-to-end] {os.path.basename(path)} {film.width}x{film.height}, {samples} spp, "
         f"S={r.spectrum_samples}, {r.bounces} bounces: {rays / result['seconds'] / 1e6:.3f} "
-        f"Mrays/s, render wall {result['seconds']:.3f} s ({card}); launches {launches}; "
+        f"Mrays/s nominal, render wall {result['seconds']:.3f} s ({card}); launches {launches}; "
         f"image mean {pixels.mean():.2f}/255"
+    )
+    return launches
+
+
+def drive_queries(path, card, seed=2):
+    """Phase 5, the mesh ray-query path: one render step's camera rays of a
+    mesh scene through kernels.closest_wide and their shadow rays of bounce
+    0 through kernels.shadow_wide, on the card. Checks the hits are finite
+    and real and returns the launch counts of the run."""
+    import torch
+
+    from pyrite_tpu_torch import kernels, tracer
+
+    scene, film, camera, cfg = _gpu_scene(path)
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(seed)
+    origin, direction, _ = _wavefront(film, camera, cfg, rng)
+    _zero_counts()
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    hit = kernels.closest_wide(scene, origin, direction)
+    so, sd, max_dist, block, sq = _shadow_rays(scene, cfg, origin, direction, hit, rng)
+    t = kernels.shadow_wide(scene, so, sd, max_dist, block)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - started
+    launches = _read_counts()
+    found = hit["kind"] != tracer.KIND_NONE
+    assert bool(found.any()) and bool(torch.isfinite(hit["t"][found]).all()), "no camera ray hit"
+    assert bool(((hit["t"] > 0) | ~found).all()), "a hit at t <= 0"
+    blocked = torch.isfinite(t) & (t * t < sq - tracer.DIST_EPSILON)
+    assert launches["wide_closest_kernel"] == 1 and launches["wide_shadow_kernel"] == 1, launches
+    print(
+        f"[queries] {os.path.basename(path)}: {origin.shape[0]} camera rays (hit share "
+        f"{float(found.float().mean()):.4f}) and {so.shape[0]} shadow rays (blocked share "
+        f"{float(blocked.float().mean()):.4f}) in {seconds * 1e3:.3f} ms wall ({card}); "
+        f"launches {launches}"
     )
     return launches
 
@@ -426,31 +647,45 @@ def main():
 
     with tempfile.TemporaryDirectory() as tmp:
         paths = scene_paths(tmp, width=512, height=256, spectrum_samples=6, bounces=8)
+        mesh = terrain_paths(tmp)
         worst = {name: check_kernels(name, p) for name, p in paths.items()}
+        worst_wide = check_kernels("terrain_405", mesh["terrain_405"])
+        queries = {name: check_queries(name, p) for name, p in mesh.items()}
         times = time_kernels(paths["flagship"], smi)
-        launches = [render_end_to_end(paths["flagship"], 16, smi, tmp),
-                    render_end_to_end(paths["prism"], 8, smi, tmp)]
+        times.update(time_kernels(mesh["terrain_405"], smi, plain_reps=2))
+        times.update(time_queries(mesh["terrain_405"], smi))
+        time_queries(mesh["terrain_660"], smi)  # printed: the larger leaf's cost
+        dense_runs = [render_end_to_end(paths["flagship"], 16, smi, tmp),
+                      render_end_to_end(paths["prism"], 8, smi, tmp)]
+        mesh_run = render_end_to_end(mesh["terrain_405"], 8, smi, tmp,
+                                     ("wide_bounce_kernel", "wide_nee_kernel"))
+        query_run = drive_queries(mesh["terrain_405"], smi)
 
-    def total(key):
-        return sum(l[key] for l in launches)
+    def kernel(name, source, replaces, launches, err):
+        return {
+            "name": name, "route": "cuda", "source": f"pyrite_tpu_torch/csrc/{source}",
+            "replaces": replaces, "launches": launches, "max_abs_err": err,
+            "ms": times[name][0], "plain_ms": times[name][1],
+        }
 
-    source = "pyrite_tpu_torch/csrc/dense_bounce.cu"
+    dense_total = lambda key: sum(run[key] for run in dense_runs)
+    queried = queries.values()
     kernels = [
-        {
-            "name": "dense_bounce_kernel", "route": "cuda", "source": source,
-            "replaces": "pyrite_tpu/kernels_dense.py:717",
-            "launches": total("dense_bounce_kernel"),
-            "max_abs_err": max(max(w["bounce"], w["brightness"]) for w in worst.values()),
-            "ms": times["dense_bounce_kernel"][0], "plain_ms": times["dense_bounce_kernel"][1],
-        },
-        {
-            "name": "dense_nee_kernel", "route": "cuda", "source": source,
-            "replaces": "pyrite_tpu/kernels_dense.py:909",
-            "launches": total("dense_nee_kernel"),
-            "max_abs_err": max(w["nee"] for w in worst.values()),
-            "ms": times["dense_nee_kernel"][0], "plain_ms": times["dense_nee_kernel"][1],
-        },
+        kernel("dense_bounce_kernel", "bounce.cu", "pyrite_tpu/kernels_dense.py:717",
+               dense_total("dense_bounce_kernel"),
+               max(max(w["bounce"], w["brightness"]) for w in worst.values())),
+        kernel("dense_nee_kernel", "bounce.cu", "pyrite_tpu/kernels_dense.py:909",
+               dense_total("dense_nee_kernel"), max(w["nee"] for w in worst.values())),
+        kernel("wide_closest_kernel", "wide_bvh.cu", "pyrite_tpu/kernels.py:541",
+               query_run["wide_closest_kernel"], max(q["closest"] for q in queried)),
+        kernel("wide_shadow_kernel", "wide_bvh.cu", "pyrite_tpu/kernels.py:593",
+               query_run["wide_shadow_kernel"], max(q["shadow"] for q in queried)),
+        kernel("wide_bounce_kernel", "bounce.cu", "pyrite_tpu/kernels.py:125",
+               mesh_run["wide_bounce_kernel"], max(worst_wide["bounce"], worst_wide["brightness"])),
+        kernel("wide_nee_kernel", "bounce.cu", "pyrite_tpu/kernels.py:337",
+               mesh_run["wide_nee_kernel"], worst_wide["nee"]),
     ]
+    assert all(k["launches"] > 0 for k in kernels), kernels
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,10 +1,11 @@
 """Build and load the CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles every ``csrc/*.cu`` into one shared library with a plain C
-interface, for ``sm_90a``, at first CUDA use; ``ctypes`` loads it. The
-library goes to ``_build/<hash of the sources>/``, so a change to a source
-rebuilds. Nothing here links against PyTorch: pointers and the stream are
-passed as integers.
+At first CUDA use, one ``nvcc`` per ``csrc/*.cu`` compiles it for
+``sm_90a`` (all of them at once, in parallel), and a last ``nvcc`` links the
+objects into one shared library with a plain C interface, which ``ctypes``
+loads. The library goes to ``_build/<hash of the sources>/``, so a change to
+a source or header rebuilds. Nothing here links against PyTorch: pointers
+and the stream are passed as integers.
 """
 
 from __future__ import annotations
@@ -25,17 +26,25 @@ DEFAULT_CUDA_HOME = "/usr/local/cuda"
 # multiply-add), as in the plain PyTorch version the kernels are held to
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
 ]
 
 _lib = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# argument lists of the extern "C" launchers in csrc/dense_bounce.cu
+_BOUNCE = [_P] * 30 + [_I] * 4
+_NEE = [_P] * 16 + [_I] * 4 + [ctypes.c_float]
+_WIDE = [_P] * 6 + [_I]  # the mesh scene's tables and its leaf size
+# argument lists of the extern "C" launchers in csrc/bounce.cu and
+# csrc/wide_bvh.cu
 _SIGNATURES = {
-    "pyrite_dense_bounce": [_P] * 30 + [_I] * 4 + [_P],
-    "pyrite_dense_nee": [_P] * 16 + [_I] * 4 + [ctypes.c_float, _P],
+    "pyrite_dense_bounce": _BOUNCE + [_P],
+    "pyrite_dense_nee": _NEE + [_P],
+    "pyrite_wide_bounce": _BOUNCE + _WIDE + [_P],
+    "pyrite_wide_nee": _NEE + _WIDE + [_P],
+    "pyrite_wide_closest": [_P] * 4 + [_I] + [_P] * 12 + [_I, _P],
+    "pyrite_wide_shadow": [_P] * 4 + [_I] + [_P] * 5 + [_I, _P],
 }
 
 
@@ -76,17 +85,34 @@ def load():
                 "nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, "
                 f"{DEFAULT_CUDA_HOME} and PATH): the CUDA kernels cannot be built"
             )
-        os.makedirs(os.path.dirname(so), exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=os.path.dirname(so))
-        os.close(fd)
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, *[p for p in sources() if p.endswith(".cu")]],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, so)
+        out_dir = os.path.dirname(so)
+        os.makedirs(out_dir, exist_ok=True)
+        tmp = tempfile.mkdtemp(dir=out_dir)
+        units = [p for p in sources() if p.endswith(".cu")]
+        objs = [os.path.join(tmp, os.path.basename(p) + ".o") for p in units]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", obj, unit],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for unit, obj in zip(units, objs)
+        ]
+        outputs = [p.communicate()[0] for p in procs]
+        failed = [(p.args, out) for p, out in zip(procs, outputs) if p.returncode != 0]
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *NVCC_FLAGS, "-shared", "-o", os.path.join(tmp, "lib.so"), *objs],
+                capture_output=True, text=True,
+            )
+            if link.returncode != 0:
+                failed = [(link.args, link.stdout + link.stderr)]
+        if failed:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise RuntimeError(
+                "nvcc failed:\n" + "\n".join(f"{' '.join(a)}\n{out}" for a, out in failed)
+            )
+        os.replace(os.path.join(tmp, "lib.so"), so)
+        shutil.rmtree(tmp, ignore_errors=True)
     lib = ctypes.CDLL(so)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,97 +1,43 @@
-// Dense-scene bounce and next-event-estimation kernels for Hopper (sm_90a).
+// Bounce and next-event-estimation kernels for Hopper (sm_90a), for dense
+// scenes and for mesh scenes.
 //
 // One thread owns one wavefront lane for a whole kernel: a 1-D grid over the
 // N lanes with a masked tail. The scene is the [R, 128] f32 "sheet" that
-// kernels_dense.build_pack lays out (one 128-wide row per table: primitive
-// channels in rows 0..21, then plane, material, component, lamp and
-// emissive tables), read from global memory through const __restrict__
-// pointers; `meta` gives each table's row (or a count), in the order of
-// kernels_dense.META_FIELDS. Per-lane state keeps the layout of the plain
-// version (tracer.bounce_core): [N, 3] vectors, [N, S] spectra, bool flags
-// as bytes, so the wrapper hands the same tensors to either.
+// kernels_dense.build_pack lays out (one 128-wide row per table: on a dense
+// scene the primitive channels in rows 0..21, then plane, material,
+// component, lamp and emissive tables), read from global memory through
+// const __restrict__ pointers; `meta` gives each table's row (or a count),
+// in the order of kernels_dense.META_FIELDS. Per-lane state keeps the layout
+// of the plain version (tracer.bounce_core): [N, 3] vectors, [N, S] spectra,
+// bool flags as bytes, so the wrapper hands the same tensors to either.
+//
+// The shading code is written once, for a geometry policy: DenseGeo sweeps
+// the sheet's <= 128 primitives (dense_bounce_kernel, dense_nee_kernel);
+// WideGeo walks the clustered wide BVH of csrc/wide_bvh.cuh and reads
+// surface data from the flat triangle and sphere tables (wide_bounce_kernel,
+// wide_nee_kernel).
 //
 // Numerics follow tracer.bounce_core's op order: IEEE sqrtf and division
 // (no fast math), c^5 as c^2 * c^2 * c, and the reflectance before the BRDF
 // factor feeds NEE. _build.py compiles with --fmad=false, so every product
 // is rounded before it is added, as in the plain version's separate ops:
-// hit-or-miss decisions on grazing rays then agree lane for lane. The kernels compute what the plain version computes,
-// lane by lane; the only intended difference is the arccos-free uniform
-// sphere direction (cos(arccos(x)) = x, sin(arccos(x)) = sqrt(1 - x^2)).
+// hit-or-miss decisions on grazing rays then agree lane for lane. The
+// kernels compute what the plain version computes, lane by lane; the only
+// intended difference is the arccos-free uniform sphere direction
+// (cos(arccos(x)) = x, sin(arccos(x)) = sqrt(1 - x^2)).
 
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stddef.h>
-#include <stdint.h>
+#include "common.cuh"
+#include "wide_bvh.cuh"
 
 namespace {
 
-constexpr int SHEET_W = 128;
 constexpr int PROG_STACK = 8;  // exprs.PROG_STACK
-constexpr int BLOCK = 128;
-constexpr float DIST_EPSILON = 1e-4f;
-constexpr float PI_F = 3.14159265358979323846f;
-
-// kernels_dense.META_FIELDS, in order: counts first, then sheet rows (-1
-// where the scene has no such table).
-enum Meta {
-  M_N_PRIMS, M_N_PLANES,
-  M_PLA_NX, M_PLA_NY, M_PLA_NZ, M_PLA_D, M_PLA_MAT,
-  M_MAT_COMP_COUNT, M_MAT_COMP_OFFSET, M_MAT_EMIS_COUNT, M_MAT_EMIS_OFFSET,
-  M_COMP_BSDF, M_COMP_COLOR, M_COMP_PROB, M_COMP_PROB_USES_WL, M_COMP_SELECTION,
-  M_COMP_IOR, M_COMP_DISP, M_COMP_ENV_IOR, M_COMP_ENV_DISP,
-  M_LAMP_TYPE, M_LAMP_VX, M_LAMP_VY, M_LAMP_VZ, M_LAMP_REF, M_LAMP_COLOR,
-  M_LSPH_CX, M_LSPH_CY, M_LSPH_CZ, M_LSPH_R, M_LSPH_MAT,
-  M_LTRI_V0X, M_LTRI_V0Y, M_LTRI_V0Z, M_LTRI_E1X, M_LTRI_E1Y, M_LTRI_E1Z,
-  M_LTRI_E2X, M_LTRI_E2Y, M_LTRI_E2Z,
-  M_LTRI_N0X, M_LTRI_N0Y, M_LTRI_N0Z, M_LTRI_N1X, M_LTRI_N1Y, M_LTRI_N1Z,
-  M_LTRI_N2X, M_LTRI_N2Y, M_LTRI_N2Z, M_LTRI_MAT,
-  M_EMIS_COMP, M_EMIS_SELECTION,
-  M_COUNT
-};
 
 // exprs.OP_* (postfix probability programs)
 enum Op { OP_CONST, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MIX, OP_CLAMP, OP_FRESNEL };
 
-enum { KIND_NONE = 0, KIND_TRIANGLE = 1, KIND_SPHERE = 2, KIND_PLANE = 3 };
-enum { PRIM_TRIANGLE = 0, PRIM_SPHERE = 1 };
 enum { BSDF_EMISSIVE = 0, BSDF_DIFFUSE = 1, BSDF_MIRROR = 2, BSDF_REFRACTIVE = 3 };
 enum { LAMP_POINT = 1, LAMP_SPHERE = 2, LAMP_TRIANGLE = 3 };
-
-struct V3 {
-  float x, y, z;
-};
-
-__device__ __forceinline__ V3 operator+(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
-__device__ __forceinline__ V3 operator-(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }
-__device__ __forceinline__ V3 operator-(V3 a) { return {-a.x, -a.y, -a.z}; }
-__device__ __forceinline__ V3 operator*(V3 a, float s) { return {a.x * s, a.y * s, a.z * s}; }
-__device__ __forceinline__ float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-__device__ __forceinline__ V3 cross(V3 a, V3 b) {
-  return {a.y * b.z - a.z * b.y, a.z * b.x - a.x * b.z, a.x * b.y - a.y * b.x};
-}
-__device__ __forceinline__ V3 normalize(V3 v) {
-  float len = sqrtf(fmaxf(dot(v, v), 1e-20f));
-  return {v.x / len, v.y / len, v.z / len};
-}
-__device__ __forceinline__ V3 load3(const float* __restrict__ p, int lane) {
-  return {p[3 * lane], p[3 * lane + 1], p[3 * lane + 2]};
-}
-__device__ __forceinline__ void store3(float* __restrict__ p, int lane, V3 v) {
-  p[3 * lane] = v.x;
-  p[3 * lane + 1] = v.y;
-  p[3 * lane + 2] = v.z;
-}
-
-// The scene: sheet rows by meta field, primitive channels by fixed row.
-struct Sheet {
-  const float* __restrict__ p;
-  const int* __restrict__ meta;
-  __device__ __forceinline__ int count(int field) const { return meta[field]; }
-  __device__ __forceinline__ float at(int field, int i) const { return p[meta[field] * SHEET_W + i]; }
-  __device__ __forceinline__ int iat(int field, int i) const { return (int)at(field, i); }
-  __device__ __forceinline__ float row(int r, int i) const { return p[r * SHEET_W + i]; }
-  __device__ __forceinline__ V3 row3(int r, int i) const { return {row(r, i), row(r + 1, i), row(r + 2, i)}; }
-};
 
 // Per-launch program values and postfix code (kernels_dense.precompute_bank_values,
 // exprs.lower_ray_program).
@@ -139,98 +85,95 @@ __device__ __forceinline__ V3 sample_cone(float u1, float u2, V3 dir, float cos_
   return o1 * (cosf(r1) * oneminus) + o2 * (sinf(r1) * oneminus) + dir * r2;
 }
 
-// Moller-Trumbore (geometry.ray_triangle)
-__device__ __forceinline__ bool ray_triangle(V3 o, V3 d, V3 v0, V3 e1, V3 e2, float& t, float& u,
-                                             float& v) {
-  V3 p = cross(d, e2);
-  float det = dot(e1, p);
-  bool ok = fabsf(det) > DIST_EPSILON;
-  float inv_det = 1.0f / (ok ? det : 1.0f);
-  V3 tv = o - v0;
-  u = dot(tv, p) * inv_det;
-  ok = ok && u >= 0.0f && u <= 1.0f;
-  V3 q = cross(tv, e1);
-  v = dot(d, q) * inv_det;
-  ok = ok && v >= 0.0f && u + v <= 1.0f;
-  t = dot(e2, q) * inv_det;
-  return ok && t > DIST_EPSILON;
-}
+// DenseGeo: the sheet's primitive channels (rows 0..21), swept in column
+// order. Closest hit: planes, then the primitives; a strict comparison keeps
+// the lowest index on ties (intersect_scene's first-min).
+struct DenseGeo {
+  __device__ __forceinline__ Hit closest(const Sheet& sh, V3 o, V3 d) const {
+    Hit h = {INFINITY, KIND_NONE, 0, 0.0f, 0.0f};
+    plane_hit(sh, o, d, h);
+    const int n_prims = sh.count(M_N_PRIMS);
+    for (int j = 0; j < n_prims; ++j) {
+      float kind = sh.row(10, j);
+      V3 c = sh.row3(0, j);
+      float t, u, v;
+      if (kind == PRIM_TRIANGLE) {
+        if (ray_triangle(o, d, c, sh.row3(3, j), sh.row3(6, j), t, u, v) && t < h.t)
+          h = {t, KIND_TRIANGLE, j, u, v};
+      } else if (kind == PRIM_SPHERE) {
+        if (ray_sphere(o, d, c, sh.row(9, j), t) && t < h.t) h = {t, KIND_SPHERE, j, h.u, h.v};
+      }
+    }
+    return h;
+  }
 
-// nearest root > eps, else the far root (geometry.ray_sphere)
-__device__ __forceinline__ bool ray_sphere(V3 o, V3 d, V3 c, float radius, float& t) {
-  V3 l = c - o;
-  float tca = dot(l, d);
-  float d2 = dot(l, l) - tca * tca;
-  float r2 = radius * radius;
-  bool ok = d2 <= r2;
-  float thc = sqrtf(fmaxf(r2 - d2, 0.0f));
-  float t0 = tca - thc;
-  float t1 = tca + thc;
-  t = t0 > DIST_EPSILON ? t0 : t1;
-  return ok && t > DIST_EPSILON;
-}
+  // Nearest occluder along a shadow ray, starting from the lamp distance
+  // (tracer.intersect_shadow): unoccluded rays return t0. A dense sweep
+  // tests everything and has no use for the occlusion bound.
+  __device__ __forceinline__ float shadow(const Sheet& sh, V3 o, V3 d, float t0, float) const {
+    float best = plane_shadow(sh, o, d, t0);
+    const int n_prims = sh.count(M_N_PRIMS);
+    for (int j = 0; j < n_prims; ++j) {
+      float kind = sh.row(10, j);
+      V3 c = sh.row3(0, j);
+      float t, u, v;
+      if (kind == PRIM_TRIANGLE) {
+        if (ray_triangle(o, d, c, sh.row3(3, j), sh.row3(6, j), t, u, v)) best = fminf(best, t);
+      } else if (kind == PRIM_SPHERE) {
+        if (ray_sphere(o, d, c, sh.row(9, j), t)) best = fminf(best, t);
+      }
+    }
+    return best;
+  }
 
-__device__ __forceinline__ bool ray_plane(const Sheet& sh, int j, V3 o, V3 d, float& t) {
-  V3 n = {sh.at(M_PLA_NX, j), sh.at(M_PLA_NY, j), sh.at(M_PLA_NZ, j)};
-  float denom = dot(n, d);
-  bool ok = fabsf(denom) > 1e-12f;
-  t = (sh.at(M_PLA_D, j) - dot(n, o)) / (ok ? denom : 1.0f);
-  return ok && t > DIST_EPSILON;
-}
-
-struct Hit {
-  float t;
-  int kind;
-  int j;  // plane index or sheet primitive column
-  float u, v;
+  // normal and material of a triangle or sphere hit (tracer.surface_data)
+  __device__ __forceinline__ void surface(const Sheet& sh, const Hit& h, V3 pos, V3& normal,
+                                          int& mat) const {
+    if (h.kind == KIND_TRIANGLE) {
+      const float w = 1.0f - h.u - h.v;
+      normal = normalize(sh.row3(13, h.j) * w + sh.row3(16, h.j) * h.u + sh.row3(19, h.j) * h.v);
+    } else {
+      normal = normalize(pos - sh.row3(0, h.j));
+    }
+    mat = (int)sh.row(12, h.j);
+  }
 };
 
-// Closest hit: planes, then the sheet's primitives in order; a strict
-// comparison keeps the lowest index on ties (intersect_scene's first-min).
-__device__ Hit closest_hit(const Sheet& sh, V3 o, V3 d) {
-  Hit h = {INFINITY, KIND_NONE, 0, 0.0f, 0.0f};
-  const int n_planes = sh.count(M_N_PLANES);
-  for (int j = 0; j < n_planes; ++j) {
-    float t;
-    if (ray_plane(sh, j, o, d, t) && t < h.t) h = {t, KIND_PLANE, j, h.u, h.v};
-  }
-  const int n_prims = sh.count(M_N_PRIMS);
-  for (int j = 0; j < n_prims; ++j) {
-    float kind = sh.row(10, j);
-    V3 c = sh.row3(0, j);
-    float t, u, v;
-    if (kind == PRIM_TRIANGLE) {
-      if (ray_triangle(o, d, c, sh.row3(3, j), sh.row3(6, j), t, u, v) && t < h.t)
-        h = {t, KIND_TRIANGLE, j, u, v};
-    } else if (kind == PRIM_SPHERE) {
-      if (ray_sphere(o, d, c, sh.row(9, j), t) && t < h.t) h = {t, KIND_SPHERE, j, h.u, h.v};
-    }
-  }
-  return h;
-}
+// WideGeo: the clustered wide BVH (csrc/wide_bvh.cuh) after the planes,
+// and surface data from the flat tables by (kind, table index).
+struct WideGeo {
+  WideBvh bvh;
+  const float* __restrict__ tri_n;       // [T, 3, 3] vertex normals
+  const int* __restrict__ tri_mat;       // [T]
+  const float* __restrict__ sph_center;  // [S, 3]
+  const int* __restrict__ sph_mat;       // [S]
 
-// Nearest occluder along a shadow ray, starting from the lamp distance
-// (tracer.intersect_shadow): unoccluded rays return t0.
-__device__ float shadow_t(const Sheet& sh, V3 o, V3 d, float t0) {
-  float best = t0;
-  const int n_planes = sh.count(M_N_PLANES);
-  for (int j = 0; j < n_planes; ++j) {
-    float t;
-    if (ray_plane(sh, j, o, d, t)) best = fminf(best, t);
+  __device__ __forceinline__ Hit closest(const Sheet& sh, V3 o, V3 d) const {
+    Hit h = {INFINITY, KIND_NONE, 0, 0.0f, 0.0f};
+    plane_hit(sh, o, d, h);
+    wide_closest(bvh, o, d, h);
+    return h;
   }
-  const int n_prims = sh.count(M_N_PRIMS);
-  for (int j = 0; j < n_prims; ++j) {
-    float kind = sh.row(10, j);
-    V3 c = sh.row3(0, j);
-    float t, u, v;
-    if (kind == PRIM_TRIANGLE) {
-      if (ray_triangle(o, d, c, sh.row3(3, j), sh.row3(6, j), t, u, v)) best = fminf(best, t);
-    } else if (kind == PRIM_SPHERE) {
-      if (ray_sphere(o, d, c, sh.row(9, j), t)) best = fminf(best, t);
+
+  __device__ __forceinline__ float shadow(const Sheet& sh, V3 o, V3 d, float t0,
+                                          float block_below) const {
+    return wide_shadow(bvh, o, d, plane_shadow(sh, o, d, t0), block_below);
+  }
+
+  __device__ __forceinline__ void surface(const Sheet&, const Hit& h, V3 pos, V3& normal,
+                                          int& mat) const {
+    if (h.kind == KIND_TRIANGLE) {
+      const float w = 1.0f - h.u - h.v;
+      const float* n = tri_n + (size_t)h.j * 9;
+      normal = normalize(V3{n[0], n[1], n[2]} * w + V3{n[3], n[4], n[5]} * h.u +
+                         V3{n[6], n[7], n[8]} * h.v);
+      mat = tri_mat[h.j];
+    } else {
+      normal = normalize(pos - load3(sph_center, h.j));
+      mat = sph_mat[h.j];
     }
   }
-  return best;
-}
+};
 
 __device__ __forceinline__ float pow5(float x) {
   float x2 = x * x;
@@ -331,13 +274,14 @@ struct BounceArgs {
   int n, s, light_samples;
 };
 
-// Replaces kernels_dense.py `_make_kernels.bounce_kernel` (pyrite_tpu, the
-// Pallas TPU kernel): one bounce of tracer.bounce_core per lane, minus the
-// NEE contribution (dense_nee_kernel adds it). Closest hit over the planes
-// and the <= 128 sheet primitives, miss -> sky, uniform component pick,
-// probability programs, diffuse/mirror/refractive scatter with Cauchy
-// dispersion, emission, reflectance update, NEE eligibility.
+// One bounce of tracer.bounce_core per lane, minus the NEE contribution
+// (the NEE kernel adds it): closest hit (the planes, then the geometry
+// policy), miss -> sky, uniform component pick, probability programs,
+// diffuse/mirror/refractive scatter with Cauchy dispersion, emission,
+// reflectance update, NEE eligibility.
 //
+// dense_bounce_kernel replaces pyrite_tpu/kernels_dense.py
+// `_make_kernels.bounce_kernel` (:717, the Pallas TPU kernel).
 // What bounds it on an H100: per lane it reads and writes its state, about
 // (2 * 6 + 3) * 4 + 3 bytes of vectors and flags plus 4 * S bytes for each
 // of brightness, reflectance, wavelengths, sky and each color program, and
@@ -349,7 +293,14 @@ struct BounceArgs {
 // element at the same time, a broadcast), keeps all per-lane scalars in
 // registers, and touches each state element once; lanes that are dead copy
 // their state through and exit before the sweep.
-__global__ void __launch_bounds__(BLOCK) dense_bounce_kernel(const BounceArgs a) {
+//
+// wide_bounce_kernel runs the same code over a mesh scene; the TPU package
+// ran that bounce as XLA ops around its walk and sweep kernels
+// (pyrite_tpu/kernels.py:125, :337, :541), which live on here as the device
+// functions of csrc/wide_bvh.cuh. Its cost is the closest-hit walk's (see
+// there); the shading around it is the dense kernel's ~250 bytes per lane.
+template <class Geo>
+__device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.n) return;
   const int n = a.n, s = a.s;
@@ -374,7 +325,7 @@ __global__ void __launch_bounds__(BLOCK) dense_bounce_kernel(const BounceArgs a)
   }
 
   if (alive) {
-    const Hit h = closest_hit(sh, o, d);
+    const Hit h = geo.closest(sh, o, d);
     if (h.kind == KIND_NONE) {
       // miss: sky (directional lamps are gated out of the pack)
       for (int k = 0; k < s; ++k)
@@ -387,13 +338,8 @@ __global__ void __launch_bounds__(BLOCK) dense_bounce_kernel(const BounceArgs a)
       if (h.kind == KIND_PLANE) {
         normal = {sh.at(M_PLA_NX, h.j), sh.at(M_PLA_NY, h.j), sh.at(M_PLA_NZ, h.j)};
         mat = sh.iat(M_PLA_MAT, h.j);
-      } else if (h.kind == KIND_TRIANGLE) {
-        const float w = 1.0f - h.u - h.v;
-        normal = normalize(sh.row3(13, h.j) * w + sh.row3(16, h.j) * h.u + sh.row3(19, h.j) * h.v);
-        mat = (int)sh.row(12, h.j);
       } else {
-        normal = normalize(pos - sh.row3(0, h.j));
-        mat = (int)sh.row(12, h.j);
+        geo.surface(sh, h, pos, normal, mat);
       }
 
       // uniform component choice (materials/mod.rs:48-54)
@@ -572,10 +518,9 @@ __device__ LampSample sample_lamp(const Sheet& sh, int li, V3 p, float u0, float
   return ls;
 }
 
-// Replaces kernels_dense.py `_make_kernels.nee_kernel` (pyrite_tpu, the
-// Pallas TPU kernel): tracer.trace_direct for the lanes the bounce kernel
-// marked. Per light sample: sample_lamp, a shadow sweep over the planes and
-// sheet primitives seeded at the lamp distance, the emissive component pick,
+// tracer.trace_direct for the lanes the bounce kernel marked. Per light
+// sample: sample_lamp, a shadow query (the planes, then the geometry policy)
+// seeded at the lamp distance, the emissive component pick,
 // the lamp's probability and color programs, and the contribution added to
 // the lane's brightness. The TPU kernel revisited its output block across
 // a grid axis of light samples; here the thread owns its lane and loops.
@@ -587,7 +532,18 @@ __device__ LampSample sample_lamp(const Sheet& sh, int li, V3 p, float u0, float
 // Lanes that take no NEE (dead, missed, emissive, specular, or past two
 // diffuse events) exit after one byte; on deep bounces that is most lanes,
 // so the kernel's cost follows the diffuse share of the wavefront.
-__global__ void __launch_bounds__(BLOCK) dense_nee_kernel(const NeeArgs a) {
+//
+// dense_nee_kernel replaces pyrite_tpu/kernels_dense.py
+// `_make_kernels.nee_kernel` (:909, the Pallas TPU kernel), whose output
+// block was revisited across a grid axis of light samples; here the thread
+// owns its lane and loops. wide_nee_kernel runs the same code over a mesh
+// scene, where the shadow query is the any-hit walk of csrc/wide_bvh.cuh
+// (it replaces the TPU sweep at pyrite_tpu/kernels.py:593 with the walk of
+// :125 and :337) and stops at the first leaf that leaves t under the
+// occlusion bound sqrt(max(d^2 - eps, 0)) (tracer.py:1269-1270): a ray to
+// the lamp that is blocked for sure needs no nearer blocker.
+template <class Geo>
+__device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= a.n || !a.nee[lane]) return;
   const int n = a.n, s = a.s;
@@ -603,7 +559,8 @@ __global__ void __launch_bounds__(BLOCK) dense_nee_kernel(const NeeArgs a) {
     const float* u = a.u_nee + ((size_t)j * n + lane) * 4;
     const LampSample ls = sample_lamp(sh, li, p, u[0], u[1]);
     if (!(fmaxf(dot(flip, ls.dir), 0.0f) > 0.0f)) continue;
-    const float t = shadow_t(sh, p, ls.dir, sqrtf(ls.sq_distance));
+    const float t = geo.shadow(sh, p, ls.dir, sqrtf(ls.sq_distance),
+                               sqrtf(fmaxf(ls.sq_distance - DIST_EPSILON, 0.0f)));
     if (t * t < ls.sq_distance - DIST_EPSILON) continue;  // blocked
 
     float mat_prob = 1.0f;
@@ -629,6 +586,22 @@ __global__ void __launch_bounds__(BLOCK) dense_nee_kernel(const NeeArgs a) {
   }
 }
 
+__global__ void __launch_bounds__(BLOCK) dense_bounce_kernel(const BounceArgs a) {
+  bounce_lane(a, DenseGeo{});
+}
+
+__global__ void __launch_bounds__(BLOCK) dense_nee_kernel(const NeeArgs a) {
+  nee_lane(a, DenseGeo{});
+}
+
+__global__ void __launch_bounds__(BLOCK) wide_bounce_kernel(const BounceArgs a, const WideGeo geo) {
+  bounce_lane(a, geo);
+}
+
+__global__ void __launch_bounds__(BLOCK) wide_nee_kernel(const NeeArgs a, const WideGeo geo) {
+  nee_lane(a, geo);
+}
+
 }  // namespace
 
 extern "C" {
@@ -637,40 +610,63 @@ extern "C" {
 // the caller's cudaStream_t. Each returns cudaGetLastError() after the
 // launch (0 on success); nothing is allocated or synchronised here.
 
-int pyrite_dense_bounce(const float* sheet, const int* meta, const int* code_op,
-                        const float* code_val, const int* code_off, const float* cvals,
-                        const float* pvals, const float* sky, const float* wl, const float* origin,
-                        const float* direction, const float* brightness, const float* reflectance,
-                        const uint8_t* alive, const uint8_t* aux_alive, const uint8_t* sample_light,
-                        const int* light_events, const float* u_comp, const float* u_scatter,
-                        float* o_origin, float* o_direction, float* o_brightness,
-                        float* o_reflectance, uint8_t* o_alive, uint8_t* o_aux_alive,
-                        uint8_t* o_sample_light, int* o_light_events, float* o_flip,
-                        float* o_refl_nee, uint8_t* o_nee, int n, int s, int light_samples,
-                        int n_color, void* stream) {
-  BounceArgs a = {{sheet, meta},
-                  {code_op, code_val, code_off, cvals, pvals, n_color},
-                  sky, wl, origin, direction, brightness, reflectance, alive, aux_alive,
-                  sample_light, light_events, u_comp, u_scatter, o_origin, o_direction,
-                  o_brightness, o_reflectance, o_alive, o_aux_alive, o_sample_light,
-                  o_light_events, o_flip, o_refl_nee, o_nee, n, s, light_samples};
-  const int grid = (n + BLOCK - 1) / BLOCK;
-  dense_bounce_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(a);
+#define BOUNCE_PARAMS                                                                          \
+  const float *sheet, const int *meta, const int *code_op, const float *code_val,               \
+      const int *code_off, const float *cvals, const float *pvals, const float *sky,            \
+      const float *wl, const float *origin, const float *direction, const float *brightness,    \
+      const float *reflectance, const uint8_t *alive, const uint8_t *aux_alive,                 \
+      const uint8_t *sample_light, const int *light_events, const float *u_comp,                \
+      const float *u_scatter, float *o_origin, float *o_direction, float *o_brightness,         \
+      float *o_reflectance, uint8_t *o_alive, uint8_t *o_aux_alive, uint8_t *o_sample_light,    \
+      int *o_light_events, float *o_flip, float *o_refl_nee, uint8_t *o_nee, int n, int s,      \
+      int light_samples, int n_color
+#define BOUNCE_ARGS                                                                            \
+  BounceArgs a = {{sheet, meta},                                                               \
+                  {code_op, code_val, code_off, cvals, pvals, n_color},                        \
+                  sky, wl, origin, direction, brightness, reflectance, alive, aux_alive,       \
+                  sample_light, light_events, u_comp, u_scatter, o_origin, o_direction,        \
+                  o_brightness, o_reflectance, o_alive, o_aux_alive, o_sample_light,           \
+                  o_light_events, o_flip, o_refl_nee, o_nee, n, s, light_samples}
+#define NEE_PARAMS                                                                             \
+  const float *sheet, const int *meta, const int *code_op, const float *code_val,               \
+      const int *code_off, const float *cvals, const float *pvals, const float *position,       \
+      const float *flip, const uint8_t *nee, const uint8_t *aux_alive, const float *refl_nee,   \
+      const int *lamp_idx, const float *u_nee, const float *u_emis, float *brightness, int n,   \
+      int s, int light_samples, int n_color, float nee_prob
+#define NEE_ARGS                                                                               \
+  NeeArgs a = {{sheet, meta},                                                                  \
+               {code_op, code_val, code_off, cvals, pvals, n_color},                           \
+               position, flip, nee, aux_alive, refl_nee, lamp_idx, u_nee, u_emis, brightness,  \
+               n, s, light_samples, nee_prob}
+// the mesh scene's tables, after the shared arguments
+#define WIDE_PARAMS                                                                            \
+  const float *rows, const float *geo, const float *tri_n, const int *tri_mat,                  \
+      const float *sph_center, const int *sph_mat, int leaf
+#define WIDE_GEO const WideGeo g = {{rows, geo, leaf}, tri_n, tri_mat, sph_center, sph_mat}
+
+int pyrite_dense_bounce(BOUNCE_PARAMS, void* stream) {
+  BOUNCE_ARGS;
+  dense_bounce_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-int pyrite_dense_nee(const float* sheet, const int* meta, const int* code_op, const float* code_val,
-                     const int* code_off, const float* cvals, const float* pvals,
-                     const float* position, const float* flip, const uint8_t* nee,
-                     const uint8_t* aux_alive, const float* refl_nee, const int* lamp_idx,
-                     const float* u_nee, const float* u_emis, float* brightness, int n, int s,
-                     int light_samples, int n_color, float nee_prob, void* stream) {
-  NeeArgs a = {{sheet, meta},
-               {code_op, code_val, code_off, cvals, pvals, n_color},
-               position, flip, nee, aux_alive, refl_nee, lamp_idx, u_nee, u_emis, brightness,
-               n, s, light_samples, nee_prob};
-  const int grid = (n + BLOCK - 1) / BLOCK;
-  dense_nee_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(a);
+int pyrite_dense_nee(NEE_PARAMS, void* stream) {
+  NEE_ARGS;
+  dense_nee_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+int pyrite_wide_bounce(BOUNCE_PARAMS, WIDE_PARAMS, void* stream) {
+  BOUNCE_ARGS;
+  WIDE_GEO;
+  wide_bounce_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(a, g);
+  return (int)cudaGetLastError();
+}
+
+int pyrite_wide_nee(NEE_PARAMS, WIDE_PARAMS, void* stream) {
+  NEE_ARGS;
+  WIDE_GEO;
+  wide_nee_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(a, g);
   return (int)cudaGetLastError();
 }
 

@@ -387,7 +387,7 @@ def _eval_complex(expr: ir.ComplexExpression, inputs, resources, cache) -> _Valu
 # reads the lane's normal and incident direction as implicit operands (no
 # other node reads them). Wavelength-dependent leaves (spectrum, blackbody,
 # rgb->number) and vectors are not covered: such a program refuses the pack.
-# The opcodes and limits are mirrored in csrc/dense_bounce.cu.
+# The opcodes and limits are mirrored in csrc/bounce.cu.
 
 OP_CONST, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MIX, OP_CLAMP, OP_FRESNEL = range(8)
 PROG_STACK = 8  # kernel stack depth

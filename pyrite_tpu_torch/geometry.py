@@ -6,8 +6,8 @@ renderer, as the JAX package does:
   - sphere test (two-root version of shapes/mod.rs:57-74)
   - infinite planes (shapes/mod.rs:441-452)
   - sampling bases ortho/sample_sphere/... (math.rs:98-164)
-Only the dense-scene path is ported: frames for normal maps and texture
-coordinates are not needed there (those scenes are not ported yet).
+Frames for normal maps and texture coordinates are left out: the scenes
+that need them are not ported yet.
 """
 
 from __future__ import annotations

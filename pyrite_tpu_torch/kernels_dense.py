@@ -1,19 +1,26 @@
-"""The dense-scene bounce on the GPU: scene pack, per-launch program values,
-and the wrapper that launches the CUDA kernels of csrc/dense_bounce.cu
-(PyTorch port of pyrite_tpu.kernels_dense).
+"""The bounce on the GPU: scene pack, per-launch program values, and the
+wrapper that launches the CUDA kernels of csrc/bounce.cu (PyTorch port of
+pyrite_tpu.kernels_dense, extended to mesh scenes).
 
 A bounce is two launches: the BOUNCE kernel (closest hit, miss/sky,
 component pick, probability programs, BSDF scatter, emission, reflectance
-update) and the NEE kernel (lamp sample, shadow sweep and contribution for
-each light sample). One thread owns one lane in both. ``bounce_dense`` takes
-the plain version, tracer.bounce_core, for tensors on the CPU, and launches
-the kernels for tensors on a GPU, or raises; there is no fallback.
+update) and the NEE kernel (lamp sample, shadow query and contribution for
+each light sample). One thread owns one lane in both. A dense scene runs
+dense_bounce_kernel / dense_nee_kernel, which sweep its <= 128 primitives;
+a mesh scene (scene.use_clusters) runs wide_bounce_kernel / wide_nee_kernel,
+which walk its clustered wide BVH. ``bounce_dense`` takes the plain version,
+tracer.bounce_core, for tensors on the CPU, and launches the kernels for
+tensors on a GPU, or raises; there is no fallback.
 
-The scene reaches the kernels as the JAX package's [R, 128] f32 sheet (same
-rows, same values), plus ``meta`` (the row of each table, in META_FIELDS
-order, which csrc/dense_bounce.cu's enum mirrors) and the postfix code of
-the ray-input probability programs (exprs.lower_ray_program). Programs of
-the wavelength alone are evaluated once per launch (precompute_bank_values).
+The scene reaches the kernels as an [R, 128] f32 sheet, plus ``meta`` (the
+row of each table, in META_FIELDS order, which csrc/common.cuh's enum
+mirrors) and the postfix code of the ray-input probability programs
+(exprs.lower_ray_program). On a dense scene the sheet is the JAX package's
+(same rows, same values). A mesh scene's sheet keeps the plane, material,
+component, lamp and emissive tables and has no primitive rows: its kernels
+read the node table, the leaf clusters and the triangle and sphere tables
+as flat tensors. Programs of the wavelength alone are evaluated once per
+launch (precompute_bank_values).
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ MAX_SPECTRUM_SAMPLES = 16
 SHEET_WIDTH = 128
 _GEO_ROWS = 22  # rows 0..21: primitive channels (see build_pack)
 
-# csrc/dense_bounce.cu `enum Meta`, in order
+# csrc/common.cuh `enum Meta`, in order
 META_FIELDS = (
     "n_prims", "n_planes",
     "pla_nx", "pla_ny", "pla_nz", "pla_d", "pla_mat",
@@ -50,7 +57,15 @@ META_FIELDS = (
 )
 
 # Each wrapper adds one here where it launches its kernel.
-launches = {"dense_bounce_kernel": 0, "dense_nee_kernel": 0}
+launches = {
+    "dense_bounce_kernel": 0, "dense_nee_kernel": 0,
+    "wide_bounce_kernel": 0, "wide_nee_kernel": 0,
+}
+# the extern "C" launcher of each kernel (csrc/bounce.cu)
+_LAUNCHERS = {
+    "dense_bounce_kernel": "pyrite_dense_bounce", "dense_nee_kernel": "pyrite_dense_nee",
+    "wide_bounce_kernel": "pyrite_wide_bounce", "wide_nee_kernel": "pyrite_wide_nee",
+}
 
 _GATE = "(ROADMAP.md queue 1: widening the dense pack gate)"
 
@@ -62,16 +77,18 @@ def _refuse(what, item=_GATE):
 def build_pack(scene, a):
     """Gate + packed scene sheet from the host (numpy) scene arrays ``a``.
 
-    Raises NotImplementedError exactly where the JAX package's build_pack
-    returns None, and for ray-input probability programs outside the
-    kernels' postfix form. Returns a dict with the [R, 128] sheet, the row
-    indices (``meta``) and the device tensors the kernels read."""
-    if scene.num_primitives > 128 or scene.num_primitives == 0:
+    On a dense scene it raises NotImplementedError exactly where the JAX
+    package's build_pack returns None, and for ray-input probability
+    programs outside the kernels' postfix form; a mesh scene passes the
+    same gate apart from its primitive count. Returns a dict with the
+    [R, 128] sheet, the row indices (``meta``) and the device tensors the
+    kernels read."""
+    clusters = scene.use_clusters
+    if not clusters and not 0 < scene.num_primitives <= 128:
         _refuse(
             f"a dense scene with {scene.num_primitives} finite primitives (the kernels "
-            "sweep 1 to 128)",
-            "(ROADMAP.md queue 1: more than 128 primitives in a dense sweep, and the "
-            "wide-BVH traversal kernels)",
+            "sweep 1 to 128; meshes above 1024 take the wide BVH)",
+            "(ROADMAP.md queue 1: more than 128 primitives in a dense sweep)",
         )
     if scene.num_planes > 128:
         _refuse(f"{scene.num_planes} planes (the kernels take at most 128)")
@@ -100,8 +117,80 @@ def build_pack(scene, a):
         out[: v.shape[0]] = v
         return out
 
-    # primitive channels (cx cy cz e1 e2 r kind ref mat, triangle vertex
-    # normals) in the order of the prim_kind/prim_ref tables
+    if clusters:
+        rows, meta = [], {"n_prims": 0, "n_planes": scene.num_planes}
+    else:
+        rows, meta = _primitive_rows(scene, a, row), {
+            "n_prims": scene.num_primitives, "n_planes": scene.num_planes,
+        }
+
+    def add(name, values):
+        meta[name] = len(rows)
+        rows.append(row(values))
+
+    if scene.num_planes:
+        pn = a["pla_normal"]
+        add("pla_nx", pn[:, 0]); add("pla_ny", pn[:, 1]); add("pla_nz", pn[:, 2])
+        add("pla_d", a["pla_d"]); add("pla_mat", a["pla_mat"])
+    for name in (
+        "mat_comp_count", "mat_comp_offset", "mat_emis_count", "mat_emis_offset",
+        "comp_bsdf", "comp_color", "comp_prob",
+    ):
+        add(name, a[name])
+    add("comp_prob_uses_wl", a["comp_prob_uses_wl"].astype(np.float32))
+    for name in ("comp_selection", "comp_ior", "comp_disp", "comp_env_ior", "comp_env_disp"):
+        add(name, a[name])
+    if scene.num_lamps:
+        lamp_ref = a["lamp_ref"]
+        shapes = {
+            k: a[k] for k in (
+                "sph_center", "sph_radius", "sph_mat", "tri_v0", "tri_e1", "tri_e2", "tri_n",
+                "tri_mat",
+            )
+        }
+        if clusters:
+            # a mesh has more triangles than a sheet row holds: the lamp
+            # rows hold each lamp's own sphere or triangle, and lamp_ref
+            # points at the lamp's own column
+            shapes = {k: v[np.clip(lamp_ref, 0, len(v) - 1)] for k, v in shapes.items()}
+            lamp_ref = np.where(lamp_ref >= 0, np.arange(len(lamp_ref)), -1)
+        add("lamp_type", a["lamp_type"])
+        lv = a["lamp_vec"]
+        add("lamp_vx", lv[:, 0]); add("lamp_vy", lv[:, 1]); add("lamp_vz", lv[:, 2])
+        add("lamp_ref", lamp_ref); add("lamp_color", a["lamp_color"])
+        sc = shapes["sph_center"]
+        add("lsph_cx", sc[:, 0]); add("lsph_cy", sc[:, 1]); add("lsph_cz", sc[:, 2])
+        add("lsph_r", shapes["sph_radius"]); add("lsph_mat", shapes["sph_mat"])
+        for vec, key in (("v0", "tri_v0"), ("e1", "tri_e1"), ("e2", "tri_e2")):
+            for axis, comp in enumerate("xyz"):
+                add(f"ltri_{vec}{comp}", shapes[key][:, axis])
+        for vtx in range(3):
+            for axis, comp in enumerate("xyz"):
+                add(f"ltri_n{vtx}{comp}", shapes["tri_n"][:, vtx, axis])
+        add("ltri_mat", shapes["tri_mat"])
+        add("emis_comp", a["emis_comp"])
+        add("emis_selection", a["emis_selection"])
+    sheet = np.stack(rows)
+
+    code_off = np.cumsum([0] + [len(c) for c in code]).astype(np.int32)
+    flat = [ins for c in code for ins in c] or [(exprs.OP_CONST, 0.0)]
+    dev = scene.device
+    tensors = {
+        "sheet": torch.as_tensor(sheet, device=dev),
+        "meta": torch.as_tensor(
+            np.array([meta.get(f, -1) for f in META_FIELDS], np.int32), device=dev
+        ),
+        "code_op": torch.as_tensor(np.array([op for op, _ in flat], np.int32), device=dev),
+        "code_val": torch.as_tensor(np.array([v for _, v in flat], np.float32), device=dev),
+        "code_off": torch.as_tensor(code_off, device=dev),
+    }
+    return {"sheet": sheet, "meta": meta, "code": code, "tensors": tensors}
+
+
+def _primitive_rows(scene, a, row):
+    """A dense scene's sheet rows 0..21: the primitive channels (cx cy cz e1
+    e2 r kind ref mat, triangle vertex normals) in the order of the
+    prim_kind/prim_ref tables."""
     p = scene.num_primitives
     kind, ref = a["prim_kind"], a["prim_ref"]
     cx, cy, cz = np.zeros(p, np.float32), np.zeros(p, np.float32), np.zeros(p, np.float32)
@@ -139,56 +228,7 @@ def build_pack(scene, a):
         row(nrm[:, 2, 0]), row(nrm[:, 2, 1]), row(nrm[:, 2, 2]),
     ]
     assert len(rows) == _GEO_ROWS
-    meta = {"n_prims": p, "n_planes": scene.num_planes}
-
-    def add(name, values):
-        meta[name] = len(rows)
-        rows.append(row(values))
-
-    if scene.num_planes:
-        pn = a["pla_normal"]
-        add("pla_nx", pn[:, 0]); add("pla_ny", pn[:, 1]); add("pla_nz", pn[:, 2])
-        add("pla_d", a["pla_d"]); add("pla_mat", a["pla_mat"])
-    for name in (
-        "mat_comp_count", "mat_comp_offset", "mat_emis_count", "mat_emis_offset",
-        "comp_bsdf", "comp_color", "comp_prob",
-    ):
-        add(name, a[name])
-    add("comp_prob_uses_wl", a["comp_prob_uses_wl"].astype(np.float32))
-    for name in ("comp_selection", "comp_ior", "comp_disp", "comp_env_ior", "comp_env_disp"):
-        add(name, a[name])
-    if scene.num_lamps:
-        add("lamp_type", a["lamp_type"])
-        lv = a["lamp_vec"]
-        add("lamp_vx", lv[:, 0]); add("lamp_vy", lv[:, 1]); add("lamp_vz", lv[:, 2])
-        add("lamp_ref", a["lamp_ref"]); add("lamp_color", a["lamp_color"])
-        sc = a["sph_center"]
-        add("lsph_cx", sc[:, 0]); add("lsph_cy", sc[:, 1]); add("lsph_cz", sc[:, 2])
-        add("lsph_r", a["sph_radius"]); add("lsph_mat", a["sph_mat"])
-        for vec, key in (("v0", "tri_v0"), ("e1", "tri_e1"), ("e2", "tri_e2")):
-            for axis, comp in enumerate("xyz"):
-                add(f"ltri_{vec}{comp}", a[key][:, axis])
-        for vtx in range(3):
-            for axis, comp in enumerate("xyz"):
-                add(f"ltri_n{vtx}{comp}", a["tri_n"][:, vtx, axis])
-        add("ltri_mat", a["tri_mat"])
-        add("emis_comp", a["emis_comp"])
-        add("emis_selection", a["emis_selection"])
-    sheet = np.stack(rows)
-
-    code_off = np.cumsum([0] + [len(c) for c in code]).astype(np.int32)
-    flat = [ins for c in code for ins in c] or [(exprs.OP_CONST, 0.0)]
-    dev = scene.device
-    tensors = {
-        "sheet": torch.as_tensor(sheet, device=dev),
-        "meta": torch.as_tensor(
-            np.array([meta.get(f, -1) for f in META_FIELDS], np.int32), device=dev
-        ),
-        "code_op": torch.as_tensor(np.array([op for op, _ in flat], np.int32), device=dev),
-        "code_val": torch.as_tensor(np.array([v for _, v in flat], np.float32), device=dev),
-        "code_off": torch.as_tensor(code_off, device=dev),
-    }
-    return {"sheet": sheet, "meta": meta, "code": code, "tensors": tensors}
+    return rows
 
 
 def precompute_bank_values(scene, wavelengths):
@@ -244,6 +284,37 @@ def _scene_args(scene, bank_vals, n, s, dev):
     ]
 
 
+def wide_args(scene, dev):
+    """The arguments the mesh-scene kernels take after the shared ones: the
+    node table, the leaf clusters, the triangle and sphere tables and the
+    leaf size."""
+    f32, i32 = torch.float32, torch.int32
+    a = scene.arrays
+    t, s = a["tri_mat"].shape[0], a["sph_mat"].shape[0]
+    leaf = scene.cluster_leaf
+    return [
+        _check("wide_rows", a["wide_rows"], f32, (273, 128), dev),
+        _check("clu_geo", a["clu_geo"], f32, (scene.cluster_slots, leaf, 12), dev),
+        _check("tri_n", a["tri_n"], f32, (t, 3, 3), dev),
+        _check("tri_mat", a["tri_mat"], i32, (t,), dev),
+        _check("sph_center", a["sph_center"], f32, (s, 3), dev),
+        _check("sph_mat", a["sph_mat"], i32, (s,), dev),
+        leaf,
+    ]
+
+
+def kernel_names(scene):
+    """(bounce kernel, NEE kernel) that run ``scene``."""
+    return ("wide_bounce_kernel", "wide_nee_kernel") if scene.use_clusters else (
+        "dense_bounce_kernel", "dense_nee_kernel"
+    )
+
+
+def _with_scene_tables(scene, args, dev):
+    """Launch arguments with the mesh tables put before the stream."""
+    return args[:-1] + wide_args(scene, dev) + args[-1:] if scene.use_clusters else args
+
+
 def _flag(t):
     return t.view(torch.uint8) if t.dtype == torch.bool else t
 
@@ -259,8 +330,9 @@ def _device(wavelengths):
 
 
 def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals):
-    """Checked arguments of one dense_bounce_kernel launch, with the outputs
-    it writes: (ctypes arguments, new state, NEE context)."""
+    """Checked arguments of one bounce kernel launch (the scene's, see
+    kernel_names), with the outputs it writes: (ctypes arguments, new state,
+    NEE context)."""
     dev, n, s = _device(wavelengths)
     f32, u8, i32 = torch.float32, torch.uint8, torch.int32
     out = {
@@ -302,16 +374,17 @@ def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals):
         n, s, cfg.light_samples, len(scene.color_programs),
         torch.cuda.current_stream(dev).cuda_stream,
     ]
-    return args, out, ctx
+    return _with_scene_tables(scene, args, dev), out, ctx
 
 
 def nee_kernel_args(scene, cfg, wavelengths, out, ctx, draws, bank_vals):
-    """Checked arguments of one dense_nee_kernel launch, which adds the
-    light samples' contributions into ``out["brightness"]`` in place."""
+    """Checked arguments of one NEE kernel launch (the scene's, see
+    kernel_names), which adds the light samples' contributions into
+    ``out["brightness"]`` in place."""
     dev, n, s = _device(wavelengths)
     f32, u8, i32 = torch.float32, torch.uint8, torch.int32
     ls = cfg.light_samples
-    return _scene_args(scene, bank_vals, n, s, dev) + [
+    args = _scene_args(scene, bank_vals, n, s, dev) + [
         _check("position", out["origin"], f32, (n, 3), dev),
         _check("flip", ctx["flip"], f32, (n, 3), dev),
         _check("nee", _flag(ctx["nee"]), u8, (n,), dev),
@@ -325,36 +398,42 @@ def nee_kernel_args(scene, cfg, wavelengths, out, ctx, draws, bank_vals):
         1.0 / (ls * 2.0 * math.pi * (1.0 / scene.num_lamps)),
         torch.cuda.current_stream(dev).cuda_stream,
     ]
+    return _with_scene_tables(scene, args, dev)
 
 
 def launch_bounce_kernel(scene, cfg, wavelengths, state, draws, bank_vals):
-    """One dense_bounce_kernel launch: (new state without the NEE
+    """One launch of the scene's bounce kernel: (new state without the NEE
     contribution, NEE context)."""
     from . import _build
 
+    name = kernel_names(scene)[0]
     args, out, ctx = bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals)
-    rc = _build.load().pyrite_dense_bounce(*args)
+    rc = getattr(_build.load(), _LAUNCHERS[name])(*args)
     if rc != 0:
-        raise RuntimeError(f"dense_bounce_kernel launch failed: cudaError {rc}")
-    launches["dense_bounce_kernel"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    launches[name] += 1
     return out, ctx
 
 
 def launch_nee_kernel(scene, cfg, wavelengths, out, ctx, draws, bank_vals):
-    """One dense_nee_kernel launch, accumulating into out["brightness"]."""
+    """One launch of the scene's NEE kernel, accumulating into
+    out["brightness"]."""
     from . import _build
 
+    name = kernel_names(scene)[1]
     args = nee_kernel_args(scene, cfg, wavelengths, out, ctx, draws, bank_vals)
-    rc = _build.load().pyrite_dense_nee(*args)
+    rc = getattr(_build.load(), _LAUNCHERS[name])(*args)
     if rc != 0:
-        raise RuntimeError(f"dense_nee_kernel launch failed: cudaError {rc}")
-    launches["dense_nee_kernel"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    launches[name] += 1
+
 
 
 def bounce_dense(scene, cfg, wavelengths, state, draws, bank_vals):
     """One bounce, a drop-in for tracer.bounce_core: the plain version for
-    tensors on the CPU, the two CUDA kernels for tensors on a GPU (or an
-    error). ``bank_vals`` is precompute_bank_values' output."""
+    tensors on the CPU, the scene's two CUDA kernels (dense or wide, see
+    kernel_names) for tensors on a GPU, or an error. ``bank_vals`` is
+    precompute_bank_values' output."""
     dev = wavelengths.device
     if dev.type == "cpu":
         return tracer.bounce_core(scene, cfg, wavelengths, state, draws)

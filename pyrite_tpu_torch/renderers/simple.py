@@ -1,9 +1,9 @@
 """The "simple" renderer: camera paths with next-event estimation (PyTorch
 port of pyrite_tpu.renderers.simple, one-shot scheduler).
 
-Every step traces one stratified sample for every pixel of a row window
-(the whole film, on dense scenes), several samples per launch when the film
-is small, and accumulates into the film. Sample distribution matches the
+Every step traces one stratified sample for every pixel of the film,
+several samples per launch when the film is small, and accumulates into the
+film. Sample distribution matches the
 reference (uniform jitter per pixel, stratified wavelengths with a
 uniformly chosen hero). Random numbers come from one torch.Generator per
 render, seeded from the render seed, or from FixedDraws in tests.
@@ -66,8 +66,9 @@ def chunk_rays(film: Film, camera: CameraModel, cfg: TraceConfig, rng, row0=0, r
 
 def pick_sample_batch(film: Film) -> int:
     """Stratified samples per launch, keeping the wavefront under ~600k
-    lanes (the JAX package's bound). Every ported scene is dense (at most
-    128 finite primitives), so one launch always covers the whole film."""
+    lanes (the JAX package's bound); one launch covers the whole film. The
+    JAX package's narrower lane cap for mesh scenes (CLUSTER_LANE_CAP) tunes
+    its TPU walk and is not carried over."""
     return max(1, min(4, 600_000 // max(film.height * film.width, 1)))
 
 
@@ -144,8 +145,9 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
     rng = torch.Generator(device=scene.device)
     rng.manual_seed(seed)
 
-    # Dense scenes fit one launch over the whole film, so there are no row
-    # windows (the JAX package's pick_rows / chunk_order) to schedule.
+    # Every ported scene, dense or mesh, takes the whole film in one launch,
+    # so there are no row windows (the JAX package's pick_rows /
+    # chunk_order) to schedule.
     batch = pick_sample_batch(film)
     i = 0
     while i < total:

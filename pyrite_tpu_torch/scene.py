@@ -7,10 +7,14 @@ scene's device; materials become a flattened global component table
 expressions and uniform selection compensation). The arrays are built in
 numpy exactly as the JAX package builds them and moved to the device once.
 
-Only dense scenes are ported: more than CLUSTER_THRESHOLD primitives (the
-clustered wide-BVH path) and distance-estimated shapes raise
-NotImplementedError. kernels_dense.build_pack, called at the end of
-build_scene, refuses the rest of what the CUDA kernels do not take.
+Scenes of more than CLUSTER_THRESHOLD finite primitives (meshes) take the
+clustered wide BVH, as in the JAX package: the binary SAH build orders the
+primitives, its treelets become leaf clusters of up to ``cluster_leaf``
+primitives packed into ``clu_geo`` [slots, leaf, 12], and bvh.build_wide_bvh
+puts the 16-ary node table ``wide_rows`` [273, 128] over them. Distance-
+estimated shapes raise NotImplementedError. kernels_dense.build_pack, called
+at the end of build_scene, refuses the rest of what the CUDA kernels do not
+take (among them dense scenes of 129 to 1024 primitives).
 """
 
 from __future__ import annotations
@@ -22,8 +26,10 @@ from typing import Optional
 import numpy as np
 import torch
 
+from . import bvh as bvh_mod
 from . import exprs
 from . import geometry as geom
+from ._shared import native
 from ._shared.project import ir
 
 # bsdf type codes
@@ -42,8 +48,69 @@ LAMP_TRIANGLE = 3
 PRIM_TRIANGLE = 0
 PRIM_SPHERE = 1
 
-# Above this many primitives the JAX package switches to a clustered BVH.
+# Above this many primitives the scene takes the clustered wide BVH.
 CLUSTER_THRESHOLD = 1024
+# Primitives per leaf cluster (one [CLUSTER_LEAF, 12] block of clu_geo),
+# grown in steps of 128 when the leaves would not fit the wide tree.
+CLUSTER_LEAF = 128
+
+
+def cluster_leaf_size(total_prims: int) -> int:
+    """CLUSTER_LEAF, grown in steps of 128 for scenes whose leaf count would
+    exceed the wide tree's 4096 slots (scene.py:55-63 of the JAX package)."""
+    capacity = bvh_mod.WIDE_FANOUT**bvh_mod.WIDE_LEVELS
+    needed = -(-total_prims // capacity)
+    return max(CLUSTER_LEAF, -(-needed // 128) * 128)
+
+
+def pack_wide_clusters_ranges(perm_lo, perm_hi, geo_rows, ranges, leaf_size):
+    """Pack explicit (start, count) ranges of the primitive permutation (the
+    SAH treelet cut) into fixed-capacity clusters and build the wide 16-ary
+    tree over their tight bounds. Partly filled clusters pad with kind = -1
+    rows, which never intersect. Returns (rows [273, 128] f32, geo [slots,
+    leaf_size, 12] f32), geo indexed by leaf slot."""
+    num_leaves = len(ranges)
+    geo_p = np.zeros((num_leaves, leaf_size, 12), np.float32)
+    geo_p[..., 10] = -1.0
+    leaf_lo = np.full((num_leaves, 3), np.inf, np.float32)
+    leaf_hi = np.full((num_leaves, 3), -np.inf, np.float32)
+    for j, (start, count) in enumerate(ranges):
+        geo_p[j, :count] = geo_rows[start : start + count]
+        leaf_lo[j] = perm_lo[start : start + count].min(axis=0)
+        leaf_hi[j] = perm_hi[start : start + count].max(axis=0)
+    rows, slot_of_leaf = bvh_mod.build_wide_bvh(leaf_lo, leaf_hi)
+
+    slots = int(slot_of_leaf.max()) + 1
+    geo = np.zeros((slots, leaf_size, 12), np.float32)
+    geo[..., 10] = -1.0
+    geo[slot_of_leaf] = geo_p
+    return rows, geo
+
+
+def pack_wide_clusters(perm_lo, perm_hi, geo_rows, leaf_size):
+    """Chunk the SAH depth-first order into full ``leaf_size`` clusters (the
+    last one padded with kind = -1 rows) and build the wide tree over them.
+    Returns (rows [273, 128] f32, geo [slots, leaf_size, 12] f32)."""
+    total = len(geo_rows)
+    num_leaves = -(-total // leaf_size)
+    padded = num_leaves * leaf_size
+    geo_p = np.zeros((padded, 12), np.float32)
+    geo_p[..., 10] = -1.0
+    geo_p[:total] = geo_rows
+    lo_p = np.full((padded, 3), np.inf, np.float32)
+    hi_p = np.full((padded, 3), -np.inf, np.float32)
+    lo_p[:total] = perm_lo
+    hi_p[:total] = perm_hi
+
+    leaf_lo = lo_p.reshape(num_leaves, leaf_size, 3).min(axis=1)
+    leaf_hi = hi_p.reshape(num_leaves, leaf_size, 3).max(axis=1)
+    rows, slot_of_leaf = bvh_mod.build_wide_bvh(leaf_lo, leaf_hi)
+
+    slots = int(slot_of_leaf.max()) + 1
+    geo = np.zeros((slots, leaf_size, 12), np.float32)
+    geo[..., 10] = -1.0
+    geo[slot_of_leaf] = geo_p.reshape(num_leaves, leaf_size, 12)
+    return rows, geo
 
 
 def _mul_expr(lhs, rhs):
@@ -144,6 +211,10 @@ class Scene:
         self.bank_span = (380.0, 780.0)
         # the CUDA bounce kernels' scene pack (kernels_dense.build_pack)
         self.dense_pack = None
+        # the clustered wide BVH (scenes above CLUSTER_THRESHOLD primitives)
+        self.use_clusters = False
+        self.cluster_leaf = 0
+        self.cluster_slots = 0
 
     @property
     def num_primitives(self):
@@ -447,18 +518,18 @@ def build_scene(project_data, device="cpu") -> Scene:
 
     num_tris = len(tri_v0)
     num_sph = len(sph_center)
-    if num_tris + num_sph > CLUSTER_THRESHOLD:
-        raise NotImplementedError(
-            f"{num_tris + num_sph} primitives need the clustered wide-BVH traversal, "
-            "which is not ported to pyrite_tpu_torch yet "
-            "(ROADMAP.md queue 1: wide-BVH traversal kernels)"
-        )
     prim_kind = np.concatenate(
         [np.full(num_tris, PRIM_TRIANGLE, np.int32), np.full(num_sph, PRIM_SPHERE, np.int32)]
     )
     prim_ref = np.concatenate(
         [np.arange(num_tris, dtype=np.int32), np.arange(num_sph, dtype=np.int32)]
     )
+    cluster = None
+    if num_tris + num_sph > CLUSTER_THRESHOLD:
+        cluster = _build_clusters(tri_v0, tri_e1, tri_e2, sph_center, sph_radius)
+        perm, rows, clu_geo, leaf_size = cluster
+        prim_kind = prim_kind[perm]
+        prim_ref = prim_ref[perm]
 
     def pad1(lst, dtype, pad_value=0, width=None):
         """1-sized padding so zero-length scenes still trace."""
@@ -510,6 +581,11 @@ def build_scene(project_data, device="cpu") -> Scene:
         "lamp_width": pad1(lamp_width, np.float32),
         "lamp_color": pad1(lamp_color, np.int32, -1),
     }
+    if cluster is not None:
+        host["wide_rows"], host["clu_geo"] = rows, clu_geo
+        scene.use_clusters = True
+        scene.cluster_leaf = leaf_size
+        scene.cluster_slots = clu_geo.shape[0]
     scene.arrays = {k: torch.as_tensor(v, device=scene.device) for k, v in host.items()}
     scene.num_planes = len(pla_normal)
     scene.num_lamps = len(lamp_type)
@@ -527,6 +603,73 @@ def build_scene(project_data, device="cpu") -> Scene:
 
     scene.dense_pack = kernels_dense.build_pack(scene, host)
     return scene
+
+
+def _build_clusters(tri_v0, tri_e1, tri_e2, sph_center, sph_radius):
+    """The clustered wide BVH over the triangles and spheres (the cluster
+    branch of the JAX package's build_scene, scene.py:640-742).
+
+    The binary SAH build (the native C++ builder, or the numpy one where no
+    C++ toolchain is found, as in the JAX package) serves only for its
+    depth-first primitive ORDER; its treelets become the leaf clusters.
+    Returns (perm, wide_rows [273, 128], clu_geo [slots, leaf, 12], leaf)."""
+    num_tris, num_sph = len(tri_v0), len(sph_center)
+    total = num_tris + num_sph
+    t_v0 = np.asarray(tri_v0, np.float32).reshape(-1, 3)
+    t_e1 = np.asarray(tri_e1, np.float32).reshape(-1, 3)
+    t_e2 = np.asarray(tri_e2, np.float32).reshape(-1, 3)
+    t_lo = np.minimum(np.minimum(t_v0, t_v0 + t_e1), t_v0 + t_e2)
+    t_hi = np.maximum(np.maximum(t_v0, t_v0 + t_e1), t_v0 + t_e2)
+    s_c = np.asarray(sph_center, np.float32).reshape(-1, 3)
+    s_r = np.asarray(sph_radius, np.float32)
+    prim_lo = np.concatenate([t_lo, s_c - s_r[:, None]])
+    prim_hi = np.concatenate([t_hi, s_c + s_r[:, None]])
+    kind = np.concatenate(
+        [np.full(num_tris, PRIM_TRIANGLE, np.int32), np.full(num_sph, PRIM_SPHERE, np.int32)]
+    )
+    ref = np.concatenate([np.arange(num_tris, dtype=np.int32), np.arange(num_sph, dtype=np.int32)])
+
+    order_leaf = 32  # a small leaf gives a finer depth-first order
+    clustered = native.build_bvh_clustered(prim_lo, prim_hi, order_leaf)
+    if clustered is None:
+        clustered = bvh_mod.build_bvh_clustered_python(prim_lo, prim_hi, order_leaf)
+    perm = clustered[5]
+    kind, ref = kind[perm], ref[perm]
+
+    # one [12] f32 row per primitive, in perm order: v0 or center, e1, e2,
+    # radius, kind, ref
+    geo = np.zeros((total, 12), np.float32)
+    tm = kind == PRIM_TRIANGLE
+    sm = ~tm
+    geo[tm, 0:3] = t_v0[ref[tm]]
+    geo[tm, 3:6] = t_e1[ref[tm]]
+    geo[tm, 6:9] = t_e2[ref[tm]]
+    geo[sm, 0:3] = s_c[ref[sm]]
+    geo[sm, 9] = s_r[ref[sm]]
+    geo[:, 10] = kind
+    geo[:, 11] = ref
+
+    ranges, leaf_size = cluster_ranges(
+        clustered[2], clustered[3], clustered[4], cluster_leaf_size(total),
+        bvh_mod.WIDE_FANOUT**bvh_mod.WIDE_LEVELS,
+    )
+    rows, clu_geo = pack_wide_clusters_ranges(prim_lo[perm], prim_hi[perm], geo, ranges, leaf_size)
+    return perm, rows, clu_geo, leaf_size
+
+
+def cluster_ranges(subtree, start, count, leaf_size, capacity):
+    """The leaf clusters of a clustered binary SAH tree: its treelets of at
+    most ``leaf_size`` primitives, merged until at most ``capacity`` remain,
+    with the leaf grown by 128 while they do not fit (scene.py:716-727 of
+    the JAX package). Returns (ranges, leaf_size)."""
+    while True:
+        ranges = bvh_mod.treelet_ranges(subtree, start, count, leaf_size)
+        if len(ranges) <= capacity:
+            return ranges, leaf_size
+        try:
+            return bvh_mod.merge_ranges(ranges, leaf_size, capacity), leaf_size
+        except ValueError:
+            leaf_size += 128  # denser clusters until the tree fits
 
 
 # Program banks switch from the exact per-program masked loop to one shared

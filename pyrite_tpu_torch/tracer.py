@@ -1,15 +1,18 @@
-"""Wavefront path tracer core, dense scenes (PyTorch port of
-pyrite_tpu.tracer).
+"""Wavefront path tracer core (PyTorch port of pyrite_tpu.tracer).
 
 A whole wavefront of rays advances one bounce per step: intersection
-against the planes and a brute-force sweep of the (at most 128) finite
-primitives, branchless material component selection and BSDF scattering,
+against the planes and either a brute-force sweep of the (at most 128)
+finite primitives of a dense scene or a walk of the clustered wide BVH of a
+mesh scene (``cluster_traverse``), branchless material component selection
+and BSDF scattering,
 next-event estimation, and streaming radiance accumulation (the recurrence of
 renderer/algorithm.rs:14-100, fused into the loop as in the JAX package).
 
-``bounce_core`` is the plain PyTorch version of the two CUDA kernels in
-csrc/dense_bounce.cu: kernels_dense.bounce_dense runs it for tensors on the
-CPU and launches the kernels for tensors on a GPU. Its random numbers come in
+``bounce_core`` is the plain PyTorch version of the CUDA bounce and NEE
+kernels in csrc/bounce.cu: kernels_dense.bounce_dense runs it for tensors on
+the CPU and launches the kernels for tensors on a GPU. ``intersect_scene`` /
+``intersect_shadow`` on a mesh scene are the plain versions of the traversal
+kernels of csrc/wide_bvh.cu (kernels.closest_wide / shadow_wide). Its random numbers come in
 one ``draws`` dict shaped like the JAX package's draw_bounce_uniforms, so
 both packages (and both versions) can be fed identical draws.
 """
@@ -19,6 +22,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from . import geometry as geom
@@ -31,6 +35,8 @@ from .scene import (
     LAMP_POINT,
     LAMP_SPHERE,
     LAMP_TRIANGLE,
+    PRIM_SPHERE,
+    PRIM_TRIANGLE,
     Scene,
 )
 
@@ -56,7 +62,8 @@ class TraceConfig:
 
 
 # =============================================================================
-# Intersection (dense scenes: plane scan + brute-force primitive sweep)
+# Intersection: plane scan, then a brute-force primitive sweep (dense
+# scenes) or the clustered wide-BVH walk (mesh scenes)
 # =============================================================================
 
 
@@ -67,19 +74,25 @@ def _first_min(t):
     return tj, torch.argmax((t == tj[:, None]).to(torch.int8), dim=1)
 
 
-def intersect_scene(scene: Scene, origin, direction):
-    """Closest hit for a ray batch. Returns a dict with t, kind, idx, u, v
-    (tracer.py:501-552 with _brute_force_triangles/_spheres)."""
-    n = origin.shape[0]
-    a = scene.arrays
-    dev = origin.device
-    best = {
-        "t": torch.full((n,), math.inf, device=dev),
-        "kind": torch.full((n,), KIND_NONE, dtype=torch.int32, device=dev),
-        "idx": torch.zeros(n, dtype=torch.long, device=dev),
-        "u": torch.zeros(n, device=dev),
-        "v": torch.zeros(n, device=dev),
+def empty_hit(n, device):
+    """The running hit before any test: nothing hit, at infinity."""
+    return {
+        "t": torch.full((n,), math.inf, device=device),
+        "kind": torch.full((n,), KIND_NONE, dtype=torch.int32, device=device),
+        "idx": torch.zeros(n, dtype=torch.long, device=device),
+        "u": torch.zeros(n, device=device),
+        "v": torch.zeros(n, device=device),
     }
+
+
+def intersect_scene(scene: Scene, origin, direction, init=None):
+    """Closest hit for a ray batch, from the running hit ``init`` (empty_hit
+    by default). Returns a dict with t, kind, idx, u, v
+    (tracer.py:501-552 with _brute_force_triangles/_spheres, or the cluster
+    traversal); ``idx`` is the plane index or the triangle/sphere table
+    index (prim_ref)."""
+    a = scene.arrays
+    best = dict(empty_hit(origin.shape[0], origin.device) if init is None else init)
 
     def take(better, kind, t, idx, u=None, v=None):
         best["t"] = torch.where(better, t, best["t"])
@@ -95,6 +108,8 @@ def intersect_scene(scene: Scene, origin, direction):
         _, t = geom.ray_plane(o, d, a["pla_normal"][None], a["pla_d"][None])
         tj, j = _first_min(t)
         take(tj < best["t"], KIND_PLANE, tj, j)
+    if scene.use_clusters:
+        return cluster_traverse(scene, origin, direction, best, _cluster_leaf_closest(scene))
     if scene.num_triangles > 0:
         _, t, u, v = geom.ray_triangle(o, d, a["tri_v0"][None], a["tri_e1"][None], a["tri_e2"][None])
         tj, j = _first_min(t)
@@ -107,9 +122,14 @@ def intersect_scene(scene: Scene, origin, direction):
     return best
 
 
-def intersect_shadow(scene: Scene, origin, direction, max_dist):
+def intersect_shadow(scene: Scene, origin, direction, max_dist, block_below=None):
     """Nearest hit distance along shadow rays, starting from ``max_dist``
-    (the lamp distance): unoccluded lanes return ``max_dist``."""
+    (the lamp distance): unoccluded lanes return ``max_dist``.
+
+    ``block_below`` ([N], or None) is the caller's occlusion bound: on a
+    mesh scene a lane that finds a hit below it is blocked for sure and
+    stops walking (tracer.py:432-498), so its t is then some blocker's, not
+    necessarily the nearest. Dense scenes sweep everything and ignore it."""
     a = scene.arrays
     o = origin[:, None, :]
     d = direction[:, None, :]
@@ -117,6 +137,11 @@ def intersect_shadow(scene: Scene, origin, direction, max_dist):
     if scene.num_planes > 0:
         _, t = geom.ray_plane(o, d, a["pla_normal"][None], a["pla_d"][None])
         t_best = torch.minimum(t_best, t.min(dim=1).values)
+    if scene.use_clusters:
+        state = cluster_traverse(
+            scene, origin, direction, {"t": t_best}, _cluster_leaf_shadow(scene), block_below
+        )
+        return state["t"]
     if scene.num_triangles > 0:
         _, t, _, _ = geom.ray_triangle(o, d, a["tri_v0"][None], a["tri_e1"][None], a["tri_e2"][None])
         t_best = torch.minimum(t_best, t.min(dim=1).values)
@@ -124,6 +149,207 @@ def intersect_shadow(scene: Scene, origin, direction, max_dist):
         _, t = geom.ray_sphere(o, d, a["sph_center"][None], a["sph_radius"][None])
         t_best = torch.minimum(t_best, t.min(dim=1).values)
     return t_best
+
+
+# --- the clustered wide BVH ----------------------------------------------------
+#
+# bvh.build_wide_bvh lays the tree out as 273 rows of 128 floats: the 16
+# child boxes of one node as [minx | miny | minz | maxx | maxy | maxz]
+# columns, the children's sort axis in column 96 and their validity bitmask
+# in column 97. Row 0 is the root, row 1 + i the L1 node i, row 17 + n the
+# L2 node n = i * 16 + j, whose child k is the leaf slot n * 16 + k of
+# clu_geo. A ray's walk keeps one 16-bit mask of pending children per level
+# (m0 of the root, m1 of L1 node cur1, m2 of L2 node cur2), so it needs no
+# stack.
+#
+# The walk here is the plain version of csrc/wide_bvh.cuh and steps in the
+# same order: each step takes the deepest non-empty mask, pops its child
+# front to back (from the high bit where the ray runs negative along the
+# node's sort axis), tests that child's box again against the running best
+# t (which re-prunes everything still pending after each leaf), and then
+# descends into it or sweeps its leaf. Kernel and plain version therefore
+# visit the same leaves in the same order and agree on ties too. The JAX
+# package's walk (tracer.py:2271-2676) visits in its own order; the closest
+# hit is the same up to ties.
+
+
+def _bit_tables(device):
+    """Index of the lowest and of the highest set bit of every 16-bit mask."""
+    m = np.arange(1 << 16)
+    low = np.zeros(1 << 16, np.int64)
+    high = np.zeros(1 << 16, np.int64)
+    for b in range(15, -1, -1):
+        low[(m >> b) & 1 == 1] = b
+    for b in range(16):
+        high[(m >> b) & 1 == 1] = b
+    return torch.as_tensor(low, device=device), torch.as_tensor(high, device=device)
+
+
+_BIT_TABLES: dict = {}
+
+
+def _child_boxes(row, k):
+    """[M, 6] box (lo xyz, hi xyz) of child ``k`` [M] of each row [M, 128]."""
+    cols = k[:, None] + torch.arange(0, 96, 16, device=row.device)[None, :]
+    return torch.gather(row, 1, cols)
+
+
+def _slab(lo, hi, origin, inv_dir, t_best):
+    """Slab test of boxes against rays (math.rs:184-207; tracer._slab16):
+    hit when the exit is not before the entry nor behind the origin and the
+    entry lies before ``t_best``. NaN (0 * inf on a ray in a slab plane)
+    propagates through the min/max as in the JAX package, so such a box is
+    missed."""
+    t1 = (lo - origin) * inv_dir
+    t2 = (hi - origin) * inv_dir
+    tmin = torch.minimum(t1, t2).amax(dim=-2)
+    tmax = torch.maximum(t1, t2).amin(dim=-2)
+    return (tmax >= tmin) & (tmax >= 0.0) & (torch.clamp(tmin, min=0.0) < t_best)
+
+
+def _slab16(row, origin, direction, inv_dir, t_best):
+    """16-child hit bitmask of each row [M, 128] (tracer._slab16), masked by
+    the validity column 97, and the pop direction: whether the ray runs
+    negative along the row's sort axis (tracer._axis_sign)."""
+    lo = row[:, 0:48].reshape(-1, 3, 16)
+    hi = row[:, 48:96].reshape(-1, 3, 16)
+    hit = _slab(lo, hi, origin[:, :, None], inv_dir[:, :, None], t_best[:, None])
+    weights = torch.tensor([1 << k for k in range(16)], device=row.device)
+    bits = (hit.long() * weights).sum(dim=1) & row[:, 97].long()
+    d_axis = torch.gather(direction, 1, row[:, 96:97].long())[:, 0]
+    return bits, d_axis < 0.0
+
+
+def cluster_traverse(scene, origin, direction, init_state, leaf_sweep, exit_below=None):
+    """Closest-hit or any-hit walk of the clustered wide BVH for a ray
+    batch, from ``init_state`` (a dict of [N] tensors with at least "t").
+
+    ``leaf_sweep(slots, origin, direction, state)`` tests the rays of a
+    subset against one leaf cluster each and returns their new state.
+    ``exit_below`` ([N] or None): a lane stops once its t drops below it
+    (checked before the walk and after each leaf). The plain version of the
+    traversal kernels; semantics of tracer._cluster_traverse."""
+    rows = scene.arrays["wide_rows"]
+    dev = origin.device
+    if dev not in _BIT_TABLES:
+        _BIT_TABLES[dev] = _bit_tables(dev)
+    low, high = _BIT_TABLES[dev]
+    n = origin.shape[0]
+    inv_dir = 1.0 / direction
+    state = {k: v.clone() for k, v in init_state.items()}
+
+    m0, ph0 = _slab16(rows[0].expand(n, -1), origin, direction, inv_dir, state["t"])
+    if exit_below is not None:
+        m0 = torch.where(state["t"] < exit_below, 0, m0)
+    m1 = torch.zeros_like(m0)
+    m2 = torch.zeros_like(m0)
+    cur1 = torch.zeros_like(m0)
+    cur2 = torch.zeros_like(m0)
+    ph1 = torch.zeros_like(ph0)
+    ph2 = torch.zeros_like(ph0)
+    while True:
+        lanes = torch.nonzero((m0 | m1 | m2) != 0)[:, 0]
+        if lanes.numel() == 0:
+            break
+        o, d, inv, t = origin[lanes], direction[lanes], inv_dir[lanes], state["t"][lanes]
+        a0, a1, a2 = m0[lanes], m1[lanes], m2[lanes]
+        c1, c2 = cur1[lanes], cur2[lanes]
+        lvl2 = a2 != 0
+        lvl1 = ~lvl2 & (a1 != 0)
+        lvl0 = ~lvl2 & ~lvl1
+        mask = torch.where(lvl2, a2, torch.where(lvl1, a1, a0))
+        from_high = torch.where(lvl2, ph2[lanes], torch.where(lvl1, ph1[lanes], ph0[lanes]))
+        k = torch.where(from_high, high[mask], low[mask])
+        rest = mask & ~(1 << k)
+        m2[lanes] = torch.where(lvl2, rest, a2)
+        m1[lanes] = torch.where(lvl1, rest, a1)
+        m0[lanes] = torch.where(lvl0, rest, a0)
+        # the popped child, tested again against the running best t
+        parent = torch.where(lvl2, 17 + c2, torch.where(lvl1, 1 + c1, 0))
+        box = _child_boxes(rows[parent], k)
+        ok = _slab(box[:, 0:3, None], box[:, 3:6, None], o[:, :, None], inv[:, :, None], t[:, None])[:, 0]
+
+        # descend: an L1 node fills m1, an L2 node fills m2
+        down = ok & ~lvl2
+        if bool(down.any()):
+            sel = lanes[down]
+            node = torch.where(lvl1, c1 * 16 + k, k)[down]
+            into2 = lvl1[down]
+            bits, sign = _slab16(
+                rows[torch.where(into2, 17 + node, 1 + node)], o[down], d[down], inv[down], t[down]
+            )
+            m2[sel] = torch.where(into2, bits, m2[sel])
+            ph2[sel] = torch.where(into2, sign, ph2[sel])
+            cur2[sel] = torch.where(into2, node, cur2[sel])
+            m1[sel] = torch.where(into2, m1[sel], bits)
+            ph1[sel] = torch.where(into2, ph1[sel], sign)
+            cur1[sel] = torch.where(into2, cur1[sel], node)
+
+        # sweep a leaf
+        sweep = ok & lvl2
+        if bool(sweep.any()):
+            sel = lanes[sweep]
+            sub = {key: v[sel] for key, v in state.items()}
+            new = leaf_sweep((c2 * 16 + k)[sweep], origin[sel], direction[sel], sub)
+            for key, v in new.items():
+                state[key][sel] = v
+            if exit_below is not None:
+                done = sel[new["t"] < exit_below[sel]]
+                m0[done] = 0
+                m1[done] = 0
+                m2[done] = 0
+    return state
+
+
+def _leaf_hits(scene, slots, origin, direction):
+    """Every primitive of one leaf cluster per ray: (t [M, L] with inf where
+    missed, u, v, kind, ref) of the clu_geo rows (tracer._leaf_geometry and
+    the tests of _cluster_leaf_closest). Rows of kind -1 pad the leaf."""
+    g = scene.arrays["clu_geo"][slots]  # [M, L, 12]
+    o = origin[:, None, :]
+    d = direction[:, None, :]
+    tri_ok, tri_t, u, v = geom.ray_triangle(o, d, g[..., 0:3], g[..., 3:6], g[..., 6:9])
+    sph_ok, sph_t = geom.ray_sphere(o, d, g[..., 0:3], g[..., 9])
+    kind = g[..., 10]
+    is_tri = kind == PRIM_TRIANGLE
+    ok = torch.where(is_tri, tri_ok, sph_ok & (kind == PRIM_SPHERE))
+    t = torch.where(ok, torch.where(is_tri, tri_t, sph_t), math.inf)
+    return t, u, v, is_tri, g[..., 11]
+
+
+def _cluster_leaf_closest(scene):
+    """Closest-hit leaf sweep: the first minimum inside the leaf replaces
+    the running hit only when strictly nearer (tracer.py:2746-2779)."""
+
+    def leaf_sweep(slots, origin, direction, state):
+        t, u, v, is_tri, ref = _leaf_hits(scene, slots, origin, direction)
+        tj, j = _first_min(t)
+        pick = lambda x: torch.gather(x, 1, j[:, None])[:, 0]
+        better = tj < state["t"]
+        won_tri = pick(is_tri)
+        return {
+            "t": torch.where(better, tj, state["t"]),
+            "kind": torch.where(
+                better,
+                torch.where(won_tri, KIND_TRIANGLE, KIND_SPHERE).to(state["kind"].dtype),
+                state["kind"],
+            ),
+            "idx": torch.where(better, pick(ref).to(state["idx"].dtype), state["idx"]),
+            "u": torch.where(better, torch.where(won_tri, pick(u), 0.0), state["u"]),
+            "v": torch.where(better, torch.where(won_tri, pick(v), 0.0), state["v"]),
+        }
+
+    return leaf_sweep
+
+
+def _cluster_leaf_shadow(scene):
+    """Any-hit leaf sweep: the running minimum t."""
+
+    def leaf_sweep(slots, origin, direction, state):
+        t, _, _, _, _ = _leaf_hits(scene, slots, origin, direction)
+        return {"t": torch.minimum(state["t"], t.min(dim=1).values)}
+
+    return leaf_sweep
 
 
 def surface_data(scene: Scene, hit, origin, direction):
@@ -499,8 +725,12 @@ def _direct_sample(
     # lamp's material probability didn't read the wavelength
     col_mask = _column_mask(aux_alive & ~l_dispersed, s_count)
 
-    # shadow ray, seeded at the lamp distance (intersect_shadow)
-    t_hit = intersect_shadow(scene, position, samp["direction"], torch.sqrt(samp["sq_distance"]))
+    # shadow ray, seeded at the lamp distance, stopping at the first blocker
+    # below the occlusion bound (tracer.py:1269-1270)
+    block_below = torch.sqrt(torch.clamp(samp["sq_distance"] - DIST_EPSILON, min=0.0))
+    t_hit = intersect_shadow(
+        scene, position, samp["direction"], torch.sqrt(samp["sq_distance"]), block_below
+    )
     has_hit = torch.isfinite(t_hit)
     hit_sq = torch.where(has_hit, t_hit * t_hit, math.inf)
     blocked = has_hit & (hit_sq < samp["sq_distance"] - DIST_EPSILON)

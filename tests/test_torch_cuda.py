@@ -21,3 +21,22 @@ def test_cuda_kernels_match_plain_version(tmp_path, name):
     paths = chip_smoke.scene_paths(str(tmp_path), width=128, height=64, spectrum_samples=6, bounces=8)
     worst = chip_smoke.check_kernels(name, paths[name], lanes=8192)
     assert worst["divergent"] < 0.015
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["terrain_24", "tri_lamp_24", "terrain_405"])
+def test_cuda_wide_kernels_match_plain_version(tmp_path, name):
+    """The mesh-scene kernels: the traversal queries (t to rtol 1e-6, idx
+    equal off ties, blocked flags exact) and the wide bounce and NEE
+    kernels against tracer.bounce_core."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    directory = str(tmp_path)
+    if name == "tri_lamp_24":
+        path = chip_smoke.write_tri_lamp_scene(directory, width=128, height=64, cells=24)
+    else:
+        cells = int(name.split("_")[1])
+        path = chip_smoke.terrain_paths(directory, cells=(cells,), width=128, height=64)[name]
+    chip_smoke.check_queries(name, path, lanes=8192)
+    worst = chip_smoke.check_kernels(name, path, lanes=8192)
+    assert worst["divergent"] < 0.015

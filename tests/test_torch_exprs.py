@@ -120,7 +120,7 @@ def test_hand_built_programs(inputs, case):
 
 
 def run_postfix(code, normal, incident):
-    """The kernels' postfix interpreter (csrc/dense_bounce.cu eval_prob),
+    """The kernels' postfix interpreter (csrc/bounce.cu eval_prob),
     written in torch over all lanes at once."""
     n = normal.shape[0]
     stack = []

@@ -1,6 +1,6 @@
 """pyrite_tpu_torch.scene and kernels_dense.build_pack against the JAX
-package on the three dense scenes; the refusal gate; the jax-free import
-bridge; the kernel build without nvcc."""
+package on the dense scenes and two mesh scenes; the refusal gate; the
+jax-free import bridge; the kernel build without nvcc."""
 
 import os
 import re
@@ -22,26 +22,37 @@ torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = ["flagship", "prism", "tri_lamp", "many_materials"]
+MESHES = ["terrain_24", "tri_lamp_24"]
+# the JAX package's padded and channel-major copies for its TPU kernels
+TPU_COPIES = {"wide_rows_pad", "clu_geo_ch"}
 
 
 @pytest.fixture(scope="module")
 def paths(tmp_path_factory):
-    return chip_smoke.scene_paths(str(tmp_path_factory.mktemp("scenes")))
+    directory = str(tmp_path_factory.mktemp("scenes"))
+    return dict(
+        chip_smoke.scene_paths(directory),
+        **chip_smoke.terrain_paths(directory, cells=(24,), width=32, height=16),
+        tri_lamp_24=chip_smoke.write_tri_lamp_scene(directory, cells=24),
+    )
 
 
 @pytest.fixture(scope="module")
 def built(paths):
     return {
         name: (jax_build(jax_load(paths[name])), torch_build(torch_load(paths[name])))
-        for name in SCENES
+        for name in SCENES + MESHES
     }
 
 
-@pytest.mark.parametrize("name", SCENES)
+@pytest.mark.parametrize("name", SCENES + MESHES)
 def test_scene_arrays_match(built, name):
     sj, st = built[name]
-    assert set(st.arrays) == set(sj.arrays)
+    assert set(st.arrays) == set(sj.arrays) - TPU_COPIES
+    assert st.use_clusters == sj.use_clusters == (name in MESHES)
     for key, value in sj.arrays.items():
+        if key in TPU_COPIES:
+            continue
         want = np.asarray(value)
         got = st.arrays[key].numpy()
         assert got.dtype == want.dtype and got.shape == want.shape, key
@@ -60,6 +71,31 @@ def test_pack_sheet_matches(built, name):
     np.testing.assert_array_equal(st.dense_pack["sheet"], np.asarray(sj.dense_pack["sheet"]))
     meta = st.dense_pack["meta"]
     assert all(meta[k] == v for k, v in sj.dense_pack["meta"].items() if k in meta)
+
+
+@pytest.mark.parametrize("name", MESHES)
+def test_mesh_pack(built, name):
+    """A mesh scene's sheet: no primitive rows; the other tables as on a
+    dense scene; each lamp's own sphere or triangle in the lamp rows."""
+    _, st = built[name]
+    pack = st.dense_pack
+    meta, sheet = pack["meta"], pack["sheet"]
+    assert meta["n_prims"] == 0 and sheet.shape == (len(meta) - 2, 128)
+    a = {k: v.numpy() for k, v in st.arrays.items()}
+    np.testing.assert_array_equal(sheet[meta["comp_bsdf"], : len(a["comp_bsdf"])], a["comp_bsdf"])
+    ref = a["lamp_ref"]
+    n = st.num_lamps
+    np.testing.assert_array_equal(sheet[meta["lamp_ref"], :n], np.arange(n))
+    if name == "tri_lamp_24":
+        assert st.lamp_types == {3} and n == 2
+        for axis, c in enumerate("xyz"):
+            np.testing.assert_array_equal(sheet[meta[f"ltri_v0{c}"], :n], a["tri_v0"][ref, axis])
+            np.testing.assert_array_equal(sheet[meta[f"ltri_n2{c}"], :n], a["tri_n"][ref, 2, axis])
+        np.testing.assert_array_equal(sheet[meta["ltri_mat"], :n], a["tri_mat"][ref])
+    else:
+        assert st.lamp_types == {2} and n == 1
+        np.testing.assert_array_equal(sheet[meta["lsph_r"], :n], a["sph_radius"][ref])
+        np.testing.assert_array_equal(sheet[meta["lsph_cy"], :n], a["sph_center"][ref, 1])
 
 
 def test_scene_shapes_are_covered(built):
@@ -106,7 +142,8 @@ def test_convert_round_trip(built):
 
 def test_port_imports_no_jax():
     code = (
-        "import sys, pyrite_tpu_torch, pyrite_tpu_torch.cli\n"
+        "import sys, pyrite_tpu_torch, pyrite_tpu_torch.cli, pyrite_tpu_torch.bvh\n"
+        "import pyrite_tpu_torch.kernels, pyrite_tpu_torch.kernels_dense\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m == 'pyrite_tpu' or m.startswith('pyrite_tpu.') for m in sys.modules)\n"
         "shared = {m.split('.')[2] for m in sys.modules if m.startswith('pyrite_tpu_torch._shared.')}\n"
@@ -132,7 +169,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_meta_fields_match_kernel_enum():
-    with open(os.path.join(_build.CSRC, "dense_bounce.cu")) as fh:
+    with open(os.path.join(_build.CSRC, "common.cuh")) as fh:
         src = fh.read()
     body = re.search(r"enum Meta \{(.*?)\};", src, re.S).group(1)
     names = [n.strip() for n in body.replace("\n", " ").split(",") if n.strip()]

@@ -1,5 +1,8 @@
-"""The slice end to end on the CPU: trace_paths and one render step of both
-packages with identical draws, and the port's CLI from .lua to PNG.
+"""The slices end to end on the CPU: trace_paths and one render step of both
+packages with identical draws, and the port's CLI from .lua to PNG, on dense
+scenes and on mesh scenes (terrain_24: 1152 triangles and a sphere lamp;
+tri_lamp_24: 1154 triangles, two of them the lamp), which take the
+clustered wide BVH.
 
 trace_paths runs 4 bounces with the JAX side jitted, where fused float
 association flips the odd boundary lane and the flip cascades over the
@@ -36,7 +39,12 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 @pytest.fixture(scope="module")
 def paths(tmp_path_factory):
-    return chip_smoke.scene_paths(str(tmp_path_factory.mktemp("slice")))
+    directory = str(tmp_path_factory.mktemp("slice"))
+    return dict(
+        chip_smoke.scene_paths(directory),
+        **chip_smoke.terrain_paths(directory, cells=(24,), width=48, height=24, spp=2),
+        tri_lamp_24=chip_smoke.write_tri_lamp_scene(directory, width=48, height=24, cells=24),
+    )
 
 
 def _packages(path):
@@ -62,9 +70,10 @@ def _bounce_draws(scene, cfg, key, n):
     ]
 
 
-@pytest.mark.parametrize("name", ["flagship", "tri_lamp"])
+@pytest.mark.parametrize("name", ["flagship", "tri_lamp", "terrain_24", "tri_lamp_24"])
 def test_trace_paths_matches_jax(paths, name):
     (sj, film_j, cam_j, cfg_j), (st, _, _, _) = _packages(paths[name])
+    assert st.use_clusters == sj.use_clusters == name.endswith("_24")
     _, oj, dj, wj = jax_simple.chunk_rays(film_j, cam_j, cfg_j, jax.random.PRNGKey(3))
     n = oj.shape[0]
     key = jax.random.PRNGKey(9)
@@ -82,7 +91,7 @@ def test_trace_paths_matches_jax(paths, name):
     assert (aux_ref == aux.numpy()).mean() > 0.98
 
 
-@pytest.mark.parametrize("name", ["flagship", "prism"])
+@pytest.mark.parametrize("name", ["flagship", "prism", "terrain_24"])
 def test_render_step_matches_jax(paths, name):
     (sj, film_j, cam_j, cfg_j), (st, film_t, cam_t, cfg_t) = _packages(paths[name])
     rows = 4
@@ -119,6 +128,20 @@ def test_cli_renders_png(paths, tmp_path):
     with Image.open(out) as img:
         assert img.size == (64, 32) and img.mode == "RGB"
         assert np.asarray(img).max() > 0
+
+
+def test_cli_renders_mesh_png(paths, tmp_path):
+    from PIL import Image
+
+    out = tmp_path / "terrain.png"
+    before = dict(TT.launches)
+    assert cli.main([paths["terrain_24"], "--samples", "2", "--device", "cpu", "--output", str(out)]) == 0
+    # 2 samples in one step, 4 bounces, every one by the plain version
+    assert TT.launches["bounce_core"] - before["bounce_core"] == 4
+    with Image.open(out) as img:
+        assert img.size == (48, 24) and img.mode == "RGB"
+        pixels = np.asarray(img)
+    assert pixels.max() > 0 and pixels.mean() > 10
 
 
 def test_cli_refuses_what_is_not_ported(paths, tmp_path):
