@@ -1,34 +1,49 @@
 """Smoke check of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
 Drives pyrite_tpu_torch's paths (``.lua`` -> PNG through the CUDA bounce
-and NEE kernels, on dense and on mesh scenes, and the mesh ray queries) on
-the card and exits non-zero on any failure:
+and NEE kernels, on dense scenes, on scenes of distance-estimated (DE)
+shapes and on mesh scenes; the mesh ray queries; the DE march) on the card
+and exits non-zero on any failure:
 
-1. device: the card's name and power limit;
+1. device: the card's name, power limit and maximum SM clock;
 2. build: the kernels, from the sources, into an empty build directory;
 3. kernels against their plain PyTorch version on the card, at the
-   wavefront the main path launches: the dense bounce and NEE kernels on
-   four dense scenes (flagship spheres, examples/prism.lua, a triangle-lamp
-   mesh, a many-materials scene); the wide-BVH traversal kernels on the
-   328,050- and 871,200-triangle terrains (tools/synthetic.terrain_scene,
-   cells 405 and 660); the wide bounce and NEE kernels on terrain_405;
+   wavefront the main path launches: the DE march kernel on the camera rays
+   of examples/fractal.lua (a Mandelbulb in a box) and of the julia scene
+   (a cubic quaternion Julia in a sphere over a plane, no finite
+   primitive); the dense bounce and NEE kernels on four dense scenes
+   (flagship spheres, examples/prism.lua, a triangle-lamp mesh, a
+   many-materials scene) and on both DE scenes; the wide-BVH traversal
+   kernels on the 328,050- and 871,200-triangle terrains
+   (tools/synthetic.terrain_scene, cells 405 and 660); the wide bounce and
+   NEE kernels on terrain_405;
 4. per-launch times of the kernels and of the plain version at that size
-   (the traversal queries on both terrains);
+   (the traversal queries on both terrains, the march and the dense kernels
+   on fractal.lua too), with the work the plain version counts, from which
+   each kernel's bound is computed;
 5. the paths, each with the launch counts zeroed just before it and read
    just after: the CLI renders the flagship and prism.lua (dense kernels),
-   the CLI renders terrain_405 (wide bounce and NEE kernels), and the ray
-   queries closest_wide / shadow_wide trace one step's camera rays of
-   terrain_405 and their shadow rays (wide traversal kernels). No bounce
-   may take the plain path.
+   fractal.lua and the julia scene (dense kernels marching DE shapes),
+   terrain_405 (wide bounce and NEE kernels); the ray queries closest_wide /
+   shadow_wide trace one step's camera rays of terrain_405 and their shadow
+   rays (wide traversal kernels); kernels.march_de marches one step's camera
+   rays of fractal.lua (DE march kernel). No bounce may take the plain path.
 
 The last line is one JSON object {"ok": true, "device": {...}}; the line
-before it lists each kernel's launches, error and times.
+before it lists each kernel's launches, error, times and bound.
+
+``python3 chip_smoke.py --profile`` instead renders the main-path scenes
+(flagship and terrain_405 at 64 spp, fractal.lua at 8 spp) through
+renderers.simple.render, 5 timed runs after a warm-up and one run under
+torch.profiler, and prints the launches, wall times, device idle share and
+top device ops of each.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -166,6 +181,99 @@ def scene_paths(directory, width=64, height=32, spectrum_samples=4, bounces=4):
     }
 
 
+JULIA_SCENE = """
+return {
+    image = {width = %(w)d, height = %(h)d},
+    renderer = renderer.simple {
+        pixel_samples = 64,
+        spectrum_samples = %(s)d,
+        bounces = %(b)d,
+        light_samples = 1,
+    },
+    camera = camera.perspective {
+        fov = 40,
+        transform = transform.look_at {from = vector(0.4, 0.9, -3.4), to = vector(0, -0.2, 0)},
+    },
+    world = {
+        sky = 0.05,
+        objects = {
+            shape.ray_marched {
+                shape = ray_marched.quaternion_julia {
+                    iterations = 25,
+                    threshold = 4,
+                    constant = vector(-0.45, -0.0375, -0.4, -0.025),
+                    slice_plane = 0,
+                    variant = quaternion_julia.cubic,
+                },
+                bounds = {type = "sphere", position = vector(0, 0, 0), radius = 1.5},
+                material = {surface = material.diffuse {color = rgb(0.8, 0.55, 0.35)}},
+            },
+            shape.plane {
+                origin = vector(0, -1.3, 0), normal = vector(0, 1, 0),
+                material = {surface = material.diffuse {color = 0.6}},
+            },
+            light.point {position = vector(2, 4, -3), color = light_source.d65 * 60},
+        },
+    },
+}
+"""
+
+
+def write_julia_scene(directory, width=256, height=256, spectrum_samples=4, bounces=4):
+    """The julia scene: the cubic quaternion Julia that tools/tpu_de_bench.py
+    names as cornell's (25 iterations, constant (-0.45, -0.0375, -0.4,
+    -0.025), slice 0) in a bounding sphere, over a diffuse plane floor, lit
+    by a point lamp; no finite primitive. Returns the .lua path."""
+    path = os.path.join(directory, "julia.lua")
+    with open(path, "w") as fh:
+        fh.write(JULIA_SCENE % {"w": width, "h": height, "s": spectrum_samples, "b": bounces})
+    return path
+
+
+def write_fractal_scene(directory, width=512, height=512, spectrum_samples=8, bounces=6):
+    """examples/fractal.lua (a power-8 Mandelbulb of 12 iterations in a box,
+    a mirror/diffuse fresnel mix, a blackbody sphere lamp) with its image
+    size, spectrum samples and bounces replaced. Returns the .lua path."""
+    with open(os.path.join(ROOT, "examples", "fractal.lua")) as fh:
+        src = fh.read()
+    for key, value in (("width", width), ("height", height),
+                       ("spectrum_samples", spectrum_samples), ("bounces", bounces)):
+        src, count = re.subn(rf"\b{key} = \d+", f"{key} = {value}", src, count=1)
+        assert count == 1, key
+    path = os.path.join(directory, f"fractal_{width}x{height}.lua")
+    with open(path, "w") as fh:
+        fh.write(src)
+    return path
+
+
+TERRAIN_DE_OBJECT = """
+            shape.ray_marched {
+                shape = ray_marched.mandelbulb {iterations = 8, threshold = 4, power = 8},
+                bounds = bounds.box {min = vector(-1.3, 2.2, 6.7), max = vector(1.3, 4.8, 9.3)},
+                material = {surface = material.diffuse {color = rgb(0.3, 0.5, 0.8)}},
+            },
+        },
+    },
+}
+"""
+
+
+def write_terrain_de_scene(directory, cells=24, width=48, height=24, spp=2, bounces=4):
+    """A mesh scene with a DE shape: tools/synthetic.terrain_scene with a
+    small Mandelbulb (8 iterations, power 8) hanging above the terrain.
+    Returns the .lua path."""
+    path = terrain_paths(directory, cells=(cells,), width=width, height=height, spp=spp,
+                         bounces=bounces)[f"terrain_{cells}"]
+    with open(path) as fh:
+        src = fh.read()
+    head, tail = src.rsplit("        },\n    },\n}", 1)
+    assert not tail.strip(), tail
+    de_path = os.path.join(directory, f"terrain_de_{cells}.lua")
+    with open(de_path, "w") as fh:
+        fh.write(head + TERRAIN_DE_OBJECT.lstrip("\n"))
+    return de_path
+
+
 def terrain_paths(directory, cells=(405, 660), width=256, height=128, spp=8, bounces=4):
     """The mesh scenes: tools/synthetic.terrain_scene at the configuration
     bench.py measured on the TPU (256x128, 8 spp, 4 bounces, S = 4, one
@@ -194,7 +302,7 @@ def _gpu_scene(path):
 
 
 def _build_gpu_scene(path):
-    from pyrite_tpu_torch._shared.project import load_project
+    from pyrite_tpu_torch.project import load_project
     from pyrite_tpu_torch.film import Film
     from pyrite_tpu_torch.scene import CameraModel, build_scene
     from pyrite_tpu_torch.tracer import TraceConfig
@@ -424,11 +532,64 @@ def _event_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+# FP32 operations per unit of work, counted from the plain version's op
+# list, one per arithmetic operation or libm call (a libm call costs more
+# instructions than one, so the bounds below are floors): one ray-plane,
+# ray-triangle or ray-sphere test; the shading of a lane (pick, programs,
+# scatter); one lamp sample; one march step outside the estimator's loop;
+# one estimator iteration of each kind; one popped wide-BVH child's slab
+# test, a descent's 16 slab tests, one leaf row's test.
+OPS = {
+    "plane": 15, "triangle": 53, "sphere": 24, "shade": 150, "lamp": 80, "de_step": 20,
+    "mandelbulb": 32, "regular": 55, "cubic": 83, "bicomplex": 63,
+    "pop": 21, "descent": 16 * 21, "leaf_row": 53,
+}
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _work_ops(scene, work, lanes=0, per_lane=0):
+    """FP32 operations of ``lanes`` lanes costing ``per_lane`` each plus
+    the work the plain version counted (tracer.work)."""
+    ops = lanes * per_lane
+    if scene.de_shapes:
+        est = scene.de_shapes[0].estimator
+        per_iter = OPS["mandelbulb" if est["kind"] == "mandelbulb" else est["variant"]]
+        ops += work.get("de_steps", 0) * OPS["de_step"] + work.get("de_iterations", 0) * per_iter
+    return ops + sum(work.get(k, 0) * OPS[k[:-1]] for k in ("pops", "descents", "leaf_rows"))
+
+
+def _counted(fn):
+    """Run fn once with tracer.work counting; returns the counts."""
+    from pyrite_tpu_torch import tracer
+
+    tracer.work = {}
+    try:
+        fn()
+    finally:
+        work, tracer.work = tracer.work, None
+    return work
+
+
+def _sweep_ops(scene):
+    """FP32 operations of one ray against a dense scene's planes and
+    primitives (none on a mesh scene: the counted walk covers those)."""
+    ops = scene.num_planes * OPS["plane"]
+    if not scene.use_clusters:
+        ops += scene.num_triangles * OPS["triangle"] + scene.num_spheres * OPS["sphere"]
+    return ops
+
+
 def time_kernels(path, card, seed=1, plain_reps=10):
     """Phase 4: per-launch milliseconds at the first bounce of the main
     path's wavefront (every lane alive), the scene's bounce and NEE kernels
     against the plain version, each timed in the order plain, kernel,
-    kernel, plain after a warm-up."""
+    kernel, plain after a warm-up; with the bytes each kernel must move and
+    the FP32 operations its inputs need. Returns {name: (kernel ms, plain
+    ms, bytes, operations)}."""
     import dataclasses
 
     import torch
@@ -465,9 +626,34 @@ def time_kernels(path, card, seed=1, plain_reps=10):
         ),
         "bounce_dense": lambda: tracer.bounce_core(scene, cfg, wl, state, draws),
     }
-    return _time_pairs(runs, plains, plain_reps, (
+    times = _time_pairs(runs, plains, plain_reps, (
         f"per bounce at {n} lanes, S={wl.shape[1]}, light_samples={cfg.light_samples} ({card})"
     ))
+    # Bytes these inputs need: the scene's tables once; per lane (all alive
+    # at the first bounce) the bounce reads its state, two draws and one
+    # spectrum of sky or surface color and writes its state and the NEE
+    # context, 24 S + 99 bytes; the NEE kernel reads one flag per lane and,
+    # per NEE lane, its context, draws and one lamp color spectrum per light
+    # sample, and reads and writes its brightness.
+    a = scene.arrays
+    tables = _nbytes(scene.dense_pack["tensors"]["sheet"])
+    if scene.use_clusters:
+        tables += _nbytes(*(a[k] for k in ("wide_rows", "clu_geo", "tri_n", "tri_mat",
+                                             "sph_center", "sph_mat")))
+    s_count, ls = wl.shape[1], cfg.light_samples
+    nee_lanes = int(ctx["nee"].sum())
+    b_bytes = tables + n * (24 * s_count + 99)
+    n_bytes = tables + n + nee_lanes * (29 + 12 * s_count + ls * (20 + 4 * s_count))
+    b_ops = _work_ops(scene, _counted(plains[bounce_name]), n, _sweep_ops(scene) + OPS["shade"])
+    n_ops = _work_ops(scene, _counted(plains[nee_name]), nee_lanes * ls,
+                      _sweep_ops(scene) + OPS["lamp"])
+    print(f"[work] {os.path.basename(path)}: {bounce_name} {b_bytes} bytes, {b_ops} FP32 "
+          f"operations; {nee_name} {nee_lanes} NEE lanes x {ls} light samples, {n_bytes} bytes, "
+          f"{n_ops} operations")
+    return {
+        bounce_name: (*times[bounce_name], b_bytes, b_ops),
+        nee_name: (*times[nee_name], n_bytes, n_ops),
+    }
 
 
 def _time_pairs(runs, plains, plain_reps, what):
@@ -493,7 +679,8 @@ def _time_pairs(runs, plains, plain_reps, what):
 def time_queries(path, card, seed=1, plain_reps=3):
     """Phase 4 for the traversal kernels: closest_wide on the main path's
     camera wavefront and shadow_wide on its shadow rays of bounce 0, against
-    tracer.intersect_scene / intersect_shadow."""
+    tracer.intersect_scene / intersect_shadow. Returns {name: (kernel ms,
+    plain ms, bytes, operations)}."""
     import torch
 
     from pyrite_tpu_torch import kernels, tracer
@@ -512,9 +699,143 @@ def time_queries(path, card, seed=1, plain_reps=3):
         "wide_closest_kernel": lambda: tracer.intersect_scene(scene, origin, direction),
         "wide_shadow_kernel": lambda: tracer.intersect_shadow(scene, so, sd, max_dist, block),
     }
-    return _time_pairs(runs, plains, plain_reps, (
+    times = _time_pairs(runs, plains, plain_reps, (
         f"per query, {origin.shape[0]} camera rays / {so.shape[0]} shadow rays ({card})"
     ))
+    a = scene.arrays
+    tables = [scene.dense_pack["tensors"]["sheet"], a["wide_rows"], a["clu_geo"]]
+    n, m = origin.shape[0], so.shape[0]
+    sizes = {  # rays and the running hit in and out; rays, bounds and t
+        "wide_closest_kernel": _nbytes(*tables, origin, direction) + 2 * n * 20,
+        "wide_shadow_kernel": _nbytes(*tables, so, sd, max_dist, block, max_dist),
+    }
+    out = {}
+    for key, rays in (("wide_closest_kernel", n), ("wide_shadow_kernel", m)):
+        work = _counted(plains[key])
+        ops = _work_ops(scene, work, rays, _sweep_ops(scene))
+        print(f"[work] {os.path.basename(path)} {key}: {rays} rays, {work}, {sizes[key]} bytes, "
+              f"{ops} FP32 operations")
+        out[key] = (*times[key], sizes[key], ops)
+    return out
+
+
+def _de_march_args(scene, cfg, origin, direction, shape):
+    """The march toward one DE shape as tracer.intersect_de sets it up:
+    (estimator, local origin, direction, t0, tmax, hit, max steps, omega)."""
+    import math
+
+    import torch
+
+    from pyrite_tpu_torch import tracer
+
+    hit, tmin, tmax, center = tracer._de_bounds(shape, origin, direction)
+    t0 = torch.where(hit, tmin, math.inf)
+    return (shape.estimator, origin - center, direction, t0, tmax, hit, cfg.max_de_steps,
+            tracer.DE_OMEGA)
+
+
+def check_march(name, path, lanes=None, seed=0):
+    """Phase 3 for the DE march kernel on one DE scene's camera wavefront
+    (``lanes`` cuts it): kernels.march_de (CUDA) against
+    tracer.march_de_plain on the card, for each DE shape. The hit flag (the
+    march ended inside its bounds) must agree on >= 99.9 % of lanes and t to
+    rtol 1e-5 on the lanes both hit. Prints how many flags and t are bit
+    equal. Returns {"err": max abs t error, "flags_differ": count, "n": lanes}."""
+    import torch
+
+    from pyrite_tpu_torch import kernels, tracer
+
+    scene, film, camera, cfg = _gpu_scene(path)
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(seed)
+    origin, direction, _ = _wavefront(film, camera, cfg, rng, lanes)
+    n = origin.shape[0]
+    worst = {"err": 0.0, "flags_differ": 0, "n": n}
+    for j, shape in enumerate(scene.de_shapes):
+        args = _de_march_args(scene, cfg, origin, direction, shape)
+        tmax, hit = args[4], args[5]
+        total_k, dist_k = kernels.march_de(*args)
+        total_p, dist_p = tracer.march_de_plain(*args)
+        torch.cuda.synchronize()
+        ok_k, ok_p = hit & (total_k <= tmax), hit & (total_p <= tmax)
+        differ = int((ok_k != ok_p).sum())
+        assert differ <= 0.001 * n, f"{name}: hit flags differ on {differ} of {n} lanes"
+        both = ok_k & ok_p
+        tk, tp = total_k[both], total_p[both]
+        assert bool(torch.isclose(tk, tp, rtol=1e-5, atol=0.0).all()), (
+            f"{name}: t differs beyond rtol 1e-5 on {int((~torch.isclose(tk, tp, rtol=1e-5)).sum())} lanes"
+        )
+        err = float((tk - tp).abs().max()) if bool(both.any()) else 0.0
+        print(
+            f"[kernels] {name}: march_de_kernel on {n} camera rays, DE shape {j} "
+            f"({shape.estimator['kind']}, {shape.bounds_kind} bounds): {int(hit.sum())} enter the "
+            f"bounds, {int(ok_p.sum())} hit; flags equal on {n - differ}/{n}, t bit-equal on "
+            f"{int((tk == tp).sum())}/{int(both.sum())} (max abs err {err:.3g}, rtol 1e-5), dist "
+            f"bit-equal on {int((dist_k == dist_p).sum())}/{n}"
+        )
+        worst["err"] = max(worst["err"], err)
+        worst["flags_differ"] += differ
+    return worst
+
+
+def de_shadow_share(name, path, seed=0):
+    """The share of bounce-0 NEE lanes on DE hits whose shadow ray is
+    blocked, by the plain version on the card: the JAX package's shadow rule
+    takes DE hits at any t, so the DE surface shadows itself (ROADMAP.md
+    queue 3)."""
+    import torch
+
+    from pyrite_tpu_torch import kernels_dense as kd, tracer
+
+    scene, film, camera, cfg = _gpu_scene(path)
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(seed)
+    origin, direction, wl = _wavefront(film, camera, cfg, rng)
+    n = origin.shape[0]
+    state = tracer.initial_state(origin, direction, wl.shape[1])
+    draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
+    _, ctx = kd.launch_bounce_kernel(scene, cfg, wl, state, draws,
+                                     kd.precompute_bank_values(scene, wl))
+    hit = tracer.intersect_scene(scene, origin, direction, de_steps=cfg.max_de_steps)
+    lanes = torch.nonzero(ctx["nee"] & (hit["kind"] == tracer.KIND_DE))[:, 0]
+    position = (origin + direction * hit["t"][:, None])[lanes]
+    samp = tracer.sample_lamp(scene, draws["lamp_idx"].long()[lanes], position, draws["u_nee"][0][lanes])
+    sq = samp["sq_distance"]
+    t = tracer.intersect_shadow(scene, position, samp["direction"], torch.sqrt(sq),
+                                de_steps=cfg.max_de_steps)
+    blocked = torch.isfinite(t) & (t * t < sq - tracer.DIST_EPSILON)
+    share = float(blocked.float().mean()) if lanes.numel() else 0.0
+    print(f"[de-shadow] {name}: {lanes.numel()} of {n} lanes take NEE on a DE hit at bounce 0; "
+          f"{share:.4f} of their first shadow rays are blocked")
+    return share
+
+
+def time_march(path, card, seed=1, plain_reps=2):
+    """Phase 4 for the DE march kernel: march_de_kernel and its plain
+    version on the camera wavefront of a DE scene, with the march steps and
+    estimator iterations the plain version counts. Returns
+    {"march_de_kernel": (kernel ms, plain ms, bytes, operations)}."""
+    import torch
+
+    from pyrite_tpu_torch import kernels, tracer
+
+    scene, film, camera, cfg = _gpu_scene(path)
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(seed)
+    origin, direction, _ = _wavefront(film, camera, cfg, rng)
+    args = _de_march_args(scene, cfg, origin, direction, scene.de_shapes[0])
+    n = origin.shape[0]
+    times = _time_pairs(
+        {"march_de_kernel": lambda: kernels.march_de(*args)},
+        {"march_de_kernel": lambda: tracer.march_de_plain(*args)},
+        plain_reps, f"per march, {n} camera rays ({card})",
+    )
+    work = _counted(lambda: tracer.march_de_plain(*args))
+    size = _nbytes(*args[1:6]) + 2 * 4 * n  # 9 inputs in, total and dist out
+    ops = _work_ops(scene, work)
+    print(f"[work] {os.path.basename(path)} march_de_kernel: {n} rays, {work['de_steps']} march "
+          f"steps, {work['de_iterations']} estimator iterations, {size} bytes, {ops} FP32 operations")
+    return {"march_de_kernel": (*times["march_de_kernel"], size, ops)}
 
 
 def _zero_counts():
@@ -620,19 +941,123 @@ def drive_queries(path, card, seed=2):
     return launches
 
 
-def main():
+def drive_march(path, card, seed=2):
+    """Phase 5, the DE march path: one render step's camera rays of a DE
+    scene through tracer.intersect_de with the march in its CUDA kernel
+    (kernels.march_de), on the card. Checks the hits lie inside the bounds
+    and returns the launch counts of the run."""
     import torch
 
+    from pyrite_tpu_torch import kernels, tracer
+
+    scene, film, camera, cfg = _gpu_scene(path)
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(seed)
+    origin, direction, _ = _wavefront(film, camera, cfg, rng)
+    _zero_counts()
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    results = [
+        tracer.intersect_de(shape, origin, direction, cfg.max_de_steps, march=kernels.march_de)
+        for shape in scene.de_shapes
+    ]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - started
+    launches = _read_counts()
+    assert launches["march_de_kernel"] == len(scene.de_shapes), launches
+    for ok, t in results:
+        assert bool(ok.any()) and bool(torch.isfinite(t[ok]).all()), "no ray hit the DE shape"
+        assert bool((t[ok] >= 0).all()), "a DE hit at t < 0 on a camera ray"
+    print(
+        f"[march] {os.path.basename(path)}: {origin.shape[0]} camera rays, hit share "
+        f"{float(results[0][0].float().mean()):.4f}, in {seconds * 1e3:.3f} ms wall ({card}); "
+        f"launches {launches}"
+    )
+    return launches
+
+
+def _gpu_info():
+    """(torch's device name, nvidia-smi's "name, power.limit" line, max SM
+    clock in MHz)."""
+    import torch
+
+    def smi(query):
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=60,
+        ).stdout.strip().splitlines()[0]
+
+    clock = float(smi("clocks.max.sm").split()[0])
+    return torch.cuda.get_device_name(0), smi("name,power.limit"), clock
+
+
+def profile_renders(card, runs=5):
+    """``--profile``: the main-path renders through renderers.simple.render
+    (flagship and terrain_405 at 64 spp, fractal.lua at 8 spp): ``runs``
+    timed runs after a warm-up, then one under torch.profiler. Prints the
+    launches of one render, the wall times, the device's busy time (the sum
+    of its kernels' own times) and idle share (1 - busy / wall of the
+    profiled run; the profiler slows the host, so the unprofiled share is
+    lower) and the top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyrite_tpu_torch.project import load_project
+    from pyrite_tpu_torch.renderers import simple
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = [
+            (scene_paths(tmp, width=512, height=256, spectrum_samples=6, bounces=8)["flagship"], 64),
+            (terrain_paths(tmp, cells=(405,), spp=64)["terrain_405"], 64),
+            (os.path.join(ROOT, "examples", "fractal.lua"), 8),
+        ]
+        for path, spp in scenes:
+            scene = _gpu_scene(path)[0]
+            project_data = load_project(path)
+
+            def render():
+                torch.cuda.synchronize()
+                started = time.perf_counter()
+                simple.render(project_data, scene, max_samples=spp)
+                torch.cuda.synchronize()
+                return time.perf_counter() - started
+
+            render()
+            _zero_counts()
+            walls = [render()]
+            launches = _read_counts()
+            walls += [render() for _ in range(runs - 1)]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                wall = render()
+            # the kernels themselves: a CPU op's device time repeats its kernels'
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            own = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+            busy = sum(own(e) for e in events) / 1e3
+            top = sorted(events, key=own, reverse=True)[:8]
+            r = project_data.project.renderer
+            im = project_data.project.image
+            rays = im.width * im.height * spp * r.bounces * (1 + r.light_samples)
+            print(f"[profile] {os.path.basename(path)} {im.width}x{im.height}, {spp} spp ({card}): "
+                  f"launches {launches}; render wall s {', '.join(f'{w:.4f}' for w in walls)}; "
+                  f"median {sorted(walls)[len(walls) // 2]:.4f} s, "
+                  f"{rays / sorted(walls)[len(walls) // 2] / 1e6:.3f} Mrays/s nominal")
+            print(f"[profile] profiled run: wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms, "
+                  f"idle share {1 - busy / (wall * 1e3):.3f}; top device ops: " + "; ".join(
+                      f"{e.key[:60]} {own(e) / 1e3:.3f} ms ({e.count}x)" for e in top))
+
+
+def main(argv=None):
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    kind, smi, clock = _gpu_info()
+    print(f"[device] {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}; max SM clock "
+          f"{clock:.0f} MHz")
     print(smi)
 
     import shutil
@@ -644,38 +1069,64 @@ def main():
     _build.load()
     print(f"[build] {len(_build.sources())} source(s) -> {_build.library_path()} "
           f"in {time.perf_counter() - started:.2f} s")
+    if argv == ["--profile"]:
+        profile_renders(smi)
+        return 0
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
 
     with tempfile.TemporaryDirectory() as tmp:
         paths = scene_paths(tmp, width=512, height=256, spectrum_samples=6, bounces=8)
+        de = {"fractal": os.path.join(ROOT, "examples", "fractal.lua"),
+              "julia": write_julia_scene(tmp)}
         mesh = terrain_paths(tmp)
-        worst = {name: check_kernels(name, p) for name, p in paths.items()}
+        marched = {name: check_march(name, p) for name, p in de.items()}
+        worst = {name: check_kernels(name, p) for name, p in dict(paths, **de).items()}
+        shadow = {name: de_shadow_share(name, p) for name, p in de.items()}
         worst_wide = check_kernels("terrain_405", mesh["terrain_405"])
         queries = {name: check_queries(name, p) for name, p in mesh.items()}
         times = time_kernels(paths["flagship"], smi)
+        fractal_times = time_kernels(de["fractal"], smi, plain_reps=2)
+        times.update(time_march(de["fractal"], smi))
         times.update(time_kernels(mesh["terrain_405"], smi, plain_reps=2))
         times.update(time_queries(mesh["terrain_405"], smi))
         time_queries(mesh["terrain_660"], smi)  # printed: the larger leaf's cost
         dense_runs = [render_end_to_end(paths["flagship"], 16, smi, tmp),
                       render_end_to_end(paths["prism"], 8, smi, tmp)]
+        de_runs = [render_end_to_end(de["fractal"], 8, smi, tmp),
+                   render_end_to_end(de["julia"], 8, smi, tmp)]
         mesh_run = render_end_to_end(mesh["terrain_405"], 8, smi, tmp,
                                      ("wide_bounce_kernel", "wide_nee_kernel"))
         query_run = drive_queries(mesh["terrain_405"], smi)
+        march_run = drive_march(de["fractal"], smi)
+
+    fp32_rate = 132 * 128 * clock * 1e6  # FP32 lanes x SM clock (operations / s)
 
     def kernel(name, source, replaces, launches, err):
+        ms, plain_ms, size, ops = times[name]
+        by_bytes, by_ops = size / HBM_BYTES_PER_S * 1e3, ops / fp32_rate * 1e3
         return {
             "name": name, "route": "cuda", "source": f"pyrite_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
-            "ms": times[name][0], "plain_ms": times[name][1],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations", "library_ms": None,
         }
 
-    dense_total = lambda key: sum(run[key] for run in dense_runs)
+    for name, (ms, plain_ms, size, ops) in fractal_times.items():
+        print(f"[bound] fractal.lua {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{max(size / HBM_BYTES_PER_S, ops / fp32_rate) * 1e3:.4f} ms")
+    dense_total = lambda key: sum(run[key] for run in dense_runs + de_runs)
     queried = queries.values()
+    checked = list(worst.values())
     kernels = [
         kernel("dense_bounce_kernel", "bounce.cu", "pyrite_tpu/kernels_dense.py:717",
                dense_total("dense_bounce_kernel"),
-               max(max(w["bounce"], w["brightness"]) for w in worst.values())),
+               max(max(w["bounce"], w["brightness"]) for w in checked)),
         kernel("dense_nee_kernel", "bounce.cu", "pyrite_tpu/kernels_dense.py:909",
-               dense_total("dense_nee_kernel"), max(w["nee"] for w in worst.values())),
+               dense_total("dense_nee_kernel"), max(w["nee"] for w in checked)),
+        kernel("march_de_kernel", "march_de.cu", "pyrite_tpu/kernels.py:907",
+               march_run["march_de_kernel"], max(m["err"] for m in marched.values())),
         kernel("wide_closest_kernel", "wide_bvh.cu", "pyrite_tpu/kernels.py:541",
                query_run["wide_closest_kernel"], max(q["closest"] for q in queried)),
         kernel("wide_shadow_kernel", "wide_bvh.cu", "pyrite_tpu/kernels.py:593",
@@ -686,6 +1137,7 @@ def main():
                mesh_run["wide_nee_kernel"], worst_wide["nee"]),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
+    print(f"[de-shadow] blocked shares {shadow}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

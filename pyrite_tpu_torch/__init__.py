@@ -3,8 +3,10 @@
 The JAX package ``pyrite_tpu`` stays the reference; this package holds the
 PyTorch counterparts of its modules under the same names, and hand-written
 CUDA kernels (``csrc/``) for the kernels the JAX package wrote in Pallas. It
-never imports JAX: the jax-free host code (Lua interpreter, project loader,
-native OBJ parser) is loaded through the ``_shared`` bridge.
+never imports JAX nor anything of ``pyrite_tpu``: the host code it needs
+(the Lua interpreter ``lua/``, the project loader ``project/``, the native
+SAH builder and OBJ parser ``native/`` and the colorimetry tables ``data/``)
+is its own copy, held line for line to the original by a test.
 """
 
 import torch as _torch

@@ -17,9 +17,9 @@ import time
 import numpy as np
 import torch
 
-from ._shared.lua.interpreter import LuaError
-from ._shared.project import load_project
-from ._shared.project.ir import ProjectError
+from .lua.interpreter import LuaError
+from .project import load_project
+from .project.ir import ProjectError
 from .film import save_png
 from .scene import build_scene
 

@@ -18,9 +18,11 @@ constexpr float DIST_EPSILON = 1e-4f;
 constexpr float PI_F = 3.14159265358979323846f;
 
 // kernels_dense.META_FIELDS, in order: counts first, then sheet rows (-1
-// where the scene has no such table).
+// where the scene has no such table). The DE rows (M_DE_KIND .. M_DE_MAT)
+// hold one column per DE shape, in the field order of csrc/march_de.cuh's
+// de_shape (kernels_dense.DE_FIELDS).
 enum Meta {
-  M_N_PRIMS, M_N_PLANES,
+  M_N_PRIMS, M_N_PLANES, M_N_DE,
   M_PLA_NX, M_PLA_NY, M_PLA_NZ, M_PLA_D, M_PLA_MAT,
   M_MAT_COMP_COUNT, M_MAT_COMP_OFFSET, M_MAT_EMIS_COUNT, M_MAT_EMIS_OFFSET,
   M_COMP_BSDF, M_COMP_COLOR, M_COMP_PROB, M_COMP_PROB_USES_WL, M_COMP_SELECTION,
@@ -32,15 +34,24 @@ enum Meta {
   M_LTRI_N0X, M_LTRI_N0Y, M_LTRI_N0Z, M_LTRI_N1X, M_LTRI_N1Y, M_LTRI_N1Z,
   M_LTRI_N2X, M_LTRI_N2Y, M_LTRI_N2Z, M_LTRI_MAT,
   M_EMIS_COMP, M_EMIS_SELECTION,
+  M_DE_KIND, M_DE_VARIANT, M_DE_ITERATIONS, M_DE_THRESHOLD, M_DE_THR2, M_DE_POWER,
+  M_DE_POWER_M1, M_DE_HAS_CONSTANT, M_DE_C0, M_DE_C1, M_DE_C2, M_DE_C3, M_DE_SLICE,
+  M_DE_BOUNDS_KIND, M_DE_AX, M_DE_AY, M_DE_AZ, M_DE_BX, M_DE_BY, M_DE_BZ,
+  M_DE_CX, M_DE_CY, M_DE_CZ, M_DE_MAT,
   M_COUNT
 };
 
-enum { KIND_NONE = 0, KIND_TRIANGLE = 1, KIND_SPHERE = 2, KIND_PLANE = 3 };
+enum { KIND_NONE = 0, KIND_TRIANGLE = 1, KIND_SPHERE = 2, KIND_PLANE = 3, KIND_DE = 4 };
 enum { PRIM_TRIANGLE = 0, PRIM_SPHERE = 1 };
 
 struct V3 {
   float x, y, z;
 };
+
+// min / max that return NaN when either side is NaN, as torch.minimum /
+// maximum and jnp.minimum / maximum do (fminf / fmaxf would drop it).
+__device__ __forceinline__ float nan_min(float a, float b) { return (a < b || a != a) ? a : b; }
+__device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a != a) ? a : b; }
 
 __device__ __forceinline__ V3 operator+(V3 a, V3 b) { return {a.x + b.x, a.y + b.y, a.z + b.z}; }
 __device__ __forceinline__ V3 operator-(V3 a, V3 b) { return {a.x - b.x, a.y - b.y, a.z - b.z}; }

@@ -47,11 +47,6 @@ struct WideBvh {
   int leaf;                        // rows per leaf cluster (128, or more on big meshes)
 };
 
-// min / max that return NaN when either side is NaN, as torch.minimum /
-// maximum and jnp.minimum / maximum do (fminf / fmaxf would drop it).
-__device__ __forceinline__ float nan_min(float a, float b) { return (a < b || a != a) ? a : b; }
-__device__ __forceinline__ float nan_max(float a, float b) { return (a > b || a != a) ? a : b; }
-
 // Slab test of child k of a node row (tracer._slab16, math.rs:184-207). On
 // a ray with a zero direction component whose origin lies in a slab plane
 // (lo - o) * inv_d is 0 * inf = NaN; NaN propagates and the box is missed,

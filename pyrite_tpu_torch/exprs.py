@@ -22,7 +22,7 @@ from typing import Callable, Optional
 import torch
 
 from . import spectra as spectra_mod
-from ._shared.project import ir
+from .project import ir
 
 NUMBER = "number"
 VECTOR = "vector"

@@ -175,3 +175,27 @@ def ray_plane(origin, direction, normal, d):
     t = (d - dot(normal, origin)) / torch.where(ok, denom, 1.0)
     ok = ok & (t > DIST_EPSILON)
     return ok, torch.where(ok, t, math.inf)
+
+
+def ray_aabb_range(origin, direction, lo, hi):
+    """Box slab test (hit, tmin, tmax) with tmin clamped to 0 (BoundingVolume
+    ::Box, shapes/mod.rs:594-667). NaN from 0 * inf propagates through the
+    min/max, as in the JAX package, and misses."""
+    inv = 1.0 / direction
+    t1 = (lo - origin) * inv
+    t2 = (hi - origin) * inv
+    tmin = torch.clamp(torch.minimum(t1, t2).amax(dim=-1), min=0.0)
+    tmax = torch.maximum(t1, t2).amin(dim=-1)
+    return tmin < tmax, tmin, tmax
+
+
+def ray_sphere_range(origin, direction, center, radius):
+    """Bounding-sphere (hit, entry, exit) like BoundingVolume::Sphere,
+    including its tca >= 0 requirement (shapes/mod.rs:668-680)."""
+    l = center - origin
+    tca = dot(l, direction)
+    d2 = dot(l, l) - tca * tca
+    r2 = radius * radius
+    ok = (tca >= 0.0) & (d2 <= r2)
+    thc = torch.sqrt(torch.clamp(r2 - d2, min=0.0))
+    return ok, torch.clamp(tca - thc, min=0.0), tca + thc

@@ -1,6 +1,7 @@
-"""Ray queries against a mesh scene on the GPU: the wrappers of the CUDA
-traversal kernels of csrc/wide_bvh.cu (the counterpart of pyrite_tpu.kernels'
-walk, fetch and sweep kernels).
+"""Ray queries on the GPU: the wrappers of the CUDA traversal kernels of
+csrc/wide_bvh.cu (the counterpart of pyrite_tpu.kernels' walk, fetch and
+sweep kernels) and of the DE march kernel of csrc/march_de.cu (its
+counterpart of pyrite_tpu.kernels.march_de).
 
 - ``closest_wide(scene, origin, direction, init)``: the closest hit over the
   planes and the clustered wide BVH, from a running hit ``init``;
@@ -8,9 +9,12 @@ walk, fetch and sweep kernels).
 - ``shadow_wide(scene, origin, direction, max_dist, block_below)``: the
   nearest occluder from the lamp distance, stopping below the occlusion
   bound; wide_shadow_kernel.
+- ``march_de(est, local_origin, direction, t0, tmax, hit, max_steps,
+  omega)``: the sphere-traced march of one DE shape; march_de_kernel.
 
-Each takes its plain version (tracer.intersect_scene / intersect_shadow) for
-tensors on the CPU and launches its kernel for tensors on a GPU, or raises.
+Each takes its plain version (tracer.intersect_scene / intersect_shadow,
+tracer.march_de_plain) for tensors on the CPU and launches its kernel for
+tensors on a GPU, or raises.
 The simple renderer's bounce walks the tree inside its own kernels
 (kernels_dense.bounce_dense); these are the queries on their own, for
 callers that trace rays without shading them.
@@ -18,13 +22,15 @@ callers that trace rays without shading them.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from . import tracer
-from .kernels_dense import _check
+from .kernels_dense import DE_FIELDS, _check, _flag, estimator_fields
 
 # Each wrapper adds one here where it launches its kernel.
-launches = {"wide_closest_kernel": 0, "wide_shadow_kernel": 0}
+launches = {"wide_closest_kernel": 0, "wide_shadow_kernel": 0, "march_de_kernel": 0}
 
 
 def _route(scene, origin):
@@ -33,6 +39,8 @@ def _route(scene, origin):
         raise ValueError(f"the wide-BVH queries run on CPU or CUDA tensors, not {dev}")
     if not scene.use_clusters:
         raise ValueError("the wide-BVH queries take a mesh scene (scene.use_clusters)")
+    if scene.de_shapes:
+        raise ValueError("the wide-BVH queries trace the tree alone, not a scene with DE shapes")
     return dev
 
 
@@ -102,3 +110,39 @@ def shadow_wide(scene, origin, direction, max_dist, block_below):
         raise RuntimeError(f"wide_shadow_kernel launch failed: cudaError {rc}")
     launches["wide_shadow_kernel"] += 1
     return t
+
+
+def march_de(est, local_origin, direction, t0, tmax, hit, max_steps, omega=tracer.DE_OMEGA):
+    """The sphere-traced march of the DE shape whose estimator is ``est``
+    (scene.DEShape.estimator), in its local space: ``local_origin`` and
+    ``direction`` [N, 3], t0 / tmax [N], hit [N] bool (lanes that missed the
+    bounds do not march). Returns (total, dist) [N], as
+    tracer.march_de_plain."""
+    dev = local_origin.device
+    if dev.type == "cpu":
+        return tracer.march_de_plain(est, local_origin, direction, t0, tmax, hit, max_steps, omega)
+    if dev.type != "cuda":
+        raise ValueError(f"march_de runs on CPU or CUDA tensors, not {dev}")
+    from . import _build
+
+    n = local_origin.shape[0]
+    f32 = torch.float32
+    # the march reads the estimator's fields only; the bounds' stay 0
+    values = estimator_fields(est).tolist()
+    fields = (ctypes.c_float * len(DE_FIELDS))(*values)
+    total = torch.empty(n, dtype=f32, device=dev)
+    dist = torch.empty(n, dtype=f32, device=dev)
+    rc = _build.load().pyrite_march_de(
+        ctypes.addressof(fields),
+        _check("local_origin", local_origin, f32, (n, 3), dev),
+        _check("direction", direction, f32, (n, 3), dev),
+        _check("t0", t0, f32, (n,), dev),
+        _check("tmax", tmax, f32, (n,), dev),
+        _check("hit", _flag(hit), torch.uint8, (n,), dev),
+        max_steps, omega, total.data_ptr(), dist.data_ptr(), n,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"march_de_kernel launch failed: cudaError {rc}")
+    launches["march_de_kernel"] += 1
+    return total, dist

@@ -8,9 +8,10 @@ update) and the NEE kernel (lamp sample, shadow query and contribution for
 each light sample). One thread owns one lane in both. A dense scene runs
 dense_bounce_kernel / dense_nee_kernel, which sweep its <= 128 primitives;
 a mesh scene (scene.use_clusters) runs wide_bounce_kernel / wide_nee_kernel,
-which walk its clustered wide BVH. ``bounce_dense`` takes the plain version,
-tracer.bounce_core, for tensors on the CPU, and launches the kernels for
-tensors on a GPU, or raises; there is no fallback.
+which walk its clustered wide BVH. Both march the scene's distance-estimated
+shapes after the primitives (csrc/march_de.cuh). ``bounce_dense`` takes the
+plain version, tracer.bounce_core, for tensors on the CPU, and launches the
+kernels for tensors on a GPU, or raises; there is no fallback.
 
 The scene reaches the kernels as an [R, 128] f32 sheet, plus ``meta`` (the
 row of each table, in META_FIELDS order, which csrc/common.cuh's enum
@@ -19,7 +20,8 @@ mirrors) and the postfix code of the ray-input probability programs
 (same rows, same values). A mesh scene's sheet keeps the plane, material,
 component, lamp and emissive tables and has no primitive rows: its kernels
 read the node table, the leaf clusters and the triangle and sphere tables
-as flat tensors. Programs of the wavelength alone are evaluated once per
+as flat tensors. The DE shapes take one column each of the rows DE_FIELDS
+names (de_fields). Programs of the wavelength alone are evaluated once per
 launch (precompute_bank_values).
 """
 
@@ -40,9 +42,24 @@ MAX_SPECTRUM_SAMPLES = 16
 SHEET_WIDTH = 128
 _GEO_ROWS = 22  # rows 0..21: primitive channels (see build_pack)
 
+# A DE shape's parameters, in the order of csrc/march_de.cuh's de_shape:
+# estimator kind (0 Mandelbulb, 1 quaternion Julia), Julia variant (0
+# regular, 1 cubic, 2 bicomplex), iterations, escape threshold and its square
+# (as the JAX package rounds it), power and power - 1 (Mandelbulb), whether
+# the Mandelbulb has a constant, the constant (x, y, z, w), the Julia slice
+# plane, bounds kind (0 box, 1 sphere), bounds_a, bounds_b, the local
+# origin (DEShape.center), the material.
+DE_FIELDS = (
+    "kind", "variant", "iterations", "threshold", "thr2", "power", "power_m1",
+    "has_constant", "c0", "c1", "c2", "c3", "slice", "bounds_kind",
+    "ax", "ay", "az", "bx", "by", "bz", "cx", "cy", "cz", "mat",
+)
+MAX_DE_SHAPES = SHEET_WIDTH
+_JULIA_VARIANTS = {"regular": 0, "cubic": 1, "bicomplex": 2}
+
 # csrc/common.cuh `enum Meta`, in order
 META_FIELDS = (
-    "n_prims", "n_planes",
+    "n_prims", "n_planes", "n_de",
     "pla_nx", "pla_ny", "pla_nz", "pla_d", "pla_mat",
     "mat_comp_count", "mat_comp_offset", "mat_emis_count", "mat_emis_offset",
     "comp_bsdf", "comp_color", "comp_prob", "comp_prob_uses_wl", "comp_selection",
@@ -54,7 +71,7 @@ META_FIELDS = (
     "ltri_n0x", "ltri_n0y", "ltri_n0z", "ltri_n1x", "ltri_n1y", "ltri_n1z",
     "ltri_n2x", "ltri_n2y", "ltri_n2z", "ltri_mat",
     "emis_comp", "emis_selection",
-)
+) + tuple("de_" + f for f in DE_FIELDS)
 
 # Each wrapper adds one here where it launches its kernel.
 launches = {
@@ -74,22 +91,51 @@ def _refuse(what, item=_GATE):
     raise NotImplementedError(f"{what}: not ported to pyrite_tpu_torch yet {item}")
 
 
+def estimator_fields(est):
+    """The estimator's part of DE_FIELDS (kind .. slice), f32."""
+    julia = est["kind"] != "mandelbulb"
+    constant = est["constant"]
+    c = np.zeros(4, np.float32)
+    if constant is not None:
+        c[: len(constant)] = constant
+    threshold = float(est["threshold"])
+    power = float(est.get("power", 0.0))
+    return np.asarray([
+        1.0 if julia else 0.0,
+        _JULIA_VARIANTS[est["variant"]] if julia else 0.0,
+        est["iterations"], threshold, threshold * threshold, power, power - 1.0,
+        0.0 if constant is None else 1.0, *c, est.get("slice_plane", 0.0),
+    ], np.float32)
+
+
+def de_fields(shape):
+    """A scene.DEShape's DE_FIELDS values, f32 as the kernels read them."""
+    bounds = [0.0 if shape.bounds_kind == "box" else 1.0, *shape.bounds_a, *shape.bounds_b,
+              *shape.center, shape.material_id]
+    return np.concatenate([estimator_fields(shape.estimator), np.asarray(bounds, np.float32)])
+
+
 def build_pack(scene, a):
     """Gate + packed scene sheet from the host (numpy) scene arrays ``a``.
 
     On a dense scene it raises NotImplementedError exactly where the JAX
     package's build_pack returns None, and for ray-input probability
     programs outside the kernels' postfix form; a mesh scene passes the
-    same gate apart from its primitive count. Returns a dict with the
-    [R, 128] sheet, the row indices (``meta``) and the device tensors the
-    kernels read."""
+    same gate apart from its primitive count. A dense scene may have no
+    finite primitive when it has a DE shape (the JAX package keeps DE
+    scenes out of its dense pack and runs them in XLA). Returns a dict with
+    the [R, 128] sheet, the row indices (``meta``) and the device tensors
+    the kernels read."""
     clusters = scene.use_clusters
-    if not clusters and not 0 < scene.num_primitives <= 128:
+    n_de = len(scene.de_shapes)
+    if not clusters and not (0 < scene.num_primitives <= 128 or scene.num_primitives == 0 < n_de):
         _refuse(
             f"a dense scene with {scene.num_primitives} finite primitives (the kernels "
-            "sweep 1 to 128; meshes above 1024 take the wide BVH)",
+            "sweep 1 to 128, or none beside a DE shape; meshes above 1024 take the wide BVH)",
             "(ROADMAP.md queue 1: more than 128 primitives in a dense sweep)",
         )
+    if n_de > MAX_DE_SHAPES:
+        _refuse(f"{n_de} DE shapes (the kernels take at most {MAX_DE_SHAPES})")
     if scene.num_planes > 128:
         _refuse(f"{scene.num_planes} planes (the kernels take at most 128)")
     if scene.directional_lamps:
@@ -117,12 +163,9 @@ def build_pack(scene, a):
         out[: v.shape[0]] = v
         return out
 
-    if clusters:
-        rows, meta = [], {"n_prims": 0, "n_planes": scene.num_planes}
-    else:
-        rows, meta = _primitive_rows(scene, a, row), {
-            "n_prims": scene.num_primitives, "n_planes": scene.num_planes,
-        }
+    meta = {"n_prims": 0 if clusters else scene.num_primitives, "n_planes": scene.num_planes,
+            "n_de": n_de}
+    rows = [] if clusters else _primitive_rows(scene, a, row)
 
     def add(name, values):
         meta[name] = len(rows)
@@ -170,6 +213,10 @@ def build_pack(scene, a):
         add("ltri_mat", shapes["tri_mat"])
         add("emis_comp", a["emis_comp"])
         add("emis_selection", a["emis_selection"])
+    if n_de:
+        table = np.stack([de_fields(shape) for shape in scene.de_shapes])
+        for i, field in enumerate(DE_FIELDS):
+            add("de_" + field, table[:, i])
     sheet = np.stack(rows)
 
     code_off = np.cumsum([0] + [len(c) for c in code]).astype(np.int32)
@@ -192,7 +239,7 @@ def _primitive_rows(scene, a, row):
     e2 r kind ref mat, triangle vertex normals) in the order of the
     prim_kind/prim_ref tables."""
     p = scene.num_primitives
-    kind, ref = a["prim_kind"], a["prim_ref"]
+    kind, ref = a["prim_kind"][:p], a["prim_ref"][:p]  # unpadded when p = 0
     cx, cy, cz = np.zeros(p, np.float32), np.zeros(p, np.float32), np.zeros(p, np.float32)
     e1 = np.zeros((p, 3), np.float32)
     e2 = np.zeros((p, 3), np.float32)
@@ -371,7 +418,8 @@ def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals):
             "alive", "aux_alive", "sample_light", "light_events",
         )
     ] + [ctx[k].data_ptr() for k in ("flip", "refl_nee", "nee")] + [
-        n, s, cfg.light_samples, len(scene.color_programs),
+        n, s, cfg.light_samples, len(scene.color_programs), len(scene.de_shapes),
+        cfg.max_de_steps, tracer.DE_OMEGA,
         torch.cuda.current_stream(dev).cuda_stream,
     ]
     return _with_scene_tables(scene, args, dev), out, ctx
@@ -395,7 +443,8 @@ def nee_kernel_args(scene, cfg, wavelengths, out, ctx, draws, bank_vals):
         _check("u_emis", draws["u_emis"], f32, (ls, n), dev),
         _check("brightness", out["brightness"], f32, (n, s), dev),
         n, s, ls, len(scene.color_programs),
-        1.0 / (ls * 2.0 * math.pi * (1.0 / scene.num_lamps)),
+        1.0 / (ls * 2.0 * math.pi * (1.0 / scene.num_lamps)), len(scene.de_shapes),
+        cfg.max_de_steps, tracer.DE_OMEGA,
         torch.cuda.current_stream(dev).cuda_stream,
     ]
     return _with_scene_tables(scene, args, dev)

@@ -12,9 +12,10 @@ clustered wide BVH, as in the JAX package: the binary SAH build orders the
 primitives, its treelets become leaf clusters of up to ``cluster_leaf``
 primitives packed into ``clu_geo`` [slots, leaf, 12], and bvh.build_wide_bvh
 puts the 16-ary node table ``wide_rows`` [273, 128] over them. Distance-
-estimated shapes raise NotImplementedError. kernels_dense.build_pack, called
-at the end of build_scene, refuses the rest of what the CUDA kernels do not
-take (among them dense scenes of 129 to 1024 primitives).
+estimated shapes (``RayMarched``) become ``scene.de_shapes``, marched
+outside the primitives as in the JAX package. kernels_dense.build_pack,
+called at the end of build_scene, refuses the rest of what the CUDA kernels
+do not take (among them dense scenes of 129 to 1024 primitives).
 """
 
 from __future__ import annotations
@@ -29,8 +30,8 @@ import torch
 from . import bvh as bvh_mod
 from . import exprs
 from . import geometry as geom
-from ._shared import native
-from ._shared.project import ir
+from . import native
+from .project import ir
 
 # bsdf type codes
 BSDF_EMISSIVE = 0
@@ -188,6 +189,26 @@ def flatten_material(node: ir.MaterialNode) -> list[FlatComponent]:
     return components
 
 
+@dataclass
+class DEShape:
+    """A distance-estimated (ray-marched) shape: its estimator's parameters
+    (the JAX package's dict), its bounding volume and its material."""
+
+    estimator: dict
+    bounds_kind: str  # "box" | "sphere"
+    bounds_a: np.ndarray  # box min / sphere center, f32 [3]
+    bounds_b: np.ndarray  # box max / [radius, 0, 0], f32 [3]
+    material_id: int
+
+    @property
+    def center(self) -> np.ndarray:
+        """The origin of the shape's local space: the box center, in f32 as
+        the JAX package computes it, or the sphere center."""
+        if self.bounds_kind == "box":
+            return (self.bounds_a + self.bounds_b) * np.float32(0.5)
+        return self.bounds_a
+
+
 class Scene:
     """Scene container: device tensors + compiled program banks."""
 
@@ -197,6 +218,7 @@ class Scene:
         self.color_programs: list[exprs.CompiledProgram] = []
         self.prob_programs: list[exprs.CompiledProgram] = []
         self.normal_programs: list[exprs.CompiledProgram] = []
+        self.de_shapes: list[DEShape] = []
         self.directional_lamps: list = []
         self.sky_program: Optional[exprs.CompiledProgram] = None
         self.num_lamps = 0
@@ -493,10 +515,12 @@ def build_scene(project_data, device="cpu") -> Scene:
                         lamp_width.append(0.0)
                         lamp_color.append(-1)
         elif isinstance(obj, ir.RayMarched):
-            raise NotImplementedError(
-                "distance-estimated shapes are not ported to pyrite_tpu_torch yet "
-                "(ROADMAP.md queue 1: the DE march kernel)"
-            )
+            scene.de_shapes.append(_de_shape(obj, add_material(obj.material)))
+            if material_is_emissive(scene.de_shapes[-1].material_id):
+                print(
+                    "Warning: emissive, distance estimated shapes may not "
+                    "always produce correct results."
+                )
         elif isinstance(obj, ir.DirectionalLight):
             lamp_type.append(LAMP_DIRECTIONAL)
             lamp_ref.append(-1)
@@ -603,6 +627,36 @@ def build_scene(project_data, device="cpu") -> Scene:
 
     scene.dense_pack = kernels_dense.build_pack(scene, host)
     return scene
+
+
+def _de_shape(obj, mid) -> DEShape:
+    """A RayMarched object's estimator dict and bounds, built exactly as the
+    JAX package builds them (scene.py:577-620)."""
+    est = obj.shape
+    if isinstance(est, ir.Mandelbulb):
+        estimator = {
+            "kind": "mandelbulb",
+            "iterations": int(ir.eval_number(est.iterations)),
+            "threshold": ir.eval_number(est.threshold),
+            "power": ir.eval_number(est.power),
+            "constant": None if est.constant is None else ir.eval_vector3(est.constant),
+        }
+    else:
+        estimator = {
+            "kind": "quaternion_julia",
+            "iterations": int(ir.eval_number(est.iterations)),
+            "threshold": ir.eval_number(est.threshold),
+            "constant": ir.eval_vector4(est.constant),
+            "slice_plane": ir.eval_number(est.slice_plane),
+            "variant": est.variant,
+        }
+    if isinstance(obj.bounds, ir.BoundingBox):
+        kind, a, b = "box", ir.eval_vector3(obj.bounds.min), ir.eval_vector3(obj.bounds.max)
+    else:
+        kind = "sphere"
+        a = ir.eval_vector3(obj.bounds.position)
+        b = np.array([ir.eval_number(obj.bounds.radius), 0.0, 0.0], np.float32)
+    return DEShape(estimator, kind, a.astype(np.float32), b.astype(np.float32), mid)
 
 
 def _build_clusters(tri_v0, tri_e1, tri_e2, sph_center, sph_radius):

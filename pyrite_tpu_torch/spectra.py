@@ -16,12 +16,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from ._shared import DATA_DIR
 from .geometry import dot
 
 DEFAULT_SPECTRUM_SPAN = (380.0, 780.0)
 
-_DATA_PATH = os.path.join(DATA_DIR, "colorimetry.npz")
+_DATA_PATH = os.path.join(os.path.dirname(__file__), "data", "colorimetry.npz")
 
 
 @lru_cache(maxsize=1)

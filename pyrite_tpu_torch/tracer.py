@@ -8,13 +8,19 @@ and BSDF scattering,
 next-event estimation, and streaming radiance accumulation (the recurrence of
 renderer/algorithm.rs:14-100, fused into the loop as in the JAX package).
 
+Distance-estimated shapes are sphere-traced after the primitives
+(``intersect_de``; ``march_de_plain`` is the plain version of the CUDA march
+in csrc/march_de.cuh, which kernels.march_de launches alone and the bounce
+kernels run inside).
+
 ``bounce_core`` is the plain PyTorch version of the CUDA bounce and NEE
 kernels in csrc/bounce.cu: kernels_dense.bounce_dense runs it for tensors on
 the CPU and launches the kernels for tensors on a GPU. ``intersect_scene`` /
 ``intersect_shadow`` on a mesh scene are the plain versions of the traversal
-kernels of csrc/wide_bvh.cu (kernels.closest_wide / shadow_wide). Its random numbers come in
-one ``draws`` dict shaped like the JAX package's draw_bounce_uniforms, so
-both packages (and both versions) can be fed identical draws.
+kernels of csrc/wide_bvh.cu (kernels.closest_wide / shadow_wide). Its random
+numbers come in one ``draws`` dict shaped like the JAX package's
+draw_bounce_uniforms, so both packages (and both versions) can be fed
+identical draws.
 """
 
 from __future__ import annotations
@@ -47,11 +53,30 @@ KIND_NONE = 0
 KIND_TRIANGLE = 1
 KIND_SPHERE = 2
 KIND_PLANE = 3
+KIND_DE = 4  # DE shape j encoded as idx = j
+
+# The over-relaxation factor of the DE sphere trace: the JAX package's
+# default (kernels.de_omega, chosen there by a cornell A/B); 1.0 is the plain
+# march.
+DE_OMEGA = 1.6
 
 # Counts for a run to show which route its bounces took: "bounce_core" is
 # the plain version's calls, "bounces" the bounce iterations trace_paths ran
 # (by either route).
 launches = {"bounce_core": 0, "bounces": 0}
+
+# Work the plain version counts while a caller sets this to a dict (None:
+# no counting, and no host syncs for it): "de_steps" (march steps of all
+# lanes), "de_iterations" (estimator iterations entered), "pops" (wide-BVH
+# children popped), "descents" (node rows tested on descending) and
+# "leaf_rows" (leaf rows tested). chip_smoke.py reads it for the kernels'
+# bounds.
+work = None
+
+
+def _count(key, amount):
+    if work is not None:
+        work[key] = work.get(key, 0) + int(amount)
 
 
 @dataclass(frozen=True)
@@ -59,6 +84,7 @@ class TraceConfig:
     bounces: int
     light_samples: int
     spectrum_samples: int
+    max_de_steps: int = 200
 
 
 # =============================================================================
@@ -85,12 +111,14 @@ def empty_hit(n, device):
     }
 
 
-def intersect_scene(scene: Scene, origin, direction, init=None):
+def intersect_scene(scene: Scene, origin, direction, init=None, de_steps=200):
     """Closest hit for a ray batch, from the running hit ``init`` (empty_hit
     by default). Returns a dict with t, kind, idx, u, v
     (tracer.py:501-552 with _brute_force_triangles/_spheres, or the cluster
-    traversal); ``idx`` is the plane index or the triangle/sphere table
-    index (prim_ref)."""
+    traversal, then the DE shapes); ``idx`` is the plane index, the
+    triangle/sphere table index (prim_ref) or the DE shape's index. A DE hit
+    counts only beyond DIST_EPSILON and strictly nearer than the hit so far
+    (tracer.py:547)."""
     a = scene.arrays
     best = dict(empty_hit(origin.shape[0], origin.device) if init is None else init)
 
@@ -109,27 +137,36 @@ def intersect_scene(scene: Scene, origin, direction, init=None):
         tj, j = _first_min(t)
         take(tj < best["t"], KIND_PLANE, tj, j)
     if scene.use_clusters:
-        return cluster_traverse(scene, origin, direction, best, _cluster_leaf_closest(scene))
-    if scene.num_triangles > 0:
-        _, t, u, v = geom.ray_triangle(o, d, a["tri_v0"][None], a["tri_e1"][None], a["tri_e2"][None])
-        tj, j = _first_min(t)
-        pick = lambda x: torch.gather(x, 1, j[:, None])[:, 0]
-        take(tj < best["t"], KIND_TRIANGLE, tj, j, pick(u), pick(v))
-    if scene.num_spheres > 0:
-        _, t = geom.ray_sphere(o, d, a["sph_center"][None], a["sph_radius"][None])
-        tj, j = _first_min(t)
-        take(tj < best["t"], KIND_SPHERE, tj, j)
+        best = cluster_traverse(scene, origin, direction, best, _cluster_leaf_closest(scene))
+    else:
+        if scene.num_triangles > 0:
+            _, t, u, v = geom.ray_triangle(o, d, a["tri_v0"][None], a["tri_e1"][None], a["tri_e2"][None])
+            tj, j = _first_min(t)
+            pick = lambda x: torch.gather(x, 1, j[:, None])[:, 0]
+            take(tj < best["t"], KIND_TRIANGLE, tj, j, pick(u), pick(v))
+        if scene.num_spheres > 0:
+            _, t = geom.ray_sphere(o, d, a["sph_center"][None], a["sph_radius"][None])
+            tj, j = _first_min(t)
+            take(tj < best["t"], KIND_SPHERE, tj, j)
+    for j, shape in enumerate(scene.de_shapes):
+        ok, t = intersect_de(shape, origin, direction, de_steps)
+        take(ok & (t > DIST_EPSILON) & (t < best["t"]), KIND_DE, t, j)
     return best
 
 
-def intersect_shadow(scene: Scene, origin, direction, max_dist, block_below=None):
+def intersect_shadow(
+    scene: Scene, origin, direction, max_dist, block_below=None, de_steps=200
+):
     """Nearest hit distance along shadow rays, starting from ``max_dist``
     (the lamp distance): unoccluded lanes return ``max_dist``.
 
     ``block_below`` ([N], or None) is the caller's occlusion bound: on a
     mesh scene a lane that finds a hit below it is blocked for sure and
     stops walking (tracer.py:432-498), so its t is then some blocker's, not
-    necessarily the nearest. Dense scenes sweep everything and ignore it."""
+    necessarily the nearest. Dense scenes sweep everything and ignore it.
+    The DE shapes are marched no further than ``max_dist``, and their hits
+    count at any t, negative included (tracer.py:492-496): a shadow ray
+    leaving a DE surface is usually blocked by it (ROADMAP.md queue 3)."""
     a = scene.arrays
     o = origin[:, None, :]
     d = direction[:, None, :]
@@ -138,16 +175,19 @@ def intersect_shadow(scene: Scene, origin, direction, max_dist, block_below=None
         _, t = geom.ray_plane(o, d, a["pla_normal"][None], a["pla_d"][None])
         t_best = torch.minimum(t_best, t.min(dim=1).values)
     if scene.use_clusters:
-        state = cluster_traverse(
+        t_best = cluster_traverse(
             scene, origin, direction, {"t": t_best}, _cluster_leaf_shadow(scene), block_below
-        )
-        return state["t"]
-    if scene.num_triangles > 0:
-        _, t, _, _ = geom.ray_triangle(o, d, a["tri_v0"][None], a["tri_e1"][None], a["tri_e2"][None])
-        t_best = torch.minimum(t_best, t.min(dim=1).values)
-    if scene.num_spheres > 0:
-        _, t = geom.ray_sphere(o, d, a["sph_center"][None], a["sph_radius"][None])
-        t_best = torch.minimum(t_best, t.min(dim=1).values)
+        )["t"]
+    else:
+        if scene.num_triangles > 0:
+            _, t, _, _ = geom.ray_triangle(o, d, a["tri_v0"][None], a["tri_e1"][None], a["tri_e2"][None])
+            t_best = torch.minimum(t_best, t.min(dim=1).values)
+        if scene.num_spheres > 0:
+            _, t = geom.ray_sphere(o, d, a["sph_center"][None], a["sph_radius"][None])
+            t_best = torch.minimum(t_best, t.min(dim=1).values)
+    for shape in scene.de_shapes:
+        _, t = intersect_de(shape, origin, direction, de_steps, t_cap=max_dist)
+        t_best = torch.minimum(t_best, t)
     return t_best
 
 
@@ -264,6 +304,7 @@ def cluster_traverse(scene, origin, direction, init_state, leaf_sweep, exit_belo
         m2[lanes] = torch.where(lvl2, rest, a2)
         m1[lanes] = torch.where(lvl1, rest, a1)
         m0[lanes] = torch.where(lvl0, rest, a0)
+        _count("pops", lanes.numel())
         # the popped child, tested again against the running best t
         parent = torch.where(lvl2, 17 + c2, torch.where(lvl1, 1 + c1, 0))
         box = _child_boxes(rows[parent], k)
@@ -271,6 +312,7 @@ def cluster_traverse(scene, origin, direction, init_state, leaf_sweep, exit_belo
 
         # descend: an L1 node fills m1, an L2 node fills m2
         down = ok & ~lvl2
+        _count("descents", down.sum())
         if bool(down.any()):
             sel = lanes[down]
             node = torch.where(lvl1, c1 * 16 + k, k)[down]
@@ -287,6 +329,7 @@ def cluster_traverse(scene, origin, direction, init_state, leaf_sweep, exit_belo
 
         # sweep a leaf
         sweep = ok & lvl2
+        _count("leaf_rows", sweep.sum() * scene.cluster_leaf)
         if bool(sweep.any()):
             sel = lanes[sweep]
             sub = {key: v[sel] for key, v in state.items()}
@@ -352,11 +395,226 @@ def _cluster_leaf_shadow(scene):
     return leaf_sweep
 
 
+# --- distance-estimated shapes --------------------------------------------------
+#
+# The plain version of csrc/march_de.cuh, one torch op for each op of the
+# JAX package's estimator (tracer.py:92-240 and kernels.py:758-901, which
+# agree) in the same order, so that on the card the kernel, which calls the
+# same libm functions with --fmad=false, follows it ulp for ulp as far as the
+# two libms agree. Orbits are chaotic, so a last-ulp difference can still
+# move a point's escape to another iteration: callers compare hit flags and
+# t, never raw distances.
+
+
+def _f32(x):
+    """A parameter rounded to f32 as the JAX package's weakly typed scalars
+    are, held as an exact Python float."""
+    return float(np.float32(x))
+
+
+def _de_mandelbulb(est, px, py, pz):
+    power = _f32(est["power"])
+    power_m1 = _f32(float(est["power"]) - 1.0)
+    threshold = _f32(est["threshold"])
+    constant = est["constant"]
+    dc = 1.0 if constant is None else 0.0
+    cx, cy, cz = (px, py, pz) if constant is None else (_f32(c) for c in constant[:3])
+    zx, zy, zz = px, py, pz
+    r = torch.zeros_like(px)
+    dr = torch.ones_like(px)
+    done = torch.zeros_like(px, dtype=torch.bool)
+    for _ in range(est["iterations"]):
+        _count("de_iterations", (~done).sum())
+        r_new = torch.sqrt(torch.clamp(zx * zx + zy * zy + zz * zz, min=1e-30))
+        done_now = done | (r_new > threshold)
+        theta = torch.acos(torch.clamp(zz / r_new, -1.0, 1.0)) * power
+        phi = torch.atan2(zy, zx) * power
+        dr_new = r_new**power_m1 * power * dr + dc
+        zr = r_new**power
+        st = torch.sin(theta)
+        nx = st * torch.cos(phi) * zr + cx
+        ny = torch.sin(phi) * st * zr + cy
+        nz = torch.cos(theta) * zr + cz
+        keep = ~done_now
+        zx, zy, zz = (torch.where(keep, n, o) for n, o in ((nx, zx), (ny, zy), (nz, zz)))
+        r = torch.where(done, r, r_new)
+        dr = torch.where(keep, dr_new, dr)
+        done = done_now
+    return 0.5 * torch.log(torch.clamp(r, min=1e-30)) * r / dr
+
+
+def _qmul(a, b):
+    s1, x1, y1, z1 = a
+    s2, x2, y2, z2 = b
+    return (
+        s1 * s2 - x1 * x2 - y1 * y2 - z1 * z2,
+        s1 * x2 + x1 * s2 + y1 * z2 - z1 * y2,
+        s1 * y2 - x1 * z2 + y1 * s2 + z1 * x2,
+        s1 * z2 + x1 * y2 - y1 * x2 + z1 * s2,
+    )
+
+
+def _qsq(q):
+    """z * z of a quaternion, which commutes with itself: (s^2 - |v|^2, 2 s v)."""
+    s, x, y, z = q
+    v2 = x * x + y * y + z * z
+    s2 = s + s
+    return (s * s - v2, s2 * x, s2 * y, s2 * z)
+
+
+def _bmul(a, b):
+    x1, y1, z1, w1 = a
+    x2, y2, z2, w2 = b
+    return (
+        x1 * x2 - y1 * y2 - z1 * z2 + w1 * w2,
+        x1 * y2 + y1 * x2 - z1 * w2 - w1 * z2,
+        x1 * z2 - y1 * w2 + z1 * x2 - w1 * y2,
+        x1 * w2 + y1 * z2 + z1 * y2 + w1 * x2,
+    )
+
+
+def _bsq(q):
+    x, y, z, w = q
+    return (
+        x * x - y * y - z * z + w * w,
+        2.0 * (x * y - z * w),
+        2.0 * (x * z - y * w),
+        2.0 * (x * w + y * z),
+    )
+
+
+def _de_julia(est, px, py, pz):
+    """Quaternion Julia (distance_estimators.rs:44-94): z = (x, y, z, slice),
+    the square shared and the derivative re-associated ((dz z) z = dz z^2),
+    the escape radius carried squared."""
+    variant = est["variant"]
+    consts = [_f32(c) for c in est["constant"]]
+    thr2 = _f32(float(est["threshold"]) * float(est["threshold"]))
+    z = (px, py, pz, torch.full_like(px, _f32(est["slice_plane"])))
+    zero = torch.zeros_like(px)
+    dz = (torch.ones_like(px), zero, zero, zero)
+    r2 = zero
+    done = torch.zeros_like(px, dtype=torch.bool)
+    for _ in range(est["iterations"]):
+        _count("de_iterations", (~done).sum())
+        r2_new = z[0] * z[0] + z[1] * z[1] + z[2] * z[2] + z[3] * z[3]
+        done_now = done | (r2_new > thr2)
+        if variant == "regular":
+            zp, dz_new = _qsq(z), tuple(c * 2.0 for c in _qmul(dz, z))
+        elif variant == "cubic":
+            q2 = _qsq(z)
+            zp, dz_new = _qmul(q2, z), tuple(c * 3.0 for c in _qmul(dz, q2))
+        else:  # bicomplex
+            zp = _bsq(z)
+            dz_new = tuple(c * 2.0 for c in _bmul(dz, zp))
+        keep = ~done_now
+        z = tuple(torch.where(keep, c + k, o) for c, k, o in zip(zp, consts, z))
+        dz = tuple(torch.where(keep, n, o) for n, o in zip(dz_new, dz))
+        r2 = torch.where(done, r2, r2_new)
+        done = done_now
+    r = torch.sqrt(torch.clamp(r2, min=1e-30))
+    dz_mag = torch.sqrt(torch.clamp(dz[0] * dz[0] + dz[1] * dz[1] + dz[2] * dz[2] + dz[3] * dz[3], min=1e-30))
+    return 0.5 * torch.log(torch.clamp(r, min=1e-30)) * r / dz_mag
+
+
+def de_distance(est: dict, p):
+    """The distance estimate of the shape ``est`` (scene.DEShape.estimator)
+    at local points p [..., 3] (shapes/distance_estimators.rs)."""
+    fn = _de_mandelbulb if est["kind"] == "mandelbulb" else _de_julia
+    return fn(est, p[..., 0], p[..., 1], p[..., 2])
+
+
+def march_de_plain(est, local_origin, direction, t0, tmax, hit, max_steps, omega=DE_OMEGA):
+    """Sphere trace along each ray in the shape's local space, from t0 while
+    t < tmax and the last safe distance is at least DIST_EPSILON, at most
+    ``max_steps`` steps: the two loops of tracer._intersect_de
+    (tracer.py:280-344, identical to the TPU kernel kernels.py:907). With
+    omega > 1 each step is omega * d, stepping back to the plain step from
+    the previous point when consecutive step spheres stop overlapping, and
+    no relaxed step leaps past tmax; ``dist`` tracks safe evaluations only.
+    A lane that stops never changes again, so only the active lanes are
+    evaluated at each step. Returns (total, dist) [N]."""
+    omega = _f32(omega)
+    total = t0.clone()
+    dist = torch.full_like(t0, math.inf)
+    relaxed = omega > 1.0
+    s_prev = torch.zeros_like(t0)
+    d_prev = torch.full_like(t0, 1e30)
+    active = hit & (total < tmax) & (dist >= DIST_EPSILON)
+    for _ in range(max_steps):
+        lanes = torch.nonzero(active)[:, 0]
+        if lanes.numel() == 0:
+            break
+        _count("de_steps", lanes.numel())
+        tot, tm = total[lanes], tmax[lanes]
+        d = de_distance(est, local_origin[lanes] + direction[lanes] * tot[:, None])
+        if relaxed:
+            sp, dp = s_prev[lanes], d_prev[lanes]
+            unsafe = sp > dp + d
+            t_revert = tot - sp + dp
+            step = omega * d
+            step = torch.where(tot + step > tm, d, step)
+            tot = torch.where(unsafe, t_revert, tot + step)
+            dist[lanes] = torch.where(unsafe, dist[lanes], d)
+            s_prev[lanes] = torch.where(unsafe, dp, step)
+            d_prev[lanes] = torch.where(unsafe, dp, d)
+        else:
+            tot = tot + d
+            dist[lanes] = d
+        total[lanes] = tot
+        active[lanes] = (tot < tm) & (dist[lanes] >= DIST_EPSILON)
+    return total, dist
+
+
+def _de_bounds(shape, origin, direction):
+    """(hit, tmin, tmax, center) of each ray against the shape's bounding
+    volume (tracer.py:254-263)."""
+    dev = origin.device
+    center = torch.as_tensor(shape.center, device=dev)
+    if shape.bounds_kind == "box":
+        lo = torch.as_tensor(shape.bounds_a, device=dev)
+        hi = torch.as_tensor(shape.bounds_b, device=dev)
+        hit, tmin, tmax = geom.ray_aabb_range(origin, direction, lo, hi)
+    else:
+        hit, tmin, tmax = geom.ray_sphere_range(origin, direction, center, float(shape.bounds_b[0]))
+    return hit, tmin, tmax, center
+
+
+def intersect_de(shape, origin, direction, max_steps, omega=DE_OMEGA, t_cap=None, march=None):
+    """Sphere tracing within the shape's bounding volume (shapes/mod.rs:
+    120-155, tracer._intersect_de): (ok, t) with t = inf where missed.
+    ``t_cap`` ([N]) caps the march at that distance (the lamp distance of a
+    shadow ray). ``march`` is march_de_plain, or kernels.march_de to run
+    the march in its CUDA kernel."""
+    hit, tmin, tmax, center = _de_bounds(shape, origin, direction)
+    if t_cap is not None:
+        tmax = torch.minimum(tmax, t_cap)
+    total0 = torch.where(hit, tmin, math.inf)
+    total, _ = (march or march_de_plain)(
+        shape.estimator, origin - center, direction, total0, tmax, hit, max_steps, omega
+    )
+    ok = hit & (total <= tmax)
+    return ok, torch.where(ok, total, math.inf)
+
+
+def de_normal(shape, origin, direction, t):
+    """The normal of a DE hit: central differences of the estimator, eps =
+    DIST_EPSILON, at the point DIST_EPSILON short of the hit in the shape's
+    local space (tracer.py:665-695, shapes/mod.rs:138)."""
+    center = torch.as_tensor(shape.center, device=origin.device)
+    local = (origin - center) + direction * (t - DIST_EPSILON)[:, None]
+    offsets = torch.cat([torch.eye(3) * DIST_EPSILON, -torch.eye(3) * DIST_EPSILON]).to(local.device)
+    probes = (local[None, :, :] + offsets[:, None, :]).reshape(-1, 3)
+    d6 = de_distance(shape.estimator, probes).reshape(6, -1)
+    return geom.normalize(torch.stack([d6[0] - d6[3], d6[1] - d6[4], d6[2] - d6[5]], dim=-1))
+
+
 def surface_data(scene: Scene, hit, origin, direction):
     """Per-hit surface attributes, branchless across hit kinds.
 
     Returns (position, normal, material_id). Texture coordinates and frames
-    are not needed on the dense path (normal maps and textures are gated)."""
+    are not needed on the dense path (normal maps and textures are gated);
+    a DE hit's normal is de_normal's, evaluated on the DE lanes only."""
     a = scene.arrays
     t = hit["t"]
     safe_t = torch.where(torch.isfinite(t), t, 0.0)
@@ -382,6 +640,12 @@ def surface_data(scene: Scene, hit, origin, direction):
     for kd, table in ((KIND_TRIANGLE, "tri_mat"), (KIND_SPHERE, "sph_mat"), (KIND_PLANE, "pla_mat")):
         tab = a[table].long()
         mat = torch.where(kind == kd, tab[torch.clamp(idx, max=tab.shape[0] - 1)], mat)
+    for j, shape in enumerate(scene.de_shapes):
+        sel = (kind == KIND_DE) & (idx == j)
+        lanes = torch.nonzero(sel)[:, 0]
+        if lanes.numel():
+            normal[lanes] = de_normal(shape, origin[lanes], direction[lanes], safe_t[lanes])
+            mat[lanes] = shape.material_id
     return position, normal, mat
 
 
@@ -688,14 +952,14 @@ def trace_direct(
     flip = torch.where((geom.dot(ray_in, normal) < 0.0)[:, None], normal, -normal)
     for s in range(ls):
         delta = delta + _direct_sample(
-            scene, probability, active, position, flip, wavelengths, reflectance,
+            scene, cfg, probability, active, position, flip, wavelengths, reflectance,
             aux_alive, lamp_idx, draws["u_nee"][s], draws["u_emis"][s],
         )
     return delta
 
 
 def _direct_sample(
-    scene, probability, active, position, flip, wavelengths, reflectance,
+    scene, cfg, probability, active, position, flip, wavelengths, reflectance,
     aux_alive, lamp_idx, u, u_emis,
 ):
     """One NEE sample: lamp sample -> shadow -> emissive component ->
@@ -729,7 +993,8 @@ def _direct_sample(
     # below the occlusion bound (tracer.py:1269-1270)
     block_below = torch.sqrt(torch.clamp(samp["sq_distance"] - DIST_EPSILON, min=0.0))
     t_hit = intersect_shadow(
-        scene, position, samp["direction"], torch.sqrt(samp["sq_distance"]), block_below
+        scene, position, samp["direction"], torch.sqrt(samp["sq_distance"]), block_below,
+        cfg.max_de_steps,
     )
     has_hit = torch.isfinite(t_hit)
     hit_sq = torch.where(has_hit, t_hit * t_hit, math.inf)
@@ -801,7 +1066,7 @@ def bounce_core(scene: Scene, cfg: TraceConfig, wavelengths, state, draws):
     o = state["origin"]
     d = state["direction"]
 
-    hit = intersect_scene(scene, o, d)
+    hit = intersect_scene(scene, o, d, de_steps=cfg.max_de_steps)
     found = hit["kind"] != KIND_NONE
     position, normal, mat_id = surface_data(scene, hit, o, d)
 

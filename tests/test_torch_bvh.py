@@ -11,7 +11,7 @@ from pyrite_tpu import bvh as jax_bvh
 from pyrite_tpu import scene as jax_scene
 from pyrite_tpu.project import load_project as jax_load
 from pyrite_tpu_torch import bvh, scene as torch_scene
-from pyrite_tpu_torch._shared.project import load_project as torch_load
+from pyrite_tpu_torch.project import load_project as torch_load
 
 torch.set_num_threads(2)
 

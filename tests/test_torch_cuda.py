@@ -40,3 +40,25 @@ def test_cuda_wide_kernels_match_plain_version(tmp_path, name):
     chip_smoke.check_queries(name, path, lanes=8192)
     worst = chip_smoke.check_kernels(name, path, lanes=8192)
     assert worst["divergent"] < 0.015
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fractal", "julia", "terrain_de_24"])
+def test_cuda_de_kernels_match_plain_version(tmp_path, name):
+    """The DE march kernel against tracer.march_de_plain (hit flags on
+    >= 99.9 % of lanes, t to rtol 1e-5), and the bounce and NEE kernels,
+    which march DE shapes after the primitives (dense or wide), against
+    tracer.bounce_core."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    directory = str(tmp_path)
+    if name == "fractal":
+        path = chip_smoke.write_fractal_scene(directory, 128, 64, 4, 3)
+    elif name == "julia":
+        path = chip_smoke.write_julia_scene(directory, 128, 64)
+    else:
+        path = chip_smoke.write_terrain_de_scene(directory, width=128, height=64)
+    marched = chip_smoke.check_march(name, path, lanes=8192)
+    assert marched["flags_differ"] <= 8
+    worst = chip_smoke.check_kernels(name, path, lanes=8192)
+    assert worst["divergent"] < 0.015

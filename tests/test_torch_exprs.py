@@ -16,8 +16,8 @@ from pyrite_tpu.project import load_project as jax_load
 from pyrite_tpu.scene import build_scene as jax_build
 import pyrite_tpu_torch.exprs as TE
 import pyrite_tpu_torch.spectra as TS
-from pyrite_tpu_torch._shared.project import ir as TIR
-from pyrite_tpu_torch._shared.project import load_project as torch_load
+from pyrite_tpu_torch.project import ir as TIR
+from pyrite_tpu_torch.project import load_project as torch_load
 from pyrite_tpu_torch.scene import build_scene as torch_build
 
 torch.set_num_threads(2)

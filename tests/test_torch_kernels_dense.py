@@ -24,7 +24,7 @@ from pyrite_tpu.renderers.simple import chunk_rays as jax_chunk_rays
 from pyrite_tpu.scene import CameraModel as JaxCamera, build_scene as jax_build
 import pyrite_tpu_torch.tracer as TT
 from pyrite_tpu_torch import convert, kernels_dense
-from pyrite_tpu_torch._shared.project import load_project as torch_load
+from pyrite_tpu_torch.project import load_project as torch_load
 from pyrite_tpu_torch.film import Film as TorchFilm
 from pyrite_tpu_torch.renderers.simple import chunk_rays as torch_chunk_rays
 from pyrite_tpu_torch.scene import CameraModel as TorchCamera, build_scene as torch_build

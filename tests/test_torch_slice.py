@@ -1,7 +1,9 @@
 """The slices end to end on the CPU: trace_paths and one render step of both
 packages with identical draws, and the port's CLI from .lua to PNG, on dense
-scenes and on mesh scenes (terrain_24: 1152 triangles and a sphere lamp;
-tri_lamp_24: 1154 triangles, two of them the lamp), which take the
+scenes, on scenes with distance-estimated shapes (examples/fractal.lua and
+the julia scene at 32x32, S = 4, 3 bounces) and on mesh scenes (terrain_24:
+1152 triangles and a sphere lamp; tri_lamp_24: 1154 triangles, two of them
+the lamp; terrain_de_24: terrain_24 with a small Mandelbulb), which take the
 clustered wide BVH.
 
 trace_paths runs 4 bounces with the JAX side jitted, where fused float
@@ -27,7 +29,7 @@ from pyrite_tpu.renderers import simple as jax_simple
 from pyrite_tpu.scene import CameraModel as JaxCamera, build_scene as jax_build
 import pyrite_tpu_torch.tracer as TT
 from pyrite_tpu_torch import cli, convert
-from pyrite_tpu_torch._shared.project import load_project as torch_load
+from pyrite_tpu_torch.project import load_project as torch_load
 from pyrite_tpu_torch.film import Film as TorchFilm
 from pyrite_tpu_torch.renderers import simple as torch_simple
 from pyrite_tpu_torch.scene import CameraModel as TorchCamera, build_scene as torch_build
@@ -44,6 +46,9 @@ def paths(tmp_path_factory):
         chip_smoke.scene_paths(directory),
         **chip_smoke.terrain_paths(directory, cells=(24,), width=48, height=24, spp=2),
         tri_lamp_24=chip_smoke.write_tri_lamp_scene(directory, width=48, height=24, cells=24),
+        fractal=chip_smoke.write_fractal_scene(directory, 32, 32, 4, 3),
+        julia=chip_smoke.write_julia_scene(directory, 32, 32, 4, 3),
+        terrain_de_24=chip_smoke.write_terrain_de_scene(directory),
     )
 
 
@@ -70,7 +75,9 @@ def _bounce_draws(scene, cfg, key, n):
     ]
 
 
-@pytest.mark.parametrize("name", ["flagship", "tri_lamp", "terrain_24", "tri_lamp_24"])
+@pytest.mark.parametrize(
+    "name", ["flagship", "tri_lamp", "terrain_24", "tri_lamp_24", "fractal", "julia", "terrain_de_24"]
+)
 def test_trace_paths_matches_jax(paths, name):
     (sj, film_j, cam_j, cfg_j), (st, _, _, _) = _packages(paths[name])
     assert st.use_clusters == sj.use_clusters == name.endswith("_24")
@@ -91,13 +98,17 @@ def test_trace_paths_matches_jax(paths, name):
     assert (aux_ref == aux.numpy()).mean() > 0.98
 
 
-@pytest.mark.parametrize("name", ["flagship", "prism", "terrain_24"])
+@pytest.mark.parametrize("name", ["flagship", "prism", "terrain_24", "fractal", "julia"])
 def test_render_step_matches_jax(paths, name):
     (sj, film_j, cam_j, cfg_j), (st, film_t, cam_t, cfg_t) = _packages(paths[name])
-    rows = 4
+    # A DE scene's step covers the whole 32x32 film: a DE normal is a central
+    # difference of the estimator, a few ulps off between the packages, and
+    # in a 4-row window the one mirror path it turns onto the lamp carries
+    # a few percent of the energy
+    rows = film_j.height if sj.de_shapes else 4
     n, s = rows * film_j.width, cfg_j.spectrum_samples
     key = jax.random.PRNGKey(21)
-    row0 = film_j.height // 2
+    row0 = 0 if sj.de_shapes else film_j.height // 2
     step_j = jax_simple.make_render_step(sj, film_j, cam_j, cfg_j, rows=rows)
     acc_j, wt_j = step_j(*film_j.new_buffers(), key, sj.device_data(), row0)
 
@@ -144,11 +155,30 @@ def test_cli_renders_mesh_png(paths, tmp_path):
     assert pixels.max() > 0 and pixels.mean() > 10
 
 
+def test_cli_renders_fractal_png(paths, tmp_path):
+    """examples/fractal.lua (at 32x32, S = 4, 3 bounces) from .lua to PNG,
+    every bounce by the plain version on the CPU."""
+    from PIL import Image
+
+    out = tmp_path / "fractal.png"
+    before = dict(TT.launches)
+    assert cli.main([paths["fractal"], "--samples", "2", "--device", "cpu", "--output", str(out)]) == 0
+    assert TT.launches["bounce_core"] - before["bounce_core"] == 3
+    with Image.open(out) as img:
+        assert img.size == (32, 32) and img.mode == "RGB"
+        assert np.asarray(img).max() > 0
+
+
 def test_cli_refuses_what_is_not_ported(paths, tmp_path):
+    sys.path.insert(0, ROOT)
+    from tools.synthetic import terrain_scene
+
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main([paths["flagship"], "--device", "cpu", "--checkpoint", str(tmp_path / "c.npz")])
+    # 162 triangles: above the dense sweep's 128, below the wide BVH's 1025
+    terrain_162 = terrain_scene(str(tmp_path), cells=9, width=32, height=16)[0]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main([os.path.join(ROOT, "examples", "fractal.lua"), "--device", "cpu"])
+        cli.main([terrain_162, "--device", "cpu"])
 
 
 def test_cli_never_moves_to_the_cpu_on_its_own(paths):

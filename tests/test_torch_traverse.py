@@ -225,7 +225,7 @@ def test_wrappers_take_the_plain_version_on_cpu(setup):
     _, torch_scene, origins, dirs, _ = setup
     o, d = torch.as_tensor(origins), torch.as_tensor(dirs)
     scene = types.SimpleNamespace(
-        use_clusters=True, num_planes=0, arrays=torch_scene.arrays,
+        use_clusters=True, num_planes=0, de_shapes=[], arrays=torch_scene.arrays,
         cluster_leaf=torch_scene.cluster_leaf, cluster_slots=torch_scene.cluster_slots,
     )
     before = dict(kernels.launches)
