@@ -15,12 +15,14 @@ and exits non-zero on any failure:
    (flagship spheres, examples/prism.lua, a triangle-lamp mesh, a
    many-materials scene) and on both DE scenes; the wide-BVH traversal
    kernels on the 328,050- and 871,200-triangle terrains
-   (tools/synthetic.terrain_scene, cells 405 and 660); the wide bounce and
-   NEE kernels on terrain_405;
+   (tools/synthetic.terrain_scene, cells 405 and 660), bit for bit; the
+   wide bounce and NEE kernels on terrain_405;
 4. per-launch times of the kernels and of the plain version at that size
-   (the traversal queries on both terrains, the march and the dense kernels
-   on fractal.lua too), with the work the plain version counts, from which
-   each kernel's bound is computed;
+   (the traversal queries on both terrains and the wide kernels on
+   terrain_405 at bounces 0 and 1, the march and the dense kernels on
+   fractal.lua too), with the work the plain version counts, from which
+   each kernel's bound is computed, and the warps' divergence in the
+   traversal;
 5. the paths, each with the launch counts zeroed just before it and read
    just after: the CLI renders the flagship and prism.lua (dense kernels),
    fractal.lua and the julia scene (dense kernels marching DE shapes),
@@ -36,7 +38,8 @@ before it lists each kernel's launches, error, times and bound.
 (flagship and terrain_405 at 64 spp, fractal.lua at 8 spp) through
 renderers.simple.render, 5 timed runs after a warm-up and one run under
 torch.profiler, and prints the launches, wall times, device idle share and
-top device ops of each.
+top device ops of each. Both modes print each kernel's registers and
+spills (ptxas -v) after the build.
 """
 
 from __future__ import annotations
@@ -297,11 +300,12 @@ _SCENES = {}
 def _gpu_scene(path):
     """(scene, film, camera, cfg) of a .lua project, built on the GPU once."""
     if path not in _SCENES:
-        _SCENES[path] = _build_gpu_scene(path)
+        _SCENES[path] = load_scene(path)
     return _SCENES[path]
 
 
-def _build_gpu_scene(path):
+def load_scene(path, device="cuda"):
+    """(scene, film, camera, cfg) of a .lua project, built on ``device``."""
     from pyrite_tpu_torch.project import load_project
     from pyrite_tpu_torch.film import Film
     from pyrite_tpu_torch.scene import CameraModel, build_scene
@@ -310,7 +314,7 @@ def _build_gpu_scene(path):
     project_data = load_project(path)
     r, im = project_data.project.renderer, project_data.project.image
     return (
-        build_scene(project_data, "cuda"),
+        build_scene(project_data, device),
         Film(im.width, im.height, r.spectrum_bins, r.spectrum_span),
         CameraModel.from_ir(project_data.project.camera),
         TraceConfig(r.bounces, r.light_samples, r.spectrum_samples),
@@ -367,13 +371,15 @@ def _wavefront(film, camera, cfg, rng, lanes=None):
     return tuple(torch.cat([p[k] for p in parts]) for k in (1, 2, 3))
 
 
-def check_kernels(name, path, lanes=None, bounces=3, seed=0):
+def check_kernels(name, path, lanes=None, bounces=3, seed=0, cut=None, idle=0.0):
     """Phase 3 for one scene, on the main path's wavefront (``lanes`` cuts
-    it for a quick check): from the same state and the same generator
-    draws, kernels_dense.bounce_dense (both CUDA kernels, NEE accumulating
-    in place) against the plain tracer.bounce_core on CUDA tensors, for
-    ``bounces`` bounces, each started from the plain state. The NEE kernel
-    is also held alone against tracer.trace_direct on its own inputs.
+    it to whole rows for a quick check, ``cut`` to its first lanes): from
+    the same state and the same generator draws, kernels_dense.bounce_dense
+    (both CUDA kernels, NEE accumulating in place) against the plain
+    tracer.bounce_core on CUDA tensors, for ``bounces`` bounces, each
+    started from the plain state. The NEE kernel is also held alone against
+    tracer.trace_direct on its own inputs. ``idle`` starts that share of the
+    lanes dead and takes NEE from that share of the NEE lanes, at random.
     Returns the worst errors."""
     import torch
 
@@ -384,8 +390,10 @@ def check_kernels(name, path, lanes=None, bounces=3, seed=0):
     rng = torch.Generator(device="cuda")
     rng.manual_seed(seed)
     origin, direction, wl = _wavefront(film, camera, cfg, rng, lanes)
+    origin, direction, wl = origin[:cut], direction[:cut], wl[:cut]
     n = origin.shape[0]
     state = tracer.initial_state(origin, direction, wl.shape[1])
+    state["alive"] = ~_idle_lanes(n, idle, seed + 1, "cuda")
     bank = kd.precompute_bank_values(scene, wl)
     has_nee = bool(scene.num_lamps and cfg.light_samples)
     worst = {"bounce": 0.0, "nee": 0.0, "brightness": 0.0, "divergent": 0.0, "nee_divergent": 0.0}
@@ -400,6 +408,7 @@ def check_kernels(name, path, lanes=None, bounces=3, seed=0):
         worst["divergent"] = max(worst["divergent"], share)
         if has_nee:
             alone, ctx = kd.launch_bounce_kernel(scene, cfg, wl, state, draws, bank)
+            ctx["nee"] &= ~_idle_lanes(n, idle, seed + 2 + b, "cuda")
             alone["brightness"].zero_()
             kd.launch_nee_kernel(scene, cfg, wl, alone, ctx, draws, bank)
             plain_delta = tracer.trace_direct(
@@ -414,7 +423,8 @@ def check_kernels(name, path, lanes=None, bounces=3, seed=0):
             worst["nee_divergent"] = max(worst["nee_divergent"], nee_share)
         state = plain
     print(
-        f"[kernels] {name}: {n} lanes x {bounces} bounces, S={wl.shape[1]}: bounce_dense max abs "
+        f"[kernels] {name}: {n} lanes ({idle:.0%} idle) x {bounces} bounces, S={wl.shape[1]}: "
+        f"bounce_dense max abs "
         f"err {worst['bounce']:.3g} (origin/direction/reflectance), brightness "
         f"{worst['brightness']:.3g}, divergent lanes {worst['divergent']:.4%}; NEE alone max abs "
         f"err {worst['nee']:.3g}, divergent {worst['nee_divergent']:.4%} "
@@ -423,49 +433,112 @@ def check_kernels(name, path, lanes=None, bounces=3, seed=0):
     return worst
 
 
-def _prim_t(scene, kind, idx, origin, direction):
-    """t of the given triangle or sphere (tracer kinds) along each ray."""
+def _bits_differ(a, b):
+    """Lanes where two tensors differ, floats compared bit for bit."""
     import torch
 
-    from pyrite_tpu_torch import geometry as geom, tracer
-
-    a = scene.arrays
-    ti = torch.clamp(idx, max=a["tri_v0"].shape[0] - 1)
-    si = torch.clamp(idx, max=a["sph_center"].shape[0] - 1)
-    _, t_tri, _, _ = geom.ray_triangle(origin, direction, a["tri_v0"][ti], a["tri_e1"][ti],
-                                       a["tri_e2"][ti])
-    _, t_sph = geom.ray_sphere(origin, direction, a["sph_center"][si], a["sph_radius"][si])
-    return torch.where(kind == tracer.KIND_TRIANGLE, t_tri, t_sph)
+    if a.is_floating_point():
+        return a.view(torch.int32) != b.view(torch.int32)
+    return a != b.to(a.dtype)
 
 
-def _shadow_rays(scene, cfg, origin, direction, hit, rng):
-    """The shadow rays of bounce 0: from each triangle hit (the terrain is
-    diffuse, so every such lane takes NEE) toward its sampled lamp point, as
-    tracer._direct_sample casts them. Returns (origin, direction, max_dist,
-    block_below, squared lamp distance)."""
+def _shadow_rays(scene, cfg, origin, direction, hit, rng, in_place=False):
+    """The shadow rays of a wavefront's hits: from each triangle hit (the
+    terrain is diffuse, so every such lane takes NEE) toward its sampled
+    lamp point, as tracer._direct_sample casts them. Returns (origin,
+    direction, max_dist, block_below, squared lamp distance) of the
+    triangle-hit lanes or, ``in_place``, of every lane, where a lane without
+    a triangle hit is idle: it starts at its own origin with max_dist 0 and
+    block_below inf, so it stops before the walk, as a lane without NEE
+    takes part in the NEE kernel's traversal without a ray."""
     import torch
 
     from pyrite_tpu_torch import tracer
 
-    lanes = torch.nonzero(hit["kind"] == tracer.KIND_TRIANGLE)[:, 0]
+    cast = hit["kind"] == tracer.KIND_TRIANGLE
     n = origin.shape[0]
-    draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
+    lanes = torch.arange(n, device=origin.device) if in_place else torch.nonzero(cast)[:, 0]
+    draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, origin.device)
     position = (origin + direction * hit["t"][:, None])[lanes]
+    if in_place:
+        position = torch.where(cast[:, None], position, origin)
     samp = tracer.sample_lamp(scene, draws["lamp_idx"].long()[lanes], position,
                               draws["u_nee"][0][lanes])
     sq = samp["sq_distance"]
+    max_dist = torch.sqrt(sq)
     block = torch.sqrt(torch.clamp(sq - tracer.DIST_EPSILON, min=0.0))
-    return position, samp["direction"], torch.sqrt(sq), block, sq
+    if in_place:
+        max_dist, block = _idle_shadow(~cast, max_dist, block)
+    return position, samp["direction"], max_dist, block, sq
 
 
-def check_queries(name, path, lanes=None, seed=0):
+def _idle_shadow(idle, max_dist, block):
+    """Shadow-ray bounds with the ``idle`` lanes stopped before their walk."""
+    import torch
+
+    return torch.where(idle, 0.0, max_dist), torch.where(idle, torch.inf, block)
+
+
+def _idle_lanes(n, share, seed, device):
+    """A random ``share`` of ``n`` lanes, as a mask, from a seeded generator."""
+    import torch
+
+    rng = torch.Generator(device=device)
+    rng.manual_seed(seed)
+    return torch.rand(n, generator=rng, device=device) < share
+
+
+def warp_divergence(visits, lanes=None, n=None):
+    """(warp divergence factor, (ray, leaf) pairs per distinct leaf within a
+    warp) of one traversal's leaf sweeps (an entry of
+    tracer.work["leaf_visits"]), its lanes taken 32 to a warp in the
+    kernel's order. ``lanes`` maps the traversal's batch to the kernel's
+    ``n`` lanes where the batch is a subset of them. The factor is 32 x the
+    sum over warps of the most leaves one lane of the warp sweeps, over all
+    leaves swept, with lanes that sweep none as idle slots: the row tests a
+    warp issued when each thread swept its ray's leaves alone, per row test
+    its rays need (1: none wasted; 32: one lane per warp sweeps)."""
+    import torch
+
+    lane, slot = visits["lane"], visits["slot"]
+    if lanes is not None:
+        lane = lanes[lane]
+    n = visits["lanes"] if n is None else n
+    total = lane.numel()
+    if total == 0:
+        return 1.0, 1.0
+    per_lane = torch.bincount(lane, minlength=-(-n // 32) * 32)
+    factor = 32 * int(per_lane.view(-1, 32).max(dim=1).values.sum()) / total
+    distinct = torch.unique((lane // 32) * (int(slot.max()) + 1) + slot).numel()
+    return factor, total / distinct
+
+
+def _print_divergence(what, work, lanes=None, n=None):
+    """One line per traversal the counted run made (tracer.work's
+    "leaf_visits"): leaves per ray, the warp divergence factor and the rays
+    per distinct leaf in a warp. ``lanes``, where given, holds for each
+    traversal the kernel lane of each of its rays, of ``n``."""
+    visits = work.get("leaf_visits", [])
+    for j, v in enumerate(visits):
+        factor, per_leaf = warp_divergence(v, None if lanes is None else lanes[j], n)
+        rays = int(v["lane"].unique().numel())
+        label = f" light sample {j}" if len(visits) > 1 else ""
+        print(f"[divergence] {what}{label}: {v['lane'].numel()} (ray, leaf) sweeps by {rays} rays "
+              f"({v['lane'].numel() / max(rays, 1):.3f} leaves per ray that sweeps); warp "
+              f"divergence factor {factor:.3f}; {per_leaf:.3f} rays per distinct leaf in a warp")
+
+
+def check_queries(name, path, lanes=None, seed=0, cut=None, idle=0.0):
     """Phase 3 for the wide-BVH traversal kernels on one mesh scene, at the
-    main path's wavefront (``lanes`` cuts it): kernels.closest_wide (CUDA)
-    against tracer.intersect_scene (plain, on the card) on the camera rays,
-    t to rtol 1e-6 and idx equal wherever the two winners are not a tie (a
-    tie: both primitives give the same t along the ray); kernels.shadow_wide
-    against tracer.intersect_shadow on the shadow rays of bounce 0, blocked
-    flags exact. Returns the errors and counts."""
+    main path's wavefront (``lanes`` cuts it to whole rows, ``cut`` to its
+    first rays): kernels.closest_wide (CUDA) against tracer.intersect_scene
+    (plain, on the card) on the camera rays, and kernels.shadow_wide against
+    tracer.intersect_shadow on their shadow rays of bounce 0. ``idle`` makes
+    that share of the lanes, at random, lanes without a query (the running
+    hit at t = 0; a shadow ray stopped before its walk), as dead lanes and
+    lanes without NEE take part in the bounce and NEE kernels' traversal.
+    t, kind, idx, u and v must be equal on every lane, bit for bit. Returns
+    the max abs t error of each query over the finite t, and the counts."""
     import torch
 
     from pyrite_tpu_torch import kernels, tracer
@@ -474,49 +547,44 @@ def check_queries(name, path, lanes=None, seed=0):
     rng = torch.Generator(device="cuda")
     rng.manual_seed(seed)
     origin, direction, _ = _wavefront(film, camera, cfg, rng, lanes)
+    origin, direction = origin[:cut], direction[:cut]
     n = origin.shape[0]
-    plain = tracer.intersect_scene(scene, origin, direction)
-    got = kernels.closest_wide(scene, origin, direction)
+    init = tracer.empty_hit(n, "cuda")
+    init["t"] = torch.where(_idle_lanes(n, idle, seed + 1, "cuda"), 0.0, init["t"])
+    plain = tracer.intersect_scene(scene, origin, direction, init)
+    got = kernels.closest_wide(scene, origin, direction, init)
     torch.cuda.synchronize()
-    assert torch.isclose(got["t"], plain["t"], rtol=1e-6, atol=0.0).all(), f"{name}: t differs"
-    t_equal = int((got["t"] == plain["t"]).sum())
-    finite = torch.isfinite(plain["t"])
-    t_err = float((got["t"] - plain["t"])[finite].abs().max()) if bool(finite.any()) else 0.0
-    other = (got["idx"] != plain["idx"]) | (got["kind"] != plain["kind"])
-    ties = 0
-    if bool(other.any()):
-        sel = torch.nonzero(other)[:, 0]
-        t_p = _prim_t(scene, plain["kind"][sel], plain["idx"][sel], origin[sel], direction[sel])
-        t_k = _prim_t(scene, got["kind"][sel], got["idx"][sel], origin[sel], direction[sel])
-        assert torch.isclose(t_p, t_k, rtol=1e-6, atol=0.0).all(), (
-            f"{name}: idx differs off ties on {int((~torch.isclose(t_p, t_k, rtol=1e-6)).sum())} lanes"
-        )
-        ties = int(sel.numel())
-    for k in ("u", "v"):
-        assert torch.isclose(got[k], plain[k], rtol=1e-5, atol=1e-6)[~other].all(), f"{name}: {k}"
+    for k in ("t", "kind", "idx", "u", "v"):
+        bad = int(_bits_differ(got[k], plain[k]).sum())
+        assert bad == 0, f"{name}: closest_wide {k} differs on {bad} of {n} lanes"
+    found = plain["kind"] != tracer.KIND_NONE
 
     so, sd, max_dist, block, sq = _shadow_rays(scene, cfg, origin, direction, plain, rng)
+    m = so.shape[0]
+    max_dist, block = _idle_shadow(_idle_lanes(m, idle, seed + 2, "cuda"), max_dist, block)
     t_plain = tracer.intersect_shadow(scene, so, sd, max_dist, block)
     t_got = kernels.shadow_wide(scene, so, sd, max_dist, block)
     torch.cuda.synchronize()
-
-    def blocked(t):
-        return torch.isfinite(t) & (t * t < sq - tracer.DIST_EPSILON)
-
-    bad = int((blocked(t_plain) != blocked(t_got)).sum())
-    assert bad == 0, f"{name}: {bad} shadow rays disagree on blocked"
-    both = torch.isfinite(t_plain) & torch.isfinite(t_got)
-    s_err = float((t_got - t_plain)[both].abs().max()) if bool(both.any()) else 0.0
+    bad = int(_bits_differ(t_got, t_plain).sum())
+    assert bad == 0, f"{name}: shadow_wide t differs on {bad} of {m} shadow rays"
+    blocked = torch.isfinite(t_plain) & (t_plain * t_plain < sq - tracer.DIST_EPSILON)
     print(
-        f"[kernels] {name}: closest_wide on {n} camera rays: hit share "
-        f"{float(finite.float().mean()):.4f}, t equal on {t_equal}/{n} (max abs err {t_err:.3g}, "
-        f"rtol 1e-6), idx/kind differ on {ties} lanes, all ties; shadow_wide on "
-        f"{so.shape[0]} shadow rays of bounce 0: blocked share "
-        f"{float(blocked(t_plain).float().mean()):.4f}, 0 blocked flags differ, t equal on "
-        f"{int((t_got == t_plain).sum())} (max abs err {s_err:.3g}); leaf "
-        f"{scene.cluster_leaf}, {scene.num_triangles} triangles"
+        f"[kernels] {name}: closest_wide on {n} camera rays ({idle:.0%} idle): hit share "
+        f"{float(found.float().mean()):.4f}, t, kind, idx, u and v bit-equal on {n}/{n}; "
+        f"shadow_wide on {m} shadow rays of bounce 0 ({idle:.0%} idle): blocked share "
+        f"{float(blocked.float().mean()):.4f}, t bit-equal on {m}/{m}; leaf {scene.cluster_leaf}, "
+        f"{scene.num_triangles} triangles"
     )
-    return {"closest": t_err, "shadow": s_err, "ties": ties, "n": n, "shadow_n": so.shape[0]}
+    return {"closest": _max_abs_err(got["t"], plain["t"]), "shadow": _max_abs_err(t_got, t_plain),
+            "n": n, "shadow_n": m}
+
+
+def _max_abs_err(got, plain):
+    """max |got - plain| over the lanes where both are finite (0 if none)."""
+    import torch
+
+    both = torch.isfinite(got) & torch.isfinite(plain)
+    return float((got - plain)[both].abs().max()) if bool(both.any()) else 0.0
 
 
 def _event_ms(fn, reps):
@@ -583,18 +651,14 @@ def _sweep_ops(scene):
     return ops
 
 
-def time_kernels(path, card, seed=1, plain_reps=10):
-    """Phase 4: per-launch milliseconds at the first bounce of the main
-    path's wavefront (every lane alive), the scene's bounce and NEE kernels
-    against the plain version, each timed in the order plain, kernel,
-    kernel, plain after a warm-up; with the bytes each kernel must move and
-    the FP32 operations its inputs need. Returns {name: (kernel ms, plain
-    ms, bytes, operations)}."""
-    import dataclasses
-
+def _bounce_inputs(path, seed, bounce):
+    """The main path's wavefront at ``bounce``: 0, the camera rays, every
+    lane alive; 1, the plain bounce_core state after bounce 0, dead lanes in
+    place; with that bounce's draws. Returns (scene, cfg, wavelengths,
+    state, draws)."""
     import torch
 
-    from pyrite_tpu_torch import _build, kernels_dense as kd, tracer
+    from pyrite_tpu_torch import tracer
 
     scene, film, camera, cfg = _gpu_scene(path)
     rng = torch.Generator(device="cuda")
@@ -602,8 +666,52 @@ def time_kernels(path, card, seed=1, plain_reps=10):
     origin, direction, wl = _wavefront(film, camera, cfg, rng)
     n = origin.shape[0]
     state = tracer.initial_state(origin, direction, wl.shape[1])
+    for _ in range(bounce):
+        draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
+        state = tracer.bounce_core(scene, cfg, wl, state, draws)
+    return scene, cfg, wl, state, tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
+
+
+def _kernel_rays(scene, cfg, state, draws, out, ctx):
+    """The rays the bounce and NEE kernels trace: the lanes of the alive
+    lanes' closest-hit queries, and per light sample (lanes, origin,
+    direction, lamp distance, occlusion bound) of the shadow rays the NEE
+    lanes cast (the lamp sample in front of the surface, as nee_lane casts
+    them)."""
+    import torch
+
+    from pyrite_tpu_torch import geometry as geom, tracer
+
+    alive = torch.nonzero(state["alive"])[:, 0]
+    nee = torch.nonzero(ctx["nee"])[:, 0]
+    p, flip = out["origin"][nee], ctx["flip"][nee]
+    shadows = []
+    for j in range(cfg.light_samples):
+        samp = tracer.sample_lamp(scene, draws["lamp_idx"].long()[nee], p, draws["u_nee"][j][nee])
+        cast = torch.clamp(geom.dot(flip, samp["direction"]), min=0.0) > 0.0
+        sq = samp["sq_distance"][cast]
+        shadows.append((nee[cast], p[cast], samp["direction"][cast], torch.sqrt(sq),
+                        torch.sqrt(torch.clamp(sq - tracer.DIST_EPSILON, min=0.0))))
+    return alive, shadows
+
+
+def time_kernels(path, card, seed=1, plain_reps=10, bounce=0):
+    """Phase 4: per-launch milliseconds on the main path's wavefront at
+    ``bounce`` (_bounce_inputs), the scene's bounce and NEE kernels against
+    the plain version, each timed in the order plain, kernel, kernel, plain
+    after a warm-up; with the bytes each kernel must move and the FP32
+    operations its inputs need, counted by the plain version on the rays the
+    kernels trace (the alive lanes' bounce, the shadow rays cast). Returns
+    {name: (kernel ms, plain ms, bytes, operations)}."""
+    import dataclasses
+
+    import torch
+
+    from pyrite_tpu_torch import _build, kernels_dense as kd, tracer
+
+    scene, cfg, wl, state, draws = _bounce_inputs(path, seed, bounce)
+    n = wl.shape[0]
     bank = kd.precompute_bank_values(scene, wl)
-    draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
     lib = _build.load()
     bounce_name, nee_name = kd.kernel_names(scene)
     bounce_fn = getattr(lib, kd._LAUNCHERS[bounce_name])
@@ -626,15 +734,17 @@ def time_kernels(path, card, seed=1, plain_reps=10):
         ),
         "bounce_dense": lambda: tracer.bounce_core(scene, cfg, wl, state, draws),
     }
+    alive = int(state["alive"].sum())
     times = _time_pairs(runs, plains, plain_reps, (
-        f"per bounce at {n} lanes, S={wl.shape[1]}, light_samples={cfg.light_samples} ({card})"
+        f"per launch at bounce {bounce}, {n} lanes ({alive} alive), S={wl.shape[1]}, "
+        f"light_samples={cfg.light_samples} ({card})"
     ))
-    # Bytes these inputs need: the scene's tables once; per lane (all alive
-    # at the first bounce) the bounce reads its state, two draws and one
-    # spectrum of sky or surface color and writes its state and the NEE
-    # context, 24 S + 99 bytes; the NEE kernel reads one flag per lane and,
-    # per NEE lane, its context, draws and one lamp color spectrum per light
-    # sample, and reads and writes its brightness.
+    # Bytes these inputs need: the scene's tables once; per lane the bounce
+    # reads its state, two draws and one spectrum of sky or surface color
+    # and writes its state and the NEE context, 24 S + 99 bytes (a dead lane
+    # reads and writes its state only: fewer); the NEE kernel reads one flag
+    # per lane and, per NEE lane, its context, draws and one lamp color
+    # spectrum per light sample, and reads and writes its brightness.
     a = scene.arrays
     tables = _nbytes(scene.dense_pack["tensors"]["sheet"])
     if scene.use_clusters:
@@ -644,21 +754,47 @@ def time_kernels(path, card, seed=1, plain_reps=10):
     nee_lanes = int(ctx["nee"].sum())
     b_bytes = tables + n * (24 * s_count + 99)
     n_bytes = tables + n + nee_lanes * (29 + 12 * s_count + ls * (20 + 4 * s_count))
-    b_ops = _work_ops(scene, _counted(plains[bounce_name]), n, _sweep_ops(scene) + OPS["shade"])
-    n_ops = _work_ops(scene, _counted(plains[nee_name]), nee_lanes * ls,
-                      _sweep_ops(scene) + OPS["lamp"])
-    print(f"[work] {os.path.basename(path)}: {bounce_name} {b_bytes} bytes, {b_ops} FP32 "
-          f"operations; {nee_name} {nee_lanes} NEE lanes x {ls} light samples, {n_bytes} bytes, "
-          f"{n_ops} operations")
-    return {
+    lanes, shadows = _kernel_rays(scene, cfg, state, draws, out, ctx)
+    b_work = _counted(lambda: tracer.bounce_core(
+        scene, cfg_no_nee, wl[lanes], {k: v[lanes] for k, v in state.items()},
+        {k: draws[k][lanes] for k in ("u_comp", "u_scatter")}))
+    n_work = _counted(lambda: [
+        tracer.intersect_shadow(scene, *rays[1:], de_steps=cfg.max_de_steps) for rays in shadows])
+    cast = sum(rays[0].numel() for rays in shadows)
+    b_ops = _work_ops(scene, b_work, alive, _sweep_ops(scene) + OPS["shade"])
+    n_ops = _work_ops(scene, n_work, nee_lanes * ls, OPS["lamp"]) + cast * _sweep_ops(scene)
+    print(f"[work] {os.path.basename(path)} at bounce {bounce}: {bounce_name} {alive} alive lanes, "
+          f"{b_bytes} bytes, {b_ops} FP32 operations ({_plain_counts(b_work)}); {nee_name} "
+          f"{nee_lanes} NEE lanes x {ls} light samples, {cast} shadow rays cast, {n_bytes} bytes, "
+          f"{n_ops} operations ({_plain_counts(n_work)})")
+    result = {
         bounce_name: (*times[bounce_name], b_bytes, b_ops),
         nee_name: (*times[nee_name], n_bytes, n_ops),
     }
+    base = os.path.basename(path)
+    _print_divergence(f"{base} {bounce_name} at bounce {bounce}", b_work, [lanes], n)
+    _print_divergence(f"{base} {nee_name} at bounce {bounce}", n_work,
+                      [rays[0] for rays in shadows], n)
+    _print_bounds(f"{base} at bounce {bounce}", result)
+    return result
+
+
+def _plain_counts(work):
+    """tracer.work's counts, without the per-lane leaf visits."""
+    return {k: v for k, v in work.items() if k != "leaf_visits"}
+
+
+def _print_bounds(what, result):
+    """Each kernel's time beside its bound, as the kernels line gives them."""
+    for name, (ms, plain_ms, size, ops) in result.items():
+        by_bytes, by_ops = size / HBM_BYTES_PER_S * 1e3, ops / _fp32_rate() * 1e3
+        print(f"[bound] {what} {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+              f"{max(by_bytes, by_ops):.4f} ms ({'bytes' if by_bytes >= by_ops else 'operations'})")
 
 
 def _time_pairs(runs, plains, plain_reps, what):
-    """Mean ms of each kernel run and of its plain version, in the order
-    plain, kernel, kernel, plain after a warm-up; {key: (kernel, plain)}."""
+    """Mean ms of each run and of its plain version, in the order plain,
+    run, run, plain after a warm-up; {key: (run, plain)}."""
     import torch
 
     times = {}
@@ -676,46 +812,79 @@ def _time_pairs(runs, plains, plain_reps, what):
     return times
 
 
-def time_queries(path, card, seed=1, plain_reps=3):
-    """Phase 4 for the traversal kernels: closest_wide on the main path's
-    camera wavefront and shadow_wide on its shadow rays of bounce 0, against
-    tracer.intersect_scene / intersect_shadow. Returns {name: (kernel ms,
-    plain ms, bytes, operations)}."""
+def _query_inputs(path, seed):
+    """The ray queries of the main path's wavefront on a mesh scene, by
+    bounce: {0: camera rays and their shadow rays (the triangle-hit lanes
+    alone), 1: the rays of the plain bounce_core state after bounce 0 with
+    dead lanes in place (the running hit at t = 0 there) and their shadow
+    rays in place}, each ((origin, direction, init), (origin, direction,
+    max_dist, block_below))."""
     import torch
 
-    from pyrite_tpu_torch import kernels, tracer
+    from pyrite_tpu_torch import tracer
 
     scene, film, camera, cfg = _gpu_scene(path)
     rng = torch.Generator(device="cuda")
     rng.manual_seed(seed)
-    origin, direction, _ = _wavefront(film, camera, cfg, rng)
+    origin, direction, wl = _wavefront(film, camera, cfg, rng)
+    n = origin.shape[0]
     hit = tracer.intersect_scene(scene, origin, direction)
-    so, sd, max_dist, block, _ = _shadow_rays(scene, cfg, origin, direction, hit, rng)
-    runs = {
-        "wide_closest_kernel": lambda: kernels.closest_wide(scene, origin, direction),
-        "wide_shadow_kernel": lambda: kernels.shadow_wide(scene, so, sd, max_dist, block),
-    }
-    plains = {
-        "wide_closest_kernel": lambda: tracer.intersect_scene(scene, origin, direction),
-        "wide_shadow_kernel": lambda: tracer.intersect_shadow(scene, so, sd, max_dist, block),
-    }
-    times = _time_pairs(runs, plains, plain_reps, (
-        f"per query, {origin.shape[0]} camera rays / {so.shape[0]} shadow rays ({card})"
-    ))
+    shadow = _shadow_rays(scene, cfg, origin, direction, hit, rng)[:4]
+    queries = {0: ((origin, direction, tracer.empty_hit(n, "cuda")), shadow)}
+    draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
+    state = tracer.bounce_core(scene, cfg, wl, tracer.initial_state(origin, direction, wl.shape[1]),
+                               draws)
+    init = tracer.empty_hit(n, "cuda")
+    init["t"] = torch.where(state["alive"], init["t"], 0.0)
+    o, d = state["origin"], state["direction"]
+    hit = tracer.intersect_scene(scene, o, d, init)
+    queries[1] = ((o, d, init), _shadow_rays(scene, cfg, o, d, hit, rng, in_place=True)[:4])
+    return scene, queries
+
+
+def time_queries(path, card, seed=1, plain_reps=3):
+    """Phase 4 for the traversal kernels: closest_wide and shadow_wide on
+    _query_inputs at bounces 0 and 1, against tracer.intersect_scene /
+    intersect_shadow. Returns {name: (kernel ms, plain ms, bytes,
+    operations)}, bounce 0 under the kernel's name, bounce 1 under
+    "<name> at bounce 1"."""
+    from pyrite_tpu_torch import kernels, tracer
+
+    scene, queries = _query_inputs(path, seed)
     a = scene.arrays
     tables = [scene.dense_pack["tensors"]["sheet"], a["wide_rows"], a["clu_geo"]]
-    n, m = origin.shape[0], so.shape[0]
-    sizes = {  # rays and the running hit in and out; rays, bounds and t
-        "wide_closest_kernel": _nbytes(*tables, origin, direction) + 2 * n * 20,
-        "wide_shadow_kernel": _nbytes(*tables, so, sd, max_dist, block, max_dist),
-    }
+    base = os.path.basename(path)
     out = {}
-    for key, rays in (("wide_closest_kernel", n), ("wide_shadow_kernel", m)):
-        work = _counted(plains[key])
-        ops = _work_ops(scene, work, rays, _sweep_ops(scene))
-        print(f"[work] {os.path.basename(path)} {key}: {rays} rays, {work}, {sizes[key]} bytes, "
-              f"{ops} FP32 operations")
-        out[key] = (*times[key], sizes[key], ops)
+    for bounce, (closest, shadow) in queries.items():
+        suffix = "" if bounce == 0 else f" at bounce {bounce}"
+        runs = {
+            "wide_closest_kernel" + suffix: lambda c=closest: kernels.closest_wide(scene, *c),
+            "wide_shadow_kernel" + suffix: lambda s=shadow: kernels.shadow_wide(scene, *s),
+        }
+        plains = {
+            "wide_closest_kernel" + suffix: lambda c=closest: tracer.intersect_scene(scene, *c),
+            "wide_shadow_kernel" + suffix: lambda s=shadow: tracer.intersect_shadow(scene, *s),
+        }
+        n, m = closest[0].shape[0], shadow[0].shape[0]
+        times = _time_pairs(runs, plains, plain_reps, (
+            f"per query at bounce {bounce}, {n} rays / {m} shadow rays ({card})"
+        ))
+        sizes = {  # rays and the running hit in and out; rays, bounds and t
+            "wide_closest_kernel": _nbytes(*tables, *closest[:2]) + 2 * n * 20,
+            "wide_shadow_kernel": _nbytes(*tables, *shadow) + 4 * m,
+        }
+        rays = {  # the rays that walk: not idle
+            "wide_closest_kernel": int((closest[2]["t"] > 0).sum()),
+            "wide_shadow_kernel": int((shadow[2] > 0).sum()),
+        }
+        for name in sizes:
+            work = _counted(plains[name + suffix])
+            ops = _work_ops(scene, work, rays[name], _sweep_ops(scene))
+            print(f"[work] {base} {name} at bounce {bounce}: {rays[name]} rays that walk, "
+                  f"{_plain_counts(work)}, {sizes[name]} bytes, {ops} FP32 operations")
+            _print_divergence(f"{base} {name} at bounce {bounce}", work)
+            out[name + suffix] = (*times[name + suffix], sizes[name], ops)
+    _print_bounds(base, out)
     return out
 
 
@@ -988,7 +1157,45 @@ def _gpu_info():
         ).stdout.strip().splitlines()[0]
 
     clock = float(smi("clocks.max.sm").split()[0])
+    _SM_CLOCK_MHZ.append(clock)
     return torch.cuda.get_device_name(0), smi("name,power.limit"), clock
+
+
+_SM_CLOCK_MHZ = []  # the max SM clock _gpu_info read
+
+
+def _fp32_rate():
+    """FP32 operations per second: 132 SMs x 128 FP32 lanes x the max SM
+    clock."""
+    return 132 * 128 * _SM_CLOCK_MHZ[-1] * 1e6
+
+
+KERNEL_NAMES = ("dense_bounce_kernel", "dense_nee_kernel", "wide_bounce_kernel", "wide_nee_kernel",
+                "wide_closest_kernel", "wide_shadow_kernel", "march_de_kernel")
+
+
+def kernel_registers(log):
+    """{kernel: (registers, spill store bytes, spill load bytes)} from the
+    ptxas -v report in a build log (_build.build_log), the bounce and NEE
+    kernels as name<true> / name<false>."""
+    found = {}
+    for chunk in log.split("Compiling entry function")[1:]:
+        mangled = chunk.split("'")[1]
+        name = next((k for k in KERNEL_NAMES if k in mangled), None)
+        used = re.search(r"Used (\d+) registers", chunk)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
+        if name is None or used is None:
+            continue
+        name += {"ILb1E": "<true>", "ILb0E": "<false>"}.get(
+            next((t for t in ("ILb1E", "ILb0E") if t in mangled), ""), "")
+        stores, loads = (int(x) for x in spill.groups()) if spill else (0, 0)
+        found[name] = (int(used.group(1)), stores, loads)
+    return found
+
+
+def _print_registers(log):
+    print(f"[build] kernels, registers and spill stores / loads (ptxas -v): " + "; ".join(
+        f"{k} {r}, {st}/{ld} B" for k, (r, st, ld) in sorted(kernel_registers(log).items())))
 
 
 def profile_renders(card, runs=5):
@@ -1069,6 +1276,7 @@ def main(argv=None):
     _build.load()
     print(f"[build] {len(_build.sources())} source(s) -> {_build.library_path()} "
           f"in {time.perf_counter() - started:.2f} s")
+    _print_registers(_build.build_log)
     if argv == ["--profile"]:
         profile_renders(smi)
         return 0
@@ -1087,9 +1295,10 @@ def main(argv=None):
         worst_wide = check_kernels("terrain_405", mesh["terrain_405"])
         queries = {name: check_queries(name, p) for name, p in mesh.items()}
         times = time_kernels(paths["flagship"], smi)
-        fractal_times = time_kernels(de["fractal"], smi, plain_reps=2)
+        time_kernels(de["fractal"], smi, plain_reps=2)  # printed: the DE kernels' times
         times.update(time_march(de["fractal"], smi))
         times.update(time_kernels(mesh["terrain_405"], smi, plain_reps=2))
+        time_kernels(mesh["terrain_405"], smi, plain_reps=2, bounce=1)  # printed
         times.update(time_queries(mesh["terrain_405"], smi))
         time_queries(mesh["terrain_660"], smi)  # printed: the larger leaf's cost
         dense_runs = [render_end_to_end(paths["flagship"], 16, smi, tmp),
@@ -1101,11 +1310,9 @@ def main(argv=None):
         query_run = drive_queries(mesh["terrain_405"], smi)
         march_run = drive_march(de["fractal"], smi)
 
-    fp32_rate = 132 * 128 * clock * 1e6  # FP32 lanes x SM clock (operations / s)
-
     def kernel(name, source, replaces, launches, err):
         ms, plain_ms, size, ops = times[name]
-        by_bytes, by_ops = size / HBM_BYTES_PER_S * 1e3, ops / fp32_rate * 1e3
+        by_bytes, by_ops = size / HBM_BYTES_PER_S * 1e3, ops / _fp32_rate() * 1e3
         return {
             "name": name, "route": "cuda", "source": f"pyrite_tpu_torch/csrc/{source}",
             "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1113,9 +1320,6 @@ def main(argv=None):
             "bound_by": "bytes" if by_bytes >= by_ops else "operations", "library_ms": None,
         }
 
-    for name, (ms, plain_ms, size, ops) in fractal_times.items():
-        print(f"[bound] fractal.lua {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-              f"{max(size / HBM_BYTES_PER_S, ops / fp32_rate) * 1e3:.4f} ms")
     dense_total = lambda key: sum(run[key] for run in dense_runs + de_runs)
     queried = queries.values()
     checked = list(worst.values())

@@ -23,13 +23,17 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_ROOT = os.path.join(_PKG, "_build")
 DEFAULT_CUDA_HOME = "/usr/local/cuda"
 # --fmad=false keeps products rounded before they are added (no fused
-# multiply-add), as in the plain PyTorch version the kernels are held to
+# multiply-add), as in the plain PyTorch version the kernels are held to;
+# -Xptxas=-v reports each kernel's registers and spills (build_log)
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 ]
 
 _lib = None
+# the compilers' output of the last build this process made ("" if it
+# loaded a library built before)
+build_log = ""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -78,7 +82,7 @@ def library_path() -> str:
 def load():
     """The loaded kernel library, built first if needed. Raises RuntimeError
     when nvcc is missing or the build fails."""
-    global _lib
+    global _lib, build_log
     if _lib is not None:
         return _lib
     so = library_path()
@@ -102,6 +106,7 @@ def load():
             for unit, obj in zip(units, objs)
         ]
         outputs = [p.communicate()[0] for p in procs]
+        build_log = "\n".join(outputs)
         failed = [(p.args, out) for p, out in zip(procs, outputs) if p.returncode != 0]
         if not failed:
             link = subprocess.run(

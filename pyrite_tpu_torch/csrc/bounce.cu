@@ -94,9 +94,14 @@ __device__ __forceinline__ V3 sample_cone(float u1, float u2, V3 dir, float cos_
 
 // DenseGeo: the sheet's primitive channels (rows 0..21), swept in column
 // order. Closest hit: planes, then the primitives; a strict comparison keeps
-// the lowest index on ties (intersect_scene's first-min).
+// the lowest index on ties (intersect_scene's first-min). Each thread
+// sweeps for itself, so the kernels call the queries only for lanes with a
+// ray (the active flag of WideGeo's queries is always true here) and let
+// the others return early.
 struct DenseGeo {
-  __device__ __forceinline__ Hit closest(const Sheet& sh, V3 o, V3 d) const {
+  static constexpr bool kWholeWarp = false;
+
+  __device__ __forceinline__ Hit closest(const Sheet& sh, V3 o, V3 d, bool) const {
     Hit h = {INFINITY, KIND_NONE, 0, 0.0f, 0.0f};
     plane_hit(sh, o, d, h);
     const int n_prims = sh.count(M_N_PRIMS);
@@ -117,7 +122,8 @@ struct DenseGeo {
   // Nearest occluder along a shadow ray, starting from the lamp distance
   // (tracer.intersect_shadow): unoccluded rays return t0. A dense sweep
   // tests everything and has no use for the occlusion bound.
-  __device__ __forceinline__ float shadow(const Sheet& sh, V3 o, V3 d, float t0, float) const {
+  __device__ __forceinline__ float shadow(const Sheet& sh, V3 o, V3 d, float t0, float,
+                                          bool) const {
     float best = plane_shadow(sh, o, d, t0);
     const int n_prims = sh.count(M_N_PRIMS);
     for (int j = 0; j < n_prims; ++j) {
@@ -147,24 +153,28 @@ struct DenseGeo {
 };
 
 // WideGeo: the clustered wide BVH (csrc/wide_bvh.cuh) after the planes,
-// and surface data from the flat tables by (kind, table index).
+// and surface data from the flat tables by (kind, table index). The warp
+// sweeps each leaf together, so every thread of a warp must call the
+// queries, one without a ray with active = false.
 struct WideGeo {
+  static constexpr bool kWholeWarp = true;
+
   WideBvh bvh;
   const float* __restrict__ tri_n;       // [T, 3, 3] vertex normals
   const int* __restrict__ tri_mat;       // [T]
   const float* __restrict__ sph_center;  // [S, 3]
   const int* __restrict__ sph_mat;       // [S]
 
-  __device__ __forceinline__ Hit closest(const Sheet& sh, V3 o, V3 d) const {
+  __device__ __forceinline__ Hit closest(const Sheet& sh, V3 o, V3 d, bool active) const {
     Hit h = {INFINITY, KIND_NONE, 0, 0.0f, 0.0f};
-    plane_hit(sh, o, d, h);
-    wide_closest(bvh, o, d, h);
+    if (active) plane_hit(sh, o, d, h);
+    wide_closest(bvh, o, d, h, active);
     return h;
   }
 
-  __device__ __forceinline__ float shadow(const Sheet& sh, V3 o, V3 d, float t0,
-                                          float block_below) const {
-    return wide_shadow(bvh, o, d, plane_shadow(sh, o, d, t0), block_below);
+  __device__ __forceinline__ float shadow(const Sheet& sh, V3 o, V3 d, float t0, float block_below,
+                                          bool active) const {
+    return wide_shadow(bvh, o, d, active ? plane_shadow(sh, o, d, t0) : t0, block_below, active);
   }
 
   __device__ __forceinline__ void surface(const Sheet&, const Hit& h, V3 pos, V3& normal,
@@ -305,20 +315,29 @@ struct BounceArgs {
 // wide_bounce_kernel runs the same code over a mesh scene; the TPU package
 // ran that bounce as XLA ops around its walk and sweep kernels
 // (pyrite_tpu/kernels.py:125, :337, :541), which live on here as the device
-// functions of csrc/wide_bvh.cuh. Its cost is the closest-hit walk's (see
-// there); the shading around it is the dense kernel's ~250 bytes per lane.
+// functions of csrc/wide_bvh.cuh. Its cost is the closest-hit traversal's
+// (see there); the shading around it is the dense kernel's ~250 bytes per
+// lane. The traversal sweeps each leaf with the whole warp, so there every
+// thread computes the closest hit, dead lanes and threads past the end of
+// the wavefront with active = false, before any of them may return; the
+// dense kernel's threads past the end return at once, and its dead lanes
+// skip the sweep, as before.
 template <class Geo, bool kDE>
 __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.n) return;
+  const bool in_range = lane < a.n;
+  if (!Geo::kWholeWarp && !in_range) return;
   const int n = a.n, s = a.s;
   const size_t row = (size_t)lane * s;
   const Sheet sh = a.sheet;
   const Programs pr = a.progs;
 
-  const V3 o = load3(a.origin, lane);
-  const V3 d = load3(a.direction, lane);
-  const bool alive = a.alive[lane];
+  const V3 o = in_range ? load3(a.origin, lane) : V3{0.f, 0.f, 0.f};
+  const V3 d = in_range ? load3(a.direction, lane) : V3{0.f, 0.f, 0.f};
+  const bool alive = in_range && a.alive[lane];
+  Hit warp_hit = {INFINITY, KIND_NONE, 0, 0.0f, 0.0f};
+  if (Geo::kWholeWarp) warp_hit = geo.closest(sh, o, d, alive);
+  if (!in_range) return;
   const bool aux = a.aux_alive[lane];
   const bool sample_light = a.sample_light[lane];
   const int light_events = a.light_events[lane];
@@ -333,7 +352,7 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo)
   }
 
   if (alive) {
-    Hit h = geo.closest(sh, o, d);
+    Hit h = Geo::kWholeWarp ? warp_hit : geo.closest(sh, o, d, true);
     if (kDE) de_closest(sh, a.de, o, d, h);
     if (h.kind == KIND_NONE) {
       // miss: sky (directional lamps are gated out of the pack)
@@ -542,37 +561,49 @@ __device__ LampSample sample_lamp(const Sheet& sh, int li, V3 p, float u0, float
 // reads ~40 bytes of state and reads and writes 4 * S bytes of brightness
 // plus 4 * S of pre-BRDF reflectance and of each lamp color program read.
 // Lanes that take no NEE (dead, missed, emissive, specular, or past two
-// diffuse events) exit after one byte; on deep bounces that is most lanes,
-// so the kernel's cost follows the diffuse share of the wavefront.
+// diffuse events) exit after one byte in the dense kernel; on deep bounces
+// that is most lanes, so its cost follows the diffuse share of the
+// wavefront.
 //
 // dense_nee_kernel replaces pyrite_tpu/kernels_dense.py
 // `_make_kernels.nee_kernel` (:909, the Pallas TPU kernel), whose output
 // block was revisited across a grid axis of light samples; here the thread
 // owns its lane and loops. wide_nee_kernel runs the same code over a mesh
-// scene, where the shadow query is the any-hit walk of csrc/wide_bvh.cuh
-// (it replaces the TPU sweep at pyrite_tpu/kernels.py:593 with the walk of
-// :125 and :337) and stops at the first leaf that leaves t under the
-// occlusion bound sqrt(max(d^2 - eps, 0)) (tracer.py:1269-1270): a ray to
-// the lamp that is blocked for sure needs no nearer blocker.
+// scene, where the shadow query is the any-hit traversal of
+// csrc/wide_bvh.cuh (it replaces the TPU sweep at pyrite_tpu/kernels.py:593
+// with the walk of :125 and :337) and stops at the first leaf that leaves t
+// under the occlusion bound sqrt(max(d^2 - eps, 0)) (tracer.py:1269-1270):
+// a ray to the lamp that is blocked for sure needs no nearer blocker. That
+// traversal sweeps each leaf with the whole warp, so there no thread
+// returns early: lanes without NEE and lamp samples behind the surface call
+// it with active = false, once per light sample like the others (the loop
+// over light samples is uniform across the warp), and only help sweep.
 template <class Geo, bool kDE>
 __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.n || !a.nee[lane]) return;
+  const bool nee = lane < a.n && a.nee[lane];
+  if (!Geo::kWholeWarp && !nee) return;
   const int n = a.n, s = a.s;
   const size_t row = (size_t)lane * s;
   const Sheet sh = a.sheet;
   const Programs pr = a.progs;
-  const V3 p = load3(a.position, lane);
-  const V3 flip = load3(a.flip, lane);
-  const bool aux = a.aux_alive[lane];
-  const int li = a.lamp_idx[lane];
+  const V3 p = nee ? load3(a.position, lane) : V3{0.f, 0.f, 0.f};
+  const V3 flip = nee ? load3(a.flip, lane) : V3{0.f, 0.f, 0.f};
+  const bool aux = nee && a.aux_alive[lane];
+  const int li = nee ? a.lamp_idx[lane] : 0;
 
   for (int j = 0; j < a.light_samples; ++j) {
-    const float* u = a.u_nee + ((size_t)j * n + lane) * 4;
-    const LampSample ls = sample_lamp(sh, li, p, u[0], u[1]);
-    if (!(fmaxf(dot(flip, ls.dir), 0.0f) > 0.0f)) continue;
+    LampSample ls = {{0.f, 0.f, 1.f}, INFINITY, 0.0f, {0.f, 0.f, 1.f}, 0, false};
+    if (nee) {
+      const float* u = a.u_nee + ((size_t)j * n + lane) * 4;
+      ls = sample_lamp(sh, li, p, u[0], u[1]);
+    }
+    const bool cast = nee && fmaxf(dot(flip, ls.dir), 0.0f) > 0.0f;
+    if (!Geo::kWholeWarp && !cast) continue;
     const float lamp_dist = sqrtf(ls.sq_distance);
-    float t = geo.shadow(sh, p, ls.dir, lamp_dist, sqrtf(fmaxf(ls.sq_distance - DIST_EPSILON, 0.0f)));
+    float t = geo.shadow(sh, p, ls.dir, lamp_dist,
+                         sqrtf(fmaxf(ls.sq_distance - DIST_EPSILON, 0.0f)), cast);
+    if (!cast) continue;
     if (kDE) t = de_shadow(sh, a.de, p, ls.dir, lamp_dist, t);
     if (t * t < ls.sq_distance - DIST_EPSILON) continue;  // blocked
 

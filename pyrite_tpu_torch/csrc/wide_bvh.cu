@@ -1,8 +1,9 @@
-// Ray queries against a mesh scene on Hopper (sm_90a), one thread per ray:
-// the closest hit and the nearest occluder over the planes and the
-// clustered wide BVH (csrc/wide_bvh.cuh). kernels.closest_wide and
-// kernels.shadow_wide launch them; their plain versions are
-// tracer.intersect_scene and tracer.intersect_shadow.
+// Ray queries against a mesh scene on Hopper (sm_90a): the closest hit and
+// the nearest occluder over the planes and the clustered wide BVH
+// (csrc/wide_bvh.cuh), one thread per ray for the walk and the whole warp
+// for each leaf sweep. kernels.closest_wide and kernels.shadow_wide launch
+// them; their plain versions are tracer.intersect_scene and
+// tracer.intersect_shadow.
 //
 // wide_closest_kernel replaces the TPU closest-hit traversal: the walk
 // (pyrite_tpu/kernels.py:125 `_walk_kernel`), the pop (:337
@@ -10,9 +11,10 @@
 // `_make_sweep_closest_kernel`), which the TPU package ran as separate
 // launches inside an XLA loop. wide_shadow_kernel does the same with the
 // any-hit sweep (:593 `_make_sweep_shadow_kernel`). What bounds them is
-// described in csrc/wide_bvh.cuh: per ray, the leaves it visits (leaf * 48
-// bytes each, from L2 while clu_geo fits there) and the divergence of the
-// walk within a warp.
+// described in csrc/wide_bvh.cuh: the leaf rows tested (leaf * 48 bytes per
+// visited leaf, from L2 while clu_geo fits there), the walk's divergence
+// within a warp and the sweep's shuffles. Threads past the end of the
+// wavefront take part in the traversal without a ray and return after it.
 
 #include "common.cuh"
 #include "wide_bvh.cuh"
@@ -35,12 +37,16 @@ __global__ void __launch_bounds__(BLOCK)
                         int* __restrict__ idx_out, float* __restrict__ u_out,
                         float* __restrict__ v_out) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.n) return;
-  const V3 o = load3(a.origin, lane);
-  const V3 d = load3(a.direction, lane);
-  Hit h = {t_in[lane], kind_in[lane], idx_in[lane], u_in[lane], v_in[lane]};
-  plane_hit(a.sheet, o, d, h);
-  wide_closest(a.bvh, o, d, h);
+  const bool ray = lane < a.n;
+  const V3 o = ray ? load3(a.origin, lane) : V3{0.0f, 0.0f, 0.0f};
+  const V3 d = ray ? load3(a.direction, lane) : V3{0.0f, 0.0f, 0.0f};
+  Hit h = {INFINITY, KIND_NONE, 0, 0.0f, 0.0f};
+  if (ray) {
+    h = {t_in[lane], kind_in[lane], idx_in[lane], u_in[lane], v_in[lane]};
+    plane_hit(a.sheet, o, d, h);
+  }
+  wide_closest(a.bvh, o, d, h, ray);
+  if (!ray) return;
   t_out[lane] = h.t;
   kind_out[lane] = h.kind;
   idx_out[lane] = h.j;
@@ -52,11 +58,12 @@ __global__ void __launch_bounds__(BLOCK)
     wide_shadow_kernel(const RayArgs a, const float* __restrict__ max_dist,
                        const float* __restrict__ block_below, float* __restrict__ t_out) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= a.n) return;
-  const V3 o = load3(a.origin, lane);
-  const V3 d = load3(a.direction, lane);
-  t_out[lane] =
-      wide_shadow(a.bvh, o, d, plane_shadow(a.sheet, o, d, max_dist[lane]), block_below[lane]);
+  const bool ray = lane < a.n;
+  const V3 o = ray ? load3(a.origin, lane) : V3{0.0f, 0.0f, 0.0f};
+  const V3 d = ray ? load3(a.direction, lane) : V3{0.0f, 0.0f, 0.0f};
+  const float t0 = ray ? plane_shadow(a.sheet, o, d, max_dist[lane]) : 0.0f;
+  const float t = wide_shadow(a.bvh, o, d, t0, ray ? block_below[lane] : 0.0f, ray);
+  if (ray) t_out[lane] = t;
 }
 
 }  // namespace

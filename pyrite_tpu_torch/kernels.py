@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from . import tracer
-from .kernels_dense import DE_FIELDS, _check, _flag, estimator_fields
+from .kernels_dense import DE_FIELDS, _check, _flag, check_leaves, estimator_fields
 
 # Each wrapper adds one here where it launches its kernel.
 launches = {"wide_closest_kernel": 0, "wide_shadow_kernel": 0, "march_de_kernel": 0}
@@ -54,7 +54,7 @@ def _ray_args(scene, origin, direction, dev):
         _check("sheet", pack["sheet"], f32, pack["sheet"].shape, dev),
         _check("meta", pack["meta"], i32, pack["meta"].shape, dev),
         _check("wide_rows", a["wide_rows"], f32, (273, 128), dev),
-        _check("clu_geo", a["clu_geo"], f32, (scene.cluster_slots, scene.cluster_leaf, 12), dev),
+        check_leaves(scene, dev),
         scene.cluster_leaf,
         _check("origin", origin, f32, (n, 3), dev),
         _check("direction", direction, f32, (n, 3), dev),

@@ -331,6 +331,16 @@ def _scene_args(scene, bank_vals, n, s, dev):
     ]
 
 
+def check_leaves(scene, dev):
+    """The leaf clusters' pointer, checked: the traversal reads each 48-byte
+    row of clu_geo as three 16-byte loads, so it must be 16-byte aligned."""
+    shape = (scene.cluster_slots, scene.cluster_leaf, 12)
+    ptr = _check("clu_geo", scene.arrays["clu_geo"], torch.float32, shape, dev)
+    if ptr % 16:
+        raise ValueError("clu_geo: not 16-byte aligned; the traversal reads its rows as float4")
+    return ptr
+
+
 def wide_args(scene, dev):
     """The arguments the mesh-scene kernels take after the shared ones: the
     node table, the leaf clusters, the triangle and sphere tables and the
@@ -341,7 +351,7 @@ def wide_args(scene, dev):
     leaf = scene.cluster_leaf
     return [
         _check("wide_rows", a["wide_rows"], f32, (273, 128), dev),
-        _check("clu_geo", a["clu_geo"], f32, (scene.cluster_slots, leaf, 12), dev),
+        check_leaves(scene, dev),
         _check("tri_n", a["tri_n"], f32, (t, 3, 3), dev),
         _check("tri_mat", a["tri_mat"], i32, (t,), dev),
         _check("sph_center", a["sph_center"], f32, (s, 3), dev),

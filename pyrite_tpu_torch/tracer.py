@@ -69,8 +69,10 @@ launches = {"bounce_core": 0, "bounces": 0}
 # no counting, and no host syncs for it): "de_steps" (march steps of all
 # lanes), "de_iterations" (estimator iterations entered), "pops" (wide-BVH
 # children popped), "descents" (node rows tested on descending) and
-# "leaf_rows" (leaf rows tested). chip_smoke.py reads it for the kernels'
-# bounds.
+# "leaf_rows" (leaf rows tested); and "leaf_visits", one entry per
+# cluster_traverse call: {"lane": [V], "slot": [V], "lanes": N}, the batch
+# index and leaf slot of each of its V (ray, leaf) sweeps. chip_smoke.py
+# reads it for the kernels' bounds and the warps' divergence.
 work = None
 
 
@@ -281,6 +283,7 @@ def cluster_traverse(scene, origin, direction, init_state, leaf_sweep, exit_belo
     m0, ph0 = _slab16(rows[0].expand(n, -1), origin, direction, inv_dir, state["t"])
     if exit_below is not None:
         m0 = torch.where(state["t"] < exit_below, 0, m0)
+    visits = [] if work is not None else None
     m1 = torch.zeros_like(m0)
     m2 = torch.zeros_like(m0)
     cur1 = torch.zeros_like(m0)
@@ -332,8 +335,11 @@ def cluster_traverse(scene, origin, direction, init_state, leaf_sweep, exit_belo
         _count("leaf_rows", sweep.sum() * scene.cluster_leaf)
         if bool(sweep.any()):
             sel = lanes[sweep]
+            slots = (c2 * 16 + k)[sweep]
+            if visits is not None:
+                visits.append((sel, slots))
             sub = {key: v[sel] for key, v in state.items()}
-            new = leaf_sweep((c2 * 16 + k)[sweep], origin[sel], direction[sel], sub)
+            new = leaf_sweep(slots, origin[sel], direction[sel], sub)
             for key, v in new.items():
                 state[key][sel] = v
             if exit_below is not None:
@@ -341,6 +347,13 @@ def cluster_traverse(scene, origin, direction, init_state, leaf_sweep, exit_belo
                 m0[done] = 0
                 m1[done] = 0
                 m2[done] = 0
+    if visits is not None:
+        none = torch.zeros(0, dtype=torch.long, device=dev)
+        work.setdefault("leaf_visits", []).append({
+            "lane": torch.cat([none] + [v[0] for v in visits]),
+            "slot": torch.cat([none] + [v[1] for v in visits]),
+            "lanes": n,
+        })
     return state
 
 

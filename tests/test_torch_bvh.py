@@ -10,7 +10,7 @@ import chip_smoke
 from pyrite_tpu import bvh as jax_bvh
 from pyrite_tpu import scene as jax_scene
 from pyrite_tpu.project import load_project as jax_load
-from pyrite_tpu_torch import bvh, scene as torch_scene
+from pyrite_tpu_torch import bvh, scene as torch_scene, tracer
 from pyrite_tpu_torch.project import load_project as torch_load
 
 torch.set_num_threads(2)
@@ -148,3 +148,37 @@ def test_scene_clusters_match_jax(meshes, name):
     # both kinds of primitive sit in the clusters
     kinds = set(st.arrays["clu_geo"][..., 10].unique().tolist())
     assert kinds == {-1.0, 0.0, 1.0} if name == "terrain_24" else {-1.0, 0.0}
+
+
+@pytest.mark.parametrize("query", ["closest", "shadow"])
+def test_leaf_visits_per_lane(meshes, query):
+    """tracer.work's per-lane leaf visits (chip_smoke reads them for the
+    warps' divergence) on terrain_24's camera wavefront and its shadow
+    rays: each visit sweeps one leaf of cluster_leaf rows, so the visits
+    add up to the leaf rows counted, each ray traced alone sweeps as many
+    leaves as its lane recorded, and the divergence factor lies in [1, 32]."""
+    scene, film, camera, cfg = chip_smoke.load_scene(meshes["terrain_24"], "cpu")
+    rng = torch.Generator()
+    rng.manual_seed(0)
+    origin, direction, _ = chip_smoke._wavefront(film, camera, cfg, rng)
+    if query == "closest":
+        rays = (origin, direction)
+        trace = lambda *r: tracer.intersect_scene(scene, *r)
+    else:
+        hit = tracer.intersect_scene(scene, origin, direction)
+        rays = chip_smoke._shadow_rays(scene, cfg, origin, direction, hit, rng)[:4]
+        trace = lambda *r: tracer.intersect_shadow(scene, *r)
+    work = chip_smoke._counted(lambda: trace(*rays))
+    (visits,) = work["leaf_visits"]
+    n = rays[0].shape[0]
+    assert visits["lanes"] == n > 1000
+    assert visits["lane"].numel() * scene.cluster_leaf == work["leaf_rows"] > 0
+    per_lane = torch.bincount(visits["lane"], minlength=n)
+    for i in np.random.default_rng(1).choice(n, 12, replace=False):
+        alone = chip_smoke._counted(lambda: trace(*(r[i : i + 1] for r in rays)))
+        assert alone.get("leaf_rows", 0) == per_lane[i] * scene.cluster_leaf
+    factor, per_leaf = chip_smoke.warp_divergence(visits)
+    assert 1.0 <= factor <= 32.0 and per_leaf >= 1.0
+    # the same visits seen from a wavefront twice as wide, every other lane idle
+    wide = chip_smoke.warp_divergence(visits, 2 * torch.arange(n), 2 * n)
+    assert wide[0] >= factor and wide[1] <= per_leaf
