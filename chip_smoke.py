@@ -8,28 +8,35 @@ and exits non-zero on any failure:
 1. device: the card's name, power limit and maximum SM clock;
 2. build: the kernels, from the sources, into an empty build directory;
 3. kernels against their plain PyTorch version on the card, at the
-   wavefront the main path launches: the DE march kernel on the camera rays
-   of examples/fractal.lua (a Mandelbulb in a box) and of the julia scene
-   (a cubic quaternion Julia in a sphere over a plane, no finite
-   primitive); the dense bounce and NEE kernels on four dense scenes
-   (flagship spheres, examples/prism.lua, a triangle-lamp mesh, a
-   many-materials scene) and on both DE scenes; the wide-BVH traversal
-   kernels on the 328,050- and 871,200-triangle terrains
-   (tools/synthetic.terrain_scene, cells 405 and 660), bit for bit; the
-   wide bounce and NEE kernels on terrain_405;
+   wavefront the main path launches: the DE march kernel (a persistent pass
+   that refills a lane as its ray ends) on the camera rays of
+   examples/fractal.lua (a Mandelbulb in a box), of the julia scene (a cubic
+   quaternion Julia in a sphere, no finite primitive), of terrain_de_24 (a
+   mesh with a Mandelbulb) and of two_de (a Mandelbulb and a cubic Julia),
+   as the query and as the bounce march pass, and over their bounce-0 NEE
+   shadow rays as the shadow march pass, bit for bit, with the SIMT
+   efficiency the in-thread march had on those rays; the dense bounce and
+   NEE kernels on four dense scenes (flagship spheres, examples/prism.lua, a
+   triangle-lamp mesh, a many-materials scene) and on the DE scenes; the
+   wide-BVH traversal kernels on the 328,050- and 871,200-triangle terrains
+   (tools/synthetic.terrain_scene, cells 405 and 660), bit for bit; the wide
+   bounce and NEE kernels on terrain_405 and terrain_de_24;
 4. per-launch times of the kernels and of the plain version at that size
    (the traversal queries on both terrains and the wide kernels on
-   terrain_405 at bounces 0 and 1, the march and the dense kernels on
-   fractal.lua too), with the work the plain version counts, from which
-   each kernel's bound is computed, and the warps' divergence in the
-   traversal;
+   terrain_405 at bounces 0 and 1; the dense kernels on flagship; on
+   fractal.lua the march passes and the bounce and NEE kernels apart at
+   bounces 0 and 1, and the march query with its issue-based bound from the
+   SASS of one estimator iteration), with the work the plain version counts,
+   from which each kernel's bound is computed, and the warps' divergence in
+   the traversal;
 5. the paths, each with the launch counts zeroed just before it and read
    just after: the CLI renders the flagship and prism.lua (dense kernels),
-   fractal.lua and the julia scene (dense kernels marching DE shapes),
-   terrain_405 (wide bounce and NEE kernels); the ray queries closest_wide /
-   shadow_wide trace one step's camera rays of terrain_405 and their shadow
-   rays (wide traversal kernels); kernels.march_de marches one step's camera
-   rays of fractal.lua (DE march kernel). No bounce may take the plain path.
+   fractal.lua and the julia scene (per bounce a march pass, the dense
+   bounce kernel, a shadow march pass, the dense NEE kernel), terrain_405
+   (wide bounce and NEE kernels); the ray queries closest_wide / shadow_wide
+   trace one step's camera rays of terrain_405 and their shadow rays (wide
+   traversal kernels); kernels.march_de marches one step's camera rays of
+   fractal.lua (DE march kernel). No bounce may take the plain path.
 
 The last line is one JSON object {"ok": true, "device": {...}}; the line
 before it lists each kernel's launches, error, times and bound.
@@ -277,6 +284,66 @@ def write_terrain_de_scene(directory, cells=24, width=48, height=24, spp=2, boun
     return de_path
 
 
+TWO_DE_SCENE = """
+return {
+    image = {width = %(w)d, height = %(h)d},
+    renderer = renderer.simple {
+        pixel_samples = 64,
+        spectrum_samples = %(s)d,
+        bounces = %(b)d,
+        light_samples = 2,
+    },
+    camera = camera.perspective {
+        fov = 50,
+        transform = transform.look_at {from = vector(0.2, 1.4, -5), to = vector(0, -0.2, 0)},
+    },
+    world = {
+        sky = 0.05,
+        objects = {
+            shape.ray_marched {
+                shape = ray_marched.mandelbulb {iterations = 10, threshold = 4, power = 8},
+                bounds = bounds.box {min = vector(-2.5, -1.2, -1.2), max = vector(-0.1, 1.2, 1.2)},
+                material = {surface = material.diffuse {color = rgb(0.3, 0.5, 0.8)}},
+            },
+            shape.ray_marched {
+                shape = ray_marched.quaternion_julia {
+                    iterations = 25,
+                    threshold = 4,
+                    constant = vector(-0.45, -0.0375, -0.4, -0.025),
+                    slice_plane = 0,
+                    variant = quaternion_julia.cubic,
+                },
+                bounds = {type = "sphere", position = vector(1.3, 0, 0), radius = 1.4},
+                material = {surface = material.diffuse {color = rgb(0.8, 0.55, 0.35)}},
+            },
+            shape.plane {
+                origin = vector(0, 1.3, 0), normal = vector(0, 1, 0),
+                material = {surface = material.diffuse {color = 0.6}},
+            },
+            shape.sphere {
+                position = vector(2, 4, -3), radius = 0.5,
+                material = {surface = material.emissive {color = light_source.d65 * 20}},
+            },
+        },
+    },
+}
+"""
+
+
+def write_two_de_scene(directory, width=128, height=64, spectrum_samples=4, bounces=4):
+    """Two DE shapes of different kinds side by side: a Mandelbulb (10
+    iterations) in a box and the julia scene's cubic quaternion Julia in a
+    sphere, over a diffuse floor at y = -1.3 (the scene builder mirrors a
+    plane through the world origin, as the reference does), lit by a sphere
+    lamp. A march pass orders
+    its items shape by shape, so the warps at the border between the two
+    shapes march both kinds. Returns the .lua path."""
+    path = os.path.join(directory, "two_de.lua")
+    with open(path, "w") as fh:
+        fh.write(TWO_DE_SCENE % {"w": width, "h": height, "s": spectrum_samples, "b": bounces})
+    return path
+
+
 def terrain_paths(directory, cells=(405, 660), width=256, height=128, spp=8, bounces=4):
     """The mesh scenes: tools/synthetic.terrain_scene at the configuration
     bench.py measured on the TPU (256x128, 8 spp, 4 bounces, S = 4, one
@@ -407,10 +474,12 @@ def check_kernels(name, path, lanes=None, bounces=3, seed=0, cut=None, idle=0.0)
         worst["brightness"] = max(worst["brightness"], b_err)
         worst["divergent"] = max(worst["divergent"], share)
         if has_nee:
-            alone, ctx = kd.launch_bounce_kernel(scene, cfg, wl, state, draws, bank)
+            t_de = kd.march_pass(scene, cfg, state) if scene.de_shapes else None
+            alone, ctx = kd.launch_bounce_kernel(scene, cfg, wl, state, draws, bank, t_de)
             ctx["nee"] &= ~_idle_lanes(n, idle, seed + 2 + b, "cuda")
             alone["brightness"].zero_()
-            kd.launch_nee_kernel(scene, cfg, wl, alone, ctx, draws, bank)
+            t_de_shadow = kd.shadow_pass(scene, cfg, alone, ctx, draws) if scene.de_shapes else None
+            kd.launch_nee_kernel(scene, cfg, wl, alone, ctx, draws, bank, t_de_shadow)
             plain_delta = tracer.trace_direct(
                 scene, cfg, draws, ctx["nee"], alone["origin"], ctx["flip"], -ctx["flip"],
                 wl, ctx["refl_nee"], alone["aux_alive"],
@@ -701,7 +770,10 @@ def time_kernels(path, card, seed=1, plain_reps=10, bounce=0):
     the plain version, each timed in the order plain, kernel, kernel, plain
     after a warm-up; with the bytes each kernel must move and the FP32
     operations its inputs need, counted by the plain version on the rays the
-    kernels trace (the alive lanes' bounce, the shadow rays cast). Returns
+    kernels trace (the alive lanes' bounce, the shadow rays cast). On a
+    scene with DE shapes the march passes are timed apart from the bounce
+    and NEE kernels, which read their t ("de_march_pass", "de_shadow_pass",
+    against tracer.de_hits / kernels_dense.shadow_pass_plain). Returns
     {name: (kernel ms, plain ms, bytes, operations)}."""
     import dataclasses
 
@@ -716,9 +788,12 @@ def time_kernels(path, card, seed=1, plain_reps=10, bounce=0):
     bounce_name, nee_name = kd.kernel_names(scene)
     bounce_fn = getattr(lib, kd._LAUNCHERS[bounce_name])
     nee_fn = getattr(lib, kd._LAUNCHERS[nee_name])
-    b_args, out, ctx = kd.bounce_kernel_args(scene, cfg, wl, state, draws, bank)
+    de = bool(scene.de_shapes)
+    t_de = kd.march_pass(scene, cfg, state) if de else None
+    b_args, out, ctx = kd.bounce_kernel_args(scene, cfg, wl, state, draws, bank, t_de)
     bounce_fn(*b_args)
-    n_args = kd.nee_kernel_args(scene, cfg, wl, out, ctx, draws, bank)
+    t_de_shadow = kd.shadow_pass(scene, cfg, out, ctx, draws) if de else None
+    n_args = kd.nee_kernel_args(scene, cfg, wl, out, ctx, draws, bank, t_de_shadow)
     cfg_no_nee = dataclasses.replace(cfg, light_samples=0)
 
     runs = {
@@ -734,6 +809,15 @@ def time_kernels(path, card, seed=1, plain_reps=10, bounce=0):
         ),
         "bounce_dense": lambda: tracer.bounce_core(scene, cfg, wl, state, draws),
     }
+    if de:
+        # the raw launches write into t_m / t_s, held here while they run
+        m_args, t_m = kd.march_pass_args(scene, cfg, state)
+        s_args, t_s = kd.shadow_pass_args(scene, cfg, out, ctx, draws)
+        runs["de_march_pass"] = lambda: lib.pyrite_de_march_bounce(*m_args)
+        runs["de_shadow_pass"] = lambda: lib.pyrite_de_march_shadow(*s_args)
+        plains["de_march_pass"] = lambda: tracer.de_hits(
+            scene, state["origin"], state["direction"], cfg.max_de_steps, live=state["alive"])
+        plains["de_shadow_pass"] = lambda: kd.shadow_pass_plain(scene, cfg, out, ctx, draws)
     alive = int(state["alive"].sum())
     times = _time_pairs(runs, plains, plain_reps, (
         f"per launch at bounce {bounce}, {n} lanes ({alive} alive), S={wl.shape[1]}, "
@@ -752,14 +836,21 @@ def time_kernels(path, card, seed=1, plain_reps=10, bounce=0):
                                              "sph_center", "sph_mat")))
     s_count, ls = wl.shape[1], cfg.light_samples
     nee_lanes = int(ctx["nee"].sum())
-    b_bytes = tables + n * (24 * s_count + 99)
-    n_bytes = tables + n + nee_lanes * (29 + 12 * s_count + ls * (20 + 4 * s_count))
+    n_de = len(scene.de_shapes)
+    b_bytes = tables + n * (24 * s_count + 99 + 4 * n_de)
+    n_bytes = tables + n + nee_lanes * (29 + 12 * s_count + ls * (20 + 4 * s_count + 4 * n_de))
     lanes, shadows = _kernel_rays(scene, cfg, state, draws, out, ctx)
     b_work = _counted(lambda: tracer.bounce_core(
         scene, cfg_no_nee, wl[lanes], {k: v[lanes] for k, v in state.items()},
         {k: draws[k][lanes] for k in ("u_comp", "u_scatter")}))
     n_work = _counted(lambda: [
         tracer.intersect_shadow(scene, *rays[1:], de_steps=cfg.max_de_steps) for rays in shadows])
+    # the marches, now the passes' work: out of the kernels' counts
+    m_work = _counted(lambda: tracer.de_hits(
+        scene, state["origin"][lanes], state["direction"][lanes], cfg.max_de_steps))
+    s_work = _counted(lambda: [tracer.de_hits(scene, *rays[1:3], cfg.max_de_steps, t_cap=rays[3])
+                               for rays in shadows])
+    b_work, n_work = _less(b_work, m_work), _less(n_work, s_work)
     cast = sum(rays[0].numel() for rays in shadows)
     b_ops = _work_ops(scene, b_work, alive, _sweep_ops(scene) + OPS["shade"])
     n_ops = _work_ops(scene, n_work, nee_lanes * ls, OPS["lamp"]) + cast * _sweep_ops(scene)
@@ -771,6 +862,20 @@ def time_kernels(path, card, seed=1, plain_reps=10, bounce=0):
         bounce_name: (*times[bounce_name], b_bytes, b_ops),
         nee_name: (*times[nee_name], n_bytes, n_ops),
     }
+    if de:
+        # the march pass reads each lane's ray and flag and writes n_de t;
+        # the shadow pass reads a flag per lane and, per NEE lane, its
+        # position, facing normal, lamp index and draws, and writes n_de t
+        # per light sample and lane; operations: the counted marches and,
+        # per shadow ray, its lamp sample
+        sheet = _nbytes(scene.dense_pack["tensors"]["sheet"])
+        m_bytes = sheet + n * (25 + 4 * n_de)
+        s_bytes = sheet + n * (1 + 4 * n_de * ls) + nee_lanes * (28 + 16 * ls)
+        result["de_march_pass"] = (*times["de_march_pass"], m_bytes, _work_ops(scene, m_work))
+        result["de_shadow_pass"] = (*times["de_shadow_pass"], s_bytes,
+                                    _work_ops(scene, s_work, nee_lanes * ls, OPS["lamp"]))
+        print(f"[work] {os.path.basename(path)} march passes at bounce {bounce}: bounce rays "
+              f"{_plain_counts(m_work)}, shadow rays {_plain_counts(s_work)}")
     base = os.path.basename(path)
     _print_divergence(f"{base} {bounce_name} at bounce {bounce}", b_work, [lanes], n)
     _print_divergence(f"{base} {nee_name} at bounce {bounce}", n_work,
@@ -780,8 +885,13 @@ def time_kernels(path, card, seed=1, plain_reps=10, bounce=0):
 
 
 def _plain_counts(work):
-    """tracer.work's counts, without the per-lane leaf visits."""
-    return {k: v for k, v in work.items() if k != "leaf_visits"}
+    """tracer.work's counts, without the per-lane records."""
+    return {k: v for k, v in work.items() if not isinstance(v, list)}
+
+
+def _less(work, part):
+    """tracer.work's counts less those of ``part``, a share of its work."""
+    return dict(work, **{k: work.get(k, 0) - v for k, v in _plain_counts(part).items()})
 
 
 def _print_bounds(what, result):
@@ -903,48 +1013,158 @@ def _de_march_args(scene, cfg, origin, direction, shape):
             tracer.DE_OMEGA)
 
 
-def check_march(name, path, lanes=None, seed=0):
-    """Phase 3 for the DE march kernel on one DE scene's camera wavefront
-    (``lanes`` cuts it): kernels.march_de (CUDA) against
-    tracer.march_de_plain on the card, for each DE shape. The hit flag (the
-    march ended inside its bounds) must agree on >= 99.9 % of lanes and t to
-    rtol 1e-5 on the lanes both hit. Prints how many flags and t are bit
-    equal. Returns {"err": max abs t error, "flags_differ": count, "n": lanes}."""
+def _differ(a, b):
+    """Lanes where two float tensors differ bit for bit, a NaN on both sides
+    counting as equal."""
     import torch
 
-    from pyrite_tpu_torch import kernels, tracer
+    return _bits_differ(a, b) & ~(torch.isnan(a) & torch.isnan(b))
+
+
+def march_divergence(orbits, lanes=None, n=None):
+    """(iterations, issue slots, longest ray's iterations) of one march's
+    counted orbits (an entry of tracer.work["de_orbits"]), its rays taken 32
+    to a warp in lane order (``lanes`` maps the march's batch to the
+    kernel's ``n`` lanes where the batch is a subset of them). The slots are
+    32 x the sum over warps and march steps of the longest orbit among the
+    warp's rays at that step: what a warp issues when each thread marches
+    its own ray, every iteration in the thread, as the bounce and NEE kernels
+    did before the march pass. iterations / slots is that design's SIMT
+    efficiency."""
+    import torch
+
+    lane, step, its = orbits["lane"], orbits["step"], orbits["iterations"].long()
+    if lanes is not None:
+        lane = lanes[lane]
+    n = orbits["lanes"] if n is None else n
+    total = int(its.sum())
+    if total == 0:
+        return 0, 0, 0
+    steps = int(step.max()) + 1
+    longest = torch.zeros(-(-n // 32) * steps, dtype=torch.long, device=its.device)
+    longest.scatter_reduce_(0, (lane // 32) * steps + step, its, "amax")
+    per_ray = torch.zeros(n, dtype=torch.long, device=its.device).index_add_(0, lane, its)
+    return total, 32 * int(longest.sum()), int(per_ray.max())
+
+
+def _print_march_divergence(what, rays, counts):
+    """The [divergence] march line of ``counts``, march_divergence's tuples
+    summed (the longest ray: the most of any)."""
+    total, slots = sum(c[0] for c in counts), sum(c[1] for c in counts)
+    longest = max((c[2] for c in counts), default=0)
+    print(f"[divergence] march {what}: {rays} rays, {total} estimator iterations; SIMT "
+          f"efficiency of the in-thread march {total / max(slots, 1):.3f}; longest ray "
+          f"{longest} iterations")
+    return total, longest
+
+
+def check_march(name, path, lanes=None, seed=0, cut=None, idle=0.0):
+    """Phase 3 for march_de_kernel on one DE scene's camera wavefront
+    (``lanes`` cuts it to whole rows, ``cut`` to its first rays; ``idle``
+    takes that share of the rays, at random, out of the march: hit false for
+    the query, dead lanes for the pass): kernels.march_de (the query)
+    against tracer.march_de_plain for each DE shape, and the bounce march
+    pass kernels_dense.march_pass against tracer.de_hits, on the card. Hit
+    flags, total, dist and t must be equal on every ray, bit for bit. Prints
+    the camera rays' [divergence] march line. Returns {"err": max abs t
+    error, "n": rays, "iterations": estimator iterations of the camera rays,
+    "longest": the longest ray's}."""
+    import torch
+
+    from pyrite_tpu_torch import kernels, kernels_dense as kd, tracer
 
     scene, film, camera, cfg = _gpu_scene(path)
     rng = torch.Generator(device="cuda")
     rng.manual_seed(seed)
     origin, direction, _ = _wavefront(film, camera, cfg, rng, lanes)
+    origin, direction = origin[:cut], direction[:cut]
     n = origin.shape[0]
-    worst = {"err": 0.0, "flags_differ": 0, "n": n}
+    live = ~_idle_lanes(n, idle, seed + 1, "cuda")
+    worst = {"err": 0.0, "n": n}
+    counts = []
     for j, shape in enumerate(scene.de_shapes):
-        args = _de_march_args(scene, cfg, origin, direction, shape)
+        args = list(_de_march_args(scene, cfg, origin, direction, shape))
+        args[5] = args[5] & live
         tmax, hit = args[4], args[5]
         total_k, dist_k = kernels.march_de(*args)
-        total_p, dist_p = tracer.march_de_plain(*args)
+        plain = []
+        work = _counted(lambda: plain.append(tracer.march_de_plain(*args)))
+        (total_p, dist_p), = plain
         torch.cuda.synchronize()
+        counts.append(march_divergence(work["de_orbits"][0]))
         ok_k, ok_p = hit & (total_k <= tmax), hit & (total_p <= tmax)
-        differ = int((ok_k != ok_p).sum())
-        assert differ <= 0.001 * n, f"{name}: hit flags differ on {differ} of {n} lanes"
-        both = ok_k & ok_p
-        tk, tp = total_k[both], total_p[both]
-        assert bool(torch.isclose(tk, tp, rtol=1e-5, atol=0.0).all()), (
-            f"{name}: t differs beyond rtol 1e-5 on {int((~torch.isclose(tk, tp, rtol=1e-5)).sum())} lanes"
-        )
-        err = float((tk - tp).abs().max()) if bool(both.any()) else 0.0
-        print(
-            f"[kernels] {name}: march_de_kernel on {n} camera rays, DE shape {j} "
-            f"({shape.estimator['kind']}, {shape.bounds_kind} bounds): {int(hit.sum())} enter the "
-            f"bounds, {int(ok_p.sum())} hit; flags equal on {n - differ}/{n}, t bit-equal on "
-            f"{int((tk == tp).sum())}/{int(both.sum())} (max abs err {err:.3g}, rtol 1e-5), dist "
-            f"bit-equal on {int((dist_k == dist_p).sum())}/{n}"
-        )
-        worst["err"] = max(worst["err"], err)
-        worst["flags_differ"] += differ
+        flags = int((ok_k != ok_p).sum())
+        totals, dists = int(_differ(total_k, total_p).sum()), int(_differ(dist_k, dist_p).sum())
+        assert flags == 0 and totals == 0 and dists == 0, (
+            f"{name}: march_de_kernel differs from the plain march on {n} rays: hit flags "
+            f"{flags}, total {totals}, dist {dists}")
+        print(f"[kernels] {name}: march_de_kernel on {n} camera rays ({idle:.0%} without a ray), "
+              f"DE shape {j} ({shape.estimator['kind']}, {shape.bounds_kind} bounds): "
+              f"{int(hit.sum())} enter the bounds, {int(ok_p.sum())} hit; hit flags, total and "
+              f"dist bit-equal on {n}/{n}")
+    state = {"origin": origin, "direction": direction, "alive": live}
+    t_k = kd.march_pass(scene, cfg, state)
+    t_p = tracer.de_hits(scene, origin, direction, cfg.max_de_steps, live=live)
+    torch.cuda.synchronize()
+    bad = int(_bits_differ(t_k, t_p).sum())
+    assert bad == 0, f"{name}: the march pass's t differs on {bad} of {t_k.numel()} (shape, ray)"
+    worst["err"] = _max_abs_err(t_k, t_p)
+    print(f"[kernels] {name}: march pass (march_de_kernel over the bounce rays) on {n} rays x "
+          f"{len(scene.de_shapes)} DE shape(s), {int(live.sum())} alive: t bit-equal on "
+          f"{t_k.numel()}/{t_k.numel()}, {int(torch.isfinite(t_p).sum())} hits")
+    worst["iterations"], worst["longest"] = _print_march_divergence(
+        f"{name} camera rays", int(live.sum()), counts)
     return worst
+
+
+def check_shadow_pass(name, path, lanes=None, seed=0, cut=None, idle=0.0):
+    """Phase 3 for the shadow march pass on one DE scene's bounce-0 NEE
+    rays (``lanes``, ``cut`` as check_march; ``idle`` starts that share of
+    the lanes dead and takes NEE from that share of the NEE lanes): the
+    bounce kernel after the march pass, then kernels_dense.shadow_pass on the
+    card against tracer.intersect_de capped at the lamp distance
+    (tracer.de_hits) on each light sample's shadow rays
+    (kernels_dense.shadow_rays, the rays nee_lane casts): t bit-equal on
+    every (shape, light sample, lane), inf where no ray is cast. Prints the
+    shadow rays' [divergence] march line. Returns the max abs t error."""
+    import torch
+
+    from pyrite_tpu_torch import kernels_dense as kd, tracer
+
+    scene, film, camera, cfg = _gpu_scene(path)
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(seed)
+    origin, direction, wl = _wavefront(film, camera, cfg, rng, lanes)
+    origin, direction, wl = origin[:cut], direction[:cut], wl[:cut]
+    n = origin.shape[0]
+    state = tracer.initial_state(origin, direction, wl.shape[1])
+    state["alive"] = ~_idle_lanes(n, idle, seed + 1, "cuda")
+    draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
+    bank = kd.precompute_bank_values(scene, wl)
+    out, ctx = kd.launch_bounce_kernel(scene, cfg, wl, state, draws, bank,
+                                       kd.march_pass(scene, cfg, state))
+    ctx["nee"] &= ~_idle_lanes(n, idle, seed + 2, "cuda")
+    got = kd.shadow_pass(scene, cfg, out, ctx, draws)
+    err, cast_rays, counts = 0.0, 0, []
+    for j in range(cfg.light_samples):
+        d, dist, cast = kd.shadow_rays(scene, out, ctx, draws, j)
+        sel = torch.nonzero(cast)[:, 0]
+        plain = []
+        work = _counted(lambda: plain.append(tracer.de_hits(
+            scene, out["origin"][sel], d[sel], cfg.max_de_steps, t_cap=dist[sel])))
+        torch.cuda.synchronize()
+        bad = int(_bits_differ(got[:, j, sel], plain[0]).sum())
+        assert bad == 0, f"{name}: the shadow pass's t differs on {bad} rays of light sample {j}"
+        assert bool(torch.isinf(got[:, j][:, ~cast]).all()), f"{name}: t on a ray not cast"
+        err = max(err, _max_abs_err(got[:, j, sel], plain[0]))
+        cast_rays += sel.numel()
+        counts += [march_divergence(o, sel, n) for o in work["de_orbits"]]
+    print(f"[kernels] {name}: shadow pass (march_de_kernel over the NEE shadow rays) on {n} lanes "
+          f"({int(ctx['nee'].sum())} take NEE) x {cfg.light_samples} light samples x "
+          f"{len(scene.de_shapes)} DE shape(s): {cast_rays} rays cast, t bit-equal on "
+          f"{got.numel()}/{got.numel()}")
+    _print_march_divergence(f"{name} shadow rays of bounce 0", cast_rays, counts)
+    return err
 
 
 def de_shadow_share(name, path, seed=0):
@@ -964,7 +1184,8 @@ def de_shadow_share(name, path, seed=0):
     state = tracer.initial_state(origin, direction, wl.shape[1])
     draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
     _, ctx = kd.launch_bounce_kernel(scene, cfg, wl, state, draws,
-                                     kd.precompute_bank_values(scene, wl))
+                                     kd.precompute_bank_values(scene, wl),
+                                     kd.march_pass(scene, cfg, state))
     hit = tracer.intersect_scene(scene, origin, direction, de_steps=cfg.max_de_steps)
     lanes = torch.nonzero(ctx["nee"] & (hit["kind"] == tracer.KIND_DE))[:, 0]
     position = (origin + direction * hit["t"][:, None])[lanes]
@@ -982,7 +1203,9 @@ def de_shadow_share(name, path, seed=0):
 def time_march(path, card, seed=1, plain_reps=2):
     """Phase 4 for the DE march kernel: march_de_kernel and its plain
     version on the camera wavefront of a DE scene, with the march steps and
-    estimator iterations the plain version counts. Returns
+    estimator iterations the plain version counts; the same rays ordered
+    longest first and the longest ray alone (the floor no scheduling
+    removes); and the issue-based bound (sass_per_iteration). Returns
     {"march_de_kernel": (kernel ms, plain ms, bytes, operations)}."""
     import torch
 
@@ -1002,9 +1225,124 @@ def time_march(path, card, seed=1, plain_reps=2):
     work = _counted(lambda: tracer.march_de_plain(*args))
     size = _nbytes(*args[1:6]) + 2 * 4 * n  # 9 inputs in, total and dist out
     ops = _work_ops(scene, work)
+    iterations, slots, longest = march_divergence(work["de_orbits"][0])
     print(f"[work] {os.path.basename(path)} march_de_kernel: {n} rays, {work['de_steps']} march "
-          f"steps, {work['de_iterations']} estimator iterations, {size} bytes, {ops} FP32 operations")
+          f"steps, {iterations} estimator iterations, {size} bytes, {ops} FP32 operations; "
+          f"longest ray {longest} iterations; SIMT efficiency of the in-thread march "
+          f"{iterations / max(slots, 1):.3f}")
+    # the same rays longest first (by the plain march's iterations per ray),
+    # and the longest ray alone: what ordering could gain, and the floor
+    orbits = work["de_orbits"][0]
+    per_ray = torch.zeros(n, dtype=torch.long, device=orbits["lane"].device).index_add_(
+        0, orbits["lane"], orbits["iterations"].long())
+    order = torch.argsort(per_ray, descending=True)
+    pick = lambda lanes: [a[lanes] if isinstance(a, torch.Tensor) else a for a in args]
+    ordered, alone = pick(order), pick(order[:1])
+    first_ms = _event_ms(lambda: kernels.march_de(*ordered), 20)
+    alone_ms = _event_ms(lambda: kernels.march_de(*alone), 20)
+    print(f"[march order] {os.path.basename(path)} march_de_kernel: as launched "
+          f"{times['march_de_kernel'][0]:.4f} ms; the same rays longest first {first_ms:.4f} ms; "
+          f"the longest ray alone ({longest} iterations) {alone_ms:.4f} ms, "
+          f"{alone_ms * 1e3 / max(longest, 1):.4f} us per iteration ({card})")
+    est = scene.de_shapes[0].estimator
+    kind = "mandelbulb" if est["kind"] == "mandelbulb" else "julia"
+    per_iteration = sass_per_iteration()
+    issue_ms = iterations * per_iteration[kind] / _issue_rate() * 1e3
+    print(f"[bound] {os.path.basename(path)} march_de_kernel, issue-based: {iterations} iterations "
+          f"x {per_iteration[kind]} SASS instructions per {kind} iteration (fast path, libm calls "
+          f"inlined; {per_iteration}) / (132 SMs x 4 schedulers x 32 lanes x clock) = "
+          f"{issue_ms:.4f} ms; kernel {times['march_de_kernel'][0]:.4f} ms ({card})")
     return {"march_de_kernel": (*times["march_de_kernel"], size, ops)}
+
+
+# One estimator iteration of each kind between the same loads and stores
+# (csrc/march_de.cuh), and the loads and stores alone, for
+# sass_per_iteration: built with the library's flags, read with cuobjdump.
+PROBE_SRC = r'''
+#include "march_de.cuh"
+
+__device__ __forceinline__ Orbit probe_in(const float* in, V3& p) {
+  const int i = threadIdx.x;
+  p = {in[i], in[i + 32], in[i + 64]};
+  return {{in[i + 96], in[i + 128], in[i + 160], in[i + 192]},
+          {in[i + 224], in[i + 256], in[i + 288], in[i + 320]}, in[i + 352], (int)in[i + 384]};
+}
+
+__device__ __forceinline__ void probe_out(const Orbit& o, bool done, float* out) {
+  const int i = threadIdx.x;
+  out[i] = o.z.s; out[i + 32] = o.z.x; out[i + 64] = o.z.y; out[i + 96] = o.z.z;
+  out[i + 128] = o.dz.s; out[i + 160] = o.dz.x; out[i + 192] = o.dz.y; out[i + 224] = o.dz.z;
+  out[i + 256] = o.r; out[i + 288] = (float)o.it + (done ? 0.5f : 0.0f);
+}
+
+extern "C" __global__ void probe_base(const DeShape s, const float* in, float* out) {
+  V3 p;
+  Orbit o = probe_in(in, p);
+  probe_out(o, p.x > s.threshold, out);
+}
+
+extern "C" __global__ void probe_mandelbulb(const DeShape s, const float* in, float* out) {
+  V3 p;
+  Orbit o = probe_in(in, p);
+  const bool done = mandelbulb_step(s, p, o);
+  probe_out(o, done, out);
+}
+
+extern "C" __global__ void probe_julia(const DeShape s, const float* in, float* out) {
+  V3 p;
+  Orbit o = probe_in(in, p);
+  const bool done = julia_step(s, o);
+  probe_out(o, done, out);
+}
+'''
+
+
+def _sass_counts(sass):
+    """{function: instructions before its first EXIT} of cuobjdump -sass
+    output: the path that runs when no branch leaves it, which is where the
+    compiler lays out the common path; the libm calls' slow paths follow the
+    EXIT."""
+    counts, name, done = {}, None, False
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\w+)", line)
+        if head:
+            name, done = head.group(1), False
+            counts[name] = 0
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name is None or done or not op:
+            continue
+        if op.group(1).startswith("EXIT"):
+            done = True
+        elif op.group(1) != "NOP":
+            counts[name] += 1
+    return counts
+
+
+def sass_per_iteration():
+    """SASS instructions of one estimator iteration of each kind
+    ({"mandelbulb": m, "julia": j, the cubic Julia}): the probe kernels of
+    PROBE_SRC built with _build.NVCC_FLAGS against csrc/march_de.cuh, less
+    the loads and stores around them, from cuobjdump -sass."""
+    from pyrite_tpu_torch import _build
+
+    nvcc = _build.find_nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        src, cubin = os.path.join(tmp, "probe.cu"), os.path.join(tmp, "probe.cubin")
+        with open(src, "w") as fh:
+            fh.write(PROBE_SRC)
+        subprocess.run([nvcc, *_build.NVCC_FLAGS, "-I", _build.CSRC, "-cubin", "-o", cubin, src],
+                       check=True, capture_output=True, text=True, timeout=300)
+        sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
+                              check=True, capture_output=True, text=True, timeout=120).stdout
+    counts = _sass_counts(sass)
+    return {k: counts[f"probe_{k}"] - counts["probe_base"] for k in ("mandelbulb", "julia")}
+
+
+def _issue_rate():
+    """Lane-instructions the card issues per second: 132 SMs x 4 warp
+    schedulers x 32 lanes x the max SM clock."""
+    return 132 * 4 * 32 * _SM_CLOCK_MHZ[-1] * 1e6
 
 
 def _zero_counts():
@@ -1021,10 +1359,12 @@ def _read_counts():
     return dict(kd.launches, **kernels.launches, **tracer.launches)
 
 
-def render_end_to_end(path, samples, card, out_dir, kernels=("dense_bounce_kernel", "dense_nee_kernel")):
+def render_end_to_end(path, samples, card, out_dir, kernels=("dense_bounce_kernel", "dense_nee_kernel"),
+                      passes=False):
     """Phase 5: the CLI on the GPU; checks the PNG, the film and that every
-    bounce went through the scene's CUDA ``kernels`` (bounce, NEE). Returns
-    the launch counts of the run."""
+    bounce went through the scene's CUDA ``kernels`` (bounce, NEE) and, with
+    ``passes`` (a scene with DE shapes), one march pass and one shadow march
+    pass. Returns the launch counts of the run."""
     import numpy as np
     import torch
     from PIL import Image
@@ -1062,6 +1402,8 @@ def render_end_to_end(path, samples, card, out_dir, kernels=("dense_bounce_kerne
     assert bounces > 0 and launches[kernels[0]] == bounces, launches
     assert launches[kernels[1]] == bounces, launches
     assert launches["bounce_core"] == 0, launches
+    marches = bounces if passes else 0
+    assert launches["de_march_pass"] == launches["de_shadow_pass"] == marches, launches
     project = cli.load_project(path).project
     r = project.renderer
     rays = film.width * film.height * samples * r.bounces * (1 + r.light_samples)
@@ -1186,8 +1528,9 @@ def kernel_registers(log):
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
         if name is None or used is None:
             continue
-        name += {"ILb1E": "<true>", "ILb0E": "<false>"}.get(
-            next((t for t in ("ILb1E", "ILb0E") if t in mangled), ""), "")
+        tags = {"ILb1E": "<true>", "ILb0E": "<false>", "QueryRays": "<query>",
+                "BounceRays": "<bounce>", "ShadowRays": "<shadow>"}
+        name += next((tag for t, tag in tags.items() if t in mangled), "")
         stores, loads = (int(x) for x in spill.groups()) if spill else (0, 0)
         found[name] = (int(used.group(1)), stores, loads)
     return found
@@ -1288,14 +1631,18 @@ def main(argv=None):
         paths = scene_paths(tmp, width=512, height=256, spectrum_samples=6, bounces=8)
         de = {"fractal": os.path.join(ROOT, "examples", "fractal.lua"),
               "julia": write_julia_scene(tmp)}
+        mixed = {"terrain_de_24": write_terrain_de_scene(tmp, width=128, height=64),
+                 "two_de": write_two_de_scene(tmp)}
         mesh = terrain_paths(tmp)
-        marched = {name: check_march(name, p) for name, p in de.items()}
-        worst = {name: check_kernels(name, p) for name, p in dict(paths, **de).items()}
+        marched = {name: check_march(name, p) for name, p in dict(de, **mixed).items()}
+        shadowed = {name: check_shadow_pass(name, p) for name, p in dict(de, **mixed).items()}
+        worst = {name: check_kernels(name, p) for name, p in dict(paths, **de, **mixed).items()}
         shadow = {name: de_shadow_share(name, p) for name, p in de.items()}
         worst_wide = check_kernels("terrain_405", mesh["terrain_405"])
         queries = {name: check_queries(name, p) for name, p in mesh.items()}
         times = time_kernels(paths["flagship"], smi)
-        time_kernels(de["fractal"], smi, plain_reps=2)  # printed: the DE kernels' times
+        for bounce in (0, 1):  # printed: the DE passes' and kernels' times
+            time_kernels(de["fractal"], smi, plain_reps=1, bounce=bounce)
         times.update(time_march(de["fractal"], smi))
         times.update(time_kernels(mesh["terrain_405"], smi, plain_reps=2))
         time_kernels(mesh["terrain_405"], smi, plain_reps=2, bounce=1)  # printed
@@ -1303,8 +1650,8 @@ def main(argv=None):
         time_queries(mesh["terrain_660"], smi)  # printed: the larger leaf's cost
         dense_runs = [render_end_to_end(paths["flagship"], 16, smi, tmp),
                       render_end_to_end(paths["prism"], 8, smi, tmp)]
-        de_runs = [render_end_to_end(de["fractal"], 8, smi, tmp),
-                   render_end_to_end(de["julia"], 8, smi, tmp)]
+        de_runs = [render_end_to_end(de["fractal"], 8, smi, tmp, passes=True),
+                   render_end_to_end(de["julia"], 8, smi, tmp, passes=True)]
         mesh_run = render_end_to_end(mesh["terrain_405"], 8, smi, tmp,
                                      ("wide_bounce_kernel", "wide_nee_kernel"))
         query_run = drive_queries(mesh["terrain_405"], smi)
@@ -1329,8 +1676,10 @@ def main(argv=None):
                max(max(w["bounce"], w["brightness"]) for w in checked)),
         kernel("dense_nee_kernel", "bounce.cu", "pyrite_tpu/kernels_dense.py:909",
                dense_total("dense_nee_kernel"), max(w["nee"] for w in checked)),
-        kernel("march_de_kernel", "march_de.cu", "pyrite_tpu/kernels.py:907",
-               march_run["march_de_kernel"], max(m["err"] for m in marched.values())),
+        kernel("march_de_kernel", "march_de.cuh", "pyrite_tpu/kernels.py:907",
+               march_run["march_de_kernel"] + sum(
+                   run["de_march_pass"] + run["de_shadow_pass"] for run in de_runs),
+               max(max(m["err"] for m in marched.values()), max(shadowed.values()))),
         kernel("wide_closest_kernel", "wide_bvh.cu", "pyrite_tpu/kernels.py:541",
                query_run["wide_closest_kernel"], max(q["closest"] for q in queried)),
         kernel("wide_shadow_kernel", "wide_bvh.cu", "pyrite_tpu/kernels.py:593",

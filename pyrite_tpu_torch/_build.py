@@ -39,12 +39,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _DE = [_I, _F]  # the DE march's step cap and over-relaxation factor
-# ... after the scene's DE shape count, which picks the kernel instantiation
-_BOUNCE = [_P] * 30 + [_I] * 5 + _DE
-_NEE = [_P] * 16 + [_I] * 4 + [_F, _I] + _DE
+# ... ending in the scene's DE shape count, which picks the kernel
+# instantiation, and the march pass's t
+_BOUNCE = [_P] * 30 + [_I] * 5 + [_P]
+_NEE = [_P] * 16 + [_I] * 4 + [_F, _I, _P]
 _WIDE = [_P] * 6 + [_I]  # the mesh scene's tables and its leaf size
 # argument lists of the extern "C" launchers in csrc/bounce.cu,
-# csrc/wide_bvh.cu and csrc/march_de.cu
+# csrc/wide_bvh.cu and csrc/march_de.cu; a march pass ends in its work
+# counter and the stream
 _SIGNATURES = {
     "pyrite_dense_bounce": _BOUNCE + [_P],
     "pyrite_dense_nee": _NEE + [_P],
@@ -52,7 +54,9 @@ _SIGNATURES = {
     "pyrite_wide_nee": _NEE + _WIDE + [_P],
     "pyrite_wide_closest": [_P] * 4 + [_I] + [_P] * 12 + [_I, _P],
     "pyrite_wide_shadow": [_P] * 4 + [_I] + [_P] * 5 + [_I, _P],
-    "pyrite_march_de": [_P] * 6 + _DE + [_P] * 2 + [_I, _P],
+    "pyrite_march_de": [_P] * 6 + _DE + [_P] * 2 + [_I, _P, _P],
+    "pyrite_de_march_bounce": [_P] * 6 + [_I] * 2 + _DE + [_P, _P],
+    "pyrite_de_march_shadow": [_P] * 8 + [_I] * 3 + _DE + [_P, _P],
 }
 
 

@@ -16,12 +16,14 @@
 // WideGeo walks the clustered wide BVH of csrc/wide_bvh.cuh and reads
 // surface data from the flat triangle and sphere tables (wide_bounce_kernel,
 // wide_nee_kernel). Under either policy the distance-estimated shapes of the
-// sheet's DE columns are marched after the primitives (csrc/march_de.cuh).
-// Each kernel comes in two instantiations, <true> for scenes with DE shapes
-// and <false> for the rest, which holds no march code: inlined, the march
-// takes registers and occupancy from every bounce (a mesh bounce measured
-// ~30 % slower with it), so a scene without DE shapes runs exactly the
-// kernel it ran before.
+// sheet's DE columns count after the primitives: a scene with DE shapes runs
+// march_de_kernel (csrc/march_de.cuh) over the bounce rays before the
+// bounce kernel and over the NEE lanes' shadow rays before the NEE kernel
+// (pyrite_de_march_bounce / pyrite_de_march_shadow, at the end of this
+// file), and the two kernels read each shape's t from those passes. Each
+// kernel comes in two instantiations, <true> for scenes with DE shapes and
+// <false> for the rest, which reads no pass: a scene without DE shapes runs
+// exactly the kernel it ran before.
 //
 // Numerics follow tracer.bounce_core's op order: IEEE sqrtf and division
 // (no fast math), c^5 as c^2 * c^2 * c, and the reflectance before the BRDF
@@ -289,12 +291,26 @@ struct BounceArgs {
   float* __restrict__ o_refl_nee;  // [N, S] reflectance before the BRDF factor
   uint8_t* __restrict__ o_nee;     // [N] lane takes NEE this bounce
   int n, s, light_samples;
-  DeMarch de;
+  const float* __restrict__ t_de;  // [n_de, N] the bounce march pass's t (<true> only)
 };
+
+// The DE shapes after the primitives, from the march pass's t of each
+// (tracer.intersect_scene): a hit counts beyond DIST_EPSILON and strictly
+// nearer than the running hit, shape by shape. A ray that missed a shape has
+// t = inf there.
+__device__ __forceinline__ void apply_de_closest(const Sheet& sh, const float* __restrict__ t_de,
+                                                 int n, int lane, Hit& h) {
+  const int n_de = sh.count(M_N_DE);
+  for (int j = 0; j < n_de; ++j) {
+    const float t = t_de[(size_t)j * n + lane];
+    if (t > DIST_EPSILON && t < h.t) h = {t, KIND_DE, j, h.u, h.v};
+  }
+}
 
 // One bounce of tracer.bounce_core per lane, minus the NEE contribution
 // (the NEE kernel adds it): closest hit (the planes, then the geometry
-// policy, then the DE shapes), miss -> sky, uniform component pick, probability programs,
+// policy, then the DE shapes' t from the march pass), miss -> sky, uniform
+// component pick, probability programs,
 // diffuse/mirror/refractive scatter with Cauchy dispersion, emission,
 // reflectance update, NEE eligibility.
 //
@@ -353,7 +369,7 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo)
 
   if (alive) {
     Hit h = Geo::kWholeWarp ? warp_hit : geo.closest(sh, o, d, true);
-    if (kDE) de_closest(sh, a.de, o, d, h);
+    if (kDE) apply_de_closest(sh, a.t_de, n, lane, h);
     if (h.kind == KIND_NONE) {
       // miss: sky (directional lamps are gated out of the pack)
       for (int k = 0; k < s; ++k)
@@ -473,8 +489,19 @@ struct NeeArgs {
   float* __restrict__ brightness;      // [N, S], accumulated in place
   int n, s, light_samples;
   float nee_prob;  // 1 / (ls * 2 pi * (1 / n_lamps))
-  DeMarch de;
+  const float* __restrict__ t_de_shadow;  // [n_de, ls, N] the shadow march pass's t (<true> only)
 };
+
+// The DE shapes along shadow ray (light sample, lane) `ray` of the
+// `per_shape` = ls * N, from the shadow pass's t of each
+// (tracer.intersect_shadow): a hit at any t, negative included, lowers the
+// running t, shape by shape.
+__device__ __forceinline__ float apply_de_shadow(const Sheet& sh, const float* __restrict__ t_de,
+                                                 size_t per_shape, size_t ray, float best) {
+  const int n_de = sh.count(M_N_DE);
+  for (int j = 0; j < n_de; ++j) best = nan_min(best, t_de[(size_t)j * per_shape + ray]);
+  return best;
+}
 
 struct LampSample {
   V3 dir;
@@ -551,7 +578,8 @@ __device__ LampSample sample_lamp(const Sheet& sh, int li, V3 p, float u0, float
 
 // tracer.trace_direct for the lanes the bounce kernel marked. Per light
 // sample: sample_lamp, a shadow query (the planes, the geometry policy, then
-// the DE shapes marched no further than the lamp) seeded at the lamp distance, the emissive component pick,
+// the DE shapes' t from the shadow march pass, which marched no further than
+// the lamp) seeded at the lamp distance, the emissive component pick,
 // the lamp's probability and color programs, and the contribution added to
 // the lane's brightness. The TPU kernel revisited its output block across
 // a grid axis of light samples; here the thread owns its lane and loops.
@@ -604,7 +632,8 @@ __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo) {
     float t = geo.shadow(sh, p, ls.dir, lamp_dist,
                          sqrtf(fmaxf(ls.sq_distance - DIST_EPSILON, 0.0f)), cast);
     if (!cast) continue;
-    if (kDE) t = de_shadow(sh, a.de, p, ls.dir, lamp_dist, t);
+    if (kDE)
+      t = apply_de_shadow(sh, a.t_de_shadow, (size_t)a.light_samples * n, (size_t)j * n + lane, t);
     if (t * t < ls.sq_distance - DIST_EPSILON) continue;  // blocked
 
     float mat_prob = 1.0f;
@@ -650,6 +679,65 @@ __global__ void __launch_bounds__(BLOCK) wide_nee_kernel(const NeeArgs a, const 
   nee_lane<WideGeo, kDE>(a, geo);
 }
 
+// The march passes of a scene with DE shapes: march_de_kernel
+// (csrc/march_de.cuh) over each (DE shape, ray) of a bounce, shape-major, as
+// tracer.intersect_de marches them; t = inf for a ray that misses the shape
+// or that the kernels do not trace. The <true> bounce and NEE kernels used
+// to march in-thread, where a warp waited for its longest ray; the pass
+// refills a lane as its ray ends.
+
+// The bounce rays: each alive lane's ray, uncapped (the bounce kernel's
+// closest hit). Writes t_de [n_de, N].
+struct BounceRays {
+  static constexpr int kBlocksPerSm = 4;  // lets the longest rays advance (launch_march)
+  Sheet sheet;
+  const float* __restrict__ origin;
+  const float* __restrict__ direction;
+  const uint8_t* __restrict__ alive;
+  float* __restrict__ t_de;
+
+  __device__ __forceinline__ DeShape shape(int j) const { return load_de(sheet, j); }
+
+  __device__ __forceinline__ March begin(const DeShape& s, int lane) const {
+    if (!alive[lane]) return no_march();
+    return march_toward(s, load3(origin, lane), load3(direction, lane), INFINITY);
+  }
+
+  __device__ __forceinline__ void end(int i, const March& m) const { t_de[i] = march_t(m); }
+};
+
+// The shadow rays: for each (light sample, lane) with NEE, the ray toward
+// the lamp sample that nee_lane casts, capped at the lamp distance. The ray
+// is made again here from the NEE kernel's own draws by the same device
+// functions (sample_lamp and the cast test of nee_lane), so it is the same
+// ray bit for bit; computing it twice costs less than storing ls x N rays
+// (24 bytes each) between the two launches. Writes t_de_shadow [n_de, ls, N].
+struct ShadowRays {
+  static constexpr int kBlocksPerSm = 0;  // full occupancy (launch_march)
+  Sheet sheet;
+  const float* __restrict__ position;  // [N, 3] the bounce's new origin
+  const float* __restrict__ flip;      // [N, 3]
+  const uint8_t* __restrict__ nee;     // [N]
+  const int* __restrict__ lamp_idx;    // [N]
+  const float* __restrict__ u_nee;     // [ls, N, 4]
+  float* __restrict__ t_de;
+  int n;
+
+  __device__ __forceinline__ DeShape shape(int j) const { return load_de(sheet, j); }
+
+  __device__ __forceinline__ March begin(const DeShape& s, int ray) const {
+    const int j = ray / n, lane = ray - j * n;  // light sample j
+    if (!nee[lane]) return no_march();
+    const V3 p = load3(position, lane);
+    const float* u = u_nee + ((size_t)j * n + lane) * 4;
+    const LampSample ls = sample_lamp(sheet, lamp_idx[lane], p, u[0], u[1]);
+    if (!(fmaxf(dot(load3(flip, lane), ls.dir), 0.0f) > 0.0f)) return no_march();
+    return march_toward(s, p, ls.dir, sqrtf(ls.sq_distance));
+  }
+
+  __device__ __forceinline__ void end(int i, const March& m) const { t_de[i] = march_t(m); }
+};
+
 // <true> where the scene has DE shapes, <false> elsewhere
 #define LAUNCH(kernel, ...)                                                          \
   do {                                                                              \
@@ -677,27 +765,26 @@ extern "C" {
       const float *u_scatter, float *o_origin, float *o_direction, float *o_brightness,         \
       float *o_reflectance, uint8_t *o_alive, uint8_t *o_aux_alive, uint8_t *o_sample_light,    \
       int *o_light_events, float *o_flip, float *o_refl_nee, uint8_t *o_nee, int n, int s,      \
-      int light_samples, int n_color, int n_de, int de_steps, float de_omega
+      int light_samples, int n_color, int n_de, const float *t_de
 #define BOUNCE_ARGS                                                                            \
   BounceArgs a = {{sheet, meta},                                                               \
                   {code_op, code_val, code_off, cvals, pvals, n_color},                        \
                   sky, wl, origin, direction, brightness, reflectance, alive, aux_alive,       \
                   sample_light, light_events, u_comp, u_scatter, o_origin, o_direction,        \
                   o_brightness, o_reflectance, o_alive, o_aux_alive, o_sample_light,           \
-                  o_light_events, o_flip, o_refl_nee, o_nee, n, s, light_samples,             \
-                  {de_steps, de_omega}}
+                  o_light_events, o_flip, o_refl_nee, o_nee, n, s, light_samples, t_de}
 #define NEE_PARAMS                                                                             \
   const float *sheet, const int *meta, const int *code_op, const float *code_val,               \
       const int *code_off, const float *cvals, const float *pvals, const float *position,       \
       const float *flip, const uint8_t *nee, const uint8_t *aux_alive, const float *refl_nee,   \
       const int *lamp_idx, const float *u_nee, const float *u_emis, float *brightness, int n,   \
-      int s, int light_samples, int n_color, float nee_prob, int n_de, int de_steps,        \
-      float de_omega
+      int s, int light_samples, int n_color, float nee_prob, int n_de,                          \
+      const float *t_de_shadow
 #define NEE_ARGS                                                                               \
   NeeArgs a = {{sheet, meta},                                                                  \
                {code_op, code_val, code_off, cvals, pvals, n_color},                           \
                position, flip, nee, aux_alive, refl_nee, lamp_idx, u_nee, u_emis, brightness,  \
-               n, s, light_samples, nee_prob, {de_steps, de_omega}}
+               n, s, light_samples, nee_prob, t_de_shadow}
 // the mesh scene's tables, after the shared arguments
 #define WIDE_PARAMS                                                                            \
   const float *rows, const float *geo, const float *tri_n, const int *tri_mat,                  \
@@ -728,6 +815,27 @@ int pyrite_wide_nee(NEE_PARAMS, WIDE_PARAMS, void* stream) {
   WIDE_GEO;
   LAUNCH(wide_nee_kernel, a, g);
   return (int)cudaGetLastError();
+}
+
+// The march passes (march_de_kernel over BounceRays / ShadowRays): `n_de`
+// shapes, `de_steps` and `de_omega` as TraceConfig.max_de_steps and
+// tracer.DE_OMEGA, `next` the pass's work counter (one int), zeroed before
+// the launch. The bounce pass reads the bounce kernel's inputs; the shadow
+// pass the bounce kernel's outputs and the NEE kernel's draws.
+int pyrite_de_march_bounce(const float* sheet, const int* meta, const float* origin,
+                           const float* direction, const uint8_t* alive, float* t_de, int n,
+                           int n_de, int de_steps, float de_omega, int* next, void* stream) {
+  const BounceRays rays = {{sheet, meta}, origin, direction, alive, t_de};
+  return launch_march(rays, n_de, n, de_steps, de_omega, next, (cudaStream_t)stream);
+}
+
+int pyrite_de_march_shadow(const float* sheet, const int* meta, const float* position,
+                           const float* flip, const uint8_t* nee, const int* lamp_idx,
+                           const float* u_nee, float* t_de_shadow, int n, int light_samples,
+                           int n_de, int de_steps, float de_omega, int* next, void* stream) {
+  const ShadowRays rays = {{sheet, meta}, position, flip, nee, lamp_idx, u_nee, t_de_shadow, n};
+  return launch_march(rays, n_de, light_samples * n, de_steps, de_omega, next,
+                      (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -16,6 +16,7 @@ constexpr int SHEET_W = 128;
 constexpr int BLOCK = 128;
 constexpr float DIST_EPSILON = 1e-4f;
 constexpr float PI_F = 3.14159265358979323846f;
+constexpr unsigned FULL_WARP = 0xffffffffu;  // every thread of a warp, for the *_sync ops
 
 // kernels_dense.META_FIELDS, in order: counts first, then sheet rows (-1
 // where the scene has no such table). The DE rows (M_DE_KIND .. M_DE_MAT)

@@ -59,7 +59,6 @@ namespace {
 
 constexpr int WIDE_ROW = 128;
 constexpr int WARP = 32;
-constexpr unsigned FULL_WARP = 0xffffffffu;
 
 struct WideBvh {
   const float* __restrict__ rows;  // [273, 128] node table

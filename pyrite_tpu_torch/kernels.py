@@ -10,7 +10,9 @@ counterpart of pyrite_tpu.kernels.march_de).
   nearest occluder from the lamp distance, stopping below the occlusion
   bound; wide_shadow_kernel.
 - ``march_de(est, local_origin, direction, t0, tmax, hit, max_steps,
-  omega)``: the sphere-traced march of one DE shape; march_de_kernel.
+  omega)``: the sphere-traced march of one DE shape; march_de_kernel, the
+  persistent pass that the bounce runs over its rays
+  (kernels_dense.march_pass), here over the given rays.
 
 Each takes its plain version (tracer.intersect_scene / intersect_shadow,
 tracer.march_de_plain) for tensors on the CPU and launches its kernel for
@@ -132,6 +134,8 @@ def march_de(est, local_origin, direction, t0, tmax, hit, max_steps, omega=trace
     fields = (ctypes.c_float * len(DE_FIELDS))(*values)
     total = torch.empty(n, dtype=f32, device=dev)
     dist = torch.empty(n, dtype=f32, device=dev)
+    # the pass's work counter; the launcher zeroes it on the stream
+    next_item = torch.empty(1, dtype=torch.int32, device=dev)
     rc = _build.load().pyrite_march_de(
         ctypes.addressof(fields),
         _check("local_origin", local_origin, f32, (n, 3), dev),
@@ -139,7 +143,7 @@ def march_de(est, local_origin, direction, t0, tmax, hit, max_steps, omega=trace
         _check("t0", t0, f32, (n,), dev),
         _check("tmax", tmax, f32, (n,), dev),
         _check("hit", _flag(hit), torch.uint8, (n,), dev),
-        max_steps, omega, total.data_ptr(), dist.data_ptr(), n,
+        max_steps, omega, total.data_ptr(), dist.data_ptr(), n, next_item.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:

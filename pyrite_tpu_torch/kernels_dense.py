@@ -8,10 +8,14 @@ update) and the NEE kernel (lamp sample, shadow query and contribution for
 each light sample). One thread owns one lane in both. A dense scene runs
 dense_bounce_kernel / dense_nee_kernel, which sweep its <= 128 primitives;
 a mesh scene (scene.use_clusters) runs wide_bounce_kernel / wide_nee_kernel,
-which walk its clustered wide BVH. Both march the scene's distance-estimated
-shapes after the primitives (csrc/march_de.cuh). ``bounce_dense`` takes the
-plain version, tracer.bounce_core, for tensors on the CPU, and launches the
-kernels for tensors on a GPU, or raises; there is no fallback.
+which walk its clustered wide BVH. On a scene with distance-estimated (DE)
+shapes a bounce is four launches: the march pass (march_de_kernel over each
+DE shape and bounce ray, ``march_pass``), the bounce kernel, the shadow
+march pass (over each DE shape and NEE shadow ray, ``shadow_pass``) and the
+NEE kernel; the two kernels read the passes' t of each shape after the
+primitives. ``bounce_dense`` takes the plain version, tracer.bounce_core,
+for tensors on the CPU, and launches the kernels for tensors on a GPU, or
+raises; there is no fallback.
 
 The scene reaches the kernels as an [R, 128] f32 sheet, plus ``meta`` (the
 row of each table, in META_FIELDS order, which csrc/common.cuh's enum
@@ -33,6 +37,7 @@ import numpy as np
 import torch
 
 from . import exprs
+from . import geometry as geom
 from . import tracer
 from .scene import LAMP_POINT, LAMP_SPHERE, LAMP_TRIANGLE, PRIM_SPHERE, PRIM_TRIANGLE
 
@@ -73,15 +78,19 @@ META_FIELDS = (
     "emis_comp", "emis_selection",
 ) + tuple("de_" + f for f in DE_FIELDS)
 
-# Each wrapper adds one here where it launches its kernel.
+# Each wrapper adds one here where it launches its kernel; "de_march_pass"
+# and "de_shadow_pass" count march_de_kernel's launches over the bounce rays
+# and over the shadow rays.
 launches = {
     "dense_bounce_kernel": 0, "dense_nee_kernel": 0,
     "wide_bounce_kernel": 0, "wide_nee_kernel": 0,
+    "de_march_pass": 0, "de_shadow_pass": 0,
 }
 # the extern "C" launcher of each kernel (csrc/bounce.cu)
 _LAUNCHERS = {
     "dense_bounce_kernel": "pyrite_dense_bounce", "dense_nee_kernel": "pyrite_dense_nee",
     "wide_bounce_kernel": "pyrite_wide_bounce", "wide_nee_kernel": "pyrite_wide_nee",
+    "de_march_pass": "pyrite_de_march_bounce", "de_shadow_pass": "pyrite_de_march_shadow",
 }
 
 _GATE = "(ROADMAP.md queue 1: widening the dense pack gate)"
@@ -313,6 +322,16 @@ def _check(name, t, dtype, shape, device):
     return t.data_ptr()
 
 
+def _sheet_args(scene, dev):
+    """The scene sheet and its row indices, checked: every kernel's first
+    arguments."""
+    pack = scene.dense_pack["tensors"]
+    return [
+        _check("sheet", pack["sheet"], torch.float32, pack["sheet"].shape, dev),
+        _check("meta", pack["meta"], torch.int32, (len(META_FIELDS),), dev),
+    ]
+
+
 def _scene_args(scene, bank_vals, n, s, dev):
     """The pointer arguments both kernels take first: sheet, meta, program
     code and per-launch program values."""
@@ -320,9 +339,7 @@ def _scene_args(scene, bank_vals, n, s, dev):
     pack = scene.dense_pack["tensors"]
     cvals, pvals, _ = bank_vals
     n_color, n_prob = len(scene.color_programs), len(scene.prob_programs)
-    return [
-        _check("sheet", pack["sheet"], f32, pack["sheet"].shape, dev),
-        _check("meta", pack["meta"], i32, (len(META_FIELDS),), dev),
+    return _sheet_args(scene, dev) + [
         _check("code_op", pack["code_op"], i32, pack["code_op"].shape, dev),
         _check("code_val", pack["code_val"], f32, pack["code_op"].shape, dev),
         _check("code_off", pack["code_off"], i32, (n_prob + 1,), dev),
@@ -386,10 +403,16 @@ def _device(wavelengths):
     return dev, n, s
 
 
-def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals):
+def _t_de(name, t, shape, dev):
+    """A march pass's output, checked, as a kernel argument (0 where the
+    scene has no DE shape)."""
+    return _check(name, t, torch.float32, shape, dev) if shape[0] else 0
+
+
+def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals, t_de=None):
     """Checked arguments of one bounce kernel launch (the scene's, see
     kernel_names), with the outputs it writes: (ctypes arguments, new state,
-    NEE context)."""
+    NEE context). ``t_de`` is march_pass' output on a scene with DE shapes."""
     dev, n, s = _device(wavelengths)
     f32, u8, i32 = torch.float32, torch.uint8, torch.int32
     out = {
@@ -429,16 +452,17 @@ def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals):
         )
     ] + [ctx[k].data_ptr() for k in ("flip", "refl_nee", "nee")] + [
         n, s, cfg.light_samples, len(scene.color_programs), len(scene.de_shapes),
-        cfg.max_de_steps, tracer.DE_OMEGA,
+        _t_de("t_de", t_de, (len(scene.de_shapes), n), dev),
         torch.cuda.current_stream(dev).cuda_stream,
     ]
     return _with_scene_tables(scene, args, dev), out, ctx
 
 
-def nee_kernel_args(scene, cfg, wavelengths, out, ctx, draws, bank_vals):
+def nee_kernel_args(scene, cfg, wavelengths, out, ctx, draws, bank_vals, t_de_shadow=None):
     """Checked arguments of one NEE kernel launch (the scene's, see
     kernel_names), which adds the light samples' contributions into
-    ``out["brightness"]`` in place."""
+    ``out["brightness"]`` in place. ``t_de_shadow`` is shadow_pass' output
+    on a scene with DE shapes."""
     dev, n, s = _device(wavelengths)
     f32, u8, i32 = torch.float32, torch.uint8, torch.int32
     ls = cfg.light_samples
@@ -454,51 +478,147 @@ def nee_kernel_args(scene, cfg, wavelengths, out, ctx, draws, bank_vals):
         _check("brightness", out["brightness"], f32, (n, s), dev),
         n, s, ls, len(scene.color_programs),
         1.0 / (ls * 2.0 * math.pi * (1.0 / scene.num_lamps)), len(scene.de_shapes),
-        cfg.max_de_steps, tracer.DE_OMEGA,
+        _t_de("t_de_shadow", t_de_shadow, (len(scene.de_shapes), ls, n), dev),
         torch.cuda.current_stream(dev).cuda_stream,
     ]
     return _with_scene_tables(scene, args, dev)
 
 
-def launch_bounce_kernel(scene, cfg, wavelengths, state, draws, bank_vals):
-    """One launch of the scene's bounce kernel: (new state without the NEE
-    contribution, NEE context)."""
+def _launch(name, args):
+    """Launch kernel ``name`` with its checked ctypes arguments, or raise."""
     from . import _build
 
-    name = kernel_names(scene)[0]
-    args, out, ctx = bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals)
     rc = getattr(_build.load(), _LAUNCHERS[name])(*args)
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
     launches[name] += 1
+
+
+def launch_bounce_kernel(scene, cfg, wavelengths, state, draws, bank_vals, t_de=None):
+    """One launch of the scene's bounce kernel: (new state without the NEE
+    contribution, NEE context)."""
+    args, out, ctx = bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals, t_de)
+    _launch(kernel_names(scene)[0], args)
     return out, ctx
 
 
-def launch_nee_kernel(scene, cfg, wavelengths, out, ctx, draws, bank_vals):
+def launch_nee_kernel(scene, cfg, wavelengths, out, ctx, draws, bank_vals, t_de_shadow=None):
     """One launch of the scene's NEE kernel, accumulating into
     out["brightness"]."""
-    from . import _build
+    _launch(kernel_names(scene)[1],
+            nee_kernel_args(scene, cfg, wavelengths, out, ctx, draws, bank_vals, t_de_shadow))
 
-    name = kernel_names(scene)[1]
-    args = nee_kernel_args(scene, cfg, wavelengths, out, ctx, draws, bank_vals)
-    rc = getattr(_build.load(), _LAUNCHERS[name])(*args)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    launches[name] += 1
 
+def _pass_device(t):
+    dev = t.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the march passes run on CPU or CUDA tensors, not {dev}")
+    return dev
+
+
+def _pass_output(shape, dev):
+    """A march pass's t, and the address of its work counter: one int32
+    after t in the same buffer, so it lives as long as t does (the launcher
+    zeroes it on the stream before each launch)."""
+    buf = torch.empty(math.prod(shape) + 1, dtype=torch.float32, device=dev)
+    return buf[:-1].view(shape), buf[-1:].view(torch.int32).data_ptr()
+
+
+def march_pass_args(scene, cfg, state):
+    """Checked arguments of one march pass over the bounce rays of
+    ``state``, with the t it writes: (ctypes arguments, t_de [n_de, N])."""
+    o, d, alive = state["origin"], state["direction"], state["alive"]
+    dev, f32, n, n_de = o.device, torch.float32, o.shape[0], len(scene.de_shapes)
+    t_de, next_item = _pass_output((n_de, n), dev)
+    return _sheet_args(scene, dev) + [
+        _check("origin", o, f32, (n, 3), dev),
+        _check("direction", d, f32, (n, 3), dev),
+        _check("alive", _flag(alive), torch.uint8, (n,), dev),
+        t_de.data_ptr(), n, n_de, cfg.max_de_steps, tracer.DE_OMEGA, next_item,
+        torch.cuda.current_stream(dev).cuda_stream,
+    ], t_de
+
+
+def march_pass(scene, cfg, state):
+    """t of each DE shape along each alive lane's ray, [n_de, N] f32:
+    tracer.intersect_de's t, inf where the ray misses the shape or the lane
+    is dead (tracer.de_hits on the CPU; march_de_kernel over the bounce rays
+    on a GPU). The bounce kernel takes it after the primitives."""
+    dev = _pass_device(state["origin"])
+    if dev.type == "cpu":
+        return tracer.de_hits(scene, state["origin"], state["direction"], cfg.max_de_steps,
+                              live=state["alive"])
+    args, t_de = march_pass_args(scene, cfg, state)
+    _launch("de_march_pass", args)
+    return t_de
+
+
+def shadow_rays(scene, out, ctx, draws, sample):
+    """The shadow rays that the NEE lanes cast at light sample ``sample``,
+    as nee_lane casts them: (direction [N, 3], lamp distance [N], cast [N]),
+    cast where the lane takes NEE and the lamp sample lies in front of its
+    surface. They start at out["origin"]."""
+    samp = tracer.sample_lamp(scene, draws["lamp_idx"].long(), out["origin"], draws["u_nee"][sample])
+    cast = ctx["nee"] & (torch.clamp(geom.dot(ctx["flip"], samp["direction"]), min=0.0) > 0.0)
+    return samp["direction"], torch.sqrt(samp["sq_distance"]), cast
+
+
+def shadow_pass_plain(scene, cfg, out, ctx, draws):
+    """The plain version of shadow_pass, on any device: tracer.de_hits on
+    each light sample's shadow_rays."""
+    rows = []
+    for j in range(cfg.light_samples):
+        d, dist, cast = shadow_rays(scene, out, ctx, draws, j)
+        rows.append(tracer.de_hits(scene, out["origin"], d, cfg.max_de_steps, t_cap=dist, live=cast))
+    return torch.stack(rows, dim=1)
+
+
+def shadow_pass_args(scene, cfg, out, ctx, draws):
+    """Checked arguments of one shadow march pass, with the t it writes:
+    (ctypes arguments, t_de_shadow [n_de, light_samples, N])."""
+    dev, f32 = out["origin"].device, torch.float32
+    n, n_de, ls = out["origin"].shape[0], len(scene.de_shapes), cfg.light_samples
+    t_de, next_item = _pass_output((n_de, ls, n), dev)
+    return _sheet_args(scene, dev) + [
+        _check("position", out["origin"], f32, (n, 3), dev),
+        _check("flip", ctx["flip"], f32, (n, 3), dev),
+        _check("nee", _flag(ctx["nee"]), torch.uint8, (n,), dev),
+        _check("lamp_idx", draws["lamp_idx"], torch.int32, (n,), dev),
+        _check("u_nee", draws["u_nee"], f32, (ls, n, 4), dev),
+        t_de.data_ptr(), n, ls, n_de, cfg.max_de_steps, tracer.DE_OMEGA, next_item,
+        torch.cuda.current_stream(dev).cuda_stream,
+    ], t_de
+
+
+def shadow_pass(scene, cfg, out, ctx, draws):
+    """t of each DE shape along each shadow ray of the bounce's NEE lanes,
+    [n_de, light_samples, N] f32: tracer.intersect_de's t marched no further
+    than the lamp, inf where the ray misses the shape or is not cast
+    (shadow_pass_plain on the CPU; march_de_kernel over the shadow rays on a
+    GPU, which samples the lamps again from the same draws). The NEE kernel
+    takes it after the primitives."""
+    if _pass_device(out["origin"]).type == "cpu":
+        return shadow_pass_plain(scene, cfg, out, ctx, draws)
+    args, t_de = shadow_pass_args(scene, cfg, out, ctx, draws)
+    _launch("de_shadow_pass", args)
+    return t_de
 
 
 def bounce_dense(scene, cfg, wavelengths, state, draws, bank_vals):
     """One bounce, a drop-in for tracer.bounce_core: the plain version for
     tensors on the CPU, the scene's two CUDA kernels (dense or wide, see
-    kernel_names) for tensors on a GPU, or an error. ``bank_vals`` is
+    kernel_names; after march_pass and shadow_pass respectively on a scene
+    with DE shapes) for tensors on a GPU, or an error. ``bank_vals`` is
     precompute_bank_values' output."""
     dev = wavelengths.device
     if dev.type == "cpu":
         return tracer.bounce_core(scene, cfg, wavelengths, state, draws)
     if dev.type != "cuda":
         raise ValueError(f"bounce_dense runs on CPU or CUDA tensors, not {dev}")
-    out, ctx = launch_bounce_kernel(scene, cfg, wavelengths, state, draws, bank_vals)
+    de = bool(scene.de_shapes)
+    t_de = march_pass(scene, cfg, state) if de else None
+    out, ctx = launch_bounce_kernel(scene, cfg, wavelengths, state, draws, bank_vals, t_de)
     if scene.num_lamps and cfg.light_samples:
-        launch_nee_kernel(scene, cfg, wavelengths, out, ctx, draws, bank_vals)
+        t_de_shadow = shadow_pass(scene, cfg, out, ctx, draws) if de else None
+        launch_nee_kernel(scene, cfg, wavelengths, out, ctx, draws, bank_vals, t_de_shadow)
     return out

@@ -10,8 +10,9 @@ renderer/algorithm.rs:14-100, fused into the loop as in the JAX package).
 
 Distance-estimated shapes are sphere-traced after the primitives
 (``intersect_de``; ``march_de_plain`` is the plain version of the CUDA march
-in csrc/march_de.cuh, which kernels.march_de launches alone and the bounce
-kernels run inside).
+in csrc/march_de.cuh, which kernels.march_de launches alone and
+kernels_dense.march_pass / shadow_pass over a bounce's rays, ``de_hits``
+their plain version).
 
 ``bounce_core`` is the plain PyTorch version of the CUDA bounce and NEE
 kernels in csrc/bounce.cu: kernels_dense.bounce_dense runs it for tensors on
@@ -69,10 +70,13 @@ launches = {"bounce_core": 0, "bounces": 0}
 # no counting, and no host syncs for it): "de_steps" (march steps of all
 # lanes), "de_iterations" (estimator iterations entered), "pops" (wide-BVH
 # children popped), "descents" (node rows tested on descending) and
-# "leaf_rows" (leaf rows tested); and "leaf_visits", one entry per
+# "leaf_rows" (leaf rows tested); "leaf_visits", one entry per
 # cluster_traverse call: {"lane": [V], "slot": [V], "lanes": N}, the batch
-# index and leaf slot of each of its V (ray, leaf) sweeps. chip_smoke.py
-# reads it for the kernels' bounds and the warps' divergence.
+# index and leaf slot of each of its V (ray, leaf) sweeps; and "de_orbits",
+# one entry per march_de_plain call: {"lane": [K], "step": [K],
+# "iterations": [K], "lanes": N}, the estimator iterations of each of its K
+# (ray, step) evaluations. chip_smoke.py reads it for the kernels' bounds and
+# the warps' divergence.
 work = None
 
 
@@ -436,8 +440,11 @@ def _de_mandelbulb(est, px, py, pz):
     r = torch.zeros_like(px)
     dr = torch.ones_like(px)
     done = torch.zeros_like(px, dtype=torch.bool)
+    iterations = torch.zeros_like(px, dtype=torch.int32)
     for _ in range(est["iterations"]):
-        _count("de_iterations", (~done).sum())
+        if work is not None:
+            _count("de_iterations", (~done).sum())
+            iterations += ~done
         r_new = torch.sqrt(torch.clamp(zx * zx + zy * zy + zz * zz, min=1e-30))
         done_now = done | (r_new > threshold)
         theta = torch.acos(torch.clamp(zz / r_new, -1.0, 1.0)) * power
@@ -453,7 +460,7 @@ def _de_mandelbulb(est, px, py, pz):
         r = torch.where(done, r, r_new)
         dr = torch.where(keep, dr_new, dr)
         done = done_now
-    return 0.5 * torch.log(torch.clamp(r, min=1e-30)) * r / dr
+    return 0.5 * torch.log(torch.clamp(r, min=1e-30)) * r / dr, iterations
 
 
 def _qmul(a, b):
@@ -508,8 +515,11 @@ def _de_julia(est, px, py, pz):
     dz = (torch.ones_like(px), zero, zero, zero)
     r2 = zero
     done = torch.zeros_like(px, dtype=torch.bool)
+    iterations = torch.zeros_like(px, dtype=torch.int32)
     for _ in range(est["iterations"]):
-        _count("de_iterations", (~done).sum())
+        if work is not None:
+            _count("de_iterations", (~done).sum())
+            iterations += ~done
         r2_new = z[0] * z[0] + z[1] * z[1] + z[2] * z[2] + z[3] * z[3]
         done_now = done | (r2_new > thr2)
         if variant == "regular":
@@ -527,14 +537,20 @@ def _de_julia(est, px, py, pz):
         done = done_now
     r = torch.sqrt(torch.clamp(r2, min=1e-30))
     dz_mag = torch.sqrt(torch.clamp(dz[0] * dz[0] + dz[1] * dz[1] + dz[2] * dz[2] + dz[3] * dz[3], min=1e-30))
-    return 0.5 * torch.log(torch.clamp(r, min=1e-30)) * r / dz_mag
+    return 0.5 * torch.log(torch.clamp(r, min=1e-30)) * r / dz_mag, iterations
+
+
+def _de_orbits(est, p):
+    """(distance estimate, estimator iterations each point ran, counted
+    while tracer.work counts, else 0)."""
+    fn = _de_mandelbulb if est["kind"] == "mandelbulb" else _de_julia
+    return fn(est, p[..., 0], p[..., 1], p[..., 2])
 
 
 def de_distance(est: dict, p):
     """The distance estimate of the shape ``est`` (scene.DEShape.estimator)
     at local points p [..., 3] (shapes/distance_estimators.rs)."""
-    fn = _de_mandelbulb if est["kind"] == "mandelbulb" else _de_julia
-    return fn(est, p[..., 0], p[..., 1], p[..., 2])
+    return _de_orbits(est, p)[0]
 
 
 def march_de_plain(est, local_origin, direction, t0, tmax, hit, max_steps, omega=DE_OMEGA):
@@ -554,13 +570,16 @@ def march_de_plain(est, local_origin, direction, t0, tmax, hit, max_steps, omega
     s_prev = torch.zeros_like(t0)
     d_prev = torch.full_like(t0, 1e30)
     active = hit & (total < tmax) & (dist >= DIST_EPSILON)
-    for _ in range(max_steps):
+    orbits = []  # (lanes, step, iterations) of each step, while counting
+    for step in range(max_steps):
         lanes = torch.nonzero(active)[:, 0]
         if lanes.numel() == 0:
             break
         _count("de_steps", lanes.numel())
         tot, tm = total[lanes], tmax[lanes]
-        d = de_distance(est, local_origin[lanes] + direction[lanes] * tot[:, None])
+        d, iterations = _de_orbits(est, local_origin[lanes] + direction[lanes] * tot[:, None])
+        if work is not None:
+            orbits.append((lanes, torch.full_like(lanes, step), iterations))
         if relaxed:
             sp, dp = s_prev[lanes], d_prev[lanes]
             unsafe = sp > dp + d
@@ -576,6 +595,11 @@ def march_de_plain(est, local_origin, direction, t0, tmax, hit, max_steps, omega
             dist[lanes] = d
         total[lanes] = tot
         active[lanes] = (tot < tm) & (dist[lanes] >= DIST_EPSILON)
+    if work is not None:
+        empty = torch.zeros(0, dtype=torch.long, device=t0.device)
+        lane, step, iterations = (torch.cat(x) for x in zip(*orbits)) if orbits else (empty,) * 3
+        work.setdefault("de_orbits", []).append(
+            {"lane": lane, "step": step, "iterations": iterations, "lanes": t0.shape[0]})
     return total, dist
 
 
@@ -608,6 +632,18 @@ def intersect_de(shape, origin, direction, max_steps, omega=DE_OMEGA, t_cap=None
     )
     ok = hit & (total <= tmax)
     return ok, torch.where(ok, total, math.inf)
+
+
+def de_hits(scene: Scene, origin, direction, max_steps, t_cap=None, live=None):
+    """intersect_de's t of every DE shape of the scene along each ray,
+    [n_de, N]: inf where the ray misses the shape, and where ``live`` ([N]
+    bool, or None for all) is False. The plain version of march_de_kernel's
+    passes over a bounce's rays and its shadow rays
+    (kernels_dense.march_pass / shadow_pass)."""
+    rows = [intersect_de(shape, origin, direction, max_steps, t_cap=t_cap)[1]
+            for shape in scene.de_shapes]
+    t = torch.stack(rows) if rows else origin.new_empty((0, origin.shape[0]))
+    return t if live is None else torch.where(live, t, math.inf)
 
 
 def de_normal(shape, origin, direction, t):

@@ -43,26 +43,88 @@ def test_cuda_wide_kernels_match_plain_version(tmp_path, name):
     assert worst["divergent"] < 0.015
 
 
+def _de_path(directory, name):
+    if name == "fractal":
+        return chip_smoke.write_fractal_scene(directory, 128, 64, 4, 3)
+    if name == "julia":
+        return chip_smoke.write_julia_scene(directory, 128, 64)
+    if name == "two_de":
+        return chip_smoke.write_two_de_scene(directory, 128, 64)
+    return chip_smoke.write_terrain_de_scene(directory, width=128, height=64)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["fractal", "julia", "terrain_de_24"])
+@pytest.mark.parametrize("name", ["fractal", "julia", "terrain_de_24", "two_de"])
 def test_cuda_de_kernels_match_plain_version(tmp_path, name):
-    """The DE march kernel against tracer.march_de_plain (hit flags on
-    >= 99.9 % of lanes, t to rtol 1e-5), and the bounce and NEE kernels,
-    which march DE shapes after the primitives (dense or wide), against
-    tracer.bounce_core."""
+    """The DE march kernel against the plain march, as the query
+    (tracer.march_de_plain), the bounce march pass and the shadow march pass
+    (tracer.de_hits), bit for bit; and the bounce and NEE kernels, which read
+    the passes' t after the primitives (dense or wide), against
+    tracer.bounce_core. two_de puts a Mandelbulb and a cubic Julia in one
+    scene, so warps at the border between the shapes' items march both."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
-    directory = str(tmp_path)
-    if name == "fractal":
-        path = chip_smoke.write_fractal_scene(directory, 128, 64, 4, 3)
-    elif name == "julia":
-        path = chip_smoke.write_julia_scene(directory, 128, 64)
-    else:
-        path = chip_smoke.write_terrain_de_scene(directory, width=128, height=64)
-    marched = chip_smoke.check_march(name, path, lanes=8192)
-    assert marched["flags_differ"] <= 8
+    path = _de_path(str(tmp_path), name)
+    chip_smoke.check_march(name, path, lanes=8192)
+    chip_smoke.check_shadow_pass(name, path, lanes=8192)
     worst = chip_smoke.check_kernels(name, path, lanes=8192)
     assert worst["divergent"] < 0.015
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["fractal", "two_de"])
+@pytest.mark.parametrize("cut, idle", [(8191, 0.0), (8192, 0.5)], ids=["8191_rays", "half_idle"])
+def test_cuda_march_passes_with_idle_threads(tmp_path, name, cut, idle):
+    """The persistent march on a wavefront whose last warp is partial
+    (8,191 rays) and on one with a random half of the lanes dead (or
+    without NEE, or without a ray for the query): bit-equal to the plain
+    march, and the bounce and NEE kernels held as phase 3 holds them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    path = _de_path(str(tmp_path), name)
+    chip_smoke.check_march(name, path, lanes=8192, cut=cut, idle=idle)
+    chip_smoke.check_shadow_pass(name, path, lanes=8192, cut=cut, idle=idle)
+    worst = chip_smoke.check_kernels(name, path, lanes=8192, cut=cut, idle=idle)
+    assert worst["divergent"] < 0.015
+
+
+@pytest.mark.cuda
+def test_cuda_march_counter_is_reset(tmp_path):
+    """Two launches in a row of each march wrapper, and of each pass's
+    launcher with the same arguments (its work counter included), give the
+    same t: the counter starts from 0 on every launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pyrite_tpu_torch import _build, kernels_dense as kd, tracer
+
+    scene, film, camera, cfg = chip_smoke.load_scene(_de_path(str(tmp_path), "two_de"))
+    rng = torch.Generator(device="cuda")
+    rng.manual_seed(3)
+    origin, direction, wl = chip_smoke._wavefront(film, camera, cfg, rng, 4096)
+    n = origin.shape[0]
+    state = tracer.initial_state(origin, direction, wl.shape[1])
+    first, second = kd.march_pass(scene, cfg, state), kd.march_pass(scene, cfg, state)
+    assert torch.equal(first, second) and bool(torch.isfinite(first).any())
+    args, t_de = kd.march_pass_args(scene, cfg, state)
+    lib = _build.load()
+    for _ in range(2):
+        assert lib.pyrite_de_march_bounce(*args) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(t_de, first)
+    draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
+    out, ctx = kd.launch_bounce_kernel(scene, cfg, wl, state, draws,
+                                       kd.precompute_bank_values(scene, wl), first)
+    shadow = kd.shadow_pass(scene, cfg, out, ctx, draws)
+    assert torch.equal(shadow, kd.shadow_pass(scene, cfg, out, ctx, draws))
+    args, t_sh = kd.shadow_pass_args(scene, cfg, out, ctx, draws)
+    for _ in range(2):
+        assert lib.pyrite_de_march_shadow(*args) == 0
+        torch.cuda.synchronize()
+        assert torch.equal(t_sh, shadow)
+    march_args = chip_smoke._de_march_args(scene, cfg, origin, direction, scene.de_shapes[1])
+    total, dist = kernels.march_de(*march_args)
+    again = kernels.march_de(*march_args)
+    assert torch.equal(total, again[0]) and torch.equal(dist, again[1])
 
 
 @pytest.mark.cuda
