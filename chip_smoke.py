@@ -8,7 +8,9 @@ and exits non-zero on any failure:
 1. device: the card's name, power limit and maximum SM clock;
 2. build: the kernels, from the sources, into an empty build directory;
 3. kernels against their plain PyTorch version on the card, at the
-   wavefront the main path launches: the DE march kernel (a persistent pass
+   wavefront the main path launches: the keyed draw kernel (Philox4x32-10)
+   bit for bit against rng.py on the card and on the CPU, on flagship and
+   fractal.lua; the DE march kernel (a persistent pass
    that refills a lane as its ray ends) on the camera rays of
    examples/fractal.lua (a Mandelbulb in a box), of the julia scene (a cubic
    quaternion Julia in a sphere, no finite primitive), of terrain_de_24 (a
@@ -17,23 +19,28 @@ and exits non-zero on any failure:
    shadow rays as the shadow march pass, bit for bit, with the SIMT
    efficiency the in-thread march had on those rays; the dense bounce and
    NEE kernels on four dense scenes (flagship spheres, examples/prism.lua, a
-   triangle-lamp mesh, a many-materials scene) and on the DE scenes; the
+   triangle-lamp mesh, a many-materials scene) and on the DE scenes, with no
+   divergent lane; the
    wide-BVH traversal kernels on the 328,050- and 871,200-triangle terrains
    (tools/synthetic.terrain_scene, cells 405 and 660), bit for bit; the wide
    bounce and NEE kernels on terrain_405 and terrain_de_24;
 4. per-launch times of the kernels and of the plain version at that size
    (the traversal queries on both terrains and the wide kernels on
-   terrain_405 at bounces 0 and 1; the dense kernels on flagship; on
-   fractal.lua the march passes and the bounce and NEE kernels apart at
-   bounces 0 and 1, and the march query with its issue-based bound from the
-   SASS of one estimator iteration), with the work the plain version counts,
-   from which each kernel's bound is computed, and the warps' divergence in
-   the traversal;
+   terrain_405 at bounces 0 and 1; the dense kernels and the draw kernel on
+   flagship; on fractal.lua the march passes and the bounce and NEE kernels
+   apart at bounces 0 and 1, and the march query with its issue-based bound
+   from the SASS of one estimator iteration), with the work the plain
+   version counts, from which each kernel's bound is computed, and the
+   warps' divergence in the traversal; for the dense bounce and NEE kernels
+   also their occupancy, copy-only probes of their memory traffic, and per
+   warp the branches taken and the DE hits' normal probes, with the
+   issue-based bound of those probes (measure_rows);
 5. the paths, each with the launch counts zeroed just before it and read
    just after: the CLI renders the flagship and prism.lua (dense kernels),
    fractal.lua and the julia scene (per bounce a march pass, the dense
    bounce kernel, a shadow march pass, the dense NEE kernel), terrain_405
-   (wide bounce and NEE kernels); the ray queries closest_wide / shadow_wide
+   (wide bounce and NEE kernels), every render drawing its random numbers
+   through the draw kernel; the ray queries closest_wide / shadow_wide
    trace one step's camera rays of terrain_405 and their shadow rays (wide
    traversal kernels); kernels.march_de marches one step's camera rays of
    fractal.lua (DE march kernel). No bounce may take the plain path.
@@ -41,6 +48,8 @@ and exits non-zero on any failure:
 The last line is one JSON object {"ok": true, "device": {...}}; the line
 before it lists each kernel's launches, error, times and bound.
 
+``python3 chip_smoke.py --rows`` instead runs phase 4's measurements of the
+dense bounce and NEE kernels alone (measure_rows).
 ``python3 chip_smoke.py --profile`` instead renders the main-path scenes
 (flagship and terrain_405 at 64 spp, fractal.lua at 8 spp) through
 renderers.simple.render, 5 timed runs after a warm-up and one run under
@@ -420,22 +429,22 @@ def _compare(ref, got, what, flags=True):
     return vec_err, float(diff.max()), share
 
 
-def _wavefront(film, camera, cfg, rng, lanes=None):
-    """Primary rays as the main path launches them: pick_sample_batch
-    samples of the whole film in one wavefront, concatenated in sample order
-    as renderers.simple.make_render_step does; or, given ``lanes``, one
-    sample of that many lanes' worth of rows. Returns (origin, direction,
-    wavelengths)."""
-    import torch
-
+def _wavefront(film, camera, cfg, seed, lanes=None, device="cuda"):
+    """Primary rays as the main path launches them, from the draws keyed by
+    ``seed`` (rng.KeyedDraws): pick_sample_batch samples of the whole film
+    in one wavefront, in sample order as renderers.simple.make_render_step
+    makes them; or, given ``lanes``, one sample of that many lanes' worth of
+    rows. Returns (origin, direction, wavelengths, the wavefront's
+    KeyedDraws, which its bounces draw from)."""
     from pyrite_tpu_torch.renderers.simple import chunk_rays, pick_sample_batch
+    from pyrite_tpu_torch.rng import KeyedDraws
 
     if lanes is None:
-        parts = [chunk_rays(film, camera, cfg, rng) for _ in range(pick_sample_batch(film))]
+        draws, rows = KeyedDraws(seed, samples=pick_sample_batch(film)), None
     else:
-        rows = max(1, min(film.height, lanes // film.width))
-        parts = [chunk_rays(film, camera, cfg, rng, rows=rows)]
-    return tuple(torch.cat([p[k] for p in parts]) for k in (1, 2, 3))
+        draws, rows = KeyedDraws(seed), max(1, min(film.height, lanes // film.width))
+    _, origin, direction, wl = chunk_rays(film, camera, cfg, draws, rows=rows, device=device)
+    return origin, direction, wl, draws
 
 
 def check_kernels(name, path, lanes=None, bounces=3, seed=0, cut=None, idle=0.0):
@@ -454,9 +463,7 @@ def check_kernels(name, path, lanes=None, bounces=3, seed=0, cut=None, idle=0.0)
     from pyrite_tpu_torch import tracer
 
     scene, film, camera, cfg = _gpu_scene(path)
-    rng = torch.Generator(device="cuda")
-    rng.manual_seed(seed)
-    origin, direction, wl = _wavefront(film, camera, cfg, rng, lanes)
+    origin, direction, wl, keyed = _wavefront(film, camera, cfg, seed, lanes)
     origin, direction, wl = origin[:cut], direction[:cut], wl[:cut]
     n = origin.shape[0]
     state = tracer.initial_state(origin, direction, wl.shape[1])
@@ -465,7 +472,7 @@ def check_kernels(name, path, lanes=None, bounces=3, seed=0, cut=None, idle=0.0)
     has_nee = bool(scene.num_lamps and cfg.light_samples)
     worst = {"bounce": 0.0, "nee": 0.0, "brightness": 0.0, "divergent": 0.0, "nee_divergent": 0.0}
     for b in range(bounces):
-        draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
+        draws = tracer.draw_bounce_uniforms(scene, cfg, n, keyed, b, "cuda")
         out = kd.bounce_dense(scene, cfg, wl, state, draws, bank)
         plain = tracer.bounce_core(scene, cfg, wl, state, draws)
         torch.cuda.synchronize()
@@ -511,10 +518,11 @@ def _bits_differ(a, b):
     return a != b.to(a.dtype)
 
 
-def _shadow_rays(scene, cfg, origin, direction, hit, rng, in_place=False):
+def _shadow_rays(scene, cfg, origin, direction, hit, keyed, bounce=0, in_place=False):
     """The shadow rays of a wavefront's hits: from each triangle hit (the
     terrain is diffuse, so every such lane takes NEE) toward its sampled
-    lamp point, as tracer._direct_sample casts them. Returns (origin,
+    lamp point, drawn with ``bounce``'s keyed draws, as
+    tracer._direct_sample casts them. Returns (origin,
     direction, max_dist, block_below, squared lamp distance) of the
     triangle-hit lanes or, ``in_place``, of every lane, where a lane without
     a triangle hit is idle: it starts at its own origin with max_dist 0 and
@@ -527,7 +535,7 @@ def _shadow_rays(scene, cfg, origin, direction, hit, rng, in_place=False):
     cast = hit["kind"] == tracer.KIND_TRIANGLE
     n = origin.shape[0]
     lanes = torch.arange(n, device=origin.device) if in_place else torch.nonzero(cast)[:, 0]
-    draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, origin.device)
+    draws = tracer.draw_bounce_uniforms(scene, cfg, n, keyed, bounce, origin.device)
     position = (origin + direction * hit["t"][:, None])[lanes]
     if in_place:
         position = torch.where(cast[:, None], position, origin)
@@ -549,12 +557,12 @@ def _idle_shadow(idle, max_dist, block):
 
 
 def _idle_lanes(n, share, seed, device):
-    """A random ``share`` of ``n`` lanes, as a mask, from a seeded generator."""
+    """A random ``share`` of ``n`` lanes, as a mask, made with numpy from
+    ``seed``."""
+    import numpy as np
     import torch
 
-    rng = torch.Generator(device=device)
-    rng.manual_seed(seed)
-    return torch.rand(n, generator=rng, device=device) < share
+    return torch.as_tensor(np.random.default_rng(seed).random(n) < share, device=device)
 
 
 def warp_divergence(visits, lanes=None, n=None):
@@ -613,9 +621,7 @@ def check_queries(name, path, lanes=None, seed=0, cut=None, idle=0.0):
     from pyrite_tpu_torch import kernels, tracer
 
     scene, film, camera, cfg = _gpu_scene(path)
-    rng = torch.Generator(device="cuda")
-    rng.manual_seed(seed)
-    origin, direction, _ = _wavefront(film, camera, cfg, rng, lanes)
+    origin, direction, _, keyed = _wavefront(film, camera, cfg, seed, lanes)
     origin, direction = origin[:cut], direction[:cut]
     n = origin.shape[0]
     init = tracer.empty_hit(n, "cuda")
@@ -628,7 +634,7 @@ def check_queries(name, path, lanes=None, seed=0, cut=None, idle=0.0):
         assert bad == 0, f"{name}: closest_wide {k} differs on {bad} of {n} lanes"
     found = plain["kind"] != tracer.KIND_NONE
 
-    so, sd, max_dist, block, sq = _shadow_rays(scene, cfg, origin, direction, plain, rng)
+    so, sd, max_dist, block, sq = _shadow_rays(scene, cfg, origin, direction, plain, keyed)
     m = so.shape[0]
     max_dist, block = _idle_shadow(_idle_lanes(m, idle, seed + 2, "cuda"), max_dist, block)
     t_plain = tracer.intersect_shadow(scene, so, sd, max_dist, block)
@@ -725,20 +731,16 @@ def _bounce_inputs(path, seed, bounce):
     lane alive; 1, the plain bounce_core state after bounce 0, dead lanes in
     place; with that bounce's draws. Returns (scene, cfg, wavelengths,
     state, draws)."""
-    import torch
-
     from pyrite_tpu_torch import tracer
 
     scene, film, camera, cfg = _gpu_scene(path)
-    rng = torch.Generator(device="cuda")
-    rng.manual_seed(seed)
-    origin, direction, wl = _wavefront(film, camera, cfg, rng)
+    origin, direction, wl, keyed = _wavefront(film, camera, cfg, seed)
     n = origin.shape[0]
     state = tracer.initial_state(origin, direction, wl.shape[1])
-    for _ in range(bounce):
-        draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
+    for b in range(bounce):
+        draws = tracer.draw_bounce_uniforms(scene, cfg, n, keyed, b, "cuda")
         state = tracer.bounce_core(scene, cfg, wl, state, draws)
-    return scene, cfg, wl, state, tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
+    return scene, cfg, wl, state, tracer.draw_bounce_uniforms(scene, cfg, n, keyed, bounce, "cuda")
 
 
 def _kernel_rays(scene, cfg, state, draws, out, ctx):
@@ -776,8 +778,6 @@ def time_kernels(path, card, seed=1, plain_reps=10, bounce=0):
     against tracer.de_hits / kernels_dense.shadow_pass_plain). Returns
     {name: (kernel ms, plain ms, bytes, operations)}."""
     import dataclasses
-
-    import torch
 
     from pyrite_tpu_torch import _build, kernels_dense as kd, tracer
 
@@ -934,21 +934,19 @@ def _query_inputs(path, seed):
     from pyrite_tpu_torch import tracer
 
     scene, film, camera, cfg = _gpu_scene(path)
-    rng = torch.Generator(device="cuda")
-    rng.manual_seed(seed)
-    origin, direction, wl = _wavefront(film, camera, cfg, rng)
+    origin, direction, wl, keyed = _wavefront(film, camera, cfg, seed)
     n = origin.shape[0]
     hit = tracer.intersect_scene(scene, origin, direction)
-    shadow = _shadow_rays(scene, cfg, origin, direction, hit, rng)[:4]
+    shadow = _shadow_rays(scene, cfg, origin, direction, hit, keyed)[:4]
     queries = {0: ((origin, direction, tracer.empty_hit(n, "cuda")), shadow)}
-    draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
+    draws = tracer.draw_bounce_uniforms(scene, cfg, n, keyed, 0, "cuda")
     state = tracer.bounce_core(scene, cfg, wl, tracer.initial_state(origin, direction, wl.shape[1]),
                                draws)
     init = tracer.empty_hit(n, "cuda")
     init["t"] = torch.where(state["alive"], init["t"], 0.0)
     o, d = state["origin"], state["direction"]
     hit = tracer.intersect_scene(scene, o, d, init)
-    queries[1] = ((o, d, init), _shadow_rays(scene, cfg, o, d, hit, rng, in_place=True)[:4])
+    queries[1] = ((o, d, init), _shadow_rays(scene, cfg, o, d, hit, keyed, 1, in_place=True)[:4])
     return scene, queries
 
 
@@ -1074,9 +1072,7 @@ def check_march(name, path, lanes=None, seed=0, cut=None, idle=0.0):
     from pyrite_tpu_torch import kernels, kernels_dense as kd, tracer
 
     scene, film, camera, cfg = _gpu_scene(path)
-    rng = torch.Generator(device="cuda")
-    rng.manual_seed(seed)
-    origin, direction, _ = _wavefront(film, camera, cfg, rng, lanes)
+    origin, direction, _, _ = _wavefront(film, camera, cfg, seed, lanes)
     origin, direction = origin[:cut], direction[:cut]
     n = origin.shape[0]
     live = ~_idle_lanes(n, idle, seed + 1, "cuda")
@@ -1132,14 +1128,12 @@ def check_shadow_pass(name, path, lanes=None, seed=0, cut=None, idle=0.0):
     from pyrite_tpu_torch import kernels_dense as kd, tracer
 
     scene, film, camera, cfg = _gpu_scene(path)
-    rng = torch.Generator(device="cuda")
-    rng.manual_seed(seed)
-    origin, direction, wl = _wavefront(film, camera, cfg, rng, lanes)
+    origin, direction, wl, keyed = _wavefront(film, camera, cfg, seed, lanes)
     origin, direction, wl = origin[:cut], direction[:cut], wl[:cut]
     n = origin.shape[0]
     state = tracer.initial_state(origin, direction, wl.shape[1])
     state["alive"] = ~_idle_lanes(n, idle, seed + 1, "cuda")
-    draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
+    draws = tracer.draw_bounce_uniforms(scene, cfg, n, keyed, 0, "cuda")
     bank = kd.precompute_bank_values(scene, wl)
     out, ctx = kd.launch_bounce_kernel(scene, cfg, wl, state, draws, bank,
                                        kd.march_pass(scene, cfg, state))
@@ -1177,12 +1171,10 @@ def de_shadow_share(name, path, seed=0):
     from pyrite_tpu_torch import kernels_dense as kd, tracer
 
     scene, film, camera, cfg = _gpu_scene(path)
-    rng = torch.Generator(device="cuda")
-    rng.manual_seed(seed)
-    origin, direction, wl = _wavefront(film, camera, cfg, rng)
+    origin, direction, wl, keyed = _wavefront(film, camera, cfg, seed)
     n = origin.shape[0]
     state = tracer.initial_state(origin, direction, wl.shape[1])
-    draws = tracer.draw_bounce_uniforms(scene, cfg, n, rng, "cuda")
+    draws = tracer.draw_bounce_uniforms(scene, cfg, n, keyed, 0, "cuda")
     _, ctx = kd.launch_bounce_kernel(scene, cfg, wl, state, draws,
                                      kd.precompute_bank_values(scene, wl),
                                      kd.march_pass(scene, cfg, state))
@@ -1212,9 +1204,7 @@ def time_march(path, card, seed=1, plain_reps=2):
     from pyrite_tpu_torch import kernels, tracer
 
     scene, film, camera, cfg = _gpu_scene(path)
-    rng = torch.Generator(device="cuda")
-    rng.manual_seed(seed)
-    origin, direction, _ = _wavefront(film, camera, cfg, rng)
+    origin, direction, _, _ = _wavefront(film, camera, cfg, seed)
     args = _de_march_args(scene, cfg, origin, direction, scene.de_shapes[0])
     n = origin.shape[0]
     times = _time_pairs(
@@ -1253,6 +1243,360 @@ def time_march(path, card, seed=1, plain_reps=2):
           f"inlined; {per_iteration}) / (132 SMs x 4 schedulers x 32 lanes x clock) = "
           f"{issue_ms:.4f} ms; kernel {times['march_de_kernel'][0]:.4f} ms ({card})")
     return {"march_de_kernel": (*times["march_de_kernel"], size, ops)}
+
+
+def check_draws(name, path, seed=5):
+    """Phase 3 for philox_draws_kernel on the main path's wavefront: a
+    render step's keyed draws (rng.KeyedDraws(seed, sample0=batch,
+    samples=batch): the camera draws and the draws of bounces 0 and 1) from
+    the kernel, launched twice, against rng.py's plain version on the card
+    and on the CPU, bit for bit: a seed's draws do not depend on the device.
+    Returns the max abs difference measured (0.0 when they are bit-equal)."""
+    import torch
+
+    from pyrite_tpu_torch import rng
+    from pyrite_tpu_torch.renderers.simple import pick_sample_batch
+
+    scene, film, camera, cfg = _gpu_scene(path)
+    batch = pick_sample_batch(film)
+    n = batch * film.width * film.height
+    keyed = rng.KeyedDraws(seed, sample0=batch, samples=batch)
+    ls, lamps, s = cfg.light_samples, scene.num_lamps, cfg.spectrum_samples
+
+    def kernel(b):
+        if b is None:
+            return {"camera": rng.camera_uniforms(keyed, n, s, "cuda")}
+        return rng.bounce_draws(keyed, n, b, ls, lamps, "cuda")
+
+    def plain(b, dev):
+        if b is None:
+            return {"camera": rng.camera_plain(keyed, n, s, dev)}
+        return rng.bounce_plain(keyed, n, b, ls, lamps, dev)
+
+    words, err = 0, 0.0
+    for b in (None, 0, 1):
+        got, again = kernel(b), kernel(b)
+        on_card, on_cpu = plain(b, torch.device("cuda")), plain(b, torch.device("cpu"))
+        torch.cuda.synchronize()
+        for k, ref in on_cpu.items():
+            for other, what in ((got[k], "the kernel"), (again[k], "the kernel again"),
+                                (on_card[k], "the plain version on the card")):
+                bad = int(_bits_differ(other.cpu(), ref).sum())
+                assert bad == 0, f"{name}: {k} at bounce {b}: {what} differs from the CPU on {bad} words"
+                err = max(err, float((other.cpu().double() - ref.double()).abs().max()))
+            words += ref.numel()
+    print(f"[kernels] {name}: philox_draws_kernel on {n} lanes ({batch} samples from sample "
+          f"{batch}), the camera draws and bounces 0 and 1's draws "
+          f"({', '.join(['camera', *sorted(on_cpu)])}), each launched twice: bit-equal to rng.py's "
+          f"plain version on the card and on the CPU, {words} words")
+    return err
+
+
+def time_draws(path, card, seed=5, plain_reps=5):
+    """Phase 4 for philox_draws_kernel: one bounce's draws of the main
+    path's wavefront per launch, the raw launcher against rng.bounce_plain
+    on the card; bound = the bytes it writes / 3.35 TB/s. Also times
+    torch.rand of as many uniforms (PyTorch's own Philox, other bits; the
+    port never calls it). Returns {"philox_draws_kernel": (kernel ms, plain
+    ms, bytes, 0)}."""
+    import torch
+
+    from pyrite_tpu_torch import _build, rng
+    from pyrite_tpu_torch.renderers.simple import pick_sample_batch
+
+    scene, film, camera, cfg = _gpu_scene(path)
+    batch = pick_sample_batch(film)
+    n = batch * film.width * film.height
+    keyed = rng.KeyedDraws(seed, sample0=batch, samples=batch)
+    ls, lamps = cfg.light_samples, scene.num_lamps
+    words, _ = rng._layout(n, ls, lamps)
+    buf = torch.empty(words, dtype=torch.float32, device="cuda")
+    k0, k1 = keyed.key()
+    args = (k0, k1, n, keyed.n_pix(n), keyed.pixel0, keyed.sample0, 1, 0, ls, lamps, buf.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    lib = _build.load()
+    times = _time_pairs(
+        {"philox_draws_kernel": lambda: lib.pyrite_philox_draws(*args)},
+        {"philox_draws_kernel": lambda: rng.bounce_plain(keyed, n, 1, ls, lamps, torch.device("cuda"))},
+        plain_reps, f"per bounce's draws, {n} lanes, light_samples={ls}, {words} words ({card})")
+    rand_ms = _event_ms(lambda: torch.rand(words, device="cuda"), 50)
+    print(f"[times] torch.rand of {words} f32 uniforms (PyTorch's Philox, other bits; the port "
+          f"never calls it): {rand_ms:.4f} ms ({card})")
+    result = {"philox_draws_kernel": (*times["philox_draws_kernel"], 4 * words, 0)}
+    _print_bounds(os.path.basename(path), result)
+    return result
+
+
+def _warps(x, n, fill=0):
+    """A per-lane tensor [n, ...] padded to whole warps, as [warps, 32, ...]."""
+    import torch
+
+    warps = -(-n // 32)
+    out = torch.full((warps * 32, *x.shape[1:]), fill, dtype=x.dtype, device=x.device)
+    out[:n] = x
+    return out.view(warps, 32, *x.shape[1:])
+
+
+BRANCHES = ("emissive", "diffuse", "mirror", "refractive", "miss")
+
+
+def bounce_warp_counts(path, card, bounce, seed=1):
+    """Phase 4, what rows 1-2 do per warp, counted from the plain version on
+    the card at ``bounce`` (_bounce_inputs), lanes 32 to a warp in launch
+    order: the branch each alive lane takes (BRANCHES, the component pick of
+    tracer.bounce_core) and how many distinct branches a warp's alive lanes
+    take; on a scene with DE shapes, the lanes whose ray hits a DE shape
+    (k per warp) and the estimator iterations of their six
+    central-difference probes (tracer.de_normal's, by tracer._de_orbits),
+    with the issue slots a warp spends on them when each hit lane runs its
+    own six probes (in the lane's thread: per probe, the warp's longest
+    orbit), when the warp's 32 threads take the 6k probes round-robin (per
+    round of 32, the longest; csrc/bounce.cu de_normals_shared) and, as a
+    floor, when they would be refilled per iteration (no fewer than the
+    warp's iterations over 32 and its longest probe), and the issue-based
+    bound of the probes
+    (iterations x SASS per iteration / issue rate). Returns {"iterations",
+    "in_thread", "round_robin", "refill", "issue_ms"} (zeros without DE
+    shapes)."""
+    import torch
+
+    from pyrite_tpu_torch import tracer
+
+    scene, cfg, wl, state, draws = _bounce_inputs(path, seed, bounce)
+    o, d, alive = state["origin"], state["direction"], state["alive"]
+    n = o.shape[0]
+    a = scene.arrays
+    hit = tracer.intersect_scene(scene, o, d, de_steps=cfg.max_de_steps)
+    found = hit["kind"] != tracer.KIND_NONE
+    _, _, mat = tracer.surface_data(scene, hit, o, d)
+    count = torch.clamp(a["mat_comp_count"][mat].long(), min=1)
+    pick = torch.minimum((draws["u_comp"] * count).long(), count - 1)
+    bsdf = a["comp_bsdf"][a["mat_comp_offset"][mat].long() + pick].long()
+    branch = torch.where(alive, torch.where(found, bsdf, 4), len(BRANCHES))
+    taken = torch.zeros(n, len(BRANCHES) + 1, device=o.device).scatter_(1, branch[:, None], 1.0)
+    per_warp = _warps(taken, n)[:, :, : len(BRANCHES)].amax(dim=1)
+    distinct = per_warp.sum(dim=1).long()
+    spread = torch.bincount(distinct, minlength=len(BRANCHES) + 1).tolist()
+    lanes = taken[:, : len(BRANCHES)].sum(dim=0).long().tolist()
+    base = os.path.basename(path)
+    print(f"[warps] {base} at bounce {bounce}: {n} lanes, {int(alive.sum())} alive; alive lanes by "
+          f"branch {dict(zip(BRANCHES, lanes))}; warps by distinct branches taken "
+          f"{dict(enumerate(spread))} ({card})")
+    result = {"iterations": 0, "in_thread": 0, "round_robin": 0, "refill": 0, "issue_ms": 0.0}
+    if not scene.de_shapes:
+        return result
+    de = alive & (hit["kind"] == tracer.KIND_DE)
+    k = _warps(de, n, False).sum(dim=1)
+    its = torch.zeros((n, 6), dtype=torch.long, device=o.device)
+    offsets = torch.cat([torch.eye(3) * tracer.DIST_EPSILON, -torch.eye(3) * tracer.DIST_EPSILON])
+    for j, shape in enumerate(scene.de_shapes):
+        sel = torch.nonzero(de & (hit["idx"] == j))[:, 0]
+        if sel.numel() == 0:
+            continue
+        center = torch.as_tensor(shape.center, device=o.device)
+        local = (o[sel] - center) + d[sel] * (hit["t"][sel] - tracer.DIST_EPSILON)[:, None]
+        probes = (local[None, :, :] + offsets.to(o.device)[:, None, :]).reshape(-1, 3)
+        got = []
+        _counted(lambda: got.append(tracer._de_orbits(shape.estimator, probes)[1]))
+        its[sel] = got[0].long().view(6, -1).t()
+    total = int(its.sum())
+    in_thread = 32 * int(_warps(its, n).amax(dim=1).sum())
+    # round-robin: a warp's tasks in (hit lane rank, axis) order, 32 a round
+    lane = torch.nonzero(de)[:, 0]
+    rank = torch.cumsum(_warps(de, n, False).long(), dim=1).view(-1)[lane] - 1
+    task = rank[:, None] * 6 + torch.arange(6, device=o.device)[None, :]
+    slot = (lane // 32)[:, None] * 6 + task // 32
+    longest = torch.zeros(-(-n // 32) * 6, dtype=torch.long, device=o.device)
+    longest.scatter_reduce_(0, slot.reshape(-1), its[lane].reshape(-1), "amax")
+    round_robin = 32 * int(longest.sum())
+    # refilled per iteration: no fewer trips than the warp's iterations over
+    # 32 threads, nor than its longest probe
+    per_warp = _warps(its, n).sum(dim=(1, 2))
+    longest_warp = _warps(its, n).amax(dim=(1, 2))
+    refill = 32 * int(torch.maximum(-(-per_warp // 32), longest_warp).sum())
+    est = scene.de_shapes[0].estimator
+    kind = "mandelbulb" if est["kind"] == "mandelbulb" else "julia"
+    issue_ms = total * sass_per_iteration()[kind] / _issue_rate() * 1e3
+    hist = torch.bincount(k, minlength=33)
+    bins = {"0": int(hist[0]), "1-4": int(hist[1:5].sum()), "5-16": int(hist[5:17].sum()),
+            "17-31": int(hist[17:32].sum()), "32": int(hist[32])}
+    with_hits = k[k > 0].float()
+    print(f"[warps] {base} at bounce {bounce}: DE-hit lanes {int(de.sum())}; warps by DE-hit "
+          f"lanes k {bins}, mean k {float(with_hits.mean()) if with_hits.numel() else 0.0:.2f} over "
+          f"the warps with one; the six probes' estimator iterations {total} "
+          f"({total / max(6 * int(de.sum()), 1):.2f} per probe); SIMT efficiency of the probes "
+          f"in-thread {total / max(in_thread, 1):.3f} ({in_thread} issue slots), round-robin "
+          f"{total / max(round_robin, 1):.3f} ({round_robin}), refilled per iteration at most "
+          f"{total / max(refill, 1):.3f} ({refill}); issue-based bound of the probes "
+          f"{issue_ms:.4f} ms ({total} x {sass_per_iteration()[kind]} SASS per {kind} iteration) "
+          f"({card})")
+    return {"iterations": total, "in_thread": in_thread, "round_robin": round_robin,
+            "refill": refill, "issue_ms": issue_ms}
+
+
+# Copy-only probes of the bounce kernel's memory traffic: per lane they read
+# its state (origin, direction, brightness, reflectance, one [N, S] row of
+# sky or program values, flags, light events, u_comp, u_scatter) and write
+# its outputs (origin, direction, facing normal, brightness, reflectance,
+# pre-BRDF reflectance, flags, light events), 24 S + 91 bytes, with no
+# shading: copy_lanes with one thread per lane touching its own rows, as
+# the bounce kernel did before it staged its state (the memory floor as that
+# access reaches it), copy_staged through shared memory a block at a time.
+COPY_PROBE_SRC = r"""
+#include "common.cuh"
+
+struct CopyArgs {
+  const float *o, *d, *b, *r, *c;
+  const uint8_t *alive, *aux, *sl;
+  const int* le;
+  const float *u_comp, *u_sc;
+  float *oo, *od, *of, *ob, *orf, *orn;
+  uint8_t *o_alive, *o_aux, *o_sl, *o_nee;
+  int* o_le;
+  int n, s;
+};
+
+__global__ void __launch_bounds__(BLOCK) copy_lanes(const CopyArgs a) {
+  const int lane = blockIdx.x * BLOCK + threadIdx.x;
+  if (lane >= a.n) return;
+  const size_t row = (size_t)lane * a.s;
+  const V3 o = load3(a.o, lane), d = load3(a.d, lane);
+  const float u = a.u_comp[lane] + a.u_sc[3 * lane] + a.u_sc[3 * lane + 1] + a.u_sc[3 * lane + 2];
+  for (int k = 0; k < a.s; ++k) {
+    const float b = a.b[row + k], r = a.r[row + k], c = a.c[row + k];
+    a.ob[row + k] = b + c * r;
+    a.orf[row + k] = r * c;
+    a.orn[row + k] = r * u;
+  }
+  store3(a.oo, lane, o + d);
+  store3(a.od, lane, d);
+  store3(a.of, lane, o);
+  a.o_alive[lane] = a.alive[lane];
+  a.o_aux[lane] = a.aux[lane];
+  a.o_sl[lane] = a.sl[lane];
+  a.o_nee[lane] = a.alive[lane];
+  a.o_le[lane] = a.le[lane] + 1;
+}
+
+__global__ void __launch_bounds__(BLOCK) copy_staged(const CopyArgs a) {
+  extern __shared__ __align__(16) float sm[];
+  const int base = blockIdx.x * BLOCK, lane = base + threadIdx.x, rows = min(BLOCK, a.n - base);
+  const int s = a.s, t = threadIdx.x;
+  float *B = sm, *R = B + BLOCK * s, *C = R + BLOCK * s, *O = C + BLOCK * s, *D = O + 3 * BLOCK,
+        *U = D + 3 * BLOCK;
+  const size_t sp = (size_t)base * s, vp = (size_t)base * 3;
+  block_copy(B, a.b + sp, rows * s);
+  block_copy(R, a.r + sp, rows * s);
+  block_copy(C, a.c + sp, rows * s);
+  block_copy(O, a.o + vp, rows * 3);
+  block_copy(D, a.d + vp, rows * 3);
+  block_copy(U, a.u_sc + vp, rows * 3);
+  __syncthreads();
+  if (lane < a.n) {
+    const float u = a.u_comp[lane] + U[3 * t] + U[3 * t + 1] + U[3 * t + 2];
+    for (int k = 0; k < s; ++k) {
+      const float b = B[t * s + k], r = R[t * s + k], c = C[t * s + k];
+      B[t * s + k] = b + c * r;
+      R[t * s + k] = r * c;
+      C[t * s + k] = r * u;
+    }
+    const V3 o = {O[3 * t], O[3 * t + 1], O[3 * t + 2]}, d = {D[3 * t], D[3 * t + 1], D[3 * t + 2]};
+    U[3 * t] = o.x; U[3 * t + 1] = o.y; U[3 * t + 2] = o.z;
+    O[3 * t] = o.x + d.x; O[3 * t + 1] = o.y + d.y; O[3 * t + 2] = o.z + d.z;
+    a.o_alive[lane] = a.alive[lane];
+    a.o_aux[lane] = a.aux[lane];
+    a.o_sl[lane] = a.sl[lane];
+    a.o_nee[lane] = a.alive[lane];
+    a.o_le[lane] = a.le[lane] + 1;
+  }
+  __syncthreads();
+  block_copy(a.ob + sp, B, rows * s);
+  block_copy(a.orf + sp, R, rows * s);
+  block_copy(a.orn + sp, C, rows * s);
+  block_copy(a.oo + vp, O, rows * 3);
+  block_copy(a.od + vp, D, rows * 3);
+  block_copy(a.of + vp, U, rows * 3);
+}
+
+extern "C" int copy_probe(int staged, const CopyArgs* a, void* stream) {
+  const int grid = (a->n + BLOCK - 1) / BLOCK;
+  if (staged)
+    copy_staged<<<grid, BLOCK, (3 * a->s + 9) * BLOCK * sizeof(float), (cudaStream_t)stream>>>(*a);
+  else
+    copy_lanes<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(*a);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def time_copy_probes(path, card, seed=1, bounce=0):
+    """Phase 4: the copy-only probes (COPY_PROBE_SRC, built with the
+    library's flags) on the bounce kernel's tensors at ``bounce`` of the
+    main path's wavefront: ms per launch of each, with the bytes they move
+    and the rate. Returns {"copy_lanes": ms, "copy_staged": ms, "bytes": b}."""
+    import ctypes
+
+    import torch
+
+    from pyrite_tpu_torch import _build
+
+    scene, cfg, wl, state, draws = _bounce_inputs(path, seed, bounce)
+    n, s = wl.shape
+    f32 = torch.float32
+    empty = lambda *shape, dtype=f32: torch.empty(shape, dtype=dtype, device="cuda")
+    sky = empty(n, s).uniform_()
+    u8 = lambda t: t.view(torch.uint8)
+    ins = [state["origin"], state["direction"], state["brightness"], state["reflectance"], sky,
+           u8(state["alive"]), u8(state["aux_alive"]), u8(state["sample_light"]),
+           state["light_events"], draws["u_comp"], draws["u_scatter"]]
+    outs = [empty(n, 3), empty(n, 3), empty(n, 3), empty(n, s), empty(n, s), empty(n, s)] + [
+        empty(n, dtype=torch.uint8) for _ in range(4)] + [empty(n, dtype=torch.int32)]
+
+    class CopyArgs(ctypes.Structure):
+        _fields_ = [(f"p{i}", ctypes.c_void_p) for i in range(len(ins) + len(outs))] + [
+            ("n", ctypes.c_int), ("s", ctypes.c_int)]
+
+    cargs = CopyArgs(*[t.data_ptr() for t in ins + outs], n, s)
+    with tempfile.TemporaryDirectory() as tmp:
+        src, so = os.path.join(tmp, "copy_probe.cu"), os.path.join(tmp, "copy_probe.so")
+        with open(src, "w") as fh:
+            fh.write(COPY_PROBE_SRC)
+        subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-I", _build.CSRC, "-shared", "-o",
+                        so, src], check=True, capture_output=True, text=True, timeout=300)
+        lib = ctypes.CDLL(so)
+    lib.copy_probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+    size = _nbytes(*ins, *outs)
+    out = {"bytes": size}
+    for staged, name in ((0, "copy_lanes"), (1, "copy_staged")):
+        run = lambda: lib.copy_probe(staged, ctypes.byref(cargs), stream)
+        assert run() == 0, f"{name} launch failed"
+        torch.cuda.synchronize()
+        out[name] = (_event_ms(run, 50) + _event_ms(run, 50)) / 2
+    print(f"[copy probe] {os.path.basename(path)} at bounce {bounce}: {n} lanes, S={s}, {size} bytes "
+          f"(bytes bound {size / HBM_BYTES_PER_S * 1e3:.4f} ms): copy_lanes (per-lane rows) "
+          f"{out['copy_lanes']:.4f} ms, {size / out['copy_lanes'] / 1e6:.1f} GB/s; copy_staged "
+          f"(block staged, float4) {out['copy_staged']:.4f} ms, "
+          f"{size / out['copy_staged'] / 1e6:.1f} GB/s ({card})")
+    return out
+
+
+def print_occupancy(s):
+    """Resident blocks of 128 threads per SM of the bounce and NEE kernels'
+    instantiations at S spectral columns (pyrite_bounce_occupancy)."""
+    import ctypes
+
+    from pyrite_tpu_torch import _build
+
+    blocks = (ctypes.c_int * 8)()
+    rc = _build.load().pyrite_bounce_occupancy(s, blocks)
+    assert rc == 0, f"pyrite_bounce_occupancy: cudaError {rc}"
+    names = [f"{k}<{v}>" for k in ("dense_bounce_kernel", "dense_nee_kernel", "wide_bounce_kernel",
+                                    "wide_nee_kernel") for v in ("false", "true")]
+    found = dict(zip(names, list(blocks)))
+    print(f"[occupancy] S={s}: resident blocks of 128 threads per SM (warps per SM, of 64): " +
+          "; ".join(f"{k} {b} ({4 * b})" for k, b in found.items()))
+    return found
 
 
 # One estimator iteration of each kind between the same loads and stores
@@ -1319,12 +1663,18 @@ def _sass_counts(sass):
     return counts
 
 
+_SASS = {}  # sass_per_iteration's result, once per process
+
+
 def sass_per_iteration():
     """SASS instructions of one estimator iteration of each kind
     ({"mandelbulb": m, "julia": j, the cubic Julia}): the probe kernels of
     PROBE_SRC built with _build.NVCC_FLAGS against csrc/march_de.cuh, less
     the loads and stores around them, from cuobjdump -sass."""
     from pyrite_tpu_torch import _build
+
+    if _SASS:
+        return _SASS
 
     nvcc = _build.find_nvcc()
     with tempfile.TemporaryDirectory() as tmp:
@@ -1336,7 +1686,8 @@ def sass_per_iteration():
         sass = subprocess.run([os.path.join(os.path.dirname(nvcc), "cuobjdump"), "-sass", cubin],
                               check=True, capture_output=True, text=True, timeout=120).stdout
     counts = _sass_counts(sass)
-    return {k: counts[f"probe_{k}"] - counts["probe_base"] for k in ("mandelbulb", "julia")}
+    _SASS.update({k: counts[f"probe_{k}"] - counts["probe_base"] for k in ("mandelbulb", "julia")})
+    return _SASS
 
 
 def _issue_rate():
@@ -1346,17 +1697,17 @@ def _issue_rate():
 
 
 def _zero_counts():
-    from pyrite_tpu_torch import kernels, kernels_dense as kd, tracer
+    from pyrite_tpu_torch import kernels, kernels_dense as kd, rng, tracer
 
-    for counts in (kd.launches, kernels.launches, tracer.launches):
+    for counts in (kd.launches, kernels.launches, tracer.launches, rng.launches):
         for k in counts:
             counts[k] = 0
 
 
 def _read_counts():
-    from pyrite_tpu_torch import kernels, kernels_dense as kd, tracer
+    from pyrite_tpu_torch import kernels, kernels_dense as kd, rng, tracer
 
-    return dict(kd.launches, **kernels.launches, **tracer.launches)
+    return dict(kd.launches, **kernels.launches, **tracer.launches, **rng.launches)
 
 
 def render_end_to_end(path, samples, card, out_dir, kernels=("dense_bounce_kernel", "dense_nee_kernel"),
@@ -1406,6 +1757,9 @@ def render_end_to_end(path, samples, card, out_dir, kernels=("dense_bounce_kerne
     assert launches["de_march_pass"] == launches["de_shadow_pass"] == marches, launches
     project = cli.load_project(path).project
     r = project.renderer
+    # one launch of the draw kernel per step (camera draws) and per bounce
+    steps = -(-samples // simple.pick_sample_batch(film))
+    assert launches["philox_draws_kernel"] == steps + bounces, launches
     rays = film.width * film.height * samples * r.bounces * (1 + r.light_samples)
     print(
         f"[end-to-end] {os.path.basename(path)} {film.width}x{film.height}, {samples} spp, "
@@ -1426,14 +1780,12 @@ def drive_queries(path, card, seed=2):
     from pyrite_tpu_torch import kernels, tracer
 
     scene, film, camera, cfg = _gpu_scene(path)
-    rng = torch.Generator(device="cuda")
-    rng.manual_seed(seed)
-    origin, direction, _ = _wavefront(film, camera, cfg, rng)
+    origin, direction, _, keyed = _wavefront(film, camera, cfg, seed)
     _zero_counts()
     torch.cuda.synchronize()
     started = time.perf_counter()
     hit = kernels.closest_wide(scene, origin, direction)
-    so, sd, max_dist, block, sq = _shadow_rays(scene, cfg, origin, direction, hit, rng)
+    so, sd, max_dist, block, sq = _shadow_rays(scene, cfg, origin, direction, hit, keyed)
     t = kernels.shadow_wide(scene, so, sd, max_dist, block)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - started
@@ -1462,9 +1814,7 @@ def drive_march(path, card, seed=2):
     from pyrite_tpu_torch import kernels, tracer
 
     scene, film, camera, cfg = _gpu_scene(path)
-    rng = torch.Generator(device="cuda")
-    rng.manual_seed(seed)
-    origin, direction, _ = _wavefront(film, camera, cfg, rng)
+    origin, direction, _, _ = _wavefront(film, camera, cfg, seed)
     _zero_counts()
     torch.cuda.synchronize()
     started = time.perf_counter()
@@ -1597,6 +1947,25 @@ def profile_renders(card, runs=5):
                       f"{e.key[:60]} {own(e) / 1e3:.3f} ms ({e.count}x)" for e in top))
 
 
+def measure_rows(flagship, fractal, card):
+    """Phase 4 for the dense bounce and NEE kernels (rows 1-2 of PERF.md's
+    table): their occupancy at flagship's S and fractal.lua's, the copy
+    probes' memory floor and what a warp does (bounce_warp_counts) at
+    bounces 0 and 1, and their times on flagship at bounce 0 and on
+    fractal.lua at bounces 0 and 1 (with the DE passes'). Returns flagship's
+    time_kernels result."""
+    for s_count in (6, 8):
+        print_occupancy(s_count)
+    for bounce in (0, 1):
+        time_copy_probes(flagship, card, bounce=bounce)
+        bounce_warp_counts(flagship, card, bounce)
+        bounce_warp_counts(fractal, card, bounce)
+    times = time_kernels(flagship, card)
+    for bounce in (0, 1):  # printed: the DE passes' and kernels' times
+        time_kernels(fractal, card, plain_reps=1, bounce=bounce)
+    return times
+
+
 def main(argv=None):
     import torch
 
@@ -1623,6 +1992,11 @@ def main(argv=None):
     if argv == ["--profile"]:
         profile_renders(smi)
         return 0
+    if argv == ["--rows"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            flagship = scene_paths(tmp, width=512, height=256, spectrum_samples=6, bounces=8)["flagship"]
+            measure_rows(flagship, os.path.join(ROOT, "examples", "fractal.lua"), smi)
+        return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -1634,15 +2008,19 @@ def main(argv=None):
         mixed = {"terrain_de_24": write_terrain_de_scene(tmp, width=128, height=64),
                  "two_de": write_two_de_scene(tmp)}
         mesh = terrain_paths(tmp)
+        drawn = {name: check_draws(name, p) for name, p in (("flagship", paths["flagship"]),
+                                                              ("fractal", de["fractal"]))}
         marched = {name: check_march(name, p) for name, p in dict(de, **mixed).items()}
         shadowed = {name: check_shadow_pass(name, p) for name, p in dict(de, **mixed).items()}
         worst = {name: check_kernels(name, p) for name, p in dict(paths, **de, **mixed).items()}
+        divergent = {k: (w["divergent"], w["nee_divergent"]) for k, w in worst.items()
+                     if w["divergent"] or w["nee_divergent"]}
+        assert not divergent, f"the bounce or NEE kernel diverges from the plain version: {divergent}"
         shadow = {name: de_shadow_share(name, p) for name, p in de.items()}
         worst_wide = check_kernels("terrain_405", mesh["terrain_405"])
         queries = {name: check_queries(name, p) for name, p in mesh.items()}
-        times = time_kernels(paths["flagship"], smi)
-        for bounce in (0, 1):  # printed: the DE passes' and kernels' times
-            time_kernels(de["fractal"], smi, plain_reps=1, bounce=bounce)
+        times = measure_rows(paths["flagship"], de["fractal"], smi)
+        times.update(time_draws(paths["flagship"], smi))
         times.update(time_march(de["fractal"], smi))
         times.update(time_kernels(mesh["terrain_405"], smi, plain_reps=2))
         time_kernels(mesh["terrain_405"], smi, plain_reps=2, bounce=1)  # printed
@@ -1668,6 +2046,7 @@ def main(argv=None):
         }
 
     dense_total = lambda key: sum(run[key] for run in dense_runs + de_runs)
+    rendered = dense_runs + de_runs + [mesh_run]
     queried = queries.values()
     checked = list(worst.values())
     kernels = [
@@ -1688,6 +2067,8 @@ def main(argv=None):
                mesh_run["wide_bounce_kernel"], max(worst_wide["bounce"], worst_wide["brightness"])),
         kernel("wide_nee_kernel", "bounce.cu", "pyrite_tpu/kernels.py:337",
                mesh_run["wide_nee_kernel"], worst_wide["nee"]),
+        kernel("philox_draws_kernel", "draws.cu", "pyrite_tpu/tracer.py:1069",
+               sum(run["philox_draws_kernel"] for run in rendered), max(drawn.values())),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(f"[de-shadow] blocked shares {shadow}")

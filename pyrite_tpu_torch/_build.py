@@ -37,6 +37,7 @@ build_log = ""
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint32
 _F = ctypes.c_float
 _DE = [_I, _F]  # the DE march's step cap and over-relaxation factor
 # ... ending in the scene's DE shape count, which picks the kernel
@@ -45,8 +46,8 @@ _BOUNCE = [_P] * 30 + [_I] * 5 + [_P]
 _NEE = [_P] * 16 + [_I] * 4 + [_F, _I, _P]
 _WIDE = [_P] * 6 + [_I]  # the mesh scene's tables and its leaf size
 # argument lists of the extern "C" launchers in csrc/bounce.cu,
-# csrc/wide_bvh.cu and csrc/march_de.cu; a march pass ends in its work
-# counter and the stream
+# csrc/wide_bvh.cu, csrc/march_de.cu and csrc/draws.cu; a march pass ends in
+# its work counter (an unsigned 64-bit word) and the stream
 _SIGNATURES = {
     "pyrite_dense_bounce": _BOUNCE + [_P],
     "pyrite_dense_nee": _NEE + [_P],
@@ -57,6 +58,8 @@ _SIGNATURES = {
     "pyrite_march_de": [_P] * 6 + _DE + [_P] * 2 + [_I, _P, _P],
     "pyrite_de_march_bounce": [_P] * 6 + [_I] * 2 + _DE + [_P, _P],
     "pyrite_de_march_shadow": [_P] * 8 + [_I] * 3 + _DE + [_P, _P],
+    "pyrite_philox_draws": [_U, _U, _I, _I, _U, _U, _U, _I, _I, _I, _P, _P],
+    "pyrite_bounce_occupancy": [_I, _P],
 }
 
 

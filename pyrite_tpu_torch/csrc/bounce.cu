@@ -258,12 +258,6 @@ __device__ float eval_prob(const Programs& pr, int prog, int lane, int n, V3 nor
   return st[0];
 }
 
-// tracer.eval_color_bank for one lane and column: out-of-range programs are 0.
-__device__ __forceinline__ float color(const Programs& pr, int prog, int lane, int n, int s, int k) {
-  if (prog < 0 || prog >= pr.n_color) return 0.0f;
-  return pr.cvals[((size_t)prog * n + lane) * s + k];
-}
-
 struct BounceArgs {
   Sheet sheet;
   Programs progs;
@@ -307,6 +301,102 @@ __device__ __forceinline__ void apply_de_closest(const Sheet& sh, const float* _
   }
 }
 
+// Shared memory of a bounce kernel block, bounce_smem_bytes(S, kDE): the
+// block's [BLOCK, S] brightness, reflectance, pre-BRDF reflectance and
+// gathered sky or color row, its [BLOCK, 3] origin, direction, facing normal
+// and u_scatter, and with DE shapes each warp's probe slots (de_normals_shared).
+constexpr int DE_SLOT_FLOATS = 32 * 3 + 32 + 32 * 6;  // local points, shape indices, probes
+
+__host__ __device__ __forceinline__ size_t bounce_smem_bytes(int s, bool de) {
+  return sizeof(float) * ((size_t)BLOCK * (4 * s + 12) + (de ? (BLOCK / 32) * DE_SLOT_FLOATS : 0));
+}
+
+// The widest row a warp moves: kernels_dense.MAX_SPECTRUM_SAMPLES.
+constexpr int MAX_ROW = 16;
+
+// The lane (of 32) whose row holds word i of a warp's [32, width] rows:
+// i / width, through the reciprocal (exact for i < 32 x MAX_ROW: the
+// quotient's fraction is at least 1 / (2 width) from an integer).
+__device__ __forceinline__ int row_owner(int i, float inv_width) {
+  return min((int)(((float)i + 0.5f) * inv_width), 31);
+}
+
+// Each lane's row of `width` (<= MAX_ROW) floats at `src` (nullptr: zeros)
+// into the warp's [32, width] rows `dst` in shared memory. Consecutive
+// threads read consecutive words, row after row, so a warp's loads of
+// neighbouring lanes' rows are contiguous runs; four loads are in flight
+// per thread. Every thread of the warp calls it.
+__device__ __forceinline__ void warp_gather(float* dst, const float* src, int width) {
+  const int lid = threadIdx.x & 31;
+  const unsigned long long mine = reinterpret_cast<unsigned long long>(src);
+  const float inv = 1.0f / (float)width;
+  __syncwarp();
+#pragma unroll
+  for (int r0 = 0; r0 < MAX_ROW; r0 += 4) {
+    if (r0 >= width) break;
+    float v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int i = lid + 32 * (r0 + q), owner = row_owner(i, inv);
+      const float* p = reinterpret_cast<const float*>(__shfl_sync(FULL_WARP, mine, owner));
+      v[q] = (r0 + q < width && p) ? p[i - owner * width] : 0.0f;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (r0 + q < width) dst[lid + 32 * (r0 + q)] = v[q];
+  }
+  __syncwarp();
+}
+
+// Normal and material of the warp's DE hits (tracer.de_normal): central
+// differences of the estimator, eps = DIST_EPSILON, at the point
+// DIST_EPSILON short of the hit in the shape's local space, the probes
+// adding (+-eps, +-0, +-0) as the plain version's offsets do. The warp's 32
+// threads share the 6k estimator probes of its k hit lanes: each hit lane
+// publishes its local point and its shape into the warp's slots; probe
+// `task` belongs to hit lane task / 6 (in lane order) on axis and sign
+// task % 6 (+x, +y, +z, -x, -y, -z), and runs the same de_distance on the
+// same point, so every bit is kept; the threads take the tasks round-robin,
+// 32 a round; the owner then forms the normal in the plain version's order.
+// (Refilling a thread with the next task per estimator iteration, as
+// march_de_kernel does, wastes fewer issue slots on paper but measured
+// slower: chip_smoke.bounce_warp_counts, PERF.md.) Every thread of the warp
+// calls it.
+__device__ __forceinline__ void de_normals_shared(const Sheet& sh, float* slots, bool de_hit,
+                                                  const Hit& h, V3 o, V3 d, V3& normal, int& mat) {
+  const unsigned hits = __ballot_sync(FULL_WARP, de_hit);
+  if (hits == 0) return;
+  const int lid = threadIdx.x & 31;
+  float* pts = slots;                                    // [32, 3]
+  int* shape = reinterpret_cast<int*>(slots + 32 * 3);  // [32]
+  float* probe = slots + 32 * 4;                         // [32, 6]
+  const int rank = __popc(hits & ((1u << lid) - 1u));
+  __syncwarp();
+  if (de_hit) {
+    const V3 c = {sh.at(M_DE_CX, h.j), sh.at(M_DE_CY, h.j), sh.at(M_DE_CZ, h.j)};
+    const V3 l = (o - c) + d * (h.t - DIST_EPSILON);
+    pts[3 * rank] = l.x;
+    pts[3 * rank + 1] = l.y;
+    pts[3 * rank + 2] = l.z;
+    shape[rank] = h.j;
+  }
+  __syncwarp();
+  const int tasks = 6 * __popc(hits);
+  for (int task = lid; task < tasks; task += 32) {
+    const int owner = task / 6, axis = task - 6 * owner, ax = axis % 3;
+    const float e = axis < 3 ? DIST_EPSILON : -DIST_EPSILON, z = axis < 3 ? 0.0f : -0.0f;
+    const V3 l = {pts[3 * owner], pts[3 * owner + 1], pts[3 * owner + 2]};
+    const V3 p = {l.x + (ax == 0 ? e : z), l.y + (ax == 1 ? e : z), l.z + (ax == 2 ? e : z)};
+    probe[task] = de_distance(load_de(sh, shape[owner]), p);
+  }
+  __syncwarp();
+  if (de_hit) {
+    const float* q = probe + 6 * rank;
+    normal = normalize(V3{q[0] - q[3], q[1] - q[4], q[2] - q[5]});
+    mat = sh.iat(M_DE_MAT, h.j);
+  }
+}
+
 // One bounce of tracer.bounce_core per lane, minus the NEE contribution
 // (the NEE kernel adds it): closest hit (the planes, then the geometry
 // policy, then the DE shapes' t from the march pass), miss -> sky, uniform
@@ -322,11 +412,26 @@ __device__ __forceinline__ void apply_de_closest(const Sheet& sh, const float* _
 // it writes 4 * S more for the pre-BRDF reflectance: ~250 bytes at S = 6
 // against ~30 flops per primitive tested. With the few primitives of a
 // spheres-class scene that is memory-bound; at 128 primitives the sweep's
-// ~4k flops per lane make it compute-bound. The design reads the sheet
-// through the L1/read-only path (every lane of a warp reads the same sheet
-// element at the same time, a broadcast), keeps all per-lane scalars in
-// registers, and touches each state element once; lanes that are dead copy
-// their state through and exit before the sweep.
+// ~4k flops per lane make it compute-bound. On a DE scene the six
+// estimator probes of each DE hit's normal come on top, ~650 instructions
+// per estimator iteration. The design:
+// - the sheet is read through the L1/read-only path (every lane of a warp
+//   reads the same sheet element at the same time, a broadcast);
+// - the block stages its lanes' [BLOCK, S] brightness and reflectance and
+//   [BLOCK, 3] origin, direction and u_scatter through shared memory with
+//   contiguous float4 loads, shades there, and stores brightness,
+//   reflectance, pre-BRDF reflectance, origin, direction and facing normal
+//   the same way (block_copy); a lane's sky or color row, which depends on
+//   its hit, is gathered by its warp into shared memory (warp_gather). One
+//   thread per lane wrote rows of 4 S bytes a word at a time before, a
+//   warp-wide access spanning 32 such rows;
+// - with DE shapes, the warp's threads share its DE hits' normal probes
+//   (de_normals_shared): a warp with k hit lanes runs ceil(6k / 32) rounds
+//   of probes where each hit lane ran its six in turn while the rest of the
+//   warp waited.
+// Dead lanes and threads past the end of the wavefront take part in the
+// staging and the warp operations and skip the rest (there is no early
+// return: every thread reaches every barrier and warp operation).
 //
 // wide_bounce_kernel runs the same code over a mesh scene; the TPU package
 // ran that bounce as XLA ops around its walk and sweep kernels
@@ -335,144 +440,173 @@ __device__ __forceinline__ void apply_de_closest(const Sheet& sh, const float* _
 // (see there); the shading around it is the dense kernel's ~250 bytes per
 // lane. The traversal sweeps each leaf with the whole warp, so there every
 // thread computes the closest hit, dead lanes and threads past the end of
-// the wavefront with active = false, before any of them may return; the
-// dense kernel's threads past the end return at once, and its dead lanes
-// skip the sweep, as before.
+// the wavefront with active = false; the dense kernel sweeps for its alive
+// lanes alone.
 template <class Geo, bool kDE>
 __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in_range = lane < a.n;
-  if (!Geo::kWholeWarp && !in_range) return;
-  const int n = a.n, s = a.s;
-  const size_t row = (size_t)lane * s;
+  extern __shared__ __align__(16) float smem[];
+  const int n = a.n, s = a.s, t = threadIdx.x;
+  const int base = blockIdx.x * BLOCK, lane = base + t;
+  const int rows = min(BLOCK, n - base);
+  const bool in_range = t < rows;
+  float* B = smem;               // [BLOCK, S] brightness, in and out
+  float* R = B + BLOCK * s;      // reflectance, in and out
+  float* RN = R + BLOCK * s;     // pre-BRDF reflectance, out
+  float* C = RN + BLOCK * s;     // the lane's sky or color row
+  float* O = C + BLOCK * s;      // [BLOCK, 3] origin, in and out
+  float* D = O + 3 * BLOCK;      // direction, in and out
+  float* F = D + 3 * BLOCK;      // facing normal, out
+  float* U = F + 3 * BLOCK;      // u_scatter
+  const size_t sp = (size_t)base * s, vp = (size_t)base * 3;
+  block_copy(B, a.brightness + sp, rows * s);
+  block_copy(R, a.reflectance + sp, rows * s);
+  block_copy(O, a.origin + vp, rows * 3);
+  block_copy(D, a.direction + vp, rows * 3);
+  block_copy(U, a.u_scatter + vp, rows * 3);
+  __syncthreads();
+
   const Sheet sh = a.sheet;
   const Programs pr = a.progs;
-
-  const V3 o = in_range ? load3(a.origin, lane) : V3{0.f, 0.f, 0.f};
-  const V3 d = in_range ? load3(a.direction, lane) : V3{0.f, 0.f, 0.f};
+  float* b = B + t * s;
+  float* r = R + t * s;
+  float* rn = RN + t * s;
+  const float* c = C + t * s;
+  const V3 o = in_range ? V3{O[3 * t], O[3 * t + 1], O[3 * t + 2]} : V3{0.f, 0.f, 0.f};
+  const V3 d = in_range ? V3{D[3 * t], D[3 * t + 1], D[3 * t + 2]} : V3{0.f, 0.f, 0.f};
   const bool alive = in_range && a.alive[lane];
-  Hit warp_hit = {INFINITY, KIND_NONE, 0, 0.0f, 0.0f};
-  if (Geo::kWholeWarp) warp_hit = geo.closest(sh, o, d, alive);
-  if (!in_range) return;
-  const bool aux = a.aux_alive[lane];
-  const bool sample_light = a.sample_light[lane];
-  const int light_events = a.light_events[lane];
-
-  // state carried through unless the lane reflects
-  V3 new_o = o, new_d = d, flip = {0.f, 0.f, 0.f};
-  bool alive_next = false, aux_next = aux, sample_light_next = sample_light, nee = false;
-  int light_events_next = light_events;
-  for (int k = 0; k < s; ++k) {
-    a.o_brightness[row + k] = a.brightness[row + k];
-    a.o_reflectance[row + k] = a.reflectance[row + k];
+  Hit h = {INFINITY, KIND_NONE, 0, 0.0f, 0.0f};
+  if (Geo::kWholeWarp) {
+    h = geo.closest(sh, o, d, alive);
+  } else if (alive) {
+    h = geo.closest(sh, o, d, true);
   }
+  if (kDE && alive) apply_de_closest(sh, a.t_de, n, lane, h);
+  const bool found = alive && h.kind != KIND_NONE;
 
-  if (alive) {
-    Hit h = Geo::kWholeWarp ? warp_hit : geo.closest(sh, o, d, true);
-    if (kDE) apply_de_closest(sh, a.t_de, n, lane, h);
-    if (h.kind == KIND_NONE) {
-      // miss: sky (directional lamps are gated out of the pack)
-      for (int k = 0; k < s; ++k)
-        if (k == 0 || aux)
-          a.o_brightness[row + k] = a.brightness[row + k] + a.sky[row + k] * a.reflectance[row + k];
-    } else {
-      const V3 pos = o + d * h.t;
-      V3 normal;
-      int mat;
-      if (h.kind == KIND_PLANE) {
-        normal = {sh.at(M_PLA_NX, h.j), sh.at(M_PLA_NY, h.j), sh.at(M_PLA_NZ, h.j)};
-        mat = sh.iat(M_PLA_MAT, h.j);
-      } else if (kDE && h.kind == KIND_DE) {
-        de_surface(sh, h.j, o, d, h.t, normal, mat);
-      } else {
-        geo.surface(sh, h, pos, normal, mat);
-      }
-
-      // uniform component choice (materials/mod.rs:48-54)
-      const int count = max(sh.iat(M_MAT_COMP_COUNT, mat), 1);
-      const int pick = min((int)(a.u_comp[lane] * (float)count), count - 1);
-      const int comp = sh.iat(M_MAT_COMP_OFFSET, mat) + pick;
-      const float comp_probability =
-          eval_prob(pr, sh.iat(M_COMP_PROB, comp), lane, n, normal, d) * sh.at(M_COMP_SELECTION, comp);
-      const bool normal_dispersed = sh.at(M_COMP_PROB_USES_WL, comp) > 0.5f;
-      const int bsdf = sh.iat(M_COMP_BSDF, comp);
-      const int color_id = sh.iat(M_COMP_COLOR, comp);
-
-      if (bsdf == BSDF_EMISSIVE) {
-        if (sample_light)
-          for (int k = 0; k < s; ++k)
-            if (k == 0 || (aux && !normal_dispersed))
-              a.o_brightness[row + k] = a.brightness[row + k] +
-                                        color(pr, color_id, lane, n, s, k) * comp_probability *
-                                            a.reflectance[row + k];
-      } else {
-        // scatter (tracer.scatter)
-        flip = dot(d, normal) < 0.0f ? normal : -normal;
-        const float u0 = a.u_scatter[3 * lane], u1 = a.u_scatter[3 * lane + 1],
-                    u2 = a.u_scatter[3 * lane + 2];
-        V3 out;
-        float sc_probability = 1.0f;
-        bool sc_dispersed = false;
-        if (bsdf == BSDF_DIFFUSE) {
-          out = sample_hemisphere(u0, u1, flip);
-        } else if (bsdf == BSDF_MIRROR) {
-          out = d - flip * (2.0f * dot(d, flip));
-        } else {
-          // refractive (refractive.rs:46-91), Cauchy dispersion in micrometres
-          const float wl_um = a.wl[row] * 0.001f;
-          const float disp = sh.at(M_COMP_DISP, comp), env_disp = sh.at(M_COMP_ENV_DISP, comp);
-          const float ior = sh.at(M_COMP_IOR, comp) + disp / (wl_um * wl_um);
-          const float env_ior = sh.at(M_COMP_ENV_IOR, comp) + env_disp / (wl_um * wl_um);
-          const V3 reflected = d - normal * (2.0f * dot(normal, d));
-          const bool into = dot(normal, flip) > 0.0f;
-          const float nnt = into ? env_ior / ior : ior / env_ior;
-          const float ddn = dot(d, flip);
-          const float cos2t = 1.0f - nnt * nnt * (1.0f - ddn * ddn);
-          const bool tir = cos2t < 0.0f;
-          const float s_val = (into ? 1.0f : -1.0f) * (ddn * nnt + sqrtf(fmaxf(cos2t, 0.0f)));
-          const V3 tdir = normalize(d * nnt - normal * s_val);
-          const float a_ = ior - env_ior, b_ = ior + env_ior;
-          const float r0 = (a_ * a_) / (b_ * b_);
-          const float c_ = 1.0f - (into ? -ddn : dot(tdir, normal));
-          const float re = r0 + (1.0f - r0) * pow5(c_);
-          const float tr = 1.0f - re;
-          const float p_refl = 0.25f + 0.5f * re;
-          const bool pick_reflect = u2 < p_refl;
-          out = (tir || pick_reflect) ? reflected : tdir;
-          sc_probability = tir ? 1.0f : (pick_reflect ? re / p_refl : tr / (1.0f - p_refl));
-          sc_dispersed = disp != 0.0f || env_disp != 0.0f;
-        }
-        const bool is_diffuse = bsdf == BSDF_DIFFUSE;
-
-        // reflection: color * probability now, the BRDF after NEE has read it
-        aux_next = aux && !(sc_dispersed || normal_dispersed);
-        const float path_prob = sc_probability * comp_probability;
-        const float brdf = is_diffuse ? 2.0f * fabsf(dot(normal, out)) : 1.0f;
-        for (int k = 0; k < s; ++k) {
-          float r = a.reflectance[row + k];
-          if (k == 0 || aux_next) {
-            r = r * color(pr, color_id, lane, n, s, k) * path_prob;
-            a.o_reflectance[row + k] = r * brdf;
-          }
-          a.o_refl_nee[row + k] = r;
-        }
-        nee = is_diffuse && light_events < 2;
-        light_events_next = light_events + (nee ? 1 : 0);
-        sample_light_next = light_events < 2 ? (!is_diffuse || a.light_samples == 0) : true;
-        new_o = pos;
-        new_d = out;
-        alive_next = true;
-      }
+  V3 normal = {0.f, 0.f, 0.f};
+  int mat = 0;
+  if (kDE) de_normals_shared(sh, smem + BLOCK * (4 * s + 12) + (t >> 5) * DE_SLOT_FLOATS,
+                             found && h.kind == KIND_DE, h, o, d, normal, mat);
+  const V3 pos = o + d * h.t;
+  int comp = 0, bsdf = BSDF_EMISSIVE, color_id = -1;
+  float comp_probability = 0.0f;
+  bool normal_dispersed = false;
+  const float* row_src = nullptr;  // this lane's sky or color row
+  if (found) {
+    if (h.kind == KIND_PLANE) {
+      normal = {sh.at(M_PLA_NX, h.j), sh.at(M_PLA_NY, h.j), sh.at(M_PLA_NZ, h.j)};
+      mat = sh.iat(M_PLA_MAT, h.j);
+    } else if (!(kDE && h.kind == KIND_DE)) {
+      geo.surface(sh, h, pos, normal, mat);
     }
+    // uniform component choice (materials/mod.rs:48-54)
+    const int count = max(sh.iat(M_MAT_COMP_COUNT, mat), 1);
+    const int pick = min((int)(a.u_comp[lane] * (float)count), count - 1);
+    comp = sh.iat(M_MAT_COMP_OFFSET, mat) + pick;
+    comp_probability =
+        eval_prob(pr, sh.iat(M_COMP_PROB, comp), lane, n, normal, d) * sh.at(M_COMP_SELECTION, comp);
+    normal_dispersed = sh.at(M_COMP_PROB_USES_WL, comp) > 0.5f;
+    bsdf = sh.iat(M_COMP_BSDF, comp);
+    color_id = sh.iat(M_COMP_COLOR, comp);
+    // tracer.eval_color_bank: out-of-range programs are 0
+    if (color_id >= 0 && color_id < pr.n_color) row_src = pr.cvals + ((size_t)color_id * n + lane) * s;
+  } else if (alive) {
+    row_src = a.sky + (size_t)lane * s;  // miss: sky (directional lamps are gated out of the pack)
   }
-  store3(a.o_origin, lane, new_o);
-  store3(a.o_direction, lane, new_d);
-  store3(a.o_flip, lane, flip);
-  a.o_alive[lane] = alive_next;
-  a.o_aux_alive[lane] = aux_next;
-  a.o_sample_light[lane] = sample_light_next;
-  a.o_light_events[lane] = light_events_next;
-  a.o_nee[lane] = nee;
+  warp_gather(C + (t & ~31) * s, row_src, s);
+
+  if (in_range) {
+    const bool aux = a.aux_alive[lane];
+    const bool sample_light = a.sample_light[lane];
+    const int light_events = a.light_events[lane];
+    // state carried through unless the lane reflects
+    V3 new_o = o, new_d = d, flip = {0.f, 0.f, 0.f};
+    bool alive_next = false, aux_next = aux, sample_light_next = sample_light, nee = false;
+    int light_events_next = light_events;
+    bool reflected = false;
+    if (alive && !found) {
+      for (int k = 0; k < s; ++k)
+        if (k == 0 || aux) b[k] = b[k] + c[k] * r[k];
+    } else if (found && bsdf == BSDF_EMISSIVE) {
+      if (sample_light)
+        for (int k = 0; k < s; ++k)
+          if (k == 0 || (aux && !normal_dispersed)) b[k] = b[k] + c[k] * comp_probability * r[k];
+    } else if (found) {
+      // scatter (tracer.scatter)
+      reflected = true;
+      flip = dot(d, normal) < 0.0f ? normal : -normal;
+      const float u0 = U[3 * t], u1 = U[3 * t + 1], u2 = U[3 * t + 2];
+      V3 out;
+      float sc_probability = 1.0f;
+      bool sc_dispersed = false;
+      if (bsdf == BSDF_DIFFUSE) {
+        out = sample_hemisphere(u0, u1, flip);
+      } else if (bsdf == BSDF_MIRROR) {
+        out = d - flip * (2.0f * dot(d, flip));
+      } else {
+        // refractive (refractive.rs:46-91), Cauchy dispersion in micrometres
+        const float wl_um = a.wl[(size_t)lane * s] * 0.001f;
+        const float disp = sh.at(M_COMP_DISP, comp), env_disp = sh.at(M_COMP_ENV_DISP, comp);
+        const float ior = sh.at(M_COMP_IOR, comp) + disp / (wl_um * wl_um);
+        const float env_ior = sh.at(M_COMP_ENV_IOR, comp) + env_disp / (wl_um * wl_um);
+        const V3 reflected_dir = d - normal * (2.0f * dot(normal, d));
+        const bool into = dot(normal, flip) > 0.0f;
+        const float nnt = into ? env_ior / ior : ior / env_ior;
+        const float ddn = dot(d, flip);
+        const float cos2t = 1.0f - nnt * nnt * (1.0f - ddn * ddn);
+        const bool tir = cos2t < 0.0f;
+        const float s_val = (into ? 1.0f : -1.0f) * (ddn * nnt + sqrtf(fmaxf(cos2t, 0.0f)));
+        const V3 tdir = normalize(d * nnt - normal * s_val);
+        const float a_ = ior - env_ior, b_ = ior + env_ior;
+        const float r0 = (a_ * a_) / (b_ * b_);
+        const float c_ = 1.0f - (into ? -ddn : dot(tdir, normal));
+        const float re = r0 + (1.0f - r0) * pow5(c_);
+        const float tr = 1.0f - re;
+        const float p_refl = 0.25f + 0.5f * re;
+        const bool pick_reflect = u2 < p_refl;
+        out = (tir || pick_reflect) ? reflected_dir : tdir;
+        sc_probability = tir ? 1.0f : (pick_reflect ? re / p_refl : tr / (1.0f - p_refl));
+        sc_dispersed = disp != 0.0f || env_disp != 0.0f;
+      }
+      const bool is_diffuse = bsdf == BSDF_DIFFUSE;
+
+      // reflection: color * probability now, the BRDF after NEE has read it
+      aux_next = aux && !(sc_dispersed || normal_dispersed);
+      const float path_prob = sc_probability * comp_probability;
+      const float brdf = is_diffuse ? 2.0f * fabsf(dot(normal, out)) : 1.0f;
+      for (int k = 0; k < s; ++k) {
+        float rk = r[k];
+        if (k == 0 || aux_next) {
+          rk = rk * c[k] * path_prob;
+          r[k] = rk * brdf;
+        }
+        rn[k] = rk;
+      }
+      nee = is_diffuse && light_events < 2;
+      light_events_next = light_events + (nee ? 1 : 0);
+      sample_light_next = light_events < 2 ? (!is_diffuse || a.light_samples == 0) : true;
+      new_o = pos;
+      new_d = out;
+      alive_next = true;
+    }
+    if (!reflected)
+      for (int k = 0; k < s; ++k) rn[k] = r[k];
+    O[3 * t] = new_o.x; O[3 * t + 1] = new_o.y; O[3 * t + 2] = new_o.z;
+    D[3 * t] = new_d.x; D[3 * t + 1] = new_d.y; D[3 * t + 2] = new_d.z;
+    F[3 * t] = flip.x; F[3 * t + 1] = flip.y; F[3 * t + 2] = flip.z;
+    a.o_alive[lane] = alive_next;
+    a.o_aux_alive[lane] = aux_next;
+    a.o_sample_light[lane] = sample_light_next;
+    a.o_light_events[lane] = light_events_next;
+    a.o_nee[lane] = nee;
+  }
+  __syncthreads();
+  block_copy(a.o_brightness + sp, B, rows * s);
+  block_copy(a.o_reflectance + sp, R, rows * s);
+  block_copy(a.o_refl_nee + sp, RN, rows * s);
+  block_copy(a.o_origin + vp, O, rows * 3);
+  block_copy(a.o_direction + vp, D, rows * 3);
+  block_copy(a.o_flip + vp, F, rows * 3);
 }
 
 struct NeeArgs {
@@ -584,14 +718,21 @@ __device__ LampSample sample_lamp(const Sheet& sh, int li, V3 p, float u0, float
 // the lane's brightness. The TPU kernel revisited its output block across
 // a grid axis of light samples; here the thread owns its lane and loops.
 //
-// What bounds it on an H100: per lane and light sample it reads 20 bytes of
+// What bounds it on an H100: per lane and light sample it reads 12 bytes of
 // draws and the shadow sweep costs ~30 flops per primitive; per lane it
 // reads ~40 bytes of state and reads and writes 4 * S bytes of brightness
 // plus 4 * S of pre-BRDF reflectance and of each lamp color program read.
 // Lanes that take no NEE (dead, missed, emissive, specular, or past two
-// diffuse events) exit after one byte in the dense kernel; on deep bounces
-// that is most lanes, so its cost follows the diffuse share of the
-// wavefront.
+// diffuse events) read one byte; on deep bounces that is most lanes, so its
+// cost follows the diffuse share of the wavefront. Those lanes are spread
+// through the warps (37 % of flagship's lanes take NEE at bounce 0, 8 % at
+// bounce 1), and a warp ran its lamp samples and shadow sweeps with the
+// others idle. So the block first compacts its NEE lanes, in lane order,
+// to its first threads (a ballot per warp, the warps' counts in shared
+// memory): thread t works on the block's t-th NEE lane, the warps past the
+// last NEE lane leave at once, and the lanes a thread reads and writes are
+// its lane's own rows, as in the plain version. A lane reads its lamp
+// sample's two uniforms as one 8-byte load.
 //
 // dense_nee_kernel replaces pyrite_tpu/kernels_dense.py
 // `_make_kernels.nee_kernel` (:909, the Pallas TPU kernel), whose output
@@ -602,16 +743,32 @@ __device__ LampSample sample_lamp(const Sheet& sh, int li, V3 p, float u0, float
 // with the walk of :125 and :337) and stops at the first leaf that leaves t
 // under the occlusion bound sqrt(max(d^2 - eps, 0)) (tracer.py:1269-1270):
 // a ray to the lamp that is blocked for sure needs no nearer blocker. That
-// traversal sweeps each leaf with the whole warp, so there no thread
-// returns early: lanes without NEE and lamp samples behind the surface call
-// it with active = false, once per light sample like the others (the loop
-// over light samples is uniform across the warp), and only help sweep.
+// traversal sweeps each leaf with the whole warp, so there the threads of
+// the last warp with an NEE lane that have none, and lamp samples behind
+// the surface, call it with active = false, once per light sample like the
+// others (the loop over light samples is uniform across the warp), and only
+// help sweep.
 template <class Geo, bool kDE>
 __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool nee = lane < a.n && a.nee[lane];
+  __shared__ int lanes[BLOCK];             // the block's NEE lanes, in lane order
+  __shared__ int warp_count[BLOCK / 32];  // NEE lanes per warp
+  const int n = a.n, s = a.s, t = threadIdx.x, lid = t & 31;
+  const int base = blockIdx.x * BLOCK;
+  const bool mine = base + t < n && a.nee[base + t];
+  const unsigned marked = __ballot_sync(FULL_WARP, mine);
+  if (lid == 0) warp_count[t >> 5] = __popc(marked);
+  __syncthreads();
+  int offset = 0, total = 0;
+  for (int i = 0; i < BLOCK / 32; ++i) {
+    offset += i < (t >> 5) ? warp_count[i] : 0;
+    total += warp_count[i];
+  }
+  if (mine) lanes[offset + __popc(marked & ((1u << lid) - 1u))] = base + t;
+  __syncthreads();
+  if (t >= ((total + 31) & ~31)) return;  // whole warps past the last NEE lane
+  const bool nee = t < total;
   if (!Geo::kWholeWarp && !nee) return;
-  const int n = a.n, s = a.s;
+  const int lane = nee ? lanes[t] : 0;
   const size_t row = (size_t)lane * s;
   const Sheet sh = a.sheet;
   const Programs pr = a.progs;
@@ -619,22 +776,31 @@ __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo) {
   const V3 flip = nee ? load3(a.flip, lane) : V3{0.f, 0.f, 0.f};
   const bool aux = nee && a.aux_alive[lane];
   const int li = nee ? a.lamp_idx[lane] : 0;
+  const bool pairs = (reinterpret_cast<uintptr_t>(a.u_nee) & 7) == 0;
 
   for (int j = 0; j < a.light_samples; ++j) {
     LampSample ls = {{0.f, 0.f, 1.f}, INFINITY, 0.0f, {0.f, 0.f, 1.f}, 0, false};
     if (nee) {
       const float* u = a.u_nee + ((size_t)j * n + lane) * 4;
-      ls = sample_lamp(sh, li, p, u[0], u[1]);
+      float u0, u1;
+      if (pairs) {
+        const float2 uv = *reinterpret_cast<const float2*>(u);
+        u0 = uv.x;
+        u1 = uv.y;
+      } else {
+        u0 = u[0];
+        u1 = u[1];
+      }
+      ls = sample_lamp(sh, li, p, u0, u1);
     }
     const bool cast = nee && fmaxf(dot(flip, ls.dir), 0.0f) > 0.0f;
     if (!Geo::kWholeWarp && !cast) continue;
-    const float lamp_dist = sqrtf(ls.sq_distance);
-    float t = geo.shadow(sh, p, ls.dir, lamp_dist,
-                         sqrtf(fmaxf(ls.sq_distance - DIST_EPSILON, 0.0f)), cast);
+    float t_hit = geo.shadow(sh, p, ls.dir, sqrtf(ls.sq_distance),
+                             sqrtf(fmaxf(ls.sq_distance - DIST_EPSILON, 0.0f)), cast);
     if (!cast) continue;
     if (kDE)
-      t = apply_de_shadow(sh, a.t_de_shadow, (size_t)a.light_samples * n, (size_t)j * n + lane, t);
-    if (t * t < ls.sq_distance - DIST_EPSILON) continue;  // blocked
+      t_hit = apply_de_shadow(sh, a.t_de_shadow, (size_t)a.light_samples * n, (size_t)j * n + lane, t_hit);
+    if (t_hit * t_hit < ls.sq_distance - DIST_EPSILON) continue;  // blocked
 
     float mat_prob = 1.0f;
     bool l_dispersed = false;
@@ -653,9 +819,12 @@ __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo) {
     }
     const float brdf = 2.0f * fabsf(dot(flip, ls.dir));
     const float l_prob = ls.weight * a.nee_prob * brdf * mat_prob;
+    // tracer.eval_color_bank: out-of-range programs are 0
+    const bool colored = color_id >= 0 && color_id < pr.n_color;
+    const float* c = pr.cvals + ((size_t)(colored ? color_id : 0) * n + lane) * s;
     for (int k = 0; k < s; ++k)
       if (k == 0 || (aux && !l_dispersed))
-        a.brightness[row + k] += color(pr, color_id, lane, n, s, k) * l_prob * a.refl_nee[row + k];
+        a.brightness[row + k] += (colored ? c[k] : 0.0f) * l_prob * a.refl_nee[row + k];
   }
 }
 
@@ -703,7 +872,7 @@ struct BounceRays {
     return march_toward(s, load3(origin, lane), load3(direction, lane), INFINITY);
   }
 
-  __device__ __forceinline__ void end(int i, const March& m) const { t_de[i] = march_t(m); }
+  __device__ __forceinline__ void end(long long i, const March& m) const { t_de[i] = march_t(m); }
 };
 
 // The shadow rays: for each (light sample, lane) with NEE, the ray toward
@@ -735,17 +904,19 @@ struct ShadowRays {
     return march_toward(s, p, ls.dir, sqrtf(ls.sq_distance));
   }
 
-  __device__ __forceinline__ void end(int i, const March& m) const { t_de[i] = march_t(m); }
+  __device__ __forceinline__ void end(long long i, const March& m) const { t_de[i] = march_t(m); }
 };
 
-// <true> where the scene has DE shapes, <false> elsewhere
-#define LAUNCH(kernel, ...)                                                          \
-  do {                                                                              \
-    const dim3 grid((n + BLOCK - 1) / BLOCK);                                       \
-    if (n_de > 0)                                                                   \
-      kernel<true><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(__VA_ARGS__);          \
-    else                                                                            \
-      kernel<false><<<grid, BLOCK, 0, (cudaStream_t)stream>>>(__VA_ARGS__);         \
+// <true> where the scene has DE shapes, <false> elsewhere, with `smem`
+// bytes of dynamic shared memory
+#define LAUNCH(kernel, smem, ...)                                                         \
+  do {                                                                                   \
+    const dim3 grid((n + BLOCK - 1) / BLOCK);                                            \
+    if (n <= 0) break;                                                                   \
+    if (n_de > 0)                                                                        \
+      kernel<true><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(__VA_ARGS__);            \
+    else                                                                                 \
+      kernel<false><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(__VA_ARGS__);           \
   } while (0)
 
 }  // namespace
@@ -793,38 +964,59 @@ extern "C" {
 
 int pyrite_dense_bounce(BOUNCE_PARAMS, void* stream) {
   BOUNCE_ARGS;
-  LAUNCH(dense_bounce_kernel, a);
+  LAUNCH(dense_bounce_kernel, bounce_smem_bytes(s, n_de > 0), a);
   return (int)cudaGetLastError();
 }
 
 int pyrite_dense_nee(NEE_PARAMS, void* stream) {
   NEE_ARGS;
-  LAUNCH(dense_nee_kernel, a);
+  LAUNCH(dense_nee_kernel, 0, a);
   return (int)cudaGetLastError();
 }
 
 int pyrite_wide_bounce(BOUNCE_PARAMS, WIDE_PARAMS, void* stream) {
   BOUNCE_ARGS;
   WIDE_GEO;
-  LAUNCH(wide_bounce_kernel, a, g);
+  LAUNCH(wide_bounce_kernel, bounce_smem_bytes(s, n_de > 0), a, g);
   return (int)cudaGetLastError();
 }
 
 int pyrite_wide_nee(NEE_PARAMS, WIDE_PARAMS, void* stream) {
   NEE_ARGS;
   WIDE_GEO;
-  LAUNCH(wide_nee_kernel, a, g);
+  LAUNCH(wide_nee_kernel, 0, a, g);
   return (int)cudaGetLastError();
+}
+
+// Resident blocks of BLOCK threads per SM of each bounce and NEE kernel at
+// S spectral columns (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
+// blocks[8]: dense bounce <false>, <true>, dense NEE <false>, <true>, wide
+// bounce <false>, <true>, wide NEE <false>, <true>. Returns the first error.
+int pyrite_bounce_occupancy(int s, int* blocks) {
+  const size_t smem[8] = {bounce_smem_bytes(s, false), bounce_smem_bytes(s, true), 0, 0,
+                          bounce_smem_bytes(s, false), bounce_smem_bytes(s, true), 0, 0};
+  const void* kernels[8] = {
+      (const void*)dense_bounce_kernel<false>, (const void*)dense_bounce_kernel<true>,
+      (const void*)dense_nee_kernel<false>,    (const void*)dense_nee_kernel<true>,
+      (const void*)wide_bounce_kernel<false>,  (const void*)wide_bounce_kernel<true>,
+      (const void*)wide_nee_kernel<false>,     (const void*)wide_nee_kernel<true>};
+  for (int i = 0; i < 8; ++i) {
+    const cudaError_t e =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[i], kernels[i], BLOCK, smem[i]);
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
 }
 
 // The march passes (march_de_kernel over BounceRays / ShadowRays): `n_de`
 // shapes, `de_steps` and `de_omega` as TraceConfig.max_de_steps and
-// tracer.DE_OMEGA, `next` the pass's work counter (one int), zeroed before
+// tracer.DE_OMEGA, `next` the pass's work counter (8 bytes), zeroed before
 // the launch. The bounce pass reads the bounce kernel's inputs; the shadow
 // pass the bounce kernel's outputs and the NEE kernel's draws.
 int pyrite_de_march_bounce(const float* sheet, const int* meta, const float* origin,
                            const float* direction, const uint8_t* alive, float* t_de, int n,
-                           int n_de, int de_steps, float de_omega, int* next, void* stream) {
+                           int n_de, int de_steps, float de_omega, unsigned long long* next,
+                           void* stream) {
   const BounceRays rays = {{sheet, meta}, origin, direction, alive, t_de};
   return launch_march(rays, n_de, n, de_steps, de_omega, next, (cudaStream_t)stream);
 }
@@ -832,7 +1024,8 @@ int pyrite_de_march_bounce(const float* sheet, const int* meta, const float* ori
 int pyrite_de_march_shadow(const float* sheet, const int* meta, const float* position,
                            const float* flip, const uint8_t* nee, const int* lamp_idx,
                            const float* u_nee, float* t_de_shadow, int n, int light_samples,
-                           int n_de, int de_steps, float de_omega, int* next, void* stream) {
+                           int n_de, int de_steps, float de_omega, unsigned long long* next,
+                           void* stream) {
   const ShadowRays rays = {{sheet, meta}, position, flip, nee, lamp_idx, u_nee, t_de_shadow, n};
   return launch_march(rays, n_de, light_samples * n, de_steps, de_omega, next,
                       (cudaStream_t)stream);

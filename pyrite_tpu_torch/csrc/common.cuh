@@ -75,6 +75,22 @@ __device__ __forceinline__ void store3(float* __restrict__ p, int lane, V3 v) {
   p[3 * lane + 2] = v.z;
 }
 
+// Copy `count` floats between global and shared memory with all the
+// block's threads, consecutive threads on consecutive words: as float4 where
+// both ends are 16-byte aligned, else word by word. Every thread of the
+// block must call it (the caller synchronises around it).
+__device__ __forceinline__ void block_copy(float* __restrict__ dst, const float* __restrict__ src,
+                                           int count) {
+  int i = threadIdx.x;
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
+    const int n4 = count >> 2;
+    for (; i < n4; i += blockDim.x)
+      reinterpret_cast<float4*>(dst)[i] = reinterpret_cast<const float4*>(src)[i];
+    i = (n4 << 2) + threadIdx.x;
+  }
+  for (; i < count; i += blockDim.x) dst[i] = src[i];
+}
+
 // The scene: sheet rows by meta field, primitive channels by fixed row.
 struct Sheet {
   const float* __restrict__ p;

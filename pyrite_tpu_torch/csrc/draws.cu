@@ -1,0 +1,138 @@
+// Keyed random draws on Hopper: philox_draws_kernel, Philox4x32-10 (Salmon et
+// al., "Parallel random numbers: as easy as 1, 2, 3", SC'11) keyed by the
+// render's seed and counted by (pixel, global sample, bounce, purpose << 16
+// | block), in the layout pyrite_tpu_torch/rng.py documents and computes as
+// the plain version, bit for bit: a uniform is (x >> 8) * 2^-24, exact in
+// f32, and the lamp index min(floor(u * lamps), lamps - 1).
+//
+// It replaces the JAX package's per-bounce jax.random draws
+// (pyrite_tpu/tracer.py draw_bounce_uniforms; threefry inside XLA, not a
+// Pallas kernel) and the port's former torch.Generator calls, four to five
+// launches a bounce: one launch writes a bounce's u_comp, u_scatter,
+// lamp_idx, u_nee and u_emis into one buffer, or a step's camera draws.
+//
+// What bounds it on an H100: the bytes it writes, (5 + 5 ls) words a lane
+// a bounce, (S + 5) a lane for the camera; ten Philox rounds cost ~40
+// integer operations per 4 words. One thread makes one lane's draws; the
+// [N, 3] and [N, S + 5] outputs go through shared memory so that the block
+// stores them as contiguous float4 runs, and u_nee [ls, N, 4] is one float4
+// per lane and light sample.
+
+#include "common.cuh"
+
+namespace {
+
+enum Purpose { P_CAMERA, P_U_COMP, P_U_SCATTER, P_LAMP, P_U_NEE, P_U_EMIS };
+constexpr int MAX_CAMERA_WORDS = 16 + 5;  // kernels_dense.MAX_SPECTRUM_SAMPLES + 5
+
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    if (r) {
+      k0 += 0x9E3779B9u;
+      k1 += 0xBB67AE85u;
+    }
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k0, lo1, hi0 ^ c.w ^ k1, lo0);
+  }
+  return c;
+}
+
+__device__ __forceinline__ float uniform(unsigned x) { return (float)(x >> 8) * (1.0f / 16777216.0f); }
+
+__device__ __forceinline__ unsigned word(uint4 x, int q) {
+  return q == 0 ? x.x : q == 1 ? x.y : q == 2 ? x.z : x.w;
+}
+
+struct DrawArgs {
+  unsigned k0, k1;
+  int n, n_pix;
+  unsigned pixel0, sample0, bounce;
+  int s_cam, light_samples, n_lamps;
+  float* __restrict__ out;
+};
+
+__global__ void __launch_bounds__(BLOCK) philox_draws_kernel(const DrawArgs a) {
+  __shared__ __align__(16) float stage[BLOCK * MAX_CAMERA_WORDS];
+  const int base = blockIdx.x * BLOCK;
+  const int lane = base + threadIdx.x;
+  const int rows = min(BLOCK, a.n - base);
+  const bool in_range = lane < a.n;
+  const unsigned pixel = in_range ? a.pixel0 + (unsigned)(lane % a.n_pix) : 0u;
+  const unsigned sample = in_range ? a.sample0 + (unsigned)(lane / a.n_pix) : 0u;
+  auto draw = [&](int purpose, int block) {
+    return philox4x32_10(make_uint4(pixel, sample, a.bounce, ((unsigned)purpose << 16) | block),
+                         a.k0, a.k1);
+  };
+  const size_t n = a.n;
+
+  if (a.s_cam > 0) {  // the camera draws [N, S + 5], bounce 0
+    const int w = a.s_cam + 5;
+    if (in_range)
+      for (int b = 0; 4 * b < w; ++b) {
+        const uint4 x = philox4x32_10(
+            make_uint4(pixel, sample, 0u, ((unsigned)P_CAMERA << 16) | b), a.k0, a.k1);
+        for (int q = 0; q < 4 && 4 * b + q < w; ++q) stage[threadIdx.x * w + 4 * b + q] = uniform(word(x, q));
+      }
+    __syncthreads();
+    block_copy(a.out + (size_t)base * w, stage, rows * w);
+    return;
+  }
+
+  // a bounce's draws, in rng._layout's order
+  const bool lamps = a.n_lamps > 0 && a.light_samples > 0;
+  const int ls = lamps ? a.light_samples : 0;
+  float* u_nee = a.out;                        // [ls, N, 4]
+  float* u_comp = a.out + 4 * (size_t)ls * n;  // [N]
+  float* u_scatter = u_comp + n;               // [N, 3]
+  int* lamp_idx = reinterpret_cast<int*>(u_scatter + 3 * n);  // [N]
+  float* u_emis = u_scatter + 4 * n;           // [ls, N]
+  if (in_range) {
+    u_comp[lane] = uniform(draw(P_U_COMP, 0).x);
+    const uint4 x = draw(P_U_SCATTER, 0);
+    stage[3 * threadIdx.x] = uniform(x.x);
+    stage[3 * threadIdx.x + 1] = uniform(x.y);
+    stage[3 * threadIdx.x + 2] = uniform(x.z);
+    if (lamps) {
+      const float u = uniform(draw(P_LAMP, 0).x);
+      lamp_idx[lane] = min((int)(u * (float)a.n_lamps), a.n_lamps - 1);
+      const bool vec = (reinterpret_cast<uintptr_t>(u_nee) & 15) == 0;
+      for (int j = 0; j < ls; ++j) {
+        const uint4 y = draw(P_U_NEE, j);
+        float* dst = u_nee + ((size_t)j * n + lane) * 4;
+        const float4 v = make_float4(uniform(y.x), uniform(y.y), uniform(y.z), uniform(y.w));
+        if (vec) {
+          *reinterpret_cast<float4*>(dst) = v;
+        } else {
+          dst[0] = v.x; dst[1] = v.y; dst[2] = v.z; dst[3] = v.w;
+        }
+      }
+      for (int b = 0; 4 * b < ls; ++b) {
+        const uint4 y = draw(P_U_EMIS, b);
+        for (int q = 0; q < 4 && 4 * b + q < ls; ++q) u_emis[(size_t)(4 * b + q) * n + lane] = uniform(word(y, q));
+      }
+    }
+  }
+  __syncthreads();
+  block_copy(u_scatter + 3 * (size_t)base, stage, 3 * rows);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Plain C launcher for ctypes (rng._launch): `out` is a device buffer of
+// [n, s_cam + 5] floats for the camera draws (s_cam > 0) or of a bounce's
+// draws in rng._layout (s_cam = 0); `stream` is the caller's cudaStream_t.
+// Returns cudaGetLastError() after the launch.
+int pyrite_philox_draws(unsigned k0, unsigned k1, int n, int n_pix, unsigned pixel0,
+                        unsigned sample0, unsigned bounce, int s_cam, int light_samples,
+                        int n_lamps, float* out, void* stream) {
+  if (n <= 0) return 0;
+  const DrawArgs a = {k0, k1, n, n_pix, pixel0, sample0, bounce, s_cam, light_samples, n_lamps, out};
+  philox_draws_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

@@ -30,7 +30,7 @@ struct QueryRays {
     return march_start(load3(local_origin, i), load3(direction, i), t0[i], tmax[i], hit[i] != 0);
   }
 
-  __device__ __forceinline__ void end(int i, const March& m) const {
+  __device__ __forceinline__ void end(long long i, const March& m) const {
     total[i] = m.total;
     dist[i] = m.dist;
   }
@@ -43,10 +43,11 @@ extern "C" {
 // Plain C launcher for ctypes, as in csrc/bounce.cu. `fields` is a HOST
 // array of the shape's DE_NFIELDS parameters (kernels_dense.de_fields),
 // passed to the kernel by value; the other pointers are device addresses;
-// `next` is the pass's work counter (one int), zeroed before the launch.
+// `next` is the pass's work counter (8 bytes), zeroed before the launch.
 int pyrite_march_de(const float* fields, const float* local_origin, const float* direction,
                     const float* t0, const float* tmax, const uint8_t* hit, int max_steps,
-                    float omega, float* total, float* dist, int n, int* next, void* stream) {
+                    float omega, float* total, float* dist, int n, unsigned long long* next,
+                    void* stream) {
   const QueryRays rays = {de_shape(fields), local_origin, direction, t0, tmax, hit, total, dist};
   return launch_march(rays, 1, n, max_steps, omega, next, (cudaStream_t)stream);
 }

@@ -4,8 +4,8 @@
 // ray sources instantiate it: the march on its own (march_de.cu, the
 // 9-input query kernels.march_de), the bounce rays of a wavefront and the
 // shadow rays of its NEE lanes (bounce.cu). The bounce and NEE kernels read
-// the two passes' t per DE shape; the normal at a DE hit (de_surface) stays
-// in the bounce kernel.
+// the two passes' t per DE shape; the normal at a DE hit (de_normals_shared)
+// stays in the bounce kernel.
 //
 // It replaces pyrite_tpu/kernels.py `_make_march_kernel` (:907, with the
 // estimators `_de_step_mandelbulb` :758 and `_de_step_julia` :797), the TPU
@@ -34,8 +34,10 @@
 // (Aila and Laine's persistent while-while with dynamic fetch, "Understanding
 // the efficiency of ray traversal on GPUs", HPG 2009): about one resident
 // grid of warps takes work items, (DE shape, ray) in shape-major order, from
-// a global counter, one atomicAdd per warp and fetch round for the lanes
-// that need a ray (a ballot and a popcount). An item whose ray misses the
+// a global 64-bit counter, one atomicAdd per warp and fetch round for the
+// lanes that need a ray (a ballot and a popcount): n_shapes x rays items may
+// pass INT_MAX (a 1920x1080 film's 16 light samples x 128 DE shapes), rays
+// per shape may not (the wrappers raise). An item whose ray misses the
 // bounds, or has no ray, finishes at its fetch. What no scheduling removes
 // is the longest single ray, its iterations in sequence in one thread.
 #pragma once
@@ -204,7 +206,7 @@ __device__ __forceinline__ float orbit_distance(const DeShape& s, const Orbit& o
 }
 
 // The distance estimate at the local point p, all iterations in this thread
-// (tracer.de_distance).
+// (tracer.de_distance): the bounce kernel's DE-normal probes.
 __device__ float de_distance(const DeShape& s, V3 p) {
   Orbit o = orbit_start(s, p);
   while (!orbit_step(s, p, o)) {
@@ -303,8 +305,8 @@ __device__ __forceinline__ float march_t(const March& m) {
 // The persistent march. `Rays` is the ray source: shape(j) gives DE shape j,
 // begin(shape, r) the march of ray r toward it, end(item, march) stores the
 // finished item's result, kBlocksPerSm caps the resident blocks per SM (0:
-// no cap; see launch_march). Item i is (shape i / per_shape, ray i % per_shape),
-// and each source stores item i's result at index i.
+// no cap; see launch_march). Item i (64-bit) is (shape i / per_shape, ray
+// i % per_shape), and each source stores item i's result at index i.
 //
 // Every thread of the grid runs the loop to the end, so the warp operations
 // (the ballot, the shuffle, the vote) are reached by all 32 threads: each
@@ -317,32 +319,33 @@ __device__ __forceinline__ float march_t(const March& m) {
 template <class Rays>
 __global__ void __launch_bounds__(BLOCK)
     march_de_kernel(const Rays rays, int n_shapes, int per_shape, int max_steps, float omega,
-                    int* __restrict__ next) {
+                    unsigned long long* __restrict__ next) {
   extern __shared__ DeShape shapes[];
   for (int j = threadIdx.x; j < n_shapes; j += blockDim.x) shapes[j] = rays.shape(j);
   __syncthreads();
-  const int items = n_shapes * per_shape;
+  const long long items = (long long)n_shapes * per_shape;
   const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
   March m = no_march();
   Orbit o = {};
   V3 p = {0.f, 0.f, 0.f};
-  int item = 0, j = 0;
+  long long item = 0;
+  int j = 0;
   bool active = false, drained = false;
   for (;;) {
     for (;;) {
       const bool idle = !active && !drained;
       const unsigned want = __ballot_sync(FULL_WARP, idle);
       if (want == 0) break;
-      int base = 0;
-      if ((threadIdx.x & 31) == 0) base = atomicAdd(next, __popc(want));
+      long long base = 0;
+      if ((threadIdx.x & 31) == 0) base = (long long)atomicAdd(next, (unsigned long long)__popc(want));
       base = __shfl_sync(FULL_WARP, base, 0);
       if (idle) {
         item = base + __popc(want & below);
         if (item >= items) {
           drained = true;
         } else {
-          j = item / per_shape;
-          m = rays.begin(shapes[j], item - j * per_shape);
+          j = (int)(item / per_shape);
+          m = rays.begin(shapes[j], (int)(item - (long long)j * per_shape));
           active = marching(m, max_steps);
           if (active) {
             p = march_point(m);
@@ -374,8 +377,8 @@ __global__ void __launch_bounds__(BLOCK)
 // resident grid: the SM count x the blocks of BLOCK threads an SM holds at
 // this kernel's registers and shared memory, at most Rays::kBlocksPerSm
 // where that is set (no more blocks than items fill). `next` is the
-// caller's int in device memory, zeroed here on the stream before the
-// launch, so a launch repeated with the same arguments marches every item
+// caller's 8-byte counter in device memory, zeroed here on the stream before
+// the launch, so a launch repeated with the same arguments marches every item
 // again. Returns the first CUDA error (0 on success).
 //
 // Why the cap: the pass ends with its longest rays, each a chain of
@@ -390,14 +393,14 @@ __global__ void __launch_bounds__(BLOCK)
 // pass times, and the longest ray alone.
 template <class Rays>
 int launch_march(const Rays& rays, int n_shapes, int per_shape, int max_steps, float omega,
-                 int* next, cudaStream_t stream) {
+                 unsigned long long* next, cudaStream_t stream) {
   const size_t smem = sizeof(DeShape) * (size_t)n_shapes;
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, march_de_kernel<Rays>, BLOCK, smem);
-  if (e == cudaSuccess) e = cudaMemsetAsync(next, 0, sizeof(int), stream);
+  if (e == cudaSuccess) e = cudaMemsetAsync(next, 0, sizeof(*next), stream);
   if (e != cudaSuccess) return (int)e;
   if (Rays::kBlocksPerSm > 0 && per_sm > Rays::kBlocksPerSm) per_sm = Rays::kBlocksPerSm;
   const long long fill = ((long long)n_shapes * per_shape + BLOCK - 1) / BLOCK;
@@ -406,23 +409,6 @@ int launch_march(const Rays& rays, int n_shapes, int per_shape, int max_steps, f
   march_de_kernel<Rays><<<grid, BLOCK, smem, stream>>>(rays, n_shapes, per_shape, max_steps, omega,
                                                         next);
   return (int)cudaGetLastError();
-}
-
-// Normal and material of a hit on DE shape j (tracer.de_normal): central
-// differences, eps = DIST_EPSILON, DIST_EPSILON short of the hit in local
-// space. The probes add (+-eps, +-0, +-0) as the plain version's offsets do.
-__device__ void de_surface(const Sheet& sh, int j, V3 o, V3 d, float t, V3& normal, int& mat) {
-  const DeShape s = load_de(sh, j);
-  const V3 l = (o - s.center) + d * (t - DIST_EPSILON);
-  const float e = DIST_EPSILON;
-  const float dxp = de_distance(s, {l.x + e, l.y + 0.0f, l.z + 0.0f});
-  const float dyp = de_distance(s, {l.x + 0.0f, l.y + e, l.z + 0.0f});
-  const float dzp = de_distance(s, {l.x + 0.0f, l.y + 0.0f, l.z + e});
-  const float dxm = de_distance(s, {l.x + -e, l.y + -0.0f, l.z + -0.0f});
-  const float dym = de_distance(s, {l.x + -0.0f, l.y + -e, l.z + -0.0f});
-  const float dzm = de_distance(s, {l.x + -0.0f, l.y + -0.0f, l.z + -e});
-  normal = normalize(V3{dxp - dxm, dyp - dym, dzp - dzm});
-  mat = s.mat;
 }
 
 }  // namespace

@@ -29,7 +29,7 @@ import ctypes
 import torch
 
 from . import tracer
-from .kernels_dense import DE_FIELDS, _check, _flag, check_leaves, estimator_fields
+from .kernels_dense import DE_FIELDS, _check, _flag, check_leaves, check_rays, estimator_fields
 
 # Each wrapper adds one here where it launches its kernel.
 launches = {"wide_closest_kernel": 0, "wide_shadow_kernel": 0, "march_de_kernel": 0}
@@ -121,6 +121,7 @@ def march_de(est, local_origin, direction, t0, tmax, hit, max_steps, omega=trace
     bounds do not march). Returns (total, dist) [N], as
     tracer.march_de_plain."""
     dev = local_origin.device
+    check_rays(local_origin.shape[0], "march_de")
     if dev.type == "cpu":
         return tracer.march_de_plain(est, local_origin, direction, t0, tmax, hit, max_steps, omega)
     if dev.type != "cuda":
@@ -134,8 +135,8 @@ def march_de(est, local_origin, direction, t0, tmax, hit, max_steps, omega=trace
     fields = (ctypes.c_float * len(DE_FIELDS))(*values)
     total = torch.empty(n, dtype=f32, device=dev)
     dist = torch.empty(n, dtype=f32, device=dev)
-    # the pass's work counter; the launcher zeroes it on the stream
-    next_item = torch.empty(1, dtype=torch.int32, device=dev)
+    # the pass's 64-bit work counter; the launcher zeroes it on the stream
+    next_item = torch.empty(1, dtype=torch.int64, device=dev)
     rc = _build.load().pyrite_march_de(
         ctypes.addressof(fields),
         _check("local_origin", local_origin, f32, (n, 3), dev),

@@ -39,6 +39,7 @@ import torch
 from . import exprs
 from . import geometry as geom
 from . import tracer
+from .rng import INT_MAX
 from .scene import LAMP_POINT, LAMP_SPHERE, LAMP_TRIANGLE, PRIM_SPHERE, PRIM_TRIANGLE
 
 # The kernels loop over the S spectral columns at run time and keep no
@@ -516,12 +517,22 @@ def _pass_device(t):
     return dev
 
 
+def check_rays(rays, what):
+    """A march pass marches at most INT_MAX rays per DE shape (its items,
+    shapes x rays, and its work counter are 64-bit; a ray index is an int)."""
+    if rays > INT_MAX:
+        raise ValueError(f"{what}: {rays} rays per DE shape, more than the march passes take "
+                         f"(INT_MAX = {INT_MAX})")
+
+
 def _pass_output(shape, dev):
-    """A march pass's t, and the address of its work counter: one int32
-    after t in the same buffer, so it lives as long as t does (the launcher
-    zeroes it on the stream before each launch)."""
-    buf = torch.empty(math.prod(shape) + 1, dtype=torch.float32, device=dev)
-    return buf[:-1].view(shape), buf[-1:].view(torch.int32).data_ptr()
+    """A march pass's t, and the address of its work counter: 8 bytes after
+    t in the same buffer, 8-byte aligned, so it lives as long as t does (the
+    launcher zeroes it on the stream before each launch)."""
+    size = math.prod(shape)
+    at = size + (size & 1)
+    buf = torch.empty(at + 2, dtype=torch.float32, device=dev)
+    return buf[:size].view(shape), buf[at:].view(torch.int64).data_ptr()
 
 
 def march_pass_args(scene, cfg, state):
@@ -545,6 +556,7 @@ def march_pass(scene, cfg, state):
     is dead (tracer.de_hits on the CPU; march_de_kernel over the bounce rays
     on a GPU). The bounce kernel takes it after the primitives."""
     dev = _pass_device(state["origin"])
+    check_rays(state["origin"].shape[0], "march_pass")
     if dev.type == "cpu":
         return tracer.de_hits(scene, state["origin"], state["direction"], cfg.max_de_steps,
                               live=state["alive"])
@@ -597,7 +609,9 @@ def shadow_pass(scene, cfg, out, ctx, draws):
     (shadow_pass_plain on the CPU; march_de_kernel over the shadow rays on a
     GPU, which samples the lamps again from the same draws). The NEE kernel
     takes it after the primitives."""
-    if _pass_device(out["origin"]).type == "cpu":
+    dev = _pass_device(out["origin"])
+    check_rays(cfg.light_samples * out["origin"].shape[0], "shadow_pass (light samples x lanes)")
+    if dev.type == "cpu":
         return shadow_pass_plain(scene, cfg, out, ctx, draws)
     args, t_de = shadow_pass_args(scene, cfg, out, ctx, draws)
     _launch("de_shadow_pass", args)

@@ -5,17 +5,20 @@ Every step traces one stratified sample for every pixel of the film,
 several samples per launch when the film is small, and accumulates into the
 film. Sample distribution matches the
 reference (uniform jitter per pixel, stratified wavelengths with a
-uniformly chosen hero). Random numbers come from one torch.Generator per
-render, seeded from the render seed, or from FixedDraws in tests.
+uniformly chosen hero). Random numbers are keyed by the render seed and
+(pixel, sample, bounce, purpose) (rng.KeyedDraws), so a seed gives the same
+image whatever the samples per launch and the device; tests may give
+FixedDraws instead.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import torch
 
 from ..film import Film, expose_lanes
+from ..rng import KeyedDraws, camera_uniforms
 from ..scene import CameraModel, Scene
 from ..tracer import TraceConfig, trace_paths
 
@@ -31,25 +34,30 @@ class FixedDraws:
     bounces: list
 
 
-def chunk_rays(film: Film, camera: CameraModel, cfg: TraceConfig, rng, row0=0, rows=None):
-    """One stratified sample per pixel of a row window: positions, primary
-    rays, and hero-ordered wavelengths. ``rng`` is a torch.Generator, or the
-    [n, S + 5] uniforms themselves (jitter 2, lens 2, wavelengths S, hero 1)."""
+def chunk_rays(film: Film, camera: CameraModel, cfg: TraceConfig, rng, row0=0, rows=None,
+               device="cuda"):
+    """One stratified sample per pixel of a row window and sample:
+    positions, primary rays, and hero-ordered wavelengths, in sample order.
+    ``rng`` is an rng.KeyedDraws (its samples' camera draws, made on
+    ``device``), or the [m, S + 5] uniforms themselves (jitter 2, lens 2,
+    wavelengths S, hero 1) of m / (rows x width) samples."""
     h, w = film.height, film.width
     rows = h if rows is None else rows
-    n = rows * w
+    n_pix = rows * w
     s = cfg.spectrum_samples
-    if isinstance(rng, torch.Generator):
-        u = torch.rand((n, s + 5), generator=rng, device=rng.device)
+    if isinstance(rng, KeyedDraws):
+        keyed = replace(rng, pixel0=row0 * w)
+        u = camera_uniforms(keyed, keyed.samples * n_pix, s, device)
     else:
         u = rng
     dev = u.device
+    repeat = u.shape[0] // n_pix
 
     py, px = torch.meshgrid(
         row0 + torch.arange(rows, device=dev), torch.arange(w, device=dev), indexing="ij"
     )
-    pxf = px.reshape(-1) + u[:, 0]
-    pyf = py.reshape(-1) + u[:, 1]
+    pxf = px.reshape(-1).repeat(repeat) + u[:, 0]
+    pyf = py.reshape(-1).repeat(repeat) + u[:, 1]
     positions = film.pixel_to_view(pxf, pyf)
     origin, direction = camera.ray_towards(positions, u[:, 2], u[:, 3])
 
@@ -76,21 +84,20 @@ def make_render_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCo
     """The accumulation step covering ``samples`` stratified samples per
     pixel per launch: step(acc, wt, rng, row0=0) traces them as one
     wavefront and exposes them into the film (in place) in sample order.
-    ``rng`` is a torch.Generator or FixedDraws."""
+    ``rng`` is an rng.KeyedDraws of ``samples`` samples, or FixedDraws."""
     rows = film.height if rows is None else rows
 
     def step(acc, wt, rng, row0=0):
-        fixed = isinstance(rng, FixedDraws)
-        parts = [
-            chunk_rays(film, camera, cfg, rng.u[s] if fixed else rng, row0=row0, rows=rows)
-            for s in range(samples)
-        ]
-        origin = torch.cat([p[1] for p in parts])
-        direction = torch.cat([p[2] for p in parts])
-        wavelengths = torch.cat([p[3] for p in parts])
-        brightness, aux_alive = trace_paths(
-            scene, cfg, rng.bounces if fixed else rng, origin, direction, wavelengths
+        if isinstance(rng, FixedDraws):
+            u, bounces = torch.cat(rng.u[:samples]), rng.bounces
+        else:
+            if rng.samples != samples:
+                raise ValueError(f"draws for {rng.samples} samples in a step of {samples}")
+            u = bounces = replace(rng, pixel0=row0 * film.width)
+        _, origin, direction, wavelengths = chunk_rays(
+            film, camera, cfg, u, row0=row0, rows=rows, device=scene.device
         )
+        brightness, aux_alive = trace_paths(scene, cfg, bounces, origin, direction, wavelengths)
         n, s_count = brightness.shape
         cols = torch.arange(s_count, device=brightness.device)[None, :]
         mask = (cols == 0) | aux_alive[:, None]
@@ -142,8 +149,6 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
     total = settings.pixel_samples if max_samples is None else min(
         settings.pixel_samples, max_samples
     )
-    rng = torch.Generator(device=scene.device)
-    rng.manual_seed(seed)
 
     # Every ported scene, dense or mesh, takes the whole film in one launch,
     # so there are no row windows (the JAX package's pick_rows /
@@ -152,7 +157,8 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
     i = 0
     while i < total:
         take = min(batch, total - i)
-        acc, wt = make_render_step(scene, film, camera, cfg, samples=take)(acc, wt, rng)
+        draws = KeyedDraws(seed, sample0=i, samples=take)
+        acc, wt = make_render_step(scene, film, camera, cfg, samples=take)(acc, wt, draws)
         i += take
         if on_progress is not None:
             on_progress(RenderProgress(sample=i, total=total, acc=acc, wt=wt, film=film))

@@ -1,0 +1,224 @@
+"""Keyed random draws: Philox4x32-10 (Salmon et al., "Parallel random
+numbers: as easy as 1, 2, 3", SC'11), counter-based, so a render's draws
+depend on its seed and on (pixel, sample, bounce, purpose) alone, not on how
+samples are batched into wavefronts nor on the device.
+
+Layout of one draw. The key is the render's seed as two 32-bit words (low,
+high). The counter is four 32-bit words, (pixel index, global sample index,
+bounce, purpose << 16 | block): the camera draws take bounce 0 and are told
+apart from the first bounce's by their purpose; ``block`` is the index of a
+4-word output group within the purpose, and word k of a purpose's draws per
+lane is word k % 4 of block k // 4. Per lane:
+
+  purpose    draws                  words
+  CAMERA     [S + 5]                jitter 2, lens 2, wavelengths S, hero 1
+  U_COMP     u_comp                 1
+  U_SCATTER  u_scatter [3]          3
+  LAMP       lamp_idx               1, as min(floor(u * lamps), lamps - 1)
+  U_NEE      u_nee [ls, 4]          light sample j is block j
+  U_EMIS     u_emis [ls]            light sample j is word j
+
+A uniform is (x >> 8) * 2^-24, exact in f32 on every device. Lane l of a
+wavefront of ``samples`` samples starting at sample ``sample0`` draws for
+pixel ``pixel0 + l % n_pix`` and sample ``sample0 + l // n_pix``.
+
+``camera_uniforms`` and ``bounce_draws`` compute the plain version for
+tensors on the CPU and launch ``philox_draws_kernel`` (csrc/draws.cu) on a
+CUDA device, one launch per call; ``philox_plain`` is the plain version on
+any device. It replaces the per-bounce jax.random draws of the JAX package
+(pyrite_tpu/tracer.py draw_bounce_uniforms), which keys its draws per
+(sample, bounce, purpose) with threefry; the bits differ, the layout of the
+draws dict does not.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+CAMERA, U_COMP, U_SCATTER, LAMP, U_NEE, U_EMIS = range(6)
+
+_M0, _M1 = 0xD2511F53, 0xCD9E8D57  # round multipliers
+_W0, _W1 = 0x9E3779B9, 0xBB67AE85  # key schedule (Weyl) increments
+_MASK = 0xFFFFFFFF
+_ROUNDS = 10
+INT_MAX = 2**31 - 1
+
+# Each wrapper adds one here where it launches its kernel.
+launches = {"philox_draws_kernel": 0}
+
+
+@dataclass(frozen=True)
+class KeyedDraws:
+    """The draws of ``samples`` samples from sample ``sample0`` of a render
+    keyed by ``seed``, over pixels from ``pixel0`` (a row window's first
+    pixel)."""
+
+    seed: int
+    sample0: int = 0
+    samples: int = 1
+    pixel0: int = 0
+
+    def key(self):
+        return self.seed & _MASK, (self.seed >> 32) & _MASK
+
+    def n_pix(self, n):
+        """Pixels per sample of an ``n``-lane wavefront."""
+        if n % self.samples:
+            raise ValueError(f"{n} lanes do not split into {self.samples} samples")
+        return n // self.samples
+
+
+def _mulhilo(m, x):
+    """(hi, lo) 32-bit words of m * x for a 32-bit constant m and int64
+    tensor x of 32-bit words, every intermediate below 2^63: m is split into
+    16-bit halves and the high half's product into 16-bit halves again."""
+    a = x * (m & 0xFFFF)  # < 2^48
+    b = x * (m >> 16)  # < 2^48
+    t = a + ((b & 0xFFFF) << 16)  # < 2^49
+    return (b >> 16) + (t >> 32), t & _MASK
+
+
+def philox_plain(key, counters):
+    """Philox4x32-10 of int64 tensors ``counters`` [..., 4] (32-bit words)
+    under ``key`` (two ints): the four output words, int64 [..., 4]."""
+    k0, k1 = key
+    c0, c1, c2, c3 = counters.unbind(-1)
+    for r in range(_ROUNDS):
+        if r:
+            k0, k1 = (k0 + _W0) & _MASK, (k1 + _W1) & _MASK
+        hi0, lo0 = _mulhilo(_M0, c0)
+        hi1, lo1 = _mulhilo(_M1, c2)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+    return torch.stack([c0, c1, c2, c3], dim=-1)
+
+
+def to_uniform(words):
+    """(x >> 8) * 2^-24 in f32: 24 random bits, exact."""
+    return (words >> 8).to(torch.float32) * (1.0 / 16777216.0)
+
+
+def _lanes(draws: KeyedDraws, n, device):
+    """(pixel, sample) int64 words of each of ``n`` lanes."""
+    n_pix = draws.n_pix(n)
+    lane = torch.arange(n, dtype=torch.int64, device=device)
+    return (draws.pixel0 + lane % n_pix) & _MASK, (draws.sample0 + lane // n_pix) & _MASK
+
+
+def purpose_uniforms(draws: KeyedDraws, n, bounce, purpose, width, device):
+    """The plain version of one purpose's draws: [n, width] f32 uniforms of
+    words 0 .. width - 1 for each lane at ``bounce``."""
+    pixel, sample = _lanes(draws, n, device)
+    blocks = -(-width // 4)
+    ctr = torch.stack([
+        pixel[:, None].expand(n, blocks),
+        sample[:, None].expand(n, blocks),
+        torch.full((n, blocks), bounce & _MASK, dtype=torch.int64, device=device),
+        (purpose << 16) + torch.arange(blocks, dtype=torch.int64, device=device)[None, :].expand(n, blocks),
+    ], dim=-1)
+    words = philox_plain(draws.key(), ctr).reshape(n, blocks * 4)[:, :width]
+    return to_uniform(words)
+
+
+def lamp_index(u, num_lamps):
+    """min(floor(u * lamps), lamps - 1) as int32."""
+    return torch.clamp((u * float(num_lamps)).to(torch.int32), max=num_lamps - 1)
+
+
+def camera_plain(draws: KeyedDraws, n, s, device):
+    return purpose_uniforms(draws, n, 0, CAMERA, s + 5, device)
+
+
+def bounce_plain(draws: KeyedDraws, n, bounce, light_samples, num_lamps, device):
+    """The plain version of bounce_draws."""
+    u = lambda purpose, width: purpose_uniforms(draws, n, bounce, purpose, width, device)
+    out = {"u_comp": u(U_COMP, 1)[:, 0].contiguous(), "u_scatter": u(U_SCATTER, 3)}
+    if num_lamps > 0 and light_samples > 0:
+        out["lamp_idx"] = lamp_index(u(LAMP, 1)[:, 0], num_lamps).contiguous()
+        out["u_nee"] = u(U_NEE, 4 * light_samples).view(n, light_samples, 4).transpose(0, 1).contiguous()
+        out["u_emis"] = u(U_EMIS, light_samples).t().contiguous()
+    return out
+
+
+def _layout(n, light_samples, num_lamps):
+    """Offsets of a bounce's draws in the kernel's one f32 buffer: with
+    lamps u_nee [ls, n, 4] first (16-byte aligned for the kernel's vector
+    stores), then u_comp [n], u_scatter [n, 3] and with lamps lamp_idx [n]
+    (int32 bits) and u_emis [ls, n]. Returns (total floats, {name: (offset,
+    shape)})."""
+    lamps = num_lamps > 0 and light_samples > 0
+    parts = {"u_nee": (light_samples, n, 4)} if lamps else {}
+    parts.update(u_comp=(n,), u_scatter=(n, 3))
+    if lamps:
+        parts.update(lamp_idx=(n,), u_emis=(light_samples, n))
+    out, off = {}, 0
+    for name, shape in parts.items():
+        out[name] = (off, shape)
+        off += math.prod(shape)
+    return off, out
+
+
+def _check_lanes(n):
+    if n > INT_MAX:
+        raise ValueError(f"{n} lanes: philox_draws_kernel takes at most INT_MAX = {INT_MAX}")
+
+
+def _launch(draws: KeyedDraws, n, out, bounce, s_cam, light_samples, num_lamps):
+    """One launch of philox_draws_kernel writing into ``out``: the camera
+    draws [n, s_cam + 5] (s_cam > 0) or a bounce's draws in _layout."""
+    from . import _build
+
+    k0, k1 = draws.key()
+    dev = out.device
+    rc = _build.load().pyrite_philox_draws(
+        k0, k1, n, draws.n_pix(n), draws.pixel0 & _MASK, draws.sample0 & _MASK, bounce & _MASK,
+        s_cam, light_samples, num_lamps, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"philox_draws_kernel launch failed: cudaError {rc}")
+    launches["philox_draws_kernel"] += 1
+
+
+def _device(device):
+    dev = torch.device(device)
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the keyed draws run on CPU or CUDA tensors, not {dev}")
+    return dev
+
+
+def camera_uniforms(draws: KeyedDraws, n, s, device):
+    """The camera draws of ``n`` lanes, [n, s + 5] f32 (renderers.simple
+    chunk_rays' layout: jitter 2, lens 2, wavelengths s, hero 1)."""
+    dev = _device(device)
+    if dev.type == "cpu":
+        return camera_plain(draws, n, s, dev)
+    from .kernels_dense import MAX_SPECTRUM_SAMPLES  # csrc/draws.cu stages S + 5 words a lane
+
+    _check_lanes(n)
+    if not 1 <= s <= MAX_SPECTRUM_SAMPLES:
+        raise ValueError(f"{s} spectrum samples; philox_draws_kernel takes 1 to {MAX_SPECTRUM_SAMPLES}")
+    u = torch.empty((n, s + 5), dtype=torch.float32, device=dev)
+    _launch(draws, n, u, 0, s, 0, 0)
+    return u
+
+
+def bounce_draws(draws: KeyedDraws, n, bounce, light_samples, num_lamps, device):
+    """All of one bounce's draws for ``n`` lanes, in the layout of
+    tracer.draw_bounce_uniforms: u_comp [n], u_scatter [n, 3] and, with
+    lamps and light samples, lamp_idx [n] int32, u_nee [ls, n, 4], u_emis
+    [ls, n]. On a CUDA device one launch writes them all into one buffer, of
+    which the tensors are views."""
+    dev = _device(device)
+    if dev.type == "cpu":
+        return bounce_plain(draws, n, bounce, light_samples, num_lamps, dev)
+    _check_lanes(n)
+    total, layout = _layout(n, light_samples, num_lamps)
+    buf = torch.empty(total, dtype=torch.float32, device=dev)
+    _launch(draws, n, buf, bounce, 0, light_samples, num_lamps)
+    out = {}
+    for name, (off, shape) in layout.items():
+        view = buf[off : off + math.prod(shape)].view(shape)
+        out[name] = view.view(torch.int32) if name == "lamp_idx" else view
+    return out

@@ -269,12 +269,25 @@ def _transform_vectors(m: np.ndarray, vecs: np.ndarray) -> np.ndarray:
     return vecs @ m[:3, :3].T
 
 
-def build_scene(project_data, device="cpu") -> Scene:
-    """Build the scene's tables on ``device``. Raises NotImplementedError
-    for scenes outside the ported dense path."""
+def require_device(device, what):
+    """``device`` as a torch.device; a CUDA device without one raises, and
+    says to pass device="cpu": nothing moves to the CPU on its own."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what}: device {dev}, but torch finds no CUDA device; pass device=\"cpu\" "
+            "to work on the CPU"
+        )
+    return dev
+
+
+def build_scene(project_data, device="cuda") -> Scene:
+    """Build the scene's tables on ``device``, the card unless the caller
+    asks for the CPU (device="cpu"); a CUDA device without one raises.
+    Raises NotImplementedError for scenes outside the ported path."""
     project = project_data.project
     resources = exprs.Resources()
-    scene = Scene(device)
+    scene = Scene(require_device(device, "build_scene"))
     scene.resources = resources
 
     # --- program banks with dedup -------------------------------------------

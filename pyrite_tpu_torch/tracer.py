@@ -21,7 +21,7 @@ the CPU and launches the kernels for tensors on a GPU. ``intersect_scene`` /
 kernels of csrc/wide_bvh.cu (kernels.closest_wide / shadow_wide). Its random
 numbers come in one ``draws`` dict shaped like the JAX package's
 draw_bounce_uniforms, so both packages (and both versions) can be fed
-identical draws.
+identical draws; a render keys them (rng.KeyedDraws).
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ import torch
 
 from . import geometry as geom
 from .exprs import ProgramInputs
+from .rng import KeyedDraws, bounce_draws
 from .scene import (
     BSDF_DIFFUSE,
     BSDF_EMISSIVE,
@@ -967,22 +968,13 @@ def choose_emissive(scene: Scene, mat_id, u):
     return a["emis_comp"][eidx].long(), a["emis_selection"][eidx]
 
 
-def draw_bounce_uniforms(scene: Scene, cfg: TraceConfig, n, generator, device):
+def draw_bounce_uniforms(scene: Scene, cfg: TraceConfig, n, draws, bounce, device):
     """All of one bounce's random draws, in the layout of the JAX package's
     draw_bounce_uniforms (tracer.py:1069-1091): u_comp [N], u_scatter [N, 3],
-    lamp_idx [N] int32, u_nee [ls, N, 4], u_emis [ls, N]."""
-    def rand(*shape):
-        return torch.rand(shape, generator=generator, device=device)
-
-    out = {"u_comp": rand(n), "u_scatter": rand(n, 3)}
-    ls = cfg.light_samples
-    if scene.num_lamps > 0 and ls > 0:
-        out["lamp_idx"] = torch.randint(
-            0, scene.num_lamps, (n,), generator=generator, device=device, dtype=torch.int32
-        )
-        out["u_nee"] = rand(ls, n, 4)
-        out["u_emis"] = rand(ls, n)
-    return out
+    lamp_idx [N] int32, u_nee [ls, N, 4], u_emis [ls, N]. ``draws`` is an
+    rng.KeyedDraws: the draws are keyed per (pixel, sample, bounce, purpose),
+    one philox_draws_kernel launch on a CUDA device (rng.bounce_draws)."""
+    return bounce_draws(draws, n, bounce, cfg.light_samples, scene.num_lamps, device)
 
 
 def trace_direct(
@@ -1081,9 +1073,10 @@ def initial_state(origin, direction, s_count):
 def trace_paths(scene: Scene, cfg: TraceConfig, rng, origin, direction, wavelengths):
     """Trace a wavefront to completion and return per-sample radiance.
 
-    ``wavelengths``: [N, S] with the hero at column 0. ``rng`` is a
-    torch.Generator on the rays' device, drawn from once per bounce, or a
-    list of per-bounce ``draws`` dicts. Every bounce goes through
+    ``wavelengths``: [N, S] with the hero at column 0. ``rng`` is an
+    rng.KeyedDraws of the wavefront's samples (bounce i draws with bounce
+    i's key, so the early end skips no draw another bounce reads), or a list
+    of per-bounce ``draws`` dicts. Every bounce goes through
     kernels_dense.bounce_dense. The loop ends early once no lane is alive.
     Returns (brightness [N, S], aux_alive [N])."""
     from . import kernels_dense
@@ -1094,8 +1087,8 @@ def trace_paths(scene: Scene, cfg: TraceConfig, rng, origin, direction, waveleng
     for i in range(cfg.bounces):
         if not bool(state["alive"].any()):
             break
-        if isinstance(rng, torch.Generator):
-            draws = draw_bounce_uniforms(scene, cfg, n, rng, origin.device)
+        if isinstance(rng, KeyedDraws):
+            draws = draw_bounce_uniforms(scene, cfg, n, rng, i, origin.device)
         else:
             draws = rng[i]
         state = kernels_dense.bounce_dense(scene, cfg, wavelengths, state, draws, bank_vals)

@@ -138,7 +138,7 @@ def meshes(tmp_path_factory):
 @pytest.mark.parametrize("name", ["terrain_24", "tri_lamp_24"])
 def test_scene_clusters_match_jax(meshes, name):
     sj = jax_scene.build_scene(jax_load(meshes[name]))
-    st = torch_scene.build_scene(torch_load(meshes[name]))
+    st = torch_scene.build_scene(torch_load(meshes[name]), "cpu")
     assert sj.use_clusters and st.use_clusters
     assert (st.cluster_leaf, st.cluster_slots) == (sj.cluster_leaf, sj.cluster_slots)
     for key in ("wide_rows", "clu_geo", "prim_kind", "prim_ref"):
@@ -158,15 +158,13 @@ def test_leaf_visits_per_lane(meshes, query):
     add up to the leaf rows counted, each ray traced alone sweeps as many
     leaves as its lane recorded, and the divergence factor lies in [1, 32]."""
     scene, film, camera, cfg = chip_smoke.load_scene(meshes["terrain_24"], "cpu")
-    rng = torch.Generator()
-    rng.manual_seed(0)
-    origin, direction, _ = chip_smoke._wavefront(film, camera, cfg, rng)
+    origin, direction, _, keyed = chip_smoke._wavefront(film, camera, cfg, 0, device="cpu")
     if query == "closest":
         rays = (origin, direction)
         trace = lambda *r: tracer.intersect_scene(scene, *r)
     else:
         hit = tracer.intersect_scene(scene, origin, direction)
-        rays = chip_smoke._shadow_rays(scene, cfg, origin, direction, hit, rng)[:4]
+        rays = chip_smoke._shadow_rays(scene, cfg, origin, direction, hit, keyed)[:4]
         trace = lambda *r: tracer.intersect_shadow(scene, *r)
     work = chip_smoke._counted(lambda: trace(*rays))
     (visits,) = work["leaf_visits"]

@@ -139,7 +139,7 @@ def test_march_stops_at_max_steps_and_tmax():
 def test_pack_takes_a_de_scene_without_primitives(tmp_path):
     """The julia scene has planes and a DE shape only: the pack lays the
     shape's fields out in its DE rows, as DE_FIELDS orders them."""
-    scene = torch_build(torch_load(chip_smoke.write_julia_scene(str(tmp_path), 32, 32)))
+    scene = torch_build(torch_load(chip_smoke.write_julia_scene(str(tmp_path), 32, 32)), "cpu")
     assert scene.num_primitives == 0 and len(scene.de_shapes) == 1 and scene.num_planes == 1
     pack = scene.dense_pack
     meta, sheet = pack["meta"], pack["sheet"]
@@ -162,7 +162,7 @@ def test_shadow_rule_matches_jax_self_occlusion():
     path = os.path.join(ROOT, "examples", "fractal.lua")
     pj = jax_load(path)
     r, im = pj.project.renderer, pj.project.image
-    sj, st = jax_build(pj), torch_build(torch_load(path))
+    sj, st = jax_build(pj), torch_build(torch_load(path), "cpu")
     cfg = JT.TraceConfig(r.bounces, r.light_samples, r.spectrum_samples)
     film = JaxFilm(im.width, im.height, r.spectrum_bins, r.spectrum_span)
     _, oj, dj, _ = jax_chunk_rays(

@@ -54,7 +54,7 @@ def _evaluate(jax_prog, torch_prog, inputs, hero=False):
 def scenes(tmp_path_factory):
     paths = chip_smoke.scene_paths(str(tmp_path_factory.mktemp("exprs")))
     return {
-        name: (jax_build(jax_load(paths[name])), torch_build(torch_load(paths[name])))
+        name: (jax_build(jax_load(paths[name])), torch_build(torch_load(paths[name]), "cpu"))
         for name in ("flagship", "prism")
     }
 

@@ -27,6 +27,7 @@ from pyrite_tpu_torch import convert, kernels_dense
 from pyrite_tpu_torch.project import load_project as torch_load
 from pyrite_tpu_torch.film import Film as TorchFilm
 from pyrite_tpu_torch.renderers.simple import chunk_rays as torch_chunk_rays
+from pyrite_tpu_torch.rng import KeyedDraws
 from pyrite_tpu_torch.scene import CameraModel as TorchCamera, build_scene as torch_build
 
 torch.set_num_threads(2)
@@ -56,7 +57,7 @@ def _setup(path, key):
     pj = jax_load(path)
     r, im = pj.project.renderer, pj.project.image
     sj = jax_build(pj)
-    st = torch_build(torch_load(path))
+    st = torch_build(torch_load(path), "cpu")
     cfg_j = JT.TraceConfig(r.bounces, r.light_samples, r.spectrum_samples)
     cfg_t = TT.TraceConfig(r.bounces, r.light_samples, r.spectrum_samples)
     rows = max(1, LANES // im.width)
@@ -119,7 +120,7 @@ def test_plain_bounce_matches_jax(paths, name):
     wl_t = torch.as_tensor(np.array(wj))
     for b in range(3):
         key = jax.random.fold_in(jax.random.PRNGKey(5), b)
-        draws = convert.draws_from_numpy({k: np.asarray(v) for k, v in draw(key).items()})
+        draws = convert.draws_from_numpy({k: np.asarray(v) for k, v in draw(key).items()}, "cpu")
         got = TT.bounce_core(st, cfg_t, wl_t, _to_torch(ref), draws)
         ref = jax_bounce(ref, key)
         assert_bounce_close(
@@ -130,15 +131,15 @@ def test_plain_bounce_matches_jax(paths, name):
 
 
 def test_bounce_dense_takes_the_plain_version_on_cpu(paths):
-    st = torch_build(torch_load(paths["prism"]))
+    st = torch_build(torch_load(paths["prism"]), "cpu")
     cfg = TT.TraceConfig(bounces=2, light_samples=1, spectrum_samples=1)
     n = 64
-    gen = torch.Generator().manual_seed(0)
     origin = torch.zeros((n, 3)) + torch.tensor([0.0, 3.0, 10.0])
-    direction = torch.nn.functional.normalize(torch.randn((n, 3), generator=gen), dim=1)
+    normal = np.random.default_rng(0).normal(size=(n, 3)).astype(np.float32)
+    direction = torch.nn.functional.normalize(torch.as_tensor(normal), dim=1)
     wl = torch.full((n, 1), 550.0)
     state = TT.initial_state(origin, direction, 1)
-    draws = TT.draw_bounce_uniforms(st, cfg, n, gen, "cpu")
+    draws = TT.draw_bounce_uniforms(st, cfg, n, KeyedDraws(0), 0, "cpu")
     bank = kernels_dense.precompute_bank_values(st, wl)
     before = dict(TT.launches), dict(kernels_dense.launches)
     out = kernels_dense.bounce_dense(st, cfg, wl, state, draws, bank)
@@ -150,7 +151,7 @@ def test_bounce_dense_takes_the_plain_version_on_cpu(paths):
 
 
 def test_bounce_dense_refuses_other_devices(paths):
-    st = torch_build(torch_load(paths["prism"]))
+    st = torch_build(torch_load(paths["prism"]), "cpu")
     cfg = TT.TraceConfig(bounces=2, light_samples=1, spectrum_samples=1)
     wl = torch.full((8, 1), 550.0, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):

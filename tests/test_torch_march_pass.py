@@ -47,13 +47,14 @@ def _without_de(scene):
 
 def _camera_state(directory, name, seed=0):
     """The scene, its config, one sample of camera rays over the whole film
-    with a random quarter of the lanes dead, and the generator."""
+    (keyed draws of ``seed``) with a random quarter of the lanes dead
+    (numpy), and the wavefront's rng.KeyedDraws."""
     scene, film, camera, cfg = chip_smoke.load_scene(_scene_path(directory, name), "cpu")
-    rng = torch.Generator().manual_seed(seed)
-    origin, direction, wl = chip_smoke._wavefront(film, camera, cfg, rng, film.width * film.height)
+    origin, direction, wl, keyed = chip_smoke._wavefront(
+        film, camera, cfg, seed, film.width * film.height, device="cpu")
     state = TT.initial_state(origin, direction, wl.shape[1])
-    state["alive"] = torch.rand(origin.shape[0], generator=rng) >= 0.25
-    return scene, cfg, state, rng
+    state["alive"] = torch.as_tensor(np.random.default_rng(seed).random(origin.shape[0]) >= 0.25)
+    return scene, cfg, state, keyed
 
 
 @pytest.mark.parametrize("name", ["fractal", "terrain_de", "two_de"])
@@ -77,10 +78,10 @@ def test_march_pass_in_shape_order_matches_intersect_scene(tmp_path, name):
 
 @pytest.mark.parametrize("name", ["fractal", "terrain_de", "two_de"])
 def test_shadow_pass_in_shape_order_matches_intersect_shadow(tmp_path, name):
-    scene, cfg, state, rng = _camera_state(str(tmp_path), name)
+    scene, cfg, state, keyed = _camera_state(str(tmp_path), name)
     o, d = state["origin"], state["direction"]
     n = o.shape[0]
-    draws = TT.draw_bounce_uniforms(scene, cfg, n, rng, "cpu")
+    draws = TT.draw_bounce_uniforms(scene, cfg, n, keyed, 0, "cpu")
     hit = TT.intersect_scene(scene, o, d, de_steps=cfg.max_de_steps)
     position, normal, _ = TT.surface_data(scene, hit, o, d)
     flip = torch.where((geom.dot(d, normal) < 0.0)[:, None], normal, -normal)

@@ -45,7 +45,7 @@ def paths(tmp_path_factory):
 @pytest.fixture(scope="module")
 def built(paths):
     return {
-        name: (jax_build(jax_load(paths[name])), torch_build(torch_load(paths[name])))
+        name: (jax_build(jax_load(paths[name])), torch_build(torch_load(paths[name]), "cpu"))
         for name in SCENES + DE_SCENES + MESHES
     }
 
@@ -151,22 +151,22 @@ def test_refuses_exactly_where_jax_pack_is_none(tmp_path, which):
     )
     assert jax_build(jax_load(path)).dense_pack is None
     if which == "fractal":
-        scene = torch_build(torch_load(path))
+        scene = torch_build(torch_load(path), "cpu")
         assert scene.dense_pack["meta"]["n_de"] == 1 and len(scene.de_shapes) == 1
         return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_build(torch_load(path))
+        torch_build(torch_load(path), "cpu")
 
 
 def test_convert_round_trip(built):
     sj, _ = built["tri_lamp"]
     host = {k: np.asarray(v) for k, v in sj.arrays.items()}
-    back = convert.scene_arrays_from_numpy(host)
+    back = convert.scene_arrays_from_numpy(host, "cpu")
     for key, value in host.items():
         assert back[key].numpy().dtype == value.dtype
         np.testing.assert_array_equal(back[key].numpy(), value)
     acc = np.random.default_rng(0).uniform(size=(4, 8, 64)).astype(np.float32)
-    a, w = convert.film_from_numpy(acc, acc * 2)
+    a, w = convert.film_from_numpy(acc, acc * 2, "cpu")
     np.testing.assert_array_equal(a.numpy(), acc)
     np.testing.assert_array_equal(w.numpy(), acc * 2)
 
@@ -182,7 +182,7 @@ def test_port_imports_no_jax(tmp_path):
         "import pyrite_tpu_torch.kernels, pyrite_tpu_torch.kernels_dense, chip_smoke\n"
         "from pyrite_tpu_torch.project import load_project\n"
         "from pyrite_tpu_torch.scene import build_scene\n"
-        f"assert build_scene(load_project({scene!r})).use_clusters\n"
+        f"assert build_scene(load_project({scene!r}), 'cpu').use_clusters\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "ref = os.path.join(os.getcwd(), 'pyrite_tpu') + os.sep\n"
         "files = [getattr(m, '__file__', None) or '' for m in list(sys.modules.values())]\n"

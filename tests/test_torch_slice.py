@@ -61,7 +61,7 @@ def _packages(path):
     cfg_t = TT.TraceConfig(r.bounces, r.light_samples, r.spectrum_samples)
     jax_side = (jax_build(pj), film_j, JaxCamera.from_ir(pj.project.camera), cfg_j)
     torch_side = (
-        torch_build(torch_load(path)), film_t, TorchCamera.from_ir(pj.project.camera), cfg_t
+        torch_build(torch_load(path), "cpu"), film_t, TorchCamera.from_ir(pj.project.camera), cfg_t
     )
     return jax_side, torch_side
 
@@ -70,7 +70,8 @@ def _bounce_draws(scene, cfg, key, n):
     """The per-bounce draws JAX's trace_paths makes from ``key``."""
     draw = jax.jit(lambda k: JT.draw_bounce_uniforms(scene, cfg, k, n))
     return [
-        convert.draws_from_numpy({k: np.asarray(v) for k, v in draw(jax.random.fold_in(key, i)).items()})
+        convert.draws_from_numpy(
+            {k: np.asarray(v) for k, v in draw(jax.random.fold_in(key, i)).items()}, "cpu")
         for i in range(cfg.bounces)
     ]
 
