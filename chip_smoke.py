@@ -10,7 +10,9 @@ and exits non-zero on any failure:
 3. kernels against their plain PyTorch version on the card, at the
    wavefront the main path launches: the keyed draw kernel (Philox4x32-10)
    bit for bit against rng.py on the card and on the CPU, on flagship and
-   fractal.lua; the DE march kernel (a persistent pass
+   fractal.lua, in its affine mode (the one-shot wavefront) and its indexed
+   mode (random pixels, samples and depths at the regeneration width, as a
+   regeneration iteration and the survivor pool draw); the DE march kernel (a persistent pass
    that refills a lane as its ray ends) on the camera rays of
    examples/fractal.lua (a Mandelbulb in a box), of the julia scene (a cubic
    quaternion Julia in a sphere, no finite primitive), of terrain_de_24 (a
@@ -35,15 +37,22 @@ and exits non-zero on any failure:
    also their occupancy, copy-only probes of their memory traffic, and per
    warp the branches taken and the DE hits' normal probes, with the
    issue-based bound of those probes (measure_rows);
-5. the paths, each with the launch counts zeroed just before it and read
-   just after: the CLI renders the flagship and prism.lua (dense kernels),
-   fractal.lua and the julia scene (per bounce a march pass, the dense
+5. the schedulers and the paths. The same render through the one-shot
+   wavefront, path regeneration and the survivor pool, on flagship and
+   terrain_24 at 4 spp: wt equal, acc within rtol 1e-4 (the keyed draws
+   make them trace the same paths). Then each path with the launch counts
+   zeroed just before it and read just after: the CLI renders, through
+   regeneration (the default), the flagship and prism.lua (dense kernels),
+   fractal.lua and the julia scene (per iteration a march pass, the dense
    bounce kernel, a shadow march pass, the dense NEE kernel), terrain_405
-   (wide bounce and NEE kernels), every render drawing its random numbers
-   through the draw kernel; the ray queries closest_wide / shadow_wide
-   trace one step's camera rays of terrain_405 and their shadow rays (wide
-   traversal kernels); kernels.march_de marches one step's camera rays of
-   fractal.lua (DE march kernel). No bounce may take the plain path.
+   (wide bounce and NEE kernels), and prism.lua again through the survivor
+   pool (regeneration off), every render drawing its random numbers
+   through the draw kernel (one launch per regeneration iteration) and
+   printing its live and executed lane-bounces and peak memory; the ray
+   queries closest_wide / shadow_wide trace one step's camera rays of
+   terrain_405 and their shadow rays (wide traversal kernels);
+   kernels.march_de marches one step's camera rays of fractal.lua (DE march
+   kernel). No bounce may take the plain path.
 
 The last line is one JSON object {"ok": true, "device": {...}}; the line
 before it lists each kernel's launches, error, times and bound.
@@ -52,9 +61,10 @@ before it lists each kernel's launches, error, times and bound.
 dense bounce and NEE kernels alone (measure_rows).
 ``python3 chip_smoke.py --profile`` instead renders the main-path scenes
 (flagship and terrain_405 at 64 spp, fractal.lua at 8 spp) through
-renderers.simple.render, 5 timed runs after a warm-up and one run under
-torch.profiler, and prints the launches, wall times, device idle share and
-top device ops of each. Both modes print each kernel's registers and
+renderers.simple.render under the one-shot wavefront and under
+regeneration, 5 timed runs after a warm-up and one run under
+torch.profiler, and prints the launches, lane-bounces, peak memory, wall
+times, device idle share and top device ops of each. Both modes print each kernel's registers and
 spills (ptxas -v) after the build.
 """
 
@@ -1245,85 +1255,147 @@ def time_march(path, card, seed=1, plain_reps=2):
     return {"march_de_kernel": (*times["march_de_kernel"], size, ops)}
 
 
-def check_draws(name, path, seed=5):
-    """Phase 3 for philox_draws_kernel on the main path's wavefront: a
-    render step's keyed draws (rng.KeyedDraws(seed, sample0=batch,
-    samples=batch): the camera draws and the draws of bounces 0 and 1) from
-    the kernel, launched twice, against rng.py's plain version on the card
-    and on the CPU, bit for bit: a seed's draws do not depend on the device.
-    Returns the max abs difference measured (0.0 when they are bit-equal)."""
+def _lane_keys(film, planes, bounces, seed):
+    """Random indexed-mode keys on the card: (rng.LaneKeys of random
+    pixels, samples and depths of ``planes`` x the film's lanes, a random
+    camera mask), numpy-seeded."""
+    import numpy as np
     import torch
 
     from pyrite_tpu_torch import rng
-    from pyrite_tpu_torch.renderers.simple import pick_sample_batch
+
+    r = np.random.default_rng(seed)
+    n = planes * film.width * film.height
+    word = lambda hi: torch.from_numpy(r.integers(0, hi, n).astype(np.int32)).cuda()
+    keys = rng.LaneKeys(seed, word(film.width * film.height), word(2**31 - 1), word(bounces))
+    return keys, torch.from_numpy(r.random(n) < 0.3).cuda()
+
+
+def check_draws(name, path, seed=5):
+    """Phase 3 for philox_draws_kernel in both modes, each launched twice,
+    against rng.py's plain version on the card and on the CPU, bit for bit
+    (a seed's draws do not depend on the device). Affine, on the one-shot
+    wavefront: a render step's camera draws and bounces 0 and 1's
+    (rng.KeyedDraws(seed, sample0=batch, samples=batch)). Indexed, at the
+    regeneration scheduler's width with random pixels, samples and depths
+    (rng.LaneKeys): lane_draws (camera draws on a random mask and bounce
+    draws at each lane's depth, the regeneration iteration's one launch),
+    bounce draws at one bounce for all lanes (the survivor pool's), and the
+    affine wavefront's indices, which must give the affine draws. Returns
+    the max abs difference measured (0.0 when they are bit-equal)."""
+    import torch
+
+    from pyrite_tpu_torch import rng
+    from pyrite_tpu_torch.renderers.simple import _regen_planes, pick_sample_batch
 
     scene, film, camera, cfg = _gpu_scene(path)
     batch = pick_sample_batch(film)
     n = batch * film.width * film.height
     keyed = rng.KeyedDraws(seed, sample0=batch, samples=batch)
     ls, lamps, s = cfg.light_samples, scene.num_lamps, cfg.spectrum_samples
+    lanes, mask = _lane_keys(film, _regen_planes(film), cfg.bounces, seed)
+    m = lanes.pixel.shape[0]
+    lane = torch.arange(n, dtype=torch.int32, device="cuda")
+    n_pix = film.width * film.height
+    as_lanes = rng.LaneKeys(seed, lane % n_pix, batch + lane // n_pix)
+    cpu = torch.device("cpu")
+    pool_keys = rng.LaneKeys(seed, lanes.pixel, lanes.sample)
+    at = lambda keys, dev: rng.LaneKeys(keys.seed, *(None if t is None else t.to(dev)
+                                                     for t in (keys.pixel, keys.sample, keys.depth)))
+    joined = lambda c, b: dict(b, camera=c)
 
-    def kernel(b):
-        if b is None:
-            return {"camera": rng.camera_uniforms(keyed, n, s, "cuda")}
-        return rng.bounce_draws(keyed, n, b, ls, lamps, "cuda")
+    def flat(out):
+        return out if isinstance(out, dict) else {"camera": out}
 
-    def plain(b, dev):
-        if b is None:
-            return {"camera": rng.camera_plain(keyed, n, s, dev)}
-        return rng.bounce_plain(keyed, n, b, ls, lamps, dev)
-
+    cases = {  # what: (kernel, plain on a device)
+        "affine camera": (lambda: rng.camera_uniforms(keyed, n, s, "cuda"),
+                          lambda dev: rng.camera_plain(keyed, n, s, dev)),
+        "indexed camera (affine indices)": (lambda: rng.camera_uniforms(as_lanes, n, s, "cuda"),
+                                            lambda dev: rng.camera_plain(keyed, n, s, dev)),
+        "indexed lane_draws": (
+            lambda: joined(*rng.lane_draws(lanes, s, ls, lamps, mask, "cuda")),
+            lambda dev: joined(*rng.lane_draws_plain(at(lanes, dev), s, ls, lamps, mask.to(dev), dev))),
+        "indexed bounce 2 (pool)": (
+            lambda: rng.bounce_draws(pool_keys, m, 2, ls, lamps, "cuda"),
+            lambda dev: rng.bounce_plain(at(pool_keys, dev), m, 2, ls, lamps, dev)),
+    }
+    for b in (0, 1):
+        cases[f"affine bounce {b}"] = (lambda b=b: rng.bounce_draws(keyed, n, b, ls, lamps, "cuda"),
+                                       lambda dev, b=b: rng.bounce_plain(keyed, n, b, ls, lamps, dev))
+        cases[f"indexed bounce {b} (affine indices)"] = (
+            lambda b=b: rng.bounce_draws(as_lanes, n, b, ls, lamps, "cuda"),
+            lambda dev, b=b: rng.bounce_plain(keyed, n, b, ls, lamps, dev))
     words, err = 0, 0.0
-    for b in (None, 0, 1):
-        got, again = kernel(b), kernel(b)
-        on_card, on_cpu = plain(b, torch.device("cuda")), plain(b, torch.device("cpu"))
+    for what, (kernel, plain) in cases.items():
+        got, again = flat(kernel()), flat(kernel())
+        on_card, ref = flat(plain(torch.device("cuda"))), flat(plain(cpu))
         torch.cuda.synchronize()
-        for k, ref in on_cpu.items():
-            for other, what in ((got[k], "the kernel"), (again[k], "the kernel again"),
-                                (on_card[k], "the plain version on the card")):
-                bad = int(_bits_differ(other.cpu(), ref).sum())
-                assert bad == 0, f"{name}: {k} at bounce {b}: {what} differs from the CPU on {bad} words"
-                err = max(err, float((other.cpu().double() - ref.double()).abs().max()))
-            words += ref.numel()
-    print(f"[kernels] {name}: philox_draws_kernel on {n} lanes ({batch} samples from sample "
-          f"{batch}), the camera draws and bounces 0 and 1's draws "
-          f"({', '.join(['camera', *sorted(on_cpu)])}), each launched twice: bit-equal to rng.py's "
-          f"plain version on the card and on the CPU, {words} words")
+        for k, want in ref.items():
+            for other, by in ((got[k], "the kernel"), (again[k], "the kernel again"),
+                              (on_card[k], "the plain version on the card")):
+                bad = int(_bits_differ(other.cpu(), want).sum())
+                assert bad == 0, f"{name}: {what}, {k}: {by} differs from the CPU on {bad} words"
+                err = max(err, float((other.cpu().double() - want.double()).abs().max()))
+            words += want.numel()
+    print(f"[kernels] {name}: philox_draws_kernel, affine on {n} lanes ({batch} samples from sample "
+          f"{batch}) and indexed on {m} lanes (random pixels, samples, depths, camera mask): "
+          f"{', '.join(cases)}, each launched twice: bit-equal to rng.py's plain version on the "
+          f"card and on the CPU, {words} words")
     return err
 
 
 def time_draws(path, card, seed=5, plain_reps=5):
-    """Phase 4 for philox_draws_kernel: one bounce's draws of the main
-    path's wavefront per launch, the raw launcher against rng.bounce_plain
-    on the card; bound = the bytes it writes / 3.35 TB/s. Also times
-    torch.rand of as many uniforms (PyTorch's own Philox, other bits; the
-    port never calls it). Returns {"philox_draws_kernel": (kernel ms, plain
-    ms, bytes, 0)}."""
+    """Phase 4 for philox_draws_kernel: per launch, the raw launcher against
+    rng.py's plain version on the card, in both modes: affine, one bounce's
+    draws of the one-shot wavefront; indexed, a regeneration iteration's
+    lane_draws (camera draws on a mask of ~30 % of the lanes, bounce draws
+    at each lane's depth) at the regeneration width, the main path's. bound
+    = the bytes it moves / 3.35 TB/s: the words it writes (the camera rows
+    of every lane, zeros off the mask) and, indexed, the three int32 keys
+    and the mask byte it reads per lane. Also times torch.rand of as many
+    uniforms (PyTorch's own Philox, other bits; the port never calls it).
+    Returns {"philox_draws_kernel": (indexed kernel ms, plain ms, bytes,
+    0)}."""
     import torch
 
     from pyrite_tpu_torch import _build, rng
-    from pyrite_tpu_torch.renderers.simple import pick_sample_batch
+    from pyrite_tpu_torch.renderers.simple import _regen_planes, pick_sample_batch
 
     scene, film, camera, cfg = _gpu_scene(path)
     batch = pick_sample_batch(film)
     n = batch * film.width * film.height
     keyed = rng.KeyedDraws(seed, sample0=batch, samples=batch)
-    ls, lamps = cfg.light_samples, scene.num_lamps
+    ls, lamps, s = cfg.light_samples, scene.num_lamps, cfg.spectrum_samples
     words, _ = rng._layout(n, ls, lamps)
     buf = torch.empty(words, dtype=torch.float32, device="cuda")
     k0, k1 = keyed.key()
-    args = (k0, k1, n, keyed.n_pix(n), keyed.pixel0, keyed.sample0, 1, 0, ls, lamps, buf.data_ptr(),
-            torch.cuda.current_stream().cuda_stream)
+    stream = torch.cuda.current_stream().cuda_stream
+    affine = (k0, k1, n, keyed.n_pix(n), keyed.pixel0, keyed.sample0, 1, 0, ls, lamps, 0,
+              buf.data_ptr(), 0, 0, 0, 0, stream)
+    keys, mask = _lane_keys(film, _regen_planes(film), cfg.bounces, seed)
+    m = keys.pixel.shape[0]
+    m_words, _ = rng._layout(m, ls, lamps)
+    cam = torch.empty((m, s + 5), dtype=torch.float32, device="cuda")
+    out = torch.empty(m_words, dtype=torch.float32, device="cuda")
+    indexed = (k0, k1, m, 1, 0, 0, 0, s, ls, lamps, cam.data_ptr(), out.data_ptr(),
+               keys.pixel.data_ptr(), keys.sample.data_ptr(), keys.depth.data_ptr(),
+               mask.view(torch.uint8).data_ptr(), stream)
     lib = _build.load()
+    cuda = torch.device("cuda")
     times = _time_pairs(
-        {"philox_draws_kernel": lambda: lib.pyrite_philox_draws(*args)},
-        {"philox_draws_kernel": lambda: rng.bounce_plain(keyed, n, 1, ls, lamps, torch.device("cuda"))},
-        plain_reps, f"per bounce's draws, {n} lanes, light_samples={ls}, {words} words ({card})")
+        {"affine": lambda: lib.pyrite_philox_draws(*affine),
+         "indexed": lambda: lib.pyrite_philox_draws(*indexed)},
+        {"affine": lambda: rng.bounce_plain(keyed, n, 1, ls, lamps, cuda),
+         "indexed": lambda: rng.lane_draws_plain(keys, s, ls, lamps, mask, cuda)},
+        plain_reps, f"philox_draws_kernel: affine, one bounce's draws of {n} lanes, {words} words; "
+        f"indexed, lane_draws of {m} lanes, {m * (s + 5) + m_words} words written ({card})")
     rand_ms = _event_ms(lambda: torch.rand(words, device="cuda"), 50)
     print(f"[times] torch.rand of {words} f32 uniforms (PyTorch's Philox, other bits; the port "
           f"never calls it): {rand_ms:.4f} ms ({card})")
-    result = {"philox_draws_kernel": (*times["philox_draws_kernel"], 4 * words, 0)}
-    _print_bounds(os.path.basename(path), result)
+    _print_bounds(f"{os.path.basename(path)} affine", {"philox_draws_kernel": (
+        *times["affine"], 4 * words, 0)})
+    result = {"philox_draws_kernel": (*times["indexed"], 4 * (m * (s + 5) + m_words) + 13 * m, 0)}
+    _print_bounds(f"{os.path.basename(path)} indexed", result)
     return result
 
 
@@ -1698,24 +1770,69 @@ def _issue_rate():
 
 def _zero_counts():
     from pyrite_tpu_torch import kernels, kernels_dense as kd, rng, tracer
+    from pyrite_tpu_torch.renderers import simple
 
-    for counts in (kd.launches, kernels.launches, tracer.launches, rng.launches):
+    for counts in (kd.launches, kernels.launches, tracer.launches, rng.launches, simple.counters,
+                   tracer.lane_bounces):
         for k in counts:
             counts[k] = 0
 
 
 def _read_counts():
     from pyrite_tpu_torch import kernels, kernels_dense as kd, rng, tracer
+    from pyrite_tpu_torch.renderers import simple
 
-    return dict(kd.launches, **kernels.launches, **tracer.launches, **rng.launches)
+    return dict(kd.launches, **kernels.launches, **tracer.launches, **rng.launches, **simple.counters,
+                live_lane_bounces=tracer.lane_bounces["live"],
+                executed_lane_bounces=tracer.lane_bounces["executed"])
+
+
+class scheduler:
+    """Within the block, renderers.simple.render takes ``which``:
+    "regen" (its default), "pool" (regeneration off: the survivor pool at
+    POOL_MIN_BOUNCES bounces or more; ``stage`` and ``cont`` set
+    STAGE_BOUNCES and CONT_BOUNCES, so that shallow scenes take it too, with
+    every bounce count) or "one-shot" (regeneration and the pool off)."""
+
+    def __init__(self, which, stage=None, cont=None):
+        self.which, self.stage, self.cont = which, stage, cont
+
+    def __enter__(self):
+        from pyrite_tpu_torch.renderers import simple
+
+        self.saved = {k: getattr(simple, k) for k in (
+            "regen_enabled", "POOL_MIN_BOUNCES", "STAGE_BOUNCES", "CONT_BOUNCES")}
+        simple.regen_enabled = lambda: self.which == "regen"
+        if self.which == "one-shot":
+            simple.POOL_MIN_BOUNCES = 10**6
+        if self.which == "pool" and self.stage is not None:
+            simple.POOL_MIN_BOUNCES, simple.STAGE_BOUNCES, simple.CONT_BOUNCES = 1, self.stage, self.cont
+        return self
+
+    def __exit__(self, *exc):
+        from pyrite_tpu_torch.renderers import simple
+
+        for k, v in self.saved.items():
+            setattr(simple, k, v)
+
+
+def _lanes_line(launches):
+    live, executed = launches["live_lane_bounces"], launches["executed_lane_bounces"]
+    return (f"lane-bounces live {live}, executed {executed} (live share "
+            f"{live / max(executed, 1):.4f})")
 
 
 def render_end_to_end(path, samples, card, out_dir, kernels=("dense_bounce_kernel", "dense_nee_kernel"),
-                      passes=False):
-    """Phase 5: the CLI on the GPU; checks the PNG, the film and that every
-    bounce went through the scene's CUDA ``kernels`` (bounce, NEE) and, with
-    ``passes`` (a scene with DE shapes), one march pass and one shadow march
-    pass. Returns the launch counts of the run."""
+                      passes=False, which="regen"):
+    """Phase 5: the CLI on the GPU through the scheduler ``which`` (regen,
+    the default, or pool: see ``scheduler``); checks the PNG, the film and
+    that every bounce iteration went through the scene's CUDA ``kernels``
+    (one bounce and one NEE launch each) and, with ``passes`` (a scene with
+    DE shapes), one march pass and one shadow march pass each; that the
+    draw kernel ran once per regeneration iteration (pool: once per stage
+    for the camera and once per bounce). Prints the live and executed
+    lane-bounces and the peak memory. Returns the launch counts of the
+    run."""
     import numpy as np
     import torch
     from PIL import Image
@@ -1728,17 +1845,20 @@ def render_end_to_end(path, samples, card, out_dir, kernels=("dense_bounce_kerne
 
     def recording_render(*args, **kwargs):
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         started = time.perf_counter()
         film, acc, wt = render(*args, **kwargs)
         torch.cuda.synchronize()
-        result.update(film=film, acc=acc, wt=wt, seconds=time.perf_counter() - started)
+        result.update(film=film, acc=acc, wt=wt, seconds=time.perf_counter() - started,
+                      peak=torch.cuda.max_memory_allocated())
         return film, acc, wt
 
-    out_png = os.path.join(out_dir, os.path.basename(path) + ".png")
+    out_png = os.path.join(out_dir, os.path.basename(path) + f".{which}.png")
     simple.render = recording_render
     _zero_counts()
     try:
-        rc = cli.main([path, "--samples", str(samples), "--device", "cuda", "--output", out_png])
+        with scheduler(which):
+            rc = cli.main([path, "--samples", str(samples), "--device", "cuda", "--output", out_png])
     finally:
         simple.render = render
     launches = _read_counts()
@@ -1755,19 +1875,63 @@ def render_end_to_end(path, samples, card, out_dir, kernels=("dense_bounce_kerne
     assert launches["bounce_core"] == 0, launches
     marches = bounces if passes else 0
     assert launches["de_march_pass"] == launches["de_shadow_pass"] == marches, launches
-    project = cli.load_project(path).project
-    r = project.renderer
-    # one launch of the draw kernel per step (camera draws) and per bounce
-    steps = -(-samples // simple.pick_sample_batch(film))
-    assert launches["philox_draws_kernel"] == steps + bounces, launches
+    r = cli.load_project(path).project.renderer
+    if which == "regen":
+        assert launches["regen_iterations"] == bounces > 0, launches
+        assert launches["philox_draws_kernel"] == bounces, launches
+    else:
+        assert launches["pool_stages"] == samples and launches["pool_flushes"] > 0, launches
+        assert launches["philox_draws_kernel"] == samples + bounces, launches
     rays = film.width * film.height * samples * r.bounces * (1 + r.light_samples)
     print(
         f"[end-to-end] {os.path.basename(path)} {film.width}x{film.height}, {samples} spp, "
-        f"S={r.spectrum_samples}, {r.bounces} bounces: {rays / result['seconds'] / 1e6:.3f} "
-        f"Mrays/s nominal, render wall {result['seconds']:.3f} s ({card}); launches {launches}; "
-        f"image mean {pixels.mean():.2f}/255"
+        f"S={r.spectrum_samples}, {r.bounces} bounces, {which}: "
+        f"{rays / result['seconds'] / 1e6:.3f} Mrays/s nominal, render wall "
+        f"{result['seconds']:.3f} s, peak memory {result['peak'] / 2**20:.1f} MiB ({card}); "
+        f"{_lanes_line(launches)}; launches {launches}; image mean {pixels.mean():.2f}/255"
     )
     return launches
+
+
+def compare_schedulers(name, path, samples, card):
+    """Phase 5: the same render through the one-shot wavefront,
+    regeneration and the survivor pool (with a 2-bounce stage and 3-bounce
+    continuations, so that it pools and flushes at any bounce count) on the
+    card: the keyed draws make the three trace the same paths, so wt must be
+    equal and acc within rtol 1e-4 (summation order; the pool's exposure
+    adds in atomic order). Prints the largest differences and returns the
+    largest relative one."""
+    import torch
+
+    from pyrite_tpu_torch.project import load_project
+    from pyrite_tpu_torch.renderers import simple
+
+    scene = _gpu_scene(path)[0]
+    project_data = load_project(path)
+    films = {}
+    for which, stage in (("one-shot", None), ("regen", None), ("pool", 2)):
+        _zero_counts()
+        with scheduler(which, stage, 3):
+            _, acc, wt = simple.render(project_data, scene, seed=4, max_samples=samples)
+        launches = _read_counts()
+        assert launches["bounce_core"] == 0, launches
+        films[which] = (acc, wt)
+        print(f"[schedulers] {name} {which}: {_lanes_line(launches)}, bounce iterations "
+              f"{launches['bounces']}")
+    acc0, wt0 = films["one-shot"]
+    worst = 0.0
+    for which in ("regen", "pool"):
+        acc, wt = films[which]
+        bad = int((wt != wt0).sum())
+        diff = (acc - acc0).abs()
+        rel = float((diff / acc0.abs().clamp_min(1e-30)).max())
+        print(f"[schedulers] {name}, {samples} spp: {which} against one-shot: wt differs in {bad} "
+              f"bins of {wt.numel()} (total {float(wt.sum()):.1f}); acc max abs diff "
+              f"{float(diff.max()):.3e}, max rel {rel:.3e} ({card})")
+        assert bad == 0, f"{name}: {which}'s wt differs from the one-shot film's"
+        torch.testing.assert_close(acc, acc0, rtol=1e-4, atol=0.0)
+        worst = max(worst, rel)
+    return worst
 
 
 def drive_queries(path, card, seed=2):
@@ -1893,12 +2057,13 @@ def _print_registers(log):
 
 def profile_renders(card, runs=5):
     """``--profile``: the main-path renders through renderers.simple.render
-    (flagship and terrain_405 at 64 spp, fractal.lua at 8 spp): ``runs``
-    timed runs after a warm-up, then one under torch.profiler. Prints the
-    launches of one render, the wall times, the device's busy time (the sum
-    of its kernels' own times) and idle share (1 - busy / wall of the
-    profiled run; the profiler slows the host, so the unprofiled share is
-    lower) and the top device ops."""
+    (flagship and terrain_405 at 64 spp, fractal.lua at 8 spp), each through
+    the one-shot wavefront and through regeneration: ``runs`` timed runs
+    after a warm-up, then one under torch.profiler. Prints the launches and
+    lane-bounces of one render, its peak memory, the wall times, the
+    device's busy time (the sum of its kernels' own times) and idle share
+    (1 - busy / wall of the profiled run; the profiler slows the host, so
+    the unprofiled share is lower) and the top device ops."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1922,29 +2087,36 @@ def profile_renders(card, runs=5):
                 torch.cuda.synchronize()
                 return time.perf_counter() - started
 
-            render()
-            _zero_counts()
-            walls = [render()]
-            launches = _read_counts()
-            walls += [render() for _ in range(runs - 1)]
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                wall = render()
-            # the kernels themselves: a CPU op's device time repeats its kernels'
-            events = [e for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
-            own = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-            busy = sum(own(e) for e in events) / 1e3
-            top = sorted(events, key=own, reverse=True)[:8]
-            r = project_data.project.renderer
-            im = project_data.project.image
-            rays = im.width * im.height * spp * r.bounces * (1 + r.light_samples)
-            print(f"[profile] {os.path.basename(path)} {im.width}x{im.height}, {spp} spp ({card}): "
-                  f"launches {launches}; render wall s {', '.join(f'{w:.4f}' for w in walls)}; "
-                  f"median {sorted(walls)[len(walls) // 2]:.4f} s, "
-                  f"{rays / sorted(walls)[len(walls) // 2] / 1e6:.3f} Mrays/s nominal")
-            print(f"[profile] profiled run: wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms, "
-                  f"idle share {1 - busy / (wall * 1e3):.3f}; top device ops: " + "; ".join(
-                      f"{e.key[:60]} {own(e) / 1e3:.3f} ms ({e.count}x)" for e in top))
+            for which in ("one-shot", "regen"):
+                with scheduler(which):
+                    render()
+                    _zero_counts()
+                    torch.cuda.reset_peak_memory_stats()
+                    walls = [render()]
+                    launches = _read_counts()
+                    peak = torch.cuda.max_memory_allocated()
+                    walls += [render() for _ in range(runs - 1)]
+                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                        wall = render()
+                # the kernels themselves: a CPU op's device time repeats its kernels'
+                events = [e for e in prof.key_averages()
+                          if e.device_type == torch.autograd.DeviceType.CUDA]
+                own = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+                busy = sum(own(e) for e in events) / 1e3
+                top = sorted(events, key=own, reverse=True)[:8]
+                r = project_data.project.renderer
+                im = project_data.project.image
+                rays = im.width * im.height * spp * r.bounces * (1 + r.light_samples)
+                median = sorted(walls)[len(walls) // 2]
+                print(f"[profile] {os.path.basename(path)} {im.width}x{im.height}, {spp} spp, {which} "
+                      f"({card}): launches {launches}; {_lanes_line(launches)}; peak memory "
+                      f"{peak / 2**20:.1f} MiB; render wall s {', '.join(f'{w:.4f}' for w in walls)}; "
+                      f"median {median:.4f} s, {rays / median / 1e6:.3f} Mrays/s nominal, "
+                      f"{launches['live_lane_bounces'] * (1 + r.light_samples) / median / 1e6:.3f} "
+                      f"Mrays/s live")
+                print(f"[profile] profiled run: wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms, "
+                      f"idle share {1 - busy / (wall * 1e3):.3f}; top device ops: " + "; ".join(
+                          f"{e.key[:60]} {own(e) / 1e3:.3f} ms ({e.count}x)" for e in top))
 
 
 def measure_rows(flagship, fractal, card):
@@ -2026,8 +2198,15 @@ def main(argv=None):
         time_kernels(mesh["terrain_405"], smi, plain_reps=2, bounce=1)  # printed
         times.update(time_queries(mesh["terrain_405"], smi))
         time_queries(mesh["terrain_660"], smi)  # printed: the larger leaf's cost
+        # the schedulers against each other: the same film
+        terrain_24 = terrain_paths(tmp, cells=(24,))["terrain_24"]
+        same = {name: compare_schedulers(name, p, 4, smi)
+                for name, p in (("flagship", paths["flagship"]), ("terrain_24", terrain_24))}
+        # the main path: the CLI through regeneration (the default), and
+        # prism.lua's 16 bounces through the pool with regeneration off
         dense_runs = [render_end_to_end(paths["flagship"], 16, smi, tmp),
-                      render_end_to_end(paths["prism"], 8, smi, tmp)]
+                      render_end_to_end(paths["prism"], 8, smi, tmp),
+                      render_end_to_end(paths["prism"], 8, smi, tmp, which="pool")]
         de_runs = [render_end_to_end(de["fractal"], 8, smi, tmp, passes=True),
                    render_end_to_end(de["julia"], 8, smi, tmp, passes=True)]
         mesh_run = render_end_to_end(mesh["terrain_405"], 8, smi, tmp,
@@ -2072,6 +2251,7 @@ def main(argv=None):
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(f"[de-shadow] blocked shares {shadow}")
+    print(f"[schedulers] regen and pool against one-shot, largest acc relative difference {same}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

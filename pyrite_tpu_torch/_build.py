@@ -58,7 +58,7 @@ _SIGNATURES = {
     "pyrite_march_de": [_P] * 6 + _DE + [_P] * 2 + [_I, _P, _P],
     "pyrite_de_march_bounce": [_P] * 6 + [_I] * 2 + _DE + [_P, _P],
     "pyrite_de_march_shadow": [_P] * 8 + [_I] * 3 + _DE + [_P, _P],
-    "pyrite_philox_draws": [_U, _U, _I, _I, _U, _U, _U, _I, _I, _I, _P, _P],
+    "pyrite_philox_draws": [_U, _U, _I, _I, _U, _U, _U, _I, _I, _I] + [_P] * 7,
     "pyrite_bounce_occupancy": [_I, _P],
 }
 

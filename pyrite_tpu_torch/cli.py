@@ -5,11 +5,21 @@ The PyTorch port of pyrite_tpu.cli: the same arguments plus ``--device``
 project, renders with periodic preview writes (every >= 20 s, main.rs:
 261-299), prints the throughput line and writes the final development to
 ``<project_dir>/render.png`` or ``--output``.
+
+``--checkpoint PATH`` resumes from PATH if it exists and writes the film
+there at every preview: an ``.npz`` with the JAX CLI's keys ``acc``, ``wt``
+and ``samples_done`` (so each CLI reads the other's file) and the port's
+``lane_samples``, each render lane's count of exposed samples, from which a
+resumed render starts every lane at its next sample (renderers.simple
+resume_counts); a file without it resumes by the JAX rule, samples_done for
+every pixel. ``--profile DIR`` writes a Chrome trace of the render phase
+(torch.profiler) into DIR.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 import time
@@ -80,8 +90,14 @@ def main(argv=None):
         "--preview-interval", type=float, default=20.0, help="seconds between previews"
     )
     parser.add_argument("--multi-device", action="store_true", help="not ported yet")
-    parser.add_argument("--checkpoint", default=None, help="not ported yet")
-    parser.add_argument("--profile", default=None, metavar="DIR", help="not ported yet")
+    parser.add_argument(
+        "--checkpoint", default=None,
+        help="film checkpoint path (.npz): resumed from if present, written at every preview",
+    )
+    parser.add_argument(
+        "--profile", default=None, metavar="DIR",
+        help="write a torch.profiler Chrome trace of the render phase to DIR",
+    )
     parser.add_argument(
         "--device", default="cuda",
         help="torch device to render on (default cuda; it is never changed on its own)",
@@ -90,10 +106,6 @@ def main(argv=None):
 
     if args.multi_device:
         _not_ported("--multi-device", "queue 1: multi-GPU film merge")
-    if args.checkpoint:
-        _not_ported("--checkpoint", "queue 1: checkpoint/resume and --profile")
-    if args.profile:
-        _not_ported("--profile", "queue 1: checkpoint/resume and --profile")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -121,22 +133,47 @@ def main(argv=None):
     sample_fn = make_develop_sample_fn(project_data, scene, settings.spectrum_span)
     state = {"last_preview": time.time()}
 
+    resume = None
+    if args.checkpoint and os.path.exists(args.checkpoint):
+        with np.load(args.checkpoint) as loaded:
+            resume = {k: loaded[k] for k in loaded.files}
+        resume["samples_done"] = int(resume["samples_done"])
+        print(f"Resuming from {args.checkpoint} ({resume['samples_done']} samples done)")
+
     def on_progress(progress):
         pct = progress.sample * 100 // progress.total
         print(f"\rRendering: {pct:3d}% ({progress.sample}/{progress.total})", end="")
         now = time.time()
         if now - state["last_preview"] >= args.preview_interval:
             save_png(render_path, progress.film.to_image(progress.acc, progress.wt, 30.0, sample_fn))
+            # a preview that holds partial paths (the survivor pool between
+            # flushes) is not a checkpoint
+            if args.checkpoint and progress.lane_samples is not None:
+                np.savez(args.checkpoint, acc=progress.acc.cpu().numpy(), wt=progress.wt.cpu().numpy(),
+                         samples_done=progress.sample, lane_samples=progress.lane_samples)
             print(f"  [preview written to {render_path}]")
             state["last_preview"] = now
 
     rendering_started = time.time()
-    film, acc, wt = algorithm_mod.render(
-        project_data, scene, seed=args.seed, on_progress=on_progress, max_samples=args.samples
-    )
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+    profile_ctx = contextlib.nullcontext()
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+        profile_ctx = profile(activities=activities)
+    with profile_ctx as prof:
+        film, acc, wt = algorithm_mod.render(
+            project_data, scene, seed=args.seed, on_progress=on_progress, max_samples=args.samples,
+            resume=resume,
+        )
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
     rendering_ended = time.time()
+    if args.profile:
+        os.makedirs(args.profile, exist_ok=True)
+        trace = os.path.join(args.profile, f"render_{os.getpid()}_{int(rendering_started)}.json")
+        prof.export_chrome_trace(trace)
+        print(f"\nProfiler trace written to {trace}")
     samples = min(settings.pixel_samples, args.samples or settings.pixel_samples)
     lanes = project_data.project.image.width * project_data.project.image.height
     rays = lanes * samples * settings.bounces * (1 + settings.light_samples)

@@ -9,14 +9,25 @@
 // (pyrite_tpu/tracer.py draw_bounce_uniforms; threefry inside XLA, not a
 // Pallas kernel) and the port's former torch.Generator calls, four to five
 // launches a bounce: one launch writes a bounce's u_comp, u_scatter,
-// lamp_idx, u_nee and u_emis into one buffer, or a step's camera draws.
+// lamp_idx, u_nee and u_emis into one buffer, a step's camera draws, or
+// both.
+//
+// A lane's (pixel, sample, bounce) words come in two modes. Affine (the
+// one-shot wavefront): lane l is pixel pixel0 + l % n_pix, sample sample0 +
+// l / n_pix, one bounce for all lanes. Indexed (the regeneration and
+// survivor-pool schedulers): three int32 arrays give each lane its pixel,
+// its sample and its bounce (or one bounce for all lanes when the depth
+// array is null), and a mask may restrict the camera draws to the lanes
+// that start a path (the others' camera row is written as zeros), so one
+// launch makes a regeneration iteration's camera and bounce draws.
 //
 // What bounds it on an H100: the bytes it writes, (5 + 5 ls) words a lane
-// a bounce, (S + 5) a lane for the camera; ten Philox rounds cost ~40
-// integer operations per 4 words. One thread makes one lane's draws; the
-// [N, 3] and [N, S + 5] outputs go through shared memory so that the block
-// stores them as contiguous float4 runs, and u_nee [ls, N, 4] is one float4
-// per lane and light sample.
+// a bounce, (S + 5) a lane for the camera, plus 8-12 bytes a lane read in
+// the indexed mode; ten Philox rounds cost ~40 integer operations per 4
+// words. One thread makes one lane's draws; the [N, 3] and [N, S + 5]
+// outputs go through shared memory so that the block stores them as
+// contiguous float4 runs, and u_nee [ls, N, 4] is one float4 per lane and
+// light sample.
 
 #include "common.cuh"
 
@@ -50,7 +61,14 @@ struct DrawArgs {
   int n, n_pix;
   unsigned pixel0, sample0, bounce;
   int s_cam, light_samples, n_lamps;
-  float* __restrict__ out;
+  float* __restrict__ cam_out;  // [N, S + 5] camera draws, or null
+  float* __restrict__ out;      // a bounce's draws in rng._layout, or null
+  // the indexed mode: each lane's pixel, sample and bounce (depth null: a.bounce
+  // for all), and which lanes take camera draws (null: all); pixel null: affine
+  const int* __restrict__ pixel;
+  const int* __restrict__ sample;
+  const int* __restrict__ depth;
+  const unsigned char* __restrict__ cam_mask;
 };
 
 __global__ void __launch_bounds__(BLOCK) philox_draws_kernel(const DrawArgs a) {
@@ -59,25 +77,38 @@ __global__ void __launch_bounds__(BLOCK) philox_draws_kernel(const DrawArgs a) {
   const int lane = base + threadIdx.x;
   const int rows = min(BLOCK, a.n - base);
   const bool in_range = lane < a.n;
-  const unsigned pixel = in_range ? a.pixel0 + (unsigned)(lane % a.n_pix) : 0u;
-  const unsigned sample = in_range ? a.sample0 + (unsigned)(lane / a.n_pix) : 0u;
+  unsigned pixel = 0u, sample = 0u, bounce = a.bounce;
+  if (in_range) {
+    if (a.pixel) {
+      pixel = (unsigned)a.pixel[lane];
+      sample = (unsigned)a.sample[lane];
+      if (a.depth) bounce = (unsigned)a.depth[lane];
+    } else {
+      pixel = a.pixel0 + (unsigned)(lane % a.n_pix);
+      sample = a.sample0 + (unsigned)(lane / a.n_pix);
+    }
+  }
   auto draw = [&](int purpose, int block) {
-    return philox4x32_10(make_uint4(pixel, sample, a.bounce, ((unsigned)purpose << 16) | block),
+    return philox4x32_10(make_uint4(pixel, sample, bounce, ((unsigned)purpose << 16) | block),
                          a.k0, a.k1);
   };
   const size_t n = a.n;
 
-  if (a.s_cam > 0) {  // the camera draws [N, S + 5], bounce 0
+  if (a.cam_out) {  // the camera draws [N, S + 5], bounce 0; zeros off the mask
     const int w = a.s_cam + 5;
+    const bool drawn = in_range && (!a.cam_mask || a.cam_mask[lane]);
     if (in_range)
       for (int b = 0; 4 * b < w; ++b) {
-        const uint4 x = philox4x32_10(
-            make_uint4(pixel, sample, 0u, ((unsigned)P_CAMERA << 16) | b), a.k0, a.k1);
-        for (int q = 0; q < 4 && 4 * b + q < w; ++q) stage[threadIdx.x * w + 4 * b + q] = uniform(word(x, q));
+        const uint4 x = drawn ? philox4x32_10(
+            make_uint4(pixel, sample, 0u, ((unsigned)P_CAMERA << 16) | b), a.k0, a.k1)
+                              : make_uint4(0u, 0u, 0u, 0u);
+        for (int q = 0; q < 4 && 4 * b + q < w; ++q)
+          stage[threadIdx.x * w + 4 * b + q] = uniform(word(x, q));
       }
     __syncthreads();
-    block_copy(a.out + (size_t)base * w, stage, rows * w);
-    return;
+    block_copy(a.cam_out + (size_t)base * w, stage, rows * w);
+    if (!a.out) return;
+    __syncthreads();  // the bounce draws below stage u_scatter in the same buffer
   }
 
   // a bounce's draws, in rng._layout's order
@@ -122,15 +153,21 @@ __global__ void __launch_bounds__(BLOCK) philox_draws_kernel(const DrawArgs a) {
 
 extern "C" {
 
-// Plain C launcher for ctypes (rng._launch): `out` is a device buffer of
-// [n, s_cam + 5] floats for the camera draws (s_cam > 0) or of a bounce's
-// draws in rng._layout (s_cam = 0); `stream` is the caller's cudaStream_t.
-// Returns cudaGetLastError() after the launch.
+// Plain C launcher for ctypes (rng._launch): `cam_out` is a device buffer of
+// [n, s_cam + 5] floats for the camera draws or null, `out` one of a
+// bounce's draws in rng._layout or null; `pixel`, `sample` and `depth` are
+// [n] int32 device arrays for the indexed mode (pixel null: the affine
+// mode, from pixel0, sample0 and n_pix; depth null: `bounce` for every
+// lane), `cam_mask` [n] bytes or null; `stream` is the caller's
+// cudaStream_t. Returns cudaGetLastError() after the launch.
 int pyrite_philox_draws(unsigned k0, unsigned k1, int n, int n_pix, unsigned pixel0,
                         unsigned sample0, unsigned bounce, int s_cam, int light_samples,
-                        int n_lamps, float* out, void* stream) {
+                        int n_lamps, float* cam_out, float* out, const int* pixel,
+                        const int* sample, const int* depth, const unsigned char* cam_mask,
+                        void* stream) {
   if (n <= 0) return 0;
-  const DrawArgs a = {k0, k1, n, n_pix, pixel0, sample0, bounce, s_cam, light_samples, n_lamps, out};
+  const DrawArgs a = {k0, k1, n, n_pix, pixel0, sample0, bounce, s_cam, light_samples, n_lamps,
+                      cam_out, out, pixel, sample, depth, cam_mask};
   philox_draws_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

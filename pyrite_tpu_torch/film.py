@@ -85,6 +85,17 @@ class Film:
         idx = ((wavelength - lo) * (self.bins / (hi - lo))).to(torch.int32)
         return torch.clamp(idx, 0, self.bins - 1)
 
+    # --- exposure ----------------------------------------------------------------
+    def expose(self, acc, wt, positions, wavelengths, brightness, weights, mask):
+        """Accumulate a batch of spectral samples at their view positions
+        (pyrite_tpu.film.Film.expose): positions [N, 2] view coords;
+        wavelengths / brightness / weights / mask [N, S]. Samples whose
+        position falls outside the film are dropped. Updates ``acc`` and
+        ``wt`` in place and returns them."""
+        px, py, valid = self.view_to_pixel(positions)
+        return expose_pixels(self, acc, wt, py * self.width + px, valid, wavelengths, brightness,
+                             weights, mask)
+
     # --- development -----------------------------------------------------------
     def develop(self, acc, wt):
         """acc/weight per bin -> [H, W, BINS] mean spectra."""
@@ -126,17 +137,37 @@ def save_png(path: str, image: np.ndarray):
 
 def bin_lane_sums(film: Film, wavelengths, v, w):
     """Per-lane wavelength->bin binning: ([N, bins] value sums, [N, bins]
-    weight sums) from [N, S] per-wavelength values/weights. One scatter per
-    spectral column, each writing one bin per lane row, in column order (the
-    JAX twin's unrolled one-hot sum, in the same order)."""
-    bins = film.wavelength_to_bin(wavelengths).long()  # [N, S]
-    n, s = v.shape
+    weight sums) from [N, S] per-wavelength values/weights (add_lane_bins
+    into zeros: the JAX twin's unrolled one-hot sum, in the same order)."""
+    n = v.shape[0]
     acc = torch.zeros((n, film.bins), dtype=v.dtype, device=v.device)
     wt = torch.zeros((n, film.bins), dtype=w.dtype, device=w.device)
-    for j in range(s):
-        acc.scatter_add_(1, bins[:, j : j + 1], v[:, j : j + 1])
-        wt.scatter_add_(1, bins[:, j : j + 1], w[:, j : j + 1])
+    return add_lane_bins(film, acc, wt, wavelengths, v, w)
+
+
+def expose_pixels(film: Film, acc, wt, pixel, valid, wavelengths, brightness, weights, mask):
+    """Accumulate a batch of spectral samples at their flat pixel indices
+    ``pixel`` [N] (row-major), where ``valid`` [N]: the scatter behind
+    Film.expose, which the survivor pool calls with the pixel each of its
+    lanes carries. Lanes may share a pixel, so on CUDA the adds into one bin
+    land in atomic order (acc to float rounding; wt, sums of ones, exactly).
+    Updates ``acc`` and ``wt`` in place and returns them."""
+    ok = mask & valid[:, None]
+    index = (pixel.long()[:, None] * film.bins + film.wavelength_to_bin(wavelengths).long())[ok]
+    acc.view(-1).index_add_(0, index, (brightness * weights)[ok])
+    wt.view(-1).index_add_(0, index, weights[ok])
     return acc, wt
+
+
+def add_lane_bins(film: Film, acc_l, wt_l, wavelengths, v, w):
+    """bin_lane_sums added into per-lane buffers ``acc_l`` / ``wt_l`` [N,
+    bins] in place: one scatter per spectral column, each writing one bin
+    per lane row, in column order (deterministic on every device)."""
+    bins = film.wavelength_to_bin(wavelengths).long()
+    for j in range(v.shape[1]):
+        acc_l.scatter_add_(1, bins[:, j : j + 1], v[:, j : j + 1])
+        wt_l.scatter_add_(1, bins[:, j : j + 1], w[:, j : j + 1])
+    return acc_l, wt_l
 
 
 def expose_lanes(film: Film, acc, wt, row0, wavelengths, brightness, weights, mask):

@@ -31,6 +31,31 @@ def dot(a, b):
     return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2]
 
 
+# PyTorch's CPU kernels for atan2 and pow run a vectorised routine on whole
+# vector widths and libm's on the rest of each thread's range, which round
+# differently: an element's result would depend on its place in the batch,
+# so a regenerated lane's path could part from the one-shot wavefront's.
+# numpy's loops give every element the same routine. On a GPU every element
+# takes one device function (the kernels' own libm calls).
+
+
+def atan2(y, x):
+    """torch.atan2, independent of the element's place in the batch."""
+    if y.device.type != "cpu":
+        return torch.atan2(y, x)
+    with np.errstate(all="ignore"):  # inf and nan as PyTorch gives them, silently
+        return torch.from_numpy(np.arctan2(y.numpy(), x.numpy()))
+
+
+def power(x, p):
+    """x ** p for a scalar exponent ``p``, independent of the element's
+    place in the batch (p is rounded to f32, as PyTorch does)."""
+    if x.device.type != "cpu":
+        return x**p
+    with np.errstate(all="ignore"):
+        return torch.from_numpy(np.power(x.numpy(), np.float32(p)))
+
+
 def cross(a, b):
     a0, a1, a2 = a[..., 0], a[..., 1], a[..., 2]
     b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]

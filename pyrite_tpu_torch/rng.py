@@ -18,14 +18,21 @@ lane is word k % 4 of block k // 4. Per lane:
   U_NEE      u_nee [ls, 4]          light sample j is block j
   U_EMIS     u_emis [ls]            light sample j is word j
 
-A uniform is (x >> 8) * 2^-24, exact in f32 on every device. Lane l of a
-wavefront of ``samples`` samples starting at sample ``sample0`` draws for
-pixel ``pixel0 + l % n_pix`` and sample ``sample0 + l // n_pix``.
+A uniform is (x >> 8) * 2^-24, exact in f32 on every device. Lanes take
+their words in one of two ways. ``KeyedDraws`` (affine, the one-shot
+wavefront): lane l of a wavefront of ``samples`` samples starting at sample
+``sample0`` draws for pixel ``pixel0 + l % n_pix`` and sample ``sample0 + l
+// n_pix``, every lane at the bounce the call names. ``LaneKeys``
+(indexed, the regeneration and survivor-pool schedulers): int32 tensors
+give each lane its pixel, its sample and, optionally, its bounce; fed the
+affine indices they give the affine draws bit for bit.
 
-``camera_uniforms`` and ``bounce_draws`` compute the plain version for
-tensors on the CPU and launch ``philox_draws_kernel`` (csrc/draws.cu) on a
-CUDA device, one launch per call; ``philox_plain`` is the plain version on
-any device. It replaces the per-bounce jax.random draws of the JAX package
+``camera_uniforms``, ``bounce_draws`` and ``lane_draws`` (a regeneration
+iteration's camera draws, on a mask of lanes, and bounce draws in one
+launch) compute the plain version for tensors on the CPU and launch
+``philox_draws_kernel`` (csrc/draws.cu) on a CUDA device, one launch per
+call; ``philox_plain`` is the plain version on any device. It replaces
+the per-bounce jax.random draws of the JAX package
 (pyrite_tpu/tracer.py draw_bounce_uniforms), which keys its draws per
 (sample, bounce, purpose) with threefry; the bits differ, the layout of the
 draws dict does not.
@@ -71,6 +78,22 @@ class KeyedDraws:
         return n // self.samples
 
 
+@dataclass(frozen=True)
+class LaneKeys:
+    """Draws keyed lane by lane under ``seed``: lane l draws for pixel
+    ``pixel[l]`` and sample ``sample[l]``, at bounce ``depth[l]`` or, where
+    ``depth`` is None, at the bounce the call names. The three are [n] int32
+    tensors on the device that draws."""
+
+    seed: int
+    pixel: torch.Tensor
+    sample: torch.Tensor
+    depth: torch.Tensor | None = None
+
+    def key(self):
+        return self.seed & _MASK, (self.seed >> 32) & _MASK
+
+
 def _mulhilo(m, x):
     """(hi, lo) 32-bit words of m * x for a 32-bit constant m and int64
     tensor x of 32-bit words, every intermediate below 2^63: m is split into
@@ -100,22 +123,29 @@ def to_uniform(words):
     return (words >> 8).to(torch.float32) * (1.0 / 16777216.0)
 
 
-def _lanes(draws: KeyedDraws, n, device):
-    """(pixel, sample) int64 words of each of ``n`` lanes."""
+def _lanes(draws, n, bounce, device):
+    """(pixel, sample, bounce) int64 words of each of ``n`` lanes."""
+    if isinstance(draws, LaneKeys):
+        word = lambda t: t.to(device=device, dtype=torch.int64) & _MASK
+        depth = (torch.full((n,), bounce & _MASK, dtype=torch.int64, device=device)
+                 if draws.depth is None else word(draws.depth))
+        return word(draws.pixel), word(draws.sample), depth
     n_pix = draws.n_pix(n)
     lane = torch.arange(n, dtype=torch.int64, device=device)
-    return (draws.pixel0 + lane % n_pix) & _MASK, (draws.sample0 + lane // n_pix) & _MASK
+    return ((draws.pixel0 + lane % n_pix) & _MASK, (draws.sample0 + lane // n_pix) & _MASK,
+            torch.full((n,), bounce & _MASK, dtype=torch.int64, device=device))
 
 
-def purpose_uniforms(draws: KeyedDraws, n, bounce, purpose, width, device):
+def purpose_uniforms(draws, n, bounce, purpose, width, device):
     """The plain version of one purpose's draws: [n, width] f32 uniforms of
-    words 0 .. width - 1 for each lane at ``bounce``."""
-    pixel, sample = _lanes(draws, n, device)
+    words 0 .. width - 1 for each lane at ``bounce`` (a LaneKeys' own depth
+    where it has one)."""
+    pixel, sample, depth = _lanes(draws, n, bounce, device)
     blocks = -(-width // 4)
     ctr = torch.stack([
         pixel[:, None].expand(n, blocks),
         sample[:, None].expand(n, blocks),
-        torch.full((n, blocks), bounce & _MASK, dtype=torch.int64, device=device),
+        depth[:, None].expand(n, blocks),
         (purpose << 16) + torch.arange(blocks, dtype=torch.int64, device=device)[None, :].expand(n, blocks),
     ], dim=-1)
     words = philox_plain(draws.key(), ctr).reshape(n, blocks * 4)[:, :width]
@@ -127,11 +157,15 @@ def lamp_index(u, num_lamps):
     return torch.clamp((u * float(num_lamps)).to(torch.int32), max=num_lamps - 1)
 
 
-def camera_plain(draws: KeyedDraws, n, s, device):
+def camera_plain(draws, n, s, device):
+    """The camera draws (bounce 0) of every lane, whatever a LaneKeys'
+    depth."""
+    if isinstance(draws, LaneKeys):
+        draws = LaneKeys(draws.seed, draws.pixel, draws.sample)
     return purpose_uniforms(draws, n, 0, CAMERA, s + 5, device)
 
 
-def bounce_plain(draws: KeyedDraws, n, bounce, light_samples, num_lamps, device):
+def bounce_plain(draws, n, bounce, light_samples, num_lamps, device):
     """The plain version of bounce_draws."""
     u = lambda purpose, width: purpose_uniforms(draws, n, bounce, purpose, width, device)
     out = {"u_comp": u(U_COMP, 1)[:, 0].contiguous(), "u_scatter": u(U_SCATTER, 3)}
@@ -165,16 +199,34 @@ def _check_lanes(n):
         raise ValueError(f"{n} lanes: philox_draws_kernel takes at most INT_MAX = {INT_MAX}")
 
 
-def _launch(draws: KeyedDraws, n, out, bounce, s_cam, light_samples, num_lamps):
-    """One launch of philox_draws_kernel writing into ``out``: the camera
-    draws [n, s_cam + 5] (s_cam > 0) or a bounce's draws in _layout."""
+def _index(name, t, n, dev):
+    """The address of an indexed-mode [n] tensor, checked."""
+    from .kernels_dense import _check
+
+    return _check(name, t, torch.uint8 if name == "camera_mask" else torch.int32, (n,), dev)
+
+
+def _launch(draws, n, dev, cam_out=None, out=None, bounce=0, s_cam=0, light_samples=0,
+            num_lamps=0, camera_mask=None):
+    """One launch of philox_draws_kernel writing the camera draws [n, s_cam
+    + 5] into ``cam_out`` and a bounce's draws in _layout into ``out`` (each
+    where given); a LaneKeys launches the indexed mode, where
+    ``camera_mask`` (bool [n]) picks the lanes that take camera draws."""
     from . import _build
 
     k0, k1 = draws.key()
-    dev = out.device
+    if isinstance(draws, LaneKeys):
+        affine = (1, 0, 0)
+        index = [_index("pixel", draws.pixel, n, dev), _index("sample", draws.sample, n, dev),
+                 0 if draws.depth is None else _index("depth", draws.depth, n, dev),
+                 0 if camera_mask is None else _index("camera_mask", camera_mask.view(torch.uint8), n, dev)]
+    else:
+        affine = (draws.n_pix(n), draws.pixel0 & _MASK, draws.sample0 & _MASK)
+        index = [0, 0, 0, 0]
     rc = _build.load().pyrite_philox_draws(
-        k0, k1, n, draws.n_pix(n), draws.pixel0 & _MASK, draws.sample0 & _MASK, bounce & _MASK,
-        s_cam, light_samples, num_lamps, out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream,
+        k0, k1, n, *affine, bounce & _MASK, s_cam, light_samples, num_lamps,
+        0 if cam_out is None else cam_out.data_ptr(), 0 if out is None else out.data_ptr(), *index,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"philox_draws_kernel launch failed: cudaError {rc}")
@@ -185,40 +237,81 @@ def _device(device):
     dev = torch.device(device)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"the keyed draws run on CPU or CUDA tensors, not {dev}")
+    if dev.type == "cuda" and dev.index is None:  # as the tensors made on it report it
+        dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
-def camera_uniforms(draws: KeyedDraws, n, s, device):
-    """The camera draws of ``n`` lanes, [n, s + 5] f32 (renderers.simple
-    chunk_rays' layout: jitter 2, lens 2, wavelengths s, hero 1)."""
-    dev = _device(device)
-    if dev.type == "cpu":
-        return camera_plain(draws, n, s, dev)
+def _camera_buffer(n, s, dev):
     from .kernels_dense import MAX_SPECTRUM_SAMPLES  # csrc/draws.cu stages S + 5 words a lane
 
-    _check_lanes(n)
     if not 1 <= s <= MAX_SPECTRUM_SAMPLES:
         raise ValueError(f"{s} spectrum samples; philox_draws_kernel takes 1 to {MAX_SPECTRUM_SAMPLES}")
-    u = torch.empty((n, s + 5), dtype=torch.float32, device=dev)
-    _launch(draws, n, u, 0, s, 0, 0)
-    return u
+    return torch.empty((n, s + 5), dtype=torch.float32, device=dev)
 
 
-def bounce_draws(draws: KeyedDraws, n, bounce, light_samples, num_lamps, device):
-    """All of one bounce's draws for ``n`` lanes, in the layout of
-    tracer.draw_bounce_uniforms: u_comp [n], u_scatter [n, 3] and, with
-    lamps and light samples, lamp_idx [n] int32, u_nee [ls, n, 4], u_emis
-    [ls, n]. On a CUDA device one launch writes them all into one buffer, of
-    which the tensors are views."""
-    dev = _device(device)
-    if dev.type == "cpu":
-        return bounce_plain(draws, n, bounce, light_samples, num_lamps, dev)
-    _check_lanes(n)
+def _bounce_buffer(n, light_samples, num_lamps, dev):
+    """(one f32 buffer for a bounce's draws, the draws dict of its views)."""
     total, layout = _layout(n, light_samples, num_lamps)
     buf = torch.empty(total, dtype=torch.float32, device=dev)
-    _launch(draws, n, buf, bounce, 0, light_samples, num_lamps)
     out = {}
     for name, (off, shape) in layout.items():
         view = buf[off : off + math.prod(shape)].view(shape)
         out[name] = view.view(torch.int32) if name == "lamp_idx" else view
+    return buf, out
+
+
+def camera_uniforms(draws, n, s, device):
+    """The camera draws of ``n`` lanes, [n, s + 5] f32 (renderers.simple
+    camera_rays' layout: jitter 2, lens 2, wavelengths s, hero 1), at bounce
+    0 whatever a LaneKeys' depth."""
+    dev = _device(device)
+    if dev.type == "cpu":
+        return camera_plain(draws, n, s, dev)
+    _check_lanes(n)
+    u = _camera_buffer(n, s, dev)
+    _launch(draws, n, dev, cam_out=u, s_cam=s)
+    return u
+
+
+def bounce_draws(draws, n, bounce, light_samples, num_lamps, device):
+    """All of one bounce's draws for ``n`` lanes, in the layout of
+    tracer.draw_bounce_uniforms: u_comp [n], u_scatter [n, 3] and, with
+    lamps and light samples, lamp_idx [n] int32, u_nee [ls, n, 4], u_emis
+    [ls, n]; at ``bounce``, or a LaneKeys' own depth. On a CUDA device one
+    launch writes them all into one buffer, of which the tensors are
+    views."""
+    dev = _device(device)
+    if dev.type == "cpu":
+        return bounce_plain(draws, n, bounce, light_samples, num_lamps, dev)
+    _check_lanes(n)
+    buf, out = _bounce_buffer(n, light_samples, num_lamps, dev)
+    _launch(draws, n, dev, out=buf, bounce=bounce, light_samples=light_samples, num_lamps=num_lamps)
     return out
+
+
+def lane_draws_plain(keys: LaneKeys, s, light_samples, num_lamps, camera_mask, device):
+    """The plain version of lane_draws."""
+    n = keys.pixel.shape[0]
+    cam = camera_plain(keys, n, s, device)
+    cam = torch.where(camera_mask.to(device)[:, None], cam, 0.0)
+    return cam, bounce_plain(keys, n, 0, light_samples, num_lamps, device)
+
+
+def lane_draws(keys: LaneKeys, s, light_samples, num_lamps, camera_mask, device):
+    """A regeneration iteration's draws in one launch: (the camera draws [n,
+    s + 5] of the lanes ``camera_mask`` (bool [n]) picks, zeros on the
+    others; the bounce draws of every lane at its own depth, as
+    bounce_draws)."""
+    dev = _device(device)
+    if keys.depth is None:
+        raise ValueError("lane_draws draws each lane at its own depth: LaneKeys.depth is None")
+    n = keys.pixel.shape[0]
+    if dev.type == "cpu":
+        return lane_draws_plain(keys, s, light_samples, num_lamps, camera_mask, dev)
+    _check_lanes(n)
+    cam = _camera_buffer(n, s, dev)
+    buf, out = _bounce_buffer(n, light_samples, num_lamps, dev)
+    _launch(keys, n, dev, cam_out=cam, out=buf, s_cam=s, light_samples=light_samples,
+            num_lamps=num_lamps, camera_mask=camera_mask)
+    return cam, out

@@ -808,7 +808,15 @@ class CameraModel:
         else:
             origin = torch.zeros_like(target)
             direction = geom.normalize(target)
-        m = torch.as_tensor(self.transform, device=target_xy.device)
-        world_origin = origin @ m[:3, :3].T + m[:3, 3]
-        world_dir = direction @ m[:3, :3].T
-        return world_origin, world_dir
+        # the 3x3 product written out, ((x m0 + y m1) + z m2) per component:
+        # a matrix product's rounding may change with the batch, and a lane's
+        # ray must not depend on the wavefront it rides in (the regeneration
+        # scheduler's lanes equal the one-shot wavefront's)
+        m = [[float(v) for v in row] for row in np.asarray(self.transform, np.float32)[:3]]
+
+        def rotate(v):
+            return torch.stack(
+                [v[:, 0] * r[0] + v[:, 1] * r[1] + v[:, 2] * r[2] for r in m], dim=-1)
+
+        world_origin = rotate(origin) + torch.tensor([r[3] for r in m], device=origin.device)
+        return world_origin, rotate(direction)

@@ -16,7 +16,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .geometry import dot
+from .geometry import dot, power
 
 DEFAULT_SPECTRUM_SPAN = (380.0, 780.0)
 
@@ -149,7 +149,7 @@ def builtin_spectrum(name: str):
 def blackbody(wavelength_nm, temperature):
     """Planck's law (un-normalized, same constants as the reference)."""
     wl = wavelength_nm * 1.0e-9
-    power_term = 3.74183e-16 * wl ** -5.0
+    power_term = 3.74183e-16 * power(wl, -5.0)
     return power_term / (torch.exp(1.4388e-2 / (wl * temperature)) - 1.0)
 
 

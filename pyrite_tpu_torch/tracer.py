@@ -66,6 +66,11 @@ DE_OMEGA = 1.6
 # the plain version's calls, "bounces" the bounce iterations trace_paths ran
 # (by either route).
 launches = {"bounce_core": 0, "bounces": 0}
+# Lane-bounces of the bounce loops since a caller last zeroed them:
+# "executed", every lane of every bounce iteration; "live", the lanes whose
+# path still runs and will be exposed (the alive lanes of trace_paths and of
+# the survivor pool, the quota-bound lanes of a regeneration launch).
+lane_bounces = {"live": 0, "executed": 0}
 
 # Work the plain version counts while a caller sets this to a dict (None:
 # no counting, and no host syncs for it): "de_steps" (march steps of all
@@ -449,9 +454,9 @@ def _de_mandelbulb(est, px, py, pz):
         r_new = torch.sqrt(torch.clamp(zx * zx + zy * zy + zz * zz, min=1e-30))
         done_now = done | (r_new > threshold)
         theta = torch.acos(torch.clamp(zz / r_new, -1.0, 1.0)) * power
-        phi = torch.atan2(zy, zx) * power
-        dr_new = r_new**power_m1 * power * dr + dc
-        zr = r_new**power
+        phi = geom.atan2(zy, zx) * power
+        dr_new = geom.power(r_new, power_m1) * power * dr + dc
+        zr = geom.power(r_new, power)
         st = torch.sin(theta)
         nx = st * torch.cos(phi) * zr + cx
         ny = torch.sin(phi) * st * zr + cy
@@ -1085,8 +1090,11 @@ def trace_paths(scene: Scene, cfg: TraceConfig, rng, origin, direction, waveleng
     state = initial_state(origin, direction, wavelengths.shape[1])
     bank_vals = kernels_dense.precompute_bank_values(scene, wavelengths)
     for i in range(cfg.bounces):
-        if not bool(state["alive"].any()):
+        live = int(state["alive"].sum())
+        if live == 0:
             break
+        lane_bounces["live"] += live
+        lane_bounces["executed"] += n
         if isinstance(rng, KeyedDraws):
             draws = draw_bounce_uniforms(scene, cfg, n, rng, i, origin.device)
         else:

@@ -237,3 +237,50 @@ def test_cuda_traversal_refuses_misaligned_leaves(tmp_path):
         kernels.closest_wide(scene, o, d)
     with pytest.raises(ValueError, match="16-byte"):
         kernels.shadow_wide(scene, o, d, torch.ones(32, device="cuda"), torch.ones(32, device="cuda"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depths", ["per-lane", "one bounce"])
+def test_cuda_indexed_draws_match_plain(tmp_path, depths):
+    """philox_draws_kernel's indexed mode (rng.LaneKeys, random pixels,
+    samples and depths) against rng.py's plain version on the CPU, bit for
+    bit: a regeneration iteration's lane_draws (camera draws on a mask,
+    zeros elsewhere) and the pool's bounce draws at one bounce."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pyrite_tpu_torch import rng
+
+    path = chip_smoke.scene_paths(str(tmp_path), width=128, height=64)["flagship"]
+    scene, film, camera, cfg = chip_smoke.load_scene(path)
+    keys, mask = chip_smoke._lane_keys(film, 3, cfg.bounces, 11)
+    cpu = torch.device("cpu")
+    on_cpu = rng.LaneKeys(keys.seed, keys.pixel.cpu(), keys.sample.cpu(), keys.depth.cpu())
+    ls, lamps, s = cfg.light_samples, scene.num_lamps, cfg.spectrum_samples
+    if depths == "per-lane":
+        cam, got = rng.lane_draws(keys, s, ls, lamps, mask, "cuda")
+        cam_w, want = rng.lane_draws_plain(on_cpu, s, ls, lamps, mask.cpu(), cpu)
+        assert torch.equal(cam.cpu(), cam_w)
+    else:
+        n = keys.pixel.shape[0]
+        got = rng.bounce_draws(rng.LaneKeys(keys.seed, keys.pixel, keys.sample), n, 5, ls, lamps, "cuda")
+        want = rng.bounce_plain(rng.LaneKeys(keys.seed, on_cpu.pixel, on_cpu.sample), n, 5, ls, lamps, cpu)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k].cpu(), want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flagship", "terrain_24", "fractal"])
+def test_cuda_schedulers_match_one_shot(tmp_path, name):
+    """A render through regeneration and through the survivor pool on the
+    card equals the one-shot render: wt equal, acc within rtol 1e-4."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    directory = str(tmp_path)
+    path = {
+        "flagship": lambda: chip_smoke.scene_paths(directory, width=128, height=64)["flagship"],
+        "terrain_24": lambda: chip_smoke.terrain_paths(directory, cells=(24,), width=128,
+                                                       height=64)["terrain_24"],
+        "fractal": lambda: _de_path(directory, "fractal"),
+    }[name]()
+    assert chip_smoke.compare_schedulers(name, path, 3, torch.cuda.get_device_name(0)) <= 1e-4

@@ -129,6 +129,7 @@ def test_render_is_the_same_in_any_batch(flagship, monkeypatch):
     against two wavefronts of one: the film is bit-equal (each lane draws by
     its pixel and sample; the film exposes them in sample order)."""
     project_data, scene = flagship
+    monkeypatch.setattr(simple, "regen_enabled", lambda: False)  # the one-shot wavefront
     films = []
     for batch in (2, 1):
         monkeypatch.setattr(simple, "pick_sample_batch", lambda film, b=batch: b)
