@@ -53,6 +53,20 @@ and exits non-zero on any failure:
    terrain_405 and their shadow rays (wide traversal kernels);
    kernels.march_de marches one step's camera rays of fractal.lua (DE march
    kernel). No bounce may take the plain path.
+6. the bidirectional renderer (renderers/bidirectional.py) on
+   cornell_class (write_cornell_scene: the reference workload's 512 x 512,
+   4 + 4 bounces, S = 10, 50 bins over a Cornell-class box with a triangle
+   lamp, dispersive glass and a quaternion Julia), flagship_bdpt (the
+   flagship with renderer.bidirectional, 8 + 8 bounces; and at
+   light_bounces = 24, the two-phase step) and terrain_405_bdpt (the wide
+   kernels): its kernels against their plain versions at a render's
+   wavefront (check_bdpt: the lamp kernel, the bounce kernel's kRecord
+   instantiation and, bit for bit, dense_shadow_kernel on the connection
+   and splat batches), their times and bounds (time_bdpt), a 64 x 64
+   Cornell render through the kernels against one through the plain
+   versions on the card (compare_bdpt_plain), and the four renders through
+   the CLI with the counts zeroed just before each (render_bdpt). No step
+   may take the plain path.
 
 The last line is one JSON object {"ok": true, "device": {...}}; the line
 before it lists each kernel's launches, error, times and bound.
@@ -62,14 +76,17 @@ dense bounce and NEE kernels alone (measure_rows).
 ``python3 chip_smoke.py --profile`` instead renders the main-path scenes
 (flagship and terrain_405 at 64 spp, fractal.lua at 8 spp) through
 renderers.simple.render under the one-shot wavefront and under
-regeneration, 5 timed runs after a warm-up and one run under
-torch.profiler, and prints the launches, lane-bounces, peak memory, wall
-times, device idle share and top device ops of each. Both modes print each kernel's registers and
+regeneration, and the bidirectional scenes of phase 6 through
+renderers.bidirectional.render (profile_bdpt), 5 timed runs after a
+warm-up and one run under torch.profiler, and prints the launches,
+lane-bounces, peak memory, wall times, device idle share and top device ops
+of each. Both modes print each kernel's registers and
 spills (ptxas -v) after the build.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -256,6 +273,99 @@ def write_julia_scene(directory, width=256, height=256, spectrum_samples=4, boun
     path = os.path.join(directory, "julia.lua")
     with open(path, "w") as fh:
         fh.write(JULIA_SCENE % {"w": width, "h": height, "s": spectrum_samples, "b": bounces})
+    return path
+
+
+CORNELL_SCENE = """
+return {
+    image = {width = %(w)d, height = %(h)d},
+    renderer = renderer.bidirectional {
+        pixel_samples = %(spp)d,
+        spectrum_samples = %(s)d,
+        spectrum_resolution = 50,
+        bounces = %(b)d,
+        light_bounces = %(lb)d,
+        light_samples = 1,
+    },
+    camera = camera.perspective {
+        fov = 40,
+        transform = transform.look_at {from = vector(0, 3, -10.5), to = vector(0, 3, 0)},
+    },
+    world = {
+        objects = {
+            shape.mesh {
+                file = "cornell_box.obj", materials = {
+                    white = {surface = material.diffuse {color = 0.75}},
+                    red = {surface = material.diffuse {color = rgb(0.7, 0.1, 0.1)}},
+                    green = {surface = material.diffuse {color = rgb(0.1, 0.6, 0.15)}},
+                    lamp = {surface = material.emissive {color = light_source.d65 * 10}},
+                },
+            },
+            shape.sphere {
+                radius = 0.9, position = vector(-1.4, 0.9, -0.6),
+                material = {surface = material.refractive {ior = 1.5, dispersion = 0.01, color = 1}},
+            },
+            shape.ray_marched {
+                shape = ray_marched.quaternion_julia {
+                    iterations = 25,
+                    threshold = 4,
+                    constant = vector(-0.45, -0.0375, -0.4, -0.025),
+                    slice_plane = 0,
+                    variant = quaternion_julia.cubic,
+                },
+                bounds = {type = "sphere", position = vector(1.3, 1.5, 0.9), radius = 1.5},
+                material = {surface = material.diffuse {color = rgb(0.8, 0.55, 0.35)}},
+            },
+        },
+    },
+}
+"""
+
+
+def _cornell_obj():
+    """The box's OBJ text: five walls of 6 x 6 (x in [-3, 3], y in [0, 6],
+    z in [-3, 3], open toward the camera at z = -3; the red wall at x = 3,
+    on the camera's left) and a 1.8 x 1.8 lamp
+    quad just under the ceiling, two triangles each, wound so that each
+    face's normal (e1 x e2) points into the box."""
+    import numpy as np
+
+    quads = [  # (object, corners, inward normal)
+        ("white", [(-3, 0, -3), (3, 0, -3), (3, 0, 3), (-3, 0, 3)], (0, 1, 0)),
+        ("white", [(-3, 6, -3), (3, 6, -3), (3, 6, 3), (-3, 6, 3)], (0, -1, 0)),
+        ("white", [(-3, 0, 3), (3, 0, 3), (3, 6, 3), (-3, 6, 3)], (0, 0, -1)),
+        ("green", [(-3, 0, -3), (-3, 0, 3), (-3, 6, 3), (-3, 6, -3)], (1, 0, 0)),
+        ("red", [(3, 0, -3), (3, 0, 3), (3, 6, 3), (3, 6, -3)], (-1, 0, 0)),
+        ("lamp", [(-0.9, 5.98, -0.9), (0.9, 5.98, -0.9), (0.9, 5.98, 0.9), (-0.9, 5.98, 0.9)],
+         (0, -1, 0)),
+    ]
+    lines, count = [], 0
+    for name, corners, inward in quads:
+        c = np.asarray(corners, np.float64)
+        if np.dot(np.cross(c[1] - c[0], c[2] - c[0]), inward) < 0:
+            c = c[::-1]
+        lines.append(f"o {name}")
+        lines += [f"v {x:g} {y:g} {z:g}" for x, y, z in c]
+        lines += [f"f {count + 1} {count + 2} {count + 3}", f"f {count + 1} {count + 3} {count + 4}"]
+        count += 4
+    return "\n".join(lines) + "\n"
+
+
+def write_cornell_scene(directory, width=512, height=512, spectrum_samples=10, bounces=4,
+                        light_bounces=4, spp=64):
+    """cornell_class, the reference's own workload at its published
+    settings (SURVEY.md section 6, test/cornell/cornell.lua:17-27: BDPT,
+    512 x 512, 4 + 4 bounces, 10 spectrum samples, 50 bins) over an
+    in-repo Cornell-class box: five diffuse walls as triangles (white, red,
+    green), a triangle-quad ceiling lamp, a dispersive glass sphere and the
+    julia scene's cubic quaternion Julia; a dense scene of 12 triangles, a
+    sphere and one DE shape. Returns the .lua path."""
+    with open(os.path.join(directory, "cornell_box.obj"), "w") as fh:
+        fh.write(_cornell_obj())
+    path = os.path.join(directory, "cornell.lua")
+    with open(path, "w") as fh:
+        fh.write(CORNELL_SCENE % {"w": width, "h": height, "s": spectrum_samples, "b": bounces,
+                                  "lb": light_bounces, "spp": spp})
     return path
 
 
@@ -1371,7 +1481,7 @@ def time_draws(path, card, seed=5, plain_reps=5):
     k0, k1 = keyed.key()
     stream = torch.cuda.current_stream().cuda_stream
     affine = (k0, k1, n, keyed.n_pix(n), keyed.pixel0, keyed.sample0, 1, 0, ls, lamps, 0,
-              buf.data_ptr(), 0, 0, 0, 0, stream)
+              buf.data_ptr(), 0, 0, 0, 0, 0, 0, 0, 0, stream)
     keys, mask = _lane_keys(film, _regen_planes(film), cfg.bounces, seed)
     m = keys.pixel.shape[0]
     m_words, _ = rng._layout(m, ls, lamps)
@@ -1379,7 +1489,7 @@ def time_draws(path, card, seed=5, plain_reps=5):
     out = torch.empty(m_words, dtype=torch.float32, device="cuda")
     indexed = (k0, k1, m, 1, 0, 0, 0, s, ls, lamps, cam.data_ptr(), out.data_ptr(),
                keys.pixel.data_ptr(), keys.sample.data_ptr(), keys.depth.data_ptr(),
-               mask.view(torch.uint8).data_ptr(), stream)
+               mask.view(torch.uint8).data_ptr(), 0, 0, 0, 0, stream)
     lib = _build.load()
     cuda = torch.device("cuda")
     times = _time_pairs(
@@ -1770,21 +1880,24 @@ def _issue_rate():
 
 def _zero_counts():
     from pyrite_tpu_torch import kernels, kernels_dense as kd, rng, tracer
-    from pyrite_tpu_torch.renderers import simple
+    from pyrite_tpu_torch.renderers import bidirectional as bd, simple
 
     for counts in (kd.launches, kernels.launches, tracer.launches, rng.launches, simple.counters,
-                   tracer.lane_bounces):
+                   bd.counters, tracer.lane_bounces):
         for k in counts:
             counts[k] = 0
 
 
 def _read_counts():
     from pyrite_tpu_torch import kernels, kernels_dense as kd, rng, tracer
-    from pyrite_tpu_torch.renderers import simple
+    from pyrite_tpu_torch.renderers import bidirectional as bd, simple
 
     return dict(kd.launches, **kernels.launches, **tracer.launches, **rng.launches, **simple.counters,
+                **{k: int(v) for k, v in bd.counters.items()},
                 live_lane_bounces=tracer.lane_bounces["live"],
-                executed_lane_bounces=tracer.lane_bounces["executed"])
+                executed_lane_bounces=tracer.lane_bounces["executed"],
+                lamp_live=tracer.lane_bounces["lamp_live"],
+                lamp_executed=tracer.lane_bounces["lamp_executed"])
 
 
 class scheduler:
@@ -2001,6 +2114,563 @@ def drive_march(path, card, seed=2):
     return launches
 
 
+# --- the bidirectional renderer (phases 3-5) -------------------------------------
+
+
+def bdpt_scene_paths(directory, spp=4, small=False):
+    """The bidirectional renderer's scenes on the card: cornell_class
+    (write_cornell_scene at the reference workload's settings),
+    flagship_bdpt (__graft_entry__._SCENE_SRC with renderer.bidirectional,
+    as __graft_entry__._build writes it, at 512 x 256, S = 6, 8 + 8
+    bounces),
+    flagship_bdpt_24 (the same at light_bounces = 24: the two-phase step)
+    terrain_405_bdpt (tools/synthetic.terrain_scene, 328,050
+    triangles, renderer.bidirectional at 256 x 128, 4 + 4 bounces: the
+    wide kernels) and terrain_de_24_bdpt (write_terrain_de_scene, a mesh
+    with a Mandelbulb, at the same settings: the wide kernels and the DE
+    march). ``small``: the films at 64 x 64, 128 x 64 and 64 x 32, and
+    terrain_24_bdpt (1,152 triangles) for terrain_405_bdpt, for quick
+    checks. Returns {name: .lua path}."""
+    sys.path.insert(0, ROOT)
+    from __graft_entry__ import _SCENE_SRC
+    from tools.synthetic import terrain_scene
+
+    def bdpt(text, bounces, light_bounces):
+        return text.replace("renderer.simple", "renderer.bidirectional").replace(
+            f"bounces = {bounces},", f"bounces = {bounces}, light_bounces = {light_bounces},", 1)
+
+    size = (64, 64, 128, 64, 24) if small else (512, 512, 512, 256, 405)
+    out = {"cornell_class": write_cornell_scene(directory, *size[:2], spp=spp)}
+    flagship = _SCENE_SRC % {"w": size[2], "h": size[3], "s": 6, "b": 8}
+    for name, lb in (("flagship_bdpt", 8), ("flagship_bdpt_24", 24)):
+        out[name] = os.path.join(directory, name + ".lua")
+        with open(out[name], "w") as fh:
+            fh.write(bdpt(flagship, 8, lb))
+    cells = size[4]
+    terrain = terrain_scene(directory, cells=cells, width=size[2] // 2 if small else 256,
+                            height=size[3] // 2 if small else 128, spp=spp, bounces=4)[0]
+    name = f"terrain_{cells}_bdpt"
+    out[name] = os.path.join(directory, name + ".lua")
+    with open(terrain) as fh, open(out[name], "w") as dst:
+        dst.write(bdpt(fh.read(), 4, 4))
+    # a directory of its own: write_terrain_de_scene writes terrain_24.lua
+    mixed_dir = os.path.join(directory, "terrain_de_bdpt")
+    os.makedirs(mixed_dir, exist_ok=True)
+    mixed = write_terrain_de_scene(mixed_dir, width=size[2] // 2, height=size[3] // 2, spp=spp)
+    out["terrain_de_24_bdpt"] = os.path.join(mixed_dir, "terrain_de_24_bdpt.lua")
+    with open(mixed) as fh, open(out["terrain_de_24_bdpt"], "w") as dst:
+        dst.write(bdpt(fh.read(), 4, 4))
+    return out
+
+
+def _bdpt_setup(path, seed):
+    """The bidirectional renderer's first chunk of a scene as render() runs
+    it on the card (all rows where they fit, bidirectional.
+    pick_rows_per_chunk): (scene, film, camera, cfg, lamp cfg, keyed draws,
+    (positions, origin, direction, wavelengths), program values)."""
+    from pyrite_tpu_torch import kernels_dense as kd
+    from pyrite_tpu_torch.project import load_project
+    from pyrite_tpu_torch.renderers import bidirectional as bd
+    from pyrite_tpu_torch.renderers.simple import chunk_rays
+    from pyrite_tpu_torch.rng import KeyedDraws
+    from pyrite_tpu_torch.tracer import TraceConfig
+
+    scene, film, camera, cfg = _gpu_scene(path)
+    light_bounces = load_project(path).project.renderer.light_bounces
+    rows = bd.pick_rows_per_chunk(film, light_bounces, cfg.spectrum_samples)
+    keyed = KeyedDraws(seed)
+    rays = chunk_rays(film, camera, cfg, keyed, rows=rows, device=scene.device)
+    lamp_cfg = TraceConfig(light_bounces, 0, cfg.spectrum_samples, cfg.max_de_steps)
+    return scene, film, camera, cfg, lamp_cfg, keyed, rays, kd.precompute_bank_values(scene, rays[3])
+
+
+def _close_where(ref, got, keys, where, what):
+    """Vectors within rtol 1e-3 / atol 1e-4 on the lanes ``where``; returns
+    the largest absolute error."""
+    err = 0.0
+    for k in keys:
+        diff = (ref[k] - got[k]).abs()
+        ok = diff <= 1e-4 + 1e-3 * ref[k].abs()
+        if diff.dim() > 1:
+            ok, diff = ok.all(dim=-1), diff.amax(dim=-1)
+        bad = int((~ok & where).sum())
+        assert bad == 0, f"{what}: {k} off on {bad} lanes (max {float(diff[where].max())})"
+        if bool(where.any()):
+            err = max(err, float(diff[where].max()))
+    return err
+
+
+def _flags_equal(ref, got, keys, what, where=None):
+    for k in keys:
+        differ = ref[k] != got[k]
+        if where is not None:
+            differ &= where
+        bad = int(differ.sum())
+        assert bad == 0, f"{what}: {k} differs on {bad} lanes"
+
+
+def _compare_vertex(ref, got, what):
+    """A lamp vertex and the walk's next state: validity and alive exact on
+    every lane, the other flags exact where the vertex is valid, vectors
+    within rtol 1e-3 / atol 1e-4 there. Returns the largest error."""
+    ref_v, ref_s = ref
+    got_v, got_s = got
+    valid = ref_v["valid"]
+    _flags_equal(ref_v, got_v, ("valid",), what)
+    _flags_equal(ref_s, got_s, ("alive",), what)
+    _flags_equal(ref_v, got_v, ("is_diffuse", "dispersed", "color_prog"), what, valid)
+    keys = ("position", "normal", "probability", "brdf") + (
+        ("brdf_scatter",) if "brdf_scatter" in ref_v else ())
+    err = _close_where(ref_v, got_v, keys, valid, what)
+    return max(err, _close_where(ref_s, got_s, ("origin", "direction"), ref_s["alive"], what))
+
+
+def check_bdpt(name, path, seed=0, cut=None):
+    """Phase 3 for the bidirectional renderer's kernels on one scene, at the
+    wavefront render() launches (its first chunk; ``cut`` keeps its first
+    lanes): from the same state and draws, each against its plain version
+    on CUDA tensors, each step started from the plain state:
+    B, the lamp kernel's start mode against tracer.lamp_start and its
+    bounces against tracer.lamp_bounce_step (a flag that differs on any
+    lane fails); A, the bounce kernel's kRecord instantiation with the NEE
+    kernel (kernels_dense.bounce_dense, record) against
+    tracer.bounce_core(record=True) for the camera bounces: the state as
+    check_kernels holds it, the camera vertex's flags exact on every lane
+    and its position, normal and BRDF factor within rtol 1e-3 / atol 1e-4
+    on the diffuse vertices that connections read; and
+    kernels_dense.shadow_query (C, dense_shadow_kernel, on a dense scene;
+    wide_shadow_kernel on a mesh scene; after the query march pass on a
+    scene with DE shapes) bit for bit against shadow_query_plain on the
+    connection batch of camera bounce 0 and on the splat batch of the
+    plain lamp paths. The plain versions march the
+    DE shapes in march_de_kernel (kernel_march). Returns the worst errors
+    and the inputs of the timed launches."""
+    with kernel_march():
+        return _check_bdpt(name, path, seed, cut)
+
+
+def _check_bdpt(name, path, seed, cut):
+    import torch
+
+    from pyrite_tpu_torch import kernels_dense as kd, rng, tracer
+    from pyrite_tpu_torch.renderers import bidirectional as bd
+
+    scene, film, camera, cfg, lamp_cfg, keyed, rays, bank = _bdpt_setup(path, seed)
+    positions, origin, direction, wl = (r[:cut] for r in rays)
+    if cut is not None:
+        bank = kd.precompute_bank_values(scene, wl)
+    n = wl.shape[0]
+    worst = {"lamp": 0.0, "record": 0.0, "brightness": 0.0, "divergent": 0.0}
+
+    dev = scene.device
+    start = rng.lamp_start_draws(keyed, n, scene.num_lamps, dev)
+    got = kd.lamp_start(scene, wl, start, bank)
+    vertex, state = tracer.lamp_start(scene, wl, start)
+    worst["lamp"] = _compare_vertex((vertex, state), got, f"{name} lamp start")
+    verts = [vertex]
+    incident = [state["direction"]]
+    timed = {"lamp": None}
+    for d in range(lamp_cfg.bounces):
+        draws = rng.lamp_bounce_draws(keyed, n, d, dev)
+        if d == 0:
+            timed["lamp"] = (dict(state), draws)
+        got_s, got_v = kd.lamp_bounce(scene, lamp_cfg, wl, state, draws, bank)
+        incident.append(state["direction"])
+        state, vertex = tracer.lamp_bounce_step(scene, lamp_cfg, wl, state, draws)
+        worst["lamp"] = max(worst["lamp"], _compare_vertex((vertex, state), (got_v, got_s),
+                                                           f"{name} lamp bounce {d}"))
+        verts.append(vertex)
+
+    cam = tracer.initial_state(origin, direction, wl.shape[1])
+    timed["record"] = None
+    infos = []
+    for b in range(cfg.bounces):
+        draws = tracer.draw_bounce_uniforms(scene, cfg, n, keyed, b, dev)
+        if b == 0:
+            timed["record"] = (dict(cam), draws)
+        out, info = kd.bounce_dense(scene, cfg, wl, cam, draws, bank, record=True)
+        plain, plain_info = tracer.bounce_core(scene, cfg, wl, cam, draws, record=True)
+        vec_err, b_err, share = _compare(plain, out, f"{name} camera bounce {b}")
+        _flags_equal(plain_info, info, ("is_diffuse", "dispersed", "recorded", "miss"),
+                     f"{name} camera vertex {b}")
+        rec_err = _close_where(plain_info, info, ("position", "normal", "brdf_stored"),
+                               plain_info["is_diffuse"], f"{name} camera vertex {b}")
+        worst["record"] = max(worst["record"], vec_err, rec_err)
+        worst["brightness"] = max(worst["brightness"], b_err)
+        worst["divergent"] = max(worst["divergent"], share)
+        infos.append((plain, plain_info))
+        cam = plain
+
+    result = {"worst": worst, "timed": timed, "setup": (scene, cfg, lamp_cfg, wl, bank)}
+    # the plain lamp paths' connection arrays (trace_lamp_path's stacking)
+    path_rec = {k: torch.stack([v[k] for v in verts], dim=1) for k in tracer.LAMP_VERTEX}
+    path_rec["incident_out"] = torch.stack(incident, dim=1)
+    path_rec["brdf_limit"] = verts[-1]["brdf_scatter"]
+    path_rec["length"] = path_rec["valid"].sum(dim=1).to(torch.int32)
+    conn = bd._connection_arrays(scene, path_rec, wl, rng.splat_draws(
+        keyed, n, lamp_cfg.bounces + 1, dev), bank)
+    plain0, info0 = infos[0]
+    query, _ = bd._conn_query(info0, conn["position"], conn["normal"], conn["conn_ok"])
+    conn_batch = (query["origin"], query["direction"], query["max_dist"], query["block_below"],
+                  query["contributes"])
+    _, s_origin, s_dir, s_dist, s_mask = bd._splat_query(camera, conn)
+    splat_batch = (s_origin, s_dir, s_dist, s_dist - tracer.DIST_EPSILON, s_mask)
+    shadow_k = "wide_shadow_kernel" if scene.use_clusters else "dense_shadow_kernel"
+    for what, batch in (("connection", conn_batch), ("splat", splat_batch)):
+        _zero_counts()
+        got_t = kd.shadow_query(scene, cfg, *batch)
+        counts = _read_counts()
+        assert counts[shadow_k] == 1 and counts["de_query_pass"] == int(bool(scene.de_shapes)) \
+            and counts["intersect_shadow"] == 0, counts
+        want_t = kd.shadow_query_plain(scene, cfg, *batch)
+        bad = int(_bits_differ(want_t, got_t).sum())
+        live = int(batch[4].sum())
+        blocked = float((got_t < batch[3])[batch[4]].float().mean()) if live else 0.0
+        print(f"[bdpt] {name} {what} batch: {batch[0].shape[0]} rays, {live} live, blocked "
+              f"share {blocked:.4f}; {shadow_k} t differs from the plain version's on {bad} rays")
+        assert live > 0 and bad == 0, f"{name}: the {what} batch's t differs on {bad} of {live} rays"
+    timed["shadow"] = conn_batch
+    print(f"[bdpt] {name}: {n} lanes, S={wl.shape[1]}, {cfg.bounces} + {lamp_cfg.bounces} "
+          f"bounces: lamp kernel max abs err {worst['lamp']:.3g}; bounce kernel <record> max abs "
+          f"err {worst['record']:.3g} (state and camera vertex), brightness "
+          f"{worst['brightness']:.3g}, divergent lanes {worst['divergent']:.4%} (flags exact, "
+          f"rtol 1e-3, atol 1e-4)")
+    return result
+
+
+def _once_ms(fn):
+    """Milliseconds of one call of ``fn``, host clock around a synchronise."""
+    import torch
+
+    torch.cuda.synchronize()
+    started = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - started) * 1e3
+
+
+def time_bdpt(checked, card):
+    """Phase 4 for the bidirectional renderer's kernels on one scene
+    (check_bdpt's result on a dense scene): per-launch ms of A (the bounce
+    kernel's kRecord instantiation at camera bounce 0, against
+    tracer.bounce_core(record) without NEE), B (the lamp kernel at lamp
+    depth 0, against tracer.lamp_bounce_step) and C (dense_shadow_kernel on
+    the connection batch of camera bounce 0, against shadow_query_plain),
+    each kernel alone, reading the march passes' t on a DE scene, as
+    time_kernels times the bounce kernel (the plain versions once each:
+    their DE march takes seconds a call); with the bytes each must move and
+    the FP32 operations its rays need (the marches out of them). Returns
+    {name: (kernel ms, plain ms, bytes, operations)}."""
+    import dataclasses
+
+    import torch
+
+    from pyrite_tpu_torch import _build, kernels_dense as kd, tracer
+
+    scene, cfg, lamp_cfg, wl, bank = checked["setup"]
+    n, s_count = wl.shape
+    lib = _build.load()
+    de = bool(scene.de_shapes)
+    cam, cam_draws = checked["timed"]["record"]
+    lamp, lamp_draws = checked["timed"]["lamp"]
+    t_cam = kd.march_pass(scene, cfg, cam) if de else None
+    a_args, _, _, _ = kd.bounce_kernel_args(scene, cfg, wl, cam, cam_draws, bank, t_cam, record=True)
+    t_lamp = kd.march_pass(scene, lamp_cfg, lamp) if de else None
+    b_args, _, _ = kd.lamp_kernel_args(scene, wl, lamp_draws["words"], bank, lamp, t_lamp)
+    batch = checked["timed"]["shadow"]
+    t_q = None
+    if de:
+        q_args, t_q = kd.query_pass_args(scene, cfg, batch[0], batch[1], batch[2], batch[4])
+        lib.pyrite_de_march_query_shadow(*q_args)
+    c_args, _ = kd.dense_shadow_args(scene, *batch, t_q)
+    record = kd.kernel_names(scene)[0] + "<record>"
+    lamp_name = kd._lamp_name(scene)
+    cfg_no_nee = dataclasses.replace(cfg, light_samples=0)
+    runs = {
+        record: lambda: getattr(lib, kd._LAUNCHERS[record])(*a_args),
+        lamp_name: lambda: getattr(lib, kd._LAUNCHERS[lamp_name])(*b_args),
+        "dense_shadow_kernel": lambda: lib.pyrite_dense_shadow(*c_args),
+    }
+    plains = {
+        record: lambda: tracer.bounce_core(scene, cfg_no_nee, wl, cam, cam_draws, record=True),
+        lamp_name: lambda: tracer.lamp_bounce_step(scene, lamp_cfg, wl, lamp, lamp_draws),
+        "dense_shadow_kernel": lambda: kd.shadow_query_plain(scene, cfg, *batch),
+    }
+    # the plain versions march the DE shapes with PyTorch ops, seconds a
+    # call on the card: each is timed once, the kernels as _time_pairs does
+    times = {}
+    for key in runs:
+        for _ in range(2):
+            runs[key]()
+        torch.cuda.synchronize()
+        k1, k2 = _event_ms(runs[key], 50), _event_ms(runs[key], 50)
+        plain_ms = _once_ms(plains[key])
+        times[key] = ((k1 + k2) / 2, plain_ms)
+        print(f"[times] {key}: kernel {k1:.4f} / {k2:.4f} ms, plain {plain_ms:.4f} ms (one call) per "
+              f"launch, {n} lanes, S={s_count} ({card})")
+    alive_cam = torch.nonzero(cam["alive"])[:, 0]
+    alive_lamp = torch.nonzero(lamp["alive"])[:, 0]
+    live = torch.nonzero(batch[4])[:, 0]
+    # Bytes: the scene sheet once; A per lane the bounce kernel's 24 S + 99
+    # bytes and the camera vertex's 32; B per lane its ray, flag and four
+    # draws in (29) and vertex and state out (58); C per live ray 33
+    # (origin, direction, distance and flag in, t out; a dense sweep reads
+    # no occlusion bound) and n_de t on a DE scene, per ray that is not
+    # live 9 (flag and distance in, t out).
+    sheet = _nbytes(scene.dense_pack["tensors"]["sheet"])
+    n_de = len(scene.de_shapes)
+    m = batch[0].shape[0]
+    sizes = {record: sheet + n * (24 * s_count + 131 + 4 * n_de),
+             lamp_name: sheet + n * (87 + 4 * n_de),
+             "dense_shadow_kernel": sheet + live.numel() * (33 + 4 * n_de)
+             + (m - live.numel()) * 9}
+    # the work the plain versions count without their marches, which the
+    # march passes do (kernel_march: march_de_kernel counts nothing)
+    with kernel_march():
+        works = {
+            record: _counted(lambda: tracer.bounce_core(
+                scene, cfg_no_nee, wl[alive_cam], {k: v[alive_cam] for k, v in cam.items()},
+                {k: cam_draws[k][alive_cam] for k in ("u_comp", "u_scatter")}, record=True)),
+            lamp_name: _counted(lambda: tracer.lamp_bounce_step(
+                scene, lamp_cfg, wl[alive_lamp], {k: v[alive_lamp] for k, v in lamp.items()},
+                {k: lamp_draws[k][alive_lamp] for k in ("u_comp", "u_scatter")})),
+            "dense_shadow_kernel": _counted(lambda: tracer.intersect_shadow(
+                scene, batch[0][live], batch[1][live], batch[2][live], batch[3][live],
+                cfg.max_de_steps)),
+        }
+    lanes = {record: (alive_cam.numel(), _sweep_ops(scene) + OPS["shade"]),
+             lamp_name: (alive_lamp.numel(), _sweep_ops(scene) + OPS["shade"]),
+             "dense_shadow_kernel": (live.numel(), _sweep_ops(scene))}
+    result = {}
+    for name in runs:
+        ops = _work_ops(scene, works[name], *lanes[name])
+        result[name] = (*times[name], sizes[name], ops)
+        print(f"[work] bdpt {name}: {lanes[name][0]} rays, {sizes[name]} bytes, {ops} FP32 "
+              f"operations ({_plain_counts(works[name])})")
+    _print_bounds("bdpt", result)
+    return result
+
+
+def render_bdpt(path, samples, card, out_dir):
+    """Phase 5 for the bidirectional renderer: the CLI on the GPU
+    (renderers.bidirectional.render), checking the PNG, the film, and that
+    every step went through the CUDA kernels: per camera bounce iteration
+    one launch of the bounce kernel's kRecord instantiation and one of the
+    NEE kernel (a march and a shadow march pass each on a DE scene), per
+    chunk step one lamp kernel launch to start the lamp paths and one per
+    lamp bounce iteration (a march pass each on a DE scene), and the
+    connection and splat batches through dense_shadow_kernel or
+    wide_shadow_kernel (a query march pass each on a DE scene); no plain
+    tracer function ran. Prints the launches, the camera and lamp
+    lane-bounces, the rays (camera and lamp lane-bounces, NEE samples,
+    connection and splat rays), the render's wall time and peak memory.
+    Returns (launch counts, seconds, peak bytes, rays)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from pyrite_tpu_torch import cli, kernels_dense as kd
+    from pyrite_tpu_torch.renderers import bidirectional as bd
+
+    result = {}
+    render = bd.render
+
+    def recording_render(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        started = time.perf_counter()
+        film, acc, wt = render(*args, **kwargs)
+        torch.cuda.synchronize()
+        result.update(film=film, acc=acc, wt=wt, seconds=time.perf_counter() - started,
+                      peak=torch.cuda.max_memory_allocated())
+        return film, acc, wt
+
+    out_png = os.path.join(out_dir, os.path.basename(path) + ".bdpt.png")
+    bd.render = recording_render
+    _zero_counts()
+    try:
+        rc = cli.main([path, "--samples", str(samples), "--device", "cuda", "--output", out_png])
+    finally:
+        bd.render = render
+    launches = _read_counts()
+    assert rc == 0, f"cli.main returned {rc}"
+    film, acc, wt = result["film"], result["acc"], result["wt"]
+    assert bool(torch.isfinite(acc).all() and torch.isfinite(wt).all()), "film is not finite"
+    with Image.open(out_png) as img:
+        pixels = np.asarray(img)
+    assert pixels.shape == (film.height, film.width, 3) and pixels.max() > 0, pixels.shape
+    scene = _gpu_scene(path)[0]
+    r = cli.load_project(path).project.renderer
+    bounce_k, nee_k = kd.kernel_names(scene)
+    cam, lamp = launches["camera_bounces"], launches["lamp_bounces"]
+    steps = launches["steps"]
+    assert cam > 0 and launches[bounce_k + "<record>"] == cam and launches[nee_k] == cam, launches
+    assert launches[bounce_k] == 0, launches
+    lamp_k = "wide_lamp_kernel" if scene.use_clusters else "dense_lamp_kernel"
+    assert launches[lamp_k] == steps + lamp > steps, launches
+    for k in ("bounce_core", "lamp_start", "lamp_bounce_step", "intersect_shadow"):
+        assert launches[k] == 0, (k, launches)
+    queries = launches["wide_shadow_kernel" if scene.use_clusters else "dense_shadow_kernel"]
+    assert queries >= steps + cam, launches  # the splats, and each bounce's slot groups
+    if scene.de_shapes:
+        assert launches["de_march_pass"] == cam + lamp and launches["de_shadow_pass"] == cam, launches
+        assert launches["de_query_pass"] == queries, launches
+    if r.light_bounces + 1 > 16:
+        assert launches["compactions"] == steps, launches
+    rays = (launches["live_lane_bounces"] * (1 + r.light_samples) + launches["lamp_live"]
+            + launches["connection_rays"] + launches["splat_rays"])
+    print(
+        f"[bdpt-render] {os.path.basename(path)} {film.width}x{film.height}, {samples} spp, "
+        f"S={r.spectrum_samples}, {r.bounces} + {r.light_bounces} bounces "
+        f"({'two-phase' if r.light_bounces + 1 > 16 else 'fused'}): render wall "
+        f"{result['seconds']:.4f} s, peak memory {result['peak'] / 2**20:.1f} MiB, "
+        f"{rays / result['seconds'] / 1e6:.3f} Mrays/s ({rays} rays: camera lane-bounces live "
+        f"{launches['live_lane_bounces']} x (1 + {r.light_samples} NEE), executed "
+        f"{launches['executed_lane_bounces']}; lamp lane-bounces live {launches['lamp_live']}, "
+        f"executed {launches['lamp_executed']}; connection rays {launches['connection_rays']}, "
+        f"splat rays {launches['splat_rays']}) ({card}); launches {launches}; image mean "
+        f"{pixels.mean():.2f}/255"
+    )
+    return launches, result["seconds"], result["peak"], rays
+
+
+class kernel_march:
+    """Within the block the plain versions march the DE shapes in
+    march_de_kernel (kernels.march_de) rather than in PyTorch ops
+    (tracer.march_de_plain, whose per-iteration launches take seconds a
+    call on the card): the same t bit for bit (phase 3, check_march), so
+    a plain version's results do not change, and the BDPT checks of a DE
+    scene take seconds rather than minutes."""
+
+    def __enter__(self):
+        import torch
+
+        from pyrite_tpu_torch import kernels, tracer
+
+        self.saved = tracer.march_de_plain
+        if torch.cuda.is_available():  # kernels.march_de takes the plain march on the CPU
+            tracer.march_de_plain = kernels.march_de
+        return self
+
+    def __exit__(self, *exc):
+        from pyrite_tpu_torch import tracer
+
+        tracer.march_de_plain = self.saved
+
+
+class plain_bdpt:
+    """Within the block the bidirectional renderer's steps take their
+    plain versions on CUDA tensors (the camera bounce, the lamp start and
+    bounces, the shadow queries): the reference a kernel render is held
+    to on the card."""
+
+    def __enter__(self):
+        from pyrite_tpu_torch import kernels_dense as kd, tracer
+
+        self.saved = {k: getattr(kd, k) for k in ("bounce_dense", "lamp_start", "lamp_bounce",
+                                                    "shadow_query")}
+        kd.bounce_dense = lambda scene, cfg, wl, state, draws, bank, record=False: \
+            tracer.bounce_core(scene, cfg, wl, state, draws, record)
+        kd.lamp_start = lambda scene, wl, draws, bank=None: tracer.lamp_start(scene, wl, draws)
+        kd.lamp_bounce = lambda scene, cfg, wl, state, draws, bank=None: \
+            tracer.lamp_bounce_step(scene, cfg, wl, state, draws)
+        kd.shadow_query = kd.shadow_query_plain
+        return self
+
+    def __exit__(self, *exc):
+        from pyrite_tpu_torch import kernels_dense as kd
+
+        for k, v in self.saved.items():
+            setattr(kd, k, v)
+
+
+class kernel_sampler:
+    """Within the block the plain versions draw uniform sphere directions
+    as the kernels do (csrc/bounce.cu sample_sphere_dir: cos phi = 2 v - 1
+    and sin phi = sqrt(1 - cos^2 phi), where geometry.sample_sphere takes
+    the cos and sin of arccos(2 v - 1)), op for op: the kernels' one
+    intended difference from the plain versions, taken out."""
+
+    def __enter__(self):
+        import math
+
+        import torch
+
+        from pyrite_tpu_torch import geometry
+
+        def sample_sphere(u, v):
+            theta = 2.0 * math.pi * u
+            cos_phi = torch.clamp(2.0 * v - 1.0, -1.0, 1.0)
+            sin_phi = torch.sqrt(torch.clamp(1.0 - cos_phi * cos_phi, min=0.0))
+            return torch.stack(
+                [sin_phi * torch.cos(theta), sin_phi * torch.sin(theta), cos_phi], dim=-1)
+
+        self.saved = geometry.sample_sphere
+        geometry.sample_sphere = sample_sphere
+        return self
+
+    def __exit__(self, *exc):
+        from pyrite_tpu_torch import geometry
+
+        geometry.sample_sphere = self.saved
+
+
+def compare_bdpt_plain(path, samples, card):
+    """Phase 6: one bidirectional render through the kernels and through
+    the plain versions on the card (plain_bdpt, marching in
+    march_de_kernel: kernel_march), with the same keyed draws, held per
+    pixel (summed over its bins): against the plain versions that sample
+    directions as the kernels do (kernel_sampler), wt within rtol 1e-5 and
+    acc within rtol 1e-3 on every pixel; against the plain versions as
+    they are, the film totals within rtol 1e-4 (wt) and 1e-3 (acc) and the
+    per-pixel tolerances on at least 98 % of the pixels. The kernels'
+    arccos-free sphere directions differ from geometry.sample_sphere's in
+    a last ulp, which a chain of bounces carries to the odd grazing hit
+    and splat: on the Cornell class at 64 x 64, 2 spp, 4 + 4 bounces, 1.5 %
+    of the pixels part from the plain film as it is, none from the plain
+    film with the kernels' sampling, and the same holds with the glass
+    sphere and the Julia taken out (measured on one NVIDIA H100 80GB
+    HBM3, 700.00 W). Returns (the largest per-pixel relative differences
+    of wt and acc against the plain versions with the kernels' sampling,
+    then as they are, and the shares of pixels beyond the tolerance
+    there)."""
+    import torch
+
+    from pyrite_tpu_torch.project import load_project
+    from pyrite_tpu_torch.renderers import bidirectional as bd
+
+    scene = _gpu_scene(path)[0]
+    pd = load_project(path)
+    _zero_counts()
+    _, acc_k, wt_k = bd.render(pd, scene, seed=6, max_samples=samples)
+    assert _read_counts()["bounce_core"] == 0 or scene.device.type == "cpu"
+    ak, wk = acc_k.sum(dim=2), wt_k.sum(dim=2)
+    rel = lambda a, b: ((a - b).abs() / b.abs().clamp_min(1e-30))  # noqa: E731
+    films = {}
+    for sampling in ("the kernels' sampling", "as they are"):
+        with plain_bdpt(), kernel_march(), (kernel_sampler() if sampling != "as they are"
+                                            else contextlib.nullcontext()):
+            _, acc_p, wt_p = bd.render(pd, scene, seed=6, max_samples=samples)
+        assert _read_counts()["bounce_core"] > 0
+        ap, wp = acc_p.sum(dim=2), wt_p.sum(dim=2)
+        wt_off = float((rel(wk, wp) > 1e-5).float().mean())
+        acc_off = float((rel(ak, ap) > 1e-3).float().mean())
+        films[sampling] = (float(rel(wk, wp).max()), float(rel(ak, ap).max()), wt_off, acc_off)
+        print(f"[bdpt] {os.path.basename(path)} {samples} spp, kernels against the plain versions "
+              f"({sampling}) on the card: per pixel wt max rel {films[sampling][0]:.3e} "
+              f"({wt_off:.4%} of pixels beyond 1e-5; total {float(wp.sum()):.1f} against "
+              f"{float(wk.sum()):.1f}), acc max rel {films[sampling][1]:.3e} ({acc_off:.4%} beyond "
+              f"1e-3; total {float(ap.sum()):.3f} against {float(ak.sum()):.3f}) ({card})")
+        if sampling != "as they are":
+            torch.testing.assert_close(wk, wp, rtol=1e-5, atol=0.0)
+            torch.testing.assert_close(ak, ap, rtol=1e-3, atol=0.0)
+        else:
+            assert wt_off < 0.02 and acc_off < 0.02, (wt_off, acc_off)
+            torch.testing.assert_close(wk.sum(), wp.sum(), rtol=1e-4, atol=0.0)
+            torch.testing.assert_close(ak.sum(), ap.sum(), rtol=1e-3, atol=0.0)
+    return films["the kernels' sampling"][:2] + films["as they are"]
+
+
 def _gpu_info():
     """(torch's device name, nvidia-smi's "name, power.limit" line, max SM
     clock in MHz)."""
@@ -2027,7 +2697,8 @@ def _fp32_rate():
 
 
 KERNEL_NAMES = ("dense_bounce_kernel", "dense_nee_kernel", "wide_bounce_kernel", "wide_nee_kernel",
-                "wide_closest_kernel", "wide_shadow_kernel", "march_de_kernel")
+                "wide_closest_kernel", "wide_shadow_kernel", "march_de_kernel", "dense_lamp_kernel",
+                "wide_lamp_kernel", "dense_shadow_kernel")
 
 
 def kernel_registers(log):
@@ -2042,7 +2713,12 @@ def kernel_registers(log):
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
         if name is None or used is None:
             continue
-        tags = {"ILb1E": "<true>", "ILb0E": "<false>", "QueryRays": "<query>",
+        flags = re.search(r"I((?:Lb[01]E)+)E", mangled)
+        if flags:  # <kDE>, and the bounce kernels' kRecord after it
+            bits = re.findall(r"Lb([01])E", flags.group(1))
+            name += "<true>" if bits[0] == "1" else "<false>"
+            name += "<record>" if bits[1:] == ["1"] else ""
+        tags = {"QueryShadowRays": "<query shadow>", "QueryRays": "<query>",
                 "BounceRays": "<bounce>", "ShadowRays": "<shadow>"}
         name += next((tag for t, tag in tags.items() if t in mangled), "")
         stores, loads = (int(x) for x in spill.groups()) if spill else (0, 0)
@@ -2119,6 +2795,67 @@ def profile_renders(card, runs=5):
                           f"{e.key[:60]} {own(e) / 1e3:.3f} ms ({e.count}x)" for e in top))
 
 
+def profile_bdpt(card, runs=5):
+    """``--profile``, the bidirectional renders through
+    renderers.bidirectional.render: cornell_class at 8 spp, flagship_bdpt
+    (fused) and flagship_bdpt_24 (two-phase) at 16 spp and
+    terrain_405_bdpt at 16 spp, each ``runs`` timed runs after a warm-up,
+    then one under torch.profiler. Prints the launches, the rays they trace
+    (camera and lamp lane-bounces, NEE samples, connection and splat rays)
+    and Mrays/s, peak memory, wall times, device busy time and idle share,
+    and the top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyrite_tpu_torch.project import load_project
+    from pyrite_tpu_torch.renderers import bidirectional as bd
+
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = bdpt_scene_paths(tmp, spp=16)
+        for name, spp in (("cornell_class", 8), ("flagship_bdpt", 16), ("flagship_bdpt_24", 16),
+                          ("terrain_405_bdpt", 16)):
+            path = paths[name]
+            scene = _gpu_scene(path)[0]
+            project_data = load_project(path)
+
+            def render():
+                torch.cuda.synchronize()
+                started = time.perf_counter()
+                bd.render(project_data, scene, max_samples=spp)
+                torch.cuda.synchronize()
+                return time.perf_counter() - started
+
+            render()
+            _zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            walls = [render()]
+            launches = _read_counts()
+            peak = torch.cuda.max_memory_allocated()
+            walls += [render() for _ in range(runs - 1)]
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                wall = render()
+            events = [e for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            own = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+            busy = sum(own(e) for e in events) / 1e3
+            top = sorted(events, key=own, reverse=True)[:10]
+            r = project_data.project.renderer
+            rays = (launches["live_lane_bounces"] * (1 + r.light_samples) + launches["lamp_live"]
+                    + launches["connection_rays"] + launches["splat_rays"])
+            median = sorted(walls)[len(walls) // 2]
+            assert launches["steps"] == spp, launches  # one chunk a sample
+            print(f"[profile-bdpt] {name} {spp} spp, {r.bounces} + {r.light_bounces} bounces, "
+                  f"S={r.spectrum_samples} ({card}): launches {launches}; rays {rays} (camera "
+                  f"lane-bounces live {launches['live_lane_bounces']} x (1 + {r.light_samples}), "
+                  f"lamp {launches['lamp_live']}, connections {launches['connection_rays']}, "
+                  f"splats {launches['splat_rays']}); peak memory {peak / 2**20:.1f} MiB; render "
+                  f"wall s {', '.join(f'{w:.4f}' for w in walls)}; median {median:.4f} s, "
+                  f"{rays / median / 1e6:.3f} Mrays/s")
+            print(f"[profile-bdpt] profiled run: wall {wall * 1e3:.2f} ms, device busy {busy:.2f} "
+                  f"ms, idle share {1 - busy / (wall * 1e3):.3f}; top device ops: " + "; ".join(
+                      f"{e.key[:60]} {own(e) / 1e3:.3f} ms ({e.count}x)" for e in top))
+
+
 def measure_rows(flagship, fractal, card):
     """Phase 4 for the dense bounce and NEE kernels (rows 1-2 of PERF.md's
     table): their occupancy at flagship's S and fractal.lua's, the copy
@@ -2163,6 +2900,7 @@ def main(argv=None):
     _print_registers(_build.build_log)
     if argv == ["--profile"]:
         profile_renders(smi)
+        profile_bdpt(smi)
         return 0
     if argv == ["--rows"]:
         with tempfile.TemporaryDirectory() as tmp:
@@ -2174,6 +2912,7 @@ def main(argv=None):
         return 2
 
     with tempfile.TemporaryDirectory() as tmp:
+        phases_started = time.perf_counter()
         paths = scene_paths(tmp, width=512, height=256, spectrum_samples=6, bounces=8)
         de = {"fractal": os.path.join(ROOT, "examples", "fractal.lua"),
               "julia": write_julia_scene(tmp)}
@@ -2213,6 +2952,22 @@ def main(argv=None):
                                      ("wide_bounce_kernel", "wide_nee_kernel"))
         query_run = drive_queries(mesh["terrain_405"], smi)
         march_run = drive_march(de["fractal"], smi)
+        # the bidirectional renderer: its kernels against their plain
+        # versions, a render through them against one through the plain
+        # versions, then the CLI (each with the counts zeroed just before)
+        bdpt_started = time.perf_counter()
+        print(f"[phase] phases 3-5 of the simple renderer: {bdpt_started - phases_started:.1f} s")
+        bdpt = bdpt_scene_paths(tmp, spp=2)
+        bdpt_checked = {name: check_bdpt(name, bdpt[name]) for name in (
+            "cornell_class", "flagship_bdpt", "terrain_405_bdpt", "terrain_de_24_bdpt")}
+        times.update(time_bdpt(bdpt_checked["cornell_class"], smi))
+        small = os.path.join(tmp, "cornell_64")
+        os.makedirs(small)
+        bdpt_plain = compare_bdpt_plain(write_cornell_scene(small, 64, 64, spp=2), 2, smi)
+        bdpt_runs = [render_bdpt(bdpt[name], 2, smi, tmp)[0] for name in (
+            "cornell_class", "flagship_bdpt", "flagship_bdpt_24", "terrain_405_bdpt")]
+        print(f"[phase] the bidirectional renderer (phase 6): "
+              f"{time.perf_counter() - bdpt_started:.1f} s")
 
     def kernel(name, source, replaces, launches, err):
         ms, plain_ms, size, ops = times[name]
@@ -2224,34 +2979,59 @@ def main(argv=None):
             "bound_by": "bytes" if by_bytes >= by_ops else "operations", "library_ms": None,
         }
 
+    # launches of the main paths: the simple renderer's, then the
+    # bidirectional renderer's (bdpt_runs)
     dense_total = lambda key: sum(run[key] for run in dense_runs + de_runs)
+    bdpt_total = lambda *keys: sum(run[k] for run in bdpt_runs for k in keys)
+    passes = ("de_march_pass", "de_shadow_pass", "de_query_pass")
     rendered = dense_runs + de_runs + [mesh_run]
     queried = queries.values()
     checked = list(worst.values())
+    bdpt_worst = [c["worst"] for c in bdpt_checked.values()]
     kernels = [
         kernel("dense_bounce_kernel", "bounce.cu", "pyrite_tpu/kernels_dense.py:717",
                dense_total("dense_bounce_kernel"),
                max(max(w["bounce"], w["brightness"]) for w in checked)),
         kernel("dense_nee_kernel", "bounce.cu", "pyrite_tpu/kernels_dense.py:909",
-               dense_total("dense_nee_kernel"), max(w["nee"] for w in checked)),
+               dense_total("dense_nee_kernel") + bdpt_total("dense_nee_kernel"),
+               max(w["nee"] for w in checked)),
         kernel("march_de_kernel", "march_de.cuh", "pyrite_tpu/kernels.py:907",
                march_run["march_de_kernel"] + sum(
-                   run["de_march_pass"] + run["de_shadow_pass"] for run in de_runs),
+                   run["de_march_pass"] + run["de_shadow_pass"] for run in de_runs)
+               + bdpt_total(*passes),
                max(max(m["err"] for m in marched.values()), max(shadowed.values()))),
         kernel("wide_closest_kernel", "wide_bvh.cu", "pyrite_tpu/kernels.py:541",
                query_run["wide_closest_kernel"], max(q["closest"] for q in queried)),
         kernel("wide_shadow_kernel", "wide_bvh.cu", "pyrite_tpu/kernels.py:593",
-               query_run["wide_shadow_kernel"], max(q["shadow"] for q in queried)),
+               query_run["wide_shadow_kernel"] + bdpt_total("wide_shadow_kernel"),
+               max(q["shadow"] for q in queried)),
         kernel("wide_bounce_kernel", "bounce.cu", "pyrite_tpu/kernels.py:125",
                mesh_run["wide_bounce_kernel"], max(worst_wide["bounce"], worst_wide["brightness"])),
         kernel("wide_nee_kernel", "bounce.cu", "pyrite_tpu/kernels.py:337",
-               mesh_run["wide_nee_kernel"], worst_wide["nee"]),
+               mesh_run["wide_nee_kernel"] + bdpt_total("wide_nee_kernel"), worst_wide["nee"]),
         kernel("philox_draws_kernel", "draws.cu", "pyrite_tpu/tracer.py:1069",
-               sum(run["philox_draws_kernel"] for run in rendered), max(drawn.values())),
+               sum(run["philox_draws_kernel"] for run in rendered + bdpt_runs), max(drawn.values())),
+        # the bidirectional renderer's kernels port no TPU kernel (the JAX
+        # package runs these steps in XLA); timed on cornell_class
+        dict(kernel("dense_bounce_kernel<record>", "bounce.cu", None,
+                    bdpt_total("dense_bounce_kernel<record>", "wide_bounce_kernel<record>"),
+                    max(max(w["record"], w["brightness"]) for w in bdpt_worst)),
+             name="dense_bounce_kernel<record>, wide_bounce_kernel<record>",
+             replaces="none: XLA, pyrite_tpu/tracer.py:1585 bounce_core's info"),
+        dict(kernel("dense_lamp_kernel", "bounce.cu", None,
+                    bdpt_total("dense_lamp_kernel", "wide_lamp_kernel"),
+                    max(w["lamp"] for w in bdpt_worst)),
+             name="dense_lamp_kernel, wide_lamp_kernel",
+             replaces="none: XLA, pyrite_tpu/tracer.py:1953 lamp_bounce_step"),
+        dict(kernel("dense_shadow_kernel", "bounce.cu", None, bdpt_total("dense_shadow_kernel"), 0.0),
+             replaces="none: XLA, pyrite_tpu/tracer.py:432 intersect_shadow"),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(f"[de-shadow] blocked shares {shadow}")
     print(f"[schedulers] regen and pool against one-shot, largest acc relative difference {same}")
+    print(f"[bdpt] kernels against plain render, largest per-pixel wt and acc relative "
+          f"differences (plain with the kernels' sampling, then as it is) and the shares of "
+          f"pixels beyond 1e-5 and 1e-3 {bdpt_plain}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

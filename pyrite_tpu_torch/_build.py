@@ -45,6 +45,8 @@ _DE = [_I, _F]  # the DE march's step cap and over-relaxation factor
 _BOUNCE = [_P] * 30 + [_I] * 5 + [_P]
 _NEE = [_P] * 16 + [_I] * 4 + [_F, _I, _P]
 _WIDE = [_P] * 6 + [_I]  # the mesh scene's tables and its leaf size
+_RECORD = [_P] * 7  # a kRecord bounce's camera vertex
+_LAMP = [_P] * 24 + [_I] * 6 + [_P]  # the lamp kernels
 # argument lists of the extern "C" launchers in csrc/bounce.cu,
 # csrc/wide_bvh.cu, csrc/march_de.cu and csrc/draws.cu; a march pass ends in
 # its work counter (an unsigned 64-bit word) and the stream
@@ -53,12 +55,18 @@ _SIGNATURES = {
     "pyrite_dense_nee": _NEE + [_P],
     "pyrite_wide_bounce": _BOUNCE + _WIDE + [_P],
     "pyrite_wide_nee": _NEE + _WIDE + [_P],
+    "pyrite_dense_bounce_record": _BOUNCE + _RECORD + [_P],
+    "pyrite_wide_bounce_record": _BOUNCE + _WIDE + _RECORD + [_P],
+    "pyrite_dense_lamp": _LAMP + [_P],
+    "pyrite_wide_lamp": _LAMP + _WIDE + [_P],
+    "pyrite_dense_shadow": [_P] * 8 + [_I] * 2 + [_P, _P],
     "pyrite_wide_closest": [_P] * 4 + [_I] + [_P] * 12 + [_I, _P],
     "pyrite_wide_shadow": [_P] * 4 + [_I] + [_P] * 5 + [_I, _P],
     "pyrite_march_de": [_P] * 6 + _DE + [_P] * 2 + [_I, _P, _P],
     "pyrite_de_march_bounce": [_P] * 6 + [_I] * 2 + _DE + [_P, _P],
     "pyrite_de_march_shadow": [_P] * 8 + [_I] * 3 + _DE + [_P, _P],
-    "pyrite_philox_draws": [_U, _U, _I, _I, _U, _U, _U, _I, _I, _I] + [_P] * 7,
+    "pyrite_de_march_query_shadow": [_P] * 7 + [_I] * 2 + _DE + [_P, _P],
+    "pyrite_philox_draws": [_U, _U, _I, _I, _U, _U, _U, _I, _I, _I] + [_P] * 7 + [_U, _I, _I, _P],
     "pyrite_bounce_occupancy": [_I, _P],
 }
 

@@ -105,7 +105,7 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     if args.multi_device:
-        _not_ported("--multi-device", "queue 1: multi-GPU film merge")
+        _not_ported("--multi-device", "queue 1 item 11: multi-GPU film merge")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
@@ -123,9 +123,12 @@ def main(argv=None):
     loading_ended = time.time()
 
     settings = project_data.project.renderer
-    if settings.algorithm != "simple":
-        _not_ported(f"the {settings.algorithm!r} renderer", "queue 1: BDPT, photon mapping")
-    from .renderers import simple as algorithm_mod
+    if settings.algorithm == "photon_mapping":
+        _not_ported("the 'photon_mapping' renderer", "queue 1 item 10: photon mapping")
+    if settings.algorithm == "bidirectional":
+        from .renderers import bidirectional as algorithm_mod
+    else:
+        from .renderers import simple as algorithm_mod
 
     render_path = args.output or os.path.join(
         os.path.dirname(os.path.abspath(args.project)), "render.png"

@@ -258,6 +258,78 @@ __device__ float eval_prob(const Programs& pr, int prog, int lane, int n, V3 nor
   return st[0];
 }
 
+// The shading that the camera bounce (bounce_lane) and the lamp bounce
+// (lamp_lane) share, written once: the surface of a hit, the uniform
+// component pick and the BSDF scatter (SCATTER_BSDF).
+
+// Normal and material of a plane or primitive hit (tracer.surface_data); a
+// DE hit's come from de_normals_shared.
+template <class Geo, bool kDE>
+__device__ __forceinline__ void hit_surface(const Sheet& sh, const Geo& geo, const Hit& h, V3 pos,
+                                            V3& normal, int& mat) {
+  if (h.kind == KIND_PLANE) {
+    normal = {sh.at(M_PLA_NX, h.j), sh.at(M_PLA_NY, h.j), sh.at(M_PLA_NZ, h.j)};
+    mat = sh.iat(M_PLA_MAT, h.j);
+  } else if (!(kDE && h.kind == KIND_DE)) {
+    geo.surface(sh, h, pos, normal, mat);
+  }
+}
+
+// uniform component choice (materials/mod.rs:48-54)
+__device__ __forceinline__ int pick_component(const Sheet& sh, int mat, float u_comp) {
+  const int count = max(sh.iat(M_MAT_COMP_COUNT, mat), 1);
+  const int pick = min((int)(u_comp * (float)count), count - 1);
+  return sh.iat(M_MAT_COMP_OFFSET, mat) + pick;
+}
+
+// tracer.scatter for a non-emissive component COMP of BSDF kind BSDF:
+// from the ray direction D, the shading normal NORMAL and the normal facing
+// the ray FLIP (and the sheet SH), with the uniforms U0, U1, U2, it sets the
+// caller's OUT (the new direction), PROB (the scatter's probability) and
+// DISPERSED: diffuse, mirror or refractive (refractive.rs:46-91, Cauchy
+// dispersion in micrometres at the hero wavelength HERO_WL, an expression
+// that only the refractive branch evaluates). The camera bounce
+// (bounce_lane) and the lamp bounce (lamp_lane) expand it; every name it
+// reads or sets is an argument. It is a macro and not a function: as a
+// __forceinline__ function with reference out-parameters (the hero
+// wavelength passed as a pointer, a pointer and an index, or a value) it
+// gives the simple renderer's dense_bounce_kernel<false> 48 registers where
+// it has 46 and 8 more SASS instructions (ptxas -v and cuobjdump, sm_90a);
+// expanded in place it is the code that kernel always had.
+#define SCATTER_BSDF(SH, BSDF, COMP, D, NORMAL, FLIP, HERO_WL, U0, U1, U2, OUT, PROB, DISPERSED) \
+  do {                                                                                 \
+    PROB = 1.0f;                                                                       \
+    DISPERSED = false;                                                                 \
+    if (BSDF == BSDF_DIFFUSE) {                                                        \
+      OUT = sample_hemisphere(U0, U1, FLIP);                                           \
+    } else if (BSDF == BSDF_MIRROR) {                                                  \
+      OUT = D - FLIP * (2.0f * dot(D, FLIP));                                          \
+    } else {                                                                           \
+      const float wl_um = (HERO_WL) * 0.001f;                                          \
+      const float disp = SH.at(M_COMP_DISP, COMP), env_disp = SH.at(M_COMP_ENV_DISP, COMP); \
+      const float ior = SH.at(M_COMP_IOR, COMP) + disp / (wl_um * wl_um);              \
+      const float env_ior = SH.at(M_COMP_ENV_IOR, COMP) + env_disp / (wl_um * wl_um);  \
+      const V3 reflected_dir = D - NORMAL * (2.0f * dot(NORMAL, D));                   \
+      const bool into = dot(NORMAL, FLIP) > 0.0f;                                      \
+      const float nnt = into ? env_ior / ior : ior / env_ior;                          \
+      const float ddn = dot(D, FLIP);                                                  \
+      const float cos2t = 1.0f - nnt * nnt * (1.0f - ddn * ddn);                       \
+      const bool tir = cos2t < 0.0f;                                                   \
+      const float s_val = (into ? 1.0f : -1.0f) * (ddn * nnt + sqrtf(fmaxf(cos2t, 0.0f))); \
+      const V3 tdir = normalize(D * nnt - NORMAL * s_val);                             \
+      const float a_ = ior - env_ior, b_ = ior + env_ior;                              \
+      const float r0 = (a_ * a_) / (b_ * b_);                                          \
+      const float c_ = 1.0f - (into ? -ddn : dot(tdir, NORMAL));                       \
+      const float re = r0 + (1.0f - r0) * pow5(c_);                                    \
+      const float tr = 1.0f - re;                                                      \
+      const float p_refl = 0.25f + 0.5f * re;                                          \
+      const bool pick_reflect = (U2) < p_refl;                                         \
+      OUT = (tir || pick_reflect) ? reflected_dir : tdir;                              \
+      PROB = tir ? 1.0f : (pick_reflect ? re / p_refl : tr / (1.0f - p_refl));         \
+      DISPERSED = disp != 0.0f || env_disp != 0.0f;                                    \
+    }                                                                                  \
+  } while (0)
+
 struct BounceArgs {
   Sheet sheet;
   Programs progs;
@@ -286,6 +358,19 @@ struct BounceArgs {
   uint8_t* __restrict__ o_nee;     // [N] lane takes NEE this bounce
   int n, s, light_samples;
   const float* __restrict__ t_de;  // [n_de, N] the bounce march pass's t (<true> only)
+};
+
+// The camera vertex of each lane that a kRecord bounce writes
+// (tracer.bounce_core's info but its incident direction, the bounce's
+// input): [N, 3] position and normal, [N] BRDF factor and byte flags.
+struct Record {
+  float* __restrict__ position;
+  float* __restrict__ normal;
+  float* __restrict__ brdf;
+  uint8_t* __restrict__ is_diffuse;
+  uint8_t* __restrict__ dispersed;
+  uint8_t* __restrict__ recorded;
+  uint8_t* __restrict__ miss;
 };
 
 // The DE shapes after the primitives, from the march pass's t of each
@@ -442,8 +527,16 @@ __device__ __forceinline__ void de_normals_shared(const Sheet& sh, float* slots,
 // thread computes the closest hit, dead lanes and threads past the end of
 // the wavefront with active = false; the dense kernel sweeps for its alive
 // lanes alone.
-template <class Geo, bool kDE>
-__device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo) {
+//
+// kRecord (the bidirectional renderer's camera walk) also writes each
+// lane's camera vertex, tracer.bounce_core's info (Record), from values the
+// lane computes anyway: the hit point (the origin where the ray found
+// nothing), the shading normal, the BRDF factor of a reflection (1
+// elsewhere) and the flags is_diffuse, dispersed, recorded and miss. The
+// simple renderer's instantiations (kRecord = false) compile to the code
+// they had.
+template <class Geo, bool kDE, bool kRecord>
+__device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo, const Record& rec) {
   extern __shared__ __align__(16) float smem[];
   const int n = a.n, s = a.s, t = threadIdx.x;
   const int base = blockIdx.x * BLOCK, lane = base + t;
@@ -493,16 +586,8 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo)
   bool normal_dispersed = false;
   const float* row_src = nullptr;  // this lane's sky or color row
   if (found) {
-    if (h.kind == KIND_PLANE) {
-      normal = {sh.at(M_PLA_NX, h.j), sh.at(M_PLA_NY, h.j), sh.at(M_PLA_NZ, h.j)};
-      mat = sh.iat(M_PLA_MAT, h.j);
-    } else if (!(kDE && h.kind == KIND_DE)) {
-      geo.surface(sh, h, pos, normal, mat);
-    }
-    // uniform component choice (materials/mod.rs:48-54)
-    const int count = max(sh.iat(M_MAT_COMP_COUNT, mat), 1);
-    const int pick = min((int)(a.u_comp[lane] * (float)count), count - 1);
-    comp = sh.iat(M_MAT_COMP_OFFSET, mat) + pick;
+    hit_surface<Geo, kDE>(sh, geo, h, pos, normal, mat);
+    comp = pick_component(sh, mat, a.u_comp[lane]);
     comp_probability =
         eval_prob(pr, sh.iat(M_COMP_PROB, comp), lane, n, normal, d) * sh.at(M_COMP_SELECTION, comp);
     normal_dispersed = sh.at(M_COMP_PROB_USES_WL, comp) > 0.5f;
@@ -524,6 +609,8 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo)
     bool alive_next = false, aux_next = aux, sample_light_next = sample_light, nee = false;
     int light_events_next = light_events;
     bool reflected = false;
+    float rec_brdf = 1.0f;  // kRecord: the reflection's BRDF factor, its flags
+    bool rec_diffuse = false, rec_dispersed = false;
     if (alive && !found) {
       for (int k = 0; k < s; ++k)
         if (k == 0 || aux) b[k] = b[k] + c[k] * r[k];
@@ -537,37 +624,10 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo)
       flip = dot(d, normal) < 0.0f ? normal : -normal;
       const float u0 = U[3 * t], u1 = U[3 * t + 1], u2 = U[3 * t + 2];
       V3 out;
-      float sc_probability = 1.0f;
-      bool sc_dispersed = false;
-      if (bsdf == BSDF_DIFFUSE) {
-        out = sample_hemisphere(u0, u1, flip);
-      } else if (bsdf == BSDF_MIRROR) {
-        out = d - flip * (2.0f * dot(d, flip));
-      } else {
-        // refractive (refractive.rs:46-91), Cauchy dispersion in micrometres
-        const float wl_um = a.wl[(size_t)lane * s] * 0.001f;
-        const float disp = sh.at(M_COMP_DISP, comp), env_disp = sh.at(M_COMP_ENV_DISP, comp);
-        const float ior = sh.at(M_COMP_IOR, comp) + disp / (wl_um * wl_um);
-        const float env_ior = sh.at(M_COMP_ENV_IOR, comp) + env_disp / (wl_um * wl_um);
-        const V3 reflected_dir = d - normal * (2.0f * dot(normal, d));
-        const bool into = dot(normal, flip) > 0.0f;
-        const float nnt = into ? env_ior / ior : ior / env_ior;
-        const float ddn = dot(d, flip);
-        const float cos2t = 1.0f - nnt * nnt * (1.0f - ddn * ddn);
-        const bool tir = cos2t < 0.0f;
-        const float s_val = (into ? 1.0f : -1.0f) * (ddn * nnt + sqrtf(fmaxf(cos2t, 0.0f)));
-        const V3 tdir = normalize(d * nnt - normal * s_val);
-        const float a_ = ior - env_ior, b_ = ior + env_ior;
-        const float r0 = (a_ * a_) / (b_ * b_);
-        const float c_ = 1.0f - (into ? -ddn : dot(tdir, normal));
-        const float re = r0 + (1.0f - r0) * pow5(c_);
-        const float tr = 1.0f - re;
-        const float p_refl = 0.25f + 0.5f * re;
-        const bool pick_reflect = u2 < p_refl;
-        out = (tir || pick_reflect) ? reflected_dir : tdir;
-        sc_probability = tir ? 1.0f : (pick_reflect ? re / p_refl : tr / (1.0f - p_refl));
-        sc_dispersed = disp != 0.0f || env_disp != 0.0f;
-      }
+      float sc_probability;
+      bool sc_dispersed;
+      SCATTER_BSDF(sh, bsdf, comp, d, normal, flip, a.wl[(size_t)lane * s], u0, u1, u2, out,
+                   sc_probability, sc_dispersed);
       const bool is_diffuse = bsdf == BSDF_DIFFUSE;
 
       // reflection: color * probability now, the BRDF after NEE has read it
@@ -588,6 +648,21 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo)
       new_o = pos;
       new_d = out;
       alive_next = true;
+      if (kRecord) {
+        rec_brdf = brdf;
+        rec_diffuse = is_diffuse;
+        rec_dispersed = sc_dispersed || normal_dispersed;
+      }
+    }
+    if (kRecord) {
+      const bool miss = alive && !found;
+      store3(rec.position, lane, isfinite(h.t) ? pos : o);
+      store3(rec.normal, lane, normal);
+      rec.brdf[lane] = rec_brdf;
+      rec.is_diffuse[lane] = rec_diffuse;
+      rec.dispersed[lane] = rec_dispersed;
+      rec.recorded[lane] = reflected || miss || (found && bsdf == BSDF_EMISSIVE && sample_light);
+      rec.miss[lane] = miss;
     }
     if (!reflected)
       for (int k = 0; k < s; ++k) rn[k] = r[k];
@@ -828,9 +903,239 @@ __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo) {
   }
 }
 
+// The lamp bounce of the bidirectional renderer, kernel of
+// tracer.lamp_bounce_step (and, with `start`, of tracer.lamp_start): it
+// records a lamp path's vertex where the camera bounce accumulates
+// brightness, with no emission and no NEE. The JAX package runs these
+// steps as XLA ops (pyrite_tpu/tracer.py:1904-2090), so this ports no TPU
+// kernel; it keeps the lamp walk off the plain path on the card.
+struct LampArgs {
+  Sheet sheet;
+  Programs progs;
+  const float* __restrict__ wl;         // [N, S], hero at column 0
+  const float* __restrict__ origin;     // [N, 3] (bounce mode)
+  const float* __restrict__ direction;  // [N, 3]
+  const uint8_t* __restrict__ alive;    // [N]
+  const float* __restrict__ u;  // [N, 6] LAMP_START words (start) or [N, 4] LAMP_BOUNCE words
+  // the vertex (tracer.LAMP_VERTEX), and brdf_scatter [N] in bounce mode
+  float* __restrict__ o_position;
+  float* __restrict__ o_normal;
+  int* __restrict__ o_color;
+  float* __restrict__ o_probability;
+  uint8_t* __restrict__ o_diffuse;
+  uint8_t* __restrict__ o_dispersed;
+  uint8_t* __restrict__ o_valid;
+  float* __restrict__ o_brdf;
+  float* __restrict__ o_brdf_scatter;
+  // the walk's next state
+  float* __restrict__ o_origin;
+  float* __restrict__ o_direction;
+  uint8_t* __restrict__ o_alive;
+  int n, s, n_lamps, start;
+  const float* __restrict__ t_de;  // [n_de, N] the bounce march pass's t (<true> only)
+};
+
+// The emitter of one lamp path (tracer.sample_lamp_ray and lamp_start): a
+// uniform lamp pick, a point and a direction on the point, sphere or
+// triangle lamp, the emissive component of a shape lamp and its
+// probability program, and Bounce.probability = weight / (pick probability
+// x material probability); the walk starts DIST_EPSILON off the emitter
+// along its normal.
+__device__ __forceinline__ void lamp_start_lane(const LampArgs& a, int lane) {
+  const Sheet sh = a.sheet;
+  const float* u = a.u + 6 * (size_t)lane;
+  V3 pos = {0.f, 0.f, 0.f}, dir = {0.f, 0.f, 0.f}, normal = {0.f, 0.f, 0.f};
+  int color = -1, smat = 0;
+  float prob = 1.0f;
+  bool dispersed = false, is_shape = false;
+  const bool valid = a.n_lamps > 0;
+  if (valid) {
+    const int li = min((int)(u[0] * (float)a.n_lamps), a.n_lamps - 1);
+    const int type = sh.iat(M_LAMP_TYPE, li), ref = max(sh.iat(M_LAMP_REF, li), 0);
+    float weight = 1.0f;
+    if (type == LAMP_POINT) {
+      pos = {sh.at(M_LAMP_VX, li), sh.at(M_LAMP_VY, li), sh.at(M_LAMP_VZ, li)};
+      dir = sample_sphere_dir(u[1], u[2]);
+      normal = dir;  // Surface::Color
+      weight = 4.0f * PI_F;
+    } else if (type == LAMP_SPHERE) {
+      const V3 c = {sh.at(M_LSPH_CX, ref), sh.at(M_LSPH_CY, ref), sh.at(M_LSPH_CZ, ref)};
+      const float r = sh.at(M_LSPH_R, ref);
+      pos = c + sample_sphere_dir(u[1], u[2]) * r;
+      normal = normalize(pos - c);
+      dir = sample_hemisphere(u[3], u[4], normal);
+      weight = r * r * 4.0f * PI_F;
+      is_shape = true;
+      smat = sh.iat(M_LSPH_MAT, ref);
+    } else if (type == LAMP_TRIANGLE) {
+      float tu = u[1], tv = u[2];
+      if (tu + tv > 1.0f) {
+        tu = 1.0f - tu;
+        tv = 1.0f - tv;
+      }
+      const V3 v0 = {sh.at(M_LTRI_V0X, ref), sh.at(M_LTRI_V0Y, ref), sh.at(M_LTRI_V0Z, ref)};
+      const V3 e1 = {sh.at(M_LTRI_E1X, ref), sh.at(M_LTRI_E1Y, ref), sh.at(M_LTRI_E1Z, ref)};
+      const V3 e2 = {sh.at(M_LTRI_E2X, ref), sh.at(M_LTRI_E2Y, ref), sh.at(M_LTRI_E2Z, ref)};
+      pos = v0 + e1 * tu + e2 * tv;
+      const float tw = 1.0f - tu - tv;
+      const V3 n0 = {sh.at(M_LTRI_N0X, ref), sh.at(M_LTRI_N0Y, ref), sh.at(M_LTRI_N0Z, ref)};
+      const V3 n1 = {sh.at(M_LTRI_N1X, ref), sh.at(M_LTRI_N1Y, ref), sh.at(M_LTRI_N1Z, ref)};
+      const V3 n2 = {sh.at(M_LTRI_N2X, ref), sh.at(M_LTRI_N2Y, ref), sh.at(M_LTRI_N2Z, ref)};
+      normal = normalize(n0 * tw + n1 * tu + n2 * tv);
+      dir = sample_hemisphere(u[3], u[4], normal);
+      const V3 cr = cross(e1, e2);
+      weight = 0.5f * sqrtf(fmaxf(dot(cr, cr), 0.0f));
+      is_shape = true;
+      smat = sh.iat(M_LTRI_MAT, ref);
+    }
+    float mat_prob = 1.0f;
+    color = sh.iat(M_LAMP_COLOR, li);
+    if (is_shape) {
+      // choose_emissive (materials/mod.rs:56-62)
+      const int count = max(sh.iat(M_MAT_EMIS_COUNT, smat), 1);
+      const int pick = min((int)(u[5] * (float)count), count - 1);
+      const int eidx = sh.iat(M_MAT_EMIS_OFFSET, smat) + pick;
+      const int e_comp = sh.iat(M_EMIS_COMP, eidx);
+      mat_prob = eval_prob(a.progs, sh.iat(M_COMP_PROB, e_comp), lane, a.n, normal, -dir) *
+                 sh.at(M_EMIS_SELECTION, eidx);
+      dispersed = sh.at(M_COMP_PROB_USES_WL, e_comp) > 0.5f;
+      color = sh.iat(M_COMP_COLOR, e_comp);
+    }
+    prob = weight / ((1.0f / (float)a.n_lamps) * fmaxf(mat_prob, 1e-20f));
+  }
+  const V3 origin = pos + normal * DIST_EPSILON;
+  store3(a.o_position, lane, origin);
+  store3(a.o_normal, lane, normal);
+  a.o_color[lane] = color;
+  a.o_probability[lane] = prob;
+  a.o_diffuse[lane] = false;
+  a.o_dispersed[lane] = dispersed;
+  a.o_valid[lane] = valid;
+  a.o_brdf[lane] = 1.0f;
+  store3(a.o_origin, lane, origin);
+  store3(a.o_direction, lane, dir);
+  a.o_alive[lane] = valid;
+}
+
+// One lamp bounce per lane (tracer.lamp_bounce_step): the closest hit
+// (planes, the geometry policy, the DE shapes' t from the march pass), the
+// surface (hit_surface, and de_normals_shared on DE hits), the component
+// pick, its probability program and the scatter, the same device code as
+// bounce_lane's. A reflection records a valid vertex and goes on; an
+// emissive hit or a miss ends the path and records nothing (its vertex is
+// written, not valid). What bounds it is what bounds the bounce kernel's
+// hit and shading, without the lane's spectra: ~100 bytes a lane. Every
+// thread reaches the traversal and the DE probes (whole-warp operations),
+// as in bounce_lane.
+template <class Geo, bool kDE>
+__device__ __forceinline__ void lamp_lane(const LampArgs& a, const Geo& geo) {
+  const int lane = blockIdx.x * BLOCK + threadIdx.x;
+  const bool in_range = lane < a.n;
+  if (a.start) {  // the same for the whole grid
+    if (in_range) lamp_start_lane(a, lane);
+    return;
+  }
+  extern __shared__ __align__(16) float lamp_smem[];
+  const Sheet sh = a.sheet;
+  const V3 o = in_range ? load3(a.origin, lane) : V3{0.f, 0.f, 0.f};
+  const V3 d = in_range ? load3(a.direction, lane) : V3{0.f, 0.f, 0.f};
+  const bool alive = in_range && a.alive[lane];
+  Hit h = {INFINITY, KIND_NONE, 0, 0.0f, 0.0f};
+  if (Geo::kWholeWarp) {
+    h = geo.closest(sh, o, d, alive);
+  } else if (alive) {
+    h = geo.closest(sh, o, d, true);
+  }
+  if (kDE && alive) apply_de_closest(sh, a.t_de, a.n, lane, h);
+  const bool found = alive && h.kind != KIND_NONE;
+  V3 normal = {0.f, 0.f, 0.f};
+  int mat = 0;
+  if (kDE) de_normals_shared(sh, lamp_smem + (threadIdx.x >> 5) * DE_SLOT_FLOATS,
+                             found && h.kind == KIND_DE, h, o, d, normal, mat);
+  if (!in_range) return;
+  const V3 pos = o + d * h.t;
+  V3 next_o = o, next_d = d;
+  int color = -1;
+  float prob = 0.0f, brdf = 1.0f, brdf_scatter = 1.0f;
+  bool diffuse = false, dispersed = false, valid = false;
+  if (found) {
+    hit_surface<Geo, kDE>(sh, geo, h, pos, normal, mat);
+    const float* u = a.u + 4 * (size_t)lane;
+    const int comp = pick_component(sh, mat, u[0]);
+    const float comp_probability = eval_prob(a.progs, sh.iat(M_COMP_PROB, comp), lane, a.n,
+                                             normal, d) * sh.at(M_COMP_SELECTION, comp);
+    const int bsdf = sh.iat(M_COMP_BSDF, comp);
+    color = sh.iat(M_COMP_COLOR, comp);
+    if (bsdf != BSDF_EMISSIVE) {
+      const V3 flip = dot(d, normal) < 0.0f ? normal : -normal;
+      V3 out;
+      float sc_probability;
+      bool sc_dispersed;
+      SCATTER_BSDF(sh, bsdf, comp, d, normal, flip, a.wl[(size_t)lane * a.s], u[1], u[2], u[3],
+                   out, sc_probability, sc_dispersed);
+      diffuse = bsdf == BSDF_DIFFUSE;
+      dispersed = sc_dispersed || sh.at(M_COMP_PROB_USES_WL, comp) > 0.5f;
+      prob = sc_probability * comp_probability;
+      brdf = diffuse ? 2.0f * fabsf(dot(normal, d)) : 1.0f;
+      brdf_scatter = diffuse ? 2.0f * fabsf(dot(normal, out)) : 1.0f;
+      valid = true;
+      next_o = pos;
+      next_d = out;
+    }
+  }
+  store3(a.o_position, lane, found ? pos : o);
+  store3(a.o_normal, lane, normal);
+  a.o_color[lane] = color;
+  a.o_probability[lane] = prob;
+  a.o_diffuse[lane] = diffuse;
+  a.o_dispersed[lane] = dispersed;
+  a.o_valid[lane] = valid;
+  a.o_brdf[lane] = brdf;
+  a.o_brdf_scatter[lane] = brdf_scatter;
+  store3(a.o_origin, lane, next_o);
+  store3(a.o_direction, lane, next_d);
+  a.o_alive[lane] = valid;
+}
+
+// The any-hit query of an arbitrary ray batch over a dense scene
+// (tracer.intersect_shadow, the bidirectional renderer's connection and
+// splat batches): nee_lane's sweep, DenseGeo::shadow (the planes, then
+// the sheet's primitives), seeded at max_dist, then the DE shapes' t from
+// a march pass over the same rays (pyrite_de_march_query_shadow), which
+// count at any t. A ray that is not `live` is not traced and returns
+// max_dist. Unoccluded rays return max_dist. One thread a ray: a simple
+// kernel, bound by the sweep (~30 flops a primitive a ray) or by its 33
+// bytes a ray in and out.
+struct ShadowArgs {
+  Sheet sheet;
+  const float* __restrict__ origin;       // [M, 3]
+  const float* __restrict__ direction;    // [M, 3]
+  const float* __restrict__ max_dist;     // [M]
+  const float* __restrict__ block_below;  // [M], unused by a dense sweep
+  const uint8_t* __restrict__ live;       // [M]
+  float* __restrict__ t;                  // [M]
+  int m;
+  const float* __restrict__ t_de;  // [n_de, M] (<true> only)
+};
+
 template <bool kDE>
-__global__ void __launch_bounds__(BLOCK) dense_bounce_kernel(const BounceArgs a) {
-  bounce_lane<DenseGeo, kDE>(a, DenseGeo{});
+__global__ void __launch_bounds__(BLOCK) dense_shadow_kernel(const ShadowArgs a) {
+  const int ray = blockIdx.x * BLOCK + threadIdx.x;
+  if (ray >= a.m) return;
+  const float t0 = a.max_dist[ray];
+  if (!a.live[ray]) {
+    a.t[ray] = t0;
+    return;
+  }
+  float t = DenseGeo{}.shadow(a.sheet, load3(a.origin, ray), load3(a.direction, ray), t0,
+                              a.block_below[ray], true);
+  if (kDE) t = apply_de_shadow(a.sheet, a.t_de, (size_t)a.m, (size_t)ray, t);
+  a.t[ray] = t;
+}
+
+template <bool kDE, bool kRecord>
+__global__ void __launch_bounds__(BLOCK) dense_bounce_kernel(const BounceArgs a, const Record rec) {
+  bounce_lane<DenseGeo, kDE, kRecord>(a, DenseGeo{}, rec);
 }
 
 template <bool kDE>
@@ -838,14 +1143,25 @@ __global__ void __launch_bounds__(BLOCK) dense_nee_kernel(const NeeArgs a) {
   nee_lane<DenseGeo, kDE>(a, DenseGeo{});
 }
 
-template <bool kDE>
-__global__ void __launch_bounds__(BLOCK) wide_bounce_kernel(const BounceArgs a, const WideGeo geo) {
-  bounce_lane<WideGeo, kDE>(a, geo);
+template <bool kDE, bool kRecord>
+__global__ void __launch_bounds__(BLOCK)
+    wide_bounce_kernel(const BounceArgs a, const WideGeo geo, const Record rec) {
+  bounce_lane<WideGeo, kDE, kRecord>(a, geo, rec);
 }
 
 template <bool kDE>
 __global__ void __launch_bounds__(BLOCK) wide_nee_kernel(const NeeArgs a, const WideGeo geo) {
   nee_lane<WideGeo, kDE>(a, geo);
+}
+
+template <bool kDE>
+__global__ void __launch_bounds__(BLOCK) dense_lamp_kernel(const LampArgs a) {
+  lamp_lane<DenseGeo, kDE>(a, DenseGeo{});
+}
+
+template <bool kDE>
+__global__ void __launch_bounds__(BLOCK) wide_lamp_kernel(const LampArgs a, const WideGeo geo) {
+  lamp_lane<WideGeo, kDE>(a, geo);
 }
 
 // The march passes of a scene with DE shapes: march_de_kernel
@@ -907,17 +1223,44 @@ struct ShadowRays {
   __device__ __forceinline__ void end(long long i, const March& m) const { t_de[i] = march_t(m); }
 };
 
-// <true> where the scene has DE shapes, <false> elsewhere, with `smem`
-// bytes of dynamic shared memory
-#define LAUNCH(kernel, smem, ...)                                                         \
-  do {                                                                                   \
-    const dim3 grid((n + BLOCK - 1) / BLOCK);                                            \
-    if (n <= 0) break;                                                                   \
-    if (n_de > 0)                                                                        \
-      kernel<true><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(__VA_ARGS__);            \
-    else                                                                                 \
-      kernel<false><<<grid, BLOCK, smem, (cudaStream_t)stream>>>(__VA_ARGS__);           \
-  } while (0)
+// Any batch of shadow rays (dense_shadow_kernel's, or a mesh scene's
+// wide_shadow_kernel's): each live ray toward each DE shape, capped at its
+// max_dist. Writes t_de [n_de, M].
+struct QueryShadowRays {
+  static constexpr int kBlocksPerSm = 0;  // as the NEE shadow rays
+  Sheet sheet;
+  const float* __restrict__ origin;
+  const float* __restrict__ direction;
+  const float* __restrict__ max_dist;
+  const uint8_t* __restrict__ live;
+  float* __restrict__ t_de;
+
+  __device__ __forceinline__ DeShape shape(int j) const { return load_de(sheet, j); }
+
+  __device__ __forceinline__ March begin(const DeShape& s, int ray) const {
+    if (!live[ray]) return no_march();
+    return march_toward(s, load3(origin, ray), load3(direction, ray), max_dist[ray]);
+  }
+
+  __device__ __forceinline__ void end(long long i, const March& m) const { t_de[i] = march_t(m); }
+};
+
+// One launch over `n` lanes of a kernel's <true> instantiation where the
+// scene has DE shapes and its <false> one elsewhere, with `smem` bytes of
+// dynamic shared memory.
+template <class K, class... Args>
+void launch_lanes(K with_de, K without_de, int n, int n_de, size_t smem, void* stream,
+                  const Args&... args) {
+  if (n <= 0) return;
+  const dim3 grid((n + BLOCK - 1) / BLOCK);
+  const K kernel = n_de > 0 ? with_de : without_de;
+  kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(args...);
+}
+
+// dynamic shared memory of a lamp kernel block: each warp's DE probe slots
+__host__ __device__ __forceinline__ size_t lamp_smem_bytes(bool de) {
+  return de ? sizeof(float) * (BLOCK / 32) * DE_SLOT_FLOATS : 0;
+}
 
 }  // namespace
 
@@ -962,44 +1305,117 @@ extern "C" {
       const float *sph_center, const int *sph_mat, int leaf
 #define WIDE_GEO const WideGeo g = {{rows, geo, leaf}, tri_n, tri_mat, sph_center, sph_mat}
 
+// the camera vertex a kRecord bounce writes (Record)
+#define RECORD_PARAMS                                                                          \
+  float *r_position, float *r_normal, float *r_brdf, uint8_t *r_diffuse, uint8_t *r_dispersed,  \
+      uint8_t *r_recorded, uint8_t *r_miss
+#define RECORD                                                                                 \
+  const Record rec = {r_position, r_normal, r_brdf, r_diffuse, r_dispersed, r_recorded, r_miss}
+
 int pyrite_dense_bounce(BOUNCE_PARAMS, void* stream) {
   BOUNCE_ARGS;
-  LAUNCH(dense_bounce_kernel, bounce_smem_bytes(s, n_de > 0), a);
+  launch_lanes(dense_bounce_kernel<true, false>, dense_bounce_kernel<false, false>, n, n_de,
+               bounce_smem_bytes(s, n_de > 0), stream, a, Record{});
   return (int)cudaGetLastError();
 }
 
 int pyrite_dense_nee(NEE_PARAMS, void* stream) {
   NEE_ARGS;
-  LAUNCH(dense_nee_kernel, 0, a);
+  launch_lanes(dense_nee_kernel<true>, dense_nee_kernel<false>, n, n_de, 0, stream, a);
   return (int)cudaGetLastError();
 }
 
 int pyrite_wide_bounce(BOUNCE_PARAMS, WIDE_PARAMS, void* stream) {
   BOUNCE_ARGS;
   WIDE_GEO;
-  LAUNCH(wide_bounce_kernel, bounce_smem_bytes(s, n_de > 0), a, g);
+  launch_lanes(wide_bounce_kernel<true, false>, wide_bounce_kernel<false, false>, n, n_de,
+               bounce_smem_bytes(s, n_de > 0), stream, a, g, Record{});
   return (int)cudaGetLastError();
 }
 
 int pyrite_wide_nee(NEE_PARAMS, WIDE_PARAMS, void* stream) {
   NEE_ARGS;
   WIDE_GEO;
-  LAUNCH(wide_nee_kernel, 0, a, g);
+  launch_lanes(wide_nee_kernel<true>, wide_nee_kernel<false>, n, n_de, 0, stream, a, g);
+  return (int)cudaGetLastError();
+}
+
+// The bounce kernels' kRecord instantiations: the bounce, and the camera
+// vertex into the RECORD_PARAMS arrays.
+int pyrite_dense_bounce_record(BOUNCE_PARAMS, RECORD_PARAMS, void* stream) {
+  BOUNCE_ARGS;
+  RECORD;
+  launch_lanes(dense_bounce_kernel<true, true>, dense_bounce_kernel<false, true>, n, n_de,
+               bounce_smem_bytes(s, n_de > 0), stream, a, rec);
+  return (int)cudaGetLastError();
+}
+
+int pyrite_wide_bounce_record(BOUNCE_PARAMS, WIDE_PARAMS, RECORD_PARAMS, void* stream) {
+  BOUNCE_ARGS;
+  WIDE_GEO;
+  RECORD;
+  launch_lanes(wide_bounce_kernel<true, true>, wide_bounce_kernel<false, true>, n, n_de,
+               bounce_smem_bytes(s, n_de > 0), stream, a, g, rec);
+  return (int)cudaGetLastError();
+}
+
+// The lamp kernels (LampArgs, in its order): `start` 1 samples the
+// emitters from LAMP_START words, 0 takes one lamp bounce from LAMP_BOUNCE
+// words.
+#define LAMP_PARAMS                                                                            \
+  const float *sheet, const int *meta, const int *code_op, const float *code_val,               \
+      const int *code_off, const float *cvals, const float *pvals, const float *wl,             \
+      const float *origin, const float *direction, const uint8_t *alive, const float *u,        \
+      float *o_position, float *o_normal, int *o_color, float *o_probability,                   \
+      uint8_t *o_diffuse, uint8_t *o_dispersed, uint8_t *o_valid, float *o_brdf,               \
+      float *o_brdf_scatter, float *o_origin, float *o_direction, uint8_t *o_alive, int n,      \
+      int s, int n_lamps, int start, int n_color, int n_de, const float *t_de
+#define LAMP_ARGS                                                                              \
+  const LampArgs a = {{sheet, meta},                                                           \
+                      {code_op, code_val, code_off, cvals, pvals, n_color},                    \
+                      wl, origin, direction, alive, u, o_position, o_normal, o_color,          \
+                      o_probability, o_diffuse, o_dispersed, o_valid, o_brdf, o_brdf_scatter, \
+                      o_origin, o_direction, o_alive, n, s, n_lamps, start, t_de}
+
+int pyrite_dense_lamp(LAMP_PARAMS, void* stream) {
+  LAMP_ARGS;
+  launch_lanes(dense_lamp_kernel<true>, dense_lamp_kernel<false>, n, n_de,
+               lamp_smem_bytes(n_de > 0), stream, a);
+  return (int)cudaGetLastError();
+}
+
+int pyrite_wide_lamp(LAMP_PARAMS, WIDE_PARAMS, void* stream) {
+  LAMP_ARGS;
+  WIDE_GEO;
+  launch_lanes(wide_lamp_kernel<true>, wide_lamp_kernel<false>, n, n_de,
+               lamp_smem_bytes(n_de > 0), stream, a, g);
+  return (int)cudaGetLastError();
+}
+
+// dense_shadow_kernel over `m` rays; `t_de` [n_de, m] the query march
+// pass's t where the scene has DE shapes.
+int pyrite_dense_shadow(const float* sheet, const int* meta, const float* origin,
+                        const float* direction, const float* max_dist, const float* block_below,
+                        const uint8_t* live, float* t, int m, int n_de, const float* t_de,
+                        void* stream) {
+  const ShadowArgs a = {{sheet, meta}, origin, direction, max_dist, block_below, live, t, m, t_de};
+  launch_lanes(dense_shadow_kernel<true>, dense_shadow_kernel<false>, m, n_de, 0, stream, a);
   return (int)cudaGetLastError();
 }
 
 // Resident blocks of BLOCK threads per SM of each bounce and NEE kernel at
 // S spectral columns (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
 // blocks[8]: dense bounce <false>, <true>, dense NEE <false>, <true>, wide
-// bounce <false>, <true>, wide NEE <false>, <true>. Returns the first error.
+// bounce <false>, <true>, wide NEE <false>, <true> (the bounce kernels
+// without kRecord). Returns the first error.
 int pyrite_bounce_occupancy(int s, int* blocks) {
   const size_t smem[8] = {bounce_smem_bytes(s, false), bounce_smem_bytes(s, true), 0, 0,
                           bounce_smem_bytes(s, false), bounce_smem_bytes(s, true), 0, 0};
   const void* kernels[8] = {
-      (const void*)dense_bounce_kernel<false>, (const void*)dense_bounce_kernel<true>,
-      (const void*)dense_nee_kernel<false>,    (const void*)dense_nee_kernel<true>,
-      (const void*)wide_bounce_kernel<false>,  (const void*)wide_bounce_kernel<true>,
-      (const void*)wide_nee_kernel<false>,     (const void*)wide_nee_kernel<true>};
+      (const void*)dense_bounce_kernel<false, false>, (const void*)dense_bounce_kernel<true, false>,
+      (const void*)dense_nee_kernel<false>,           (const void*)dense_nee_kernel<true>,
+      (const void*)wide_bounce_kernel<false, false>,  (const void*)wide_bounce_kernel<true, false>,
+      (const void*)wide_nee_kernel<false>,            (const void*)wide_nee_kernel<true>};
   for (int i = 0; i < 8; ++i) {
     const cudaError_t e =
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[i], kernels[i], BLOCK, smem[i]);
@@ -1029,6 +1445,17 @@ int pyrite_de_march_shadow(const float* sheet, const int* meta, const float* pos
   const ShadowRays rays = {{sheet, meta}, position, flip, nee, lamp_idx, u_nee, t_de_shadow, n};
   return launch_march(rays, n_de, light_samples * n, de_steps, de_omega, next,
                       (cudaStream_t)stream);
+}
+
+// The query march pass (march_de_kernel over QueryShadowRays): t of each
+// DE shape along each live ray of a shadow batch, capped at its max_dist,
+// into t_de [n_de, m].
+int pyrite_de_march_query_shadow(const float* sheet, const int* meta, const float* origin,
+                                 const float* direction, const float* max_dist,
+                                 const uint8_t* live, float* t_de, int m, int n_de, int de_steps,
+                                 float de_omega, unsigned long long* next, void* stream) {
+  const QueryShadowRays rays = {{sheet, meta}, origin, direction, max_dist, live, t_de};
+  return launch_march(rays, n_de, m, de_steps, de_omega, next, (cudaStream_t)stream);
 }
 
 }  // extern "C"

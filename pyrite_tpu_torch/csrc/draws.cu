@@ -19,7 +19,10 @@
 // its sample and its bounce (or one bounce for all lanes when the depth
 // array is null), and a mask may restrict the camera draws to the lanes
 // that start a path (the others' camera row is written as zeros), so one
-// launch makes a regeneration iteration's camera and bounce draws.
+// launch makes a regeneration iteration's camera and bounce draws. A third
+// output, one purpose's words [N, width] (rng.purpose_words: the
+// bidirectional renderer's lamp-path start, lamp bounces and splat lens
+// draws), takes word j % take of block j // take, and is launched alone.
 //
 // What bounds it on an H100: the bytes it writes, (5 + 5 ls) words a lane
 // a bounce, (S + 5) a lane for the camera, plus 8-12 bytes a lane read in
@@ -33,7 +36,7 @@
 
 namespace {
 
-enum Purpose { P_CAMERA, P_U_COMP, P_U_SCATTER, P_LAMP, P_U_NEE, P_U_EMIS };
+enum Purpose { P_CAMERA, P_U_COMP, P_U_SCATTER, P_LAMP, P_U_NEE, P_U_EMIS };  // rng.py; and more
 constexpr int MAX_CAMERA_WORDS = 16 + 5;  // kernels_dense.MAX_SPECTRUM_SAMPLES + 5
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1) {
@@ -69,6 +72,10 @@ struct DrawArgs {
   const int* __restrict__ sample;
   const int* __restrict__ depth;
   const unsigned char* __restrict__ cam_mask;
+  // one purpose's words [N, width], word j % take of block j / take, or null
+  float* __restrict__ words_out;
+  unsigned purpose;
+  int width, take;
 };
 
 __global__ void __launch_bounds__(BLOCK) philox_draws_kernel(const DrawArgs a) {
@@ -93,6 +100,16 @@ __global__ void __launch_bounds__(BLOCK) philox_draws_kernel(const DrawArgs a) {
                          a.k0, a.k1);
   };
   const size_t n = a.n;
+
+  if (a.words_out) {  // one purpose's words, launched alone
+    if (in_range)
+      for (int b = 0; b * a.take < a.width; ++b) {
+        const uint4 x = draw((int)a.purpose, b);
+        for (int q = 0; q < a.take && b * a.take + q < a.width; ++q)
+          a.words_out[(size_t)lane * a.width + b * a.take + q] = uniform(word(x, q));
+      }
+    return;
+  }
 
   if (a.cam_out) {  // the camera draws [N, S + 5], bounce 0; zeros off the mask
     const int w = a.s_cam + 5;
@@ -158,16 +175,19 @@ extern "C" {
 // bounce's draws in rng._layout or null; `pixel`, `sample` and `depth` are
 // [n] int32 device arrays for the indexed mode (pixel null: the affine
 // mode, from pixel0, sample0 and n_pix; depth null: `bounce` for every
-// lane), `cam_mask` [n] bytes or null; `stream` is the caller's
-// cudaStream_t. Returns cudaGetLastError() after the launch.
+// lane), `cam_mask` [n] bytes or null; `words_out` [n, width] floats of
+// `purpose`'s words, `take` (1-4) of each block, or null (then cam_out and
+// out are null); `stream` is the caller's cudaStream_t. Returns
+// cudaGetLastError() after the launch.
 int pyrite_philox_draws(unsigned k0, unsigned k1, int n, int n_pix, unsigned pixel0,
                         unsigned sample0, unsigned bounce, int s_cam, int light_samples,
                         int n_lamps, float* cam_out, float* out, const int* pixel,
                         const int* sample, const int* depth, const unsigned char* cam_mask,
-                        void* stream) {
+                        float* words_out, unsigned purpose, int width, int take, void* stream) {
   if (n <= 0) return 0;
   const DrawArgs a = {k0, k1, n, n_pix, pixel0, sample0, bounce, s_cam, light_samples, n_lamps,
-                      cam_out, out, pixel, sample, depth, cam_mask};
+                      cam_out, out, pixel, sample, depth, cam_mask, words_out, purpose, width,
+                      take};
   philox_draws_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -170,6 +170,28 @@ def add_lane_bins(film: Film, acc_l, wt_l, wavelengths, v, w):
     return acc_l, wt_l
 
 
+def expose_sums(film: Film, acc, wt, positions, wavelengths, value_sums, weight_sums, mask):
+    """Raw-sum exposure (pyrite_tpu.film.expose_sums): callers that
+    aggregate many samples per lane (the bidirectional renderer's
+    connections, len_cam x len_lamp samples at one pixel) add
+    already-weighted value sums [N, S] and weight sums [N, S] at each
+    lane's view position [N, 2]. Entries outside the film or off ``mask``
+    [N, S] are dropped. One scatter per spectral column, as
+    add_lane_bins: a lane's columns may share a bin, and the adds of one
+    column land in distinct pixels but where two lanes share one. Updates
+    ``acc`` and ``wt`` in place and returns them."""
+    px, py, valid = film.view_to_pixel(positions)
+    ok = mask & valid[:, None]
+    base = (py.long() * film.width + px.long()) * film.bins
+    bins = film.wavelength_to_bin(wavelengths).long()
+    for j in range(value_sums.shape[1]):
+        sel = ok[:, j]
+        index = (base + bins[:, j])[sel]
+        acc.view(-1).index_add_(0, index, value_sums[:, j][sel])
+        wt.view(-1).index_add_(0, index, weight_sums[:, j][sel])
+    return acc, wt
+
+
 def expose_lanes(film: Film, acc, wt, row0, wavelengths, brightness, weights, mask):
     """Exposure for wavefront lanes that map 1:1 onto film pixels in
     row-major order starting at row ``row0`` (one jittered sample per pixel

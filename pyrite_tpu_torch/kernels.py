@@ -8,7 +8,9 @@ counterpart of pyrite_tpu.kernels.march_de).
   wide_closest_kernel.
 - ``shadow_wide(scene, origin, direction, max_dist, block_below)``: the
   nearest occluder from the lamp distance, stopping below the occlusion
-  bound; wide_shadow_kernel.
+  bound; wide_shadow_kernel (``launch_shadow_wide`` launches it on a mesh
+  scene with DE shapes too, for kernels_dense.shadow_query, which adds the
+  shapes' t).
 - ``march_de(est, local_origin, direction, t0, tmax, hit, max_steps,
   omega)``: the sphere-traced march of one DE shape; march_de_kernel, the
   persistent pass that the bounce runs over its rays
@@ -97,8 +99,16 @@ def shadow_wide(scene, origin, direction, max_dist, block_below):
     dev = _route(scene, origin)
     if dev.type == "cpu":
         return tracer.intersect_shadow(scene, origin, direction, max_dist, block_below)
+    return launch_shadow_wide(scene, origin, direction, max_dist, block_below)
+
+
+def launch_shadow_wide(scene, origin, direction, max_dist, block_below):
+    """One wide_shadow_kernel launch on CUDA tensors: the planes and the
+    tree of a mesh scene, without its DE shapes (which
+    kernels_dense.shadow_query adds from a march pass)."""
     from . import _build
 
+    dev = origin.device
     n = origin.shape[0]
     f32 = torch.float32
     t = torch.empty(n, dtype=f32, device=dev)

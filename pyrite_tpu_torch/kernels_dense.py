@@ -17,6 +17,13 @@ primitives. ``bounce_dense`` takes the plain version, tracer.bounce_core,
 for tensors on the CPU, and launches the kernels for tensors on a GPU, or
 raises; there is no fallback.
 
+The bidirectional renderer's steps take the same route: ``bounce_dense``
+with ``record`` (the bounce kernels' kRecord instantiations, which also
+write the camera vertex), ``lamp_start`` / ``lamp_bounce`` (the lamp
+kernels, after a march pass on a DE scene) and ``shadow_query``
+(dense_shadow_kernel, or wide_shadow_kernel on a mesh scene, after a query
+march pass on a DE scene), each with its plain version for CPU tensors.
+
 The scene reaches the kernels as an [R, 128] f32 sheet, plus ``meta`` (the
 row of each table, in META_FIELDS order, which csrc/common.cuh's enum
 mirrors) and the postfix code of the ray-input probability programs
@@ -81,17 +88,26 @@ META_FIELDS = (
 
 # Each wrapper adds one here where it launches its kernel; "de_march_pass"
 # and "de_shadow_pass" count march_de_kernel's launches over the bounce rays
-# and over the shadow rays.
+# and over the shadow rays, "de_query_pass" over a shadow_query batch. The
+# bidirectional renderer's kernels: the bounce kernels' kRecord
+# instantiations ("<record>"), the lamp kernels and dense_shadow_kernel.
 launches = {
     "dense_bounce_kernel": 0, "dense_nee_kernel": 0,
     "wide_bounce_kernel": 0, "wide_nee_kernel": 0,
     "de_march_pass": 0, "de_shadow_pass": 0,
+    "dense_bounce_kernel<record>": 0, "wide_bounce_kernel<record>": 0,
+    "dense_lamp_kernel": 0, "wide_lamp_kernel": 0,
+    "dense_shadow_kernel": 0, "de_query_pass": 0,
 }
 # the extern "C" launcher of each kernel (csrc/bounce.cu)
 _LAUNCHERS = {
     "dense_bounce_kernel": "pyrite_dense_bounce", "dense_nee_kernel": "pyrite_dense_nee",
     "wide_bounce_kernel": "pyrite_wide_bounce", "wide_nee_kernel": "pyrite_wide_nee",
     "de_march_pass": "pyrite_de_march_bounce", "de_shadow_pass": "pyrite_de_march_shadow",
+    "dense_bounce_kernel<record>": "pyrite_dense_bounce_record",
+    "wide_bounce_kernel<record>": "pyrite_wide_bounce_record",
+    "dense_lamp_kernel": "pyrite_dense_lamp", "wide_lamp_kernel": "pyrite_wide_lamp",
+    "dense_shadow_kernel": "pyrite_dense_shadow", "de_query_pass": "pyrite_de_march_query_shadow",
 }
 
 _GATE = "(ROADMAP.md queue 1: widening the dense pack gate)"
@@ -410,10 +426,12 @@ def _t_de(name, t, shape, dev):
     return _check(name, t, torch.float32, shape, dev) if shape[0] else 0
 
 
-def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals, t_de=None):
+def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals, t_de=None, record=False):
     """Checked arguments of one bounce kernel launch (the scene's, see
     kernel_names), with the outputs it writes: (ctypes arguments, new state,
-    NEE context). ``t_de`` is march_pass' output on a scene with DE shapes."""
+    NEE context), and with ``record`` the camera vertex
+    (tracer.bounce_core's info) that its kRecord instantiation writes after
+    them. ``t_de`` is march_pass' output on a scene with DE shapes."""
     dev, n, s = _device(wavelengths)
     f32, u8, i32 = torch.float32, torch.uint8, torch.int32
     out = {
@@ -456,7 +474,20 @@ def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals, t_de=No
         _t_de("t_de", t_de, (len(scene.de_shapes), n), dev),
         torch.cuda.current_stream(dev).cuda_stream,
     ]
-    return _with_scene_tables(scene, args, dev), out, ctx
+    args = _with_scene_tables(scene, args, dev)
+    if not record:
+        return args, out, ctx
+    flag = lambda: torch.empty(n, dtype=torch.bool, device=dev)  # noqa: E731
+    info = {
+        "position": torch.empty((n, 3), dtype=f32, device=dev),
+        "normal": torch.empty((n, 3), dtype=f32, device=dev),
+        "brdf_stored": torch.empty(n, dtype=f32, device=dev),
+        "is_diffuse": flag(), "dispersed": flag(), "recorded": flag(), "miss": flag(),
+    }
+    rec = [info[k].data_ptr() for k in (
+        "position", "normal", "brdf_stored", "is_diffuse", "dispersed", "recorded", "miss")]
+    info["incident"] = state["direction"]
+    return args[:-1] + rec + args[-1:], out, ctx, info
 
 
 def nee_kernel_args(scene, cfg, wavelengths, out, ctx, draws, bank_vals, t_de_shadow=None):
@@ -495,12 +526,16 @@ def _launch(name, args):
     launches[name] += 1
 
 
-def launch_bounce_kernel(scene, cfg, wavelengths, state, draws, bank_vals, t_de=None):
+def launch_bounce_kernel(scene, cfg, wavelengths, state, draws, bank_vals, t_de=None,
+                         record=False):
     """One launch of the scene's bounce kernel: (new state without the NEE
-    contribution, NEE context)."""
-    args, out, ctx = bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals, t_de)
-    _launch(kernel_names(scene)[0], args)
-    return out, ctx
+    contribution, NEE context); with ``record``, of its kRecord
+    instantiation: (new state, NEE context, camera vertex)."""
+    args, out, ctx, *info = bounce_kernel_args(
+        scene, cfg, wavelengths, state, draws, bank_vals, t_de, record)
+    name = kernel_names(scene)[0]
+    _launch(name + "<record>" if record else name, args)
+    return (out, ctx, *info)
 
 
 def launch_nee_kernel(scene, cfg, wavelengths, out, ctx, draws, bank_vals, t_de_shadow=None):
@@ -618,21 +653,186 @@ def shadow_pass(scene, cfg, out, ctx, draws):
     return t_de
 
 
-def bounce_dense(scene, cfg, wavelengths, state, draws, bank_vals):
+def bounce_dense(scene, cfg, wavelengths, state, draws, bank_vals, record=False):
     """One bounce, a drop-in for tracer.bounce_core: the plain version for
     tensors on the CPU, the scene's two CUDA kernels (dense or wide, see
     kernel_names; after march_pass and shadow_pass respectively on a scene
     with DE shapes) for tensors on a GPU, or an error. ``bank_vals`` is
-    precompute_bank_values' output."""
+    precompute_bank_values' output. With ``record`` (the bidirectional
+    renderer's camera walk) it returns (new state, camera vertex) as
+    bounce_core does, through the bounce kernel's kRecord instantiation."""
     dev = wavelengths.device
     if dev.type == "cpu":
-        return tracer.bounce_core(scene, cfg, wavelengths, state, draws)
+        return tracer.bounce_core(scene, cfg, wavelengths, state, draws, record)
     if dev.type != "cuda":
         raise ValueError(f"bounce_dense runs on CPU or CUDA tensors, not {dev}")
     de = bool(scene.de_shapes)
     t_de = march_pass(scene, cfg, state) if de else None
-    out, ctx = launch_bounce_kernel(scene, cfg, wavelengths, state, draws, bank_vals, t_de)
+    out, ctx, *info = launch_bounce_kernel(
+        scene, cfg, wavelengths, state, draws, bank_vals, t_de, record)
     if scene.num_lamps and cfg.light_samples:
         t_de_shadow = shadow_pass(scene, cfg, out, ctx, draws) if de else None
         launch_nee_kernel(scene, cfg, wavelengths, out, ctx, draws, bank_vals, t_de_shadow)
-    return out
+    return (out, info[0]) if record else out
+
+
+# --- the bidirectional renderer's lamp walk and shadow queries ----------------
+
+
+def _cuda(t, what):
+    dev = t.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on CPU or CUDA tensors, not {dev}")
+    return dev
+
+
+def lamp_kernel_args(scene, wavelengths, words, bank_vals, state=None, t_de=None):
+    """Checked arguments of one lamp kernel launch, with the outputs it
+    writes: (ctypes arguments, vertex, next state). ``state`` None launches
+    the start mode (``words`` the LAMP_START words [N, 6]), else one bounce
+    of ``state`` (``words`` the LAMP_BOUNCE words [N, 4]); ``t_de`` is
+    march_pass' output on a scene with DE shapes."""
+    dev, n, s = _device(wavelengths)
+    f32, u8, i32 = torch.float32, torch.uint8, torch.int32
+    start = state is None
+    flag = lambda: torch.empty(n, dtype=torch.bool, device=dev)  # noqa: E731
+    vertex = {
+        "position": torch.empty((n, 3), dtype=f32, device=dev),
+        "normal": torch.empty((n, 3), dtype=f32, device=dev),
+        "color_prog": torch.empty(n, dtype=i32, device=dev),
+        "probability": torch.empty(n, dtype=f32, device=dev),
+        "is_diffuse": flag(), "dispersed": flag(), "valid": flag(),
+        "brdf": torch.empty(n, dtype=f32, device=dev),
+        "brdf_scatter": torch.empty(n, dtype=f32, device=dev),
+    }
+    nxt = {"origin": torch.empty((n, 3), dtype=f32, device=dev),
+           "direction": torch.empty((n, 3), dtype=f32, device=dev), "alive": flag()}
+    if start:
+        rays = [0, 0, 0]
+    else:
+        rays = [_check("origin", state["origin"], f32, (n, 3), dev),
+                _check("direction", state["direction"], f32, (n, 3), dev),
+                _check("alive", _flag(state["alive"]), u8, (n,), dev)]
+    args = _scene_args(scene, bank_vals, n, s, dev) + [
+        _check("wavelengths", wavelengths, f32, (n, s), dev), *rays,
+        _check("words", words, f32, (n, 6 if start else 4), dev),
+    ] + [vertex[k].data_ptr() for k in (
+        "position", "normal", "color_prog", "probability", "is_diffuse", "dispersed", "valid",
+        "brdf", "brdf_scatter")] + [nxt[k].data_ptr() for k in ("origin", "direction", "alive")] + [
+        n, s, scene.num_lamps, int(start), len(scene.color_programs), len(scene.de_shapes),
+        0 if start else _t_de("t_de", t_de, (len(scene.de_shapes), n), dev),
+        torch.cuda.current_stream(dev).cuda_stream,
+    ]
+    return _with_scene_tables(scene, args, dev), vertex, nxt
+
+
+def _lamp_name(scene):
+    return "wide_lamp_kernel" if scene.use_clusters else "dense_lamp_kernel"
+
+
+def lamp_start(scene, wavelengths, draws, bank_vals=None):
+    """The emitter vertex of each lamp path and the walk's first state, a
+    drop-in for tracer.lamp_start: the plain version for tensors on the
+    CPU, the lamp kernel's start mode on a GPU (from draws["words"], the
+    LAMP_START words), or an error."""
+    dev = _cuda(wavelengths, "lamp_start")
+    if dev.type == "cpu":
+        return tracer.lamp_start(scene, wavelengths, draws)
+    if "words" not in draws:
+        raise ValueError("lamp_start on the card takes rng.lamp_start_draws' words")
+    args, vertex, nxt = lamp_kernel_args(scene, wavelengths, draws["words"], bank_vals)
+    _launch(_lamp_name(scene), args)
+    del vertex["brdf_scatter"]  # a bounce's alone
+    return vertex, nxt
+
+
+def lamp_bounce(scene, cfg, wavelengths, state, draws, bank_vals=None):
+    """One lamp bounce, a drop-in for tracer.lamp_bounce_step: the plain
+    version for tensors on the CPU, the lamp kernel (after march_pass on a
+    scene with DE shapes) on a GPU, or an error. Returns (next state,
+    vertex)."""
+    dev = _cuda(wavelengths, "lamp_bounce")
+    if dev.type == "cpu":
+        return tracer.lamp_bounce_step(scene, cfg, wavelengths, state, draws)
+    if "words" not in draws:
+        raise ValueError("lamp_bounce on the card takes rng.lamp_bounce_draws' words")
+    t_de = march_pass(scene, cfg, state) if scene.de_shapes else None
+    args, vertex, nxt = lamp_kernel_args(scene, wavelengths, draws["words"], bank_vals, state, t_de)
+    _launch(_lamp_name(scene), args)
+    return nxt, vertex
+
+
+def shadow_query_plain(scene, cfg, origin, direction, max_dist, block_below, live):
+    """The plain version of shadow_query, on any device:
+    tracer.intersect_shadow on the live rays, max_dist on the others."""
+    t = max_dist.clone()
+    lanes = torch.nonzero(live)[:, 0]
+    if lanes.numel():
+        t[lanes] = tracer.intersect_shadow(
+            scene, origin[lanes], direction[lanes], max_dist[lanes], block_below[lanes],
+            cfg.max_de_steps)
+    return t
+
+
+def query_pass_args(scene, cfg, origin, direction, max_dist, live):
+    """Checked arguments of one query march pass over a shadow batch, with
+    the t it writes: (ctypes arguments, t_de [n_de, M])."""
+    dev, f32, m, n_de = origin.device, torch.float32, origin.shape[0], len(scene.de_shapes)
+    t_de, next_item = _pass_output((n_de, m), dev)
+    return _sheet_args(scene, dev) + [
+        _check("origin", origin, f32, (m, 3), dev),
+        _check("direction", direction, f32, (m, 3), dev),
+        _check("max_dist", max_dist, f32, (m,), dev),
+        _check("live", _flag(live), torch.uint8, (m,), dev),
+        t_de.data_ptr(), m, n_de, cfg.max_de_steps, tracer.DE_OMEGA, next_item,
+        torch.cuda.current_stream(dev).cuda_stream,
+    ], t_de
+
+
+def dense_shadow_args(scene, origin, direction, max_dist, block_below, live, t_de=None):
+    """Checked arguments of one dense_shadow_kernel launch, with the t it
+    writes: (ctypes arguments, t [M])."""
+    dev, f32, m = origin.device, torch.float32, origin.shape[0]
+    t = torch.empty(m, dtype=f32, device=dev)
+    return _sheet_args(scene, dev) + [
+        _check("origin", origin, f32, (m, 3), dev),
+        _check("direction", direction, f32, (m, 3), dev),
+        _check("max_dist", max_dist, f32, (m,), dev),
+        _check("block_below", block_below, f32, (m,), dev),
+        _check("live", _flag(live), torch.uint8, (m,), dev),
+        t.data_ptr(), m, len(scene.de_shapes),
+        _t_de("t_de", t_de, (len(scene.de_shapes), m), dev),
+        torch.cuda.current_stream(dev).cuda_stream,
+    ], t
+
+
+def shadow_query(scene, cfg, origin, direction, max_dist, block_below, live):
+    """Nearest occluder along each shadow ray of a batch ([M, 3] origins
+    and directions, [M] lamp distances, occlusion bounds and ``live``
+    flags), from max_dist, as tracer.intersect_shadow: t [M], max_dist where
+    unoccluded or not live (such a ray is not traced). The plain version
+    (shadow_query_plain) for tensors on the CPU; on a GPU, dense_shadow_kernel
+    on a dense scene, wide_shadow_kernel (kernels.shadow_wide) on a mesh
+    scene, and on a scene with DE shapes a query march pass over the live
+    rays first, whose t count at any t (tracer.py:492-496)."""
+    dev = _cuda(origin, "shadow_query")
+    m = origin.shape[0]
+    check_rays(m, "shadow_query")
+    if dev.type == "cpu":
+        return shadow_query_plain(scene, cfg, origin, direction, max_dist, block_below, live)
+    t_de = None
+    if scene.de_shapes:
+        args, t_de = query_pass_args(scene, cfg, origin, direction, max_dist, live)
+        _launch("de_query_pass", args)
+    if not scene.use_clusters:
+        args, t = dense_shadow_args(scene, origin, direction, max_dist, block_below, live, t_de)
+        _launch("dense_shadow_kernel", args)
+        return t
+    from . import kernels
+
+    # rays that are not live start at t = 0: the root box rejects them
+    t = kernels.launch_shadow_wide(scene, origin, direction, torch.where(live, max_dist, 0.0),
+                                   torch.where(live, block_below, 0.0))
+    for j in range(len(scene.de_shapes)):
+        t = torch.minimum(t, t_de[j])
+    return torch.where(live, t, max_dist)

@@ -1,0 +1,455 @@
+"""Bidirectional path tracing (PyTorch port of
+pyrite_tpu.renderers.bidirectional; reference: renderer/bidirectional.rs).
+
+Per pixel sample a camera path and a lamp path are traced; then
+(a) the camera path contributes as in the simple renderer,
+(b) every diffuse camera vertex connects to every connectable lamp vertex
+    through a shadow ray (connect_paths, bidirectional.rs:310-398), and
+(c) every diffuse lamp vertex is splatted through the camera lens (light
+    tracing, bidirectional.rs:253-306).
+
+As in the JAX package, lamp paths are [N, L + 1] vertex arrays with
+validity masks (tracer.trace_lamp_path), the connect_paths suffix walks
+collapse to prefix products along the lamp path (``_lamp_path_factors``),
+each camera bounce connects to all lamp slots in one flattened [N * K]
+shadow batch, and the splats are one flattened [N * K] batch. The step is
+the JAX package's one-shot chunk step (``make_render_step``): fused, or in
+two phases with the lamp slots compacted to the connectable ones
+(``_compact_connections``) when light_bounces + 1 > 16.
+
+On the card every ray goes through a CUDA kernel: the camera bounces
+through the bounce kernels' kRecord instantiations and the NEE kernels
+(kernels_dense.bounce_dense with record), the lamp bounces through the lamp
+kernels (tracer.trace_lamp_path -> kernels_dense.lamp_start /
+lamp_bounce), the connection and splat batches through
+kernels_dense.shadow_query (dense_shadow_kernel, or wide_shadow_kernel on a
+mesh scene, after a march pass on a scene with DE shapes); the rest is
+elementwise PyTorch. Random numbers are keyed (rng.py): the camera's as the
+simple renderer's, the lamp path's (LAMP_START, LAMP_BOUNCE at each lamp
+depth) and the splats' (SPLAT, one block per lamp slot) by the same pixel
+and sample, so a render does not depend on its rows per chunk and a resumed
+render equals the straight one.
+
+Not ported: the camera-regeneration scheduler (regen BDPT), the deferred
+connections and ragged packing, the sharded render (ROADMAP.md queue 1), and
+the JAX package's TPU switches (its crash-bisect environment knobs, the
+splat shadow cap and chunk ladders, the sweep-kernel block).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import replace
+
+import torch
+
+from .. import kernels_dense, tracer
+from ..film import Film, expose_lanes, expose_sums
+from ..rng import KeyedDraws, splat_draws
+from ..scene import CameraModel, Scene, camera_inverse_project
+from ..tracer import DIST_EPSILON, TraceConfig, initial_state, trace_lamp_path
+from .simple import RenderProgress, _uniform_lanes, _uniform_start, chunk_rays, regen_enabled
+
+# At this many camera bounces or more, with path regeneration on, the JAX
+# package renders through its camera-regeneration scheduler, which is not
+# ported (ROADMAP.md queue 1).
+REGEN_BDPT_MIN_BOUNCES = 16
+
+# Work of the renders since a caller last zeroed them: chunk steps, their
+# compactions (two-phase), camera bounce iterations (the lamp walk's are
+# tracer.launches["lamp_bounces"]), and the connection and splat shadow rays
+# cast, the live rays of each batch (counted on the render's device without
+# a host sync: 0-d tensors after a render).
+counters = {"steps": 0, "compactions": 0, "camera_bounces": 0, "connection_rays": 0,
+            "splat_rays": 0}
+
+
+def _effective_brdf(path):
+    """Per-slot brdf: the recorded 2|n.incident| but for a trailing
+    limit-ended vertex, which keeps its scattered direction's brdf."""
+    brdf = path["brdf"]
+    last = torch.where(path["valid"][:, -1], path["brdf_limit"], brdf[:, -1])
+    return torch.cat([brdf[:, :-1], last[:, None]], dim=1)
+
+
+def _slot_colors(color_prog, valid, bank_vals):
+    """Each slot's color program at its lane's wavelengths, [N, K, S]: the
+    per-launch program values (kernels_dense.precompute_bank_values; color
+    programs that read the ray are refused by the scene gate), 0 where the
+    program is out of range or the slot not valid (tracer.eval_color_bank)."""
+    cvals = bank_vals[0]  # [Pc, N, S]
+    n, slots = color_prog.shape
+    pc = cvals.shape[0]
+    if pc == 0:
+        return torch.zeros((n, slots, bank_vals[2].shape[1]), device=color_prog.device)
+    prog = color_prog.long()
+    ok = (prog >= 0) & (prog < pc) & valid
+    lane = torch.arange(n, device=prog.device)[:, None]
+    vals = cvals.reshape(pc * n, -1)[torch.clamp(prog, 0, pc - 1) * n + lane]
+    return torch.where(ok[..., None], vals, 0.0)
+
+
+def _lamp_path_factors(scene, path, wavelengths, bank_vals):
+    """Per-vertex radiance prefix products PP [N, L + 1, S], the
+    aux-validity prefix [N, L + 1], the specular flags and the incident
+    directions after the reference's pairs() reversal: vertex j sees
+    -(the arrival direction of vertex j + 1); the trailing vertex keeps its
+    own (bidirectional.rs:187-192)."""
+    valid = path["valid"]
+    inc = torch.cat([-path["incident_out"][:, 1:], path["incident_out"][:, -1:]], dim=1)
+    color = _slot_colors(path["color_prog"], valid, bank_vals)
+    factor = color * (path["probability"] * _effective_brdf(path))[:, :, None]
+    # the emitter slot has brdf 1 already; invalid slots contribute 1
+    factor = torch.where(valid[:, :, None], factor, 1.0)
+    pp = torch.cumprod(factor, dim=1)
+    # a product of 0s and 1s, exact in f32, scanned over dim 1 of [N, K, 1]
+    # (PyTorch's CUDA scan of an innermost dim of length K is slow)
+    aux_ok = torch.cumprod((~path["dispersed"]).to(torch.float32)[:, :, None], dim=1)[:, :, 0] > 0
+    is_specular = valid & ~path["is_diffuse"]
+    is_specular[:, 0] = False  # the emitter connects
+    return pp, aux_ok, is_specular, inc
+
+
+def _connection_arrays(scene, path, wavelengths, splat_u, bank_vals):
+    """What the camera walk needs of each lamp slot, as one dict at full [N,
+    L + 1] capacity: connectable slots (valid and not specular: the emitter
+    and the diffuse vertices), splat slots (valid diffuse vertices), the
+    prefix products and the splat lens uniforms ``splat_u`` [N, L + 1, 2],
+    drawn per original slot index (rng.splat_draws), so that a compacted
+    walk draws what the full one does."""
+    pp, aux_ok, lamp_specular, _ = _lamp_path_factors(scene, path, wavelengths, bank_vals)
+    return {
+        "position": path["position"],
+        "normal": path["normal"],
+        "pp": pp,
+        "aux_ok": aux_ok,
+        "conn_ok": path["valid"] & ~lamp_specular,
+        "splat_ok": path["valid"] & path["is_diffuse"],
+        "splat_u": splat_u,
+        "length": path["length"],
+    }
+
+
+def connectable_count(conn):
+    """The most connectable slots of any lane (a 0-d tensor): the host
+    reads it to size the compacted capacity (two-phase step)."""
+    return conn["conn_ok"].sum(dim=1).max()
+
+
+def _compact_connections(conn, k_new: int):
+    """The connectable slots of ``conn`` gathered into [N, k_new] arrays,
+    in slot order (a sort of each lane's slots on a key that puts the
+    connectable ones first): with deep lamp budgets most slots are specular
+    or invalid, and every per-bounce connection batch shrinks from N (L + 1)
+    to N k_new rays."""
+    n, slots = conn["conn_ok"].shape
+    idx = torch.arange(slots, device=conn["conn_ok"].device)[None, :]
+    order_key = torch.where(conn["conn_ok"], idx, slots + idx)
+    order = torch.argsort(order_key, dim=1)[:, :k_new]
+    kept = torch.gather(order_key, 1, order) < slots
+
+    def take(x):
+        o = order.reshape(order.shape + (1,) * (x.dim() - 2))
+        return torch.gather(x, 1, o.expand((n, k_new) + x.shape[2:]))
+
+    return {
+        "position": take(conn["position"]),
+        "normal": take(conn["normal"]),
+        "pp": take(conn["pp"]),
+        "aux_ok": take(conn["aux_ok"]) & kept,
+        "conn_ok": take(conn["conn_ok"]) & kept,
+        "splat_ok": take(conn["splat_ok"]) & kept,
+        "splat_u": take(conn["splat_u"]),
+        "length": conn["length"],
+    }
+
+
+def _flat(x):
+    return x.reshape((x.shape[0] * x.shape[1],) + x.shape[2:])
+
+
+def _splat_query(camera, conn):
+    """The splat batch, every lamp slot flattened to [N K]: (view_xy,
+    origin on the lens, unit direction to the vertex, distance, the splats
+    that may land: splat slots in front of the camera and inside the
+    view)."""
+    u = conn["splat_u"]
+    view_xy, origin, direction, distance, ok = camera_inverse_project(
+        camera, _flat(conn["position"]), _flat(u[..., 0]), _flat(u[..., 1]))
+    mask = _flat(conn["splat_ok"]) & ok
+    mask &= (torch.abs(view_xy[:, 0]) < 1.0) & (torch.abs(view_xy[:, 1]) < 1.0)
+    return view_xy, origin, direction, distance, mask
+
+
+def _light_splats(scene, film, camera, cfg, conn, wavelengths, acc, wt):
+    """Light-tracing splats (bidirectional.rs:253-306): every lamp slot is
+    projected and shadow-tested in one flattened [N K] batch
+    (kernels_dense.shadow_query over the splats that may land) and exposed
+    with one film scatter, at weight 1 / (lamp path length). Updates acc
+    and wt in place and returns them."""
+    n, slots = conn["conn_ok"].shape
+    s_count = wavelengths.shape[1]
+    view_xy, origin, direction, distance, mask = _splat_query(camera, conn)
+    bound = distance - DIST_EPSILON
+    t_hit = kernels_dense.shadow_query(scene, cfg, origin, direction, distance, bound, mask)
+    counters["splat_rays"] = counters["splat_rays"] + mask.sum()  # a new tensor: no aliasing
+    mask &= ~(torch.isfinite(t_hit) & (t_hit < bound))
+
+    brightness = _flat(conn["pp"]) / torch.clamp(distance * distance, min=1e-20)[:, None]
+    cols = tracer._column_mask(_flat(conn["aux_ok"]), s_count)
+    splat_weight = 1.0 / torch.clamp(conn["length"], min=1).to(torch.float32)
+    weights = splat_weight.repeat_interleave(slots)[:, None].expand(n * slots, s_count)
+    wl = wavelengths[:, None, :].expand(n, slots, s_count).reshape(n * slots, s_count)
+    return film.expose(acc, wt, view_xy, wl, brightness, weights, mask[:, None] & cols)
+
+
+def _conn_query(info, conn_position, conn_normal, conn_ok):
+    """The connection batch of one camera bounce before occlusion: the
+    flattened [N K] shadow rays from each camera vertex to each lamp slot,
+    and the geometry terms the fold needs after the verdict. Returns
+    (query, pack)."""
+    n, slots = conn_ok.shape
+    dirvec = conn_position - info["position"][:, None, :]  # [N, K, 3]
+    sqd = torch.sum(dirvec * dirvec, dim=-1)
+    dist = torch.sqrt(torch.clamp(sqd, min=1e-20))
+    conn_dir = dirvec / dist[..., None]
+    cos_out_s = torch.sum(info["normal"][:, None, :] * conn_dir, dim=-1)
+    cos_in_s = torch.sum(conn_normal * -conn_dir, dim=-1)
+    good = info["is_diffuse"][:, None] & conn_ok & (cos_out_s > 0.0) & (cos_in_s > 0.0)
+    dist_f = _flat(dist)
+    query = {
+        "origin": _flat(info["position"][:, None, :].expand(n, slots, 3)),
+        "direction": _flat(conn_dir),
+        "max_dist": dist_f,
+        "block_below": dist_f - DIST_EPSILON,
+        "contributes": _flat(good),
+    }
+    return query, {"good": good, "sqd": sqd, "cos_out_s": cos_out_s, "cos_in_s": cos_in_s}
+
+
+def _conn_blocked(t_hit, query, n, slots):
+    """The occlusion verdict of a flattened connection batch, [N, K]."""
+    return (torch.isfinite(t_hit) & (t_hit < query["max_dist"] - DIST_EPSILON)).reshape(n, slots)
+
+
+def _conn_fold(new_state, info, pack, blocked, pp, aux_ok, conn_vsum, conn_cnt):
+    """Connection verdicts folded into the per-lane sums (connect_paths,
+    bidirectional.rs:310-398), with new_state's brightness after the
+    bounce's NEE, the in-line order. Returns (conn_vsum, conn_cnt) + the
+    bounce's sums [N, S]."""
+    n, slots = blocked.shape
+    s_count = new_state["brightness"].shape[1]
+    good = pack["good"] & ~blocked
+    brdf_conn = 2.0 * torch.abs(pack["cos_out_s"])
+    brdf_ratio = brdf_conn / torch.clamp(info["brdf_stored"][:, None], min=1e-20)
+    scale = (torch.abs(pack["cos_in_s"]) * torch.abs(pack["cos_out_s"]) * brdf_ratio
+             / (2.0 * math.pi * torch.clamp(pack["sqd"], min=1e-20)))
+    delta = new_state["reflectance"][:, None, :] * scale[..., None] * pp
+    value = new_state["brightness"][:, None, :] + delta  # [N, K, S]
+    aux_take = new_state["aux_alive"][:, None] & aux_ok  # [N, K]
+    cols = torch.arange(s_count, device=good.device)[None, None, :]
+    take = good[..., None] & ((cols == 0) | aux_take[..., None])
+    return (conn_vsum + torch.sum(torch.where(take, value, 0.0), dim=1),
+            conn_cnt + torch.sum(take.to(torch.float32), dim=1))
+
+
+# Bytes the connection step of one camera bounce holds per (lane, lamp
+# slot) at S spectral columns: the query (origin, direction, distances,
+# flag, t: ~40), the geometry terms (~24) and the fold's [N, K, S]
+# temporaries (4 of 4 S). The slots are taken in groups only to bound that
+# memory: a group's batch stays within _CONN_GROUP_BYTES, 4 GiB of the 80
+# GB card; at the Cornell class (262,144 lanes, S = 10) one group holds 73
+# slots, so the 5 of 4 + 4 bounces are one batch.
+_CONN_GROUP_BYTES = 4 << 30
+
+
+def _conn_group_slots(n, s_count):
+    return max(1, _CONN_GROUP_BYTES // (max(n, 1) * (64 + 16 * s_count)))
+
+
+def _connect_fold_grouped(scene, cfg, info, new_state, conn, conn_vsum, conn_cnt):
+    """Connection query, occlusion (kernels_dense.shadow_query over the
+    rays that contribute) and fold for one camera bounce, over groups of
+    lamp slots (_CONN_GROUP_BYTES). Returns the updated sums."""
+    n, slots = conn["conn_ok"].shape
+    g = _conn_group_slots(n, new_state["brightness"].shape[1])
+    for k0 in range(0, slots, g):
+        sl = slice(k0, min(k0 + g, slots))
+        query, pack = _conn_query(info, conn["position"][:, sl], conn["normal"][:, sl],
+                                  conn["conn_ok"][:, sl])
+        t_hit = kernels_dense.shadow_query(
+            scene, cfg, query["origin"], query["direction"], query["max_dist"],
+            query["block_below"], query["contributes"])
+        counters["connection_rays"] = counters["connection_rays"] + query["contributes"].sum()
+        blocked = _conn_blocked(t_hit, query, n, sl.stop - k0)
+        vs, cn = _conn_fold(new_state, info, pack, blocked, conn["pp"][:, sl], conn["aux_ok"][:, sl],
+                            torch.zeros_like(conn_vsum), torch.zeros_like(conn_cnt))
+        conn_vsum, conn_cnt = conn_vsum + vs, conn_cnt + cn
+    return conn_vsum, conn_cnt
+
+
+def make_render_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceConfig,
+                     light_bounces: int, rows=None, two_phase: bool = False):
+    """The one-shot chunk step over ``rows`` rows of the film (all of them
+    by default), for one sample keyed by an rng.KeyedDraws. ``two_phase``
+    False: step(acc, wt, draws, row0=0, splat=None) traces the lamp paths
+    and the camera walk and exposes them. True: (lamp_step, cam_step):
+    lamp_step(draws, row0) -> (connection arrays at full [N, L + 1]
+    capacity, connectable_count, the chunk's rays and program values), which
+    the caller may compact (_compact_connections); cam_step(acc, wt, draws,
+    conn, row0, prepared, splat), where ``prepared`` is lamp_step's third
+    output (None to make them again). ``splat`` (acc, wt) takes the light-tracing splats
+    in place of acc and wt. Films are updated in place and returned."""
+    rows = film.height if rows is None else rows
+    lamp_cfg = TraceConfig(bounces=light_bounces, light_samples=0,
+                           spectrum_samples=cfg.spectrum_samples, max_de_steps=cfg.max_de_steps)
+    dev = scene.device
+
+    def prepare(keyed, row0):
+        rays = chunk_rays(film, camera, cfg, keyed, row0=row0, rows=rows, device=dev)
+        return rays, kernels_dense.precompute_bank_values(scene, rays[3])
+
+    def lamp_step(draws, row0=0, prepared=None):
+        keyed = replace(draws, pixel0=row0 * film.width)
+        rays, bank = prepare(keyed, row0) if prepared is None else prepared
+        wl = rays[3]
+        path = trace_lamp_path(scene, lamp_cfg, keyed, wl, bank)
+        splat_u = splat_draws(keyed, wl.shape[0], light_bounces + 1, dev)
+        conn = _connection_arrays(scene, path, wl, splat_u, bank)
+        return conn, connectable_count(conn), (rays, bank)
+
+    def cam_step(acc, wt, draws, conn, row0=0, prepared=None, splat=None):
+        keyed = replace(draws, pixel0=row0 * film.width)
+        (positions, origin, direction, wl), bank = (
+            prepare(keyed, row0) if prepared is None else prepared)
+        n, s_count = wl.shape
+        state = initial_state(origin, direction, s_count)
+        conn_vsum = torch.zeros((n, s_count), device=dev)
+        conn_cnt = torch.zeros((n, s_count), device=dev)
+        len_cam = torch.zeros(n, dtype=torch.int32, device=dev)
+        for i in range(cfg.bounces):
+            live = int(state["alive"].sum())
+            if live == 0:
+                break
+            tracer.lane_bounces["live"] += live
+            tracer.lane_bounces["executed"] += n
+            draws_i = tracer.draw_bounce_uniforms(scene, cfg, n, keyed, i, dev)
+            state, info = kernels_dense.bounce_dense(scene, cfg, wl, state, draws_i, bank, record=True)
+            counters["camera_bounces"] += 1
+            if scene.num_lamps > 0:
+                conn_vsum, conn_cnt = _connect_fold_grouped(
+                    scene, cfg, info, state, conn, conn_vsum, conn_cnt)
+            len_cam += info["recorded"].to(torch.int32)
+
+        # camera-path samples at weight 1 (the hero always, the others while
+        # never dispersed), one per pixel of the chunk
+        mask = tracer._column_mask(state["aux_alive"], s_count)
+        acc, wt = expose_lanes(film, acc, wt, row0, wl, state["brightness"],
+                               torch.ones_like(state["brightness"]), mask)
+        # connection samples: sums of value x W with weight sums C x W
+        w_conn = 1.0 / torch.clamp(len_cam * conn["length"], min=1).to(torch.float32)
+        acc, wt = expose_sums(film, acc, wt, positions, wl, conn_vsum * w_conn[:, None],
+                              conn_cnt * w_conn[:, None], torch.ones_like(mask))
+        sacc, swt = (acc, wt) if splat is None else splat
+        _light_splats(scene, film, camera, cfg, conn, wl, sacc, swt)
+        counters["steps"] += 1
+        return acc, wt
+
+    def chunk_step(acc, wt, draws, row0=0, splat=None):
+        conn, _, prepared = lamp_step(draws, row0)
+        return cam_step(acc, wt, draws, conn, row0, prepared, splat)
+
+    if two_phase:
+        return lamp_step, cam_step
+    return chunk_step
+
+
+# Bytes a chunk step holds per (lane, lamp slot) at S spectral columns:
+# the lamp path record (~60), the connection arrays (prefix products 4 S,
+# position, normal, flags and splat uniforms ~36) and one camera bounce's
+# connection batch and fold (_connect_fold_grouped, 64 + 16 S).
+# pick_rows_per_chunk keeps a chunk within _STEP_BYTES, 8 GiB of the 80 GB
+# card; the JAX package's lane caps (_LANE_BUDGET, CLUSTER_LANE_CAP) budget
+# a TPU's memory and are not carried over.
+_STEP_BYTES = 8 << 30
+
+
+def pick_rows_per_chunk(film: Film, light_bounces: int, spectrum_samples: int) -> int:
+    """Rows per chunk step: the whole film where its lanes fit _STEP_BYTES
+    (the Cornell class, 512 x 512 lanes at 4 + 1 slots and S = 10, counts
+    0.44 GiB), else the largest divisor of the height that fits."""
+    per_lane = (light_bounces + 1) * (160 + 20 * spectrum_samples)
+    lanes = max(film.width, _STEP_BYTES // per_lane)
+    rows = max(1, min(film.height, lanes // film.width))
+    while film.height % rows:
+        rows -= 1
+    return rows
+
+
+def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samples=None,
+           resume=None):
+    """Render the project with bidirectional path tracing on the scene's
+    device; returns (film, acc, wt).
+
+    Dispatch as the JAX package's _render (its bidirectional.py:2072-2151):
+    the fused step while light_bounces + 1 <= 16, else the two-phase step
+    whose host reads each chunk's connectable count and compacts the lamp
+    slots to the next power of two (at least 4), so that a handful of
+    capacities recur. At REGEN_BDPT_MIN_BOUNCES camera bounces or more with
+    path regeneration on, the JAX package takes its regen scheduler, which
+    is not ported: NotImplementedError. ``resume`` (a checkpoint) starts
+    from its film at its samples_done; the draws are keyed by the global
+    sample, so the resumed render equals the straight one. Each sample's
+    splats are gathered in a film of their own and added after its last
+    chunk, so the film does not depend on the rows per chunk
+    (pick_rows_per_chunk)."""
+    project = project_data.project
+    settings = project.renderer
+    film = Film(width=project.image.width, height=project.image.height,
+                bins=settings.spectrum_bins, span=settings.spectrum_span)
+    camera = CameraModel.from_ir(project.camera)
+    cfg = TraceConfig(bounces=settings.bounces, light_samples=settings.light_samples,
+                      spectrum_samples=settings.spectrum_samples)
+    if cfg.bounces >= REGEN_BDPT_MIN_BOUNCES and regen_enabled():
+        raise NotImplementedError(
+            f"bidirectional rendering with {cfg.bounces} camera bounces takes the JAX package's "
+            "camera-regeneration scheduler, which is not ported to pyrite_tpu_torch yet "
+            "(ROADMAP.md queue 1: regen BDPT); PYRITE_TPU_REGEN=0 renders it one-shot")
+    light_bounces = settings.light_bounces
+    rows = pick_rows_per_chunk(film, light_bounces, cfg.spectrum_samples)
+    acc, wt = film.new_buffers(scene.device)
+    if resume is not None:
+        acc.copy_(torch.as_tensor(resume["acc"], dtype=torch.float32).view(acc.shape))
+        wt.copy_(torch.as_tensor(resume["wt"], dtype=torch.float32).view(wt.shape))
+    start = _uniform_start(resume, film)
+    total = settings.pixel_samples if max_samples is None else min(settings.pixel_samples,
+                                                                   max_samples)
+    slots = light_bounces + 1
+    two_phase = slots > 16
+    if two_phase:
+        lamp_step, cam_step = make_render_step(
+            scene, film, camera, cfg, light_bounces, rows, two_phase=True)
+    else:
+        step = make_render_step(scene, film, camera, cfg, light_bounces, rows)
+    splat = film.new_buffers(scene.device)
+    for i in range(start, total):
+        draws = KeyedDraws(seed, sample0=i, samples=1)
+        for buf in splat:
+            buf.zero_()
+        for row0 in range(0, film.height, rows):
+            if two_phase:
+                conn, count, prepared = lamp_step(draws, row0)
+                k_new = 4
+                while k_new < int(count) and k_new < slots:
+                    k_new *= 2
+                conn = _compact_connections(conn, min(k_new, slots))
+                counters["compactions"] += 1
+                acc, wt = cam_step(acc, wt, draws, conn, row0, prepared, splat)
+            else:
+                acc, wt = step(acc, wt, draws, row0, splat)
+        acc += splat[0]
+        wt += splat[1]
+        if on_progress is not None:
+            on_progress(RenderProgress(sample=i + 1, total=total, acc=acc, wt=wt, film=film,
+                                       lane_samples=_uniform_lanes(film, i + 1)))
+    return film, acc, wt

@@ -17,6 +17,14 @@ lane is word k % 4 of block k // 4. Per lane:
   LAMP       lamp_idx               1, as min(floor(u * lamps), lamps - 1)
   U_NEE      u_nee [ls, 4]          light sample j is block j
   U_EMIS     u_emis [ls]            light sample j is word j
+  LAMP_START [6]                    a lamp path's start (bounce 0): lamp pick
+                                    1, emitter uniforms 4, emissive
+                                    component 1
+  LAMP_BOUNCE [4]                   lamp bounce d (bounce word d): u_comp 1,
+                                    u_scatter 3
+  SPLAT      [K, 2]                 lamp slot k's lens uniforms are words
+                                    0-1 of block k (bounce 0), k the slot's
+                                    index in the uncompacted lamp path
 
 A uniform is (x >> 8) * 2^-24, exact in f32 on every device. Lanes take
 their words in one of two ways. ``KeyedDraws`` (affine, the one-shot
@@ -27,9 +35,10 @@ wavefront): lane l of a wavefront of ``samples`` samples starting at sample
 give each lane its pixel, its sample and, optionally, its bounce; fed the
 affine indices they give the affine draws bit for bit.
 
-``camera_uniforms``, ``bounce_draws`` and ``lane_draws`` (a regeneration
+``camera_uniforms``, ``bounce_draws``, ``lane_draws`` (a regeneration
 iteration's camera draws, on a mask of lanes, and bounce draws in one
-launch) compute the plain version for tensors on the CPU and launch
+launch) and ``purpose_words`` (one purpose's words, the bidirectional
+renderer's lamp and splat draws) compute the plain version for tensors on the CPU and launch
 ``philox_draws_kernel`` (csrc/draws.cu) on a CUDA device, one launch per
 call; ``philox_plain`` is the plain version on any device. It replaces
 the per-bounce jax.random draws of the JAX package
@@ -45,7 +54,7 @@ from dataclasses import dataclass
 
 import torch
 
-CAMERA, U_COMP, U_SCATTER, LAMP, U_NEE, U_EMIS = range(6)
+CAMERA, U_COMP, U_SCATTER, LAMP, U_NEE, U_EMIS, LAMP_START, LAMP_BOUNCE, SPLAT = range(9)
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # round multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # key schedule (Weyl) increments
@@ -136,19 +145,20 @@ def _lanes(draws, n, bounce, device):
             torch.full((n,), bounce & _MASK, dtype=torch.int64, device=device))
 
 
-def purpose_uniforms(draws, n, bounce, purpose, width, device):
-    """The plain version of one purpose's draws: [n, width] f32 uniforms of
-    words 0 .. width - 1 for each lane at ``bounce`` (a LaneKeys' own depth
-    where it has one)."""
+def purpose_uniforms(draws, n, bounce, purpose, width, device, take=4):
+    """The plain version of one purpose's draws: [n, width] f32 uniforms
+    for each lane at ``bounce`` (a LaneKeys' own depth where it has one),
+    uniform j from word j % take of block j // take (take = 4: words 0 ..
+    width - 1)."""
     pixel, sample, depth = _lanes(draws, n, bounce, device)
-    blocks = -(-width // 4)
+    blocks = -(-width // take)
     ctr = torch.stack([
         pixel[:, None].expand(n, blocks),
         sample[:, None].expand(n, blocks),
         depth[:, None].expand(n, blocks),
         (purpose << 16) + torch.arange(blocks, dtype=torch.int64, device=device)[None, :].expand(n, blocks),
     ], dim=-1)
-    words = philox_plain(draws.key(), ctr).reshape(n, blocks * 4)[:, :width]
+    words = philox_plain(draws.key(), ctr)[..., :take].reshape(n, blocks * take)[:, :width]
     return to_uniform(words)
 
 
@@ -207,10 +217,11 @@ def _index(name, t, n, dev):
 
 
 def _launch(draws, n, dev, cam_out=None, out=None, bounce=0, s_cam=0, light_samples=0,
-            num_lamps=0, camera_mask=None):
+            num_lamps=0, camera_mask=None, words_out=None, purpose=0, take=4):
     """One launch of philox_draws_kernel writing the camera draws [n, s_cam
     + 5] into ``cam_out`` and a bounce's draws in _layout into ``out`` (each
-    where given); a LaneKeys launches the indexed mode, where
+    where given), or one purpose's words [n, width] into ``words_out``
+    (purpose_words); a LaneKeys launches the indexed mode, where
     ``camera_mask`` (bool [n]) picks the lanes that take camera draws."""
     from . import _build
 
@@ -226,6 +237,8 @@ def _launch(draws, n, dev, cam_out=None, out=None, bounce=0, s_cam=0, light_samp
     rc = _build.load().pyrite_philox_draws(
         k0, k1, n, *affine, bounce & _MASK, s_cam, light_samples, num_lamps,
         0 if cam_out is None else cam_out.data_ptr(), 0 if out is None else out.data_ptr(), *index,
+        0 if words_out is None else words_out.data_ptr(), purpose,
+        0 if words_out is None else words_out.shape[1], take,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     if rc != 0:
@@ -315,3 +328,45 @@ def lane_draws(keys: LaneKeys, s, light_samples, num_lamps, camera_mask, device)
     _launch(keys, n, dev, cam_out=cam, out=buf, s_cam=s, light_samples=light_samples,
             num_lamps=num_lamps, camera_mask=camera_mask)
     return cam, out
+
+
+def purpose_words(draws, n, bounce, purpose, width, device, take=4):
+    """One purpose's uniforms for ``n`` lanes at ``bounce`` (a LaneKeys'
+    own depth where it has one), [n, width] f32, uniform j from word j %
+    take of block j // take (purpose_uniforms); one launch on a CUDA
+    device. The bidirectional renderer's draws: LAMP_START (width 6),
+    LAMP_BOUNCE (width 4) at the lamp depth, SPLAT (width 2 K, take 2)."""
+    dev = _device(device)
+    if dev.type == "cpu":
+        return purpose_uniforms(draws, n, bounce, purpose, width, dev, take)
+    _check_lanes(n)
+    if not 1 <= take <= 4 or width < 1:
+        raise ValueError(f"purpose_words takes 1 to 4 words a block and width >= 1, not {take}, {width}")
+    if -(-width // take) > 0xFFFF:
+        raise ValueError(f"{width} words of {take} a block: more blocks than a purpose counts (65,535)")
+    out = torch.empty((n, width), dtype=torch.float32, device=dev)
+    _launch(draws, n, dev, bounce=bounce, words_out=out, purpose=purpose, take=take)
+    return out
+
+
+def lamp_start_draws(draws, n, num_lamps, device):
+    """A lamp path's start draws (LAMP_START): {"words": [n, 6], "lamp_idx"
+    [n] int32 (the uniform lamp pick), "u_lamp" [n, 4] (the emitter's point
+    and direction), "u_emis" [n] (the emissive component)}, the tensors
+    views of "words" but lamp_idx."""
+    w = purpose_words(draws, n, 0, LAMP_START, 6, device)
+    return {"words": w, "lamp_idx": lamp_index(w[:, 0], max(num_lamps, 1)),
+            "u_lamp": w[:, 1:5], "u_emis": w[:, 5]}
+
+
+def lamp_bounce_draws(draws, n, depth, device):
+    """Lamp bounce ``depth``'s draws (LAMP_BOUNCE): {"words": [n, 4],
+    "u_comp" [n], "u_scatter" [n, 3]}, views of "words"."""
+    w = purpose_words(draws, n, depth, LAMP_BOUNCE, 4, device)
+    return {"words": w, "u_comp": w[:, 0], "u_scatter": w[:, 1:4]}
+
+
+def splat_draws(draws, n, slots, device):
+    """The light-tracing splats' lens uniforms (SPLAT), [n, slots, 2]: slot
+    k's from block k, whatever slots a later compaction keeps."""
+    return purpose_words(draws, n, 0, SPLAT, 2 * slots, device, take=2).view(n, slots, 2)

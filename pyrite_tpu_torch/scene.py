@@ -820,3 +820,44 @@ class CameraModel:
 
         world_origin = rotate(origin) + torch.tensor([r[3] for r in m], device=origin.device)
         return world_origin, rotate(direction)
+
+
+def camera_inverse_project(camera: CameraModel, targets, u1, u2):
+    """Project world points back through the lens to view coordinates
+    (pyrite_tpu.scene.camera_inverse_project, cameras.rs:99-158 is_visible
+    without the world occlusion test): ``targets`` [N, 3], lens uniforms
+    u1 / u2 [N]. Returns (view_xy [N, 2], world_origin [N, 3], direction
+    [N, 3], distance [N], ok [N]: the point lies in front of the camera).
+    The rotations are written out as three sums per component, as in
+    CameraModel.ray_towards, so a lane's result does not depend on its
+    batch."""
+    m = [[float(v) for v in row] for row in np.asarray(camera.transform, np.float32)[:3]]
+    trans = torch.tensor([r[3] for r in m], device=targets.device)
+    # the inverse of a rigid transform: R^T (x - t)
+    rel = targets - trans
+    local = torch.stack(
+        [rel[:, 0] * m[0][j] + rel[:, 1] * m[1][j] + rel[:, 2] * m[2][j] for j in range(3)], dim=-1)
+    ok = local[:, 2] < 0.0
+    if camera.aperture > 0.0:
+        sqrt_r = torch.sqrt(camera.aperture * u1)
+        psi = 2.0 * math.pi * u2
+        origin_local = torch.stack(
+            [sqrt_r * torch.cos(psi), sqrt_r * torch.sin(psi), torch.zeros_like(u1)], dim=-1)
+    else:
+        origin_local = torch.zeros_like(targets)
+    world_origin = torch.stack(
+        [origin_local[:, 0] * r[0] + origin_local[:, 1] * r[1] + origin_local[:, 2] * r[2]
+         for r in m], dim=-1) + trans
+    direction = targets - world_origin
+    distance = torch.sqrt(torch.clamp(geom.dot(direction, direction), min=1e-20))
+    direction = direction / distance[:, None]
+
+    fd = float(camera.focus_distance)
+    l1 = local + torch.tensor([0.0, 0.0, fd], device=targets.device)
+    dist_z = l1[:, 2]
+    l2 = l1 - origin_local * (dist_z / fd)[:, None]
+    l3 = l2 - torch.tensor([0.0, 0.0, fd], device=targets.device)
+    denom = torch.where(torch.abs(l3[:, 2]) < 1e-12, 1.0, l3[:, 2])
+    vpt = -l3 / denom[:, None]
+    view_xy = torch.stack([vpt[:, 0] * camera.view_plane, -vpt[:, 1] * camera.view_plane], dim=-1)
+    return view_xy, world_origin, direction, distance, ok

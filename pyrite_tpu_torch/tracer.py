@@ -22,6 +22,12 @@ kernels of csrc/wide_bvh.cu (kernels.closest_wide / shadow_wide). Its random
 numbers come in one ``draws`` dict shaped like the JAX package's
 draw_bounce_uniforms, so both packages (and both versions) can be fed
 identical draws; a render keys them (rng.KeyedDraws).
+
+For the bidirectional renderer, ``bounce_core(record=True)`` also returns
+the camera vertex, and the lamp paths are ``trace_lamp_path``'s: the
+emitter (``sample_lamp_ray``, ``lamp_start``) and the lamp bounces
+(``lamp_bounce_step``), the plain versions of the CUDA lamp kernels, which
+kernels_dense.lamp_start / lamp_bounce route to by device.
 """
 
 from __future__ import annotations
@@ -62,15 +68,19 @@ KIND_DE = 4  # DE shape j encoded as idx = j
 # march.
 DE_OMEGA = 1.6
 
-# Counts for a run to show which route its bounces took: "bounce_core" is
-# the plain version's calls, "bounces" the bounce iterations trace_paths ran
-# (by either route).
-launches = {"bounce_core": 0, "bounces": 0}
+# Counts for a run to show which route its bounces took: "bounce_core",
+# "lamp_start", "lamp_bounce_step" and "intersect_shadow" are the plain
+# versions' calls, "bounces" the bounce iterations trace_paths ran and
+# "lamp_bounces" those of trace_lamp_path (by either route).
+launches = {"bounce_core": 0, "bounces": 0, "lamp_start": 0, "lamp_bounce_step": 0,
+            "intersect_shadow": 0, "lamp_bounces": 0}
 # Lane-bounces of the bounce loops since a caller last zeroed them:
 # "executed", every lane of every bounce iteration; "live", the lanes whose
-# path still runs and will be exposed (the alive lanes of trace_paths and of
-# the survivor pool, the quota-bound lanes of a regeneration launch).
-lane_bounces = {"live": 0, "executed": 0}
+# path still runs and will be exposed (the alive lanes of trace_paths, of
+# the bidirectional camera walk and of the survivor pool, the quota-bound
+# lanes of a regeneration launch); "lamp_live" and "lamp_executed", the
+# same of the lamp walks (trace_lamp_path).
+lane_bounces = {"live": 0, "executed": 0, "lamp_live": 0, "lamp_executed": 0}
 
 # Work the plain version counts while a caller sets this to a dict (None:
 # no counting, and no host syncs for it): "de_steps" (march steps of all
@@ -179,6 +189,7 @@ def intersect_shadow(
     The DE shapes are marched no further than ``max_dist``, and their hits
     count at any t, negative included (tracer.py:492-496): a shadow ray
     leaving a DE surface is usually blocked by it (ROADMAP.md queue 3)."""
+    launches["intersect_shadow"] += 1
     a = scene.arrays
     o = origin[:, None, :]
     d = direction[:, None, :]
@@ -1104,10 +1115,15 @@ def trace_paths(scene: Scene, cfg: TraceConfig, rng, origin, direction, waveleng
     return state["brightness"], state["aux_alive"]
 
 
-def bounce_core(scene: Scene, cfg: TraceConfig, wavelengths, state, draws):
+def bounce_core(scene: Scene, cfg: TraceConfig, wavelengths, state, draws, record=False):
     """One camera-path bounce: intersection, contribution, NEE, scatter
     (tracer.py:1585-1796, dense scenes). The plain version of the CUDA
-    bounce and NEE kernels. Returns the new state."""
+    bounce and NEE kernels. Returns the new state; with ``record``, (new
+    state, info), info the surface interaction a bidirectional connection
+    needs (tracer.py:1772-1794): position, normal, incident, is_diffuse,
+    dispersed, recorded (a vertex counts toward the path length: a
+    reflection, an emission while sampling lamps, or a miss), brdf_stored
+    and miss."""
     launches["bounce_core"] += 1
     n = state["origin"].shape[0]
     s_count = wavelengths.shape[1]
@@ -1188,7 +1204,7 @@ def bounce_core(scene: Scene, cfg: TraceConfig, wavelengths, state, draws):
     # --- apply the BRDF and continue the path ------------------------------
     brdf = brdf_value(normal, sc["out_dir"], sc["is_diffuse"])
     reflectance = torch.where(refl_mask, reflectance * brdf[:, None], reflectance)
-    return {
+    new_state = {
         "origin": torch.where(reflected[:, None], position, o),
         "direction": torch.where(reflected[:, None], sc["out_dir"], d),
         "brightness": brightness,
@@ -1198,3 +1214,233 @@ def bounce_core(scene: Scene, cfg: TraceConfig, wavelengths, state, draws):
         "sample_light": sample_light,
         "light_events": light_events,
     }
+    if not record:
+        return new_state
+    return new_state, {
+        "position": position,
+        "normal": normal,
+        "incident": d,
+        "is_diffuse": sc["is_diffuse"] & reflected,
+        "dispersed": bounce_dispersed & reflected,
+        "recorded": reflected | emit_now | miss,
+        "brdf_stored": brdf,
+        "miss": miss,
+    }
+
+
+# =============================================================================
+# Lamp paths for bidirectional tracing (bidirectional.rs:125-202)
+# =============================================================================
+#
+# A lamp path is recorded as [N, L + 1] vertex arrays (slot 0 the emitter):
+# position, normal, color_prog (int32), probability, is_diffuse, dispersed,
+# valid, brdf, and incident_out (the direction that arrived at the vertex;
+# the emitter's is its start direction), with brdf_limit [N] (the last
+# bounce's brdf along its scattered direction) and length [N] (valid
+# vertices). Only the valid slots are defined: every consumer masks the
+# others out. Texture coordinates are not recorded: color programs that
+# read the ray are refused by the scene gate (kernels_dense.build_pack).
+
+LAMP_VERTEX = {  # field: dtype of a recorded vertex
+    "position": torch.float32, "normal": torch.float32, "color_prog": torch.int32,
+    "probability": torch.float32, "is_diffuse": torch.bool, "dispersed": torch.bool,
+    "valid": torch.bool, "brdf": torch.float32,
+}
+
+
+def sample_lamp_ray(scene: Scene, lamp_idx, u):
+    """Start lamp subpaths (lamp.rs:84-113, tracer.py:1804-1903): lamp
+    ``lamp_idx`` [N] (picked uniformly) samples an outgoing ray from the
+    uniforms ``u`` [N, 4], branchless over the point, sphere and triangle
+    lamps present (the scene gate refuses directional lamps). Returns a dict
+    of the emitter's data; "valid" is False in a scene without lamps."""
+    a = scene.arrays
+    n = u.shape[0]
+    dev = u.device
+    lamp_idx = lamp_idx.long()
+    ltype = a["lamp_type"][lamp_idx]
+    ref = torch.clamp(a["lamp_ref"][lamp_idx].long(), min=0)
+    position = torch.zeros((n, 3), device=dev)
+    direction = torch.zeros((n, 3), device=dev)
+    normal = torch.zeros((n, 3), device=dev)
+    weight = torch.ones(n, device=dev)
+    is_shape = torch.zeros(n, dtype=torch.bool, device=dev)
+    surf_mat = torch.zeros(n, dtype=torch.long, device=dev)
+    valid = torch.full((n,), scene.num_lamps > 0, dtype=torch.bool, device=dev)
+
+    if LAMP_POINT in scene.lamp_types:
+        is_pt = ltype == LAMP_POINT
+        pt_dir = geom.sample_sphere(u[:, 0], u[:, 1])
+        position = torch.where(is_pt[:, None], a["lamp_vec"][lamp_idx], position)
+        direction = torch.where(is_pt[:, None], pt_dir, direction)
+        normal = torch.where(is_pt[:, None], pt_dir, normal)  # Surface::Color case
+        weight = torch.where(is_pt, 4.0 * math.pi, weight)
+
+    if LAMP_SPHERE in scene.lamp_types:
+        is_sph = ltype == LAMP_SPHERE
+        sref = torch.clamp(ref, max=a["sph_center"].shape[0] - 1)
+        s_center = a["sph_center"][sref]
+        s_radius = a["sph_radius"][sref]
+        point = s_center + geom.sample_sphere(u[:, 0], u[:, 1]) * s_radius[:, None]
+        s_normal = geom.normalize(point - s_center)
+        s_dir = geom.sample_hemisphere(u[:, 2], u[:, 3], s_normal)
+        position = torch.where(is_sph[:, None], point, position)
+        direction = torch.where(is_sph[:, None], s_dir, direction)
+        normal = torch.where(is_sph[:, None], s_normal, normal)
+        weight = torch.where(is_sph, s_radius * s_radius * 4.0 * math.pi, weight)
+        is_shape |= is_sph
+        surf_mat = torch.where(is_sph, a["sph_mat"][sref].long(), surf_mat)
+
+    if LAMP_TRIANGLE in scene.lamp_types:
+        is_tri = ltype == LAMP_TRIANGLE
+        tref = torch.clamp(ref, max=a["tri_v0"].shape[0] - 1)
+        tu, tv = u[:, 0], u[:, 1]
+        fold = tu + tv > 1.0
+        tu = torch.where(fold, 1.0 - tu, tu)
+        tv = torch.where(fold, 1.0 - tv, tv)
+        t_e1, t_e2 = a["tri_e1"][tref], a["tri_e2"][tref]
+        point = a["tri_v0"][tref] + t_e1 * tu[:, None] + t_e2 * tv[:, None]
+        tw = 1.0 - tu - tv
+        tn = a["tri_n"][tref]
+        t_normal = geom.normalize(tn[:, 0] * tw[:, None] + tn[:, 1] * tu[:, None] + tn[:, 2] * tv[:, None])
+        t_dir = geom.sample_hemisphere(u[:, 2], u[:, 3], t_normal)
+        c = geom.cross(t_e1, t_e2)
+        t_area = 0.5 * torch.sqrt(torch.clamp(geom.dot(c, c), min=0.0))
+        position = torch.where(is_tri[:, None], point, position)
+        direction = torch.where(is_tri[:, None], t_dir, direction)
+        normal = torch.where(is_tri[:, None], t_normal, normal)
+        weight = torch.where(is_tri, t_area, weight)
+        is_shape |= is_tri
+        surf_mat = torch.where(is_tri, a["tri_mat"][tref].long(), surf_mat)
+
+    return {
+        "lamp_idx": lamp_idx,
+        "pick_prob": 1.0 / max(scene.num_lamps, 1),
+        "position": position,
+        "direction": direction,
+        "normal": normal,
+        "weight": weight,
+        "is_shape": is_shape,
+        "surf_mat": surf_mat,
+        "color_prog": a["lamp_color"][lamp_idx].long(),
+        "valid": valid,
+    }
+
+
+def lamp_start(scene: Scene, wavelengths, draws):
+    """The emitter vertex of each lamp path and the state its walk starts
+    from (tracer.py:1916-1950): sample_lamp_ray from draws["lamp_idx"] and
+    draws["u_lamp"], the emissive component from draws["u_emis"]
+    (choose_emissive), its probability program, and the emitter's
+    Bounce.probability, weight / (pick probability x material
+    probability). The plain version of the CUDA lamp kernel's start mode.
+    Returns (vertex, state {origin, direction, alive})."""
+    launches["lamp_start"] += 1
+    a = scene.arrays
+    start = sample_lamp_ray(scene, draws["lamp_idx"], draws["u_lamp"])
+    e_comp, e_sel = choose_emissive(scene, start["surf_mat"], draws["u_emis"])
+    inputs = ProgramInputs(wavelength=wavelengths, normal=start["normal"], incident=-start["direction"])
+    mat_prob = eval_prob_bank(scene, a["comp_prob"][e_comp], inputs, active=start["is_shape"]) * e_sel
+    mat_prob = torch.where(start["is_shape"], mat_prob, 1.0)
+    origin = start["position"] + start["normal"] * DIST_EPSILON
+    vertex = {
+        "position": origin,
+        "normal": start["normal"],
+        "color_prog": torch.where(
+            start["is_shape"], a["comp_color"][e_comp].long(), start["color_prog"]).to(torch.int32),
+        "probability": start["weight"] / (start["pick_prob"] * torch.clamp(mat_prob, min=1e-20)),
+        "is_diffuse": torch.zeros_like(start["valid"]),
+        "dispersed": start["is_shape"] & a["comp_prob_uses_wl"][e_comp],
+        "valid": start["valid"],
+        "brdf": torch.ones_like(start["weight"]),
+    }
+    return vertex, {"origin": origin, "direction": start["direction"], "alive": start["valid"]}
+
+
+def lamp_bounce_step(scene: Scene, cfg: TraceConfig, wavelengths, state, draws):
+    """One lamp bounce (tracer.py:1953-2034): closest hit, surface data,
+    component pick, probability program, scatter, recording the vertex
+    instead of brightness (no emission, no NEE). An emissive hit ends the
+    path and records nothing, as does a miss. The plain version of the
+    CUDA lamp kernel. Returns (new state, vertex with "brdf_scatter", the
+    brdf along the scattered direction)."""
+    launches["lamp_bounce_step"] += 1
+    a = scene.arrays
+    alive, o, d = state["alive"], state["origin"], state["direction"]
+    hit = intersect_scene(scene, o, d, de_steps=cfg.max_de_steps)
+    found = hit["kind"] != KIND_NONE
+    position, normal, mat_id = surface_data(scene, hit, o, d)
+    count = torch.clamp(a["mat_comp_count"][mat_id].long(), min=1)
+    pick = torch.minimum((draws["u_comp"] * count).long(), count - 1)
+    comp = a["mat_comp_offset"][mat_id].long() + pick
+    inputs = ProgramInputs(wavelength=wavelengths, normal=normal, incident=d)
+    comp_probability = eval_prob_bank(
+        scene, a["comp_prob"][comp], inputs, active=alive & found
+    ) * a["comp_selection"][comp]
+    sc = scatter(scene, comp, d, normal, wavelengths[:, 0], draws["u_scatter"])
+    reflected = alive & found & ~sc["is_emissive"]
+    vertex = {
+        "position": position,
+        "normal": normal,
+        "color_prog": a["comp_color"][comp].to(torch.int32),
+        "probability": sc["probability"] * comp_probability,
+        "is_diffuse": sc["is_diffuse"],
+        "dispersed": sc["dispersed"] | a["comp_prob_uses_wl"][comp],
+        "valid": reflected,
+        # after the reference's incident reversal a recorded diffuse vertex
+        # weighs 2|n.incident|; a path that ends at the bounce limit keeps
+        # its last vertex's scattered direction (brdf_scatter)
+        "brdf": brdf_value(normal, d, sc["is_diffuse"]),
+        "brdf_scatter": brdf_value(normal, sc["out_dir"], sc["is_diffuse"]),
+    }
+    return {
+        "origin": torch.where(reflected[:, None], position, o),
+        "direction": torch.where(reflected[:, None], sc["out_dir"], d),
+        "alive": reflected,
+    }, vertex
+
+
+def trace_lamp_path(scene: Scene, cfg: TraceConfig, rng, wavelengths, bank_vals=None):
+    """Lamp subpaths with recorded vertices (tracer.py:1904-2090): the
+    emitter, then up to cfg.bounces lamp bounces, ending once no path is
+    alive; slots past the end stay zero. ``rng`` is an rng.KeyedDraws of
+    the wavefront's samples (LAMP_START and LAMP_BOUNCE at each depth), or
+    a dict {"start": start draws, "bounces": [draws of each depth]} of given
+    draws. Each step goes through kernels_dense.lamp_start / lamp_bounce
+    (the plain version on the CPU, the CUDA lamp kernel on a GPU), which
+    take ``bank_vals`` (kernels_dense.precompute_bank_values) on a GPU.
+    Returns the path dict of [N, L + 1] arrays (see LAMP_VERTEX)."""
+    from . import kernels_dense, rng as rng_mod
+
+    n = wavelengths.shape[0]
+    dev = wavelengths.device
+    keyed = isinstance(rng, KeyedDraws)
+    start = rng_mod.lamp_start_draws(rng, n, scene.num_lamps, dev) if keyed else rng["start"]
+    vertex, state = kernels_dense.lamp_start(scene, wavelengths, start, bank_vals)
+    slots = {k: [vertex[k]] for k in LAMP_VERTEX}
+    incident = [state["direction"]]
+    last = None
+    for i in range(cfg.bounces):
+        live = int(state["alive"].sum())
+        if live == 0:
+            break
+        lane_bounces["lamp_live"] += live
+        lane_bounces["lamp_executed"] += n
+        launches["lamp_bounces"] += 1
+        draws = rng_mod.lamp_bounce_draws(rng, n, i, dev) if keyed else rng["bounces"][i]
+        incident.append(state["direction"])
+        state, vertex = kernels_dense.lamp_bounce(scene, cfg, wavelengths, state, draws, bank_vals)
+        for k in LAMP_VERTEX:
+            slots[k].append(vertex[k])
+        last = i
+    path = {}
+    for k, dtype in LAMP_VERTEX.items():
+        rows = slots[k]
+        pad = torch.zeros((n, cfg.bounces + 1 - len(rows)) + rows[0].shape[1:], dtype=dtype, device=dev)
+        path[k] = torch.cat([torch.stack(rows, dim=1), pad], dim=1)
+    pad = torch.zeros((n, cfg.bounces + 1 - len(incident), 3), device=dev)
+    path["incident_out"] = torch.cat([torch.stack(incident, dim=1), pad], dim=1)
+    path["brdf_limit"] = (vertex["brdf_scatter"] if last == cfg.bounces - 1
+                          else torch.zeros(n, device=dev))
+    path["length"] = path["valid"].sum(dim=1).to(torch.int32)
+    return path

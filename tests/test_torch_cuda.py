@@ -284,3 +284,58 @@ def test_cuda_schedulers_match_one_shot(tmp_path, name):
         "fractal": lambda: _de_path(directory, "fractal"),
     }[name]()
     assert chip_smoke.compare_schedulers(name, path, 3, torch.cuda.get_device_name(0)) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell_class", "flagship_bdpt", "terrain_24_bdpt",
+                                  "terrain_de_24_bdpt"])
+def test_cuda_bdpt_kernels_match_plain_version(tmp_path, name):
+    """The bidirectional renderer's kernels at a render's wavefront: the
+    lamp kernel (start and bounces) and the bounce kernel's kRecord
+    instantiation with its camera vertex against tracer.lamp_start,
+    lamp_bounce_step and bounce_core(record) with every flag equal; and
+    kernels_dense.shadow_query bit for bit on the connection and splat
+    batches: dense_shadow_kernel on the dense scenes, wide_shadow_kernel on
+    the mesh scenes, after the query march pass where the scene has a DE
+    shape (the Cornell class, and terrain_de_24_bdpt: a mesh with a DE
+    shape)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    path = chip_smoke.bdpt_scene_paths(str(tmp_path), spp=1, small=True)[name]
+    worst = chip_smoke.check_bdpt(name, path)["worst"]
+    assert worst["divergent"] == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_bdpt_render_matches_plain(tmp_path):
+    """A Cornell-class render through the kernels against one through the
+    plain versions on the card, with the same keyed draws."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    path = chip_smoke.write_cornell_scene(str(tmp_path), 32, 32, 4, spp=1)
+    chip_smoke.compare_bdpt_plain(path, 1, "card")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("purpose", ["LAMP_START", "LAMP_BOUNCE", "SPLAT"])
+def test_cuda_bdpt_draws_match_cpu(purpose):
+    """The draw kernel's words mode against rng.py's plain version on the
+    CPU, bit for bit, in the affine and the indexed mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pyrite_tpu_torch import rng
+
+    code = getattr(rng, purpose)
+    width, take, depth = {"LAMP_START": (6, 4, 0), "LAMP_BOUNCE": (4, 4, 3), "SPLAT": (18, 2, 0)}[purpose]
+    n = 5000
+    affine = rng.KeyedDraws(11, sample0=3, samples=2, pixel0=64)
+    got = rng.purpose_words(affine, n, depth, code, width, "cuda", take)
+    want = rng.purpose_uniforms(affine, n, depth, code, width, torch.device("cpu"), take)
+    assert torch.equal(got.cpu(), want)
+    g = torch.Generator().manual_seed(2)
+    keys = rng.LaneKeys(11, torch.randint(0, 10**6, (n,), generator=g, dtype=torch.int32),
+                        torch.randint(0, 512, (n,), generator=g, dtype=torch.int32),
+                        torch.randint(0, 8, (n,), generator=g, dtype=torch.int32))
+    on_card = rng.LaneKeys(11, keys.pixel.cuda(), keys.sample.cuda(), keys.depth.cuda())
+    got = rng.purpose_words(on_card, n, 0, code, width, "cuda", take)
+    assert torch.equal(got.cpu(), rng.purpose_uniforms(keys, n, 0, code, width, torch.device("cpu"), take))

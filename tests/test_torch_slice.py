@@ -183,6 +183,18 @@ def test_cli_refuses_what_is_not_ported(paths, tmp_path):
     terrain_162 = terrain_scene(str(tmp_path), cells=9, width=32, height=16)[0]
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main([terrain_162, "--device", "cpu"])
+    # photon mapping, and bidirectional rendering at 16 camera bounces with
+    # path regeneration on (the JAX package's regen BDPT)
+    text = open(paths["flagship"]).read()
+    photon = tmp_path / "photon.lua"
+    photon.write_text(text.replace("renderer.simple", "renderer.photon_mapping"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cli.main([str(photon), "--device", "cpu"])
+    regen_bdpt = tmp_path / "regen_bdpt.lua"
+    regen_bdpt.write_text(text.replace("renderer.simple", "renderer.bidirectional").replace(
+        "bounces = 4,", "bounces = 16,"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        cli.main([str(regen_bdpt), "--device", "cpu", "--samples", "1"])
 
 
 def test_cli_never_moves_to_the_cpu_on_its_own(paths):
