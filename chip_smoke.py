@@ -25,11 +25,15 @@ and exits non-zero on any failure:
    divergent lane; the
    wide-BVH traversal kernels on the 328,050- and 871,200-triangle terrains
    (tools/synthetic.terrain_scene, cells 405 and 660), bit for bit; the wide
-   bounce and NEE kernels on terrain_405 and terrain_de_24;
+   bounce and NEE kernels on terrain_405 and terrain_de_24; the kProg
+   instantiations (textures, normal maps, programs that read the ray) on
+   the textures scenes of texture_paths, dense and wide (515 primitives),
+   against the same geometry untextured, with no divergent lane;
 4. per-launch times of the kernels and of the plain version at that size
    (the traversal queries on both terrains and the wide kernels on
    terrain_405 at bounces 0 and 1; the dense kernels and the draw kernel on
-   flagship; on fractal.lua the march passes and the bounce and NEE kernels
+   flagship; the kProg kernels on textures and textures_512 beside the
+   simple ones on untextured; on fractal.lua the march passes and the bounce and NEE kernels
    apart at bounces 0 and 1, and the march query with its issue-based bound
    from the SASS of one estimator iteration), with the work the plain
    version counts, from which each kernel's bound is computed, and the
@@ -50,7 +54,10 @@ and exits non-zero on any failure:
    through the draw kernel (one launch per regeneration iteration) and
    printing its live and executed lane-bounces and peak memory; the ray
    queries closest_wide / shadow_wide trace one step's camera rays of
-   terrain_405 and their shadow rays (wide traversal kernels);
+   terrain_405 and their shadow rays (wide traversal kernels); the textures
+   scene (through regeneration and one-shot) and textures_512 render
+   through the kProg kernels, each render printing the bytes a lane of its
+   wavefront took;
    kernels.march_de marches one step's camera rays of fractal.lua (DE march
    kernel). No bounce may take the plain path.
 6. the bidirectional renderer (renderers/bidirectional.py) on
@@ -65,14 +72,19 @@ and exits non-zero on any failure:
    and splat batches), their times and bounds (time_bdpt), a 64 x 64
    Cornell render through the kernels against one through the plain
    versions on the card (compare_bdpt_plain), and the four renders through
-   the CLI with the counts zeroed just before each (render_bdpt). No step
-   may take the plain path.
+   the CLI with the counts zeroed just before each (render_bdpt); then the
+   textures BDPT scene at flagship_bdpt's size: the kProg A and B and
+   program_colors_kernel (the lamp vertices' colours) against their plain
+   versions, timed beside A and B on its untextured twin, and rendered
+   through the CLI. No step may take the plain path.
 
 The last line is one JSON object {"ok": true, "device": {...}}; the line
 before it lists each kernel's launches, error, times and bound.
 
 ``python3 chip_smoke.py --rows`` instead runs phase 4's measurements of the
 dense bounce and NEE kernels alone (measure_rows).
+``python3 chip_smoke.py --walls`` instead runs ``--profile``'s flagship
+renders alone (one-shot and regeneration walls).
 ``python3 chip_smoke.py --profile`` instead renders the main-path scenes
 (flagship and terrain_405 at 64 spp, fractal.lua at 8 spp) through
 renderers.simple.render under the one-shot wavefront and under
@@ -473,6 +485,215 @@ def write_two_de_scene(directory, width=128, height=64, spectrum_samples=4, boun
     return path
 
 
+TEXTURES_SCENE = """
+return {
+    image = {width = %(w)d, height = %(h)d},
+    camera = camera.perspective {
+        fov = 55,
+        transform = transform.look_at {from = vector(0, 2.2, -5), to = vector(0, 0.6, 2)},
+    },
+    renderer = renderer.%(renderer)s {
+        pixel_samples = %(spp)d,
+        spectrum_samples = %(s)d,
+        light_samples = 1,
+        bounces = %(b)d,%(extra)s
+    },
+    world = {
+        sky = %(sky)s,
+        objects = {
+            shape.plane {
+                origin = vector(0, -0.5, 0), normal = vector(0, 1, 0), texture_scale = 5,
+                material = {
+                    surface = material.diffuse {color = %(checker)s},
+                    normal_map = %(bumps)s,
+                },
+            },
+            shape.sphere {
+                position = vector(-1.3, 0.5, 2), radius = 1, texture_scale = vector(0.5, 1.0),
+                material = {
+                    surface = material.diffuse {color = rgb(0.8, 0.7, 0.6)},
+                    normal_map = %(bumps)s,
+                },
+            },
+            shape.sphere {
+                position = vector(1.4, 0.4, 2.5), radius = 0.9,
+                material = {surface = material.diffuse {color = %(fresnel)s}},
+            },
+            shape.mesh {
+                file = "%(obj)s", materials = {
+                    tiles = {surface = mix(material.diffuse {color = %(checker)s},
+                                           material.mirror {color = 0.9}, %(mask)s)},
+                },
+            },
+            shape.sphere {
+                position = vector(0, 3.2, 2.5), radius = 0.6, texture_scale = vector(0.5, 1.0),
+                material = {surface = material.emissive {color = light_source.d65 * %(lamp)s * 4}},
+            },
+        },
+    },
+}
+"""
+# The textures scene's expressions that read the ray, and the constants of
+# its untextured twin (the same geometry, the simple kernels' form).
+TEXTURED = {
+    "sky": 'mix(0.03, texture("sky.png", "mono"), fresnel(1.33))',
+    "checker": 'texture("checker.png")',
+    "bumps": 'texture("bumps.png", "linear") * vector(1, -1, 1)',
+    "fresnel": "rgb(0.9, 0.75, 0.3) * fresnel(1.8)",
+    "mask": 'texture("mask.png", "mono")',
+    "lamp": 'texture("lamp.png")',
+}
+UNTEXTURED = {"sky": "0.1", "checker": "rgb(0.6, 0.5, 0.4)", "bumps": "nil",
+              "fresnel": "rgb(0.9, 0.75, 0.3)", "mask": "0.5", "lamp": "rgb(1, 0.9, 0.8)"}
+
+
+def _tiles_obj(cols, rows):
+    """A grid of cols x rows quads on a wall behind the scene (z = 5, x in
+    [-3, 3], y in [-0.5, 3]), two triangles each, with vt running from 0 to
+    2.5 across it (past 1: the textures wrap) and no vn (face normals)."""
+    lines = ["o tiles"]
+    for j in range(rows + 1):
+        for i in range(cols + 1):
+            lines.append(f"v {-3 + 6 * i / cols:.5f} {-0.5 + 3.5 * j / rows:.5f} 5")
+            lines.append(f"vt {2.5 * i / cols:.5f} {2.5 * j / rows:.5f}")
+    for j in range(rows):
+        for i in range(cols):
+            a = j * (cols + 1) + i + 1
+            b, d = a + 1, a + cols + 1
+            c = d + 1
+            lines.append(f"f {a}/{a} {c}/{c} {b}/{b}")
+            lines.append(f"f {a}/{a} {d}/{d} {c}/{c}")
+    return "\n".join(lines) + "\n"
+
+
+def write_texture_images(directory, seed=3):
+    """The textures scene's images, written with the port's PNG writer
+    (film.save_png) from a numpy seed, none square and none a power of two:
+    checker.png 37 x 23 (sRGB colours), bumps.png 29 x 41 (a linear normal
+    map around (0.5, 0.5, 1)), mask.png 19 x 13, sky.png 11 x 7 and lamp.png
+    23 x 17 (read as mono or colour)."""
+    import numpy as np
+
+    from pyrite_tpu_torch.film import save_png
+
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:23, 0:37]
+    checker = np.where(((x // 4 + y // 3) % 2)[..., None] == 1, [200, 60, 40], [40, 90, 200])
+    checker = checker + rng.integers(0, 40, (23, 37, 3))
+    bumps = np.empty((41, 29, 3))
+    bumps[..., :2] = 0.5 + 0.35 * rng.uniform(-1, 1, (41, 29, 2))
+    bumps[..., 2] = 1.0
+    images = {
+        "checker.png": checker,
+        "bumps.png": bumps * 255,
+        "mask.png": rng.integers(0, 256, (13, 19, 1)).repeat(3, axis=2),
+        "sky.png": rng.integers(0, 256, (7, 11, 3)),
+        "lamp.png": 128 + rng.integers(0, 128, (17, 23, 3)),
+    }
+    for name, image in images.items():
+        save_png(os.path.join(directory, name), np.clip(image, 0, 255).astype(np.uint8))
+
+
+def write_textures_scene(directory, width=64, height=48, spectrum_samples=4, bounces=4, spp=64,
+                         renderer="simple", light_bounces=4, textured=True, tiles=(3, 2)):
+    """The textures class of the reference's golden scenes (SURVEY.md
+    section 6: bicubic colour and normal maps with texture_scale): a plane
+    with texture_scale = 5, a colour texture and the reference's normal-map
+    form texture(...) * vector(1, -1, 1); a sphere with texture_scale =
+    (0.5, 1.0) and that normal map; a fresnel-coloured sphere; a small OBJ
+    with vt whose material mixes by a mono texture; a textured sphere lamp;
+    a ray-reading sky (write_texture_images' images). With ``textured``
+    False the same geometry with constants in place of every expression
+    that reads the ray (UNTEXTURED). ``tiles`` sets the OBJ's grid of
+    quads: (3, 2) gives 12 triangles, a dense scene of 15 primitives;
+    (16, 16) 512, which the wide BVH takes. Returns the .lua path."""
+    os.makedirs(directory, exist_ok=True)
+    cols, rows = tiles
+    obj = f"tiles_{cols}x{rows}.obj"
+    with open(os.path.join(directory, obj), "w") as fh:
+        fh.write(_tiles_obj(cols, rows))
+    write_texture_images(directory)
+    extra = f"\n        light_bounces = {light_bounces}," if renderer == "bidirectional" else ""
+    values = dict(TEXTURED if textured else UNTEXTURED, w=width, h=height, s=spectrum_samples,
+                  b=bounces, spp=spp, renderer=renderer, extra=extra, obj=obj)
+    name = ("textures" if textured else "untextured") + ("_bdpt" if renderer != "simple" else "") + (
+        "" if tiles == (3, 2) else f"_{2 * cols * rows}")
+    path = os.path.join(directory, f"{name}.lua")
+    with open(path, "w") as fh:
+        fh.write(TEXTURES_SCENE % values)
+    return path
+
+
+SPHERES_SCENE = """
+local materials = {
+%(materials)s
+}
+return {
+    image = {width = %(w)d, height = %(h)d},
+    camera = camera.perspective {
+        fov = 50,
+        transform = transform.look_at {from = vector(0, 9, -9), to = vector(0, 0, 4)},
+    },
+    renderer = renderer.simple {
+        pixel_samples = 16, spectrum_samples = 4, light_samples = 1, bounces = %(b)d,
+    },
+    world = {
+        sky = 0.2,
+        objects = {
+%(spheres)s
+            shape.sphere {
+                radius = 1.5, position = vector(0, 9, 4),
+                material = {surface = material.emissive {color = light_source.d65 * 6}},
+            },
+        },
+    },
+}
+"""
+
+
+def write_spheres_scene(directory, count=300, width=48, height=32, bounces=3, seed=4):
+    """A scene of ``count`` small spheres (a jittered grid on the ground,
+    from a numpy seed; seven shared materials) and a sphere lamp: above the dense kernels' 128
+    primitives, so it takes the wide BVH. Returns the .lua path."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil(np.sqrt(count)))
+    rows = []
+    for k in range(count):
+        x, z = (k % side) - side / 2, k // side
+        p = (x * 0.6 + rng.uniform(-0.1, 0.1), rng.uniform(0.0, 0.3), z * 0.6 + rng.uniform(-0.1, 0.1))
+        rows.append(f"            shape.sphere {{radius = 0.25, position = vector({p[0]:.4f}, "
+                    f"{p[1]:.4f}, {p[2]:.4f}), material = materials[{k % 7 + 1}]}},")
+    materials = "\n".join(
+        f"    {{surface = material.diffuse {{color = {0.3 + 0.6 * i / 7:.3f}}}}}," for i in range(7))
+    path = os.path.join(directory, f"spheres_{count}.lua")
+    with open(path, "w") as fh:
+        fh.write(SPHERES_SCENE % {"w": width, "h": height, "b": bounces, "spheres": "\n".join(rows),
+                                  "materials": materials})
+    return path
+
+
+def texture_paths(directory):
+    """The textures scenes of phases 3-6 (write_textures_scene) at the size
+    the CLI renders them: textures (256 x 192, S = 6, 4 bounces, 15
+    primitives: the dense kProg kernels), untextured (its geometry with
+    constants), textures_512 (512 tiles on the wall: the wide kProg
+    kernels), and textures_bdpt and its untextured twin untextured_bdpt
+    (bidirectional, 4 + 4 bounces, at flagship_bdpt's 512 x 256, S = 6:
+    chunks of 131,072 lanes, one a sample). Returns {name: .lua path}."""
+    size = dict(width=256, height=192, spectrum_samples=6, bounces=4, spp=16)
+    bdpt = dict(width=512, height=256, spectrum_samples=6, bounces=4, spp=2,
+                renderer="bidirectional")
+    return {
+        "textures": write_textures_scene(directory, **size),
+        "untextured": write_textures_scene(directory, **size, textured=False),
+        "textures_512": write_textures_scene(directory, **size, tiles=(16, 16)),
+        "textures_bdpt": write_textures_scene(directory, **bdpt),
+        "untextured_bdpt": write_textures_scene(directory, **bdpt, textured=False),
+    }
+
+
 def terrain_paths(directory, cells=(405, 660), width=256, height=128, spp=8, bounces=4):
     """The mesh scenes: tools/synthetic.terrain_scene at the configuration
     bench.py measured on the TPU (256x128, 8 spp, 4 bounces, S = 4, one
@@ -801,17 +1022,107 @@ def _event_ms(fn, reps):
 # ray-triangle or ray-sphere test; the shading of a lane (pick, programs,
 # scatter); one lamp sample; one march step outside the estimator's loop;
 # one estimator iteration of each kind; one popped wide-BVH child's slab
-# test, a descent's 16 slab tests, one leaf row's test.
+# test, a descent's 16 slab tests, one leaf row's test; a kProg hit's frame
+# and uv (the cheapest kind, a plane's rotation); one program value at one
+# spectral column (a single instruction's four floats: a floor).
 OPS = {
     "plane": 15, "triangle": 53, "sphere": 24, "shade": 150, "lamp": 80, "de_step": 20,
     "mandelbulb": 32, "regular": 55, "cubic": 83, "bicomplex": 63,
-    "pop": 21, "descent": 16 * 21, "leaf_row": 53,
+    "pop": 21, "descent": 16 * 21, "leaf_row": 53, "frame": 60, "program": 4,
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 
 
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _program_bytes(scene):
+    """Bytes a kProg launch reads of the programs once: the code, its
+    tables and the textures (the leaf values count per lane:
+    _surface_leaf_bytes, _nee_leaf_bytes)."""
+    pack = scene.dense_pack["tensors"]
+    return _nbytes(*(pack[k] for k in ("code_op", "code_val", "code_arg", "code_off", "vecs", "tex",
+                                       "tex_info")))
+
+
+def _leaf_bytes(scene, group, ids):
+    """Bytes of leaf values that the code of ``group``'s programs ``ids``
+    (a tensor; -1 or out of range: no program) reads at one spectral column:
+    4 a number leaf, 16 a 4-vector leaf or Burns' basis, each leaf once; 0
+    for a program that runs no code (its values come per launch)."""
+    import torch
+
+    from pyrite_tpu_torch import exprs
+
+    programs = scene.dense_pack["programs"]
+    width = {exprs.OP_LEAF: 4, exprs.OP_LEAF4: 16, exprs.OP_TO_NUMBER: 16}
+    cell = [sum(w for _, w in {(arg, width[op]) for op, _, arg in programs.program_code(g)
+                               if op in width}) for g in range(len(programs.off) - 1)]
+    cell = torch.tensor(cell + [0], device=ids.device)
+    count = programs.counts[("prob", "color", "normal", "sky").index(group)]
+    ok = (ids >= 0) & (ids < count)
+    return cell[torch.where(ok, programs.index(group, 0) + ids, len(cell) - 1)]
+
+
+def _surface_leaf_bytes(scene, cfg, wl, state, u_comp, color=True):
+    """Leaf bytes a kProg bounce (``color``) or lamp bounce reads for the
+    alive lanes of ``state``, per the program each lane runs: at a hit its
+    material's normal program and its picked component's probability
+    program (one column each) and, with ``color``, the component's color
+    program (S columns); at a miss the sky program (S columns; the lamp
+    bounce reads none)."""
+    import torch
+
+    from pyrite_tpu_torch import tracer
+
+    a = scene.arrays
+    alive, o, d = state["alive"], state["origin"], state["direction"]
+    s = wl.shape[1]
+    hit = tracer.intersect_scene(scene, o, d, de_steps=cfg.max_de_steps)
+    found = alive & (hit["kind"] != tracer.KIND_NONE)
+    _, mat, _, _ = tracer._shading_normal(scene, hit, o, d, wl)
+    count = torch.clamp(a["mat_comp_count"][mat].long(), min=1)
+    comp = a["mat_comp_offset"][mat].long() + torch.minimum((u_comp * count).long(), count - 1)
+    per_hit = (_leaf_bytes(scene, "normal", a["mat_normal_prog"][mat].long())
+               + _leaf_bytes(scene, "prob", a["comp_prob"][comp].long()))
+    total = int(per_hit[found].sum())
+    if color:
+        total += s * int(_leaf_bytes(scene, "color", a["comp_color"][comp].long())[found].sum())
+        sky = _leaf_bytes(scene, "sky", torch.zeros(1, dtype=torch.long, device=o.device))
+        total += s * int(sky) * int((alive & ~found).sum())
+    return total
+
+
+def _nee_leaf_bytes(scene, cfg, wl, out, ctx, draws):
+    """Leaf bytes the kProg NEE kernel reads: per shadow ray cast and not
+    blocked, its emitter's probability program (one column, a shape lamp's)
+    and color program (S columns, one on a lane whose auxiliary columns
+    are dead or dispersed), as nee_lane reads them."""
+    import torch
+
+    from pyrite_tpu_torch import geometry as geom, tracer
+
+    a = scene.arrays
+    s = wl.shape[1]
+    nee = torch.nonzero(ctx["nee"])[:, 0]
+    p, flip, aux = out["origin"][nee], ctx["flip"][nee], out["aux_alive"][nee]
+    total = 0
+    for j in range(cfg.light_samples):
+        samp = tracer.sample_lamp(scene, draws["lamp_idx"].long()[nee], p, draws["u_nee"][j][nee])
+        sq = samp["sq_distance"]
+        t = tracer.intersect_shadow(scene, p, samp["direction"], torch.sqrt(sq),
+                                    torch.sqrt(torch.clamp(sq - tracer.DIST_EPSILON, min=0.0)),
+                                    de_steps=cfg.max_de_steps)
+        lit = (geom.dot(flip, samp["direction"]) > 0.0) & ~(t * t < sq - tracer.DIST_EPSILON)
+        e_comp, _ = tracer.choose_emissive(scene, samp["surf_mat"], draws["u_emis"][j][nee])
+        shape = samp["is_shape"]
+        prob = torch.where(shape, a["comp_prob"][e_comp].long(), -1)
+        color = torch.where(shape, a["comp_color"][e_comp].long(), samp["color_prog"])
+        cols = torch.where(aux & ~(shape & a["comp_prob_uses_wl"][e_comp]), s, 1)
+        per = _leaf_bytes(scene, "prob", prob) + cols * _leaf_bytes(scene, "color", color)
+        total += int(per[lit].sum())
+    return total
 
 
 def _work_ops(scene, work, lanes=0, per_lane=0):
@@ -959,6 +1270,14 @@ def time_kernels(path, card, seed=1, plain_reps=10, bounce=0):
     n_de = len(scene.de_shapes)
     b_bytes = tables + n * (24 * s_count + 99 + 4 * n_de)
     n_bytes = tables + n + nee_lanes * (29 + 12 * s_count + ls * (20 + 4 * s_count + 4 * n_de))
+    if scene.dense_pack["prog"]:
+        # the kProg instantiations also read the program tables, the
+        # textures and the frame tables once and, per lane, the leaf values
+        # of the programs it runs
+        b_bytes += _program_bytes(scene) + _nbytes(
+            *(a[k] for k in ("tri_q", "tri_uv", "sph_texscale", "pla_quat", "pla_texscale"))
+        ) + _surface_leaf_bytes(scene, cfg, wl, state, draws["u_comp"])
+        n_bytes += _program_bytes(scene) + _nee_leaf_bytes(scene, cfg, wl, out, ctx, draws)
     lanes, shadows = _kernel_rays(scene, cfg, state, draws, out, ctx)
     b_work = _counted(lambda: tracer.bounce_core(
         scene, cfg_no_nee, wl[lanes], {k: v[lanes] for k, v in state.items()},
@@ -972,7 +1291,8 @@ def time_kernels(path, card, seed=1, plain_reps=10, bounce=0):
                                for rays in shadows])
     b_work, n_work = _less(b_work, m_work), _less(n_work, s_work)
     cast = sum(rays[0].numel() for rays in shadows)
-    b_ops = _work_ops(scene, b_work, alive, _sweep_ops(scene) + OPS["shade"])
+    frame = OPS["frame"] if scene.dense_pack["prog"] else 0
+    b_ops = _work_ops(scene, b_work, alive, _sweep_ops(scene) + OPS["shade"] + frame)
     n_ops = _work_ops(scene, n_work, nee_lanes * ls, OPS["lamp"]) + cast * _sweep_ops(scene)
     print(f"[work] {os.path.basename(path)} at bounce {bounce}: {bounce_name} {alive} alive lanes, "
           f"{b_bytes} bytes, {b_ops} FP32 operations ({_plain_counts(b_work)}); {nee_name} "
@@ -1935,22 +2255,23 @@ def _lanes_line(launches):
             f"{live / max(executed, 1):.4f})")
 
 
-def render_end_to_end(path, samples, card, out_dir, kernels=("dense_bounce_kernel", "dense_nee_kernel"),
-                      passes=False, which="regen"):
+def render_end_to_end(path, samples, card, out_dir, passes=False, which="regen"):
     """Phase 5: the CLI on the GPU through the scheduler ``which`` (regen,
-    the default, or pool: see ``scheduler``); checks the PNG, the film and
-    that every bounce iteration went through the scene's CUDA ``kernels``
-    (one bounce and one NEE launch each) and, with ``passes`` (a scene with
-    DE shapes), one march pass and one shadow march pass each; that the
-    draw kernel ran once per regeneration iteration (pool: once per stage
-    for the camera and once per bounce). Prints the live and executed
-    lane-bounces and the peak memory. Returns the launch counts of the
-    run."""
+    the default, pool or one-shot: see ``scheduler``); checks the PNG, the
+    film and that every bounce iteration went through the scene's CUDA
+    kernels (kernels_dense.kernel_names: one bounce and one NEE launch each)
+    and, with ``passes`` (a scene with DE shapes), one march pass and one
+    shadow march pass each; that the draw kernel ran once per regeneration
+    iteration (pool: once per stage for the camera and once per bounce).
+    Prints the live and executed lane-bounces, the peak memory and the
+    bytes a lane of the wavefront took (the peak over the memory held
+    before the render, per lane: renderers.simple.LANE_BYTES). Returns the
+    launch counts of the run."""
     import numpy as np
     import torch
     from PIL import Image
 
-    from pyrite_tpu_torch import cli
+    from pyrite_tpu_torch import cli, kernels_dense as kd
     from pyrite_tpu_torch.renderers import simple
 
     result = {}
@@ -1959,11 +2280,12 @@ def render_end_to_end(path, samples, card, out_dir, kernels=("dense_bounce_kerne
     def recording_render(*args, **kwargs):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
         started = time.perf_counter()
         film, acc, wt = render(*args, **kwargs)
         torch.cuda.synchronize()
         result.update(film=film, acc=acc, wt=wt, seconds=time.perf_counter() - started,
-                      peak=torch.cuda.max_memory_allocated())
+                      peak=torch.cuda.max_memory_allocated(), base=base)
         return film, acc, wt
 
     out_png = os.path.join(out_dir, os.path.basename(path) + f".{which}.png")
@@ -1982,6 +2304,8 @@ def render_end_to_end(path, samples, card, out_dir, kernels=("dense_bounce_kerne
         pixels = np.asarray(img)
     assert pixels.shape == (film.height, film.width, 3), pixels.shape
     assert pixels.max() > 0, "the image is all black"
+    scene = _gpu_scene(path)[0]
+    kernels = kd.kernel_names(scene)
     bounces = launches["bounces"]
     assert bounces > 0 and launches[kernels[0]] == bounces, launches
     assert launches[kernels[1]] == bounces, launches
@@ -1989,20 +2313,30 @@ def render_end_to_end(path, samples, card, out_dir, kernels=("dense_bounce_kerne
     marches = bounces if passes else 0
     assert launches["de_march_pass"] == launches["de_shadow_pass"] == marches, launches
     r = cli.load_project(path).project.renderer
+    pix = film.width * film.height
     if which == "regen":
         assert launches["regen_iterations"] == bounces > 0, launches
         assert launches["philox_draws_kernel"] == bounces, launches
-    else:
+        lanes = simple._regen_planes(film, scene.texture_bytes) * pix
+    elif which == "pool":
         assert launches["pool_stages"] == samples and launches["pool_flushes"] > 0, launches
         assert launches["philox_draws_kernel"] == samples + bounces, launches
-    rays = film.width * film.height * samples * r.bounces * (1 + r.light_samples)
+        lanes = simple.POOL_FACTOR * pix
+    else:
+        assert launches["regen_iterations"] == launches["pool_stages"] == 0, launches
+        lanes = min(simple.pick_sample_batch(film, scene.texture_bytes), samples) * pix
+    rays = pix * samples * r.bounces * (1 + r.light_samples)
     print(
         f"[end-to-end] {os.path.basename(path)} {film.width}x{film.height}, {samples} spp, "
         f"S={r.spectrum_samples}, {r.bounces} bounces, {which}: "
         f"{rays / result['seconds'] / 1e6:.3f} Mrays/s nominal, render wall "
-        f"{result['seconds']:.3f} s, peak memory {result['peak'] / 2**20:.1f} MiB ({card}); "
+        f"{result['seconds']:.3f} s, peak memory {result['peak'] / 2**20:.1f} MiB (textures "
+        f"{scene.texture_bytes / 2**20:.3f} MiB of it) ({card}); "
         f"{_lanes_line(launches)}; launches {launches}; image mean {pixels.mean():.2f}/255"
     )
+    print(f"[memory] {os.path.basename(path)} {which}: peak {result['peak']} B over {result['base']} B "
+          f"held before the render, {lanes} lanes: {(result['peak'] - result['base']) / lanes:.1f} B "
+          f"a lane (LANE_BYTES {simple.LANE_BYTES})")
     return launches
 
 
@@ -2209,10 +2543,11 @@ def _flags_equal(ref, got, keys, what, where=None):
         assert bad == 0, f"{what}: {k} differs on {bad} lanes"
 
 
-def _compare_vertex(ref, got, what):
+def _compare_vertex(ref, got, what, uv=False):
     """A lamp vertex and the walk's next state: validity and alive exact on
     every lane, the other flags exact where the vertex is valid, vectors
-    within rtol 1e-3 / atol 1e-4 there. Returns the largest error."""
+    within rtol 1e-3 / atol 1e-4 there, uv too where ``uv`` (a scene whose
+    programs read it, scene.frames). Returns the largest error."""
     ref_v, ref_s = ref
     got_v, got_s = got
     valid = ref_v["valid"]
@@ -2220,7 +2555,7 @@ def _compare_vertex(ref, got, what):
     _flags_equal(ref_s, got_s, ("alive",), what)
     _flags_equal(ref_v, got_v, ("is_diffuse", "dispersed", "color_prog"), what, valid)
     keys = ("position", "normal", "probability", "brdf") + (
-        ("brdf_scatter",) if "brdf_scatter" in ref_v else ())
+        ("brdf_scatter",) if "brdf_scatter" in ref_v else ()) + (("uv",) if uv else ())
     err = _close_where(ref_v, got_v, keys, valid, what)
     return max(err, _close_where(ref_s, got_s, ("origin", "direction"), ref_s["alive"], what))
 
@@ -2266,7 +2601,7 @@ def _check_bdpt(name, path, seed, cut):
     start = rng.lamp_start_draws(keyed, n, scene.num_lamps, dev)
     got = kd.lamp_start(scene, wl, start, bank)
     vertex, state = tracer.lamp_start(scene, wl, start)
-    worst["lamp"] = _compare_vertex((vertex, state), got, f"{name} lamp start")
+    worst["lamp"] = _compare_vertex((vertex, state), got, f"{name} lamp start", scene.frames)
     verts = [vertex]
     incident = [state["direction"]]
     timed = {"lamp": None}
@@ -2278,7 +2613,7 @@ def _check_bdpt(name, path, seed, cut):
         incident.append(state["direction"])
         state, vertex = tracer.lamp_bounce_step(scene, lamp_cfg, wl, state, draws)
         worst["lamp"] = max(worst["lamp"], _compare_vertex((vertex, state), (got_v, got_s),
-                                                           f"{name} lamp bounce {d}"))
+                                                           f"{name} lamp bounce {d}", scene.frames))
         verts.append(vertex)
 
     cam = tracer.initial_state(origin, direction, wl.shape[1])
@@ -2307,6 +2642,22 @@ def _check_bdpt(name, path, seed, cut):
     path_rec["incident_out"] = torch.stack(incident, dim=1)
     path_rec["brdf_limit"] = verts[-1]["brdf_scatter"]
     path_rec["length"] = path_rec["valid"].sum(dim=1).to(torch.int32)
+    if any(p.uses_ray_inputs for p in scene.color_programs):
+        # the lamp vertices' colors: program_colors_kernel against the
+        # plain programs, at the reversed incident directions
+        inc = torch.cat([-path_rec["incident_out"][:, 1:], path_rec["incident_out"][:, -1:]], dim=1)
+        colors = (path_rec["color_prog"], path_rec["valid"], path_rec["normal"], inc,
+                  path_rec["uv"], wl)
+        _zero_counts()
+        got_c = kd.vertex_colors(scene, *colors, bank)
+        assert _read_counts()["program_colors_kernel"] == 1
+        want_c = kd.vertex_colors_plain(scene, *colors)
+        worst["colors"] = _close_where({"c": want_c}, {"c": got_c}, ("c",), path_rec["valid"],
+                                       f"{name} lamp vertex colors")
+        timed["colors"] = colors
+        print(f"[bdpt] {name} lamp vertex colors: {int(path_rec['valid'].sum())} valid of "
+              f"{path_rec['valid'].numel()} vertices, program_colors_kernel max abs err "
+              f"{worst['colors']:.3g} (rtol 1e-3, atol 1e-4)")
     conn = bd._connection_arrays(scene, path_rec, wl, rng.splat_draws(
         keyed, n, lamp_cfg.bounces + 1, dev), bank)
     plain0, info0 = infos[0]
@@ -2383,7 +2734,7 @@ def time_bdpt(checked, card):
         q_args, t_q = kd.query_pass_args(scene, cfg, batch[0], batch[1], batch[2], batch[4])
         lib.pyrite_de_march_query_shadow(*q_args)
     c_args, _ = kd.dense_shadow_args(scene, *batch, t_q)
-    record = kd.kernel_names(scene)[0] + "<record>"
+    record = kd._named(scene, "dense_bounce_kernel<record>")
     lamp_name = kd._lamp_name(scene)
     cfg_no_nee = dataclasses.replace(cfg, light_samples=0)
     runs = {
@@ -2396,6 +2747,11 @@ def time_bdpt(checked, card):
         lamp_name: lambda: tracer.lamp_bounce_step(scene, lamp_cfg, wl, lamp, lamp_draws),
         "dense_shadow_kernel": lambda: kd.shadow_query_plain(scene, cfg, *batch),
     }
+    colors = checked["timed"].get("colors")
+    if colors is not None:
+        v_args, _ = kd.vertex_colors_args(scene, *colors, bank)
+        runs["program_colors_kernel"] = lambda: lib.pyrite_program_colors(*v_args)
+        plains["program_colors_kernel"] = lambda: kd.vertex_colors_plain(scene, *colors)
     # the plain versions march the DE shapes with PyTorch ops, seconds a
     # call on the card: each is timed once, the kernels as _time_pairs does
     times = {}
@@ -2424,6 +2780,32 @@ def time_bdpt(checked, card):
              lamp_name: sheet + n * (87 + 4 * n_de),
              "dense_shadow_kernel": sheet + live.numel() * (33 + 4 * n_de)
              + (m - live.numel()) * 9}
+    if scene.dense_pack["prog"]:
+        # the kProg instantiations also read the program tables, textures
+        # and frame tables once and, per lane, the leaf values of the
+        # programs it runs; the lamp kernel writes uv
+        tables = _program_bytes(scene) + _nbytes(
+            *(scene.arrays[k] for k in ("tri_q", "tri_uv", "sph_texscale", "pla_quat",
+                                        "pla_texscale")))
+        sizes[record] += tables + _surface_leaf_bytes(scene, cfg, wl, cam, cam_draws["u_comp"])
+        sizes[lamp_name] += tables + 8 * n + _surface_leaf_bytes(
+            scene, lamp_cfg, wl, lamp, lamp_draws["u_comp"], color=False)
+    if colors is not None:
+        # per vertex its program and flag in (5) and S colors out; a valid
+        # vertex whose program runs code also reads its normal, incident
+        # direction and uv (32) and its program's leaves at S columns, one
+        # whose program reads no ray its row of the launch's values (4 S);
+        # the program tables once
+        programs, prog = scene.dense_pack["programs"], colors[0].long()
+        n_color = len(scene.color_programs)
+        in_range = colors[1].bool() & (prog >= 0) & (prog < n_color)
+        code = torch.tensor([bool(programs.program_code(programs.index("color", c)))
+                             for c in range(n_color)] + [False], device=prog.device)
+        runs_code = in_range & code[torch.where(in_range, prog, n_color)]
+        leaf = _leaf_bytes(scene, "color", torch.where(runs_code, prog, -1))
+        sizes["program_colors_kernel"] = _program_bytes(scene) + prog.numel() * (5 + 4 * s_count) + (
+            int(runs_code.sum()) * 32 + s_count * int(leaf.sum())
+            + int((in_range & ~runs_code).sum()) * 4 * s_count)
     # the work the plain versions count without their marches, which the
     # march passes do (kernel_march: march_de_kernel counts nothing)
     with kernel_march():
@@ -2438,9 +2820,13 @@ def time_bdpt(checked, card):
                 scene, batch[0][live], batch[1][live], batch[2][live], batch[3][live],
                 cfg.max_de_steps)),
         }
-    lanes = {record: (alive_cam.numel(), _sweep_ops(scene) + OPS["shade"]),
-             lamp_name: (alive_lamp.numel(), _sweep_ops(scene) + OPS["shade"]),
+    frame = OPS["frame"] if scene.dense_pack["prog"] else 0
+    lanes = {record: (alive_cam.numel(), _sweep_ops(scene) + OPS["shade"] + frame),
+             lamp_name: (alive_lamp.numel(), _sweep_ops(scene) + OPS["shade"] + frame),
              "dense_shadow_kernel": (live.numel(), _sweep_ops(scene))}
+    if colors is not None:
+        works["program_colors_kernel"] = {}
+        lanes["program_colors_kernel"] = (int(colors[1].sum()), OPS["program"] * s_count)
     result = {}
     for name in runs:
         ops = _work_ops(scene, works[name], *lanes[name])
@@ -2502,12 +2888,15 @@ def render_bdpt(path, samples, card, out_dir):
     scene = _gpu_scene(path)[0]
     r = cli.load_project(path).project.renderer
     bounce_k, nee_k = kd.kernel_names(scene)
+    record_k = kd._named(scene, ("wide" if scene.use_clusters else "dense") + "_bounce_kernel<record>")
     cam, lamp = launches["camera_bounces"], launches["lamp_bounces"]
     steps = launches["steps"]
-    assert cam > 0 and launches[bounce_k + "<record>"] == cam and launches[nee_k] == cam, launches
+    assert cam > 0 and launches[record_k] == cam and launches[nee_k] == cam, launches
     assert launches[bounce_k] == 0, launches
-    lamp_k = "wide_lamp_kernel" if scene.use_clusters else "dense_lamp_kernel"
+    lamp_k = kd._lamp_name(scene)
     assert launches[lamp_k] == steps + lamp > steps, launches
+    colors = any(p.uses_ray_inputs for p in scene.color_programs)
+    assert launches["program_colors_kernel"] == (steps if colors else 0), launches
     for k in ("bounce_core", "lamp_start", "lamp_bounce_step", "intersect_shadow"):
         assert launches[k] == 0, (k, launches)
     queries = launches["wide_shadow_kernel" if scene.use_clusters else "dense_shadow_kernel"]
@@ -2698,13 +3087,14 @@ def _fp32_rate():
 
 KERNEL_NAMES = ("dense_bounce_kernel", "dense_nee_kernel", "wide_bounce_kernel", "wide_nee_kernel",
                 "wide_closest_kernel", "wide_shadow_kernel", "march_de_kernel", "dense_lamp_kernel",
-                "wide_lamp_kernel", "dense_shadow_kernel")
+                "wide_lamp_kernel", "dense_shadow_kernel", "program_colors_kernel")
 
 
 def kernel_registers(log):
     """{kernel: (registers, spill store bytes, spill load bytes)} from the
-    ptxas -v report in a build log (_build.build_log), the bounce and NEE
-    kernels as name<true> / name<false>."""
+    ptxas -v report in a build log (_build.build_log), the bounce, NEE and
+    lamp kernels as name<true> / name<false> (kDE), with <record> and <prog>
+    after it for their kRecord and kProg instantiations."""
     found = {}
     for chunk in log.split("Compiling entry function")[1:]:
         mangled = chunk.split("'")[1]
@@ -2714,10 +3104,11 @@ def kernel_registers(log):
         if name is None or used is None:
             continue
         flags = re.search(r"I((?:Lb[01]E)+)E", mangled)
-        if flags:  # <kDE>, and the bounce kernels' kRecord after it
+        if flags:  # <kDE>, the bounce kernels' kRecord, then kProg
             bits = re.findall(r"Lb([01])E", flags.group(1))
             name += "<true>" if bits[0] == "1" else "<false>"
-            name += "<record>" if bits[1:] == ["1"] else ""
+            record, prog = (bits[1:2], bits[2:]) if "bounce" in name else ([], bits[1:])
+            name += ("<record>" if record == ["1"] else "") + ("<prog>" if prog == ["1"] else "")
         tags = {"QueryShadowRays": "<query shadow>", "QueryRays": "<query>",
                 "BounceRays": "<bounce>", "ShadowRays": "<shadow>"}
         name += next((tag for t, tag in tags.items() if t in mangled), "")
@@ -2731,9 +3122,10 @@ def _print_registers(log):
         f"{k} {r}, {st}/{ld} B" for k, (r, st, ld) in sorted(kernel_registers(log).items())))
 
 
-def profile_renders(card, runs=5):
+def profile_renders(card, runs=5, flagship_only=False):
     """``--profile``: the main-path renders through renderers.simple.render
-    (flagship and terrain_405 at 64 spp, fractal.lua at 8 spp), each through
+    (flagship and terrain_405 at 64 spp, fractal.lua at 8 spp; with
+    ``flagship_only``, ``--walls``, flagship alone), each through
     the one-shot wavefront and through regeneration: ``runs`` timed runs
     after a warm-up, then one under torch.profiler. Prints the launches and
     lane-bounces of one render, its peak memory, the wall times, the
@@ -2752,7 +3144,7 @@ def profile_renders(card, runs=5):
             (terrain_paths(tmp, cells=(405,), spp=64)["terrain_405"], 64),
             (os.path.join(ROOT, "examples", "fractal.lua"), 8),
         ]
-        for path, spp in scenes:
+        for path, spp in scenes[:1] if flagship_only else scenes:
             scene = _gpu_scene(path)[0]
             project_data = load_project(path)
 
@@ -2902,6 +3294,9 @@ def main(argv=None):
         profile_renders(smi)
         profile_bdpt(smi)
         return 0
+    if argv == ["--walls"]:
+        profile_renders(smi, flagship_only=True)
+        return 0
     if argv == ["--rows"]:
         with tempfile.TemporaryDirectory() as tmp:
             flagship = scene_paths(tmp, width=512, height=256, spectrum_samples=6, bounces=8)["flagship"]
@@ -2948,10 +3343,25 @@ def main(argv=None):
                       render_end_to_end(paths["prism"], 8, smi, tmp, which="pool")]
         de_runs = [render_end_to_end(de["fractal"], 8, smi, tmp, passes=True),
                    render_end_to_end(de["julia"], 8, smi, tmp, passes=True)]
-        mesh_run = render_end_to_end(mesh["terrain_405"], 8, smi, tmp,
-                                     ("wide_bounce_kernel", "wide_nee_kernel"))
+        mesh_run = render_end_to_end(mesh["terrain_405"], 8, smi, tmp)
         query_run = drive_queries(mesh["terrain_405"], smi)
         march_run = drive_march(de["fractal"], smi)
+        # textures, normal maps, ray-reading programs (the kProg
+        # instantiations) and 129-1024 primitives (the wide kernels)
+        tex_started = time.perf_counter()
+        tex = texture_paths(os.path.join(tmp, "textures"))
+        tex_worst = {name: check_kernels(name, tex[name]) for name in (
+            "textures", "untextured", "textures_512")}
+        divergent = {k: (w["divergent"], w["nee_divergent"]) for k, w in tex_worst.items()
+                     if w["divergent"] or w["nee_divergent"]}
+        assert not divergent, f"the bounce or NEE kernel diverges from the plain version: {divergent}"
+        for name in ("textures", "textures_512"):
+            times.update(time_kernels(tex[name], smi, plain_reps=2))
+        time_kernels(tex["untextured"], smi, plain_reps=2)  # printed: the same geometry untextured
+        tex_runs = [render_end_to_end(tex["textures"], 8, smi, tmp),
+                    render_end_to_end(tex["textures"], 8, smi, tmp, which="one-shot"),
+                    render_end_to_end(tex["textures_512"], 8, smi, tmp)]
+        print(f"[phase] textures, normal maps and programs: {time.perf_counter() - tex_started:.1f} s")
         # the bidirectional renderer: its kernels against their plain
         # versions, a render through them against one through the plain
         # versions, then the CLI (each with the counts zeroed just before)
@@ -2966,6 +3376,11 @@ def main(argv=None):
         bdpt_plain = compare_bdpt_plain(write_cornell_scene(small, 64, 64, spp=2), 2, smi)
         bdpt_runs = [render_bdpt(bdpt[name], 2, smi, tmp)[0] for name in (
             "cornell_class", "flagship_bdpt", "flagship_bdpt_24", "terrain_405_bdpt")]
+        tex_bdpt = {name: check_bdpt(name, tex[name]) for name in ("textures_bdpt", "untextured_bdpt")}
+        times.update({k: v for k, v in time_bdpt(tex_bdpt["textures_bdpt"], smi).items()
+                      if "prog" in k or "colors" in k})
+        time_bdpt(tex_bdpt["untextured_bdpt"], smi)  # printed: the same geometry untextured
+        tex_bdpt_run = render_bdpt(tex["textures_bdpt"], 2, smi, tmp)[0]
         print(f"[phase] the bidirectional renderer (phase 6): "
               f"{time.perf_counter() - bdpt_started:.1f} s")
 
@@ -2980,14 +3395,18 @@ def main(argv=None):
         }
 
     # launches of the main paths: the simple renderer's, then the
-    # bidirectional renderer's (bdpt_runs)
+    # bidirectional renderer's (bdpt_runs), then those of the textures
+    # scenes (tex_runs, tex_bdpt_run)
     dense_total = lambda key: sum(run[key] for run in dense_runs + de_runs)
+    tex_total = lambda key: sum(run[key] for run in tex_runs + [tex_bdpt_run])
+    tex_err = lambda w: max(w["bounce"], w["brightness"])
     bdpt_total = lambda *keys: sum(run[k] for run in bdpt_runs for k in keys)
     passes = ("de_march_pass", "de_shadow_pass", "de_query_pass")
     rendered = dense_runs + de_runs + [mesh_run]
     queried = queries.values()
     checked = list(worst.values())
     bdpt_worst = [c["worst"] for c in bdpt_checked.values()]
+    tex_bdpt_worst = tex_bdpt["textures_bdpt"]["worst"]
     kernels = [
         kernel("dense_bounce_kernel", "bounce.cu", "pyrite_tpu/kernels_dense.py:717",
                dense_total("dense_bounce_kernel"),
@@ -3025,6 +3444,25 @@ def main(argv=None):
              replaces="none: XLA, pyrite_tpu/tracer.py:1953 lamp_bounce_step"),
         dict(kernel("dense_shadow_kernel", "bounce.cu", None, bdpt_total("dense_shadow_kernel"), 0.0),
              replaces="none: XLA, pyrite_tpu/tracer.py:432 intersect_shadow"),
+        # the kProg instantiations: the textures scenes' programs per lane
+        kernel("dense_bounce_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels_dense.py:717",
+               tex_total("dense_bounce_kernel<prog>"), tex_err(tex_worst["textures"])),
+        kernel("dense_nee_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels_dense.py:909",
+               tex_total("dense_nee_kernel<prog>"), tex_worst["textures"]["nee"]),
+        kernel("wide_bounce_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels.py:125",
+               tex_total("wide_bounce_kernel<prog>"), tex_err(tex_worst["textures_512"])),
+        kernel("wide_nee_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels.py:337",
+               tex_total("wide_nee_kernel<prog>"), tex_worst["textures_512"]["nee"]),
+        dict(kernel("dense_bounce_kernel<record,prog>", "bounce.cu", None,
+                    tex_total("dense_bounce_kernel<record,prog>"),
+                    max(tex_bdpt_worst["record"], tex_bdpt_worst["brightness"])),
+             replaces="none: XLA, pyrite_tpu/tracer.py:1585 bounce_core's info"),
+        dict(kernel("dense_lamp_kernel<prog>", "bounce.cu", None,
+                    tex_total("dense_lamp_kernel<prog>"), tex_bdpt_worst["lamp"]),
+             replaces="none: XLA, pyrite_tpu/tracer.py:1953 lamp_bounce_step"),
+        dict(kernel("program_colors_kernel", "bounce.cu", None, tex_total("program_colors_kernel"),
+                    tex_bdpt_worst["colors"]),
+             replaces="none: XLA, pyrite_tpu/renderers/bidirectional.py:73 _lamp_path_factors"),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(f"[de-shadow] blocked shares {shadow}")

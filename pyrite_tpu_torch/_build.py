@@ -46,19 +46,23 @@ _BOUNCE = [_P] * 30 + [_I] * 5 + [_P]
 _NEE = [_P] * 16 + [_I] * 4 + [_F, _I, _P]
 _WIDE = [_P] * 6 + [_I]  # the mesh scene's tables and its leaf size
 _RECORD = [_P] * 7  # a kRecord bounce's camera vertex
-_LAMP = [_P] * 24 + [_I] * 6 + [_P]  # the lamp kernels
+_LAMP = [_P] * 25 + [_I] * 6 + [_P]  # the lamp kernels
+# what the kProg instantiations read (kernels_dense.prog_args), last before
+# the stream: ten tables, two program counts and the kProg flag
+_PROG = [_P] * 10 + [_I] * 3
 # argument lists of the extern "C" launchers in csrc/bounce.cu,
 # csrc/wide_bvh.cu, csrc/march_de.cu and csrc/draws.cu; a march pass ends in
 # its work counter (an unsigned 64-bit word) and the stream
 _SIGNATURES = {
-    "pyrite_dense_bounce": _BOUNCE + [_P],
-    "pyrite_dense_nee": _NEE + [_P],
-    "pyrite_wide_bounce": _BOUNCE + _WIDE + [_P],
-    "pyrite_wide_nee": _NEE + _WIDE + [_P],
-    "pyrite_dense_bounce_record": _BOUNCE + _RECORD + [_P],
-    "pyrite_wide_bounce_record": _BOUNCE + _WIDE + _RECORD + [_P],
-    "pyrite_dense_lamp": _LAMP + [_P],
-    "pyrite_wide_lamp": _LAMP + _WIDE + [_P],
+    "pyrite_dense_bounce": _BOUNCE + _PROG + [_P],
+    "pyrite_dense_nee": _NEE + _PROG + [_P],
+    "pyrite_wide_bounce": _BOUNCE + _WIDE + _PROG + [_P],
+    "pyrite_wide_nee": _NEE + _WIDE + _PROG + [_P],
+    "pyrite_dense_bounce_record": _BOUNCE + _RECORD + _PROG + [_P],
+    "pyrite_wide_bounce_record": _BOUNCE + _WIDE + _RECORD + _PROG + [_P],
+    "pyrite_dense_lamp": _LAMP + _PROG + [_P],
+    "pyrite_wide_lamp": _LAMP + _WIDE + _PROG + [_P],
+    "pyrite_program_colors": [_P] * 13 + [_I] * 4 + _PROG + [_P],
     "pyrite_dense_shadow": [_P] * 8 + [_I] * 2 + [_P, _P],
     "pyrite_wide_closest": [_P] * 4 + [_I] + [_P] * 12 + [_I, _P],
     "pyrite_wide_shadow": [_P] * 4 + [_I] + [_P] * 5 + [_I, _P],

@@ -121,6 +121,9 @@ def main(argv=None):
         print(f"error while loading project file: {error}", file=sys.stderr)
         return 1
     loading_ended = time.time()
+    if scene.texture_bytes:
+        print(f"Textures: {len(scene.resources.store)}, {scene.texture_bytes / 2**20:.1f} MiB "
+              f"on {device}")
 
     settings = project_data.project.renderer
     if settings.algorithm == "photon_mapping":

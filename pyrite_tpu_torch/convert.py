@@ -37,3 +37,20 @@ def film_from_numpy(acc, wt, device="cuda"):
         _tensor(np.asarray(acc, np.float32), device),
         _tensor(np.asarray(wt, np.float32), device),
     )
+
+
+def textures_from_numpy(store: dict, scene, device="cuda") -> None:
+    """The JAX scene's texture store (its Resources.store: key -> [H, W, 4]
+    or [H, W] array) into the port scene's: its Resources store, which the
+    plain programs read, and the texture table the kernels read
+    (scene.dense_pack). The keys and shapes must be the port's own."""
+    dev = require_device(device, "convert")
+    resources = scene.resources
+    for key, data in store.items():
+        if key not in resources.store or np.shape(data) != np.shape(resources.store[key]):
+            raise ValueError(f"texture {key!r}: not the port scene's, or of another shape")
+        resources.store[key] = np.array(data, np.float32, order="C")
+    resources.tensors.clear()
+    textures = scene.dense_pack["programs"].tables(dev)
+    if textures:
+        scene.dense_pack["tensors"]["tex"] = torch.cat([t.reshape(-1) for t in textures])

@@ -23,7 +23,10 @@
 // file), and the two kernels read each shape's t from those passes. Each
 // kernel comes in two instantiations, <true> for scenes with DE shapes and
 // <false> for the rest, which reads no pass: a scene without DE shapes runs
-// exactly the kernel it ran before.
+// exactly the kernel it ran before. Likewise each bounce, NEE and lamp
+// kernel has a kProg instantiation for scenes with image textures, normal
+// maps or programs that read the ray beyond the simple form (ProgArgs,
+// eval_code); the others read none of it and are the code they were.
 //
 // Numerics follow tracer.bounce_core's op order: IEEE sqrtf and division
 // (no fast math), c^5 as c^2 * c^2 * c, and the reflectance before the BRDF
@@ -42,18 +45,23 @@ namespace {
 
 constexpr int PROG_STACK = 8;  // exprs.PROG_STACK
 
-// exprs.OP_* (postfix probability programs)
-enum Op { OP_CONST, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MIX, OP_CLAMP, OP_FRESNEL };
+// exprs.OP_* (exprs.KernelPrograms); the simple instantiations interpret
+// the first eight (eval_prob), the kProg ones all (eval_code)
+enum Op {
+  OP_CONST, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MIX, OP_CLAMP, OP_FRESNEL, OP_VEC, OP_LEAF,
+  OP_LEAF4, OP_TEX_COLOR, OP_TEX_MONO, OP_SPLAT_RGB, OP_SPLAT_VEC, OP_RGB_TO_VEC, OP_TO_NUMBER,
+  OP_RGB, OP_VECTOR
+};
 
 enum { BSDF_EMISSIVE = 0, BSDF_DIFFUSE = 1, BSDF_MIRROR = 2, BSDF_REFRACTIVE = 3 };
 enum { LAMP_POINT = 1, LAMP_SPHERE = 2, LAMP_TRIANGLE = 3 };
 
 // Per-launch program values and postfix code (kernels_dense.precompute_bank_values,
-// exprs.lower_ray_program).
+// exprs.KernelPrograms).
 struct Programs {
   const int* __restrict__ code_op;
   const float* __restrict__ code_val;
-  const int* __restrict__ code_off;  // [n_prob + 1]
+  const int* __restrict__ code_off;  // [programs + 1]: prob, color, normal, sky
   const float* __restrict__ cvals;   // [n_color, N, S]
   const float* __restrict__ pvals;   // [n_prob, N], wavelength-only programs
   int n_color;
@@ -152,6 +160,9 @@ struct DenseGeo {
     }
     mat = (int)sh.row(12, h.j);
   }
+
+  // the triangle or sphere table index of sheet column j (row 11, prim_ref)
+  __device__ __forceinline__ int ref(const Sheet& sh, int j) const { return (int)sh.row(11, j); }
 };
 
 // WideGeo: the clustered wide BVH (csrc/wide_bvh.cuh) after the planes,
@@ -192,6 +203,8 @@ struct WideGeo {
       mat = sph_mat[h.j];
     }
   }
+
+  __device__ __forceinline__ int ref(const Sheet&, int j) const { return j; }
 };
 
 __device__ __forceinline__ float pow5(float x) {
@@ -217,9 +230,10 @@ __device__ float fresnel(float ior, float env_ior, V3 n, V3 i) {
   return entering ? schlick(env_ior, ior, n, i) : schlick(ior, env_ior, -n, i);
 }
 
-// tracer.eval_prob_bank for one lane: program -1 is probability 1;
-// wavelength-only programs were evaluated per launch; ray-input programs
-// run their postfix code here.
+// tracer.eval_prob_bank for one lane in the simple instantiations: program
+// -1 is probability 1; wavelength-only programs were evaluated per launch;
+// ray-input programs run their postfix code (the simple form: numbers,
+// OP_CONST .. OP_FRESNEL) here.
 __device__ float eval_prob(const Programs& pr, int prog, int lane, int n, V3 normal, V3 incident) {
   if (prog < 0) return 1.0f;
   const int begin = pr.code_off[prog];
@@ -256,6 +270,275 @@ __device__ float eval_prob(const Programs& pr, int prog, int lane, int n, V3 nor
     }
   }
   return st[0];
+}
+
+// ---- the kProg instantiations: frames, uv, normal maps and the program
+// code (exprs.KernelPrograms), interpreted per lane and spectral column ----
+//
+// A scene with image textures, normal maps, color or sky programs that read
+// the ray, or probability programs beyond the simple form runs the kernels'
+// kProg instantiations (kernels_dense.build_pack); the others run the code
+// they had, which reads none of this. Each largest subtree of a program that
+// reads no ray is a leaf, evaluated once per launch (kernels_dense.
+// precompute_bank_values) at each lane's wavelengths; the code here does
+// the rest, one spectral column at a time, on a stack of 4-float values.
+// What bounds it: per column the program's instructions and, per texture
+// node, 16 taps of C floats read from the texture (plain global loads, so
+// that the wrap rule and the reference's cubic are its own, texture.rs:
+// 88-148 and :324-334; a texture object's filtering is neither).
+struct ProgArgs {
+  const int* __restrict__ arg;         // [L] code arguments
+  const float* __restrict__ vecs;      // [C, 4] vector constants
+  const float* __restrict__ leaves;    // the launch's leaf values
+  const float* __restrict__ tex;       // the textures' texels, one after another
+  const int* __restrict__ tex_info;    // [T, 4] offset, height, width, channels
+  const float* __restrict__ tri_q;     // [T, 3, 4] vertex frames
+  const float* __restrict__ tri_uv;    // [T, 3, 2] vertex uv
+  const float* __restrict__ sph_texscale;  // [S, 2]
+  const float* __restrict__ pla_quat;      // [P, 4]
+  const float* __restrict__ pla_texscale;  // [P, 2]
+  int n_prob, n_normal;
+};
+
+// What a program reads of its lane besides the leaves: normal, incident
+// direction and uv.
+struct ProgIn {
+  V3 normal, incident;
+  float u, v;
+};
+
+__device__ __forceinline__ float4 f4(float x) { return make_float4(x, x, x, x); }
+__device__ __forceinline__ float4 operator+(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+__device__ __forceinline__ float4 operator-(float4 a, float4 b) {
+  return make_float4(a.x - b.x, a.y - b.y, a.z - b.z, a.w - b.w);
+}
+__device__ __forceinline__ float4 operator*(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+__device__ __forceinline__ float4 operator/(float4 a, float4 b) {
+  return make_float4(a.x / b.x, a.y / b.y, a.z / b.z, a.w / b.w);
+}
+
+// quaternions (w, x, y, z) as float4 (x = w), in geometry.py's op order
+__device__ __forceinline__ float dot4(float4 a, float4 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z + a.w * b.w;
+}
+__device__ __forceinline__ float4 quat_mul(float4 a, float4 b) {
+  return make_float4(a.x * b.x - a.y * b.y - a.z * b.z - a.w * b.w,
+                     a.x * b.y + a.y * b.x + a.z * b.w - a.w * b.z,
+                     a.x * b.z - a.y * b.w + a.z * b.x + a.w * b.y,
+                     a.x * b.w + a.y * b.z - a.z * b.y + a.w * b.x);
+}
+__device__ __forceinline__ float4 quat_normalize(float4 q) {
+  const float len = sqrtf(fmaxf(dot4(q, q), 1e-20f));
+  return make_float4(q.x / len, q.y / len, q.z / len, q.w / len);
+}
+// v + w t + qv x t, t = 2 qv x v
+__device__ __forceinline__ V3 quat_rotate(float4 q, V3 v) {
+  const V3 qv = {q.y, q.z, q.w};
+  const V3 c = cross(qv, v);
+  const V3 t = {2.0f * c.x, 2.0f * c.y, 2.0f * c.z};
+  return v + t * q.x + cross(qv, t);
+}
+__device__ __forceinline__ float4 load4(const float* __restrict__ p, int i) {
+  return make_float4(p[4 * i], p[4 * i + 1], p[4 * i + 2], p[4 * i + 3]);
+}
+
+// geometry.sphere_surface_frame: the frame quat_mul(qy, qx) from the
+// latitude and longitude of the normal, uv = (lon / 2 pi, 1 - lat / pi) /
+// texture scale
+__device__ void sphere_frame(V3 n, float su, float sv, float4& q, float& u, float& v) {
+  const float lat = acosf(fminf(fmaxf(n.y, -1.0f), 1.0f));
+  const float lon = atan2f(n.x, n.z);
+  const float h1 = lon * 0.5f, h2 = (lat - PI_F * 0.5f) * 0.5f;
+  const float s1 = sinf(h1), s2 = sinf(h2);
+  const float4 qy = make_float4(cosf(h1), 0.0f * s1, 1.0f * s1, 0.0f * s1);
+  const float4 qx = make_float4(cosf(h2), 1.0f * s2, 0.0f * s2, 0.0f * s2);
+  q = quat_mul(qy, qx);
+  u = (lon / (2.0f * PI_F)) / su;
+  v = (1.0f - lat / PI_F) / sv;
+}
+
+// geometry.mat3_cols_to_quat (cgmath's From<Matrix3>)
+__device__ float4 mat3_cols_to_quat(V3 c0, V3 c1, V3 c2) {
+  const float m00 = c0.x, m01 = c0.y, m02 = c0.z, m10 = c1.x, m11 = c1.y, m12 = c1.z;
+  const float m20 = c2.x, m21 = c2.y, m22 = c2.z;
+  const float trace = m00 + m11 + m22;
+  if (trace >= 0.0f) {
+    const float s = sqrtf(fmaxf(trace + 1.0f, 0.0f)), d = 0.5f / (s == 0.0f ? 1.0f : s);
+    return make_float4(0.5f * s, (m12 - m21) * d, (m20 - m02) * d, (m01 - m10) * d);
+  }
+  if (m00 > m11 && m00 > m22) {
+    const float s = sqrtf(fmaxf(1.0f + m00 - m11 - m22, 0.0f)), d = 0.5f / (s == 0.0f ? 1.0f : s);
+    return make_float4((m12 - m21) * d, 0.5f * s, (m01 + m10) * d, (m20 + m02) * d);
+  }
+  if (m11 > m22) {
+    const float s = sqrtf(fmaxf(1.0f + m11 - m00 - m22, 0.0f)), d = 0.5f / (s == 0.0f ? 1.0f : s);
+    return make_float4((m20 - m02) * d, (m01 + m10) * d, 0.5f * s, (m12 + m21) * d);
+  }
+  const float s = sqrtf(fmaxf(1.0f + m22 - m00 - m11, 0.0f)), d = 0.5f / (s == 0.0f ? 1.0f : s);
+  return make_float4((m01 - m10) * d, (m20 + m02) * d, (m12 + m21) * d, 0.5f * s);
+}
+
+// The four taps around a floor index, wrapped around `size`: a floor modulo
+// (never negative, as jnp.mod and torch.remainder), then the neighbours.
+__device__ __forceinline__ void wrap_taps(float f, int size, int* i) {
+  int m = ((int)f) % size;
+  if (m < 0) m += size;
+  i[1] = m;
+  i[0] = m == 0 ? size - 1 : m - 1;
+  i[2] = m == size - 1 ? 0 : m + 1;
+  i[3] = i[2] == size - 1 ? 0 : i[2] + 1;
+}
+
+// the reference's cubic (texture.rs:324-334)
+__device__ __forceinline__ float4 cubic(float4 v1, float4 v2, float4 v3, float4 v4, float t) {
+  const float4 a = (v4 - v3) - (v1 - v2);
+  const float4 b = (v1 - v2) - a;
+  const float4 c = v3 - v1;
+  const float4 tt = f4(t);
+  return v2 + (c + (b + a * tt) * tt) * tt;
+}
+
+// exprs.sample_texture_bicubic of texture `t` at (u, v): each of the four
+// rows' cubic along x, then the cubic of the rows along y; a mono texel
+// fills all four floats
+__device__ float4 sample_texture(const ProgArgs& pa, int t, float u, float v) {
+  const int off = pa.tex_info[4 * t], height = pa.tex_info[4 * t + 1];
+  const int width = pa.tex_info[4 * t + 2], channels = pa.tex_info[4 * t + 3];
+  const float x = u * (float)width - 0.5f, xf = floorf(x);
+  const float y = (1.0f - v) * (float)height - 0.5f, yf = floorf(y);
+  int xs[4], ys[4];
+  wrap_taps(xf, width, xs);
+  wrap_taps(yf, height, ys);
+  const float tx = x - xf, ty = y - yf;
+  float4 rows[4];
+  for (int r = 0; r < 4; ++r) {
+    float4 taps[4];
+    for (int c = 0; c < 4; ++c) {
+      const float* p = pa.tex + off + ((size_t)ys[r] * width + xs[c]) * channels;
+      taps[c] = channels == 1 ? f4(p[0]) : make_float4(p[0], p[1], p[2], p[3]);
+    }
+    rows[r] = cubic(taps[0], taps[1], taps[2], taps[3], tx);
+  }
+  return cubic(rows[0], rows[1], rows[2], rows[3], ty);
+}
+
+// Program g's code (exprs.KernelPrograms.run) for lane `lane` of an n x s
+// launch at spectral column k: the value on top of the stack.
+__device__ __noinline__ float4 eval_code(const Programs& pr, const ProgArgs& pa, int g, int lane,
+                                         int n, int s, int k, const ProgIn& in) {
+  float4 st[PROG_STACK];
+  int sp = 0;
+  const size_t cell = (size_t)lane * s + k;
+  for (int i = pr.code_off[g], end = pr.code_off[g + 1]; i < end; ++i) {
+    const int op = pr.code_op[i], arg = pa.arg[i];
+    switch (op) {
+      case OP_CONST: st[sp++] = f4(pr.code_val[i]); break;
+      case OP_VEC: st[sp++] = load4(pa.vecs, arg); break;
+      case OP_LEAF: st[sp++] = f4(pa.leaves[(size_t)arg * n * s + cell]); break;
+      case OP_LEAF4: st[sp++] = load4(pa.leaves + (size_t)arg * n * s, (int)cell); break;
+      case OP_TEX_COLOR: st[sp++] = sample_texture(pa, arg, in.u, in.v); break;
+      case OP_TEX_MONO: st[sp++] = f4(sample_texture(pa, arg, in.u, in.v).x); break;
+      case OP_SPLAT_RGB: st[sp - 1] = make_float4(st[sp - 1].x, st[sp - 1].x, st[sp - 1].x, 1.0f); break;
+      case OP_SPLAT_VEC: st[sp - 1] = f4(st[sp - 1].x); break;
+      case OP_RGB_TO_VEC: st[sp - 1] = st[sp - 1] * f4(2.0f) - f4(1.0f); break;
+      case OP_TO_NUMBER: {
+        const float4 c = st[sp - 1], b = load4(pa.leaves + (size_t)arg * n * s, (int)cell);
+        st[sp - 1] = f4(c.x * b.x + c.y * b.y + c.z * b.z);
+        break;
+      }
+      case OP_RGB:
+        sp -= 2;
+        st[sp - 1] = make_float4(st[sp - 1].x, st[sp].x, st[sp + 1].x, 1.0f);
+        break;
+      case OP_VECTOR:
+        sp -= 3;
+        st[sp - 1] = make_float4(st[sp - 1].x, st[sp].x, st[sp + 1].x, st[sp + 2].x);
+        break;
+      case OP_MIX: {
+        sp -= 2;
+        const float t = fminf(fmaxf(st[sp + 1].x, 0.0f), 1.0f);
+        st[sp - 1] = st[sp - 1] * f4(1.0f - t) + st[sp] * f4(t);
+        break;
+      }
+      case OP_CLAMP:
+        sp -= 2;
+        st[sp - 1] = f4(nan_min(nan_max(st[sp - 1].x, st[sp].x), st[sp + 1].x));
+        break;
+      case OP_FRESNEL:
+        --sp;
+        st[sp - 1] = f4(fresnel(st[sp - 1].x, st[sp].x, in.normal, in.incident));
+        break;
+      default: {  // the binary ops
+        --sp;
+        const float4 a = st[sp - 1], b = st[sp];
+        st[sp - 1] = op == OP_ADD ? a + b : op == OP_SUB ? a - b : op == OP_MUL ? a * b : a / b;
+      }
+    }
+  }
+  return st[0];
+}
+
+// tracer.eval_prob_bank for one lane on a kProg scene: program -1 is
+// probability 1; programs that read no ray were evaluated per launch; the
+// others run their code at the hero wavelength (column 0).
+__device__ float eval_prob_code(const Programs& pr, const ProgArgs& pa, int prog, int lane, int n,
+                                int s, const ProgIn& in) {
+  if (prog < 0) return 1.0f;
+  if (pr.code_off[prog] == pr.code_off[prog + 1]) return pr.pvals[(size_t)prog * n + lane];
+  return eval_code(pr, pa, prog, lane, n, s, 0, in).x;
+}
+
+// Whether color program `color` (in range) runs code, and its number.
+__device__ __forceinline__ bool color_code(const Programs& pr, const ProgArgs& pa, int color,
+                                           int& g) {
+  g = pa.n_prob + color;
+  return pr.code_off[g] != pr.code_off[g + 1];
+}
+
+// tracer.apply_normal_maps for one hit: the material's vector program
+// (column 0: normal programs read no wavelength) rotated by the frame and
+// normalised; a vector with |v|^2 < 1e-12 keeps the geometric normal.
+__device__ V3 map_normal(const Sheet& sh, const Programs& pr, const ProgArgs& pa, int mat, int lane,
+                         int n, int s, float4 q, const ProgIn& in) {
+  const int np = sh.iat(M_MAT_NORMAL, mat);
+  if (np < 0) return in.normal;
+  const float4 vec = eval_code(pr, pa, pa.n_prob + pr.n_color + np, lane, n, s, 0, in);
+  const V3 v = {vec.x, vec.y, vec.z};
+  return dot(v, v) < 1e-12f ? in.normal : normalize(quat_rotate(q, v));
+}
+
+// The frame and uv of a plane or primitive hit at `pos` with normal
+// `normal` (tracer.surface_data with frames); a DE hit's frame comes from
+// its normal (geometry.de_normal_quat), uv 0.
+template <class Geo>
+__device__ void hit_frame(const Sheet& sh, const Geo& geo, const ProgArgs& pa, const Hit& h, V3 pos,
+                          V3 normal, float4& q, float& u, float& v) {
+  q = make_float4(1.0f, 0.0f, 0.0f, 0.0f);
+  u = v = 0.0f;
+  if (h.kind == KIND_PLANE) {
+    q = load4(pa.pla_quat, h.j);
+    const V3 local = quat_rotate(make_float4(q.x, -q.y, -q.z, -q.w), pos);
+    u = local.x / pa.pla_texscale[2 * h.j];
+    v = local.y / pa.pla_texscale[2 * h.j + 1];
+  } else if (h.kind == KIND_TRIANGLE) {
+    const int ref = geo.ref(sh, h.j);
+    const float w = 1.0f - h.u - h.v;
+    const float* tq = pa.tri_q + (size_t)ref * 12;
+    const float* tuv = pa.tri_uv + (size_t)ref * 6;
+    q = quat_normalize(load4(tq, 0) * f4(w) + load4(tq, 1) * f4(h.u) + load4(tq, 2) * f4(h.v));
+    u = tuv[0] * w + tuv[2] * h.u + tuv[4] * h.v;
+    v = tuv[1] * w + tuv[3] * h.u + tuv[5] * h.v;
+  } else if (h.kind == KIND_SPHERE) {
+    const int ref = geo.ref(sh, h.j);
+    sphere_frame(normal, pa.sph_texscale[2 * ref], pa.sph_texscale[2 * ref + 1], q, u, v);
+  } else if (h.kind == KIND_DE) {
+    const V3 z = normalize(ortho(normal));
+    q = mat3_cols_to_quat(normalize(cross(z, normal)), z, normal);
+  }
 }
 
 // The shading that the camera bounce (bounce_lane) and the lamp bounce
@@ -535,8 +818,9 @@ __device__ __forceinline__ void de_normals_shared(const Sheet& sh, float* slots,
 // elsewhere) and the flags is_diffuse, dispersed, recorded and miss. The
 // simple renderer's instantiations (kRecord = false) compile to the code
 // they had.
-template <class Geo, bool kDE, bool kRecord>
-__device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo, const Record& rec) {
+template <class Geo, bool kDE, bool kRecord, bool kProg>
+__device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo, const Record& rec,
+                                            const ProgArgs& pa) {
   extern __shared__ __align__(16) float smem[];
   const int n = a.n, s = a.s, t = threadIdx.x;
   const int base = blockIdx.x * BLOCK, lane = base + t;
@@ -585,20 +869,45 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
   float comp_probability = 0.0f;
   bool normal_dispersed = false;
   const float* row_src = nullptr;  // this lane's sky or color row
+  ProgIn in = {d, d, 0.0f, 0.0f};  // kProg: what its programs read
+  int code_prog = -1;              // kProg: the program whose code gives the row
   if (found) {
     hit_surface<Geo, kDE>(sh, geo, h, pos, normal, mat);
+    if (kProg) {  // the frame and uv, then the normal map (tracer._shading_normal)
+      float4 q;
+      hit_frame(sh, geo, pa, h, pos, normal, q, in.u, in.v);
+      in.normal = normal;
+      normal = map_normal(sh, pr, pa, mat, lane, n, s, q, in);
+      in.normal = normal;
+    }
     comp = pick_component(sh, mat, a.u_comp[lane]);
-    comp_probability =
-        eval_prob(pr, sh.iat(M_COMP_PROB, comp), lane, n, normal, d) * sh.at(M_COMP_SELECTION, comp);
+    const int prob = sh.iat(M_COMP_PROB, comp);
+    comp_probability = (kProg ? eval_prob_code(pr, pa, prob, lane, n, s, in)
+                              : eval_prob(pr, prob, lane, n, normal, d)) *
+                       sh.at(M_COMP_SELECTION, comp);
     normal_dispersed = sh.at(M_COMP_PROB_USES_WL, comp) > 0.5f;
     bsdf = sh.iat(M_COMP_BSDF, comp);
     color_id = sh.iat(M_COMP_COLOR, comp);
     // tracer.eval_color_bank: out-of-range programs are 0
-    if (color_id >= 0 && color_id < pr.n_color) row_src = pr.cvals + ((size_t)color_id * n + lane) * s;
+    if (color_id >= 0 && color_id < pr.n_color) {
+      int g;
+      if (kProg && color_code(pr, pa, color_id, g)) code_prog = g;
+      else row_src = pr.cvals + ((size_t)color_id * n + lane) * s;
+    }
   } else if (alive) {
-    row_src = a.sky + (size_t)lane * s;  // miss: sky (directional lamps are gated out of the pack)
+    // miss: sky (directional lamps are gated out of the pack), which reads
+    // normal -d, incident d and uv 0
+    const int g = pa.n_prob + pr.n_color + pa.n_normal;
+    if (kProg && pr.code_off[g] != pr.code_off[g + 1]) {
+      code_prog = g;
+      in.normal = -d;
+    } else {
+      row_src = a.sky + (size_t)lane * s;
+    }
   }
   warp_gather(C + (t & ~31) * s, row_src, s);
+  if (kProg && code_prog >= 0)  // the lane's own row, after the warp's gather
+    for (int k = 0; k < s; ++k) C[t * s + k] = eval_code(pr, pa, code_prog, lane, n, s, k, in).x;
 
   if (in_range) {
     const bool aux = a.aux_alive[lane];
@@ -718,9 +1027,12 @@ struct LampSample {
   V3 normal;
   int mat;
   bool is_shape;
+  float u, v;  // the sample's surface uv (kUV)
 };
 
-// tracer.sample_lamp for one lane: point, sphere and triangle lamps.
+// tracer.sample_lamp for one lane: point, sphere and triangle lamps; with
+// kUV also the uv of a sphere or triangle sample (its "surf_uv").
+template <bool kUV = false>
 __device__ LampSample sample_lamp(const Sheet& sh, int li, V3 p, float u0, float u1) {
   LampSample ls = {{0.f, 0.f, 1.f}, INFINITY, 0.0f, {0.f, 0.f, 1.f}, 0, false};
   const int type = sh.iat(M_LAMP_TYPE, li);
@@ -749,6 +1061,10 @@ __device__ LampSample sample_lamp(const Sheet& sh, int li, V3 p, float u0, float
     ls.dir = outside ? cone : normalize(sv);
     const float cos_full = sqrtf(fmaxf(1.0f - (r_full * r_full) / fmaxf(dist2, 1e-20f), 0.0f));
     ls.normal = normalize(point - c);
+    if (kUV) {
+      float4 q;
+      sphere_frame(ls.normal, sh.at(M_LSPH_TSU, ref), sh.at(M_LSPH_TSV, ref), q, ls.u, ls.v);
+    }
     const float area = r_full * r_full * 4.0f * PI_F;
     const float cos_in = fabsf(dot(ls.normal, -ls.dir));
     ls.weight = dist2 > r_full * r_full
@@ -775,6 +1091,10 @@ __device__ LampSample sample_lamp(const Sheet& sh, int li, V3 p, float u0, float
     const V3 n1 = {sh.at(M_LTRI_N1X, ref), sh.at(M_LTRI_N1Y, ref), sh.at(M_LTRI_N1Z, ref)};
     const V3 n2 = {sh.at(M_LTRI_N2X, ref), sh.at(M_LTRI_N2Y, ref), sh.at(M_LTRI_N2Z, ref)};
     ls.normal = normalize(n0 * tw + n1 * tu + n2 * tv);
+    if (kUV) {
+      ls.u = sh.at(M_LTRI_UV0U, ref) * tw + sh.at(M_LTRI_UV1U, ref) * tu + sh.at(M_LTRI_UV2U, ref) * tv;
+      ls.v = sh.at(M_LTRI_UV0V, ref) * tw + sh.at(M_LTRI_UV1V, ref) * tu + sh.at(M_LTRI_UV2V, ref) * tv;
+    }
     const V3 cr = cross(e1, e2);
     const float area = 0.5f * sqrtf(fmaxf(dot(cr, cr), 0.0f));
     const float cos_in = fabsf(dot(ls.normal, -ls.dir));
@@ -823,8 +1143,8 @@ __device__ LampSample sample_lamp(const Sheet& sh, int li, V3 p, float u0, float
 // the surface, call it with active = false, once per light sample like the
 // others (the loop over light samples is uniform across the warp), and only
 // help sweep.
-template <class Geo, bool kDE>
-__device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo) {
+template <class Geo, bool kDE, bool kProg>
+__device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo, const ProgArgs& pa) {
   __shared__ int lanes[BLOCK];             // the block's NEE lanes, in lane order
   __shared__ int warp_count[BLOCK / 32];  // NEE lanes per warp
   const int n = a.n, s = a.s, t = threadIdx.x, lid = t & 31;
@@ -866,7 +1186,7 @@ __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo) {
         u0 = u[0];
         u1 = u[1];
       }
-      ls = sample_lamp(sh, li, p, u0, u1);
+      ls = sample_lamp<kProg>(sh, li, p, u0, u1);
     }
     const bool cast = nee && fmaxf(dot(flip, ls.dir), 0.0f) > 0.0f;
     if (!Geo::kWholeWarp && !cast) continue;
@@ -887,7 +1207,9 @@ __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo) {
       const int pick = min((int)(u_emis * (float)count), count - 1);
       const int eidx = sh.iat(M_MAT_EMIS_OFFSET, ls.mat) + pick;
       const int e_comp = sh.iat(M_EMIS_COMP, eidx);
-      mat_prob = eval_prob(pr, sh.iat(M_COMP_PROB, e_comp), lane, n, ls.normal, ls.dir) *
+      const int prob = sh.iat(M_COMP_PROB, e_comp);
+      mat_prob = (kProg ? eval_prob_code(pr, pa, prob, lane, n, s, {ls.normal, ls.dir, ls.u, ls.v})
+                        : eval_prob(pr, prob, lane, n, ls.normal, ls.dir)) *
                  sh.at(M_EMIS_SELECTION, eidx);
       l_dispersed = sh.at(M_COMP_PROB_USES_WL, e_comp) > 0.5f;
       color_id = sh.iat(M_COMP_COLOR, e_comp);
@@ -896,6 +1218,17 @@ __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo) {
     const float l_prob = ls.weight * a.nee_prob * brdf * mat_prob;
     // tracer.eval_color_bank: out-of-range programs are 0
     const bool colored = color_id >= 0 && color_id < pr.n_color;
+    int g;
+    if (kProg && colored && color_code(pr, pa, color_id, g)) {
+      // the emitter's color at the lamp sample (tracer._direct_sample's
+      // inputs: the surface normal, or -dir on a point lamp)
+      const ProgIn in = {ls.is_shape ? ls.normal : -ls.dir, ls.dir, ls.u, ls.v};
+      for (int k = 0; k < s; ++k)
+        if (k == 0 || (aux && !l_dispersed))
+          a.brightness[row + k] += eval_code(pr, pa, g, lane, n, s, k, in).x * l_prob *
+                                   a.refl_nee[row + k];
+      continue;
+    }
     const float* c = pr.cvals + ((size_t)(colored ? color_id : 0) * n + lane) * s;
     for (int k = 0; k < s; ++k)
       if (k == 0 || (aux && !l_dispersed))
@@ -920,6 +1253,7 @@ struct LampArgs {
   // the vertex (tracer.LAMP_VERTEX), and brdf_scatter [N] in bounce mode
   float* __restrict__ o_position;
   float* __restrict__ o_normal;
+  float* __restrict__ o_uv;  // [N, 2], written by the kProg instantiations
   int* __restrict__ o_color;
   float* __restrict__ o_probability;
   uint8_t* __restrict__ o_diffuse;
@@ -941,10 +1275,12 @@ struct LampArgs {
 // probability program, and Bounce.probability = weight / (pick probability
 // x material probability); the walk starts DIST_EPSILON off the emitter
 // along its normal.
-__device__ __forceinline__ void lamp_start_lane(const LampArgs& a, int lane) {
+template <bool kProg>
+__device__ __forceinline__ void lamp_start_lane(const LampArgs& a, const ProgArgs& pa, int lane) {
   const Sheet sh = a.sheet;
   const float* u = a.u + 6 * (size_t)lane;
   V3 pos = {0.f, 0.f, 0.f}, dir = {0.f, 0.f, 0.f}, normal = {0.f, 0.f, 0.f};
+  float su = 0.0f, sv = 0.0f;  // kProg: the emitter's uv
   int color = -1, smat = 0;
   float prob = 1.0f;
   bool dispersed = false, is_shape = false;
@@ -963,6 +1299,10 @@ __device__ __forceinline__ void lamp_start_lane(const LampArgs& a, int lane) {
       const float r = sh.at(M_LSPH_R, ref);
       pos = c + sample_sphere_dir(u[1], u[2]) * r;
       normal = normalize(pos - c);
+      if (kProg) {
+        float4 q;
+        sphere_frame(normal, sh.at(M_LSPH_TSU, ref), sh.at(M_LSPH_TSV, ref), q, su, sv);
+      }
       dir = sample_hemisphere(u[3], u[4], normal);
       weight = r * r * 4.0f * PI_F;
       is_shape = true;
@@ -982,6 +1322,10 @@ __device__ __forceinline__ void lamp_start_lane(const LampArgs& a, int lane) {
       const V3 n1 = {sh.at(M_LTRI_N1X, ref), sh.at(M_LTRI_N1Y, ref), sh.at(M_LTRI_N1Z, ref)};
       const V3 n2 = {sh.at(M_LTRI_N2X, ref), sh.at(M_LTRI_N2Y, ref), sh.at(M_LTRI_N2Z, ref)};
       normal = normalize(n0 * tw + n1 * tu + n2 * tv);
+      if (kProg) {
+        su = sh.at(M_LTRI_UV0U, ref) * tw + sh.at(M_LTRI_UV1U, ref) * tu + sh.at(M_LTRI_UV2U, ref) * tv;
+        sv = sh.at(M_LTRI_UV0V, ref) * tw + sh.at(M_LTRI_UV1V, ref) * tu + sh.at(M_LTRI_UV2V, ref) * tv;
+      }
       dir = sample_hemisphere(u[3], u[4], normal);
       const V3 cr = cross(e1, e2);
       weight = 0.5f * sqrtf(fmaxf(dot(cr, cr), 0.0f));
@@ -996,7 +1340,9 @@ __device__ __forceinline__ void lamp_start_lane(const LampArgs& a, int lane) {
       const int pick = min((int)(u[5] * (float)count), count - 1);
       const int eidx = sh.iat(M_MAT_EMIS_OFFSET, smat) + pick;
       const int e_comp = sh.iat(M_EMIS_COMP, eidx);
-      mat_prob = eval_prob(a.progs, sh.iat(M_COMP_PROB, e_comp), lane, a.n, normal, -dir) *
+      const int prob = sh.iat(M_COMP_PROB, e_comp);
+      mat_prob = (kProg ? eval_prob_code(a.progs, pa, prob, lane, a.n, a.s, {normal, -dir, su, sv})
+                        : eval_prob(a.progs, prob, lane, a.n, normal, -dir)) *
                  sh.at(M_EMIS_SELECTION, eidx);
       dispersed = sh.at(M_COMP_PROB_USES_WL, e_comp) > 0.5f;
       color = sh.iat(M_COMP_COLOR, e_comp);
@@ -1006,6 +1352,10 @@ __device__ __forceinline__ void lamp_start_lane(const LampArgs& a, int lane) {
   const V3 origin = pos + normal * DIST_EPSILON;
   store3(a.o_position, lane, origin);
   store3(a.o_normal, lane, normal);
+  if (kProg) {
+    a.o_uv[2 * lane] = su;
+    a.o_uv[2 * lane + 1] = sv;
+  }
   a.o_color[lane] = color;
   a.o_probability[lane] = prob;
   a.o_diffuse[lane] = false;
@@ -1027,12 +1377,12 @@ __device__ __forceinline__ void lamp_start_lane(const LampArgs& a, int lane) {
 // hit and shading, without the lane's spectra: ~100 bytes a lane. Every
 // thread reaches the traversal and the DE probes (whole-warp operations),
 // as in bounce_lane.
-template <class Geo, bool kDE>
-__device__ __forceinline__ void lamp_lane(const LampArgs& a, const Geo& geo) {
+template <class Geo, bool kDE, bool kProg>
+__device__ __forceinline__ void lamp_lane(const LampArgs& a, const Geo& geo, const ProgArgs& pa) {
   const int lane = blockIdx.x * BLOCK + threadIdx.x;
   const bool in_range = lane < a.n;
   if (a.start) {  // the same for the whole grid
-    if (in_range) lamp_start_lane(a, lane);
+    if (in_range) lamp_start_lane<kProg>(a, pa, lane);
     return;
   }
   extern __shared__ __align__(16) float lamp_smem[];
@@ -1058,12 +1408,23 @@ __device__ __forceinline__ void lamp_lane(const LampArgs& a, const Geo& geo) {
   int color = -1;
   float prob = 0.0f, brdf = 1.0f, brdf_scatter = 1.0f;
   bool diffuse = false, dispersed = false, valid = false;
+  ProgIn in = {d, d, 0.0f, 0.0f};  // kProg: what the programs read
   if (found) {
     hit_surface<Geo, kDE>(sh, geo, h, pos, normal, mat);
+    if (kProg) {
+      float4 q;
+      hit_frame(sh, geo, pa, h, pos, normal, q, in.u, in.v);
+      in.normal = normal;
+      normal = map_normal(sh, a.progs, pa, mat, lane, a.n, a.s, q, in);
+      in.normal = normal;
+    }
     const float* u = a.u + 4 * (size_t)lane;
     const int comp = pick_component(sh, mat, u[0]);
-    const float comp_probability = eval_prob(a.progs, sh.iat(M_COMP_PROB, comp), lane, a.n,
-                                             normal, d) * sh.at(M_COMP_SELECTION, comp);
+    const int prob_prog = sh.iat(M_COMP_PROB, comp);
+    const float comp_probability =
+        (kProg ? eval_prob_code(a.progs, pa, prob_prog, lane, a.n, a.s, in)
+               : eval_prob(a.progs, prob_prog, lane, a.n, normal, d)) *
+        sh.at(M_COMP_SELECTION, comp);
     const int bsdf = sh.iat(M_COMP_BSDF, comp);
     color = sh.iat(M_COMP_COLOR, comp);
     if (bsdf != BSDF_EMISSIVE) {
@@ -1085,6 +1446,10 @@ __device__ __forceinline__ void lamp_lane(const LampArgs& a, const Geo& geo) {
   }
   store3(a.o_position, lane, found ? pos : o);
   store3(a.o_normal, lane, normal);
+  if (kProg) {
+    a.o_uv[2 * lane] = in.u;
+    a.o_uv[2 * lane + 1] = in.v;
+  }
   a.o_color[lane] = color;
   a.o_probability[lane] = prob;
   a.o_diffuse[lane] = diffuse;
@@ -1133,35 +1498,78 @@ __global__ void __launch_bounds__(BLOCK) dense_shadow_kernel(const ShadowArgs a)
   a.t[ray] = t;
 }
 
-template <bool kDE, bool kRecord>
-__global__ void __launch_bounds__(BLOCK) dense_bounce_kernel(const BounceArgs a, const Record rec) {
-  bounce_lane<DenseGeo, kDE, kRecord>(a, DenseGeo{}, rec);
-}
-
-template <bool kDE>
-__global__ void __launch_bounds__(BLOCK) dense_nee_kernel(const NeeArgs a) {
-  nee_lane<DenseGeo, kDE>(a, DenseGeo{});
-}
-
-template <bool kDE, bool kRecord>
+// Each kernel's kProg instantiation (kProg = true) runs a scene whose
+// programs need the program form; <..., false> reads none of ProgArgs and
+// is the code it was.
+template <bool kDE, bool kRecord, bool kProg>
 __global__ void __launch_bounds__(BLOCK)
-    wide_bounce_kernel(const BounceArgs a, const WideGeo geo, const Record rec) {
-  bounce_lane<WideGeo, kDE, kRecord>(a, geo, rec);
+    dense_bounce_kernel(const BounceArgs a, const Record rec, const ProgArgs pa) {
+  bounce_lane<DenseGeo, kDE, kRecord, kProg>(a, DenseGeo{}, rec, pa);
 }
 
-template <bool kDE>
-__global__ void __launch_bounds__(BLOCK) wide_nee_kernel(const NeeArgs a, const WideGeo geo) {
-  nee_lane<WideGeo, kDE>(a, geo);
+template <bool kDE, bool kProg>
+__global__ void __launch_bounds__(BLOCK) dense_nee_kernel(const NeeArgs a, const ProgArgs pa) {
+  nee_lane<DenseGeo, kDE, kProg>(a, DenseGeo{}, pa);
 }
 
-template <bool kDE>
-__global__ void __launch_bounds__(BLOCK) dense_lamp_kernel(const LampArgs a) {
-  lamp_lane<DenseGeo, kDE>(a, DenseGeo{});
+template <bool kDE, bool kRecord, bool kProg>
+__global__ void __launch_bounds__(BLOCK)
+    wide_bounce_kernel(const BounceArgs a, const WideGeo geo, const Record rec, const ProgArgs pa) {
+  bounce_lane<WideGeo, kDE, kRecord, kProg>(a, geo, rec, pa);
 }
 
-template <bool kDE>
-__global__ void __launch_bounds__(BLOCK) wide_lamp_kernel(const LampArgs a, const WideGeo geo) {
-  lamp_lane<WideGeo, kDE>(a, geo);
+template <bool kDE, bool kProg>
+__global__ void __launch_bounds__(BLOCK)
+    wide_nee_kernel(const NeeArgs a, const WideGeo geo, const ProgArgs pa) {
+  nee_lane<WideGeo, kDE, kProg>(a, geo, pa);
+}
+
+template <bool kDE, bool kProg>
+__global__ void __launch_bounds__(BLOCK) dense_lamp_kernel(const LampArgs a, const ProgArgs pa) {
+  lamp_lane<DenseGeo, kDE, kProg>(a, DenseGeo{}, pa);
+}
+
+template <bool kDE, bool kProg>
+__global__ void __launch_bounds__(BLOCK)
+    wide_lamp_kernel(const LampArgs a, const WideGeo geo, const ProgArgs pa) {
+  lamp_lane<WideGeo, kDE, kProg>(a, geo, pa);
+}
+
+// The lamp vertices' colors of the bidirectional renderer on a scene whose
+// color programs read the ray (kernels_dense.vertex_colors, the plain
+// version tracer.eval_color_bank): one thread a vertex of the [N, K] path
+// arrays, the color program at each of its lane's S wavelengths from its
+// uv, normal and incident direction; a program that reads no ray is read
+// from the launch's values; 0 where the vertex is not valid or the program
+// out of range. The JAX package evaluates these in XLA after the walk
+// (pyrite_tpu/renderers/bidirectional.py:73-121), so this ports no TPU
+// kernel. What bounds it: 4 S bytes written a vertex and, for a textured
+// program, 16 taps a texture node and spectral column.
+struct ColorArgs {
+  Programs progs;
+  const int* __restrict__ color_prog;  // [N, K]
+  const uint8_t* __restrict__ valid;   // [N, K]
+  const float* __restrict__ normal;    // [N, K, 3]
+  const float* __restrict__ incident;  // [N, K, 3]
+  const float* __restrict__ uv;        // [N, K, 2]
+  float* __restrict__ out;             // [N, K, S]
+  int n, slots, s;
+};
+
+__global__ void __launch_bounds__(BLOCK) program_colors_kernel(const ColorArgs a, const ProgArgs pa) {
+  const int m = blockIdx.x * BLOCK + threadIdx.x;
+  if (m >= a.n * a.slots) return;
+  const int lane = m / a.slots, prog = a.color_prog[m], s = a.s;
+  float* out = a.out + (size_t)m * s;
+  const bool ok = a.valid[m] && prog >= 0 && prog < a.progs.n_color;
+  int g;
+  if (ok && color_code(a.progs, pa, prog, g)) {
+    const ProgIn in = {load3(a.normal, m), load3(a.incident, m), a.uv[2 * m], a.uv[2 * m + 1]};
+    for (int k = 0; k < s; ++k) out[k] = eval_code(a.progs, pa, g, lane, a.n, s, k, in).x;
+  } else {
+    const float* c = a.progs.cvals + ((size_t)(ok ? prog : 0) * a.n + lane) * s;
+    for (int k = 0; k < s; ++k) out[k] = ok ? c[k] : 0.0f;
+  }
 }
 
 // The march passes of a scene with DE shapes: march_de_kernel
@@ -1304,6 +1712,19 @@ extern "C" {
   const float *rows, const float *geo, const float *tri_n, const int *tri_mat,                  \
       const float *sph_center, const int *sph_mat, int leaf
 #define WIDE_GEO const WideGeo g = {{rows, geo, leaf}, tri_n, tri_mat, sph_center, sph_mat}
+// what the kProg instantiations read (ProgArgs), and `prog`, which picks them
+#define PROG_PARAMS                                                                            \
+  const int *p_arg, const float *p_vecs, const float *p_leaves, const float *p_tex,             \
+      const int *p_tex_info, const float *p_tri_q, const float *p_tri_uv,                       \
+      const float *p_sph_texscale, const float *p_pla_quat, const float *p_pla_texscale,        \
+      int p_n_prob, int p_n_normal, int prog
+#define PROG_ARGS                                                                              \
+  const ProgArgs pa = {p_arg,   p_vecs,         p_leaves,     p_tex,          p_tex_info,         \
+                       p_tri_q, p_tri_uv,       p_sph_texscale, p_pla_quat,   p_pla_texscale,     \
+                       p_n_prob, p_n_normal}
+// a kernel's instantiation for the scene: kDE from n_de (launch_lanes), kProg
+// from `prog`
+#define PICK(K, ...) (prog ? &K<__VA_ARGS__, true> : &K<__VA_ARGS__, false>)
 
 // the camera vertex a kRecord bounce writes (Record)
 #define RECORD_PARAMS                                                                          \
@@ -1312,50 +1733,59 @@ extern "C" {
 #define RECORD                                                                                 \
   const Record rec = {r_position, r_normal, r_brdf, r_diffuse, r_dispersed, r_recorded, r_miss}
 
-int pyrite_dense_bounce(BOUNCE_PARAMS, void* stream) {
+int pyrite_dense_bounce(BOUNCE_PARAMS, PROG_PARAMS, void* stream) {
   BOUNCE_ARGS;
-  launch_lanes(dense_bounce_kernel<true, false>, dense_bounce_kernel<false, false>, n, n_de,
-               bounce_smem_bytes(s, n_de > 0), stream, a, Record{});
+  PROG_ARGS;
+  launch_lanes(PICK(dense_bounce_kernel, true, false), PICK(dense_bounce_kernel, false, false), n,
+               n_de, bounce_smem_bytes(s, n_de > 0), stream, a, Record{}, pa);
   return (int)cudaGetLastError();
 }
 
-int pyrite_dense_nee(NEE_PARAMS, void* stream) {
+int pyrite_dense_nee(NEE_PARAMS, PROG_PARAMS, void* stream) {
   NEE_ARGS;
-  launch_lanes(dense_nee_kernel<true>, dense_nee_kernel<false>, n, n_de, 0, stream, a);
+  PROG_ARGS;
+  launch_lanes(PICK(dense_nee_kernel, true), PICK(dense_nee_kernel, false), n, n_de, 0, stream, a,
+               pa);
   return (int)cudaGetLastError();
 }
 
-int pyrite_wide_bounce(BOUNCE_PARAMS, WIDE_PARAMS, void* stream) {
+int pyrite_wide_bounce(BOUNCE_PARAMS, WIDE_PARAMS, PROG_PARAMS, void* stream) {
   BOUNCE_ARGS;
   WIDE_GEO;
-  launch_lanes(wide_bounce_kernel<true, false>, wide_bounce_kernel<false, false>, n, n_de,
-               bounce_smem_bytes(s, n_de > 0), stream, a, g, Record{});
+  PROG_ARGS;
+  launch_lanes(PICK(wide_bounce_kernel, true, false), PICK(wide_bounce_kernel, false, false), n,
+               n_de, bounce_smem_bytes(s, n_de > 0), stream, a, g, Record{}, pa);
   return (int)cudaGetLastError();
 }
 
-int pyrite_wide_nee(NEE_PARAMS, WIDE_PARAMS, void* stream) {
+int pyrite_wide_nee(NEE_PARAMS, WIDE_PARAMS, PROG_PARAMS, void* stream) {
   NEE_ARGS;
   WIDE_GEO;
-  launch_lanes(wide_nee_kernel<true>, wide_nee_kernel<false>, n, n_de, 0, stream, a, g);
+  PROG_ARGS;
+  launch_lanes(PICK(wide_nee_kernel, true), PICK(wide_nee_kernel, false), n, n_de, 0, stream, a, g,
+               pa);
   return (int)cudaGetLastError();
 }
 
 // The bounce kernels' kRecord instantiations: the bounce, and the camera
 // vertex into the RECORD_PARAMS arrays.
-int pyrite_dense_bounce_record(BOUNCE_PARAMS, RECORD_PARAMS, void* stream) {
+int pyrite_dense_bounce_record(BOUNCE_PARAMS, RECORD_PARAMS, PROG_PARAMS, void* stream) {
   BOUNCE_ARGS;
   RECORD;
-  launch_lanes(dense_bounce_kernel<true, true>, dense_bounce_kernel<false, true>, n, n_de,
-               bounce_smem_bytes(s, n_de > 0), stream, a, rec);
+  PROG_ARGS;
+  launch_lanes(PICK(dense_bounce_kernel, true, true), PICK(dense_bounce_kernel, false, true), n,
+               n_de, bounce_smem_bytes(s, n_de > 0), stream, a, rec, pa);
   return (int)cudaGetLastError();
 }
 
-int pyrite_wide_bounce_record(BOUNCE_PARAMS, WIDE_PARAMS, RECORD_PARAMS, void* stream) {
+int pyrite_wide_bounce_record(BOUNCE_PARAMS, WIDE_PARAMS, RECORD_PARAMS, PROG_PARAMS,
+                              void* stream) {
   BOUNCE_ARGS;
   WIDE_GEO;
   RECORD;
-  launch_lanes(wide_bounce_kernel<true, true>, wide_bounce_kernel<false, true>, n, n_de,
-               bounce_smem_bytes(s, n_de > 0), stream, a, g, rec);
+  PROG_ARGS;
+  launch_lanes(PICK(wide_bounce_kernel, true, true), PICK(wide_bounce_kernel, false, true), n,
+               n_de, bounce_smem_bytes(s, n_de > 0), stream, a, g, rec, pa);
   return (int)cudaGetLastError();
 }
 
@@ -1366,29 +1796,49 @@ int pyrite_wide_bounce_record(BOUNCE_PARAMS, WIDE_PARAMS, RECORD_PARAMS, void* s
   const float *sheet, const int *meta, const int *code_op, const float *code_val,               \
       const int *code_off, const float *cvals, const float *pvals, const float *wl,             \
       const float *origin, const float *direction, const uint8_t *alive, const float *u,        \
-      float *o_position, float *o_normal, int *o_color, float *o_probability,                   \
+      float *o_position, float *o_normal, float *o_uv, int *o_color, float *o_probability,      \
       uint8_t *o_diffuse, uint8_t *o_dispersed, uint8_t *o_valid, float *o_brdf,               \
       float *o_brdf_scatter, float *o_origin, float *o_direction, uint8_t *o_alive, int n,      \
       int s, int n_lamps, int start, int n_color, int n_de, const float *t_de
 #define LAMP_ARGS                                                                              \
   const LampArgs a = {{sheet, meta},                                                           \
                       {code_op, code_val, code_off, cvals, pvals, n_color},                    \
-                      wl, origin, direction, alive, u, o_position, o_normal, o_color,          \
+                      wl, origin, direction, alive, u, o_position, o_normal, o_uv, o_color,    \
                       o_probability, o_diffuse, o_dispersed, o_valid, o_brdf, o_brdf_scatter, \
                       o_origin, o_direction, o_alive, n, s, n_lamps, start, t_de}
 
-int pyrite_dense_lamp(LAMP_PARAMS, void* stream) {
+int pyrite_dense_lamp(LAMP_PARAMS, PROG_PARAMS, void* stream) {
   LAMP_ARGS;
-  launch_lanes(dense_lamp_kernel<true>, dense_lamp_kernel<false>, n, n_de,
-               lamp_smem_bytes(n_de > 0), stream, a);
+  PROG_ARGS;
+  launch_lanes(PICK(dense_lamp_kernel, true), PICK(dense_lamp_kernel, false), n, n_de,
+               lamp_smem_bytes(n_de > 0), stream, a, pa);
   return (int)cudaGetLastError();
 }
 
-int pyrite_wide_lamp(LAMP_PARAMS, WIDE_PARAMS, void* stream) {
+int pyrite_wide_lamp(LAMP_PARAMS, WIDE_PARAMS, PROG_PARAMS, void* stream) {
   LAMP_ARGS;
   WIDE_GEO;
-  launch_lanes(wide_lamp_kernel<true>, wide_lamp_kernel<false>, n, n_de,
-               lamp_smem_bytes(n_de > 0), stream, a, g);
+  PROG_ARGS;
+  launch_lanes(PICK(wide_lamp_kernel, true), PICK(wide_lamp_kernel, false), n, n_de,
+               lamp_smem_bytes(n_de > 0), stream, a, g, pa);
+  return (int)cudaGetLastError();
+}
+
+// program_colors_kernel over the [n, slots] lamp vertices (ColorArgs)
+int pyrite_program_colors(const float* sheet, const int* meta, const int* code_op,
+                          const float* code_val, const int* code_off, const float* cvals,
+                          const float* pvals, const int* color_prog, const uint8_t* valid,
+                          const float* normal, const float* incident, const float* uv, float* out,
+                          int n, int slots, int s, int n_color, PROG_PARAMS, void* stream) {
+  PROG_ARGS;
+  (void)sheet;
+  (void)meta;
+  (void)prog;
+  const ColorArgs a = {{code_op, code_val, code_off, cvals, pvals, n_color}, color_prog, valid,
+                       normal, incident, uv, out, n, slots, s};
+  const int m = n * slots;
+  if (m > 0)
+    program_colors_kernel<<<(m + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(a, pa);
   return (int)cudaGetLastError();
 }
 
@@ -1412,10 +1862,14 @@ int pyrite_bounce_occupancy(int s, int* blocks) {
   const size_t smem[8] = {bounce_smem_bytes(s, false), bounce_smem_bytes(s, true), 0, 0,
                           bounce_smem_bytes(s, false), bounce_smem_bytes(s, true), 0, 0};
   const void* kernels[8] = {
-      (const void*)dense_bounce_kernel<false, false>, (const void*)dense_bounce_kernel<true, false>,
-      (const void*)dense_nee_kernel<false>,           (const void*)dense_nee_kernel<true>,
-      (const void*)wide_bounce_kernel<false, false>,  (const void*)wide_bounce_kernel<true, false>,
-      (const void*)wide_nee_kernel<false>,            (const void*)wide_nee_kernel<true>};
+      (const void*)dense_bounce_kernel<false, false, false>,
+      (const void*)dense_bounce_kernel<true, false, false>,
+      (const void*)dense_nee_kernel<false, false>,
+      (const void*)dense_nee_kernel<true, false>,
+      (const void*)wide_bounce_kernel<false, false, false>,
+      (const void*)wide_bounce_kernel<true, false, false>,
+      (const void*)wide_nee_kernel<false, false>,
+      (const void*)wide_nee_kernel<true, false>};
   for (int i = 0; i < 8; ++i) {
     const cudaError_t e =
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[i], kernels[i], BLOCK, smem[i]);

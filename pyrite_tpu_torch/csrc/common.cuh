@@ -21,7 +21,8 @@ constexpr unsigned FULL_WARP = 0xffffffffu;  // every thread of a warp, for the 
 // kernels_dense.META_FIELDS, in order: counts first, then sheet rows (-1
 // where the scene has no such table). The DE rows (M_DE_KIND .. M_DE_MAT)
 // hold one column per DE shape, in the field order of csrc/march_de.cuh's
-// de_shape (kernels_dense.DE_FIELDS).
+// de_shape (kernels_dense.DE_FIELDS). The rows from M_MAT_NORMAL on exist
+// on a scene that runs the kernels' kProg instantiations (csrc/bounce.cu).
 enum Meta {
   M_N_PRIMS, M_N_PLANES, M_N_DE,
   M_PLA_NX, M_PLA_NY, M_PLA_NZ, M_PLA_D, M_PLA_MAT,
@@ -39,6 +40,8 @@ enum Meta {
   M_DE_POWER_M1, M_DE_HAS_CONSTANT, M_DE_C0, M_DE_C1, M_DE_C2, M_DE_C3, M_DE_SLICE,
   M_DE_BOUNDS_KIND, M_DE_AX, M_DE_AY, M_DE_AZ, M_DE_BX, M_DE_BY, M_DE_BZ,
   M_DE_CX, M_DE_CY, M_DE_CZ, M_DE_MAT,
+  M_MAT_NORMAL, M_LSPH_TSU, M_LSPH_TSV,
+  M_LTRI_UV0U, M_LTRI_UV0V, M_LTRI_UV1U, M_LTRI_UV1V, M_LTRI_UV2U, M_LTRI_UV2V,
   M_COUNT
 };
 

@@ -4,14 +4,18 @@ port of pyrite_tpu.exprs).
 Each expression becomes a function evaluated for a whole wavefront of rays
 and all spectral samples at once. Type promotion (number / vector / rgb)
 follows the JAX package, which follows compiler.rs:682-968, including the
-Burns RGB->spectrum sampling when an RGB value is consumed as a number and
-the x*2-1 RGB->vector decode. Image textures are not ported yet.
+Burns RGB->spectrum sampling when an RGB value is consumed as a number,
+the x*2-1 RGB->vector decode and the bicubic image textures with
+wrap-around (texture.rs:88-148).
 
-For the CUDA bounce kernels, probability programs that read the ray (the
-``fresnel`` node reads the normal and the incident direction) are also
-lowered into a small postfix code that the kernels interpret per lane
-(``lower_ray_program``); programs of the wavelength alone are evaluated here
-once per launch and read by the kernels as values.
+For the CUDA kernels, every program that reads the ray (textures read the
+hit's uv, ``fresnel`` its normal and incident direction) is also lowered
+into a postfix code that the kernels interpret per lane and spectral
+column (``KernelPrograms``); each largest subtree of it that reads no ray
+becomes a leaf, evaluated here once per launch at each lane's wavelengths,
+and programs of the wavelength alone are evaluated here whole. The code
+has one plain interpreter in PyTorch (``KernelPrograms.run``), which the
+tests hold to the compiled closures.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from . import spectra as spectra_mod
@@ -28,24 +33,18 @@ NUMBER = "number"
 VECTOR = "vector"
 RGB = "rgb"
 
-TEXTURES_NOT_PORTED = (
-    "image textures are not ported to pyrite_tpu_torch yet "
-    "(ROADMAP.md queue 1: widening the dense pack gate)"
-)
-
-
 @dataclass
 class ProgramInputs:
     """Runtime inputs for a compiled program.
 
     ``wavelength``: [N, S] (ray mode, hero at column 0) or [T] (plain mode).
-    ``normal`` / ``incident``: [N, 3]; None in plain mode. (Texture
-    coordinates join when textures are ported.)
+    ``normal`` / ``incident``: [N, 3]; ``uv``: [N, 2]; None in plain mode.
     """
 
     wavelength: torch.Tensor
     normal: Optional[torch.Tensor] = None
     incident: Optional[torch.Tensor] = None
+    uv: Optional[torch.Tensor] = None
 
     @property
     def ray_mode(self) -> bool:
@@ -58,9 +57,11 @@ class CompiledProgram:
     output_type: str  # NUMBER or VECTOR
     uses_wavelength: bool
     constant: Optional[float] = None  # set when the program is a plain constant
-    # False when the DAG reads only the wavelength (no normal/incident)
+    # False when the DAG reads only the wavelength (no uv/normal/incident)
     uses_ray_inputs: bool = False
     expr: object = None  # the IR the program was compiled from
+    # True when the DAG samples an image texture
+    uses_texture: bool = False
 
     def __call__(self, inputs: ProgramInputs) -> torch.Tensor:
         out = self.fn(inputs)
@@ -70,11 +71,19 @@ class CompiledProgram:
 
 
 class Resources:
-    """Shared spectrum lookups for program compilation. Texture lookups
-    raise: texture programs are not ported yet."""
+    """Shared spectrum and texture lookups for program compilation.
 
-    def __init__(self):
+    Texture data lives in ``store`` (key -> [H, W, 4] or [H, W] float32
+    array, keyed "color:<path>:<linear>" or "mono:<path>:<linear>" as the
+    JAX package keys it), loaded through ``texture_loader``
+    (project.textures.TextureLoader). ``tensors`` holds each texture as a
+    torch tensor once a device asks for it (``texture``)."""
+
+    def __init__(self, texture_loader=None):
+        self.texture_loader = texture_loader
         self._spectrum_cache: dict[int, object] = {}
+        self.store: dict[str, object] = {}
+        self.tensors: dict = {}
 
     def spectrum(self, spec: ir.SpectrumIR):
         cached = self._spectrum_cache.get(id(spec))
@@ -90,10 +99,33 @@ class Resources:
         return s
 
     def color_texture(self, path: str, linear: bool):
-        raise NotImplementedError(TEXTURES_NOT_PORTED)
+        key = f"color:{path}:{bool(linear)}"
+        if key not in self.store:
+            self.store[key] = self.texture_loader.load_color(path, linear).data
+        return self.store[key]
 
     def mono_texture(self, path: str, linear: bool):
-        raise NotImplementedError(TEXTURES_NOT_PORTED)
+        key = f"mono:{path}:{bool(linear)}"
+        if key not in self.store:
+            self.store[key] = self.texture_loader.load_mono(path, linear).data
+        return self.store[key]
+
+    def preload(self, expr):
+        """Register every texture an expression references, so the store's
+        keys are fixed when the scene is packed."""
+        for node in _walk(expr):
+            if node.kind == "color_texture":
+                self.color_texture(node.fields["path"], node.fields["linear"])
+            elif node.kind == "mono_texture":
+                self.mono_texture(node.fields["path"], node.fields["linear"])
+
+    def texture(self, key, device):
+        """The store's texture ``key`` as a float32 tensor on ``device``."""
+        cached = self.tensors.get((key, str(device)))
+        if cached is None:
+            cached = torch.as_tensor(np.ascontiguousarray(self.store[key], np.float32), device=device)
+            self.tensors[(key, str(device))] = cached
+        return cached
 
 
 # --- value plumbing -----------------------------------------------------------
@@ -176,6 +208,47 @@ def _promote_pair(lhs: _Value, rhs: _Value, inputs: ProgramInputs):
     return convert(lhs), convert(rhs), target
 
 
+def _bicubic_1d(v1, v2, v3, v4, t):
+    """The reference's cubic (texture.rs:324-334)."""
+    a = (v4 - v3) - (v1 - v2)
+    b = (v1 - v2) - a
+    c = v3 - v1
+    return v2 + (c + (b + a * t) * t) * t
+
+
+def _wrap_indices(floor_idx, size):
+    """The four taps around a floor index, wrapped around ``size``: a floor
+    modulo (never negative, as jnp.mod), then the neighbours."""
+    i2 = torch.remainder(floor_idx.to(torch.int32), size).long()
+    i1 = torch.where(i2 == 0, size - 1, i2 - 1)
+    i3 = torch.where(i2 == size - 1, 0, i2 + 1)
+    i4 = torch.where(i3 == size - 1, 0, i3 + 1)
+    return i1, i2, i3, i4
+
+
+def sample_texture_bicubic(data, uv):
+    """Bicubic texture fetch with wrap-around, matching texture.rs:88-148.
+
+    ``data``: [H, W] or [H, W, C]; ``uv``: [N, 2]. Returns [N] or [N, C]:
+    the four rows of four taps, each row's cubic along x, then the cubic of
+    the rows along y, with y = (1 - v) H - 0.5."""
+    height, width = data.shape[0], data.shape[1]
+    x = uv[:, 0] * width - 0.5
+    x_floor = torch.floor(x)
+    y = (1.0 - uv[:, 1]) * height - 0.5
+    y_floor = torch.floor(y)
+    xs = _wrap_indices(x_floor, width)
+    ys = _wrap_indices(y_floor, height)
+    tx, ty = x - x_floor, y - y_floor
+    if data.ndim == 3:
+        tx, ty = tx[:, None], ty[:, None]
+    rows = []
+    for yi in ys:
+        taps = [data[yi, xi] for xi in xs]
+        rows.append(_bicubic_1d(taps[0], taps[1], taps[2], taps[3], tx))
+    return _bicubic_1d(rows[0], rows[1], rows[2], rows[3], ty)
+
+
 # --- the compiler -----------------------------------------------------------
 
 
@@ -194,10 +267,10 @@ def compile_program(
             expr=expr,
         )
 
-    if expr_uses_texture(expr):
-        raise NotImplementedError(TEXTURES_NOT_PORTED)
     uses_wl = _expr_uses_wavelength(expr, output_type)
     uses_ray = expr_uses_ray_inputs(expr)
+    uses_tex = expr_uses_texture(expr)
+    resources.preload(expr)
 
     def fn(inputs: ProgramInputs):
         cache: dict[int, _Value] = {}
@@ -212,12 +285,13 @@ def compile_program(
 
     return CompiledProgram(
         fn=fn, output_type=output_type, uses_wavelength=uses_wl,
-        uses_ray_inputs=uses_ray, expr=expr,
+        uses_ray_inputs=uses_ray, expr=expr, uses_texture=uses_tex,
     )
 
 
 def _walk(expr):
-    """Every ComplexExpression node of a DAG, each once."""
+    """Every ComplexExpression node of a DAG, each once (none of a
+    constant)."""
     seen = set()
     stack = [expr]
     while stack:
@@ -372,77 +446,292 @@ def _eval_complex(expr: ir.ComplexExpression, inputs, resources, cache) -> _Valu
     if kind == "spectrum":
         spectrum = resources.spectrum(f["spectrum"])
         return _Value(NUMBER, spectrum.sample(inputs.wavelength), True)
-    if kind in ("color_texture", "mono_texture"):
-        raise NotImplementedError(TEXTURES_NOT_PORTED)
+    if kind == "color_texture":
+        data = resources.texture(texture_key("color", f), inputs.wavelength.device)
+        rgba = sample_texture_bicubic(data, inputs.uv)  # [N, 4]
+        return _Value(RGB, _per_ray_channels(rgba, inputs), False)
+    if kind == "mono_texture":
+        data = resources.texture(texture_key("mono", f), inputs.wavelength.device)
+        luma = sample_texture_bicubic(data, inputs.uv)  # [N]
+        return _Value(NUMBER, luma[:, None] if inputs.ray_mode else luma, False)
     raise ir.ProjectError(f"unknown expression kind {kind!r}")
 
 
-# --- postfix lowering of ray-input probability programs -----------------------
-#
-# The CUDA kernels cannot call a Python closure, so a probability program
-# that reads the ray is lowered to postfix code over a small stack of
-# floats: CONST pushes a constant; the binary ops, MIX (lhs, rhs, amount;
-# amount clamped to [0, 1]), CLAMP (value, min, max) and FRESNEL (ior,
-# env_ior) pop their operands in push order and push one result. FRESNEL
-# reads the lane's normal and incident direction as implicit operands (no
-# other node reads them). Wavelength-dependent leaves (spectrum, blackbody,
-# rgb->number) and vectors are not covered: such a program refuses the pack.
-# The opcodes and limits are mirrored in csrc/bounce.cu.
+def texture_key(kind, fields):
+    """The Resources.store key of a "color" or "mono" texture node's fields."""
+    return f"{kind}:{fields['path']}:{bool(fields['linear'])}"
 
-OP_CONST, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MIX, OP_CLAMP, OP_FRESNEL = range(8)
-PROG_STACK = 8  # kernel stack depth
+
+# --- the kernels' program form --------------------------------------------------
+#
+# The CUDA kernels cannot call a Python closure, so every program that reads
+# the ray is lowered to postfix code over a stack of 4-float values: a
+# number uses the first float, an rgb or vector all four, and the lowering
+# knows each value's type. An instruction is (opcode, value, arg). The
+# kernels run a program once per lane and spectral column k (a probability
+# or normal program at column 0, the hero wavelength), from the lane's
+# normal, incident direction and uv:
+#   CONST pushes the number ``value``; VEC the constant vecs[arg];
+#   LEAF / LEAF4 push leaf ``arg``'s number / 4-vector at (lane, k): a
+#     largest subtree that reads no ray, evaluated once per launch at each
+#     lane's wavelengths (KernelPrograms.leaf_values);
+#   ADD SUB MUL DIV (lhs, rhs), MIX (lhs, rhs, amount, the amount clamped to
+#     [0, 1]) work on all four floats; CLAMP (value, min, max) and FRESNEL
+#     (ior, env_ior, with the lane's normal and incident direction) on
+#     numbers; all pop their operands in push order and push one result;
+#   TEX_COLOR / TEX_MONO sample texture ``arg`` bicubically at the lane's uv;
+#   SPLAT_RGB (n, n, n, 1), SPLAT_VEC (n, n, n, n) and RGB_TO_VEC (x 2 - 1)
+#     are _promote_pair's conversions; TO_NUMBER is Burns' rgb -> number,
+#     the dot of rgb with the basis leaf ``arg`` at (lane, k);
+#   RGB (r, g, b, 1) and VECTOR (x, y, z, w) build a value from numbers.
+# A probability program made of CONST, the binary ops, MIX, CLAMP and FRESNEL
+# alone is the form the simple kernels' instantiations interpret
+# (csrc/bounce.cu eval_prob); the rest run in their kProg instantiations
+# (eval_code). The opcodes and limits are mirrored in csrc/bounce.cu.
+
+(OP_CONST, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MIX, OP_CLAMP, OP_FRESNEL, OP_VEC, OP_LEAF,
+ OP_LEAF4, OP_TEX_COLOR, OP_TEX_MONO, OP_SPLAT_RGB, OP_SPLAT_VEC, OP_RGB_TO_VEC, OP_TO_NUMBER,
+ OP_RGB, OP_VECTOR) = range(19)
+SIMPLE_OPS = frozenset(range(OP_FRESNEL + 1))  # the simple kernels' form
+PROG_STACK = 8  # kernel stack depth, values
 PROG_MAX_LEN = 64  # instructions per program
 
 _BINARY_OPS = {"add": OP_ADD, "sub": OP_SUB, "mul": OP_MUL, "div": OP_DIV}
-RAY_PROGRAMS_NOT_PORTED = "(ROADMAP.md queue 1: widening the dense pack gate)"
+_PROMOTE = {(NUMBER, RGB): OP_SPLAT_RGB, (NUMBER, VECTOR): OP_SPLAT_VEC, (RGB, VECTOR): OP_RGB_TO_VEC}
+PROGRAMS_NOT_PORTED = "(ROADMAP.md queue 1 item 7: the rest of the scene gate)"
 
 
-def lower_ray_program(expr: ir.Expression) -> list[tuple[int, float]]:
-    """Postfix code [(opcode, constant)] of a ray-input probability program.
-    Raises NotImplementedError for a node outside the covered form, or code
-    longer or deeper than the kernel takes."""
-    code: list[tuple[int, float]] = []
-    depth = [0, 0]  # current, max
+def _inline_number(node):
+    """Whether a subtree that reads no ray is inlined as code (a number of
+    constants, binary, mix and clamp nodes) rather than made a leaf."""
+    if isinstance(node, float):
+        return True
+    if node.kind not in ("binary", "mix", "clamp"):
+        return False
+    return all(_inline_number(v) for k, v in node.fields.items() if k != "operator")
 
-    def push(op, value=0.0, pops=0):
-        depth[0] += 1 - pops
-        depth[1] = max(depth[1], depth[0])
-        code.append((op, float(value)))
 
-    def emit(node):
-        if isinstance(node, float):
-            push(OP_CONST, node)
-            return
-        f = node.fields
-        if node.kind == "binary":
-            emit(f["lhs"])
-            emit(f["rhs"])
-            push(_BINARY_OPS[f["operator"]], pops=2)
-        elif node.kind == "mix":
-            emit(f["lhs"])
-            emit(f["rhs"])
-            emit(f["amount"])
-            push(OP_MIX, pops=3)
-        elif node.kind == "clamp":
-            emit(f["value"])
-            emit(f["min"])
-            emit(f["max"])
-            push(OP_CLAMP, pops=3)
-        elif node.kind == "fresnel":
-            emit(f["ior"])
-            emit(f["env_ior"])
-            push(OP_FRESNEL, pops=2)
-        else:
-            raise NotImplementedError(
-                f"a ray-input probability program holds a {node.kind!r} node, which "
-                f"the CUDA kernels' program form does not cover {RAY_PROGRAMS_NOT_PORTED}"
-            )
+class KernelPrograms:
+    """The program code of a scene's ray-reading programs, laid out for the
+    kernels: programs are numbered prob, then color, then normal, then the
+    sky (``index``); program g's code is code[off[g]:off[g + 1]], empty for
+    a program that reads no ray (its values come per launch: constants,
+    bank values). Leaves, vector constants and the textures (in
+    resources.store order) are shared by all programs."""
 
-    emit(expr)
-    if len(code) > PROG_MAX_LEN or depth[1] > PROG_STACK:
-        raise NotImplementedError(
-            f"a ray-input probability program needs {len(code)} instructions and "
-            f"stack depth {depth[1]}; the kernels take {PROG_MAX_LEN} and "
-            f"{PROG_STACK} {RAY_PROGRAMS_NOT_PORTED}"
+    def __init__(self, scene, resources):
+        self.resources = resources
+        self.textures = list(resources.store)
+        self.code: list[tuple[int, float, int]] = []
+        self.vecs: list[tuple[float, float, float, float]] = []
+        self.leaves: list[tuple[object, int]] = []  # (expr, width 1 or 4)
+        self.leaf_base: list[int] = []  # units of N x S floats
+        self._basis = None
+        groups = (
+            [(p, NUMBER) for p in scene.prob_programs]
+            + [(p, NUMBER) for p in scene.color_programs]
+            + [(p, VECTOR) for p in scene.normal_programs]
+            + [(scene.sky_program, NUMBER)]
         )
-    return code
+        self.counts = (len(scene.prob_programs), len(scene.color_programs),
+                       len(scene.normal_programs), 1)
+        self.off = [0]
+        for prog, out in groups:
+            lower = prog.uses_ray_inputs or (out == VECTOR and prog.constant is None)
+            if lower:
+                self._lower(prog.expr, out)
+            elif out == VECTOR:
+                self._lower(prog.constant, out)
+            self.off.append(len(self.code))
+
+    def index(self, group, p):
+        """Global number of program ``p`` of ``group`` ("prob", "color",
+        "normal", "sky")."""
+        start = {"prob": 0, "color": 1, "normal": 2, "sky": 3}[group]
+        return sum(self.counts[:start]) + p
+
+    def program_code(self, g):
+        return self.code[self.off[g]:self.off[g + 1]]
+
+    @property
+    def simple(self):
+        """Whether only probability programs of the simple kernels' form
+        have code: those instantiations run the scene."""
+        n_prob = self.counts[0]
+        return self.off[n_prob] == len(self.code) and all(
+            op in SIMPLE_OPS for op, _, _ in self.code)
+
+    def _leaf(self, expr, width):
+        self.leaf_base.append(sum(w for _, w in self.leaves))
+        self.leaves.append((expr, width))
+        return len(self.leaves) - 1
+
+    def _basis_leaf(self):
+        if self._basis is None:
+            self._basis = self._leaf("basis", 4)
+        return self.leaf_base[self._basis]
+
+    def _lower(self, expr, output_type):
+        code, depth = [], [0, 0]
+
+        def push(op, value=0.0, arg=0, pops=0):
+            depth[0] += 1 - pops
+            depth[1] = max(depth[1], depth[0])
+            code.append((op, float(value), int(arg)))
+
+        def number(node):
+            if emit(node) == RGB:
+                push(OP_TO_NUMBER, arg=self._basis_leaf(), pops=1)
+            elif _static_type(node)[0] == VECTOR:
+                raise ir.ProjectError("cannot use a vector as a number")
+
+        def emit(node):
+            """Emit ``node``'s value; returns its type."""
+            t = _static_type(node)[0]
+            if isinstance(node, float):
+                push(OP_CONST, node)
+                return NUMBER
+            f = node.fields
+            if not expr_uses_ray_inputs(node) and not (t == NUMBER and _inline_number(node)):
+                if node.kind in ("rgb", "vector") and all(
+                        isinstance(v, float) for v in f.values()):
+                    keys = ("red", "green", "blue") if node.kind == "rgb" else "xyzw"
+                    vals = [f[k] for k in keys] + ([1.0] if node.kind == "rgb" else [])
+                    self.vecs.append(tuple(vals))
+                    push(OP_VEC, arg=len(self.vecs) - 1)
+                else:
+                    leaf = self._leaf(node, 1 if t == NUMBER else 4)
+                    push(OP_LEAF if t == NUMBER else OP_LEAF4, arg=self.leaf_base[leaf])
+                return t
+            kind = node.kind
+            if kind in ("binary", "mix"):
+                lt, rt = _static_type(f["lhs"])[0], _static_type(f["rhs"])[0]
+                for side, st in (("lhs", lt), ("rhs", rt)):
+                    emit(f[side])
+                    if st != t:
+                        push(_PROMOTE[(st, t)], pops=1)
+                if kind == "mix":
+                    number(f["amount"])
+                    push(OP_MIX, pops=3)
+                else:
+                    push(_BINARY_OPS[f["operator"]], pops=2)
+            elif kind == "clamp":
+                for k in ("value", "min", "max"):
+                    number(f[k])
+                push(OP_CLAMP, pops=3)
+            elif kind == "fresnel":
+                number(f["ior"])
+                number(f["env_ior"])
+                push(OP_FRESNEL, pops=2)
+            elif kind in ("color_texture", "mono_texture"):
+                key = texture_key("color" if kind == "color_texture" else "mono", f)
+                push(OP_TEX_COLOR if kind == "color_texture" else OP_TEX_MONO,
+                     arg=self.textures.index(key))
+            elif kind in ("rgb", "vector"):
+                keys = ("red", "green", "blue") if kind == "rgb" else "xyzw"
+                for k in keys:
+                    number(f[k])
+                push(OP_RGB if kind == "rgb" else OP_VECTOR, pops=len(keys))
+            else:
+                raise ir.ProjectError(f"unknown expression kind {kind!r}")
+            return t
+
+        if output_type == NUMBER:
+            number(expr)
+        else:
+            t = emit(expr)
+            if t != VECTOR:
+                push(_PROMOTE[(t, VECTOR)], pops=1)
+        if len(code) > PROG_MAX_LEN or depth[1] > PROG_STACK:
+            raise NotImplementedError(
+                f"a program that reads the ray needs {len(code)} instructions and stack depth "
+                f"{depth[1]}; the kernels take {PROG_MAX_LEN} and {PROG_STACK} "
+                f"{PROGRAMS_NOT_PORTED}"
+            )
+        self.code.extend(code)
+
+    def leaf_values(self, wavelengths):
+        """Every leaf at each lane's wavelengths [N, S], flat as the kernels
+        read them: leaf i from leaf_base[i] N S floats on, a number's [N, S]
+        or a 4-vector's [N, S, 4] (Burns' basis: its three weights, then 0)."""
+        n, s = wavelengths.shape
+        inputs = ProgramInputs(wavelength=wavelengths)
+        parts = []
+        for expr, width in self.leaves:
+            if isinstance(expr, str):  # the basis
+                basis = spectra_mod.rgb_basis().sample(wavelengths)
+                val = torch.cat([basis, torch.zeros_like(basis[..., :1])], dim=-1)
+            else:
+                val = _tensor(_eval_expr(expr, inputs, self.resources, {}).data, inputs)
+            parts.append(val.expand((n, s) if width == 1 else (n, s, 4)).reshape(-1))
+        if not parts:
+            return torch.zeros(1, device=wavelengths.device)
+        return torch.cat(parts).contiguous()
+
+    def tables(self, device):
+        """The textures as tensors on ``device``, in texture-index order."""
+        return [self.resources.texture(key, device) for key in self.textures]
+
+    def run(self, g, k, lanes, n, s, leaves, textures, normal, incident, uv):
+        """The plain interpreter of program g's code: the top of the stack
+        [M, 4] at spectral column ``k`` for M points of lanes ``lanes`` [M]
+        (their rows of the leaves of an N x S launch), with their normal,
+        incident direction [M, 3] and uv [M, 2]."""
+        m = lanes.shape[0]
+        dev = lanes.device
+        stack = []
+
+        def leaf(base, width):
+            at = base * n * s + (lanes * s + k) * width
+            idx = at[:, None] + torch.arange(width, device=dev)[None, :]
+            out = leaves[idx]
+            return out if width == 4 else out.expand(m, 4)
+
+        for op, value, arg in self.program_code(g):
+            if op == OP_CONST:
+                stack.append(torch.full((m, 4), value, device=dev))
+            elif op == OP_VEC:
+                stack.append(torch.tensor(self.vecs[arg], device=dev).expand(m, 4))
+            elif op in (OP_LEAF, OP_LEAF4):
+                stack.append(leaf(arg, 1 if op == OP_LEAF else 4))
+            elif op == OP_TEX_COLOR:
+                stack.append(sample_texture_bicubic(textures[arg], uv))
+            elif op == OP_TEX_MONO:
+                stack.append(sample_texture_bicubic(textures[arg], uv)[:, None].expand(m, 4))
+            elif op in (OP_SPLAT_RGB, OP_SPLAT_VEC, OP_RGB_TO_VEC, OP_TO_NUMBER):
+                a = stack.pop()
+                x = a[:, :1].expand(m, 3)
+                if op == OP_SPLAT_RGB:
+                    a = torch.cat([x, torch.ones_like(a[:, :1])], dim=1)
+                elif op == OP_SPLAT_VEC:
+                    a = a[:, :1].expand(m, 4)
+                elif op == OP_RGB_TO_VEC:
+                    a = a * 2.0 - 1.0
+                else:
+                    basis = leaf(arg, 4)
+                    a = (a[:, 0] * basis[:, 0] + a[:, 1] * basis[:, 1]
+                         + a[:, 2] * basis[:, 2])[:, None].expand(m, 4)
+                stack.append(a)
+            elif op in (OP_RGB, OP_VECTOR):
+                parts = [stack.pop()[:, 0] for _ in range(3 if op == OP_RGB else 4)][::-1]
+                if op == OP_RGB:
+                    parts.append(torch.ones(m, device=dev))
+                stack.append(torch.stack(parts, dim=1))
+            elif op in (OP_MIX, OP_CLAMP):
+                c, b, a = stack.pop(), stack.pop(), stack.pop()
+                if op == OP_MIX:
+                    t = torch.clamp(c[:, :1], 0.0, 1.0)
+                    stack.append(a * (1.0 - t) + b * t)
+                else:
+                    stack.append(torch.minimum(torch.maximum(a[:, :1], b[:, :1]),
+                                               c[:, :1]).expand(m, 4))
+            else:
+                b, a = stack.pop(), stack.pop()
+                if op == OP_FRESNEL:
+                    stack.append(spectra_mod.fresnel(a[:, 0], b[:, 0], normal, incident)[:, None]
+                                 .expand(m, 4))
+                else:
+                    stack.append({OP_ADD: a + b, OP_SUB: a - b, OP_MUL: a * b,
+                                  OP_DIV: a / b}[op])
+        assert len(stack) == 1, "a program leaves one value"
+        return stack[0]

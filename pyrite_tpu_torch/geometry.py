@@ -6,8 +6,9 @@ renderer, as the JAX package does:
   - sphere test (two-root version of shapes/mod.rs:57-74)
   - infinite planes (shapes/mod.rs:441-452)
   - sampling bases ortho/sample_sphere/... (math.rs:98-164)
-Frames for normal maps and texture coordinates are left out: the scenes
-that need them are not ported yet.
+  - quaternion frames and texture coordinates of sphere, plane and
+    distance-estimated hits (shapes/mod.rs:346-372, :454-469), for normal
+    maps and textures
 """
 
 from __future__ import annotations
@@ -68,38 +69,130 @@ def normalize(v, eps=1e-20):
 
 def mat3_cols_to_quat(c0, c1, c2):
     """Rotation matrix (columns) -> quaternion (w, x, y, z), matching
-    cgmath's From<Matrix3> conversion. Host-side numpy: build_scene stores
-    per-vertex and per-plane frames with it."""
+    cgmath's From<Matrix3> conversion. On numpy arrays (build_scene's
+    per-vertex and per-plane frames, on the host) or torch tensors
+    (de_normal_quat)."""
+    if isinstance(c0, torch.Tensor):
+        sqrt, stack, where = torch.sqrt, torch.stack, torch.where
+
+        def floor0(x):
+            return torch.clamp(x, min=0.0)
+    else:
+        sqrt, stack, where = np.sqrt, np.stack, np.where
+
+        def floor0(x):
+            return np.maximum(x, 0.0)
+
     m00, m01, m02 = c0[..., 0], c0[..., 1], c0[..., 2]
     m10, m11, m12 = c1[..., 0], c1[..., 1], c1[..., 2]
     m20, m21, m22 = c2[..., 0], c2[..., 1], c2[..., 2]
     trace = m00 + m11 + m22
 
     def build(ww, xx, yy, zz):
-        return np.stack([ww, xx, yy, zz], axis=-1)
+        return stack([ww, xx, yy, zz], -1)
 
-    s0 = np.sqrt(np.maximum(trace + 1.0, 0.0))
-    d0 = 0.5 / np.where(s0 == 0, 1.0, s0)
+    def half_inverse(s):
+        return 0.5 / where(s == 0, 1.0, s)
+
+    s0 = sqrt(floor0(trace + 1.0))
+    d0 = half_inverse(s0)
     q0 = build(0.5 * s0, (m12 - m21) * d0, (m20 - m02) * d0, (m01 - m10) * d0)
 
-    s1 = np.sqrt(np.maximum(1.0 + m00 - m11 - m22, 0.0))
-    d1 = 0.5 / np.where(s1 == 0, 1.0, s1)
+    s1 = sqrt(floor0(1.0 + m00 - m11 - m22))
+    d1 = half_inverse(s1)
     q1 = build((m12 - m21) * d1, 0.5 * s1, (m01 + m10) * d1, (m20 + m02) * d1)
 
-    s2 = np.sqrt(np.maximum(1.0 + m11 - m00 - m22, 0.0))
-    d2 = 0.5 / np.where(s2 == 0, 1.0, s2)
+    s2 = sqrt(floor0(1.0 + m11 - m00 - m22))
+    d2 = half_inverse(s2)
     q2 = build((m20 - m02) * d2, (m01 + m10) * d2, 0.5 * s2, (m12 + m21) * d2)
 
-    s3 = np.sqrt(np.maximum(1.0 + m22 - m00 - m11, 0.0))
-    d3 = 0.5 / np.where(s3 == 0, 1.0, s3)
+    s3 = sqrt(floor0(1.0 + m22 - m00 - m11))
+    d3 = half_inverse(s3)
     q3 = build((m01 - m10) * d3, (m20 + m02) * d3, (m12 + m21) * d3, 0.5 * s3)
 
     use0 = trace >= 0.0
     use1 = (~use0) & (m00 > m11) & (m00 > m22)
     use2 = (~use0) & (~((m00 > m11) & (m00 > m22))) & (m11 > m22)
-    return np.where(
-        use0[..., None], q0, np.where(use1[..., None], q1, np.where(use2[..., None], q2, q3))
+    return where(
+        use0[..., None], q0, where(use1[..., None], q1, where(use2[..., None], q2, q3))
     )
+
+
+# --- quaternion frames (the JAX package's geometry.py:38-125, :259-288) --------
+
+
+def dot4(a, b):
+    """The four products of two quaternions summed in a fixed order,
+    (((w + x) + y) + z), as the kernels add them."""
+    return a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1] + a[..., 2] * b[..., 2] + a[..., 3] * b[..., 3]
+
+
+def quat_mul(q1, q2):
+    w1, x1, y1, z1 = q1[..., 0], q1[..., 1], q1[..., 2], q1[..., 3]
+    w2, x2, y2, z2 = q2[..., 0], q2[..., 1], q2[..., 2], q2[..., 3]
+    return torch.stack(
+        [
+            w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+            w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+            w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+            w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+        ],
+        dim=-1,
+    )
+
+
+def quat_conj(q):
+    return torch.cat([q[..., :1], -q[..., 1:]], dim=-1)
+
+
+def quat_rotate(q, v):
+    """Rotate vectors [..., 3] by quaternions [..., 4]: v + w t + qv x t,
+    t = 2 qv x v."""
+    qv = q[..., 1:4]
+    t = 2.0 * cross(qv, v)
+    return v + q[..., 0:1] * t + cross(qv, t)
+
+
+def quat_normalize(q):
+    return q / torch.sqrt(torch.clamp(dot4(q, q), min=1e-20))[..., None]
+
+
+def axis_angle_quat(axis, angle):
+    """Unit-axis rotation quaternion; axis [..., 3], angle [...]."""
+    half = angle * 0.5
+    return torch.cat([torch.cos(half)[..., None], axis * torch.sin(half)[..., None]], dim=-1)
+
+
+def basis(x):
+    """(y, z) completing x to a basis (math.rs:119-123)."""
+    z = normalize(ortho(x))
+    return normalize(cross(z, x)), z
+
+
+def sphere_surface_frame(position, center, texture_scale):
+    """Latitude/longitude uv and the rotation frame of sphere hits
+    (shapes/mod.rs:346-372). Returns (normal, quat, uv)."""
+    normal = normalize(position - center)
+    latitude = torch.acos(torch.clamp(normal[..., 1], -1.0, 1.0))
+    longitude = atan2(normal[..., 0], normal[..., 2])
+    ey = torch.tensor([0.0, 1.0, 0.0], device=normal.device).expand(normal.shape)
+    ex = torch.tensor([1.0, 0.0, 0.0], device=normal.device).expand(normal.shape)
+    quat = quat_mul(axis_angle_quat(ey, longitude), axis_angle_quat(ex, latitude - math.pi * 0.5))
+    u = longitude / (2.0 * math.pi)
+    v = 1.0 - latitude / math.pi
+    return normal, quat, torch.stack([u, v], dim=-1) / texture_scale
+
+
+def plane_uv(position, quat, texture_scale):
+    """Texture coordinates on an infinite plane: the position rotated into
+    the plane's tangent space (shapes/mod.rs:454-469)."""
+    return quat_rotate(quat_conj(quat), position)[..., :2] / texture_scale
+
+
+def de_normal_quat(normal):
+    """The frame of a distance-estimated hit (Normal::from_vector)."""
+    y, z = basis(normal)
+    return mat3_cols_to_quat(y, z, normal)
 
 
 # --- sampling bases (math.rs:98-164) ------------------------------------------

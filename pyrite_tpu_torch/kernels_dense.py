@@ -26,14 +26,24 @@ march pass on a DE scene), each with its plain version for CPU tensors.
 
 The scene reaches the kernels as an [R, 128] f32 sheet, plus ``meta`` (the
 row of each table, in META_FIELDS order, which csrc/common.cuh's enum
-mirrors) and the postfix code of the ray-input probability programs
-(exprs.lower_ray_program). On a dense scene the sheet is the JAX package's
-(same rows, same values). A mesh scene's sheet keeps the plane, material,
-component, lamp and emissive tables and has no primitive rows: its kernels
-read the node table, the leaf clusters and the triangle and sphere tables
-as flat tensors. The DE shapes take one column each of the rows DE_FIELDS
-names (de_fields). Programs of the wavelength alone are evaluated once per
+mirrors) and the postfix code of the programs that read the ray
+(exprs.KernelPrograms). On a dense scene the sheet is the JAX package's
+(same rows, same values), with a few rows more on a scene whose programs
+need the kernels' kProg instantiations (META_FIELDS' last). A mesh scene's sheet
+keeps the plane, material, component, lamp and emissive tables and has no
+primitive rows: its kernels read the node table, the leaf clusters and the
+triangle and sphere tables as flat tensors. The DE shapes take one column
+each of the rows DE_FIELDS names (de_fields). Programs of the wavelength
+alone, and the leaves of those that read the ray, are evaluated once per
 launch (precompute_bank_values).
+
+A scene with image textures, normal maps, color or sky programs that read
+the ray, or probability programs that read the ray beyond the simple form
+(exprs.SIMPLE_OPS) runs the kernels' kProg instantiations ("<prog>" in
+their names and counts): they compute each hit's frame and uv, map the
+normal before the component pick, and interpret the programs per lane
+and spectral column (csrc/bounce.cu eval_code). Every other scene runs the
+instantiations it ran before.
 """
 
 from __future__ import annotations
@@ -84,22 +94,16 @@ META_FIELDS = (
     "ltri_n0x", "ltri_n0y", "ltri_n0z", "ltri_n1x", "ltri_n1y", "ltri_n1z",
     "ltri_n2x", "ltri_n2y", "ltri_n2z", "ltri_mat",
     "emis_comp", "emis_selection",
-) + tuple("de_" + f for f in DE_FIELDS)
+) + tuple("de_" + f for f in DE_FIELDS) + (
+    # the kProg instantiations' rows: each material's normal program (-1
+    # none), each shape lamp's texture scale and triangle vertex uv
+    "mat_normal", "lsph_tsu", "lsph_tsv",
+    "ltri_uv0u", "ltri_uv0v", "ltri_uv1u", "ltri_uv1v", "ltri_uv2u", "ltri_uv2v",
+)
 
-# Each wrapper adds one here where it launches its kernel; "de_march_pass"
-# and "de_shadow_pass" count march_de_kernel's launches over the bounce rays
-# and over the shadow rays, "de_query_pass" over a shadow_query batch. The
-# bidirectional renderer's kernels: the bounce kernels' kRecord
-# instantiations ("<record>"), the lamp kernels and dense_shadow_kernel.
-launches = {
-    "dense_bounce_kernel": 0, "dense_nee_kernel": 0,
-    "wide_bounce_kernel": 0, "wide_nee_kernel": 0,
-    "de_march_pass": 0, "de_shadow_pass": 0,
-    "dense_bounce_kernel<record>": 0, "wide_bounce_kernel<record>": 0,
-    "dense_lamp_kernel": 0, "wide_lamp_kernel": 0,
-    "dense_shadow_kernel": 0, "de_query_pass": 0,
-}
-# the extern "C" launcher of each kernel (csrc/bounce.cu)
+# the extern "C" launcher of each kernel (csrc/bounce.cu); a "<prog>"
+# name is the kProg instantiation, which the same launcher picks from its
+# `prog` argument
 _LAUNCHERS = {
     "dense_bounce_kernel": "pyrite_dense_bounce", "dense_nee_kernel": "pyrite_dense_nee",
     "wide_bounce_kernel": "pyrite_wide_bounce", "wide_nee_kernel": "pyrite_wide_nee",
@@ -108,9 +112,31 @@ _LAUNCHERS = {
     "wide_bounce_kernel<record>": "pyrite_wide_bounce_record",
     "dense_lamp_kernel": "pyrite_dense_lamp", "wide_lamp_kernel": "pyrite_wide_lamp",
     "dense_shadow_kernel": "pyrite_dense_shadow", "de_query_pass": "pyrite_de_march_query_shadow",
+    "program_colors_kernel": "pyrite_program_colors",
 }
 
-_GATE = "(ROADMAP.md queue 1: widening the dense pack gate)"
+
+def prog_name(name):
+    """The kProg instantiation's name of kernel ``name``."""
+    return name[:-1] + ",prog>" if name.endswith(">") else name + "<prog>"
+
+
+_LAUNCHERS.update({prog_name(k): _LAUNCHERS[k] for k in (
+    "dense_bounce_kernel", "dense_nee_kernel", "wide_bounce_kernel", "wide_nee_kernel",
+    "dense_bounce_kernel<record>", "wide_bounce_kernel<record>", "dense_lamp_kernel",
+    "wide_lamp_kernel",
+)})
+
+# Each wrapper adds one here where it launches its kernel; "de_march_pass"
+# and "de_shadow_pass" count march_de_kernel's launches over the bounce rays
+# and over the shadow rays, "de_query_pass" over a shadow_query batch. The
+# bidirectional renderer's kernels: the bounce kernels' kRecord
+# instantiations ("<record>"), the lamp kernels, dense_shadow_kernel and
+# program_colors_kernel (its lamp vertices' colors on a scene whose color
+# programs read the ray). The kProg instantiations count apart.
+launches = dict.fromkeys(_LAUNCHERS, 0)
+
+_GATE = "(ROADMAP.md queue 1 item 7: the rest of the scene gate)"
 
 
 def _refuse(what, item=_GATE):
@@ -144,21 +170,21 @@ def de_fields(shape):
 def build_pack(scene, a):
     """Gate + packed scene sheet from the host (numpy) scene arrays ``a``.
 
-    On a dense scene it raises NotImplementedError exactly where the JAX
-    package's build_pack returns None, and for ray-input probability
-    programs outside the kernels' postfix form; a mesh scene passes the
-    same gate apart from its primitive count. A dense scene may have no
-    finite primitive when it has a DE shape (the JAX package keeps DE
-    scenes out of its dense pack and runs them in XLA). Returns a dict with
-    the [R, 128] sheet, the row indices (``meta``) and the device tensors
-    the kernels read."""
+    Raises NotImplementedError for what the kernels do not take: directional
+    lamps, more than 128 materials, components, lamps, planes or DE shapes,
+    and programs past the kernels' code limits (exprs.KernelPrograms). A
+    dense scene (at most scene.CLUSTER_THRESHOLD = 128 finite primitives)
+    may have no finite primitive when it has a DE shape (the JAX package
+    keeps DE scenes out of its dense pack and runs them in XLA). Returns a
+    dict with the [R, 128] sheet, the row indices (``meta``), the lowered
+    programs (``programs``), whether the scene runs the kProg
+    instantiations (``prog``) and the device tensors the kernels read."""
     clusters = scene.use_clusters
     n_de = len(scene.de_shapes)
     if not clusters and not (0 < scene.num_primitives <= 128 or scene.num_primitives == 0 < n_de):
         _refuse(
             f"a dense scene with {scene.num_primitives} finite primitives (the kernels "
-            "sweep 1 to 128, or none beside a DE shape; meshes above 1024 take the wide BVH)",
-            "(ROADMAP.md queue 1: more than 128 primitives in a dense sweep)",
+            "sweep 1 to 128, or none beside a DE shape; more take the wide BVH)"
         )
     if n_de > MAX_DE_SHAPES:
         _refuse(f"{n_de} DE shapes (the kernels take at most {MAX_DE_SHAPES})")
@@ -166,22 +192,14 @@ def build_pack(scene, a):
         _refuse(f"{scene.num_planes} planes (the kernels take at most 128)")
     if scene.directional_lamps:
         _refuse("directional lamps")
-    if int(a["mat_normal_prog"].max(initial=-1)) >= 0:
-        _refuse("normal maps")
-    if any(p.uses_ray_inputs for p in scene.color_programs):
-        _refuse("color programs that read the ray")
-    if scene.sky_program.uses_ray_inputs:
-        _refuse("a sky program that reads the ray")
     for name in ("mat_comp_count", "comp_bsdf", "lamp_type", "emis_comp"):
         if a[name].shape[0] > 128:
             _refuse(f"more than 128 entries in {name}")
     lamp_types = set(a["lamp_type"].tolist()) if scene.num_lamps else set()
     if not lamp_types <= {LAMP_POINT, LAMP_SPHERE, LAMP_TRIANGLE}:
         _refuse(f"lamp types {sorted(lamp_types)}")
-    code = [
-        exprs.lower_ray_program(p.expr) if p.uses_ray_inputs else []
-        for p in scene.prob_programs
-    ]
+    programs = exprs.KernelPrograms(scene, scene.resources)
+    prog = not programs.simple
 
     def row(values):
         out = np.zeros(SHEET_WIDTH, np.float32)
@@ -209,12 +227,13 @@ def build_pack(scene, a):
     add("comp_prob_uses_wl", a["comp_prob_uses_wl"].astype(np.float32))
     for name in ("comp_selection", "comp_ior", "comp_disp", "comp_env_ior", "comp_env_disp"):
         add(name, a[name])
+    shapes = None
     if scene.num_lamps:
         lamp_ref = a["lamp_ref"]
         shapes = {
             k: a[k] for k in (
                 "sph_center", "sph_radius", "sph_mat", "tri_v0", "tri_e1", "tri_e2", "tri_n",
-                "tri_mat",
+                "tri_mat", "sph_texscale", "tri_uv",
             )
         }
         if clusters:
@@ -243,21 +262,38 @@ def build_pack(scene, a):
         table = np.stack([de_fields(shape) for shape in scene.de_shapes])
         for i, field in enumerate(DE_FIELDS):
             add("de_" + field, table[:, i])
+    if prog:
+        add("mat_normal", a["mat_normal_prog"])
+        if shapes is not None:
+            add("lsph_tsu", shapes["sph_texscale"][:, 0]); add("lsph_tsv", shapes["sph_texscale"][:, 1])
+            for vtx in range(3):
+                for axis, comp in enumerate("uv"):
+                    add(f"ltri_uv{vtx}{comp}", shapes["tri_uv"][:, vtx, axis])
     sheet = np.stack(rows)
 
-    code_off = np.cumsum([0] + [len(c) for c in code]).astype(np.int32)
-    flat = [ins for c in code for ins in c] or [(exprs.OP_CONST, 0.0)]
+    code = programs.code or [(exprs.OP_CONST, 0.0, 0)]
     dev = scene.device
+    textures = programs.tables(dev)
+    info = np.zeros((max(len(textures), 1), 4), np.int32)  # offset, height, width, channels
+    offset = 0
+    for i, t in enumerate(textures):
+        info[i] = offset, t.shape[0], t.shape[1], 1 if t.ndim == 2 else t.shape[2]
+        offset += t.numel()
     tensors = {
         "sheet": torch.as_tensor(sheet, device=dev),
         "meta": torch.as_tensor(
             np.array([meta.get(f, -1) for f in META_FIELDS], np.int32), device=dev
         ),
-        "code_op": torch.as_tensor(np.array([op for op, _ in flat], np.int32), device=dev),
-        "code_val": torch.as_tensor(np.array([v for _, v in flat], np.float32), device=dev),
-        "code_off": torch.as_tensor(code_off, device=dev),
+        "code_op": torch.as_tensor(np.array([c[0] for c in code], np.int32), device=dev),
+        "code_val": torch.as_tensor(np.array([c[1] for c in code], np.float32), device=dev),
+        "code_arg": torch.as_tensor(np.array([c[2] for c in code], np.int32), device=dev),
+        "code_off": torch.as_tensor(np.array(programs.off, np.int32), device=dev),
+        "vecs": torch.as_tensor(np.array(programs.vecs or [(0.0,) * 4], np.float32), device=dev),
+        "tex": torch.cat([t.reshape(-1) for t in textures]) if textures
+        else torch.zeros(1, device=dev),
+        "tex_info": torch.as_tensor(info, device=dev),
     }
-    return {"sheet": sheet, "meta": meta, "code": code, "tensors": tensors}
+    return {"sheet": sheet, "meta": meta, "programs": programs, "prog": prog, "tensors": tensors}
 
 
 def _primitive_rows(scene, a, row):
@@ -306,14 +342,19 @@ def _primitive_rows(scene, a, row):
 
 def precompute_bank_values(scene, wavelengths):
     """Per-launch program values at each lane's fixed wavelengths:
-    (color_vals [Pc, N, S], prob_vals [Pp, N] at the hero wavelength, 0 for
-    ray-input programs, sky [N, S])."""
+    (color_vals [Pc, N, S], prob_vals [Pp, N] at the hero wavelength, sky
+    [N, S], leaves), 0 for the programs that read the ray, which the
+    kernels run from their code (the kProg instantiations; the simple ones
+    interpret probability programs of the simple form), and ``leaves`` the
+    flat values of those programs' leaves (exprs.KernelPrograms.leaf_values;
+    None on a scene that runs the simple instantiations, which read none)."""
     n, s = wavelengths.shape
     dev = wavelengths.device
     lam = exprs.ProgramInputs(wavelength=wavelengths)
     hero = exprs.ProgramInputs(wavelength=wavelengths[:, :1])
+    zero = torch.zeros((n, s), device=dev)
     color_vals = torch.stack(
-        [p(lam).expand(n, s) for p in scene.color_programs]
+        [zero if p.uses_ray_inputs else p(lam).expand(n, s) for p in scene.color_programs]
     ) if scene.color_programs else torch.zeros((0, n, s), device=dev)
     prob_vals = torch.stack(
         [
@@ -321,8 +362,9 @@ def precompute_bank_values(scene, wavelengths):
             for p in scene.prob_programs
         ]
     ) if scene.prob_programs else torch.zeros((0, n), device=dev)
-    sky = scene.sky_program(lam).expand(n, s).contiguous()
-    return color_vals.contiguous(), prob_vals.contiguous(), sky
+    sky = zero if scene.sky_program.uses_ray_inputs else scene.sky_program(lam).expand(n, s)
+    leaves = scene.dense_pack["programs"].leaf_values(wavelengths) if scene.dense_pack["prog"] else None
+    return color_vals.contiguous(), prob_vals.contiguous(), sky.contiguous(), leaves
 
 
 def _check(name, t, dtype, shape, device):
@@ -354,14 +396,44 @@ def _scene_args(scene, bank_vals, n, s, dev):
     code and per-launch program values."""
     f32, i32 = torch.float32, torch.int32
     pack = scene.dense_pack["tensors"]
-    cvals, pvals, _ = bank_vals
+    cvals, pvals = bank_vals[:2]
     n_color, n_prob = len(scene.color_programs), len(scene.prob_programs)
     return _sheet_args(scene, dev) + [
         _check("code_op", pack["code_op"], i32, pack["code_op"].shape, dev),
         _check("code_val", pack["code_val"], f32, pack["code_op"].shape, dev),
-        _check("code_off", pack["code_off"], i32, (n_prob + 1,), dev),
+        _check("code_off", pack["code_off"], i32, (len(scene.dense_pack["programs"].off),), dev),
         _check("color_vals", cvals, f32, (n_color, n, s), dev) if n_color else 0,
         _check("prob_vals", pvals, f32, (n_prob, n), dev) if n_prob else 0,
+    ]
+
+
+def prog_args(scene, bank_vals, n, s, dev):
+    """The arguments the kProg instantiations read after the others (every
+    instantiation takes them; the rest read none): the code's arguments and
+    vector constants, the launch's leaf values, the textures and their
+    [T, 4] (offset, height, width, channels) table, the frame and uv tables
+    of triangle, sphere and plane hits, the program counts and the kProg
+    flag. On a scene that runs the simple instantiations, null pointers
+    and zeros: they read none of it."""
+    if not scene.dense_pack["prog"]:
+        return [0] * 13
+    f32, i32 = torch.float32, torch.int32
+    pack, a = scene.dense_pack["tensors"], scene.arrays
+    programs = scene.dense_pack["programs"]
+    t, sp, pl = a["tri_q"].shape[0], a["sph_texscale"].shape[0], a["pla_quat"].shape[0]
+    leaves = bank_vals[3]
+    return [
+        _check("code_arg", pack["code_arg"], i32, pack["code_op"].shape, dev),
+        _check("vecs", pack["vecs"], f32, pack["vecs"].shape, dev),
+        _check("leaves", leaves, f32, (max(sum(w for _, w in programs.leaves) * n * s, 1),), dev),
+        _check("tex", pack["tex"], f32, pack["tex"].shape, dev),
+        _check("tex_info", pack["tex_info"], i32, pack["tex_info"].shape, dev),
+        _check("tri_q", a["tri_q"], f32, (t, 3, 4), dev),
+        _check("tri_uv", a["tri_uv"], f32, (t, 3, 2), dev),
+        _check("sph_texscale", a["sph_texscale"], f32, (sp, 2), dev),
+        _check("pla_quat", a["pla_quat"], f32, (pl, 4), dev),
+        _check("pla_texscale", a["pla_texscale"], f32, (pl, 2), dev),
+        programs.counts[0], programs.counts[2], 1,
     ]
 
 
@@ -394,16 +466,27 @@ def wide_args(scene, dev):
     ]
 
 
+def _named(scene, name):
+    """``name``, or its kProg instantiation's on a scene that runs those."""
+    return prog_name(name) if scene.dense_pack["prog"] else name
+
+
 def kernel_names(scene):
-    """(bounce kernel, NEE kernel) that run ``scene``."""
-    return ("wide_bounce_kernel", "wide_nee_kernel") if scene.use_clusters else (
-        "dense_bounce_kernel", "dense_nee_kernel"
-    )
+    """(bounce kernel, NEE kernel) that run ``scene``, as launches counts
+    them ("<prog>" for the kProg instantiations)."""
+    names = ("wide_bounce_kernel", "wide_nee_kernel") if scene.use_clusters else (
+        "dense_bounce_kernel", "dense_nee_kernel")
+    return tuple(_named(scene, k) for k in names)
 
 
 def _with_scene_tables(scene, args, dev):
     """Launch arguments with the mesh tables put before the stream."""
     return args[:-1] + wide_args(scene, dev) + args[-1:] if scene.use_clusters else args
+
+
+def _with_programs(scene, args, bank_vals, n, s, dev):
+    """Launch arguments with prog_args put before the stream."""
+    return args[:-1] + prog_args(scene, bank_vals, n, s, dev) + args[-1:]
 
 
 def _flag(t):
@@ -476,7 +559,7 @@ def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals, t_de=No
     ]
     args = _with_scene_tables(scene, args, dev)
     if not record:
-        return args, out, ctx
+        return _with_programs(scene, args, bank_vals, n, s, dev), out, ctx
     flag = lambda: torch.empty(n, dtype=torch.bool, device=dev)  # noqa: E731
     info = {
         "position": torch.empty((n, 3), dtype=f32, device=dev),
@@ -487,7 +570,8 @@ def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals, t_de=No
     rec = [info[k].data_ptr() for k in (
         "position", "normal", "brdf_stored", "is_diffuse", "dispersed", "recorded", "miss")]
     info["incident"] = state["direction"]
-    return args[:-1] + rec + args[-1:], out, ctx, info
+    args = _with_programs(scene, args[:-1] + rec + args[-1:], bank_vals, n, s, dev)
+    return args, out, ctx, info
 
 
 def nee_kernel_args(scene, cfg, wavelengths, out, ctx, draws, bank_vals, t_de_shadow=None):
@@ -513,7 +597,7 @@ def nee_kernel_args(scene, cfg, wavelengths, out, ctx, draws, bank_vals, t_de_sh
         _t_de("t_de_shadow", t_de_shadow, (len(scene.de_shapes), ls, n), dev),
         torch.cuda.current_stream(dev).cuda_stream,
     ]
-    return _with_scene_tables(scene, args, dev)
+    return _with_programs(scene, _with_scene_tables(scene, args, dev), bank_vals, n, s, dev)
 
 
 def _launch(name, args):
@@ -533,8 +617,8 @@ def launch_bounce_kernel(scene, cfg, wavelengths, state, draws, bank_vals, t_de=
     instantiation: (new state, NEE context, camera vertex)."""
     args, out, ctx, *info = bounce_kernel_args(
         scene, cfg, wavelengths, state, draws, bank_vals, t_de, record)
-    name = kernel_names(scene)[0]
-    _launch(name + "<record>" if record else name, args)
+    name = "wide_bounce_kernel" if scene.use_clusters else "dense_bounce_kernel"
+    _launch(_named(scene, name + "<record>" if record else name), args)
     return (out, ctx, *info)
 
 
@@ -699,6 +783,7 @@ def lamp_kernel_args(scene, wavelengths, words, bank_vals, state=None, t_de=None
     vertex = {
         "position": torch.empty((n, 3), dtype=f32, device=dev),
         "normal": torch.empty((n, 3), dtype=f32, device=dev),
+        "uv": torch.zeros((n, 2), dtype=f32, device=dev),
         "color_prog": torch.empty(n, dtype=i32, device=dev),
         "probability": torch.empty(n, dtype=f32, device=dev),
         "is_diffuse": flag(), "dispersed": flag(), "valid": flag(),
@@ -717,17 +802,19 @@ def lamp_kernel_args(scene, wavelengths, words, bank_vals, state=None, t_de=None
         _check("wavelengths", wavelengths, f32, (n, s), dev), *rays,
         _check("words", words, f32, (n, 6 if start else 4), dev),
     ] + [vertex[k].data_ptr() for k in (
-        "position", "normal", "color_prog", "probability", "is_diffuse", "dispersed", "valid",
-        "brdf", "brdf_scatter")] + [nxt[k].data_ptr() for k in ("origin", "direction", "alive")] + [
+        "position", "normal", "uv", "color_prog", "probability", "is_diffuse", "dispersed",
+        "valid", "brdf", "brdf_scatter")] + [
+        nxt[k].data_ptr() for k in ("origin", "direction", "alive")] + [
         n, s, scene.num_lamps, int(start), len(scene.color_programs), len(scene.de_shapes),
         0 if start else _t_de("t_de", t_de, (len(scene.de_shapes), n), dev),
         torch.cuda.current_stream(dev).cuda_stream,
     ]
-    return _with_scene_tables(scene, args, dev), vertex, nxt
+    args = _with_programs(scene, _with_scene_tables(scene, args, dev), bank_vals, n, s, dev)
+    return args, vertex, nxt
 
 
 def _lamp_name(scene):
-    return "wide_lamp_kernel" if scene.use_clusters else "dense_lamp_kernel"
+    return _named(scene, "wide_lamp_kernel" if scene.use_clusters else "dense_lamp_kernel")
 
 
 def lamp_start(scene, wavelengths, draws, bank_vals=None):
@@ -836,3 +923,56 @@ def shadow_query(scene, cfg, origin, direction, max_dist, block_below, live):
     for j in range(len(scene.de_shapes)):
         t = torch.minimum(t, t_de[j])
     return torch.where(live, t, max_dist)
+
+
+# --- the lamp vertices' colors -----------------------------------------------
+
+
+def vertex_colors_plain(scene, color_prog, valid, normal, incident, uv, wavelengths):
+    """The plain version of vertex_colors, on any device:
+    tracer.eval_color_bank on the flattened [N K] vertices."""
+    n, slots = color_prog.shape
+    s = wavelengths.shape[1]
+    flat = lambda x: x.reshape((n * slots,) + x.shape[2:])  # noqa: E731
+    inputs = exprs.ProgramInputs(
+        wavelength=wavelengths[:, None, :].expand(n, slots, s).reshape(n * slots, s),
+        normal=flat(normal), incident=flat(incident), uv=flat(uv))
+    return tracer.eval_color_bank(scene, flat(color_prog).long(), inputs,
+                                  active=flat(valid)).reshape(n, slots, s)
+
+
+def vertex_colors_args(scene, color_prog, valid, normal, incident, uv, wavelengths, bank_vals):
+    """Checked arguments of one program_colors_kernel launch, with the
+    colors it writes: (ctypes arguments, out [N, K, S])."""
+    dev, n, s = _device(wavelengths)
+    slots = color_prog.shape[1]
+    f32 = torch.float32
+    check_rays(n * slots, "vertex_colors")
+    out = torch.empty((n, slots, s), dtype=f32, device=dev)
+    args = _scene_args(scene, bank_vals, n, s, dev) + [
+        _check("color_prog", color_prog, torch.int32, (n, slots), dev),
+        _check("valid", _flag(valid), torch.uint8, (n, slots), dev),
+        _check("normal", normal, f32, (n, slots, 3), dev),
+        _check("incident", incident, f32, (n, slots, 3), dev),
+        _check("uv", uv, f32, (n, slots, 2), dev),
+        out.data_ptr(), n, slots, s, len(scene.color_programs),
+        torch.cuda.current_stream(dev).cuda_stream,
+    ]
+    return _with_programs(scene, args, bank_vals, n, s, dev), out
+
+
+def vertex_colors(scene, color_prog, valid, normal, incident, uv, wavelengths, bank_vals):
+    """Each lamp vertex's color program at its lane's wavelengths, [N, K,
+    S], from its uv, normal and incident direction ([N, K] programs and
+    valid flags, [N, K, 3] vectors, [N, K, 2] uv): tracer.eval_color_bank's
+    values, 0 where the program is out of range or the vertex not valid.
+    The plain version (vertex_colors_plain) for tensors on the CPU; on a
+    GPU, program_colors_kernel, which reads the programs that read no ray
+    from ``bank_vals`` and runs the others' code (csrc/bounce.cu)."""
+    dev = _cuda(wavelengths, "vertex_colors")
+    if dev.type == "cpu":
+        return vertex_colors_plain(scene, color_prog, valid, normal, incident, uv, wavelengths)
+    args, out = vertex_colors_args(scene, color_prog, valid, normal, incident, uv, wavelengths,
+                                   bank_vals)
+    _launch("program_colors_kernel", args)
+    return out

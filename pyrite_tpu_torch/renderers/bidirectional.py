@@ -73,10 +73,10 @@ def _effective_brdf(path):
 
 
 def _slot_colors(color_prog, valid, bank_vals):
-    """Each slot's color program at its lane's wavelengths, [N, K, S]: the
-    per-launch program values (kernels_dense.precompute_bank_values; color
-    programs that read the ray are refused by the scene gate), 0 where the
-    program is out of range or the slot not valid (tracer.eval_color_bank)."""
+    """Each slot's color program at its lane's wavelengths, [N, K, S], on a
+    scene whose color programs read no ray: the per-launch program values
+    (kernels_dense.precompute_bank_values), 0 where the program is out of
+    range or the slot not valid (tracer.eval_color_bank)."""
     cvals = bank_vals[0]  # [Pc, N, S]
     n, slots = color_prog.shape
     pc = cvals.shape[0]
@@ -97,7 +97,15 @@ def _lamp_path_factors(scene, path, wavelengths, bank_vals):
     own (bidirectional.rs:187-192)."""
     valid = path["valid"]
     inc = torch.cat([-path["incident_out"][:, 1:], path["incident_out"][:, -1:]], dim=1)
-    color = _slot_colors(path["color_prog"], valid, bank_vals)
+    if any(p.uses_ray_inputs for p in scene.color_programs):
+        # read at each vertex's uv, normal and reversed incident direction
+        # (pyrite_tpu/renderers/bidirectional.py:73-121): the plain programs
+        # on the CPU, program_colors_kernel on a GPU
+        color = kernels_dense.vertex_colors(
+            scene, path["color_prog"], valid, path["normal"], inc, path["uv"], wavelengths,
+            bank_vals)
+    else:
+        color = _slot_colors(path["color_prog"], valid, bank_vals)
     factor = color * (path["probability"] * _effective_brdf(path))[:, :, None]
     # the emitter slot has brdf 1 already; invalid slots contribute 1
     factor = torch.where(valid[:, :, None], factor, 1.0)
@@ -374,12 +382,14 @@ def make_render_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCo
 _STEP_BYTES = 8 << 30
 
 
-def pick_rows_per_chunk(film: Film, light_bounces: int, spectrum_samples: int) -> int:
+def pick_rows_per_chunk(film: Film, light_bounces: int, spectrum_samples: int,
+                        texture_bytes: int = 0) -> int:
     """Rows per chunk step: the whole film where its lanes fit _STEP_BYTES
-    (the Cornell class, 512 x 512 lanes at 4 + 1 slots and S = 10, counts
-    0.44 GiB), else the largest divisor of the height that fits."""
+    beside the scene's ``texture_bytes`` (the Cornell class, 512 x 512
+    lanes at 4 + 1 slots and S = 10, counts 0.44 GiB), else the largest
+    divisor of the height that fits."""
     per_lane = (light_bounces + 1) * (160 + 20 * spectrum_samples)
-    lanes = max(film.width, _STEP_BYTES // per_lane)
+    lanes = max(film.width, max(_STEP_BYTES - texture_bytes, 0) // per_lane)
     rows = max(1, min(film.height, lanes // film.width))
     while film.height % rows:
         rows -= 1
@@ -416,7 +426,7 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
             "camera-regeneration scheduler, which is not ported to pyrite_tpu_torch yet "
             "(ROADMAP.md queue 1: regen BDPT); PYRITE_TPU_REGEN=0 renders it one-shot")
     light_bounces = settings.light_bounces
-    rows = pick_rows_per_chunk(film, light_bounces, cfg.spectrum_samples)
+    rows = pick_rows_per_chunk(film, light_bounces, cfg.spectrum_samples, scene.texture_bytes)
     acc, wt = film.new_buffers(scene.device)
     if resume is not None:
         acc.copy_(torch.as_tensor(resume["acc"], dtype=torch.float32).view(acc.shape))

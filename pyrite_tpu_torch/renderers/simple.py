@@ -95,12 +95,30 @@ def chunk_rays(film: Film, camera: CameraModel, cfg: TraceConfig, rng, row0=0, r
     return camera_rays(film, camera, s, pixel, u)
 
 
-def pick_sample_batch(film: Film) -> int:
+# Device memory a wavefront may take beside the scene's textures: 8 GiB of
+# the 80 GB card, as bidirectional._STEP_BYTES. A lane takes LANE_BYTES: the
+# most that chip_smoke.py's renders measured, a render's peak memory over
+# the memory held before it, per lane of its wavefront (phase 5's
+# "[memory]" lines on an NVIDIA H100 80GB HBM3: 1,915.5 B under
+# regeneration on fractal.lua at S = 8, 1,816.2 B on the textures scene at
+# S = 6, 905.8 B there one-shot), rounded up.
+WAVEFRONT_BYTES = 8 << 30
+LANE_BYTES = 2048
+
+
+def lane_budget(texture_bytes: int = 0) -> int:
+    """Lanes a wavefront may hold beside ``texture_bytes`` of textures."""
+    return max(WAVEFRONT_BYTES - texture_bytes, 0) // LANE_BYTES
+
+
+def pick_sample_batch(film: Film, texture_bytes: int = 0) -> int:
     """Stratified samples per launch, keeping the wavefront under ~600k
-    lanes (the JAX package's bound); one launch covers the whole film. The
-    JAX package's narrower lane cap for mesh scenes (CLUSTER_LANE_CAP) tunes
-    its TPU walk and is not carried over."""
-    return max(1, min(4, 600_000 // max(film.height * film.width, 1)))
+    lanes (the JAX package's bound) and within lane_budget(texture_bytes);
+    one launch covers the whole film. The JAX package's narrower lane cap
+    for mesh scenes (CLUSTER_LANE_CAP) tunes its TPU walk and is not carried
+    over."""
+    pix = max(film.height * film.width, 1)
+    return max(1, min(4, 600_000 // pix, lane_budget(texture_bytes) // pix))
 
 
 def make_render_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceConfig, rows=None, samples=1):
@@ -327,13 +345,14 @@ def make_regen_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCon
     return step
 
 
-def _regen_planes(film: Film) -> int:
-    """Lanes per pixel: REGEN_TARGET_LANES over the film, 1 to
-    REGEN_MAX_PLANES. The JAX package's narrower targets for mesh scenes
-    (CLUSTER_LANE_CAP, a TPU walk tuning) and texture scenes
-    (texture_lane_cap; textures are not ported) are left out."""
-    pix = film.height * film.width
-    return max(1, min(REGEN_MAX_PLANES, REGEN_TARGET_LANES // max(pix, 1)))
+def _regen_planes(film: Film, texture_bytes: int = 0) -> int:
+    """Lanes per pixel: REGEN_TARGET_LANES over the film, within
+    lane_budget(texture_bytes), 1 to REGEN_MAX_PLANES. The JAX package's
+    narrower targets for mesh scenes (CLUSTER_LANE_CAP, a TPU walk tuning)
+    and texture scenes (texture_lane_cap, a TPU worker's footprint) are
+    left out."""
+    pix = max(film.height * film.width, 1)
+    return max(1, min(REGEN_MAX_PLANES, REGEN_TARGET_LANES // pix, lane_budget(texture_bytes) // pix))
 
 
 def adaptive_quotas(rem, rate, spp_target):
@@ -362,7 +381,7 @@ def _render_regen(scene, film, camera, cfg, acc, wt, seed, resume, total, on_pro
     tail: the remainders carry into the next launch's quotas); the quota
     ramps up to ``spp_chunk`` over the first launches so that the rates warm
     and a preview lands early."""
-    planes = _regen_planes(film) if planes is None else planes
+    planes = _regen_planes(film, scene.texture_bytes) if planes is None else planes
     pix = film.height * film.width
     n = pix * planes
     step = make_regen_step(scene, film, camera, cfg, planes=planes, seed=seed)
@@ -668,7 +687,7 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
     if cfg.bounces >= POOL_MIN_BOUNCES:
         return _render_pooled(scene, film, camera, cfg, acc, wt, seed, start, total, on_progress)
 
-    batch = pick_sample_batch(film)
+    batch = pick_sample_batch(film, scene.texture_bytes)
     i = start
     while i < total:
         take = min(batch, total - i)

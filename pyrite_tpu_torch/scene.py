@@ -7,15 +7,17 @@ scene's device; materials become a flattened global component table
 expressions and uniform selection compensation). The arrays are built in
 numpy exactly as the JAX package builds them and moved to the device once.
 
-Scenes of more than CLUSTER_THRESHOLD finite primitives (meshes) take the
-clustered wide BVH, as in the JAX package: the binary SAH build orders the
+Scenes of more than CLUSTER_THRESHOLD finite primitives (meshes, and any
+scene above the dense kernels' 128) take the clustered wide BVH: the
+binary SAH build orders the
 primitives, its treelets become leaf clusters of up to ``cluster_leaf``
 primitives packed into ``clu_geo`` [slots, leaf, 12], and bvh.build_wide_bvh
 puts the 16-ary node table ``wide_rows`` [273, 128] over them. Distance-
 estimated shapes (``RayMarched``) become ``scene.de_shapes``, marched
 outside the primitives as in the JAX package. kernels_dense.build_pack,
 called at the end of build_scene, refuses the rest of what the CUDA kernels
-do not take (among them dense scenes of 129 to 1024 primitives).
+do not take. Image textures are loaded into the Resources store
+(``scene.resources``) and read by the programs as tensors.
 """
 
 from __future__ import annotations
@@ -49,8 +51,11 @@ LAMP_TRIANGLE = 3
 PRIM_TRIANGLE = 0
 PRIM_SPHERE = 1
 
-# Above this many primitives the scene takes the clustered wide BVH.
-CLUSTER_THRESHOLD = 1024
+# Above this many primitives the scene takes the clustered wide BVH: the
+# dense kernels sweep at most 128 (one sheet row). The JAX package sweeps
+# scenes of up to 1024 brute force in XLA (its tracer.py:350-353); here
+# those take the wide kernels, 2 to 8 leaves of CLUSTER_LEAF.
+CLUSTER_THRESHOLD = 128
 # Primitives per leaf cluster (one [CLUSTER_LEAF, 12] block of clu_geo),
 # grown in steps of 128 when the leaves would not fit the wide tree.
 CLUSTER_LEAF = 128
@@ -233,6 +238,11 @@ class Scene:
         self.bank_span = (380.0, 780.0)
         # the CUDA bounce kernels' scene pack (kernels_dense.build_pack)
         self.dense_pack = None
+        self.resources = None
+        # whether a program reads the hit's uv or a material maps normals:
+        # then the plain version computes each hit's frame and uv
+        # (tracer.surface_data with frames)
+        self.frames = False
         # the clustered wide BVH (scenes above CLUSTER_THRESHOLD primitives)
         self.use_clusters = False
         self.cluster_leaf = 0
@@ -241,6 +251,11 @@ class Scene:
     @property
     def num_primitives(self):
         return self.num_triangles + self.num_spheres
+
+    @property
+    def texture_bytes(self):
+        """Bytes of the image textures the scene keeps on its device."""
+        return sum(t.nbytes for t in self.resources.store.values()) if self.resources else 0
 
 
 def _look_at_matrix(look: ir.LookAt) -> np.ndarray:
@@ -286,7 +301,7 @@ def build_scene(project_data, device="cuda") -> Scene:
     asks for the CPU (device="cpu"); a CUDA device without one raises.
     Raises NotImplementedError for scenes outside the ported path."""
     project = project_data.project
-    resources = exprs.Resources()
+    resources = exprs.Resources(texture_loader=project_data.textures)
     scene = Scene(require_device(device, "build_scene"))
     scene.resources = resources
 
@@ -634,6 +649,9 @@ def build_scene(project_data, device="cuda") -> Scene:
         for i in range(len(lamp_type))
         if lamp_type[i] == LAMP_DIRECTIONAL
     ]
+
+    programs = scene.color_programs + scene.prob_programs + [scene.sky_program]
+    scene.frames = bool(scene.normal_programs) or any(p.uses_texture for p in programs)
 
     bake_bank_tables(scene, project.renderer.spectrum_span)
     from . import kernels_dense

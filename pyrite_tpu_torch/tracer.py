@@ -675,12 +675,18 @@ def de_normal(shape, origin, direction, t):
     return geom.normalize(torch.stack([d6[0] - d6[3], d6[1] - d6[4], d6[2] - d6[5]], dim=-1))
 
 
-def surface_data(scene: Scene, hit, origin, direction):
+def surface_data(scene: Scene, hit, origin, direction, frames=False):
     """Per-hit surface attributes, branchless across hit kinds.
 
-    Returns (position, normal, material_id). Texture coordinates and frames
-    are not needed on the dense path (normal maps and textures are gated);
-    a DE hit's normal is de_normal's, evaluated on the DE lanes only."""
+    Returns (position, normal, material_id); with ``frames`` (position,
+    normal, frame quaternion [N, 4], uv [N, 2], material_id), as the JAX
+    package's surface_data (tracer.py:612-697): a triangle's frame is the
+    barycentric blend of its vertex quaternions, then normalised, and its
+    uv the blend of its vertex uv; a sphere's from its latitude and
+    longitude (geometry.sphere_surface_frame); a plane's its own, with the
+    position rotated into it as uv; a DE hit's de_normal_quat of its
+    normal, uv 0. A DE hit's normal is de_normal's, evaluated on the DE
+    lanes only."""
     a = scene.arrays
     t = hit["t"]
     safe_t = torch.where(torch.isfinite(t), t, 0.0)
@@ -688,31 +694,71 @@ def surface_data(scene: Scene, hit, origin, direction):
     kind = hit["kind"]
     idx = hit["idx"]
 
+    def rows(table):
+        return a[table][torch.clamp(idx, max=a[table].shape[0] - 1)]
+
     u = hit["u"][:, None]
     v = hit["v"][:, None]
-    w = 1.0 - hit["u"] - hit["v"]
-    tn = a["tri_n"][torch.clamp(idx, max=a["tri_n"].shape[0] - 1)]  # [N, 3, 3]
-    tri_normal = geom.normalize(tn[:, 0] * w[:, None] + tn[:, 1] * u + tn[:, 2] * v)
-    s_center = a["sph_center"][torch.clamp(idx, max=a["sph_center"].shape[0] - 1)]
+    w = (1.0 - hit["u"] - hit["v"])[:, None]
+    tn = rows("tri_n")  # [N, 3, 3]
+    tri_normal = geom.normalize(tn[:, 0] * w + tn[:, 1] * u + tn[:, 2] * v)
+    s_center = rows("sph_center")
     sph_normal = geom.normalize(position - s_center)
-    p_norm = a["pla_normal"][torch.clamp(idx, max=a["pla_normal"].shape[0] - 1)]
+    p_norm = rows("pla_normal")
 
     k = kind[:, None]
-    normal = torch.where(
-        k == KIND_TRIANGLE, tri_normal,
-        torch.where(k == KIND_SPHERE, sph_normal, torch.where(k == KIND_PLANE, p_norm, 0.0)),
-    )
+
+    def by_kind(tri, sph, pla, other):
+        return torch.where(k == KIND_TRIANGLE, tri, torch.where(
+            k == KIND_SPHERE, sph, torch.where(k == KIND_PLANE, pla, other)))
+
+    normal = by_kind(tri_normal, sph_normal, p_norm, 0.0)
     mat = torch.zeros_like(idx)
     for kd, table in ((KIND_TRIANGLE, "tri_mat"), (KIND_SPHERE, "sph_mat"), (KIND_PLANE, "pla_mat")):
-        tab = a[table].long()
-        mat = torch.where(kind == kd, tab[torch.clamp(idx, max=tab.shape[0] - 1)], mat)
+        mat = torch.where(kind == kd, rows(table).long(), mat)
+    if frames:
+        tq, tuv = rows("tri_q"), rows("tri_uv")
+        tri_quat = geom.quat_normalize(tq[:, 0] * w + tq[:, 1] * u + tq[:, 2] * v)
+        tri_uv = tuv[:, 0] * w + tuv[:, 1] * u + tuv[:, 2] * v
+        _, sph_quat, sph_uv = geom.sphere_surface_frame(position, s_center, rows("sph_texscale"))
+        p_quat = rows("pla_quat")
+        p_uv = geom.plane_uv(position, p_quat, rows("pla_texscale"))
+        ident = torch.tensor([1.0, 0.0, 0.0, 0.0], device=position.device).expand(kind.shape[0], 4)
+        quat = by_kind(tri_quat, sph_quat, p_quat, ident)
+        uv = by_kind(tri_uv, sph_uv, p_uv, 0.0)
     for j, shape in enumerate(scene.de_shapes):
         sel = (kind == KIND_DE) & (idx == j)
         lanes = torch.nonzero(sel)[:, 0]
         if lanes.numel():
             normal[lanes] = de_normal(shape, origin[lanes], direction[lanes], safe_t[lanes])
             mat[lanes] = shape.material_id
+            if frames:
+                quat[lanes] = geom.de_normal_quat(normal[lanes])
+    if frames:
+        return position, normal, quat, uv, mat
     return position, normal, mat
+
+
+def apply_normal_maps(scene: Scene, mat_id, normal, quat, inputs: ProgramInputs):
+    """Material normal mapping (materials/mod.rs:68-81, tracer.py:796-815):
+    the material's vector program, rotated by the hit's frame and
+    normalised, replaces the normal; a vector with |v|^2 < 1e-12 keeps the
+    geometric one. Normal programs read no wavelength: the first spectral
+    column's value is taken."""
+    if not scene.normal_programs:
+        return normal
+    prog_id = scene.arrays["mat_normal_prog"][mat_id]
+    out = normal
+    for p, prog in enumerate(scene.normal_programs):
+        mask = (prog_id == p)[:, None]
+        vec = prog(inputs)
+        if vec.ndim == 3:
+            vec = vec[:, 0, :]
+        vec = vec.expand(normal.shape[0], 4)[:, :3]
+        mapped = geom.normalize(geom.quat_rotate(quat, vec))
+        degenerate = geom.dot(vec, vec) < 1e-12
+        out = torch.where(mask & ~degenerate[:, None], mapped, out)
+    return out
 
 
 # =============================================================================
@@ -767,6 +813,7 @@ def eval_prob_bank(scene: Scene, prog_id, inputs: ProgramInputs, active=None):
         wavelength=inputs.wavelength[:, :1],
         normal=inputs.normal,
         incident=inputs.incident,
+        uv=inputs.uv,
     )
     baked = scene.prob_bank_bakeable
     if baked is not None:
@@ -864,7 +911,9 @@ def brdf_value(normal, out_dir, is_diffuse):
 
 def sample_lamp(scene: Scene, lamp_idx, target, u):
     """Sample one lamp toward ``target`` (lamp.rs:23-82), branchless over
-    the point/sphere/triangle lamps present. ``u``: [N, 4] uniforms."""
+    the point/sphere/triangle lamps present. ``u``: [N, 4] uniforms. The
+    sample's surface uv ("surf_uv", for textured emitters) is computed where
+    the scene's programs read uv (scene.frames), else 0."""
     a = scene.arrays
     ltype = a["lamp_type"][lamp_idx]
     lvec = a["lamp_vec"][lamp_idx]
@@ -875,6 +924,7 @@ def sample_lamp(scene: Scene, lamp_idx, target, u):
     sq_distance = torch.full((n,), math.inf, device=dev)
     weight = torch.ones(n, device=dev)
     surf_normal = torch.zeros((n, 3), device=dev)
+    surf_uv = torch.zeros((n, 2), device=dev)
     surf_mat = torch.zeros(n, dtype=torch.long, device=dev)
 
     is_pt = ltype == LAMP_POINT
@@ -920,6 +970,9 @@ def sample_lamp(scene: Scene, lamp_idx, target, u):
             )
         )
         sph_normal = geom.normalize(sph_point - s_center)
+        if scene.frames:
+            _, _, sph_uv = geom.sphere_surface_frame(sph_point, s_center, a["sph_texscale"][sref])
+            surf_uv = torch.where(is_sph[:, None], sph_uv, surf_uv)
         sph_area = s_radius_full * s_radius_full * 4.0 * math.pi
         cos_in_sph = torch.abs(geom.dot(sph_normal, -sph_dir))
         sph_weight = torch.where(
@@ -953,6 +1006,10 @@ def sample_lamp(scene: Scene, lamp_idx, target, u):
         tri_normal = geom.normalize(
             tn[:, 0] * tw[:, None] + tn[:, 1] * tu[:, None] + tn[:, 2] * tv[:, None]
         )
+        if scene.frames:
+            tuv = a["tri_uv"][tref]
+            tri_uv = tuv[:, 0] * tw[:, None] + tuv[:, 1] * tu[:, None] + tuv[:, 2] * tv[:, None]
+            surf_uv = torch.where(is_tri[:, None], tri_uv, surf_uv)
         c = geom.cross(t_e1, t_e2)
         tri_area = 0.5 * torch.sqrt(torch.clamp(geom.dot(c, c), min=0.0))
         cos_in_tri = torch.abs(geom.dot(tri_normal, -tri_dir))
@@ -969,6 +1026,7 @@ def sample_lamp(scene: Scene, lamp_idx, target, u):
         "weight": weight,
         "is_shape": is_sph | is_tri,
         "surf_normal": surf_normal,
+        "surf_uv": surf_uv,
         "surf_mat": surf_mat,
         "color_prog": a["lamp_color"][lamp_idx].long(),
     }
@@ -1031,7 +1089,8 @@ def _direct_sample(
     e_comp, e_sel = choose_emissive(scene, samp["surf_mat"], u_emis)
     target_normal = torch.where(samp["is_shape"][:, None], samp["surf_normal"], -samp["direction"])
     prob_inputs = ProgramInputs(
-        wavelength=wavelengths, normal=target_normal, incident=samp["direction"]
+        wavelength=wavelengths, normal=target_normal, incident=samp["direction"],
+        uv=samp["surf_uv"],
     )
     mat_prob = eval_prob_bank(scene, a["comp_prob"][e_comp], prob_inputs, active=contributes) * e_sel
     mat_prob = torch.where(samp["is_shape"], mat_prob, 1.0)
@@ -1115,6 +1174,18 @@ def trace_paths(scene: Scene, cfg: TraceConfig, rng, origin, direction, waveleng
     return state["brightness"], state["aux_alive"]
 
 
+def _shading_normal(scene: Scene, hit, o, d, wavelengths):
+    """(shading normal, material, position, uv) of each hit: surface_data,
+    then the materials' normal maps (apply_normal_maps) on a scene with
+    frames; uv None on a scene without."""
+    if not scene.frames:
+        position, normal, mat_id = surface_data(scene, hit, o, d)
+        return normal, mat_id, position, None
+    position, normal_geo, quat, uv, mat_id = surface_data(scene, hit, o, d, frames=True)
+    inputs = ProgramInputs(wavelength=wavelengths, normal=normal_geo, incident=d, uv=uv)
+    return apply_normal_maps(scene, mat_id, normal_geo, quat, inputs), mat_id, position, uv
+
+
 def bounce_core(scene: Scene, cfg: TraceConfig, wavelengths, state, draws, record=False):
     """One camera-path bounce: intersection, contribution, NEE, scatter
     (tracer.py:1585-1796, dense scenes). The plain version of the CUDA
@@ -1134,11 +1205,12 @@ def bounce_core(scene: Scene, cfg: TraceConfig, wavelengths, state, draws, recor
 
     hit = intersect_scene(scene, o, d, de_steps=cfg.max_de_steps)
     found = hit["kind"] != KIND_NONE
-    position, normal, mat_id = surface_data(scene, hit, o, d)
+    normal, mat_id, position, uv = _shading_normal(scene, hit, o, d, wavelengths)
 
     # ---- miss: sky (directional lamps are not on the dense path) -----------
     miss = alive & ~found
-    sky_inputs = ProgramInputs(wavelength=wavelengths, normal=-d, incident=d)
+    sky_inputs = ProgramInputs(wavelength=wavelengths, normal=-d, incident=d,
+                               uv=torch.zeros((n, 2), device=d.device))
     miss_color = scene.sky_program(sky_inputs).expand(n, s_count)
     aux_cols = _column_mask(state["aux_alive"], s_count)
     brightness = state["brightness"] + torch.where(
@@ -1153,7 +1225,7 @@ def bounce_core(scene: Scene, cfg: TraceConfig, wavelengths, state, draws, recor
     pick = torch.minimum((draws["u_comp"] * count).long(), count - 1)
     comp = a["mat_comp_offset"][mat_id].long() + pick
 
-    prob_inputs = ProgramInputs(wavelength=wavelengths, normal=normal, incident=d)
+    prob_inputs = ProgramInputs(wavelength=wavelengths, normal=normal, incident=d, uv=uv)
     comp_probability = eval_prob_bank(
         scene, a["comp_prob"][comp], prob_inputs, active=hit_active
     ) * a["comp_selection"][comp]
@@ -1234,15 +1306,16 @@ def bounce_core(scene: Scene, cfg: TraceConfig, wavelengths, state, draws, recor
 #
 # A lamp path is recorded as [N, L + 1] vertex arrays (slot 0 the emitter):
 # position, normal, color_prog (int32), probability, is_diffuse, dispersed,
-# valid, brdf, and incident_out (the direction that arrived at the vertex;
-# the emitter's is its start direction), with brdf_limit [N] (the last
-# bounce's brdf along its scattered direction) and length [N] (valid
+# valid, brdf, uv, and incident_out (the direction that arrived at the
+# vertex; the emitter's is its start direction), with brdf_limit [N] (the
+# last bounce's brdf along its scattered direction) and length [N] (valid
 # vertices). Only the valid slots are defined: every consumer masks the
-# others out. Texture coordinates are not recorded: color programs that
-# read the ray are refused by the scene gate (kernels_dense.build_pack).
+# others out. uv is computed where the scene's programs read it
+# (scene.frames), else 0.
 
 LAMP_VERTEX = {  # field: dtype of a recorded vertex
-    "position": torch.float32, "normal": torch.float32, "color_prog": torch.int32,
+    "position": torch.float32, "normal": torch.float32, "uv": torch.float32,
+    "color_prog": torch.int32,
     "probability": torch.float32, "is_diffuse": torch.bool, "dispersed": torch.bool,
     "valid": torch.bool, "brdf": torch.float32,
 }
@@ -1263,6 +1336,7 @@ def sample_lamp_ray(scene: Scene, lamp_idx, u):
     position = torch.zeros((n, 3), device=dev)
     direction = torch.zeros((n, 3), device=dev)
     normal = torch.zeros((n, 3), device=dev)
+    uv = torch.zeros((n, 2), device=dev)
     weight = torch.ones(n, device=dev)
     is_shape = torch.zeros(n, dtype=torch.bool, device=dev)
     surf_mat = torch.zeros(n, dtype=torch.long, device=dev)
@@ -1283,6 +1357,9 @@ def sample_lamp_ray(scene: Scene, lamp_idx, u):
         s_radius = a["sph_radius"][sref]
         point = s_center + geom.sample_sphere(u[:, 0], u[:, 1]) * s_radius[:, None]
         s_normal = geom.normalize(point - s_center)
+        if scene.frames:
+            _, _, s_uv = geom.sphere_surface_frame(point, s_center, a["sph_texscale"][sref])
+            uv = torch.where(is_sph[:, None], s_uv, uv)
         s_dir = geom.sample_hemisphere(u[:, 2], u[:, 3], s_normal)
         position = torch.where(is_sph[:, None], point, position)
         direction = torch.where(is_sph[:, None], s_dir, direction)
@@ -1303,6 +1380,10 @@ def sample_lamp_ray(scene: Scene, lamp_idx, u):
         tw = 1.0 - tu - tv
         tn = a["tri_n"][tref]
         t_normal = geom.normalize(tn[:, 0] * tw[:, None] + tn[:, 1] * tu[:, None] + tn[:, 2] * tv[:, None])
+        if scene.frames:
+            tuv = a["tri_uv"][tref]
+            t_uv = tuv[:, 0] * tw[:, None] + tuv[:, 1] * tu[:, None] + tuv[:, 2] * tv[:, None]
+            uv = torch.where(is_tri[:, None], t_uv, uv)
         t_dir = geom.sample_hemisphere(u[:, 2], u[:, 3], t_normal)
         c = geom.cross(t_e1, t_e2)
         t_area = 0.5 * torch.sqrt(torch.clamp(geom.dot(c, c), min=0.0))
@@ -1319,6 +1400,7 @@ def sample_lamp_ray(scene: Scene, lamp_idx, u):
         "position": position,
         "direction": direction,
         "normal": normal,
+        "uv": uv,
         "weight": weight,
         "is_shape": is_shape,
         "surf_mat": surf_mat,
@@ -1339,13 +1421,15 @@ def lamp_start(scene: Scene, wavelengths, draws):
     a = scene.arrays
     start = sample_lamp_ray(scene, draws["lamp_idx"], draws["u_lamp"])
     e_comp, e_sel = choose_emissive(scene, start["surf_mat"], draws["u_emis"])
-    inputs = ProgramInputs(wavelength=wavelengths, normal=start["normal"], incident=-start["direction"])
+    inputs = ProgramInputs(wavelength=wavelengths, normal=start["normal"], incident=-start["direction"],
+                           uv=start["uv"])
     mat_prob = eval_prob_bank(scene, a["comp_prob"][e_comp], inputs, active=start["is_shape"]) * e_sel
     mat_prob = torch.where(start["is_shape"], mat_prob, 1.0)
     origin = start["position"] + start["normal"] * DIST_EPSILON
     vertex = {
         "position": origin,
         "normal": start["normal"],
+        "uv": start["uv"],
         "color_prog": torch.where(
             start["is_shape"], a["comp_color"][e_comp].long(), start["color_prog"]).to(torch.int32),
         "probability": start["weight"] / (start["pick_prob"] * torch.clamp(mat_prob, min=1e-20)),
@@ -1369,11 +1453,11 @@ def lamp_bounce_step(scene: Scene, cfg: TraceConfig, wavelengths, state, draws):
     alive, o, d = state["alive"], state["origin"], state["direction"]
     hit = intersect_scene(scene, o, d, de_steps=cfg.max_de_steps)
     found = hit["kind"] != KIND_NONE
-    position, normal, mat_id = surface_data(scene, hit, o, d)
+    normal, mat_id, position, uv = _shading_normal(scene, hit, o, d, wavelengths)
     count = torch.clamp(a["mat_comp_count"][mat_id].long(), min=1)
     pick = torch.minimum((draws["u_comp"] * count).long(), count - 1)
     comp = a["mat_comp_offset"][mat_id].long() + pick
-    inputs = ProgramInputs(wavelength=wavelengths, normal=normal, incident=d)
+    inputs = ProgramInputs(wavelength=wavelengths, normal=normal, incident=d, uv=uv)
     comp_probability = eval_prob_bank(
         scene, a["comp_prob"][comp], inputs, active=alive & found
     ) * a["comp_selection"][comp]
@@ -1382,6 +1466,7 @@ def lamp_bounce_step(scene: Scene, cfg: TraceConfig, wavelengths, state, draws):
     vertex = {
         "position": position,
         "normal": normal,
+        "uv": torch.zeros((o.shape[0], 2), device=o.device) if uv is None else uv,
         "color_prog": a["comp_color"][comp].to(torch.int32),
         "probability": sc["probability"] * comp_probability,
         "is_diffuse": sc["is_diffuse"],

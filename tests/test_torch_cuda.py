@@ -339,3 +339,62 @@ def test_cuda_bdpt_draws_match_cpu(purpose):
     on_card = rng.LaneKeys(11, keys.pixel.cuda(), keys.sample.cuda(), keys.depth.cuda())
     got = rng.purpose_words(on_card, n, 0, code, width, "cuda", take)
     assert torch.equal(got.cpu(), rng.purpose_uniforms(keys, n, 0, code, width, torch.device("cpu"), take))
+
+
+def _texture_paths(directory):
+    size = dict(width=96, height=64, spectrum_samples=6, bounces=4, spp=4)
+    return {
+        "textures": chip_smoke.write_textures_scene(directory, **size),
+        "textures_512": chip_smoke.write_textures_scene(directory, **size, tiles=(16, 16)),
+        "textures_bdpt": chip_smoke.write_textures_scene(directory, 48, 32, 6, 4, spp=2,
+                                                         renderer="bidirectional"),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["textures", "textures_512"])
+def test_cuda_prog_kernels_match_plain_version(tmp_path, name):
+    """The kProg instantiations of the bounce and NEE kernels (image
+    textures, normal maps, a fresnel colour, a textured lamp, a ray-reading
+    sky; dense, and a mesh with vt through the wide kernels) lane for lane
+    against tracer.bounce_core: flags exact, 0 divergent lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pyrite_tpu_torch import kernels_dense as kd
+
+    path = _texture_paths(str(tmp_path))[name]
+    scene = chip_smoke.load_scene(path)[0]
+    assert scene.dense_pack["prog"] and scene.use_clusters == (name == "textures_512")
+    chip_smoke._zero_counts()
+    worst = chip_smoke.check_kernels(name, path)
+    assert worst["divergent"] == 0.0 and worst["nee_divergent"] == 0.0
+    assert kd.launches[kd.kernel_names(scene)[0]] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,geometry", [("textures", "dense"), ("textures_512", "wide")])
+def test_cuda_prog_render_takes_the_kernels(tmp_path, name, geometry):
+    """The CLI renders the textures scene (and the 512-triangle mesh with
+    vt through wide_bounce_kernel) with every bounce iteration on the kProg
+    kernels and none by the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    path = _texture_paths(str(tmp_path))[name]
+    launches = chip_smoke.render_end_to_end(path, 2, "card", str(tmp_path))
+    assert launches[f"{geometry}_bounce_kernel<prog>"] == launches["bounces"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_prog_bdpt_matches_plain_version(tmp_path):
+    """The bidirectional renderer's kernels on the textures scene: the lamp
+    kernel's and the kRecord bounce's kProg instantiations against their
+    plain versions (flags exact), the lamp vertices' colours through
+    program_colors_kernel against the plain programs, and a CLI render with
+    no plain step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    path = _texture_paths(str(tmp_path))["textures_bdpt"]
+    checked = chip_smoke.check_bdpt("textures_bdpt", path)
+    assert "colors" in checked["worst"] and checked["worst"]["divergent"] == 0.0
+    launches = chip_smoke.render_bdpt(path, 2, "card", str(tmp_path))[0]
+    assert launches["program_colors_kernel"] > 0 and launches["dense_lamp_kernel<prog>"] > 0

@@ -1,7 +1,10 @@
 """pyrite_tpu_torch.exprs against pyrite_tpu.exprs: every program of the
 flagship scene and examples/prism.lua, hand-built IR covering the type
-promotions and node kinds, and the postfix lowering the CUDA kernels run for
-ray-input probability programs. Both sides compute in float32 (rtol 1e-5)."""
+promotions and node kinds, and the program form the CUDA kernels run for
+programs that read the ray (exprs.KernelPrograms, through its plain
+interpreter). Both sides compute in float32 (rtol 1e-5)."""
+
+import types
 
 import numpy as np
 import pytest
@@ -119,30 +122,19 @@ def test_hand_built_programs(inputs, case):
     np.testing.assert_allclose(t, j, rtol=1e-5, atol=1e-6, err_msg=name)
 
 
-def run_postfix(code, normal, incident):
-    """The kernels' postfix interpreter (csrc/bounce.cu eval_prob),
-    written in torch over all lanes at once."""
+def run_postfix(expr, normal, incident, wavelength=None):
+    """The kernels' program form (exprs.KernelPrograms) of probability
+    program ``expr``, run by its plain interpreter over all lanes at the
+    hero wavelength: (code, values [N])."""
+    prog = TE.compile_program(expr, TE.Resources(), TE.NUMBER)
+    scene = types.SimpleNamespace(prob_programs=[prog], color_programs=[], normal_programs=[],
+                                  sky_program=TE.compile_program(0.0, TE.Resources()))
+    kp = TE.KernelPrograms(scene, TE.Resources())
     n = normal.shape[0]
-    stack = []
-    for op, value in code:
-        if op == TE.OP_CONST:
-            stack.append(torch.full((n,), value))
-            continue
-        if op in (TE.OP_MIX, TE.OP_CLAMP):
-            c, b, a = stack.pop(), stack.pop(), stack.pop()
-            if op == TE.OP_MIX:
-                t = torch.clamp(c, 0.0, 1.0)
-                stack.append(a * (1.0 - t) + b * t)
-            else:
-                stack.append(torch.minimum(torch.maximum(a, b), c))
-            continue
-        b, a = stack.pop(), stack.pop()
-        if op == TE.OP_FRESNEL:
-            stack.append(TS.fresnel(a, b, normal, incident))
-        else:
-            stack.append({TE.OP_ADD: a + b, TE.OP_SUB: a - b, TE.OP_MUL: a * b, TE.OP_DIV: a / b}[op])
-    assert len(stack) == 1
-    return stack[0]
+    wl = torch.full((n, 1), 550.0) if wavelength is None else wavelength[:, :1]
+    out = kp.run(0, 0, torch.arange(n), n, 1, kp.leaf_values(wl), kp.tables("cpu"), normal,
+                 incident, torch.zeros((n, 2)))
+    return kp.program_code(0), kp, out[:, 0]
 
 
 def _ray_programs(ir):
@@ -166,11 +158,14 @@ def _ray_programs(ir):
 
 @pytest.mark.parametrize("case", range(len(_ray_programs(JIR))))
 def test_postfix_lowering_matches_compile_program(inputs, case):
+    """Probability programs of the simple form lower to code of its
+    opcodes alone (csrc/bounce.cu eval_prob), which the plain interpreter
+    runs to the JAX package's values."""
     ej, et = _ray_programs(JIR)[case], _ray_programs(TIR)[case]
-    code = TE.lower_ray_program(et)
     normal = torch.as_tensor(inputs["normal"])
     incident = torch.as_tensor(inputs["incident"])
-    got = run_postfix(code, normal, incident)
+    code, kp, got = run_postfix(et, normal, incident)
+    assert code and kp.simple and all(op in TE.SIMPLE_OPS for op, _, _ in code)
     pj = JE.compile_program(ej, JE.Resources(), JE.NUMBER)
     want = np.asarray(pj(JE.ProgramInputs(
         wavelength=jnp.asarray(inputs["wavelength"][:, :1]),
@@ -182,15 +177,41 @@ def test_postfix_lowering_matches_compile_program(inputs, case):
 def test_flagship_probability_programs_lower(scenes):
     _, st = scenes["flagship"]
     assert len(st.prob_programs) == 2 and all(p.uses_ray_inputs for p in st.prob_programs)
-    assert all(st.dense_pack["code"])
+    programs = st.dense_pack["programs"]
+    assert all(programs.program_code(programs.index("prob", p)) for p in range(2))
+    assert programs.simple and not st.dense_pack["prog"]
 
 
-def test_lowering_refuses_wavelength_leaves():
+def test_lowering_refuses_wavelength_leaves(inputs):
+    """Wavelength-dependent leaves under a node that reads the ray (a
+    blackbody ior, an rgb factor read as a number by Burns) lower to the
+    kProg form: a leaf evaluated per launch, Burns' TO_NUMBER at the lane's
+    wavelength; its plain interpreter gives the JAX package's values (rtol
+    1e-5). The old form refused both."""
     C = TIR.ComplexExpression
-    bb_ior = C("fresnel", {"ior": C("blackbody", {"temperature": 3000.0}), "env_ior": 1.0})
-    with pytest.raises(NotImplementedError, match="blackbody"):
-        TE.lower_ray_program(bb_ior)
-    rgb_scaled = C("binary", {"operator": "mul", "lhs": C("fresnel", {"ior": 1.5, "env_ior": 1.0}),
-                              "rhs": C("rgb", {"red": 0.1, "green": 0.2, "blue": 0.3})})
-    with pytest.raises(NotImplementedError, match="rgb"):
-        TE.lower_ray_program(rgb_scaled)
+    CJ = JIR.ComplexExpression
+    cases = [
+        (C("fresnel", {"ior": C("binary", {"operator": "add", "lhs": 1.0, "rhs": C(
+            "binary", {"operator": "mul", "lhs": C("blackbody", {"temperature": 3000.0}),
+                       "rhs": 1e-14})}), "env_ior": 1.0}),
+         CJ("fresnel", {"ior": CJ("binary", {"operator": "add", "lhs": 1.0, "rhs": CJ(
+             "binary", {"operator": "mul", "lhs": CJ("blackbody", {"temperature": 3000.0}),
+                        "rhs": 1e-14})}), "env_ior": 1.0}), TE.OP_LEAF),
+        (C("binary", {"operator": "mul", "lhs": C("fresnel", {"ior": 1.5, "env_ior": 1.0}),
+                      "rhs": C("rgb", {"red": 0.1, "green": 0.2, "blue": 0.3})}),
+         CJ("binary", {"operator": "mul", "lhs": CJ("fresnel", {"ior": 1.5, "env_ior": 1.0}),
+                       "rhs": CJ("rgb", {"red": 0.1, "green": 0.2, "blue": 0.3})}),
+         TE.OP_TO_NUMBER),
+    ]
+    normal = torch.as_tensor(inputs["normal"])
+    incident = torch.as_tensor(inputs["incident"])
+    wl = torch.as_tensor(inputs["wavelength"])
+    for et, ej, op in cases:
+        code, kp, got = run_postfix(et, normal, incident, wl)
+        assert op in [c[0] for c in code] and not kp.simple
+        pj = JE.compile_program(ej, JE.Resources(), JE.NUMBER)
+        want = np.asarray(pj(JE.ProgramInputs(
+            wavelength=jnp.asarray(inputs["wavelength"][:, :1]),
+            normal=jnp.asarray(inputs["normal"]), incident=jnp.asarray(inputs["incident"]))))
+        np.testing.assert_allclose(got.numpy(), np.broadcast_to(want, (N, 1))[:, 0], rtol=1e-5,
+                                   atol=1e-6)

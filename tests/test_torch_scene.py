@@ -142,20 +142,22 @@ def _terrain(directory, cells):
 
 @pytest.mark.parametrize("which", ["fractal", "terrain_162"])
 def test_refuses_exactly_where_jax_pack_is_none(tmp_path, which):
-    """JAX's dense pack is None for both. The 162-triangle terrain (129 to
-    1024 primitives) is refused; examples/fractal.lua, which JAX keeps out
-    of its pack for its DE shape, is packed with that one DE shape."""
+    """JAX's dense pack is None for both, and the port packs both:
+    examples/fractal.lua, which JAX keeps out of its pack for its DE shape,
+    with that one DE shape; the 162-triangle terrain (129 to 1024
+    primitives, which JAX sweeps brute force in XLA) through the clustered
+    wide BVH, above the dense kernels' 128 (scene.CLUSTER_THRESHOLD)."""
     path = (
         os.path.join(ROOT, "examples", "fractal.lua") if which == "fractal"
         else _terrain(tmp_path, 9)
     )
     assert jax_build(jax_load(path)).dense_pack is None
+    scene = torch_build(torch_load(path), "cpu")
     if which == "fractal":
-        scene = torch_build(torch_load(path), "cpu")
         assert scene.dense_pack["meta"]["n_de"] == 1 and len(scene.de_shapes) == 1
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        torch_build(torch_load(path), "cpu")
+    assert scene.num_primitives == 163 and scene.use_clusters
+    assert scene.dense_pack["meta"]["n_prims"] == 0
 
 
 def test_convert_round_trip(built):
