@@ -27,12 +27,14 @@ and exits non-zero on any failure:
    (tools/synthetic.terrain_scene, cells 405 and 660), bit for bit; the wide
    bounce and NEE kernels on terrain_405 and terrain_de_24; the kProg
    instantiations (textures, normal maps, programs that read the ray) on
-   the textures scenes of texture_paths, dense and wide (515 primitives),
+   the textures scenes of texture_paths, dense and wide (515 primitives)
+   and with textures of a user's size (textures_1k),
    against the same geometry untextured, with no divergent lane;
 4. per-launch times of the kernels and of the plain version at that size
    (the traversal queries on both terrains and the wide kernels on
    terrain_405 at bounces 0 and 1; the dense kernels and the draw kernel on
-   flagship; the kProg kernels on textures and textures_512 beside the
+   flagship; the kProg kernels on textures, textures_512 and textures_1k
+   (with texture taps per lane) beside the
    simple ones on untextured; on fractal.lua the march passes and the bounce and NEE kernels
    apart at bounces 0 and 1, and the march query with its issue-based bound
    from the SASS of one estimator iteration), with the work the plain
@@ -82,7 +84,9 @@ The last line is one JSON object {"ok": true, "device": {...}}; the line
 before it lists each kernel's launches, error, times and bound.
 
 ``python3 chip_smoke.py --rows`` instead runs phase 4's measurements of the
-dense bounce and NEE kernels alone (measure_rows).
+dense bounce and NEE kernels alone (measure_rows), ``--prog`` those of the
+kProg instantiations, with builds of csrc/bounce.cu that each remove or
+move one cost (measure_prog).
 ``python3 chip_smoke.py --walls`` instead runs ``--profile``'s flagship
 renders alone (one-shot and regeneration walls).
 ``python3 chip_smoke.py --profile`` instead renders the main-path scenes
@@ -566,27 +570,31 @@ def _tiles_obj(cols, rows):
     return "\n".join(lines) + "\n"
 
 
-def write_texture_images(directory, seed=3):
+def write_texture_images(directory, seed=3, size=None):
     """The textures scene's images, written with the port's PNG writer
     (film.save_png) from a numpy seed, none square and none a power of two:
     checker.png 37 x 23 (sRGB colours), bumps.png 29 x 41 (a linear normal
     map around (0.5, 0.5, 1)), mask.png 19 x 13, sky.png 11 x 7 and lamp.png
-    23 x 17 (read as mono or colour)."""
+    23 x 17 (read as mono or colour). With ``size`` the checker and the
+    normal map are size x size and the mask size / 2 on a side, as a user's
+    textures are."""
     import numpy as np
 
     from pyrite_tpu_torch.film import save_png
 
     rng = np.random.default_rng(seed)
-    y, x = np.mgrid[0:23, 0:37]
+    (ch, cw), (bh, bw), (mh, mw) = ((size, size), (size, size), (size // 2, size // 2)) if size \
+        else ((23, 37), (41, 29), (13, 19))
+    y, x = np.mgrid[0:ch, 0:cw]
     checker = np.where(((x // 4 + y // 3) % 2)[..., None] == 1, [200, 60, 40], [40, 90, 200])
-    checker = checker + rng.integers(0, 40, (23, 37, 3))
-    bumps = np.empty((41, 29, 3))
-    bumps[..., :2] = 0.5 + 0.35 * rng.uniform(-1, 1, (41, 29, 2))
+    checker = checker + rng.integers(0, 40, (ch, cw, 3))
+    bumps = np.empty((bh, bw, 3))
+    bumps[..., :2] = 0.5 + 0.35 * rng.uniform(-1, 1, (bh, bw, 2))
     bumps[..., 2] = 1.0
     images = {
         "checker.png": checker,
         "bumps.png": bumps * 255,
-        "mask.png": rng.integers(0, 256, (13, 19, 1)).repeat(3, axis=2),
+        "mask.png": rng.integers(0, 256, (mh, mw, 1)).repeat(3, axis=2),
         "sky.png": rng.integers(0, 256, (7, 11, 3)),
         "lamp.png": 128 + rng.integers(0, 128, (17, 23, 3)),
     }
@@ -595,7 +603,8 @@ def write_texture_images(directory, seed=3):
 
 
 def write_textures_scene(directory, width=64, height=48, spectrum_samples=4, bounces=4, spp=64,
-                         renderer="simple", light_bounces=4, textured=True, tiles=(3, 2)):
+                         renderer="simple", light_bounces=4, textured=True, tiles=(3, 2),
+                         texture_size=None):
     """The textures class of the reference's golden scenes (SURVEY.md
     section 6: bicubic colour and normal maps with texture_scale): a plane
     with texture_scale = 5, a colour texture and the reference's normal-map
@@ -606,18 +615,21 @@ def write_textures_scene(directory, width=64, height=48, spectrum_samples=4, bou
     False the same geometry with constants in place of every expression
     that reads the ray (UNTEXTURED). ``tiles`` sets the OBJ's grid of
     quads: (3, 2) gives 12 triangles, a dense scene of 15 primitives;
-    (16, 16) 512, which the wide BVH takes. Returns the .lua path."""
+    (16, 16) 512, which the wide BVH takes. ``texture_size`` (a multiple of
+    1024) writes write_texture_images' large images, and "_1k" (or "_2k",
+    ...) ends the name. Returns the .lua path."""
     os.makedirs(directory, exist_ok=True)
     cols, rows = tiles
     obj = f"tiles_{cols}x{rows}.obj"
     with open(os.path.join(directory, obj), "w") as fh:
         fh.write(_tiles_obj(cols, rows))
-    write_texture_images(directory)
+    write_texture_images(directory, size=texture_size)
     extra = f"\n        light_bounces = {light_bounces}," if renderer == "bidirectional" else ""
     values = dict(TEXTURED if textured else UNTEXTURED, w=width, h=height, s=spectrum_samples,
                   b=bounces, spp=spp, renderer=renderer, extra=extra, obj=obj)
     name = ("textures" if textured else "untextured") + ("_bdpt" if renderer != "simple" else "") + (
-        "" if tiles == (3, 2) else f"_{2 * cols * rows}")
+        "" if tiles == (3, 2) else f"_{2 * cols * rows}") + (
+        f"_{texture_size // 1024}k" if texture_size else "")
     path = os.path.join(directory, f"{name}.lua")
     with open(path, "w") as fh:
         fh.write(TEXTURES_SCENE % values)
@@ -679,8 +691,10 @@ def texture_paths(directory):
     the CLI renders them: textures (256 x 192, S = 6, 4 bounces, 15
     primitives: the dense kProg kernels), untextured (its geometry with
     constants), textures_512 (512 tiles on the wall: the wide kProg
-    kernels), and textures_bdpt and its untextured twin untextured_bdpt
-    (bidirectional, 4 + 4 bounces, at flagship_bdpt's 512 x 256, S = 6:
+    kernels), textures_1k (a 1024 x 1024 checker and normal map and a 512 x
+    512 mask, in a directory of its own), and textures_bdpt and its
+    untextured twin untextured_bdpt (bidirectional, 4 + 4 bounces, at
+    flagship_bdpt's 512 x 256, S = 6:
     chunks of 131,072 lanes, one a sample). Returns {name: .lua path}."""
     size = dict(width=256, height=192, spectrum_samples=6, bounces=4, spp=16)
     bdpt = dict(width=512, height=256, spectrum_samples=6, bounces=4, spp=2,
@@ -689,6 +703,8 @@ def texture_paths(directory):
         "textures": write_textures_scene(directory, **size),
         "untextured": write_textures_scene(directory, **size, textured=False),
         "textures_512": write_textures_scene(directory, **size, tiles=(16, 16)),
+        "textures_1k": write_textures_scene(os.path.join(directory, "1k"), **size,
+                                            texture_size=1024),
         "textures_bdpt": write_textures_scene(directory, **bdpt),
         "untextured_bdpt": write_textures_scene(directory, **bdpt, textured=False),
     }
@@ -1046,32 +1062,56 @@ def _program_bytes(scene):
                                        "tex_info")))
 
 
-def _leaf_bytes(scene, group, ids):
-    """Bytes of leaf values that the code of ``group``'s programs ``ids``
-    (a tensor; -1 or out of range: no program) reads at one spectral column:
-    4 a number leaf, 16 a 4-vector leaf or Burns' basis, each leaf once; 0
-    for a program that runs no code (its values come per launch)."""
+def _per_program(scene, group, ids, values):
+    """``values`` [programs] (by KernelPrograms' numbering) at ``group``'s
+    programs ``ids`` (a tensor; -1 or out of range: no program, 0)."""
     import torch
 
+    programs = scene.dense_pack["programs"]
+    table = torch.tensor(list(values) + [0], device=ids.device)
+    count = programs.counts[("prob", "color", "normal", "sky").index(group)]
+    ok = (ids >= 0) & (ids < count)
+    return table[torch.where(ok, programs.index(group, 0) + ids, len(table) - 1)]
+
+
+def _leaf_bytes(scene, group, ids, cols=1):
+    """Bytes of leaf values that the code of ``group``'s programs ``ids``
+    reads at ``cols`` spectral columns: per column 4 a number leaf, 16 a
+    4-vector leaf or Burns' basis, each leaf once; 0 for a program that
+    runs no code (its values come per launch)."""
     from pyrite_tpu_torch import exprs
 
     programs = scene.dense_pack["programs"]
     width = {exprs.OP_LEAF: 4, exprs.OP_LEAF4: 16, exprs.OP_TO_NUMBER: 16}
     cell = [sum(w for _, w in {(arg, width[op]) for op, _, arg in programs.program_code(g)
                                if op in width}) for g in range(len(programs.off) - 1)]
-    cell = torch.tensor(cell + [0], device=ids.device)
-    count = programs.counts[("prob", "color", "normal", "sky").index(group)]
-    ok = (ids >= 0) & (ids < count)
-    return cell[torch.where(ok, programs.index(group, 0) + ids, len(cell) - 1)]
+    return cols * _per_program(scene, group, ids, cell)
 
 
-def _surface_leaf_bytes(scene, cfg, wl, state, u_comp, color=True):
-    """Leaf bytes a kProg bounce (``color``) or lamp bounce reads for the
-    alive lanes of ``state``, per the program each lane runs: at a hit its
+def _taps(scene, group, ids, cols=1, split=True):
+    """Texture taps that ``group``'s programs ``ids`` take at ``cols``
+    spectral columns: 16 a texture node of the lane code, 16 a node and
+    column of the column code (exprs.KernelPrograms.parts); with ``split``
+    False (or on a checkout from before the split, whose programs have no
+    parts) the kernels' one stream of code at every column."""
+    from pyrite_tpu_torch import exprs
+
+    programs = scene.dense_pack["programs"]
+    tex = lambda code: 16 * sum(op in (exprs.OP_TEX_COLOR, exprs.OP_TEX_MONO) for op, _, _ in code)
+    parts = getattr(programs, "parts", None) if split else None
+    g_all = range(len(programs.off) - 1)
+    parts = parts or [([], programs.program_code(g)) for g in g_all]
+    return (_per_program(scene, group, ids, [tex(parts[g][0]) for g in g_all])
+            + cols * _per_program(scene, group, ids, [tex(parts[g][1]) for g in g_all]))
+
+
+def _surface_cost(scene, cfg, wl, state, u_comp, cost, color=True):
+    """Per lane of ``state``, ``cost(group, ids, cols)`` of the programs a
+    kProg bounce (``color``) or lamp bounce runs for it: at a hit its
     material's normal program and its picked component's probability
     program (one column each) and, with ``color``, the component's color
     program (S columns); at a miss the sky program (S columns; the lamp
-    bounce reads none)."""
+    bounce runs none); 0 for a dead lane."""
     import torch
 
     from pyrite_tpu_torch import tracer
@@ -1084,21 +1124,28 @@ def _surface_leaf_bytes(scene, cfg, wl, state, u_comp, color=True):
     _, mat, _, _ = tracer._shading_normal(scene, hit, o, d, wl)
     count = torch.clamp(a["mat_comp_count"][mat].long(), min=1)
     comp = a["mat_comp_offset"][mat].long() + torch.minimum((u_comp * count).long(), count - 1)
-    per_hit = (_leaf_bytes(scene, "normal", a["mat_normal_prog"][mat].long())
-               + _leaf_bytes(scene, "prob", a["comp_prob"][comp].long()))
-    total = int(per_hit[found].sum())
+    per_hit = (cost("normal", a["mat_normal_prog"][mat].long(), 1)
+               + cost("prob", a["comp_prob"][comp].long(), 1))
+    per_miss = torch.zeros_like(per_hit)
     if color:
-        total += s * int(_leaf_bytes(scene, "color", a["comp_color"][comp].long())[found].sum())
-        sky = _leaf_bytes(scene, "sky", torch.zeros(1, dtype=torch.long, device=o.device))
-        total += s * int(sky) * int((alive & ~found).sum())
-    return total
+        per_hit = per_hit + cost("color", a["comp_color"][comp].long(), s)
+        per_miss = per_miss + cost("sky", torch.zeros_like(comp), s)
+    return torch.where(found, per_hit, torch.where(alive, per_miss, 0))
 
 
-def _nee_leaf_bytes(scene, cfg, wl, out, ctx, draws):
-    """Leaf bytes the kProg NEE kernel reads: per shadow ray cast and not
-    blocked, its emitter's probability program (one column, a shape lamp's)
-    and color program (S columns, one on a lane whose auxiliary columns
-    are dead or dispersed), as nee_lane reads them."""
+def _surface_leaf_bytes(scene, cfg, wl, state, u_comp, color=True):
+    """Leaf bytes a kProg bounce (``color``) or lamp bounce reads for the
+    alive lanes of ``state`` (_surface_cost)."""
+    cost = lambda group, ids, cols: _leaf_bytes(scene, group, ids, cols)
+    return int(_surface_cost(scene, cfg, wl, state, u_comp, cost, color).sum())
+
+
+def _nee_cost(scene, cfg, wl, out, ctx, draws, cost):
+    """Per NEE lane, ``cost(group, ids, cols)`` of the programs the kProg
+    NEE kernel runs: per shadow ray cast and not blocked, its emitter's
+    probability program (one column, a shape lamp's) and color program (S
+    columns, one on a lane whose auxiliary columns are dead or dispersed),
+    as nee_lane runs them."""
     import torch
 
     from pyrite_tpu_torch import geometry as geom, tracer
@@ -1107,7 +1154,7 @@ def _nee_leaf_bytes(scene, cfg, wl, out, ctx, draws):
     s = wl.shape[1]
     nee = torch.nonzero(ctx["nee"])[:, 0]
     p, flip, aux = out["origin"][nee], ctx["flip"][nee], out["aux_alive"][nee]
-    total = 0
+    total = torch.zeros(nee.numel(), dtype=torch.long, device=p.device)
     for j in range(cfg.light_samples):
         samp = tracer.sample_lamp(scene, draws["lamp_idx"].long()[nee], p, draws["u_nee"][j][nee])
         sq = samp["sq_distance"]
@@ -1120,9 +1167,30 @@ def _nee_leaf_bytes(scene, cfg, wl, out, ctx, draws):
         prob = torch.where(shape, a["comp_prob"][e_comp].long(), -1)
         color = torch.where(shape, a["comp_color"][e_comp].long(), samp["color_prog"])
         cols = torch.where(aux & ~(shape & a["comp_prob_uses_wl"][e_comp]), s, 1)
-        per = _leaf_bytes(scene, "prob", prob) + cols * _leaf_bytes(scene, "color", color)
-        total += int(per[lit].sum())
+        total += torch.where(lit, cost("prob", prob, 1) + cost("color", color, cols), 0)
     return total
+
+
+def _nee_leaf_bytes(scene, cfg, wl, out, ctx, draws):
+    """Leaf bytes the kProg NEE kernel reads (_nee_cost)."""
+    cost = lambda group, ids, cols: _leaf_bytes(scene, group, ids, cols)
+    return int(_nee_cost(scene, cfg, wl, out, ctx, draws, cost).sum())
+
+
+def _print_taps(path, bounce_name, nee_name, scene, cfg, wl, state, draws, out, ctx):
+    """Texture taps per lane of the kProg bounce (alive lanes) and NEE
+    kernels (NEE lanes; _taps): mean and most, in the kernels' two-part form
+    and as one stream at every column."""
+    found = {}
+    for split in (True, False):
+        cost = lambda group, ids, cols: _taps(scene, group, ids, cols, split)
+        b = _surface_cost(scene, cfg, wl, state, draws["u_comp"], cost)[state["alive"]]
+        n = _nee_cost(scene, cfg, wl, out, ctx, draws, cost)
+        found[split] = [(float(x.float().mean()) if x.numel() else 0.0,
+                         int(x.max()) if x.numel() else 0) for x in (b, n)]
+    print(f"[taps] {os.path.basename(path)}: texture taps per lane (mean, most): {bounce_name} "
+          f"{found[True][0]} two-part form, {found[False][0]} one stream at every column; "
+          f"{nee_name} {found[True][1]}, one stream {found[False][1]}")
 
 
 def _work_ops(scene, work, lanes=0, per_lane=0):
@@ -1278,6 +1346,7 @@ def time_kernels(path, card, seed=1, plain_reps=10, bounce=0):
             *(a[k] for k in ("tri_q", "tri_uv", "sph_texscale", "pla_quat", "pla_texscale"))
         ) + _surface_leaf_bytes(scene, cfg, wl, state, draws["u_comp"])
         n_bytes += _program_bytes(scene) + _nee_leaf_bytes(scene, cfg, wl, out, ctx, draws)
+        _print_taps(path, bounce_name, nee_name, scene, cfg, wl, state, draws, out, ctx)
     lanes, shadows = _kernel_rays(scene, cfg, state, draws, out, ctx)
     b_work = _counted(lambda: tracer.bounce_core(
         scene, cfg_no_nee, wl[lanes], {k: v[lanes] for k, v in state.items()},
@@ -2085,19 +2154,22 @@ def time_copy_probes(path, card, seed=1, bounce=0):
 
 def print_occupancy(s):
     """Resident blocks of 128 threads per SM of the bounce and NEE kernels'
-    instantiations at S spectral columns (pyrite_bounce_occupancy)."""
+    instantiations at S spectral columns (pyrite_bounce_occupancy; the
+    kProg ones "n/a" in a checkout whose query does not give them)."""
     import ctypes
 
     from pyrite_tpu_torch import _build
 
-    blocks = (ctypes.c_int * 8)()
+    blocks = (ctypes.c_int * 12)(*([-1] * 12))
     rc = _build.load().pyrite_bounce_occupancy(s, blocks)
     assert rc == 0, f"pyrite_bounce_occupancy: cudaError {rc}"
     names = [f"{k}<{v}>" for k in ("dense_bounce_kernel", "dense_nee_kernel", "wide_bounce_kernel",
-                                    "wide_nee_kernel") for v in ("false", "true")]
+                                    "wide_nee_kernel") for v in ("false", "true")] + [
+        f"{k}<false><prog>" for k in ("dense_bounce_kernel", "dense_nee_kernel",
+                                      "wide_bounce_kernel", "wide_nee_kernel")]
     found = dict(zip(names, list(blocks)))
     print(f"[occupancy] S={s}: resident blocks of 128 threads per SM (warps per SM, of 64): " +
-          "; ".join(f"{k} {b} ({4 * b})" for k, b in found.items()))
+          "; ".join(f"{k} {b} ({4 * b})" if b >= 0 else f"{k} n/a" for k, b in found.items()))
     return found
 
 
@@ -2700,7 +2772,7 @@ def _once_ms(fn):
     return (time.perf_counter() - started) * 1e3
 
 
-def time_bdpt(checked, card):
+def time_bdpt(checked, card, variant=None):
     """Phase 4 for the bidirectional renderer's kernels on one scene
     (check_bdpt's result on a dense scene): per-launch ms of A (the bounce
     kernel's kRecord instantiation at camera bounce 0, against
@@ -2711,7 +2783,9 @@ def time_bdpt(checked, card):
     time_kernels times the bounce kernel (the plain versions once each:
     their DE march takes seconds a call); with the bytes each must move and
     the FP32 operations its rays need (the marches out of them). Returns
-    {name: (kernel ms, plain ms, bytes, operations)}."""
+    {name: (kernel ms, plain ms, bytes, operations)}. With ``variant``, a
+    (name, library) of build_variants, the kernels of that library alone:
+    {name: ms}."""
     import dataclasses
 
     import torch
@@ -2720,7 +2794,7 @@ def time_bdpt(checked, card):
 
     scene, cfg, lamp_cfg, wl, bank = checked["setup"]
     n, s_count = wl.shape
-    lib = _build.load()
+    lib = variant[1] if variant else _build.load()
     de = bool(scene.de_shapes)
     cam, cam_draws = checked["timed"]["record"]
     lamp, lamp_draws = checked["timed"]["lamp"]
@@ -2760,10 +2834,17 @@ def time_bdpt(checked, card):
             runs[key]()
         torch.cuda.synchronize()
         k1, k2 = _event_ms(runs[key], 50), _event_ms(runs[key], 50)
+        if variant:
+            times[key] = (k1 + k2) / 2
+            print(f"[prog] variant {variant[0]} bdpt {key}: {k1:.4f} / {k2:.4f} ms per launch, {n} "
+                  f"lanes ({card})")
+            continue
         plain_ms = _once_ms(plains[key])
         times[key] = ((k1 + k2) / 2, plain_ms)
         print(f"[times] {key}: kernel {k1:.4f} / {k2:.4f} ms, plain {plain_ms:.4f} ms (one call) per "
               f"launch, {n} lanes, S={s_count} ({card})")
+    if variant:
+        return times
     alive_cam = torch.nonzero(cam["alive"])[:, 0]
     alive_lamp = torch.nonzero(lamp["alive"])[:, 0]
     live = torch.nonzero(batch[4])[:, 0]
@@ -3090,28 +3171,36 @@ KERNEL_NAMES = ("dense_bounce_kernel", "dense_nee_kernel", "wide_bounce_kernel",
                 "wide_lamp_kernel", "dense_shadow_kernel", "program_colors_kernel")
 
 
+def _kernel_label(mangled):
+    """A kernel's name from its mangled one: the bounce, NEE and lamp
+    kernels as name<true> / name<false> (kDE), with <record> and <prog>
+    after it for their kRecord and kProg instantiations; None for a function
+    that is none of KERNEL_NAMES."""
+    name = next((k for k in KERNEL_NAMES if k in mangled), None)
+    if name is None:
+        return None
+    flags = re.search(r"I((?:Lb[01]E)+)E", mangled)
+    if flags:  # <kDE>, the bounce kernels' kRecord, then kProg
+        bits = re.findall(r"Lb([01])E", flags.group(1))
+        name += "<true>" if bits[0] == "1" else "<false>"
+        record, prog = (bits[1:2], bits[2:]) if "bounce" in name else ([], bits[1:])
+        name += ("<record>" if record == ["1"] else "") + ("<prog>" if prog == ["1"] else "")
+    tags = {"QueryShadowRays": "<query shadow>", "QueryRays": "<query>",
+            "BounceRays": "<bounce>", "ShadowRays": "<shadow>"}
+    return name + next((tag for t, tag in tags.items() if t in mangled), "")
+
+
 def kernel_registers(log):
     """{kernel: (registers, spill store bytes, spill load bytes)} from the
-    ptxas -v report in a build log (_build.build_log), the bounce, NEE and
-    lamp kernels as name<true> / name<false> (kDE), with <record> and <prog>
-    after it for their kRecord and kProg instantiations."""
+    ptxas -v report in a build log (_build.build_log), named by
+    _kernel_label."""
     found = {}
     for chunk in log.split("Compiling entry function")[1:]:
-        mangled = chunk.split("'")[1]
-        name = next((k for k in KERNEL_NAMES if k in mangled), None)
+        name = _kernel_label(chunk.split("'")[1])
         used = re.search(r"Used (\d+) registers", chunk)
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", chunk)
         if name is None or used is None:
             continue
-        flags = re.search(r"I((?:Lb[01]E)+)E", mangled)
-        if flags:  # <kDE>, the bounce kernels' kRecord, then kProg
-            bits = re.findall(r"Lb([01])E", flags.group(1))
-            name += "<true>" if bits[0] == "1" else "<false>"
-            record, prog = (bits[1:2], bits[2:]) if "bounce" in name else ([], bits[1:])
-            name += ("<record>" if record == ["1"] else "") + ("<prog>" if prog == ["1"] else "")
-        tags = {"QueryShadowRays": "<query shadow>", "QueryRays": "<query>",
-                "BounceRays": "<bounce>", "ShadowRays": "<shadow>"}
-        name += next((tag for t, tag in tags.items() if t in mangled), "")
         stores, loads = (int(x) for x in spill.groups()) if spill else (0, 0)
         found[name] = (int(used.group(1)), stores, loads)
     return found
@@ -3248,6 +3337,262 @@ def profile_bdpt(card, runs=5):
                       f"{e.key[:60]} {own(e) / 1e3:.3f} ms ({e.count}x)" for e in top))
 
 
+# Variants of csrc/bounce.cu for --prog (measure_prog), each removing or
+# moving one cost of the kProg instantiations' program evaluation. A
+# variant is a list of alternative edits, the first whose anchors are all in
+# the source applying (this tree's two-part interpreter, eval_program, or a
+# checkout's from before it, eval_code); an edit is (anchor, the text that
+# replaces it), anchor None appending the text. "no_taps": every texture
+# sample a constant, no tap read (what all the texture work costs);
+# "stack_moved": the interpreter's stack from shared to local memory, or
+# from local to shared; "scalar_taps": a colour tap as four scalar loads,
+# not one float4; "min_blocks_<b>": every kernel's __launch_bounds__ asking
+# for b resident blocks of 128 threads (a register cap of 65,536 / 128 b;
+# dense_nee_kernel<prog> keeps its own); "nee_uncapped": that kernel
+# without its request for 6 blocks;
+# "row_loop": a texture sample's four rows of taps one after another in a
+# loop the compiler does not unroll (4 loads in flight, not 16);
+# "inline_flipped": this tree's inlined interpreter made a called function,
+# or a checkout's called one inlined at each call; "no_sphere_frames":
+# a sphere hit's or lamp sample's frame and uv without their libm calls
+# (acos, atan2, sin, cos: what they cost); "counted": the
+# active lanes of every warp-instruction of the interpreter's loop summed
+# (__activemask), for its SIMT efficiency.
+_SHARED_STACK = """struct SharedStack {
+  float4* at;
+  __device__ __forceinline__ float4& operator[](int i) const { return at[i * BLOCK]; }
+};
+
+"""
+_COUNT_SRC = """
+// prog_lanes: the active lanes summed over the interpreter's
+// warp-instructions, and those warp-instructions
+__device__ unsigned long long prog_lanes[2];
+__device__ __forceinline__ void prog_count() {
+  const unsigned m = __activemask();
+  if ((threadIdx.x & 31) == __ffs(m) - 1) {
+    atomicAdd(&prog_lanes[0], (unsigned long long)__popc(m));
+    atomicAdd(&prog_lanes[1], 1ull);
+  }
+}
+"""
+_COUNT_READ = """
+extern "C" int prog_lanes_read(unsigned long long* out) {
+  const unsigned long long zero[2] = {0, 0};
+  cudaError_t e = cudaDeviceSynchronize();
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(out, prog_lanes, sizeof(zero));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(prog_lanes, zero, sizeof(zero));
+  return (int)e;
+}
+"""
+_TAP_ROWS = """  float4 rows[4];
+  for (int r = 0; r < 4; ++r) {
+    float4 taps[4];
+    for (int c = 0; c < 4; ++c) {
+      const float* p = pa.tex + off + ((size_t)ys[r] * width + xs[c]) * channels;
+      taps[c] = channels == 1 ? f4(__ldg(p)) : __ldg(reinterpret_cast<const float4*>(p));
+    }
+    rows[r] = cubic(taps[0], taps[1], taps[2], taps[3], tx);
+  }
+  return cubic(rows[0], rows[1], rows[2], rows[3], ty);
+"""
+_TAP_ROW_LOOP = """  float4 r0, r1, r2, r3;
+#pragma unroll 1
+  for (int r = 0; r < 4; ++r) {
+    const int y = r == 0 ? ys[0] : r == 1 ? ys[1] : r == 2 ? ys[2] : ys[3];
+    float4 taps[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float* p = pa.tex + off + ((size_t)y * width + xs[c]) * channels;
+      taps[c] = channels == 1 ? f4(__ldg(p)) : __ldg(reinterpret_cast<const float4*>(p));
+    }
+    const float4 row = cubic(taps[0], taps[1], taps[2], taps[3], tx);
+    if (r == 0) r0 = row; else if (r == 1) r1 = row; else if (r == 2) r2 = row; else r3 = row;
+  }
+  return cubic(r0, r1, r2, r3, ty);
+"""
+_SPHERE_FRAME = "__device__ void sphere_frame(V3 n, float su, float sv, float4& q, float& u, float& v) {\n"
+_TEXTURE_FN = "__device__ float4 sample_texture(const ProgArgs& pa, int t, float u, float v) {\n"
+_FETCH = "const int op = pr.code_op[i], arg = pa.arg[i];"
+PROG_VARIANTS = {
+    "no_taps": [[(_TEXTURE_FN, _TEXTURE_FN + "  return f4(0.5f);\n")]],
+    "stack_moved": [
+        [("return at[i * BLOCK];", "return at[i];"),
+         ("  __shared__ float4 stack[PROG_STACK * BLOCK];\n  const ProgStack st = {stack + threadIdx.x};\n",
+          "  float4 stack[PROG_STACK];\n  const ProgStack st = {stack};\n")],
+        [("  float4 st[PROG_STACK];\n  int sp = 0;\n",
+          "  __shared__ float4 st_shared[PROG_STACK * BLOCK];\n"
+          "  const SharedStack st = {st_shared + threadIdx.x};\n  int sp = 0;\n"),
+         ("__device__ __noinline__ float4 eval_code(",
+          _SHARED_STACK + "__device__ __noinline__ float4 eval_code(")]],
+    "scalar_taps": [[("__ldg(reinterpret_cast<const float4*>(p))",
+                      "make_float4(p[0], p[1], p[2], p[3])")]],
+    **{f"min_blocks_{b}": [[("__launch_bounds__(BLOCK)", f"__launch_bounds__(BLOCK, {b})")]]
+       for b in (5, 6)},
+    "nee_uncapped": [[("__launch_bounds__(BLOCK, 6)", "__launch_bounds__(BLOCK)")]],
+    "row_loop": [[(_TAP_ROWS, _TAP_ROW_LOOP)]],
+    "inline_flipped": [
+        [("__device__ __forceinline__ float4 eval_program(",
+          "__device__ __noinline__ float4 eval_program(")],
+        [("__device__ __noinline__ float4 eval_code(", "__device__ __forceinline__ float4 eval_code(")]],
+    "no_sphere_frames": [[(_SPHERE_FRAME, _SPHERE_FRAME + "  q = make_float4(1.0f, 0.0f, 0.0f, 0.0f);\n"
+                                          "  u = n.x;\n  v = n.y;\n  return;\n")]],
+    "counted": [[(_FETCH, _FETCH + " prog_count();"),
+                 ('#include "wide_bvh.cuh"\n', '#include "wide_bvh.cuh"\n' + _COUNT_SRC),
+                 (None, _COUNT_READ)]],
+}
+
+
+def build_variants(tmp):
+    """PROG_VARIANTS built from edited copies of csrc/ under ``tmp``, with
+    the library's flags (one nvcc per .cu of every variant, all at once,
+    then a link each). Returns {name: (loaded library, build log)}; a
+    variant none of whose edits applies to this checkout is skipped."""
+    import ctypes
+    import glob
+    import shutil
+
+    from pyrite_tpu_torch import _build
+
+    nvcc = _build.find_nvcc()
+    with open(os.path.join(_build.CSRC, "bounce.cu")) as fh:
+        source = fh.read()
+    jobs = []
+    for name, alternatives in PROG_VARIANTS.items():
+        edits = next((e for e in alternatives if all(a is None or a in source for a, _ in e)), None)
+        if edits is None:
+            print(f"[prog] variant {name}: no edit applies to this checkout")
+            continue
+        src = source
+        for anchor, text in edits:
+            src = src + text if anchor is None else src.replace(anchor, text)
+        root = os.path.join(tmp, name)
+        shutil.copytree(_build.CSRC, os.path.join(root, "csrc"))
+        with open(os.path.join(root, "csrc", "bounce.cu"), "w") as fh:
+            fh.write(src)
+        units = sorted(glob.glob(os.path.join(root, "csrc", "*.cu")))
+        objs = [u + ".o" for u in units]
+        procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", "-o", o, u], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for u, o in zip(units, objs)]
+        jobs.append((name, root, objs, procs))
+    libs = {}
+    for name, root, objs, procs in jobs:
+        log = "\n".join(p.communicate(timeout=600)[0] for p in procs)
+        assert all(p.returncode == 0 for p in procs), f"variant {name}: nvcc failed\n{log}"
+        so = os.path.join(root, "lib.so")
+        subprocess.run([nvcc, *_build.NVCC_FLAGS, "-shared", "-o", so, *objs], check=True,
+                       capture_output=True, text=True, timeout=300)
+        lib = ctypes.CDLL(so)
+        for fn, argtypes in _build._SIGNATURES.items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = ctypes.c_int
+        libs[name] = (lib, log)
+    return libs
+
+
+def time_prog_kernels(path, lib, card, what, seed=1):
+    """The scene's bounce and NEE kernels through ``lib`` at bounce 0 of
+    the main path's wavefront: ms per launch (two windows of 50 after a
+    warm-up) or, with a "counted" variant's library, one launch each and
+    the interpreter's SIMT efficiency (active lanes over 32 per
+    warp-instruction). Returns {name: ms or (lanes, warp-instructions)}."""
+    import ctypes
+
+    import torch
+
+    from pyrite_tpu_torch import kernels_dense as kd
+
+    scene, cfg, wl, state, draws = _bounce_inputs(path, seed, 0)
+    bank = kd.precompute_bank_values(scene, wl)
+    bounce_name, nee_name = kd.kernel_names(scene)
+    b_args, out, ctx = kd.bounce_kernel_args(scene, cfg, wl, state, draws, bank)
+    runs = {bounce_name: lambda: getattr(lib, kd._LAUNCHERS[bounce_name])(*b_args)}
+    assert runs[bounce_name]() == 0, f"{bounce_name}: launch failed"
+    n_args = kd.nee_kernel_args(scene, cfg, wl, out, ctx, draws, bank)
+    runs[nee_name] = lambda: getattr(lib, kd._LAUNCHERS[nee_name])(*n_args)
+    counted = hasattr(lib, "prog_lanes_read")
+    found = {}
+    for name, run in runs.items():
+        if counted:
+            counts = (ctypes.c_ulonglong * 2)()
+            assert lib.prog_lanes_read(ctypes.byref(counts)) == 0
+            assert run() == 0
+            assert lib.prog_lanes_read(ctypes.byref(counts)) == 0
+            found[name] = (counts[0], counts[1])
+            print(f"[prog] {what} {os.path.basename(path)} {name}: interpreter warp-instructions "
+                  f"{counts[1]}, active lanes {counts[0]}, SIMT efficiency "
+                  f"{counts[0] / max(32 * counts[1], 1):.4f} ({card})")
+            continue
+        for _ in range(2):
+            assert run() == 0, f"{name}: launch failed"
+        torch.cuda.synchronize()
+        k1, k2 = _event_ms(run, 50), _event_ms(run, 50)
+        found[name] = (k1 + k2) / 2
+        print(f"[prog] {what} {os.path.basename(path)} {name}: {k1:.4f} / {k2:.4f} ms per launch at "
+              f"bounce 0, {wl.shape[0]} lanes ({card})")
+    return found
+
+
+def print_local_memory():
+    """LDL / STL (local-memory loads and stores) in the library's SASS
+    (cuobjdump -sass): in its program interpreter (a function named
+    eval_code or eval_program, where the compiler keeps it apart) and in
+    each kProg kernel, whose count includes the interpreter's where it is
+    compiled into the kernel."""
+    from pyrite_tpu_torch import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", _build.library_path()], check=True,
+                          capture_output=True, text=True, timeout=300).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        head = re.match(r"\s*Function : (\S+)", line)
+        if head:
+            name = head.group(1)
+            counts.setdefault(name, [0, 0])
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if name and op and op.group(1)[:3] in ("LDL", "STL"):
+            counts[name][op.group(1)[:3] == "STL"] += 1
+    interp = {k: v for k, v in counts.items() if "eval_code" in k or "eval_program" in k}
+    kernels = {_kernel_label(k): v for k, v in counts.items()
+               if (_kernel_label(k) or "").endswith("<prog>")}
+    print("[prog] LDL / STL in the SASS: interpreter " + (
+        "; ".join(f"{k[:60]} {v[0]} / {v[1]}" for k, v in interp.items()) or "none apart") +
+          "; kProg kernels " + "; ".join(f"{k} {v[0]} / {v[1]}" for k, v in sorted(kernels.items())))
+
+
+def measure_prog(card):
+    """``--prog``: the kProg instantiations alone. Their registers and
+    spills (after the build), occupancy, local-memory instructions and, on
+    the textures scenes of texture_paths at bounce 0, the bounce and NEE
+    kernels' times with their bounds and taps per lane (time_kernels) beside
+    the untextured instantiations; A, B and program_colors_kernel on
+    textures_bdpt (time_bdpt); then each PROG_VARIANTS build on textures
+    and textures_1k (times, registers; the counted variant's SIMT
+    efficiency). Copied into a parent's checkout, it measures the parent
+    the same way."""
+    print_occupancy(6)
+    print_local_memory()
+    with tempfile.TemporaryDirectory() as tmp:
+        tex = texture_paths(os.path.join(tmp, "textures"))
+        started = time.perf_counter()
+        variants = build_variants(tmp)
+        print(f"[prog] variants {sorted(variants)} built in {time.perf_counter() - started:.1f} s")
+        for name in ("textures", "textures_512", "textures_1k", "untextured"):
+            time_kernels(tex[name], card, plain_reps=1)
+        checked = check_bdpt("textures_bdpt", tex["textures_bdpt"])
+        time_bdpt(checked, card)
+        for variant, (lib, log) in variants.items():
+            print(f"[prog] variant {variant}: registers and spill stores / loads " + "; ".join(
+                f"{k} {r}, {st}/{ld} B" for k, (r, st, ld) in sorted(kernel_registers(log).items())
+                if k.endswith("<prog>")))
+            for name in ("textures", "textures_1k"):
+                time_prog_kernels(tex[name], lib, card, f"variant {variant}")
+            if not hasattr(lib, "prog_lanes_read"):
+                time_bdpt(checked, card, (variant, lib))
+
+
 def measure_rows(flagship, fractal, card):
     """Phase 4 for the dense bounce and NEE kernels (rows 1-2 of PERF.md's
     table): their occupancy at flagship's S and fractal.lua's, the copy
@@ -3296,6 +3641,9 @@ def main(argv=None):
         return 0
     if argv == ["--walls"]:
         profile_renders(smi, flagship_only=True)
+        return 0
+    if argv == ["--prog"]:
+        measure_prog(smi)
         return 0
     if argv == ["--rows"]:
         with tempfile.TemporaryDirectory() as tmp:
@@ -3351,12 +3699,13 @@ def main(argv=None):
         tex_started = time.perf_counter()
         tex = texture_paths(os.path.join(tmp, "textures"))
         tex_worst = {name: check_kernels(name, tex[name]) for name in (
-            "textures", "untextured", "textures_512")}
+            "textures", "untextured", "textures_512", "textures_1k")}
         divergent = {k: (w["divergent"], w["nee_divergent"]) for k, w in tex_worst.items()
                      if w["divergent"] or w["nee_divergent"]}
         assert not divergent, f"the bounce or NEE kernel diverges from the plain version: {divergent}"
         for name in ("textures", "textures_512"):
             times.update(time_kernels(tex[name], smi, plain_reps=2))
+        time_kernels(tex["textures_1k"], smi, plain_reps=1)  # printed: textures of a user's size
         time_kernels(tex["untextured"], smi, plain_reps=2)  # printed: the same geometry untextured
         tex_runs = [render_end_to_end(tex["textures"], 8, smi, tmp),
                     render_end_to_end(tex["textures"], 8, smi, tmp, which="one-shot"),
@@ -3446,9 +3795,11 @@ def main(argv=None):
              replaces="none: XLA, pyrite_tpu/tracer.py:432 intersect_shadow"),
         # the kProg instantiations: the textures scenes' programs per lane
         kernel("dense_bounce_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels_dense.py:717",
-               tex_total("dense_bounce_kernel<prog>"), tex_err(tex_worst["textures"])),
+               tex_total("dense_bounce_kernel<prog>"),
+               max(tex_err(tex_worst[k]) for k in ("textures", "textures_1k"))),
         kernel("dense_nee_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels_dense.py:909",
-               tex_total("dense_nee_kernel<prog>"), tex_worst["textures"]["nee"]),
+               tex_total("dense_nee_kernel<prog>"),
+               max(tex_worst[k]["nee"] for k in ("textures", "textures_1k"))),
         kernel("wide_bounce_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels.py:125",
                tex_total("wide_bounce_kernel<prog>"), tex_err(tex_worst["textures_512"])),
         kernel("wide_nee_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels.py:337",

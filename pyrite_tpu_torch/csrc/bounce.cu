@@ -26,7 +26,7 @@
 // exactly the kernel it ran before. Likewise each bounce, NEE and lamp
 // kernel has a kProg instantiation for scenes with image textures, normal
 // maps or programs that read the ray beyond the simple form (ProgArgs,
-// eval_code); the others read none of it and are the code they were.
+// eval_program); the others read none of it and are the code they were.
 //
 // Numerics follow tracer.bounce_core's op order: IEEE sqrtf and division
 // (no fast math), c^5 as c^2 * c^2 * c, and the reflectance before the BRDF
@@ -46,11 +46,11 @@ namespace {
 constexpr int PROG_STACK = 8;  // exprs.PROG_STACK
 
 // exprs.OP_* (exprs.KernelPrograms); the simple instantiations interpret
-// the first eight (eval_prob), the kProg ones all (eval_code)
+// the first eight (eval_prob), the kProg ones all (eval_program)
 enum Op {
   OP_CONST, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MIX, OP_CLAMP, OP_FRESNEL, OP_VEC, OP_LEAF,
   OP_LEAF4, OP_TEX_COLOR, OP_TEX_MONO, OP_SPLAT_RGB, OP_SPLAT_VEC, OP_RGB_TO_VEC, OP_TO_NUMBER,
-  OP_RGB, OP_VECTOR
+  OP_RGB, OP_VECTOR, OP_SLOT
 };
 
 enum { BSDF_EMISSIVE = 0, BSDF_DIFFUSE = 1, BSDF_MIRROR = 2, BSDF_REFRACTIVE = 3 };
@@ -61,7 +61,9 @@ enum { LAMP_POINT = 1, LAMP_SPHERE = 2, LAMP_TRIANGLE = 3 };
 struct Programs {
   const int* __restrict__ code_op;
   const float* __restrict__ code_val;
-  const int* __restrict__ code_off;  // [programs + 1]: prob, color, normal, sky
+  // [programs + 1]: prob, color, normal, sky; in the kProg instantiations
+  // [2 programs + 1]: each program's lane code, then its column code
+  const int* __restrict__ code_off;
   const float* __restrict__ cvals;   // [n_color, N, S]
   const float* __restrict__ pvals;   // [n_prob, N], wavelength-only programs
   int n_color;
@@ -281,11 +283,18 @@ __device__ float eval_prob(const Programs& pr, int prog, int lane, int n, V3 nor
 // they had, which reads none of this. Each largest subtree of a program that
 // reads no ray is a leaf, evaluated once per launch (kernels_dense.
 // precompute_bank_values) at each lane's wavelengths; the code here does
-// the rest, one spectral column at a time, on a stack of 4-float values.
-// What bounds it: per column the program's instructions and, per texture
-// node, 16 taps of C floats read from the texture (plain global loads, so
-// that the wrap rule and the reference's cubic are its own, texture.rs:
-// 88-148 and :324-334; a texture object's filtering is neither).
+// the rest on a stack of 4-float values, in two parts (exprs.split_code):
+// the lane code, which depends on no spectral column (the textures, the
+// fresnels, their conversions), once per lane, then the column code (the
+// leaves, Burns' basis dot and what takes their values) once per column.
+// What bounds it: per texture node and lane 16 taps, each one aligned
+// 16-byte load of a colour texel (one float of a mono one) read from the
+// texture with __ldg (so that the wrap rule and the reference's cubic are
+// its own, texture.rs:88-148 and :324-334; a texture object's filtering is
+// neither), and the column code's few instructions per column. Before the
+// split the whole program ran per column: a textured floor lane of the
+// textures scene sampled 7 textures (its normal map, its colour at each of
+// 6 columns), 112 taps, where it now samples 2 (32 taps).
 struct ProgArgs {
   const int* __restrict__ arg;         // [L] code arguments
   const float* __restrict__ vecs;      // [C, 4] vector constants
@@ -419,67 +428,108 @@ __device__ float4 sample_texture(const ProgArgs& pa, int t, float u, float v) {
     float4 taps[4];
     for (int c = 0; c < 4; ++c) {
       const float* p = pa.tex + off + ((size_t)ys[r] * width + xs[c]) * channels;
-      taps[c] = channels == 1 ? f4(p[0]) : make_float4(p[0], p[1], p[2], p[3]);
+      taps[c] = channels == 1 ? f4(__ldg(p)) : __ldg(reinterpret_cast<const float4*>(p));
     }
     rows[r] = cubic(taps[0], taps[1], taps[2], taps[3], tx);
   }
   return cubic(rows[0], rows[1], rows[2], rows[3], ty);
 }
 
-// Program g's code (exprs.KernelPrograms.run) for lane `lane` of an n x s
-// launch at spectral column k: the value on top of the stack.
-__device__ __noinline__ float4 eval_code(const Programs& pr, const ProgArgs& pa, int g, int lane,
-                                         int n, int s, int k, const ProgIn& in) {
-  float4 st[PROG_STACK];
-  int sp = 0;
-  const size_t cell = (size_t)lane * s + k;
-  for (int i = pr.code_off[g], end = pr.code_off[g + 1]; i < end; ++i) {
-    const int op = pr.code_op[i], arg = pa.arg[i];
-    switch (op) {
-      case OP_CONST: st[sp++] = f4(pr.code_val[i]); break;
-      case OP_VEC: st[sp++] = load4(pa.vecs, arg); break;
-      case OP_LEAF: st[sp++] = f4(pa.leaves[(size_t)arg * n * s + cell]); break;
-      case OP_LEAF4: st[sp++] = load4(pa.leaves + (size_t)arg * n * s, (int)cell); break;
-      case OP_TEX_COLOR: st[sp++] = sample_texture(pa, arg, in.u, in.v); break;
-      case OP_TEX_MONO: st[sp++] = f4(sample_texture(pa, arg, in.u, in.v).x); break;
-      case OP_SPLAT_RGB: st[sp - 1] = make_float4(st[sp - 1].x, st[sp - 1].x, st[sp - 1].x, 1.0f); break;
-      case OP_SPLAT_VEC: st[sp - 1] = f4(st[sp - 1].x); break;
-      case OP_RGB_TO_VEC: st[sp - 1] = st[sp - 1] * f4(2.0f) - f4(1.0f); break;
-      case OP_TO_NUMBER: {
-        const float4 c = st[sp - 1], b = load4(pa.leaves + (size_t)arg * n * s, (int)cell);
-        st[sp - 1] = f4(c.x * b.x + c.y * b.y + c.z * b.z);
-        break;
-      }
-      case OP_RGB:
-        sp -= 2;
-        st[sp - 1] = make_float4(st[sp - 1].x, st[sp].x, st[sp + 1].x, 1.0f);
-        break;
-      case OP_VECTOR:
-        sp -= 3;
-        st[sp - 1] = make_float4(st[sp - 1].x, st[sp].x, st[sp + 1].x, st[sp + 2].x);
-        break;
-      case OP_MIX: {
-        sp -= 2;
-        const float t = fminf(fmaxf(st[sp + 1].x, 0.0f), 1.0f);
-        st[sp - 1] = st[sp - 1] * f4(1.0f - t) + st[sp] * f4(t);
-        break;
-      }
-      case OP_CLAMP:
-        sp -= 2;
-        st[sp - 1] = f4(nan_min(nan_max(st[sp - 1].x, st[sp].x), st[sp + 1].x));
-        break;
-      case OP_FRESNEL:
-        --sp;
-        st[sp - 1] = f4(fresnel(st[sp - 1].x, st[sp].x, in.normal, in.incident));
-        break;
-      default: {  // the binary ops
-        --sp;
-        const float4 a = st[sp - 1], b = st[sp];
-        st[sp - 1] = op == OP_ADD ? a + b : op == OP_SUB ? a - b : op == OP_MUL ? a * b : a / b;
+// eval_program's stack of PROG_STACK float4 values a thread: the thread's
+// column of the block's [PROG_STACK][BLOCK] float4 slice of shared memory
+// (16 KiB a block; a warp's access to one level is 512 contiguous bytes,
+// free of bank conflicts), value i at at[i * BLOCK]. A per-thread array
+// would live in local memory, its index known only at run time, and
+// measured up to 11 % slower on the NEE kernel and 71 % on
+// program_colors_kernel (`chip_smoke.py --prog`, variant stack_moved).
+struct ProgStack {
+  float4* at;
+  __device__ __forceinline__ float4& operator[](int i) const { return at[i * BLOCK]; }
+};
+
+// Whether program g runs code (its lane or column code is not empty).
+__device__ __forceinline__ bool has_code(const Programs& pr, int g) {
+  return pr.code_off[2 * g] != pr.code_off[2 * g + 2];
+}
+
+// Program g (exprs.KernelPrograms.run) for lane `lane` of an n x s launch:
+// its lane code once, which leaves its slots at the bottom of the stack,
+// then its column code above them at columns 0 .. cols - 1, the number at
+// column k into out[k] unless out is null. Returns the value at column 0.
+// One switch runs both parts, the lane code as "column -1". Inlined at
+// each call: as a called function (the parent's eval_code was) the call
+// saved and restored the caller's registers in local memory, and the
+// kernels measured 7-27 % slower (`chip_smoke.py --prog`, PERF.md).
+__device__ __forceinline__ float4 eval_program(const Programs& pr, const ProgArgs& pa, int g, int lane,
+                                            int n, int s, int cols, const ProgIn& in, float* out) {
+  __shared__ float4 stack[PROG_STACK * BLOCK];
+  const ProgStack st = {stack + threadIdx.x};
+  float4 first = f4(0.0f);
+  int slots = 0;
+  for (int k = -1; k < cols; ++k) {
+    int sp = k < 0 ? 0 : slots;
+    const size_t cell = (size_t)lane * s + max(k, 0);
+    for (int i = pr.code_off[2 * g + (k >= 0)], end = pr.code_off[2 * g + 1 + (k >= 0)]; i < end;
+         ++i) {
+      const int op = pr.code_op[i], arg = pa.arg[i];
+      switch (op) {
+        case OP_CONST: st[sp++] = f4(pr.code_val[i]); break;
+        case OP_VEC: st[sp++] = load4(pa.vecs, arg); break;
+        case OP_SLOT: st[sp] = st[arg]; ++sp; break;
+        case OP_LEAF: st[sp++] = f4(pa.leaves[(size_t)arg * n * s + cell]); break;
+        case OP_LEAF4: st[sp++] = load4(pa.leaves + (size_t)arg * n * s, (int)cell); break;
+        case OP_TEX_COLOR:
+        case OP_TEX_MONO: {  // one inlined sample_texture for both
+          const float4 v = sample_texture(pa, arg, in.u, in.v);
+          st[sp++] = op == OP_TEX_MONO ? f4(v.x) : v;
+          break;
+        }
+        case OP_SPLAT_RGB: st[sp - 1] = make_float4(st[sp - 1].x, st[sp - 1].x, st[sp - 1].x, 1.0f); break;
+        case OP_SPLAT_VEC: st[sp - 1] = f4(st[sp - 1].x); break;
+        case OP_RGB_TO_VEC: st[sp - 1] = st[sp - 1] * f4(2.0f) - f4(1.0f); break;
+        case OP_TO_NUMBER: {
+          const float4 c = st[sp - 1], b = load4(pa.leaves + (size_t)arg * n * s, (int)cell);
+          st[sp - 1] = f4(c.x * b.x + c.y * b.y + c.z * b.z);
+          break;
+        }
+        case OP_RGB:
+          sp -= 2;
+          st[sp - 1] = make_float4(st[sp - 1].x, st[sp].x, st[sp + 1].x, 1.0f);
+          break;
+        case OP_VECTOR:
+          sp -= 3;
+          st[sp - 1] = make_float4(st[sp - 1].x, st[sp].x, st[sp + 1].x, st[sp + 2].x);
+          break;
+        case OP_MIX: {
+          sp -= 2;
+          const float t = fminf(fmaxf(st[sp + 1].x, 0.0f), 1.0f);
+          st[sp - 1] = st[sp - 1] * f4(1.0f - t) + st[sp] * f4(t);
+          break;
+        }
+        case OP_CLAMP:
+          sp -= 2;
+          st[sp - 1] = f4(nan_min(nan_max(st[sp - 1].x, st[sp].x), st[sp + 1].x));
+          break;
+        case OP_FRESNEL:
+          --sp;
+          st[sp - 1] = f4(fresnel(st[sp - 1].x, st[sp].x, in.normal, in.incident));
+          break;
+        default: {  // the binary ops
+          --sp;
+          const float4 a = st[sp - 1], b = st[sp];
+          st[sp - 1] = op == OP_ADD ? a + b : op == OP_SUB ? a - b : op == OP_MUL ? a * b : a / b;
+        }
       }
     }
+    if (k < 0) {
+      slots = sp;
+    } else {
+      const float4 v = st[slots];
+      if (k == 0) first = v;
+      if (out) out[k] = v.x;
+    }
   }
-  return st[0];
+  return first;
 }
 
 // tracer.eval_prob_bank for one lane on a kProg scene: program -1 is
@@ -488,15 +538,15 @@ __device__ __noinline__ float4 eval_code(const Programs& pr, const ProgArgs& pa,
 __device__ float eval_prob_code(const Programs& pr, const ProgArgs& pa, int prog, int lane, int n,
                                 int s, const ProgIn& in) {
   if (prog < 0) return 1.0f;
-  if (pr.code_off[prog] == pr.code_off[prog + 1]) return pr.pvals[(size_t)prog * n + lane];
-  return eval_code(pr, pa, prog, lane, n, s, 0, in).x;
+  if (!has_code(pr, prog)) return pr.pvals[(size_t)prog * n + lane];
+  return eval_program(pr, pa, prog, lane, n, s, 1, in, nullptr).x;
 }
 
 // Whether color program `color` (in range) runs code, and its number.
 __device__ __forceinline__ bool color_code(const Programs& pr, const ProgArgs& pa, int color,
                                            int& g) {
   g = pa.n_prob + color;
-  return pr.code_off[g] != pr.code_off[g + 1];
+  return has_code(pr, g);
 }
 
 // tracer.apply_normal_maps for one hit: the material's vector program
@@ -506,7 +556,7 @@ __device__ V3 map_normal(const Sheet& sh, const Programs& pr, const ProgArgs& pa
                          int n, int s, float4 q, const ProgIn& in) {
   const int np = sh.iat(M_MAT_NORMAL, mat);
   if (np < 0) return in.normal;
-  const float4 vec = eval_code(pr, pa, pa.n_prob + pr.n_color + np, lane, n, s, 0, in);
+  const float4 vec = eval_program(pr, pa, pa.n_prob + pr.n_color + np, lane, n, s, 1, in, nullptr);
   const V3 v = {vec.x, vec.y, vec.z};
   return dot(v, v) < 1e-12f ? in.normal : normalize(quat_rotate(q, v));
 }
@@ -898,7 +948,7 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
     // miss: sky (directional lamps are gated out of the pack), which reads
     // normal -d, incident d and uv 0
     const int g = pa.n_prob + pr.n_color + pa.n_normal;
-    if (kProg && pr.code_off[g] != pr.code_off[g + 1]) {
+    if (kProg && has_code(pr, g)) {
       code_prog = g;
       in.normal = -d;
     } else {
@@ -907,7 +957,7 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
   }
   warp_gather(C + (t & ~31) * s, row_src, s);
   if (kProg && code_prog >= 0)  // the lane's own row, after the warp's gather
-    for (int k = 0; k < s; ++k) C[t * s + k] = eval_code(pr, pa, code_prog, lane, n, s, k, in).x;
+    eval_program(pr, pa, code_prog, lane, n, s, s, in, C + t * s);
 
   if (in_range) {
     const bool aux = a.aux_alive[lane];
@@ -1147,6 +1197,11 @@ template <class Geo, bool kDE, bool kProg>
 __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo, const ProgArgs& pa) {
   __shared__ int lanes[BLOCK];             // the block's NEE lanes, in lane order
   __shared__ int warp_count[BLOCK / 32];  // NEE lanes per warp
+  float* colors = nullptr;  // kProg: each thread's row of its lamp's colour program
+  if constexpr (kProg) {
+    __shared__ float rows[BLOCK * MAX_ROW];
+    colors = rows + threadIdx.x * MAX_ROW;
+  }
   const int n = a.n, s = a.s, t = threadIdx.x, lid = t & 31;
   const int base = blockIdx.x * BLOCK;
   const bool mine = base + t < n && a.nee[base + t];
@@ -1223,10 +1278,9 @@ __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo, const
       // the emitter's color at the lamp sample (tracer._direct_sample's
       // inputs: the surface normal, or -dir on a point lamp)
       const ProgIn in = {ls.is_shape ? ls.normal : -ls.dir, ls.dir, ls.u, ls.v};
-      for (int k = 0; k < s; ++k)
-        if (k == 0 || (aux && !l_dispersed))
-          a.brightness[row + k] += eval_code(pr, pa, g, lane, n, s, k, in).x * l_prob *
-                                   a.refl_nee[row + k];
+      const int cols = aux && !l_dispersed ? s : 1;
+      eval_program(pr, pa, g, lane, n, s, cols, in, colors);
+      for (int k = 0; k < cols; ++k) a.brightness[row + k] += colors[k] * l_prob * a.refl_nee[row + k];
       continue;
     }
     const float* c = pr.cvals + ((size_t)(colored ? color_id : 0) * n + lane) * s;
@@ -1512,6 +1566,23 @@ __global__ void __launch_bounds__(BLOCK) dense_nee_kernel(const NeeArgs a, const
   nee_lane<DenseGeo, kDE, kProg>(a, DenseGeo{}, pa);
 }
 
+// The kProg instantiations ask for 6 resident blocks (at most 80 registers,
+// some spills): 13 % faster than at the 96 registers the compiler picks
+// alone (5 blocks), where the bounce kernels lost at such caps
+// (`chip_smoke.py --prog`, variants nee_uncapped and min_blocks_<b>;
+// PERF.md). Explicit specializations, so that the simple instantiations
+// keep their launch bounds (a second bound there changes their registers).
+template <>
+__global__ void __launch_bounds__(BLOCK, 6)
+    dense_nee_kernel<false, true>(const NeeArgs a, const ProgArgs pa) {
+  nee_lane<DenseGeo, false, true>(a, DenseGeo{}, pa);
+}
+template <>
+__global__ void __launch_bounds__(BLOCK, 6)
+    dense_nee_kernel<true, true>(const NeeArgs a, const ProgArgs pa) {
+  nee_lane<DenseGeo, true, true>(a, DenseGeo{}, pa);
+}
+
 template <bool kDE, bool kRecord, bool kProg>
 __global__ void __launch_bounds__(BLOCK)
     wide_bounce_kernel(const BounceArgs a, const WideGeo geo, const Record rec, const ProgArgs pa) {
@@ -1544,7 +1615,7 @@ __global__ void __launch_bounds__(BLOCK)
 // out of range. The JAX package evaluates these in XLA after the walk
 // (pyrite_tpu/renderers/bidirectional.py:73-121), so this ports no TPU
 // kernel. What bounds it: 4 S bytes written a vertex and, for a textured
-// program, 16 taps a texture node and spectral column.
+// program, 16 taps a texture node (its lane code, once a vertex).
 struct ColorArgs {
   Programs progs;
   const int* __restrict__ color_prog;  // [N, K]
@@ -1565,7 +1636,7 @@ __global__ void __launch_bounds__(BLOCK) program_colors_kernel(const ColorArgs a
   int g;
   if (ok && color_code(a.progs, pa, prog, g)) {
     const ProgIn in = {load3(a.normal, m), load3(a.incident, m), a.uv[2 * m], a.uv[2 * m + 1]};
-    for (int k = 0; k < s; ++k) out[k] = eval_code(a.progs, pa, g, lane, a.n, s, k, in).x;
+    eval_program(a.progs, pa, g, lane, a.n, s, s, in, out);
   } else {
     const float* c = a.progs.cvals + ((size_t)(ok ? prog : 0) * a.n + lane) * s;
     for (int k = 0; k < s; ++k) out[k] = ok ? c[k] : 0.0f;
@@ -1662,6 +1733,11 @@ void launch_lanes(K with_de, K without_de, int n, int n_de, size_t smem, void* s
   if (n <= 0) return;
   const dim3 grid((n + BLOCK - 1) / BLOCK);
   const K kernel = n_de > 0 ? with_de : without_de;
+  // a kProg instantiation's static 16 KiB (eval_program's stack) and more
+  // than 32 KiB of dynamic shared memory (the bounce kernels past S = 10)
+  // pass the 48 KiB a block gets without opting in
+  if (smem > 32 * 1024)
+    cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(args...);
 }
 
@@ -1855,13 +1931,14 @@ int pyrite_dense_shadow(const float* sheet, const int* meta, const float* origin
 
 // Resident blocks of BLOCK threads per SM of each bounce and NEE kernel at
 // S spectral columns (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
-// blocks[8]: dense bounce <false>, <true>, dense NEE <false>, <true>, wide
+// blocks[12]: dense bounce <false>, <true>, dense NEE <false>, <true>, wide
 // bounce <false>, <true>, wide NEE <false>, <true> (the bounce kernels
-// without kRecord). Returns the first error.
+// without kRecord), then the kProg instantiations without DE shapes: dense
+// bounce, dense NEE, wide bounce, wide NEE. Returns the first error.
 int pyrite_bounce_occupancy(int s, int* blocks) {
-  const size_t smem[8] = {bounce_smem_bytes(s, false), bounce_smem_bytes(s, true), 0, 0,
-                          bounce_smem_bytes(s, false), bounce_smem_bytes(s, true), 0, 0};
-  const void* kernels[8] = {
+  const size_t b0 = bounce_smem_bytes(s, false), b1 = bounce_smem_bytes(s, true);
+  const size_t smem[12] = {b0, b1, 0, 0, b0, b1, 0, 0, b0, 0, b0, 0};
+  const void* kernels[12] = {
       (const void*)dense_bounce_kernel<false, false, false>,
       (const void*)dense_bounce_kernel<true, false, false>,
       (const void*)dense_nee_kernel<false, false>,
@@ -1869,8 +1946,12 @@ int pyrite_bounce_occupancy(int s, int* blocks) {
       (const void*)wide_bounce_kernel<false, false, false>,
       (const void*)wide_bounce_kernel<true, false, false>,
       (const void*)wide_nee_kernel<false, false>,
-      (const void*)wide_nee_kernel<true, false>};
-  for (int i = 0; i < 8; ++i) {
+      (const void*)wide_nee_kernel<true, false>,
+      (const void*)dense_bounce_kernel<false, false, true>,
+      (const void*)dense_nee_kernel<false, true>,
+      (const void*)wide_bounce_kernel<false, false, true>,
+      (const void*)wide_nee_kernel<false, true>};
+  for (int i = 0; i < 12; ++i) {
     const cudaError_t e =
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[i], kernels[i], BLOCK, smem[i]);
     if (e != cudaSuccess) return (int)e;

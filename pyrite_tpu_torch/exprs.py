@@ -10,8 +10,9 @@ wrap-around (texture.rs:88-148).
 
 For the CUDA kernels, every program that reads the ray (textures read the
 hit's uv, ``fresnel`` its normal and incident direction) is also lowered
-into a postfix code that the kernels interpret per lane and spectral
-column (``KernelPrograms``); each largest subtree of it that reads no ray
+into a postfix code that the kernels interpret (``KernelPrograms``), in
+two parts: what depends on no spectral column once per lane, the rest per
+column (``split_code``); each largest subtree of it that reads no ray
 becomes a leaf, evaluated here once per launch at each lane's wavelengths,
 and programs of the wavelength alone are evaluated here whole. The code
 has one plain interpreter in PyTorch (``KernelPrograms.run``), which the
@@ -486,15 +487,84 @@ def texture_key(kind, fields):
 #   RGB (r, g, b, 1) and VECTOR (x, y, z, w) build a value from numbers.
 # A probability program made of CONST, the binary ops, MIX, CLAMP and FRESNEL
 # alone is the form the simple kernels' instantiations interpret
-# (csrc/bounce.cu eval_prob); the rest run in their kProg instantiations
-# (eval_code). The opcodes and limits are mirrored in csrc/bounce.cu.
+# (csrc/bounce.cu eval_prob), one stream of code. The kProg instantiations
+# (eval_program) run each program in two parts (split_code): only LEAF,
+# LEAF4 and TO_NUMBER, and what takes their values, depend on the spectral
+# column, so every largest subtree that depends on none of them and does
+# some work (a texture, a fresnel, a conversion) is the LANE code, run once
+# per lane, whose values stay on the stack as slots 0, 1, ...; the rest is
+# the COLUMN code, run per column above the slots, where
+#   SLOT pushes slot ``arg`` again.
+# The same ops run on the same values, so each value is the one stream's,
+# bit for bit, and a texture is sampled once per lane, not once per column.
+# The opcodes and limits are mirrored in csrc/bounce.cu.
 
 (OP_CONST, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MIX, OP_CLAMP, OP_FRESNEL, OP_VEC, OP_LEAF,
  OP_LEAF4, OP_TEX_COLOR, OP_TEX_MONO, OP_SPLAT_RGB, OP_SPLAT_VEC, OP_RGB_TO_VEC, OP_TO_NUMBER,
- OP_RGB, OP_VECTOR) = range(19)
+ OP_RGB, OP_VECTOR, OP_SLOT) = range(20)
 SIMPLE_OPS = frozenset(range(OP_FRESNEL + 1))  # the simple kernels' form
+TEXTURE_OPS = frozenset((OP_TEX_COLOR, OP_TEX_MONO))
+COLUMN_OPS = frozenset((OP_LEAF, OP_LEAF4, OP_TO_NUMBER))  # read the lane's spectral column
 PROG_STACK = 8  # kernel stack depth, values
 PROG_MAX_LEN = 64  # instructions per program
+# the operands each opcode pops (the others pop none)
+_POPS = {OP_ADD: 2, OP_SUB: 2, OP_MUL: 2, OP_DIV: 2, OP_MIX: 3, OP_CLAMP: 3, OP_FRESNEL: 2,
+         OP_SPLAT_RGB: 1, OP_SPLAT_VEC: 1, OP_RGB_TO_VEC: 1, OP_TO_NUMBER: 1, OP_RGB: 3,
+         OP_VECTOR: 4}
+
+
+def _depth(code, base=0):
+    """The deepest stack ``code`` reaches from ``base`` values."""
+    sp = deepest = base
+    for op, _, _ in code:
+        sp += 1 - _POPS.get(op, 0)
+        deepest = max(deepest, sp)
+    return deepest
+
+
+def split_code(code):
+    """One program's postfix ``code`` as (lane code, column code): the
+    largest subtrees that depend on no spectral column (COLUMN_OPS) and are
+    more than constants, in program order, as long as the slots they leave
+    and the column code above them fit PROG_STACK; each replaced by SLOT in
+    the column code."""
+    start, column, parent, stack = [], [], [None] * len(code), []
+    for i, (op, _, _) in enumerate(code):
+        pops = _POPS.get(op, 0)
+        operands = stack[len(stack) - pops:] if pops else []
+        del stack[len(stack) - len(operands):]
+        for j in operands:
+            parent[j] = i
+        start.append(start[operands[0]] if operands else i)
+        column.append(op in COLUMN_OPS or any(column[j] for j in operands))
+        stack.append(i)
+    hoisted = []
+    for i in range(len(code)):
+        top = parent[i] is None or column[parent[i]]
+        work = any(code[j][0] not in (OP_CONST, OP_VEC) for j in range(start[i], i + 1))
+        if column[i] or not top or not work:
+            continue
+        trial = hoisted + [i]
+        lane = max(j + _depth(code[start[e]:e + 1]) for j, e in enumerate(trial))
+        if lane <= PROG_STACK and _depth(_column_part(code, start, trial), len(trial)) <= PROG_STACK:
+            hoisted = trial
+    lane_code = [c for e in hoisted for c in code[start[e]:e + 1]]
+    return lane_code, _column_part(code, start, hoisted)
+
+
+def _column_part(code, start, hoisted):
+    """``code`` with the subtree ending at each of ``hoisted`` (in order)
+    replaced by SLOT of its place."""
+    out, i, slot = [], 0, {start[e]: (n, e) for n, e in enumerate(hoisted)}
+    while i < len(code):
+        if i in slot:
+            n, e = slot[i]
+            out.append((OP_SLOT, 0.0, n))
+            i = e + 1
+        else:
+            out.append(code[i])
+            i += 1
+    return out
 
 _BINARY_OPS = {"add": OP_ADD, "sub": OP_SUB, "mul": OP_MUL, "div": OP_DIV}
 _PROMOTE = {(NUMBER, RGB): OP_SPLAT_RGB, (NUMBER, VECTOR): OP_SPLAT_VEC, (RGB, VECTOR): OP_RGB_TO_VEC}
@@ -517,7 +587,11 @@ class KernelPrograms:
     sky (``index``); program g's code is code[off[g]:off[g + 1]], empty for
     a program that reads no ray (its values come per launch: constants,
     bank values). Leaves, vector constants and the textures (in
-    resources.store order) are shared by all programs."""
+    resources.store order) are shared by all programs. ``parts[g]`` is
+    program g's (lane code, column code) (split_code), laid out for the
+    kProg instantiations as ``split`` with ``split_off``: the lane code of
+    program g is split[split_off[2g]:split_off[2g + 1]], its column code
+    split[split_off[2g + 1]:split_off[2g + 2]]."""
 
     def __init__(self, scene, resources):
         self.resources = resources
@@ -543,6 +617,11 @@ class KernelPrograms:
             elif out == VECTOR:
                 self._lower(prog.constant, out)
             self.off.append(len(self.code))
+        self.parts = [split_code(self.program_code(g)) for g in range(len(self.off) - 1)]
+        self.split, self.split_off = [], [0]
+        for part in (p for lane_col in self.parts for p in lane_col):
+            self.split.extend(part)
+            self.split_off.append(len(self.split))
 
     def index(self, group, p):
         """Global number of program ``p`` of ``group`` ("prob", "color",
@@ -672,11 +751,26 @@ class KernelPrograms:
         """The textures as tensors on ``device``, in texture-index order."""
         return [self.resources.texture(key, device) for key in self.textures]
 
-    def run(self, g, k, lanes, n, s, leaves, textures, normal, incident, uv):
-        """The plain interpreter of program g's code: the top of the stack
-        [M, 4] at spectral column ``k`` for M points of lanes ``lanes`` [M]
-        (their rows of the leaves of an N x S launch), with their normal,
-        incident direction [M, 3] and uv [M, 2]."""
+    def run(self, g, k, lanes, n, s, leaves, textures, normal, incident, uv, split=True):
+        """The plain interpreter of program g: the value [M, 4] at spectral
+        column ``k`` for M points of lanes ``lanes`` [M] (their rows of the
+        leaves of an N x S launch), with their normal, incident direction
+        [M, 3] and uv [M, 2]; its lane code, then its column code above the
+        slots the lane code left (the kProg instantiations' form), or with
+        ``split`` False its one stream of code (the simple ones')."""
+        ray = (lanes, n, s, leaves, textures, normal, incident, uv)
+        if not split:
+            stack = self._interpret(self.program_code(g), k, [], *ray)
+        else:
+            lane_code, column_code = self.parts[g]
+            slots = self._interpret(lane_code, k, [], *ray)
+            stack = self._interpret(column_code, k, slots, *ray)
+        assert len(stack) == 1, "a program leaves one value"
+        return stack[0]
+
+    def _interpret(self, code, k, slots, lanes, n, s, leaves, textures, normal, incident, uv):
+        """``code`` at column ``k`` on an empty stack (SLOT reads
+        ``slots``): the values it leaves, bottom first."""
         m = lanes.shape[0]
         dev = lanes.device
         stack = []
@@ -687,11 +781,13 @@ class KernelPrograms:
             out = leaves[idx]
             return out if width == 4 else out.expand(m, 4)
 
-        for op, value, arg in self.program_code(g):
+        for op, value, arg in code:
             if op == OP_CONST:
                 stack.append(torch.full((m, 4), value, device=dev))
             elif op == OP_VEC:
                 stack.append(torch.tensor(self.vecs[arg], device=dev).expand(m, 4))
+            elif op == OP_SLOT:
+                stack.append(slots[arg])
             elif op in (OP_LEAF, OP_LEAF4):
                 stack.append(leaf(arg, 1 if op == OP_LEAF else 4))
             elif op == OP_TEX_COLOR:
@@ -733,5 +829,4 @@ class KernelPrograms:
                 else:
                     stack.append({OP_ADD: a + b, OP_SUB: a - b, OP_MUL: a * b,
                                   OP_DIV: a / b}[op])
-        assert len(stack) == 1, "a program leaves one value"
-        return stack[0]
+        return stack

@@ -178,8 +178,11 @@ def sphere_surface_frame(position, center, texture_scale):
     ey = torch.tensor([0.0, 1.0, 0.0], device=normal.device).expand(normal.shape)
     ex = torch.tensor([1.0, 0.0, 0.0], device=normal.device).expand(normal.shape)
     quat = quat_mul(axis_angle_quat(ey, longitude), axis_angle_quat(ex, latitude - math.pi * 0.5))
-    u = longitude / (2.0 * math.pi)
-    v = 1.0 - latitude / math.pi
+    # divided by tensors: PyTorch on CUDA divides by a Python number as a
+    # product with its reciprocal, one ulp off the quotient the kernels (and
+    # the CPU) take, which a large normal map turns into ~1e-4 in the normal
+    u = longitude / torch.full_like(longitude, 2.0 * math.pi)
+    v = 1.0 - latitude / torch.full_like(latitude, math.pi)
     return normal, quat, torch.stack([u, v], dim=-1) / texture_scale
 
 

@@ -41,9 +41,9 @@ A scene with image textures, normal maps, color or sky programs that read
 the ray, or probability programs that read the ray beyond the simple form
 (exprs.SIMPLE_OPS) runs the kernels' kProg instantiations ("<prog>" in
 their names and counts): they compute each hit's frame and uv, map the
-normal before the component pick, and interpret the programs per lane
-and spectral column (csrc/bounce.cu eval_code). Every other scene runs the
-instantiations it ran before.
+normal before the component pick, and interpret each program's lane code
+once per lane and its column code per spectral column (csrc/bounce.cu
+eval_program). Every other scene runs the instantiations it ran before.
 """
 
 from __future__ import annotations
@@ -271,14 +271,22 @@ def build_pack(scene, a):
                     add(f"ltri_uv{vtx}{comp}", shapes["tri_uv"][:, vtx, axis])
     sheet = np.stack(rows)
 
-    code = programs.code or [(exprs.OP_CONST, 0.0, 0)]
+    # the kProg instantiations read each program as its lane and column
+    # code, the simple ones the one stream (exprs.KernelPrograms)
+    code, off = (programs.split, programs.split_off) if prog else (programs.code, programs.off)
+    code = code or [(exprs.OP_CONST, 0.0, 0)]
     dev = scene.device
     textures = programs.tables(dev)
+    # each texture starts on a 16-byte boundary, so a colour texel (4
+    # floats) is one aligned float4 load; a mono texel is one float
     info = np.zeros((max(len(textures), 1), 4), np.int32)  # offset, height, width, channels
-    offset = 0
+    offset, flat = 0, []
     for i, t in enumerate(textures):
-        info[i] = offset, t.shape[0], t.shape[1], 1 if t.ndim == 2 else t.shape[2]
-        offset += t.numel()
+        channels = 1 if t.ndim == 2 else t.shape[2]
+        assert channels in (1, 4), "textures are mono or RGBA"
+        info[i] = offset, t.shape[0], t.shape[1], channels
+        flat += [t.reshape(-1), t.new_zeros(-t.numel() % 4)]
+        offset += t.numel() + (-t.numel() % 4)
     tensors = {
         "sheet": torch.as_tensor(sheet, device=dev),
         "meta": torch.as_tensor(
@@ -287,10 +295,9 @@ def build_pack(scene, a):
         "code_op": torch.as_tensor(np.array([c[0] for c in code], np.int32), device=dev),
         "code_val": torch.as_tensor(np.array([c[1] for c in code], np.float32), device=dev),
         "code_arg": torch.as_tensor(np.array([c[2] for c in code], np.int32), device=dev),
-        "code_off": torch.as_tensor(np.array(programs.off, np.int32), device=dev),
+        "code_off": torch.as_tensor(np.array(off, np.int32), device=dev),
         "vecs": torch.as_tensor(np.array(programs.vecs or [(0.0,) * 4], np.float32), device=dev),
-        "tex": torch.cat([t.reshape(-1) for t in textures]) if textures
-        else torch.zeros(1, device=dev),
+        "tex": torch.cat(flat) if textures else torch.zeros(1, device=dev),
         "tex_info": torch.as_tensor(info, device=dev),
     }
     return {"sheet": sheet, "meta": meta, "programs": programs, "prog": prog, "tensors": tensors}
@@ -401,7 +408,7 @@ def _scene_args(scene, bank_vals, n, s, dev):
     return _sheet_args(scene, dev) + [
         _check("code_op", pack["code_op"], i32, pack["code_op"].shape, dev),
         _check("code_val", pack["code_val"], f32, pack["code_op"].shape, dev),
-        _check("code_off", pack["code_off"], i32, (len(scene.dense_pack["programs"].off),), dev),
+        _check("code_off", pack["code_off"], i32, pack["code_off"].shape, dev),
         _check("color_vals", cvals, f32, (n_color, n, s), dev) if n_color else 0,
         _check("prob_vals", pvals, f32, (n_prob, n), dev) if n_prob else 0,
     ]
@@ -426,7 +433,7 @@ def prog_args(scene, bank_vals, n, s, dev):
         _check("code_arg", pack["code_arg"], i32, pack["code_op"].shape, dev),
         _check("vecs", pack["vecs"], f32, pack["vecs"].shape, dev),
         _check("leaves", leaves, f32, (max(sum(w for _, w in programs.leaves) * n * s, 1),), dev),
-        _check("tex", pack["tex"], f32, pack["tex"].shape, dev),
+        _check_aligned("tex", pack["tex"], pack["tex"].shape, dev),
         _check("tex_info", pack["tex_info"], i32, pack["tex_info"].shape, dev),
         _check("tri_q", a["tri_q"], f32, (t, 3, 4), dev),
         _check("tri_uv", a["tri_uv"], f32, (t, 3, 2), dev),
@@ -437,14 +444,19 @@ def prog_args(scene, bank_vals, n, s, dev):
     ]
 
 
+def _check_aligned(name, t, shape, dev):
+    """A float32 table that the kernels read as float4: 16-byte aligned."""
+    ptr = _check(name, t, torch.float32, shape, dev)
+    if ptr % 16:
+        raise ValueError(f"{name}: not 16-byte aligned; the kernels read it as float4")
+    return ptr
+
+
 def check_leaves(scene, dev):
     """The leaf clusters' pointer, checked: the traversal reads each 48-byte
-    row of clu_geo as three 16-byte loads, so it must be 16-byte aligned."""
-    shape = (scene.cluster_slots, scene.cluster_leaf, 12)
-    ptr = _check("clu_geo", scene.arrays["clu_geo"], torch.float32, shape, dev)
-    if ptr % 16:
-        raise ValueError("clu_geo: not 16-byte aligned; the traversal reads its rows as float4")
-    return ptr
+    row of clu_geo as three 16-byte loads."""
+    return _check_aligned("clu_geo", scene.arrays["clu_geo"],
+                          (scene.cluster_slots, scene.cluster_leaf, 12), dev)
 
 
 def wide_args(scene, dev):

@@ -346,18 +346,20 @@ def _texture_paths(directory):
     return {
         "textures": chip_smoke.write_textures_scene(directory, **size),
         "textures_512": chip_smoke.write_textures_scene(directory, **size, tiles=(16, 16)),
+        "textures_1k": chip_smoke.write_textures_scene(f"{directory}/1k", **size, texture_size=1024),
         "textures_bdpt": chip_smoke.write_textures_scene(directory, 48, 32, 6, 4, spp=2,
                                                          renderer="bidirectional"),
     }
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["textures", "textures_512"])
+@pytest.mark.parametrize("name", ["textures", "textures_512", "textures_1k"])
 def test_cuda_prog_kernels_match_plain_version(tmp_path, name):
     """The kProg instantiations of the bounce and NEE kernels (image
     textures, normal maps, a fresnel colour, a textured lamp, a ray-reading
-    sky; dense, and a mesh with vt through the wide kernels) lane for lane
-    against tracer.bounce_core: flags exact, 0 divergent lanes."""
+    sky; dense, a mesh with vt through the wide kernels, and the dense scene
+    with a 1024 x 1024 checker and normal map) lane for lane against
+    tracer.bounce_core: flags exact, 0 divergent lanes."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from pyrite_tpu_torch import kernels_dense as kd

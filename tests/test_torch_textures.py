@@ -250,6 +250,153 @@ def test_program_limits_raise_naming_roadmap():
         TE.KernelPrograms(scene, TE.Resources())
 
 
+# --- the two-part program form (lane code once per lane, column code per column) -----
+
+
+@pytest.fixture(scope="module")
+def lowered(tex_dir, inputs):
+    """Every case of _program_cases lowered at once, as a scene's programs
+    are: {case: (global program numbers, compiled program)}, the
+    KernelPrograms and the interpreter's arguments."""
+    resources = TE.Resources(TextureLoader(tex_dir))
+    cases = _program_cases(TIR)
+    progs = {c[0]: TE.compile_program(c[1], resources, c[2]) for c in cases}
+    numbers = [c[0] for c in cases if c[2] == "number"]
+    vectors = [c[0] for c in cases if c[2] == "vector"]
+    scene = types.SimpleNamespace(prob_programs=[progs[c] for c in numbers],
+                                  color_programs=[progs[c] for c in numbers],
+                                  normal_programs=[progs[c] for c in vectors],
+                                  sky_program=progs["sky_form"])
+    kp = TE.KernelPrograms(scene, resources)
+    ids = {c: [kp.index("prob", numbers.index(c)), kp.index("color", numbers.index(c))]
+           if c in numbers else [kp.index("normal", vectors.index(c))] for c in progs}
+    ids["sky_form"].append(kp.index("sky", 0))
+    wl = torch.as_tensor(inputs["wavelength"])
+    ray = {k: torch.as_tensor(inputs[k]) for k in ("normal", "incident", "uv")}
+    args = (torch.arange(N), N, S, kp.leaf_values(wl), kp.tables("cpu"))
+    return {c: (ids[c], progs[c]) for c in progs}, kp, args, ray
+
+
+CASES = [c[0] for c in _program_cases(TIR)]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_two_part_form_equals_one_stream(lowered, case):
+    """The plain interpreter of the kProg form (lane code, then column code
+    above its slots) gives the one stream's value (the form the kernels
+    ran whole at every column before the split) bit for bit at every
+    spectral column, for each program the case is lowered to."""
+    found, kp, args, ray = lowered
+    for g in found[case][0]:
+        for k in range(S):
+            np.testing.assert_array_equal(kp.run(g, k, *args, **ray).numpy(),
+                                          kp.run(g, k, *args, **ray, split=False).numpy(),
+                                          err_msg=f"{case} program {g} column {k}")
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_two_part_form_matches_jax(tex_dir, inputs, lowered, case):
+    """The kProg form's values against the JAX package's compile_program of
+    the same expression: a number at every column (a colour or sky
+    program), a vector at column 0 (a normal map); rtol 1e-5 / atol 1e-6."""
+    found, kp, args, ray = lowered
+    names = [c[0] for c in _program_cases(JIR)]
+    _, ej, out = _program_cases(JIR)[names.index(case)]
+    pj = JE.compile_program(ej, JE.Resources(JaxLoader(tex_dir)), out)
+    g = found[case][0][-1]  # the colour, normal or sky program
+    if out == "vector":
+        np.testing.assert_allclose(kp.run(g, 0, *args, **ray).numpy(),
+                                   _evaluate(pj, JE, inputs, False), rtol=1e-5, atol=1e-6)
+        return
+    want = _evaluate(pj, JE, inputs, False)
+    for k in range(S):
+        np.testing.assert_allclose(kp.run(g, k, *args, **ray)[:, 0].numpy(), want[:, k], rtol=1e-5,
+                                   atol=1e-6, err_msg=f"{case} column {k}")
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_column_code_samples_no_texture(lowered, case):
+    """No texture opcode is left in a column code: every texture node of a
+    program is in its lane code, sampled once per lane, as often as in the
+    one stream; the slots and the column code fit the kernels' stack."""
+    found, kp, _, _ = lowered
+    count = lambda code: sum(op in TE.TEXTURE_OPS for op, _, _ in code)
+    for g in found[case][0]:
+        lane_code, column_code = kp.parts[g]
+        assert count(column_code) == 0, (case, column_code)
+        assert count(lane_code) == count(kp.program_code(g))
+        slots = sum(op == TE.OP_SLOT for op, _, _ in column_code)
+        assert TE._depth(lane_code) <= TE.PROG_STACK
+        assert TE._depth(column_code, slots) <= TE.PROG_STACK
+
+
+@pytest.mark.parametrize("name", ["textures", "textures_bdpt"])
+def test_scene_programs_split_and_textures_align(paths, name):
+    """On the textures scenes: every program's two parts give its one
+    stream's code back (each SLOT its subtree, the lane code in order); no
+    column code samples a texture, so a floor lane (normal map, checker
+    colour at S columns) takes 32 taps where the one stream took 112
+    (chip_smoke._taps); the pack lays the kProg form out for the kernels and
+    starts every texture on a 4-float (16-byte) boundary."""
+    scene = torch_build(torch_load(paths[name]), "cpu")
+    pack, kp = scene.dense_pack["tensors"], scene.dense_pack["programs"]
+    assert scene.dense_pack["prog"]
+    for g in range(len(kp.off) - 1):
+        lane_code, column_code = kp.parts[g]
+        assert not any(op in TE.TEXTURE_OPS for op, _, _ in column_code)
+        if kp.program_code(g):
+            assert _expand(column_code, _expand(lane_code, [])) == [kp.program_code(g)], g
+    assert pack["code_op"].tolist() == [c[0] for c in kp.split]
+    assert pack["code_off"].tolist() == kp.split_off
+    assert len(kp.split_off) == 2 * (len(kp.off) - 1) + 1
+    info = pack["tex_info"].tolist()
+    assert all(off % 4 == 0 for off, _, _, _ in info), info
+    for t, (off, h, w, c) in zip(kp.tables("cpu"), info):
+        assert torch.equal(pack["tex"][off:off + h * w * c], t.reshape(-1))
+    a = scene.arrays
+    mat = int(a["pla_mat"][0])
+    comp = int(a["mat_comp_offset"][mat])
+    floor = lambda split: int(
+        chip_smoke._taps(scene, "normal", a["mat_normal_prog"][mat:mat + 1].long(), 1, split)
+        + chip_smoke._taps(scene, "prob", a["comp_prob"][comp:comp + 1].long(), 1, split)
+        + chip_smoke._taps(scene, "color", a["comp_color"][comp:comp + 1].long(), S, split))
+    assert S == 4 and (floor(True), floor(False)) == (32, 16 + 4 * 16)
+
+
+def _expand(code, slots):
+    """Postfix ``code`` run on code in place of values: the code of each
+    value it leaves, SLOT i pushing ``slots[i]``."""
+    stack = []
+    for op, value, arg in code:
+        if op == TE.OP_SLOT:
+            stack.append(slots[arg])
+            continue
+        pops = TE._POPS.get(op, 0)
+        operands = stack[len(stack) - pops:]
+        del stack[len(stack) - pops:]
+        stack.append([c for o in operands for c in o] + [(op, value, arg)])
+    return stack
+
+
+def test_flagship_code_unchanged():
+    """The flagship's two fresnel-mix probability programs lower to the
+    simple instantiations' one stream exactly as before the two-part form
+    (the code below), and its pack holds that stream, not the kProg form."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = torch_build(torch_load(chip_smoke.scene_paths(tmp)["flagship"]), "cpu")
+    kp, pack = scene.dense_pack["programs"], scene.dense_pack["tensors"]
+    fresnel_mix = [(0, 1.0, 0), (0, 1.5, 0), (0, 1.0, 0), (7, 0.0, 0), (0, 0.0, 0), (0, 1.0, 0),
+                   (6, 0.0, 0)]
+    assert kp.code == fresnel_mix + [(2, 0.0, 0)] + fresnel_mix[1:]
+    assert kp.off == [0, 8, 14, 14, 14, 14, 14, 14]
+    assert kp.simple and not scene.dense_pack["prog"]
+    assert pack["code_op"].tolist() == [c[0] for c in kp.code]
+    assert pack["code_val"].tolist() == [c[1] for c in kp.code]
+    assert pack["code_off"].tolist() == kp.off
+
+
 # --- geometry -----------------------------------------------------------------------
 
 
