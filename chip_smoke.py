@@ -80,13 +80,29 @@ and exits non-zero on any failure:
    versions, timed beside A and B on its untextured twin, and rendered
    through the CLI. No step may take the plain path.
 
+The rest of the scene gate (gate_paths: directional lamps, S = 24, 32 and
+64, 300 materials through the baked colour table, 150 lamps and 130
+planes, an 82-instruction program at stack depth 12, 130 DE shapes) runs
+through phases 3-5 after the textures scenes (check_gate: the draw kernel
+at S = 32 and 64 bit for bit, the bounce and NEE kernels against the plain
+version with no divergent lane, their times and bounds, CLI renders with
+the peak memory beside a build without the table) and phase 6 after the
+textures BDPT scene (check_gate_bdpt).
+
 The last line is one JSON object {"ok": true, "device": {...}}; the line
 before it lists each kernel's launches, error, times and bound.
 
+The main run builds the kernels from clean; the modes below reuse a build
+of the same sources where there is one.
 ``python3 chip_smoke.py --rows`` instead runs phase 4's measurements of the
-dense bounce and NEE kernels alone (measure_rows), ``--prog`` those of the
-kProg instantiations, with builds of csrc/bounce.cu that each remove or
-move one cost (measure_prog).
+dense bounce and NEE kernels alone (measure_rows), the textures scene's
+bounce and NEE kernel times, and last materials_300 read from its baked
+colour table against the per-launch bank (measure_bank); to compare a
+parent, copy chip_smoke.py into its ``git archive`` checkout and run both
+in one call (a checkout whose gate refuses materials_300 stops at
+measure_bank). ``--prog`` runs the measurements of the kProg
+instantiations, with builds of csrc/bounce.cu that each remove or move one
+cost (measure_prog).
 ``python3 chip_smoke.py --walls`` instead runs ``--profile``'s flagship
 renders alone (one-shot and regeneration walls).
 ``python3 chip_smoke.py --profile`` instead renders the main-path scenes
@@ -551,6 +567,27 @@ UNTEXTURED = {"sky": "0.1", "checker": "rgb(0.6, 0.5, 0.4)", "bumps": "nil",
               "fresnel": "rgb(0.9, 0.75, 0.3)", "mask": "0.5", "lamp": "rgb(1, 0.9, 0.8)"}
 
 
+def deep_expression(core, chain=8, nest=9):
+    """A colour expression past the old program form's limits around
+    ``core`` (an rgb expression that reads the ray): ``chain`` steps of
+    (x * 1.01 - 0.005) that keep the stack shallow and lengthen the code,
+    under ``nest`` levels of (0.004 + (...)) that each hold one more value
+    on the stack. The textures scene's fresnel colour so wrapped
+    (textures_deep) lowers to 82 instructions at stack depth 12
+    (exprs.KernelPrograms)."""
+    expr = core
+    for _ in range(chain):
+        expr = f"({expr} * 1.01 - 0.005)"
+    for _ in range(nest):
+        expr = f"(0.004 + {expr})"
+    return expr
+
+
+# the textures scene with its fresnel sphere's colour past 64 instructions
+# and a stack of 8 values (the kProg kernels' program stack sized by it)
+DEEP = dict(TEXTURED, fresnel=deep_expression(TEXTURED["fresnel"]))
+
+
 def _tiles_obj(cols, rows):
     """A grid of cols x rows quads on a wall behind the scene (z = 5, x in
     [-3, 3], y in [-0.5, 3]), two triangles each, with vt running from 0 to
@@ -604,7 +641,7 @@ def write_texture_images(directory, seed=3, size=None):
 
 def write_textures_scene(directory, width=64, height=48, spectrum_samples=4, bounces=4, spp=64,
                          renderer="simple", light_bounces=4, textured=True, tiles=(3, 2),
-                         texture_size=None):
+                         texture_size=None, deep=False):
     """The textures class of the reference's golden scenes (SURVEY.md
     section 6: bicubic colour and normal maps with texture_scale): a plane
     with texture_scale = 5, a colour texture and the reference's normal-map
@@ -617,7 +654,9 @@ def write_textures_scene(directory, width=64, height=48, spectrum_samples=4, bou
     quads: (3, 2) gives 12 triangles, a dense scene of 15 primitives;
     (16, 16) 512, which the wide BVH takes. ``texture_size`` (a multiple of
     1024) writes write_texture_images' large images, and "_1k" (or "_2k",
-    ...) ends the name. Returns the .lua path."""
+    ...) ends the name. ``deep`` wraps the fresnel sphere's colour in
+    deep_expression (DEEP; the name "textures_deep"). Returns the .lua
+    path."""
     os.makedirs(directory, exist_ok=True)
     cols, rows = tiles
     obj = f"tiles_{cols}x{rows}.obj"
@@ -625,9 +664,10 @@ def write_textures_scene(directory, width=64, height=48, spectrum_samples=4, bou
         fh.write(_tiles_obj(cols, rows))
     write_texture_images(directory, size=texture_size)
     extra = f"\n        light_bounces = {light_bounces}," if renderer == "bidirectional" else ""
-    values = dict(TEXTURED if textured else UNTEXTURED, w=width, h=height, s=spectrum_samples,
-                  b=bounces, spp=spp, renderer=renderer, extra=extra, obj=obj)
-    name = ("textures" if textured else "untextured") + ("_bdpt" if renderer != "simple" else "") + (
+    values = dict(DEEP if deep else TEXTURED if textured else UNTEXTURED, w=width, h=height,
+                  s=spectrum_samples, b=bounces, spp=spp, renderer=renderer, extra=extra, obj=obj)
+    name = ("textures" if textured else "untextured") + ("_deep" if deep else "") + (
+        "_bdpt" if renderer != "simple" else "") + (
         "" if tiles == (3, 2) else f"_{2 * cols * rows}") + (
         f"_{texture_size // 1024}k" if texture_size else "")
     path = os.path.join(directory, f"{name}.lua")
@@ -663,10 +703,20 @@ return {
 """
 
 
-def write_spheres_scene(directory, count=300, width=48, height=32, bounces=3, seed=4):
+def write_spheres_scene(directory, count=300, width=48, height=32, bounces=3, seed=4,
+                        distinct=False, emissive=0, planes=0, spectrum_samples=4,
+                        renderer="simple"):
     """A scene of ``count`` small spheres (a jittered grid on the ground,
-    from a numpy seed; seven shared materials) and a sphere lamp: above the dense kernels' 128
-    primitives, so it takes the wide BVH. Returns the .lua path."""
+    from a numpy seed; seven shared materials) and a sphere lamp: above the
+    dense kernels' 128 primitives, so it takes the wide BVH. With
+    ``distinct`` each sphere has a diffuse colour of its own (from the
+    seed: one wavelength-only colour program each, which the scene bakes
+    into its bank table), the first ``emissive`` of them mixed half and half
+    with an emissive colour of their own (each such sphere a lamp, its
+    material two components, one emissive); ``planes`` floors under the
+    spheres (the one at y = 0 last, the others below it, out of sight; each
+    a grey of its own). ``renderer`` "bidirectional" takes 4 + 4 bounces.
+    Returns the .lua path."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -676,13 +726,110 @@ def write_spheres_scene(directory, count=300, width=48, height=32, bounces=3, se
         x, z = (k % side) - side / 2, k // side
         p = (x * 0.6 + rng.uniform(-0.1, 0.1), rng.uniform(0.0, 0.3), z * 0.6 + rng.uniform(-0.1, 0.1))
         rows.append(f"            shape.sphere {{radius = 0.25, position = vector({p[0]:.4f}, "
-                    f"{p[1]:.4f}, {p[2]:.4f}), material = materials[{k % 7 + 1}]}},")
-    materials = "\n".join(
-        f"    {{surface = material.diffuse {{color = {0.3 + 0.6 * i / 7:.3f}}}}}," for i in range(7))
-    path = os.path.join(directory, f"spheres_{count}.lua")
+                    f"{p[1]:.4f}, {p[2]:.4f}), material = materials[{(k if distinct else k % 7) + 1}]}},")
+    if distinct:
+        rgb = lambda c: f"rgb({c[0]:.4f}, {c[1]:.4f}, {c[2]:.4f})"  # noqa: E731
+        mats = []
+        for k in range(count):
+            diffuse = f"material.diffuse {{color = {rgb(rng.uniform(0.05, 0.95, 3))}}}"
+            if k < emissive:
+                glow = f"material.emissive {{color = {rgb(rng.uniform(0.5, 3.0, 3))}}}"
+                diffuse = f"mix({glow}, {diffuse}, 0.5)"
+            mats.append(f"    {{surface = {diffuse}}},")
+        materials = "\n".join(mats)
+    else:
+        materials = "\n".join(
+            f"    {{surface = material.diffuse {{color = {0.3 + 0.6 * i / 7:.3f}}}}}," for i in range(7))
+    for k in range(planes):
+        y = -0.01 * (planes - 1 - k)
+        rows.append(f"            shape.plane {{origin = vector(0, {y:.2f}, 0), normal = vector(0, 1, 0), "
+                    f"material = {{surface = material.diffuse {{color = {0.2 + 0.6 * k / planes:.4f}}}}}}},")
+    text = SPHERES_SCENE % {"w": width, "h": height, "b": bounces, "spheres": "\n".join(rows),
+                            "materials": materials}
+    text = text.replace("spectrum_samples = 4", f"spectrum_samples = {spectrum_samples}")
+    name = f"spheres_{count}" if not distinct else f"materials_{count}"
+    if renderer != "simple":
+        text = text.replace("renderer.simple {", "renderer.bidirectional {\n        light_bounces = 4,")
+        text = text.replace("bounces = %d," % bounces, "bounces = 4,")
+        name += "_bdpt"
+    path = os.path.join(directory, f"{name}.lua")
     with open(path, "w") as fh:
-        fh.write(SPHERES_SCENE % {"w": width, "h": height, "b": bounces, "spheres": "\n".join(rows),
-                                  "materials": materials})
+        fh.write(text)
+    return path
+
+
+# Directional lamps (the table form of the reference's directional_light;
+# width is the cosine of the cone's half-angle): a sun of a 1.8-degree
+# cone, then a width-0 fill, whose cone on a miss is the whole hemisphere
+# about its direction, so that a ray into the sun matches both and the
+# first, the sun, wins (tracer.bounce_core).
+SUN = ('{type = "directional_light", direction = vector(0.3714, 0.7428, 0.5571), '
+       'width = 0.9995, color = light_source.d65 * 2},')
+FILL = ('{type = "directional_light", direction = vector(-0.3015, 0.9045, 0.3015), '
+        'width = 0, color = rgb(0.2, 0.25, 0.4)},')
+
+
+def add_objects(path, objects, name, replace=()):
+    """A copy of the .lua project at ``path`` named ``name``.lua, beside it,
+    with ``objects`` (Lua table constructors) first in its world and each
+    (old, new) of ``replace`` made in its text. Returns the new path."""
+    with open(path) as fh:
+        text = fh.read()
+    text = text.replace("objects = {", "objects = {\n            " + "\n            ".join(objects), 1)
+    for old, new in replace:
+        assert old in text, old
+        text = text.replace(old, new)
+    out = os.path.join(os.path.dirname(path), f"{name}.lua")
+    with open(out, "w") as fh:
+        fh.write(text)
+    return out
+
+
+def write_sunlit_terrain_scene(directory, cells=405, width=512, height=256, spectrum_samples=10,
+                               bounces=4, spp=4, renderer="simple"):
+    """terrain_<cells> (tools.synthetic.terrain_scene) under SUN and FILL and
+    the sky, at S = ``spectrum_samples``; with ``renderer``
+    "bidirectional" 4 + 4 bounces, where the terrain's sphere lamp starts
+    every lamp path (a directional lamp starts none). Returns the .lua
+    path, sunlit_terrain_<cells>[_bdpt].lua."""
+    from tools.synthetic import terrain_scene
+
+    sys.path.insert(0, ROOT)
+    base = terrain_scene(directory, cells=cells, width=width, height=height, spp=spp,
+                         bounces=bounces)[0]
+    replace = [("spectrum_samples = 4,", f"spectrum_samples = {spectrum_samples},")]
+    name = f"sunlit_terrain_{cells}"
+    if renderer == "bidirectional":
+        replace.append(("renderer.simple {", "renderer.bidirectional {\n        light_bounces = 4,"))
+        name += "_bdpt"
+    return add_objects(base, [SUN, FILL], name, replace)
+
+
+def write_de_many_scene(directory, count=130, width=128, height=64, spectrum_samples=4, bounces=3):
+    """``count`` small cubic quaternion Julias (the julia scene's constant
+    at 4 iterations, so that the plain march on the card checks them in
+    seconds, each in a bounding sphere of radius 0.3) on a grid over a
+    floor, lit by a point lamp: a DE table of more than 128 columns.
+    Returns the .lua path, de_<count>.lua."""
+    side = next(k for k in range(1, count + 1) if k * k >= count)
+    shapes = []
+    for k in range(count):
+        x, z = (k % side - side / 2) * 0.7, (k // side) * 0.7 + 2
+        shapes.append(
+            "            shape.ray_marched {shape = ray_marched.quaternion_julia {iterations = 4, "
+            "threshold = 4, constant = vector(-0.45, -0.0375, -0.4, -0.025), slice_plane = 0, "
+            f"variant = quaternion_julia.cubic}}, bounds = {{type = \"sphere\", position = "
+            f"vector({x:.3f}, 0, {z:.3f}), radius = 0.3}}, material = {{surface = "
+            f"material.diffuse {{color = rgb(0.8, 0.55, 0.35)}}}}}},")
+    text = JULIA_SCENE % {"w": width, "h": height, "s": spectrum_samples, "b": bounces}
+    start = text.index("            shape.ray_marched {")
+    end = text.index("            shape.plane {")
+    text = text[:start] + "\n".join(shapes) + "\n" + text[end:]
+    text = text.replace("from = vector(0.4, 0.9, -3.4), to = vector(0, -0.2, 0)",
+                        f"from = vector(0, {side * 0.5:.2f}, -2), to = vector(0, 0, {side * 0.35 + 2:.2f})")
+    path = os.path.join(directory, f"de_{count}.lua")
+    with open(path, "w") as fh:
+        fh.write(text)
     return path
 
 
@@ -727,11 +874,72 @@ def terrain_paths(directory, cells=(405, 660), width=256, height=128, spp=8, bou
     }
 
 
+def gate_paths(directory):
+    """The scenes of the rest of the scene gate on the card (phases 3-6):
+    sunlit_terrain_405 (write_sunlit_terrain_scene: terrain_405 at 512 x
+    256, S = 10, 4 bounces, under SUN, FILL and the sky) and its
+    bidirectional twin (4 + 4 bounces beside the sphere lamp);
+    flagship_s32 (the flagship at 512 x 256, 8 bounces, S = 32, under SUN)
+    and the plain flagship at S = 24 and S = 64 (phase 3); materials_300
+    (write_spheres_scene: 300 spheres of a diffuse colour each, 150 of them
+    lamps, 130 floors, at 512 x 256, S = 10: the baked colour table) and
+    its bidirectional twin; textures_deep (texture_paths' textures with the
+    82-instruction, depth-12 colour program of DEEP); de_130
+    (write_de_many_scene, 128 x 64, phase 3) and de_520 (64 x 32, phase 3:
+    past the 512 shapes the march kernel's shared memory holds without
+    opting in). Returns {name: .lua path}."""
+    os.makedirs(directory, exist_ok=True)
+    flagship = scene_paths(directory, width=512, height=256, spectrum_samples=6, bounces=8)["flagship"]
+    spectra = lambda s: [("spectrum_samples = 6", f"spectrum_samples = {s}")]  # noqa: E731
+    spheres = dict(count=300, width=512, height=256, distinct=True, emissive=150, planes=130,
+                   spectrum_samples=10)
+    return {
+        "sunlit_terrain_405": write_sunlit_terrain_scene(directory),
+        "sunlit_terrain_405_bdpt": write_sunlit_terrain_scene(directory, spp=2,
+                                                              renderer="bidirectional"),
+        "flagship_s32": add_objects(flagship, [SUN], "flagship_s32", spectra(32)),
+        "flagship_s24": add_objects(flagship, [], "flagship_s24", spectra(24)),
+        "flagship_s64": add_objects(flagship, [], "flagship_s64", spectra(64)),
+        "materials_300": write_spheres_scene(directory, **spheres),
+        "materials_300_bdpt": write_spheres_scene(directory, **spheres, renderer="bidirectional"),
+        "textures_deep": write_textures_scene(os.path.join(directory, "deep"), 256, 192, 6, 4,
+                                              spp=16, deep=True),
+        "de_130": write_de_many_scene(directory),
+        "de_520": write_de_many_scene(directory, 520, 64, 32),
+    }
+
+
 _SCENES = {}
 
 
+@contextlib.contextmanager
+def without_tables():
+    """Scenes built inside keep no baked program table
+    (scene.BANK_TABLE_MIN out of reach): their kernels read the per-launch
+    [Pc, N, S] bank of exact values, as every scene did before the kernels
+    read the table."""
+    from pyrite_tpu_torch import scene as scene_mod
+
+    saved = scene_mod.BANK_TABLE_MIN
+    scene_mod.BANK_TABLE_MIN = 1 << 30
+    try:
+        yield
+    finally:
+        scene_mod.BANK_TABLE_MIN = saved
+
+
+def bank_key(path):
+    """A _gpu_scene key of the scene at ``path`` built without_tables."""
+    key = path + "#bank"
+    if key not in _SCENES:
+        with without_tables():
+            _SCENES[key] = load_scene(path)
+    return key
+
+
 def _gpu_scene(path):
-    """(scene, film, camera, cfg) of a .lua project, built on the GPU once."""
+    """(scene, film, camera, cfg) of a .lua project, built on the GPU once
+    (or of a bank_key)."""
     if path not in _SCENES:
         _SCENES[path] = load_scene(path)
     return _SCENES[path]
@@ -2152,16 +2360,19 @@ def time_copy_probes(path, card, seed=1, bounce=0):
     return out
 
 
-def print_occupancy(s):
+def print_occupancy(s, stack=8):
     """Resident blocks of 128 threads per SM of the bounce and NEE kernels'
-    instantiations at S spectral columns (pyrite_bounce_occupancy; the
-    kProg ones "n/a" in a checkout whose query does not give them)."""
+    instantiations at S spectral columns, the kProg ones at a program
+    stack of ``stack`` values (pyrite_bounce_occupancy; the kProg ones
+    "n/a" in a checkout whose query does not give them)."""
     import ctypes
 
     from pyrite_tpu_torch import _build
 
     blocks = (ctypes.c_int * 12)(*([-1] * 12))
-    rc = _build.load().pyrite_bounce_occupancy(s, blocks)
+    query = _build.load().pyrite_bounce_occupancy
+    # a checkout from before the kProg stack's depth was an argument
+    rc = query(s, blocks) if len(query.argtypes) == 2 else query(s, stack, blocks)
     assert rc == 0, f"pyrite_bounce_occupancy: cudaError {rc}"
     names = [f"{k}<{v}>" for k in ("dense_bounce_kernel", "dense_nee_kernel", "wide_bounce_kernel",
                                     "wide_nee_kernel") for v in ("false", "true")] + [
@@ -2327,7 +2538,7 @@ def _lanes_line(launches):
             f"{live / max(executed, 1):.4f})")
 
 
-def render_end_to_end(path, samples, card, out_dir, passes=False, which="regen"):
+def render_end_to_end(path, samples, card, out_dir, passes=False, which="regen", bank=False):
     """Phase 5: the CLI on the GPU through the scheduler ``which`` (regen,
     the default, pool or one-shot: see ``scheduler``); checks the PNG, the
     film and that every bounce iteration went through the scene's CUDA
@@ -2337,8 +2548,9 @@ def render_end_to_end(path, samples, card, out_dir, passes=False, which="regen")
     iteration (pool: once per stage for the camera and once per bounce).
     Prints the live and executed lane-bounces, the peak memory and the
     bytes a lane of the wavefront took (the peak over the memory held
-    before the render, per lane: renderers.simple.LANE_BYTES). Returns the
-    launch counts of the run."""
+    before the render, per lane, beside renderers.simple.lane_bytes). With
+    ``bank`` the scene is built without_tables. Returns the launch counts
+    of the run."""
     import numpy as np
     import torch
     from PIL import Image
@@ -2364,7 +2576,7 @@ def render_end_to_end(path, samples, card, out_dir, passes=False, which="regen")
     simple.render = recording_render
     _zero_counts()
     try:
-        with scheduler(which):
+        with scheduler(which), without_tables() if bank else contextlib.nullcontext():
             rc = cli.main([path, "--samples", str(samples), "--device", "cuda", "--output", out_png])
     finally:
         simple.render = render
@@ -2376,7 +2588,7 @@ def render_end_to_end(path, samples, card, out_dir, passes=False, which="regen")
         pixels = np.asarray(img)
     assert pixels.shape == (film.height, film.width, 3), pixels.shape
     assert pixels.max() > 0, "the image is all black"
-    scene = _gpu_scene(path)[0]
+    scene = _gpu_scene(bank_key(path) if bank else path)[0]
     kernels = kd.kernel_names(scene)
     bounces = launches["bounces"]
     assert bounces > 0 and launches[kernels[0]] == bounces, launches
@@ -2386,29 +2598,32 @@ def render_end_to_end(path, samples, card, out_dir, passes=False, which="regen")
     assert launches["de_march_pass"] == launches["de_shadow_pass"] == marches, launches
     r = cli.load_project(path).project.renderer
     pix = film.width * film.height
+    lane_bytes = simple.lane_bytes(scene, r.spectrum_samples)
     if which == "regen":
         assert launches["regen_iterations"] == bounces > 0, launches
         assert launches["philox_draws_kernel"] == bounces, launches
-        lanes = simple._regen_planes(film, scene.texture_bytes) * pix
+        lanes = simple._regen_planes(film, scene.texture_bytes, lane_bytes) * pix
     elif which == "pool":
         assert launches["pool_stages"] == samples and launches["pool_flushes"] > 0, launches
         assert launches["philox_draws_kernel"] == samples + bounces, launches
         lanes = simple.POOL_FACTOR * pix
     else:
         assert launches["regen_iterations"] == launches["pool_stages"] == 0, launches
-        lanes = min(simple.pick_sample_batch(film, scene.texture_bytes), samples) * pix
+        lanes = min(simple.pick_sample_batch(film, scene.texture_bytes, lane_bytes), samples) * pix
     rays = pix * samples * r.bounces * (1 + r.light_samples)
     print(
-        f"[end-to-end] {os.path.basename(path)} {film.width}x{film.height}, {samples} spp, "
+        f"[end-to-end] {os.path.basename(path)}{' (bank)' if bank else ''} {film.width}x"
+        f"{film.height}, {samples} spp, "
         f"S={r.spectrum_samples}, {r.bounces} bounces, {which}: "
         f"{rays / result['seconds'] / 1e6:.3f} Mrays/s nominal, render wall "
         f"{result['seconds']:.3f} s, peak memory {result['peak'] / 2**20:.1f} MiB (textures "
         f"{scene.texture_bytes / 2**20:.3f} MiB of it) ({card}); "
         f"{_lanes_line(launches)}; launches {launches}; image mean {pixels.mean():.2f}/255"
     )
-    print(f"[memory] {os.path.basename(path)} {which}: peak {result['peak']} B over {result['base']} B "
-          f"held before the render, {lanes} lanes: {(result['peak'] - result['base']) / lanes:.1f} B "
-          f"a lane (LANE_BYTES {simple.LANE_BYTES})")
+    print(f"[memory] {os.path.basename(path)}{' (bank)' if bank else ''} {which}: peak "
+          f"{result['peak']} B ({result['peak'] / 2**20:.1f} MiB) over {result['base']} B held "
+          f"before the render, {lanes} lanes: {(result['peak'] - result['base']) / lanes:.1f} B a "
+          f"lane (simple.lane_bytes {lane_bytes})")
     return launches
 
 
@@ -3174,17 +3389,19 @@ KERNEL_NAMES = ("dense_bounce_kernel", "dense_nee_kernel", "wide_bounce_kernel",
 def _kernel_label(mangled):
     """A kernel's name from its mangled one: the bounce, NEE and lamp
     kernels as name<true> / name<false> (kDE), with <record> and <prog>
-    after it for their kRecord and kProg instantiations; None for a function
-    that is none of KERNEL_NAMES."""
+    after it for their kRecord and kProg instantiations, and <gate> for the
+    bounce and NEE kernels' kGate ones that are not kProg; None for a
+    function that is none of KERNEL_NAMES."""
     name = next((k for k in KERNEL_NAMES if k in mangled), None)
     if name is None:
         return None
     flags = re.search(r"I((?:Lb[01]E)+)E", mangled)
-    if flags:  # <kDE>, the bounce kernels' kRecord, then kProg
+    if flags:  # <kDE>, the bounce kernels' kRecord, then kProg and kGate
         bits = re.findall(r"Lb([01])E", flags.group(1))
         name += "<true>" if bits[0] == "1" else "<false>"
-        record, prog = (bits[1:2], bits[2:]) if "bounce" in name else ([], bits[1:])
-        name += ("<record>" if record == ["1"] else "") + ("<prog>" if prog == ["1"] else "")
+        record, rest = (bits[1:2], bits[2:]) if "bounce" in name else ([], bits[1:])
+        tag = "<prog>" if rest[:1] == ["1"] else "<gate>" if rest[1:] == ["1"] else ""
+        name += ("<record>" if record == ["1"] else "") + tag
     tags = {"QueryShadowRays": "<query shadow>", "QueryRays": "<query>",
             "BounceRays": "<bounce>", "ShadowRays": "<shadow>"}
     return name + next((tag for t, tag in tags.items() if t in mangled), "")
@@ -3418,6 +3635,10 @@ PROG_VARIANTS = {
     "no_taps": [[(_TEXTURE_FN, _TEXTURE_FN + "  return f4(0.5f);\n")]],
     "stack_moved": [
         [("return at[i * BLOCK];", "return at[i];"),
+         ("  extern __shared__ __align__(16) float4 prog_smem[];\n"
+          "  const ProgStack st = {prog_smem + threadIdx.x};\n",
+          "  float4 stack[PROG_STACK];\n  const ProgStack st = {stack};\n")],
+        [("return at[i * BLOCK];", "return at[i];"),
          ("  __shared__ float4 stack[PROG_STACK * BLOCK];\n  const ProgStack st = {stack + threadIdx.x};\n",
           "  float4 stack[PROG_STACK];\n  const ProgStack st = {stack};\n")],
         [("  float4 st[PROG_STACK];\n  int sp = 0;\n",
@@ -3612,6 +3833,64 @@ def measure_rows(flagship, fractal, card):
     return times
 
 
+def measure_bank(path, card, out_dir):
+    """``--rows``, last: materials_300 (``path``) read from its baked colour
+    table against the same scene built without_tables (the per-launch
+    [Pc, N, S] bank every scene read before the kernels read the table):
+    the bounce and NEE kernels' times and bounds (time_kernels) and the
+    CLI's peak memory (render_end_to_end), each both ways."""
+    for key in (path, bank_key(path)):
+        time_kernels(key, card, plain_reps=1)
+    for bank in (False, True):
+        render_end_to_end(path, 4, card, out_dir, bank=bank)
+
+
+def check_gate(directory, card, out_dir):
+    """Phases 3-5 for the rest of the scene gate (gate_paths): directional
+    lamps, more than 16 spectrum samples, tables past 128 rows (the baked
+    colour table) and long programs. The draw kernel at S = 32 and 64 bit
+    for bit (check_draws); the bounce and NEE kernels against their plain
+    version (check_kernels; sunlit_terrain_405 on the first 131,072 lanes,
+    de_130 and de_520 at bounce 0), with no divergent lane; their times and
+    bounds (time_kernels, printed); then the CLI through regeneration
+    (render_end_to_end) on flagship_s32, flagship_s64, sunlit_terrain_405,
+    materials_300 and textures_deep. Returns (paths, worst errors, draw
+    errors, launch counts of the renders)."""
+    started = time.perf_counter()
+    gate = gate_paths(directory)
+    drawn = {name: check_draws(name, gate[name]) for name in ("flagship_s32", "flagship_s64")}
+    worst = {name: check_kernels(name, gate[name], **kw) for name, kw in (
+        ("sunlit_terrain_405", {"cut": 131072}), ("flagship_s32", {}), ("flagship_s24", {}),
+        ("flagship_s64", {}), ("materials_300", {}), ("textures_deep", {}),
+        ("de_130", {"bounces": 1}), ("de_520", {"bounces": 1}))}
+    divergent = {k: (w["divergent"], w["nee_divergent"]) for k, w in worst.items()
+                 if w["divergent"] or w["nee_divergent"]}
+    assert not divergent, f"the bounce or NEE kernel diverges from the plain version: {divergent}"
+    for name in ("flagship_s32", "flagship_s64", "sunlit_terrain_405", "materials_300",
+                 "textures_deep"):
+        time_kernels(gate[name], card, plain_reps=1)  # printed
+    runs = [render_end_to_end(gate[name], spp, card, out_dir) for name, spp in (
+        ("flagship_s32", 4), ("flagship_s64", 1), ("sunlit_terrain_405", 4), ("materials_300", 4),
+        ("textures_deep", 8))]
+    print(f"[phase] the rest of the scene gate (phases 3-5): {time.perf_counter() - started:.1f} s")
+    return gate, worst, drawn, runs
+
+
+def check_gate_bdpt(gate, card, out_dir):
+    """Phase 6 for the rest of the scene gate: the bidirectional renderer's
+    kernels against their plain versions (check_bdpt) on
+    sunlit_terrain_405_bdpt (directional lamps start no lamp path) and
+    materials_300_bdpt (150 sphere lamps, the baked colour table), and each
+    through the CLI (render_bdpt). Returns ({name: check_bdpt's result},
+    launch counts of the renders)."""
+    started = time.perf_counter()
+    checked = {name: check_bdpt(name, gate[name]) for name in (
+        "sunlit_terrain_405_bdpt", "materials_300_bdpt")}
+    runs = [render_bdpt(gate[name], 2, card, out_dir)[0] for name in checked]
+    print(f"[phase] the rest of the scene gate (phase 6): {time.perf_counter() - started:.1f} s")
+    return checked, runs
+
+
 def main(argv=None):
     import torch
 
@@ -3629,7 +3908,8 @@ def main(argv=None):
 
     from pyrite_tpu_torch import _build
 
-    shutil.rmtree(_build.BUILD_ROOT, ignore_errors=True)
+    if not argv:  # the main run builds from clean; a mode reuses a build of the same sources
+        shutil.rmtree(_build.BUILD_ROOT, ignore_errors=True)
     started = time.perf_counter()
     _build.load()
     print(f"[build] {len(_build.sources())} source(s) -> {_build.library_path()} "
@@ -3649,6 +3929,8 @@ def main(argv=None):
         with tempfile.TemporaryDirectory() as tmp:
             flagship = scene_paths(tmp, width=512, height=256, spectrum_samples=6, bounces=8)["flagship"]
             measure_rows(flagship, os.path.join(ROOT, "examples", "fractal.lua"), smi)
+            time_kernels(texture_paths(os.path.join(tmp, "textures"))["textures"], smi, plain_reps=1)
+            measure_bank(gate_paths(os.path.join(tmp, "gate"))["materials_300"], smi, tmp)
         return 0
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
@@ -3711,6 +3993,8 @@ def main(argv=None):
                     render_end_to_end(tex["textures"], 8, smi, tmp, which="one-shot"),
                     render_end_to_end(tex["textures_512"], 8, smi, tmp)]
         print(f"[phase] textures, normal maps and programs: {time.perf_counter() - tex_started:.1f} s")
+        gate, gate_worst, gate_drawn, gate_runs = check_gate(os.path.join(tmp, "gate"), smi, tmp)
+        drawn.update(gate_drawn)
         # the bidirectional renderer: its kernels against their plain
         # versions, a render through them against one through the plain
         # versions, then the CLI (each with the counts zeroed just before)
@@ -3730,6 +4014,7 @@ def main(argv=None):
                       if "prog" in k or "colors" in k})
         time_bdpt(tex_bdpt["untextured_bdpt"], smi)  # printed: the same geometry untextured
         tex_bdpt_run = render_bdpt(tex["textures_bdpt"], 2, smi, tmp)[0]
+        gate_bdpt, gate_bdpt_runs = check_gate_bdpt(gate, smi, tmp)
         print(f"[phase] the bidirectional renderer (phase 6): "
               f"{time.perf_counter() - bdpt_started:.1f} s")
 
@@ -3746,15 +4031,18 @@ def main(argv=None):
     # launches of the main paths: the simple renderer's, then the
     # bidirectional renderer's (bdpt_runs), then those of the textures
     # scenes (tex_runs, tex_bdpt_run)
-    dense_total = lambda key: sum(run[key] for run in dense_runs + de_runs)
-    tex_total = lambda key: sum(run[key] for run in tex_runs + [tex_bdpt_run])
+    dense_total = lambda key: sum(run[key] for run in dense_runs + de_runs + gate_runs)
+    tex_total = lambda key: sum(run[key] for run in tex_runs + [tex_bdpt_run] + gate_runs)
     tex_err = lambda w: max(w["bounce"], w["brightness"])
-    bdpt_total = lambda *keys: sum(run[k] for run in bdpt_runs for k in keys)
+    bdpt_total = lambda *keys: sum(run[k] for run in bdpt_runs + gate_bdpt_runs for k in keys)
+    wide_total = lambda key: sum(run[key] for run in [mesh_run] + gate_runs)
     passes = ("de_march_pass", "de_shadow_pass", "de_query_pass")
-    rendered = dense_runs + de_runs + [mesh_run]
+    rendered = dense_runs + de_runs + [mesh_run] + gate_runs
     queried = queries.values()
-    checked = list(worst.values())
-    bdpt_worst = [c["worst"] for c in bdpt_checked.values()]
+    checked = list(worst.values()) + [gate_worst[k] for k in (
+        "flagship_s32", "flagship_s24", "flagship_s64", "de_130", "de_520")]
+    checked_wide = [worst_wide] + [gate_worst[k] for k in ("sunlit_terrain_405", "materials_300")]
+    bdpt_worst = [c["worst"] for c in list(bdpt_checked.values()) + list(gate_bdpt.values())]
     tex_bdpt_worst = tex_bdpt["textures_bdpt"]["worst"]
     kernels = [
         kernel("dense_bounce_kernel", "bounce.cu", "pyrite_tpu/kernels_dense.py:717",
@@ -3774,11 +4062,14 @@ def main(argv=None):
                query_run["wide_shadow_kernel"] + bdpt_total("wide_shadow_kernel"),
                max(q["shadow"] for q in queried)),
         kernel("wide_bounce_kernel", "bounce.cu", "pyrite_tpu/kernels.py:125",
-               mesh_run["wide_bounce_kernel"], max(worst_wide["bounce"], worst_wide["brightness"])),
+               wide_total("wide_bounce_kernel"),
+               max(max(w["bounce"], w["brightness"]) for w in checked_wide)),
         kernel("wide_nee_kernel", "bounce.cu", "pyrite_tpu/kernels.py:337",
-               mesh_run["wide_nee_kernel"] + bdpt_total("wide_nee_kernel"), worst_wide["nee"]),
+               wide_total("wide_nee_kernel") + bdpt_total("wide_nee_kernel"),
+               max(w["nee"] for w in checked_wide)),
         kernel("philox_draws_kernel", "draws.cu", "pyrite_tpu/tracer.py:1069",
-               sum(run["philox_draws_kernel"] for run in rendered + bdpt_runs), max(drawn.values())),
+               sum(run["philox_draws_kernel"] for run in rendered + bdpt_runs + gate_bdpt_runs),
+               max(drawn.values())),
         # the bidirectional renderer's kernels port no TPU kernel (the JAX
         # package runs these steps in XLA); timed on cornell_class
         dict(kernel("dense_bounce_kernel<record>", "bounce.cu", None,
@@ -3796,10 +4087,12 @@ def main(argv=None):
         # the kProg instantiations: the textures scenes' programs per lane
         kernel("dense_bounce_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels_dense.py:717",
                tex_total("dense_bounce_kernel<prog>"),
-               max(tex_err(tex_worst[k]) for k in ("textures", "textures_1k"))),
+               max(tex_err(w) for w in (tex_worst["textures"], tex_worst["textures_1k"],
+                                        gate_worst["textures_deep"]))),
         kernel("dense_nee_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels_dense.py:909",
                tex_total("dense_nee_kernel<prog>"),
-               max(tex_worst[k]["nee"] for k in ("textures", "textures_1k"))),
+               max(w["nee"] for w in (tex_worst["textures"], tex_worst["textures_1k"],
+                                      gate_worst["textures_deep"]))),
         kernel("wide_bounce_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels.py:125",
                tex_total("wide_bounce_kernel<prog>"), tex_err(tex_worst["textures_512"])),
         kernel("wide_nee_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels.py:337",

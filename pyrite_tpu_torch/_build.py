@@ -42,14 +42,20 @@ _F = ctypes.c_float
 _DE = [_I, _F]  # the DE march's step cap and over-relaxation factor
 # ... ending in the scene's DE shape count, which picks the kernel
 # instantiation, and the march pass's t
-_BOUNCE = [_P] * 30 + [_I] * 5 + [_P]
-_NEE = [_P] * 16 + [_I] * 4 + [_F, _I, _P]
+# the scene and programs every shading kernel takes first (kernels_dense.
+# _scene_args): sheet, meta, code and per-launch values, then the baked
+# program tables, the lanes' wavelengths, the tables' grid, first
+# wavelength and steps per nm
+_SCENE = [_P] * 7 + [_P] * 3 + [_I, _F, _F]
+_BOUNCE = _SCENE + [_P] * 22 + [_I] * 5 + [_P]
+_NEE = _SCENE + [_P] * 9 + [_I] * 4 + [_F, _I, _P]
 _WIDE = [_P] * 6 + [_I]  # the mesh scene's tables and its leaf size
 _RECORD = [_P] * 7  # a kRecord bounce's camera vertex
-_LAMP = [_P] * 25 + [_I] * 6 + [_P]  # the lamp kernels
+_LAMP = _SCENE + [_P] * 17 + [_I] * 6 + [_P]  # the lamp kernels
 # what the kProg instantiations read (kernels_dense.prog_args), last before
-# the stream: ten tables, two program counts and the kProg flag
-_PROG = [_P] * 10 + [_I] * 3
+# the stream: ten tables, two program counts, the program stack's depth
+# and the scene's form (kernels_dense.FORM_*)
+_PROG = [_P] * 10 + [_I] * 4
 # argument lists of the extern "C" launchers in csrc/bounce.cu,
 # csrc/wide_bvh.cu, csrc/march_de.cu and csrc/draws.cu; a march pass ends in
 # its work counter (an unsigned 64-bit word) and the stream
@@ -62,7 +68,7 @@ _SIGNATURES = {
     "pyrite_wide_bounce_record": _BOUNCE + _WIDE + _RECORD + _PROG + [_P],
     "pyrite_dense_lamp": _LAMP + _PROG + [_P],
     "pyrite_wide_lamp": _LAMP + _WIDE + _PROG + [_P],
-    "pyrite_program_colors": [_P] * 13 + [_I] * 4 + _PROG + [_P],
+    "pyrite_program_colors": _SCENE + [_P] * 6 + [_I] * 4 + _PROG + [_P],
     "pyrite_dense_shadow": [_P] * 8 + [_I] * 2 + [_P, _P],
     "pyrite_wide_closest": [_P] * 4 + [_I] + [_P] * 12 + [_I, _P],
     "pyrite_wide_shadow": [_P] * 4 + [_I] + [_P] * 5 + [_I, _P],
@@ -71,7 +77,7 @@ _SIGNATURES = {
     "pyrite_de_march_shadow": [_P] * 8 + [_I] * 3 + _DE + [_P, _P],
     "pyrite_de_march_query_shadow": [_P] * 7 + [_I] * 2 + _DE + [_P, _P],
     "pyrite_philox_draws": [_U, _U, _I, _I, _U, _U, _U, _I, _I, _I] + [_P] * 7 + [_U, _I, _I, _P],
-    "pyrite_bounce_occupancy": [_I, _P],
+    "pyrite_bounce_occupancy": [_I, _I, _P],
 }
 
 

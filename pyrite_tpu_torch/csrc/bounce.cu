@@ -43,7 +43,7 @@
 
 namespace {
 
-constexpr int PROG_STACK = 8;  // exprs.PROG_STACK
+constexpr int PROG_STACK = 8;  // exprs.PROG_STACK: the simple instantiations' stack
 
 // exprs.OP_* (exprs.KernelPrograms); the simple instantiations interpret
 // the first eight (eval_prob), the kProg ones all (eval_program)
@@ -54,9 +54,10 @@ enum Op {
 };
 
 enum { BSDF_EMISSIVE = 0, BSDF_DIFFUSE = 1, BSDF_MIRROR = 2, BSDF_REFRACTIVE = 3 };
-enum { LAMP_POINT = 1, LAMP_SPHERE = 2, LAMP_TRIANGLE = 3 };
+enum { LAMP_DIRECTIONAL = 0, LAMP_POINT = 1, LAMP_SPHERE = 2, LAMP_TRIANGLE = 3 };
 
-// Per-launch program values and postfix code (kernels_dense.precompute_bank_values,
+// Per-launch program values, baked program tables and postfix code
+// (kernels_dense.precompute_bank_values, scene.bake_bank_tables,
 // exprs.KernelPrograms).
 struct Programs {
   const int* __restrict__ code_op;
@@ -64,10 +65,36 @@ struct Programs {
   // [programs + 1]: prob, color, normal, sky; in the kProg instantiations
   // [2 programs + 1]: each program's lane code, then its column code
   const int* __restrict__ code_off;
-  const float* __restrict__ cvals;   // [n_color, N, S]
-  const float* __restrict__ pvals;   // [n_prob, N], wavelength-only programs
+  const float* __restrict__ cvals;   // [n_color, N, S], null where ctable is not
+  const float* __restrict__ pvals;   // [n_prob, N], wavelength-only programs, null where ptable is not
   int n_color;
+  // a scene with BANK_TABLE_MIN wavelength-only color (probability)
+  // programs reads them from their [P, grid] table at each lane's
+  // wavelengths [N, S] (table_value) in place of cvals (pvals)
+  const float* __restrict__ ctable;
+  const float* __restrict__ ptable;
+  const float* __restrict__ wl;
+  int grid;
+  float lo, scale;  // the table's first wavelength, grid steps per nm
 };
+
+// tracer._bank_table_eval for one value: program `prog`'s row of a baked
+// [P, g] table, interpolated linearly at wavelength `wl`, in the plain
+// version's op order (`lo` the table's first wavelength, `scale` its grid
+// steps per nm)
+__device__ __forceinline__ float table_value(const float* __restrict__ table, int g, float lo,
+                                             float scale, int prog, float wl) {
+  const float pos = fminf(fmaxf((wl - lo) * scale, 0.0f), (float)(g - 1));
+  const int i0 = min((int)pos, g - 2);
+  const float frac = pos - (float)i0;
+  const float* row = table + (size_t)max(prog, 0) * g + i0;
+  const float v0 = __ldg(row), v1 = __ldg(row + 1);
+  return v0 + (v1 - v0) * frac;
+}
+__device__ __forceinline__ float table_value(const Programs& pr, const float* __restrict__ table,
+                                             int prog, float wl) {
+  return table_value(table, pr.grid, pr.lo, pr.scale, prog, wl);
+}
 
 // ortho (math.rs:98-117): v x unit, the unit picked per component
 __device__ __forceinline__ V3 ortho(V3 v) {
@@ -232,15 +259,27 @@ __device__ float fresnel(float ior, float env_ior, V3 n, V3 i) {
   return entering ? schlick(env_ior, ior, n, i) : schlick(ior, env_ior, -n, i);
 }
 
+// A wavelength-only probability program's value for one lane at its hero
+// wavelength (column 0 of its [N, S] row of wavelengths): from the baked
+// table where the scene has one, else the launch's values.
+__device__ __forceinline__ float prob_value(const Programs& pr, int prog, int lane, int n, int s) {
+  return pr.ptable ? table_value(pr, pr.ptable, prog, pr.wl[(size_t)lane * s])
+                   : pr.pvals[(size_t)prog * n + lane];
+}
+
 // tracer.eval_prob_bank for one lane in the simple instantiations: program
-// -1 is probability 1; wavelength-only programs were evaluated per launch;
+// -1 is probability 1; wavelength-only programs come from prob_value
+// (kTable; else from the launch's values: a scene without a baked table);
 // ray-input programs run their postfix code (the simple form: numbers,
-// OP_CONST .. OP_FRESNEL) here.
-__device__ float eval_prob(const Programs& pr, int prog, int lane, int n, V3 normal, V3 incident) {
+// OP_CONST .. OP_FRESNEL, within PROG_STACK values) here.
+template <bool kTable>
+__device__ float eval_prob(const Programs& pr, int prog, int lane, int n, int s, V3 normal,
+                           V3 incident) {
   if (prog < 0) return 1.0f;
   const int begin = pr.code_off[prog];
   const int end = pr.code_off[prog + 1];
-  if (begin == end) return pr.pvals[(size_t)prog * n + lane];
+  if (begin == end)
+    return kTable ? prob_value(pr, prog, lane, n, s) : pr.pvals[(size_t)prog * n + lane];
   float st[PROG_STACK];
   int sp = 0;
   for (int k = begin; k < end; ++k) {
@@ -307,6 +346,7 @@ struct ProgArgs {
   const float* __restrict__ pla_quat;      // [P, 4]
   const float* __restrict__ pla_texscale;  // [P, 2]
   int n_prob, n_normal;
+  int own_off;  // where the kernel's own dynamic shared memory starts, after the stack: floats
 };
 
 // What a program reads of its lane besides the leaves: normal, incident
@@ -435,10 +475,15 @@ __device__ float4 sample_texture(const ProgArgs& pa, int t, float u, float v) {
   return cubic(rows[0], rows[1], rows[2], rows[3], ty);
 }
 
-// eval_program's stack of PROG_STACK float4 values a thread: the thread's
-// column of the block's [PROG_STACK][BLOCK] float4 slice of shared memory
-// (16 KiB a block; a warp's access to one level is 512 contiguous bytes,
-// free of bank conflicts), value i at at[i * BLOCK]. A per-thread array
+// eval_program's stack of float4 values a thread: the thread's column of
+// the block's [depth][BLOCK] float4 slice of dynamic shared memory, depth
+// the scene's deepest program and at least PROG_STACK
+// (KernelPrograms.stack_depth: 16 KiB a block at 8; a warp's access to one
+// level is 512 contiguous bytes, free of bank conflicts), value i at at[i *
+// BLOCK]. It starts the dynamic shared memory, so that its address is the
+// static one it had (a start past the kernel's own arrays, known only at
+// run time, cost the textures bounce 4 % and spills); the launcher sizes
+// it, and the kernel's own arrays follow it (ProgArgs.own_off). A per-thread array
 // would live in local memory, its index known only at run time, and
 // measured up to 11 % slower on the NEE kernel and 71 % on
 // program_colors_kernel (`chip_smoke.py --prog`, variant stack_moved).
@@ -462,8 +507,8 @@ __device__ __forceinline__ bool has_code(const Programs& pr, int g) {
 // kernels measured 7-27 % slower (`chip_smoke.py --prog`, PERF.md).
 __device__ __forceinline__ float4 eval_program(const Programs& pr, const ProgArgs& pa, int g, int lane,
                                             int n, int s, int cols, const ProgIn& in, float* out) {
-  __shared__ float4 stack[PROG_STACK * BLOCK];
-  const ProgStack st = {stack + threadIdx.x};
+  extern __shared__ __align__(16) float4 prog_smem[];
+  const ProgStack st = {prog_smem + threadIdx.x};
   float4 first = f4(0.0f);
   int slots = 0;
   for (int k = -1; k < cols; ++k) {
@@ -538,7 +583,7 @@ __device__ __forceinline__ float4 eval_program(const Programs& pr, const ProgArg
 __device__ float eval_prob_code(const Programs& pr, const ProgArgs& pa, int prog, int lane, int n,
                                 int s, const ProgIn& in) {
   if (prog < 0) return 1.0f;
-  if (!has_code(pr, prog)) return pr.pvals[(size_t)prog * n + lane];
+  if (!has_code(pr, prog)) return prob_value(pr, prog, lane, n, s);
   return eval_program(pr, pa, prog, lane, n, s, 1, in, nullptr).x;
 }
 
@@ -666,7 +711,7 @@ __device__ __forceinline__ int pick_component(const Sheet& sh, int mat, float u_
 struct BounceArgs {
   Sheet sheet;
   Programs progs;
-  const float* __restrict__ sky;  // [N, S]
+  const float* __restrict__ sky;  // [1 + D, N, S]: the sky, then each directional lamp's color
   const float* __restrict__ wl;   // [N, S], hero at column 0
   const float* __restrict__ origin;
   const float* __restrict__ direction;
@@ -729,21 +774,41 @@ __host__ __device__ __forceinline__ size_t bounce_smem_bytes(int s, bool de) {
   return sizeof(float) * ((size_t)BLOCK * (4 * s + 12) + (de ? (BLOCK / 32) * DE_SLOT_FLOATS : 0));
 }
 
-// The widest row a warp moves: kernels_dense.MAX_SPECTRUM_SAMPLES.
+// The widest row the unrolled part of warp_gather moves; wider rows (S >
+// 16) go on in a loop of the same steps.
 constexpr int MAX_ROW = 16;
 
 // The lane (of 32) whose row holds word i of a warp's [32, width] rows:
-// i / width, through the reciprocal (exact for i < 32 x MAX_ROW: the
-// quotient's fraction is at least 1 / (2 width) from an integer).
+// i / width, through the reciprocal (exact for any i < 32 x width up to
+// widths of thousands: the quotient's fraction is at least 1 / (2 width)
+// from an integer, and the product's error is below 2^-19).
 __device__ __forceinline__ int row_owner(int i, float inv_width) {
   return min((int)(((float)i + 0.5f) * inv_width), 31);
 }
 
-// Each lane's row of `width` (<= MAX_ROW) floats at `src` (nullptr: zeros)
-// into the warp's [32, width] rows `dst` in shared memory. Consecutive
-// threads read consecutive words, row after row, so a warp's loads of
-// neighbouring lanes' rows are contiguous runs; four loads are in flight
-// per thread. Every thread of the warp calls it.
+// Words r0 .. r0 + 3 (of `width`) of the warp's [32, width] rows: four loads
+// in flight per thread.
+__device__ __forceinline__ void gather_step(float* dst, unsigned long long mine, int width,
+                                            float inv, int lid, int r0) {
+  float v[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int i = lid + 32 * (r0 + q), owner = row_owner(i, inv);
+    const float* p = reinterpret_cast<const float*>(__shfl_sync(FULL_WARP, mine, owner));
+    v[q] = (r0 + q < width && p) ? p[i - owner * width] : 0.0f;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (r0 + q < width) dst[lid + 32 * (r0 + q)] = v[q];
+}
+
+// Each lane's row of `width` floats at `src` (nullptr: zeros) into the
+// warp's [32, width] rows `dst` in shared memory. Consecutive threads read
+// consecutive words, row after row, so a warp's loads of neighbouring
+// lanes' rows are contiguous runs. The first MAX_ROW words of each row
+// unrolled, the rest (kWide: S > 16) in a loop. Every thread of the warp
+// calls it.
+template <bool kWide>
 __device__ __forceinline__ void warp_gather(float* dst, const float* src, int width) {
   const int lid = threadIdx.x & 31;
   const unsigned long long mine = reinterpret_cast<unsigned long long>(src);
@@ -752,16 +817,11 @@ __device__ __forceinline__ void warp_gather(float* dst, const float* src, int wi
 #pragma unroll
   for (int r0 = 0; r0 < MAX_ROW; r0 += 4) {
     if (r0 >= width) break;
-    float v[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int i = lid + 32 * (r0 + q), owner = row_owner(i, inv);
-      const float* p = reinterpret_cast<const float*>(__shfl_sync(FULL_WARP, mine, owner));
-      v[q] = (r0 + q < width && p) ? p[i - owner * width] : 0.0f;
-    }
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (r0 + q < width) dst[lid + 32 * (r0 + q)] = v[q];
+    gather_step(dst, mine, width, inv, lid, r0);
+  }
+  if (kWide) {
+#pragma unroll 1
+    for (int r0 = MAX_ROW; r0 < width; r0 += 4) gather_step(dst, mine, width, inv, lid, r0);
   }
   __syncwarp();
 }
@@ -867,11 +927,15 @@ __device__ __forceinline__ void de_normals_shared(const Sheet& sh, float* slots,
 // nothing), the shading normal, the BRDF factor of a reflection (1
 // elsewhere) and the flags is_diffuse, dispersed, recorded and miss. The
 // simple renderer's instantiations (kRecord = false) compile to the code
-// they had.
-template <class Geo, bool kDE, bool kRecord, bool kProg>
+// they had. kGate (always where kProg) compiles in what the scene gate
+// took last: directional lamps on a miss, the baked colour and probability
+// tables and rows past MAX_ROW columns; without it the code is the one
+// before them (kernels_dense.build_pack's "form" picks it).
+template <class Geo, bool kDE, bool kRecord, bool kProg, bool kGate>
 __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo, const Record& rec,
                                             const ProgArgs& pa) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) float dyn_smem[];
+  float* smem = dyn_smem + (kProg ? pa.own_off : 0);  // after the program stack
   const int n = a.n, s = a.s, t = threadIdx.x;
   const int base = blockIdx.x * BLOCK, lane = base + t;
   const int rows = min(BLOCK, n - base);
@@ -920,7 +984,9 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
   bool normal_dispersed = false;
   const float* row_src = nullptr;  // this lane's sky or color row
   ProgIn in = {d, d, 0.0f, 0.0f};  // kProg: what its programs read
-  int code_prog = -1;              // kProg: the program whose code gives the row
+  // the program whose row the lane makes itself: in kProg one whose code
+  // gives it (>= 0), or -2 - the baked color program whose table gives it
+  int own_prog = -1;
   if (found) {
     hit_surface<Geo, kDE>(sh, geo, h, pos, normal, mat);
     if (kProg) {  // the frame and uv, then the normal map (tracer._shading_normal)
@@ -933,7 +999,7 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
     comp = pick_component(sh, mat, a.u_comp[lane]);
     const int prob = sh.iat(M_COMP_PROB, comp);
     comp_probability = (kProg ? eval_prob_code(pr, pa, prob, lane, n, s, in)
-                              : eval_prob(pr, prob, lane, n, normal, d)) *
+                              : eval_prob<kGate>(pr, prob, lane, n, s, normal, d)) *
                        sh.at(M_COMP_SELECTION, comp);
     normal_dispersed = sh.at(M_COMP_PROB_USES_WL, comp) > 0.5f;
     bsdf = sh.iat(M_COMP_BSDF, comp);
@@ -941,23 +1007,40 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
     // tracer.eval_color_bank: out-of-range programs are 0
     if (color_id >= 0 && color_id < pr.n_color) {
       int g;
-      if (kProg && color_code(pr, pa, color_id, g)) code_prog = g;
+      if (kProg && color_code(pr, pa, color_id, g)) own_prog = g;
+      else if (kGate && pr.ctable) own_prog = -2 - color_id;
       else row_src = pr.cvals + ((size_t)color_id * n + lane) * s;
     }
   } else if (alive) {
-    // miss: sky (directional lamps are gated out of the pack), which reads
-    // normal -d, incident d and uv 0
-    const int g = pa.n_prob + pr.n_color + pa.n_normal;
+    // miss: the first directional lamp whose direction . d >= its width
+    // while the lane samples lamps, else the sky (tracer.bounce_core); its
+    // program reads normal -d, incident d and uv 0, a wavelength-only one
+    // row 1 + j (the lamp's) or 0 (the sky's) of the launch's values
+    int g = pa.n_prob + pr.n_color + pa.n_normal, sky_row = 0;
+    if constexpr (kGate) {
+      const int n_dir = sh.count(M_N_DIR);
+      if (n_dir > 0 && a.sample_light[lane])
+        for (int j = 0; j < n_dir; ++j)
+          if (dot(V3{sh.at(M_DIR_VX, j), sh.at(M_DIR_VY, j), sh.at(M_DIR_VZ, j)}, d) >=
+              sh.at(M_DIR_WIDTH, j)) {
+            g = pa.n_prob + sh.iat(M_DIR_COLOR, j);
+            sky_row = 1 + j;
+            break;
+          }
+    }
     if (kProg && has_code(pr, g)) {
-      code_prog = g;
+      own_prog = g;
       in.normal = -d;
     } else {
-      row_src = a.sky + (size_t)lane * s;
+      row_src = a.sky + ((size_t)sky_row * n + lane) * s;
     }
   }
-  warp_gather(C + (t & ~31) * s, row_src, s);
-  if (kProg && code_prog >= 0)  // the lane's own row, after the warp's gather
-    eval_program(pr, pa, code_prog, lane, n, s, s, in, C + t * s);
+  warp_gather<kGate>(C + (t & ~31) * s, row_src, s);
+  if (kProg && own_prog >= 0)  // the lane's own row, after the warp's gather
+    eval_program(pr, pa, own_prog, lane, n, s, s, in, C + t * s);
+  if (kGate && own_prog < -1)
+    for (int k = 0; k < s; ++k)
+      C[t * s + k] = table_value(pr, pr.ctable, -2 - own_prog, a.wl[(size_t)lane * s + k]);
 
   if (in_range) {
     const bool aux = a.aux_alive[lane];
@@ -1080,14 +1163,23 @@ struct LampSample {
   float u, v;  // the sample's surface uv (kUV)
 };
 
-// tracer.sample_lamp for one lane: point, sphere and triangle lamps; with
-// kUV also the uv of a sphere or triangle sample (its "surf_uv").
-template <bool kUV = false>
+// tracer.sample_lamp for one lane: directional, point, sphere and triangle
+// lamps; with kUV also the uv of a sphere or triangle sample (its
+// "surf_uv"). A directional lamp's direction is a cone sample about its own
+// where its width (a cosine) is above 0, else its own; its distance is
+// infinite and its weight 1 (kDir: the NEE kernels' kGate instantiations,
+// the DE shadow pass).
+template <bool kUV = false, bool kDir = true>
 __device__ LampSample sample_lamp(const Sheet& sh, int li, V3 p, float u0, float u1) {
   LampSample ls = {{0.f, 0.f, 1.f}, INFINITY, 0.0f, {0.f, 0.f, 1.f}, 0, false};
   const int type = sh.iat(M_LAMP_TYPE, li);
   const int ref = max(sh.iat(M_LAMP_REF, li), 0);
-  if (type == LAMP_POINT) {
+  if (kDir && type == LAMP_DIRECTIONAL) {
+    const V3 dir = {sh.at(M_LAMP_VX, li), sh.at(M_LAMP_VY, li), sh.at(M_LAMP_VZ, li)};
+    const float width = sh.at(M_LAMP_WIDTH, li);
+    ls.dir = width > 0.0f ? sample_cone(u0, u1, dir, width) : dir;
+    ls.weight = 1.0f;
+  } else if (type == LAMP_POINT) {
     const V3 v = V3{sh.at(M_LAMP_VX, li), sh.at(M_LAMP_VY, li), sh.at(M_LAMP_VZ, li)} - p;
     ls.sq_distance = dot(v, v);
     ls.dir = normalize(v);
@@ -1193,16 +1285,15 @@ __device__ LampSample sample_lamp(const Sheet& sh, int li, V3 p, float u0, float
 // the surface, call it with active = false, once per light sample like the
 // others (the loop over light samples is uniform across the warp), and only
 // help sweep.
-template <class Geo, bool kDE, bool kProg>
+template <class Geo, bool kDE, bool kProg, bool kGate>
 __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo, const ProgArgs& pa) {
   __shared__ int lanes[BLOCK];             // the block's NEE lanes, in lane order
   __shared__ int warp_count[BLOCK / 32];  // NEE lanes per warp
-  float* colors = nullptr;  // kProg: each thread's row of its lamp's colour program
-  if constexpr (kProg) {
-    __shared__ float rows[BLOCK * MAX_ROW];
-    colors = rows + threadIdx.x * MAX_ROW;
-  }
+  // kProg: each thread's row of its lamp's colour program, the block's
+  // [BLOCK, S] floats of dynamic shared memory (after the program stack)
+  extern __shared__ __align__(16) float nee_smem[];
   const int n = a.n, s = a.s, t = threadIdx.x, lid = t & 31;
+  float* colors = nee_smem + pa.own_off + t * s;
   const int base = blockIdx.x * BLOCK;
   const bool mine = base + t < n && a.nee[base + t];
   const unsigned marked = __ballot_sync(FULL_WARP, mine);
@@ -1241,7 +1332,7 @@ __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo, const
         u0 = u[0];
         u1 = u[1];
       }
-      ls = sample_lamp<kProg>(sh, li, p, u0, u1);
+      ls = sample_lamp<kProg, kGate>(sh, li, p, u0, u1);
     }
     const bool cast = nee && fmaxf(dot(flip, ls.dir), 0.0f) > 0.0f;
     if (!Geo::kWholeWarp && !cast) continue;
@@ -1264,7 +1355,7 @@ __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo, const
       const int e_comp = sh.iat(M_EMIS_COMP, eidx);
       const int prob = sh.iat(M_COMP_PROB, e_comp);
       mat_prob = (kProg ? eval_prob_code(pr, pa, prob, lane, n, s, {ls.normal, ls.dir, ls.u, ls.v})
-                        : eval_prob(pr, prob, lane, n, ls.normal, ls.dir)) *
+                        : eval_prob<kGate>(pr, prob, lane, n, s, ls.normal, ls.dir)) *
                  sh.at(M_EMIS_SELECTION, eidx);
       l_dispersed = sh.at(M_COMP_PROB_USES_WL, e_comp) > 0.5f;
       color_id = sh.iat(M_COMP_COLOR, e_comp);
@@ -1281,6 +1372,14 @@ __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo, const
       const int cols = aux && !l_dispersed ? s : 1;
       eval_program(pr, pa, g, lane, n, s, cols, in, colors);
       for (int k = 0; k < cols; ++k) a.brightness[row + k] += colors[k] * l_prob * a.refl_nee[row + k];
+      continue;
+    }
+    if (kGate && pr.ctable) {  // the baked table at the lane's wavelengths
+      for (int k = 0; k < s; ++k)
+        if (k == 0 || (aux && !l_dispersed))
+          a.brightness[row + k] +=
+              (colored ? table_value(pr, pr.ctable, color_id, pr.wl[row + k]) : 0.0f) * l_prob *
+              a.refl_nee[row + k];
       continue;
     }
     const float* c = pr.cvals + ((size_t)(colored ? color_id : 0) * n + lane) * s;
@@ -1328,7 +1427,8 @@ struct LampArgs {
 // triangle lamp, the emissive component of a shape lamp and its
 // probability program, and Bounce.probability = weight / (pick probability
 // x material probability); the walk starts DIST_EPSILON off the emitter
-// along its normal.
+// along its normal. A directional lamp starts no path: its vertex is not
+// valid (at the origin, weight 1).
 template <bool kProg>
 __device__ __forceinline__ void lamp_start_lane(const LampArgs& a, const ProgArgs& pa, int lane) {
   const Sheet sh = a.sheet;
@@ -1337,11 +1437,11 @@ __device__ __forceinline__ void lamp_start_lane(const LampArgs& a, const ProgArg
   float su = 0.0f, sv = 0.0f;  // kProg: the emitter's uv
   int color = -1, smat = 0;
   float prob = 1.0f;
-  bool dispersed = false, is_shape = false;
-  const bool valid = a.n_lamps > 0;
-  if (valid) {
+  bool dispersed = false, is_shape = false, valid = false;
+  if (a.n_lamps > 0) {
     const int li = min((int)(u[0] * (float)a.n_lamps), a.n_lamps - 1);
     const int type = sh.iat(M_LAMP_TYPE, li), ref = max(sh.iat(M_LAMP_REF, li), 0);
+    valid = type != LAMP_DIRECTIONAL;
     float weight = 1.0f;
     if (type == LAMP_POINT) {
       pos = {sh.at(M_LAMP_VX, li), sh.at(M_LAMP_VY, li), sh.at(M_LAMP_VZ, li)};
@@ -1396,7 +1496,7 @@ __device__ __forceinline__ void lamp_start_lane(const LampArgs& a, const ProgArg
       const int e_comp = sh.iat(M_EMIS_COMP, eidx);
       const int prob = sh.iat(M_COMP_PROB, e_comp);
       mat_prob = (kProg ? eval_prob_code(a.progs, pa, prob, lane, a.n, a.s, {normal, -dir, su, sv})
-                        : eval_prob(a.progs, prob, lane, a.n, normal, -dir)) *
+                        : eval_prob<true>(a.progs, prob, lane, a.n, a.s, normal, -dir)) *
                  sh.at(M_EMIS_SELECTION, eidx);
       dispersed = sh.at(M_COMP_PROB_USES_WL, e_comp) > 0.5f;
       color = sh.iat(M_COMP_COLOR, e_comp);
@@ -1454,7 +1554,7 @@ __device__ __forceinline__ void lamp_lane(const LampArgs& a, const Geo& geo, con
   const bool found = alive && h.kind != KIND_NONE;
   V3 normal = {0.f, 0.f, 0.f};
   int mat = 0;
-  if (kDE) de_normals_shared(sh, lamp_smem + (threadIdx.x >> 5) * DE_SLOT_FLOATS,
+  if (kDE) de_normals_shared(sh, lamp_smem + (kProg ? pa.own_off : 0) + (threadIdx.x >> 5) * DE_SLOT_FLOATS,
                              found && h.kind == KIND_DE, h, o, d, normal, mat);
   if (!in_range) return;
   const V3 pos = o + d * h.t;
@@ -1477,7 +1577,7 @@ __device__ __forceinline__ void lamp_lane(const LampArgs& a, const Geo& geo, con
     const int prob_prog = sh.iat(M_COMP_PROB, comp);
     const float comp_probability =
         (kProg ? eval_prob_code(a.progs, pa, prob_prog, lane, a.n, a.s, in)
-               : eval_prob(a.progs, prob_prog, lane, a.n, normal, d)) *
+               : eval_prob<true>(a.progs, prob_prog, lane, a.n, a.s, normal, d)) *
         sh.at(M_COMP_SELECTION, comp);
     const int bsdf = sh.iat(M_COMP_BSDF, comp);
     color = sh.iat(M_COMP_COLOR, comp);
@@ -1554,16 +1654,18 @@ __global__ void __launch_bounds__(BLOCK) dense_shadow_kernel(const ShadowArgs a)
 
 // Each kernel's kProg instantiation (kProg = true) runs a scene whose
 // programs need the program form; <..., false> reads none of ProgArgs and
-// is the code it was.
-template <bool kDE, bool kRecord, bool kProg>
+// is the code it was. The bounce and NEE kernels' kGate instantiations
+// (bounce_lane) run a simple scene with directional lamps, a baked table or
+// more than MAX_ROW spectral columns; every kProg one is also kGate.
+template <bool kDE, bool kRecord, bool kProg, bool kGate>
 __global__ void __launch_bounds__(BLOCK)
     dense_bounce_kernel(const BounceArgs a, const Record rec, const ProgArgs pa) {
-  bounce_lane<DenseGeo, kDE, kRecord, kProg>(a, DenseGeo{}, rec, pa);
+  bounce_lane<DenseGeo, kDE, kRecord, kProg, kGate>(a, DenseGeo{}, rec, pa);
 }
 
-template <bool kDE, bool kProg>
+template <bool kDE, bool kProg, bool kGate>
 __global__ void __launch_bounds__(BLOCK) dense_nee_kernel(const NeeArgs a, const ProgArgs pa) {
-  nee_lane<DenseGeo, kDE, kProg>(a, DenseGeo{}, pa);
+  nee_lane<DenseGeo, kDE, kProg, kGate>(a, DenseGeo{}, pa);
 }
 
 // The kProg instantiations ask for 6 resident blocks (at most 80 registers,
@@ -1574,25 +1676,25 @@ __global__ void __launch_bounds__(BLOCK) dense_nee_kernel(const NeeArgs a, const
 // keep their launch bounds (a second bound there changes their registers).
 template <>
 __global__ void __launch_bounds__(BLOCK, 6)
-    dense_nee_kernel<false, true>(const NeeArgs a, const ProgArgs pa) {
-  nee_lane<DenseGeo, false, true>(a, DenseGeo{}, pa);
+    dense_nee_kernel<false, true, true>(const NeeArgs a, const ProgArgs pa) {
+  nee_lane<DenseGeo, false, true, true>(a, DenseGeo{}, pa);
 }
 template <>
 __global__ void __launch_bounds__(BLOCK, 6)
-    dense_nee_kernel<true, true>(const NeeArgs a, const ProgArgs pa) {
-  nee_lane<DenseGeo, true, true>(a, DenseGeo{}, pa);
+    dense_nee_kernel<true, true, true>(const NeeArgs a, const ProgArgs pa) {
+  nee_lane<DenseGeo, true, true, true>(a, DenseGeo{}, pa);
 }
 
-template <bool kDE, bool kRecord, bool kProg>
+template <bool kDE, bool kRecord, bool kProg, bool kGate>
 __global__ void __launch_bounds__(BLOCK)
     wide_bounce_kernel(const BounceArgs a, const WideGeo geo, const Record rec, const ProgArgs pa) {
-  bounce_lane<WideGeo, kDE, kRecord, kProg>(a, geo, rec, pa);
+  bounce_lane<WideGeo, kDE, kRecord, kProg, kGate>(a, geo, rec, pa);
 }
 
-template <bool kDE, bool kProg>
+template <bool kDE, bool kProg, bool kGate>
 __global__ void __launch_bounds__(BLOCK)
     wide_nee_kernel(const NeeArgs a, const WideGeo geo, const ProgArgs pa) {
-  nee_lane<WideGeo, kDE, kProg>(a, geo, pa);
+  nee_lane<WideGeo, kDE, kProg, kGate>(a, geo, pa);
 }
 
 template <bool kDE, bool kProg>
@@ -1637,6 +1739,9 @@ __global__ void __launch_bounds__(BLOCK) program_colors_kernel(const ColorArgs a
   if (ok && color_code(a.progs, pa, prog, g)) {
     const ProgIn in = {load3(a.normal, m), load3(a.incident, m), a.uv[2 * m], a.uv[2 * m + 1]};
     eval_program(a.progs, pa, g, lane, a.n, s, s, in, out);
+  } else if (a.progs.ctable) {  // the baked table at the lane's wavelengths
+    for (int k = 0; k < s; ++k)
+      out[k] = ok ? table_value(a.progs, a.progs.ctable, prog, a.progs.wl[(size_t)lane * s + k]) : 0.0f;
   } else {
     const float* c = a.progs.cvals + ((size_t)(ok ? prog : 0) * a.n + lane) * s;
     for (int k = 0; k < s; ++k) out[k] = ok ? c[k] : 0.0f;
@@ -1724,6 +1829,18 @@ struct QueryShadowRays {
   __device__ __forceinline__ void end(long long i, const March& m) const { t_de[i] = march_t(m); }
 };
 
+// The dynamic shared memory a block gets without opting in (48 KiB), less
+// the kernels' static arrays (at most the NEE kernels' 528 bytes).
+constexpr size_t SMEM_DEFAULT = 47 * 1024;
+
+// Opts `kernel` in to `smem` bytes of dynamic shared memory where that
+// passes SMEM_DEFAULT (a bounce kernel past S = 20, a kProg one past S = 12),
+// and makes no call below it: a call before every launch is not free.
+void opt_in_smem(const void* kernel, size_t smem) {
+  if (smem > SMEM_DEFAULT)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 // One launch over `n` lanes of a kernel's <true> instantiation where the
 // scene has DE shapes and its <false> one elsewhere, with `smem` bytes of
 // dynamic shared memory.
@@ -1733,11 +1850,7 @@ void launch_lanes(K with_de, K without_de, int n, int n_de, size_t smem, void* s
   if (n <= 0) return;
   const dim3 grid((n + BLOCK - 1) / BLOCK);
   const K kernel = n_de > 0 ? with_de : without_de;
-  // a kProg instantiation's static 16 KiB (eval_program's stack) and more
-  // than 32 KiB of dynamic shared memory (the bounce kernels past S = 10)
-  // pass the 48 KiB a block gets without opting in
-  if (smem > 32 * 1024)
-    cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  opt_in_smem((const void*)kernel, smem);
   kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(args...);
 }
 
@@ -1754,33 +1867,38 @@ extern "C" {
 // the caller's cudaStream_t. Each returns cudaGetLastError() after the
 // launch (0 on success); nothing is allocated or synchronised here.
 
-#define BOUNCE_PARAMS                                                                          \
+// What every shading kernel takes first: the sheet, the program code and
+// the launch's values, then the baked program tables (null where the scene
+// has none), the lanes' wavelengths and the tables' grid (Programs).
+#define SCENE_PARAMS                                                                           \
   const float *sheet, const int *meta, const int *code_op, const float *code_val,               \
-      const int *code_off, const float *cvals, const float *pvals, const float *sky,            \
-      const float *wl, const float *origin, const float *direction, const float *brightness,    \
-      const float *reflectance, const uint8_t *alive, const uint8_t *aux_alive,                 \
-      const uint8_t *sample_light, const int *light_events, const float *u_comp,                \
-      const float *u_scatter, float *o_origin, float *o_direction, float *o_brightness,         \
-      float *o_reflectance, uint8_t *o_alive, uint8_t *o_aux_alive, uint8_t *o_sample_light,    \
-      int *o_light_events, float *o_flip, float *o_refl_nee, uint8_t *o_nee, int n, int s,      \
-      int light_samples, int n_color, int n_de, const float *t_de
+      const int *code_off, const float *cvals, const float *pvals, const float *ctable,         \
+      const float *ptable, const float *wl, int grid, float bank_lo, float bank_scale
+#define PROGRAMS(N_COLOR) \
+  {code_op, code_val, code_off, cvals, pvals, N_COLOR, ctable, ptable, wl, grid, bank_lo, bank_scale}
+#define BOUNCE_PARAMS                                                                          \
+  SCENE_PARAMS, const float *sky, const float *origin, const float *direction,                   \
+      const float *brightness, const float *reflectance, const uint8_t *alive,                  \
+      const uint8_t *aux_alive, const uint8_t *sample_light, const int *light_events,           \
+      const float *u_comp, const float *u_scatter, float *o_origin, float *o_direction,         \
+      float *o_brightness, float *o_reflectance, uint8_t *o_alive, uint8_t *o_aux_alive,        \
+      uint8_t *o_sample_light, int *o_light_events, float *o_flip, float *o_refl_nee,           \
+      uint8_t *o_nee, int n, int s, int light_samples, int n_color, int n_de, const float *t_de
 #define BOUNCE_ARGS                                                                            \
   BounceArgs a = {{sheet, meta},                                                               \
-                  {code_op, code_val, code_off, cvals, pvals, n_color},                        \
+                  PROGRAMS(n_color),                                                           \
                   sky, wl, origin, direction, brightness, reflectance, alive, aux_alive,       \
                   sample_light, light_events, u_comp, u_scatter, o_origin, o_direction,        \
                   o_brightness, o_reflectance, o_alive, o_aux_alive, o_sample_light,           \
                   o_light_events, o_flip, o_refl_nee, o_nee, n, s, light_samples, t_de}
 #define NEE_PARAMS                                                                             \
-  const float *sheet, const int *meta, const int *code_op, const float *code_val,               \
-      const int *code_off, const float *cvals, const float *pvals, const float *position,       \
-      const float *flip, const uint8_t *nee, const uint8_t *aux_alive, const float *refl_nee,   \
-      const int *lamp_idx, const float *u_nee, const float *u_emis, float *brightness, int n,   \
-      int s, int light_samples, int n_color, float nee_prob, int n_de,                          \
-      const float *t_de_shadow
+  SCENE_PARAMS, const float *position, const float *flip, const uint8_t *nee,                    \
+      const uint8_t *aux_alive, const float *refl_nee, const int *lamp_idx, const float *u_nee, \
+      const float *u_emis, float *brightness, int n, int s, int light_samples, int n_color,     \
+      float nee_prob, int n_de, const float *t_de_shadow
 #define NEE_ARGS                                                                               \
   NeeArgs a = {{sheet, meta},                                                                  \
-               {code_op, code_val, code_off, cvals, pvals, n_color},                           \
+               PROGRAMS(n_color),                                                              \
                position, flip, nee, aux_alive, refl_nee, lamp_idx, u_nee, u_emis, brightness,  \
                n, s, light_samples, nee_prob, t_de_shadow}
 // the mesh scene's tables, after the shared arguments
@@ -1788,19 +1906,33 @@ extern "C" {
   const float *rows, const float *geo, const float *tri_n, const int *tri_mat,                  \
       const float *sph_center, const int *sph_mat, int leaf
 #define WIDE_GEO const WideGeo g = {{rows, geo, leaf}, tri_n, tri_mat, sph_center, sph_mat}
-// what the kProg instantiations read (ProgArgs), and `prog`, which picks them
+// what the kProg instantiations read (ProgArgs), the depth of their program
+// stack, and the scene's `form`, which picks the instantiation
+// (kernels_dense.build_pack): FORM_SIMPLE, FORM_PROG (kProg) or FORM_GATE
+// (the simple code with the gate's: kGate)
+enum { FORM_SIMPLE = 0, FORM_PROG = 1, FORM_GATE = 2 };
 #define PROG_PARAMS                                                                            \
   const int *p_arg, const float *p_vecs, const float *p_leaves, const float *p_tex,             \
       const int *p_tex_info, const float *p_tri_q, const float *p_tri_uv,                       \
       const float *p_sph_texscale, const float *p_pla_quat, const float *p_pla_texscale,        \
-      int p_n_prob, int p_n_normal, int prog
+      int p_n_prob, int p_n_normal, int p_stack, int form
+// ProgArgs; in the kProg instantiations the program stack of p_stack
+// float4 values a thread starts the dynamic shared memory, the kernel's own
+// arrays after it
+#define STACK_BYTES (form == FORM_PROG ? (size_t)p_stack * BLOCK * sizeof(float4) : 0)
 #define PROG_ARGS                                                                              \
   const ProgArgs pa = {p_arg,   p_vecs,         p_leaves,     p_tex,          p_tex_info,         \
                        p_tri_q, p_tri_uv,       p_sph_texscale, p_pla_quat,   p_pla_texscale,     \
-                       p_n_prob, p_n_normal}
+                       p_n_prob, p_n_normal, (int)(STACK_BYTES / sizeof(float))}
+// a kernel's dynamic shared memory: the program stack and its own OWN bytes
+#define WITH_STACK(OWN) ((OWN) + STACK_BYTES)
 // a kernel's instantiation for the scene: kDE from n_de (launch_lanes), kProg
-// from `prog`
-#define PICK(K, ...) (prog ? &K<__VA_ARGS__, true> : &K<__VA_ARGS__, false>)
+// from `form`; the bounce and NEE kernels' kGate too (PICK_GATE)
+#define PICK(K, ...) (form == FORM_PROG ? &K<__VA_ARGS__, true> : &K<__VA_ARGS__, false>)
+#define PICK_GATE(K, ...)                                                                       \
+  (form == FORM_PROG   ? &K<__VA_ARGS__, true, true>                                            \
+   : form == FORM_GATE ? &K<__VA_ARGS__, false, true>                                           \
+                       : &K<__VA_ARGS__, false, false>)
 
 // the camera vertex a kRecord bounce writes (Record)
 #define RECORD_PARAMS                                                                          \
@@ -1809,28 +1941,34 @@ extern "C" {
 #define RECORD                                                                                 \
   const Record rec = {r_position, r_normal, r_brdf, r_diffuse, r_dispersed, r_recorded, r_miss}
 
+// a NEE kernel block's own dynamic shared memory: the kProg instantiations'
+// colour rows, [BLOCK, S] floats
+#define NEE_SMEM (form == FORM_PROG ? (size_t)BLOCK * s * sizeof(float) : 0)
+
 int pyrite_dense_bounce(BOUNCE_PARAMS, PROG_PARAMS, void* stream) {
   BOUNCE_ARGS;
+  const size_t own = bounce_smem_bytes(s, n_de > 0);
   PROG_ARGS;
-  launch_lanes(PICK(dense_bounce_kernel, true, false), PICK(dense_bounce_kernel, false, false), n,
-               n_de, bounce_smem_bytes(s, n_de > 0), stream, a, Record{}, pa);
+  launch_lanes(PICK_GATE(dense_bounce_kernel, true, false), PICK_GATE(dense_bounce_kernel, false, false), n,
+               n_de, WITH_STACK(own), stream, a, Record{}, pa);
   return (int)cudaGetLastError();
 }
 
 int pyrite_dense_nee(NEE_PARAMS, PROG_PARAMS, void* stream) {
   NEE_ARGS;
   PROG_ARGS;
-  launch_lanes(PICK(dense_nee_kernel, true), PICK(dense_nee_kernel, false), n, n_de, 0, stream, a,
-               pa);
+  launch_lanes(PICK_GATE(dense_nee_kernel, true), PICK_GATE(dense_nee_kernel, false), n, n_de,
+               WITH_STACK(NEE_SMEM), stream, a, pa);
   return (int)cudaGetLastError();
 }
 
 int pyrite_wide_bounce(BOUNCE_PARAMS, WIDE_PARAMS, PROG_PARAMS, void* stream) {
   BOUNCE_ARGS;
   WIDE_GEO;
+  const size_t own = bounce_smem_bytes(s, n_de > 0);
   PROG_ARGS;
-  launch_lanes(PICK(wide_bounce_kernel, true, false), PICK(wide_bounce_kernel, false, false), n,
-               n_de, bounce_smem_bytes(s, n_de > 0), stream, a, g, Record{}, pa);
+  launch_lanes(PICK_GATE(wide_bounce_kernel, true, false), PICK_GATE(wide_bounce_kernel, false, false), n,
+               n_de, WITH_STACK(own), stream, a, g, Record{}, pa);
   return (int)cudaGetLastError();
 }
 
@@ -1838,8 +1976,8 @@ int pyrite_wide_nee(NEE_PARAMS, WIDE_PARAMS, PROG_PARAMS, void* stream) {
   NEE_ARGS;
   WIDE_GEO;
   PROG_ARGS;
-  launch_lanes(PICK(wide_nee_kernel, true), PICK(wide_nee_kernel, false), n, n_de, 0, stream, a, g,
-               pa);
+  launch_lanes(PICK_GATE(wide_nee_kernel, true), PICK_GATE(wide_nee_kernel, false), n, n_de,
+               WITH_STACK(NEE_SMEM), stream, a, g, pa);
   return (int)cudaGetLastError();
 }
 
@@ -1848,9 +1986,10 @@ int pyrite_wide_nee(NEE_PARAMS, WIDE_PARAMS, PROG_PARAMS, void* stream) {
 int pyrite_dense_bounce_record(BOUNCE_PARAMS, RECORD_PARAMS, PROG_PARAMS, void* stream) {
   BOUNCE_ARGS;
   RECORD;
+  const size_t own = bounce_smem_bytes(s, n_de > 0);
   PROG_ARGS;
-  launch_lanes(PICK(dense_bounce_kernel, true, true), PICK(dense_bounce_kernel, false, true), n,
-               n_de, bounce_smem_bytes(s, n_de > 0), stream, a, rec, pa);
+  launch_lanes(PICK_GATE(dense_bounce_kernel, true, true), PICK_GATE(dense_bounce_kernel, false, true), n,
+               n_de, WITH_STACK(own), stream, a, rec, pa);
   return (int)cudaGetLastError();
 }
 
@@ -1859,9 +1998,10 @@ int pyrite_wide_bounce_record(BOUNCE_PARAMS, WIDE_PARAMS, RECORD_PARAMS, PROG_PA
   BOUNCE_ARGS;
   WIDE_GEO;
   RECORD;
+  const size_t own = bounce_smem_bytes(s, n_de > 0);
   PROG_ARGS;
-  launch_lanes(PICK(wide_bounce_kernel, true, true), PICK(wide_bounce_kernel, false, true), n,
-               n_de, bounce_smem_bytes(s, n_de > 0), stream, a, g, rec, pa);
+  launch_lanes(PICK_GATE(wide_bounce_kernel, true, true), PICK_GATE(wide_bounce_kernel, false, true), n,
+               n_de, WITH_STACK(own), stream, a, g, rec, pa);
   return (int)cudaGetLastError();
 }
 
@@ -1869,52 +2009,52 @@ int pyrite_wide_bounce_record(BOUNCE_PARAMS, WIDE_PARAMS, RECORD_PARAMS, PROG_PA
 // emitters from LAMP_START words, 0 takes one lamp bounce from LAMP_BOUNCE
 // words.
 #define LAMP_PARAMS                                                                            \
-  const float *sheet, const int *meta, const int *code_op, const float *code_val,               \
-      const int *code_off, const float *cvals, const float *pvals, const float *wl,             \
-      const float *origin, const float *direction, const uint8_t *alive, const float *u,        \
-      float *o_position, float *o_normal, float *o_uv, int *o_color, float *o_probability,      \
-      uint8_t *o_diffuse, uint8_t *o_dispersed, uint8_t *o_valid, float *o_brdf,               \
-      float *o_brdf_scatter, float *o_origin, float *o_direction, uint8_t *o_alive, int n,      \
-      int s, int n_lamps, int start, int n_color, int n_de, const float *t_de
+  SCENE_PARAMS, const float *origin, const float *direction, const uint8_t *alive,              \
+      const float *u, float *o_position, float *o_normal, float *o_uv, int *o_color,            \
+      float *o_probability, uint8_t *o_diffuse, uint8_t *o_dispersed, uint8_t *o_valid,         \
+      float *o_brdf, float *o_brdf_scatter, float *o_origin, float *o_direction,                \
+      uint8_t *o_alive, int n, int s, int n_lamps, int start, int n_color, int n_de,            \
+      const float *t_de
 #define LAMP_ARGS                                                                              \
   const LampArgs a = {{sheet, meta},                                                           \
-                      {code_op, code_val, code_off, cvals, pvals, n_color},                    \
+                      PROGRAMS(n_color),                                                       \
                       wl, origin, direction, alive, u, o_position, o_normal, o_uv, o_color,    \
                       o_probability, o_diffuse, o_dispersed, o_valid, o_brdf, o_brdf_scatter, \
                       o_origin, o_direction, o_alive, n, s, n_lamps, start, t_de}
 
 int pyrite_dense_lamp(LAMP_PARAMS, PROG_PARAMS, void* stream) {
   LAMP_ARGS;
+  const size_t own = lamp_smem_bytes(n_de > 0);
   PROG_ARGS;
   launch_lanes(PICK(dense_lamp_kernel, true), PICK(dense_lamp_kernel, false), n, n_de,
-               lamp_smem_bytes(n_de > 0), stream, a, pa);
+               WITH_STACK(own), stream, a, pa);
   return (int)cudaGetLastError();
 }
 
 int pyrite_wide_lamp(LAMP_PARAMS, WIDE_PARAMS, PROG_PARAMS, void* stream) {
   LAMP_ARGS;
   WIDE_GEO;
+  const size_t own = lamp_smem_bytes(n_de > 0);
   PROG_ARGS;
   launch_lanes(PICK(wide_lamp_kernel, true), PICK(wide_lamp_kernel, false), n, n_de,
-               lamp_smem_bytes(n_de > 0), stream, a, g, pa);
+               WITH_STACK(own), stream, a, g, pa);
   return (int)cudaGetLastError();
 }
 
 // program_colors_kernel over the [n, slots] lamp vertices (ColorArgs)
-int pyrite_program_colors(const float* sheet, const int* meta, const int* code_op,
-                          const float* code_val, const int* code_off, const float* cvals,
-                          const float* pvals, const int* color_prog, const uint8_t* valid,
+int pyrite_program_colors(SCENE_PARAMS, const int* color_prog, const uint8_t* valid,
                           const float* normal, const float* incident, const float* uv, float* out,
                           int n, int slots, int s, int n_color, PROG_PARAMS, void* stream) {
   PROG_ARGS;
   (void)sheet;
   (void)meta;
-  (void)prog;
-  const ColorArgs a = {{code_op, code_val, code_off, cvals, pvals, n_color}, color_prog, valid,
-                       normal, incident, uv, out, n, slots, s};
+  const ColorArgs a = {PROGRAMS(n_color), color_prog, valid, normal, incident, uv, out, n, slots,
+                       s};
   const int m = n * slots;
+  const size_t smem = WITH_STACK(0);
+  opt_in_smem((const void*)program_colors_kernel, smem);
   if (m > 0)
-    program_colors_kernel<<<(m + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(a, pa);
+    program_colors_kernel<<<(m + BLOCK - 1) / BLOCK, BLOCK, smem, (cudaStream_t)stream>>>(a, pa);
   return (int)cudaGetLastError();
 }
 
@@ -1933,24 +2073,26 @@ int pyrite_dense_shadow(const float* sheet, const int* meta, const float* origin
 // S spectral columns (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into
 // blocks[12]: dense bounce <false>, <true>, dense NEE <false>, <true>, wide
 // bounce <false>, <true>, wide NEE <false>, <true> (the bounce kernels
-// without kRecord), then the kProg instantiations without DE shapes: dense
-// bounce, dense NEE, wide bounce, wide NEE. Returns the first error.
-int pyrite_bounce_occupancy(int s, int* blocks) {
+// without kRecord), then the kProg instantiations without DE shapes at a
+// program stack of `stack` values: dense bounce, dense NEE, wide bounce,
+// wide NEE. Returns the first error.
+int pyrite_bounce_occupancy(int s, int stack, int* blocks) {
   const size_t b0 = bounce_smem_bytes(s, false), b1 = bounce_smem_bytes(s, true);
-  const size_t smem[12] = {b0, b1, 0, 0, b0, b1, 0, 0, b0, 0, b0, 0};
+  const size_t st = (size_t)stack * BLOCK * sizeof(float4), rows = (size_t)BLOCK * s * sizeof(float);
+  const size_t smem[12] = {b0, b1, 0, 0, b0, b1, 0, 0, b0 + st, rows + st, b0 + st, rows + st};
   const void* kernels[12] = {
-      (const void*)dense_bounce_kernel<false, false, false>,
-      (const void*)dense_bounce_kernel<true, false, false>,
-      (const void*)dense_nee_kernel<false, false>,
-      (const void*)dense_nee_kernel<true, false>,
-      (const void*)wide_bounce_kernel<false, false, false>,
-      (const void*)wide_bounce_kernel<true, false, false>,
-      (const void*)wide_nee_kernel<false, false>,
-      (const void*)wide_nee_kernel<true, false>,
-      (const void*)dense_bounce_kernel<false, false, true>,
-      (const void*)dense_nee_kernel<false, true>,
-      (const void*)wide_bounce_kernel<false, false, true>,
-      (const void*)wide_nee_kernel<false, true>};
+      (const void*)dense_bounce_kernel<false, false, false, false>,
+      (const void*)dense_bounce_kernel<true, false, false, false>,
+      (const void*)dense_nee_kernel<false, false, false>,
+      (const void*)dense_nee_kernel<true, false, false>,
+      (const void*)wide_bounce_kernel<false, false, false, false>,
+      (const void*)wide_bounce_kernel<true, false, false, false>,
+      (const void*)wide_nee_kernel<false, false, false>,
+      (const void*)wide_nee_kernel<true, false, false>,
+      (const void*)dense_bounce_kernel<false, false, true, true>,
+      (const void*)dense_nee_kernel<false, true, true>,
+      (const void*)wide_bounce_kernel<false, false, true, true>,
+      (const void*)wide_nee_kernel<false, true, true>};
   for (int i = 0; i < 12; ++i) {
     const cudaError_t e =
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[i], kernels[i], BLOCK, smem[i]);

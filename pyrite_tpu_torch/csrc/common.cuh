@@ -19,10 +19,15 @@ constexpr float PI_F = 3.14159265358979323846f;
 constexpr unsigned FULL_WARP = 0xffffffffu;  // every thread of a warp, for the *_sync ops
 
 // kernels_dense.META_FIELDS, in order: counts first, then sheet rows (-1
-// where the scene has no such table). The DE rows (M_DE_KIND .. M_DE_MAT)
-// hold one column per DE shape, in the field order of csrc/march_de.cuh's
-// de_shape (kernels_dense.DE_FIELDS). The rows from M_MAT_NORMAL on exist
-// on a scene that runs the kernels' kProg instantiations (csrc/bounce.cu).
+// where the scene has no such table). A table of n entries takes ceil(n /
+// 128) consecutive rows, so entry i of a field lies at row meta * 128 + i
+// (Sheet::at). The DE rows (M_DE_KIND .. M_DE_MAT) hold one column per DE
+// shape, in the field order of csrc/march_de.cuh's de_shape
+// (kernels_dense.DE_FIELDS). The rows from M_MAT_NORMAL to M_LTRI_UV2V exist
+// on a scene that runs the kernels' kProg instantiations (csrc/bounce.cu);
+// then, on a scene with directional lamps, their count (-1 on the others),
+// every lamp's width and the directional lamps' own table (direction,
+// width, color program), in lamp order.
 enum Meta {
   M_N_PRIMS, M_N_PLANES, M_N_DE,
   M_PLA_NX, M_PLA_NY, M_PLA_NZ, M_PLA_D, M_PLA_MAT,
@@ -42,6 +47,7 @@ enum Meta {
   M_DE_CX, M_DE_CY, M_DE_CZ, M_DE_MAT,
   M_MAT_NORMAL, M_LSPH_TSU, M_LSPH_TSV,
   M_LTRI_UV0U, M_LTRI_UV0V, M_LTRI_UV1U, M_LTRI_UV1V, M_LTRI_UV2U, M_LTRI_UV2V,
+  M_N_DIR, M_LAMP_WIDTH, M_DIR_VX, M_DIR_VY, M_DIR_VZ, M_DIR_WIDTH, M_DIR_COLOR,
   M_COUNT
 };
 
@@ -94,7 +100,8 @@ __device__ __forceinline__ void block_copy(float* __restrict__ dst, const float*
   for (; i < count; i += blockDim.x) dst[i] = src[i];
 }
 
-// The scene: sheet rows by meta field, primitive channels by fixed row.
+// The scene: sheet rows by meta field (a table's entries run on across its
+// consecutive rows), primitive channels by fixed row.
 struct Sheet {
   const float* __restrict__ p;
   const int* __restrict__ meta;

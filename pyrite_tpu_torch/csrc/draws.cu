@@ -37,7 +37,6 @@
 namespace {
 
 enum Purpose { P_CAMERA, P_U_COMP, P_U_SCATTER, P_LAMP, P_U_NEE, P_U_EMIS };  // rng.py; and more
-constexpr int MAX_CAMERA_WORDS = 16 + 5;  // kernels_dense.MAX_SPECTRUM_SAMPLES + 5
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, unsigned k0, unsigned k1) {
 #pragma unroll
@@ -78,8 +77,14 @@ struct DrawArgs {
   int width, take;
 };
 
+// The words a block stages: its lanes' camera rows, [BLOCK, S + 5], and
+// u_scatter, [BLOCK, 3] (stage_bytes, the kernel's dynamic shared memory).
+__host__ __forceinline__ size_t stage_bytes(int s_cam) {
+  return sizeof(float) * BLOCK * (size_t)(s_cam + 5 > 3 ? s_cam + 5 : 3);
+}
+
 __global__ void __launch_bounds__(BLOCK) philox_draws_kernel(const DrawArgs a) {
-  __shared__ __align__(16) float stage[BLOCK * MAX_CAMERA_WORDS];
+  extern __shared__ __align__(16) float stage[];
   const int base = blockIdx.x * BLOCK;
   const int lane = base + threadIdx.x;
   const int rows = min(BLOCK, a.n - base);
@@ -188,7 +193,11 @@ int pyrite_philox_draws(unsigned k0, unsigned k1, int n, int n_pix, unsigned pix
   const DrawArgs a = {k0, k1, n, n_pix, pixel0, sample0, bounce, s_cam, light_samples, n_lamps,
                       cam_out, out, pixel, sample, depth, cam_mask, words_out, purpose, width,
                       take};
-  philox_draws_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, 0, (cudaStream_t)stream>>>(a);
+  const size_t smem = stage_bytes(cam_out ? s_cam : 0);
+  if (smem > 48 * 1024)  // S > 91: past what a block gets without opting in
+    cudaFuncSetAttribute((const void*)philox_draws_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  philox_draws_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -62,6 +62,7 @@ struct DeShape {
   V3 a, b, center;  // box min / max, or sphere center / (radius, 0, 0); local origin
   int mat;
 };
+static_assert(sizeof(DeShape) == 96, "kernels_dense.DE_SHAPE_BYTES");
 
 // A DeShape from its fields in kernels_dense.DE_FIELDS order (host or device).
 __host__ __device__ __forceinline__ DeShape de_shape(const float* f) {
@@ -379,7 +380,9 @@ __global__ void __launch_bounds__(BLOCK)
 // where that is set (no more blocks than items fill). `next` is the
 // caller's 8-byte counter in device memory, zeroed here on the stream before
 // the launch, so a launch repeated with the same arguments marches every item
-// again. Returns the first CUDA error (0 on success).
+// again. The kernel stages every shape in dynamic shared memory, opting in
+// past the 48 KiB a block gets by default (kernels_dense.MAX_DE_SHAPES is
+// the gate's ceiling). Returns the first CUDA error (0 on success).
 //
 // Why the cap: the pass ends with its longest rays, each a chain of
 // iterations in one thread (~0.9 us per Mandelbulb iteration for a warp
@@ -398,6 +401,9 @@ int launch_march(const Rays& rays, int n_shapes, int per_shape, int max_steps, f
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess && smem > 48 * 1024)
+    e = cudaFuncSetAttribute(march_de_kernel<Rays>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, march_de_kernel<Rays>, BLOCK, smem);
   if (e == cudaSuccess) e = cudaMemsetAsync(next, 0, sizeof(*next), stream);

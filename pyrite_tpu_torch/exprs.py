@@ -497,7 +497,10 @@ def texture_key(kind, fields):
 #   SLOT pushes slot ``arg`` again.
 # The same ops run on the same values, so each value is the one stream's,
 # bit for bit, and a texture is sampled once per lane, not once per column.
-# The opcodes and limits are mirrored in csrc/bounce.cu.
+# The opcodes are mirrored in csrc/bounce.cu. A program has no length limit;
+# the simple instantiations' stack holds PROG_STACK values, the kProg ones'
+# the scene's deepest program (KernelPrograms.stack_depth, at least
+# PROG_STACK), in shared memory sized per launch.
 
 (OP_CONST, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MIX, OP_CLAMP, OP_FRESNEL, OP_VEC, OP_LEAF,
  OP_LEAF4, OP_TEX_COLOR, OP_TEX_MONO, OP_SPLAT_RGB, OP_SPLAT_VEC, OP_RGB_TO_VEC, OP_TO_NUMBER,
@@ -505,8 +508,8 @@ def texture_key(kind, fields):
 SIMPLE_OPS = frozenset(range(OP_FRESNEL + 1))  # the simple kernels' form
 TEXTURE_OPS = frozenset((OP_TEX_COLOR, OP_TEX_MONO))
 COLUMN_OPS = frozenset((OP_LEAF, OP_LEAF4, OP_TO_NUMBER))  # read the lane's spectral column
-PROG_STACK = 8  # kernel stack depth, values
-PROG_MAX_LEN = 64  # instructions per program
+PROG_STACK = 8  # the kernels' least stack depth, values (a program's depth may pass it)
+PROG_STACK_MAX = 48  # the deepest stack a program may need (96 KiB of shared memory a block)
 # the operands each opcode pops (the others pop none)
 _POPS = {OP_ADD: 2, OP_SUB: 2, OP_MUL: 2, OP_DIV: 2, OP_MIX: 3, OP_CLAMP: 3, OP_FRESNEL: 2,
          OP_SPLAT_RGB: 1, OP_SPLAT_VEC: 1, OP_RGB_TO_VEC: 1, OP_TO_NUMBER: 1, OP_RGB: 3,
@@ -526,8 +529,9 @@ def split_code(code):
     """One program's postfix ``code`` as (lane code, column code): the
     largest subtrees that depend on no spectral column (COLUMN_OPS) and are
     more than constants, in program order, as long as the slots they leave
-    and the column code above them fit PROG_STACK; each replaced by SLOT in
-    the column code."""
+    and the column code above them fit PROG_STACK, or the one stream's own
+    depth where that is deeper; each replaced by SLOT in the column code."""
+    limit = max(PROG_STACK, _depth(code))
     start, column, parent, stack = [], [], [None] * len(code), []
     for i, (op, _, _) in enumerate(code):
         pops = _POPS.get(op, 0)
@@ -546,7 +550,7 @@ def split_code(code):
             continue
         trial = hoisted + [i]
         lane = max(j + _depth(code[start[e]:e + 1]) for j, e in enumerate(trial))
-        if lane <= PROG_STACK and _depth(_column_part(code, start, trial), len(trial)) <= PROG_STACK:
+        if lane <= limit and _depth(_column_part(code, start, trial), len(trial)) <= limit:
             hoisted = trial
     lane_code = [c for e in hoisted for c in code[start[e]:e + 1]]
     return lane_code, _column_part(code, start, hoisted)
@@ -618,6 +622,11 @@ class KernelPrograms:
                 self._lower(prog.constant, out)
             self.off.append(len(self.code))
         self.parts = [split_code(self.program_code(g)) for g in range(len(self.off) - 1)]
+        # the kProg instantiations' stack: the deepest of every program's
+        # lane code and column code above its slots, PROG_STACK at least
+        self.stack_depth = max([PROG_STACK] + [
+            max(_depth(lane), _depth(column, sum(op == OP_SLOT for op, _, _ in column)))
+            for lane, column in self.parts])
         self.split, self.split_off = [], [0]
         for part in (p for lane_col in self.parts for p in lane_col):
             self.split.extend(part)
@@ -634,11 +643,13 @@ class KernelPrograms:
 
     @property
     def simple(self):
-        """Whether only probability programs of the simple kernels' form
-        have code: those instantiations run the scene."""
+        """Whether only probability programs of the simple kernels' form,
+        within their stack of PROG_STACK values, have code: those
+        instantiations run the scene."""
         n_prob = self.counts[0]
         return self.off[n_prob] == len(self.code) and all(
-            op in SIMPLE_OPS for op, _, _ in self.code)
+            op in SIMPLE_OPS for op, _, _ in self.code) and all(
+            _depth(self.program_code(g)) <= PROG_STACK for g in range(n_prob))
 
     def _leaf(self, expr, width):
         self.leaf_base.append(sum(w for _, w in self.leaves))
@@ -721,11 +732,10 @@ class KernelPrograms:
             t = emit(expr)
             if t != VECTOR:
                 push(_PROMOTE[(t, VECTOR)], pops=1)
-        if len(code) > PROG_MAX_LEN or depth[1] > PROG_STACK:
+        if depth[1] > PROG_STACK_MAX:
             raise NotImplementedError(
-                f"a program that reads the ray needs {len(code)} instructions and stack depth "
-                f"{depth[1]}; the kernels take {PROG_MAX_LEN} and {PROG_STACK} "
-                f"{PROGRAMS_NOT_PORTED}"
+                f"a program that reads the ray needs stack depth {depth[1]}; the kernels take "
+                f"{PROG_STACK_MAX} {PROGRAMS_NOT_PORTED}"
             )
         self.code.extend(code)
 

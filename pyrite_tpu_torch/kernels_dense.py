@@ -33,9 +33,11 @@ need the kernels' kProg instantiations (META_FIELDS' last). A mesh scene's sheet
 keeps the plane, material, component, lamp and emissive tables and has no
 primitive rows: its kernels read the node table, the leaf clusters and the
 triangle and sphere tables as flat tensors. The DE shapes take one column
-each of the rows DE_FIELDS names (de_fields). Programs of the wavelength
-alone, and the leaves of those that read the ray, are evaluated once per
-launch (precompute_bank_values).
+each of the rows DE_FIELDS names (de_fields); a table of more than 128
+entries runs on over consecutive rows. Programs of the wavelength alone
+are evaluated once per launch, or read from the scene's baked table where
+it has one, and the leaves of those that read the ray once per launch
+(precompute_bank_values).
 
 A scene with image textures, normal maps, color or sky programs that read
 the ray, or probability programs that read the ray beyond the simple form
@@ -57,12 +59,32 @@ from . import exprs
 from . import geometry as geom
 from . import tracer
 from .rng import INT_MAX
-from .scene import LAMP_POINT, LAMP_SPHERE, LAMP_TRIANGLE, PRIM_SPHERE, PRIM_TRIANGLE
+from .scene import BANK_GRID
+from .scene import (
+    LAMP_DIRECTIONAL, LAMP_POINT, LAMP_SPHERE, LAMP_TRIANGLE, PRIM_SPHERE, PRIM_TRIANGLE,
+)
 
-# The kernels loop over the S spectral columns at run time and keep no
-# per-lane spectral arrays; they are held to the plain version up to this S.
-MAX_SPECTRUM_SAMPLES = 16
 SHEET_WIDTH = 128
+BLOCK = 128  # threads a block (csrc/common.cuh)
+GATHER_ROW = 16  # csrc/bounce.cu MAX_ROW: the widest row the simple code stages
+# The scene's form, which picks the bounce and NEE kernels' instantiation
+# (csrc/bounce.cu FORM_*): the simple code, the kProg code, or the simple
+# code with what the scene gate took last (kGate: directional lamps, baked
+# program tables, rows past GATHER_ROW columns), kept apart because it
+# slowed the simple code on scenes that have none of it (PERF.md §6).
+FORM_SIMPLE, FORM_PROG, FORM_GATE = 0, 1, 2
+# The shared memory one block may take on an H100 once the launcher opts in
+# (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KiB), less 1 KiB for the
+# kernels' static arrays. The kernels size their dynamic shared memory by
+# S and by the scene's program stack (smem_bytes); the gate refuses a
+# scene whose kernels would need more (max_spectrum_samples).
+SMEM_PER_BLOCK = 227 * 1024 - 1024
+# march_de_kernel stages every DE shape of the scene in its dynamic shared
+# memory (csrc/march_de.cuh, sizeof(DeShape) bytes a shape; launch_march
+# opts in past 48 KiB): the gate refuses a scene of more shapes.
+DE_SHAPE_BYTES = 96
+MAX_DE_SHAPES = SMEM_PER_BLOCK // DE_SHAPE_BYTES
+_DE_SLOT_BYTES = 4 * (BLOCK // 32) * (32 * 3 + 32 + 32 * 6)  # csrc/bounce.cu DE_SLOT_FLOATS
 _GEO_ROWS = 22  # rows 0..21: primitive channels (see build_pack)
 
 # A DE shape's parameters, in the order of csrc/march_de.cuh's de_shape:
@@ -77,7 +99,6 @@ DE_FIELDS = (
     "has_constant", "c0", "c1", "c2", "c3", "slice", "bounds_kind",
     "ax", "ay", "az", "bx", "by", "bz", "cx", "cy", "cz", "mat",
 )
-MAX_DE_SHAPES = SHEET_WIDTH
 _JULIA_VARIANTS = {"regular": 0, "cubic": 1, "bicomplex": 2}
 
 # csrc/common.cuh `enum Meta`, in order
@@ -99,6 +120,10 @@ META_FIELDS = (
     # none), each shape lamp's texture scale and triangle vertex uv
     "mat_normal", "lsph_tsu", "lsph_tsv",
     "ltri_uv0u", "ltri_uv0v", "ltri_uv1u", "ltri_uv1v", "ltri_uv2u", "ltri_uv2v",
+    # on a scene with directional lamps: their count, every lamp's width (a
+    # cosine), and their own table in lamp order (direction, width, color
+    # program), which the bounce kernels scan on a miss
+    "n_dir", "lamp_width", "dir_vx", "dir_vy", "dir_vz", "dir_width", "dir_color",
 )
 
 # the extern "C" launcher of each kernel (csrc/bounce.cu); a "<prog>"
@@ -167,18 +192,47 @@ def de_fields(shape):
     return np.concatenate([estimator_fields(shape.estimator), np.asarray(bounds, np.float32)])
 
 
+def smem_bytes(s, de, stack):
+    """The most dynamic shared memory a block of the scene's kernels takes
+    at S spectral columns (csrc/bounce.cu): the bounce kernels' staged lane
+    state, [BLOCK, 4 S + 12] floats, with a warp's DE probe slots on a scene
+    with DE shapes, or on a kProg scene the NEE kernel's colour rows,
+    [BLOCK, S] floats; and on a kProg scene (``stack`` values, else 0) the
+    program stack, [stack, BLOCK] float4 values."""
+    bounce = 4 * BLOCK * (4 * s + 12) + (_DE_SLOT_BYTES if de else 0)
+    return max(bounce, 4 * BLOCK * s) + 16 * BLOCK * stack
+
+
+def max_spectrum_samples(de, stack):
+    """The most spectral columns the kernels take on a scene with (``de``)
+    or without DE shapes and a program stack of ``stack`` values (0 on a
+    scene that runs the simple instantiations): smem_bytes within
+    SMEM_PER_BLOCK (110 without either, 102 at a stack of 8)."""
+    s = 0
+    while smem_bytes(s + 1, de, stack) <= SMEM_PER_BLOCK:
+        s += 1
+    return s
+
+
 def build_pack(scene, a):
     """Gate + packed scene sheet from the host (numpy) scene arrays ``a``.
 
-    Raises NotImplementedError for what the kernels do not take: directional
-    lamps, more than 128 materials, components, lamps, planes or DE shapes,
-    and programs past the kernels' code limits (exprs.KernelPrograms). A
-    dense scene (at most scene.CLUSTER_THRESHOLD = 128 finite primitives)
-    may have no finite primitive when it has a DE shape (the JAX package
-    keeps DE scenes out of its dense pack and runs them in XLA). Returns a
-    dict with the [R, 128] sheet, the row indices (``meta``), the lowered
-    programs (``programs``), whether the scene runs the kProg
-    instantiations (``prog``) and the device tensors the kernels read."""
+    Raises NotImplementedError for what the kernels do not take: a dense
+    scene of no primitive and no DE shape, lamps of an unknown type, more
+    spectrum samples (scene.spectrum_samples) than their shared memory
+    holds (max_spectrum_samples), and more DE shapes than the march
+    kernel's shared memory holds (MAX_DE_SHAPES). A dense scene (at most
+    scene.CLUSTER_THRESHOLD = 128 finite primitives) may have no finite
+    primitive when it has a DE shape (the JAX package keeps DE scenes out
+    of its dense pack and runs them in XLA). A table of more than 128
+    entries (materials, components, lamps, planes, DE shapes) takes
+    consecutive sheet rows. Returns a dict with the [R, 128] sheet, the row
+    indices (``meta``), the lowered programs (``programs``), whether the
+    scene runs the kProg instantiations (``prog``), its ``form`` (FORM_*),
+    their program stack
+    (``stack``, values a thread; 0 on the simple ones), the most spectral
+    columns the kernels take (``max_s``) and the device tensors the kernels
+    read."""
     clusters = scene.use_clusters
     n_de = len(scene.de_shapes)
     if not clusters and not (0 < scene.num_primitives <= 128 or scene.num_primitives == 0 < n_de):
@@ -186,20 +240,22 @@ def build_pack(scene, a):
             f"a dense scene with {scene.num_primitives} finite primitives (the kernels "
             "sweep 1 to 128, or none beside a DE shape; more take the wide BVH)"
         )
-    if n_de > MAX_DE_SHAPES:
-        _refuse(f"{n_de} DE shapes (the kernels take at most {MAX_DE_SHAPES})")
-    if scene.num_planes > 128:
-        _refuse(f"{scene.num_planes} planes (the kernels take at most 128)")
-    if scene.directional_lamps:
-        _refuse("directional lamps")
-    for name in ("mat_comp_count", "comp_bsdf", "lamp_type", "emis_comp"):
-        if a[name].shape[0] > 128:
-            _refuse(f"more than 128 entries in {name}")
     lamp_types = set(a["lamp_type"].tolist()) if scene.num_lamps else set()
-    if not lamp_types <= {LAMP_POINT, LAMP_SPHERE, LAMP_TRIANGLE}:
+    if not lamp_types <= {LAMP_DIRECTIONAL, LAMP_POINT, LAMP_SPHERE, LAMP_TRIANGLE}:
         _refuse(f"lamp types {sorted(lamp_types)}")
     programs = exprs.KernelPrograms(scene, scene.resources)
     prog = not programs.simple
+    stack = programs.stack_depth if prog else 0
+    max_s = max_spectrum_samples(n_de > 0, stack)
+    s = scene.spectrum_samples
+    if not 1 <= s <= max_s:
+        _refuse(f"{s} spectrum samples (the kernels' shared memory holds 1 to {max_s} on this "
+                f"scene)")
+    if n_de > MAX_DE_SHAPES:
+        _refuse(f"{n_de} DE shapes (the march kernel's shared memory holds {MAX_DE_SHAPES})")
+    gate = bool(scene.directional_lamps) or s > GATHER_ROW or (
+        scene.color_bank_bakeable is not None or scene.prob_bank_bakeable is not None)
+    form = FORM_PROG if prog else FORM_GATE if gate else FORM_SIMPLE
 
     def row(values):
         out = np.zeros(SHEET_WIDTH, np.float32)
@@ -212,8 +268,10 @@ def build_pack(scene, a):
     rows = [] if clusters else _primitive_rows(scene, a, row)
 
     def add(name, values):
+        """Table ``name``: ceil(n / 128) consecutive rows (one for none)."""
         meta[name] = len(rows)
-        rows.append(row(values))
+        v = np.asarray(values, np.float32).reshape(-1)
+        rows.extend(row(v[i:i + SHEET_WIDTH]) for i in range(0, max(len(v), 1), SHEET_WIDTH))
 
     if scene.num_planes:
         pn = a["pla_normal"]
@@ -269,6 +327,13 @@ def build_pack(scene, a):
             for vtx in range(3):
                 for axis, comp in enumerate("uv"):
                     add(f"ltri_uv{vtx}{comp}", shapes["tri_uv"][:, vtx, axis])
+    if scene.directional_lamps:  # after the JAX package's rows (it packs no such scene)
+        meta["n_dir"] = len(scene.directional_lamps)
+        add("lamp_width", a["lamp_width"])
+        dirs = np.array([d for d, _, _ in scene.directional_lamps], np.float32)
+        add("dir_vx", dirs[:, 0]); add("dir_vy", dirs[:, 1]); add("dir_vz", dirs[:, 2])
+        add("dir_width", [w for _, w, _ in scene.directional_lamps])
+        add("dir_color", [c for _, _, c in scene.directional_lamps])
     sheet = np.stack(rows)
 
     # the kProg instantiations read each program as its lane and column
@@ -300,7 +365,8 @@ def build_pack(scene, a):
         "tex": torch.cat(flat) if textures else torch.zeros(1, device=dev),
         "tex_info": torch.as_tensor(info, device=dev),
     }
-    return {"sheet": sheet, "meta": meta, "programs": programs, "prog": prog, "tensors": tensors}
+    return {"sheet": sheet, "meta": meta, "programs": programs, "prog": prog, "form": form,
+            "stack": stack, "max_s": max_s, "tensors": tensors}
 
 
 def _primitive_rows(scene, a, row):
@@ -350,26 +416,35 @@ def _primitive_rows(scene, a, row):
 def precompute_bank_values(scene, wavelengths):
     """Per-launch program values at each lane's fixed wavelengths:
     (color_vals [Pc, N, S], prob_vals [Pp, N] at the hero wavelength, sky
-    [N, S], leaves), 0 for the programs that read the ray, which the
-    kernels run from their code (the kProg instantiations; the simple ones
-    interpret probability programs of the simple form), and ``leaves`` the
-    flat values of those programs' leaves (exprs.KernelPrograms.leaf_values;
-    None on a scene that runs the simple instantiations, which read none)."""
+    [1 + D, N, S], leaves). A program that reads the ray has 0 there: the
+    kernels run its code (the kProg instantiations; the simple ones
+    interpret probability programs of the simple form). On a scene whose
+    wavelength-only color (probability) programs are baked into a table
+    (scene.bake_bank_tables) the kernels read each lane's value from that
+    table, as tracer.eval_color_bank does, and color_vals (prob_vals) is
+    [0, N, S] ([0, N]): no per-launch bank. Row 0 of ``sky`` is the sky,
+    row 1 + i directional lamp i's color program, which a miss reads
+    exactly (tracer.bounce_core). ``leaves`` are the flat values of the
+    ray-reading programs' leaves (exprs.KernelPrograms.leaf_values; None on
+    a scene that runs the simple instantiations, which read none)."""
     n, s = wavelengths.shape
     dev = wavelengths.device
     lam = exprs.ProgramInputs(wavelength=wavelengths)
     hero = exprs.ProgramInputs(wavelength=wavelengths[:, :1])
     zero = torch.zeros((n, s), device=dev)
+    color = [] if scene.color_bank_bakeable is not None else scene.color_programs
     color_vals = torch.stack(
-        [zero if p.uses_ray_inputs else p(lam).expand(n, s) for p in scene.color_programs]
-    ) if scene.color_programs else torch.zeros((0, n, s), device=dev)
+        [zero if p.uses_ray_inputs else p(lam).expand(n, s) for p in color]
+    ) if color else torch.zeros((0, n, s), device=dev)
+    prob = [] if scene.prob_bank_bakeable is not None else scene.prob_programs
     prob_vals = torch.stack(
-        [
-            torch.zeros(n, device=dev) if p.uses_ray_inputs else p(hero).expand(n, 1)[:, 0]
-            for p in scene.prob_programs
-        ]
-    ) if scene.prob_programs else torch.zeros((0, n), device=dev)
-    sky = zero if scene.sky_program.uses_ray_inputs else scene.sky_program(lam).expand(n, s)
+        [torch.zeros(n, device=dev) if p.uses_ray_inputs else p(hero).expand(n, 1)[:, 0]
+         for p in prob]
+    ) if prob else torch.zeros((0, n), device=dev)
+    sky = torch.stack([
+        zero if p.uses_ray_inputs else p(lam).expand(n, s)
+        for p in [scene.sky_program] + [scene.color_programs[c] for _, _, c in
+                                        scene.directional_lamps]])
     leaves = scene.dense_pack["programs"].leaf_values(wavelengths) if scene.dense_pack["prog"] else None
     return color_vals.contiguous(), prob_vals.contiguous(), sky.contiguous(), leaves
 
@@ -398,19 +473,30 @@ def _sheet_args(scene, dev):
     ]
 
 
-def _scene_args(scene, bank_vals, n, s, dev):
-    """The pointer arguments both kernels take first: sheet, meta, program
-    code and per-launch program values."""
+def _scene_args(scene, bank_vals, wavelengths, n, s, dev):
+    """The pointer arguments every shading kernel takes first: sheet, meta,
+    program code, per-launch program values and the baked program tables
+    (null where the scene has none) with the lanes' wavelengths, the
+    tables' grid size, their first wavelength and grid steps per nm."""
     f32, i32 = torch.float32, torch.int32
-    pack = scene.dense_pack["tensors"]
+    pack, a = scene.dense_pack["tensors"], scene.arrays
     cvals, pvals = bank_vals[:2]
-    n_color, n_prob = len(scene.color_programs), len(scene.prob_programs)
+    n_color = 0 if scene.color_bank_bakeable is not None else len(scene.color_programs)
+    n_prob = 0 if scene.prob_bank_bakeable is not None else len(scene.prob_programs)
+    tables = [
+        _check(name, a[name], f32, (len(progs), a[name].shape[1]), dev) if flags is not None else 0
+        for name, flags, progs in (
+            ("color_bank", scene.color_bank_bakeable, scene.color_programs),
+            ("prob_bank", scene.prob_bank_bakeable, scene.prob_programs))]
+    lo, hi = scene.bank_span
     return _sheet_args(scene, dev) + [
         _check("code_op", pack["code_op"], i32, pack["code_op"].shape, dev),
         _check("code_val", pack["code_val"], f32, pack["code_op"].shape, dev),
         _check("code_off", pack["code_off"], i32, pack["code_off"].shape, dev),
         _check("color_vals", cvals, f32, (n_color, n, s), dev) if n_color else 0,
         _check("prob_vals", pvals, f32, (n_prob, n), dev) if n_prob else 0,
+        *tables, _check("wavelengths", wavelengths, f32, (n, s), dev),
+        BANK_GRID, lo, (BANK_GRID - 1) / (hi - lo),
     ]
 
 
@@ -419,11 +505,12 @@ def prog_args(scene, bank_vals, n, s, dev):
     instantiation takes them; the rest read none): the code's arguments and
     vector constants, the launch's leaf values, the textures and their
     [T, 4] (offset, height, width, channels) table, the frame and uv tables
-    of triangle, sphere and plane hits, the program counts and the kProg
-    flag. On a scene that runs the simple instantiations, null pointers
-    and zeros: they read none of it."""
+    of triangle, sphere and plane hits, the program counts, the program
+    stack's depth and the scene's form. On a scene that runs the simple
+    instantiations, null pointers and zeros but the form: they read none of
+    it."""
     if not scene.dense_pack["prog"]:
-        return [0] * 13
+        return [0] * 13 + [scene.dense_pack["form"]]
     f32, i32 = torch.float32, torch.int32
     pack, a = scene.dense_pack["tensors"], scene.arrays
     programs = scene.dense_pack["programs"]
@@ -440,7 +527,7 @@ def prog_args(scene, bank_vals, n, s, dev):
         _check("sph_texscale", a["sph_texscale"], f32, (sp, 2), dev),
         _check("pla_quat", a["pla_quat"], f32, (pl, 4), dev),
         _check("pla_texscale", a["pla_texscale"], f32, (pl, 2), dev),
-        programs.counts[0], programs.counts[2], 1,
+        programs.counts[0], programs.counts[2], scene.dense_pack["stack"], FORM_PROG,
     ]
 
 
@@ -505,13 +592,15 @@ def _flag(t):
     return t.view(torch.uint8) if t.dtype == torch.bool else t
 
 
-def _device(wavelengths):
+def _device(scene, wavelengths):
     dev = wavelengths.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, not {dev}")
     n, s = wavelengths.shape
-    if not 1 <= s <= MAX_SPECTRUM_SAMPLES:
-        raise ValueError(f"{s} spectrum samples; the kernels take 1 to {MAX_SPECTRUM_SAMPLES}")
+    max_s = scene.dense_pack["max_s"]
+    if not 1 <= s <= max_s:
+        raise ValueError(f"{s} spectrum samples; the kernels take 1 to {max_s} on this scene "
+                         "(kernels_dense.max_spectrum_samples)")
     return dev, n, s
 
 
@@ -527,7 +616,7 @@ def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals, t_de=No
     NEE context), and with ``record`` the camera vertex
     (tracer.bounce_core's info) that its kRecord instantiation writes after
     them. ``t_de`` is march_pass' output on a scene with DE shapes."""
-    dev, n, s = _device(wavelengths)
+    dev, n, s = _device(scene, wavelengths)
     f32, u8, i32 = torch.float32, torch.uint8, torch.int32
     out = {
         "origin": torch.empty((n, 3), dtype=f32, device=dev),
@@ -546,9 +635,8 @@ def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals, t_de=No
         "refl_nee": torch.empty((n, s), dtype=f32, device=dev),
         "nee": torch.empty(n, dtype=torch.bool, device=dev),
     }
-    args = _scene_args(scene, bank_vals, n, s, dev) + [
-        _check("sky", bank_vals[2], f32, (n, s), dev),
-        _check("wavelengths", wavelengths, f32, (n, s), dev),
+    args = _scene_args(scene, bank_vals, wavelengths, n, s, dev) + [
+        _check("sky", bank_vals[2], f32, (1 + len(scene.directional_lamps), n, s), dev),
         _check("origin", state["origin"], f32, (n, 3), dev),
         _check("direction", state["direction"], f32, (n, 3), dev),
         _check("brightness", state["brightness"], f32, (n, s), dev),
@@ -591,10 +679,10 @@ def nee_kernel_args(scene, cfg, wavelengths, out, ctx, draws, bank_vals, t_de_sh
     kernel_names), which adds the light samples' contributions into
     ``out["brightness"]`` in place. ``t_de_shadow`` is shadow_pass' output
     on a scene with DE shapes."""
-    dev, n, s = _device(wavelengths)
+    dev, n, s = _device(scene, wavelengths)
     f32, u8, i32 = torch.float32, torch.uint8, torch.int32
     ls = cfg.light_samples
-    args = _scene_args(scene, bank_vals, n, s, dev) + [
+    args = _scene_args(scene, bank_vals, wavelengths, n, s, dev) + [
         _check("position", out["origin"], f32, (n, 3), dev),
         _check("flip", ctx["flip"], f32, (n, 3), dev),
         _check("nee", _flag(ctx["nee"]), u8, (n,), dev),
@@ -788,7 +876,7 @@ def lamp_kernel_args(scene, wavelengths, words, bank_vals, state=None, t_de=None
     the start mode (``words`` the LAMP_START words [N, 6]), else one bounce
     of ``state`` (``words`` the LAMP_BOUNCE words [N, 4]); ``t_de`` is
     march_pass' output on a scene with DE shapes."""
-    dev, n, s = _device(wavelengths)
+    dev, n, s = _device(scene, wavelengths)
     f32, u8, i32 = torch.float32, torch.uint8, torch.int32
     start = state is None
     flag = lambda: torch.empty(n, dtype=torch.bool, device=dev)  # noqa: E731
@@ -810,8 +898,7 @@ def lamp_kernel_args(scene, wavelengths, words, bank_vals, state=None, t_de=None
         rays = [_check("origin", state["origin"], f32, (n, 3), dev),
                 _check("direction", state["direction"], f32, (n, 3), dev),
                 _check("alive", _flag(state["alive"]), u8, (n,), dev)]
-    args = _scene_args(scene, bank_vals, n, s, dev) + [
-        _check("wavelengths", wavelengths, f32, (n, s), dev), *rays,
+    args = _scene_args(scene, bank_vals, wavelengths, n, s, dev) + [*rays,
         _check("words", words, f32, (n, 6 if start else 4), dev),
     ] + [vertex[k].data_ptr() for k in (
         "position", "normal", "uv", "color_prog", "probability", "is_diffuse", "dispersed",
@@ -942,10 +1029,11 @@ def shadow_query(scene, cfg, origin, direction, max_dist, block_below, live):
 
 def vertex_colors_plain(scene, color_prog, valid, normal, incident, uv, wavelengths):
     """The plain version of vertex_colors, on any device:
-    tracer.eval_color_bank on the flattened [N K] vertices."""
+    tracer.eval_color_bank on the flattened [N K] vertices (``normal``,
+    ``incident`` and ``uv`` None where no program reads the ray)."""
     n, slots = color_prog.shape
     s = wavelengths.shape[1]
-    flat = lambda x: x.reshape((n * slots,) + x.shape[2:])  # noqa: E731
+    flat = lambda x: None if x is None else x.reshape((n * slots,) + x.shape[2:])  # noqa: E731
     inputs = exprs.ProgramInputs(
         wavelength=wavelengths[:, None, :].expand(n, slots, s).reshape(n * slots, s),
         normal=flat(normal), incident=flat(incident), uv=flat(uv))
@@ -956,12 +1044,12 @@ def vertex_colors_plain(scene, color_prog, valid, normal, incident, uv, waveleng
 def vertex_colors_args(scene, color_prog, valid, normal, incident, uv, wavelengths, bank_vals):
     """Checked arguments of one program_colors_kernel launch, with the
     colors it writes: (ctypes arguments, out [N, K, S])."""
-    dev, n, s = _device(wavelengths)
+    dev, n, s = _device(scene, wavelengths)
     slots = color_prog.shape[1]
     f32 = torch.float32
     check_rays(n * slots, "vertex_colors")
     out = torch.empty((n, slots, s), dtype=f32, device=dev)
-    args = _scene_args(scene, bank_vals, n, s, dev) + [
+    args = _scene_args(scene, bank_vals, wavelengths, n, s, dev) + [
         _check("color_prog", color_prog, torch.int32, (n, slots), dev),
         _check("valid", _flag(valid), torch.uint8, (n, slots), dev),
         _check("normal", normal, f32, (n, slots, 3), dev),

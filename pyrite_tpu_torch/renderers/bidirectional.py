@@ -49,6 +49,7 @@ from ..rng import KeyedDraws, splat_draws
 from ..scene import CameraModel, Scene, camera_inverse_project
 from ..tracer import DIST_EPSILON, TraceConfig, initial_state, trace_lamp_path
 from .simple import RenderProgress, _uniform_lanes, _uniform_start, chunk_rays, regen_enabled
+from .simple import lane_bytes as camera_lane_bytes
 
 # At this many camera bounces or more, with path regeneration on, the JAX
 # package renders through its camera-regeneration scheduler, which is not
@@ -72,16 +73,22 @@ def _effective_brdf(path):
     return torch.cat([brdf[:, :-1], last[:, None]], dim=1)
 
 
-def _slot_colors(color_prog, valid, bank_vals):
+def _slot_colors(scene, color_prog, valid, wavelengths, bank_vals):
     """Each slot's color program at its lane's wavelengths, [N, K, S], on a
     scene whose color programs read no ray: the per-launch program values
-    (kernels_dense.precompute_bank_values), 0 where the program is out of
-    range or the slot not valid (tracer.eval_color_bank)."""
-    cvals = bank_vals[0]  # [Pc, N, S]
+    (kernels_dense.precompute_bank_values), or on a scene whose programs
+    are baked into a table (scene.bake_bank_tables) that table's values, 0
+    where the program is out of range or the slot not valid
+    (tracer.eval_color_bank)."""
     n, slots = color_prog.shape
+    s = wavelengths.shape[1]
+    if scene.color_bank_bakeable is not None:
+        return kernels_dense.vertex_colors_plain(scene, color_prog, valid, None, None, None,
+                                                 wavelengths)
+    cvals = bank_vals[0]  # [Pc, N, S]
     pc = cvals.shape[0]
     if pc == 0:
-        return torch.zeros((n, slots, bank_vals[2].shape[1]), device=color_prog.device)
+        return torch.zeros((n, slots, s), device=color_prog.device)
     prog = color_prog.long()
     ok = (prog >= 0) & (prog < pc) & valid
     lane = torch.arange(n, device=prog.device)[:, None]
@@ -105,7 +112,7 @@ def _lamp_path_factors(scene, path, wavelengths, bank_vals):
             scene, path["color_prog"], valid, path["normal"], inc, path["uv"], wavelengths,
             bank_vals)
     else:
-        color = _slot_colors(path["color_prog"], valid, bank_vals)
+        color = _slot_colors(scene, path["color_prog"], valid, wavelengths, bank_vals)
     factor = color * (path["probability"] * _effective_brdf(path))[:, :, None]
     # the emitter slot has brdf 1 already; invalid slots contribute 1
     factor = torch.where(valid[:, :, None], factor, 1.0)
@@ -383,12 +390,13 @@ _STEP_BYTES = 8 << 30
 
 
 def pick_rows_per_chunk(film: Film, light_bounces: int, spectrum_samples: int,
-                        texture_bytes: int = 0) -> int:
+                        texture_bytes: int = 0, lane_bytes: int = 0) -> int:
     """Rows per chunk step: the whole film where its lanes fit _STEP_BYTES
     beside the scene's ``texture_bytes`` (the Cornell class, 512 x 512
     lanes at 4 + 1 slots and S = 10, counts 0.44 GiB), else the largest
-    divisor of the height that fits."""
-    per_lane = (light_bounces + 1) * (160 + 20 * spectrum_samples)
+    divisor of the height that fits; a lane's camera walk takes
+    ``lane_bytes`` beside its slots (simple.lane_bytes)."""
+    per_lane = (light_bounces + 1) * (160 + 20 * spectrum_samples) + lane_bytes
     lanes = max(film.width, max(_STEP_BYTES - texture_bytes, 0) // per_lane)
     rows = max(1, min(film.height, lanes // film.width))
     while film.height % rows:
@@ -426,7 +434,8 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
             "camera-regeneration scheduler, which is not ported to pyrite_tpu_torch yet "
             "(ROADMAP.md queue 1: regen BDPT); PYRITE_TPU_REGEN=0 renders it one-shot")
     light_bounces = settings.light_bounces
-    rows = pick_rows_per_chunk(film, light_bounces, cfg.spectrum_samples, scene.texture_bytes)
+    rows = pick_rows_per_chunk(film, light_bounces, cfg.spectrum_samples, scene.texture_bytes,
+                               lane_bytes=camera_lane_bytes(scene, cfg.spectrum_samples))
     acc, wt = film.new_buffers(scene.device)
     if resume is not None:
         acc.copy_(torch.as_tensor(resume["acc"], dtype=torch.float32).view(acc.shape))

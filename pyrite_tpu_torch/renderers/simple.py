@@ -101,24 +101,50 @@ def chunk_rays(film: Film, camera: CameraModel, cfg: TraceConfig, rng, row0=0, r
 # the memory held before it, per lane of its wavefront (phase 5's
 # "[memory]" lines on an NVIDIA H100 80GB HBM3: 1,915.5 B under
 # regeneration on fractal.lua at S = 8, 1,816.2 B on the textures scene at
-# S = 6, 905.8 B there one-shot), rounded up.
+# S = 6, 905.8 B there one-shot), rounded up. Past S = 8 a lane takes
+# COLUMN_BYTES more for each spectral column (its [N, S] state, wavelengths,
+# draws and film bins), and a scene's per-launch program bank BANK_BYTES a
+# value: the values, their stacked copy and a temporary (lane_bytes; the
+# "[memory]" lines on an NVIDIA H100 80GB HBM3: 5,305.7 B at S = 32 and
+# 9,021.7 B at S = 64 on the flagship, 65,733.6 B on 300 materials with
+# their 581 colour programs as a per-launch bank at S = 10).
 WAVEFRONT_BYTES = 8 << 30
 LANE_BYTES = 2048
+COLUMN_BYTES = 96
+BANK_BYTES = 12
 
 
-def lane_budget(texture_bytes: int = 0) -> int:
-    """Lanes a wavefront may hold beside ``texture_bytes`` of textures."""
-    return max(WAVEFRONT_BYTES - texture_bytes, 0) // LANE_BYTES
+def lane_bytes(scene: Scene, spectrum_samples: int) -> int:
+    """Bytes a lane of ``scene``'s wavefront takes at S spectral columns:
+    LANE_BYTES, COLUMN_BYTES for each column past 8, and BANK_BYTES for
+    each value of the launch's program bank
+    (kernels_dense.precompute_bank_values): S values a lane for each color
+    program not baked into a table, for the sky and each directional lamp
+    and for each leaf float of the kProg programs, one for each
+    probability program not baked."""
+    s = spectrum_samples
+    color = 0 if scene.color_bank_bakeable is not None else len(scene.color_programs)
+    prob = 0 if scene.prob_bank_bakeable is not None else len(scene.prob_programs)
+    pack = scene.dense_pack
+    leaves = sum(w for _, w in pack["programs"].leaves) if pack and pack["prog"] else 0
+    rows = color + 1 + len(scene.directional_lamps) + leaves
+    return LANE_BYTES + COLUMN_BYTES * max(s - 8, 0) + BANK_BYTES * (s * rows + prob)
 
 
-def pick_sample_batch(film: Film, texture_bytes: int = 0) -> int:
+def lane_budget(texture_bytes: int = 0, lane_bytes: int = LANE_BYTES) -> int:
+    """Lanes a wavefront may hold beside ``texture_bytes`` of textures, at
+    ``lane_bytes`` a lane."""
+    return max(WAVEFRONT_BYTES - texture_bytes, 0) // lane_bytes
+
+
+def pick_sample_batch(film: Film, texture_bytes: int = 0, lane_bytes: int = LANE_BYTES) -> int:
     """Stratified samples per launch, keeping the wavefront under ~600k
-    lanes (the JAX package's bound) and within lane_budget(texture_bytes);
-    one launch covers the whole film. The JAX package's narrower lane cap
-    for mesh scenes (CLUSTER_LANE_CAP) tunes its TPU walk and is not carried
-    over."""
+    lanes (the JAX package's bound) and within lane_budget(texture_bytes,
+    lane_bytes); one launch covers the whole film. The JAX package's
+    narrower lane cap for mesh scenes (CLUSTER_LANE_CAP) tunes its TPU walk
+    and is not carried over."""
     pix = max(film.height * film.width, 1)
-    return max(1, min(4, 600_000 // pix, lane_budget(texture_bytes) // pix))
+    return max(1, min(4, 600_000 // pix, lane_budget(texture_bytes, lane_bytes) // pix))
 
 
 def make_render_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceConfig, rows=None, samples=1):
@@ -345,14 +371,15 @@ def make_regen_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCon
     return step
 
 
-def _regen_planes(film: Film, texture_bytes: int = 0) -> int:
+def _regen_planes(film: Film, texture_bytes: int = 0, lane_bytes: int = LANE_BYTES) -> int:
     """Lanes per pixel: REGEN_TARGET_LANES over the film, within
-    lane_budget(texture_bytes), 1 to REGEN_MAX_PLANES. The JAX package's
+    lane_budget(texture_bytes, lane_bytes), 1 to REGEN_MAX_PLANES. The JAX package's
     narrower targets for mesh scenes (CLUSTER_LANE_CAP, a TPU walk tuning)
     and texture scenes (texture_lane_cap, a TPU worker's footprint) are
     left out."""
     pix = max(film.height * film.width, 1)
-    return max(1, min(REGEN_MAX_PLANES, REGEN_TARGET_LANES // pix, lane_budget(texture_bytes) // pix))
+    return max(1, min(REGEN_MAX_PLANES, REGEN_TARGET_LANES // pix,
+                      lane_budget(texture_bytes, lane_bytes) // pix))
 
 
 def adaptive_quotas(rem, rate, spp_target):
@@ -381,7 +408,9 @@ def _render_regen(scene, film, camera, cfg, acc, wt, seed, resume, total, on_pro
     tail: the remainders carry into the next launch's quotas); the quota
     ramps up to ``spp_chunk`` over the first launches so that the rates warm
     and a preview lands early."""
-    planes = _regen_planes(film, scene.texture_bytes) if planes is None else planes
+    if planes is None:
+        planes = _regen_planes(film, scene.texture_bytes,
+                               lane_bytes=lane_bytes(scene, cfg.spectrum_samples))
     pix = film.height * film.width
     n = pix * planes
     step = make_regen_step(scene, film, camera, cfg, planes=planes, seed=seed)
@@ -687,7 +716,8 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
     if cfg.bounces >= POOL_MIN_BOUNCES:
         return _render_pooled(scene, film, camera, cfg, acc, wt, seed, start, total, on_progress)
 
-    batch = pick_sample_batch(film, scene.texture_bytes)
+    batch = pick_sample_batch(film, scene.texture_bytes,
+                              lane_bytes=lane_bytes(scene, cfg.spectrum_samples))
     i = start
     while i < total:
         take = min(batch, total - i)

@@ -256,10 +256,12 @@ def _device(device):
 
 
 def _camera_buffer(n, s, dev):
-    from .kernels_dense import MAX_SPECTRUM_SAMPLES  # csrc/draws.cu stages S + 5 words a lane
+    from .kernels_dense import BLOCK, SMEM_PER_BLOCK
 
-    if not 1 <= s <= MAX_SPECTRUM_SAMPLES:
-        raise ValueError(f"{s} spectrum samples; philox_draws_kernel takes 1 to {MAX_SPECTRUM_SAMPLES}")
+    # csrc/draws.cu stages a block's S + 5 words a lane in shared memory
+    most = SMEM_PER_BLOCK // (4 * BLOCK) - 5
+    if not 1 <= s <= most:
+        raise ValueError(f"{s} spectrum samples; philox_draws_kernel takes 1 to {most}")
     return torch.empty((n, s + 5), dtype=torch.float32, device=dev)
 
 

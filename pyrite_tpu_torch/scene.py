@@ -236,6 +236,8 @@ class Scene:
         self.color_bank_bakeable = None
         self.prob_bank_bakeable = None
         self.bank_span = (380.0, 780.0)
+        # the project's spectral columns, which the kernels' gate checks
+        self.spectrum_samples = 1
         # the CUDA bounce kernels' scene pack (kernels_dense.build_pack)
         self.dense_pack = None
         self.resources = None
@@ -654,6 +656,7 @@ def build_scene(project_data, device="cuda") -> Scene:
     scene.frames = bool(scene.normal_programs) or any(p.uses_texture for p in programs)
 
     bake_bank_tables(scene, project.renderer.spectrum_span)
+    scene.spectrum_samples = project.renderer.spectrum_samples
     from . import kernels_dense
 
     scene.dense_pack = kernels_dense.build_pack(scene, host)

@@ -46,6 +46,7 @@ from .scene import (
     BSDF_EMISSIVE,
     BSDF_MIRROR,
     BSDF_REFRACTIVE,
+    LAMP_DIRECTIONAL,
     LAMP_POINT,
     LAMP_SPHERE,
     LAMP_TRIANGLE,
@@ -911,9 +912,12 @@ def brdf_value(normal, out_dir, is_diffuse):
 
 def sample_lamp(scene: Scene, lamp_idx, target, u):
     """Sample one lamp toward ``target`` (lamp.rs:23-82), branchless over
-    the point/sphere/triangle lamps present. ``u``: [N, 4] uniforms. The
-    sample's surface uv ("surf_uv", for textured emitters) is computed where
-    the scene's programs read uv (scene.frames), else 0."""
+    the directional/point/sphere/triangle lamps present. ``u``: [N, 4]
+    uniforms. A directional lamp's direction is a cone sample about its own
+    direction where its width (a cosine) is above 0, else that direction;
+    its sq_distance is inf and its weight 1. The sample's surface uv
+    ("surf_uv", for textured emitters) is computed where the scene's
+    programs read uv (scene.frames), else 0."""
     a = scene.arrays
     ltype = a["lamp_type"][lamp_idx]
     lvec = a["lamp_vec"][lamp_idx]
@@ -930,6 +934,12 @@ def sample_lamp(scene: Scene, lamp_idx, target, u):
     is_pt = ltype == LAMP_POINT
     is_sph = ltype == LAMP_SPHERE
     is_tri = ltype == LAMP_TRIANGLE
+
+    if LAMP_DIRECTIONAL in scene.lamp_types:
+        width = a["lamp_width"][lamp_idx]
+        cone = geom.sample_cone(u[:, 0], u[:, 1], lvec, width)
+        dir_dir = torch.where((width > 0.0)[:, None], cone, lvec)
+        direction = torch.where((ltype == LAMP_DIRECTIONAL)[:, None], dir_dir, direction)
 
     if LAMP_POINT in scene.lamp_types:
         v_pt = lvec - target
@@ -1207,11 +1217,24 @@ def bounce_core(scene: Scene, cfg: TraceConfig, wavelengths, state, draws, recor
     found = hit["kind"] != KIND_NONE
     normal, mat_id, position, uv = _shading_normal(scene, hit, o, d, wavelengths)
 
-    # ---- miss: sky (directional lamps are not on the dense path) -----------
+    # ---- miss: directional lamps, then the sky (tracer.rs:322-342) ---------
     miss = alive & ~found
     sky_inputs = ProgramInputs(wavelength=wavelengths, normal=-d, incident=d,
                                uv=torch.zeros((n, 2), device=d.device))
     miss_color = scene.sky_program(sky_inputs).expand(n, s_count)
+    if scene.directional_lamps:
+        # the first directional lamp whose direction . ray >= width, while
+        # the lane samples lamps; its color program reads the sky's inputs
+        taken = torch.zeros(n, dtype=torch.bool, device=d.device)
+        dir_color = torch.zeros((n, s_count), device=d.device)
+        for lamp_dir, width, color_prog in scene.directional_lamps:
+            lamp_dir = torch.as_tensor(lamp_dir, device=d.device).expand(n, 3)
+            match = (geom.dot(lamp_dir, d) >= width) & ~taken
+            val = scene.color_programs[color_prog](sky_inputs).expand(n, s_count)
+            dir_color = dir_color + torch.where(match[:, None], val, 0.0)
+            taken |= match
+        use_dir = state["sample_light"] & taken
+        miss_color = torch.where(use_dir[:, None], dir_color, miss_color)
     aux_cols = _column_mask(state["aux_alive"], s_count)
     brightness = state["brightness"] + torch.where(
         miss[:, None] & aux_cols, miss_color * state["reflectance"], 0.0
@@ -1325,8 +1348,9 @@ def sample_lamp_ray(scene: Scene, lamp_idx, u):
     """Start lamp subpaths (lamp.rs:84-113, tracer.py:1804-1903): lamp
     ``lamp_idx`` [N] (picked uniformly) samples an outgoing ray from the
     uniforms ``u`` [N, 4], branchless over the point, sphere and triangle
-    lamps present (the scene gate refuses directional lamps). Returns a dict
-    of the emitter's data; "valid" is False in a scene without lamps."""
+    lamps present. Returns a dict of the emitter's data; "valid" is False
+    for a directional lamp (it starts no path) and in a scene without
+    lamps."""
     a = scene.arrays
     n = u.shape[0]
     dev = u.device
@@ -1341,6 +1365,8 @@ def sample_lamp_ray(scene: Scene, lamp_idx, u):
     is_shape = torch.zeros(n, dtype=torch.bool, device=dev)
     surf_mat = torch.zeros(n, dtype=torch.long, device=dev)
     valid = torch.full((n,), scene.num_lamps > 0, dtype=torch.bool, device=dev)
+    if LAMP_DIRECTIONAL in scene.lamp_types:
+        valid &= ltype != LAMP_DIRECTIONAL
 
     if LAMP_POINT in scene.lamp_types:
         is_pt = ltype == LAMP_POINT

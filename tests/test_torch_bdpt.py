@@ -145,7 +145,7 @@ def test_render_takes_the_two_phase_step_for_deep_lamp_paths(tmp_path, monkeypat
 def test_film_does_not_depend_on_rows_per_chunk(tmp_path, monkeypatch, rows):
     path = _write(tmp_path)
     _, acc_a, wt_a = _render(path, 3)
-    monkeypatch.setattr(bd, "pick_rows_per_chunk", lambda film, light_bounces, s, texture_bytes=0: rows)
+    monkeypatch.setattr(bd, "pick_rows_per_chunk", lambda film, light_bounces, s, texture_bytes=0, lane_bytes=0: rows)
     _, acc_b, wt_b = _render(path, 3)
     assert torch.equal(wt_b, wt_a) and float(wt_a.sum()) > 0
     torch.testing.assert_close(acc_b, acc_a, rtol=1e-5, atol=0.0)

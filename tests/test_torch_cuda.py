@@ -400,3 +400,88 @@ def test_cuda_prog_bdpt_matches_plain_version(tmp_path):
     assert "colors" in checked["worst"] and checked["worst"]["divergent"] == 0.0
     launches = chip_smoke.render_bdpt(path, 2, "card", str(tmp_path))[0]
     assert launches["program_colors_kernel"] > 0 and launches["dense_lamp_kernel<prog>"] > 0
+
+
+# --- the rest of the scene gate (chip_smoke.gate_paths, at test sizes) -------------
+
+
+def _gate_paths(directory):
+    """chip_smoke.gate_paths' scenes at 128 x 64 (the terrains at 24 cells,
+    materials_300 and textures_deep at full count, de_130 at 64 x 32, and
+    de_520 at 32 x 16: past the 512 shapes the march kernel's shared
+    memory holds without opting in)."""
+    flagship = chip_smoke.scene_paths(directory, width=128, height=64, spectrum_samples=6,
+                                      bounces=8)["flagship"]
+    spectra = lambda s: [("spectrum_samples = 6", f"spectrum_samples = {s}")]  # noqa: E731
+    spheres = dict(count=300, width=128, height=64, distinct=True, emissive=150, planes=130,
+                   spectrum_samples=10)
+    return {
+        "sunlit_terrain_24": chip_smoke.write_sunlit_terrain_scene(directory, 24, 128, 64),
+        "sunlit_terrain_24_bdpt": chip_smoke.write_sunlit_terrain_scene(
+            directory, 24, 128, 64, spp=2, renderer="bidirectional"),
+        "flagship_s20": chip_smoke.add_objects(flagship, [chip_smoke.SUN], "flagship_s20",
+                                               spectra(20)),
+        "flagship_s32": chip_smoke.add_objects(flagship, [chip_smoke.SUN], "flagship_s32",
+                                               spectra(32)),
+        "flagship_s64": chip_smoke.add_objects(flagship, [], "flagship_s64", spectra(64)),
+        "materials_300": chip_smoke.write_spheres_scene(directory, **spheres),
+        "materials_300_bdpt": chip_smoke.write_spheres_scene(directory, **spheres,
+                                                             renderer="bidirectional"),
+        "textures_deep": chip_smoke.write_textures_scene(directory, 128, 96, 6, 4, spp=4,
+                                                         deep=True),
+        "de_130": chip_smoke.write_de_many_scene(directory, 130, 64, 32),
+        "de_520": chip_smoke.write_de_many_scene(directory, 520, 32, 16),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sunlit_terrain_24", "flagship_s20", "flagship_s32",
+                                  "flagship_s64", "materials_300", "textures_deep", "de_130",
+                                  "de_520"])
+def test_cuda_gate_kernels_match_plain_version(tmp_path, name):
+    """The bounce and NEE kernels lane for lane on the scenes the gate
+    refused before: directional lamps, S = 20, 32 and 64, tables past 128
+    rows read from the baked colour table, an 82-instruction program at
+    stack depth 12, 130 and 520 DE shapes: 0 divergent lanes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    path = _gate_paths(str(tmp_path))[name]
+    worst = chip_smoke.check_kernels(name, path, lanes=8192, bounces=1 if name.startswith("de_") else 3)
+    assert worst["divergent"] == 0.0 and worst["nee_divergent"] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sunlit_terrain_24", "flagship_s20", "flagship_s64",
+                                  "materials_300", "textures_deep"])
+def test_cuda_gate_renders_take_the_kernels(tmp_path, name):
+    """The CLI from .lua to PNG on the card through regeneration, every
+    bounce through the scene's kernels (chip_smoke.render_end_to_end), at S
+    up to 64 with no ValueError."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    path = _gate_paths(str(tmp_path))[name]
+    launches = chip_smoke.render_end_to_end(path, 2, "test", str(tmp_path))
+    assert launches["bounces"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sunlit_terrain_24_bdpt", "materials_300_bdpt"])
+def test_cuda_gate_bdpt_matches_plain_version(tmp_path, name):
+    """The bidirectional renderer's kernels against their plain versions
+    (chip_smoke.check_bdpt) with directional lamps (which start no lamp
+    path) and with 150 sphere lamps and the baked colour table."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    path = _gate_paths(str(tmp_path))[name]
+    checked = chip_smoke.check_bdpt(name, path)
+    assert checked["worst"] is not None
+
+
+@pytest.mark.cuda
+def test_cuda_gate_draws_past_16_samples(tmp_path):
+    """philox_draws_kernel at S = 64 (the camera rows staged in shared
+    memory sized by S) bit for bit against the CPU."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    path = _gate_paths(str(tmp_path))["flagship_s64"]
+    assert chip_smoke.check_draws("flagship_s64", path) == 0.0

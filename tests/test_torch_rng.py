@@ -132,7 +132,7 @@ def test_render_is_the_same_in_any_batch(flagship, monkeypatch):
     monkeypatch.setattr(simple, "regen_enabled", lambda: False)  # the one-shot wavefront
     films = []
     for batch in (2, 1):
-        monkeypatch.setattr(simple, "pick_sample_batch", lambda film, texture_bytes=0, b=batch: b)
+        monkeypatch.setattr(simple, "pick_sample_batch", lambda film, texture_bytes=0, lane_bytes=0, b=batch: b)
         _, acc, wt = simple.render(project_data, scene, seed=11, max_samples=2)
         films.append((acc, wt))
     (acc2, wt2), (acc1, wt1) = films

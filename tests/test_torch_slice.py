@@ -176,22 +176,10 @@ def test_cli_renders_fractal_png(paths, tmp_path):
 def test_cli_refuses_what_is_not_ported(paths, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         cli.main([paths["flagship"], "--device", "cpu", "--multi-device"])
-    # directional lamps and more than 128 materials stay refused by the
-    # scene gate (scenes of 129 to 1024 primitives render now:
-    # tests/test_torch_gate.py)
+    # directional lamps and more than 128 materials render now
+    # (tests/test_torch_gate_lamps.py::test_cli_renders_directional_lamps,
+    # tests/test_torch_gate_rows.py::test_cli_renders_what_the_gate_refused)
     text = open(paths["flagship"]).read()
-    extras = {
-        "directional": '{type = "directional_light", direction = vector(0, -1, 0), width = 0.1, '
-                       'color = 1},\n',
-        "materials_129": "".join(
-            f"shape.sphere {{radius = 0.1, position = vector({k}, 30, 30), material = {{surface = "
-            f"material.diffuse {{color = {0.001 * k:.3f}}}}}}},\n" for k in range(129)),
-    }
-    for name, extra in extras.items():
-        gated = tmp_path / f"{name}.lua"
-        gated.write_text(text.replace("objects = {", "objects = {\n" + extra, 1))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-            cli.main([str(gated), "--device", "cpu"])
     # photon mapping, and bidirectional rendering at 16 camera bounces with
     # path regeneration on (the JAX package's regen BDPT)
     photon = tmp_path / "photon.lua"

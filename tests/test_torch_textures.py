@@ -237,17 +237,30 @@ def test_simple_form_keeps_the_simple_kernels(paths, tmp_path):
 
 
 def test_program_limits_raise_naming_roadmap():
-    """Code past the kernels' PROG_MAX_LEN raises NotImplementedError naming
-    ROADMAP.md, never a silent truncation."""
+    """A program whose stack passes what the kernels' shared memory holds
+    (exprs.PROG_STACK_MAX values) raises NotImplementedError naming
+    ROADMAP.md, never a silent truncation; one past the old form's 64
+    instructions lowers whole, and a probability program of the simple
+    form keeps the simple instantiations at any length."""
     C = TIR.ComplexExpression
-    expr = C("fresnel", {"ior": 1.5, "env_ior": 1.0})
-    for _ in range(TE.PROG_MAX_LEN // 2):
-        expr = C("binary", {"operator": "add", "lhs": expr, "rhs": 0.01})
-    prog = TE.compile_program(expr, TE.Resources(), TE.NUMBER)
-    scene = types.SimpleNamespace(prob_programs=[prog], color_programs=[], normal_programs=[],
-                                  sky_program=TE.compile_program(0.0, TE.Resources()))
+    sky = TE.compile_program(0.0, TE.Resources())
+
+    def lowered(expr):
+        prog = TE.compile_program(expr, TE.Resources(), TE.NUMBER)
+        scene = types.SimpleNamespace(prob_programs=[prog], color_programs=[], normal_programs=[],
+                                      sky_program=sky)
+        return TE.KernelPrograms(scene, TE.Resources())
+
+    long = C("fresnel", {"ior": 1.5, "env_ior": 1.0})
+    for _ in range(40):
+        long = C("binary", {"operator": "add", "lhs": long, "rhs": 0.01})
+    kp = lowered(long)
+    assert len(kp.program_code(0)) > 64 and kp.stack_depth == TE.PROG_STACK and kp.simple
+    deep = C("fresnel", {"ior": 1.5, "env_ior": 1.0})
+    for _ in range(TE.PROG_STACK_MAX):
+        deep = C("binary", {"operator": "add", "lhs": 0.01, "rhs": deep})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        TE.KernelPrograms(scene, TE.Resources())
+        lowered(deep)
 
 
 # --- the two-part program form (lane code once per lane, column code per column) -----
