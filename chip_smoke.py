@@ -79,6 +79,15 @@ and exits non-zero on any failure:
    program_colors_kernel (the lamp vertices' colours) against their plain
    versions, timed beside A and B on its untextured twin, and rendered
    through the CLI. No step may take the plain path.
+7. the photon renderer (renderers/photon.py) on flagship_photon (the
+   flagship as a photon project at 512 x 256, S = 6, 8 bounces; 100,000
+   photons of 8 bounces in 2 passes, radius 0.1; exact mode) and
+   textures_photon (the textures scene as a photon project: interpolation
+   mode, 70-column camera rows through the kProg kernels): the bounce
+   kernels' chain factors and photon_gather_kernel against their plain
+   versions at the wavefront render() launches (check_photon), the gather's
+   time and bound (time_photon), and a CLI render of each with the counts
+   zeroed just before it (render_photon), printing its maps' cell occupancy.
 
 The rest of the scene gate (gate_paths: directional lamps, S = 24, 32 and
 64, 300 materials through the baked colour table, 150 lamps and 130
@@ -96,11 +105,13 @@ The main run builds the kernels from clean; the modes below reuse a build
 of the same sources where there is one.
 ``python3 chip_smoke.py --rows`` instead runs phase 4's measurements of the
 dense bounce and NEE kernels alone (measure_rows), the textures scene's
-bounce and NEE kernel times, and last materials_300 read from its baked
-colour table against the per-launch bank (measure_bank); to compare a
+bounce and NEE kernel times, the bidirectional renderer's
+dense_bounce_kernel<record> on cornell_class (time_record), and last
+materials_300 read from its baked colour table against the per-launch
+bank (measure_bank); to compare a
 parent, copy chip_smoke.py into its ``git archive`` checkout and run both
-in one call (a checkout whose gate refuses materials_300 stops at
-measure_bank). ``--prog`` runs the measurements of the kProg
+in one call (a checkout whose gate refuses materials_300, or that has no
+renderers.photon, stops at measure_bank). ``--prog`` runs the measurements of the kProg
 instantiations, with builds of csrc/bounce.cu that each remove or move one
 cost (measure_prog).
 ``python3 chip_smoke.py --walls`` instead runs ``--profile``'s flagship
@@ -109,7 +120,8 @@ renders alone (one-shot and regeneration walls).
 (flagship and terrain_405 at 64 spp, fractal.lua at 8 spp) through
 renderers.simple.render under the one-shot wavefront and under
 regeneration, and the bidirectional scenes of phase 6 through
-renderers.bidirectional.render (profile_bdpt), 5 timed runs after a
+renderers.bidirectional.render (profile_bdpt) and flagship_photon through
+renderers.photon.render (profile_photon), 5 timed runs after a
 warm-up and one run under torch.profiler, and prints the launches,
 lane-bounces, peak memory, wall times, device idle share and top device ops
 of each. Both modes print each kernel's registers and
@@ -641,7 +653,7 @@ def write_texture_images(directory, seed=3, size=None):
 
 def write_textures_scene(directory, width=64, height=48, spectrum_samples=4, bounces=4, spp=64,
                          renderer="simple", light_bounces=4, textured=True, tiles=(3, 2),
-                         texture_size=None, deep=False):
+                         texture_size=None, deep=False, photon=None):
     """The textures class of the reference's golden scenes (SURVEY.md
     section 6: bicubic colour and normal maps with texture_scale): a plane
     with texture_scale = 5, a colour texture and the reference's normal-map
@@ -655,19 +667,21 @@ def write_textures_scene(directory, width=64, height=48, spectrum_samples=4, bou
     (16, 16) 512, which the wide BVH takes. ``texture_size`` (a multiple of
     1024) writes write_texture_images' large images, and "_1k" (or "_2k",
     ...) ends the name. ``deep`` wraps the fresnel sphere's colour in
-    deep_expression (DEEP; the name "textures_deep"). Returns the .lua
-    path."""
+    deep_expression (DEEP; the name "textures_deep"). A photon-mapping
+    project takes ``photon``'s (photons, photon_bounces, photon_passes,
+    radius). Returns the .lua path."""
     os.makedirs(directory, exist_ok=True)
     cols, rows = tiles
     obj = f"tiles_{cols}x{rows}.obj"
     with open(os.path.join(directory, obj), "w") as fh:
         fh.write(_tiles_obj(cols, rows))
     write_texture_images(directory, size=texture_size)
-    extra = f"\n        light_bounces = {light_bounces}," if renderer == "bidirectional" else ""
+    extra = (f"\n        light_bounces = {light_bounces}," if renderer == "bidirectional" else
+             "\n        " + PHOTON_EXTRA % photon if renderer == "photon_mapping" else "")
     values = dict(DEEP if deep else TEXTURED if textured else UNTEXTURED, w=width, h=height,
                   s=spectrum_samples, b=bounces, spp=spp, renderer=renderer, extra=extra, obj=obj)
     name = ("textures" if textured else "untextured") + ("_deep" if deep else "") + (
-        "_bdpt" if renderer != "simple" else "") + (
+        {"simple": "", "bidirectional": "_bdpt", "photon_mapping": "_photon"}[renderer]) + (
         "" if tiles == (3, 2) else f"_{2 * cols * rows}") + (
         f"_{texture_size // 1024}k" if texture_size else "")
     path = os.path.join(directory, f"{name}.lua")
@@ -1248,11 +1262,16 @@ def _event_ms(fn, reps):
 # one estimator iteration of each kind; one popped wide-BVH child's slab
 # test, a descent's 16 slab tests, one leaf row's test; a kProg hit's frame
 # and uv (the cheapest kind, a plane's rotation); one program value at one
-# spectral column (a single instruction's four floats: a floor).
+# spectral column (a single instruction's four floats: a floor); the photon
+# gather's binary-search step, candidate read (its squared distance and
+# test), pair (its geometry weight, bin and adds), one factor of a chain
+# re-walk and the rest of the re-walk (an exp, the sign), one
+# interpolation.
 OPS = {
     "plane": 15, "triangle": 53, "sphere": 24, "shade": 150, "lamp": 80, "de_step": 20,
     "mandelbulb": 32, "regular": 55, "cubic": 83, "bicomplex": 63,
     "pop": 21, "descent": 16 * 21, "leaf_row": 53, "frame": 60, "program": 4,
+    "search_step": 3, "candidate": 9, "pair": 25, "chain_factor": 6, "chain": 4, "interp": 9,
 }
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 
@@ -1621,14 +1640,16 @@ def _print_bounds(what, result):
 
 def _time_pairs(runs, plains, plain_reps, what):
     """Mean ms of each run and of its plain version, in the order plain,
-    run, run, plain after a warm-up; {key: (run, plain)}."""
+    run, run, plain after a warm-up (two calls of the run, one of the plain
+    version, which takes seconds a call on the DE scenes); {key: (run,
+    plain)}."""
     import torch
 
     times = {}
     for key in runs:
-        for fn in (runs[key], plains[key]):
-            for _ in range(2):
-                fn()
+        for _ in range(2):
+            runs[key]()
+        plains[key]()
         torch.cuda.synchronize()
         p1 = _event_ms(plains[key], plain_reps)
         k1 = _event_ms(runs[key], 50)
@@ -2483,20 +2504,22 @@ def _issue_rate():
 
 def _zero_counts():
     from pyrite_tpu_torch import kernels, kernels_dense as kd, rng, tracer
-    from pyrite_tpu_torch.renderers import bidirectional as bd, simple
+    from pyrite_tpu_torch.renderers import bidirectional as bd, photon as ph, simple
 
     for counts in (kd.launches, kernels.launches, tracer.launches, rng.launches, simple.counters,
-                   bd.counters, tracer.lane_bounces):
+                   bd.counters, ph.counters, tracer.lane_bounces):
         for k in counts:
             counts[k] = 0
 
 
 def _read_counts():
     from pyrite_tpu_torch import kernels, kernels_dense as kd, rng, tracer
-    from pyrite_tpu_torch.renderers import bidirectional as bd, simple
+    from pyrite_tpu_torch.renderers import bidirectional as bd, photon as ph, simple
 
+    photon = {k: int(v) for k, v in ph.counters.items()}
+    photon["photon_camera_bounces"] = photon.pop("camera_bounces")
     return dict(kd.launches, **kernels.launches, **tracer.launches, **rng.launches, **simple.counters,
-                **{k: int(v) for k, v in bd.counters.items()},
+                **{k: int(v) for k, v in bd.counters.items()}, **photon,
                 live_lane_bounces=tracer.lane_bounces["live"],
                 executed_lane_bounces=tracer.lane_bounces["executed"],
                 lamp_live=tracer.lane_bounces["lamp_live"],
@@ -3254,7 +3277,7 @@ class plain_bdpt:
 
         self.saved = {k: getattr(kd, k) for k in ("bounce_dense", "lamp_start", "lamp_bounce",
                                                     "shadow_query")}
-        kd.bounce_dense = lambda scene, cfg, wl, state, draws, bank, record=False: \
+        kd.bounce_dense = lambda scene, cfg, wl, state, draws, bank, record=False, chain=False: \
             tracer.bounce_core(scene, cfg, wl, state, draws, record)
         kd.lamp_start = lambda scene, wl, draws, bank=None: tracer.lamp_start(scene, wl, draws)
         kd.lamp_bounce = lambda scene, cfg, wl, state, draws, bank=None: \
@@ -3356,6 +3379,418 @@ def compare_bdpt_plain(path, samples, card):
     return films["the kernels' sampling"][:2] + films["as they are"]
 
 
+# --- phase 7: the photon renderer -------------------------------------------------
+
+PHOTON_EXTRA = "photons = %d, photon_bounces = %d, photon_passes = %d, radius = %s,"
+
+
+def photon_scene_paths(directory, small=False):
+    """Phase 7's photon-mapping projects: flagship_photon
+    (__graft_entry__._SCENE_SRC with renderer.photon_mapping at 512 x 256,
+    S = 6, 8 bounces, 2 light samples; 100,000 photons of 8 bounces, 2
+    passes, radius 0.1, the reference's default radius, SURVEY.md section 2;
+    every color program reads only the wavelength: exact mode) and
+    textures_photon (write_textures_scene's textures scene at 256 x 192, S
+    = 6, 4 bounces, with 100,000 photons of 4 bounces, one pass, radius 0.1:
+    its programs read the ray, so interpolation mode, a camera walk of S + G
+    = 70 columns and a lamp walk of 65 through the kProg kernels).
+    ``small``: 64 x 32 and 64 x 48 films and 4,000 photons, for quick checks.
+    Returns {name: .lua path}."""
+    sys.path.insert(0, ROOT)
+    from __graft_entry__ import _SCENE_SRC
+
+    os.makedirs(directory, exist_ok=True)
+    w, h, photons = (64, 32, 4000) if small else (512, 256, 100_000)
+    flagship = (_SCENE_SRC % {"w": w, "h": h, "s": 6, "b": 8}).replace(
+        "renderer.simple", "renderer.photon_mapping").replace(
+        "bounces = 8,", "bounces = 8, " + PHOTON_EXTRA % (photons, 8, 2, "0.1"), 1)
+    out = {"flagship_photon": os.path.join(directory, "flagship_photon.lua")}
+    with open(out["flagship_photon"], "w") as fh:
+        fh.write(flagship)
+    tw, th = (64, 48) if small else (256, 192)
+    out["textures_photon"] = write_textures_scene(
+        os.path.join(directory, "textures_photon"), tw, th, 6, 4, spp=16, renderer="photon_mapping",
+        photon=(photons, 4, 1, 0.1))
+    return out
+
+
+def _photon_setup(path, seed):
+    """The photon renderer's first chunk of a project as render() runs it,
+    one sample: (project, scene, parts (photon._build_parts), rows, photon
+    map of pass 0, its draws, the camera draws, the chunk's rays, its walk's
+    wavelengths [N, S + G] and program values)."""
+    import torch
+
+    from pyrite_tpu_torch import kernels_dense as kd, rng
+    from pyrite_tpu_torch.project import load_project
+    from pyrite_tpu_torch.renderers import photon as ph
+    from pyrite_tpu_torch.renderers.simple import chunk_rays
+    from pyrite_tpu_torch.rng import KeyedDraws
+
+    pd = load_project(path)
+    scene = _gpu_scene(path)[0]
+    settings = pd.project.renderer
+    parts = ph._build_parts(pd, scene)
+    film, camera, cfg, photon_cfg, spec, _, _, grid_centers, bin_centers = parts
+    rows = ph.pick_rows_per_chunk(film, ph.lane_bytes(scene, settings, spec), scene.texture_bytes
+                                  + ph.map_bytes(settings, spec, len(scene.color_programs)))
+    passes = settings.photon_passes
+    cam_draws = KeyedDraws(seed, sample0=0)
+    photon_draws = KeyedDraws(seed, sample0=1)
+    lam_p = rng.photon_wavelengths(photon_draws, settings.photons, spec.span, scene.device)
+    pm = ph.build_map(scene, ph.photon_batch(scene, photon_cfg, photon_draws, lam_p, spec,
+                                             bin_centers), spec)
+    rays = chunk_rays(film, camera, cfg, cam_draws, rows=rows, device=scene.device)
+    wl = rays[3]
+    n = wl.shape[0]
+    wl_ext = wl if spec.exact else torch.cat(
+        [wl, grid_centers[None, :].expand(n, spec.g_bins)], dim=1).contiguous()
+    assert passes >= 1
+    return (pd, scene, parts, rows, pm, photon_draws, cam_draws, rays, wl_ext,
+            kd.precompute_bank_values(scene, wl_ext))
+
+
+def _occupancy_line(keys):
+    from pyrite_tpu_torch.renderers import photon as ph
+
+    biggest, cells, over = (int(x) for x in ph.cell_occupancy(keys))
+    return (f"largest cell {biggest} photons, {cells} cells, {over} past the cap of "
+            f"{ph._CELL_CAP} (share {over / max(cells, 1):.6f})")
+
+
+def check_record_chain(name, path, seed=0, setup=None):
+    """The camera walk of a photon project's first chunk through the
+    bounce kernels' kRecord instantiation with its chain factors
+    (kernels_dense.bounce_dense, record and chain) against
+    tracer.bounce_core(record=True), on CUDA tensors, each bounce from the
+    plain state: the vertex's flags exact on every lane, color_prog exact and
+    position, normal, BRDF factor, color_prob and path_prob within rtol 1e-3
+    / atol 1e-4 on the lanes that reflect. The plain version marches DE
+    shapes in march_de_kernel (kernel_march). Returns the largest error."""
+    from pyrite_tpu_torch import kernels_dense as kd, tracer
+
+    (pd, scene, parts, rows, pm, photon_draws, cam_draws, rays, wl_ext,
+     bank) = setup or _photon_setup(path, seed)
+    cfg = parts[2]
+    _, origin, direction, wl = rays
+    n = wl.shape[0]
+    worst, reflecting = 0.0, 0
+    state = tracer.initial_state(origin, direction, wl_ext.shape[1])
+    with kernel_march():
+        for i in range(cfg.bounces):
+            if not bool(state["alive"].any()):
+                break
+            what = f"{name} camera bounce {i}"
+            draws = tracer.draw_bounce_uniforms(scene, cfg, n, cam_draws, i, scene.device)
+            _, got = kd.bounce_dense(scene, cfg, wl_ext, state, draws, bank, record=True, chain=True)
+            state, ref = tracer.bounce_core(scene, cfg, wl_ext, state, draws, record=True)
+            _flags_equal(ref, got, ("reflected", "is_diffuse", "dispersed", "recorded", "miss"), what)
+            refl = ref["reflected"]
+            reflecting += int(refl.sum())
+            _flags_equal(ref, got, ("color_prog",), what, refl)
+            worst = max(worst, _close_where(
+                ref, got, ("position", "normal", "brdf_stored", "color_prob", "path_prob"), refl,
+                what))
+    assert reflecting > 0, f"{name}: no lane reflects"
+    return worst
+
+
+def check_photon(name, path, seed=0):
+    """Phase 7's checks on one photon project at the wavefront render()
+    launches (its first chunk, sample 0, pass 0), on CUDA tensors: the
+    camera walk's chain factors (check_record_chain), then
+    photon_gather_kernel against its plain version (renderers.photon.
+    gather_plain) on every bounce of the kernels' walk against the map of
+    pass 0 (the lamp kernels' photons): num_neighbors and fresh_cnt equal,
+    acc_bins, cnt_bins and fresh_psum within rtol 1e-5 / atol 1e-7 (the same
+    adds in the same order; CUDA's expf and PyTorch's exp may differ in the
+    last ulp). Prints the map's cell occupancy. Returns the worst errors and
+    the inputs of the timed gather (camera bounce 0)."""
+    from pyrite_tpu_torch import kernels_dense as kd, rng
+    from pyrite_tpu_torch.renderers import photon as ph
+
+    setup = _photon_setup(path, seed)
+    (pd, scene, parts, rows, pm, photon_draws, cam_draws, rays, wl_ext, bank) = setup
+    film, camera, cfg, photon_cfg, spec = parts[:5]
+    _, origin, direction, wl = rays
+    n = wl.shape[0]
+    dev = scene.device
+    worst = {"record": check_record_chain(name, path, seed, setup), "gather": 0.0}
+    # the gather, on the kernels' own walk
+    chain_m = len(scene.color_programs) if spec.exact else None
+    _, vertices = ph._record_camera_vertices(scene, cfg, cam_draws, origin, direction, wl_ext, bank,
+                                             chain_m)
+    lam0 = wl_ext[:, 0].contiguous()
+    factors0 = ph._log_factors(scene, lam0) if spec.exact else None
+    timed = None
+    pairs = 0
+    for b, vertex in enumerate(vertices):
+        lam_f, _ = rng.fresh_wavelengths(photon_draws, n, b, spec.spectrum_samples, spec.span, dev)
+        q = ph.gather_query(scene, vertex, spec, lam0, lam_f, factors0)
+        got = kd.photon_gather(spec, pm, q)
+        ref = ph.gather_plain(spec, pm, q)
+        what = f"{name} gather at camera bounce {b}"
+        for k in ("num_neighbors", "fresh_cnt"):
+            bad = int((got[k] != ref[k]).sum())
+            assert bad == 0, f"{what}: {k} differs on {bad} lanes"
+        for k in ("acc_bins", "cnt_bins", "fresh_psum"):
+            diff = (got[k] - ref[k]).abs()
+            bad = int((diff > 1e-7 + 1e-5 * ref[k].abs()).sum())
+            assert bad == 0, f"{what}: {k} off on {bad} entries (max {float(diff.max())})"
+            worst["gather"] = max(worst["gather"], float(diff.max()))
+        pairs += int(ref["cnt_bins"].sum())
+        if b == 0:
+            timed = (q, ref)
+    assert pairs > 0, f"{name}: no photon gathered"
+    print(f"[photon] {name}: {n} lanes ({rows} rows), S + G = {wl_ext.shape[1]} columns "
+          f"({'exact' if spec.exact else 'interpolation'} mode), {pm['keys'].shape[0]} map entries; "
+          f"record fields and gather against the plain version on {len(vertices)} bounces: "
+          f"largest errors {worst}, {pairs} pairs; {_occupancy_line(pm['keys'])}")
+    return {"worst": worst, "setup": (scene, spec, pm), "timed": timed}
+
+
+def _gather_work(spec, pm, q, out):
+    """(bytes, FP32 operations) of one gather, counted as this run's data
+    needs them. Bytes, each read or written once: every map key (the
+    binary searches); the valid flag of each photon that a valid lane's
+    candidate reads touch (the key matches its cell, up to _CELL_CAP) and
+    the other fields of those that are valid; every lane's valid flag and
+    the other query rows of the valid lanes, the fresh wavelengths' rows
+    (lam_f and, in exact mode, their factors) only of lanes with a fresh
+    pair; every output. Operations: the binary searches (ceil(log2(P + 1))
+    steps of each valid lane's 27 cells), every candidate read (the cell's
+    photons up to _CELL_CAP and the read that ends it), every pair (its
+    geometry and two chain values: a re-walk of M factors, or an
+    interpolation) and every fresh wavelength of a pair where neither
+    dispersed."""
+    import math
+
+    import torch
+
+    from pyrite_tpu_torch.renderers import photon as ph
+
+    def row_bytes(v):
+        return _nbytes(v) // max(v.shape[0], 1)
+
+    valid = q["valid"]
+    p = pm["keys"].shape[0]
+    starts, ckeys = ph.grid_query(pm["keys"], q["position"], spec.radius)
+    ends = torch.searchsorted(pm["keys"], ckeys.reshape(-1), right=True).reshape(ckeys.shape)
+    taken = torch.clamp(ends - starts, max=ph._CELL_CAP)
+    lo, hi = starts[valid].reshape(-1).long(), (starts + taken)[valid].reshape(-1).long()
+    mark = torch.zeros(p + 1, dtype=torch.int64, device=lo.device)
+    mark.index_add_(0, lo, torch.ones_like(lo))
+    mark.index_add_(0, hi, -torch.ones_like(hi))
+    touched = mark.cumsum(0)[:p] > 0
+    live = touched & pm["valid"]
+    n_touched, n_live = int(touched.sum()), int(live.sum())
+    n_valid = int(valid.sum())
+    n_fresh = int(((out["fresh_cnt"] > 0) & valid).sum())
+    fresh_rows = ("lam_f", "log_ff", "neg_ff", "zero_ff")
+    size = (_nbytes(pm["keys"]) + n_touched * row_bytes(pm["valid"])
+            + n_live * sum(row_bytes(v) for k, v in pm.items() if k not in ("keys", "valid"))
+            + _nbytes(valid)
+            + n_valid * sum(row_bytes(v) for k, v in q.items() if k != "valid" and k not in fresh_rows)
+            + n_fresh * sum(row_bytes(q[k]) for k in fresh_rows if k in q)
+            + sum(_nbytes(v) for v in out.values()))
+    reads = int(torch.clamp(ends - starts + 1, max=ph._CELL_CAP)[valid].sum())
+    searches = n_valid * 27 * math.ceil(math.log2(p + 1))
+    pairs, fresh = int(out["cnt_bins"].sum()), int(out["fresh_cnt"].sum())
+    m = pm["log_f"].shape[1] if spec.exact else 0
+    chain = OPS["chain_factor"] * m + OPS["chain"] if spec.exact else OPS["interp"]
+    ops = (searches * OPS["search_step"] + reads * OPS["candidate"]
+           + pairs * (OPS["pair"] + 2 * chain) + fresh * spec.spectrum_samples * (chain + 2))
+    print(f"[work] photon_gather_kernel: {n_valid} valid lanes of {valid.shape[0]} ({n_fresh} with a "
+          f"fresh pair) x 27 cells x {math.ceil(math.log2(p + 1))} search steps, {reads} candidate "
+          f"reads touching {n_touched} of {p} map entries ({n_live} valid photons), "
+          f"{int(out['num_neighbors'].sum())} within the radius, {pairs} pairs, {fresh} fresh pairs "
+          f"x {spec.spectrum_samples}; {size} bytes, {ops} FP32 operations")
+    return size, ops
+
+
+def time_photon(checked, card, plain_reps=1):
+    """Phase 4 for photon_gather_kernel: ms per launch at camera bounce 0 of
+    check_photon's chunk (two windows of 20 launches) and its plain version
+    (one call), with the bytes and operations its inputs need
+    (_gather_work). Returns {"photon_gather_kernel": (kernel ms, plain ms,
+    bytes, operations)}."""
+    import torch
+
+    from pyrite_tpu_torch import _build, kernels_dense as kd
+    from pyrite_tpu_torch.renderers import photon as ph
+
+    scene, spec, pm = checked["setup"]
+    q, ref = checked["timed"]
+    args, _ = kd.photon_gather_args(spec, pm, q)
+    lib = _build.load()
+    run = lambda: lib.pyrite_photon_gather(*args)  # noqa: E731
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    k1, k2 = _event_ms(run, 20), _event_ms(run, 20)
+    plain_ms = sum(_once_ms(lambda: ph.gather_plain(spec, pm, q)) for _ in range(plain_reps)) / plain_reps
+    n = q["position"].shape[0]
+    print(f"[times] photon_gather_kernel: kernel {k1:.4f} / {k2:.4f} ms, plain {plain_ms:.4f} ms "
+          f"(one call) per launch, {n} lanes, {pm['keys'].shape[0]} map entries, B={spec.bins}, "
+          f"K={spec.spectrum_samples} ({card})")
+    size, ops = _gather_work(spec, pm, q, ref)
+    result = {"photon_gather_kernel": ((k1 + k2) / 2, plain_ms, size, ops)}
+    _print_bounds("photon", result)
+    return result
+
+
+def render_photon(path, samples, card, out_dir):
+    """Phase 7's render: the CLI on the GPU (renderers.photon.render),
+    checking the PNG, the film, and that every step went through the CUDA
+    kernels: per camera bounce iteration one launch of the bounce kernel's
+    kRecord instantiation (and of the NEE kernel where the project samples
+    lamps), per photon map one lamp kernel launch to start the lamp paths and
+    one per lamp bounce iteration, one photon_gather_kernel launch per
+    camera bounce and photon pass; no plain tracer function and no plain
+    gather ran. Prints the launches, the cell occupancy of its maps, the
+    camera and lamp lane-bounces, its wall time and peak memory. Returns
+    (launch counts, seconds, peak bytes)."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from pyrite_tpu_torch import cli, kernels_dense as kd
+    from pyrite_tpu_torch.renderers import photon as ph
+
+    result = {}
+    render = ph.render
+    plain = ph.gather_plain
+
+    def recording_render(*args, **kwargs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        started = time.perf_counter()
+        film, acc, wt = render(*args, **kwargs)
+        torch.cuda.synchronize()
+        result.update(film=film, acc=acc, wt=wt, seconds=time.perf_counter() - started,
+                      peak=torch.cuda.max_memory_allocated())
+        return film, acc, wt
+
+    def refused(*args, **kwargs):
+        raise AssertionError("the render took the plain gather")
+
+    out_png = os.path.join(out_dir, os.path.basename(path) + ".photon.png")
+    ph.render, ph.gather_plain = recording_render, refused
+    _zero_counts()
+    try:
+        rc = cli.main([path, "--samples", str(samples), "--device", "cuda", "--output", out_png])
+    finally:
+        ph.render, ph.gather_plain = render, plain
+    launches = _read_counts()
+    assert rc == 0, f"cli.main returned {rc}"
+    film, acc, wt = result["film"], result["acc"], result["wt"]
+    assert bool(torch.isfinite(acc).all() and torch.isfinite(wt).all()), "film is not finite"
+    with Image.open(out_png) as img:
+        pixels = np.asarray(img)
+    assert pixels.shape == (film.height, film.width, 3) and pixels.max() > 0, pixels.shape
+    scene = _gpu_scene(path)[0]
+    r = cli.load_project(path).project.renderer
+    bounce_k, nee_k = kd.kernel_names(scene)
+    record_k = kd._named(scene, ("wide" if scene.use_clusters else "dense") + "_bounce_kernel<record>")
+    cam, maps = launches["photon_camera_bounces"], launches["maps"]
+    assert cam > 0 and launches[record_k] == cam, launches
+    assert launches[nee_k] == (cam if r.light_samples and scene.num_lamps else 0), launches
+    assert launches[bounce_k] == 0, launches
+    assert maps == samples * r.photon_passes, launches
+    assert launches[kd._lamp_name(scene)] == maps + launches["lamp_bounces"] > maps, launches
+    assert launches["photon_gather_kernel"] == launches["gathers"] == cam * r.photon_passes, launches
+    for k in ("bounce_core", "lamp_start", "lamp_bounce_step", "intersect_shadow"):
+        assert launches[k] == 0, (k, launches)
+    print(
+        f"[photon-render] {os.path.basename(path)} {film.width}x{film.height}, {samples} spp, "
+        f"S={r.spectrum_samples}, {r.bounces} camera bounces, {r.photons} photons x "
+        f"{r.photon_passes} passes of {r.photon_bounces} bounces, radius {r.radius}: render wall "
+        f"{result['seconds']:.4f} s, peak memory {result['peak'] / 2**20:.1f} MiB; camera "
+        f"lane-bounces live {launches['live_lane_bounces']}, executed "
+        f"{launches['executed_lane_bounces']}; lamp lane-bounces live {launches['lamp_live']}, "
+        f"executed {launches['lamp_executed']}; cells of its {maps} maps: largest "
+        f"{launches['max_cell']} photons, {launches['cells_over_cap']} of {launches['cells']} past "
+        f"the cap (share {launches['cells_over_cap'] / max(launches['cells'], 1):.6f}) ({card}); "
+        f"launches {launches}; image mean {pixels.mean():.2f}/255")
+    return launches, result["seconds"], result["peak"]
+
+
+def profile_photon(card, runs=5):
+    """``--profile``, flagship_photon through renderers.photon.render at 2
+    spp: ``runs`` timed runs after a warm-up, then one under
+    torch.profiler. Prints the launches, peak memory, wall times, device
+    busy time and idle share, and the top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyrite_tpu_torch.project import load_project
+    from pyrite_tpu_torch.renderers import photon as ph
+
+    spp = 2
+    with tempfile.TemporaryDirectory() as tmp:
+        path = photon_scene_paths(tmp)["flagship_photon"]
+        scene = _gpu_scene(path)[0]
+        project_data = load_project(path)
+
+        def render():
+            torch.cuda.synchronize()
+            started = time.perf_counter()
+            ph.render(project_data, scene, max_samples=spp)
+            torch.cuda.synchronize()
+            return time.perf_counter() - started
+
+        render()
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        walls = [render()]
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        walls += [render() for _ in range(runs - 1)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = render()
+        events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        own = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total  # noqa: E731
+        busy = sum(own(e) for e in events) / 1e3
+        top = sorted(events, key=own, reverse=True)[:12]
+        median = sorted(walls)[len(walls) // 2]
+        print(f"[profile-photon] flagship_photon {spp} spp ({card}): launches {launches}; peak "
+              f"memory {peak / 2**20:.1f} MiB; render wall s {', '.join(f'{w:.4f}' for w in walls)}; "
+              f"median {median:.4f} s")
+        print(f"[profile-photon] profiled run: wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms, "
+              f"idle share {1 - busy / (wall * 1e3):.3f}; top device ops: " + "; ".join(
+                  f"{e.key[:60]} {own(e) / 1e3:.3f} ms ({e.count}x)" for e in top))
+
+
+def time_record(path, card, seed=1):
+    """``--rows``: kernel A (the bounce kernel's kRecord instantiation,
+    the bidirectional renderer's, without chain factors) alone at camera
+    bounce 0 of the first chunk of ``path`` (cornell_class), reading the
+    march pass's t, two windows of 50 launches. Kept to what a parent's
+    kernels_dense offers, so that this file times a parent checkout too.
+    Returns its ms."""
+    import torch
+
+    from pyrite_tpu_torch import _build, kernels_dense as kd, tracer
+
+    scene, film, camera, cfg, lamp_cfg, keyed, rays, bank = _bdpt_setup(path, seed)
+    _, origin, direction, wl = rays
+    n = wl.shape[0]
+    state = tracer.initial_state(origin, direction, wl.shape[1])
+    draws = tracer.draw_bounce_uniforms(scene, cfg, n, keyed, 0, scene.device)
+    t_de = kd.march_pass(scene, cfg, state) if scene.de_shapes else None
+    args = kd.bounce_kernel_args(scene, cfg, wl, state, draws, bank, t_de, record=True)[0]
+    name = kd._named(scene, "dense_bounce_kernel<record>")
+    launch = getattr(_build.load(), kd._LAUNCHERS[name])
+    run = lambda: launch(*args)  # noqa: E731
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    k1, k2 = _event_ms(run, 50), _event_ms(run, 50)
+    print(f"[record] {name} on {os.path.basename(path)}: {k1:.4f} / {k2:.4f} ms per launch, {n} "
+          f"lanes ({card}); tree {ROOT}")
+    return (k1 + k2) / 2
+
+
 def _gpu_info():
     """(torch's device name, nvidia-smi's "name, power.limit" line, max SM
     clock in MHz)."""
@@ -3383,7 +3818,8 @@ def _fp32_rate():
 
 KERNEL_NAMES = ("dense_bounce_kernel", "dense_nee_kernel", "wide_bounce_kernel", "wide_nee_kernel",
                 "wide_closest_kernel", "wide_shadow_kernel", "march_de_kernel", "dense_lamp_kernel",
-                "wide_lamp_kernel", "dense_shadow_kernel", "program_colors_kernel")
+                "wide_lamp_kernel", "dense_shadow_kernel", "program_colors_kernel",
+                "photon_gather_kernel")
 
 
 def _kernel_label(mangled):
@@ -3918,6 +4354,7 @@ def main(argv=None):
     if argv == ["--profile"]:
         profile_renders(smi)
         profile_bdpt(smi)
+        profile_photon(smi)
         return 0
     if argv == ["--walls"]:
         profile_renders(smi, flagship_only=True)
@@ -3930,6 +4367,7 @@ def main(argv=None):
             flagship = scene_paths(tmp, width=512, height=256, spectrum_samples=6, bounces=8)["flagship"]
             measure_rows(flagship, os.path.join(ROOT, "examples", "fractal.lua"), smi)
             time_kernels(texture_paths(os.path.join(tmp, "textures"))["textures"], smi, plain_reps=1)
+            time_record(write_cornell_scene(tmp), smi)
             measure_bank(gate_paths(os.path.join(tmp, "gate"))["materials_300"], smi, tmp)
         return 0
     if argv:
@@ -4017,6 +4455,16 @@ def main(argv=None):
         gate_bdpt, gate_bdpt_runs = check_gate_bdpt(gate, smi, tmp)
         print(f"[phase] the bidirectional renderer (phase 6): "
               f"{time.perf_counter() - bdpt_started:.1f} s")
+        # the photon renderer: the record fields and the gather against
+        # their plain versions, the gather's time, then the CLI
+        photon_started = time.perf_counter()
+        photon = photon_scene_paths(os.path.join(tmp, "photon"))
+        photon_checked = {name: check_photon(name, p) for name, p in photon.items()}
+        times.update(time_photon(photon_checked["flagship_photon"], smi))
+        time_photon(photon_checked["textures_photon"], smi)  # printed: interpolation mode
+        photon_runs = [render_photon(photon[name], 1, smi, tmp)[0] for name in (
+            "flagship_photon", "textures_photon")]
+        print(f"[phase] the photon renderer (phase 7): {time.perf_counter() - photon_started:.1f} s")
 
     def kernel(name, source, replaces, launches, err):
         ms, plain_ms, size, ops = times[name]
@@ -4032,9 +4480,11 @@ def main(argv=None):
     # bidirectional renderer's (bdpt_runs), then those of the textures
     # scenes (tex_runs, tex_bdpt_run)
     dense_total = lambda key: sum(run[key] for run in dense_runs + de_runs + gate_runs)
-    tex_total = lambda key: sum(run[key] for run in tex_runs + [tex_bdpt_run] + gate_runs)
+    tex_total = lambda key: sum(run[key] for run in tex_runs + [tex_bdpt_run] + gate_runs
+                                + photon_runs)
     tex_err = lambda w: max(w["bounce"], w["brightness"])
-    bdpt_total = lambda *keys: sum(run[k] for run in bdpt_runs + gate_bdpt_runs for k in keys)
+    bdpt_total = lambda *keys: sum(run[k] for run in bdpt_runs + gate_bdpt_runs + photon_runs
+                                   for k in keys)
     wide_total = lambda key: sum(run[key] for run in [mesh_run] + gate_runs)
     passes = ("de_march_pass", "de_shadow_pass", "de_query_pass")
     rendered = dense_runs + de_runs + [mesh_run] + gate_runs
@@ -4068,13 +4518,15 @@ def main(argv=None):
                wide_total("wide_nee_kernel") + bdpt_total("wide_nee_kernel"),
                max(w["nee"] for w in checked_wide)),
         kernel("philox_draws_kernel", "draws.cu", "pyrite_tpu/tracer.py:1069",
-               sum(run["philox_draws_kernel"] for run in rendered + bdpt_runs + gate_bdpt_runs),
+               sum(run["philox_draws_kernel"] for run in rendered + bdpt_runs + gate_bdpt_runs
+                   + photon_runs),
                max(drawn.values())),
         # the bidirectional renderer's kernels port no TPU kernel (the JAX
         # package runs these steps in XLA); timed on cornell_class
         dict(kernel("dense_bounce_kernel<record>", "bounce.cu", None,
                     bdpt_total("dense_bounce_kernel<record>", "wide_bounce_kernel<record>"),
-                    max(max(w["record"], w["brightness"]) for w in bdpt_worst)),
+                    max(max(max(w["record"], w["brightness"]) for w in bdpt_worst),
+                        max(c["worst"]["record"] for c in photon_checked.values()))),
              name="dense_bounce_kernel<record>, wide_bounce_kernel<record>",
              replaces="none: XLA, pyrite_tpu/tracer.py:1585 bounce_core's info"),
         dict(kernel("dense_lamp_kernel", "bounce.cu", None,
@@ -4107,6 +4559,11 @@ def main(argv=None):
         dict(kernel("program_colors_kernel", "bounce.cu", None, tex_total("program_colors_kernel"),
                     tex_bdpt_worst["colors"]),
              replaces="none: XLA, pyrite_tpu/renderers/bidirectional.py:73 _lamp_path_factors"),
+        # the photon renderer's gather ports no TPU kernel either
+        dict(kernel("photon_gather_kernel", "photon.cu", None,
+                    sum(run["photon_gather_kernel"] for run in photon_runs),
+                    max(c["worst"]["gather"] for c in photon_checked.values())),
+             replaces="none: XLA, pyrite_tpu/renderers/photon.py:310 _gather"),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels
     print(f"[de-shadow] blocked shares {shadow}")

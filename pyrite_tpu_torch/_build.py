@@ -50,7 +50,7 @@ _SCENE = [_P] * 7 + [_P] * 3 + [_I, _F, _F]
 _BOUNCE = _SCENE + [_P] * 22 + [_I] * 5 + [_P]
 _NEE = _SCENE + [_P] * 9 + [_I] * 4 + [_F, _I, _P]
 _WIDE = [_P] * 6 + [_I]  # the mesh scene's tables and its leaf size
-_RECORD = [_P] * 7  # a kRecord bounce's camera vertex
+_RECORD = [_P] * 11  # a kRecord bounce's camera vertex and its chain factors
 _LAMP = _SCENE + [_P] * 17 + [_I] * 6 + [_P]  # the lamp kernels
 # what the kProg instantiations read (kernels_dense.prog_args), last before
 # the stream: ten tables, two program counts, the program stack's depth
@@ -78,6 +78,7 @@ _SIGNATURES = {
     "pyrite_de_march_query_shadow": [_P] * 7 + [_I] * 2 + _DE + [_P, _P],
     "pyrite_philox_draws": [_U, _U, _I, _I, _U, _U, _U, _I, _I, _I] + [_P] * 7 + [_U, _I, _I, _P],
     "pyrite_bounce_occupancy": [_I, _I, _P],
+    "pyrite_photon_gather": [_P] * 33 + [_I] * 10 + [_F] * 6 + [_P],
 }
 
 

@@ -127,8 +127,8 @@ def main(argv=None):
 
     settings = project_data.project.renderer
     if settings.algorithm == "photon_mapping":
-        _not_ported("the 'photon_mapping' renderer", "queue 1 item 10: photon mapping")
-    if settings.algorithm == "bidirectional":
+        from .renderers import photon as algorithm_mod
+    elif settings.algorithm == "bidirectional":
         from .renderers import bidirectional as algorithm_mod
     else:
         from .renderers import simple as algorithm_mod

@@ -740,7 +740,11 @@ struct BounceArgs {
 
 // The camera vertex of each lane that a kRecord bounce writes
 // (tracer.bounce_core's info but its incident direction, the bounce's
-// input): [N, 3] position and normal, [N] BRDF factor and byte flags.
+// input): [N, 3] position and normal, [N] BRDF factor and byte flags; and
+// where color_prob is not null (the photon renderer; the bidirectional one
+// passes nulls and the stores are skipped) the chain factors of a
+// reflection: [N, S] color x path probability, [N] color program, path
+// probability and reflected flag (0, -1, 0 and 0 on the other lanes).
 struct Record {
   float* __restrict__ position;
   float* __restrict__ normal;
@@ -749,6 +753,10 @@ struct Record {
   uint8_t* __restrict__ dispersed;
   uint8_t* __restrict__ recorded;
   uint8_t* __restrict__ miss;
+  float* __restrict__ color_prob;
+  int* __restrict__ color_prog;
+  float* __restrict__ path_prob;
+  uint8_t* __restrict__ reflected;
 };
 
 // The DE shapes after the primitives, from the march pass's t of each
@@ -1052,6 +1060,7 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
     int light_events_next = light_events;
     bool reflected = false;
     float rec_brdf = 1.0f;  // kRecord: the reflection's BRDF factor, its flags
+    float rec_path_prob = 0.0f;  // and its path probability
     bool rec_diffuse = false, rec_dispersed = false;
     if (alive && !found) {
       for (int k = 0; k < s; ++k)
@@ -1092,6 +1101,7 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
       alive_next = true;
       if (kRecord) {
         rec_brdf = brdf;
+        rec_path_prob = path_prob;
         rec_diffuse = is_diffuse;
         rec_dispersed = sc_dispersed || normal_dispersed;
       }
@@ -1105,6 +1115,13 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
       rec.dispersed[lane] = rec_dispersed;
       rec.recorded[lane] = reflected || miss || (found && bsdf == BSDF_EMISSIVE && sample_light);
       rec.miss[lane] = miss;
+      if (rec.color_prob) {
+        float* cp = rec.color_prob + (size_t)lane * s;
+        for (int k = 0; k < s; ++k) cp[k] = reflected ? c[k] * rec_path_prob : 0.0f;
+        rec.color_prog[lane] = reflected ? color_id : -1;
+        rec.path_prob[lane] = rec_path_prob;
+        rec.reflected[lane] = reflected;
+      }
     }
     if (!reflected)
       for (int k = 0; k < s; ++k) rn[k] = r[k];
@@ -1937,9 +1954,11 @@ enum { FORM_SIMPLE = 0, FORM_PROG = 1, FORM_GATE = 2 };
 // the camera vertex a kRecord bounce writes (Record)
 #define RECORD_PARAMS                                                                          \
   float *r_position, float *r_normal, float *r_brdf, uint8_t *r_diffuse, uint8_t *r_dispersed,  \
-      uint8_t *r_recorded, uint8_t *r_miss
+      uint8_t *r_recorded, uint8_t *r_miss, float *r_color_prob, int *r_color_prog,            \
+      float *r_path_prob, uint8_t *r_reflected
 #define RECORD                                                                                 \
-  const Record rec = {r_position, r_normal, r_brdf, r_diffuse, r_dispersed, r_recorded, r_miss}
+  const Record rec = {r_position, r_normal,   r_brdf,       r_diffuse,   r_dispersed, r_recorded, \
+                      r_miss,     r_color_prob, r_color_prog, r_path_prob, r_reflected}
 
 // a NEE kernel block's own dynamic shared memory: the kProg instantiations'
 // colour rows, [BLOCK, S] floats

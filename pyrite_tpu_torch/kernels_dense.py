@@ -138,6 +138,7 @@ _LAUNCHERS = {
     "dense_lamp_kernel": "pyrite_dense_lamp", "wide_lamp_kernel": "pyrite_wide_lamp",
     "dense_shadow_kernel": "pyrite_dense_shadow", "de_query_pass": "pyrite_de_march_query_shadow",
     "program_colors_kernel": "pyrite_program_colors",
+    "photon_gather_kernel": "pyrite_photon_gather",
 }
 
 
@@ -158,10 +159,12 @@ _LAUNCHERS.update({prog_name(k): _LAUNCHERS[k] for k in (
 # bidirectional renderer's kernels: the bounce kernels' kRecord
 # instantiations ("<record>"), the lamp kernels, dense_shadow_kernel and
 # program_colors_kernel (its lamp vertices' colors on a scene whose color
-# programs read the ray). The kProg instantiations count apart.
+# programs read the ray); the photon renderer's, the same and
+# photon_gather_kernel. The kProg instantiations count apart.
 launches = dict.fromkeys(_LAUNCHERS, 0)
 
 _GATE = "(ROADMAP.md queue 1 item 7: the rest of the scene gate)"
+_PHOTON = "(ROADMAP.md queue 1 item 10: photon mapping's rows)"
 
 
 def _refuse(what, item=_GATE):
@@ -221,7 +224,12 @@ def build_pack(scene, a):
     scene of no primitive and no DE shape, lamps of an unknown type, more
     spectrum samples (scene.spectrum_samples) than their shared memory
     holds (max_spectrum_samples), and more DE shapes than the march
-    kernel's shared memory holds (MAX_DE_SHAPES). A dense scene (at most
+    kernel's shared memory holds (MAX_DE_SHAPES). On a photon-mapping
+    project it checks the rows that renderer launches
+    (scene.photon_widths): its camera walk's S + G columns and its lamp
+    walk's against max_spectrum_samples, and the film's bins against
+    photon_gather_kernel's shared memory (gather_smem_bytes); these name
+    ROADMAP.md queue 1 item 10. A dense scene (at most
     scene.CLUSTER_THRESHOLD = 128 finite primitives) may have no finite
     primitive when it has a DE shape (the JAX package keeps DE scenes out
     of its dense pack and runs them in XLA). A table of more than 128
@@ -253,7 +261,19 @@ def build_pack(scene, a):
                 f"scene)")
     if n_de > MAX_DE_SHAPES:
         _refuse(f"{n_de} DE shapes (the march kernel's shared memory holds {MAX_DE_SHAPES})")
-    gate = bool(scene.directional_lamps) or s > GATHER_ROW or (
+    widest = s
+    photon = scene.photon_widths
+    if photon is not None:
+        widest = max(s, photon["camera"], photon["lamp"])
+        if widest > max_s:
+            _refuse(f"photon mapping launches rows of {widest} spectral columns (camera walk "
+                    f"{photon['camera']}, lamp walk {photon['lamp']}; the kernels' shared memory "
+                    f"holds 1 to {max_s} on this scene)", _PHOTON)
+        if gather_smem_bytes(photon["bins"], s) > SMEM_PER_BLOCK:
+            _refuse(f"a photon gather of {photon['bins']} film bins and {s} fresh wavelengths "
+                    "(photon_gather_kernel's shared memory holds "
+                    f"{gather_smem_bytes(photon['bins'], s)} of {SMEM_PER_BLOCK} bytes)", _PHOTON)
+    gate = bool(scene.directional_lamps) or widest > GATHER_ROW or (
         scene.color_bank_bakeable is not None or scene.prob_bank_bakeable is not None)
     form = FORM_PROG if prog else FORM_GATE if gate else FORM_SIMPLE
 
@@ -610,12 +630,16 @@ def _t_de(name, t, shape, dev):
     return _check(name, t, torch.float32, shape, dev) if shape[0] else 0
 
 
-def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals, t_de=None, record=False):
+def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals, t_de=None, record=False,
+                       chain=False):
     """Checked arguments of one bounce kernel launch (the scene's, see
     kernel_names), with the outputs it writes: (ctypes arguments, new state,
     NEE context), and with ``record`` the camera vertex
     (tracer.bounce_core's info) that its kRecord instantiation writes after
-    them. ``t_de`` is march_pass' output on a scene with DE shapes."""
+    them; with ``chain`` also the chain factors of the photon renderer
+    (reflected, color_prob [N, S], color_prog, path_prob), which it skips
+    where their pointers are null (the bidirectional renderer). ``t_de`` is
+    march_pass' output on a scene with DE shapes."""
     dev, n, s = _device(scene, wavelengths)
     f32, u8, i32 = torch.float32, torch.uint8, torch.int32
     out = {
@@ -667,8 +691,14 @@ def bounce_kernel_args(scene, cfg, wavelengths, state, draws, bank_vals, t_de=No
         "brdf_stored": torch.empty(n, dtype=f32, device=dev),
         "is_diffuse": flag(), "dispersed": flag(), "recorded": flag(), "miss": flag(),
     }
+    if chain:
+        info.update(reflected=flag(), color_prob=torch.empty((n, s), dtype=f32, device=dev),
+                    color_prog=torch.empty(n, dtype=i32, device=dev),
+                    path_prob=torch.empty(n, dtype=f32, device=dev))
     rec = [info[k].data_ptr() for k in (
-        "position", "normal", "brdf_stored", "is_diffuse", "dispersed", "recorded", "miss")]
+        "position", "normal", "brdf_stored", "is_diffuse", "dispersed", "recorded", "miss")] + [
+        info[k].data_ptr() if chain else 0 for k in ("color_prob", "color_prog", "path_prob",
+                                                     "reflected")]
     info["incident"] = state["direction"]
     args = _with_programs(scene, args[:-1] + rec + args[-1:], bank_vals, n, s, dev)
     return args, out, ctx, info
@@ -711,12 +741,13 @@ def _launch(name, args):
 
 
 def launch_bounce_kernel(scene, cfg, wavelengths, state, draws, bank_vals, t_de=None,
-                         record=False):
+                         record=False, chain=False):
     """One launch of the scene's bounce kernel: (new state without the NEE
     contribution, NEE context); with ``record``, of its kRecord
-    instantiation: (new state, NEE context, camera vertex)."""
+    instantiation: (new state, NEE context, camera vertex, with the chain
+    factors where ``chain``)."""
     args, out, ctx, *info = bounce_kernel_args(
-        scene, cfg, wavelengths, state, draws, bank_vals, t_de, record)
+        scene, cfg, wavelengths, state, draws, bank_vals, t_de, record, chain)
     name = "wide_bounce_kernel" if scene.use_clusters else "dense_bounce_kernel"
     _launch(_named(scene, name + "<record>" if record else name), args)
     return (out, ctx, *info)
@@ -837,14 +868,16 @@ def shadow_pass(scene, cfg, out, ctx, draws):
     return t_de
 
 
-def bounce_dense(scene, cfg, wavelengths, state, draws, bank_vals, record=False):
+def bounce_dense(scene, cfg, wavelengths, state, draws, bank_vals, record=False, chain=False):
     """One bounce, a drop-in for tracer.bounce_core: the plain version for
     tensors on the CPU, the scene's two CUDA kernels (dense or wide, see
     kernel_names; after march_pass and shadow_pass respectively on a scene
     with DE shapes) for tensors on a GPU, or an error. ``bank_vals`` is
-    precompute_bank_values' output. With ``record`` (the bidirectional
-    renderer's camera walk) it returns (new state, camera vertex) as
-    bounce_core does, through the bounce kernel's kRecord instantiation."""
+    precompute_bank_values' output. With ``record`` (the bidirectional and
+    photon renderers' camera walks) it returns (new state, camera vertex)
+    as bounce_core does, through the bounce kernel's kRecord instantiation,
+    which writes the chain factors of the vertex only where ``chain`` (the
+    photon renderer; bounce_core returns them always)."""
     dev = wavelengths.device
     if dev.type == "cpu":
         return tracer.bounce_core(scene, cfg, wavelengths, state, draws, record)
@@ -853,7 +886,7 @@ def bounce_dense(scene, cfg, wavelengths, state, draws, bank_vals, record=False)
     de = bool(scene.de_shapes)
     t_de = march_pass(scene, cfg, state) if de else None
     out, ctx, *info = launch_bounce_kernel(
-        scene, cfg, wavelengths, state, draws, bank_vals, t_de, record)
+        scene, cfg, wavelengths, state, draws, bank_vals, t_de, record, chain)
     if scene.num_lamps and cfg.light_samples:
         t_de_shadow = shadow_pass(scene, cfg, out, ctx, draws) if de else None
         launch_nee_kernel(scene, cfg, wavelengths, out, ctx, draws, bank_vals, t_de_shadow)
@@ -1075,4 +1108,96 @@ def vertex_colors(scene, color_prog, valid, normal, incident, uv, wavelengths, b
     args, out = vertex_colors_args(scene, color_prog, valid, normal, incident, uv, wavelengths,
                                    bank_vals)
     _launch("program_colors_kernel", args)
+    return out
+
+
+# --- the photon renderer's radius gather ---------------------------------------
+
+GATHER_BLOCK = 64  # threads a block of photon_gather_kernel (csrc/photon.cu)
+
+
+def gather_smem_bytes(bins, k):
+    """photon_gather_kernel's dynamic shared memory a block: each thread's
+    acc and cnt bins and fresh sums, rows padded by one float against bank
+    conflicts, [GATHER_BLOCK, 2 (B + 1) + K + 1] floats."""
+    return 4 * GATHER_BLOCK * (2 * (bins + 1) + k + 1)
+
+
+def photon_gather_args(spec, pm, q):
+    """Checked arguments of one photon_gather_kernel launch, with the
+    outputs it writes: (ctypes arguments, {acc_bins, cnt_bins,
+    num_neighbors, fresh_psum, fresh_cnt}). ``spec`` is a
+    renderers.photon.GatherSpec, ``pm`` a photon map (build_map) and ``q``
+    one camera bounce's query (gather_query)."""
+    dev = q["position"].device
+    if dev.type != "cuda":
+        raise ValueError(f"photon_gather_kernel takes CUDA tensors, not {dev}")
+    f32, u8, i32 = torch.float32, torch.uint8, torch.int32
+    n, p = q["position"].shape[0], pm["keys"].shape[0]
+    k, b, s, g = spec.spectrum_samples, spec.bins, spec.spectrum_samples, spec.g_bins
+    m = pm["log_f"].shape[1] if spec.exact else 0
+    check_rays(n, "photon_gather")
+    check_rays(p, "photon_gather (photons)")
+    cols = q["partialR"].shape[1]
+    if cols < s + g or pm["power"].shape[1] != spec.power_cols:
+        raise ValueError(f"photon_gather: partialR of {cols} columns, power of "
+                         f"{pm['power'].shape[1]}; expected >= {s + g} and {spec.power_cols}")
+    out = {
+        "acc_bins": torch.empty((n, b), dtype=f32, device=dev),
+        "cnt_bins": torch.empty((n, b), dtype=f32, device=dev),
+        "num_neighbors": torch.empty(n, dtype=i32, device=dev),
+        "fresh_psum": torch.empty((n, k), dtype=f32, device=dev),
+        "fresh_cnt": torch.empty(n, dtype=i32, device=dev),
+    }
+    exact = (lambda name, t, shape: _check(name, t, f32, shape, dev)) if spec.exact else (
+        lambda name, t, shape: 0)
+    lo, hi = spec.span
+    args = [
+        _check("keys", pm["keys"], i32, (p,), dev),
+        _check("p_position", pm["position"], f32, (p, 3), dev),
+        _check("p_valid", _flag(pm["valid"]), u8, (p,), dev),
+        _check("p_incident", pm["incident"], f32, (p, 3), dev),
+        _check("p_power", pm["power"], f32, (p, spec.power_cols), dev),
+        _check("p_wavelength", pm["wavelength"], f32, (p,), dev),
+        _check("p_dispersed", _flag(pm["dispersed"]), u8, (p,), dev),
+        exact("p_counts", pm.get("counts"), (p, m)), exact("p_scalar", pm.get("scalar"), (p,)),
+        exact("p_log_f", pm.get("log_f"), (p, m)), exact("p_neg_f", pm.get("neg_f"), (p, m)),
+        exact("p_zero_f", pm.get("zero_f"), (p, m)),
+        _check("q_position", q["position"], f32, (n, 3), dev),
+        _check("q_normal", q["normal"], f32, (n, 3), dev),
+        _check("q_incident", q["incident"], f32, (n, 3), dev),
+        _check("q_valid", _flag(q["valid"]), u8, (n,), dev),
+        _check("q_dispersed", _flag(q["dispersed"]), u8, (n,), dev),
+        _check("partialR", q["partialR"], f32, (n, cols), dev),
+        _check("lam0", q["lam0"], f32, (n,), dev),
+        _check("lam_f", q["lam_f"], f32, (n, k), dev),
+        exact("q_counts", q.get("counts"), (n, m)), exact("q_scalar", q.get("scalar"), (n,)),
+        exact("log_f0", q.get("log_f0"), (n, m)), exact("neg_f0", q.get("neg_f0"), (n, m)),
+        exact("zero_f0", q.get("zero_f0"), (n, m)),
+        exact("log_ff", q.get("log_ff"), (n, k, m)), exact("neg_ff", q.get("neg_ff"), (n, k, m)),
+        exact("zero_ff", q.get("zero_ff"), (n, k, m)),
+    ] + [out[key].data_ptr() for key in (
+        "acc_bins", "cnt_bins", "num_neighbors", "fresh_psum", "fresh_cnt")] + [
+        n, p, m, k, b, cols, s, g, int(spec.exact), spec.power_cols,
+        spec.radius, spec.radius * spec.radius, lo, b / (hi - lo), (hi - lo) / b,
+        (hi - lo) / g if g else 1.0, torch.cuda.current_stream(dev).cuda_stream,
+    ]
+    return args, out
+
+
+def photon_gather(spec, pm, q):
+    """The radius gather of one camera bounce against one photon map
+    (pyrite_tpu/renderers/photon.py:391-468): per camera vertex, the photons
+    of the 27 neighbour cells within the radius, binned (acc_bins, cnt_bins
+    [N, B]), counted (num_neighbors), and their fresh sums (fresh_psum [N,
+    K], fresh_cnt). The plain version (renderers.photon.gather_plain) for
+    tensors on the CPU; photon_gather_kernel (csrc/photon.cu) for tensors
+    on a GPU, or an error."""
+    dev = q["position"].device
+    if dev.type == "cpu":
+        from .renderers.photon import gather_plain
+
+        return gather_plain(spec, pm, q)
+    args, out = photon_gather_args(spec, pm, q)
+    _launch("photon_gather_kernel", args)
     return out

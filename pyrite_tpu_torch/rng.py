@@ -25,6 +25,19 @@ lane is word k % 4 of block k // 4. Per lane:
   SPLAT      [K, 2]                 lamp slot k's lens uniforms are words
                                     0-1 of block k (bounce 0), k the slot's
                                     index in the uncompacted lamp path
+  PHOTON_WL  [1]                    a photon's lamp-path wavelength (bounce 0)
+  FRESH      [2 K + 1]              a camera vertex's fresh wavelengths at
+                                    camera bounce b (bounce word b): K for its
+                                    gathered pairs, then K + 1 for a vertex
+                                    that gathers nothing (K = S)
+
+The photon renderer (renderers/photon.py) keys sample i's draws by two
+kinds of global sample. Its camera pass takes sample i (1 + P), P the
+photon passes, as the camera draws above. Its photon pass p takes sample i
+(1 + P) + 1 + p: the photon's index in the pixel word for PHOTON_WL,
+LAMP_START and LAMP_BOUNCE, and the camera lane's pixel for FRESH. No
+other draw of a render shares those counters, so the film depends on
+(seed, sample, pass, photon or pixel) alone.
 
 A uniform is (x >> 8) * 2^-24, exact in f32 on every device. Lanes take
 their words in one of two ways. ``KeyedDraws`` (affine, the one-shot
@@ -54,7 +67,8 @@ from dataclasses import dataclass
 
 import torch
 
-CAMERA, U_COMP, U_SCATTER, LAMP, U_NEE, U_EMIS, LAMP_START, LAMP_BOUNCE, SPLAT = range(9)
+(CAMERA, U_COMP, U_SCATTER, LAMP, U_NEE, U_EMIS, LAMP_START, LAMP_BOUNCE, SPLAT, PHOTON_WL,
+ FRESH) = range(11)
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57  # round multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85  # key schedule (Weyl) increments
@@ -372,3 +386,23 @@ def splat_draws(draws, n, slots, device):
     """The light-tracing splats' lens uniforms (SPLAT), [n, slots, 2]: slot
     k's from block k, whatever slots a later compaction keeps."""
     return purpose_words(draws, n, 0, SPLAT, 2 * slots, device, take=2).view(n, slots, 2)
+
+
+def _span_uniform(u, span):
+    """lo + u (hi - lo): uniforms over the wavelength span."""
+    lo, hi = span
+    return lo + u * (hi - lo)
+
+
+def photon_wavelengths(draws, n, span, device):
+    """Each of ``n`` photons' lamp-path wavelength (PHOTON_WL), [n, 1],
+    uniform over ``span`` (photon_mapping.rs:199)."""
+    return _span_uniform(purpose_words(draws, n, 0, PHOTON_WL, 1, device), span)
+
+
+def fresh_wavelengths(draws, n, bounce, k, span, device):
+    """Camera bounce ``bounce``'s fresh wavelengths (FRESH) of ``n`` lanes,
+    uniform over ``span``: (for the gathered pairs [n, k], for a vertex
+    that gathers nothing [n, k + 1])."""
+    lam = _span_uniform(purpose_words(draws, n, bounce, FRESH, 2 * k + 1, device), span)
+    return lam[:, :k], lam[:, k:]

@@ -23,6 +23,7 @@ do not take. Image textures are loaded into the Resources store
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -236,8 +237,12 @@ class Scene:
         self.color_bank_bakeable = None
         self.prob_bank_bakeable = None
         self.bank_span = (380.0, 780.0)
-        # the project's spectral columns, which the kernels' gate checks
+        # the project's spectral columns, which the kernels' gate checks,
+        # and on a photon-mapping project its chain mode and the wider rows
+        # its renderer launches (photon_widths: {"exact", "camera", "lamp",
+        # "bins"}), which the gate checks too and the renderer reads
         self.spectrum_samples = 1
+        self.photon_widths = None
         # the CUDA bounce kernels' scene pack (kernels_dense.build_pack)
         self.dense_pack = None
         self.resources = None
@@ -296,6 +301,44 @@ def require_device(device, what):
             "to work on the CPU"
         )
     return dev
+
+
+# the JAX package's budget of the photon renderer's [N, bounces, S + G]
+# camera record (photon.py:568-575)
+PHOTON_GRID_BUDGET = 400_000_000
+
+
+def exact_chain_mode(scene: Scene) -> bool:
+    """True when every color program reads only the wavelength: the photon
+    renderer then re-walks chains exactly at any wavelength.
+    PYRITE_TPU_PHOTON_EXACT=0 forces the grid interpolation. build_scene
+    decides it once, into scene.photon_widths."""
+    if os.environ.get("PYRITE_TPU_PHOTON_EXACT", "1") == "0":
+        return False
+    return all(not p.uses_ray_inputs for p in scene.color_programs)
+
+
+def grid_bins(width, height, bounces, spectrum_samples, spectrum_bins, exact):
+    """G, the wavelength grid the photon renderer's camera walk traces
+    beside its S film columns in interpolation mode (0 in exact mode):
+    spectrum_bins, halved while the whole film's [N, bounces, S + G] record
+    passes PHOTON_GRID_BUDGET values, as the JAX package sizes it
+    (photon.py:568-575)."""
+    g = 0 if exact else spectrum_bins
+    while g > 8 and width * height * max(bounces, 1) * (spectrum_samples + g) > PHOTON_GRID_BUDGET:
+        g //= 2
+    return g
+
+
+def photon_widths(project, exact) -> dict:
+    """A photon-mapping project's chain mode and the spectral columns its
+    renderer's kernels launch at: {"exact", "camera": S + G, "lamp": 1 in
+    exact mode, else 1 + the film's bins, "bins": the film's bins}. The gate
+    (kernels_dense.build_pack) checks them; renderers.photon reads them."""
+    r, im = project.renderer, project.image
+    g = grid_bins(im.width, im.height, r.bounces, r.spectrum_samples, r.spectrum_bins, exact)
+    return {"exact": exact, "camera": r.spectrum_samples + g,
+            "lamp": 1 if exact else 1 + r.spectrum_bins, "bins": r.spectrum_bins}
 
 
 def build_scene(project_data, device="cuda") -> Scene:
@@ -657,6 +700,8 @@ def build_scene(project_data, device="cuda") -> Scene:
 
     bake_bank_tables(scene, project.renderer.spectrum_span)
     scene.spectrum_samples = project.renderer.spectrum_samples
+    if project.renderer.algorithm == "photon_mapping":
+        scene.photon_widths = photon_widths(project, exact_chain_mode(scene))
     from . import kernels_dense
 
     scene.dense_pack = kernels_dense.build_pack(scene, host)

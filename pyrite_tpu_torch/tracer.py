@@ -1204,7 +1204,10 @@ def bounce_core(scene: Scene, cfg: TraceConfig, wavelengths, state, draws, recor
     needs (tracer.py:1772-1794): position, normal, incident, is_diffuse,
     dispersed, recorded (a vertex counts toward the path length: a
     reflection, an emission while sampling lamps, or a miss), brdf_stored
-    and miss."""
+    and miss; and the chain factors photon mapping reads, on the lanes that
+    reflect (0, -1 and False elsewhere): reflected, color_prob [N, S] (the
+    surface color times path_prob), color_prog (the component's color
+    program) and path_prob (the scatter and component probability)."""
     launches["bounce_core"] += 1
     n = state["origin"].shape[0]
     s_count = wavelengths.shape[1]
@@ -1320,6 +1323,10 @@ def bounce_core(scene: Scene, cfg: TraceConfig, wavelengths, state, draws, recor
         "recorded": reflected | emit_now | miss,
         "brdf_stored": brdf,
         "miss": miss,
+        "reflected": reflected,
+        "color_prob": torch.where(reflected[:, None], surface_color * path_prob[:, None], 0.0),
+        "color_prog": torch.where(reflected, a["comp_color"][comp].to(torch.int32), -1),
+        "path_prob": torch.where(reflected, path_prob, 0.0),
     }
 
 

@@ -485,3 +485,78 @@ def test_cuda_gate_draws_past_16_samples(tmp_path):
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     path = _gate_paths(str(tmp_path))["flagship_s64"]
     assert chip_smoke.check_draws("flagship_s64", path) == 0.0
+
+
+def _photon_paths(directory):
+    """flagship_photon and textures_photon at their phase-7 size, and
+    terrain_24 and the julia scene as photon projects (a mesh and a DE
+    scene)."""
+    paths = chip_smoke.photon_scene_paths(directory)
+    extra = "bounces = 4, " + chip_smoke.PHOTON_EXTRA % (20000, 4, 1, "0.1")
+    for name, path in (("terrain_24", chip_smoke.terrain_paths(directory, cells=(24,))["terrain_24"]),
+                       ("julia", chip_smoke.write_julia_scene(directory, 128, 128, 4, 4))):
+        with open(path) as fh:
+            text = fh.read().replace("renderer.simple", "renderer.photon_mapping").replace(
+                "bounces = 4,", extra, 1)
+        paths[name + "_photon"] = path[:-4] + "_photon.lua"
+        with open(paths[name + "_photon"], "w") as fh:
+            fh.write(text)
+    return paths
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flagship_photon", "textures_photon"])
+def test_cuda_photon_gather_matches_plain_version(tmp_path, name):
+    """photon_gather_kernel against its plain version on every camera
+    bounce of the first chunk (chip_smoke.check_photon): num_neighbors and
+    fresh_cnt equal, the bins within rtol 1e-5 / atol 1e-7, in exact
+    (flagship_photon) and interpolation mode (textures_photon, through the
+    kProg kernels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    checked = chip_smoke.check_photon(name, _photon_paths(str(tmp_path))[name])
+    assert checked["worst"]["gather"] < 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flagship_photon", "terrain_24_photon", "julia_photon"])
+def test_cuda_record_chain_factors_match_plain_version(tmp_path, name):
+    """The kRecord bounce kernels' chain factors (color_prob, color_prog,
+    path_prob, reflected) against tracer.bounce_core(record=True) on a
+    dense, a mesh and a DE photon project (chip_smoke.check_record_chain)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    assert chip_smoke.check_record_chain(name, _photon_paths(str(tmp_path))[name]) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flagship_photon", "textures_photon"])
+def test_cuda_photon_render_takes_the_kernels(tmp_path, name):
+    """A photon render through the CLI on the card (chip_smoke.render_photon:
+    every camera bounce through the kRecord kernel, every lamp step through
+    the lamp kernel, every gather through photon_gather_kernel, no plain
+    version)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    launches = chip_smoke.render_photon(_photon_paths(str(tmp_path))[name], 1, "card", str(tmp_path))[0]
+    assert launches["photon_gather_kernel"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("purpose", ["PHOTON_WL", "FRESH"])
+def test_cuda_photon_draws_match_cpu(purpose):
+    """The photon renderer's draws (rng.photon_wavelengths,
+    rng.fresh_wavelengths) on the card equal the CPU's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pyrite_tpu_torch import rng
+
+    keyed = rng.KeyedDraws(13, sample0=7, pixel0=256)
+    span, cpu = (380.0, 780.0), torch.device("cpu")
+    if purpose == "PHOTON_WL":
+        got, want = (rng.photon_wavelengths(keyed, 5000, span, dev) for dev in ("cuda", cpu))
+        assert torch.equal(got.cpu(), want)
+        return
+    for dev_got, dev_want in zip(rng.fresh_wavelengths(keyed, 5000, 3, 6, span, "cuda"),
+                                 rng.fresh_wavelengths(keyed, 5000, 3, 6, span, cpu)):
+        assert torch.equal(dev_got.cpu(), dev_want)

@@ -180,12 +180,15 @@ def test_cli_refuses_what_is_not_ported(paths, tmp_path):
     # (tests/test_torch_gate_lamps.py::test_cli_renders_directional_lamps,
     # tests/test_torch_gate_rows.py::test_cli_renders_what_the_gate_refused)
     text = open(paths["flagship"]).read()
-    # photon mapping, and bidirectional rendering at 16 camera bounces with
-    # path regeneration on (the JAX package's regen BDPT)
+    # photon mapping renders now (tests/test_torch_photon.py); bidirectional
+    # rendering at 16 camera bounces with path regeneration on (the JAX
+    # package's regen BDPT) does not
     photon = tmp_path / "photon.lua"
-    photon.write_text(text.replace("renderer.simple", "renderer.photon_mapping"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main([str(photon), "--device", "cpu"])
+    photon.write_text(text.replace("renderer.simple", "renderer.photon_mapping").replace(
+        "bounces = 4,", "bounces = 4, photons = 500, photon_bounces = 2,"))
+    out = tmp_path / "photon.png"
+    assert cli.main([str(photon), "--device", "cpu", "--samples", "1", "--output", str(out)]) == 0
+    assert out.exists()
     regen_bdpt = tmp_path / "regen_bdpt.lua"
     regen_bdpt.write_text(text.replace("renderer.simple", "renderer.bidirectional").replace(
         "bounces = 4,", "bounces = 16,"))
