@@ -78,7 +78,17 @@ and exits non-zero on any failure:
    textures BDPT scene at flagship_bdpt's size: the kProg A and B and
    program_colors_kernel (the lamp vertices' colours) against their plain
    versions, timed beside A and B on its untextured twin, and rendered
-   through the CLI. No step may take the plain path.
+   through the CLI. Then the regen BDPT step (regen_bdpt_step):
+   flagship_bdpt_deep (the flagship at 16 + 8 bounces, which takes the
+   camera-regeneration scheduler) at 4 spp through regen and through
+   one-shot, the films to the CPU tests' tolerance, with A, the NEE kernel
+   and C held to their plain versions at the first regen iteration where
+   regenerated lanes and lanes at depth >= 1 coexist (regen_probe); then
+   four CLI renders through regen with the counts zeroed just before each:
+   flagship_bdpt_deep, and with REGEN_BDPT_MIN_BOUNCES = 1 the 64 x 64
+   Cornell class (the DE march), terrain_405_bdpt (the wide kernels) and
+   flagship_bdpt_24 (a lamp trace a round). No step may take the plain
+   path.
 7. the photon renderer (renderers/photon.py) on flagship_photon (the
    flagship as a photon project at 512 x 256, S = 6, 8 bounces; 100,000
    photons of 8 bounces in 2 passes, radius 0.1; exact mode) and
@@ -115,7 +125,10 @@ renderers.photon, stops at measure_bank). ``--prog`` runs the measurements of th
 instantiations, with builds of csrc/bounce.cu that each remove or move one
 cost (measure_prog).
 ``python3 chip_smoke.py --walls`` instead runs ``--profile``'s flagship
-renders alone (one-shot and regeneration walls).
+renders alone (one-shot and regeneration walls); ``--regen`` phase 6's
+regen BDPT step alone (regen_bdpt_step), then ``--profile``'s
+flagship_bdpt_deep, flagship_bdpt_64 and flagship_bdpt_256 renders (regen
+and one-shot walls at 16, 64 and 256 camera bounces, and their ratio).
 ``python3 chip_smoke.py --profile`` instead renders the main-path scenes
 (flagship and terrain_405 at 64 spp, fractal.lua at 8 spp) through
 renderers.simple.render under the one-shot wavefront and under
@@ -2767,7 +2780,10 @@ def bdpt_scene_paths(directory, spp=4, small=False):
     flagship_bdpt (__graft_entry__._SCENE_SRC with renderer.bidirectional,
     as __graft_entry__._build writes it, at 512 x 256, S = 6, 8 + 8
     bounces),
-    flagship_bdpt_24 (the same at light_bounces = 24: the two-phase step)
+    flagship_bdpt_24 (the same at light_bounces = 24: the two-phase step),
+    flagship_bdpt_deep (the same at 16 + 8 bounces: the regen scheduler),
+    flagship_bdpt_64 and flagship_bdpt_256 (at 64 and 256 camera bounces,
+    the reference snowflake's budget: --profile's regen crossover),
     terrain_405_bdpt (tools/synthetic.terrain_scene, 328,050
     triangles, renderer.bidirectional at 256 x 128, 4 + 4 bounces: the
     wide kernels) and terrain_de_24_bdpt (write_terrain_de_scene, a mesh
@@ -2785,11 +2801,12 @@ def bdpt_scene_paths(directory, spp=4, small=False):
 
     size = (64, 64, 128, 64, 24) if small else (512, 512, 512, 256, 405)
     out = {"cornell_class": write_cornell_scene(directory, *size[:2], spp=spp)}
-    flagship = _SCENE_SRC % {"w": size[2], "h": size[3], "s": 6, "b": 8}
-    for name, lb in (("flagship_bdpt", 8), ("flagship_bdpt_24", 24)):
+    for name, b, lb in (("flagship_bdpt", 8, 8), ("flagship_bdpt_24", 8, 24),
+                        ("flagship_bdpt_deep", 16, 8), ("flagship_bdpt_64", 64, 8),
+                        ("flagship_bdpt_256", 256, 8)):
         out[name] = os.path.join(directory, name + ".lua")
         with open(out[name], "w") as fh:
-            fh.write(bdpt(flagship, 8, lb))
+            fh.write(bdpt(_SCENE_SRC % {"w": size[2], "h": size[3], "s": 6, "b": b}, b, lb))
     cells = size[4]
     terrain = terrain_scene(directory, cells=cells, width=size[2] // 2 if small else 256,
                             height=size[3] // 2 if small else 128, spp=spp, bounces=4)[0]
@@ -3156,20 +3173,23 @@ def time_bdpt(checked, card, variant=None):
     return result
 
 
-def render_bdpt(path, samples, card, out_dir):
+def render_bdpt(path, samples, card, out_dir, regen=False):
     """Phase 5 for the bidirectional renderer: the CLI on the GPU
     (renderers.bidirectional.render), checking the PNG, the film, and that
     every step went through the CUDA kernels: per camera bounce iteration
-    one launch of the bounce kernel's kRecord instantiation and one of the
-    NEE kernel (a march and a shadow march pass each on a DE scene), per
-    chunk step one lamp kernel launch to start the lamp paths and one per
-    lamp bounce iteration (a march pass each on a DE scene), and the
-    connection and splat batches through dense_shadow_kernel or
-    wide_shadow_kernel (a query march pass each on a DE scene); no plain
-    tracer function ran. Prints the launches, the camera and lamp
-    lane-bounces, the rays (camera and lamp lane-bounces, NEE samples,
-    connection and splat rays), the render's wall time and peak memory.
-    Returns (launch counts, seconds, peak bytes, rays)."""
+    (of the one-shot walk, or of a regen walk) one launch of the bounce
+    kernel's kRecord instantiation and one of the NEE kernel (a march and a
+    shadow march pass each on a DE scene), per lamp trace (a chunk step's,
+    or a regen launch's round or batch of rounds) one lamp kernel launch to
+    start the lamp paths and one per lamp bounce iteration (a march pass
+    each on a DE scene), and the connection and splat batches through
+    dense_shadow_kernel or wide_shadow_kernel (a query march pass each on a
+    DE scene); no plain tracer function ran. ``regen``: the render must take
+    the regen scheduler (else it must not), compacting every lamp trace.
+    Prints the launches, the camera and lamp lane-bounces, the rays (camera
+    and lamp lane-bounces, NEE samples, connection and splat rays), the
+    regen walks' iterations and flushes, the render's wall time and peak
+    memory. Returns (launch counts, seconds, peak bytes, rays)."""
     import numpy as np
     import torch
     from PIL import Image
@@ -3209,28 +3229,31 @@ def render_bdpt(path, samples, card, out_dir):
     bounce_k, nee_k = kd.kernel_names(scene)
     record_k = kd._named(scene, ("wide" if scene.use_clusters else "dense") + "_bounce_kernel<record>")
     cam, lamp = launches["camera_bounces"], launches["lamp_bounces"]
-    steps = launches["steps"]
+    steps, traces = launches["steps"], launches["lamp_traces"]
+    assert (launches["regen_bdpt_walks"] > 0) == regen and (steps == 0) == regen, launches
     assert cam > 0 and launches[record_k] == cam and launches[nee_k] == cam, launches
     assert launches[bounce_k] == 0, launches
     lamp_k = kd._lamp_name(scene)
-    assert launches[lamp_k] == steps + lamp > steps, launches
+    assert launches[lamp_k] == traces + lamp > traces, launches
     colors = any(p.uses_ray_inputs for p in scene.color_programs)
-    assert launches["program_colors_kernel"] == (steps if colors else 0), launches
+    assert launches["program_colors_kernel"] == (traces if colors else 0), launches
     for k in ("bounce_core", "lamp_start", "lamp_bounce_step", "intersect_shadow"):
         assert launches[k] == 0, (k, launches)
     queries = launches["wide_shadow_kernel" if scene.use_clusters else "dense_shadow_kernel"]
-    assert queries >= steps + cam, launches  # the splats, and each bounce's slot groups
+    assert queries >= traces + cam, launches  # the splats, and each bounce's slot groups
     if scene.de_shapes:
         assert launches["de_march_pass"] == cam + lamp and launches["de_shadow_pass"] == cam, launches
         assert launches["de_query_pass"] == queries, launches
-    if r.light_bounces + 1 > 16:
+    if regen:
+        assert launches["regen_bdpt_iterations"] == cam and launches["compactions"] == traces, launches
+    elif r.light_bounces + 1 > 16:
         assert launches["compactions"] == steps, launches
     rays = (launches["live_lane_bounces"] * (1 + r.light_samples) + launches["lamp_live"]
             + launches["connection_rays"] + launches["splat_rays"])
     print(
         f"[bdpt-render] {os.path.basename(path)} {film.width}x{film.height}, {samples} spp, "
         f"S={r.spectrum_samples}, {r.bounces} + {r.light_bounces} bounces "
-        f"({'two-phase' if r.light_bounces + 1 > 16 else 'fused'}): render wall "
+        f"({_bdpt_schedule(launches, r)}): render wall "
         f"{result['seconds']:.4f} s, peak memory {result['peak'] / 2**20:.1f} MiB, "
         f"{rays / result['seconds'] / 1e6:.3f} Mrays/s ({rays} rays: camera lane-bounces live "
         f"{launches['live_lane_bounces']} x (1 + {r.light_samples} NEE), executed "
@@ -3240,6 +3263,36 @@ def render_bdpt(path, samples, card, out_dir):
         f"{pixels.mean():.2f}/255"
     )
     return launches, result["seconds"], result["peak"], rays
+
+
+def _bdpt_schedule(launches, r):
+    """How a bidirectional render ran, from its counts."""
+    if launches["regen_bdpt_walks"]:
+        return (f"regen: {launches['regen_bdpt_launches']} launches, {launches['regen_bdpt_walks']} walks, "
+                f"{launches['regen_bdpt_iterations']} iterations, {launches['regen_bdpt_flushes']} flushes, "
+                f"{launches['lamp_traces']} lamp traces, {launches['regen_bdpt_stray_scatters']} "
+                f"stray scatters")
+    return "two-phase" if r.light_bounces + 1 > 16 else "fused"
+
+
+class regen_bdpt_from:
+    """Within the block, renderers.bidirectional.render takes the regen
+    scheduler from ``bounces`` camera bounces on (REGEN_BDPT_MIN_BOUNCES):
+    1 on every scene, None on none (the one-shot step)."""
+
+    def __init__(self, bounces):
+        self.bounces = 10**6 if bounces is None else bounces
+
+    def __enter__(self):
+        from pyrite_tpu_torch.renderers import bidirectional as bd
+
+        self.saved, bd.REGEN_BDPT_MIN_BOUNCES = bd.REGEN_BDPT_MIN_BOUNCES, self.bounces
+        return self
+
+    def __exit__(self, *exc):
+        from pyrite_tpu_torch.renderers import bidirectional as bd
+
+        bd.REGEN_BDPT_MIN_BOUNCES = self.saved
 
 
 class kernel_march:
@@ -3377,6 +3430,172 @@ def compare_bdpt_plain(path, samples, card):
             torch.testing.assert_close(wk.sum(), wp.sum(), rtol=1e-4, atol=0.0)
             torch.testing.assert_close(ak.sum(), ap.sum(), rtol=1e-3, atol=0.0)
     return films["the kernels' sampling"][:2] + films["as they are"]
+
+
+class regen_probe:
+    """Within the block, the first regen BDPT walk iteration whose
+    wavefront holds both regenerated lanes and lanes at depth >= 1 (read
+    from the lane draws it makes: the regenerated lanes take camera draws,
+    every lane draws at its own depth) holds its kernels against their
+    plain versions on the card, on the same inputs: A with the NEE kernel
+    (kernels_dense.bounce_dense, record) against
+    tracer.bounce_core(record=True) with check_bdpt's tolerances (the state
+    as _compare holds it with no divergent lane, the camera vertex's flags
+    exact on every lane, its position, normal and BRDF factor within rtol
+    1e-3 / atol 1e-4 on the diffuse vertices), and C
+    (kernels_dense.shadow_query) bit for bit against shadow_query_plain on
+    the iteration's connection batch, each lane against its own round. The
+    render itself goes on with the kernels' results."""
+
+    def __init__(self, name):
+        self.name, self.result, self.pending = name, None, None
+
+    def __enter__(self):
+        from pyrite_tpu_torch import kernels_dense as kd
+        from pyrite_tpu_torch.renderers import bidirectional as bd
+
+        self.saved = (bd.lane_draws, kd.bounce_dense, bd._connect_fold_grouped)
+        bd.lane_draws, kd.bounce_dense = self._draws, self._bounce
+        bd._connect_fold_grouped = self._fold
+        self.iteration = 0
+        return self
+
+    def __exit__(self, *exc):
+        from pyrite_tpu_torch import kernels_dense as kd
+        from pyrite_tpu_torch.renderers import bidirectional as bd
+
+        bd.lane_draws, kd.bounce_dense, bd._connect_fold_grouped = self.saved
+
+    def _draws(self, keys, s, light_samples, num_lamps, mask, dev):
+        if self.result is None and self.pending is None:
+            deep = ~mask & (keys.depth >= 1)
+            if bool(mask.any()) and bool(deep.any()):
+                picked = keys.sample[mask]
+                self.pending = {"iteration": self.iteration, "regenerated": int(mask.sum()),
+                                "deep": int(deep.sum()), "max_depth": int(keys.depth.max()),
+                                "samples": (int(keys.sample.min()), int(keys.sample.max())),
+                                "regenerated_samples": (int(picked.min()), int(picked.max()))}
+        self.iteration += 1
+        return self.saved[0](keys, s, light_samples, num_lamps, mask, dev)
+
+    def _bounce(self, scene, cfg, wl, state, draws, bank, record=False, chain=False):
+        from pyrite_tpu_torch import tracer
+
+        out = self.saved[1](scene, cfg, wl, state, draws, bank, record, chain)
+        if self.pending is not None and "record" not in self.pending and record:
+            what = f"{self.name} regen iteration {self.pending['iteration']}"
+            with kernel_march():
+                plain, plain_info = tracer.bounce_core(scene, cfg, wl, state, draws, record=True)
+            vec_err, b_err, share = _compare(plain, out[0], what)
+            assert share == 0.0, f"{what}: {share:.4%} divergent lanes"
+            _flags_equal(plain_info, out[1], ("is_diffuse", "dispersed", "recorded", "miss"), what)
+            rec_err = _close_where(plain_info, out[1], ("position", "normal", "brdf_stored"),
+                                   plain_info["is_diffuse"], what)
+            self.pending.update(record=max(vec_err, rec_err), brightness=b_err,
+                                live=int(state["alive"].sum()), lanes=state["alive"].shape[0])
+        return out
+
+    def _fold(self, scene, cfg, info, state, conn, conn_vsum, conn_cnt):
+        from pyrite_tpu_torch import kernels_dense as kd
+        from pyrite_tpu_torch.renderers import bidirectional as bd
+
+        if self.pending is not None and "record" in self.pending:
+            query, _ = bd._conn_query(info, conn["position"], conn["normal"], conn["conn_ok"])
+            batch = (query["origin"], query["direction"], query["max_dist"], query["block_below"],
+                     query["contributes"])
+            got = kd.shadow_query(scene, cfg, *batch)
+            with kernel_march():
+                want = kd.shadow_query_plain(scene, cfg, *batch)
+            bad, live = int(_bits_differ(want, got).sum()), int(batch[4].sum())
+            assert live > 0 and bad == 0, f"{self.name}: the regen connection batch's t differs " \
+                                          f"on {bad} of {live} rays"
+            self.result = dict(self.pending, rays=batch[0].shape[0], live_rays=live,
+                               slots=conn["conn_ok"].shape[1])
+            self.pending = None
+        return self.saved[2](scene, cfg, info, state, conn, conn_vsum, conn_cnt)
+
+
+def check_regen_bdpt(name, path, samples, card):
+    """Phase 6, the regen BDPT scheduler at the slice's width: one render
+    of ``path`` through it (bidirectional.render's dispatch, the scene's
+    16 camera bounces) with regen_probe checking the kernels at a regen
+    wavefront (from 2 samples: a lane regenerates after its first), and
+    one through the one-shot step (regen_bdpt_from(None)), the same seed: the
+    films to the CPU tests' tolerance (tests/test_torch_regen_bdpt.py), wt
+    within rtol 1e-6 and acc within rtol 1e-4 / atol 1e-6. Prints the
+    probe's wavefront and errors and each render's wall, iterations,
+    flushes, lane-bounces and peak memory. Returns the probe's result (None
+    at 1 sample)."""
+    import torch
+
+    from pyrite_tpu_torch.project import load_project
+    from pyrite_tpu_torch.renderers import bidirectional as bd
+
+    scene = _gpu_scene(path)[0]
+    pd = load_project(path)
+    films, probe = {}, regen_probe(name)
+    for which in ("regen", "one-shot"):
+        with (probe if which == "regen" else contextlib.nullcontext()), regen_bdpt_from(
+                bd.REGEN_BDPT_MIN_BOUNCES if which == "regen" else None):
+            _zero_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            started = time.perf_counter()
+            _, acc, wt = bd.render(pd, scene, seed=11, max_samples=samples)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - started
+            launches = _read_counts()
+        assert (launches["regen_bdpt_walks"] > 0) == (which == "regen"), launches
+        # (the probe's plain versions run in the regen render)
+        assert launches["bounce_core"] == 0 or which == "regen" or scene.device.type == "cpu"
+        films[which] = (acc, wt)
+        print(f"[regen-bdpt] {name} {samples} spp through {which} "
+              f"({_bdpt_schedule(launches, pd.project.renderer)}): wall {wall:.4f} s, camera "
+              f"bounce launches {launches['camera_bounces']}, {_lanes_line(launches)}, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB ({card})")
+    result = probe.result
+    assert (result is not None) == (samples > 1), f"{name}: the probe's wavefront {result}"
+    if result is not None:
+        _print_probe(name, result, card)
+    (acc_r, wt_r), (acc_o, wt_o) = films["regen"], films["one-shot"]
+    rel = lambda a, b: float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())  # noqa: E731
+    print(f"[regen-bdpt] {name} regen film against one-shot: wt max rel {rel(wt_r, wt_o):.3e}, acc "
+          f"max rel {rel(acc_r, acc_o):.3e}, max abs {float((acc_r - acc_o).abs().max()):.3e} "
+          f"(wt total {float(wt_r.sum()):.1f} against {float(wt_o.sum()):.1f})")
+    assert float(wt_o.sum()) > 0
+    torch.testing.assert_close(wt_r, wt_o, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(acc_r, acc_o, rtol=1e-4, atol=1e-6)
+    return result
+
+
+def _print_probe(name, result, card):
+    print(f"[regen-bdpt] {name} regen iteration {result['iteration']}: {result['live']} live of "
+          f"{result['lanes']} lanes, {result['regenerated']} regenerated, {result['deep']} at depth "
+          f">= 1 (up to {result['max_depth']}), samples {result['samples'][0]}..{result['samples'][1]} "
+          f"in flight (the regenerated lanes' {result['regenerated_samples'][0]}.."
+          f"{result['regenerated_samples'][1]}), each lane at its own round's wavelengths; A with "
+          f"NEE max abs err "
+          f"{result['record']:.3g} (state and camera vertex), brightness {result['brightness']:.3g}, "
+          f"no divergent lane; C: {result['rays']} connection rays ({result['slots']} slots a lane), "
+          f"{result['live_rays']} live, t bit for bit ({card})")
+
+
+def regen_bdpt_step(bdpt, cornell_64, card, out_dir):
+    """Phase 6's regen BDPT step: check_regen_bdpt on flagship_bdpt_deep at
+    4 spp, then four CLI renders through the regen scheduler with the
+    counts zeroed just before each (render_bdpt): flagship_bdpt_deep (its
+    16 camera bounces take it), and forced (REGEN_BDPT_MIN_BOUNCES = 1)
+    the 64 x 64 Cornell class (the DE march), terrain_405_bdpt at 1 spp
+    (the wide kernels) and flagship_bdpt_24 (a lamp trace a round).
+    Returns (the probe's result, the renders' launch counts)."""
+    started = time.perf_counter()
+    result = check_regen_bdpt("flagship_bdpt_deep", bdpt["flagship_bdpt_deep"], 4, card)
+    runs = [render_bdpt(bdpt["flagship_bdpt_deep"], 4, card, out_dir, regen=True)[0]]
+    with regen_bdpt_from(1):
+        runs += [render_bdpt(p, spp, card, out_dir, regen=True)[0] for p, spp in (
+            (cornell_64, 2), (bdpt["terrain_405_bdpt"], 1), (bdpt["flagship_bdpt_24"], 2))]
+    print(f"[phase] regen BDPT (phase 6): {time.perf_counter() - started:.1f} s")
+    return result, runs
 
 
 # --- phase 7: the photon renderer -------------------------------------------------
@@ -3929,15 +4148,20 @@ def profile_renders(card, runs=5, flagship_only=False):
                           f"{e.key[:60]} {own(e) / 1e3:.3f} ms ({e.count}x)" for e in top))
 
 
-def profile_bdpt(card, runs=5):
+def profile_bdpt(card, runs=5, only=None):
     """``--profile``, the bidirectional renders through
     renderers.bidirectional.render: cornell_class at 8 spp, flagship_bdpt
-    (fused) and flagship_bdpt_24 (two-phase) at 16 spp and
-    terrain_405_bdpt at 16 spp, each ``runs`` timed runs after a warm-up,
-    then one under torch.profiler. Prints the launches, the rays they trace
+    (fused) and flagship_bdpt_24 (two-phase) at 16 spp,
+    terrain_405_bdpt at 16 spp, and flagship_bdpt_deep, flagship_bdpt_64
+    and flagship_bdpt_256 at 16 spp through the regen scheduler (their 16,
+    64 and 256 camera bounces take it) and through the one-shot step
+    (regen_bdpt_from(None)), each ``runs`` timed runs after a warm-up, then
+    one under torch.profiler. Prints the launches, the rays they trace
     (camera and lamp lane-bounces, NEE samples, connection and splat rays)
-    and Mrays/s, peak memory, wall times, device busy time and idle share,
-    and the top device ops."""
+    and Mrays/s, the regen walks' iterations and flushes, peak memory, wall
+    times, device busy time and idle share, and the top device ops; then
+    regen's median wall over one-shot's at each camera budget (the
+    crossover). ``only``: the scene names to profile (all by default)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -3946,8 +4170,14 @@ def profile_bdpt(card, runs=5):
 
     with tempfile.TemporaryDirectory() as tmp:
         paths = bdpt_scene_paths(tmp, spp=16)
-        for name, spp in (("cornell_class", 8), ("flagship_bdpt", 16), ("flagship_bdpt_24", 16),
-                          ("terrain_405_bdpt", 16)):
+        deep = ("flagship_bdpt_deep", "flagship_bdpt_64", "flagship_bdpt_256")
+        medians = {}
+        for name, spp, regen in (
+                [("cornell_class", 8, True), ("flagship_bdpt", 16, True),
+                 ("flagship_bdpt_24", 16, True), ("terrain_405_bdpt", 16, True)]
+                + [(name, 16, regen) for name in deep for regen in (True, False)]):
+            if only is not None and name not in only:
+                continue
             path = paths[name]
             scene = _gpu_scene(path)[0]
             project_data = load_project(path)
@@ -3955,7 +4185,8 @@ def profile_bdpt(card, runs=5):
             def render():
                 torch.cuda.synchronize()
                 started = time.perf_counter()
-                bd.render(project_data, scene, max_samples=spp)
+                with regen_bdpt_from(bd.REGEN_BDPT_MIN_BOUNCES if regen else None):
+                    bd.render(project_data, scene, max_samples=spp)
                 torch.cuda.synchronize()
                 return time.perf_counter() - started
 
@@ -3977,9 +4208,13 @@ def profile_bdpt(card, runs=5):
             rays = (launches["live_lane_bounces"] * (1 + r.light_samples) + launches["lamp_live"]
                     + launches["connection_rays"] + launches["splat_rays"])
             median = sorted(walls)[len(walls) // 2]
-            assert launches["steps"] == spp, launches  # one chunk a sample
+            assert (launches["regen_bdpt_walks"] > 0) == (regen and r.bounces >= bd.REGEN_BDPT_MIN_BOUNCES), launches
+            if not launches["regen_bdpt_walks"]:
+                assert launches["steps"] == spp, launches  # one chunk a sample
+            medians[name, regen] = median
             print(f"[profile-bdpt] {name} {spp} spp, {r.bounces} + {r.light_bounces} bounces, "
-                  f"S={r.spectrum_samples} ({card}): launches {launches}; rays {rays} (camera "
+                  f"S={r.spectrum_samples}, {_bdpt_schedule(launches, r)} ({card}): launches "
+                  f"{launches}; {_lanes_line(launches)}; rays {rays} (camera "
                   f"lane-bounces live {launches['live_lane_bounces']} x (1 + {r.light_samples}), "
                   f"lamp {launches['lamp_live']}, connections {launches['connection_rays']}, "
                   f"splats {launches['splat_rays']}); peak memory {peak / 2**20:.1f} MiB; render "
@@ -3988,6 +4223,11 @@ def profile_bdpt(card, runs=5):
             print(f"[profile-bdpt] profiled run: wall {wall * 1e3:.2f} ms, device busy {busy:.2f} "
                   f"ms, idle share {1 - busy / (wall * 1e3):.3f}; top device ops: " + "; ".join(
                       f"{e.key[:60]} {own(e) / 1e3:.3f} ms ({e.count}x)" for e in top))
+        for name in deep:
+            if (name, True) in medians:
+                regen, one_shot = medians[name, True], medians[name, False]
+                print(f"[profile-bdpt] crossover: {name} regen {regen:.4f} s against one-shot "
+                      f"{one_shot:.4f} s median wall, regen / one-shot {regen / one_shot:.3f} ({card})")
 
 
 # Variants of csrc/bounce.cu for --prog (measure_prog), each removing or
@@ -4359,6 +4599,14 @@ def main(argv=None):
     if argv == ["--walls"]:
         profile_renders(smi, flagship_only=True)
         return 0
+    if argv == ["--regen"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            small = os.path.join(tmp, "cornell_64")
+            os.makedirs(small)
+            regen_bdpt_step(bdpt_scene_paths(tmp, spp=2), write_cornell_scene(small, 64, 64, spp=2),
+                            smi, tmp)
+        profile_bdpt(smi, only=("flagship_bdpt_deep", "flagship_bdpt_64", "flagship_bdpt_256"))
+        return 0
     if argv == ["--prog"]:
         measure_prog(smi)
         return 0
@@ -4444,9 +4692,14 @@ def main(argv=None):
         times.update(time_bdpt(bdpt_checked["cornell_class"], smi))
         small = os.path.join(tmp, "cornell_64")
         os.makedirs(small)
-        bdpt_plain = compare_bdpt_plain(write_cornell_scene(small, 64, 64, spp=2), 2, smi)
+        cornell_64 = write_cornell_scene(small, 64, 64, spp=2)
+        bdpt_plain = compare_bdpt_plain(cornell_64, 2, smi)
         bdpt_runs = [render_bdpt(bdpt[name], 2, smi, tmp)[0] for name in (
             "cornell_class", "flagship_bdpt", "flagship_bdpt_24", "terrain_405_bdpt")]
+        # the regen scheduler: its film against one-shot's, the kernels at
+        # one of its wavefronts, then the CLI through it
+        regen_checked, regen_runs = regen_bdpt_step(bdpt, cornell_64, smi, tmp)
+        bdpt_runs += regen_runs
         tex_bdpt = {name: check_bdpt(name, tex[name]) for name in ("textures_bdpt", "untextured_bdpt")}
         times.update({k: v for k, v in time_bdpt(tex_bdpt["textures_bdpt"], smi).items()
                       if "prog" in k or "colors" in k})
@@ -4525,7 +4778,7 @@ def main(argv=None):
         # package runs these steps in XLA); timed on cornell_class
         dict(kernel("dense_bounce_kernel<record>", "bounce.cu", None,
                     bdpt_total("dense_bounce_kernel<record>", "wide_bounce_kernel<record>"),
-                    max(max(max(w["record"], w["brightness"]) for w in bdpt_worst),
+                    max(max(max(w["record"], w["brightness"]) for w in bdpt_worst + [regen_checked]),
                         max(c["worst"]["record"] for c in photon_checked.values()))),
              name="dense_bounce_kernel<record>, wide_bounce_kernel<record>",
              replaces="none: XLA, pyrite_tpu/tracer.py:1585 bounce_core's info"),

@@ -89,7 +89,10 @@ def main(argv=None):
     parser.add_argument(
         "--preview-interval", type=float, default=20.0, help="seconds between previews"
     )
-    parser.add_argument("--multi-device", action="store_true", help="not ported yet")
+    parser.add_argument(
+        "--multi-device", action="store_true",
+        help="render across the CUDA devices (not ported yet; on one device it renders as without)",
+    )
     parser.add_argument(
         "--checkpoint", default=None,
         help="film checkpoint path (.npz): resumed from if present, written at every preview",
@@ -104,9 +107,11 @@ def main(argv=None):
     )
     args = parser.parse_args(argv)
 
-    if args.multi_device:
-        _not_ported("--multi-device", "queue 1 item 11: multi-GPU film merge")
     device = torch.device(args.device)
+    # as the JAX package's CLI, --multi-device on one device renders as
+    # without it; across several CUDA devices it is not ported
+    if args.multi_device and device.type == "cuda" and torch.cuda.device_count() > 1:
+        _not_ported("--multi-device", "queue 1 item 11: multi-GPU film merge")
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "--device cuda, but torch finds no CUDA device; pass --device cpu to render on the CPU"

@@ -176,19 +176,18 @@ def expose_sums(film: Film, acc, wt, positions, wavelengths, value_sums, weight_
     connections, len_cam x len_lamp samples at one pixel) add
     already-weighted value sums [N, S] and weight sums [N, S] at each
     lane's view position [N, 2]. Entries outside the film or off ``mask``
-    [N, S] are dropped. One scatter per spectral column, as
+    [N, S] add zeros (to a pixel clamped into the film), so the scatter
+    needs no host sync. One scatter per spectral column, as
     add_lane_bins: a lane's columns may share a bin, and the adds of one
     column land in distinct pixels but where two lanes share one. Updates
     ``acc`` and ``wt`` in place and returns them."""
     px, py, valid = film.view_to_pixel(positions)
     ok = mask & valid[:, None]
-    base = (py.long() * film.width + px.long()) * film.bins
-    bins = film.wavelength_to_bin(wavelengths).long()
+    pixel = py.long().clamp(0, film.height - 1) * film.width + px.long().clamp(0, film.width - 1)
+    index = pixel[:, None] * film.bins + film.wavelength_to_bin(wavelengths).long()
     for j in range(value_sums.shape[1]):
-        sel = ok[:, j]
-        index = (base + bins[:, j])[sel]
-        acc.view(-1).index_add_(0, index, value_sums[:, j][sel])
-        wt.view(-1).index_add_(0, index, weight_sums[:, j][sel])
+        acc.view(-1).index_add_(0, index[:, j], torch.where(ok[:, j], value_sums[:, j], 0.0))
+        wt.view(-1).index_add_(0, index[:, j], torch.where(ok[:, j], weight_sums[:, j], 0.0))
     return acc, wt
 
 

@@ -30,8 +30,15 @@ depth) and the splats' (SPLAT, one block per lamp slot) by the same pixel
 and sample, so a render does not depend on its rows per chunk and a resumed
 render equals the straight one.
 
-Not ported: the camera-regeneration scheduler (regen BDPT), the deferred
-connections and ragged packing, the sharded render (ROADMAP.md queue 1), and
+At REGEN_BDPT_MIN_BOUNCES camera bounces or more with path regeneration on,
+render takes the camera-regeneration scheduler (``_render_regen``, the JAX
+package's _render_regen_bdpt): per launch of up to REGEN_BDPT_SPP_CHUNK
+samples one lamp round per sample, then one camera walk whose lanes each own
+a pixel and regenerate a finished sample in place, sample k of a launch
+against round k.
+
+Not ported: the deferred connections and ragged packing, the staged and
+merged-traversal camera walks, the sharded render (ROADMAP.md queue 1), and
 the JAX package's TPU switches (its crash-bisect environment knobs, the
 splat shadow cap and chunk ladders, the sweep-kernel block).
 """
@@ -44,25 +51,31 @@ from dataclasses import replace
 import torch
 
 from .. import kernels_dense, tracer
-from ..film import Film, expose_lanes, expose_sums
-from ..rng import KeyedDraws, splat_draws
+from ..film import Film, bin_lane_sums, expose_lanes, expose_sums
+from ..rng import KeyedDraws, LaneKeys, camera_uniforms, lane_draws, splat_draws
 from ..scene import CameraModel, Scene, camera_inverse_project
 from ..tracer import DIST_EPSILON, TraceConfig, initial_state, trace_lamp_path
-from .simple import RenderProgress, _uniform_lanes, _uniform_start, chunk_rays, regen_enabled
+from .simple import (RenderProgress, _accumulate_lane_bins, _HostCount, _uniform_lanes,
+                     _uniform_start, camera_rays, camera_wavelengths, chunk_rays, regen_enabled)
 from .simple import lane_bytes as camera_lane_bytes
 
-# At this many camera bounces or more, with path regeneration on, the JAX
-# package renders through its camera-regeneration scheduler, which is not
-# ported (ROADMAP.md queue 1).
-REGEN_BDPT_MIN_BOUNCES = 16
-
-# Work of the renders since a caller last zeroed them: chunk steps, their
-# compactions (two-phase), camera bounce iterations (the lamp walk's are
-# tracer.launches["lamp_bounces"]), and the connection and splat shadow rays
-# cast, the live rays of each batch (counted on the render's device without
-# a host sync: 0-d tensors after a render).
-counters = {"steps": 0, "compactions": 0, "camera_bounces": 0, "connection_rays": 0,
-            "splat_rays": 0}
+# Work of the renders since a caller last zeroed them: chunk steps (one-shot),
+# lamp traces (one lamp start launch each: a chunk step's, or a regen
+# launch's round or batch of rounds), compactions, camera bounce iterations
+# (the lamp walk's are tracer.launches["lamp_bounces"]), and the connection
+# and splat shadow rays cast, the live rays of each batch (counted on the
+# render's device without a host sync: 0-d tensors after a render). The
+# regen scheduler's: "regen_bdpt_launches" (launches of up to
+# REGEN_BDPT_SPP_CHUNK samples), "regen_bdpt_walks" (camera walks, one per
+# chunk of rows and stack of rounds), "regen_bdpt_iterations" (their
+# iterations: one draw, bounce and NEE launch and one connection fold each),
+# "regen_bdpt_flushes" (walks the stack budget started before a launch's
+# last round) and "regen_bdpt_stray_scatters" (iterations that exposed
+# connection sums across a lane's pixel edge, make_regen_walk).
+counters = {"steps": 0, "lamp_traces": 0, "compactions": 0, "camera_bounces": 0,
+            "connection_rays": 0, "splat_rays": 0, "regen_bdpt_launches": 0,
+            "regen_bdpt_walks": 0, "regen_bdpt_iterations": 0, "regen_bdpt_flushes": 0,
+            "regen_bdpt_stray_scatters": 0}
 
 
 def _effective_brdf(path):
@@ -309,9 +322,11 @@ def make_render_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCo
     by default), for one sample keyed by an rng.KeyedDraws. ``two_phase``
     False: step(acc, wt, draws, row0=0, splat=None) traces the lamp paths
     and the camera walk and exposes them. True: (lamp_step, cam_step):
-    lamp_step(draws, row0) -> (connection arrays at full [N, L + 1]
-    capacity, connectable_count, the chunk's rays and program values), which
-    the caller may compact (_compact_connections); cam_step(acc, wt, draws,
+    lamp_step(draws, row0, wavelengths=None) -> (connection arrays at full
+    [N, L + 1] capacity, connectable_count, the chunk's rays and program
+    values), which the caller may compact (_compact_connections); with
+    ``wavelengths`` [N, S] (camera_wavelengths of the chunk's camera draws)
+    it makes no camera rays, and its rays are None; cam_step(acc, wt, draws,
     conn, row0, prepared, splat), where ``prepared`` is lamp_step's third
     output (None to make them again). ``splat`` (acc, wt) takes the light-tracing splats
     in place of acc and wt. Films are updated in place and returned."""
@@ -324,13 +339,18 @@ def make_render_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCo
         rays = chunk_rays(film, camera, cfg, keyed, row0=row0, rows=rows, device=dev)
         return rays, kernels_dense.precompute_bank_values(scene, rays[3])
 
-    def lamp_step(draws, row0=0, prepared=None):
+    def lamp_step(draws, row0=0, wavelengths=None):
         keyed = replace(draws, pixel0=row0 * film.width)
-        rays, bank = prepare(keyed, row0) if prepared is None else prepared
-        wl = rays[3]
+        if wavelengths is None:
+            rays, bank = prepare(keyed, row0)
+            wl = rays[3]
+        else:
+            rays, wl = None, wavelengths
+            bank = kernels_dense.precompute_bank_values(scene, wl)
         path = trace_lamp_path(scene, lamp_cfg, keyed, wl, bank)
         splat_u = splat_draws(keyed, wl.shape[0], light_bounces + 1, dev)
         conn = _connection_arrays(scene, path, wl, splat_u, bank)
+        counters["lamp_traces"] += 1
         return conn, connectable_count(conn), (rays, bank)
 
     def cam_step(acc, wt, draws, conn, row0=0, prepared=None, splat=None):
@@ -389,6 +409,11 @@ def make_render_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCo
 _STEP_BYTES = 8 << 30
 
 
+def _slot_bytes(light_bounces: int, spectrum_samples: int) -> int:
+    """Bytes a lane's lamp slots take in a chunk step (_STEP_BYTES)."""
+    return (light_bounces + 1) * (160 + 20 * spectrum_samples)
+
+
 def pick_rows_per_chunk(film: Film, light_bounces: int, spectrum_samples: int,
                         texture_bytes: int = 0, lane_bytes: int = 0) -> int:
     """Rows per chunk step: the whole film where its lanes fit _STEP_BYTES
@@ -396,12 +421,304 @@ def pick_rows_per_chunk(film: Film, light_bounces: int, spectrum_samples: int,
     lanes at 4 + 1 slots and S = 10, counts 0.44 GiB), else the largest
     divisor of the height that fits; a lane's camera walk takes
     ``lane_bytes`` beside its slots (simple.lane_bytes)."""
-    per_lane = (light_bounces + 1) * (160 + 20 * spectrum_samples) + lane_bytes
+    per_lane = _slot_bytes(light_bounces, spectrum_samples) + lane_bytes
     lanes = max(film.width, max(_STEP_BYTES - texture_bytes, 0) // per_lane)
     rows = max(1, min(film.height, lanes // film.width))
     while film.height % rows:
         rows -= 1
     return rows
+
+
+# =============================================================================
+# Camera-side path regeneration (deep camera budgets)
+# =============================================================================
+#
+# The JAX package's regen BDPT (its bidirectional.py:960-2013), in short:
+# with deep camera budgets most camera paths end within a few bounces, so
+# the one-shot walk idles most of its lanes. Each lane owns a pixel of a
+# chunk of rows and, the moment its sample ends, exposes it into its own row
+# of per-lane bins and starts its next sample in place. A sample's
+# wavelengths and lamp path belong together, so a launch of ``take`` samples
+# first traces one lamp ROUND per sample (round k is sample done + k of
+# every pixel of the chunk), exposes each round's light-tracing splats at
+# once, compacts it to its connectable slots and stacks the rounds into [n,
+# R, K', ...] rows; the camera walk then pairs sample k of a lane with round
+# k, swapping the round's row into the lane when it regenerates.
+#
+# The port keys every draw by (pixel, global sample, bounce, purpose)
+# (rng.py): round k is the one-shot lamp step under KeyedDraws(seed, done +
+# k), and a regenerated lane draws its camera ray and its bounces with
+# LaneKeys(seed, pixel, sample, its own depth). So the regen walk traces
+# the paths the one-shot walk traces, scheduled differently, and its film
+# equals the one-shot film to summation order. The JAX package instead
+# stratifies a launch's wavelengths over its rounds ((r + u) / R) and keys
+# by fold_in (ROADMAP.md queue 3, known deviations).
+
+# The JAX package's threshold: the port picks its schedulers as it does.
+# Open (ROADMAP.md item 2): on an H100 the regen walk has not beaten the
+# one-shot step on any scene measured, the flagship at 16, 64 and 256
+# camera bounces included (PERF.md section 5).
+REGEN_BDPT_MIN_BOUNCES = 16
+REGEN_BDPT_SPP_CHUNK = 32  # samples (= lamp rounds) per launch
+
+# Bytes the stacked rounds of one camera walk may hold, pix x K' x (8 + S) x
+# 4 a round (the JAX package's cost formula); past it the stack so far runs
+# a walk of its own (a flush). The JAX package's 1 GiB (_CONN_STACK_BUDGET)
+# budgets a TPU's memory; the port's is its chunk step budget.
+_CONN_STACK_BYTES = _STEP_BYTES
+
+# The fields of a round's connection arrays the camera walk reads per slot
+# (the splat fields are spent when the round is traced).
+_ROUND_FIELDS = ("position", "normal", "pp", "aux_ok", "conn_ok")
+
+
+def _accumulate_lane_sums(film: Film, acc_l, wt_l, wavelengths, value_sums, weight_sums):
+    """Per-lane (value, weight) sums [N, S] binned into [N, bins] lane
+    buffers: the expose_sums analogue of simple._accumulate_lane_bins (the
+    JAX package's _accumulate_lane_sums). Returns new buffers."""
+    da, dw = bin_lane_sums(film, wavelengths, value_sums, weight_sums)
+    return acc_l + da, wt_l + dw
+
+
+def stack_rounds(conns, wls, light_bounces: int):
+    """Pad each round's connection arrays to the widest slot count (to all
+    L + 1 slots once that passes 3/4 of them, as the JAX package's
+    stack_rounds does) and stack them: ({field: [n, R, K', ...], "length":
+    [n, R]}, wavelengths [n, R, S]). Padded slots are inert (conn_ok
+    False)."""
+    k_max = max(c["conn_ok"].shape[1] for c in conns)
+    if k_max > (light_bounces + 1) * 3 // 4:
+        k_max = light_bounces + 1
+
+    def pad(x):
+        extra = k_max - x.shape[1]
+        return x if extra == 0 else torch.cat(
+            [x, x.new_zeros((x.shape[0], extra) + x.shape[2:])], dim=1)
+
+    stacked = {f: torch.stack([pad(c[f]) for c in conns], dim=1) for f in _ROUND_FIELDS}
+    stacked["length"] = torch.stack([c["length"] for c in conns], dim=1)
+    return stacked, torch.stack(wls, dim=1)
+
+
+def make_regen_walk(scene: Scene, film: Film, camera: CameraModel, cfg: TraceConfig, rows: int,
+                    seed: int = 0):
+    """The regen BDPT camera walk over a chunk of ``rows`` rows, one lane a
+    pixel: walk(acc, wt, conn_r, wl_r, row0, first) completes R samples in
+    every lane, samples first .. first + R - 1 of its pixel, sample first +
+    k against round k of the stacked rounds (stack_rounds: conn_r [n, R, K',
+    ...], wl_r [n, R, S]), and adds them into the film's rows (in place).
+
+    An iteration (the JAX package's cam_step body, in its in-loop form):
+    1) expose the samples that ended last iteration: the camera sample into
+    the lane's bins (weight 1, the auxiliary columns while never
+    dispersed), the connection sums at weight 1 / (len_cam x len_lamp);
+    2) regenerate each ended lane that has samples left: its next sample's
+    camera ray and the round's row; 3) one bounce of every lane through the
+    bounce kernels (kRecord), at each lane's own depth and wavelengths; 4)
+    the connections of the bounce's camera vertices to the lane's round;
+    5) the depth budget. The host reads the iteration's live count once,
+    after the iteration is queued, and ends the walk after an iteration
+    with no live lane (which leaves no sample pending). A sample's
+    connection sums land where the one-shot renderer exposes them, the
+    pixel of its camera position: the lane's own bins, or, where rounding
+    puts the position across the pixel's edge (a stray), the film itself
+    through expose_sums; that scatter runs only in the iterations after a
+    host read that counted a stray sample in flight."""
+    w = film.width
+    n = rows * w
+    s = cfg.spectrum_samples
+    dev = scene.device
+    lane = torch.arange(n, device=dev)
+
+    def walk(acc, wt, conn_r, wl_r, row0, first):
+        rounds = wl_r.shape[1]
+        pixel = (row0 * w + lane).to(torch.int32)
+        state = initial_state(torch.zeros((n, 3), device=dev), torch.zeros((n, 3), device=dev), s)
+        state["alive"] = torch.zeros(n, dtype=torch.bool, device=dev)
+        cur = {f: torch.zeros_like(conn_r[f][:, 0]) for f in _ROUND_FIELDS}
+        wl = wl_r[:, 0].clone()
+        len_lamp = torch.zeros(n, dtype=torch.int32, device=dev)
+        positions = torch.zeros((n, 2), device=dev)
+        own = torch.zeros(n, dtype=torch.bool, device=dev)
+        stray = torch.zeros(n, dtype=torch.bool, device=dev)
+        sample = torch.zeros(n, dtype=torch.int32, device=dev)
+        done = torch.zeros(n, dtype=torch.int32, device=dev)
+        pend = torch.zeros(n, dtype=torch.bool, device=dev)
+        plen = torch.zeros(n, dtype=torch.int32, device=dev)
+        len_cam = torch.zeros(n, dtype=torch.int32, device=dev)
+        conn_vsum = torch.zeros((n, s), device=dev)
+        conn_cnt = torch.zeros((n, s), device=dev)
+        acc_l = torch.zeros((n, film.bins), device=dev)
+        wt_l = torch.zeros((n, film.bins), device=dev)
+
+        # per iteration, read together: the lanes live in it, and the
+        # samples in flight that stray (so may end next iteration)
+        counts = _HostCount(dev, (2,))
+        max_iters = (rounds + 1) * cfg.bounces
+        live, i, strays = 0, 0, 0
+        while True:
+            # 1) expose the samples that ended last iteration
+            complete = pend & ~state["alive"]
+            _accumulate_lane_bins(film, acc_l, wt_l, wl, state["brightness"], state["aux_alive"],
+                                  complete)
+            w_conn = torch.where(
+                complete, 1.0 / torch.clamp(len_cam * len_lamp, min=1).to(torch.float32), 0.0)
+            w_own = torch.where(own, w_conn, 0.0)[:, None]
+            acc_l, wt_l = _accumulate_lane_sums(film, acc_l, wt_l, wl, conn_vsum * w_own,
+                                                conn_cnt * w_own)
+            if strays:
+                w_stray = w_conn[:, None]
+                expose_sums(film, acc, wt, positions, wl, conn_vsum * w_stray,
+                            conn_cnt * w_stray, (complete & stray)[:, None].expand(n, s))
+                counters["regen_bdpt_stray_scatters"] += 1
+            done = done + complete.to(torch.int32)
+            pend = pend & state["alive"]
+            # 2) regenerate: the lane's next sample, against its round
+            reg = ~state["alive"] & (done < rounds)
+            ridx = torch.clamp(done, max=rounds - 1).long()
+            for f in _ROUND_FIELDS:
+                row = conn_r[f][lane, ridx]
+                cur[f] = torch.where(reg.view((n,) + (1,) * (row.dim() - 1)), row, cur[f])
+            rc = reg[:, None]
+            wl = torch.where(rc, wl_r[lane, ridx], wl)
+            len_lamp = torch.where(reg, conn_r["length"][lane, ridx], len_lamp)
+            sample = torch.where(reg, first + done, sample)
+            plen = torch.where(reg, 0, plen)
+            u, draws = lane_draws(LaneKeys(seed, pixel, sample, plen), s, cfg.light_samples,
+                                  scene.num_lamps, reg, dev)
+            p2, o2, d2, _ = camera_rays(film, camera, s, pixel, u)
+            positions = torch.where(rc, p2, positions)
+            px, py, on_film = film.view_to_pixel(p2)
+            same = py.long() * w + px.long() == pixel
+            own = torch.where(reg, on_film & same, own)
+            stray = torch.where(reg, on_film & ~same, stray)
+            state = {
+                "origin": torch.where(rc, o2, state["origin"]),
+                "direction": torch.where(rc, d2, state["direction"]),
+                "brightness": torch.where(rc, 0.0, state["brightness"]),
+                "reflectance": torch.where(rc, 1.0, state["reflectance"]),
+                "alive": state["alive"] | reg,
+                "aux_alive": state["aux_alive"] | reg,
+                "sample_light": state["sample_light"] | reg,
+                "light_events": torch.where(reg, 0, state["light_events"]),
+            }
+            pend = pend | reg
+            conn_vsum = torch.where(rc, 0.0, conn_vsum)
+            conn_cnt = torch.where(rc, 0.0, conn_cnt)
+            len_cam = torch.where(reg, 0, len_cam)
+            counts.start(torch.stack([state["alive"].sum(), (pend & stray).sum()]))
+            # 3) one bounce of every lane, at its wavelengths' program values
+            bank = kernels_dense.precompute_bank_values(scene, wl)
+            state, info = kernels_dense.bounce_dense(scene, cfg, wl, state, draws, bank, record=True)
+            counters["camera_bounces"] += 1
+            # 4) the connections to the lane's round
+            if scene.num_lamps > 0:
+                conn_vsum, conn_cnt = _connect_fold_grouped(
+                    scene, cfg, info, state, cur, conn_vsum, conn_cnt)
+            len_cam = len_cam + info["recorded"].to(torch.int32)
+            # 5) the per-path depth budget (the one-shot walk's bounce count)
+            plen = plen + state["alive"].to(torch.int32)
+            state["alive"] = state["alive"] & (plen < cfg.bounces)
+            i += 1
+            active, strays = counts.read()
+            live += active
+            if active == 0:
+                break
+            if i >= max_iters:
+                raise RuntimeError(
+                    f"regen BDPT walk: {active} lanes still live after {i} iterations, the most "
+                    f"{rounds} samples of {cfg.bounces} bounces take")
+        short = int((done < rounds).sum())
+        if short:
+            raise RuntimeError(f"regen BDPT walk: {short} lanes did not complete their {rounds} "
+                               f"samples")
+        start = row0 * w
+        acc.view(film.height * w, film.bins)[start : start + n] += acc_l
+        wt.view(film.height * w, film.bins)[start : start + n] += wt_l
+        counters["regen_bdpt_walks"] += 1
+        counters["regen_bdpt_iterations"] += i
+        tracer.lane_bounces["live"] += live
+        tracer.lane_bounces["executed"] += i * n
+        return acc, wt
+
+    return walk
+
+
+def _lamp_rounds(lamp_step, film, s, seed, first, take, row0, n, batched, dev):
+    """The ``take`` lamp rounds of a launch from sample ``first`` over the
+    chunk at ``row0``, each compacted to its connectable slots: yields
+    (connection arrays, wavelengths [n, S]) round by round. ``batched``:
+    all rounds traced and compacted in one lamp step of n x take lanes (the
+    JAX package's lamp_step_all), else one lamp step a round."""
+
+    def compact(conn, count):
+        counters["compactions"] += 1
+        return _compact_connections(conn, max(int(count), 1))
+
+    def trace(draws):
+        # the rounds' wavelengths alone: the walk makes each sample's camera
+        # ray when it regenerates
+        u = camera_uniforms(replace(draws, pixel0=row0 * film.width), draws.samples * n, s, dev)
+        wl = camera_wavelengths(film, s, u)
+        conn, count, _ = lamp_step(draws, row0, wavelengths=wl)
+        return compact(conn, count), wl
+
+    if batched:
+        conn, wl = trace(KeyedDraws(seed, sample0=first, samples=take))
+        wl = wl.view(take, n, -1)
+        for k in range(take):
+            yield {f: v.view((take, n) + v.shape[1:])[k] for f, v in conn.items()}, wl[k]
+        return
+    for k in range(take):
+        yield trace(KeyedDraws(seed, sample0=first + k))
+
+
+def _render_regen(scene, film, camera, cfg, light_bounces, rows, acc, wt, seed, start, total,
+                  on_progress):
+    """Host loop of the regen scheduler (the JAX package's
+    _render_regen_bdpt): launches of up to REGEN_BDPT_SPP_CHUNK samples;
+    per launch and chunk of rows the lamp rounds (_lamp_rounds: batched
+    where a chunk's rounds fit _STEP_BYTES at full capacity and the lamp
+    budget is at most 15 bounces, as the JAX package's lamp_step_all),
+    each round's splats in a splat film of its own added after it (the
+    one-shot renderer's per-sample order; with several chunks a sample's
+    splats are added chunk by chunk), the rounds stacked under
+    _CONN_STACK_BYTES, each stack walked by make_regen_walk."""
+    lamp_step, _ = make_render_step(scene, film, camera, cfg, light_bounces, rows, two_phase=True)
+    walk = make_regen_walk(scene, film, camera, cfg, rows, seed)
+    n = rows * film.width
+    s = cfg.spectrum_samples
+    splat = film.new_buffers(scene.device)
+    done = start
+    while done < total:
+        take = min(REGEN_BDPT_SPP_CHUNK, total - done)
+        batched = (light_bounces + 1 <= 16 and n * take * _slot_bytes(light_bounces, s)
+                   <= _STEP_BYTES - scene.texture_bytes)
+        for row0 in range(0, film.height, rows):
+            conns, wls, stacked, first = [], [], 0, done
+            for conn, wl in _lamp_rounds(lamp_step, film, s, seed, done, take, row0, n,
+                                          batched, scene.device):
+                for buf in splat:
+                    buf.zero_()
+                _light_splats(scene, film, camera, cfg, conn, wl, *splat)
+                acc += splat[0]
+                wt += splat[1]
+                cost = n * conn["conn_ok"].shape[1] * (8 + s) * 4
+                if conns and stacked + cost > _CONN_STACK_BYTES:
+                    acc, wt = walk(acc, wt, *stack_rounds(conns, wls, light_bounces), row0, first)
+                    counters["regen_bdpt_flushes"] += 1
+                    first += len(conns)
+                    conns, wls, stacked = [], [], 0
+                conns.append({f: conn[f] for f in _ROUND_FIELDS + ("length",)})
+                wls.append(wl)
+                stacked += cost
+            acc, wt = walk(acc, wt, *stack_rounds(conns, wls, light_bounces), row0, first)
+        done += take
+        counters["regen_bdpt_launches"] += 1
+        if on_progress is not None:
+            on_progress(RenderProgress(sample=done, total=total, acc=acc, wt=wt, film=film,
+                                       lane_samples=_uniform_lanes(film, done)))
+    return film, acc, wt
 
 
 def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samples=None,
@@ -410,17 +727,16 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
     device; returns (film, acc, wt).
 
     Dispatch as the JAX package's _render (its bidirectional.py:2072-2151):
-    the fused step while light_bounces + 1 <= 16, else the two-phase step
-    whose host reads each chunk's connectable count and compacts the lamp
-    slots to the next power of two (at least 4), so that a handful of
-    capacities recur. At REGEN_BDPT_MIN_BOUNCES camera bounces or more with
-    path regeneration on, the JAX package takes its regen scheduler, which
-    is not ported: NotImplementedError. ``resume`` (a checkpoint) starts
-    from its film at its samples_done; the draws are keyed by the global
-    sample, so the resumed render equals the straight one. Each sample's
-    splats are gathered in a film of their own and added after its last
-    chunk, so the film does not depend on the rows per chunk
-    (pick_rows_per_chunk)."""
+    at REGEN_BDPT_MIN_BOUNCES camera bounces or more with path
+    regeneration on, the regen scheduler (_render_regen); else the fused
+    step while light_bounces + 1 <= 16, else the two-phase step whose host
+    reads each chunk's connectable count and compacts the lamp slots to the
+    next power of two (at least 4), so that a handful of capacities recur.
+    ``resume`` (a checkpoint) starts from its film at its samples_done; the
+    draws are keyed by the global sample, so the resumed render equals the
+    straight one. Each sample's splats are gathered in a film of their own
+    and added after its last chunk, so the film does not depend on the rows
+    per chunk (pick_rows_per_chunk)."""
     project = project_data.project
     settings = project.renderer
     film = Film(width=project.image.width, height=project.image.height,
@@ -428,11 +744,6 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
     camera = CameraModel.from_ir(project.camera)
     cfg = TraceConfig(bounces=settings.bounces, light_samples=settings.light_samples,
                       spectrum_samples=settings.spectrum_samples)
-    if cfg.bounces >= REGEN_BDPT_MIN_BOUNCES and regen_enabled():
-        raise NotImplementedError(
-            f"bidirectional rendering with {cfg.bounces} camera bounces takes the JAX package's "
-            "camera-regeneration scheduler, which is not ported to pyrite_tpu_torch yet "
-            "(ROADMAP.md queue 1: regen BDPT); PYRITE_TPU_REGEN=0 renders it one-shot")
     light_bounces = settings.light_bounces
     rows = pick_rows_per_chunk(film, light_bounces, cfg.spectrum_samples, scene.texture_bytes,
                                lane_bytes=camera_lane_bytes(scene, cfg.spectrum_samples))
@@ -443,6 +754,9 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
     start = _uniform_start(resume, film)
     total = settings.pixel_samples if max_samples is None else min(settings.pixel_samples,
                                                                    max_samples)
+    if cfg.bounces >= REGEN_BDPT_MIN_BOUNCES and regen_enabled():
+        return _render_regen(scene, film, camera, cfg, light_bounces, rows, acc, wt, seed, start,
+                             total, on_progress)
     slots = light_bounces + 1
     two_phase = slots > 16
     if two_phase:

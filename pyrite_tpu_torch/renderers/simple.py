@@ -59,20 +59,23 @@ def camera_rays(film: Film, camera: CameraModel, s, pixel, u):
     their camera draws ``u`` [n, S + 5] (jitter 2, lens 2, wavelengths S,
     hero 1): positions, primary rays, and hero-ordered wavelengths. Every
     operation is per lane, so a lane's ray does not depend on the others."""
-    dev = u.device
     pixel = pixel.long()
     positions = film.pixel_to_view(pixel % film.width + u[:, 0], pixel // film.width + u[:, 1])
     origin, direction = camera.ray_towards(positions, u[:, 2], u[:, 3])
+    return positions, origin, direction, camera_wavelengths(film, s, u)
 
+
+def camera_wavelengths(film: Film, s, u):
+    """camera_rays' hero-ordered wavelengths [n, S] alone, from the camera
+    draws ``u`` [n, S + 5]."""
     wavelengths = film.sample_wavelengths(u[:, 4 : 4 + s])
     # hero selection: swap a uniformly chosen column into slot 0
     hero = torch.clamp((u[:, 4 + s] * s).long(), max=s - 1)
-    cols = torch.arange(s, device=dev)[None, :]
+    cols = torch.arange(s, device=u.device)[None, :]
     is_hero = cols == hero[:, None]
     hero_wl = torch.gather(wavelengths, 1, hero[:, None])
     first_wl = wavelengths[:, :1]
-    wavelengths = torch.where(cols == 0, hero_wl, torch.where(is_hero, first_wl, wavelengths))
-    return positions, origin, direction, wavelengths
+    return torch.where(cols == 0, hero_wl, torch.where(is_hero, first_wl, wavelengths))
 
 
 def chunk_rays(film: Film, camera: CameraModel, cfg: TraceConfig, rng, row0=0, rows=None,
@@ -250,13 +253,14 @@ def _accumulate_lane_bins(film: Film, acc_l, wt_l, wavelengths, brightness, aux_
 
 
 class _HostCount:
-    """A count on the device read back to the host without waiting for the
-    work queued after it: on a CUDA device the copy goes to pinned memory behind an
-    event, so the host can queue the next launches first."""
+    """A count on the device (or ``size`` counts) read back to the host
+    without waiting for the work queued after it: on a CUDA device the copy
+    goes to pinned memory behind an event, so the host can queue the next
+    launches first."""
 
-    def __init__(self, device):
+    def __init__(self, device, size=()):
         self.cuda = device.type == "cuda"
-        self.host = torch.empty((), dtype=torch.int64, pin_memory=self.cuda)
+        self.host = torch.empty(size, dtype=torch.int64, pin_memory=self.cuda)
         self.event = torch.cuda.Event() if self.cuda else None
 
     def start(self, count):
@@ -267,7 +271,7 @@ class _HostCount:
     def read(self):
         if self.cuda:
             self.event.synchronize()
-        return int(self.host)
+        return int(self.host) if self.host.dim() == 0 else self.host.tolist()
 
 
 def make_regen_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceConfig, planes=1, seed=0):

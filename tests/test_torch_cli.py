@@ -116,6 +116,17 @@ def test_profile_writes_a_trace(flagship, tmp_path, monkeypatch):
     assert '"traceEvents"' in traces[0].read_text()
 
 
-def test_multi_device_is_not_ported(flagship):
+def test_multi_device_is_not_ported(flagship, monkeypatch):
+    """Across several CUDA devices (ROADMAP.md item 11): the render device
+    is CUDA (the default) and torch counts two."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main([flagship, "--device", "cpu", "--multi-device"])
+        cli.main([flagship, "--multi-device"])
+
+
+def test_multi_device_on_one_device_renders(flagship, monkeypatch):
+    """As the JAX package's CLI (one device: the render without the flag),
+    on the CPU whatever torch.cuda counts."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    (acc, wt), calls = _cli(monkeypatch, flagship, "--samples", "1", "--multi-device")
+    assert calls >= 1 and float(wt.sum()) > 0

@@ -317,6 +317,31 @@ def test_cuda_bdpt_render_matches_plain(tmp_path):
 
 
 @pytest.mark.cuda
+def test_cuda_regen_bdpt_matches_one_shot(tmp_path):
+    """flagship_bdpt_deep (512 x 256, 16 + 8 bounces) at 1 spp through the
+    regen scheduler and through the one-shot step on the card: wt within
+    rtol 1e-6, acc within rtol 1e-4 / atol 1e-6."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    path = chip_smoke.bdpt_scene_paths(str(tmp_path), spp=1)["flagship_bdpt_deep"]
+    assert chip_smoke.check_regen_bdpt("flagship_bdpt_deep", path, 1, "card") is None
+
+
+@pytest.mark.cuda
+def test_cuda_regen_bdpt_kernels_at_a_regen_wavefront(tmp_path):
+    """At the first regen iteration with regenerated lanes beside lanes at
+    depth >= 1 (2 spp), the bounce kernel's kRecord instantiation with the
+    NEE kernel against bounce_core(record) (no divergent lane) and the
+    connection batch's shadow query bit for bit (chip_smoke.regen_probe);
+    the films equal one-shot's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    path = chip_smoke.bdpt_scene_paths(str(tmp_path), spp=2, small=True)["flagship_bdpt_deep"]
+    result = chip_smoke.check_regen_bdpt("flagship_bdpt_deep", path, 2, "card")
+    assert result["regenerated"] > 0 and result["deep"] > 0 and result["live_rays"] > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("purpose", ["LAMP_START", "LAMP_BOUNCE", "SPLAT"])
 def test_cuda_bdpt_draws_match_cpu(purpose):
     """The draw kernel's words mode against rng.py's plain version on the

@@ -31,6 +31,7 @@ import pyrite_tpu_torch.tracer as TT
 from pyrite_tpu_torch import cli, convert
 from pyrite_tpu_torch.project import load_project as torch_load
 from pyrite_tpu_torch.film import Film as TorchFilm
+from pyrite_tpu_torch.renderers import bidirectional as bd
 from pyrite_tpu_torch.renderers import simple as torch_simple
 from pyrite_tpu_torch.scene import CameraModel as TorchCamera, build_scene as torch_build
 
@@ -173,16 +174,21 @@ def test_cli_renders_fractal_png(paths, tmp_path):
         assert np.asarray(img).max() > 0
 
 
-def test_cli_refuses_what_is_not_ported(paths, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main([paths["flagship"], "--device", "cpu", "--multi-device"])
+def test_cli_refuses_what_is_not_ported(paths, tmp_path, monkeypatch):
+    # --multi-device across several CUDA devices (item 11); on one device,
+    # or on the CPU, it renders as without the flag
+    # (tests/test_torch_cli.py::test_multi_device_on_one_device_renders)
+    with monkeypatch.context() as m:
+        m.setattr(torch.cuda, "device_count", lambda: 2)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            cli.main([paths["flagship"], "--multi-device"])
     # directional lamps and more than 128 materials render now
     # (tests/test_torch_gate_lamps.py::test_cli_renders_directional_lamps,
     # tests/test_torch_gate_rows.py::test_cli_renders_what_the_gate_refused)
     text = open(paths["flagship"]).read()
-    # photon mapping renders now (tests/test_torch_photon.py); bidirectional
-    # rendering at 16 camera bounces with path regeneration on (the JAX
-    # package's regen BDPT) does not
+    # photon mapping renders now (tests/test_torch_photon.py), and so does
+    # bidirectional rendering at 16 camera bounces with path regeneration on
+    # (the JAX package's regen BDPT; tests/test_torch_regen_bdpt.py)
     photon = tmp_path / "photon.lua"
     photon.write_text(text.replace("renderer.simple", "renderer.photon_mapping").replace(
         "bounces = 4,", "bounces = 4, photons = 500, photon_bounces = 2,"))
@@ -192,8 +198,14 @@ def test_cli_refuses_what_is_not_ported(paths, tmp_path):
     regen_bdpt = tmp_path / "regen_bdpt.lua"
     regen_bdpt.write_text(text.replace("renderer.simple", "renderer.bidirectional").replace(
         "bounces = 4,", "bounces = 16,"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        cli.main([str(regen_bdpt), "--device", "cpu", "--samples", "1"])
+    from PIL import Image
+
+    out = tmp_path / "regen_bdpt.png"
+    before = bd.counters["regen_bdpt_walks"]
+    assert cli.main([str(regen_bdpt), "--device", "cpu", "--samples", "1", "--output", str(out)]) == 0
+    assert bd.counters["regen_bdpt_walks"] > before
+    with Image.open(out) as img:
+        assert img.size == (64, 32) and np.asarray(img).max() > 0
 
 
 def test_cli_never_moves_to_the_cpu_on_its_own(paths):
