@@ -99,6 +99,17 @@ and exits non-zero on any failure:
    time and bound (time_photon), and a CLI render of each with the counts
    zeroed just before it (render_photon), printing its maps' cell occupancy.
 
+8. multi-device on one card (multi_device_step): two ranks share cuda:0
+   over gloo through parallel.spawn and cli.render_ranks (the CLI's
+   --multi-device path but for its device count and backend) and render
+   the flagship at 4 spp through regeneration and one-shot,
+   flagship_bdpt_deep at 4 spp through regen BDPT and flagship_photon at 2
+   spp; each merged film against the one-process film of the same render
+   (wt equal for the simple renderer, else within rtol 1e-6; acc within
+   rtol 1e-4), every rank's kernel launches positive and its plain counts
+   zero, its wall and peak memory and the merges' bytes and ms a call (not
+   a scaling figure: both ranks on one card, the merge through the host).
+
 The rest of the scene gate (gate_paths: directional lamps, S = 24, 32 and
 64, 300 materials through the baked colour table, 150 lamps and 130
 planes, an 82-instruction program at stack depth 12, 130 DE shapes) runs
@@ -124,6 +135,10 @@ in one call (a checkout whose gate refuses materials_300, or that has no
 renderers.photon, stops at measure_bank). ``--prog`` runs the measurements of the kProg
 instantiations, with builds of csrc/bounce.cu that each remove or move one
 cost (measure_prog).
+``python3 chip_smoke.py --multi`` runs phase 8 alone, then cards_probe on
+two ranks sharing cuda:0; ``--cards``, on a machine with several cards, the
+same with one rank a card over NCCL and more samples, then the CLI's
+``--multi-device`` (multi_card_step) and cards_probe over the cards.
 ``python3 chip_smoke.py --walls`` instead runs ``--profile``'s flagship
 renders alone (one-shot and regeneration walls); ``--regen`` phase 6's
 regen BDPT step alone (regen_bdpt_step), then ``--profile``'s
@@ -147,6 +162,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2526,17 +2542,21 @@ def _zero_counts():
 
 
 def _read_counts():
-    from pyrite_tpu_torch import kernels, kernels_dense as kd, rng, tracer
-    from pyrite_tpu_torch.renderers import bidirectional as bd, photon as ph, simple
+    from pyrite_tpu_torch import cli
 
-    photon = {k: int(v) for k, v in ph.counters.items()}
+    return _flat_counts(cli._count_tables())
+
+
+def _flat_counts(tables):
+    """One dict of the count tables ``tables`` (cli._count_tables' names:
+    this process's, or a rank's from cli.render_rank)."""
+    photon = {k: int(v) for k, v in tables["photon"].items()}
     photon["photon_camera_bounces"] = photon.pop("camera_bounces")
-    return dict(kd.launches, **kernels.launches, **tracer.launches, **rng.launches, **simple.counters,
-                **{k: int(v) for k, v in bd.counters.items()}, **photon,
-                live_lane_bounces=tracer.lane_bounces["live"],
-                executed_lane_bounces=tracer.lane_bounces["executed"],
-                lamp_live=tracer.lane_bounces["lamp_live"],
-                lamp_executed=tracer.lane_bounces["lamp_executed"])
+    lanes = tables["lane_bounces"]
+    return dict(tables["kernels_dense"], **tables["kernels"], **tables["tracer"], **tables["rng"],
+                **tables["simple"], **{k: int(v) for k, v in tables["bidirectional"].items()},
+                **photon, live_lane_bounces=lanes["live"], executed_lane_bounces=lanes["executed"],
+                lamp_live=lanes["lamp_live"], lamp_executed=lanes["lamp_executed"])
 
 
 class scheduler:
@@ -2774,6 +2794,26 @@ def drive_march(path, card, seed=2):
 # --- the bidirectional renderer (phases 3-5) -------------------------------------
 
 
+def _bdpt_text(text, bounces, light_bounces):
+    """A simple project's text as renderer.bidirectional at ``bounces`` +
+    ``light_bounces``."""
+    return text.replace("renderer.simple", "renderer.bidirectional").replace(
+        f"bounces = {bounces},", f"bounces = {bounces}, light_bounces = {light_bounces},", 1)
+
+
+def write_flagship_bdpt(directory, name, bounces, light_bounces, width=512, height=256):
+    """__graft_entry__._SCENE_SRC with renderer.bidirectional at S = 6 and
+    ``bounces`` + ``light_bounces``, as ``directory/name.lua``."""
+    sys.path.insert(0, ROOT)
+    from __graft_entry__ import _SCENE_SRC
+
+    path = os.path.join(directory, name + ".lua")
+    with open(path, "w") as fh:
+        fh.write(_bdpt_text(_SCENE_SRC % {"w": width, "h": height, "s": 6, "b": bounces}, bounces,
+                            light_bounces))
+    return path
+
+
 def bdpt_scene_paths(directory, spp=4, small=False):
     """The bidirectional renderer's scenes on the card: cornell_class
     (write_cornell_scene at the reference workload's settings),
@@ -2792,35 +2832,28 @@ def bdpt_scene_paths(directory, spp=4, small=False):
     terrain_24_bdpt (1,152 triangles) for terrain_405_bdpt, for quick
     checks. Returns {name: .lua path}."""
     sys.path.insert(0, ROOT)
-    from __graft_entry__ import _SCENE_SRC
     from tools.synthetic import terrain_scene
-
-    def bdpt(text, bounces, light_bounces):
-        return text.replace("renderer.simple", "renderer.bidirectional").replace(
-            f"bounces = {bounces},", f"bounces = {bounces}, light_bounces = {light_bounces},", 1)
 
     size = (64, 64, 128, 64, 24) if small else (512, 512, 512, 256, 405)
     out = {"cornell_class": write_cornell_scene(directory, *size[:2], spp=spp)}
     for name, b, lb in (("flagship_bdpt", 8, 8), ("flagship_bdpt_24", 8, 24),
                         ("flagship_bdpt_deep", 16, 8), ("flagship_bdpt_64", 64, 8),
                         ("flagship_bdpt_256", 256, 8)):
-        out[name] = os.path.join(directory, name + ".lua")
-        with open(out[name], "w") as fh:
-            fh.write(bdpt(_SCENE_SRC % {"w": size[2], "h": size[3], "s": 6, "b": b}, b, lb))
+        out[name] = write_flagship_bdpt(directory, name, b, lb, *size[2:4])
     cells = size[4]
     terrain = terrain_scene(directory, cells=cells, width=size[2] // 2 if small else 256,
                             height=size[3] // 2 if small else 128, spp=spp, bounces=4)[0]
     name = f"terrain_{cells}_bdpt"
     out[name] = os.path.join(directory, name + ".lua")
     with open(terrain) as fh, open(out[name], "w") as dst:
-        dst.write(bdpt(fh.read(), 4, 4))
+        dst.write(_bdpt_text(fh.read(), 4, 4))
     # a directory of its own: write_terrain_de_scene writes terrain_24.lua
     mixed_dir = os.path.join(directory, "terrain_de_bdpt")
     os.makedirs(mixed_dir, exist_ok=True)
     mixed = write_terrain_de_scene(mixed_dir, width=size[2] // 2, height=size[3] // 2, spp=spp)
     out["terrain_de_24_bdpt"] = os.path.join(mixed_dir, "terrain_de_24_bdpt.lua")
     with open(mixed) as fh, open(out["terrain_de_24_bdpt"], "w") as dst:
-        dst.write(bdpt(fh.read(), 4, 4))
+        dst.write(_bdpt_text(fh.read(), 4, 4))
     return out
 
 
@@ -4010,6 +4043,244 @@ def time_record(path, card, seed=1):
     return (k1 + k2) / 2
 
 
+# --- phase 8: multi-device on one card --------------------------------------------
+
+# Its tolerances: a merged film against the one-process film of the same
+# render. The simple renderer's weights are ones, so wt must be equal (phase
+# 5's rule); the bidirectional and photon weights are not, so wt within
+# rtol 1e-6 (check_regen_bdpt's rule); acc within rtol 1e-4 (/ atol 1e-6).
+MULTI_RTOL = 1e-4
+
+
+def multi_device_step(flagship, bdpt_deep, flagship_photon, card, out_dir, devices=None,
+                      backend="gloo", spp=(4, 4, 4, 2)):
+    """Phase 8: two ranks share cuda:0 over gloo (``devices`` None;
+    parallel.spawn with cli.render_ranks, the CLI's sharded path but for its
+    device count and backend: NCCL refuses two ranks on one card) and
+    render, at phases 5-7's widths, the flagship (512 x 256, S = 6, 8
+    bounces) through regeneration and through one-shot, flagship_bdpt_deep
+    (16 + 8 bounces) through regen BDPT and flagship_photon, at ``spp``
+    samples each (4, 4, 4, 2). Each merged film is held to the one-process
+    film of the same render on this process (MULTI_RTOL); every rank must
+    have launched each render's kernels (bounce or <record>, NEE, draws;
+    lamp and shadow for BDPT; lamp and gather for photon) and no plain
+    version. A warm-up render, a sample a rank, comes first in each rank
+    and here. Prints the one-process render's wall, each rank's render wall
+    and peak memory and the merges' bytes and ms a call. ``--cards`` runs
+    the same over ``devices`` (one rank a card) with ``backend`` nccl.
+    Returns the ranks' launch counts, one flat dict per rank and render."""
+    import torch
+
+    from pyrite_tpu_torch import cli, kernels_dense as kd, parallel
+    from pyrite_tpu_torch.project import load_project
+    from pyrite_tpu_torch.renderers import bidirectional as bd, photon as ph, simple
+
+    started = time.perf_counter()
+    shared = devices is None
+    devices = ["cuda:0", "cuda:0"] if shared else devices
+    how = (f"{len(devices)} ranks sharing one card, {backend} through the host over PCIe: not a "
+           f"scaling figure" if shared else f"{len(devices)} ranks, one a card, {backend}")
+    one_shot = {"PYRITE_TPU_REGEN": "0"}
+    renders = [("flagship regen", flagship, spp[0], None, simple),
+               ("flagship one-shot", flagship, spp[1], one_shot, simple),
+               ("flagship_bdpt_deep regen", bdpt_deep, spp[2], None, bd),
+               ("flagship_photon", flagship_photon, spp[3], None, ph)]
+    jobs = [dict(argv=[path, "--samples", str(n), "--output",
+                       os.path.join(out_dir, f"multi_{i}.png")], env=env)
+            for i, (_, path, n, env, _) in enumerate(renders)]
+    # first a one-shot render of the flagship, one sample a rank (with
+    # fewer, rank_share leaves the first ranks without work): a process's
+    # first render also pays its CUDA start (module loads, the allocator's
+    # first blocks, the first CUDA all-reduce), which the timed renders
+    # must not
+    warm = dict(argv=[flagship, "--samples", str(len(devices)), "--output",
+                      os.path.join(out_dir, "multi_w.png")], env=one_shot)
+    spawned = time.perf_counter()
+    ranks = parallel.spawn(cli.render_ranks, devices, backend, args=([warm] + jobs,), timeout=600)
+    world_s = time.perf_counter() - spawned
+    firsts = ", ".join(f"{rank[0]['seconds']:.4f}" for rank in ranks)
+    print(f"[multi] each rank's first render (the flagship one-shot, a sample a rank, with the "
+          f"process's CUDA start): {firsts} s ({how}) ({card})")
+    ranks = [rank[1:] for rank in ranks]
+
+    def one_process(path, n, env, renderer):
+        saved = os.environ.get("PYRITE_TPU_REGEN")
+        os.environ.update(env or {})
+        try:
+            _zero_counts()
+            torch.cuda.synchronize()
+            began = time.perf_counter()
+            _, acc, wt = renderer.render(load_project(path), _gpu_scene(path)[0], seed=0, max_samples=n)
+            torch.cuda.synchronize()
+            return acc, wt, time.perf_counter() - began
+        finally:
+            if saved is None:
+                os.environ.pop("PYRITE_TPU_REGEN", None)
+            else:
+                os.environ["PYRITE_TPU_REGEN"] = saved
+
+    one_process(flagship, 1, one_shot, simple)  # this process's warm-up
+    runs = []
+    for i, (name, path, n, env, renderer) in enumerate(renders):
+        scene = _gpu_scene(path)[0]
+        acc, wt, wall = one_process(path, n, env, renderer)
+        one = _read_counts()
+        got = ranks[0][i]
+        acc_m, wt_m = got["acc"].to(acc.device), got["wt"].to(wt.device)
+        rel = lambda a, b: float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())  # noqa: E731
+        bad = int((wt_m != wt).sum())
+        print(f"[multi] {name}, {n} spp: merged film against one process: wt differs in {bad} of "
+              f"{wt.numel()} bins (max rel {rel(wt_m, wt):.3e}, total {float(wt_m.sum()):.1f} "
+              f"against {float(wt.sum()):.1f}), acc max rel {rel(acc_m, acc):.3e}, max abs "
+              f"{float((acc_m - acc).abs().max()):.3e}; one process's render wall {wall:.4f} s "
+              f"({card})")
+        assert float(wt.sum()) > 0 and bool(torch.isfinite(acc_m).all())
+        if renderer is simple:
+            assert bad == 0, f"{name}: the merged film's wt differs from one process's"
+            torch.testing.assert_close(acc_m, acc, rtol=MULTI_RTOL, atol=0.0)
+        else:
+            torch.testing.assert_close(wt_m, wt, rtol=1e-6, atol=0.0)
+            torch.testing.assert_close(acc_m, acc, rtol=MULTI_RTOL, atol=1e-6)
+        bounce_k, nee_k = kd.kernel_names(scene)
+        record_k = kd._named(scene, "dense_bounce_kernel<record>")
+        per_call = []
+        for rank in ranks:
+            result = rank[i]
+            c = _flat_counts(result["counts"])
+            for k in ("bounce_core", "lamp_start", "lamp_bounce_step", "intersect_shadow"):
+                assert c[k] == 0, (name, result["rank"], k, c)
+            assert c["philox_draws_kernel"] > 0 and c[nee_k] > 0, (name, result["rank"], c)
+            if renderer is simple:
+                assert c[bounce_k] == c[nee_k] == c["bounces"] > 0, (name, result["rank"], c)
+                assert (c["regen_launches"] > 0) == (env is None), (name, result["rank"], c)
+            else:
+                assert c[record_k] > 0 and c[kd._lamp_name(scene)] > 0, (name, result["rank"], c)
+            if renderer is bd:
+                assert c["regen_bdpt_walks"] > 0 and c["dense_shadow_kernel"] > 0, c
+            if renderer is ph:
+                assert c["photon_gather_kernel"] == c["gathers"] > 0, (name, result["rank"], c)
+            merges = result["counts"]["merges"]
+            per_call.append(merges["seconds"] * 1e3 / max(merges["calls"], 1))
+            print(f"[multi] {name}, rank {result['rank']}: render wall {result['seconds']:.4f} s, "
+                  f"peak memory {result['peak'] / 2**20:.1f} MiB; {merges['calls']} film merges of "
+                  f"{merges['bytes'] // max(merges['calls'], 1)} B, {per_call[-1]:.2f} ms a call "
+                  f"with the wait for the other ranks; bounce launches "
+                  f"{c['bounces'] + c['camera_bounces'] + c['photon_camera_bounces']} (one process "
+                  f"{one['bounces'] + one['camera_bounces'] + one['photon_camera_bounces']}) ({card})")
+            runs.append(c)
+        print(f"[multi] {name}: a merge takes {min(per_call):.2f} ms (the rank that waited least; "
+              f"{how}) ({card})")
+    print(f"[phase] multi-device (phase 8, {how}): {time.perf_counter() - started:.1f} s, the "
+          f"world's spawn to its end {world_s:.1f} s")
+    return runs
+
+
+def multi_card_step(card, out_dir):
+    """``--cards``, on a machine with several cards: multi_device_step over
+    every card, one rank a card over NCCL, at 64, 64, 16 and 8 spp, then the
+    CLI itself (``python -m pyrite_tpu_torch flagship.lua --multi-device``,
+    which spawns one rank a card over NCCL) on the flagship at 16 spp: exit
+    0 and a PNG of the film's size; then cards_probe."""
+    import torch
+    from PIL import Image
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        raise SystemExit(f"chip_smoke --cards: torch counts {count} CUDA device(s), not several")
+    flagship = scene_paths(out_dir, width=512, height=256, spectrum_samples=6, bounces=8)["flagship"]
+    multi_device_step(flagship, write_flagship_bdpt(out_dir, "flagship_bdpt_deep", 16, 8),
+                      photon_scene_paths(os.path.join(out_dir, "photon"))["flagship_photon"],
+                      card, out_dir, devices=[f"cuda:{i}" for i in range(count)], backend="nccl",
+                      spp=(64, 64, 16, 8))
+    png = os.path.join(out_dir, "cli_multi.png")
+    started = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "pyrite_tpu_torch", flagship, "--multi-device",
+                           "--samples", "16", "--output", png], cwd=ROOT, capture_output=True,
+                          text=True, timeout=600)
+    tail = [line for line in done.stdout.splitlines() if line.startswith(("Rendering:", "Output"))]
+    print(f"[multi] the CLI with --multi-device over {count} cards: exit {done.returncode} in "
+          f"{time.perf_counter() - started:.1f} s; {tail} ({card})")
+    assert done.returncode == 0, done.stderr[-4000:]
+    with Image.open(png) as img:
+        assert img.size == (512, 256), img.size
+    cards_probe(flagship, card, out_dir, os.path.join(out_dir, "trace"),
+                [f"cuda:{i}" for i in range(count)], "nccl")
+
+
+def cards_probe(flagship, card, out_dir, trace_dir, devices, backend):
+    """``--cards`` and ``--multi``: where a regeneration rank's wall goes.
+    The flagship at 64 spp through regeneration in worlds of one rank
+    (devices[0]), of two and of all ``devices`` over ``backend``, with
+    NCCL_P2P_DISABLE=1 in the ranks too under nccl; then one rank and all
+    with a torch.profiler trace a rank written into ``trace_dir``,
+    summarised (_print_trace_summary) and deleted. Prints the host's CPUs
+    and each world's rank walls, regen iterations and seconds in merges."""
+    import torch
+
+    from pyrite_tpu_torch import cli, parallel
+
+    count = len(devices)
+    print(f"[cards-probe] host: {os.cpu_count()} CPUs, {len(os.sched_getaffinity(0))} in this "
+          f"process's affinity, torch {torch.get_num_threads()} threads; ranks on {devices} over "
+          f"{backend} ({card})")
+    png = os.path.join(out_dir, "probe.png")
+    worlds = [("1 rank", devices[:1], {}, [])]
+    worlds += [("2 ranks", devices[:2], {}, [])] if count > 2 else []
+    worlds += [(f"{count} ranks", devices, {}, [])]
+    worlds += ([(f"{count} ranks, NCCL_P2P_DISABLE=1", devices, {"NCCL_P2P_DISABLE": "1"}, [])]
+               if backend == "nccl" else [])
+    worlds += [("1 rank, profiled", devices[:1], {}, ["--profile", trace_dir]),
+               (f"{count} ranks, profiled", devices, {}, ["--profile", trace_dir])]
+    for label, world, env, extra in worlds:
+        job = dict(argv=[flagship, "--samples", "64", "--output", png, *extra])
+        # a sample a rank first, so that every rank has paid its CUDA start
+        warm = dict(argv=[flagship, "--samples", str(len(world)), "--output", png],
+                    env={"PYRITE_TPU_REGEN": "0"})
+        saved = {k: os.environ.get(k) for k in env}
+        os.environ.update(env)  # the ranks inherit this process's environment
+        try:
+            ranks = parallel.spawn(cli.render_ranks, world, backend, args=([warm, job],),
+                                   timeout=600)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        walls = ", ".join(f"{rank[1]['seconds']:.4f}" for rank in ranks)
+        iters = ", ".join(str(rank[1]["counts"]["simple"]["regen_iterations"]) for rank in ranks)
+        merges = ", ".join(f"{rank[1]['counts']['merges']['seconds']:.4f}" for rank in ranks)
+        print(f"[cards-probe] flagship regen 64 spp, {label}: rank render walls {walls} s; regen "
+              f"iterations {iters}; seconds in merges {merges} ({card})")
+        if extra:
+            for name in sorted(os.listdir(trace_dir)):
+                _print_trace_summary(os.path.join(trace_dir, name), label, card)
+            shutil.rmtree(trace_dir)
+
+
+def _print_trace_summary(path, label, card, top=12):
+    """A Chrome trace's (torch.profiler's) time by category and its
+    longest CUDA runtime calls, kernels and CPU ops by total duration."""
+    with open(path) as fh:
+        events = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    span = (max(e["ts"] + e.get("dur", 0) for e in events) - min(e["ts"] for e in events)) / 1e3
+    by_cat, by_name = {}, {}
+    for e in events:
+        cat, dur = e.get("cat", "?"), e.get("dur", 0) / 1e3
+        by_cat[cat] = by_cat.get(cat, 0.0) + dur
+        key = (cat, e["name"][:48])
+        total, calls = by_name.get(key, (0.0, 0))
+        by_name[key] = (total + dur, calls + 1)
+    cats = ", ".join(f"{c} {v:.1f}" for c, v in sorted(by_cat.items(), key=lambda kv: -kv[1]))
+    print(f"[cards-probe] {label}, {os.path.basename(path)}: span {span:.1f} ms; ms by category: "
+          f"{cats} ({card})")
+    for cat in ("cuda_runtime", "cuda_driver", "kernel", "gpu_memcpy", "user_annotation", "cpu_op"):
+        rows = sorted(((k[1], v) for k, v in by_name.items() if k[0] == cat), key=lambda kv: -kv[1][0])
+        if rows:
+            print(f"[cards-probe]   {cat}: " + "; ".join(
+                f"{name} {total:.1f} ms / {calls}" for name, (total, calls) in rows[:top]))
+
+
 def _gpu_info():
     """(torch's device name, nvidia-smi's "name, power.limit" line, max SM
     clock in MHz)."""
@@ -4347,7 +4618,6 @@ def build_variants(tmp):
     variant none of whose edits applies to this checkout is skipped."""
     import ctypes
     import glob
-    import shutil
 
     from pyrite_tpu_torch import _build
 
@@ -4580,8 +4850,6 @@ def main(argv=None):
           f"{clock:.0f} MHz")
     print(smi)
 
-    import shutil
-
     from pyrite_tpu_torch import _build
 
     if not argv:  # the main run builds from clean; a mode reuses a build of the same sources
@@ -4606,6 +4874,18 @@ def main(argv=None):
             regen_bdpt_step(bdpt_scene_paths(tmp, spp=2), write_cornell_scene(small, 64, 64, spp=2),
                             smi, tmp)
         profile_bdpt(smi, only=("flagship_bdpt_deep", "flagship_bdpt_64", "flagship_bdpt_256"))
+        return 0
+    if argv == ["--multi"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            flagship = scene_paths(tmp, width=512, height=256, spectrum_samples=6, bounces=8)["flagship"]
+            multi_device_step(flagship, write_flagship_bdpt(tmp, "flagship_bdpt_deep", 16, 8),
+                              photon_scene_paths(os.path.join(tmp, "photon"))["flagship_photon"],
+                              smi, tmp)
+            cards_probe(flagship, smi, tmp, os.path.join(tmp, "trace"), ["cuda:0", "cuda:0"], "gloo")
+        return 0
+    if argv == ["--cards"]:
+        with tempfile.TemporaryDirectory() as tmp:
+            multi_card_step(smi, tmp)
         return 0
     if argv == ["--prog"]:
         measure_prog(smi)
@@ -4718,6 +4998,8 @@ def main(argv=None):
         photon_runs = [render_photon(photon[name], 1, smi, tmp)[0] for name in (
             "flagship_photon", "textures_photon")]
         print(f"[phase] the photon renderer (phase 7): {time.perf_counter() - photon_started:.1f} s")
+        multi_runs = multi_device_step(paths["flagship"], bdpt["flagship_bdpt_deep"],
+                                       photon["flagship_photon"], smi, tmp)
 
     def kernel(name, source, replaces, launches, err):
         ms, plain_ms, size, ops = times[name]
@@ -4731,8 +5013,11 @@ def main(argv=None):
 
     # launches of the main paths: the simple renderer's, then the
     # bidirectional renderer's (bdpt_runs), then those of the textures
-    # scenes (tex_runs, tex_bdpt_run)
-    dense_total = lambda key: sum(run[key] for run in dense_runs + de_runs + gate_runs)
+    # scenes (tex_runs, tex_bdpt_run); phase 8's ranks (multi_runs) count
+    # in dense_total and, for the kernels only BDPT and photon run, in
+    # multi_total
+    dense_total = lambda key: sum(run[key] for run in dense_runs + de_runs + gate_runs + multi_runs)
+    multi_total = lambda *keys: sum(run[k] for run in multi_runs for k in keys)
     tex_total = lambda key: sum(run[key] for run in tex_runs + [tex_bdpt_run] + gate_runs
                                 + photon_runs)
     tex_err = lambda w: max(w["bounce"], w["brightness"])
@@ -4772,22 +5057,24 @@ def main(argv=None):
                max(w["nee"] for w in checked_wide)),
         kernel("philox_draws_kernel", "draws.cu", "pyrite_tpu/tracer.py:1069",
                sum(run["philox_draws_kernel"] for run in rendered + bdpt_runs + gate_bdpt_runs
-                   + photon_runs),
+                   + photon_runs + multi_runs),
                max(drawn.values())),
         # the bidirectional renderer's kernels port no TPU kernel (the JAX
         # package runs these steps in XLA); timed on cornell_class
         dict(kernel("dense_bounce_kernel<record>", "bounce.cu", None,
-                    bdpt_total("dense_bounce_kernel<record>", "wide_bounce_kernel<record>"),
+                    bdpt_total("dense_bounce_kernel<record>", "wide_bounce_kernel<record>")
+                    + multi_total("dense_bounce_kernel<record>"),
                     max(max(max(w["record"], w["brightness"]) for w in bdpt_worst + [regen_checked]),
                         max(c["worst"]["record"] for c in photon_checked.values()))),
              name="dense_bounce_kernel<record>, wide_bounce_kernel<record>",
              replaces="none: XLA, pyrite_tpu/tracer.py:1585 bounce_core's info"),
         dict(kernel("dense_lamp_kernel", "bounce.cu", None,
-                    bdpt_total("dense_lamp_kernel", "wide_lamp_kernel"),
+                    bdpt_total("dense_lamp_kernel", "wide_lamp_kernel") + multi_total("dense_lamp_kernel"),
                     max(w["lamp"] for w in bdpt_worst)),
              name="dense_lamp_kernel, wide_lamp_kernel",
              replaces="none: XLA, pyrite_tpu/tracer.py:1953 lamp_bounce_step"),
-        dict(kernel("dense_shadow_kernel", "bounce.cu", None, bdpt_total("dense_shadow_kernel"), 0.0),
+        dict(kernel("dense_shadow_kernel", "bounce.cu", None,
+                    bdpt_total("dense_shadow_kernel") + multi_total("dense_shadow_kernel"), 0.0),
              replaces="none: XLA, pyrite_tpu/tracer.py:432 intersect_shadow"),
         # the kProg instantiations: the textures scenes' programs per lane
         kernel("dense_bounce_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels_dense.py:717",
@@ -4814,7 +5101,7 @@ def main(argv=None):
              replaces="none: XLA, pyrite_tpu/renderers/bidirectional.py:73 _lamp_path_factors"),
         # the photon renderer's gather ports no TPU kernel either
         dict(kernel("photon_gather_kernel", "photon.cu", None,
-                    sum(run["photon_gather_kernel"] for run in photon_runs),
+                    sum(run["photon_gather_kernel"] for run in photon_runs + multi_runs),
                     max(c["worst"]["gather"] for c in photon_checked.values())),
              replaces="none: XLA, pyrite_tpu/renderers/photon.py:310 _gather"),
     ]

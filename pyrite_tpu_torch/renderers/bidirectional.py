@@ -31,16 +31,21 @@ and sample, so a render does not depend on its rows per chunk and a resumed
 render equals the straight one.
 
 At REGEN_BDPT_MIN_BOUNCES camera bounces or more with path regeneration on,
-render takes the camera-regeneration scheduler (``_render_regen``, the JAX
-package's _render_regen_bdpt): per launch of up to REGEN_BDPT_SPP_CHUNK
+render takes the camera-regeneration scheduler (``make_regen_launch``, the
+JAX package's _render_regen_bdpt): per launch of up to REGEN_BDPT_SPP_CHUNK
 samples one lamp round per sample, then one camera walk whose lanes each own
 a pixel and regenerate a finished sample in place, sample k of a launch
 against round k.
 
+``render_sharded`` renders on one rank of a parallel.mesh: one-shot, a
+sample a rank a round; regen, a launch a rank a round (the JAX package's
+_render_regen_bdpt_sharded without its splat scales and k_new ladder,
+since every rank takes whole launches).
+
 Not ported: the deferred connections and ragged packing, the staged and
-merged-traversal camera walks, the sharded render (ROADMAP.md queue 1), and
-the JAX package's TPU switches (its crash-bisect environment knobs, the
-splat shadow cap and chunk ladders, the sweep-kernel block).
+merged-traversal camera walks, and the JAX package's TPU switches (its
+crash-bisect environment knobs, the splat shadow cap and chunk ladders, the
+sweep-kernel block).
 """
 
 from __future__ import annotations
@@ -52,6 +57,7 @@ import torch
 
 from .. import kernels_dense, tracer
 from ..film import Film, bin_lane_sums, expose_lanes, expose_sums
+from ..parallel.mesh import device_film_buffers, local_mesh, run_sharded
 from ..rng import KeyedDraws, LaneKeys, camera_uniforms, lane_draws, splat_draws
 from ..scene import CameraModel, Scene, camera_inverse_project
 from ..tracer import DIST_EPSILON, TraceConfig, initial_state, trace_lamp_path
@@ -673,25 +679,24 @@ def _lamp_rounds(lamp_step, film, s, seed, first, take, row0, n, batched, dev):
         yield trace(KeyedDraws(seed, sample0=first + k))
 
 
-def _render_regen(scene, film, camera, cfg, light_bounces, rows, acc, wt, seed, start, total,
-                  on_progress):
-    """Host loop of the regen scheduler (the JAX package's
-    _render_regen_bdpt): launches of up to REGEN_BDPT_SPP_CHUNK samples;
-    per launch and chunk of rows the lamp rounds (_lamp_rounds: batched
-    where a chunk's rounds fit _STEP_BYTES at full capacity and the lamp
-    budget is at most 15 bounces, as the JAX package's lamp_step_all),
-    each round's splats in a splat film of its own added after it (the
-    one-shot renderer's per-sample order; with several chunks a sample's
-    splats are added chunk by chunk), the rounds stacked under
-    _CONN_STACK_BYTES, each stack walked by make_regen_walk."""
+def make_regen_launch(scene, film, camera, cfg, light_bounces, rows, seed):
+    """One launch of the regen scheduler (the JAX package's
+    _render_regen_bdpt): launch(acc, wt, first, take) renders samples first
+    .. first + take - 1 (take <= REGEN_BDPT_SPP_CHUNK) into the film. Per
+    chunk of rows the lamp rounds (_lamp_rounds: batched where a chunk's
+    rounds fit _STEP_BYTES at full capacity and the lamp budget is at most
+    15 bounces, as the JAX package's lamp_step_all), each round's splats in
+    a splat film of its own added after it (the one-shot renderer's
+    per-sample order; with several chunks a sample's splats are added chunk
+    by chunk), the rounds stacked under _CONN_STACK_BYTES, each stack
+    walked by make_regen_walk."""
     lamp_step, _ = make_render_step(scene, film, camera, cfg, light_bounces, rows, two_phase=True)
     walk = make_regen_walk(scene, film, camera, cfg, rows, seed)
     n = rows * film.width
     s = cfg.spectrum_samples
     splat = film.new_buffers(scene.device)
-    done = start
-    while done < total:
-        take = min(REGEN_BDPT_SPP_CHUNK, total - done)
+
+    def launch(acc, wt, done, take):
         batched = (light_bounces + 1 <= 16 and n * take * _slot_bytes(light_bounces, s)
                    <= _STEP_BYTES - scene.texture_bytes)
         for row0 in range(0, film.height, rows):
@@ -713,12 +718,50 @@ def _render_regen(scene, film, camera, cfg, light_bounces, rows, acc, wt, seed, 
                 wls.append(wl)
                 stacked += cost
             acc, wt = walk(acc, wt, *stack_rounds(conns, wls, light_bounces), row0, first)
-        done += take
         counters["regen_bdpt_launches"] += 1
-        if on_progress is not None:
-            on_progress(RenderProgress(sample=done, total=total, acc=acc, wt=wt, film=film,
-                                       lane_samples=_uniform_lanes(film, done)))
-    return film, acc, wt
+        return acc, wt
+
+    return launch
+
+
+def make_sample_step(scene, film, camera, cfg, light_bounces, rows, seed):
+    """The one-shot scheduler's samples: step(acc, wt, first, count)
+    renders samples first .. first + count - 1 one after the other, each
+    chunk of rows through the fused step while light_bounces + 1 <= 16,
+    else the two-phase step whose host reads each chunk's connectable count
+    and compacts the lamp slots to the next power of two (at least 4), so
+    that a handful of capacities recur. Each sample's splats are gathered in
+    a film of their own and added after its last chunk."""
+    slots = light_bounces + 1
+    two_phase = slots > 16
+    if two_phase:
+        lamp_step, cam_step = make_render_step(
+            scene, film, camera, cfg, light_bounces, rows, two_phase=True)
+    else:
+        fused = make_render_step(scene, film, camera, cfg, light_bounces, rows)
+    splat = film.new_buffers(scene.device)
+
+    def step(acc, wt, first, count):
+        for i in range(first, first + count):
+            draws = KeyedDraws(seed, sample0=i, samples=1)
+            for buf in splat:
+                buf.zero_()
+            for row0 in range(0, film.height, rows):
+                if two_phase:
+                    conn, connectable, prepared = lamp_step(draws, row0)
+                    k_new = 4
+                    while k_new < int(connectable) and k_new < slots:
+                        k_new *= 2
+                    conn = _compact_connections(conn, min(k_new, slots))
+                    counters["compactions"] += 1
+                    acc, wt = cam_step(acc, wt, draws, conn, row0, prepared, splat)
+                else:
+                    acc, wt = fused(acc, wt, draws, row0, splat)
+            acc += splat[0]
+            wt += splat[1]
+        return acc, wt
+
+    return step
 
 
 def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samples=None,
@@ -728,15 +771,25 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
 
     Dispatch as the JAX package's _render (its bidirectional.py:2072-2151):
     at REGEN_BDPT_MIN_BOUNCES camera bounces or more with path
-    regeneration on, the regen scheduler (_render_regen); else the fused
-    step while light_bounces + 1 <= 16, else the two-phase step whose host
-    reads each chunk's connectable count and compacts the lamp slots to the
-    next power of two (at least 4), so that a handful of capacities recur.
-    ``resume`` (a checkpoint) starts from its film at its samples_done; the
-    draws are keyed by the global sample, so the resumed render equals the
-    straight one. Each sample's splats are gathered in a film of their own
-    and added after its last chunk, so the film does not depend on the rows
-    per chunk (pick_rows_per_chunk)."""
+    regeneration on, the regen scheduler (make_regen_launch, launches of
+    up to REGEN_BDPT_SPP_CHUNK samples); else the one-shot samples
+    (make_sample_step). ``resume`` (a checkpoint) starts from its film at
+    its samples_done; the draws are keyed by the global sample, so the
+    resumed render equals the straight one. Each sample's splats are
+    gathered in a film of their own and added after its last chunk, so the
+    film does not depend on the rows per chunk (pick_rows_per_chunk)."""
+    return render_sharded(project_data, scene, local_mesh(scene.device), seed=seed,
+                          on_progress=on_progress, max_samples=max_samples, resume=resume)
+
+
+def render_sharded(project_data, scene: Scene, mesh, seed: int = 0, on_progress=None,
+                   max_samples=None, resume=None):
+    """render on one rank of ``mesh`` (parallel.mesh), the scene built on
+    its device: through run_sharded, one sample a rank a round under the
+    one-shot scheduler, one launch of up to REGEN_BDPT_SPP_CHUNK samples a
+    rank a round under regen. Every rank returns the merged film; with
+    ``on_progress`` the films are merged after every round and rank 0 alone
+    reports."""
     project = project_data.project
     settings = project.renderer
     film = Film(width=project.image.width, height=project.image.height,
@@ -747,42 +800,16 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
     light_bounces = settings.light_bounces
     rows = pick_rows_per_chunk(film, light_bounces, cfg.spectrum_samples, scene.texture_bytes,
                                lane_bytes=camera_lane_bytes(scene, cfg.spectrum_samples))
-    acc, wt = film.new_buffers(scene.device)
-    if resume is not None:
-        acc.copy_(torch.as_tensor(resume["acc"], dtype=torch.float32).view(acc.shape))
-        wt.copy_(torch.as_tensor(resume["wt"], dtype=torch.float32).view(wt.shape))
+    acc, wt = device_film_buffers(film, mesh, resume)
     start = _uniform_start(resume, film)
     total = settings.pixel_samples if max_samples is None else min(settings.pixel_samples,
                                                                    max_samples)
     if cfg.bounces >= REGEN_BDPT_MIN_BOUNCES and regen_enabled():
-        return _render_regen(scene, film, camera, cfg, light_bounces, rows, acc, wt, seed, start,
-                             total, on_progress)
-    slots = light_bounces + 1
-    two_phase = slots > 16
-    if two_phase:
-        lamp_step, cam_step = make_render_step(
-            scene, film, camera, cfg, light_bounces, rows, two_phase=True)
+        step = make_regen_launch(scene, film, camera, cfg, light_bounces, rows, seed)
+        per_rank = REGEN_BDPT_SPP_CHUNK
     else:
-        step = make_render_step(scene, film, camera, cfg, light_bounces, rows)
-    splat = film.new_buffers(scene.device)
-    for i in range(start, total):
-        draws = KeyedDraws(seed, sample0=i, samples=1)
-        for buf in splat:
-            buf.zero_()
-        for row0 in range(0, film.height, rows):
-            if two_phase:
-                conn, count, prepared = lamp_step(draws, row0)
-                k_new = 4
-                while k_new < int(count) and k_new < slots:
-                    k_new *= 2
-                conn = _compact_connections(conn, min(k_new, slots))
-                counters["compactions"] += 1
-                acc, wt = cam_step(acc, wt, draws, conn, row0, prepared, splat)
-            else:
-                acc, wt = step(acc, wt, draws, row0, splat)
-        acc += splat[0]
-        wt += splat[1]
-        if on_progress is not None:
-            on_progress(RenderProgress(sample=i + 1, total=total, acc=acc, wt=wt, film=film,
-                                       lane_samples=_uniform_lanes(film, i + 1)))
-    return film, acc, wt
+        step = make_sample_step(scene, film, camera, cfg, light_bounces, rows, seed)
+        per_rank = 1
+    progress = None if on_progress is None else (lambda done, a, w: on_progress(RenderProgress(
+        sample=done, total=total, acc=a, wt=w, film=film, lane_samples=_uniform_lanes(film, done))))
+    return (film, *run_sharded(step, mesh, acc, wt, start, total, per_rank, progress))

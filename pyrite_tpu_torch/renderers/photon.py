@@ -39,7 +39,8 @@ render equals the straight one and the film does not depend on the rows per
 chunk. A chunk of camera rows is gathered against every pass's photon map
 of the sample, which are built first.
 
-Not ported: the sharded render (ROADMAP.md queue 1 item 11).
+``render_sharded`` renders on one rank of a parallel.mesh, a sample a rank a
+round.
 """
 
 from __future__ import annotations
@@ -53,6 +54,7 @@ from .. import geometry as geom
 from .. import kernels_dense, rng, tracer
 from ..exprs import ProgramInputs
 from ..film import Film, expose_lanes, expose_sums
+from ..parallel.mesh import device_film_buffers, local_mesh, run_sharded
 from ..rng import KeyedDraws
 from ..scene import CameraModel, Scene, exact_chain_mode  # noqa: F401 (the JAX package's name)
 from ..tracer import TraceConfig, initial_state, trace_lamp_path
@@ -602,37 +604,49 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
     against each map in pass order. ``resume`` (a checkpoint) starts from
     its film at its samples_done; the draws are keyed by the global sample,
     so the resumed render equals the straight one."""
+    return render_sharded(project_data, scene, local_mesh(scene.device), seed=seed,
+                          on_progress=on_progress, max_samples=max_samples, resume=resume)
+
+
+def render_sharded(project_data, scene: Scene, mesh, seed: int = 0, on_progress=None,
+                   max_samples=None, resume=None):
+    """render on one rank of ``mesh`` (parallel.mesh), the scene built on
+    its device: one sample a rank a round (run_sharded), each rank building
+    its own samples' photon maps. Every rank returns the merged film; with
+    ``on_progress`` the films are merged after every round and rank 0 alone
+    reports."""
     settings = project_data.project.renderer
     (film, camera, cfg, photon_cfg, spec, photon_probability, darkness_denom, grid_centers,
      bin_centers) = _build_parts(project_data, scene)
     held = scene.texture_bytes + map_bytes(settings, spec, len(scene.color_programs))
     rows = pick_rows_per_chunk(film, lane_bytes(scene, settings, spec), held)
-    acc, wt = film.new_buffers(scene.device)
-    if resume is not None:
-        acc.copy_(torch.as_tensor(resume["acc"], dtype=torch.float32).view(acc.shape))
-        wt.copy_(torch.as_tensor(resume["wt"], dtype=torch.float32).view(wt.shape))
+    acc, wt = device_film_buffers(film, mesh, resume)
     start = _uniform_start(resume, film)
     total = settings.pixel_samples if max_samples is None else min(settings.pixel_samples,
                                                                    max_samples)
     passes = settings.photon_passes
-    for i in range(start, total):
-        base = i * (1 + passes)
-        photon_draws = [KeyedDraws(seed, sample0=base + 1 + p) for p in range(passes)]
-        maps = [build_map(scene, photon_batch(
-            scene, photon_cfg, d, rng.photon_wavelengths(d, settings.photons, spec.span, scene.device),
-            spec, bin_centers), spec) for d in photon_draws]
-        for row0 in range(0, film.height, rows):
-            acc, wt, vertices, positions, wl_cam = camera_pass(
-                scene, film, camera, cfg, spec, grid_centers, KeyedDraws(seed, sample0=base),
-                row0, rows, acc, wt)
-            n = wl_cam.shape[0]
-            for d, pm in zip(photon_draws, maps):
-                keyed = replace(d, pixel0=row0 * film.width)
-                fresh = lambda bounce, keyed=keyed: rng.fresh_wavelengths(  # noqa: E731
-                    keyed, n, bounce, spec.spectrum_samples, spec.span, scene.device)
-                _gather(scene, film, spec, photon_probability, darkness_denom, vertices, wl_cam,
-                        fresh, pm, acc, wt, positions)
-        if on_progress is not None:
-            on_progress(RenderProgress(sample=i + 1, total=total, acc=acc, wt=wt, film=film,
-                                       lane_samples=_uniform_lanes(film, i + 1)))
-    return film, acc, wt
+
+    def step(acc, wt, first, count):
+        for i in range(first, first + count):
+            base = i * (1 + passes)
+            photon_draws = [KeyedDraws(seed, sample0=base + 1 + p) for p in range(passes)]
+            maps = [build_map(scene, photon_batch(
+                scene, photon_cfg, d,
+                rng.photon_wavelengths(d, settings.photons, spec.span, scene.device), spec,
+                bin_centers), spec) for d in photon_draws]
+            for row0 in range(0, film.height, rows):
+                acc, wt, vertices, positions, wl_cam = camera_pass(
+                    scene, film, camera, cfg, spec, grid_centers, KeyedDraws(seed, sample0=base),
+                    row0, rows, acc, wt)
+                n = wl_cam.shape[0]
+                for d, pm in zip(photon_draws, maps):
+                    keyed = replace(d, pixel0=row0 * film.width)
+                    fresh = lambda bounce, keyed=keyed: rng.fresh_wavelengths(  # noqa: E731
+                        keyed, n, bounce, spec.spectrum_samples, spec.span, scene.device)
+                    _gather(scene, film, spec, photon_probability, darkness_denom, vertices,
+                            wl_cam, fresh, pm, acc, wt, positions)
+        return acc, wt
+
+    progress = None if on_progress is None else (lambda done, a, w: on_progress(RenderProgress(
+        sample=done, total=total, acc=a, wt=w, film=film, lane_samples=_uniform_lanes(film, done))))
+    return (film, *run_sharded(step, mesh, acc, wt, start, total, 1, progress))

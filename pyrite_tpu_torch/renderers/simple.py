@@ -1,13 +1,14 @@
 """The "simple" renderer: camera paths with next-event estimation (PyTorch
 port of pyrite_tpu.renderers.simple) and its three schedulers.
 
-``render`` picks the scheduler as the JAX package does (its simple.py:
-928-947): path regeneration (``_render_regen``) for every dense, DE and mesh
-scene unless switched off (``regen_enabled``, ``regen_clusters_enabled``);
-with it off, the survivor pool (``_render_pooled``) at POOL_MIN_BOUNCES
-bounces or more; else the one-shot wavefront (``make_render_step``), which
-traces one stratified sample for every pixel of the film per step, several
-samples per launch when the film is small.
+``render`` (``render_sharded`` on one rank of a parallel.mesh) picks the
+scheduler as the JAX package does (its simple.py: 928-947): path
+regeneration (``_render_regen``) for every dense, DE and mesh scene unless
+switched off (``regen_enabled``, ``regen_clusters_enabled``); with it off,
+the survivor pool (``_render_pooled``) at POOL_MIN_BOUNCES bounces or more;
+else the one-shot wavefront (``make_render_step``), which traces one
+stratified sample for every pixel of the film per step, several samples per
+launch when the film is small.
 
 Sample distribution matches the reference (uniform jitter per pixel,
 stratified wavelengths with a uniformly chosen hero). Random numbers are
@@ -31,6 +32,8 @@ import numpy as np
 import torch
 
 from .. import kernels_dense, tracer
+from ..parallel.mesh import (any_left, device_film_buffers, device_sum, local_mesh, merge_films,
+                             rank_samples, run_sharded)
 from ..film import Film, add_lane_bins, expose_lanes, expose_pixels
 from ..rng import KeyedDraws, LaneKeys, bounce_draws, camera_uniforms, lane_draws
 from ..scene import CameraModel, Scene
@@ -227,7 +230,9 @@ def _run_bounces(scene, cfg, wavelengths, state, keys, depth0, steps):
 # film does not depend on the quotas, the soft tail, the ramp or the
 # iteration at which a launch exits. An extra path a launch drops is traced
 # again, identically, by the next launch. A checkpoint keeps each lane's e
-# (render's resume), so a resumed render draws no key twice.
+# (render's resume), so a resumed render draws no key twice. A sharded
+# render's ranks hold interleaved planes of one virtual wavefront
+# (_render_regen), so ``planes`` above reads as all the ranks' planes.
 
 REGEN_TARGET_LANES = int(os.environ.get("PYRITE_TPU_REGEN_LANES", "524288"))
 REGEN_MAX_PLANES = 8
@@ -274,9 +279,13 @@ class _HostCount:
         return int(self.host) if self.host.dim() == 0 else self.host.tolist()
 
 
-def make_regen_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceConfig, planes=1, seed=0):
+def make_regen_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceConfig, planes=1, seed=0,
+                    ranks=1, rank=0):
     """The path-regeneration launch over the whole film, ``planes`` lanes
-    per pixel (lane l is pixel l % pixels, plane l // pixels).
+    per pixel (lane l is pixel l % pixels, plane l // pixels; on rank
+    ``rank`` of ``ranks`` of a sharded render, whose lanes are planes of one
+    virtual wavefront of ranks x planes, plane j is global plane rank + j x
+    ranks).
 
     step(acc, wt, exposed, spp_lane, tail_count=0) traces until at most
     ``tail_count`` lanes are short of their quota ``spp_lane`` [n], exposes
@@ -293,10 +302,11 @@ def make_regen_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCon
     the short-lane count once an iteration, after queuing the bounce."""
     pix = film.height * film.width
     n = pix * planes
+    planes_total = ranks * planes
     s = cfg.spectrum_samples
     dev = scene.device
     lane = torch.arange(n, dtype=torch.int32, device=dev)
-    pixel, plane = lane % pix, lane // pix
+    pixel, plane = lane % pix, rank + (lane // pix) * ranks
 
     def step(acc, wt, exposed, spp_lane, tail_count=0):
         spp_h = np.asarray(spp_lane)
@@ -325,7 +335,7 @@ def make_regen_step(scene: Scene, film: Film, camera: CameraModel, cfg: TraceCon
             # 2) regenerate every dead lane, even past its quota: its next
             # sample at its pixel, with that sample's key
             reg = ~state["alive"]
-            sample = torch.where(reg, plane + (first + done) * planes, sample)
+            sample = torch.where(reg, plane + (first + done) * planes_total, sample)
             plen = torch.where(reg, 0, plen)
             u, draws = lane_draws(LaneKeys(seed, pixel, sample, plen), s, cfg.light_samples,
                                   scene.num_lamps, reg, dev)
@@ -403,7 +413,7 @@ def adaptive_quotas(rem, rate, spp_target):
 
 
 def _render_regen(scene, film, camera, cfg, acc, wt, seed, resume, total, on_progress,
-                  spp_chunk=None, planes=None):
+                  spp_chunk=None, planes=None, mesh=None):
     """Host driver of the regeneration scheduler: launches until every lane
     has exposed its samples, each lane starting after the samples a
     checkpoint ``resume`` already holds (resume_counts). Quotas are
@@ -411,45 +421,68 @@ def _render_regen(scene, film, camera, cfg, acc, wt, seed, resume, total, on_pro
     each launch exits once <= 1 % of lanes are short of quota (the soft
     tail: the remainders carry into the next launch's quotas); the quota
     ramps up to ``spp_chunk`` over the first launches so that the rates warm
-    and a preview lands early."""
+    and a preview lands early.
+
+    On a ``mesh`` of D ranks (None: this process alone) the ranks' planes
+    are planes of one virtual wavefront of D x planes: rank r owns planes r,
+    r + D, r + 2 D, ..., so the ranks trace disjoint samples of every pixel
+    and share a pixel's samples within one. Their launch counts differ, so
+    they loop in step on the host flag (any_left), a rank with nothing left
+    launching nothing. A progress report's ``lane_samples`` holds all D x
+    planes planes, summed over the ranks on their devices."""
+    mesh = local_mesh(scene.device) if mesh is None else mesh
     if planes is None:
         planes = _regen_planes(film, scene.texture_bytes,
                                lane_bytes=lane_bytes(scene, cfg.spectrum_samples))
     pix = film.height * film.width
     n = pix * planes
-    step = make_regen_step(scene, film, camera, cfg, planes=planes, seed=seed)
+    d, r = mesh.size, mesh.rank
+    planes_total = d * planes
+    step = make_regen_step(scene, film, camera, cfg, planes=planes, seed=seed, ranks=d, rank=r)
     if spp_chunk is None:
         spp_chunk = 64 if (scene.use_clusters or cfg.bounces >= POOL_MIN_BOUNCES) else 160
-    k = np.repeat(np.arange(planes), pix)
-    exposed = resume_counts(resume, planes, film)
-    rem = np.maximum((total - k + planes - 1) // planes - exposed, 0)
+    k = np.repeat(r + d * np.arange(planes), pix)
+    exposed = resume_counts(resume, planes_total, film).reshape(planes_total, pix)[r::d].flatten()
+    rem = np.maximum((total - k + planes_total - 1) // planes_total - exposed, 0)
     rate = None
     cur_chunk = max(4, spp_chunk // 8)
-    while rem.any():
-        quota = adaptive_quotas(rem, rate, cur_chunk)
-        # soft tail: up to 1 % of lanes may stay short, but the launch must
-        # complete at least one quota-bound lane so that the loop progresses
-        active = int((quota > 0).sum())
-        tail = min(n // 100, active - 1) if active > 1 else 0
-        acc, wt, _, ex, dn = step(acc, wt, exposed, quota, tail)
-        dn_h = dn.cpu().numpy()
-        took = np.minimum(dn_h, quota)
-        exposed += took
-        rem -= took
-        # completion rate, discarded extras included (they complete at the
-        # lane's own pace); the iteration count follows from the keyed
-        # draws, so the quotas, and the render, repeat for a seed
-        iters = max(float(ex) / n, 1.0)
-        fresh = np.maximum(dn_h.astype(np.float32), 0.25) / iters
-        rate = fresh if rate is None else 0.5 * (rate + fresh)
-        cur_chunk = min(spp_chunk, cur_chunk * 2)
+    while any_left(rem.any(), mesh):
+        if rem.any():
+            quota = adaptive_quotas(rem, rate, cur_chunk)
+            # soft tail: up to 1 % of lanes may stay short, but the launch
+            # must complete at least one quota-bound lane so that the loop
+            # progresses
+            active = int((quota > 0).sum())
+            tail = min(n // 100, active - 1) if active > 1 else 0
+            acc, wt, _, ex, dn = step(acc, wt, exposed, quota, tail)
+            dn_h = dn.cpu().numpy()
+            took = np.minimum(dn_h, quota)
+            exposed += took
+            rem -= took
+            # completion rate, discarded extras included (they complete at
+            # the lane's own pace); the iteration count follows from the
+            # keyed draws, so the quotas, and the render, repeat for a seed
+            iters = max(float(ex) / n, 1.0)
+            fresh = np.maximum(dn_h.astype(np.float32), 0.25) / iters
+            rate = fresh if rate is None else 0.5 * (rate + fresh)
+            cur_chunk = min(spp_chunk, cur_chunk * 2)
         if on_progress is not None:
-            on_progress(RenderProgress(
-                sample=total - int(rem.reshape(planes, pix).sum(axis=0).max()), total=total,
-                acc=acc, wt=wt, film=film,
-                lane_samples=exposed.reshape(planes, film.height, film.width),
-            ))
-    return film, acc, wt
+            p_acc, p_wt = merge_films(acc, wt, mesh)
+            if d == 1:
+                lanes = exposed.copy()
+            else:
+                # the lane counts ride the films' group: through the host
+                # they took longer than the launches on four cards
+                lanes = torch.zeros((planes_total, pix), dtype=torch.int64, device=mesh.device)
+                lanes[r::d] = torch.from_numpy(exposed.reshape(planes, pix)).to(mesh.device)
+                lanes = device_sum(lanes, mesh).cpu().numpy()
+            if mesh.rank == 0:
+                on_progress(RenderProgress(
+                    sample=min(total, int(lanes.reshape(planes_total, pix).sum(axis=0).min())),
+                    total=total, acc=p_acc, wt=p_wt, film=film,
+                    lane_samples=lanes.reshape(planes_total, film.height, film.width),
+                ))
+    return (film, *merge_films(acc, wt, mesh))
 
 
 # =============================================================================
@@ -557,11 +590,15 @@ def make_pooled_steps(scene: Scene, film: Film, camera: CameraModel, cfg: TraceC
     return stage, empty_pool, flush_step, shrink, expose_pool
 
 
-def _render_pooled(scene, film, camera, cfg, acc, wt, seed, start, total, on_progress):
+def _render_pooled(scene, film, camera, cfg, acc, wt, seed, start, total, on_progress, mesh=None):
     """Host loop of the survivor-pool scheduler. The JAX package flushes its
     pool in segments (its simple.py:1004-1017) because XLA materialised
     [lanes, primitives] temporaries at the pool's width; the port's bounce
-    kernels keep no such temporary, so the whole pool flushes at once."""
+    kernels keep no such temporary, so the whole pool flushes at once. On a
+    ``mesh`` of D ranks each rank stages its share of every D samples
+    (rank_samples) into a pool of its own; a report's ``lane_samples`` is
+    None while any rank's pool holds lanes."""
+    mesh = local_mesh(scene.device) if mesh is None else mesh
     stage, empty_pool, flush_step, shrink, expose_pool = make_pooled_steps(
         scene, film, camera, cfg, seed)
     capacity = film.height * film.width
@@ -590,22 +627,27 @@ def _render_pooled(scene, film, camera, cfg, acc, wt, seed, start, total, on_pro
         return acc, wt, empty_pool()
 
     pool, fill = empty_pool(), 0
-    for i in range(start, total):
-        # flush whenever the space left could not take an all-survive stage
-        if fill + capacity > POOL_FACTOR * capacity:
-            acc, wt, pool = flush(acc, wt, pool, fill)
-            fill = 0
-        acc, wt, pool, survivors = stage(acc, wt, pool, fill, i)
-        fill += survivors
+    for first, count, done in rank_samples(mesh, start, total):
+        for i in range(first, first + count):
+            # flush whenever the space left could not take an all-survive
+            # stage
+            if fill + capacity > POOL_FACTOR * capacity:
+                acc, wt, pool = flush(acc, wt, pool, fill)
+                fill = 0
+            acc, wt, pool, survivors = stage(acc, wt, pool, fill, i)
+            fill += survivors
         if on_progress is not None:
             # the preview includes the pooled survivors' partial sums; the
-            # film alone holds whole samples only while the pool is empty
+            # film alone holds whole samples only while no pool holds lanes
             p_acc, p_wt = (acc, wt) if fill == 0 else expose_pool(acc.clone(), wt.clone(), pool)
-            on_progress(RenderProgress(
-                sample=i + 1, total=total, acc=p_acc, wt=p_wt, film=film,
-                lane_samples=None if fill else _uniform_lanes(film, i + 1)))
+            pooled = any_left(fill > 0, mesh)
+            p_acc, p_wt = merge_films(p_acc, p_wt, mesh)
+            if mesh.rank == 0:
+                on_progress(RenderProgress(
+                    sample=done, total=total, acc=p_acc, wt=p_wt, film=film,
+                    lane_samples=None if pooled else _uniform_lanes(film, done)))
     acc, wt, pool = flush(acc, wt, pool, fill)
-    return film, acc, wt
+    return (film, *merge_films(acc, wt, mesh))
 
 
 @dataclass
@@ -691,6 +733,19 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
     from the next sample it has not exposed (resume_counts). Every scheduler
     launches the whole film (no row windows), so the JAX package's
     chunk_order is not needed."""
+    return render_sharded(project_data, scene, local_mesh(scene.device), seed=seed,
+                          on_progress=on_progress, max_samples=max_samples, resume=resume)
+
+
+def render_sharded(project_data, scene: Scene, mesh, seed: int = 0, on_progress=None,
+                   max_samples=None, resume=None):
+    """render on one rank of ``mesh`` (parallel.mesh), the scene built on
+    its device: the ranks render disjoint samples and every rank returns
+    the merged film. Dispatch as render's. One-shot: groups of D x
+    pick_sample_batch samples, a contiguous slice of each a rank
+    (run_sharded); regeneration: virtual planes (_render_regen); the pool:
+    one pool a rank (_render_pooled). With ``on_progress`` the films are
+    merged after every round and rank 0 alone reports."""
     project = project_data.project
     settings = project.renderer
     film = Film(
@@ -705,30 +760,27 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
         light_samples=settings.light_samples,
         spectrum_samples=settings.spectrum_samples,
     )
-    acc, wt = film.new_buffers(scene.device)
-    if resume is not None:
-        acc.copy_(torch.as_tensor(np.asarray(resume["acc"], np.float32)).view(acc.shape))
-        wt.copy_(torch.as_tensor(np.asarray(resume["wt"], np.float32)).view(wt.shape))
+    acc, wt = device_film_buffers(film, mesh, resume)
     total = settings.pixel_samples if max_samples is None else min(
         settings.pixel_samples, max_samples
     )
 
     if regen_enabled() and (not scene.use_clusters or regen_clusters_enabled()):
-        return _render_regen(scene, film, camera, cfg, acc, wt, seed, resume, total, on_progress)
+        return _render_regen(scene, film, camera, cfg, acc, wt, seed, resume, total, on_progress,
+                             mesh=mesh)
 
     start = _uniform_start(resume, film)
     if cfg.bounces >= POOL_MIN_BOUNCES:
-        return _render_pooled(scene, film, camera, cfg, acc, wt, seed, start, total, on_progress)
+        return _render_pooled(scene, film, camera, cfg, acc, wt, seed, start, total, on_progress,
+                              mesh=mesh)
 
     batch = pick_sample_batch(film, scene.texture_bytes,
                               lane_bytes=lane_bytes(scene, cfg.spectrum_samples))
-    i = start
-    while i < total:
-        take = min(batch, total - i)
-        draws = KeyedDraws(seed, sample0=i, samples=take)
-        acc, wt = make_render_step(scene, film, camera, cfg, samples=take)(acc, wt, draws)
-        i += take
-        if on_progress is not None:
-            on_progress(RenderProgress(sample=i, total=total, acc=acc, wt=wt, film=film,
-                                       lane_samples=_uniform_lanes(film, i)))
-    return film, acc, wt
+
+    def step(acc, wt, first, count):
+        draws = KeyedDraws(seed, sample0=first, samples=count)
+        return make_render_step(scene, film, camera, cfg, samples=count)(acc, wt, draws)
+
+    progress = None if on_progress is None else (lambda done, a, w: on_progress(RenderProgress(
+        sample=done, total=total, acc=a, wt=w, film=film, lane_samples=_uniform_lanes(film, done))))
+    return (film, *run_sharded(step, mesh, acc, wt, start, total, batch, progress))

@@ -117,11 +117,32 @@ def test_profile_writes_a_trace(flagship, tmp_path, monkeypatch):
 
 
 def test_multi_device_is_not_ported(flagship, monkeypatch):
-    """Across several CUDA devices (ROADMAP.md item 11): the render device
-    is CUDA (the default) and torch counts two."""
+    """Across several CUDA devices the CLI spawns one rank per device over
+    NCCL (parallel.spawn with cli.render_rank and the CLI's arguments) and
+    builds no scene itself; without CUDA it raises the "no CUDA device"
+    error, whatever torch.cuda counts. (The name is the test's from before
+    the multi-GPU film merge, when the CLI refused the flag.)"""
+    from pyrite_tpu_torch import parallel
+
+    calls = []
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.main([flagship, "--multi-device"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(parallel, "spawn", lambda *a, **k: calls.append((a, k)))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main([flagship, "--multi-device", "--samples", "1"])
+    assert calls == []
+
+    def no_scene(*a, **k):
+        raise AssertionError("the parent built a scene")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(cli, "build_scene", no_scene)
+    argv = [flagship, "--multi-device", "--samples", "1"]
+    assert cli.main(argv) == 0
+    assert calls == [((cli.render_rank, ["cuda:0", "cuda:1"], "nccl"), {"args": (argv,)})]
+    # a project that does not load exits 1 in the parent, as without the flag
+    assert cli.main([flagship + ".missing", "--multi-device"]) == 1
+    assert len(calls) == 1
 
 
 def test_multi_device_on_one_device_renders(flagship, monkeypatch):

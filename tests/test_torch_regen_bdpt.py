@@ -1,5 +1,5 @@
 """The port's camera-regeneration BDPT scheduler on the CPU
-(pyrite_tpu_torch/renderers/bidirectional.py, _render_regen).
+(pyrite_tpu_torch/renderers/bidirectional.py, make_regen_launch).
 
 The draws are keyed by (pixel, sample, bounce, purpose), and a regen walk's
 lane draws its sample with that sample's keys, against the lamp round the

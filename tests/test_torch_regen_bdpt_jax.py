@@ -1,5 +1,5 @@
 """The port's camera-regeneration BDPT scheduler against the JAX package's
-on the CPU (pyrite_tpu_torch/renderers/bidirectional.py, _render_regen;
+on the CPU (pyrite_tpu_torch/renderers/bidirectional.py, make_regen_launch;
 pyrite_tpu/renderers/bidirectional.py, _render_regen_bdpt).
 
 Per function on the same inputs: _accumulate_lane_sums (rtol 1e-6) and

@@ -175,12 +175,19 @@ def test_cli_renders_fractal_png(paths, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(paths, tmp_path, monkeypatch):
-    # --multi-device across several CUDA devices (item 11); on one device,
-    # or on the CPU, it renders as without the flag
+    # --multi-device across several CUDA devices spawns one rank per device
+    # (tests/test_torch_cli.py::test_multi_device_is_not_ported,
+    # tests/test_torch_parallel.py); without CUDA it raises, and nothing
+    # spawns or renders elsewhere; on one device, or on the CPU, it renders
+    # as without the flag
     # (tests/test_torch_cli.py::test_multi_device_on_one_device_renders)
+    from pyrite_tpu_torch import parallel
+
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "device_count", lambda: 2)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        m.setattr(torch.cuda, "is_available", lambda: False)
+        m.setattr(parallel, "spawn", lambda *a, **k: pytest.fail("spawned without CUDA"))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([paths["flagship"], "--multi-device"])
     # directional lamps and more than 128 materials render now
     # (tests/test_torch_gate_lamps.py::test_cli_renders_directional_lamps,
