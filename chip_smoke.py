@@ -93,11 +93,15 @@ and exits non-zero on any failure:
    flagship as a photon project at 512 x 256, S = 6, 8 bounces; 100,000
    photons of 8 bounces in 2 passes, radius 0.1; exact mode) and
    textures_photon (the textures scene as a photon project: interpolation
-   mode, 70-column camera rows through the kProg kernels): the bounce
-   kernels' chain factors and photon_gather_kernel against their plain
-   versions at the wavefront render() launches (check_photon), the gather's
-   time and bound (time_photon), and a CLI render of each with the counts
-   zeroed just before it (render_photon), printing its maps' cell occupancy.
+   mode, 70-column camera rows through the kProg kernels), and
+   flagship_photon_512 (the same at 512 film bins): photon_gather_kernel
+   against its plain version on the hand-built edge maps of
+   gather_edge_maps (check_gather_edges), then the bounce kernels' chain
+   factors and the gather against their plain versions at the wavefront
+   render() launches (check_photon, printing the bins bit-equal to the
+   plain version's), the gather's time and bound (time_photon), and a CLI
+   render of each with the counts zeroed just before it (render_photon),
+   printing its maps' cell occupancy.
 
 8. multi-device on one card (multi_device_step): two ranks share cuda:0
    over gloo through parallel.spawn and cli.render_ranks (the CLI's
@@ -135,6 +139,9 @@ in one call (a checkout whose gate refuses materials_300, or that has no
 renderers.photon, stops at measure_bank). ``--prog`` runs the measurements of the kProg
 instantiations, with builds of csrc/bounce.cu that each remove or move one
 cost (measure_prog).
+``python3 chip_smoke.py --photon`` runs phase 7's gather alone
+(photon_step: check_photon and time_photon on flagship_photon and
+textures_photon, then profile_photon's 2-spp walls).
 ``python3 chip_smoke.py --multi`` runs phase 8 alone, then cards_probe on
 two ranks sharing cuda:0; ``--cards``, on a machine with several cards, the
 same with one rank a card over NCCL and more samples, then the CLI's
@@ -3666,6 +3673,127 @@ def photon_scene_paths(directory, small=False):
     return out
 
 
+def photon_bins_scene(path, bins):
+    """A photon project of photon_scene_paths (flagship_photon) with a film
+    of ``bins`` spectral bins, written beside it; its .lua path."""
+    with open(path) as fh:
+        text = fh.read()
+    assert "radius = 0.1," in text, path
+    out = path[:-4] + f"_{bins}.lua"
+    with open(out, "w") as fh:
+        fh.write(text.replace("radius = 0.1,", f"radius = 0.1, spectrum_resolution = {bins},", 1))
+    return out
+
+
+EDGE_MAPS = ("all_valid", "over_cap", "negative", "at_radius", "bins_512")
+
+
+def gather_edge_maps(device="cpu", seed=0):
+    """Hand-built gathers at the edges of the hash grid, from a numpy seed:
+    {name: (GatherSpec, photons, query)}, the photons unsorted (photon_batch's
+    fields; sorted_map sorts them) and the query as gather_query makes it,
+    on ``device``. radius 0.5, 16 bins, K = 3 and G = 8 in interpolation
+    mode:
+
+    - all_valid: every photon valid, queries on the photons of the cell of
+      the largest key (shorter than _CELL_CAP), where the scan's index
+      clips to P - 1 and counts the last photon again;
+    - over_cap: 60 photons in one cell (the first _CELL_CAP of it count),
+      a quarter of the others invalid;
+    - negative: photons and queries at negative coordinates, near the
+      origin and at |cell| > 29, where the key's products wrap;
+    - at_radius: photons at exactly the radius along an axis (in) and one
+      ulp past it (out), the coordinates exact in float32;
+    - bins_512: exact mode at 512 bins and K = 6 (a project past the old
+      gate's 447), M = 4 colour programs with sign and zero flags.
+    """
+    import numpy as np
+    import torch
+
+    from pyrite_tpu_torch.renderers import photon as ph
+
+    radius, span = 0.5, (400.0, 700.0)
+    out = {}
+    for i, name in enumerate(EDGE_MAPS):
+        rng = np.random.default_rng(seed + 101 * i)
+        exact = name == "bins_512"
+        bins, k, g, m = (512, 6, 0, 4) if exact else (16, 3, 8, 0)
+        spec = ph.GatherSpec(radius, span, bins, k, g, exact, 1 if exact else 1 + bins)
+        if name == "all_valid":
+            pos = rng.uniform(0.0, 2.0, (300, 3))
+            valid = np.ones(300, bool)
+        elif name == "over_cap":
+            pos = np.concatenate([rng.uniform(0.5, 1.0, (60, 3)), rng.uniform(0.0, 2.5, (200, 3))])
+            valid = np.concatenate([np.ones(60, bool), rng.random(200) > 0.25])
+        elif name == "negative":
+            pos = np.concatenate([rng.uniform(-2.2, 0.3, (200, 3)),
+                                  rng.uniform(-0.6, 0.6, (50, 3)) + (-40.3, -25.1, 33.7),
+                                  rng.uniform(-0.6, 0.6, (50, 3)) + (36.2, -31.9, -44.4)])
+            valid = rng.random(300) > 0.1
+        elif name == "at_radius":
+            centres = rng.integers(-16, 16, (40, 3)) / 8.0
+            axes = np.eye(3)[rng.integers(0, 3, 40)] * rng.choice([-1.0, 1.0], (40, 1))
+            at = (centres + radius * axes).astype(np.float32)
+            past = np.nextafter(at, (at + axes).astype(np.float32))
+            pos = np.concatenate([centres, at, past, rng.uniform(-2.0, 2.0, (80, 3))])
+            valid = np.ones(pos.shape[0], bool)
+        else:
+            pos = rng.uniform(-1.0, 1.5, (400, 3))
+            valid = rng.random(400) > 0.1
+        p = pos.shape[0]
+        pos = pos.astype(np.float32)
+        inc = rng.normal(size=(p, 3))
+        inc[:, 1] = -np.abs(inc[:, 1]) * np.where(rng.random(p) < 0.9, 1.0, -1.0)
+        inc /= np.linalg.norm(inc, axis=1, keepdims=True)
+        photons = {"position": pos, "incident": inc,
+                   "power": rng.uniform(0.1, 1.0, (p, spec.power_cols)),
+                   "wavelength": rng.uniform(*span, p), "valid": valid,
+                   "dispersed": rng.random(p) < 0.2}
+        # the queries: on photons (the largest key's cell first), then
+        # between them
+        keys = ph.grid_sort_photons(torch.as_tensor(pos), torch.as_tensor(valid), radius)[1]
+        own = ph._hash_cells(torch.as_tensor(pos), radius)[0].numpy()
+        last = np.flatnonzero(valid & (own == int(keys[valid.sum() - 1])))
+        n = 96
+        at = np.concatenate([last, rng.choice(np.flatnonzero(valid), n - len(last) - 32)])
+        if name == "at_radius":
+            at = np.arange(n - 32) % 40  # the exact centres
+        q_pos = np.concatenate([pos[at], pos[rng.integers(0, p, 32)] + rng.uniform(-0.3, 0.3, (32, 3))])
+        normal = rng.normal(size=(n, 3)) * 0.2 + (0.0, 1.0, 0.0)
+        normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+        q_inc = rng.normal(size=(n, 3)) * 0.3 - normal
+        q_inc /= np.linalg.norm(q_inc, axis=1, keepdims=True)
+        q = {"position": q_pos.astype(np.float32), "normal": normal, "incident": q_inc,
+             "valid": rng.random(n) > 0.1, "dispersed": rng.random(n) < 0.2,
+             "partialR": rng.uniform(0.1, 1.0, (n, k + g)), "lam0": rng.uniform(*span, n),
+             "lam_f": rng.uniform(*span, (n, k))}
+        if exact:
+            for side, rows in ((photons, (p,)), (q, (n,))):
+                side["counts"] = rng.integers(0, 3, rows + (m,)).astype(np.float32)
+                side["scalar"] = rng.uniform(0.2, 1.0, rows)
+            for suffix, rows in (("_f", (p,)), ("_f0", (n,)), ("_ff", (n, k))):
+                side = photons if suffix == "_f" else q
+                side["log" + suffix] = np.log(rng.uniform(0.2, 1.0, rows + (m,)))
+                side["neg" + suffix] = (rng.random(rows + (m,)) < 0.2).astype(np.float32)
+                side["zero" + suffix] = (rng.random(rows + (m,)) < 0.03).astype(np.float32)
+
+        def tensors(d):
+            return {key: torch.as_tensor(v if v.dtype == bool else v.astype(np.float32)).to(device)
+                    for key, v in d.items()}
+
+        out[name] = (spec, tensors(photons), tensors(q))
+    return out
+
+
+def sorted_map(photons, spec):
+    """A photon map of hand-built photons: build_map's sort and gather
+    (grid_sort_photons), the exact mode's factors taken as given."""
+    from pyrite_tpu_torch.renderers import photon as ph
+
+    order, keys = ph.grid_sort_photons(photons["position"], photons["valid"], spec.radius)
+    return dict({k: v[order].contiguous() for k, v in photons.items()}, keys=keys.contiguous())
+
+
 def _photon_setup(path, seed):
     """The photon renderer's first chunk of a project as render() runs it,
     one sample: (project, scene, parts (photon._build_parts), rows, photon
@@ -3781,15 +3909,9 @@ def check_photon(name, path, seed=0):
         q = ph.gather_query(scene, vertex, spec, lam0, lam_f, factors0)
         got = kd.photon_gather(spec, pm, q)
         ref = ph.gather_plain(spec, pm, q)
-        what = f"{name} gather at camera bounce {b}"
-        for k in ("num_neighbors", "fresh_cnt"):
-            bad = int((got[k] != ref[k]).sum())
-            assert bad == 0, f"{what}: {k} differs on {bad} lanes"
-        for k in ("acc_bins", "cnt_bins", "fresh_psum"):
-            diff = (got[k] - ref[k]).abs()
-            bad = int((diff > 1e-7 + 1e-5 * ref[k].abs()).sum())
-            assert bad == 0, f"{what}: {k} off on {bad} entries (max {float(diff.max())})"
-            worst["gather"] = max(worst["gather"], float(diff.max()))
+        err, same = _hold_gather(f"{name} gather at camera bounce {b}", got, ref)
+        worst["gather"] = max(worst["gather"], err)
+        equal = [(e + e2, n + n2) for (e, n), (e2, n2) in zip(equal, same)] if b else same
         pairs += int(ref["cnt_bins"].sum())
         if b == 0:
             timed = (q, ref)
@@ -3797,8 +3919,61 @@ def check_photon(name, path, seed=0):
     print(f"[photon] {name}: {n} lanes ({rows} rows), S + G = {wl_ext.shape[1]} columns "
           f"({'exact' if spec.exact else 'interpolation'} mode), {pm['keys'].shape[0]} map entries; "
           f"record fields and gather against the plain version on {len(vertices)} bounces: "
-          f"largest errors {worst}, {pairs} pairs; {_occupancy_line(pm['keys'])}")
+          f"largest errors {worst}, {pairs} pairs; {_bit_equal(equal)}; "
+          f"{_occupancy_line(pm['keys'])}")
     return {"worst": worst, "setup": (scene, spec, pm), "timed": timed}
+
+
+_HELD = ("acc_bins", "cnt_bins", "fresh_psum")
+
+
+def _hold_gather(what, got, ref):
+    """photon_gather_kernel's outputs ``got`` against gather_plain's ``ref``:
+    num_neighbors and fresh_cnt equal, acc_bins, cnt_bins and fresh_psum
+    within rtol 1e-5 / atol 1e-7 (the same adds in the same order; CUDA's
+    expf and PyTorch's exp may differ in the last ulp). Returns (the largest
+    error, [(entries bit-equal, entries)] of those three)."""
+    for k in ("num_neighbors", "fresh_cnt"):
+        bad = int((got[k] != ref[k]).sum())
+        assert bad == 0, f"{what}: {k} differs on {bad} lanes"
+    worst, same = 0.0, []
+    for k in _HELD:
+        diff = (got[k] - ref[k]).abs()
+        bad = int((diff > 1e-7 + 1e-5 * ref[k].abs()).sum())
+        assert bad == 0, f"{what}: {k} off on {bad} entries (max {float(diff.max())})"
+        worst = max(worst, float(diff.max()) if diff.numel() else 0.0)
+        same.append((int((got[k] == ref[k]).sum()), ref[k].numel()))
+    return worst, same
+
+
+def _bit_equal(same):
+    return "bit-equal to the plain version: " + ", ".join(
+        f"{k} {e} of {n}" for k, (e, n) in zip(_HELD, same))
+
+
+def check_gather_edges(card, seed=0):
+    """photon_gather_kernel against its plain version on the hand-built
+    maps of gather_edge_maps (the CPU tests hold the plain version to the
+    JAX package's enumeration on the same maps), as _hold_gather holds
+    them; every map must pass the gate (kernels_dense.gather_smem_bytes).
+    Returns the largest error."""
+    from pyrite_tpu_torch import kernels_dense as kd
+    from pyrite_tpu_torch.renderers import photon as ph
+
+    worst = 0.0
+    for name, (spec, photons, q) in gather_edge_maps("cuda", seed).items():
+        smem = kd.gather_smem_bytes(spec.bins, spec.spectrum_samples)
+        assert smem <= kd.SMEM_PER_BLOCK, f"edge map {name}: B={spec.bins} is past the gate"
+        pm = sorted_map(photons, spec)
+        got, ref = kd.photon_gather(spec, pm, q), ph.gather_plain(spec, pm, q)
+        err, same = _hold_gather(f"edge map {name}", got, ref)
+        worst = max(worst, err)
+        print(f"[photon-edges] {name}: {q['position'].shape[0]} lanes, {pm['keys'].shape[0]} map "
+              f"entries, B={spec.bins}, K={spec.spectrum_samples}, "
+              f"{'exact' if spec.exact else 'interpolation'} mode: "
+              f"{int(ref['num_neighbors'].sum())} within the radius, largest error {err}; "
+              f"{_bit_equal(same)}; {_occupancy_line(pm['keys'])} ({card})")
+    return worst
 
 
 def _gather_work(spec, pm, q, out):
@@ -3965,6 +4140,17 @@ def render_photon(path, samples, card, out_dir):
         f"the cap (share {launches['cells_over_cap'] / max(launches['cells'], 1):.6f}) ({card}); "
         f"launches {launches}; image mean {pixels.mean():.2f}/255")
     return launches, result["seconds"], result["peak"]
+
+
+def photon_step(card):
+    """``--photon``: phase 7's gather alone: check_photon and time_photon on
+    flagship_photon and textures_photon, then flagship_photon's 2-spp
+    render walls (profile_photon)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        photon = photon_scene_paths(os.path.join(tmp, "photon"))
+        for name, path in photon.items():
+            time_photon(check_photon(name, path), card)
+    profile_photon(card)
 
 
 def profile_photon(card, runs=5):
@@ -4887,6 +5073,9 @@ def main(argv=None):
         with tempfile.TemporaryDirectory() as tmp:
             multi_card_step(smi, tmp)
         return 0
+    if argv == ["--photon"]:
+        photon_step(smi)
+        return 0
     if argv == ["--prog"]:
         measure_prog(smi)
         return 0
@@ -4992,11 +5181,13 @@ def main(argv=None):
         # their plain versions, the gather's time, then the CLI
         photon_started = time.perf_counter()
         photon = photon_scene_paths(os.path.join(tmp, "photon"))
+        photon["flagship_photon_512"] = photon_bins_scene(photon["flagship_photon"], 512)
+        edge_err = check_gather_edges(smi)
         photon_checked = {name: check_photon(name, p) for name, p in photon.items()}
         times.update(time_photon(photon_checked["flagship_photon"], smi))
         time_photon(photon_checked["textures_photon"], smi)  # printed: interpolation mode
         photon_runs = [render_photon(photon[name], 1, smi, tmp)[0] for name in (
-            "flagship_photon", "textures_photon")]
+            "flagship_photon", "textures_photon", "flagship_photon_512")]
         print(f"[phase] the photon renderer (phase 7): {time.perf_counter() - photon_started:.1f} s")
         multi_runs = multi_device_step(paths["flagship"], bdpt["flagship_bdpt_deep"],
                                        photon["flagship_photon"], smi, tmp)
@@ -5102,7 +5293,7 @@ def main(argv=None):
         # the photon renderer's gather ports no TPU kernel either
         dict(kernel("photon_gather_kernel", "photon.cu", None,
                     sum(run["photon_gather_kernel"] for run in photon_runs + multi_runs),
-                    max(c["worst"]["gather"] for c in photon_checked.values())),
+                    max(max(c["worst"]["gather"] for c in photon_checked.values()), edge_err)),
              replaces="none: XLA, pyrite_tpu/renderers/photon.py:310 _gather"),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels

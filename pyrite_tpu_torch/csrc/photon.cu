@@ -5,9 +5,9 @@
 // It replaces no Pallas kernel: the JAX package computes the gather in XLA
 // (pyrite_tpu/renderers/photon.py:310 `_gather`, its fori_loop of 27 x 32
 // scan steps at :395-468). That loop rewrites every lane's [N, B] bins at
-// each of its 864 steps; here one thread owns one camera vertex for one
-// camera bounce and photon map, scans its candidates itself and keeps its
-// bins on chip.
+// each of its 864 steps; here one warp owns one camera vertex for one
+// camera bounce and photon map, scans its candidates a cell at a time and
+// keeps its bins on chip.
 //
 // Per valid camera vertex: the 27 neighbour cells of its hash-grid cell
 // (floor(position / radius), a true division; the key's products wrap as
@@ -28,16 +28,31 @@
 // photon a key, position, incident direction, flags, wavelength and its
 // power row, or in exact mode its counts and factors) and per lane its
 // vertex and chain row in, 4 (2 B + K) + 8 out: memory-bound at the
-// flagship's 131,072 lanes and ~900,000 photons. Each lane spends ~20
-// dependent key loads on each of its 27 binary searches and then reads its
-// candidates one by one: the kernel is bound by the latency of those L2
-// reads and by its occupancy. The design keeps it simple:
-// - the photon fields arrive gathered into cell order once per map
-//   (build_map), so a cell's photons are consecutive and read through the
-//   read-only path (__ldg);
-// - each thread's B acc and cnt bins and K fresh sums live in dynamic
-//   shared memory, rows padded to B + 1 and K + 1 floats against bank
-//   conflicts, and the block writes them out as contiguous runs;
+// flagship's 131,072 lanes and ~900,000 photons. What it waits on is
+// dependent L2 reads (~20 key loads a binary search, then the candidates)
+// and, for each pair, a few lanes' worth of work. The design puts a warp on
+// each vertex:
+// - lanes 0-26 run the 27 binary searches side by side (the warp waits
+//   ~20 dependent loads, not 27 x 20), and a ballot of the searches that
+//   found their key leaves only the occupied cells to scan;
+// - a cell's CELL_CAP = 32 slots are the warp's 32 lanes: lane l reads
+//   slot l (key, flag and position coalesced, the index clipped to P - 1
+//   as the JAX package clips it, so the clipped duplicates count as they
+//   do there), the next cell's keys read while this one is tested; the
+//   counts come from __popc of the ballots;
+// - a cell holds few pairs (~1.3 of its 32 slots on the flagship), so the
+//   pairs go, in scan order, to a ring of photon indices in shared memory,
+//   and every 32 of them (and the rest at the end) to a batch, one pair a
+//   lane: its geometry, chain values and bin; its adds broadcast
+//   (__shfl_sync) in scan order to the lane that owns the bin (bin j on
+//   lane j % 32); its K fresh values spread over the lanes as (pair,
+//   wavelength) items, staged in shared memory and added in scan order by
+//   the lane that owns the wavelength (kk on lane kk % 32): no sum is
+//   reassociated, so the sums are the plain version's adds in its order;
+// - the vertex's B acc and cnt bins and K fresh sums are one row of the
+//   warp in dynamic shared memory (gather_row), each entry touched only by
+//   the lane that owns it, written out as coalesced runs; a warp whose
+//   vertex is not valid writes its zeros and ends;
 // - no fast math: expf and logf-derived factors stay precise, and the
 //   build's --fmad=false keeps products rounded as the plain version's.
 
@@ -45,8 +60,12 @@
 
 namespace {
 
-constexpr int GATHER_BLOCK = 64;  // kernels_dense.GATHER_BLOCK
-constexpr int CELL_CAP = 32;      // renderers.photon._CELL_CAP
+constexpr int GATHER_WARPS = 4;  // warps a block, one a camera vertex (kernels_dense.GATHER_WARPS)
+// Blocks a SM the launch bound asks for: 8 x 4 warps, which caps a thread
+// at 64 registers. Left to itself ptxas gives the kernel 96 registers at
+// this block size, 20 resident warps a SM, and it then runs ~40 % slower.
+constexpr int GATHER_MIN_BLOCKS = 8;
+constexpr int CELL_CAP = 32;         // renderers.photon._CELL_CAP
 
 struct GatherArgs {
   // the photon map, in cell order (renderers.photon.build_map)
@@ -139,99 +158,203 @@ __device__ __forceinline__ V3 ldg3(const float* __restrict__ p, int i) {
   return {__ldg(p + 3 * (size_t)i), __ldg(p + 3 * (size_t)i + 1), __ldg(p + 3 * (size_t)i + 2)};
 }
 
-__global__ void __launch_bounds__(GATHER_BLOCK) photon_gather_kernel(const GatherArgs a) {
+constexpr unsigned FULL = 0xffffffffu;
+
+// Pairs a warp's ring holds: a batch of 32 and the up to 31 before it.
+constexpr int PAIR_RING = 64;
+
+// 4-byte words of a warp's row in dynamic shared memory: B acc bins, B
+// cnt bins, K fresh sums, CELL_CAP pairs' K fresh values at a stride of
+// K | 1 and the ring of PAIR_RING photon indices
+// (kernels_dense.gather_smem_bytes).
+__host__ __device__ __forceinline__ size_t gather_row(int bins, int k) {
+  return 2 * (size_t)bins + k + (size_t)CELL_CAP * (k | 1) + PAIR_RING;
+}
+
+__global__ void __launch_bounds__(32 * GATHER_WARPS, GATHER_MIN_BLOCKS)
+    photon_gather_kernel(const GatherArgs a) {
   extern __shared__ __align__(16) float gather_smem[];
-  const int t = threadIdx.x, base = blockIdx.x * GATHER_BLOCK, lane = base + t;
-  const int bs = a.bins + 1, ks = a.k + 1;
-  float* ACC = gather_smem;               // [GATHER_BLOCK, B + 1]
-  float* CNT = ACC + GATHER_BLOCK * bs;   // [GATHER_BLOCK, B + 1]
-  float* FR = CNT + GATHER_BLOCK * bs;    // [GATHER_BLOCK, K + 1]
-  float* acc = ACC + t * bs;
-  float* cnt = CNT + t * bs;
-  float* fr = FR + t * ks;
-  for (int j = 0; j < a.bins; ++j) {
+  const int l = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int v = blockIdx.x * GATHER_WARPS + w;  // the warp's camera vertex
+  if (v >= a.n) return;
+  const int bins = a.bins, k = a.k;
+  float* const out_acc = a.acc_bins + (size_t)v * bins;
+  float* const out_cnt = a.cnt_bins + (size_t)v * bins;
+  float* const out_fr = a.fresh_psum + (size_t)v * k;
+  if (a.p == 0 || !a.q_valid[v]) {
+    for (int j = l; j < bins; j += 32) {
+      out_acc[j] = 0.0f;
+      out_cnt[j] = 0.0f;
+    }
+    for (int j = l; j < k; j += 32) out_fr[j] = 0.0f;
+    if (l == 0) {
+      a.num[v] = 0;
+      a.fresh_cnt[v] = 0;
+    }
+    return;
+  }
+  // the warp's row: B acc bins, B cnt bins and K fresh sums, entry j
+  // touched only by lane j % 32; a batch's fresh values, those of its r-th
+  // fresh pair at r * ks (ks odd: no bank conflict); a ring of PAIR_RING
+  // pairs' photon indices in scan order
+  const int ks = k | 1;
+  float* const acc = gather_smem + (size_t)w * gather_row(bins, k);
+  float* const cnt = acc + bins;
+  float* const fr = cnt + bins;
+  float* const fs = fr + k;
+  int* const ring = (int*)(fs + CELL_CAP * ks);
+  for (int j = l; j < bins; j += 32) {
     acc[j] = 0.0f;
     cnt[j] = 0.0f;
   }
-  for (int j = 0; j < a.k; ++j) fr[j] = 0.0f;
+  for (int j = l; j < k; j += 32) fr[j] = 0.0f;
+
+  const V3 q = load3(a.q_pos, v), nrm = load3(a.q_normal, v);
+  const float cos_cam = fmaxf(dot(load3(a.q_inc, v), -nrm), 0.0f);
+  const bool cam_disp = a.q_disp[v];
+  const float* const r = a.q_r + (size_t)v * a.cols;
+  const float r_hero = r[0], lam0 = a.lam0[v];
+  const size_t vm = (size_t)v * a.m, vk = (size_t)v * k;
   int num = 0, fcnt = 0;
-  if (lane < a.n && a.p > 0 && a.q_valid[lane]) {
-    const V3 q = load3(a.q_pos, lane), nrm = load3(a.q_normal, lane);
-    const float cos_cam = fmaxf(dot(load3(a.q_inc, lane), -nrm), 0.0f);
-    const bool cam_disp = a.q_disp[lane];
-    const float* r = a.q_r + (size_t)lane * a.cols;
-    const float r_hero = r[0], lam0 = a.lam0[lane];
-    const size_t lm = (size_t)lane * a.m;
+
+  // A batch of up to 32 pairs, the ring's first `n` from `head`, one a
+  // lane: each pair's weight, chain values and bin; its adds in scan
+  // order, each by the lane that owns its bin; where neither dispersed,
+  // its K fresh values as items (rank, wavelength) over the lanes, added
+  // in scan order by the lanes that own the wavelengths.
+  auto batch = [&](int head, int n) {
+    __syncwarp();  // the ring's entries
+    const bool pair = l < n;
+    const int here = pair ? ring[(head + l) % PAIR_RING] : 0;
+    float val = 0.0f, gw = 0.0f;
+    int j = 0;
+    bool clear = false;
+    if (pair) {
+      clear = !cam_disp && !__ldg(a.p_disp + here);
+      const V3 exit = -ldg3(a.p_inc, here);
+      const float lam_p = __ldg(a.p_lam + here);
+      const float* row = a.p_power + (size_t)here * a.pcols;
+      const float power0 = __ldg(row);
+      const float w_geom = fmaxf(dot(exit, nrm), 0.0f) * cos_cam / PI_F;
+      gw = 2.0f * fabsf(dot(nrm, exit)) * w_geom;
+      const size_t pm = (size_t)here * a.m;
+      float r_sel, p_sel;
+      if (a.exact) {
+        r_sel = cam_disp ? r_hero
+                         : chain_eval(a.q_counts + vm, a.q_scalar[v], a.p_logf + pm, a.p_negf + pm,
+                                      a.p_zerof + pm, a.m);
+        p_sel = cam_disp ? chain_eval(a.p_counts + pm, __ldg(a.p_scalar + here), a.logf0 + vm,
+                                      a.negf0 + vm, a.zerof0 + vm, a.m)
+                         : power0;
+      } else {
+        r_sel = cam_disp ? r_hero : interp(r + a.s, a.g, a.lo, a.d_grid, lam_p);
+        p_sel = cam_disp ? interp(row + 1, bins, a.lo, a.d_film, lam0) : power0;
+      }
+      const float lam_sel = cam_disp ? lam0 : lam_p;
+      j = min(max((int)((lam_sel - a.lo) * a.bin_scale), 0), bins - 1);
+      val = r_sel * p_sel * gw;
+    }
+    for (unsigned left = __ballot_sync(FULL, pair); left; left &= left - 1) {
+      const int src = __ffs(left) - 1;
+      const int js = __shfl_sync(FULL, j, src);
+      const float vs = __shfl_sync(FULL, val, src);
+      if ((js & 31) == l) {
+        acc[js] += vs;
+        cnt[js] += 1.0f;
+      }
+    }
+    const unsigned clears = __ballot_sync(FULL, clear);
+    if (clears) {
+      const int nc = __popc(clears);
+      fcnt += nc;
+      for (int item0 = 0; item0 < nc * k; item0 += 32) {
+        const int item = item0 + l, rank = item / k, kk = item - rank * k;
+        unsigned nth = clears;  // the pair's lane: the rank-th set bit
+        for (int t = 0; t < rank; ++t) nth &= nth - 1;
+        const int src = item < nc * k ? __ffs(nth) - 1 : 0;
+        const int is = __shfl_sync(FULL, here, src);
+        const float gs = __shfl_sync(FULL, gw, src);
+        if (item < nc * k) {
+          const size_t pm = (size_t)is * a.m;
+          const float pf =
+              a.exact ? chain_eval(a.p_counts + pm, __ldg(a.p_scalar + is),
+                                   a.logff + (vk + kk) * a.m, a.negff + (vk + kk) * a.m,
+                                   a.zeroff + (vk + kk) * a.m, a.m)
+                      : interp(a.p_power + (size_t)is * a.pcols + 1, bins, a.lo, a.d_film,
+                               __ldg(a.lam_f + vk + kk));
+          fs[rank * ks + kk] = pf * gs;
+        }
+      }
+      __syncwarp();
+      for (int rank = 0; rank < nc; ++rank)
+        for (int kk = l; kk < k; kk += 32) fr[kk] += fs[rank * ks + kk];
+    }
+    __syncwarp();  // the ring's entries and the values read before they are rewritten
+  };
+
+  // the 27 searches side by side: lane c < 27 finds cell c's first index
+  int key = 0, start = 0;
+  bool occupied = false;
+  if (l < 27) {
     const unsigned cx = (unsigned)(int)floorf(q.x / a.radius);
     const unsigned cy = (unsigned)(int)floorf(q.y / a.radius);
     const unsigned cz = (unsigned)(int)floorf(q.z / a.radius);
-    for (int c = 0; c < 27; ++c) {
-      const int key = cell_key(cx + (unsigned)(c / 9 - 1), cy + (unsigned)((c / 3) % 3 - 1),
-                               cz + (unsigned)(c % 3 - 1));
-      const int start = lower_bound(a.keys, a.p, key);
-      for (int slot = 0; slot < CELL_CAP; ++slot) {
-        const int idx = min(start + slot, a.p - 1);
-        // the keys are sorted: past the cell's first mismatch none matches
-        if (__ldg(a.keys + idx) != key) break;
-        if (!__ldg(a.p_valid + idx)) continue;
-        const V3 diff = ldg3(a.p_pos, idx) - q;
-        if (!(dot(diff, diff) <= a.rr)) continue;
-        ++num;
-        const bool p_disp = __ldg(a.p_disp + idx);
-        if (cam_disp && p_disp) continue;  // counted, not exposed
-        const V3 exit = -ldg3(a.p_inc, idx);
-        const float w_geom = fmaxf(dot(exit, nrm), 0.0f) * cos_cam / PI_F;
-        const float gw = 2.0f * fabsf(dot(nrm, exit)) * w_geom;
-        const float* row = a.p_power + (size_t)idx * a.pcols;
-        const float lam_p = __ldg(a.p_lam + idx);
-        const size_t pm = (size_t)idx * a.m;
-        float r_sel, p_sel;
-        if (a.exact) {
-          r_sel = cam_disp ? r_hero
-                           : chain_eval(a.q_counts + lm, a.q_scalar[lane], a.p_logf + pm,
-                                        a.p_negf + pm, a.p_zerof + pm, a.m);
-          p_sel = cam_disp ? chain_eval(a.p_counts + pm, __ldg(a.p_scalar + idx), a.logf0 + lm,
-                                        a.negf0 + lm, a.zerof0 + lm, a.m)
-                           : __ldg(row);
-        } else {
-          r_sel = cam_disp ? r_hero : interp(r + a.s, a.g, a.lo, a.d_grid, lam_p);
-          p_sel = cam_disp ? interp(row + 1, a.bins, a.lo, a.d_film, lam0) : __ldg(row);
-        }
-        const float lam_sel = cam_disp ? lam0 : lam_p;
-        const int j = min(max((int)((lam_sel - a.lo) * a.bin_scale), 0), a.bins - 1);
-        acc[j] += r_sel * p_sel * gw;
-        cnt[j] += 1.0f;
-        if (!cam_disp && !p_disp) {
-          ++fcnt;
-          for (int kk = 0; kk < a.k; ++kk) {
-            const size_t lk = (size_t)lane * a.k + kk;
-            const float pf =
-                a.exact ? chain_eval(a.p_counts + pm, __ldg(a.p_scalar + idx), a.logff + lk * a.m,
-                                     a.negff + lk * a.m, a.zeroff + lk * a.m, a.m)
-                        : interp(row + 1, a.bins, a.lo, a.d_film, a.lam_f[lk]);
-            fr[kk] += pf * gw;
-          }
-        }
-      }
+    key = cell_key(cx + (unsigned)(l / 9 - 1), cy + (unsigned)((l / 3) % 3 - 1),
+                   cz + (unsigned)(l % 3 - 1));
+    start = lower_bound(a.keys, a.p, key);
+    occupied = start < a.p && __ldg(a.keys + start) == key;
+  }
+  // the occupied cells in order, a cell's slot l on lane l (the index
+  // clipped to P - 1), each cell's keys read while the one before is
+  // scanned; its pairs go to the ring in slot order, and every 32 of them
+  // to a batch
+  unsigned cells = __ballot_sync(FULL, occupied);
+  auto slot_of = [&](unsigned left) {
+    return min(__shfl_sync(FULL, start, __ffs(left) - 1) + l, a.p - 1);
+  };
+  int idx = cells ? slot_of(cells) : 0;
+  int slot_key = cells ? __ldg(a.keys + idx) : 0;
+  int head = 0, queued = 0;
+  while (cells) {
+    const int ckey = __shfl_sync(FULL, key, __ffs(cells) - 1);
+    cells &= cells - 1;
+    // the keys are sorted: a slot matches until the cell's first mismatch
+    const bool match = slot_key == ckey;
+    const int here = idx;
+    if (cells) {
+      idx = slot_of(cells);
+      slot_key = __ldg(a.keys + idx);
+    }
+    bool in_rad = false, p_disp = false;
+    if (match) {
+      const bool p_valid = __ldg(a.p_valid + here);
+      const V3 diff = ldg3(a.p_pos, here) - q;
+      p_disp = __ldg(a.p_disp + here);
+      in_rad = p_valid && dot(diff, diff) <= a.rr;
+    }
+    const unsigned rad = __ballot_sync(FULL, in_rad);
+    num += __popc(rad);
+    const bool pair = in_rad && !(cam_disp && p_disp);
+    const unsigned pairs = __ballot_sync(FULL, pair);
+    if (pair) ring[(head + queued + __popc(pairs & ((1u << l) - 1))) % PAIR_RING] = here;
+    queued += __popc(pairs);
+    if (queued >= 32) {
+      batch(head, 32);
+      head = (head + 32) % PAIR_RING;
+      queued -= 32;
     }
   }
-  if (lane < a.n) {
-    a.num[lane] = num;
-    a.fresh_cnt[lane] = fcnt;
+  if (queued) batch(head, queued);
+  if (l == 0) {
+    a.num[v] = num;
+    a.fresh_cnt[v] = fcnt;
   }
-  __syncthreads();
-  // the block's rows out as contiguous runs
-  const int rows = min(GATHER_BLOCK, a.n - base);
-  const size_t ob = (size_t)base * a.bins, ok = (size_t)base * a.k;
-  for (int i = t; i < rows * a.bins; i += GATHER_BLOCK) {
-    const int rr = i / a.bins, j = i - rr * a.bins;
-    a.acc_bins[ob + i] = ACC[rr * bs + j];
-    a.cnt_bins[ob + i] = CNT[rr * bs + j];
+  // the row out as coalesced runs, each entry by the lane that wrote it
+  for (int jj = l; jj < bins; jj += 32) {
+    out_acc[jj] = acc[jj];
+    out_cnt[jj] = cnt[jj];
   }
-  for (int i = t; i < rows * a.k; i += GATHER_BLOCK) {
-    const int rr = i / a.k, j = i - rr * a.k;
-    a.fresh_psum[ok + i] = FR[rr * ks + j];
-  }
+  for (int jj = l; jj < k; jj += 32) out_fr[jj] = fr[jj];
 }
 
 }  // namespace
@@ -239,7 +362,8 @@ __global__ void __launch_bounds__(GATHER_BLOCK) photon_gather_kernel(const Gathe
 extern "C" {
 
 // photon_gather_kernel over `n` camera vertices against a map of `p`
-// photons (GatherArgs, in its order); returns cudaGetLastError().
+// photons (GatherArgs, in its order), one warp a vertex in blocks of
+// GATHER_WARPS warps; returns cudaGetLastError().
 int pyrite_photon_gather(
     const int* keys, const float* p_pos, const uint8_t* p_valid, const float* p_inc,
     const float* p_power, const float* p_lam, const uint8_t* p_disp, const float* p_counts,
@@ -249,8 +373,8 @@ int pyrite_photon_gather(
     const float* q_counts, const float* q_scalar, const float* logf0, const float* negf0,
     const float* zerof0, const float* logff, const float* negff, const float* zeroff,
     float* acc_bins, float* cnt_bins, int* num, float* fresh_psum, int* fresh_cnt, int n, int p,
-    int m, int k, int bins, int cols, int s, int g, int exact, int pcols, float radius, float rr,
-    float lo, float bin_scale, float d_film, float d_grid, void* stream) {
+    int m, int k, int bins, int cols, int s, int g, int exact, int pcols, float radius,
+    float rr, float lo, float bin_scale, float d_film, float d_grid, void* stream) {
   const GatherArgs a = {keys,     p_pos,    p_valid, p_inc,  p_power, p_lam,      p_disp,
                         p_counts, p_scalar, p_logf,  p_negf, p_zerof, q_pos,      q_normal,
                         q_inc,    q_valid,  q_disp,  q_r,    lam0,    lam_f,      q_counts,
@@ -260,11 +384,11 @@ int pyrite_photon_gather(
                         exact,    pcols,    radius,  rr,     lo,      bin_scale,  d_film,
                         d_grid};
   if (n <= 0) return (int)cudaGetLastError();
-  const size_t smem = sizeof(float) * GATHER_BLOCK * (2 * ((size_t)bins + 1) + k + 1);
+  const size_t smem = sizeof(float) * GATHER_WARPS * gather_row(bins, k);
   if (smem > 48 * 1024)
     cudaFuncSetAttribute((const void*)photon_gather_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  photon_gather_kernel<<<(n + GATHER_BLOCK - 1) / GATHER_BLOCK, GATHER_BLOCK, smem,
+  photon_gather_kernel<<<(n + GATHER_WARPS - 1) / GATHER_WARPS, 32 * GATHER_WARPS, smem,
                          (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -1113,14 +1113,16 @@ def vertex_colors(scene, color_prog, valid, normal, incident, uv, wavelengths, b
 
 # --- the photon renderer's radius gather ---------------------------------------
 
-GATHER_BLOCK = 64  # threads a block of photon_gather_kernel (csrc/photon.cu)
+GATHER_WARPS = 4  # csrc/photon.cu GATHER_WARPS: warps a block of photon_gather_kernel
 
 
 def gather_smem_bytes(bins, k):
-    """photon_gather_kernel's dynamic shared memory a block: each thread's
-    acc and cnt bins and fresh sums, rows padded by one float against bank
-    conflicts, [GATHER_BLOCK, 2 (B + 1) + K + 1] floats."""
-    return 4 * GATHER_BLOCK * (2 * (bins + 1) + k + 1)
+    """photon_gather_kernel's dynamic shared memory a block: each warp's
+    row of its vertex's B acc bins, B cnt bins and K fresh sums, a batch of
+    32 pairs' K fresh values at a stride of K | 1 and a ring of 64 pairs'
+    photon indices, [GATHER_WARPS, 2 B + K + 32 (K | 1) + 64] 4-byte words
+    (csrc/photon.cu gather_row)."""
+    return 4 * GATHER_WARPS * (2 * bins + k + 32 * (k | 1) + 64)
 
 
 def photon_gather_args(spec, pm, q):

@@ -34,6 +34,8 @@ import torch.distributed as dist
 # How long a collective may wait for the other ranks: one round of a rank's
 # work (a regeneration launch, a sample) at the most, so generous.
 DEFAULT_TIMEOUT = datetime.timedelta(minutes=30)
+# Seconds the ranks of a failed or late world have to exit after a signal.
+_GRACE = 2.0
 
 # The film merges of this process since a caller last zeroed them: calls,
 # bytes reduced and seconds spent (the all-reduce and its wait).
@@ -196,14 +198,17 @@ def spawn(fn, devices, backend: str, args=(), timeout=None):
     The rendezvous is a FileStore in a fresh temporary directory (no TCP
     port). The kernel library is built here first when a device is CUDA
     (ctypes only, no CUDA context), so that the ranks do not each run nvcc.
-    ``timeout`` seconds (None: none) is the deadline of the whole world and
-    of each collective. Raises when a rank raises, exits or misses the
-    deadline; every rank is terminated then."""
+    ``timeout`` seconds (None: none) is the deadline of the whole world.
+    Each collective waits DEFAULT_TIMEOUT longer than that, so that a world
+    that is late ends at its deadline here and not at a rank's collective.
+    Raises when a rank raises or exits, and TimeoutError when the world
+    misses the deadline, also where a rank failed after it; every rank is
+    stopped then."""
     from .. import _build
 
     if any(torch.device(d).type == "cuda" for d in devices):
         _build.load()
-    collective = DEFAULT_TIMEOUT if timeout is None else datetime.timedelta(seconds=timeout)
+    collective = DEFAULT_TIMEOUT + datetime.timedelta(seconds=timeout or 0)
     directory = tempfile.mkdtemp(prefix="pyrite_mesh_")
     try:
         context = torch.multiprocessing.start_processes(
@@ -211,19 +216,38 @@ def spawn(fn, devices, backend: str, args=(), timeout=None):
                               collective),
             nprocs=len(devices), join=False, start_method="spawn")
         deadline = None if timeout is None else time.monotonic() + timeout
+        late = TimeoutError(f"{len(devices)} ranks missed their {timeout} s deadline")
         try:
-            while not context.join(timeout=1.0):
-                if deadline is not None and time.monotonic() > deadline:
-                    raise TimeoutError(f"{len(devices)} ranks missed their {timeout} s deadline")
+            while True:
+                left = 1.0 if deadline is None else min(1.0, deadline - time.monotonic())
+                if left <= 0:
+                    raise late
+                try:
+                    if context.join(timeout=left, grace_period=_GRACE):
+                        break
+                except (torch.multiprocessing.ProcessRaisedException,
+                        torch.multiprocessing.ProcessExitedException) as error:
+                    if deadline is not None and time.monotonic() > deadline:
+                        raise late from error
+                    raise
         finally:
-            for process in context.processes:
-                if process.is_alive():
-                    process.terminate()
-            for process in context.processes:
-                process.join(10)
-                if process.is_alive():
-                    process.kill()
+            _stop(context.processes)
         return [torch.load(os.path.join(directory, f"rank{r}.pt"), weights_only=False)
                 for r in range(len(devices))]
     finally:
         shutil.rmtree(directory, ignore_errors=True)
+
+
+def _stop(processes):
+    """Terminate the ranks still alive, then kill those alive after _GRACE
+    seconds in all."""
+    for process in processes:
+        if process.is_alive():
+            process.terminate()
+    end = time.monotonic() + _GRACE
+    for process in processes:
+        process.join(max(0.0, end - time.monotonic()))
+    for process in processes:
+        if process.is_alive():
+            process.kill()
+            process.join()

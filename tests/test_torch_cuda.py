@@ -555,6 +555,28 @@ def test_cuda_record_chain_factors_match_plain_version(tmp_path, name):
 
 
 @pytest.mark.cuda
+def test_cuda_photon_gather_edge_maps_match_plain_version():
+    """photon_gather_kernel against its plain version on the hand-built maps
+    of chip_smoke.gather_edge_maps (clipped duplicates, a cell past the
+    cap, wrapped keys, photons at the radius, 512 bins in exact mode), as
+    chip_smoke.check_gather_edges holds them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    assert chip_smoke.check_gather_edges("card") < 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_photon_render_of_512_bins(tmp_path):
+    """flagship_photon at 512 film bins passes the gate and renders through
+    photon_gather_kernel (chip_smoke.render_photon)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    path = chip_smoke.photon_bins_scene(_photon_paths(str(tmp_path))["flagship_photon"], 512)
+    launches = chip_smoke.render_photon(path, 1, "card", str(tmp_path))[0]
+    assert launches["photon_gather_kernel"] > 0
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("name", ["flagship_photon", "textures_photon"])
 def test_cuda_photon_render_takes_the_kernels(tmp_path, name):
     """A photon render through the CLI on the card (chip_smoke.render_photon:

@@ -29,6 +29,7 @@ import functools
 import numpy as np
 import pytest
 import torch
+from PIL import Image
 
 import jax
 import jax.numpy as jnp
@@ -314,3 +315,28 @@ def test_cli_renders_what_the_gate_refused(paths, tmp_path, name):
     assert cli.main([paths[name], "--samples", "1", "--device", "cpu", "--output", str(out)]) == 0
     with Image.open(out) as img:
         assert np.asarray(img).max() > 0
+
+
+def test_gate_takes_photon_bins_the_gather_holds(tmp_path):
+    """photon_gather_kernel keeps one row of 2 B + K floats a warp
+    (kernels_dense.gather_smem_bytes), so the gate takes a photon project
+    of 512 film bins at S = 6 (past the 447 of a row a thread) and every
+    bin count up to the most that a block's shared memory holds; one more
+    is refused naming ROADMAP.md item 10, before any render starts. The
+    project is flagship_photon at its CPU size (exact mode: camera rows of
+    S, lamp rows of one column); at 512 bins it renders through the CLI."""
+    most = max(b for b in range(1, 20000) if kd.gather_smem_bytes(b, 6) <= kd.SMEM_PER_BLOCK)
+    assert most > 4 * 512 and kd.gather_smem_bytes(most + 1, 6) > kd.SMEM_PER_BLOCK
+    flagship = chip_smoke.photon_scene_paths(str(tmp_path), small=True)["flagship_photon"]
+    for bins, ok in ((512, True), (most, True), (most + 1, False)):
+        path = chip_smoke.photon_bins_scene(flagship, bins)
+        if ok:
+            st = torch_build(torch_load(path), "cpu")
+            assert st.photon_widths == {"exact": True, "camera": 6, "lamp": 1, "bins": bins}
+            if bins == 512:
+                out = str(tmp_path / "bins_512.png")
+                assert cli.main([path, "--device", "cpu", "--samples", "1", "--output", out]) == 0
+                assert np.asarray(Image.open(out)).max() > 0
+        else:
+            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
+                cli.main([path, "--device", "cpu", "--samples", "1"])

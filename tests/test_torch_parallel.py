@@ -276,7 +276,11 @@ def test_profile_writes_a_trace_per_rank(world2):
 def test_failing_world_raises_in_the_caller(paths, how):
     """(f) A world whose rank 1 raises (its film is None while rank 0 waits
     in the merge), or whose ranks miss their deadline, ends with an
-    exception in the caller, before the deadline; nothing is returned."""
+    exception in the caller, before the deadline; nothing is returned. The
+    late world renders a scene of a million pixel samples (test_parallel's
+    scene renders its 64 in a fraction of a second once the ranks have
+    started), which no host does within its 3 s; it ends in TimeoutError
+    whether the deadline finds the ranks starting, joining or rendering."""
     started = time.perf_counter()
     if how == "raises":
         part = (np.ones((4, 4, 2), np.float32), np.ones((4, 4, 2), np.float32))
@@ -284,6 +288,10 @@ def test_failing_world_raises_in_the_caller(paths, how):
             _spawn(mesh.merge_parts, 2, ([part, None],), timeout=60)
         assert time.perf_counter() - started < 60
     else:
+        late = os.path.join(paths["dir"], "late.lua")
+        with open(late, "w") as fh:
+            fh.write(SCENE.replace("pixel_samples = 64,", "pixel_samples = 1000000,"))
+        job = _job(dict(paths, late=late), "late", 10**6)
         with pytest.raises(TimeoutError, match="deadline"):
-            _spawn(cli.render_ranks, 2, ([_job(paths, "scene", 64)],), timeout=3)
+            _spawn(cli.render_ranks, 2, ([job],), timeout=3)
         assert time.perf_counter() - started < 20

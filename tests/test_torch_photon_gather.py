@@ -16,6 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
 import pyrite_tpu.tracer as JT
 from pyrite_tpu.film import Film as JaxFilm
 from pyrite_tpu.project import load_project as jax_load
@@ -249,3 +250,118 @@ def test_gather_matches_jax(paths, exact, monkeypatch):
     assert float(wt_t.sum()) > 0 and float((acc_t > 0).sum()) > 20
     np.testing.assert_allclose(wt_t.numpy(), np.asarray(wt_j), rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(acc_t.numpy(), np.asarray(acc_j), rtol=1e-5, atol=1e-7)
+
+
+def _jax_edge_gather(spec, photons, q):
+    """The gather of a hand-built map by the JAX package's own enumeration:
+    (num_neighbors, fresh_cnt, acc_bins, cnt_bins, fresh_psum).
+
+    Taken from the JAX package: the slots, grid_prepare then grid_scan_slot
+    over its 27 x _CELL_CAP steps (pyrite_tpu/renderers/photon.py:266-289);
+    the chain values, interp_cols and _chain_eval; the film bin,
+    Film.wavelength_to_bin. Written out again here in float32 numpy, as the
+    body of the JAX package's _gather (:395-452) does it, since that body is
+    a closure over a scene and a film and takes no hand-built map: each
+    pair's geometry weight and its adds in step order. One rule is the
+    port's and not the JAX package's: the factors come in the port's
+    encoding (log |f|, a sign flag and a zero flag), where the JAX package
+    clamps |f| to 1e-37 and has no zero flag, so a chain with a zero
+    factor is set to exactly 0, as the port's _chain_eval sets it."""
+    P = {k: np.asarray(v) for k, v in photons.items()}
+    Q = {k: np.asarray(v) for k, v in q.items()}
+    n, b, k_fresh, g = Q["position"].shape[0], spec.bins, spec.spectrum_samples, spec.g_bins
+    film = JaxFilm(1, 1, b, spec.span)
+    f32 = np.float32
+    order, sorted_keys, starts, ckeys = jph.grid_prepare(P["position"], P["valid"], Q["position"],
+                                                         spec.radius)
+    scan = jax.jit(jph.grid_scan_slot)
+    valid, cam_disp = Q["valid"], Q["dispersed"]
+    nrm = Q["normal"]
+
+    def dot(x, y):
+        return (x[..., 0] * y[..., 0] + x[..., 1] * y[..., 1]) + x[..., 2] * y[..., 2]
+
+    def chain(counts, scalar, log_f, neg_f, zero_f):
+        value = np.asarray(jph._chain_eval(counts, scalar, log_f, neg_f))
+        return np.where((counts * zero_f).sum(-1) > 0, f32(0), value)
+
+    cos_cam = np.maximum(dot(Q["incident"], -nrm), f32(0))
+    num = np.zeros(n, np.int64)
+    fresh_cnt = np.zeros(n, np.int64)
+    acc, cnt = np.zeros((n, b), f32), np.zeros((n, b), f32)
+    fresh = np.zeros((n, k_fresh), f32)
+    lanes = np.arange(n)
+    for step in range(27 * jph._CELL_CAP):
+        pj, match = (np.asarray(x) for x in scan(step, order, sorted_keys, starts, ckeys, P["valid"],
+                                                 P["position"], Q["position"], spec.radius))
+        match = match & valid
+        num += match
+        p_disp = P["dispersed"][pj]
+        pair = match & ~(cam_disp & p_disp)
+        clear = pair & ~cam_disp & ~p_disp
+        exit_dir = -P["incident"][pj]
+        w_geom = np.maximum(dot(exit_dir, nrm), f32(0)) * cos_cam / f32(np.pi)
+        gw = f32(2) * np.abs(dot(nrm, exit_dir)) * w_geom
+        row = P["power"][pj]
+        lam_p = P["wavelength"][pj]
+        if spec.exact:
+            r_sel = np.where(cam_disp, Q["partialR"][:, 0], chain(
+                Q["counts"], Q["scalar"], P["log_f"][pj], P["neg_f"][pj], P["zero_f"][pj]))
+            p_sel = np.where(cam_disp, chain(P["counts"][pj], P["scalar"][pj], Q["log_f0"],
+                                             Q["neg_f0"], Q["zero_f0"]), row[:, 0])
+            p_f = chain(P["counts"][pj][:, None], P["scalar"][pj][:, None], Q["log_ff"],
+                        Q["neg_ff"], Q["zero_ff"])
+        else:
+            s = spec.spectrum_samples
+            r_grid = Q["partialR"][:, s:s + g]
+            r_sel = np.where(cam_disp, Q["partialR"][:, 0],
+                             np.asarray(jph.interp_cols(r_grid, spec.span, lam_p)))
+            p_sel = np.where(cam_disp, np.asarray(jph.interp_cols(row[:, 1:], spec.span, Q["lam0"])),
+                             row[:, 0])
+            p_f = np.asarray(jph.interp_cols(row[:, 1:], spec.span, Q["lam_f"]))
+        lam_sel = np.where(cam_disp, Q["lam0"], lam_p)
+        j = np.asarray(film.wavelength_to_bin(lam_sel))
+        acc[lanes[pair], j[pair]] += (r_sel * p_sel * gw)[pair]
+        cnt[lanes[pair], j[pair]] += f32(1)
+        fresh[clear] += p_f[clear] * gw[clear][:, None]
+        fresh_cnt += clear
+    return num, fresh_cnt, acc, cnt, fresh
+
+
+@pytest.mark.parametrize("name", chip_smoke.EDGE_MAPS)
+def test_gather_edge_maps_match_jax(name):
+    """gather_plain (photon_gather's CPU path, the kernel's reference on the
+    card) on the hand-built maps of chip_smoke.gather_edge_maps, against
+    the JAX package's grid enumeration of the same photons and queries:
+    num_neighbors and fresh_cnt equal, acc_bins, cnt_bins and fresh_psum
+    within test_gather_matches_jax's rtol 1e-5 / atol 1e-7. Each map shows
+    the edge it is made for: the scan's clipped duplicates of the last
+    photon counted (all_valid), the cap of _CELL_CAP photons a cell
+    (over_cap), cells with wrapped key products (negative), photons at
+    exactly the radius counted and one ulp past it not (at_radius), and a
+    512-bin film in exact mode (bins_512)."""
+    spec, photons, q = chip_smoke.gather_edge_maps()[name]
+    got = ph.gather_plain(spec, chip_smoke.sorted_map(photons, spec), q)
+    num, fresh_cnt, acc, cnt, fresh = _jax_edge_gather(spec, photons, q)
+    np.testing.assert_array_equal(got["num_neighbors"].numpy(), num)
+    np.testing.assert_array_equal(got["fresh_cnt"].numpy(), fresh_cnt)
+    for key, want in (("acc_bins", acc), ("cnt_bins", cnt), ("fresh_psum", fresh)):
+        np.testing.assert_allclose(got[key].numpy(), want, rtol=1e-5, atol=1e-7, err_msg=key)
+    assert cnt.sum() > 100 and (fresh_cnt > 0).any()
+    # what each map is made for, counted by brute force over the photons
+    pos, q_pos = photons["position"].numpy(), q["position"].numpy()
+    d2 = ((pos[None] - q_pos[:, None]) ** 2).sum(-1)
+    inside = ((d2 <= spec.radius ** 2) & photons["valid"].numpy()[None]).sum(1)
+    inside = np.where(q["valid"].numpy(), inside, 0)
+    if name == "all_valid":
+        assert (num > inside).any(), "no query counted the clipped duplicates"
+    elif name == "over_cap":
+        assert (num < inside).any(), "no query met the cap"
+    elif name == "at_radius":
+        assert (num > 0).sum() > 30 and np.array_equal(num, inside)
+        assert (np.abs(d2 - 0.25) < 1e-12).sum() >= 40
+    elif name == "negative":
+        cells = np.floor(q_pos / spec.radius)
+        assert (cells < -29).any() and (num[cells.min(1) < -29] > 0).any()
+    else:
+        assert spec.exact and spec.bins == 512
