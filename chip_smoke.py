@@ -2927,6 +2927,36 @@ def _compare_vertex(ref, got, what, uv=False):
     return max(err, _close_where(ref_s, got_s, ("origin", "direction"), ref_s["alive"], what))
 
 
+def check_lamp_walk(name, scene, lamp_cfg, wl, keyed, bank):
+    """B on one lamp walk of ``wl``'s lanes with ``keyed``'s draws, each
+    step from the plain state against its plain version (_compare_vertex:
+    a flag that differs on any lane fails): the start mode against
+    tracer.lamp_start, the first bounce from sparse_lamp_state
+    (check_sparse_lamp), every lamp bounce against
+    tracer.lamp_bounce_step. Returns (the largest error, the plain
+    vertices, their incident directions, each depth's (state, draws), the
+    start draws)."""
+    from pyrite_tpu_torch import kernels_dense as kd, rng, tracer
+
+    n, dev = wl.shape[0], wl.device
+    start = rng.lamp_start_draws(keyed, n, scene.num_lamps, dev)
+    got = kd.lamp_start(scene, wl, start, bank)
+    vertex, state = tracer.lamp_start(scene, wl, start)
+    worst = _compare_vertex((vertex, state), got, f"{name} lamp start", scene.frames)
+    worst = max(worst, check_sparse_lamp(name, scene, lamp_cfg, wl, state, keyed, bank))
+    verts, incident, states = [vertex], [state["direction"]], []
+    for d in range(lamp_cfg.bounces):
+        draws = rng.lamp_bounce_draws(keyed, n, d, dev)
+        states.append((dict(state), draws))
+        got_s, got_v = kd.lamp_bounce(scene, lamp_cfg, wl, state, draws, bank)
+        incident.append(state["direction"])
+        state, vertex = tracer.lamp_bounce_step(scene, lamp_cfg, wl, state, draws)
+        worst = max(worst, _compare_vertex((vertex, state), (got_v, got_s), f"{name} lamp bounce {d}",
+                                           scene.frames))
+        verts.append(vertex)
+    return worst, verts, incident, states, start
+
+
 def check_bdpt(name, path, seed=0, cut=None):
     """Phase 3 for the bidirectional renderer's kernels on one scene, at the
     wavefront render() launches (its first chunk; ``cut`` keeps its first
@@ -2934,7 +2964,8 @@ def check_bdpt(name, path, seed=0, cut=None):
     on CUDA tensors, each step started from the plain state:
     B, the lamp kernel's start mode against tracer.lamp_start and its
     bounces against tracer.lamp_bounce_step (a flag that differs on any
-    lane fails); A, the bounce kernel's kRecord instantiation with the NEE
+    lane fails), also from a sparse state (check_lamp_walk); A, the bounce
+    kernel's kRecord instantiation with the NEE
     kernel (kernels_dense.bounce_dense, record) against
     tracer.bounce_core(record=True) for the camera bounces: the state as
     check_kernels holds it, the camera vertex's flags exact on every lane
@@ -2943,8 +2974,9 @@ def check_bdpt(name, path, seed=0, cut=None):
     kernels_dense.shadow_query (C, dense_shadow_kernel, on a dense scene;
     wide_shadow_kernel on a mesh scene; after the query march pass on a
     scene with DE shapes) bit for bit against shadow_query_plain on the
-    connection batch of camera bounce 0 and on the splat batch of the
-    plain lamp paths. The plain versions march the
+    connection batch of camera bounce 0, on the splat batch of the plain
+    lamp paths and on shadow_edge_batches in their box
+    (check_shadow_edges). The plain versions march the
     DE shapes in march_de_kernel (kernel_march). Returns the worst errors
     and the inputs of the timed launches."""
     with kernel_march():
@@ -2965,23 +2997,9 @@ def _check_bdpt(name, path, seed, cut):
     worst = {"lamp": 0.0, "record": 0.0, "brightness": 0.0, "divergent": 0.0}
 
     dev = scene.device
-    start = rng.lamp_start_draws(keyed, n, scene.num_lamps, dev)
-    got = kd.lamp_start(scene, wl, start, bank)
-    vertex, state = tracer.lamp_start(scene, wl, start)
-    worst["lamp"] = _compare_vertex((vertex, state), got, f"{name} lamp start", scene.frames)
-    verts = [vertex]
-    incident = [state["direction"]]
-    timed = {"lamp": None}
-    for d in range(lamp_cfg.bounces):
-        draws = rng.lamp_bounce_draws(keyed, n, d, dev)
-        if d == 0:
-            timed["lamp"] = (dict(state), draws)
-        got_s, got_v = kd.lamp_bounce(scene, lamp_cfg, wl, state, draws, bank)
-        incident.append(state["direction"])
-        state, vertex = tracer.lamp_bounce_step(scene, lamp_cfg, wl, state, draws)
-        worst["lamp"] = max(worst["lamp"], _compare_vertex((vertex, state), (got_v, got_s),
-                                                           f"{name} lamp bounce {d}", scene.frames))
-        verts.append(vertex)
+    worst["lamp"], verts, incident, states, start = check_lamp_walk(name, scene, lamp_cfg, wl, keyed,
+                                                                    bank)
+    timed = {"lamp": states[0] if states else None, "lamps": states, "start": start}
 
     cam = tracer.initial_state(origin, direction, wl.shape[1])
     timed["record"] = None
@@ -3048,12 +3066,134 @@ def _check_bdpt(name, path, seed, cut):
               f"share {blocked:.4f}; {shadow_k} t differs from the plain version's on {bad} rays")
         assert live > 0 and bad == 0, f"{name}: the {what} batch's t differs on {bad} of {live} rays"
     timed["shadow"] = conn_batch
+    timed["splat"] = splat_batch
+    ends = torch.cat([query["origin"][query["contributes"]], s_origin[s_mask]])
+    check_shadow_edges(name, scene, cfg, (ends.amin(dim=0).tolist(), ends.amax(dim=0).tolist()))
     print(f"[bdpt] {name}: {n} lanes, S={wl.shape[1]}, {cfg.bounces} + {lamp_cfg.bounces} "
           f"bounces: lamp kernel max abs err {worst['lamp']:.3g}; bounce kernel <record> max abs "
           f"err {worst['record']:.3g} (state and camera vertex), brightness "
           f"{worst['brightness']:.3g}, divergent lanes {worst['divergent']:.4%} (flags exact, "
           f"rtol 1e-3, atol 1e-4)")
     return result
+
+
+EDGE_BATCHES = ("all_dead", "all_live", "last_thread", "ragged")
+# boxes for shadow_edge_batches' rays where no batch of a render gives one:
+# the Cornell box's inside, and the flagship's balls and the ground below
+EDGE_BOXES = {"cornell_class": ((-2.9, 0.1, -2.9), (2.9, 5.9, 2.9)),
+              "flagship_bdpt": ((-5.0, -0.5, 6.0), (5.0, 3.5, 14.0))}
+
+
+def shadow_edge_batches(box, device="cpu", seed=0, block=128):
+    """Hand-built shadow-query batches at the edges of dense_shadow_kernel's
+    compaction of live rays, from a numpy seed: {name: (origin, direction,
+    max_dist, block_below, live)} on ``device``. Each ray runs from a point
+    of the box ``box`` ((lo, hi) corners) toward another, max_dist the
+    distance between them and block_below DIST_EPSILON short of it, as the
+    connections make them:
+
+    - all_dead: 4 blocks of ``block`` rays, none live;
+    - all_live: 4 blocks, every ray live;
+    - last_thread: 4 blocks, only the last ray of each block live (its
+      block's thread 0 takes it);
+    - ragged: 4 blocks and 77 rays (M not a multiple of the block), live in
+      runs of 5 as in an [N, K] connection batch (every slot of a dead lane
+      dead) and on half the slots of the other lanes.
+    """
+    import numpy as np
+    import torch
+
+    lo, hi = np.asarray(box[0], np.float64), np.asarray(box[1], np.float64)
+    out = {}
+    for i, name in enumerate(EDGE_BATCHES):
+        rng = np.random.default_rng(seed + 211 * i)
+        m = 4 * block + (77 if name == "ragged" else 0)
+        start, end = rng.uniform(lo, hi, (m, 3)), rng.uniform(lo, hi, (m, 3))
+        dist = np.linalg.norm(end - start, axis=1)
+        direction = (end - start) / dist[:, None]
+        idx = np.arange(m)
+        live = {"all_dead": np.zeros(m, bool), "all_live": np.ones(m, bool),
+                "last_thread": idx % block == block - 1,
+                "ragged": np.repeat(rng.random(m // 5 + 1) < 0.6, 5)[:m] & (rng.random(m) < 0.5)}[name]
+        f32 = lambda x: torch.as_tensor(x.astype(np.float32), device=device)  # noqa: E731
+        out[name] = (f32(start), f32(direction), f32(dist), f32(dist - 1e-4),
+                     torch.as_tensor(live, device=device))
+    return out
+
+
+def check_shadow_edges(name, scene, cfg, box, seed=0):
+    """kernels_dense.shadow_query on shadow_edge_batches in the box ``box``
+    of the scene, bit for bit against shadow_query_plain (the CPU tests
+    hold the plain version to the JAX package's intersect_shadow on such
+    batches), each launch counted; on CUDA tensors inside kernel_march.
+    Returns the rays checked."""
+    from pyrite_tpu_torch import kernels_dense as kd
+
+    shadow_k = "wide_shadow_kernel" if scene.use_clusters else "dense_shadow_kernel"
+    rays = 0
+    for what, batch in shadow_edge_batches(box, scene.device, seed).items():
+        _zero_counts()
+        got = kd.shadow_query(scene, cfg, *batch)
+        counts = _read_counts()
+        assert counts[shadow_k] == 1 and counts["intersect_shadow"] == 0, counts
+        bad = int(_bits_differ(kd.shadow_query_plain(scene, cfg, *batch), got).sum())
+        live = int(batch[4].sum())
+        print(f"[bdpt-edges] {name} {what}: {batch[0].shape[0]} rays, {live} live; {shadow_k} t "
+              f"differs from the plain version's on {bad} rays")
+        assert bad == 0, f"{name}: edge batch {what}'s t differs on {bad} rays"
+        rays += batch[0].shape[0]
+    return rays
+
+
+def sparse_lamp_state(state, every=37):
+    """A lamp walk's state with only every ``every``-th lane left alive
+    (where it was)."""
+    import torch
+
+    alive = state["alive"]
+    keep = torch.arange(alive.shape[0], device=alive.device) % every == 0
+    return dict(state, alive=alive & keep)
+
+
+def dead_lamp_lanes(state, vertex, nxt, what):
+    """The lanes of ``state`` that are not alive hold what a lamp bounce
+    writes for them: the vertex at the ray's origin, normal 0, colour -1,
+    probability 0, every flag false, brdf and brdf_scatter 1, uv 0, and the
+    next state's ray unchanged, not alive. Returns their count."""
+    import torch
+
+    dead = ~state["alive"].bool()
+    want = {"position": state["origin"], "normal": 0.0, "uv": 0.0, "color_prog": -1,
+            "probability": 0.0, "is_diffuse": False, "dispersed": False, "valid": False,
+            "brdf": 1.0, "brdf_scatter": 1.0}
+    for k, v in want.items():
+        got = vertex[k][dead]
+        ref = v[dead] if torch.is_tensor(v) else torch.full_like(got, v)
+        assert torch.equal(got, ref), f"{what}: a dead lane's {k} is not {v if not torch.is_tensor(v) else 'its origin'}"
+    for k in ("origin", "direction"):
+        assert torch.equal(nxt[k][dead], state[k][dead]), f"{what}: a dead lane's next {k} moved"
+    assert not bool(nxt["alive"][dead].any()), f"{what}: a dead lane came alive"
+    return int(dead.sum())
+
+
+def check_sparse_lamp(name, scene, lamp_cfg, wl, state, keyed, bank):
+    """The lamp kernel's first bounce from sparse_lamp_state(``state``)
+    (one lane in 37 alive), against tracer.lamp_bounce_step as
+    _compare_vertex holds the others, and its dead lanes against
+    dead_lamp_lanes. Returns the largest error."""
+    from pyrite_tpu_torch import kernels_dense as kd, rng, tracer
+
+    sparse = sparse_lamp_state(state)
+    draws = rng.lamp_bounce_draws(keyed, wl.shape[0], 0, wl.device)
+    _zero_counts()
+    got_s, got_v = kd.lamp_bounce(scene, lamp_cfg, wl, sparse, draws, bank)
+    assert _read_counts()[kd._lamp_name(scene)] == 1
+    want_s, want_v = tracer.lamp_bounce_step(scene, lamp_cfg, wl, sparse, draws)
+    err = _compare_vertex((want_v, want_s), (got_v, got_s), f"{name} sparse lamp bounce", scene.frames)
+    dead = dead_lamp_lanes(sparse, got_v, got_s, f"{name} sparse lamp bounce")
+    print(f"[bdpt] {name} sparse lamp state: {int(sparse['alive'].sum())} alive lanes of "
+          f"{wl.shape[0]}, max abs err {err:.3g}; the {dead} dead lanes hold their defaults")
+    return err
 
 
 def _once_ms(fn):
@@ -3065,6 +3205,69 @@ def _once_ms(fn):
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - started) * 1e3
+
+
+def _prog_tables_bytes(scene):
+    """Bytes a kProg launch reads once besides the program code: its
+    textures and frame tables."""
+    return _program_bytes(scene) + _nbytes(*(scene.arrays[k] for k in (
+        "tri_q", "tri_uv", "sph_texscale", "pla_quat", "pla_texscale")))
+
+
+def _lamp_cost(scene, lamp_cfg, wl, lamp, draws):
+    """(bytes, FP32 operations) of one lamp kernel launch on this run's
+    inputs: a bounce of the state ``lamp`` with its LAMP_BOUNCE ``draws``,
+    or the start mode where ``lamp`` is None. Bytes, each read or written
+    once: the scene sheet; a bounce lane's ray and flag in (25) and its
+    vertex and next state out (68; on a kProg scene 8 more of uv, the
+    program and frame tables once and each alive lane's leaves), an alive
+    lane's four draws, hero wavelength and n_de march t (20 + 4 n_de); a
+    start lane its six draws in (24) and its vertex and state out (64).
+    Operations: an alive lane's sweep and shading (and frame) and the work
+    the plain version counts without its march; a start lane's lamp sample."""
+    import torch
+
+    from pyrite_tpu_torch import tracer
+
+    n = wl.shape[0]
+    sheet = _nbytes(scene.dense_pack["tensors"]["sheet"])
+    prog = scene.dense_pack["prog"]
+    if lamp is None:
+        return sheet + n * (24 + 64 + (8 if prog else 0)), n * OPS["lamp"]
+    alive = torch.nonzero(lamp["alive"])[:, 0]
+    size = sheet + n * (25 + 68) + alive.numel() * (20 + 4 * len(scene.de_shapes))
+    if prog:
+        size += _prog_tables_bytes(scene) + 8 * n + _surface_leaf_bytes(
+            scene, lamp_cfg, wl, lamp, draws["u_comp"], color=False)
+    with kernel_march():
+        work = _counted(lambda: tracer.lamp_bounce_step(
+            scene, lamp_cfg, wl[alive], {k: v[alive] for k, v in lamp.items()},
+            {k: draws[k][alive] for k in ("u_comp", "u_scatter")}))
+    frame = OPS["frame"] if prog else 0
+    return size, _work_ops(scene, work, alive.numel(), _sweep_ops(scene) + OPS["shade"] + frame)
+
+
+def _shadow_cost(scene, cfg, batch):
+    """(bytes, FP32 operations) of dense_shadow_kernel on the shadow batch
+    ``batch`` (shadow_query's arguments but the scene's). Bytes: the sheet
+    once, per live ray 33 (origin, direction, distance and flag in, t out;
+    a dense sweep reads no occlusion bound) and n_de t on a DE scene, per
+    ray that is not live 9 (flag and distance in, t out). Operations: the
+    live rays' sweeps and the work the plain version counts without its
+    march."""
+    import torch
+
+    from pyrite_tpu_torch import tracer
+
+    live = torch.nonzero(batch[4])[:, 0]
+    m = batch[0].shape[0]
+    size = (_nbytes(scene.dense_pack["tensors"]["sheet"])
+            + live.numel() * (33 + 4 * len(scene.de_shapes)) + (m - live.numel()) * 9)
+    with kernel_march():
+        work = _counted(lambda: tracer.intersect_shadow(
+            scene, batch[0][live], batch[1][live], batch[2][live], batch[3][live],
+            cfg.max_de_steps))
+    return size, _work_ops(scene, work, live.numel(), _sweep_ops(scene))
 
 
 def time_bdpt(checked, card, variant=None):
@@ -3141,31 +3344,18 @@ def time_bdpt(checked, card, variant=None):
     if variant:
         return times
     alive_cam = torch.nonzero(cam["alive"])[:, 0]
-    alive_lamp = torch.nonzero(lamp["alive"])[:, 0]
-    live = torch.nonzero(batch[4])[:, 0]
     # Bytes: the scene sheet once; A per lane the bounce kernel's 24 S + 99
-    # bytes and the camera vertex's 32; B per lane its ray, flag and four
-    # draws in (29) and vertex and state out (58); C per live ray 33
-    # (origin, direction, distance and flag in, t out; a dense sweep reads
-    # no occlusion bound) and n_de t on a DE scene, per ray that is not
-    # live 9 (flag and distance in, t out).
+    # bytes and the camera vertex's 32; B and C as _lamp_cost and
+    # _shadow_cost count them.
     sheet = _nbytes(scene.dense_pack["tensors"]["sheet"])
     n_de = len(scene.de_shapes)
-    m = batch[0].shape[0]
-    sizes = {record: sheet + n * (24 * s_count + 131 + 4 * n_de),
-             lamp_name: sheet + n * (87 + 4 * n_de),
-             "dense_shadow_kernel": sheet + live.numel() * (33 + 4 * n_de)
-             + (m - live.numel()) * 9}
+    sizes = {record: sheet + n * (24 * s_count + 131 + 4 * n_de)}
     if scene.dense_pack["prog"]:
         # the kProg instantiations also read the program tables, textures
         # and frame tables once and, per lane, the leaf values of the
-        # programs it runs; the lamp kernel writes uv
-        tables = _program_bytes(scene) + _nbytes(
-            *(scene.arrays[k] for k in ("tri_q", "tri_uv", "sph_texscale", "pla_quat",
-                                        "pla_texscale")))
-        sizes[record] += tables + _surface_leaf_bytes(scene, cfg, wl, cam, cam_draws["u_comp"])
-        sizes[lamp_name] += tables + 8 * n + _surface_leaf_bytes(
-            scene, lamp_cfg, wl, lamp, lamp_draws["u_comp"], color=False)
+        # programs it runs
+        sizes[record] += _prog_tables_bytes(scene) + _surface_leaf_bytes(
+            scene, cfg, wl, cam, cam_draws["u_comp"])
     if colors is not None:
         # per vertex its program and flag in (5) and S colors out; a valid
         # vertex whose program runs code also reads its normal, incident
@@ -3189,26 +3379,19 @@ def time_bdpt(checked, card, variant=None):
             record: _counted(lambda: tracer.bounce_core(
                 scene, cfg_no_nee, wl[alive_cam], {k: v[alive_cam] for k, v in cam.items()},
                 {k: cam_draws[k][alive_cam] for k in ("u_comp", "u_scatter")}, record=True)),
-            lamp_name: _counted(lambda: tracer.lamp_bounce_step(
-                scene, lamp_cfg, wl[alive_lamp], {k: v[alive_lamp] for k, v in lamp.items()},
-                {k: lamp_draws[k][alive_lamp] for k in ("u_comp", "u_scatter")})),
-            "dense_shadow_kernel": _counted(lambda: tracer.intersect_shadow(
-                scene, batch[0][live], batch[1][live], batch[2][live], batch[3][live],
-                cfg.max_de_steps)),
         }
     frame = OPS["frame"] if scene.dense_pack["prog"] else 0
-    lanes = {record: (alive_cam.numel(), _sweep_ops(scene) + OPS["shade"] + frame),
-             lamp_name: (alive_lamp.numel(), _sweep_ops(scene) + OPS["shade"] + frame),
-             "dense_shadow_kernel": (live.numel(), _sweep_ops(scene))}
+    lanes = {record: (alive_cam.numel(), _sweep_ops(scene) + OPS["shade"] + frame)}
     if colors is not None:
         works["program_colors_kernel"] = {}
         lanes["program_colors_kernel"] = (int(colors[1].sum()), OPS["program"] * s_count)
+    costs = {lamp_name: _lamp_cost(scene, lamp_cfg, wl, lamp, lamp_draws),
+             "dense_shadow_kernel": _shadow_cost(scene, cfg, batch)}
     result = {}
     for name in runs:
-        ops = _work_ops(scene, works[name], *lanes[name])
-        result[name] = (*times[name], sizes[name], ops)
-        print(f"[work] bdpt {name}: {lanes[name][0]} rays, {sizes[name]} bytes, {ops} FP32 "
-              f"operations ({_plain_counts(works[name])})")
+        size, ops = costs.get(name) or (sizes[name], _work_ops(scene, works[name], *lanes[name]))
+        result[name] = (*times[name], size, ops)
+        print(f"[work] bdpt {name}: {size} bytes, {ops} FP32 operations")
     _print_bounds("bdpt", result)
     return result
 
@@ -3878,7 +4061,8 @@ def check_record_chain(name, path, seed=0, setup=None):
 def check_photon(name, path, seed=0):
     """Phase 7's checks on one photon project at the wavefront render()
     launches (its first chunk, sample 0, pass 0), on CUDA tensors: the
-    camera walk's chain factors (check_record_chain), then
+    camera walk's chain factors (check_record_chain), the photon walk's
+    lamp kernel (check_lamp_walk on pass 0's photons), then
     photon_gather_kernel against its plain version (renderers.photon.
     gather_plain) on every bounce of the kernels' walk against the map of
     pass 0 (the lamp kernels' photons): num_neighbors and fresh_cnt equal,
@@ -3886,6 +4070,8 @@ def check_photon(name, path, seed=0):
     adds in the same order; CUDA's expf and PyTorch's exp may differ in the
     last ulp). Prints the map's cell occupancy. Returns the worst errors and
     the inputs of the timed gather (camera bounce 0)."""
+    import torch
+
     from pyrite_tpu_torch import kernels_dense as kd, rng
     from pyrite_tpu_torch.renderers import photon as ph
 
@@ -3896,6 +4082,14 @@ def check_photon(name, path, seed=0):
     n = wl.shape[0]
     dev = scene.device
     worst = {"record": check_record_chain(name, path, seed, setup), "gather": 0.0}
+    # the photon walk's lamp kernel (photon_batch's inputs of pass 0)
+    settings = pd.project.renderer
+    lam_p = rng.photon_wavelengths(photon_draws, settings.photons, spec.span, dev)
+    wl_p = lam_p if spec.exact else torch.cat(
+        [lam_p, parts[8][None, :].expand(lam_p.shape[0], spec.bins)], dim=1)
+    with kernel_march():
+        worst["lamp"] = check_lamp_walk(f"{name} photons", scene, photon_cfg, wl_p, photon_draws,
+                                        kd.precompute_bank_values(scene, wl_p))[0]
     # the gather, on the kernels' own walk
     chain_m = len(scene.color_programs) if spec.exact else None
     _, vertices = ph._record_camera_vertices(scene, cfg, cam_draws, origin, direction, wl_ext, bank,
@@ -4797,11 +4991,12 @@ PROG_VARIANTS = {
 }
 
 
-def build_variants(tmp):
-    """PROG_VARIANTS built from edited copies of csrc/ under ``tmp``, with
-    the library's flags (one nvcc per .cu of every variant, all at once,
-    then a link each). Returns {name: (loaded library, build log)}; a
-    variant none of whose edits applies to this checkout is skipped."""
+def build_variants(tmp, variants=None, tag="prog"):
+    """``variants`` (PROG_VARIANTS by default) built from edited copies of
+    csrc/ under ``tmp``, with the library's flags (one nvcc per .cu of every
+    variant, all at once, then a link each). Returns {name: (loaded
+    library, build log)}; a variant none of whose edits applies to this
+    checkout is skipped."""
     import ctypes
     import glob
 
@@ -4811,10 +5006,10 @@ def build_variants(tmp):
     with open(os.path.join(_build.CSRC, "bounce.cu")) as fh:
         source = fh.read()
     jobs = []
-    for name, alternatives in PROG_VARIANTS.items():
+    for name, alternatives in (PROG_VARIANTS if variants is None else variants).items():
         edits = next((e for e in alternatives if all(a is None or a in source for a, _ in e)), None)
         if edits is None:
-            print(f"[prog] variant {name}: no edit applies to this checkout")
+            print(f"[{tag}] variant {name}: no edit applies to this checkout")
             continue
         src = source
         for anchor, text in edits:
@@ -4944,6 +5139,221 @@ def measure_prog(card):
                 time_prog_kernels(tex[name], lib, card, f"variant {variant}")
             if not hasattr(lib, "prog_lanes_read"):
                 time_bdpt(checked, card, (variant, lib))
+
+
+# --bdpt-probes' variants of csrc/bounce.cu, B and C with a part cut or
+# changed, for this tree and (the first alternative that applies) the
+# parent's. "c_no_sweep": C without its primitive sweep (the rays still
+# read); "b_no_hit": B without its closest-hit sweep and DE hits (every
+# lane misses: no surface or scatter either); "b_no_shade": B with the hit
+# but no surface, pick or scatter; "b_no_de_normals": B without its DE hits'
+# normal probes; "sheet_sweeps": C's sweep reading the sheet (DenseGeo)
+# rather than rows staged in shared memory; "lamp_staged": B's dense sweep
+# over rows staged in shared memory behind a barrier (_CLOSEST_STAGED);
+# "shadow_tiles_<t>": a warp of C taking t tiles of 32 rays; "lamp_bounds":
+# the simple dense_lamp_kernel instantiations without their request for 8
+# resident blocks of 128 threads (a parent's with it); "shadow_bounds_16":
+# C asking for 16.
+_C_SWEEP_PARENT = ("  float t = DenseGeo{}.shadow(a.sheet, load3(a.origin, ray), load3(a.direction, ray), t0,\n"
+                   "                              a.block_below[ray], true);\n")
+_C_SWEEP = "  float best = shadow_staged(sh, prims, o, d, plane_shadow(sh, o, d, a.max_dist[ray]));\n"
+_B_SWEEP = "  } else if (alive) {\n    h = geo.closest(sh, o, d, true);\n  }\n"
+_B_HIT_PARENT = _B_SWEEP + "  if (kDE && alive) apply_de_closest(sh, a.t_de, a.n, lane, h);\n"
+_B_HIT = (_B_SWEEP + "  if (kDE && alive)  // apply_de_closest, its first t read above\n"
+          "    for (int j = 0; j < n_de; ++j) {\n"
+          "      const float tj = j == 0 ? de0 : a.t_de[(size_t)j * a.n + lane];\n"
+          "      if (tj > DIST_EPSILON && tj < h.t) h = {tj, KIND_DE, j, h.u, h.v};\n    }\n")
+_B_SHADE = "  if (found) {\n    hit_surface<Geo, kDE>(sh, geo, h, pos, normal, mat);\n    if (kProg) {\n      float4 q;"
+_B_NORMALS = ("  if (kDE) de_normals_shared(sh, lamp_smem + (kProg ? pa.own_off : 0) + (threadIdx.x >> 5) "
+              "* DE_SLOT_FLOATS,\n                             found && h.kind == KIND_DE, h, o, d, "
+              "normal, mat);\n")
+_B_LANE = "// One lamp bounce per lane (tracer.lamp_bounce_step): the closest hit\n"
+_B_SMEM_IN = "  extern __shared__ __align__(16) float lamp_smem[];\n  const Sheet sh = a.sheet;\n"
+_B_OWN = "lamp_smem + (kProg ? pa.own_off : 0)"
+_B_SMEM = "  return de ? sizeof(float) * (BLOCK / 32) * DE_SLOT_FLOATS : 0;"
+_CLOSEST_STAGED = """// DenseGeo's primitive sweeps over the staged rows, after the planes: the
+// same tests on the same floats in the same (sheet) order, so every bit is
+// DenseGeo::closest's or ::shadow's.
+__device__ __forceinline__ void closest_staged(const Sheet& sh, const float4* prims, V3 o, V3 d,
+                                               Hit& h) {
+  const int n_prims = sh.count(M_N_PRIMS);
+  for (int j = 0; j < n_prims; ++j) {
+    const float4 p0 = prims[3 * j], p1 = prims[3 * j + 1], p2 = prims[3 * j + 2];
+    const V3 c = {p0.x, p0.y, p0.z};
+    float t, u, v;
+    if (p0.w == PRIM_TRIANGLE) {
+      if (ray_triangle(o, d, c, V3{p1.x, p1.y, p1.z}, V3{p2.x, p2.y, p2.z}, t, u, v) && t < h.t)
+        h = {t, KIND_TRIANGLE, j, u, v};
+    } else if (p0.w == PRIM_SPHERE) {
+      if (ray_sphere(o, d, c, p1.w, t) && t < h.t) h = {t, KIND_SPHERE, j, h.u, h.v};
+    }
+  }
+}
+
+"""
+BDPT_VARIANTS = {
+    "c_no_sweep": [
+        [(_C_SWEEP, "  float best = a.max_dist[ray] + 0.0f * (o.x + o.y + o.z + d.x + d.y + d.z);\n")],
+        [(_C_SWEEP_PARENT, "  const V3 o = load3(a.origin, ray), d = load3(a.direction, ray);\n"
+                           "  float t = t0 + 0.0f * (o.x + o.y + o.z + d.x + d.y + d.z);\n")]],
+    "b_no_hit": [[(_B_HIT, "  }\n")], [(_B_HIT_PARENT, "  }\n")]],
+    "b_no_shade": [[(_B_SHADE, _B_SHADE.replace("if (found)", "if (false)"))]],
+    "b_no_de_normals": [[(_B_NORMALS, "")]],
+    "sheet_sweeps": [[(_C_SWEEP, "  float best = DenseGeo{}.shadow(sh, o, d, a.max_dist[ray], 0.0f, true);\n")]],
+    "lamp_staged": [[
+        (_B_LANE, _CLOSEST_STAGED + _B_LANE),
+        (_B_HIT, "  } else if (alive) {\n    plane_hit(sh, o, d, h);\n"
+                 f"    closest_staged(sh, reinterpret_cast<const float4*>({_B_OWN}), o, d, h);\n  }}\n"
+                 + _B_HIT[len(_B_SWEEP):]),
+        (_B_SMEM_IN, _B_SMEM_IN + f"  stage_prims(sh, reinterpret_cast<float4*>({_B_OWN}));\n  __syncthreads();\n"),
+        (_B_OWN + " + (threadIdx.x >> 5)", _B_OWN + " + PRIM_FLOATS + (threadIdx.x >> 5)"),
+        (_B_SMEM, "  return sizeof(float) * PRIM_FLOATS + (de ? sizeof(float) * (BLOCK / 32) * DE_SLOT_FLOATS : 0);")]],
+    **{f"shadow_tiles_{t}": [[("constexpr int SHADOW_TILES = 8;", f"constexpr int SHADOW_TILES = {t};")]]
+       for t in (4, 16)},
+    "lamp_bounds": [[("__launch_bounds__(BLOCK, 8) dense_lamp_kernel<", "__launch_bounds__(BLOCK) dense_lamp_kernel<")],
+                    [("__launch_bounds__(BLOCK) dense_lamp_kernel", "__launch_bounds__(BLOCK, 8) dense_lamp_kernel")]],
+    "shadow_bounds_16": [[("__launch_bounds__(BLOCK) dense_shadow_kernel",
+                           "__launch_bounds__(BLOCK, 16) dense_shadow_kernel")]],
+}
+
+
+def kernel_static_smem(log):
+    """{kernel: static shared memory bytes} from the ptxas -v report in a
+    build log, named by _kernel_label."""
+    found = {}
+    for chunk in log.split("Compiling entry function")[1:]:
+        name = _kernel_label(chunk.split("'")[1])
+        smem = re.search(r"(\d+) bytes smem", chunk)
+        if name is not None:
+            found[name] = int(smem.group(1)) if smem else 0
+    return found
+
+
+def resident_warps(registers, smem, threads=128):
+    """Warps of blocks of ``threads`` resident on one H100 SM at
+    ``registers`` a thread (allocated 256 a warp) and ``smem`` bytes of
+    shared memory a block (1 KiB more reserved a block, of 228 KiB), at
+    most 32 blocks and 64 warps."""
+    warps = threads // 32
+    per_warp = -(-registers * 32 // 256) * 256
+    blocks = min((65536 // per_warp) // warps, 233472 // (smem + 1024), 32, 64 // warps)
+    return blocks * warps
+
+
+def print_bdpt_registers(log, what="build"):
+    """B's and C's registers, spill stores / loads, shared memory and
+    resident warps a SM (resident_warps) from the ptxas -v report: the
+    static shared memory, and the lamp kernels' <true> instantiations also
+    their DE probe slots (dynamic; a kProg launch adds its program stack)."""
+    from pyrite_tpu_torch import kernels_dense as kd
+
+    regs, static = kernel_registers(log), kernel_static_smem(log)
+    parts = []
+    for name in sorted(regs):
+        if "lamp_kernel" not in name and "dense_shadow_kernel" not in name:
+            continue
+        r, st, ld = regs[name]
+        smem = static[name] + (kd._DE_SLOT_BYTES if "lamp_kernel<true>" in name else 0)
+        parts.append(f"{name} {r} registers, {st}/{ld} B spilled, {smem} B shared, "
+                     f"{resident_warps(r, smem)} resident warps")
+    print(f"[bdpt-regs] {what}: " + "; ".join(parts))
+
+
+def time_bdpt_parts(name, checked, card, lib=None, what="build"):
+    """``--bdpt``'s times of B and C on check_bdpt's chunk of a scene: the
+    lamp kernel in start mode and at lamp depths 0, 1 and 2, and on a dense
+    scene dense_shadow_kernel on the connection batch of camera bounce 0
+    and on the splat batch, through ``lib`` (the build, or a variant's
+    library from build_variants): ms per launch (two windows of 50 after a
+    warm-up), the alive or live share, and the bound of the inputs
+    (_lamp_cost, _shadow_cost; counted once a scene). Returns {label:
+    ms}."""
+    import torch
+
+    from pyrite_tpu_torch import _build, kernels_dense as kd
+
+    scene, cfg, lamp_cfg, wl, bank = checked["setup"]
+    lib = lib or _build.load()
+    lamp_name = kd._lamp_name(scene)
+    launcher = getattr(lib, kd._LAUNCHERS[lamp_name])
+    costs = checked.setdefault("costs", {})
+    jobs = {}  # label: (arguments with the tensors they point into, launcher, share, rays, cost)
+    start = kd.lamp_kernel_args(scene, wl, checked["timed"]["start"]["words"], bank)
+    costs.setdefault("start", lambda: _lamp_cost(scene, lamp_cfg, wl, None, None))
+    jobs["start"] = (start, launcher, 1.0, wl.shape[0])
+    for d, (state, draws) in enumerate(checked["timed"]["lamps"][:3]):
+        t_de = kd.march_pass(scene, lamp_cfg, state) if scene.de_shapes else None
+        args = kd.lamp_kernel_args(scene, wl, draws["words"], bank, state, t_de)
+        costs.setdefault(f"depth {d}", lambda s=state, dr=draws: _lamp_cost(scene, lamp_cfg, wl, s, dr))
+        jobs[f"depth {d}"] = (args + (t_de,), launcher, float(state["alive"].float().mean()),
+                              wl.shape[0])
+    if not scene.use_clusters:
+        for key, label in (("shadow", "connection"), ("splat", "splat")):
+            batch = checked["timed"][key]
+            t_q = None
+            if scene.de_shapes:
+                q_args, t_q = kd.query_pass_args(scene, cfg, batch[0], batch[1], batch[2], batch[4])
+                assert lib.pyrite_de_march_query_shadow(*q_args) == 0
+            args = kd.dense_shadow_args(scene, *batch, t_q)
+            costs.setdefault(label, lambda b=batch: _shadow_cost(scene, cfg, b))
+            jobs[label] = (args + (t_q,), lib.pyrite_dense_shadow, float(batch[4].float().mean()),
+                           batch[0].shape[0])
+    times = {}
+    for label, (held, fn, share, rays, ) in jobs.items():
+        run = lambda: fn(*held[0])  # noqa: E731
+        assert run() == 0, f"{name} {label}: launch failed"
+        run()
+        torch.cuda.synchronize()
+        k1, k2 = _event_ms(run, 50), _event_ms(run, 50)
+        if callable(costs[label]):
+            costs[label] = costs[label]()
+        size, ops = costs[label]
+        by_bytes, by_ops = size / HBM_BYTES_PER_S * 1e3, ops / _fp32_rate() * 1e3
+        kernel = "dense_shadow_kernel" if label in ("connection", "splat") else lamp_name
+        times[label] = (k1 + k2) / 2
+        print(f"[bdpt-parts] {what} {name} {kernel} {label}: {k1:.4f} / {k2:.4f} ms per launch, "
+              f"{rays} rays, {'live' if kernel == 'dense_shadow_kernel' else 'alive'} share "
+              f"{share:.4f}; bound {max(by_bytes, by_ops):.4f} ms "
+              f"({'bytes' if by_bytes >= by_ops else 'operations'}: {size} bytes, {ops} FP32 "
+              f"operations) ({card})")
+    return times
+
+
+def bdpt_step(card, probes=False):
+    """``--bdpt``: B and C alone. Their registers, spills and resident
+    warps (print_bdpt_registers); check_bdpt (with the shadow edge batches
+    and the sparse lamp state) on every scene of bdpt_scene_paths and on
+    textures_bdpt; time_bdpt_parts on cornell_class, flagship_bdpt,
+    terrain_405_bdpt (B's wide instantiation) and textures_bdpt (B's <prog>
+    one); last profile_bdpt of cornell_class and flagship_bdpt (walls,
+    device busy time by kernel). ``--bdpt-probes`` (``probes``): check_bdpt
+    on cornell_class and flagship_bdpt, then each BDPT_VARIANTS build's
+    registers and time_bdpt_parts there. Copied into a parent's checkout,
+    either measures the parent the same way (a variant whose anchors are
+    not in the checkout is skipped)."""
+    from pyrite_tpu_torch import _build
+
+    print_bdpt_registers(_build.build_log)
+    with tempfile.TemporaryDirectory() as tmp:
+        started = time.perf_counter()
+        bdpt = bdpt_scene_paths(tmp, spp=2)
+        if probes:
+            variants = build_variants(tmp, BDPT_VARIANTS, "bdpt")
+            print(f"[bdpt] variants {sorted(variants)} built in {time.perf_counter() - started:.1f} s")
+            for name in ("cornell_class", "flagship_bdpt"):
+                checked = check_bdpt(name, bdpt[name])
+                time_bdpt_parts(name, checked, card)
+                for variant, (lib, log) in variants.items():
+                    if name == "cornell_class":
+                        print_bdpt_registers(log, f"variant {variant}")
+                    time_bdpt_parts(name, checked, card, lib, f"variant {variant}")
+            return
+        bdpt["textures_bdpt"] = texture_paths(os.path.join(tmp, "textures"))["textures_bdpt"]
+        checked = {name: check_bdpt(name, path) for name, path in bdpt.items()}
+        for name in ("cornell_class", "flagship_bdpt", "terrain_405_bdpt", "textures_bdpt"):
+            time_bdpt_parts(name, checked[name], card)
+        print(f"[phase] --bdpt checks and times: {time.perf_counter() - started:.1f} s")
+    profile_bdpt(card, only=("cornell_class", "flagship_bdpt"))
 
 
 def measure_rows(flagship, fractal, card):
@@ -5076,6 +5486,9 @@ def main(argv=None):
     if argv == ["--photon"]:
         photon_step(smi)
         return 0
+    if argv in (["--bdpt"], ["--bdpt-probes"]):
+        bdpt_step(smi, probes=argv == ["--bdpt-probes"])
+        return 0
     if argv == ["--prog"]:
         measure_prog(smi)
         return 0
@@ -5159,6 +5572,7 @@ def main(argv=None):
         bdpt_checked = {name: check_bdpt(name, bdpt[name]) for name in (
             "cornell_class", "flagship_bdpt", "terrain_405_bdpt", "terrain_de_24_bdpt")}
         times.update(time_bdpt(bdpt_checked["cornell_class"], smi))
+        time_bdpt(bdpt_checked["flagship_bdpt"], smi)  # printed: a dense scene without DE shapes
         small = os.path.join(tmp, "cornell_64")
         os.makedirs(small)
         cornell_64 = write_cornell_scene(small, 64, 64, spp=2)
@@ -5261,7 +5675,8 @@ def main(argv=None):
              replaces="none: XLA, pyrite_tpu/tracer.py:1585 bounce_core's info"),
         dict(kernel("dense_lamp_kernel", "bounce.cu", None,
                     bdpt_total("dense_lamp_kernel", "wide_lamp_kernel") + multi_total("dense_lamp_kernel"),
-                    max(w["lamp"] for w in bdpt_worst)),
+                    max(max(w["lamp"] for w in bdpt_worst),
+                        max(c["worst"]["lamp"] for c in photon_checked.values()))),
              name="dense_lamp_kernel, wide_lamp_kernel",
              replaces="none: XLA, pyrite_tpu/tracer.py:1953 lamp_bounce_step"),
         dict(kernel("dense_shadow_kernel", "bounce.cu", None,

@@ -1439,6 +1439,82 @@ struct LampArgs {
   const float* __restrict__ t_de;  // [n_de, N] the bounce march pass's t (<true> only)
 };
 
+// A dense scene's primitive rows that a ray test reads (sheet rows 0-10:
+// v0 or centre, e1, e2, radius, kind), three float4 a primitive in shared
+// memory: every thread of a warp then reads the same 16 bytes at once (a
+// broadcast), three loads a primitive where the sheet took eleven, and none
+// of them waits on global memory. A dense scene has at most BLOCK
+// primitives (kernels_dense.build_pack), so thread j stages primitive j,
+// before the kernel's one barrier.
+constexpr int PRIM_FLOATS = 12 * BLOCK;
+
+__device__ __forceinline__ void stage_prims(const Sheet& sh, float4* dst) {
+  const int j = threadIdx.x;
+  if (j < sh.count(M_N_PRIMS)) {
+    dst[3 * j] = make_float4(sh.row(0, j), sh.row(1, j), sh.row(2, j), sh.row(10, j));
+    dst[3 * j + 1] = make_float4(sh.row(3, j), sh.row(4, j), sh.row(5, j), sh.row(9, j));
+    dst[3 * j + 2] = make_float4(sh.row(6, j), sh.row(7, j), sh.row(8, j), 0.0f);
+  }
+}
+
+// DenseGeo's primitive sweep of a shadow ray over the staged rows, after
+// the planes: the same tests on the same floats in the same (sheet) order,
+// so every bit is DenseGeo::shadow's.
+__device__ __forceinline__ float shadow_staged(const Sheet& sh, const float4* prims, V3 o, V3 d,
+                                               float best) {
+  const int n_prims = sh.count(M_N_PRIMS);
+  for (int j = 0; j < n_prims; ++j) {
+    const float4 p0 = prims[3 * j], p1 = prims[3 * j + 1], p2 = prims[3 * j + 2];
+    const V3 c = {p0.x, p0.y, p0.z};
+    float t, u, v;
+    if (p0.w == PRIM_TRIANGLE) {
+      if (ray_triangle(o, d, c, V3{p1.x, p1.y, p1.z}, V3{p2.x, p2.y, p2.z}, t, u, v))
+        best = fminf(best, t);
+    } else if (p0.w == PRIM_SPHERE) {
+      if (ray_sphere(o, d, c, p1.w, t)) best = fminf(best, t);
+    }
+  }
+  return best;
+}
+
+// A warp's queue of the lanes it has to work on, in lane order: each tile
+// of 32 lanes appends its flagged ones (a ballot), and once 32 are queued
+// the warp takes them as a batch, one a thread. A ring of 64 slots in
+// shared memory holds them (at most 31 wait when a tile appends its 32).
+// Every thread of the warp calls append and take, and keeps the same
+// counts.
+struct WarpRing {
+  int* slot;  // [64], the warp's
+  int head, tail;  // lanes appended, taken
+
+  __device__ __forceinline__ void append(bool mine, int lane) {
+    const int lid = threadIdx.x & 31;
+    const unsigned m = __ballot_sync(FULL_WARP, mine);
+    if (mine) slot[(head + __popc(m & ((1u << lid) - 1u))) & 63] = lane;
+    head += __popc(m);
+    __syncwarp();
+  }
+  __device__ __forceinline__ int size() const { return head - tail; }
+  // The next batch: this thread's lane, or -1 past the queue's end.
+  __device__ __forceinline__ int take() {
+    const int lid = threadIdx.x & 31, n = min(32, head - tail);
+    const int lane = lid < n ? slot[(tail + lid) & 63] : -1;
+    tail += n;
+    __syncwarp();
+    return lane;
+  }
+};
+constexpr int RING_INTS = (BLOCK / 32) * 64;
+
+// Tiles of 32 rays one warp of dense_shadow_kernel takes.
+constexpr int SHADOW_TILES = 8;
+
+// The word pairs of lane `lane`'s draws at `u` (`per_lane` floats a lane):
+// 8-byte loads where `pairs` (the array 8-byte aligned), else words.
+__device__ __forceinline__ float2 word_pair(const float* __restrict__ u, size_t i, bool pairs) {
+  return pairs ? *reinterpret_cast<const float2*>(u + i) : make_float2(u[i], u[i + 1]);
+}
+
 // The emitter of one lamp path (tracer.sample_lamp_ray and lamp_start): a
 // uniform lamp pick, a point and a direction on the point, sphere or
 // triangle lamp, the emissive component of a shape lamp and its
@@ -1447,39 +1523,42 @@ struct LampArgs {
 // along its normal. A directional lamp starts no path: its vertex is not
 // valid (at the origin, weight 1).
 template <bool kProg>
-__device__ __forceinline__ void lamp_start_lane(const LampArgs& a, const ProgArgs& pa, int lane) {
+__device__ __forceinline__ void lamp_start_lane(const LampArgs& a, const ProgArgs& pa, int lane,
+                                                bool pairs) {
   const Sheet sh = a.sheet;
-  const float* u = a.u + 6 * (size_t)lane;
+  const size_t w = 6 * (size_t)lane;
+  const float2 u01 = word_pair(a.u, w, pairs), u23 = word_pair(a.u, w + 2, pairs),
+               u45 = word_pair(a.u, w + 4, pairs);
   V3 pos = {0.f, 0.f, 0.f}, dir = {0.f, 0.f, 0.f}, normal = {0.f, 0.f, 0.f};
   float su = 0.0f, sv = 0.0f;  // kProg: the emitter's uv
   int color = -1, smat = 0;
   float prob = 1.0f;
   bool dispersed = false, is_shape = false, valid = false;
   if (a.n_lamps > 0) {
-    const int li = min((int)(u[0] * (float)a.n_lamps), a.n_lamps - 1);
+    const int li = min((int)(u01.x * (float)a.n_lamps), a.n_lamps - 1);
     const int type = sh.iat(M_LAMP_TYPE, li), ref = max(sh.iat(M_LAMP_REF, li), 0);
     valid = type != LAMP_DIRECTIONAL;
     float weight = 1.0f;
     if (type == LAMP_POINT) {
       pos = {sh.at(M_LAMP_VX, li), sh.at(M_LAMP_VY, li), sh.at(M_LAMP_VZ, li)};
-      dir = sample_sphere_dir(u[1], u[2]);
+      dir = sample_sphere_dir(u01.y, u23.x);
       normal = dir;  // Surface::Color
       weight = 4.0f * PI_F;
     } else if (type == LAMP_SPHERE) {
       const V3 c = {sh.at(M_LSPH_CX, ref), sh.at(M_LSPH_CY, ref), sh.at(M_LSPH_CZ, ref)};
       const float r = sh.at(M_LSPH_R, ref);
-      pos = c + sample_sphere_dir(u[1], u[2]) * r;
+      pos = c + sample_sphere_dir(u01.y, u23.x) * r;
       normal = normalize(pos - c);
       if (kProg) {
         float4 q;
         sphere_frame(normal, sh.at(M_LSPH_TSU, ref), sh.at(M_LSPH_TSV, ref), q, su, sv);
       }
-      dir = sample_hemisphere(u[3], u[4], normal);
+      dir = sample_hemisphere(u23.y, u45.x, normal);
       weight = r * r * 4.0f * PI_F;
       is_shape = true;
       smat = sh.iat(M_LSPH_MAT, ref);
     } else if (type == LAMP_TRIANGLE) {
-      float tu = u[1], tv = u[2];
+      float tu = u01.y, tv = u23.x;
       if (tu + tv > 1.0f) {
         tu = 1.0f - tu;
         tv = 1.0f - tv;
@@ -1497,7 +1576,7 @@ __device__ __forceinline__ void lamp_start_lane(const LampArgs& a, const ProgArg
         su = sh.at(M_LTRI_UV0U, ref) * tw + sh.at(M_LTRI_UV1U, ref) * tu + sh.at(M_LTRI_UV2U, ref) * tv;
         sv = sh.at(M_LTRI_UV0V, ref) * tw + sh.at(M_LTRI_UV1V, ref) * tu + sh.at(M_LTRI_UV2V, ref) * tv;
       }
-      dir = sample_hemisphere(u[3], u[4], normal);
+      dir = sample_hemisphere(u23.y, u45.x, normal);
       const V3 cr = cross(e1, e2);
       weight = 0.5f * sqrtf(fmaxf(dot(cr, cr), 0.0f));
       is_shape = true;
@@ -1508,12 +1587,12 @@ __device__ __forceinline__ void lamp_start_lane(const LampArgs& a, const ProgArg
     if (is_shape) {
       // choose_emissive (materials/mod.rs:56-62)
       const int count = max(sh.iat(M_MAT_EMIS_COUNT, smat), 1);
-      const int pick = min((int)(u[5] * (float)count), count - 1);
+      const int pick = min((int)(u45.y * (float)count), count - 1);
       const int eidx = sh.iat(M_MAT_EMIS_OFFSET, smat) + pick;
       const int e_comp = sh.iat(M_EMIS_COMP, eidx);
-      const int prob = sh.iat(M_COMP_PROB, e_comp);
-      mat_prob = (kProg ? eval_prob_code(a.progs, pa, prob, lane, a.n, a.s, {normal, -dir, su, sv})
-                        : eval_prob<true>(a.progs, prob, lane, a.n, a.s, normal, -dir)) *
+      const int prob_prog = sh.iat(M_COMP_PROB, e_comp);
+      mat_prob = (kProg ? eval_prob_code(a.progs, pa, prob_prog, lane, a.n, a.s, {normal, -dir, su, sv})
+                        : eval_prob<true>(a.progs, prob_prog, lane, a.n, a.s, normal, -dir)) *
                  sh.at(M_EMIS_SELECTION, eidx);
       dispersed = sh.at(M_COMP_PROB_USES_WL, e_comp) > 0.5f;
       color = sh.iat(M_COMP_COLOR, e_comp);
@@ -1544,16 +1623,45 @@ __device__ __forceinline__ void lamp_start_lane(const LampArgs& a, const ProgArg
 // pick, its probability program and the scatter, the same device code as
 // bounce_lane's. A reflection records a valid vertex and goes on; an
 // emissive hit or a miss ends the path and records nothing (its vertex is
-// written, not valid). What bounds it is what bounds the bounce kernel's
-// hit and shading, without the lane's spectra: ~100 bytes a lane. Every
-// thread reaches the traversal and the DE probes (whole-warp operations),
-// as in bounce_lane.
+// written, not valid; a lane that is not alive writes its origin as
+// position, normal 0, colour -1, probability 0, every flag false, brdf and
+// brdf_scatter 1, and its ray unchanged with alive false). Every thread
+// reaches the traversal and the DE probes (whole-warp operations), as in
+// bounce_lane.
+//
+// What bounds it on an H100: a bounce lane reads its ray and flag (25
+// bytes) and writes its vertex and next state (68; the kProg
+// instantiations 8 more of uv), and an alive lane reads its four draws and
+// hero wavelength (20) and costs the closest-hit sweep (~30 flops a
+// primitive), the surface and the scatter (~150), and on a DE hit the six
+// estimator probes of its normal: ~100 bytes against ~500 flops at
+// cornell_class's 13 primitives. At the renderers' wavefronts (131,072 to
+// 262,144 lanes: two waves of blocks or fewer) a launch is held by the
+// longest path through a block more than by either, and every barrier or
+// dependent load on that path shows.
+//
+// So it stays one thread a lane. Measured slower at the lamp depths of
+// cornell_class and flagship_bdpt (`chip_smoke.py --bdpt` and
+// `--bdpt-probes`, PERF.md): the block's alive lanes compacted to its
+// first threads between barriers, with rays and outputs staged in shared
+// memory (block_copy); a warp queueing the alive lanes of 2 or 4 tiles and
+// working on them 32 at a time (WarpRing, as dense_shadow_kernel does); the
+// dense primitives' rows staged in shared memory behind a barrier; dead
+// lanes written ahead of the warp's alive ones. Lamp paths thin out (a miss
+// or an emissive hit ends one), but a batch of 32 alive lanes only saves
+// issue slots, and this kernel waits on latency. The wide traversal sweeps
+// each leaf with the whole warp; compacted, a warp walked the union of 32
+// lanes' leaves where four warps had walked a quarter each (1.6x slower on
+// terrain_405_bdpt at 11 % alive). What it has of that work: the draws
+// read as a float4 (bounce) or three float2 (start) where the array is
+// aligned, the first DE shape's t read before the sweep, and the simple
+// dense_lamp_kernel's request for 8 resident blocks (below).
 template <class Geo, bool kDE, bool kProg>
 __device__ __forceinline__ void lamp_lane(const LampArgs& a, const Geo& geo, const ProgArgs& pa) {
   const int lane = blockIdx.x * BLOCK + threadIdx.x;
   const bool in_range = lane < a.n;
   if (a.start) {  // the same for the whole grid
-    if (in_range) lamp_start_lane<kProg>(a, pa, lane);
+    if (in_range) lamp_start_lane<kProg>(a, pa, lane, (reinterpret_cast<uintptr_t>(a.u) & 7) == 0);
     return;
   }
   extern __shared__ __align__(16) float lamp_smem[];
@@ -1561,13 +1669,19 @@ __device__ __forceinline__ void lamp_lane(const LampArgs& a, const Geo& geo, con
   const V3 o = in_range ? load3(a.origin, lane) : V3{0.f, 0.f, 0.f};
   const V3 d = in_range ? load3(a.direction, lane) : V3{0.f, 0.f, 0.f};
   const bool alive = in_range && a.alive[lane];
+  const int n_de = kDE ? sh.count(M_N_DE) : 0;
+  const float de0 = alive && n_de > 0 ? a.t_de[lane] : INFINITY;
   Hit h = {INFINITY, KIND_NONE, 0, 0.0f, 0.0f};
   if (Geo::kWholeWarp) {
     h = geo.closest(sh, o, d, alive);
   } else if (alive) {
     h = geo.closest(sh, o, d, true);
   }
-  if (kDE && alive) apply_de_closest(sh, a.t_de, a.n, lane, h);
+  if (kDE && alive)  // apply_de_closest, its first t read above
+    for (int j = 0; j < n_de; ++j) {
+      const float tj = j == 0 ? de0 : a.t_de[(size_t)j * a.n + lane];
+      if (tj > DIST_EPSILON && tj < h.t) h = {tj, KIND_DE, j, h.u, h.v};
+    }
   const bool found = alive && h.kind != KIND_NONE;
   V3 normal = {0.f, 0.f, 0.f};
   int mat = 0;
@@ -1589,8 +1703,11 @@ __device__ __forceinline__ void lamp_lane(const LampArgs& a, const Geo& geo, con
       normal = map_normal(sh, a.progs, pa, mat, lane, a.n, a.s, q, in);
       in.normal = normal;
     }
-    const float* u = a.u + 4 * (size_t)lane;
-    const int comp = pick_component(sh, mat, u[0]);
+    const float* uw = a.u + 4 * (size_t)lane;
+    const float4 u = (reinterpret_cast<uintptr_t>(a.u) & 15) == 0
+                         ? *reinterpret_cast<const float4*>(uw)
+                         : make_float4(uw[0], uw[1], uw[2], uw[3]);
+    const int comp = pick_component(sh, mat, u.x);
     const int prob_prog = sh.iat(M_COMP_PROB, comp);
     const float comp_probability =
         (kProg ? eval_prob_code(a.progs, pa, prob_prog, lane, a.n, a.s, in)
@@ -1603,8 +1720,8 @@ __device__ __forceinline__ void lamp_lane(const LampArgs& a, const Geo& geo, con
       V3 out;
       float sc_probability;
       bool sc_dispersed;
-      SCATTER_BSDF(sh, bsdf, comp, d, normal, flip, a.wl[(size_t)lane * a.s], u[1], u[2], u[3],
-                   out, sc_probability, sc_dispersed);
+      SCATTER_BSDF(sh, bsdf, comp, d, normal, flip, a.wl[(size_t)lane * a.s], u.y, u.z, u.w, out,
+                   sc_probability, sc_dispersed);
       diffuse = bsdf == BSDF_DIFFUSE;
       dispersed = sc_dispersed || sh.at(M_COMP_PROB_USES_WL, comp) > 0.5f;
       prob = sc_probability * comp_probability;
@@ -1635,13 +1752,37 @@ __device__ __forceinline__ void lamp_lane(const LampArgs& a, const Geo& geo, con
 
 // The any-hit query of an arbitrary ray batch over a dense scene
 // (tracer.intersect_shadow, the bidirectional renderer's connection and
-// splat batches): nee_lane's sweep, DenseGeo::shadow (the planes, then
-// the sheet's primitives), seeded at max_dist, then the DE shapes' t from
-// a march pass over the same rays (pyrite_de_march_query_shadow), which
-// count at any t. A ray that is not `live` is not traced and returns
-// max_dist. Unoccluded rays return max_dist. One thread a ray: a simple
-// kernel, bound by the sweep (~30 flops a primitive a ray) or by its 33
-// bytes a ray in and out.
+// splat batches): the planes, then the sheet's primitives (DenseGeo's
+// shadow sweep, here over rows staged in shared memory), seeded at
+// max_dist, then the DE shapes' t from a march pass over the same rays
+// (pyrite_de_march_query_shadow), which count at any t. A ray that is not
+// `live` is not traced and returns max_dist. Unoccluded rays return
+// max_dist.
+//
+// What bounds it on an H100: a live ray reads 29 bytes and writes 4 (and
+// reads its DE shapes' t), a ray that is not live reads 5 and writes 4,
+// and the sweep costs ~30 flops a primitive a live ray: at cornell_class's
+// 12 triangles and a sphere, ~660 flops against 33 bytes, so the
+// operations bound it where half the rays are live.
+//
+// The design (each point against one thread a ray over the whole batch):
+// - a warp takes SHADOW_TILES tiles of 32 rays: a ray that is not live
+//   writes its max_dist at once, and the live ones queue in ray order
+//   (WarpRing) and are swept 32 at a time, one a thread. A connection batch
+//   is [N, K], and a camera lane that is not diffuse or a lamp slot that is
+//   not valid kills its rays, so the live ones were spread through the
+//   warps, and a warp with one live ray swept as long as a full one; now a
+//   batch holds 32 live rays but the last of a warp's;
+// - the queue is the warp's own: the block's one barrier stages the
+//   primitives' rows in shared memory (shadow_staged), and a warp then
+//   runs on its own. A first version compacted the block's live rays
+//   between barriers (two, and a block without a live ray left after
+//   one), which cost more than it saved where few rays are live
+//   (flagship_bdpt: 1 to 5 %, `chip_smoke.py --bdpt`);
+// - the first DE shape's t is read before the sweep, so that its load
+//   overlaps it.
+// The planes and primitives still fold with fminf in sheet order and the
+// DE shapes' t after them, so every t is the plain version's bit for bit.
 struct ShadowArgs {
   Sheet sheet;
   const float* __restrict__ origin;       // [M, 3]
@@ -1654,19 +1795,43 @@ struct ShadowArgs {
   const float* __restrict__ t_de;  // [n_de, M] (<true> only)
 };
 
+// One live ray of a batch (`ray` < 0: none, the thread idles).
+template <bool kDE>
+__device__ __forceinline__ void shadow_ray(const ShadowArgs& a, const float4* prims, int ray) {
+  if (ray < 0) return;
+  const Sheet sh = a.sheet;
+  const int n_de = kDE ? sh.count(M_N_DE) : 0;
+  const float de0 = n_de > 0 ? a.t_de[ray] : 0.0f;
+  const V3 o = load3(a.origin, ray), d = load3(a.direction, ray);
+  float best = shadow_staged(sh, prims, o, d, plane_shadow(sh, o, d, a.max_dist[ray]));
+  if (kDE)  // apply_de_shadow, its first t read above
+    for (int j = 0; j < n_de; ++j) best = nan_min(best, j == 0 ? de0 : a.t_de[(size_t)j * a.m + ray]);
+  a.t[ray] = best;
+}
+
 template <bool kDE>
 __global__ void __launch_bounds__(BLOCK) dense_shadow_kernel(const ShadowArgs a) {
-  const int ray = blockIdx.x * BLOCK + threadIdx.x;
-  if (ray >= a.m) return;
-  const float t0 = a.max_dist[ray];
-  if (!a.live[ray]) {
-    a.t[ray] = t0;
-    return;
+  __shared__ __align__(16) float4 prims[3 * BLOCK];
+  __shared__ int rings[RING_INTS];
+  const int lid = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int first = (blockIdx.x * (BLOCK / 32) + w) * 32 * SHADOW_TILES;
+  stage_prims(a.sheet, prims);
+  unsigned live = 0;  // bit i: this thread's ray of tile i
+#pragma unroll
+  for (int i = 0; i < SHADOW_TILES; ++i) {
+    const int ray = first + 32 * i + lid;
+    const bool on = ray < a.m && a.live[ray];
+    live |= (unsigned)on << i;
+    if (ray < a.m && !on) a.t[ray] = a.max_dist[ray];
   }
-  float t = DenseGeo{}.shadow(a.sheet, load3(a.origin, ray), load3(a.direction, ray), t0,
-                              a.block_below[ray], true);
-  if (kDE) t = apply_de_shadow(a.sheet, a.t_de, (size_t)a.m, (size_t)ray, t);
-  a.t[ray] = t;
+  __syncthreads();  // the staged rows
+  WarpRing ring = {rings + 64 * w, 0, 0};
+#pragma unroll 1
+  for (int i = 0; i <= SHADOW_TILES; ++i) {  // a batch once 32 are queued, and the rest at the end
+    if (i < SHADOW_TILES) ring.append((live >> i) & 1u, first + 32 * i + lid);
+    if (ring.size() >= 32 || (i == SHADOW_TILES && ring.size() > 0))
+      shadow_ray<kDE>(a, prims, ring.take());
+  }
 }
 
 // Each kernel's kProg instantiation (kProg = true) runs a scene whose
@@ -1717,6 +1882,20 @@ __global__ void __launch_bounds__(BLOCK)
 template <bool kDE, bool kProg>
 __global__ void __launch_bounds__(BLOCK) dense_lamp_kernel(const LampArgs a, const ProgArgs pa) {
   lamp_lane<DenseGeo, kDE, kProg>(a, DenseGeo{}, pa);
+}
+
+// The simple dense_lamp_kernel instantiations ask for 8 resident blocks
+// (at most 64 registers: <true> spills ~30 B), ~5 % faster on
+// cornell_class than at the compiler's 72 registers (`chip_smoke.py
+// --bdpt-probes`, variant lamp_bounds); explicit specializations, so that
+// the kProg ones keep their bound (at 64 registers they spill ~1 KB).
+template <>
+__global__ void __launch_bounds__(BLOCK, 8) dense_lamp_kernel<false, false>(const LampArgs a, const ProgArgs pa) {
+  lamp_lane<DenseGeo, false, false>(a, DenseGeo{}, pa);
+}
+template <>
+__global__ void __launch_bounds__(BLOCK, 8) dense_lamp_kernel<true, false>(const LampArgs a, const ProgArgs pa) {
+  lamp_lane<DenseGeo, true, false>(a, DenseGeo{}, pa);
 }
 
 template <bool kDE, bool kProg>
@@ -1847,7 +2026,8 @@ struct QueryShadowRays {
 };
 
 // The dynamic shared memory a block gets without opting in (48 KiB), less
-// the kernels' static arrays (at most the NEE kernels' 528 bytes).
+// the static arrays of the kernels that take any (at most the NEE kernels'
+// 528 bytes; dense_shadow_kernel, with 7 KiB of its own, takes none).
 constexpr size_t SMEM_DEFAULT = 47 * 1024;
 
 // Opts `kernel` in to `smem` bytes of dynamic shared memory where that
@@ -1858,17 +2038,24 @@ void opt_in_smem(const void* kernel, size_t smem) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-// One launch over `n` lanes of a kernel's <true> instantiation where the
-// scene has DE shapes and its <false> one elsewhere, with `smem` bytes of
-// dynamic shared memory.
+// One launch over `n` lanes, `per_block` a block, of a kernel's <true>
+// instantiation where the scene has DE shapes and its <false> one
+// elsewhere, with `smem` bytes of dynamic shared memory.
 template <class K, class... Args>
-void launch_lanes(K with_de, K without_de, int n, int n_de, size_t smem, void* stream,
-                  const Args&... args) {
+void launch_blocks(K with_de, K without_de, int n, int per_block, int n_de, size_t smem,
+                   void* stream, const Args&... args) {
   if (n <= 0) return;
-  const dim3 grid((n + BLOCK - 1) / BLOCK);
+  const dim3 grid((n + per_block - 1) / per_block);
   const K kernel = n_de > 0 ? with_de : without_de;
   opt_in_smem((const void*)kernel, smem);
   kernel<<<grid, BLOCK, smem, (cudaStream_t)stream>>>(args...);
+}
+
+// launch_blocks of one lane a thread
+template <class K, class... Args>
+void launch_lanes(K with_de, K without_de, int n, int n_de, size_t smem, void* stream,
+                  const Args&... args) {
+  launch_blocks(with_de, without_de, n, BLOCK, n_de, smem, stream, args...);
 }
 
 // dynamic shared memory of a lamp kernel block: each warp's DE probe slots
@@ -2084,7 +2271,8 @@ int pyrite_dense_shadow(const float* sheet, const int* meta, const float* origin
                         const uint8_t* live, float* t, int m, int n_de, const float* t_de,
                         void* stream) {
   const ShadowArgs a = {{sheet, meta}, origin, direction, max_dist, block_below, live, t, m, t_de};
-  launch_lanes(dense_shadow_kernel<true>, dense_shadow_kernel<false>, m, n_de, 0, stream, a);
+  launch_blocks(dense_shadow_kernel<true>, dense_shadow_kernel<false>, m, BLOCK * SHADOW_TILES, n_de,
+                0, stream, a);
   return (int)cudaGetLastError();
 }
 

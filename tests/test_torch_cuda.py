@@ -307,6 +307,41 @@ def test_cuda_bdpt_kernels_match_plain_version(tmp_path, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell_class", "flagship_bdpt"])
+def test_cuda_shadow_edge_batches_match_plain_version(tmp_path, name):
+    """dense_shadow_kernel on chip_smoke.shadow_edge_batches (no ray live,
+    every ray live, only each block's last ray live, M not a multiple of
+    the block) bit for bit against shadow_query_plain, with (the Cornell
+    class) and without a DE shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    path = chip_smoke.bdpt_scene_paths(str(tmp_path), spp=1, small=True)[name]
+    scene, _, _, cfg = chip_smoke._gpu_scene(path)
+    with chip_smoke.kernel_march():
+        assert chip_smoke.check_shadow_edges(name, scene, cfg, chip_smoke.EDGE_BOXES[name]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["cornell_class", "flagship_bdpt", "terrain_24_bdpt"])
+def test_cuda_sparse_lamp_state_matches_plain_version(tmp_path, name):
+    """The lamp kernel's bounce from chip_smoke.sparse_lamp_state (one lane
+    in 37 alive) against tracer.lamp_bounce_step, and its dead lanes
+    holding their defaults (chip_smoke.check_sparse_lamp), on the dense,
+    the DE and the wide instantiation."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pyrite_tpu_torch import rng, tracer
+
+    path = chip_smoke.bdpt_scene_paths(str(tmp_path), spp=1, small=True)[name]
+    scene, _, _, _, lamp_cfg, keyed, rays, bank = chip_smoke._bdpt_setup(path, 0)
+    wl = rays[3]
+    start = rng.lamp_start_draws(keyed, wl.shape[0], scene.num_lamps, wl.device)
+    _, state = tracer.lamp_start(scene, wl, start)
+    with chip_smoke.kernel_march():
+        assert chip_smoke.check_sparse_lamp(name, scene, lamp_cfg, wl, state, keyed, bank) < 1e-3
+
+
+@pytest.mark.cuda
 def test_cuda_bdpt_render_matches_plain(tmp_path):
     """A Cornell-class render through the kernels against one through the
     plain versions on the card, with the same keyed draws."""
