@@ -930,7 +930,13 @@ def gate_paths(directory):
     256, S = 10, 4 bounces, under SUN, FILL and the sky) and its
     bidirectional twin (4 + 4 bounces beside the sphere lamp);
     flagship_s32 (the flagship at 512 x 256, 8 bounces, S = 32, under SUN)
-    and the plain flagship at S = 24 and S = 64 (phase 3); materials_300
+    and the plain flagship at S = 17, 24, 33, 64 and 110 (the gate's
+    ceiling; phase 3: one column past a multiple of 16, the widths
+    --wide-rows times), flagship_s24_bdpt (bidirectional, 3 light bounces:
+    the bounce kernels' kRecord instantiation at S = 24), terrain_24_s32
+    (terrain_paths' terrain_24 at S = 32: the wide kernels past 16
+    columns) and julia_s24 (write_julia_scene at 64 x 64, S = 24: a DE
+    scene past 16 columns); materials_300
     (write_spheres_scene: 300 spheres of a diffuse colour each, 150 of them
     lamps, 130 floors, at 512 x 256, S = 10: the baked colour table) and
     its bidirectional twin; textures_deep (texture_paths' textures with the
@@ -938,7 +944,8 @@ def gate_paths(directory):
     (write_de_many_scene, 128 x 64, phase 3) and de_520 (64 x 32, phase 3:
     past the 512 shapes the march kernel's shared memory holds without
     opting in). Returns {name: .lua path}."""
-    os.makedirs(directory, exist_ok=True)
+    julia_dir = os.path.join(directory, "julia_s24")
+    os.makedirs(julia_dir, exist_ok=True)
     flagship = scene_paths(directory, width=512, height=256, spectrum_samples=6, bounces=8)["flagship"]
     spectra = lambda s: [("spectrum_samples = 6", f"spectrum_samples = {s}")]  # noqa: E731
     spheres = dict(count=300, width=512, height=256, distinct=True, emissive=150, planes=130,
@@ -950,6 +957,16 @@ def gate_paths(directory):
         "flagship_s32": add_objects(flagship, [SUN], "flagship_s32", spectra(32)),
         "flagship_s24": add_objects(flagship, [], "flagship_s24", spectra(24)),
         "flagship_s64": add_objects(flagship, [], "flagship_s64", spectra(64)),
+        "flagship_s17": add_objects(flagship, [], "flagship_s17", spectra(17)),
+        "flagship_s33": add_objects(flagship, [], "flagship_s33", spectra(33)),
+        "flagship_s110": add_objects(flagship, [], "flagship_s110", spectra(110)),
+        "flagship_s24_bdpt": add_objects(flagship, [], "flagship_s24_bdpt", spectra(24) + [
+            ("renderer.simple {", "renderer.bidirectional {\n        light_bounces = 3,"),
+            ("pixel_samples = 256", "pixel_samples = 2")]),
+        "terrain_24_s32": add_objects(
+            terrain_paths(directory, cells=(24,))["terrain_24"], [], "terrain_24_s32",
+            [("spectrum_samples = 4,", "spectrum_samples = 32,")]),
+        "julia_s24": write_julia_scene(julia_dir, 64, 64, spectrum_samples=24),
         "materials_300": write_spheres_scene(directory, **spheres),
         "materials_300_bdpt": write_spheres_scene(directory, **spheres, renderer="bidirectional"),
         "textures_deep": write_textures_scene(os.path.join(directory, "deep"), 256, 192, 6, 4,
@@ -4695,18 +4712,20 @@ KERNEL_NAMES = ("dense_bounce_kernel", "dense_nee_kernel", "wide_bounce_kernel",
 def _kernel_label(mangled):
     """A kernel's name from its mangled one: the bounce, NEE and lamp
     kernels as name<true> / name<false> (kDE), with <record> and <prog>
-    after it for their kRecord and kProg instantiations, and <gate> for the
-    bounce and NEE kernels' kGate ones that are not kProg; None for a
+    after it for their kRecord and kProg instantiations, <gate> for the
+    bounce and NEE kernels' kGate ones that are not kProg and <stream> for
+    their kStream ones (the gate form past 16 columns); None for a
     function that is none of KERNEL_NAMES."""
     name = next((k for k in KERNEL_NAMES if k in mangled), None)
     if name is None:
         return None
     flags = re.search(r"I((?:Lb[01]E)+)E", mangled)
-    if flags:  # <kDE>, the bounce kernels' kRecord, then kProg and kGate
+    if flags:  # <kDE>, the bounce kernels' kRecord, then kProg, kGate and kStream
         bits = re.findall(r"Lb([01])E", flags.group(1))
         name += "<true>" if bits[0] == "1" else "<false>"
         record, rest = (bits[1:2], bits[2:]) if "bounce" in name else ([], bits[1:])
-        tag = "<prog>" if rest[:1] == ["1"] else "<gate>" if rest[1:] == ["1"] else ""
+        tag = ("<prog>" if rest[:1] == ["1"] else "<stream>" if rest[2:3] == ["1"]
+               else "<gate>" if rest[1:2] == ["1"] else "")
         name += ("<record>" if record == ["1"] else "") + tag
     tags = {"QueryShadowRays": "<query shadow>", "QueryRays": "<query>",
             "BounceRays": "<bounce>", "ShadowRays": "<shadow>"}
@@ -4738,18 +4757,7 @@ def profile_renders(card, runs=5, flagship_only=False):
     """``--profile``: the main-path renders through renderers.simple.render
     (flagship and terrain_405 at 64 spp, fractal.lua at 8 spp; with
     ``flagship_only``, ``--walls``, flagship alone), each through
-    the one-shot wavefront and through regeneration: ``runs`` timed runs
-    after a warm-up, then one under torch.profiler. Prints the launches and
-    lane-bounces of one render, its peak memory, the wall times, the
-    device's busy time (the sum of its kernels' own times) and idle share
-    (1 - busy / wall of the profiled run; the profiler slows the host, so
-    the unprofiled share is lower) and the top device ops."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from pyrite_tpu_torch.project import load_project
-    from pyrite_tpu_torch.renderers import simple
-
+    the one-shot wavefront and through regeneration (profile_render)."""
     with tempfile.TemporaryDirectory() as tmp:
         scenes = [
             (scene_paths(tmp, width=512, height=256, spectrum_samples=6, bounces=8)["flagship"], 64),
@@ -4757,46 +4765,63 @@ def profile_renders(card, runs=5, flagship_only=False):
             (os.path.join(ROOT, "examples", "fractal.lua"), 8),
         ]
         for path, spp in scenes[:1] if flagship_only else scenes:
-            scene = _gpu_scene(path)[0]
-            project_data = load_project(path)
-
-            def render():
-                torch.cuda.synchronize()
-                started = time.perf_counter()
-                simple.render(project_data, scene, max_samples=spp)
-                torch.cuda.synchronize()
-                return time.perf_counter() - started
-
             for which in ("one-shot", "regen"):
-                with scheduler(which):
-                    render()
-                    _zero_counts()
-                    torch.cuda.reset_peak_memory_stats()
-                    walls = [render()]
-                    launches = _read_counts()
-                    peak = torch.cuda.max_memory_allocated()
-                    walls += [render() for _ in range(runs - 1)]
-                    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                        wall = render()
-                # the kernels themselves: a CPU op's device time repeats its kernels'
-                events = [e for e in prof.key_averages()
-                          if e.device_type == torch.autograd.DeviceType.CUDA]
-                own = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
-                busy = sum(own(e) for e in events) / 1e3
-                top = sorted(events, key=own, reverse=True)[:8]
-                r = project_data.project.renderer
-                im = project_data.project.image
-                rays = im.width * im.height * spp * r.bounces * (1 + r.light_samples)
-                median = sorted(walls)[len(walls) // 2]
-                print(f"[profile] {os.path.basename(path)} {im.width}x{im.height}, {spp} spp, {which} "
-                      f"({card}): launches {launches}; {_lanes_line(launches)}; peak memory "
-                      f"{peak / 2**20:.1f} MiB; render wall s {', '.join(f'{w:.4f}' for w in walls)}; "
-                      f"median {median:.4f} s, {rays / median / 1e6:.3f} Mrays/s nominal, "
-                      f"{launches['live_lane_bounces'] * (1 + r.light_samples) / median / 1e6:.3f} "
-                      f"Mrays/s live")
-                print(f"[profile] profiled run: wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms, "
-                      f"idle share {1 - busy / (wall * 1e3):.3f}; top device ops: " + "; ".join(
-                          f"{e.key[:60]} {own(e) / 1e3:.3f} ms ({e.count}x)" for e in top))
+                profile_render(path, spp, card, which, runs)
+
+
+def profile_render(path, spp, card, which, runs=5):
+    """One render of ``spp`` samples through renderers.simple.render under
+    the scheduler ``which``: ``runs`` timed runs after a warm-up, then one
+    under torch.profiler. Prints the launches and lane-bounces of one
+    render, its peak memory, the wall times, the device's busy time (the
+    sum of its kernels' own times) and idle share (1 - busy / wall of the
+    profiled run; the profiler slows the host, so the unprofiled share is
+    lower) and the top device ops."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyrite_tpu_torch.project import load_project
+    from pyrite_tpu_torch.renderers import simple
+
+    scene = _gpu_scene(path)[0]
+    project_data = load_project(path)
+
+    def render():
+        torch.cuda.synchronize()
+        started = time.perf_counter()
+        simple.render(project_data, scene, max_samples=spp)
+        torch.cuda.synchronize()
+        return time.perf_counter() - started
+
+    with scheduler(which):
+        render()
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        walls = [render()]
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        walls += [render() for _ in range(runs - 1)]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall = render()
+    # the kernels themselves: a CPU op's device time repeats its kernels'
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    own = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total  # noqa: E731
+    busy = sum(own(e) for e in events) / 1e3
+    top = sorted(events, key=own, reverse=True)[:8]
+    r = project_data.project.renderer
+    im = project_data.project.image
+    rays = im.width * im.height * spp * r.bounces * (1 + r.light_samples)
+    median = sorted(walls)[len(walls) // 2]
+    print(f"[profile] {os.path.basename(path)} {im.width}x{im.height}, {spp} spp, {which} "
+          f"({card}): launches {launches}; {_lanes_line(launches)}; peak memory "
+          f"{peak / 2**20:.1f} MiB; render wall s {', '.join(f'{w:.4f}' for w in walls)}; "
+          f"median {median:.4f} s, {rays / median / 1e6:.3f} Mrays/s nominal, "
+          f"{launches['live_lane_bounces'] * (1 + r.light_samples) / median / 1e6:.3f} "
+          f"Mrays/s live")
+    print(f"[profile] profiled run: wall {wall * 1e3:.2f} ms, device busy {busy:.2f} ms, "
+          f"idle share {1 - busy / (wall * 1e3):.3f}; top device ops: " + "; ".join(
+              f"{e.key[:60]} {own(e) / 1e3:.3f} ms ({e.count}x)" for e in top))
+    return walls, busy
 
 
 def profile_bdpt(card, runs=5, only=None):
@@ -4993,8 +5018,9 @@ PROG_VARIANTS = {
 
 def build_variants(tmp, variants=None, tag="prog"):
     """``variants`` (PROG_VARIANTS by default) built from edited copies of
-    csrc/ under ``tmp``, with the library's flags (one nvcc per .cu of every
-    variant, all at once, then a link each). Returns {name: (loaded
+    csrc/ under ``tmp`` (or, where a variant names a directory, from a copy
+    of that csrc/ as it is), with the library's flags (one nvcc per .cu of
+    every variant, all at once, then a link each). Returns {name: (loaded
     library, build log)}; a variant none of whose edits applies to this
     checkout is skipped."""
     import ctypes
@@ -5007,17 +5033,21 @@ def build_variants(tmp, variants=None, tag="prog"):
         source = fh.read()
     jobs = []
     for name, alternatives in (PROG_VARIANTS if variants is None else variants).items():
-        edits = next((e for e in alternatives if all(a is None or a in source for a, _ in e)), None)
-        if edits is None:
-            print(f"[{tag}] variant {name}: no edit applies to this checkout")
-            continue
-        src = source
-        for anchor, text in edits:
-            src = src + text if anchor is None else src.replace(anchor, text)
         root = os.path.join(tmp, name)
-        shutil.copytree(_build.CSRC, os.path.join(root, "csrc"))
-        with open(os.path.join(root, "csrc", "bounce.cu"), "w") as fh:
-            fh.write(src)
+        if isinstance(alternatives, str):  # another checkout's csrc/ as it is
+            shutil.copytree(alternatives, os.path.join(root, "csrc"))
+        else:
+            edits = next((e for e in alternatives if all(a is None or a in source for a, _ in e)),
+                         None)
+            if edits is None:
+                print(f"[{tag}] variant {name}: no edit applies to this checkout")
+                continue
+            src = source
+            for anchor, text in edits:
+                src = src + text if anchor is None else src.replace(anchor, text)
+            shutil.copytree(_build.CSRC, os.path.join(root, "csrc"))
+            with open(os.path.join(root, "csrc", "bounce.cu"), "w") as fh:
+                fh.write(src)
         units = sorted(glob.glob(os.path.join(root, "csrc", "*.cu")))
         objs = [u + ".o" for u in units]
         procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", "-o", o, u], stdout=subprocess.PIPE,
@@ -5032,8 +5062,9 @@ def build_variants(tmp, variants=None, tag="prog"):
                        capture_output=True, text=True, timeout=300)
         lib = ctypes.CDLL(so)
         for fn, argtypes in _build._SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            if hasattr(lib, fn):  # another checkout's library may lack one
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
         libs[name] = (lib, log)
     return libs
 
@@ -5393,21 +5424,28 @@ def check_gate(directory, card, out_dir):
     colour table) and long programs. The draw kernel at S = 32 and 64 bit
     for bit (check_draws); the bounce and NEE kernels against their plain
     version (check_kernels; sunlit_terrain_405 on the first 131,072 lanes,
-    de_130 and de_520 at bounce 0), with no divergent lane; their times and
-    bounds (time_kernels, printed); then the CLI through regeneration
-    (render_end_to_end) on flagship_s32, flagship_s64, sunlit_terrain_405,
-    materials_300 and textures_deep. Returns (paths, worst errors, draw
-    errors, launch counts of the renders)."""
+    the flagship at S = 17, 33 and 110 for two bounces, de_130, de_520 and
+    julia_s24 at bounce 0, julia_s24 on one sample of its film), with no
+    divergent lane, and the kRecord bounce on flagship_s24_bdpt at bounces
+    0 and 1 (wide_rows_case); their times and bounds (time_kernels, printed);
+    then the CLI through regeneration (render_end_to_end) on flagship_s32,
+    flagship_s64, sunlit_terrain_405, materials_300 and textures_deep.
+    Returns (paths, worst errors, draw errors, launch counts of the
+    renders)."""
     started = time.perf_counter()
     gate = gate_paths(directory)
     drawn = {name: check_draws(name, gate[name]) for name in ("flagship_s32", "flagship_s64")}
     worst = {name: check_kernels(name, gate[name], **kw) for name, kw in (
         ("sunlit_terrain_405", {"cut": 131072}), ("flagship_s32", {}), ("flagship_s24", {}),
-        ("flagship_s64", {}), ("materials_300", {}), ("textures_deep", {}),
-        ("de_130", {"bounces": 1}), ("de_520", {"bounces": 1}))}
+        ("flagship_s64", {}), ("flagship_s17", {"bounces": 2}), ("flagship_s33", {"bounces": 2}),
+        ("flagship_s110", {"bounces": 2}), ("terrain_24_s32", {}), ("materials_300", {}),
+        ("textures_deep", {}), ("de_130", {"bounces": 1}), ("de_520", {"bounces": 1}),
+        ("julia_s24", {"bounces": 1, "lanes": 4096}))}
     divergent = {k: (w["divergent"], w["nee_divergent"]) for k, w in worst.items()
                  if w["divergent"] or w["nee_divergent"]}
     assert not divergent, f"the bounce or NEE kernel diverges from the plain version: {divergent}"
+    worst["flagship_s24_bdpt"] = {"record": max(
+        wide_rows_case(gate["flagship_s24_bdpt"], b, record=True)[1] for b in (0, 1))}
     for name in ("flagship_s32", "flagship_s64", "sunlit_terrain_405", "materials_300",
                  "textures_deep"):
         time_kernels(gate[name], card, plain_reps=1)  # printed
@@ -5431,6 +5469,278 @@ def check_gate_bdpt(gate, card, out_dir):
     runs = [render_bdpt(gate[name], 2, card, out_dir)[0] for name in checked]
     print(f"[phase] the rest of the scene gate (phase 6): {time.perf_counter() - started:.1f} s")
     return checked, runs
+
+
+# The flagship's spectral widths --wide-rows measures: the bounce and NEE
+# kernels of the gate form past 16 columns (kStream), up to the gate's
+# ceiling (110).
+WIDE_ROWS_S = (24, 32, 64, 110)
+# The kernels past 16 columns whose registers and occupancy --wide-rows
+# prints: the kStream instantiations (a parent's <gate> ones, which ran
+# there before them).
+WIDE_ROWS_KERNELS = ("dense_bounce_kernel<false><stream>", "dense_bounce_kernel<true><stream>",
+                     "dense_bounce_kernel<false><record><stream>",
+                     "wide_bounce_kernel<false><stream>", "dense_nee_kernel<false><stream>",
+                     "wide_nee_kernel<false><stream>")
+
+
+def _wide_rows_label(name, found):
+    """``name`` of WIDE_ROWS_KERNELS, or in a checkout without kStream
+    instantiations the <gate> one that ran past 16 columns there."""
+    return name if name in found else name.replace("<stream>", "<gate>")
+
+
+def wide_rows_case(path, bounce, seed=1, record=False):
+    """One launch each of the scene's bounce kernel (its kRecord
+    instantiation with the chain factors where ``record``) and NEE kernel
+    on the main path's wavefront at ``bounce`` (_bounce_inputs), held to
+    the plain version on the same inputs: the state after both against
+    tracer.bounce_core's as check_kernels holds it (flags exact, vectors
+    rtol 1e-3 / atol 1e-4), with no divergent lane, and with ``record`` the
+    camera vertex as check_record_chain holds it (its flags exact on every
+    lane, its vectors and chain factors within the tolerance on the lanes
+    that reflect). Returns ({output: sha256
+    of its bytes}, largest error): the bounce kernel's outputs before the
+    NEE kernel adds into the brightness, then that brightness."""
+    import hashlib
+
+    from pyrite_tpu_torch import kernels_dense as kd, tracer
+
+    scene, cfg, wl, state, draws = _bounce_inputs(path, seed, bounce)
+    bank = kd.precompute_bank_values(scene, wl)
+    t_de = kd.march_pass(scene, cfg, state) if scene.de_shapes else None
+    out, ctx, *info = kd.launch_bounce_kernel(scene, cfg, wl, state, draws, bank, t_de, record, record)
+    outputs = {f"bounce {k}": v.clone() for k, v in dict(out, **ctx, **(info[0] if record else {})).items()}
+    if scene.num_lamps and cfg.light_samples:
+        t_de_shadow = kd.shadow_pass(scene, cfg, out, ctx, draws) if scene.de_shapes else None
+        kd.launch_nee_kernel(scene, cfg, wl, out, ctx, draws, bank, t_de_shadow)
+        outputs["nee brightness"] = out["brightness"]
+    plain = tracer.bounce_core(scene, cfg, wl, state, draws, record=record)
+    what = f"{os.path.basename(path)} at bounce {bounce}{' (record)' if record else ''}"
+    vec_err, b_err, share = _compare(plain[0] if record else plain, out, what)
+    assert share == 0.0, f"{what}: {share:.4%} divergent lanes"
+    err = max(vec_err, b_err)
+    if record:
+        ref, got = plain[1], info[0]
+        _flags_equal(ref, got, ("is_diffuse", "dispersed", "recorded", "miss", "reflected"), what)
+        _flags_equal(ref, got, ("color_prog",), what, ref["reflected"])
+        err = max(err, _close_where(ref, got, ("position", "normal", "brdf_stored", "color_prob",
+                                               "path_prob"), ref["reflected"], what))
+    digests = {k: hashlib.sha256(v.contiguous().cpu().numpy().tobytes()).hexdigest()
+               for k, v in outputs.items()}
+    print(f"[wide-rows] {what}: {wl.shape[0]} lanes, S={wl.shape[1]}, light_samples="
+          f"{cfg.light_samples}: against the plain version max abs err {err:.3g}, flags exact, "
+          f"no divergent lane")
+    return digests, err
+
+
+def print_wide_rows_occupancy(s):
+    """The bounce and NEE kernels that run a gate scene at S > 16 spectral
+    columns (WIDE_ROWS_KERNELS): registers, spill stores / loads, shared
+    memory a block (static from ptxas -v; dynamic as the launchers pass
+    it, pyrite_bounce_smem, or in a checkout without it the staged rows of
+    bounce_smem_bytes) and resident warps a SM (resident_warps), from this
+    process's build log (nothing where it loaded a library built before).
+    Returns {kernel: (registers, stores, loads, shared bytes, warps)}."""
+    from pyrite_tpu_torch import _build, kernels_dense as kd
+
+    regs, static = kernel_registers(_build.build_log), kernel_static_smem(_build.build_log)
+    if not regs:
+        print(f"[wide-rows] S={s}: no build log in this process, registers not read")
+        return {}
+    lib = _build.load()
+
+    def dynamic(de):
+        if hasattr(lib, "pyrite_bounce_smem"):
+            return lib.pyrite_bounce_smem(s, int(de), kd.FORM_GATE)
+        return 4 * kd.BLOCK * (4 * s + 12) + (kd._DE_SLOT_BYTES if de else 0)
+
+    found = {}
+    for name in WIDE_ROWS_KERNELS:
+        r, st, ld = regs[_wide_rows_label(name, regs)]
+        smem = static[_wide_rows_label(name, static)] + (
+            dynamic("<true>" in name) if "bounce" in name else 0)
+        found[name] = (r, st, ld, smem, resident_warps(r, smem))
+    print(f"[wide-rows] S={s}: registers, spill stores / loads, shared memory a block, resident "
+          f"warps a SM: " + "; ".join(f"{k} {r}, {st}/{ld} B, {sm} B, {w}"
+                                       for k, (r, st, ld, sm, w) in found.items()) +
+          f" (the simple form's block at S = 16: {4 * kd.BLOCK * (4 * 16 + 12)} B)")
+    return found
+
+
+def _digest_lines(found, against, label):
+    """Which outputs of ``found``'s cases are bit-equal to ``against``'s
+    (another run's --wide-rows digests)."""
+    same = differ = 0
+    for case, digests in found.items():
+        ref = against.get(case)
+        if ref is None:
+            continue
+        bad = [k for k, v in digests.items() if ref.get(k) != v]
+        same += len(digests) - len(bad)
+        differ += len(bad)
+        print(f"[wide-rows] {case} against {label}: "
+              + ("every output bit-equal" if not bad else f"differ: {', '.join(bad)}"))
+    print(f"[wide-rows] against {label}: {same} outputs bit-equal, {differ} differ")
+
+
+def measure_wide_rows(card, save=None, against=None):
+    """``--wide-rows [OUT.json [REF.json]]``: the gate form's bounce and
+    NEE kernels past 16 spectral columns (their kStream instantiations).
+    For each S of WIDE_ROWS_S on the flagship (gate_paths) at bounces 0
+    and 1, their outputs against the
+    plain version and as digests (wide_rows_case), their per-launch times
+    in two windows of 50 launches and their bounds (time_kernels) and their
+    registers, shared memory and occupancy (print_wide_rows_occupancy);
+    flagship_s24's kRecord bounce the same; the S <= 16 kernels (the
+    flagship's simple form, sunlit_terrain_405 and materials_300 in the
+    <gate> form) the same; then flagship_s32 at 4 spp and flagship_s64 at 1
+    spp through renderers.simple.render under regeneration, profiled
+    (profile_render). Writes the digests and times to OUT.json, and given
+    REF.json (another checkout's) prints which outputs are bit-equal to it.
+    It runs unchanged in a parent's git archive checkout, to compare the
+    two in one call (parent, change, change, parent)."""
+    started = time.perf_counter()
+    found = {"digests": {}, "times": {}, "occupancy": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        gate = gate_paths(os.path.join(tmp, "gate"))
+        flagship = scene_paths(tmp, width=512, height=256, spectrum_samples=6, bounces=8)["flagship"]
+        cases = [(f"flagship_s{s}", gate[f"flagship_s{s}"]) for s in WIDE_ROWS_S] + [
+            ("flagship", flagship), ("sunlit_terrain_405", gate["sunlit_terrain_405"]),
+            ("materials_300", gate["materials_300"])]
+        for s in WIDE_ROWS_S:
+            print_occupancy(s)  # the simple instantiations, staged at S columns
+            found["occupancy"][s] = print_wide_rows_occupancy(s)
+        for name, path in cases:
+            for bounce in (0, 1):
+                case = f"{name} bounce {bounce}"
+                found["digests"][case] = wide_rows_case(path, bounce)[0]
+                found["times"][case] = time_kernels(path, card, plain_reps=1, bounce=bounce)
+        for bounce in (0, 1):
+            found["digests"][f"flagship_s24 record bounce {bounce}"] = wide_rows_case(
+                gate["flagship_s24"], bounce, record=True)[0]
+        for name, spp in (("flagship_s32", 4), ("flagship_s64", 1)):
+            profile_render(gate[name], spp, card, "regen", runs=3)
+    for case, times in found["times"].items():
+        print(f"[wide-rows] {case} ({card}): " + "; ".join(
+            f"{k} {ms:.4f} ms (bound {max(size / HBM_BYTES_PER_S * 1e3, ops / _fp32_rate() * 1e3):.4f})"
+            for k, (ms, _, size, ops) in times.items()))
+    if save:
+        with open(save, "w") as fh:
+            json.dump(dict(found, card=card, root=ROOT), fh)
+    if against:
+        with open(against) as fh:
+            _digest_lines(found["digests"], json.load(fh)["digests"], against)
+    print(f"[phase] --wide-rows: {time.perf_counter() - started:.1f} s")
+
+
+# Builds of csrc/bounce.cu that --wide-rows-probes times against the
+# build: the streamed bounce pass with 1, 2 or 8 words in flight a thread
+# (the build 4), the streamed NEE with two light samples a pass (the build
+# 4) or capped at the parent's <gate> registers (9 blocks dense, 7 wide).
+_NEE_STREAM_BOUNDS = """template <>
+__global__ void __launch_bounds__(BLOCK, 9)
+    dense_nee_kernel<false, false, true, true>(const NeeArgs a, const ProgArgs pa) {
+  nee_lane<DenseGeo, false, false, true, true>(a, DenseGeo{}, pa);
+}
+template <>
+__global__ void __launch_bounds__(BLOCK, 9)
+    dense_nee_kernel<true, false, true, true>(const NeeArgs a, const ProgArgs pa) {
+  nee_lane<DenseGeo, true, false, true, true>(a, DenseGeo{}, pa);
+}
+template <>
+__global__ void __launch_bounds__(BLOCK, 7)
+    wide_nee_kernel<false, false, true, true>(const NeeArgs a, const WideGeo geo, const ProgArgs pa) {
+  nee_lane<WideGeo, false, false, true, true>(a, geo, pa);
+}
+template <>
+__global__ void __launch_bounds__(BLOCK, 7)
+    wide_nee_kernel<true, false, true, true>(const NeeArgs a, const WideGeo geo, const ProgArgs pa) {
+  nee_lane<WideGeo, true, false, true, true>(a, geo, pa);
+}
+
+"""
+_LAMP_TEMPLATE = "template <bool kDE, bool kProg>\n__global__ void __launch_bounds__(BLOCK) dense_lamp_kernel("
+WIDE_ROWS_VARIANTS = {
+    "row_batch_1": [[("constexpr int ROW_BATCH = 4;", "constexpr int ROW_BATCH = 1;")]],
+    "row_batch_2": [[("constexpr int ROW_BATCH = 4;", "constexpr int ROW_BATCH = 2;")]],
+    "row_batch_8": [[("constexpr int ROW_BATCH = 4;", "constexpr int ROW_BATCH = 8;")]],
+    "nee_chunk_2": [[("constexpr int NEE_CHUNK = 4;", "constexpr int NEE_CHUNK = 2;")]],
+    "nee_bounds": [[(_LAMP_TEMPLATE, _NEE_STREAM_BOUNDS + _LAMP_TEMPLATE)]],
+}
+
+
+def time_wide_rows_libs(path, libs, order, card, bounce, seed=1):
+    """The scene's bounce and NEE kernels through each library of ``libs``
+    ({name: (library, build log)}) in ``order``, on the same inputs (the
+    main path's wavefront at ``bounce``; the NEE kernel reads the first
+    library's bounce outputs and adds into them): ms per launch, two
+    windows of 50 after a warm-up. Returns {name: [(bounce ms, NEE ms)]}."""
+    import torch
+
+    from pyrite_tpu_torch import kernels_dense as kd
+
+    scene, cfg, wl, state, draws = _bounce_inputs(path, seed, bounce)
+    bank = kd.precompute_bank_values(scene, wl)
+    bounce_name, nee_name = kd.kernel_names(scene)
+    b_args, out, ctx = kd.bounce_kernel_args(scene, cfg, wl, state, draws, bank)
+    assert getattr(libs[order[0]][0], kd._LAUNCHERS[bounce_name])(*b_args) == 0
+    n_args = kd.nee_kernel_args(scene, cfg, wl, out, ctx, draws, bank)
+    found = {}
+    for name in order:
+        lib = libs[name][0]
+        times = []
+        for kernel, args in ((bounce_name, b_args), (nee_name, n_args)):
+            run = lambda: getattr(lib, kd._LAUNCHERS[kernel])(*args)  # noqa: E731
+            for _ in range(2):
+                assert run() == 0, f"{name} {kernel}: launch failed"
+            torch.cuda.synchronize()
+            k1, k2 = _event_ms(run, 50), _event_ms(run, 50)
+            times.append((k1 + k2) / 2)
+            print(f"[wide-rows-probe] {name} {os.path.basename(path)} {kernel} at bounce {bounce}: "
+                  f"{k1:.4f} / {k2:.4f} ms per launch, {wl.shape[0]} lanes, S={wl.shape[1]} ({card})")
+        found.setdefault(name, []).append(tuple(times))
+    return found
+
+
+def measure_wide_rows_probes(card, parent_csrc=None):
+    """``--wide-rows-probes [PARENT_CSRC]``: the builds of
+    WIDE_ROWS_VARIANTS (and of a parent's csrc/ where given) against the
+    build: their WIDE_ROWS_KERNELS' registers and spills, and the bounce and
+    NEE kernels' times (time_wide_rows_libs) on flagship_s32, flagship_s64,
+    sunlit_terrain_405 and materials_300 at bounces 0 and 1 and on the
+    flagship at S = 24 with four light samples, in the order parent, build,
+    variants, build, parent."""
+    from pyrite_tpu_torch import _build
+
+    started = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        gate = gate_paths(os.path.join(tmp, "gate"))
+        gate["flagship_s24_ls4"] = add_objects(gate["flagship_s24"], [], "flagship_s24_ls4",
+                                               [("light_samples = 2", "light_samples = 4")])
+        libs = {"build": (_build.load(), _build.build_log)}
+        variants = dict(WIDE_ROWS_VARIANTS, **({"parent": parent_csrc} if parent_csrc else {}))
+        libs.update(build_variants(os.path.join(tmp, "variants"), variants, tag="wide-rows-probe"))
+        for name, (_, log) in libs.items():
+            regs, static = kernel_registers(log), kernel_static_smem(log)
+            labels = [_wide_rows_label(k, regs) for k in WIDE_ROWS_KERNELS]
+            print(f"[wide-rows-probe] {name}: registers, spill stores / loads, static shared "
+                  f"memory: " + "; ".join(f"{k} {regs[k][0]}, {regs[k][1]}/{regs[k][2]} B, "
+                                         f"{static[k]} B" for k in labels if k in regs))
+        ends = ["parent"] if parent_csrc else []
+        order = ends + ["build"] + list(WIDE_ROWS_VARIANTS) + ["build"] + ends
+        found = {}
+        for name, bounces in (("flagship_s32", (0, 1)), ("flagship_s64", (0, 1)),
+                              ("flagship_s24_ls4", (0, 1)), ("sunlit_terrain_405", (0, 1)),
+                              ("materials_300", (0, 1))):
+            for bounce in bounces:
+                found[f"{name} bounce {bounce}"] = time_wide_rows_libs(gate[name], libs, order, card,
+                                                                       bounce)
+    for case, times in found.items():
+        print(f"[wide-rows-probe] {case} ({card}), bounce / NEE ms: " + "; ".join(
+            f"{name} " + ", ".join(f"{b:.4f} / {n:.4f}" for b, n in runs)
+            for name, runs in times.items()))
+    print(f"[phase] --wide-rows-probes: {time.perf_counter() - started:.1f} s")
 
 
 def main(argv=None):
@@ -5491,6 +5801,12 @@ def main(argv=None):
         return 0
     if argv == ["--prog"]:
         measure_prog(smi)
+        return 0
+    if argv[:1] == ["--wide-rows"] and len(argv) <= 3:
+        measure_wide_rows(smi, *argv[1:])
+        return 0
+    if argv[:1] == ["--wide-rows-probes"] and len(argv) <= 2:
+        measure_wide_rows_probes(smi, *argv[1:])
         return 0
     if argv == ["--rows"]:
         with tempfile.TemporaryDirectory() as tmp:
@@ -5633,8 +5949,10 @@ def main(argv=None):
     rendered = dense_runs + de_runs + [mesh_run] + gate_runs
     queried = queries.values()
     checked = list(worst.values()) + [gate_worst[k] for k in (
-        "flagship_s32", "flagship_s24", "flagship_s64", "de_130", "de_520")]
-    checked_wide = [worst_wide] + [gate_worst[k] for k in ("sunlit_terrain_405", "materials_300")]
+        "flagship_s32", "flagship_s24", "flagship_s64", "flagship_s17", "flagship_s33",
+        "flagship_s110", "de_130", "de_520", "julia_s24")]
+    checked_wide = [worst_wide] + [gate_worst[k] for k in (
+        "sunlit_terrain_405", "materials_300", "terrain_24_s32")]
     bdpt_worst = [c["worst"] for c in list(bdpt_checked.values()) + list(gate_bdpt.values())]
     tex_bdpt_worst = tex_bdpt["textures_bdpt"]["worst"]
     kernels = [
@@ -5670,7 +5988,8 @@ def main(argv=None):
                     bdpt_total("dense_bounce_kernel<record>", "wide_bounce_kernel<record>")
                     + multi_total("dense_bounce_kernel<record>"),
                     max(max(max(w["record"], w["brightness"]) for w in bdpt_worst + [regen_checked]),
-                        max(c["worst"]["record"] for c in photon_checked.values()))),
+                        max(c["worst"]["record"] for c in photon_checked.values()),
+                        gate_worst["flagship_s24_bdpt"]["record"])),
              name="dense_bounce_kernel<record>, wide_bounce_kernel<record>",
              replaces="none: XLA, pyrite_tpu/tracer.py:1585 bounce_core's info"),
         dict(kernel("dense_lamp_kernel", "bounce.cu", None,

@@ -78,6 +78,7 @@ _SIGNATURES = {
     "pyrite_de_march_query_shadow": [_P] * 7 + [_I] * 2 + _DE + [_P, _P],
     "pyrite_philox_draws": [_U, _U, _I, _I, _U, _U, _U, _I, _I, _I] + [_P] * 7 + [_U, _I, _I, _P],
     "pyrite_bounce_occupancy": [_I, _I, _P],
+    "pyrite_bounce_smem": [_I, _I, _I],
     "pyrite_photon_gather": [_P] * 33 + [_I] * 10 + [_F] * 6 + [_P],
 }
 

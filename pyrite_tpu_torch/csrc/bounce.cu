@@ -782,6 +782,95 @@ __host__ __device__ __forceinline__ size_t bounce_smem_bytes(int s, bool de) {
   return sizeof(float) * ((size_t)BLOCK * (4 * s + 12) + (de ? (BLOCK / 32) * DE_SLOT_FLOATS : 0));
 }
 
+// What the streamed form (bounce_lane's kStream instantiations) does to a
+// lane's spectral rows, left by its thread in shared memory for the
+// block's spectral pass (bounce_rows): the ops of the staged form's loops,
+// column 0 alone or, with `all`, every column.
+enum { ROW_KEEP, ROW_MISS, ROW_EMIT, ROW_REFLECT };
+struct RowOp {
+  const float* src;  // the lane's sky or color row, or null: zeros
+  float f;           // EMIT: the component probability; REFLECT: the path probability
+  float brdf;        // REFLECT: the BRDF factor
+  int table;         // the baked color program whose table gives the row, or -1
+  int op;            // ROW_*
+  int all;
+};
+
+// Shared memory of a streamed bounce block: [BLOCK, 3] origin, direction,
+// facing normal and u_scatter, a RowOp a lane, and with DE shapes each
+// warp's probe slots; none of it grows with S.
+constexpr int ROW_OP_FLOATS = (int)(sizeof(RowOp) / sizeof(float));
+
+__host__ __device__ __forceinline__ size_t stream_smem_bytes(bool de) {
+  return sizeof(float) * ((size_t)BLOCK * (12 + ROW_OP_FLOATS) + (de ? (BLOCK / 32) * DE_SLOT_FLOATS : 0));
+}
+
+// Words the streamed bounce's spectral pass keeps in flight a thread: each
+// loads its inputs before any of them is stored.
+constexpr int ROW_BATCH = 4;
+
+// Row l and column k of word e of a block's [rows, s] span, the row through
+// the reciprocal (exact for e < BLOCK * s up to widths of thousands, as
+// row_owner).
+__device__ __forceinline__ int span_row(int e, float inv_s) {
+  return (int)(((float)e + 0.5f) * inv_s);
+}
+
+// The streamed bounce's spectral pass: the block's [rows, S] span of
+// brightness, reflectance, pre-BRDF reflectance (and, where the kRecord
+// caller asks, color x path probability) as one elementwise pass, thread t
+// on words t, t + BLOCK, ..., so every load and store is a coalesced run.
+// Each word takes the ops of the staged form's loops in their order
+// (b + c * r; b + c * p * r; r * c * p, then * brdf), so every bit is theirs.
+template <bool kRecord>
+__device__ __forceinline__ void bounce_rows(const BounceArgs& a, const Record& rec, const RowOp* ops,
+                                            int base, int rows) {
+  const int s = a.s, count = rows * s;
+  const size_t sp = (size_t)base * s;
+  const float inv_s = 1.0f / (float)s;
+  const Programs& pr = a.progs;
+  const bool chain = kRecord && rec.color_prob != nullptr;
+  for (int e0 = threadIdx.x; e0 < count; e0 += ROW_BATCH * BLOCK) {
+    float b[ROW_BATCH], r[ROW_BATCH], c[ROW_BATCH];
+#pragma unroll
+    for (int q = 0; q < ROW_BATCH; ++q) {
+      const int e = e0 + q * BLOCK;
+      if (e >= count) break;
+      const int l = span_row(e, inv_s), k = e - l * s;
+      const RowOp& op = ops[l];
+      const bool col = k == 0 || op.all;
+      b[q] = a.brightness[sp + e];
+      r[q] = a.reflectance[sp + e];
+      c[q] = 0.0f;
+      if ((op.op != ROW_KEEP && col) || (chain && op.op == ROW_REFLECT))
+        c[q] = op.table >= 0 ? table_value(pr, pr.ctable, op.table, a.wl[sp + e])
+                             : (op.src ? op.src[k] : 0.0f);
+    }
+#pragma unroll
+    for (int q = 0; q < ROW_BATCH; ++q) {
+      const int e = e0 + q * BLOCK;
+      if (e >= count) break;
+      const int l = span_row(e, inv_s), k = e - l * s;
+      const RowOp& op = ops[l];
+      float bk = b[q], rk = r[q], rn = r[q];
+      if (k == 0 || op.all) {
+        if (op.op == ROW_MISS) {
+          bk = bk + c[q] * rk;
+        } else if (op.op == ROW_EMIT) {
+          bk = bk + c[q] * op.f * rk;
+        } else if (op.op == ROW_REFLECT) {
+          rn = rk * c[q] * op.f;
+          rk = rn * op.brdf;
+        }
+      }
+      a.o_brightness[sp + e] = bk;
+      a.o_reflectance[sp + e] = rk;
+      a.o_refl_nee[sp + e] = rn;
+      if (chain) rec.color_prob[sp + e] = op.op == ROW_REFLECT ? c[q] * op.f : 0.0f;
+    }
+  }
+}
+
 // The widest row the unrolled part of warp_gather moves; wider rows (S >
 // 16) go on in a loop of the same steps.
 constexpr int MAX_ROW = 16;
@@ -939,9 +1028,21 @@ __device__ __forceinline__ void de_normals_shared(const Sheet& sh, float* slots,
 // took last: directional lamps on a miss, the baked colour and probability
 // tables and rows past MAX_ROW columns; without it the code is the one
 // before them (kernels_dense.build_pack's "form" picks it).
-template <class Geo, bool kDE, bool kRecord, bool kProg, bool kGate>
+//
+// The kStream instantiations (the gate form past MAX_ROW columns: kGate,
+// not kProg) stage no spectral row: a lane's thread leaves what its rows
+// take in a RowOp (which case, its factors, where its color row comes
+// from), and after the block's barrier bounce_rows applies them to the
+// block's span of the [N, S] arrays in global memory, consecutive threads
+// on consecutive words. The staged form kept four [BLOCK, S] rows at a
+// stride of S floats, which past 16 columns put every thread of a warp on
+// one bank (S = 32, 64) and sized the block's shared memory by S (one
+// block a SM at S = 64); the streamed block's shared memory is
+// stream_smem_bytes, whatever S.
+template <class Geo, bool kDE, bool kRecord, bool kProg, bool kGate, bool kStream>
 __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo, const Record& rec,
                                             const ProgArgs& pa) {
+  static_assert(!kStream || (kGate && !kProg), "the streamed form is the gate form's");
   extern __shared__ __align__(16) float dyn_smem[];
   float* smem = dyn_smem + (kProg ? pa.own_off : 0);  // after the program stack
   const int n = a.n, s = a.s, t = threadIdx.x;
@@ -952,13 +1053,16 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
   float* R = B + BLOCK * s;      // reflectance, in and out
   float* RN = R + BLOCK * s;     // pre-BRDF reflectance, out
   float* C = RN + BLOCK * s;     // the lane's sky or color row
-  float* O = C + BLOCK * s;      // [BLOCK, 3] origin, in and out
+  float* O = kStream ? smem : C + BLOCK * s;  // [BLOCK, 3] origin, in and out
   float* D = O + 3 * BLOCK;      // direction, in and out
   float* F = D + 3 * BLOCK;      // facing normal, out
   float* U = F + 3 * BLOCK;      // u_scatter
+  RowOp* ops = reinterpret_cast<RowOp*>(U + 3 * BLOCK);  // kStream: a lane's RowOp
   const size_t sp = (size_t)base * s, vp = (size_t)base * 3;
-  block_copy(B, a.brightness + sp, rows * s);
-  block_copy(R, a.reflectance + sp, rows * s);
+  if (!kStream) {
+    block_copy(B, a.brightness + sp, rows * s);
+    block_copy(R, a.reflectance + sp, rows * s);
+  }
   block_copy(O, a.origin + vp, rows * 3);
   block_copy(D, a.direction + vp, rows * 3);
   block_copy(U, a.u_scatter + vp, rows * 3);
@@ -984,8 +1088,9 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
 
   V3 normal = {0.f, 0.f, 0.f};
   int mat = 0;
-  if (kDE) de_normals_shared(sh, smem + BLOCK * (4 * s + 12) + (t >> 5) * DE_SLOT_FLOATS,
-                             found && h.kind == KIND_DE, h, o, d, normal, mat);
+  if (kDE)
+    de_normals_shared(sh, smem + BLOCK * (kStream ? 12 + ROW_OP_FLOATS : 4 * s + 12) + (t >> 5) * DE_SLOT_FLOATS,
+                      found && h.kind == KIND_DE, h, o, d, normal, mat);
   const V3 pos = o + d * h.t;
   int comp = 0, bsdf = BSDF_EMISSIVE, color_id = -1;
   float comp_probability = 0.0f;
@@ -1043,14 +1148,17 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
       row_src = a.sky + ((size_t)sky_row * n + lane) * s;
     }
   }
-  warp_gather<kGate>(C + (t & ~31) * s, row_src, s);
-  if (kProg && own_prog >= 0)  // the lane's own row, after the warp's gather
-    eval_program(pr, pa, own_prog, lane, n, s, s, in, C + t * s);
-  if (kGate && own_prog < -1)
-    for (int k = 0; k < s; ++k)
-      C[t * s + k] = table_value(pr, pr.ctable, -2 - own_prog, a.wl[(size_t)lane * s + k]);
+  if (!kStream) {
+    warp_gather<kGate>(C + (t & ~31) * s, row_src, s);
+    if (kProg && own_prog >= 0)  // the lane's own row, after the warp's gather
+      eval_program(pr, pa, own_prog, lane, n, s, s, in, C + t * s);
+    if (kGate && own_prog < -1)
+      for (int k = 0; k < s; ++k)
+        C[t * s + k] = table_value(pr, pr.ctable, -2 - own_prog, a.wl[(size_t)lane * s + k]);
+  }
 
   if (in_range) {
+    RowOp op = {row_src, 0.0f, 1.0f, own_prog < -1 ? -2 - own_prog : -1, ROW_KEEP, 0};  // kStream
     const bool aux = a.aux_alive[lane];
     const bool sample_light = a.sample_light[lane];
     const int light_events = a.light_events[lane];
@@ -1063,12 +1171,22 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
     float rec_path_prob = 0.0f;  // and its path probability
     bool rec_diffuse = false, rec_dispersed = false;
     if (alive && !found) {
-      for (int k = 0; k < s; ++k)
-        if (k == 0 || aux) b[k] = b[k] + c[k] * r[k];
+      if (kStream) {
+        op.op = ROW_MISS;
+        op.all = aux;
+      } else {
+        for (int k = 0; k < s; ++k)
+          if (k == 0 || aux) b[k] = b[k] + c[k] * r[k];
+      }
     } else if (found && bsdf == BSDF_EMISSIVE) {
-      if (sample_light)
+      if (kStream && sample_light) {
+        op.op = ROW_EMIT;
+        op.f = comp_probability;
+        op.all = aux && !normal_dispersed;
+      } else if (sample_light) {
         for (int k = 0; k < s; ++k)
           if (k == 0 || (aux && !normal_dispersed)) b[k] = b[k] + c[k] * comp_probability * r[k];
+      }
     } else if (found) {
       // scatter (tracer.scatter)
       reflected = true;
@@ -1085,13 +1203,17 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
       aux_next = aux && !(sc_dispersed || normal_dispersed);
       const float path_prob = sc_probability * comp_probability;
       const float brdf = is_diffuse ? 2.0f * fabsf(dot(normal, out)) : 1.0f;
-      for (int k = 0; k < s; ++k) {
-        float rk = r[k];
-        if (k == 0 || aux_next) {
-          rk = rk * c[k] * path_prob;
-          r[k] = rk * brdf;
+      if (kStream) {
+        op = {row_src, path_prob, brdf, op.table, ROW_REFLECT, aux_next};
+      } else {
+        for (int k = 0; k < s; ++k) {
+          float rk = r[k];
+          if (k == 0 || aux_next) {
+            rk = rk * c[k] * path_prob;
+            r[k] = rk * brdf;
+          }
+          rn[k] = rk;
         }
-        rn[k] = rk;
       }
       nee = is_diffuse && light_events < 2;
       light_events_next = light_events + (nee ? 1 : 0);
@@ -1115,15 +1237,17 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
       rec.dispersed[lane] = rec_dispersed;
       rec.recorded[lane] = reflected || miss || (found && bsdf == BSDF_EMISSIVE && sample_light);
       rec.miss[lane] = miss;
-      if (rec.color_prob) {
+      if (rec.color_prob) {  // kStream: the row in bounce_rows
         float* cp = rec.color_prob + (size_t)lane * s;
-        for (int k = 0; k < s; ++k) cp[k] = reflected ? c[k] * rec_path_prob : 0.0f;
+        if (!kStream)
+          for (int k = 0; k < s; ++k) cp[k] = reflected ? c[k] * rec_path_prob : 0.0f;
         rec.color_prog[lane] = reflected ? color_id : -1;
         rec.path_prob[lane] = rec_path_prob;
         rec.reflected[lane] = reflected;
       }
     }
-    if (!reflected)
+    if (kStream) ops[t] = op;
+    else if (!reflected)
       for (int k = 0; k < s; ++k) rn[k] = r[k];
     O[3 * t] = new_o.x; O[3 * t + 1] = new_o.y; O[3 * t + 2] = new_o.z;
     D[3 * t] = new_d.x; D[3 * t + 1] = new_d.y; D[3 * t + 2] = new_d.z;
@@ -1135,9 +1259,13 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
     a.o_nee[lane] = nee;
   }
   __syncthreads();
-  block_copy(a.o_brightness + sp, B, rows * s);
-  block_copy(a.o_reflectance + sp, R, rows * s);
-  block_copy(a.o_refl_nee + sp, RN, rows * s);
+  if (kStream) {
+    bounce_rows<kRecord>(a, rec, ops, base, rows);
+  } else {
+    block_copy(a.o_brightness + sp, B, rows * s);
+    block_copy(a.o_reflectance + sp, R, rows * s);
+    block_copy(a.o_refl_nee + sp, RN, rows * s);
+  }
   block_copy(a.o_origin + vp, O, rows * 3);
   block_copy(a.o_direction + vp, D, rows * 3);
   block_copy(a.o_flip + vp, F, rows * 3);
@@ -1264,6 +1392,111 @@ __device__ LampSample sample_lamp(const Sheet& sh, int li, V3 p, float u0, float
   return ls;
 }
 
+// Light sample j of a thread's NEE lane in the streamed form (nee_lane's
+// kStream instantiations, kGate and not kProg): the lamp sample, the
+// shadow query (on WideGeo every thread of the warp calls it, one without
+// a ray with cast false) and, where the lamp is seen, the emitter's pick
+// and the sample's factor l_prob, as nee_lane's loop computes them (a copy:
+// the loop calling a shared one changed the other instantiations'
+// registers). Returns whether the sample adds to the lane.
+template <class Geo, bool kDE>
+__device__ __forceinline__ bool light_sample(const NeeArgs& a, const Geo& geo, const Sheet& sh,
+                                             const Programs& pr, int j, bool nee, int lane, V3 p,
+                                             V3 flip, int li, bool pairs, LampSample& ls,
+                                             float& l_prob, int& color_id, bool& l_dispersed) {
+  const int n = a.n, s = a.s;
+  ls = {{0.f, 0.f, 1.f}, INFINITY, 0.0f, {0.f, 0.f, 1.f}, 0, false};
+  if (nee) {
+    const float* u = a.u_nee + ((size_t)j * n + lane) * 4;
+    float u0, u1;
+    if (pairs) {
+      const float2 uv = *reinterpret_cast<const float2*>(u);
+      u0 = uv.x;
+      u1 = uv.y;
+    } else {
+      u0 = u[0];
+      u1 = u[1];
+    }
+    ls = sample_lamp<false, true>(sh, li, p, u0, u1);
+  }
+  const bool cast = nee && fmaxf(dot(flip, ls.dir), 0.0f) > 0.0f;
+  if (!Geo::kWholeWarp && !cast) return false;
+  float t_hit = geo.shadow(sh, p, ls.dir, sqrtf(ls.sq_distance),
+                           sqrtf(fmaxf(ls.sq_distance - DIST_EPSILON, 0.0f)), cast);
+  if (!cast) return false;
+  if (kDE)
+    t_hit = apply_de_shadow(sh, a.t_de_shadow, (size_t)a.light_samples * n, (size_t)j * n + lane, t_hit);
+  if (t_hit * t_hit < ls.sq_distance - DIST_EPSILON) return false;  // blocked
+
+  float mat_prob = 1.0f;
+  l_dispersed = false;
+  color_id = sh.iat(M_LAMP_COLOR, li);
+  if (ls.is_shape) {
+    // choose_emissive (materials/mod.rs:56-62)
+    const float u_emis = a.u_emis[(size_t)j * n + lane];
+    const int count = max(sh.iat(M_MAT_EMIS_COUNT, ls.mat), 1);
+    const int pick = min((int)(u_emis * (float)count), count - 1);
+    const int eidx = sh.iat(M_MAT_EMIS_OFFSET, ls.mat) + pick;
+    const int e_comp = sh.iat(M_EMIS_COMP, eidx);
+    const int prob = sh.iat(M_COMP_PROB, e_comp);
+    mat_prob = eval_prob<true>(pr, prob, lane, n, s, ls.normal, ls.dir) * sh.at(M_EMIS_SELECTION, eidx);
+    l_dispersed = sh.at(M_COMP_PROB_USES_WL, e_comp) > 0.5f;
+    color_id = sh.iat(M_COMP_COLOR, e_comp);
+  }
+  const float brdf = 2.0f * fabsf(dot(flip, ls.dir));
+  l_prob = ls.weight * a.nee_prob * brdf * mat_prob;
+  return true;
+}
+
+// What light sample j adds to an NEE lane in the streamed form, left by the
+// lane's thread for the block's spectral pass (nee_rows): `code` -1 adds
+// nothing, else 2 (color program + 1) + all, program -1 being none (zeros)
+// and `all` every column where column 0 alone is not.
+struct NeeOp {
+  float l_prob;
+  int code;
+};
+// Light samples a streamed NEE block takes per pass over its rows.
+constexpr int NEE_CHUNK = 4;
+
+// The streamed NEE's spectral pass over (NEE lane, column) words of the
+// block's compacted lanes, word e lane lanes[e / S] and column e % S, so a
+// warp reads and writes runs of its lanes' rows: each word is read once,
+// takes the chunk's `jn` light samples in order, b + c * l_prob * rn each as
+// the staged loops did, and is written once. A thread keeps one word in
+// flight (its colour reads issued before the adds): more words a thread
+// took more registers and ran slower (PERF.md §6, row 2).
+__device__ __forceinline__ void nee_rows(const NeeArgs& a, const int* lanes,
+                                         const NeeOp (*ops)[BLOCK], int total, int jn) {
+  const int s = a.s, n = a.n, count = total * s;
+  const float inv_s = 1.0f / (float)s;
+  const Programs& pr = a.progs;
+  for (int e = threadIdx.x; e < count; e += BLOCK) {
+    const int l = span_row(e, inv_s), k = e - l * s, lane = lanes[l];
+    const size_t i = (size_t)lane * s + k;
+    float c[NEE_CHUNK];
+    unsigned takes = 0;  // bit j: light sample j adds to the word
+#pragma unroll
+    for (int j = 0; j < NEE_CHUNK; ++j) {
+      if (j >= jn) break;
+      const NeeOp op = ops[j][l];
+      if (op.code < 0 || !(k == 0 || (op.code & 1))) continue;
+      takes |= 1u << j;
+      const int color = (op.code >> 1) - 1;
+      c[j] = color < 0 ? 0.0f
+             : pr.ctable ? table_value(pr, pr.ctable, color, pr.wl[i])
+                         : pr.cvals[((size_t)color * n + lane) * s + k];
+    }
+    if (!takes) continue;
+    const float rn = a.refl_nee[i];
+    float b = a.brightness[i];
+#pragma unroll
+    for (int j = 0; j < NEE_CHUNK; ++j)
+      if ((takes >> j) & 1u) b = b + c[j] * ops[j][l].l_prob * rn;
+    a.brightness[i] = b;
+  }
+}
+
 // tracer.trace_direct for the lanes the bounce kernel marked. Per light
 // sample: sample_lamp, a shadow query (the planes, the geometry policy, then
 // the DE shapes' t from the shadow march pass, which marched no further than
@@ -1302,8 +1535,16 @@ __device__ LampSample sample_lamp(const Sheet& sh, int li, V3 p, float u0, float
 // the surface, call it with active = false, once per light sample like the
 // others (the loop over light samples is uniform across the warp), and only
 // help sweep.
-template <class Geo, bool kDE, bool kProg, bool kGate>
+//
+// The kStream instantiations (a gate scene past MAX_ROW columns) read and
+// write no row per thread: for each NEE_CHUNK light samples a lane's
+// thread leaves a NeeOp each, and the block then walks its NEE lanes'
+// (lane, column) words (nee_rows), reading and writing each brightness
+// word once a chunk where the per-thread loop read and wrote it once per
+// light sample, every warp access a run of a lane's row.
+template <class Geo, bool kDE, bool kProg, bool kGate, bool kStream>
 __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo, const ProgArgs& pa) {
+  static_assert(!kStream || (kGate && !kProg), "the streamed form is the gate form's");
   __shared__ int lanes[BLOCK];             // the block's NEE lanes, in lane order
   __shared__ int warp_count[BLOCK / 32];  // NEE lanes per warp
   // kProg: each thread's row of its lamp's colour program, the block's
@@ -1323,6 +1564,46 @@ __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo, const
   }
   if (mine) lanes[offset + __popc(marked & ((1u << lid) - 1u))] = base + t;
   __syncthreads();
+  if constexpr (kStream) {
+    // The streamed form: per chunk of light samples each NEE lane's thread
+    // leaves its samples' NeeOps, then the block adds them into its lanes'
+    // rows (nee_rows); no thread leaves before the block's last barrier.
+    __shared__ NeeOp ops[NEE_CHUNK][BLOCK];
+    if (total == 0) return;
+    const bool nee = t < total;
+    const bool run = Geo::kWholeWarp ? t < ((total + 31) & ~31) : nee;
+    for (int j0 = 0; j0 < a.light_samples; j0 += NEE_CHUNK) {
+      const int jn = min(NEE_CHUNK, a.light_samples - j0);
+      if (run) {
+        // read per chunk, so that none of it is live across nee_rows
+        const int lane = nee ? lanes[t] : 0;
+        const Sheet sh = a.sheet;
+        const Programs pr = a.progs;
+        const V3 p = nee ? load3(a.position, lane) : V3{0.f, 0.f, 0.f};
+        const V3 flip = nee ? load3(a.flip, lane) : V3{0.f, 0.f, 0.f};
+        const bool aux = nee && a.aux_alive[lane];
+        const int li = nee ? a.lamp_idx[lane] : 0;
+        const bool pairs = (reinterpret_cast<uintptr_t>(a.u_nee) & 7) == 0;
+        for (int j = 0; j < jn; ++j) {
+          LampSample ls;
+          float l_prob;
+          int color_id;
+          bool l_dispersed;
+          NeeOp op = {0.0f, -1};
+          if (light_sample<Geo, kDE>(a, geo, sh, pr, j0 + j, nee, lane, p, flip, li, pairs, ls,
+                                     l_prob, color_id, l_dispersed)) {
+            const bool colored = color_id >= 0 && color_id < pr.n_color;
+            op = {l_prob, 2 * (colored ? color_id + 1 : 0) + (aux && !l_dispersed ? 1 : 0)};
+          }
+          if (nee) ops[j][t] = op;
+        }
+      }
+      __syncthreads();
+      nee_rows(a, lanes, ops, total, jn);
+      __syncthreads();
+    }
+    return;
+  }
   if (t >= ((total + 31) & ~31)) return;  // whole warps past the last NEE lane
   const bool nee = t < total;
   if (!Geo::kWholeWarp && !nee) return;
@@ -1838,16 +2119,18 @@ __global__ void __launch_bounds__(BLOCK) dense_shadow_kernel(const ShadowArgs a)
 // programs need the program form; <..., false> reads none of ProgArgs and
 // is the code it was. The bounce and NEE kernels' kGate instantiations
 // (bounce_lane) run a simple scene with directional lamps, a baked table or
-// more than MAX_ROW spectral columns; every kProg one is also kGate.
-template <bool kDE, bool kRecord, bool kProg, bool kGate>
+// more than MAX_ROW spectral columns; every kProg one is also kGate. Past
+// MAX_ROW columns a gate scene runs the kStream ones (bounce_rows,
+// nee_rows); at MAX_ROW or fewer the kGate code stages its rows as before.
+template <bool kDE, bool kRecord, bool kProg, bool kGate, bool kStream>
 __global__ void __launch_bounds__(BLOCK)
     dense_bounce_kernel(const BounceArgs a, const Record rec, const ProgArgs pa) {
-  bounce_lane<DenseGeo, kDE, kRecord, kProg, kGate>(a, DenseGeo{}, rec, pa);
+  bounce_lane<DenseGeo, kDE, kRecord, kProg, kGate, kStream>(a, DenseGeo{}, rec, pa);
 }
 
-template <bool kDE, bool kProg, bool kGate>
+template <bool kDE, bool kProg, bool kGate, bool kStream>
 __global__ void __launch_bounds__(BLOCK) dense_nee_kernel(const NeeArgs a, const ProgArgs pa) {
-  nee_lane<DenseGeo, kDE, kProg, kGate>(a, DenseGeo{}, pa);
+  nee_lane<DenseGeo, kDE, kProg, kGate, kStream>(a, DenseGeo{}, pa);
 }
 
 // The kProg instantiations ask for 6 resident blocks (at most 80 registers,
@@ -1858,25 +2141,25 @@ __global__ void __launch_bounds__(BLOCK) dense_nee_kernel(const NeeArgs a, const
 // keep their launch bounds (a second bound there changes their registers).
 template <>
 __global__ void __launch_bounds__(BLOCK, 6)
-    dense_nee_kernel<false, true, true>(const NeeArgs a, const ProgArgs pa) {
-  nee_lane<DenseGeo, false, true, true>(a, DenseGeo{}, pa);
+    dense_nee_kernel<false, true, true, false>(const NeeArgs a, const ProgArgs pa) {
+  nee_lane<DenseGeo, false, true, true, false>(a, DenseGeo{}, pa);
 }
 template <>
 __global__ void __launch_bounds__(BLOCK, 6)
-    dense_nee_kernel<true, true, true>(const NeeArgs a, const ProgArgs pa) {
-  nee_lane<DenseGeo, true, true, true>(a, DenseGeo{}, pa);
+    dense_nee_kernel<true, true, true, false>(const NeeArgs a, const ProgArgs pa) {
+  nee_lane<DenseGeo, true, true, true, false>(a, DenseGeo{}, pa);
 }
 
-template <bool kDE, bool kRecord, bool kProg, bool kGate>
+template <bool kDE, bool kRecord, bool kProg, bool kGate, bool kStream>
 __global__ void __launch_bounds__(BLOCK)
     wide_bounce_kernel(const BounceArgs a, const WideGeo geo, const Record rec, const ProgArgs pa) {
-  bounce_lane<WideGeo, kDE, kRecord, kProg, kGate>(a, geo, rec, pa);
+  bounce_lane<WideGeo, kDE, kRecord, kProg, kGate, kStream>(a, geo, rec, pa);
 }
 
-template <bool kDE, bool kProg, bool kGate>
+template <bool kDE, bool kProg, bool kGate, bool kStream>
 __global__ void __launch_bounds__(BLOCK)
     wide_nee_kernel(const NeeArgs a, const WideGeo geo, const ProgArgs pa) {
-  nee_lane<WideGeo, kDE, kProg, kGate>(a, geo, pa);
+  nee_lane<WideGeo, kDE, kProg, kGate, kStream>(a, geo, pa);
 }
 
 template <bool kDE, bool kProg>
@@ -2131,12 +2414,15 @@ enum { FORM_SIMPLE = 0, FORM_PROG = 1, FORM_GATE = 2 };
 // a kernel's dynamic shared memory: the program stack and its own OWN bytes
 #define WITH_STACK(OWN) ((OWN) + STACK_BYTES)
 // a kernel's instantiation for the scene: kDE from n_de (launch_lanes), kProg
-// from `form`; the bounce and NEE kernels' kGate too (PICK_GATE)
+// from `form`; the bounce and NEE kernels' kGate too, and kStream where a
+// gate scene has more than MAX_ROW spectral columns (PICK_GATE, STREAM)
 #define PICK(K, ...) (form == FORM_PROG ? &K<__VA_ARGS__, true> : &K<__VA_ARGS__, false>)
+#define STREAM (form == FORM_GATE && s > MAX_ROW)
 #define PICK_GATE(K, ...)                                                                       \
-  (form == FORM_PROG   ? &K<__VA_ARGS__, true, true>                                            \
-   : form == FORM_GATE ? &K<__VA_ARGS__, false, true>                                           \
-                       : &K<__VA_ARGS__, false, false>)
+  (form == FORM_PROG   ? &K<__VA_ARGS__, true, true, false>                                     \
+   : STREAM            ? &K<__VA_ARGS__, false, true, true>                                     \
+   : form == FORM_GATE ? &K<__VA_ARGS__, false, true, false>                                    \
+                       : &K<__VA_ARGS__, false, false, false>)
 
 // the camera vertex a kRecord bounce writes (Record)
 #define RECORD_PARAMS                                                                          \
@@ -2150,10 +2436,13 @@ enum { FORM_SIMPLE = 0, FORM_PROG = 1, FORM_GATE = 2 };
 // a NEE kernel block's own dynamic shared memory: the kProg instantiations'
 // colour rows, [BLOCK, S] floats
 #define NEE_SMEM (form == FORM_PROG ? (size_t)BLOCK * s * sizeof(float) : 0)
+// a bounce kernel block's own dynamic shared memory: the staged rows
+// (bounce_smem_bytes) or, in the streamed gate form, stream_smem_bytes
+#define BOUNCE_SMEM (STREAM ? stream_smem_bytes(n_de > 0) : bounce_smem_bytes(s, n_de > 0))
 
 int pyrite_dense_bounce(BOUNCE_PARAMS, PROG_PARAMS, void* stream) {
   BOUNCE_ARGS;
-  const size_t own = bounce_smem_bytes(s, n_de > 0);
+  const size_t own = BOUNCE_SMEM;
   PROG_ARGS;
   launch_lanes(PICK_GATE(dense_bounce_kernel, true, false), PICK_GATE(dense_bounce_kernel, false, false), n,
                n_de, WITH_STACK(own), stream, a, Record{}, pa);
@@ -2171,7 +2460,7 @@ int pyrite_dense_nee(NEE_PARAMS, PROG_PARAMS, void* stream) {
 int pyrite_wide_bounce(BOUNCE_PARAMS, WIDE_PARAMS, PROG_PARAMS, void* stream) {
   BOUNCE_ARGS;
   WIDE_GEO;
-  const size_t own = bounce_smem_bytes(s, n_de > 0);
+  const size_t own = BOUNCE_SMEM;
   PROG_ARGS;
   launch_lanes(PICK_GATE(wide_bounce_kernel, true, false), PICK_GATE(wide_bounce_kernel, false, false), n,
                n_de, WITH_STACK(own), stream, a, g, Record{}, pa);
@@ -2192,7 +2481,7 @@ int pyrite_wide_nee(NEE_PARAMS, WIDE_PARAMS, PROG_PARAMS, void* stream) {
 int pyrite_dense_bounce_record(BOUNCE_PARAMS, RECORD_PARAMS, PROG_PARAMS, void* stream) {
   BOUNCE_ARGS;
   RECORD;
-  const size_t own = bounce_smem_bytes(s, n_de > 0);
+  const size_t own = BOUNCE_SMEM;
   PROG_ARGS;
   launch_lanes(PICK_GATE(dense_bounce_kernel, true, true), PICK_GATE(dense_bounce_kernel, false, true), n,
                n_de, WITH_STACK(own), stream, a, rec, pa);
@@ -2204,7 +2493,7 @@ int pyrite_wide_bounce_record(BOUNCE_PARAMS, WIDE_PARAMS, RECORD_PARAMS, PROG_PA
   BOUNCE_ARGS;
   WIDE_GEO;
   RECORD;
-  const size_t own = bounce_smem_bytes(s, n_de > 0);
+  const size_t own = BOUNCE_SMEM;
   PROG_ARGS;
   launch_lanes(PICK_GATE(wide_bounce_kernel, true, true), PICK_GATE(wide_bounce_kernel, false, true), n,
                n_de, WITH_STACK(own), stream, a, g, rec, pa);
@@ -2288,24 +2577,32 @@ int pyrite_bounce_occupancy(int s, int stack, int* blocks) {
   const size_t st = (size_t)stack * BLOCK * sizeof(float4), rows = (size_t)BLOCK * s * sizeof(float);
   const size_t smem[12] = {b0, b1, 0, 0, b0, b1, 0, 0, b0 + st, rows + st, b0 + st, rows + st};
   const void* kernels[12] = {
-      (const void*)dense_bounce_kernel<false, false, false, false>,
-      (const void*)dense_bounce_kernel<true, false, false, false>,
-      (const void*)dense_nee_kernel<false, false, false>,
-      (const void*)dense_nee_kernel<true, false, false>,
-      (const void*)wide_bounce_kernel<false, false, false, false>,
-      (const void*)wide_bounce_kernel<true, false, false, false>,
-      (const void*)wide_nee_kernel<false, false, false>,
-      (const void*)wide_nee_kernel<true, false, false>,
-      (const void*)dense_bounce_kernel<false, false, true, true>,
-      (const void*)dense_nee_kernel<false, true, true>,
-      (const void*)wide_bounce_kernel<false, false, true, true>,
-      (const void*)wide_nee_kernel<false, true, true>};
+      (const void*)dense_bounce_kernel<false, false, false, false, false>,
+      (const void*)dense_bounce_kernel<true, false, false, false, false>,
+      (const void*)dense_nee_kernel<false, false, false, false>,
+      (const void*)dense_nee_kernel<true, false, false, false>,
+      (const void*)wide_bounce_kernel<false, false, false, false, false>,
+      (const void*)wide_bounce_kernel<true, false, false, false, false>,
+      (const void*)wide_nee_kernel<false, false, false, false>,
+      (const void*)wide_nee_kernel<true, false, false, false>,
+      (const void*)dense_bounce_kernel<false, false, true, true, false>,
+      (const void*)dense_nee_kernel<false, true, true, false>,
+      (const void*)wide_bounce_kernel<false, false, true, true, false>,
+      (const void*)wide_nee_kernel<false, true, true, false>};
   for (int i = 0; i < 12; ++i) {
     const cudaError_t e =
         cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks[i], kernels[i], BLOCK, smem[i]);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
+}
+
+// The dynamic shared memory a bounce kernel block of the scene's `form`
+// takes at S spectral columns, with (`de`) or without DE shapes, less the
+// kProg program stack: what the launchers pass (BOUNCE_SMEM).
+int pyrite_bounce_smem(int s, int de, int form) {
+  const int n_de = de;
+  return (int)BOUNCE_SMEM;
 }
 
 // The march passes (march_de_kernel over BounceRays / ShadowRays): `n_de`

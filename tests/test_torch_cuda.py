@@ -5,6 +5,8 @@ The module imports neither JAX nor the JAX package, so it runs on a machine
 without them: ``python -m pytest --noconftest tests/test_torch_cuda.py``
 (tests/conftest.py configures JAX)."""
 
+import os
+
 import pytest
 import torch
 
@@ -469,12 +471,16 @@ def _gate_paths(directory):
     """chip_smoke.gate_paths' scenes at 128 x 64 (the terrains at 24 cells,
     materials_300 and textures_deep at full count, de_130 at 64 x 32, and
     de_520 at 32 x 16: past the 512 shapes the march kernel's shared
-    memory holds without opting in)."""
+    memory holds without opting in), with the flagship at S = 17, 33 and
+    110 (one column past 16 and 32, the gate's ceiling), terrain_24 at S =
+    32, the julia scene at 32 x 32 and S = 24, and flagship_s24_bdpt."""
     flagship = chip_smoke.scene_paths(directory, width=128, height=64, spectrum_samples=6,
                                       bounces=8)["flagship"]
     spectra = lambda s: [("spectrum_samples = 6", f"spectrum_samples = {s}")]  # noqa: E731
     spheres = dict(count=300, width=128, height=64, distinct=True, emissive=150, planes=130,
                    spectrum_samples=10)
+    julia = os.path.join(directory, "julia_s24")
+    os.makedirs(julia, exist_ok=True)
     return {
         "sunlit_terrain_24": chip_smoke.write_sunlit_terrain_scene(directory, 24, 128, 64),
         "sunlit_terrain_24_bdpt": chip_smoke.write_sunlit_terrain_scene(
@@ -484,6 +490,16 @@ def _gate_paths(directory):
         "flagship_s32": chip_smoke.add_objects(flagship, [chip_smoke.SUN], "flagship_s32",
                                                spectra(32)),
         "flagship_s64": chip_smoke.add_objects(flagship, [], "flagship_s64", spectra(64)),
+        "flagship_s17": chip_smoke.add_objects(flagship, [], "flagship_s17", spectra(17)),
+        "flagship_s33": chip_smoke.add_objects(flagship, [], "flagship_s33", spectra(33)),
+        "flagship_s110": chip_smoke.add_objects(flagship, [], "flagship_s110", spectra(110)),
+        "flagship_s24_bdpt": chip_smoke.add_objects(flagship, [], "flagship_s24_bdpt", spectra(24) + [
+            ("renderer.simple {", "renderer.bidirectional {\n        light_bounces = 3,"),
+            ("pixel_samples = 256", "pixel_samples = 2")]),
+        "terrain_24_s32": chip_smoke.add_objects(
+            chip_smoke.terrain_paths(directory, cells=(24,), width=128, height=64)["terrain_24"], [],
+            "terrain_24_s32", [("spectrum_samples = 4,", "spectrum_samples = 32,")]),
+        "julia_s24": chip_smoke.write_julia_scene(julia, 32, 32, spectrum_samples=24),
         "materials_300": chip_smoke.write_spheres_scene(directory, **spheres),
         "materials_300_bdpt": chip_smoke.write_spheres_scene(directory, **spheres,
                                                              renderer="bidirectional"),
@@ -497,17 +513,46 @@ def _gate_paths(directory):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["sunlit_terrain_24", "flagship_s20", "flagship_s32",
                                   "flagship_s64", "materials_300", "textures_deep", "de_130",
-                                  "de_520"])
+                                  "de_520", "flagship_s17", "flagship_s33", "flagship_s110",
+                                  "terrain_24_s32", "julia_s24", "flagship_s24_bdpt"])
 def test_cuda_gate_kernels_match_plain_version(tmp_path, name):
     """The bounce and NEE kernels lane for lane on the scenes the gate
     refused before: directional lamps, S = 20, 32 and 64, tables past 128
     rows read from the baked colour table, an 82-instruction program at
-    stack depth 12, 130 and 520 DE shapes: 0 divergent lanes."""
+    stack depth 12, 130 and 520 DE shapes: 0 divergent lanes. The edges of
+    the gate form's streamed (kStream) kernels: S = 17, 33 and 110, a mesh
+    at S = 32, a DE scene at S = 24 (at bounce 0: the plain march on the
+    card is slow) and the kRecord bounce with its chain factors at S = 24
+    (chip_smoke.wide_rows_case)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     path = _gate_paths(str(tmp_path))[name]
-    worst = chip_smoke.check_kernels(name, path, lanes=8192, bounces=1 if name.startswith("de_") else 3)
+    if name == "flagship_s24_bdpt":
+        for bounce in (0, 1):
+            chip_smoke.wide_rows_case(path, bounce, record=True)
+        return
+    one = name.startswith("de_") or name == "julia_s24"
+    worst = chip_smoke.check_kernels(name, path, lanes=8192, bounces=1 if one else 3)
     assert worst["divergent"] == 0.0 and worst["nee_divergent"] == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flagship_s33", "flagship_s110", "terrain_24_s32"])
+def test_cuda_wide_rows_match_plain_version(tmp_path, name):
+    """--wide-rows' comparison (chip_smoke.wide_rows_case) at bounces 0
+    and 1, and the kRecord bounce with its chain factors: flags bit-equal
+    to the plain version's, vectors within rtol 1e-3 / atol 1e-4, no
+    divergent lane; the digests cover every output and are those of the
+    same launch repeated."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    path = _gate_paths(str(tmp_path))[name]
+    for bounce in (0, 1):
+        for record in (False, True):
+            digests, _ = chip_smoke.wide_rows_case(path, bounce, record=record)
+            assert "nee brightness" in digests and "bounce refl_nee" in digests
+            assert ("bounce color_prob" in digests) == record
+            assert chip_smoke.wide_rows_case(path, bounce, record=record)[0] == digests
 
 
 @pytest.mark.cuda
