@@ -128,15 +128,18 @@ before it lists each kernel's launches, error, times and bound.
 
 The main run builds the kernels from clean; the modes below reuse a build
 of the same sources where there is one.
-``python3 chip_smoke.py --rows`` instead runs phase 4's measurements of the
-dense bounce and NEE kernels alone (measure_rows), the textures scene's
-bounce and NEE kernel times, the bidirectional renderer's
-dense_bounce_kernel<record> on cornell_class (time_record), and last
+``python3 chip_smoke.py --rows [PARENT_CSRC [OUT.json]]`` instead runs phase 4's
+measurements of the dense bounce and NEE kernels alone (measure_rows), the
+textures scene's bounce and NEE kernel times, kernels A and D alone
+(measure_record_rows: each form of A in RECORD_FORMS at camera bounces 0
+and 1, D on textures_bdpt's lamp vertices and on color_edge_batches,
+through this build, the probes of RECORD_VARIANTS and, given PARENT_CSRC,
+a parent checkout's csrc/ built beside it, in the order parent, build,
+probes, build, parent on the same inputs, with each output's digest
+against the parent's; OUT.json keeps every number), and last
 materials_300 read from its baked colour table against the per-launch
-bank (measure_bank); to compare a
-parent, copy chip_smoke.py into its ``git archive`` checkout and run both
-in one call (a checkout whose gate refuses materials_300, or that has no
-renderers.photon, stops at measure_bank). ``--prog`` runs the measurements of the kProg
+bank (measure_bank). ``--record-rows [PARENT_CSRC [OUT.json]]`` runs
+measure_record_rows alone. ``--prog`` runs the measurements of the kProg
 instantiations, with builds of csrc/bounce.cu that each remove or move one
 cost (measure_prog).
 ``python3 chip_smoke.py --photon`` runs phase 7's gather alone
@@ -980,19 +983,25 @@ _SCENES = {}
 
 
 @contextlib.contextmanager
+def bank_table_min(value):
+    """Scenes built inside bake a program table from ``value``
+    wavelength-only programs on (scene.BANK_TABLE_MIN)."""
+    from pyrite_tpu_torch import scene as scene_mod
+
+    saved = scene_mod.BANK_TABLE_MIN
+    scene_mod.BANK_TABLE_MIN = value
+    try:
+        yield
+    finally:
+        scene_mod.BANK_TABLE_MIN = saved
+
+
 def without_tables():
     """Scenes built inside keep no baked program table
     (scene.BANK_TABLE_MIN out of reach): their kernels read the per-launch
     [Pc, N, S] bank of exact values, as every scene did before the kernels
     read the table."""
-    from pyrite_tpu_torch import scene as scene_mod
-
-    saved = scene_mod.BANK_TABLE_MIN
-    scene_mod.BANK_TABLE_MIN = 1 << 30
-    try:
-        yield
-    finally:
-        scene_mod.BANK_TABLE_MIN = saved
+    return bank_table_min(1 << 30)
 
 
 def bank_key(path):
@@ -3360,53 +3369,15 @@ def time_bdpt(checked, card, variant=None):
               f"launch, {n} lanes, S={s_count} ({card})")
     if variant:
         return times
-    alive_cam = torch.nonzero(cam["alive"])[:, 0]
-    # Bytes: the scene sheet once; A per lane the bounce kernel's 24 S + 99
-    # bytes and the camera vertex's 32; B and C as _lamp_cost and
-    # _shadow_cost count them.
-    sheet = _nbytes(scene.dense_pack["tensors"]["sheet"])
-    n_de = len(scene.de_shapes)
-    sizes = {record: sheet + n * (24 * s_count + 131 + 4 * n_de)}
-    if scene.dense_pack["prog"]:
-        # the kProg instantiations also read the program tables, textures
-        # and frame tables once and, per lane, the leaf values of the
-        # programs it runs
-        sizes[record] += _prog_tables_bytes(scene) + _surface_leaf_bytes(
-            scene, cfg, wl, cam, cam_draws["u_comp"])
-    if colors is not None:
-        # per vertex its program and flag in (5) and S colors out; a valid
-        # vertex whose program runs code also reads its normal, incident
-        # direction and uv (32) and its program's leaves at S columns, one
-        # whose program reads no ray its row of the launch's values (4 S);
-        # the program tables once
-        programs, prog = scene.dense_pack["programs"], colors[0].long()
-        n_color = len(scene.color_programs)
-        in_range = colors[1].bool() & (prog >= 0) & (prog < n_color)
-        code = torch.tensor([bool(programs.program_code(programs.index("color", c)))
-                             for c in range(n_color)] + [False], device=prog.device)
-        runs_code = in_range & code[torch.where(in_range, prog, n_color)]
-        leaf = _leaf_bytes(scene, "color", torch.where(runs_code, prog, -1))
-        sizes["program_colors_kernel"] = _program_bytes(scene) + prog.numel() * (5 + 4 * s_count) + (
-            int(runs_code.sum()) * 32 + s_count * int(leaf.sum())
-            + int((in_range & ~runs_code).sum()) * 4 * s_count)
-    # the work the plain versions count without their marches, which the
-    # march passes do (kernel_march: march_de_kernel counts nothing)
-    with kernel_march():
-        works = {
-            record: _counted(lambda: tracer.bounce_core(
-                scene, cfg_no_nee, wl[alive_cam], {k: v[alive_cam] for k, v in cam.items()},
-                {k: cam_draws[k][alive_cam] for k in ("u_comp", "u_scatter")}, record=True)),
-        }
-    frame = OPS["frame"] if scene.dense_pack["prog"] else 0
-    lanes = {record: (alive_cam.numel(), _sweep_ops(scene) + OPS["shade"] + frame)}
-    if colors is not None:
-        works["program_colors_kernel"] = {}
-        lanes["program_colors_kernel"] = (int(colors[1].sum()), OPS["program"] * s_count)
-    costs = {lamp_name: _lamp_cost(scene, lamp_cfg, wl, lamp, lamp_draws),
+    # A, B, C and D: the bytes each must move and the operations they need
+    costs = {record: _record_cost(scene, cfg, wl, cam, cam_draws, False),
+             lamp_name: _lamp_cost(scene, lamp_cfg, wl, lamp, lamp_draws),
              "dense_shadow_kernel": _shadow_cost(scene, cfg, batch)}
+    if colors is not None:
+        costs["program_colors_kernel"] = _colors_cost(scene, colors)
     result = {}
     for name in runs:
-        size, ops = costs.get(name) or (sizes[name], _work_ops(scene, works[name], *lanes[name]))
+        size, ops = costs[name]
         result[name] = (*times[name], size, ops)
         print(f"[work] bdpt {name}: {size} bytes, {ops} FP32 operations")
     _print_bounds("bdpt", result)
@@ -4410,34 +4381,483 @@ def profile_photon(card, runs=5):
                   f"{e.key[:60]} {own(e) / 1e3:.3f} ms ({e.count}x)" for e in top))
 
 
-def time_record(path, card, seed=1):
-    """``--rows``: kernel A (the bounce kernel's kRecord instantiation,
-    the bidirectional renderer's, without chain factors) alone at camera
-    bounce 0 of the first chunk of ``path`` (cornell_class), reading the
-    march pass's t, two windows of 50 launches. Kept to what a parent's
-    kernels_dense offers, so that this file times a parent checkout too.
-    Returns its ms."""
+# --- kernel A in each form, and D, alone (--rows) ------------------------------
+
+# The forms of kernel A (the bounce kernels' kRecord instantiations) as the
+# renderers launch them: (label, scene of record_scene_paths, chain factors).
+RECORD_FORMS = (
+    ("cornell_class <true><record>", "cornell_class", False),
+    ("flagship_bdpt <record>", "flagship_bdpt", False),
+    ("flagship_photon <record> chain", "flagship_photon", True),
+    ("textures_bdpt <record><prog>", "textures_bdpt", False),
+    ("textures_photon <record><prog> S + G", "textures_photon", True),
+    ("terrain_405_bdpt wide <record>", "terrain_405_bdpt", False),
+)
+# A's instantiations whose registers, shared memory and resident warps
+# print_record_registers prints: since this PR their streamed ones
+# (<stream>), in a parent's library the staged ones that ran there
+RECORD_KERNELS = ("dense_bounce_kernel<true><record>", "dense_bounce_kernel<false><record>",
+                  "dense_bounce_kernel<false><record><prog>", "wide_bounce_kernel<false><record>",
+                  "program_colors_kernel")
+
+
+def record_scene_paths(directory):
+    """The scenes of RECORD_FORMS under ``directory``: {name: .lua path}."""
+    os.makedirs(directory, exist_ok=True)
+    paths = bdpt_scene_paths(directory, spp=2)
+    paths["textures_bdpt"] = texture_paths(os.path.join(directory, "textures"))["textures_bdpt"]
+    paths.update(photon_scene_paths(os.path.join(directory, "photon")))
+    return paths
+
+
+def record_inputs(path, chain, seed=1):
+    """A's inputs on the first chunk of ``path`` as its renderer launches
+    it: a photon project's camera walk (``chain``; _photon_setup, at S + G
+    columns in interpolation mode), else the bidirectional renderer's
+    (_bdpt_setup), at camera bounces 0 and 1 (bounce 1's state from bounce
+    0 through the kernels, kernels_dense.bounce_dense with its NEE).
+    Returns (scene, cfg, wavelengths, program values, [(state, draws, march
+    t) of bounce 0, of bounce 1])."""
+    from pyrite_tpu_torch import kernels_dense as kd, tracer
+
+    if chain:
+        (_, scene, parts, _, _, _, keyed, rays, wl, bank) = _photon_setup(path, seed)
+        cfg = parts[2]
+    else:
+        scene, _, _, cfg, _, keyed, rays, bank = _bdpt_setup(path, seed)
+        wl = rays[3]
+    n = wl.shape[0]
+    state = tracer.initial_state(rays[1], rays[2], wl.shape[1])
+    bounces = []
+    for b in range(2):
+        draws = tracer.draw_bounce_uniforms(scene, cfg, n, keyed, b, scene.device)
+        bounces.append((state, draws, kd.march_pass(scene, cfg, state) if scene.de_shapes else None))
+        if b == 0:
+            state = kd.bounce_dense(scene, cfg, wl, state, draws, bank, record=True, chain=chain)[0]
+    return scene, cfg, wl, bank, bounces
+
+
+def _record_cost(scene, cfg, wl, state, draws, chain):
+    """(bytes, FP32 operations) of one launch of A on this run's inputs.
+    Bytes, each read or written once: the scene sheet; per lane the bounce
+    kernel's 24 S + 99 and the camera vertex's 32 (position, normal, BRDF
+    factor, four flags), 4 n_de of march t on a DE scene and, with the
+    photon renderer's ``chain`` factors, 4 S + 9 more (color_prob,
+    color_prog, path_prob, reflected); on a kProg scene the program tables,
+    textures and frame tables once and each lane's leaf values.
+    Operations: each alive lane's sweep and shading (and frame) and the
+    work the plain version counts without its march (kernel_march)."""
+    import dataclasses
+
+    import torch
+
+    from pyrite_tpu_torch import tracer
+
+    n, s = wl.shape
+    prog = scene.dense_pack["prog"]
+    size = _nbytes(scene.dense_pack["tensors"]["sheet"]) + n * (
+        24 * s + 131 + 4 * len(scene.de_shapes) + ((4 * s + 9) if chain else 0))
+    if prog:
+        size += _prog_tables_bytes(scene) + _surface_leaf_bytes(scene, cfg, wl, state,
+                                                                draws["u_comp"])
+    alive = torch.nonzero(state["alive"])[:, 0]
+    cfg_no_nee = dataclasses.replace(cfg, light_samples=0)
+    with kernel_march():
+        work = _counted(lambda: tracer.bounce_core(
+            scene, cfg_no_nee, wl[alive], {k: v[alive] for k, v in state.items()},
+            {k: draws[k][alive] for k in ("u_comp", "u_scatter")}, record=True))
+    frame = OPS["frame"] if prog else 0
+    return size, _work_ops(scene, work, alive.numel(), _sweep_ops(scene) + OPS["shade"] + frame)
+
+
+def _digests(tensors):
+    """{name: sha256 of its bytes} of a dict of tensors."""
+    import hashlib
+
+    return {k: hashlib.sha256(v.contiguous().cpu().numpy().tobytes()).hexdigest()
+            for k, v in tensors.items()}
+
+
+def _time_libs(what, launcher, args, outputs, libs, order, card):
+    """One launcher's kernel through each library of ``libs`` ({name:
+    (library, build log)}) in ``order`` on the same arguments: after one
+    launch each, the digests of ``outputs`` (the tensors the arguments
+    point into), then ms per launch, two windows of 50 after a warm-up.
+    Returns ({library: digests}, {library: [ms, ...]})."""
+    import torch
+
+    digests, times = {}, {}
+    for name in order:
+        run = lambda: getattr(libs[name][0], launcher)(*args)  # noqa: E731
+        assert run() == 0, f"{what} {name}: launch failed"
+        torch.cuda.synchronize()
+        digests.setdefault(name, _digests(outputs))
+        run()
+        torch.cuda.synchronize()
+        k1, k2 = _event_ms(run, 50), _event_ms(run, 50)
+        times.setdefault(name, []).append((k1 + k2) / 2)
+        print(f"[record-rows] {what} {name}: {k1:.4f} / {k2:.4f} ms per launch ({card})")
+    return digests, times
+
+
+def _bound_ms(size, ops):
+    by_bytes, by_ops = size / HBM_BYTES_PER_S * 1e3, ops / _fp32_rate() * 1e3
+    return max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations"
+
+
+def color_edge_batches(scene, n, slots, seed=0, device="cpu"):
+    """Hand-built batches of lamp-vertex slots for program_colors_kernel
+    and its plain version, n lanes of ``slots`` slots on ``scene``:
+    every slot invalid; every slot valid; a valid prefix of each length
+    (lane i's first i % (slots + 1)); programs -1 and out of range among
+    valid slots (where the scene bakes no table: the JAX package clamps an
+    out-of-range index into its table); and a program with code beside one
+    without, slot by slot. Programs, normals, incident directions and uv
+    drawn from ``seed`` with numpy. Returns {name: (color_prog, valid,
+    normal, incident, uv)}."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    programs = scene.dense_pack["programs"]
+    n_color = len(scene.color_programs)
+    code = [c for c in range(n_color) if programs.program_code(programs.index("color", c))]
+    plain = [c for c in range(n_color) if c not in code]
+    assert code and plain, "the scene needs a colour program with code and one without"
+    prog = rng.integers(0, n_color, (n, slots))
+    normal = rng.normal(size=(n, slots, 3))
+    normal /= np.linalg.norm(normal, axis=-1, keepdims=True)
+    incident = rng.normal(size=(n, slots, 3))
+    incident /= np.linalg.norm(incident, axis=-1, keepdims=True)
+    uv = rng.uniform(-1.0, 2.0, (n, slots, 2))
+    prefix = np.arange(slots)[None, :] < (np.arange(n) % (slots + 1))[:, None]
+    bad = prog.copy()
+    pick = rng.integers(0, 3, (n, slots))
+    bad[pick == 0] = -1
+    if scene.color_bank_bakeable is None:
+        bad[pick == 1] = n_color
+    beside = np.where((np.arange(n * slots).reshape(n, slots) % 2) == 0,
+                      rng.choice(code, (n, slots)), rng.choice(plain, (n, slots)))
+    cases = {"all_invalid": (prog, np.zeros((n, slots), bool)),
+             "all_valid": (prog, np.ones((n, slots), bool)),
+             "prefixes": (prog, prefix),
+             "bad_programs": (bad, np.ones((n, slots), bool)),
+             "code_beside_none": (beside, rng.uniform(size=(n, slots)) < 0.8)}
+    f32 = lambda x: torch.as_tensor(x, dtype=torch.float32, device=device)  # noqa: E731
+    return {name: (torch.as_tensor(p, dtype=torch.int32, device=device),
+                   torch.as_tensor(v, device=device), f32(normal), f32(incident), f32(uv))
+            for name, (p, v) in cases.items()}
+
+
+def check_color_edges(name, path, wl, bank, seed=0, slots=5):
+    """program_colors_kernel (kernels_dense.vertex_colors) against its
+    plain version on color_edge_batches of the scene at ``path`` and of the
+    same scene with a baked table (bank_table_min(1)), at the lanes' wavelengths
+    ``wl``: each colour within rtol 1e-3 / atol 1e-4 (one launch counted
+    each). Returns ({case: (arguments of the timed launch, out, and the
+    tensors the arguments point into)}, largest error)."""
+    import torch
+
+    from pyrite_tpu_torch import kernels_dense as kd
+
+    key = path + "#table"
+    if key not in _SCENES:
+        with bank_table_min(1):
+            _SCENES[key] = load_scene(path)
+    found, worst = {}, 0.0
+    n = wl.shape[0]
+    for which in (path, key):
+        scene = _gpu_scene(which)[0]
+        b = bank if which == path else kd.precompute_bank_values(scene, wl)
+        table = scene.color_bank_bakeable is not None
+        for case, batch in color_edge_batches(scene, n, slots, seed, "cuda").items():
+            what = f"{name}{' table' if table else ''} {case}"
+            _zero_counts()
+            got = kd.vertex_colors(scene, *batch, wl, b)
+            assert _read_counts()["program_colors_kernel"] == 1, what
+            want = kd.vertex_colors_plain(scene, *batch, wl)
+            err = _close_where({"c": want}, {"c": got}, ("c",), torch.ones_like(batch[1]), what)
+            worst = max(worst, err)
+            found[what] = kd.vertex_colors_args(scene, *batch, wl, b) + (batch, b)
+            print(f"[colors] {what}: {int(batch[1].sum())} valid of {batch[1].numel()} slots, "
+                  f"max abs err {err:.3g} (rtol 1e-3, atol 1e-4)")
+    assert next(iter(found.values()))[1].shape == (n, slots, wl.shape[1])
+    return found, worst
+
+
+def print_record_registers(lib, log, what="build"):
+    """A's and D's instantiations (RECORD_KERNELS) in library ``lib`` built
+    with ``log``: registers, spill stores / loads, shared memory a block
+    (static from ptxas -v; dynamic as the launchers pass it at each form's
+    S: pyrite_bounce_record_smem, or in a library without it (a parent's)
+    the staged rows, plus a kProg scene's program stack of 8 values) and
+    resident warps a SM (resident_warps). The record forms at the S of
+    RECORD_FORMS: cornell 10, flagship 6, textures_bdpt 6 (the kProg form;
+    the same kernel at textures_photon's 70 columns), terrain 4;
+    program_colors_kernel at S = 6. Returns {kernel: (registers, stores,
+    loads, shared bytes, warps)}."""
+    from pyrite_tpu_torch import kernels_dense as kd
+
+    regs, static = kernel_registers(log), kernel_static_smem(log)
+    if not regs:
+        print(f"[record-regs] {what}: no build log in this process, registers not read")
+        return {}
+    new = hasattr(lib, "pyrite_bounce_record_smem")
+    stack = 16 * kd.BLOCK * 8
+    at = {"dense_bounce_kernel<true><record>": (10, 1, kd.FORM_SIMPLE, 0),
+          "dense_bounce_kernel<false><record>": (6, 0, kd.FORM_SIMPLE, 0),
+          "dense_bounce_kernel<false><record><prog>": (6, 0, kd.FORM_PROG, stack),
+          "wide_bounce_kernel<false><record>": (4, 0, kd.FORM_SIMPLE, 0)}
+    if new:
+        at["dense_bounce_kernel<false><record><prog> at 70"] = (70, 0, kd.FORM_PROG, stack)
+    found = {}
+    for name in RECORD_KERNELS + (("dense_bounce_kernel<false><record><prog> at 70",) if new else ()):
+        label = name.replace(" at 70", "")
+        if new and name != "program_colors_kernel":
+            label = label + "<stream>" if "<prog>" in label else label.replace("<record>",
+                                                                               "<record><stream>")
+        if label not in regs:
+            continue
+        r, st, ld = regs[label]
+        if name == "program_colors_kernel":
+            dyn = stack + (4 * 4 * 64 if new else 0)  # its warps' rings
+        else:
+            s_count, de, form, stk = at[name]
+            dyn = stk + (lib.pyrite_bounce_record_smem(s_count, de, form) if new
+                         else 4 * kd.BLOCK * (4 * s_count + 12) + (kd._DE_SLOT_BYTES if de else 0))
+        smem = static.get(label, 0) + dyn
+        found[name] = (r, st, ld, smem, resident_warps(r, smem))
+    print(f"[record-regs] {what}: registers, spill stores / loads, shared memory a block, resident "
+          f"warps a SM: " + "; ".join(f"{k} {r}, {st}/{ld} B, {sm} B, {w}"
+                                       for k, (r, st, ld, sm, w) in found.items()))
+    return found
+
+
+def time_record_form(path, chain, card, seed=1):
+    """Kernel A in the form ``path``'s renderer launches at camera bounce 0
+    (record_inputs; ``chain``: a photon project), alone: ms per launch (two
+    windows of 50 after a warm-up) against the plain tracer.bounce_core
+    (record=True) without NEE, timed once, and the bytes and operations of
+    _record_cost. Returns (ms, plain ms, bytes, operations)."""
+    import dataclasses
+
     import torch
 
     from pyrite_tpu_torch import _build, kernels_dense as kd, tracer
 
-    scene, film, camera, cfg, lamp_cfg, keyed, rays, bank = _bdpt_setup(path, seed)
-    _, origin, direction, wl = rays
-    n = wl.shape[0]
-    state = tracer.initial_state(origin, direction, wl.shape[1])
-    draws = tracer.draw_bounce_uniforms(scene, cfg, n, keyed, 0, scene.device)
-    t_de = kd.march_pass(scene, cfg, state) if scene.de_shapes else None
-    args = kd.bounce_kernel_args(scene, cfg, wl, state, draws, bank, t_de, record=True)[0]
-    name = kd._named(scene, "dense_bounce_kernel<record>")
+    scene, cfg, wl, bank, bounces = record_inputs(path, chain, seed)
+    state, draws, t_de = bounces[0]
+    name = kd.record_name(scene)
+    args = kd.bounce_kernel_args(scene, cfg, wl, state, draws, bank, t_de, True, chain)[0]
     launch = getattr(_build.load(), kd._LAUNCHERS[name])
     run = lambda: launch(*args)  # noqa: E731
-    for _ in range(3):
-        run()
+    for _ in range(2):
+        assert run() == 0, f"{name}: launch failed"
     torch.cuda.synchronize()
     k1, k2 = _event_ms(run, 50), _event_ms(run, 50)
-    print(f"[record] {name} on {os.path.basename(path)}: {k1:.4f} / {k2:.4f} ms per launch, {n} "
-          f"lanes ({card}); tree {ROOT}")
-    return (k1 + k2) / 2
+    cfg_no_nee = dataclasses.replace(cfg, light_samples=0)
+    with kernel_march():
+        plain_ms = _once_ms(lambda: tracer.bounce_core(scene, cfg_no_nee, wl, state, draws, record=True))
+    size, ops = _record_cost(scene, cfg, wl, state, draws, chain)
+    print(f"[times] {name} on {os.path.basename(path)}: kernel {k1:.4f} / {k2:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (one call) per launch, {wl.shape[0]} lanes, S={wl.shape[1]}; "
+          f"{size} bytes, {ops} FP32 operations ({card})")
+    result = ((k1 + k2) / 2, plain_ms, size, ops)
+    _print_bounds(f"record {os.path.basename(path)}", {name: result})
+    return result
+
+
+# Builds of csrc/bounce.cu that --rows times A and D against (the
+# probes). Of A: the camera vertex not written (a_no_vertex), no DE-normal
+# probes (a_no_de_normals), no closest-hit sweep of the primitives
+# (a_no_sweep), the streamed rows not updated (a_no_rows: bounce_rows
+# skipped), the DE form without its launch bound (a_unbounded), and the
+# parent's code of A (a_parent_form, A_PARENT_FORM: the record launchers
+# pick as the bounce launchers do, staged up to 16 columns and on a kProg
+# scene at any S). Of D: program_colors_kernel without its launch bound
+# (d_unbounded). Each edit applies to every instantiation it reaches; only
+# A's and D's times are read.
+A_PARENT_FORM = [[(
+    "#define PICK_RECORD(K, DE) \\\n"
+    "  (form == FORM_PROG ? &K<DE, true, true, true, true> : &K<DE, true, false, true, true>)\n"
+    "#define RECORD_SMEM stream_smem_bytes(n_de > 0, form == FORM_PROG ? s : 0)",
+    "#define PICK_RECORD(K, DE) PICK_GATE(K, DE, true)\n#define RECORD_SMEM BOUNCE_SMEM")]]
+RECORD_VARIANTS = {
+    "a_no_vertex": [[("    if (kRecord) {\n      const bool miss = alive && !found;",
+                      "    if (false) {\n      const bool miss = alive && !found;")]],
+    "a_no_de_normals": [[("  if (kDE)\n    de_normals_shared(sh, smem + BLOCK * (kStream ? 12 + ROW_OP_FLOATS",
+                          "  if (false)\n    de_normals_shared(sh, smem + BLOCK * (kStream ? 12 + ROW_OP_FLOATS")]],
+    "a_no_sweep": [[("  } else if (alive) {\n    h = geo.closest(sh, o, d, true);\n  }\n"
+                     "  if (kDE && alive) apply_de_closest(sh, a.t_de, n, lane, h);",
+                     "  }\n  if (kDE && alive) apply_de_closest(sh, a.t_de, n, lane, h);")]],
+    "a_no_rows": [[("  if (kStream) {\n    bounce_rows<kRecord>(a, rec, ops, base, rows);\n  } else {",
+                    "  if (false) {\n    bounce_rows<kRecord>(a, rec, ops, base, rows);\n  } else if (!kStream) {")]],
+    "a_unbounded": [[("__global__ void __launch_bounds__(BLOCK, 8)\n    dense_bounce_kernel<true, true, false, true, true>",
+                      "__global__ void __launch_bounds__(BLOCK)\n    dense_bounce_kernel<true, true, false, true, true>")]],
+    "a_parent_form": A_PARENT_FORM,
+    "d_unbounded": [[("__launch_bounds__(BLOCK, 8) program_colors_kernel(",
+                      "__launch_bounds__(BLOCK) program_colors_kernel(")]],
+}
+
+
+def check_record_form(label, path, chain, libs=None, seed=0):
+    """Kernel A in the form ``path``'s renderer launches (record_inputs;
+    ``chain``: a photon project, with its chain factors) at camera bounces
+    0 and 1, held to the plain version on the same inputs: the bounce
+    kernel's kRecord launch and the NEE kernel after it against
+    tracer.bounce_core(record=True) as check_kernels holds the state (flags
+    exact, vectors rtol 1e-3 / atol 1e-4, no divergent lane), the camera
+    vertex's flags exact on every lane and its position, normal, BRDF
+    factor (and chain factors) within the tolerance on the lanes that
+    reflect. With ``libs`` ({name: (library, log)}, build_variants') each
+    library's kRecord launch on the same arguments is digested too.
+    Returns ({bounce: {library: digests}}, largest error); the build's
+    digests are under "build"."""
+    import torch
+
+    from pyrite_tpu_torch import _build, kernels_dense as kd, tracer
+
+    scene, cfg, wl, bank, bounces = record_inputs(path, chain, seed)
+    launcher = kd._LAUNCHERS[kd.record_name(scene)]
+    libs = dict(libs or {}, build=(_build.load(), ""))
+    found, worst = {}, 0.0
+    for b, (state, draws, t_de) in enumerate(bounces):
+        what = f"{label} camera bounce {b}"
+        args, out, ctx, info = kd.bounce_kernel_args(scene, cfg, wl, state, draws, bank, t_de, True,
+                                                     chain)
+        outputs = dict(out, **ctx, **{k: v for k, v in info.items() if k != "incident"})
+        found[b] = {}
+        for name in sorted(libs, key=lambda k: k == "build"):  # the build's outputs last
+            assert getattr(libs[name][0], launcher)(*args) == 0, f"{what} {name}: launch failed"
+            torch.cuda.synchronize()
+            found[b][name] = _digests(outputs)
+        if scene.num_lamps and cfg.light_samples:
+            t_sh = kd.shadow_pass(scene, cfg, out, ctx, draws) if scene.de_shapes else None
+            kd.launch_nee_kernel(scene, cfg, wl, out, ctx, draws, bank, t_sh)
+        with kernel_march():
+            plain, ref = tracer.bounce_core(scene, cfg, wl, state, draws, record=True)
+        vec_err, b_err, share = _compare(plain, out, what)
+        assert share == 0.0, f"{what}: {share:.4%} divergent lanes"
+        keys = ("is_diffuse", "dispersed", "recorded", "miss") + (("reflected",) if chain else ())
+        _flags_equal(ref, info, keys, what)
+        refl = ref["reflected"]
+        vectors = ("position", "normal", "brdf_stored")
+        if chain:
+            _flags_equal(ref, info, ("color_prog",), what, refl)
+            vectors += ("color_prob", "path_prob")
+        worst = max(worst, vec_err, b_err, _close_where(ref, info, vectors, refl, what))
+    print(f"[record] {label} ({os.path.basename(path)}): {wl.shape[0]} lanes, S={wl.shape[1]}, "
+          f"bounces 0 and 1 against the plain version: max abs err {worst:.3g}, flags exact")
+    return found, worst
+
+
+def _colors_cost(scene, colors):
+    """(bytes, FP32 operations) of one program_colors_kernel launch on the
+    lamp vertices ``colors`` (vertex_colors' arguments but the scene's and
+    the wavelengths): per vertex its program and flag in (5) and S colors
+    out; a valid vertex whose program runs code also reads its normal,
+    incident direction and uv (32) and its program's leaves at S columns,
+    one whose program reads no ray its row of the launch's values (4 S);
+    the program tables once. Operations: a program value a column of each
+    valid vertex."""
+    import torch
+
+    programs, prog = scene.dense_pack["programs"], colors[0].long()
+    s_count = colors[5].shape[1]
+    n_color = len(scene.color_programs)
+    in_range = colors[1].bool() & (prog >= 0) & (prog < n_color)
+    code = torch.tensor([bool(programs.program_code(programs.index("color", c)))
+                         for c in range(n_color)] + [False], device=prog.device)
+    runs_code = in_range & code[torch.where(in_range, prog, n_color)]
+    leaf = _leaf_bytes(scene, "color", torch.where(runs_code, prog, -1))
+    size = _program_bytes(scene) + prog.numel() * (5 + 4 * s_count) + (
+        int(runs_code.sum()) * 32 + s_count * int(leaf.sum())
+        + int((in_range & ~runs_code).sum()) * 4 * s_count)
+    return size, int(colors[1].sum()) * OPS["program"] * s_count
+
+
+def _libs_line(what, times, bound, digests, order):
+    """One summary line of _time_libs' result: each library's mean ms (the
+    build's and a parent's over their two runs), the bound and whether the
+    build's outputs are bit-equal to the parent's and to a_parent_form's."""
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    same = []
+    for other in ("parent", "a_parent_form"):
+        if other in digests:
+            bad = [k for k, v in digests["build"].items() if digests[other].get(k) != v]
+            same.append(f"against {other}: " + ("every output bit-equal" if not bad
+                                                 else f"differ: {', '.join(bad)}"))
+    print(f"[record-rows] {what}: " + "; ".join(f"{k} {ms[k]:.4f}" for k in dict.fromkeys(order))
+          + f" ms; bound {bound[0]:.4f} ms ({bound[1]}); " + "; ".join(same))
+    return ms
+
+
+def measure_record_rows(card, tmp, parent_csrc=None, save=None):
+    """``--rows``' kernels A and D (``--record-rows`` alone): each form of
+    RECORD_FORMS at camera bounces 0 and 1 (record_inputs) and D on
+    textures_bdpt's lamp vertices (check_bdpt) and on color_edge_batches
+    (check_color_edges: held to the plain version), through the build, the
+    probes of RECORD_VARIANTS and, given PARENT_CSRC (a parent checkout's
+    csrc/), the parent's kernels, on the same inputs in the order parent,
+    build, probes, build, parent: ms per launch, the bound of the inputs,
+    and whether each output is bit-equal to the parent kernel's (digests);
+    first each library's registers, shared memory and resident warps
+    (print_record_registers). Writes the times, bounds and digests to
+    ``save``. Returns {case: {library: ms}}."""
+    from pyrite_tpu_torch import _build, kernels_dense as kd
+
+    started = time.perf_counter()
+    libs = {"build": (_build.load(), _build.build_log)}
+    variants = dict(RECORD_VARIANTS, **({"parent": parent_csrc} if parent_csrc else {}))
+    libs.update(build_variants(os.path.join(tmp, "record_variants"), variants, tag="record-rows"))
+    print(f"[record-rows] builds {sorted(libs)} ready in {time.perf_counter() - started:.1f} s")
+    found = {"ms": {}, "runs": {}, "bound": {}, "digests": {}, "regs": {}}
+    for name, (lib, log) in libs.items():
+        found["regs"][name] = print_record_registers(lib, log, name)
+    if "parent" in libs:  # every instantiation whose registers or spills the build changed
+        mine, theirs = kernel_registers(libs["build"][1]), kernel_registers(libs["parent"][1])
+        found["regs"]["parent -> build"] = {k: (theirs.get(k), mine.get(k)) for k in sorted(
+            set(mine) | set(theirs)) if mine.get(k) != theirs.get(k)}
+        print("[record-regs] parent -> build, registers, spill stores / loads: " + "; ".join(
+            f"{k} {a} -> {b}" for k, (a, b) in found["regs"]["parent -> build"].items()))
+    ends = ["parent"] if "parent" in libs else []
+    order = ends + ["build"] + [k for k in RECORD_VARIANTS if k in libs] + ["build"] + ends
+    paths = record_scene_paths(os.path.join(tmp, "record"))
+
+    def record(what, launcher, args, outputs, cost):
+        digests, times = _time_libs(what, launcher, args, outputs, libs, order, card)
+        bound = _bound_ms(*cost)
+        found["ms"][what] = _libs_line(what, times, bound, digests, order)
+        found["runs"][what] = times
+        found["bound"][what] = bound
+        found["digests"][what] = digests
+
+    for label, key, chain in RECORD_FORMS:
+        scene, cfg, wl, bank, bounces = record_inputs(paths[key], chain)
+        launcher = kd._LAUNCHERS[kd.record_name(scene)]
+        for b, (state, draws, t_de) in enumerate(bounces):
+            args, out, ctx, info = kd.bounce_kernel_args(scene, cfg, wl, state, draws, bank, t_de,
+                                                         True, chain)
+            outputs = dict(out, **ctx, **{k: v for k, v in info.items() if k != "incident"})
+            what = (f"{label} bounce {b} ({wl.shape[0]} lanes, S={wl.shape[1]}, alive share "
+                    f"{float(state['alive'].float().mean()):.4f})")
+            record(what, launcher, args, outputs, _record_cost(scene, cfg, wl, state, draws, chain))
+    checked = check_bdpt("textures_bdpt", paths["textures_bdpt"])
+    scene, _, _, wl, bank = checked["setup"]
+    colors = checked["timed"]["colors"]
+    args, out = kd.vertex_colors_args(scene, *colors, bank)
+    record(f"textures_bdpt program_colors_kernel ({int(colors[1].sum())} valid of "
+           f"{colors[1].numel()} slots)", "pyrite_program_colors", args, {"colors": out},
+           _colors_cost(scene, colors))
+    edges, _ = check_color_edges("textures_bdpt", paths["textures_bdpt"], wl, bank)
+    for case, (args, out, *_) in edges.items():
+        record(f"program_colors_kernel edge {case}", "pyrite_program_colors", args, {"colors": out},
+               (0, 0))
+    if save:
+        with open(save, "w") as fh:
+            json.dump(dict(found, card=card, order=order), fh)
+    print(f"[phase] A and D alone (--record-rows): {time.perf_counter() - started:.1f} s")
+    return found["ms"]
 
 
 # --- phase 8: multi-device on one card --------------------------------------------
@@ -4714,7 +5134,8 @@ def _kernel_label(mangled):
     kernels as name<true> / name<false> (kDE), with <record> and <prog>
     after it for their kRecord and kProg instantiations, <gate> for the
     bounce and NEE kernels' kGate ones that are not kProg and <stream> for
-    their kStream ones (the gate form past 16 columns); None for a
+    their kStream ones (the gate form past 16 columns, and the kProg
+    camera walk's: <record><prog><stream>); None for a
     function that is none of KERNEL_NAMES."""
     name = next((k for k in KERNEL_NAMES if k in mangled), None)
     if name is None:
@@ -4724,8 +5145,9 @@ def _kernel_label(mangled):
         bits = re.findall(r"Lb([01])E", flags.group(1))
         name += "<true>" if bits[0] == "1" else "<false>"
         record, rest = (bits[1:2], bits[2:]) if "bounce" in name else ([], bits[1:])
-        tag = ("<prog>" if rest[:1] == ["1"] else "<stream>" if rest[2:3] == ["1"]
-               else "<gate>" if rest[1:2] == ["1"] else "")
+        stream = rest[2:3] == ["1"]
+        tag = ("<prog>" if rest[:1] == ["1"] else "<gate>" if rest[1:2] == ["1"] and not stream
+               else "") + ("<stream>" if stream else "")
         name += ("<record>" if record == ["1"] else "") + tag
     tags = {"QueryShadowRays": "<query shadow>", "QueryRays": "<query>",
             "BounceRays": "<bounce>", "ShadowRays": "<shadow>"}
@@ -5502,8 +5924,6 @@ def wide_rows_case(path, bounce, seed=1, record=False):
     that reflect). Returns ({output: sha256
     of its bytes}, largest error): the bounce kernel's outputs before the
     NEE kernel adds into the brightness, then that brightness."""
-    import hashlib
-
     from pyrite_tpu_torch import kernels_dense as kd, tracer
 
     scene, cfg, wl, state, draws = _bounce_inputs(path, seed, bounce)
@@ -5526,8 +5946,7 @@ def wide_rows_case(path, bounce, seed=1, record=False):
         _flags_equal(ref, got, ("color_prog",), what, ref["reflected"])
         err = max(err, _close_where(ref, got, ("position", "normal", "brdf_stored", "color_prob",
                                                "path_prob"), ref["reflected"], what))
-    digests = {k: hashlib.sha256(v.contiguous().cpu().numpy().tobytes()).hexdigest()
-               for k, v in outputs.items()}
+    digests = _digests(outputs)
     print(f"[wide-rows] {what}: {wl.shape[0]} lanes, S={wl.shape[1]}, light_samples="
           f"{cfg.light_samples}: against the plain version max abs err {err:.3g}, flags exact, "
           f"no divergent lane")
@@ -5808,12 +6227,18 @@ def main(argv=None):
     if argv[:1] == ["--wide-rows-probes"] and len(argv) <= 2:
         measure_wide_rows_probes(smi, *argv[1:])
         return 0
-    if argv == ["--rows"]:
+    if argv[:1] in (["--record-rows"], ["--rows"]) and len(argv) <= 3:
+        parent, save = (argv[1:] + [None, None])[:2]
+    if argv[:1] == ["--record-rows"] and len(argv) <= 3:
+        with tempfile.TemporaryDirectory() as tmp:
+            measure_record_rows(smi, tmp, parent, save)
+        return 0
+    if argv[:1] == ["--rows"] and len(argv) <= 3:
         with tempfile.TemporaryDirectory() as tmp:
             flagship = scene_paths(tmp, width=512, height=256, spectrum_samples=6, bounces=8)["flagship"]
             measure_rows(flagship, os.path.join(ROOT, "examples", "fractal.lua"), smi)
             time_kernels(texture_paths(os.path.join(tmp, "textures"))["textures"], smi, plain_reps=1)
-            time_record(write_cornell_scene(tmp), smi)
+            measure_record_rows(smi, tmp, parent, save)
             measure_bank(gate_paths(os.path.join(tmp, "gate"))["materials_300"], smi, tmp)
         return 0
     if argv:
@@ -5900,6 +6325,8 @@ def main(argv=None):
         regen_checked, regen_runs = regen_bdpt_step(bdpt, cornell_64, smi, tmp)
         bdpt_runs += regen_runs
         tex_bdpt = {name: check_bdpt(name, tex[name]) for name in ("textures_bdpt", "untextured_bdpt")}
+        _, tex_bdpt["textures_bdpt"]["worst"]["color_edges"] = check_color_edges(
+            "textures_bdpt", tex["textures_bdpt"], *tex_bdpt["textures_bdpt"]["setup"][3:])
         times.update({k: v for k, v in time_bdpt(tex_bdpt["textures_bdpt"], smi).items()
                       if "prog" in k or "colors" in k})
         time_bdpt(tex_bdpt["untextured_bdpt"], smi)  # printed: the same geometry untextured
@@ -5916,6 +6343,7 @@ def main(argv=None):
         photon_checked = {name: check_photon(name, p) for name, p in photon.items()}
         times.update(time_photon(photon_checked["flagship_photon"], smi))
         time_photon(photon_checked["textures_photon"], smi)  # printed: interpolation mode
+        times["dense_bounce_kernel<record,prog> S+G"] = time_record_form(photon["textures_photon"], True, smi)
         photon_runs = [render_photon(photon[name], 1, smi, tmp)[0] for name in (
             "flagship_photon", "textures_photon", "flagship_photon_512")]
         print(f"[phase] the photon renderer (phase 7): {time.perf_counter() - photon_started:.1f} s")
@@ -5942,6 +6370,7 @@ def main(argv=None):
     tex_total = lambda key: sum(run[key] for run in tex_runs + [tex_bdpt_run] + gate_runs
                                 + photon_runs)
     tex_err = lambda w: max(w["bounce"], w["brightness"])
+    photon_record = sum(run["dense_bounce_kernel<record,prog>"] for run in photon_runs)
     bdpt_total = lambda *keys: sum(run[k] for run in bdpt_runs + gate_bdpt_runs + photon_runs
                                    for k in keys)
     wide_total = lambda key: sum(run[key] for run in [mesh_run] + gate_runs)
@@ -6015,14 +6444,19 @@ def main(argv=None):
         kernel("wide_nee_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels.py:337",
                tex_total("wide_nee_kernel<prog>"), tex_worst["textures_512"]["nee"]),
         dict(kernel("dense_bounce_kernel<record,prog>", "bounce.cu", None,
-                    tex_total("dense_bounce_kernel<record,prog>"),
+                    tex_total("dense_bounce_kernel<record,prog>") - photon_record,
                     max(tex_bdpt_worst["record"], tex_bdpt_worst["brightness"])),
+             replaces="none: XLA, pyrite_tpu/tracer.py:1585 bounce_core's info"),
+        # the same instantiation at the photon renderer's S + G = 70 columns
+        # (textures_photon's camera walk), its launches there
+        dict(kernel("dense_bounce_kernel<record,prog> S+G", "bounce.cu", None, photon_record,
+                    photon_checked["textures_photon"]["worst"]["record"]),
              replaces="none: XLA, pyrite_tpu/tracer.py:1585 bounce_core's info"),
         dict(kernel("dense_lamp_kernel<prog>", "bounce.cu", None,
                     tex_total("dense_lamp_kernel<prog>"), tex_bdpt_worst["lamp"]),
              replaces="none: XLA, pyrite_tpu/tracer.py:1953 lamp_bounce_step"),
         dict(kernel("program_colors_kernel", "bounce.cu", None, tex_total("program_colors_kernel"),
-                    tex_bdpt_worst["colors"]),
+                    max(tex_bdpt_worst["colors"], tex_bdpt_worst["color_edges"])),
              replaces="none: XLA, pyrite_tpu/renderers/bidirectional.py:73 _lamp_path_factors"),
         # the photon renderer's gather ports no TPU kernel either
         dict(kernel("photon_gather_kernel", "photon.cu", None,

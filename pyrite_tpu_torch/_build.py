@@ -79,6 +79,7 @@ _SIGNATURES = {
     "pyrite_philox_draws": [_U, _U, _I, _I, _U, _U, _U, _I, _I, _I] + [_P] * 7 + [_U, _I, _I, _P],
     "pyrite_bounce_occupancy": [_I, _I, _P],
     "pyrite_bounce_smem": [_I, _I, _I],
+    "pyrite_bounce_record_smem": [_I, _I, _I],
     "pyrite_photon_gather": [_P] * 33 + [_I] * 10 + [_F] * 6 + [_P],
 }
 

@@ -797,12 +797,14 @@ struct RowOp {
 };
 
 // Shared memory of a streamed bounce block: [BLOCK, 3] origin, direction,
-// facing normal and u_scatter, a RowOp a lane, and with DE shapes each
-// warp's probe slots; none of it grows with S.
+// facing normal and u_scatter, a RowOp a lane, with DE shapes each warp's
+// probe slots, and in the kProg record form (`own` = S) each lane's own
+// [BLOCK, S] colour row (eval_program's); the rest does not grow with S.
 constexpr int ROW_OP_FLOATS = (int)(sizeof(RowOp) / sizeof(float));
 
-__host__ __device__ __forceinline__ size_t stream_smem_bytes(bool de) {
-  return sizeof(float) * ((size_t)BLOCK * (12 + ROW_OP_FLOATS) + (de ? (BLOCK / 32) * DE_SLOT_FLOATS : 0));
+__host__ __device__ __forceinline__ size_t stream_smem_bytes(bool de, int own = 0) {
+  return sizeof(float) * ((size_t)BLOCK * (12 + ROW_OP_FLOATS + own) +
+                          (de ? (BLOCK / 32) * DE_SLOT_FLOATS : 0));
 }
 
 // Words the streamed bounce's spectral pass keeps in flight a thread: each
@@ -1038,11 +1040,21 @@ __device__ __forceinline__ void de_normals_shared(const Sheet& sh, float* slots,
 // stride of S floats, which past 16 columns put every thread of a warp on
 // one bank (S = 32, 64) and sized the block's shared memory by S (one
 // block a SM at S = 64); the streamed block's shared memory is
-// stream_smem_bytes, whatever S.
+// stream_smem_bytes, whatever S. Every kRecord launch (A, the camera
+// walks) takes a streamed instantiation, at any S: the gate form's on a
+// scene without the program form, and the kProg one, where a lane whose
+// program makes its colour row writes that one row into its [BLOCK, S]
+// slot (eval_program, as the staged form did), its RowOp points there, and
+// the other three rows stream; that block holds one [BLOCK, S] row where
+// the staged form held four (at the photon renderer's S + G = 70 columns
+// 65,536 B with the program stack, against 165,888). Streamed, A measured
+// faster than staged on every form at every S (PERF.md §6 row A). The
+// simple renderer's instantiations stay as they were.
 template <class Geo, bool kDE, bool kRecord, bool kProg, bool kGate, bool kStream>
 __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo, const Record& rec,
                                             const ProgArgs& pa) {
-  static_assert(!kStream || (kGate && !kProg), "the streamed form is the gate form's");
+  static_assert(!kStream || (kGate && (kRecord || !kProg)),
+                "the streamed form is the gate form's and the kProg camera walk's");
   extern __shared__ __align__(16) float dyn_smem[];
   float* smem = dyn_smem + (kProg ? pa.own_off : 0);  // after the program stack
   const int n = a.n, s = a.s, t = threadIdx.x;
@@ -1058,6 +1070,8 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
   float* F = D + 3 * BLOCK;      // facing normal, out
   float* U = F + 3 * BLOCK;      // u_scatter
   RowOp* ops = reinterpret_cast<RowOp*>(U + 3 * BLOCK);  // kStream: a lane's RowOp
+  // kStream and kProg: each lane's own colour row, after the DE probe slots
+  float* own = O + BLOCK * (12 + ROW_OP_FLOATS) + (kDE ? (BLOCK / 32) * DE_SLOT_FLOATS : 0);
   const size_t sp = (size_t)base * s, vp = (size_t)base * 3;
   if (!kStream) {
     block_copy(B, a.brightness + sp, rows * s);
@@ -1155,6 +1169,9 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
     if (kGate && own_prog < -1)
       for (int k = 0; k < s; ++k)
         C[t * s + k] = table_value(pr, pr.ctable, -2 - own_prog, a.wl[(size_t)lane * s + k]);
+  } else if (kProg && own_prog >= 0) {  // the lane's own row, for bounce_rows to read
+    eval_program(pr, pa, own_prog, lane, n, s, s, in, own + t * s);
+    row_src = own + t * s;
   }
 
   if (in_range) {
@@ -2128,6 +2145,18 @@ __global__ void __launch_bounds__(BLOCK)
   bounce_lane<DenseGeo, kDE, kRecord, kProg, kGate, kStream>(a, DenseGeo{}, rec, pa);
 }
 
+// A on a dense scene with DE shapes asks for 8 resident blocks (at most 64
+// registers): on cornell_class 0.80x the unbounded kernel at camera bounce
+// 1 and later, 1.07x at bounce 0 (PERF.md §6 row A); without DE shapes it
+// lost at the bound. An explicit specialization, so that the others keep
+// their launch bounds.
+template <>
+__global__ void __launch_bounds__(BLOCK, 8)
+    dense_bounce_kernel<true, true, false, true, true>(const BounceArgs a, const Record rec,
+                                                       const ProgArgs pa) {
+  bounce_lane<DenseGeo, true, true, false, true, true>(a, DenseGeo{}, rec, pa);
+}
+
 template <bool kDE, bool kProg, bool kGate, bool kStream>
 __global__ void __launch_bounds__(BLOCK) dense_nee_kernel(const NeeArgs a, const ProgArgs pa) {
   nee_lane<DenseGeo, kDE, kProg, kGate, kStream>(a, DenseGeo{}, pa);
@@ -2189,14 +2218,31 @@ __global__ void __launch_bounds__(BLOCK)
 
 // The lamp vertices' colors of the bidirectional renderer on a scene whose
 // color programs read the ray (kernels_dense.vertex_colors, the plain
-// version tracer.eval_color_bank): one thread a vertex of the [N, K] path
-// arrays, the color program at each of its lane's S wavelengths from its
-// uv, normal and incident direction; a program that reads no ray is read
-// from the launch's values; 0 where the vertex is not valid or the program
-// out of range. The JAX package evaluates these in XLA after the walk
-// (pyrite_tpu/renderers/bidirectional.py:73-121), so this ports no TPU
-// kernel. What bounds it: 4 S bytes written a vertex and, for a textured
-// program, 16 taps a texture node (its lane code, once a vertex).
+// version tracer.eval_color_bank): each vertex of the [N, K] path arrays
+// gets its color program at each of its lane's S wavelengths from its uv,
+// normal and incident direction; a program that reads no ray is read from
+// the launch's values (or the baked table); 0 where the vertex is not valid
+// or the program out of range. The JAX package evaluates these in XLA after
+// the walk (pyrite_tpu/renderers/bidirectional.py:73-121), so this ports no
+// TPU kernel. What bounds it: 4 S bytes written a vertex and, for a
+// textured program, 16 taps a texture node (its lane code, once a vertex).
+//
+// The design (PERF.md §6 row D). Valid slots are a prefix of each lamp
+// path (34 % of them valid on textures_bdpt), so one thread a slot left most
+// of a warp idle in the interpreter. Here a persistent grid (as many blocks
+// as are resident) gives each warp every (warps)-th tile of 32 slots: per
+// tile it queues the slots whose program runs code in its ring (WarpRing,
+// as dense_shadow_kernel does) and runs them 32 at a time, one a thread,
+// each writing its row straight into the output, and writes the other
+// slots' words (the launch's values, the baked table or 0) consecutive
+// words on consecutive lanes. The ring runs across all of the warp's tiles,
+// so its batches fill whatever the valid share. Each colour takes the
+// interpreter's ops in their order, as before. A block that staged its
+// [BLOCK x tiles, S] rows in shared memory and wrote them out with
+// block_copy measured slower at every tile count (1.13-1.65x this design on
+// textures_bdpt), as it held 5 tiles of 32 slots a warp at S = 6 and so
+// made only 1.3 waves of blocks. __launch_bounds__(BLOCK, 8): 64
+// registers, 8 resident blocks.
 struct ColorArgs {
   Programs progs;
   const int* __restrict__ color_prog;  // [N, K]
@@ -2208,22 +2254,55 @@ struct ColorArgs {
   int n, slots, s;
 };
 
-__global__ void __launch_bounds__(BLOCK) program_colors_kernel(const ColorArgs a, const ProgArgs pa) {
-  const int m = blockIdx.x * BLOCK + threadIdx.x;
-  if (m >= a.n * a.slots) return;
-  const int lane = m / a.slots, prog = a.color_prog[m], s = a.s;
-  float* out = a.out + (size_t)m * s;
-  const bool ok = a.valid[m] && prog >= 0 && prog < a.progs.n_color;
-  int g;
-  if (ok && color_code(a.progs, pa, prog, g)) {
-    const ProgIn in = {load3(a.normal, m), load3(a.incident, m), a.uv[2 * m], a.uv[2 * m + 1]};
-    eval_program(a.progs, pa, g, lane, a.n, s, s, in, out);
-  } else if (a.progs.ctable) {  // the baked table at the lane's wavelengths
-    for (int k = 0; k < s; ++k)
-      out[k] = ok ? table_value(a.progs, a.progs.ctable, prog, a.progs.wl[(size_t)lane * s + k]) : 0.0f;
-  } else {
-    const float* c = a.progs.cvals + ((size_t)(ok ? prog : 0) * a.n + lane) * s;
-    for (int k = 0; k < s; ++k) out[k] = ok ? c[k] : 0.0f;
+constexpr int SLOT_CODE = -2;  // a slot whose program runs code; -1: its colour is 0
+
+// The colour row of slot `m` (-1: none) by its program's code, straight
+// into its row of the output.
+__device__ __forceinline__ void color_row(const ColorArgs& a, const ProgArgs& pa, int m) {
+  if (m < 0) return;
+  const int g = pa.n_prob + a.color_prog[m];  // color_code's program
+  const ProgIn in = {load3(a.normal, m), load3(a.incident, m), a.uv[2 * m], a.uv[2 * m + 1]};
+  eval_program(a.progs, pa, g, m / a.slots, a.n, a.s, a.s, in, a.out + (size_t)m * a.s);
+}
+
+__global__ void __launch_bounds__(BLOCK, 8) program_colors_kernel(const ColorArgs a, const ProgArgs pa) {
+  extern __shared__ __align__(16) float colors_smem[];
+  const Programs& pr = a.progs;
+  const int s = a.s, m_total = a.n * a.slots, tiles = (m_total + 31) / 32;
+  const int lid = threadIdx.x & 31, w = threadIdx.x >> 5, warps = gridDim.x * (BLOCK / 32);
+  WarpRing ring = {reinterpret_cast<int*>(colors_smem + pa.own_off) + 64 * w, 0, 0};
+  const float inv_s = 1.0f / (float)s;
+#pragma unroll 1
+  for (int tile = blockIdx.x * (BLOCK / 32) + w;; tile += warps) {
+    const bool more = tile < tiles;  // the same on every lane of the warp
+    if (more) {
+      const int base = 32 * tile, m = base + lid;
+      int kind = -1;
+      bool code = false;
+      if (m < m_total) {
+        const int prog = a.color_prog[m];
+        const bool ok = a.valid[m] && prog >= 0 && prog < pr.n_color;
+        int g;
+        code = ok && color_code(pr, pa, prog, g);
+        kind = code ? SLOT_CODE : ok ? prog : -1;
+      }
+      ring.append(code, m);
+      // the tile's words of the slots that run no code, word e on lane e % 32
+      const int words = min(32, m_total - base) * s;
+      for (int e0 = 0; e0 < words; e0 += 32) {
+        const int e = e0 + lid, l = row_owner(e, inv_s);
+        const int own = __shfl_sync(FULL_WARP, kind, l);
+        if (e < words && own != SLOT_CODE) {
+          const int lane = (base + l) / a.slots, k = e - l * s;
+          a.out[(size_t)base * s + e] =
+              own < 0     ? 0.0f
+              : pr.ctable ? table_value(pr, pr.ctable, own, pr.wl[(size_t)lane * s + k])
+                          : pr.cvals[((size_t)own * a.n + lane) * s + k];
+        }
+      }
+    }
+    if (ring.size() >= 32 || (!more && ring.size() > 0)) color_row(a, pa, ring.take());
+    if (!more) break;
   }
 }
 
@@ -2439,6 +2518,12 @@ enum { FORM_SIMPLE = 0, FORM_PROG = 1, FORM_GATE = 2 };
 // a bounce kernel block's own dynamic shared memory: the staged rows
 // (bounce_smem_bytes) or, in the streamed gate form, stream_smem_bytes
 #define BOUNCE_SMEM (STREAM ? stream_smem_bytes(n_de > 0) : bounce_smem_bytes(s, n_de > 0))
+// the kRecord launchers' instantiation: a streamed one at any S, the kProg
+// form's (with its own colour rows) on a kProg scene, else the gate form's
+// (which a simple scene runs as it is: it reads no gate table there)
+#define PICK_RECORD(K, DE) \
+  (form == FORM_PROG ? &K<DE, true, true, true, true> : &K<DE, true, false, true, true>)
+#define RECORD_SMEM stream_smem_bytes(n_de > 0, form == FORM_PROG ? s : 0)
 
 int pyrite_dense_bounce(BOUNCE_PARAMS, PROG_PARAMS, void* stream) {
   BOUNCE_ARGS;
@@ -2481,9 +2566,9 @@ int pyrite_wide_nee(NEE_PARAMS, WIDE_PARAMS, PROG_PARAMS, void* stream) {
 int pyrite_dense_bounce_record(BOUNCE_PARAMS, RECORD_PARAMS, PROG_PARAMS, void* stream) {
   BOUNCE_ARGS;
   RECORD;
-  const size_t own = BOUNCE_SMEM;
+  const size_t own = RECORD_SMEM;
   PROG_ARGS;
-  launch_lanes(PICK_GATE(dense_bounce_kernel, true, true), PICK_GATE(dense_bounce_kernel, false, true), n,
+  launch_lanes(PICK_RECORD(dense_bounce_kernel, true), PICK_RECORD(dense_bounce_kernel, false), n,
                n_de, WITH_STACK(own), stream, a, rec, pa);
   return (int)cudaGetLastError();
 }
@@ -2493,9 +2578,9 @@ int pyrite_wide_bounce_record(BOUNCE_PARAMS, WIDE_PARAMS, RECORD_PARAMS, PROG_PA
   BOUNCE_ARGS;
   WIDE_GEO;
   RECORD;
-  const size_t own = BOUNCE_SMEM;
+  const size_t own = RECORD_SMEM;
   PROG_ARGS;
-  launch_lanes(PICK_GATE(wide_bounce_kernel, true, true), PICK_GATE(wide_bounce_kernel, false, true), n,
+  launch_lanes(PICK_RECORD(wide_bounce_kernel, true), PICK_RECORD(wide_bounce_kernel, false), n,
                n_de, WITH_STACK(own), stream, a, g, rec, pa);
   return (int)cudaGetLastError();
 }
@@ -2546,10 +2631,19 @@ int pyrite_program_colors(SCENE_PARAMS, const int* color_prog, const uint8_t* va
   const ColorArgs a = {PROGRAMS(n_color), color_prog, valid, normal, incident, uv, out, n, slots,
                        s};
   const int m = n * slots;
-  const size_t smem = WITH_STACK(0);
+  if (m <= 0) return (int)cudaGetLastError();
+  // a persistent grid: as many blocks as are resident, or as the tiles fill
+  const size_t smem = WITH_STACK(sizeof(int) * RING_INTS);
   opt_in_smem((const void*)program_colors_kernel, smem);
-  if (m > 0)
-    program_colors_kernel<<<(m + BLOCK - 1) / BLOCK, BLOCK, smem, (cudaStream_t)stream>>>(a, pa);
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, program_colors_kernel, BLOCK, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int fill = (m + BLOCK - 1) / BLOCK, resident = sms * per_sm;
+  program_colors_kernel<<<fill < resident ? fill : (resident > 0 ? resident : 1), BLOCK, smem,
+                          (cudaStream_t)stream>>>(a, pa);
   return (int)cudaGetLastError();
 }
 
@@ -2603,6 +2697,13 @@ int pyrite_bounce_occupancy(int s, int stack, int* blocks) {
 int pyrite_bounce_smem(int s, int de, int form) {
   const int n_de = de;
   return (int)BOUNCE_SMEM;
+}
+
+// The same for the kRecord launchers (RECORD_SMEM; kernels_dense.
+// record_smem_bytes mirrors it, with the stack).
+int pyrite_bounce_record_smem(int s, int de, int form) {
+  const int n_de = de;
+  return (int)RECORD_SMEM;
 }
 
 // The march passes (march_de_kernel over BounceRays / ShadowRays): `n_de`

@@ -85,6 +85,7 @@ SMEM_PER_BLOCK = 227 * 1024 - 1024
 DE_SHAPE_BYTES = 96
 MAX_DE_SHAPES = SMEM_PER_BLOCK // DE_SHAPE_BYTES
 _DE_SLOT_BYTES = 4 * (BLOCK // 32) * (32 * 3 + 32 + 32 * 6)  # csrc/bounce.cu DE_SLOT_FLOATS
+_ROW_OP_FLOATS = 8  # csrc/bounce.cu sizeof(RowOp) / 4 (a pointer and five words, 8-aligned)
 _GEO_ROWS = 22  # rows 0..21: primitive channels (see build_pack)
 
 # A DE shape's parameters, in the order of csrc/march_de.cuh's de_shape:
@@ -196,14 +197,29 @@ def de_fields(shape):
 
 
 def smem_bytes(s, de, stack):
-    """The most dynamic shared memory a block of the scene's kernels takes
-    at S spectral columns (csrc/bounce.cu): the bounce kernels' staged lane
-    state, [BLOCK, 4 S + 12] floats, with a warp's DE probe slots on a scene
-    with DE shapes, or on a kProg scene the NEE kernel's colour rows,
-    [BLOCK, S] floats; and on a kProg scene (``stack`` values, else 0) the
-    program stack, [stack, BLOCK] float4 values."""
+    """The gate's measure of the dynamic shared memory a block of the
+    scene's kernels takes at S spectral columns (csrc/bounce.cu): the
+    bounce kernels' staged lane state, [BLOCK, 4 S + 12] floats, with a
+    warp's DE probe slots on a scene with DE shapes, or on a kProg scene the
+    NEE kernel's colour rows, [BLOCK, S] floats; and on a kProg scene
+    (``stack`` values, else 0) the program stack, [stack, BLOCK] float4
+    values. It still counts the staged kProg rows, which the camera walk
+    no longer stages (record_smem_bytes; ROADMAP.md item 7)."""
     bounce = 4 * BLOCK * (4 * s + 12) + (_DE_SLOT_BYTES if de else 0)
     return max(bounce, 4 * BLOCK * s) + 16 * BLOCK * stack
+
+
+def record_smem_bytes(s, de, form, stack):
+    """The dynamic shared memory of a block of the bounce kernels' kRecord
+    instantiations at S spectral columns, as their launchers pass it
+    (csrc/bounce.cu RECORD_SMEM, plus the kProg program stack of ``stack``
+    values): every form streams its rows, [BLOCK, 12] floats of vectors
+    and a row op a lane, [BLOCK, 12 + 8]; a FORM_PROG scene's block keeps
+    each lane's own colour row besides ([BLOCK, 12 + 8 + S]); with a warp's
+    DE probe slots on a scene with DE shapes."""
+    prog = form == FORM_PROG
+    floats = 12 + _ROW_OP_FLOATS + (s if prog else 0)
+    return 4 * BLOCK * floats + (_DE_SLOT_BYTES if de else 0) + (16 * BLOCK * stack if prog else 0)
 
 
 def max_spectrum_samples(de, stack):
@@ -740,6 +756,11 @@ def _launch(name, args):
     launches[name] += 1
 
 
+def record_name(scene):
+    """The name launches counts the scene's kRecord bounce under."""
+    return _named(scene, ("wide" if scene.use_clusters else "dense") + "_bounce_kernel<record>")
+
+
 def launch_bounce_kernel(scene, cfg, wavelengths, state, draws, bank_vals, t_de=None,
                          record=False, chain=False):
     """One launch of the scene's bounce kernel: (new state without the NEE
@@ -748,8 +769,7 @@ def launch_bounce_kernel(scene, cfg, wavelengths, state, draws, bank_vals, t_de=
     factors where ``chain``)."""
     args, out, ctx, *info = bounce_kernel_args(
         scene, cfg, wavelengths, state, draws, bank_vals, t_de, record, chain)
-    name = "wide_bounce_kernel" if scene.use_clusters else "dense_bounce_kernel"
-    _launch(_named(scene, name + "<record>" if record else name), args)
+    _launch(record_name(scene) if record else kernel_names(scene)[0], args)
     return (out, ctx, *info)
 
 

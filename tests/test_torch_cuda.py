@@ -687,3 +687,71 @@ def test_cuda_photon_draws_match_cpu(purpose):
     for dev_got, dev_want in zip(rng.fresh_wavelengths(keyed, 5000, 3, 6, span, "cuda"),
                                  rng.fresh_wavelengths(keyed, 5000, 3, 6, span, cpu)):
         assert torch.equal(dev_got.cpu(), dev_want)
+
+
+# --- kernel A in every form the renderers launch, and D -----------------------
+
+
+@pytest.fixture(scope="module")
+def record_paths(tmp_path_factory):
+    """The scenes of chip_smoke.RECORD_FORMS, written once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return chip_smoke.record_scene_paths(str(tmp_path_factory.mktemp("record")))
+
+
+@pytest.fixture(scope="module")
+def a_parent_form(tmp_path_factory):
+    """The library built from csrc/ with A's parent code switched back on
+    (chip_smoke.A_PARENT_FORM: the camera vertex stored one thread a lane,
+    the kProg camera walk staged past 16 columns)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return chip_smoke.build_variants(str(tmp_path_factory.mktemp("a_parent")),
+                                     {"parent_form": chip_smoke.A_PARENT_FORM}, tag="record")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,key,chain", chip_smoke.RECORD_FORMS,
+                         ids=[key for _, key, _ in chip_smoke.RECORD_FORMS])
+def test_cuda_record_forms_match_plain_version_and_parent_code(record_paths, a_parent_form, label,
+                                                                key, chain):
+    """Each form of A at camera bounces 0 and 1 against the plain version
+    (chip_smoke.check_record_form: flags exact, vectors rtol 1e-3 / atol
+    1e-4), and every output bit-equal to the parent's code on the same
+    inputs."""
+    found, worst = chip_smoke.check_record_form(label, record_paths[key], chain, a_parent_form)
+    assert worst < 1.0
+    for bounce, digests in found.items():
+        bad = [k for k, v in digests["build"].items() if digests["parent_form"][k] != v]
+        assert not bad, f"{label} bounce {bounce}: {bad} differ from the parent's code"
+
+
+@pytest.mark.cuda
+def test_cuda_vertex_colors_edges_match_plain_version(record_paths):
+    """program_colors_kernel against its plain version on
+    chip_smoke.color_edge_batches of textures_bdpt, with and without a
+    baked table (chip_smoke.check_color_edges: rtol 1e-3 / atol 1e-4)."""
+    path = record_paths["textures_bdpt"]
+    rays, bank = chip_smoke._bdpt_setup(path, 0)[6:]
+    found, worst = chip_smoke.check_color_edges("textures_bdpt", path, rays[3], bank)
+    assert len(found) == 10 and worst < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_textures_photon_takes_the_streamed_record_form(tmp_path):
+    """A textures_photon render (S + G = 70 columns in its camera walk)
+    runs every camera bounce through the <record,prog> kernel, whose
+    launcher passes the streamed form's shared memory at 70 columns
+    (pyrite_bounce_record_smem against kernels_dense.record_smem_bytes)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pyrite_tpu_torch import _build, kernels_dense as kd
+
+    launches = chip_smoke.render_photon(_photon_paths(str(tmp_path))["textures_photon"], 1, "card",
+                                        str(tmp_path))[0]
+    assert launches["dense_bounce_kernel<record,prog>"] == launches["photon_camera_bounces"] > 0
+    for s in (6, 17, 70):
+        for de in (0, 1):
+            assert _build.load().pyrite_bounce_record_smem(s, de, kd.FORM_PROG) == (
+                kd.record_smem_bytes(s, de, kd.FORM_PROG, 0))
