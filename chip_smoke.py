@@ -934,7 +934,7 @@ def gate_paths(directory):
     bidirectional twin (4 + 4 bounces beside the sphere lamp);
     flagship_s32 (the flagship at 512 x 256, 8 bounces, S = 32, under SUN)
     and the plain flagship at S = 17, 24, 33, 64 and 110 (the gate's
-    ceiling; phase 3: one column past a multiple of 16, the widths
+    former ceiling; phase 3: one column past a multiple of 16, the widths
     --wide-rows times), flagship_s24_bdpt (bidirectional, 3 light bounces:
     the bounce kernels' kRecord instantiation at S = 24), terrain_24_s32
     (terrain_paths' terrain_24 at S = 32: the wide kernels past 16
@@ -4678,10 +4678,14 @@ def time_record_form(path, chain, card, seed=1):
 # (d_unbounded). Each edit applies to every instantiation it reaches; only
 # A's and D's times are read.
 A_PARENT_FORM = [[(
+    "#define PICK_RECORD(K, DE)                                                                     \\\n"
+    "  (form != FORM_PROG ? &K<DE, true, false, true, true>                                         \\\n"
+    "   : WIDE            ? &K<DE, true, true, true, true>                                          \\\n"
+    "                     : &K<DE, true, true, true, true, true>)\n"
+    "#define RECORD_SMEM stream_smem_bytes(n_de > 0, form == FORM_PROG ? OWN_FLOATS(RECORD_STRIDE) : 0)",
     "#define PICK_RECORD(K, DE) \\\n"
-    "  (form == FORM_PROG ? &K<DE, true, true, true, true> : &K<DE, true, false, true, true>)\n"
-    "#define RECORD_SMEM stream_smem_bytes(n_de > 0, form == FORM_PROG ? s : 0)",
-    "#define PICK_RECORD(K, DE) PICK_GATE(K, DE, true)\n#define RECORD_SMEM BOUNCE_SMEM")]]
+    "  (form == FORM_PROG ? &K<DE, true, true, true, false> : PICK_GATE(K, DE, true))\n"
+    "#define RECORD_SMEM (form == FORM_PROG ? bounce_smem_bytes(s, n_de > 0) : BOUNCE_SMEM)")]]
 RECORD_VARIANTS = {
     "a_no_vertex": [[("    if (kRecord) {\n      const bool miss = alive && !found;",
                       "    if (false) {\n      const bool miss = alive && !found;")]],
@@ -4690,7 +4694,9 @@ RECORD_VARIANTS = {
     "a_no_sweep": [[("  } else if (alive) {\n    h = geo.closest(sh, o, d, true);\n  }\n"
                      "  if (kDE && alive) apply_de_closest(sh, a.t_de, n, lane, h);",
                      "  }\n  if (kDE && alive) apply_de_closest(sh, a.t_de, n, lane, h);")]],
-    "a_no_rows": [[("  if (kStream) {\n    bounce_rows<kRecord>(a, rec, ops, base, rows);\n  } else {",
+    "a_no_rows": [[("  } else if (kStream) {\n    bounce_rows<kRecord>(a, rec, ops, base, rows);\n  } else {",
+                    "  } else if (false) {\n    bounce_rows<kRecord>(a, rec, ops, base, rows);\n  } else if (!kStream) {")],
+                  [("  if (kStream) {\n    bounce_rows<kRecord>(a, rec, ops, base, rows);\n  } else {",
                     "  if (false) {\n    bounce_rows<kRecord>(a, rec, ops, base, rows);\n  } else if (!kStream) {")]],
     "a_unbounded": [[("__global__ void __launch_bounds__(BLOCK, 8)\n    dense_bounce_kernel<true, true, false, true, true>",
                       "__global__ void __launch_bounds__(BLOCK)\n    dense_bounce_kernel<true, true, false, true, true>")]],
@@ -5126,7 +5132,7 @@ def _fp32_rate():
 KERNEL_NAMES = ("dense_bounce_kernel", "dense_nee_kernel", "wide_bounce_kernel", "wide_nee_kernel",
                 "wide_closest_kernel", "wide_shadow_kernel", "march_de_kernel", "dense_lamp_kernel",
                 "wide_lamp_kernel", "dense_shadow_kernel", "program_colors_kernel",
-                "photon_gather_kernel")
+                "photon_gather_kernel", "philox_draws_kernel")
 
 
 def _kernel_label(mangled):
@@ -5135,19 +5141,26 @@ def _kernel_label(mangled):
     after it for their kRecord and kProg instantiations, <gate> for the
     bounce and NEE kernels' kGate ones that are not kProg and <stream> for
     their kStream ones (the gate form past 16 columns, and the kProg
-    camera walk's: <record><prog><stream>); None for a
-    function that is none of KERNEL_NAMES."""
+    camera walk's with its whole own rows at S <= 16:
+    <record><prog><stream>), <chunks> for the kProg ones past 16 columns
+    that make their own rows in chunks (and photon_gather_kernel's past 64
+    fresh wavelengths, philox_draws_kernel's past 92 camera words); None for
+    a function that is none of KERNEL_NAMES."""
     name = next((k for k in KERNEL_NAMES if k in mangled), None)
     if name is None:
         return None
     flags = re.search(r"I((?:Lb[01]E)+)E", mangled)
-    if flags:  # <kDE>, the bounce kernels' kRecord, then kProg, kGate and kStream
+    if flags and name in ("photon_gather_kernel", "philox_draws_kernel"):  # their kChunks
+        return name + ("<chunks>" if flags.group(1) == "Lb1E" else "")
+    if flags:  # <kDE>, the bounce kernels' kRecord, then kProg, kGate, kStream and kWhole
         bits = re.findall(r"Lb([01])E", flags.group(1))
         name += "<true>" if bits[0] == "1" else "<false>"
         record, rest = (bits[1:2], bits[2:]) if "bounce" in name else ([], bits[1:])
-        stream = rest[2:3] == ["1"]
-        tag = ("<prog>" if rest[:1] == ["1"] else "<gate>" if rest[1:2] == ["1"] and not stream
-               else "") + ("<stream>" if stream else "")
+        stream, prog = rest[2:3] == ["1"], rest[:1] == ["1"]
+        # a bounce kernel's kWhole (absent before it was added: whole rows)
+        chunks = stream and prog and ("bounce" not in name or rest[3:4] == ["0"])
+        tag = ("<prog>" if prog else "<gate>" if rest[1:2] == ["1"] and not stream
+               else "") + ("<chunks>" if chunks else "<stream>" if stream else "")
         name += ("<record>" if record == ["1"] else "") + tag
     tags = {"QueryShadowRays": "<query shadow>", "QueryRays": "<query>",
             "BounceRays": "<bounce>", "ShadowRays": "<shadow>"}
@@ -5451,25 +5464,35 @@ def build_variants(tmp, variants=None, tag="prog"):
     from pyrite_tpu_torch import _build
 
     nvcc = _build.find_nvcc()
-    with open(os.path.join(_build.CSRC, "bounce.cu")) as fh:
-        source = fh.read()
+    sources = {}
+
+    def source(unit):
+        if unit not in sources:
+            with open(os.path.join(_build.CSRC, unit)) as fh:
+                sources[unit] = fh.read()
+        return sources[unit]
+
     jobs = []
     for name, alternatives in (PROG_VARIANTS if variants is None else variants).items():
         root = os.path.join(tmp, name)
         if isinstance(alternatives, str):  # another checkout's csrc/ as it is
             shutil.copytree(alternatives, os.path.join(root, "csrc"))
         else:
-            edits = next((e for e in alternatives if all(a is None or a in source for a, _ in e)),
-                         None)
+            # an edit is (anchor, text) of bounce.cu or (anchor, text, file)
+            edits = next((e for e in alternatives if all(
+                a is None or a in source(f[0] if f else "bounce.cu") for a, _, *f in e)), None)
             if edits is None:
                 print(f"[{tag}] variant {name}: no edit applies to this checkout")
                 continue
-            src = source
-            for anchor, text in edits:
-                src = src + text if anchor is None else src.replace(anchor, text)
+            edited = {}
+            for anchor, text, *unit in edits:
+                unit = unit[0] if unit else "bounce.cu"
+                src = edited.get(unit, source(unit))
+                edited[unit] = src + text if anchor is None else src.replace(anchor, text)
             shutil.copytree(_build.CSRC, os.path.join(root, "csrc"))
-            with open(os.path.join(root, "csrc", "bounce.cu"), "w") as fh:
-                fh.write(src)
+            for unit, src in edited.items():
+                with open(os.path.join(root, "csrc", unit), "w") as fh:
+                    fh.write(src)
         units = sorted(glob.glob(os.path.join(root, "csrc", "*.cu")))
         objs = [u + ".o" for u in units]
         procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-c", "-o", o, u], stdout=subprocess.PIPE,
@@ -5895,7 +5918,7 @@ def check_gate_bdpt(gate, card, out_dir):
 
 # The flagship's spectral widths --wide-rows measures: the bounce and NEE
 # kernels of the gate form past 16 columns (kStream), up to the gate's
-# ceiling (110).
+# former ceiling (110).
 WIDE_ROWS_S = (24, 32, 64, 110)
 # The kernels past 16 columns whose registers and occupancy --wide-rows
 # prints: the kStream instantiations (a parent's <gate> ones, which ran
@@ -6162,6 +6185,497 @@ def measure_wide_rows_probes(card, parent_csrc=None):
     print(f"[phase] --wide-rows-probes: {time.perf_counter() - started:.1f} s")
 
 
+# --- spectral widths past the kernels' old ceilings ----------------------------------------
+
+def wide_paths(directory):
+    """The scenes past the kernels' former spectral ceilings (the kProg bounce and
+    NEE at 102 columns, the draws at 449, the gather at ~430 fresh
+    wavelengths, A's kProg form at ~180): the five renders of phase 9 at the
+    CLI's size, textures_s512 (write_textures_scene at 256 x 192, S = 512, 4
+    bounces), textures_deep_s128 (its deep colour program at S = 128),
+    flagship_s512 (512 x 256, 8 bounces), textures_photon_512
+    (photon_scene_paths' textures_photon with a film of 512 bins:
+    interpolation mode, a camera walk of S + G = 518 columns and a lamp
+    walk of 513) and flagship_bdpt_s128 (8 + 8 bounces at S = 128); and the
+    checks' smaller ones, textures_s128 (256 x 192), flagship_s512_small (64
+    x 32: the draws held to the CPU), textures_photon_512_small and
+    flagship_photon_s512_small (photon_scene_paths(small=True): 4,000
+    photons; the gather at K = 512 in exact mode). Returns {name: .lua
+    path}."""
+    spectra = lambda s: [("spectrum_samples = 6", f"spectrum_samples = {s}")]  # noqa: E731
+    sub = lambda name: os.path.join(directory, name)  # noqa: E731
+    for name in ("flagship", "small", "bdpt"):
+        os.makedirs(sub(name), exist_ok=True)
+    size = dict(width=256, height=192, bounces=4, spp=2)
+    flagship = scene_paths(sub("flagship"), width=512, height=256, spectrum_samples=6,
+                           bounces=8)["flagship"]
+    small = photon_scene_paths(sub("photon_small"), small=True)
+    return {
+        "textures_s512": write_textures_scene(sub("s512"), spectrum_samples=512, **size),
+        "textures_s128": write_textures_scene(sub("s128"), spectrum_samples=128, **size),
+        "textures_deep_s128": write_textures_scene(sub("deep128"), spectrum_samples=128, deep=True,
+                                                   **size),
+        "flagship_s512": add_objects(flagship, [], "flagship_s512", spectra(512)),
+        "flagship_s512_small": scene_paths(sub("small"), width=64, height=32, spectrum_samples=512,
+                                           bounces=4)["flagship"],
+        "textures_photon_512": photon_bins_scene(
+            photon_scene_paths(sub("photon"))["textures_photon"], 512),
+        "textures_photon_512_small": photon_bins_scene(small["textures_photon"], 512),
+        "flagship_photon_s512_small": add_objects(small["flagship_photon"], [],
+                                                  "flagship_photon_s512", spectra(512)),
+        "flagship_bdpt_s128": add_objects(write_flagship_bdpt(sub("bdpt"), "flagship_bdpt", 8, 8),
+                                          [], "flagship_bdpt_s128", spectra(128)),
+    }
+
+
+def check_launch_smem(paths):
+    """The gate's measures (kernels_dense.launch_smem, the pack's "smem")
+    against what the launchers pass at each scene's widths
+    (pyrite_bounce_smem, pyrite_bounce_record_smem, pyrite_nee_smem,
+    pyrite_draws_smem, pyrite_gather_smem, plus the program stack): equal
+    on every scene of ``paths``. Returns the number of measures held."""
+    from pyrite_tpu_torch import _build, kernels_dense as kd
+
+    lib = _build.load()
+    held = 0
+    for name, path in paths.items():
+        scene = _gpu_scene(path)[0]
+        pack, photon = scene.dense_pack, scene.photon_widths
+        widths = (scene.spectrum_samples,) if photon is None else (
+            scene.spectrum_samples, photon["camera"], photon["lamp"])
+        de, form = int(bool(scene.de_shapes)), pack["form"]
+        stack = kd._stack_bytes(form, pack["stack"])
+        want = {
+            "bounce": max(lib.pyrite_bounce_smem(w, de, form) for w in widths) + stack,
+            "record": max(lib.pyrite_bounce_record_smem(w, de, form) for w in widths) + stack,
+            "nee": max(lib.pyrite_nee_smem(w, form) for w in widths) + (stack if form == kd.FORM_PROG
+                                                                        else 0),
+            "draws": lib.pyrite_draws_smem(scene.spectrum_samples),
+        }
+        if photon is not None:
+            want["gather"] = lib.pyrite_gather_smem(photon["bins"], scene.spectrum_samples)
+        got = {k: pack["smem"][k] for k in want}
+        assert got == want, f"{name}: the gate's shared memory {got}, the launchers' {want}"
+        held += len(want)
+        print(f"[wide] {name} (widths {widths}): the gate's dynamic shared memory a block equals "
+              f"the launchers': {want}")
+    return held
+
+
+def wide_step(directory, card):
+    """Phase 9: each kernel that had a spectral ceiling, past it,
+    against its plain version at a small wavefront (the kProg bounce and
+    NEE at S = 128 and 512, with the deep program at 128: check_kernels on
+    8,192 and 4,096 lanes; the draws at S = 512 bit for bit against the
+    CPU: check_draws; A's kProg form at S + G = 518 and the gate form at
+    512, the lamp walk at 513 and the gather at K = 512: check_photon on
+    the small photon projects), the gate's measures against the launchers'
+    (check_launch_smem), then the five renders of wide_paths through the
+    CLI, each with the counts zeroed just before and read just after.
+    Returns ({check: largest error}, {render: launch counts})."""
+    started = time.perf_counter()
+    wide = wide_paths(directory)
+    worst = {}
+    checked = {name: check_kernels(name, wide[name], lanes=lanes, bounces=2) for name, lanes in (
+        ("textures_s128", 8192), ("textures_deep_s128", 8192), ("textures_s512", 4096))}
+    divergent = {k: (w["divergent"], w["nee_divergent"]) for k, w in checked.items()
+                 if w["divergent"] or w["nee_divergent"]}
+    assert not divergent, f"the bounce or NEE kernel diverges from the plain version: {divergent}"
+    worst["prog"] = max(max(w["bounce"], w["brightness"]) for w in checked.values())
+    worst["prog_nee"] = max(w["nee"] for w in checked.values())
+    worst["draws"] = check_draws("flagship_s512_small", wide["flagship_s512_small"])
+    photon = {name: check_photon(name, wide[name]) for name in (
+        "textures_photon_512_small", "flagship_photon_s512_small")}
+    for key in ("record", "lamp", "gather"):
+        worst[key] = max(c["worst"][key] for c in photon.values())
+    check_launch_smem({k: wide[k] for k in (
+        "textures_s512", "textures_deep_s128", "flagship_s512", "textures_photon_512",
+        "flagship_bdpt_s128", "flagship_photon_s512_small")})
+    runs = {name: render_end_to_end(wide[name], 1, card, directory) for name in (
+        "textures_s512", "textures_deep_s128", "flagship_s512")}
+    runs["textures_photon_512"] = render_photon(wide["textures_photon_512"], 1, card, directory)[0]
+    runs["flagship_bdpt_s128"] = render_bdpt(wide["flagship_bdpt_s128"], 1, card, directory)[0]
+    print(f"[wide] past the old ceilings, largest errors against the plain version {worst}")
+    print(f"[phase] spectral widths past the old ceilings (phase 9): "
+          f"{time.perf_counter() - started:.1f} s")
+    return worst, runs
+
+
+# csrc/draws.cu edited for --wide-prog's probe draws_staged: camera rows of
+# more than CAM_STAGED words staged CAM_STAGED words at a time at a stride
+# of CAM_STAGED + 1, each window stored a warp a row, in place of the
+# Philox blocks stored straight.
+_DRAWS_STRAIGHT = """    } else {  // a Philox block a thread, its words stored straight: no row staged
+      const int nb = (w + 3) / 4;
+      for (int i = threadIdx.x; i < rows * nb; i += BLOCK) {
+        const int r = i / nb, b = i - r * nb, l = base + r;
+        const unsigned px = a.pixel ? (unsigned)a.pixel[l] : a.pixel0 + (unsigned)(l % a.n_pix);
+        const unsigned sm = a.pixel ? (unsigned)a.sample[l] : a.sample0 + (unsigned)(l / a.n_pix);
+        const uint4 x = !a.cam_mask || a.cam_mask[l]
+                            ? philox4x32_10(make_uint4(px, sm, 0u, ((unsigned)P_CAMERA << 16) | b),
+                                            a.k0, a.k1)
+                            : make_uint4(0u, 0u, 0u, 0u);
+        float* dst = a.cam_out + (size_t)l * w + 4 * b;
+        for (int q = 0; q < 4 && 4 * b + q < w; ++q) dst[q] = uniform(word(x, q));
+      }
+    }
+"""
+_DRAWS_STAGED = """    } else {  // CAM_STAGED words a lane at a time, each window stored as its rows' runs
+      for (int from = 0; from < w; from += CAM_STAGED) {
+        const int cw = min(CAM_STAGED, w - from);
+        if (in_range)
+          for (int b = from / 4; 4 * b < from + cw; ++b) {
+            const uint4 x = drawn ? philox4x32_10(
+                make_uint4(pixel, sample, 0u, ((unsigned)P_CAMERA << 16) | b), a.k0, a.k1)
+                                  : make_uint4(0u, 0u, 0u, 0u);
+            for (int q = 0; q < 4 && 4 * b + q < from + cw; ++q)
+              stage[threadIdx.x * (CAM_STAGED + 1) + 4 * b + q - from] = uniform(word(x, q));
+          }
+        __syncthreads();
+        // a warp a row at a time, its lanes on consecutive words
+        for (int r = threadIdx.x >> 5; r < rows; r += BLOCK / 32)
+          for (int c = threadIdx.x & 31; c < cw; c += 32)
+            a.cam_out[(size_t)(base + r) * w + from + c] = stage[r * (CAM_STAGED + 1) + c];
+        __syncthreads();
+      }
+    }
+"""
+# csrc/bounce.cu edited for --wide-prog's probes: the camera walk's own rows
+# in chunks of 16 or 64 columns (the build 128; the simple renderer's 16,
+# which measured faster than 32 and 64: PERF.md), the draws' camera rows
+# staged in chunks (draws_staged, csrc/draws.cu), and own_scratch, the kProg
+# streamed bounce past 16 columns making each own row whole into an [N, S]
+# device scratch (one buffer, grown by the launchers), which bounce_rows
+# reads as it reads the sky rows, in place of the chunks.
+_OWN_LANE = ("  } else if (kChunks && own_prog >= 0) {  // the lane code now, the columns chunk by chunk\n"
+             "    eval_program(pr, pa, own_prog, lane, n, s, 0, in, nullptr, -1, &own_slots);\n")
+_OWN_SCRATCH_LANE = ("  } else if (kChunks && own_prog >= 0) {  // the whole row into the scratch\n"
+                     "    row_src = g_own_scratch + (size_t)lane * s;\n"
+                     "    eval_program(pr, pa, own_prog, lane, n, s, s, in, g_own_scratch + (size_t)lane * s);\n")
+_BOUNCE_LANE = ("template <class Geo, bool kDE, bool kRecord, bool kProg, bool kGate, bool kStream, "
+                "bool kWhole>\n__device__ __forceinline__ void bounce_lane(")
+_NAMESPACE_END = '}  // namespace\n\nextern "C" {\n'
+_GROW_SCRATCH = """// own_scratch: the [N, S] scratch, grown where a launch needs more
+void grow_own_scratch(size_t floats) {
+  static float* buf = nullptr;
+  static size_t have = 0;
+  if (floats <= have) return;
+  cudaFree(buf);
+  cudaMalloc(&buf, floats * sizeof(float));
+  have = floats;
+  cudaMemcpyToSymbol(g_own_scratch, &buf, sizeof(buf));
+}
+
+"""
+WIDE_PROG_VARIANTS = {
+    "record_chunk_16": [[("constexpr int RECORD_CHUNK = 128;", "constexpr int RECORD_CHUNK = 16;")]],
+    "record_chunk_64": [[("constexpr int RECORD_CHUNK = 128;", "constexpr int RECORD_CHUNK = 64;")]],
+    "draws_staged": [[
+        (_DRAWS_STRAIGHT, _DRAWS_STAGED, "draws.cu"),
+        ("  const int w = s_cam + 5 <= CAM_STAGED ? s_cam + 5 : 3;",
+         "  const int w = s_cam + 5 <= CAM_STAGED ? s_cam + 5 : CAM_STAGED + 1;", "draws.cu"),
+    ]],
+    "own_scratch": [[
+        (_OWN_LANE, _OWN_SCRATCH_LANE),
+        ("  if constexpr (kChunks) {\n    // per chunk:", "  if constexpr (false) {\n    // per chunk:"),
+        (_BOUNCE_LANE, "__device__ float* g_own_scratch;  // own_scratch's rows\n\n" + _BOUNCE_LANE),
+        (_NAMESPACE_END, _GROW_SCRATCH + _NAMESPACE_END),
+        ("  const size_t own = BOUNCE_SMEM;\n",
+         "  const size_t own = BOUNCE_SMEM;\n  if (form == FORM_PROG && WIDE) grow_own_scratch((size_t)n * s);\n"),
+        ("  const size_t own = RECORD_SMEM;\n",
+         "  const size_t own = RECORD_SMEM;\n  if (form == FORM_PROG && WIDE) grow_own_scratch((size_t)n * s);\n"),
+        ("stream_smem_bytes(n_de > 0, OWN_STRIDE)", "stream_smem_bytes(n_de > 0)"),
+        ("#define RECORD_SMEM stream_smem_bytes(n_de > 0, form == FORM_PROG ? OWN_FLOATS(RECORD_STRIDE) : 0)",
+         "#define RECORD_SMEM stream_smem_bytes(n_de > 0, form == FORM_PROG && !WIDE ? s : 0)"),
+    ]],
+}
+# csrc/bounce.cu edited back to the staged kProg form past 16 columns:
+# the simple renderer's kProg bounce and NEE staged at [BLOCK, S] at any S
+# (the card tests hold the chunked forms to it bit for bit).
+PROG_STAGED_FORM = [[
+    ("(form == FORM_PROG   ? (WIDE ? &K<__VA_ARGS__, true, true, true> : &K<__VA_ARGS__, true, true, false>)",
+     "(form == FORM_PROG   ? &K<__VA_ARGS__, true, true, false>"),
+    ("  (form == FORM_PROG && WIDE ? stream_smem_bytes(n_de > 0, OWN_STRIDE)",
+     "  (false ? stream_smem_bytes(n_de > 0, OWN_STRIDE)"),
+    ("#define NEE_SMEM (form == FORM_PROG ? (size_t)BLOCK * OWN_FLOATS(OWN_STRIDE) * sizeof(float) : 0)",
+     "#define NEE_SMEM (form == FORM_PROG ? (size_t)BLOCK * s * sizeof(float) : 0)"),
+]]
+# The widths at which --wide-prog holds the kProg bounce and NEE to a
+# parent's build (which staged them up to 102 columns), and past it
+WIDE_PROG_S = (24, 64, 102)
+WIDE_PROG_PAST = (128, 512)
+
+
+def wide_prog_paths(directory):
+    """--wide-prog's scenes: the textures scene (256 x 192, 4 bounces) at
+    each S of WIDE_PROG_S and WIDE_PROG_PAST, textures_512 (the wide kProg
+    kernels) at S = 64 and 128, textures_photon at 64, 128 and 512 film bins
+    (A's kProg form at S + G = 70, 134 and 518 columns), flagship_photon at
+    S = 6, 64, 128 and 512 (the gather's K; 512 on the small project, and
+    at full size as flagship_photon_s512_full) and the flagship at S = 6,
+    128, 449 and 512 (the draws' camera rows). Returns {name: .lua path}."""
+    size = dict(width=256, height=192, bounces=4, spp=2)
+    spectra = lambda s: [("spectrum_samples = 6", f"spectrum_samples = {s}")]  # noqa: E731
+    os.makedirs(directory, exist_ok=True)
+    out = {f"textures_s{s}": write_textures_scene(os.path.join(directory, f"t{s}"),
+                                                  spectrum_samples=s, **size)
+           for s in WIDE_PROG_S + WIDE_PROG_PAST}
+    out.update({f"textures_512_s{s}": write_textures_scene(os.path.join(directory, f"w{s}"),
+                                                           spectrum_samples=s, tiles=(16, 16), **size)
+                for s in (64, 128)})
+    photon = photon_scene_paths(os.path.join(directory, "photon"))
+    small = photon_scene_paths(os.path.join(directory, "photon_small"), small=True)
+    out.update({f"textures_photon_{b}": photon_bins_scene(photon["textures_photon"], b)
+                for b in (64, 128, 512)})
+    out["flagship_photon_s6"] = photon["flagship_photon"]
+    out.update({f"flagship_photon_s{s}": add_objects(photon["flagship_photon"], [],
+                                                     f"flagship_photon_s{s}", spectra(s))
+                for s in (64, 128)})
+    out["flagship_photon_s512"] = add_objects(small["flagship_photon"], [], "flagship_photon_s512",
+                                              spectra(512))
+    out["flagship_photon_s512_full"] = add_objects(photon["flagship_photon"], [],
+                                                   "flagship_photon_s512", spectra(512))
+    flagship = scene_paths(directory, width=512, height=256, spectrum_samples=6, bounces=8)["flagship"]
+    out.update({f"flagship_s{s}": add_objects(flagship, [], f"flagship_s{s}", spectra(s))
+                for s in (6, 128, 449, 512)})
+    return out
+
+
+def _prog_libs(label, path, libs, order, card, bounce, seed=1):
+    """The scene's bounce kernel, then its NEE kernel, through each library
+    of ``libs`` in ``order`` on the same inputs (the main path's wavefront
+    at ``bounce``; each NEE launch from the build's bounce outputs): their
+    outputs' digests and ms per launch (_time_libs). Returns ({library:
+    digests}, {library: [(bounce ms, NEE ms)]})."""
+    import torch
+
+    from pyrite_tpu_torch import kernels_dense as kd
+
+    scene, cfg, wl, state, draws = _bounce_inputs(path, seed, bounce)
+    bank = kd.precompute_bank_values(scene, wl)
+    bounce_name, nee_name = kd.kernel_names(scene)
+    b_args, out, ctx = kd.bounce_kernel_args(scene, cfg, wl, state, draws, bank)
+    digests, b_times = _time_libs(f"{label} bounce {bounce} {bounce_name}", kd._LAUNCHERS[bounce_name],
+                                  b_args, dict(out, **ctx), libs, order, card)
+    assert getattr(libs["build"][0], kd._LAUNCHERS[bounce_name])(*b_args) == 0
+    keep = out["brightness"].clone()
+    n_args = kd.nee_kernel_args(scene, cfg, wl, out, ctx, draws, bank)
+    times = {}
+    for name in order:
+        run = lambda: getattr(libs[name][0], kd._LAUNCHERS[nee_name])(*n_args)  # noqa: E731
+        out["brightness"].copy_(keep)
+        assert run() == 0, f"{label} {name} {nee_name}: launch failed"
+        torch.cuda.synchronize()
+        digests[name].setdefault("nee brightness", _digests({"b": out["brightness"]})["b"])
+        k1, k2 = _event_ms(run, 50), _event_ms(run, 50)
+        times.setdefault(name, []).append((b_times[name][len(times.get(name, []))], (k1 + k2) / 2))
+        print(f"[wide-prog] {label} bounce {bounce} {nee_name} {name}: {k1:.4f} / {k2:.4f} ms per "
+              f"launch, {wl.shape[0]} lanes, S={wl.shape[1]} ({card})")
+    return digests, times
+
+
+def _draws_libs(label, path, libs, order, card, seed=5):
+    """The regeneration iteration's lane_draws (camera rows of S + 5 words
+    on a mask of ~30 % of the lanes, bounce draws at each lane's depth) of
+    ``path`` at the regeneration width, through each library in ``order``
+    on the same arguments (time_draws' indexed launch): digests of the
+    camera rows and the bounce draws, ms per launch (_time_libs)."""
+    import torch
+
+    from pyrite_tpu_torch import rng
+    from pyrite_tpu_torch.renderers.simple import _regen_planes
+
+    scene, film, camera, cfg = _gpu_scene(path)
+    ls, lamps, s = cfg.light_samples, scene.num_lamps, cfg.spectrum_samples
+    keys, mask = _lane_keys(film, _regen_planes(film), cfg.bounces, seed)
+    m = keys.pixel.shape[0]
+    m_words, _ = rng._layout(m, ls, lamps)
+    cam = torch.empty((m, s + 5), dtype=torch.float32, device="cuda")
+    out = torch.empty(m_words, dtype=torch.float32, device="cuda")
+    k0, k1 = keys.key()
+    args = (k0, k1, m, 1, 0, 0, 0, s, ls, lamps, cam.data_ptr(), out.data_ptr(),
+            keys.pixel.data_ptr(), keys.sample.data_ptr(), keys.depth.data_ptr(),
+            mask.view(torch.uint8).data_ptr(), 0, 0, 0, 0, torch.cuda.current_stream().cuda_stream)
+    return _time_libs(f"{label} philox_draws_kernel ({m} lanes, S={s})", "pyrite_philox_draws", args,
+                      {"camera": cam, "bounce": out}, libs, order, card)
+
+
+def _gather_inputs(path, seed=0):
+    """One camera bounce's gather query (the first) of ``path``'s first
+    chunk against pass 0's map, as check_photon makes it, without the
+    plain checks: (spec, map, query)."""
+    from pyrite_tpu_torch import rng
+    from pyrite_tpu_torch.renderers import photon as ph
+
+    (pd, scene, parts, rows, pm, photon_draws, cam_draws, rays, wl_ext,
+     bank) = _photon_setup(path, seed)
+    cfg, spec = parts[2], parts[4]
+    _, origin, direction, wl = rays
+    n = wl.shape[0]
+    chain_m = len(scene.color_programs) if spec.exact else None
+    _, vertices = ph._record_camera_vertices(scene, cfg, cam_draws, origin, direction, wl_ext, bank,
+                                             chain_m)
+    lam0 = wl_ext[:, 0].contiguous()
+    factors0 = ph._log_factors(scene, lam0) if spec.exact else None
+    lam_f, _ = rng.fresh_wavelengths(photon_draws, n, 0, spec.spectrum_samples, spec.span,
+                                     scene.device)
+    return spec, pm, ph.gather_query(scene, vertices[0], spec, lam0, lam_f, factors0)
+
+
+def time_wide(card, paths, gather_small):
+    """The changed kernels' per-launch times past their old ceilings with
+    their plain versions' and their bounds (bytes and FP32 operations that
+    the run's inputs need): the kProg bounce and NEE on the textures scene
+    at S = 128 and 512, bounces 0 and 1 (time_kernels), A's kProg form at S
+    + G = 518 (time_record_form), the draws at S = 512 (time_draws) and the
+    gather at K = 512 on the small project (time_photon on
+    ``gather_small``, check_photon's) and at full size, the kernel alone
+    (its bound from its own counts: the plain gather at K = 512 over
+    131,072 lanes is not timed). Returns {case: {kernel: (ms, plain ms or
+    None, bytes, operations)}}."""
+    import torch
+
+    from pyrite_tpu_torch import _build, kernels_dense as kd
+
+    found = {}
+    for name in ("textures_s128", "textures_s512"):
+        for bounce in (0, 1):
+            found[f"{name} bounce {bounce}"] = time_kernels(paths[name], card, plain_reps=1,
+                                                           bounce=bounce)
+    found["textures_photon_512 record"] = {"dense_bounce_kernel<record,prog>": time_record_form(
+        paths["textures_photon_512"], True, card)}
+    found["flagship_s512 draws"] = time_draws(paths["flagship_s512"], card)
+    found["flagship_photon_s512 gather (small)"] = time_photon(gather_small, card)
+    spec, pm, q = _gather_inputs(paths["flagship_photon_s512_full"])
+    args, out = kd.photon_gather_args(spec, pm, q)
+    run = lambda: _build.load().pyrite_photon_gather(*args)  # noqa: E731
+    for _ in range(2):
+        assert run() == 0
+    torch.cuda.synchronize()
+    k1, k2 = _event_ms(run, 20), _event_ms(run, 20)
+    size, ops = _gather_work(spec, pm, q, out)
+    found["flagship_photon_s512 gather"] = {"photon_gather_kernel": ((k1 + k2) / 2, None, size, ops)}
+    print(f"[times] photon_gather_kernel at K = 512: {k1:.4f} / {k2:.4f} ms per launch, "
+          f"{q['position'].shape[0]} lanes, {pm['keys'].shape[0]} map entries ({card})")
+    for case, times in found.items():
+        print(f"[wide-prog] {case} ({card}): " + "; ".join(
+            f"{k} {ms:.4f} ms, plain {plain if plain is None else round(plain, 4)} ms, bound "
+            f"{_bound_ms(size, ops)[0]:.4f} ms by {_bound_ms(size, ops)[1]}"
+            for k, (ms, plain, size, ops) in times.items()))
+    return found
+
+
+def measure_wide_prog(card, parent_csrc=None, save=None):
+    """``--wide-prog [PARENT_CSRC [OUT.json]]``: the kernels that take any
+    spectral width, against a parent's build where it ran and against their plain
+    version past it, with the probe builds of WIDE_PROG_VARIANTS
+    beside the build: the kProg bounce and NEE on the textures scene at S
+    of WIDE_PROG_S (parent) and WIDE_PROG_PAST, and the wide ones on
+    textures_512 at 64 and 128, at bounces 0 and 1 (_prog_libs; the build
+    also against the plain version, wide_rows_case); A's kProg form on
+    textures_photon at S + G = 70, 134 (parent) and 518 (check_record_form
+    and its bounce-0 launch timed); the draws on the flagship at S = 6,
+    128, 449 (parent) and 512 (_draws_libs; check_draws holds 512 to the
+    CPU on a small film); the gather on flagship_photon at K = 6, 64, 128
+    (parent) and 512 (_gather_inputs; check_photon holds 512 to the plain
+    version). Timed in the order parent, build, probes, build, parent (the
+    draws past 87 columns parent, build, draws_staged, build, parent, the
+    other draws and the gather parent, build, build, parent). Prints the
+    registers and spills of each build's
+    kernels, which outputs are bit-equal to the parent's, and the times;
+    writes them to OUT.json."""
+    from pyrite_tpu_torch import _build
+
+    started = time.perf_counter()
+    found = {"digests": {}, "times": {}, "errors": {}, "card": card}
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = {"build": (_build.load(), _build.build_log)}
+        variants = dict(WIDE_PROG_VARIANTS, **({"parent": parent_csrc} if parent_csrc else {}))
+        libs.update(build_variants(os.path.join(tmp, "variants"), variants, tag="wide-prog"))
+        for name, (_, log) in libs.items():
+            regs = kernel_registers(log)
+            found.setdefault("registers", {})[name] = regs
+            print(f"[wide-prog] {name}: registers, spill stores / loads: " + "; ".join(
+                f"{k} {r}, {st}/{ld} B" for k, (r, st, ld) in sorted(regs.items())))
+        ends = ["parent"] if parent_csrc else []
+        probes = list(WIDE_PROG_VARIANTS)
+        paths = wide_prog_paths(tmp)
+
+        def case(key, result):
+            digests, times = result
+            found["digests"][key], found["times"][key] = digests, times
+
+        for s in WIDE_PROG_S + WIDE_PROG_PAST:
+            order = (ends if s in WIDE_PROG_S else []) + ["build"] + probes + ["build"] + (
+                ends if s in WIDE_PROG_S else [])
+            for bounce in (0, 1):
+                found["errors"][f"textures_s{s} bounce {bounce}"] = wide_rows_case(
+                    paths[f"textures_s{s}"], bounce)[1]
+                case(f"textures_s{s} bounce {bounce}", _prog_libs(
+                    f"textures_s{s}", paths[f"textures_s{s}"], libs, order, card, bounce))
+        for s in (64, 128):
+            order = (ends if s == 64 else []) + ["build"] + probes + ["build"] + (
+                ends if s == 64 else [])
+            found["errors"][f"textures_512_s{s}"] = wide_rows_case(paths[f"textures_512_s{s}"], 0)[1]
+            case(f"textures_512_s{s} bounce 0", _prog_libs(
+                f"textures_512_s{s}", paths[f"textures_512_s{s}"], libs, order, card, 0))
+        for bins in (64, 128, 512):
+            within = bins < 512 and parent_csrc
+            path = paths[f"textures_photon_{bins}"]
+            rec_libs = {k: v for k, v in libs.items() if k != "parent" or within}
+            digests, err = check_record_form(f"textures_photon_{bins}", path, True, rec_libs)
+            found["errors"][f"textures_photon_{bins} record"] = err
+            for b, d in digests.items():
+                found["digests"][f"textures_photon_{bins} record bounce {b}"] = d
+            from pyrite_tpu_torch import kernels_dense as kd
+
+            scene, cfg, wl, bank, bounces = record_inputs(path, True)
+            state, draws, t_de = bounces[0]
+            args, out, ctx, info = kd.bounce_kernel_args(scene, cfg, wl, state, draws, bank, t_de,
+                                                         True, True)
+            order = (ends if within else []) + ["build"] + probes + ["build"] + (ends if within else [])
+            _, times = _time_libs(f"textures_photon_{bins} record (S + G = {wl.shape[1]})",
+                                  kd._LAUNCHERS[kd.record_name(scene)], args,
+                                  dict(out, **ctx), libs, order, card)
+            found["times"][f"textures_photon_{bins} record"] = times
+        found["errors"]["draws S=512"] = check_draws("flagship_s512", paths["flagship_s512"])
+        for s in (6, 128, 449, 512):
+            mid = ["build", "draws_staged", "build"] if s > 87 else ["build", "build"]
+            order = (ends if s < 512 else []) + mid + (ends if s < 512 else [])
+            case(f"draws S={s}", _draws_libs(f"flagship_s{s}", paths[f"flagship_s{s}"], libs, order,
+                                             card))
+        gather_512 = check_photon("flagship_photon_s512", paths["flagship_photon_s512"])
+        found["errors"]["gather K=512"] = gather_512["worst"]["gather"]
+        from pyrite_tpu_torch import kernels_dense as kd
+
+        for k in (6, 64, 128, 512):
+            spec, pm, q = _gather_inputs(paths[f"flagship_photon_s{k}"])
+            args, out = kd.photon_gather_args(spec, pm, q)
+            order = (ends if k < 512 else []) + ["build", "build"] + (ends if k < 512 else [])
+            case(f"gather K={k}", _time_libs(
+                f"flagship_photon_s{k} photon_gather_kernel ({q['position'].shape[0]} vertices, "
+                f"{pm['keys'].shape[0]} photons, K={k})", "pyrite_photon_gather", args, out, libs,
+                order, card))
+        found["bounds"] = time_wide(card, paths, gather_512)
+    same = differ = 0
+    for key, digests in found["digests"].items():
+        for other in [k for k in digests if k != "build"]:
+            bad = [k for k, v in digests["build"].items() if digests[other].get(k) != v]
+            if other == "parent":
+                same, differ = same + len(digests["build"]) - len(bad), differ + len(bad)
+            print(f"[wide-prog] {key}, {other} against the build: " + (
+                "every output bit-equal" if not bad else f"differ: {', '.join(bad)}"))
+    print(f"[wide-prog] against the parent: {same} outputs bit-equal, {differ} differ")
+    for key, times in found["times"].items():
+        print(f"[wide-prog] {key} ({card}), ms per launch: " + "; ".join(
+            f"{name} " + ", ".join(str(t) for t in runs) for name, runs in times.items()))
+    print(f"[wide-prog] largest errors against the plain version: {found['errors']}")
+    if save:
+        with open(save, "w") as fh:
+            json.dump(found, fh)
+    print(f"[phase] --wide-prog: {time.perf_counter() - started:.1f} s")
+
+
 def main(argv=None):
     import torch
 
@@ -6226,6 +6740,9 @@ def main(argv=None):
         return 0
     if argv[:1] == ["--wide-rows-probes"] and len(argv) <= 2:
         measure_wide_rows_probes(smi, *argv[1:])
+        return 0
+    if argv[:1] == ["--wide-prog"] and len(argv) <= 3:
+        measure_wide_prog(smi, *argv[1:])
         return 0
     if argv[:1] in (["--record-rows"], ["--rows"]) and len(argv) <= 3:
         parent, save = (argv[1:] + [None, None])[:2]
@@ -6349,6 +6866,7 @@ def main(argv=None):
         print(f"[phase] the photon renderer (phase 7): {time.perf_counter() - photon_started:.1f} s")
         multi_runs = multi_device_step(paths["flagship"], bdpt["flagship_bdpt_deep"],
                                        photon["flagship_photon"], smi, tmp)
+        wide_worst, wide_runs = wide_step(os.path.join(tmp, "wide"), smi)
 
     def kernel(name, source, replaces, launches, err):
         ms, plain_ms, size, ops = times[name]
@@ -6365,17 +6883,21 @@ def main(argv=None):
     # scenes (tex_runs, tex_bdpt_run); phase 8's ranks (multi_runs) count
     # in dense_total and, for the kernels only BDPT and photon run, in
     # multi_total
-    dense_total = lambda key: sum(run[key] for run in dense_runs + de_runs + gate_runs + multi_runs)
+    wide_simple = [wide_runs[k] for k in ("textures_s512", "textures_deep_s128", "flagship_s512")]
+    photon_runs = photon_runs + [wide_runs["textures_photon_512"]]
+    bdpt_runs = bdpt_runs + [wide_runs["flagship_bdpt_s128"]]
+    dense_total = lambda key: sum(run[key] for run in dense_runs + de_runs + gate_runs + multi_runs
+                                  + wide_simple)
     multi_total = lambda *keys: sum(run[k] for run in multi_runs for k in keys)
     tex_total = lambda key: sum(run[key] for run in tex_runs + [tex_bdpt_run] + gate_runs
-                                + photon_runs)
+                                + photon_runs + wide_simple)
     tex_err = lambda w: max(w["bounce"], w["brightness"])
     photon_record = sum(run["dense_bounce_kernel<record,prog>"] for run in photon_runs)
     bdpt_total = lambda *keys: sum(run[k] for run in bdpt_runs + gate_bdpt_runs + photon_runs
                                    for k in keys)
     wide_total = lambda key: sum(run[key] for run in [mesh_run] + gate_runs)
     passes = ("de_march_pass", "de_shadow_pass", "de_query_pass")
-    rendered = dense_runs + de_runs + [mesh_run] + gate_runs
+    rendered = dense_runs + de_runs + [mesh_run] + gate_runs + wide_simple
     queried = queries.values()
     checked = list(worst.values()) + [gate_worst[k] for k in (
         "flagship_s32", "flagship_s24", "flagship_s64", "flagship_s17", "flagship_s33",
@@ -6410,7 +6932,7 @@ def main(argv=None):
         kernel("philox_draws_kernel", "draws.cu", "pyrite_tpu/tracer.py:1069",
                sum(run["philox_draws_kernel"] for run in rendered + bdpt_runs + gate_bdpt_runs
                    + photon_runs + multi_runs),
-               max(drawn.values())),
+               max(max(drawn.values()), wide_worst["draws"])),
         # the bidirectional renderer's kernels port no TPU kernel (the JAX
         # package runs these steps in XLA); timed on cornell_class
         dict(kernel("dense_bounce_kernel<record>", "bounce.cu", None,
@@ -6418,7 +6940,7 @@ def main(argv=None):
                     + multi_total("dense_bounce_kernel<record>"),
                     max(max(max(w["record"], w["brightness"]) for w in bdpt_worst + [regen_checked]),
                         max(c["worst"]["record"] for c in photon_checked.values()),
-                        gate_worst["flagship_s24_bdpt"]["record"])),
+                        gate_worst["flagship_s24_bdpt"]["record"], wide_worst["record"])),
              name="dense_bounce_kernel<record>, wide_bounce_kernel<record>",
              replaces="none: XLA, pyrite_tpu/tracer.py:1585 bounce_core's info"),
         dict(kernel("dense_lamp_kernel", "bounce.cu", None,
@@ -6433,12 +6955,12 @@ def main(argv=None):
         # the kProg instantiations: the textures scenes' programs per lane
         kernel("dense_bounce_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels_dense.py:717",
                tex_total("dense_bounce_kernel<prog>"),
-               max(tex_err(w) for w in (tex_worst["textures"], tex_worst["textures_1k"],
-                                        gate_worst["textures_deep"]))),
+               max(max(tex_err(w) for w in (tex_worst["textures"], tex_worst["textures_1k"],
+                                            gate_worst["textures_deep"])), wide_worst["prog"])),
         kernel("dense_nee_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels_dense.py:909",
                tex_total("dense_nee_kernel<prog>"),
-               max(w["nee"] for w in (tex_worst["textures"], tex_worst["textures_1k"],
-                                      gate_worst["textures_deep"]))),
+               max(max(w["nee"] for w in (tex_worst["textures"], tex_worst["textures_1k"],
+                                          gate_worst["textures_deep"])), wide_worst["prog_nee"])),
         kernel("wide_bounce_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels.py:125",
                tex_total("wide_bounce_kernel<prog>"), tex_err(tex_worst["textures_512"])),
         kernel("wide_nee_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels.py:337",
@@ -6447,13 +6969,13 @@ def main(argv=None):
                     tex_total("dense_bounce_kernel<record,prog>") - photon_record,
                     max(tex_bdpt_worst["record"], tex_bdpt_worst["brightness"])),
              replaces="none: XLA, pyrite_tpu/tracer.py:1585 bounce_core's info"),
-        # the same instantiation at the photon renderer's S + G = 70 columns
-        # (textures_photon's camera walk), its launches there
+        # the kProg form at the photon renderer's S + G columns (textures_photon's
+        # camera walk: 70, and 518 at 512 bins in phase 9), its launches there
         dict(kernel("dense_bounce_kernel<record,prog> S+G", "bounce.cu", None, photon_record,
-                    photon_checked["textures_photon"]["worst"]["record"]),
+                    max(photon_checked["textures_photon"]["worst"]["record"], wide_worst["record"])),
              replaces="none: XLA, pyrite_tpu/tracer.py:1585 bounce_core's info"),
         dict(kernel("dense_lamp_kernel<prog>", "bounce.cu", None,
-                    tex_total("dense_lamp_kernel<prog>"), tex_bdpt_worst["lamp"]),
+                    tex_total("dense_lamp_kernel<prog>"), max(tex_bdpt_worst["lamp"], wide_worst["lamp"])),
              replaces="none: XLA, pyrite_tpu/tracer.py:1953 lamp_bounce_step"),
         dict(kernel("program_colors_kernel", "bounce.cu", None, tex_total("program_colors_kernel"),
                     max(tex_bdpt_worst["colors"], tex_bdpt_worst["color_edges"])),
@@ -6461,7 +6983,8 @@ def main(argv=None):
         # the photon renderer's gather ports no TPU kernel either
         dict(kernel("photon_gather_kernel", "photon.cu", None,
                     sum(run["photon_gather_kernel"] for run in photon_runs + multi_runs),
-                    max(max(c["worst"]["gather"] for c in photon_checked.values()), edge_err)),
+                    max(max(c["worst"]["gather"] for c in photon_checked.values()), edge_err,
+                        wide_worst["gather"])),
              replaces="none: XLA, pyrite_tpu/renderers/photon.py:310 _gather"),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels

@@ -505,13 +505,19 @@ __device__ __forceinline__ bool has_code(const Programs& pr, int g) {
 // each call: as a called function (the parent's eval_code was) the call
 // saved and restored the caller's registers in local memory, and the
 // kernels measured 7-27 % slower (`chip_smoke.py --prog`, PERF.md).
+// With `from` >= 0 it runs the column code alone, at columns from .. cols -
+// 1, over the slots a call with cols = 0 left on the stack (`slots_io`
+// carries their count from the one call to the others): a row made in
+// chunks of columns, its texture taps once a lane (bounce_lane's and
+// nee_lane's kStream kProg forms).
 __device__ __forceinline__ float4 eval_program(const Programs& pr, const ProgArgs& pa, int g, int lane,
-                                            int n, int s, int cols, const ProgIn& in, float* out) {
+                                            int n, int s, int cols, const ProgIn& in, float* out,
+                                            int from = -1, int* slots_io = nullptr) {
   extern __shared__ __align__(16) float4 prog_smem[];
   const ProgStack st = {prog_smem + threadIdx.x};
   float4 first = f4(0.0f);
-  int slots = 0;
-  for (int k = -1; k < cols; ++k) {
+  int slots = slots_io && from >= 0 ? *slots_io : 0;
+  for (int k = from; k < cols; ++k) {
     int sp = k < 0 ? 0 : slots;
     const size_t cell = (size_t)lane * s + max(k, 0);
     for (int i = pr.code_off[2 * g + (k >= 0)], end = pr.code_off[2 * g + 1 + (k >= 0)]; i < end;
@@ -574,6 +580,7 @@ __device__ __forceinline__ float4 eval_program(const Programs& pr, const ProgArg
       if (out) out[k] = v.x;
     }
   }
+  if (slots_io) *slots_io = slots;
   return first;
 }
 
@@ -798,9 +805,20 @@ struct RowOp {
 
 // Shared memory of a streamed bounce block: [BLOCK, 3] origin, direction,
 // facing normal and u_scatter, a RowOp a lane, with DE shapes each warp's
-// probe slots, and in the kProg record form (`own` = S) each lane's own
-// [BLOCK, S] colour row (eval_program's); the rest does not grow with S.
+// probe slots, and in the kProg forms each lane's own colour row
+// (eval_program's): the whole row at S <= MAX_ROW in the record form (`own`
+// = S), past MAX_ROW a chunk's slot (`own` = OWN_STRIDE, RECORD_STRIDE in
+// the record form). None of it grows with S past MAX_ROW.
 constexpr int ROW_OP_FLOATS = (int)(sizeof(RowOp) / sizeof(float));
+// Columns of an own row made and streamed at a time: 16 in the simple
+// renderer's bounce and the NEE, 128 in the camera walk (kRecord), whose
+// window pass writes four arrays (chip_smoke.py --wide-prog measured 16,
+// 32 and 64 on both, and 128 on the camera walk: PERF.md §6 rows 1 and A);
+// a slot's stride is odd, so that a warp's column writes fall on 32 banks.
+constexpr int ROW_CHUNK = 16;
+constexpr int RECORD_CHUNK = 128;
+constexpr int OWN_STRIDE = ROW_CHUNK + 1;
+constexpr int RECORD_STRIDE = RECORD_CHUNK + 1;
 
 __host__ __device__ __forceinline__ size_t stream_smem_bytes(bool de, int own = 0) {
   return sizeof(float) * ((size_t)BLOCK * (12 + ROW_OP_FLOATS + own) +
@@ -824,35 +842,41 @@ __device__ __forceinline__ int span_row(int e, float inv_s) {
 // on words t, t + BLOCK, ..., so every load and store is a coalesced run.
 // Each word takes the ops of the staged form's loops in their order
 // (b + c * r; b + c * p * r; r * c * p, then * brdf), so every bit is theirs.
-template <bool kRecord>
+// kWindow (the kProg form past MAX_ROW columns, bounce_lane's kWhole false)
+// takes the span's columns from .. from + width - 1 alone, a chunk of them.
+template <bool kRecord, bool kWindow = false>
 __device__ __forceinline__ void bounce_rows(const BounceArgs& a, const Record& rec, const RowOp* ops,
-                                            int base, int rows) {
-  const int s = a.s, count = rows * s;
+                                            int base, int rows, int from = 0, int width = 0) {
+  const int s = a.s, w = kWindow ? width : s, count = rows * w;
   const size_t sp = (size_t)base * s;
-  const float inv_s = 1.0f / (float)s;
+  const float inv_s = 1.0f / (float)w;
   const Programs& pr = a.progs;
   const bool chain = kRecord && rec.color_prob != nullptr;
+  // word e of the span (or of the window) at [N, S] offset sp + at(e, l, k)
+  auto at = [&](int e, int l, int k) { return kWindow ? (size_t)l * s + from + k : (size_t)e; };
   for (int e0 = threadIdx.x; e0 < count; e0 += ROW_BATCH * BLOCK) {
     float b[ROW_BATCH], r[ROW_BATCH], c[ROW_BATCH];
 #pragma unroll
     for (int q = 0; q < ROW_BATCH; ++q) {
       const int e = e0 + q * BLOCK;
       if (e >= count) break;
-      const int l = span_row(e, inv_s), k = e - l * s;
+      const int l = span_row(e, inv_s), kw = e - l * w, k = kWindow ? from + kw : kw;
+      const size_t i = sp + at(e, l, kw);
       const RowOp& op = ops[l];
       const bool col = k == 0 || op.all;
-      b[q] = a.brightness[sp + e];
-      r[q] = a.reflectance[sp + e];
+      b[q] = a.brightness[i];
+      r[q] = a.reflectance[i];
       c[q] = 0.0f;
       if ((op.op != ROW_KEEP && col) || (chain && op.op == ROW_REFLECT))
-        c[q] = op.table >= 0 ? table_value(pr, pr.ctable, op.table, a.wl[sp + e])
+        c[q] = op.table >= 0 ? table_value(pr, pr.ctable, op.table, a.wl[i])
                              : (op.src ? op.src[k] : 0.0f);
     }
 #pragma unroll
     for (int q = 0; q < ROW_BATCH; ++q) {
       const int e = e0 + q * BLOCK;
       if (e >= count) break;
-      const int l = span_row(e, inv_s), k = e - l * s;
+      const int l = span_row(e, inv_s), kw = e - l * w, k = kWindow ? from + kw : kw;
+      const size_t i = sp + at(e, l, kw);
       const RowOp& op = ops[l];
       float bk = b[q], rk = r[q], rn = r[q];
       if (k == 0 || op.all) {
@@ -865,10 +889,10 @@ __device__ __forceinline__ void bounce_rows(const BounceArgs& a, const Record& r
           rk = rn * op.brdf;
         }
       }
-      a.o_brightness[sp + e] = bk;
-      a.o_reflectance[sp + e] = rk;
-      a.o_refl_nee[sp + e] = rn;
-      if (chain) rec.color_prob[sp + e] = op.op == ROW_REFLECT ? c[q] * op.f : 0.0f;
+      a.o_brightness[i] = bk;
+      a.o_reflectance[i] = rk;
+      a.o_refl_nee[i] = rn;
+      if (chain) rec.color_prob[i] = op.op == ROW_REFLECT ? c[q] * op.f : 0.0f;
     }
   }
 }
@@ -1049,12 +1073,28 @@ __device__ __forceinline__ void de_normals_shared(const Sheet& sh, float* slots,
 // the staged form held four (at the photon renderer's S + G = 70 columns
 // 65,536 B with the program stack, against 165,888). Streamed, A measured
 // faster than staged on every form at every S (PERF.md §6 row A). The
-// simple renderer's instantiations stay as they were.
-template <class Geo, bool kDE, bool kRecord, bool kProg, bool kGate, bool kStream>
+// simple renderer's instantiations stay as they were at S <= MAX_ROW.
+//
+// Past MAX_ROW columns every kProg launch streams with its own rows in
+// chunks (kStream, kWhole false: the simple renderer's kProg bounce and the
+// kProg camera walk alike; the record form keeps its whole own row, kWhole,
+// at S <= MAX_ROW, the code it was). A lane whose program makes its colour
+// row runs the program's lane code once, its slots left on the stack;
+// then, per chunk of kChunk columns (ROW_CHUNK, RECORD_CHUNK in the camera
+// walk), it runs the column code into its [BLOCK, kChunk + 1] slot and the
+// block streams that window of every row (bounce_rows<kWindow>). The
+// block's shared memory is stream_smem_bytes(de, kChunk + 1) whatever S; a
+// texture is still sampled once a lane. (The other way, the own row written
+// to an [N, S] device scratch that bounce_rows reads as it reads the sky
+// rows, is chip_smoke.py's WIDE_PROG_VARIANTS probe own_scratch: slower at
+// S = 64, 128 and 512, PERF.md §6 row 1.)
+template <class Geo, bool kDE, bool kRecord, bool kProg, bool kGate, bool kStream, bool kWhole>
 __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo, const Record& rec,
                                             const ProgArgs& pa) {
-  static_assert(!kStream || (kGate && (kRecord || !kProg)),
-                "the streamed form is the gate form's and the kProg camera walk's");
+  static_assert(!kStream || kGate, "the streamed forms are the gate form's and the kProg forms'");
+  static_assert(!kWhole || (kStream && kRecord && kProg), "a whole own row is the camera walk's");
+  constexpr bool kChunks = kProg && kStream && !kWhole;
+  constexpr int kChunk = kRecord ? RECORD_CHUNK : ROW_CHUNK, kStride = kChunk + 1;
   extern __shared__ __align__(16) float dyn_smem[];
   float* smem = dyn_smem + (kProg ? pa.own_off : 0);  // after the program stack
   const int n = a.n, s = a.s, t = threadIdx.x;
@@ -1114,6 +1154,7 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
   // the program whose row the lane makes itself: in kProg one whose code
   // gives it (>= 0), or -2 - the baked color program whose table gives it
   int own_prog = -1;
+  int own_slots = 0;  // kChunks: the slots its lane code left on the stack
   if (found) {
     hit_surface<Geo, kDE>(sh, geo, h, pos, normal, mat);
     if (kProg) {  // the frame and uv, then the normal map (tracer._shading_normal)
@@ -1169,6 +1210,8 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
     if (kGate && own_prog < -1)
       for (int k = 0; k < s; ++k)
         C[t * s + k] = table_value(pr, pr.ctable, -2 - own_prog, a.wl[(size_t)lane * s + k]);
+  } else if (kChunks && own_prog >= 0) {  // the lane code now, the columns chunk by chunk
+    eval_program(pr, pa, own_prog, lane, n, s, 0, in, nullptr, -1, &own_slots);
   } else if (kProg && own_prog >= 0) {  // the lane's own row, for bounce_rows to read
     eval_program(pr, pa, own_prog, lane, n, s, s, in, own + t * s);
     row_src = own + t * s;
@@ -1276,7 +1319,21 @@ __device__ __forceinline__ void bounce_lane(const BounceArgs& a, const Geo& geo,
     a.o_nee[lane] = nee;
   }
   __syncthreads();
-  if (kStream) {
+  if constexpr (kChunks) {
+    // per chunk: the own rows' columns into their slots (a lane's RowOp
+    // pointed so that src[k] is column k), then the block's window
+    for (int from = 0; from < s; from += kChunk) {
+      const int width = min(kChunk, s - from);
+      if (own_prog >= 0) {
+        float* row = own + t * kStride - from;
+        eval_program(pr, pa, own_prog, lane, n, s, from + width, in, row, from, &own_slots);
+        ops[t].src = row;
+      }
+      __syncthreads();
+      bounce_rows<kRecord, true>(a, rec, ops, base, rows, from, width);
+      __syncthreads();
+    }
+  } else if (kStream) {
     bounce_rows<kRecord>(a, rec, ops, base, rows);
   } else {
     block_copy(a.o_brightness + sp, B, rows * s);
@@ -1409,18 +1466,19 @@ __device__ LampSample sample_lamp(const Sheet& sh, int li, V3 p, float u0, float
   return ls;
 }
 
-// Light sample j of a thread's NEE lane in the streamed form (nee_lane's
-// kStream instantiations, kGate and not kProg): the lamp sample, the
+// Light sample j of a thread's NEE lane in the streamed forms (nee_lane's
+// kStream instantiations): the lamp sample (with its uv in kProg), the
 // shadow query (on WideGeo every thread of the warp calls it, one without
 // a ray with cast false) and, where the lamp is seen, the emitter's pick
 // and the sample's factor l_prob, as nee_lane's loop computes them (a copy:
 // the loop calling a shared one changed the other instantiations'
 // registers). Returns whether the sample adds to the lane.
-template <class Geo, bool kDE>
+template <class Geo, bool kDE, bool kProg = false>
 __device__ __forceinline__ bool light_sample(const NeeArgs& a, const Geo& geo, const Sheet& sh,
-                                             const Programs& pr, int j, bool nee, int lane, V3 p,
-                                             V3 flip, int li, bool pairs, LampSample& ls,
-                                             float& l_prob, int& color_id, bool& l_dispersed) {
+                                             const Programs& pr, const ProgArgs& pa, int j, bool nee,
+                                             int lane, V3 p, V3 flip, int li, bool pairs,
+                                             LampSample& ls, float& l_prob, int& color_id,
+                                             bool& l_dispersed) {
   const int n = a.n, s = a.s;
   ls = {{0.f, 0.f, 1.f}, INFINITY, 0.0f, {0.f, 0.f, 1.f}, 0, false};
   if (nee) {
@@ -1434,7 +1492,7 @@ __device__ __forceinline__ bool light_sample(const NeeArgs& a, const Geo& geo, c
       u0 = u[0];
       u1 = u[1];
     }
-    ls = sample_lamp<false, true>(sh, li, p, u0, u1);
+    ls = sample_lamp<kProg, true>(sh, li, p, u0, u1);
   }
   const bool cast = nee && fmaxf(dot(flip, ls.dir), 0.0f) > 0.0f;
   if (!Geo::kWholeWarp && !cast) return false;
@@ -1456,7 +1514,9 @@ __device__ __forceinline__ bool light_sample(const NeeArgs& a, const Geo& geo, c
     const int eidx = sh.iat(M_MAT_EMIS_OFFSET, ls.mat) + pick;
     const int e_comp = sh.iat(M_EMIS_COMP, eidx);
     const int prob = sh.iat(M_COMP_PROB, e_comp);
-    mat_prob = eval_prob<true>(pr, prob, lane, n, s, ls.normal, ls.dir) * sh.at(M_EMIS_SELECTION, eidx);
+    mat_prob = (kProg ? eval_prob_code(pr, pa, prob, lane, n, s, {ls.normal, ls.dir, ls.u, ls.v})
+                      : eval_prob<true>(pr, prob, lane, n, s, ls.normal, ls.dir)) *
+               sh.at(M_EMIS_SELECTION, eidx);
     l_dispersed = sh.at(M_COMP_PROB_USES_WL, e_comp) > 0.5f;
     color_id = sh.iat(M_COMP_COLOR, e_comp);
   }
@@ -1514,6 +1574,34 @@ __device__ __forceinline__ void nee_rows(const NeeArgs& a, const int* lanes,
   }
 }
 
+// The kProg streamed NEE's spectral pass over one light sample's window of
+// columns from .. from + width - 1: word e is NEE lane lanes[e / width] at
+// column from + e % width. `ops` hold each lane's sample, `code` -1 adding
+// nothing, else 4 (color program + 1) + 2 own + all: `own` where the
+// program's code made the window's colours into the lane's slot of `rows`
+// ([BLOCK, OWN_STRIDE], column k at k - from), else the launch's values or
+// the baked table as nee_rows reads them; b + c * l_prob * rn as the
+// per-thread loop adds it.
+__device__ __forceinline__ void nee_prog_rows(const NeeArgs& a, const int* lanes, const NeeOp* ops,
+                                              const float* rows, int total, int from, int width) {
+  const int s = a.s, n = a.n, count = total * width;
+  const float inv_w = 1.0f / (float)width;
+  const Programs& pr = a.progs;
+  for (int e = threadIdx.x; e < count; e += BLOCK) {
+    const int l = span_row(e, inv_w), kw = e - l * width, k = from + kw, lane = lanes[l];
+    const NeeOp op = ops[l];
+    if (op.code < 0 || !(k == 0 || (op.code & 1))) continue;
+    const size_t i = (size_t)lane * s + k;
+    const int color = (op.code >> 2) - 1;
+    const float c = (op.code & 2)  ? rows[l * OWN_STRIDE + kw]
+                    : color < 0    ? 0.0f
+                    : pr.ctable    ? table_value(pr, pr.ctable, color, pr.wl[i])
+                                   : pr.cvals[((size_t)color * n + lane) * s + k];
+    const float rn = a.refl_nee[i];
+    a.brightness[i] = a.brightness[i] + c * op.l_prob * rn;
+  }
+}
+
 // tracer.trace_direct for the lanes the bounce kernel marked. Per light
 // sample: sample_lamp, a shadow query (the planes, the geometry policy, then
 // the DE shapes' t from the shadow march pass, which marched no further than
@@ -1559,9 +1647,17 @@ __device__ __forceinline__ void nee_rows(const NeeArgs& a, const int* lanes,
 // (lane, column) words (nee_rows), reading and writing each brightness
 // word once a chunk where the per-thread loop read and wrote it once per
 // light sample, every warp access a run of a lane's row.
+//
+// The kStream kProg instantiations (a kProg scene past MAX_ROW columns) keep
+// no [BLOCK, S] colour row: per light sample each NEE lane's thread makes
+// its sample (light_sample<kProg>) and, where the emitter's colour program
+// runs code, that program's lane code, leaving a NeeOp; then per chunk of
+// ROW_CHUNK columns the thread runs the column code into its [BLOCK,
+// OWN_STRIDE] slot and the block adds the window into its lanes' rows
+// (nee_prog_rows); only column 0 where no lane of the block takes all.
 template <class Geo, bool kDE, bool kProg, bool kGate, bool kStream>
 __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo, const ProgArgs& pa) {
-  static_assert(!kStream || (kGate && !kProg), "the streamed form is the gate form's");
+  static_assert(!kStream || kGate, "the streamed forms are the gate form's and the kProg form's");
   __shared__ int lanes[BLOCK];             // the block's NEE lanes, in lane order
   __shared__ int warp_count[BLOCK / 32];  // NEE lanes per warp
   // kProg: each thread's row of its lamp's colour program, the block's
@@ -1581,7 +1677,58 @@ __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo, const
   }
   if (mine) lanes[offset + __popc(marked & ((1u << lid) - 1u))] = base + t;
   __syncthreads();
-  if constexpr (kStream) {
+  if constexpr (kStream && kProg) {
+    __shared__ NeeOp ops[BLOCK];
+    if (total == 0) return;
+    const bool nee = t < total;
+    const bool run = Geo::kWholeWarp ? t < ((total + 31) & ~31) : nee;
+    float* row = nee_smem + pa.own_off + t * OWN_STRIDE;
+    for (int j = 0; j < a.light_samples; ++j) {
+      int g = -1, slots = 0;  // the sample's colour program where its code makes the row
+      bool all = false;
+      ProgIn in = {};
+      const int lane = nee ? lanes[t] : 0;
+      if (run) {
+        const Sheet sh = a.sheet;
+        const Programs pr = a.progs;
+        const V3 p = nee ? load3(a.position, lane) : V3{0.f, 0.f, 0.f};
+        const V3 flip = nee ? load3(a.flip, lane) : V3{0.f, 0.f, 0.f};
+        const int li = nee ? a.lamp_idx[lane] : 0;
+        const bool pairs = (reinterpret_cast<uintptr_t>(a.u_nee) & 7) == 0;
+        LampSample ls;
+        float l_prob;
+        int color_id;
+        bool l_dispersed;
+        NeeOp op = {0.0f, -1};
+        if (light_sample<Geo, kDE, true>(a, geo, sh, pr, pa, j, nee, lane, p, flip, li, pairs, ls,
+                                         l_prob, color_id, l_dispersed)) {
+          const bool colored = color_id >= 0 && color_id < pr.n_color;
+          all = a.aux_alive[lane] && !l_dispersed;
+          if (colored && color_code(pr, pa, color_id, g)) {
+            // the emitter's colour at the lamp sample (tracer._direct_sample's
+            // inputs: the surface normal, or -dir on a point lamp)
+            in = {ls.is_shape ? ls.normal : -ls.dir, ls.dir, ls.u, ls.v};
+            eval_program(pr, pa, g, lane, n, s, 0, in, nullptr, -1, &slots);
+          } else {
+            g = -1;
+          }
+          op = {l_prob, 4 * (colored ? color_id + 1 : 0) + (g >= 0 ? 2 : 0) + (all ? 1 : 0)};
+        }
+        if (nee) ops[t] = op;
+      }
+      const int cols = __syncthreads_or(nee && all) ? s : 1;
+      for (int from = 0; from < cols; from += ROW_CHUNK) {
+        const int width = min(ROW_CHUNK, cols - from);
+        if (g >= 0 && (from == 0 || all))
+          eval_program(a.progs, pa, g, lane, n, s, from + (all ? width : 1), in, row - from, from,
+                       &slots);
+        __syncthreads();
+        nee_prog_rows(a, lanes, ops, nee_smem + pa.own_off, total, from, width);
+        __syncthreads();
+      }
+    }
+    return;
+  } else if constexpr (kStream) {
     // The streamed form: per chunk of light samples each NEE lane's thread
     // leaves its samples' NeeOps, then the block adds them into its lanes'
     // rows (nee_rows); no thread leaves before the block's last barrier.
@@ -1607,7 +1754,7 @@ __device__ __forceinline__ void nee_lane(const NeeArgs& a, const Geo& geo, const
           int color_id;
           bool l_dispersed;
           NeeOp op = {0.0f, -1};
-          if (light_sample<Geo, kDE>(a, geo, sh, pr, j0 + j, nee, lane, p, flip, li, pairs, ls,
+          if (light_sample<Geo, kDE>(a, geo, sh, pr, pa, j0 + j, nee, lane, p, flip, li, pairs, ls,
                                      l_prob, color_id, l_dispersed)) {
             const bool colored = color_id >= 0 && color_id < pr.n_color;
             op = {l_prob, 2 * (colored ? color_id + 1 : 0) + (aux && !l_dispersed ? 1 : 0)};
@@ -2139,10 +2286,10 @@ __global__ void __launch_bounds__(BLOCK) dense_shadow_kernel(const ShadowArgs a)
 // more than MAX_ROW spectral columns; every kProg one is also kGate. Past
 // MAX_ROW columns a gate scene runs the kStream ones (bounce_rows,
 // nee_rows); at MAX_ROW or fewer the kGate code stages its rows as before.
-template <bool kDE, bool kRecord, bool kProg, bool kGate, bool kStream>
+template <bool kDE, bool kRecord, bool kProg, bool kGate, bool kStream, bool kWhole = false>
 __global__ void __launch_bounds__(BLOCK)
     dense_bounce_kernel(const BounceArgs a, const Record rec, const ProgArgs pa) {
-  bounce_lane<DenseGeo, kDE, kRecord, kProg, kGate, kStream>(a, DenseGeo{}, rec, pa);
+  bounce_lane<DenseGeo, kDE, kRecord, kProg, kGate, kStream, kWhole>(a, DenseGeo{}, rec, pa);
 }
 
 // A on a dense scene with DE shapes asks for 8 resident blocks (at most 64
@@ -2154,7 +2301,7 @@ template <>
 __global__ void __launch_bounds__(BLOCK, 8)
     dense_bounce_kernel<true, true, false, true, true>(const BounceArgs a, const Record rec,
                                                        const ProgArgs pa) {
-  bounce_lane<DenseGeo, true, true, false, true, true>(a, DenseGeo{}, rec, pa);
+  bounce_lane<DenseGeo, true, true, false, true, true, false>(a, DenseGeo{}, rec, pa);
 }
 
 template <bool kDE, bool kProg, bool kGate, bool kStream>
@@ -2179,10 +2326,10 @@ __global__ void __launch_bounds__(BLOCK, 6)
   nee_lane<DenseGeo, true, true, true, false>(a, DenseGeo{}, pa);
 }
 
-template <bool kDE, bool kRecord, bool kProg, bool kGate, bool kStream>
+template <bool kDE, bool kRecord, bool kProg, bool kGate, bool kStream, bool kWhole = false>
 __global__ void __launch_bounds__(BLOCK)
     wide_bounce_kernel(const BounceArgs a, const WideGeo geo, const Record rec, const ProgArgs pa) {
-  bounce_lane<WideGeo, kDE, kRecord, kProg, kGate, kStream>(a, geo, rec, pa);
+  bounce_lane<WideGeo, kDE, kRecord, kProg, kGate, kStream, kWhole>(a, geo, rec, pa);
 }
 
 template <bool kDE, bool kProg, bool kGate, bool kStream>
@@ -2494,11 +2641,13 @@ enum { FORM_SIMPLE = 0, FORM_PROG = 1, FORM_GATE = 2 };
 #define WITH_STACK(OWN) ((OWN) + STACK_BYTES)
 // a kernel's instantiation for the scene: kDE from n_de (launch_lanes), kProg
 // from `form`; the bounce and NEE kernels' kGate too, and kStream where a
-// gate scene has more than MAX_ROW spectral columns (PICK_GATE, STREAM)
+// gate or kProg scene has more than MAX_ROW spectral columns (PICK_GATE,
+// WIDE; the kProg ones make their own rows in chunks)
 #define PICK(K, ...) (form == FORM_PROG ? &K<__VA_ARGS__, true> : &K<__VA_ARGS__, false>)
-#define STREAM (form == FORM_GATE && s > MAX_ROW)
+#define WIDE (s > MAX_ROW)
+#define STREAM (form == FORM_GATE && WIDE)
 #define PICK_GATE(K, ...)                                                                       \
-  (form == FORM_PROG   ? &K<__VA_ARGS__, true, true, false>                                     \
+  (form == FORM_PROG   ? (WIDE ? &K<__VA_ARGS__, true, true, true> : &K<__VA_ARGS__, true, true, false>) \
    : STREAM            ? &K<__VA_ARGS__, false, true, true>                                     \
    : form == FORM_GATE ? &K<__VA_ARGS__, false, true, false>                                    \
                        : &K<__VA_ARGS__, false, false, false>)
@@ -2512,18 +2661,28 @@ enum { FORM_SIMPLE = 0, FORM_PROG = 1, FORM_GATE = 2 };
   const Record rec = {r_position, r_normal,   r_brdf,       r_diffuse,   r_dispersed, r_recorded, \
                       r_miss,     r_color_prob, r_color_prog, r_path_prob, r_reflected}
 
+// the floats of a kProg block's own colour rows a lane: the whole row at
+// S <= MAX_ROW, a chunk's slot past it (STRIDE)
+#define OWN_FLOATS(STRIDE) (WIDE ? (STRIDE) : s)
 // a NEE kernel block's own dynamic shared memory: the kProg instantiations'
-// colour rows, [BLOCK, S] floats
-#define NEE_SMEM (form == FORM_PROG ? (size_t)BLOCK * s * sizeof(float) : 0)
+// colour rows, [BLOCK, OWN_FLOATS] floats
+#define NEE_SMEM (form == FORM_PROG ? (size_t)BLOCK * OWN_FLOATS(OWN_STRIDE) * sizeof(float) : 0)
 // a bounce kernel block's own dynamic shared memory: the staged rows
-// (bounce_smem_bytes) or, in the streamed gate form, stream_smem_bytes
-#define BOUNCE_SMEM (STREAM ? stream_smem_bytes(n_de > 0) : bounce_smem_bytes(s, n_de > 0))
+// (bounce_smem_bytes) or, in the streamed forms, stream_smem_bytes (the
+// kProg one with its chunks' slots)
+#define BOUNCE_SMEM                                                                            \
+  (form == FORM_PROG && WIDE ? stream_smem_bytes(n_de > 0, OWN_STRIDE)                        \
+   : STREAM                  ? stream_smem_bytes(n_de > 0)                                    \
+                             : bounce_smem_bytes(s, n_de > 0))
 // the kRecord launchers' instantiation: a streamed one at any S, the kProg
-// form's (with its own colour rows) on a kProg scene, else the gate form's
-// (which a simple scene runs as it is: it reads no gate table there)
-#define PICK_RECORD(K, DE) \
-  (form == FORM_PROG ? &K<DE, true, true, true, true> : &K<DE, true, false, true, true>)
-#define RECORD_SMEM stream_smem_bytes(n_de > 0, form == FORM_PROG ? s : 0)
+// form's (with its own colour rows, whole at S <= MAX_ROW, kWhole) on a
+// kProg scene, else the gate form's (which a simple scene runs as it is: it
+// reads no gate table there)
+#define PICK_RECORD(K, DE)                                                                     \
+  (form != FORM_PROG ? &K<DE, true, false, true, true>                                         \
+   : WIDE            ? &K<DE, true, true, true, true>                                          \
+                     : &K<DE, true, true, true, true, true>)
+#define RECORD_SMEM stream_smem_bytes(n_de > 0, form == FORM_PROG ? OWN_FLOATS(RECORD_STRIDE) : 0)
 
 int pyrite_dense_bounce(BOUNCE_PARAMS, PROG_PARAMS, void* stream) {
   BOUNCE_ARGS;
@@ -2693,7 +2852,8 @@ int pyrite_bounce_occupancy(int s, int stack, int* blocks) {
 
 // The dynamic shared memory a bounce kernel block of the scene's `form`
 // takes at S spectral columns, with (`de`) or without DE shapes, less the
-// kProg program stack: what the launchers pass (BOUNCE_SMEM).
+// kProg program stack: what the launchers pass (BOUNCE_SMEM;
+// kernels_dense.bounce_smem_bytes mirrors it, with the stack).
 int pyrite_bounce_smem(int s, int de, int form) {
   const int n_de = de;
   return (int)BOUNCE_SMEM;
@@ -2705,6 +2865,9 @@ int pyrite_bounce_record_smem(int s, int de, int form) {
   const int n_de = de;
   return (int)RECORD_SMEM;
 }
+
+// The same for the NEE launchers (NEE_SMEM; kernels_dense.nee_smem_bytes).
+int pyrite_nee_smem(int s, int form) { return (int)NEE_SMEM; }
 
 // The march passes (march_de_kernel over BounceRays / ShadowRays): `n_de`
 // shapes, `de_steps` and `de_omega` as TraceConfig.max_de_steps and

@@ -30,7 +30,11 @@
 // words. One thread makes one lane's draws; the [N, 3] and [N, S + 5]
 // outputs go through shared memory so that the block stores them as
 // contiguous float4 runs, and u_nee [ls, N, 4] is one float4 per lane and
-// light sample.
+// light sample. A camera row of more than CAM_STAGED words is not staged:
+// the block's threads take its rows' Philox blocks in turn, consecutive
+// threads on consecutive blocks of a row, each storing its four words
+// straight, so a block's shared memory does not grow with S; a word's value
+// is its key's, whichever thread makes it.
 
 #include "common.cuh"
 
@@ -77,12 +81,22 @@ struct DrawArgs {
   int width, take;
 };
 
-// The words a block stages: its lanes' camera rows, [BLOCK, S + 5], and
-// u_scatter, [BLOCK, 3] (stage_bytes, the kernel's dynamic shared memory).
+// The most words of a lane's camera row a block stages (S <= 87): the
+// rows a block stages fit the 48 KiB it gets without opting in.
+constexpr int CAM_STAGED = 92;
+
+// The words a block stages: its lanes' camera rows, [BLOCK, S + 5], where
+// they are staged, and u_scatter, [BLOCK, 3] (stage_bytes, the kernel's
+// dynamic shared memory, at most 47,104 bytes; rng.draws_smem_bytes
+// mirrors it).
 __host__ __forceinline__ size_t stage_bytes(int s_cam) {
-  return sizeof(float) * BLOCK * (size_t)(s_cam + 5 > 3 ? s_cam + 5 : 3);
+  const int w = s_cam + 5 <= CAM_STAGED ? s_cam + 5 : 3;
+  return sizeof(float) * BLOCK * (size_t)(w > 3 ? w : 3);
 }
 
+// kStraight: camera rows of more than CAM_STAGED words, stored straight;
+// an instantiation of its own, so that the staging one keeps its registers.
+template <bool kStraight>
 __global__ void __launch_bounds__(BLOCK) philox_draws_kernel(const DrawArgs a) {
   extern __shared__ __align__(16) float stage[];
   const int base = blockIdx.x * BLOCK;
@@ -119,16 +133,31 @@ __global__ void __launch_bounds__(BLOCK) philox_draws_kernel(const DrawArgs a) {
   if (a.cam_out) {  // the camera draws [N, S + 5], bounce 0; zeros off the mask
     const int w = a.s_cam + 5;
     const bool drawn = in_range && (!a.cam_mask || a.cam_mask[lane]);
-    if (in_range)
-      for (int b = 0; 4 * b < w; ++b) {
-        const uint4 x = drawn ? philox4x32_10(
-            make_uint4(pixel, sample, 0u, ((unsigned)P_CAMERA << 16) | b), a.k0, a.k1)
-                              : make_uint4(0u, 0u, 0u, 0u);
-        for (int q = 0; q < 4 && 4 * b + q < w; ++q)
-          stage[threadIdx.x * w + 4 * b + q] = uniform(word(x, q));
+    if constexpr (!kStraight) {  // the rows staged
+      if (in_range)
+        for (int b = 0; 4 * b < w; ++b) {
+          const uint4 x = drawn ? philox4x32_10(
+              make_uint4(pixel, sample, 0u, ((unsigned)P_CAMERA << 16) | b), a.k0, a.k1)
+                                : make_uint4(0u, 0u, 0u, 0u);
+          for (int q = 0; q < 4 && 4 * b + q < w; ++q)
+            stage[threadIdx.x * w + 4 * b + q] = uniform(word(x, q));
+        }
+      __syncthreads();
+      block_copy(a.cam_out + (size_t)base * w, stage, rows * w);
+    } else {  // a Philox block a thread, its words stored straight: no row staged
+      const int nb = (w + 3) / 4;
+      for (int i = threadIdx.x; i < rows * nb; i += BLOCK) {
+        const int r = i / nb, b = i - r * nb, l = base + r;
+        const unsigned px = a.pixel ? (unsigned)a.pixel[l] : a.pixel0 + (unsigned)(l % a.n_pix);
+        const unsigned sm = a.pixel ? (unsigned)a.sample[l] : a.sample0 + (unsigned)(l / a.n_pix);
+        const uint4 x = !a.cam_mask || a.cam_mask[l]
+                            ? philox4x32_10(make_uint4(px, sm, 0u, ((unsigned)P_CAMERA << 16) | b),
+                                            a.k0, a.k1)
+                            : make_uint4(0u, 0u, 0u, 0u);
+        float* dst = a.cam_out + (size_t)l * w + 4 * b;
+        for (int q = 0; q < 4 && 4 * b + q < w; ++q) dst[q] = uniform(word(x, q));
       }
-    __syncthreads();
-    block_copy(a.cam_out + (size_t)base * w, stage, rows * w);
+    }
     if (!a.out) return;
     __syncthreads();  // the bounce draws below stage u_scatter in the same buffer
   }
@@ -194,11 +223,14 @@ int pyrite_philox_draws(unsigned k0, unsigned k1, int n, int n_pix, unsigned pix
                       cam_out, out, pixel, sample, depth, cam_mask, words_out, purpose, width,
                       take};
   const size_t smem = stage_bytes(cam_out ? s_cam : 0);
-  if (smem > 48 * 1024)  // S > 91: past what a block gets without opting in
-    cudaFuncSetAttribute((const void*)philox_draws_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  philox_draws_kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, smem, (cudaStream_t)stream>>>(a);
+  const auto kernel = cam_out && s_cam + 5 > CAM_STAGED ? philox_draws_kernel<true>
+                                                        : philox_draws_kernel<false>;
+  kernel<<<(n + BLOCK - 1) / BLOCK, BLOCK, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
+
+// The dynamic shared memory a launch with camera draws of S columns passes
+// (stage_bytes; rng.draws_smem_bytes mirrors it).
+int pyrite_draws_smem(int s_cam) { return (int)stage_bytes(s_cam); }
 
 }  // extern "C"

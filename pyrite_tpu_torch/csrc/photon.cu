@@ -53,6 +53,11 @@
 //   warp in dynamic shared memory (gather_row), each entry touched only by
 //   the lane that owns it, written out as coalesced runs; a warp whose
 //   vertex is not valid writes its zeros and ends;
+// - past FRESH_CHUNK fresh wavelengths the row holds no fresh sums: the
+//   owning lanes add into the vertex's row of fresh_psum in device memory
+//   (zeroed first, each entry by its owner, so the adds keep their order),
+//   and a batch's fresh values go FRESH_CHUNK wavelengths at a time, so
+//   the row does not grow with K;
 // - no fast math: expf and logf-derived factors stay precise, and the
 //   build's --fmad=false keeps products rounded as the plain version's.
 
@@ -163,14 +168,24 @@ constexpr unsigned FULL = 0xffffffffu;
 // Pairs a warp's ring holds: a batch of 32 and the up to 31 before it.
 constexpr int PAIR_RING = 64;
 
+// The most fresh wavelengths a warp's row holds sums and a batch's values
+// of; past it the sums are the output's and the values go in chunks.
+constexpr int FRESH_CHUNK = 64;
+
 // 4-byte words of a warp's row in dynamic shared memory: B acc bins, B
-// cnt bins, K fresh sums, CELL_CAP pairs' K fresh values at a stride of
-// K | 1 and the ring of PAIR_RING photon indices
+// cnt bins, K fresh sums (none past FRESH_CHUNK), CELL_CAP pairs' fresh
+// values of a chunk of kc = min(K, FRESH_CHUNK) wavelengths at a stride of
+// kc | 1 and the ring of PAIR_RING photon indices
 // (kernels_dense.gather_smem_bytes).
 __host__ __device__ __forceinline__ size_t gather_row(int bins, int k) {
-  return 2 * (size_t)bins + k + (size_t)CELL_CAP * (k | 1) + PAIR_RING;
+  const int kc = k < FRESH_CHUNK ? k : FRESH_CHUNK;
+  return 2 * (size_t)bins + (k <= FRESH_CHUNK ? k : 0) + (size_t)CELL_CAP * (kc | 1) + PAIR_RING;
 }
 
+// kChunks: past FRESH_CHUNK fresh wavelengths (the output row's sums, the
+// values a chunk at a time); an instantiation of its own, so that the
+// other keeps its registers (64, no spill).
+template <bool kChunks>
 __global__ void __launch_bounds__(32 * GATHER_WARPS, GATHER_MIN_BLOCKS)
     photon_gather_kernel(const GatherArgs a) {
   extern __shared__ __align__(16) float gather_smem[];
@@ -193,15 +208,16 @@ __global__ void __launch_bounds__(32 * GATHER_WARPS, GATHER_MIN_BLOCKS)
     }
     return;
   }
-  // the warp's row: B acc bins, B cnt bins and K fresh sums, entry j
-  // touched only by lane j % 32; a batch's fresh values, those of its r-th
+  // the warp's row: B acc bins, B cnt bins and K fresh sums (past
+  // FRESH_CHUNK the output row's), entry j touched only by lane j % 32; a
+  // batch's fresh values of a chunk of kc wavelengths, those of its r-th
   // fresh pair at r * ks (ks odd: no bank conflict); a ring of PAIR_RING
   // pairs' photon indices in scan order
-  const int ks = k | 1;
+  const int kc = kChunks ? FRESH_CHUNK : k, ks = kc | 1;
   float* const acc = gather_smem + (size_t)w * gather_row(bins, k);
   float* const cnt = acc + bins;
-  float* const fr = cnt + bins;
-  float* const fs = fr + k;
+  float* const fr = kChunks ? out_fr : cnt + bins;
+  float* const fs = cnt + bins + (kChunks ? 0 : k);
   int* const ring = (int*)(fs + CELL_CAP * ks);
   for (int j = l; j < bins; j += 32) {
     acc[j] = 0.0f;
@@ -267,27 +283,33 @@ __global__ void __launch_bounds__(32 * GATHER_WARPS, GATHER_MIN_BLOCKS)
     if (clears) {
       const int nc = __popc(clears);
       fcnt += nc;
-      for (int item0 = 0; item0 < nc * k; item0 += 32) {
-        const int item = item0 + l, rank = item / k, kk = item - rank * k;
-        unsigned nth = clears;  // the pair's lane: the rank-th set bit
-        for (int t = 0; t < rank; ++t) nth &= nth - 1;
-        const int src = item < nc * k ? __ffs(nth) - 1 : 0;
-        const int is = __shfl_sync(FULL, here, src);
-        const float gs = __shfl_sync(FULL, gw, src);
-        if (item < nc * k) {
-          const size_t pm = (size_t)is * a.m;
-          const float pf =
-              a.exact ? chain_eval(a.p_counts + pm, __ldg(a.p_scalar + is),
-                                   a.logff + (vk + kk) * a.m, a.negff + (vk + kk) * a.m,
-                                   a.zeroff + (vk + kk) * a.m, a.m)
-                      : interp(a.p_power + (size_t)is * a.pcols + 1, bins, a.lo, a.d_film,
-                               __ldg(a.lam_f + vk + kk));
-          fs[rank * ks + kk] = pf * gs;
+      // the wavelengths k0 .. k0 + kc - 1 at a time, kChunks (else all K
+      // in one pass): each sum's adds stay in scan order
+      for (int k0 = 0, first = 1; kChunks ? k0 < k : first; k0 += kc, first = 0) {
+        const int kn = kChunks ? min(kc, k - k0) : k;
+        for (int item0 = 0; item0 < nc * kn; item0 += 32) {
+          const int item = item0 + l, rank = item / kn, kk = k0 + item - rank * kn;
+          unsigned nth = clears;  // the pair's lane: the rank-th set bit
+          for (int t = 0; t < rank; ++t) nth &= nth - 1;
+          const int src = item < nc * kn ? __ffs(nth) - 1 : 0;
+          const int is = __shfl_sync(FULL, here, src);
+          const float gs = __shfl_sync(FULL, gw, src);
+          if (item < nc * kn) {
+            const size_t pm = (size_t)is * a.m;
+            const float pf =
+                a.exact ? chain_eval(a.p_counts + pm, __ldg(a.p_scalar + is),
+                                     a.logff + (vk + kk) * a.m, a.negff + (vk + kk) * a.m,
+                                     a.zeroff + (vk + kk) * a.m, a.m)
+                        : interp(a.p_power + (size_t)is * a.pcols + 1, bins, a.lo, a.d_film,
+                                 __ldg(a.lam_f + vk + kk));
+            fs[rank * ks + kk - k0] = pf * gs;
+          }
         }
+        __syncwarp();
+        for (int rank = 0; rank < nc; ++rank)
+          for (int kk = k0 + l; kk < k0 + kn; kk += 32) fr[kk] += fs[rank * ks + kk - k0];
+        if (kChunks) __syncwarp();  // the chunk's values read before the next chunk's are written
       }
-      __syncwarp();
-      for (int rank = 0; rank < nc; ++rank)
-        for (int kk = l; kk < k; kk += 32) fr[kk] += fs[rank * ks + kk];
     }
     __syncwarp();  // the ring's entries and the values read before they are rewritten
   };
@@ -354,12 +376,19 @@ __global__ void __launch_bounds__(32 * GATHER_WARPS, GATHER_MIN_BLOCKS)
     out_acc[jj] = acc[jj];
     out_cnt[jj] = cnt[jj];
   }
-  for (int jj = l; jj < k; jj += 32) out_fr[jj] = fr[jj];
+  if (!kChunks)
+    for (int jj = l; jj < k; jj += 32) out_fr[jj] = fr[jj];
 }
 
 }  // namespace
 
 extern "C" {
+
+// The dynamic shared memory a launch of `bins` film bins and `k` fresh
+// wavelengths passes (kernels_dense.gather_smem_bytes mirrors it).
+int pyrite_gather_smem(int bins, int k) {
+  return (int)(sizeof(float) * GATHER_WARPS * gather_row(bins, k));
+}
 
 // photon_gather_kernel over `n` camera vertices against a map of `p`
 // photons (GatherArgs, in its order), one warp a vertex in blocks of
@@ -384,12 +413,11 @@ int pyrite_photon_gather(
                         exact,    pcols,    radius,  rr,     lo,      bin_scale,  d_film,
                         d_grid};
   if (n <= 0) return (int)cudaGetLastError();
-  const size_t smem = sizeof(float) * GATHER_WARPS * gather_row(bins, k);
+  const size_t smem = pyrite_gather_smem(bins, k);
+  const auto kernel = k > FRESH_CHUNK ? photon_gather_kernel<true> : photon_gather_kernel<false>;
   if (smem > 48 * 1024)
-    cudaFuncSetAttribute((const void*)photon_gather_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  photon_gather_kernel<<<(n + GATHER_WARPS - 1) / GATHER_WARPS, 32 * GATHER_WARPS, smem,
-                         (cudaStream_t)stream>>>(a);
+    cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  kernel<<<(n + GATHER_WARPS - 1) / GATHER_WARPS, 32 * GATHER_WARPS, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

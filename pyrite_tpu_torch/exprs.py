@@ -572,7 +572,7 @@ def _column_part(code, start, hoisted):
 
 _BINARY_OPS = {"add": OP_ADD, "sub": OP_SUB, "mul": OP_MUL, "div": OP_DIV}
 _PROMOTE = {(NUMBER, RGB): OP_SPLAT_RGB, (NUMBER, VECTOR): OP_SPLAT_VEC, (RGB, VECTOR): OP_RGB_TO_VEC}
-PROGRAMS_NOT_PORTED = "(ROADMAP.md queue 1 item 7: the rest of the scene gate)"
+PROGRAMS_NOT_PORTED = "(ROADMAP.md queue 1 item 15: the gate's last refusals)"
 
 
 def _inline_number(node):

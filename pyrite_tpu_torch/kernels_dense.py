@@ -75,9 +75,10 @@ GATHER_ROW = 16  # csrc/bounce.cu MAX_ROW: the widest row the simple code stages
 FORM_SIMPLE, FORM_PROG, FORM_GATE = 0, 1, 2
 # The shared memory one block may take on an H100 once the launcher opts in
 # (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KiB), less 1 KiB for the
-# kernels' static arrays. The kernels size their dynamic shared memory by
-# S and by the scene's program stack (smem_bytes); the gate refuses a
-# scene whose kernels would need more (max_spectrum_samples).
+# kernels' static arrays. No kernel's dynamic shared memory grows with S
+# past a fixed bound (launch_smem: the launchers' own measures); it grows
+# with the program stack, the photon film's bins and the DE shapes, which
+# the gate refuses past what a block holds.
 SMEM_PER_BLOCK = 227 * 1024 - 1024
 # march_de_kernel stages every DE shape of the scene in its dynamic shared
 # memory (csrc/march_de.cuh, sizeof(DeShape) bytes a shape; launch_march
@@ -86,6 +87,11 @@ DE_SHAPE_BYTES = 96
 MAX_DE_SHAPES = SMEM_PER_BLOCK // DE_SHAPE_BYTES
 _DE_SLOT_BYTES = 4 * (BLOCK // 32) * (32 * 3 + 32 + 32 * 6)  # csrc/bounce.cu DE_SLOT_FLOATS
 _ROW_OP_FLOATS = 8  # csrc/bounce.cu sizeof(RowOp) / 4 (a pointer and five words, 8-aligned)
+# csrc/bounce.cu OWN_STRIDE and RECORD_STRIDE: a kProg block's slot a lane
+# for a chunk of its own colour row past GATHER_ROW columns, of ROW_CHUNK =
+# 16 columns (the simple renderer's bounce, the NEE) or RECORD_CHUNK = 128
+# (the kRecord bounce)
+_OWN_STRIDE, _RECORD_STRIDE = 17, 129
 _GEO_ROWS = 22  # rows 0..21: primitive channels (see build_pack)
 
 # A DE shape's parameters, in the order of csrc/march_de.cuh's de_shape:
@@ -164,12 +170,11 @@ _LAUNCHERS.update({prog_name(k): _LAUNCHERS[k] for k in (
 # photon_gather_kernel. The kProg instantiations count apart.
 launches = dict.fromkeys(_LAUNCHERS, 0)
 
-_GATE = "(ROADMAP.md queue 1 item 7: the rest of the scene gate)"
-_PHOTON = "(ROADMAP.md queue 1 item 10: photon mapping's rows)"
+_GATE = exprs.PROGRAMS_NOT_PORTED  # ROADMAP.md queue 1 item 15: the gate's last refusals
 
 
-def _refuse(what, item=_GATE):
-    raise NotImplementedError(f"{what}: not ported to pyrite_tpu_torch yet {item}")
+def _refuse(what):
+    raise NotImplementedError(f"{what}: not ported to pyrite_tpu_torch yet {_GATE}")
 
 
 def estimator_fields(est):
@@ -196,17 +201,42 @@ def de_fields(shape):
     return np.concatenate([estimator_fields(shape.estimator), np.asarray(bounds, np.float32)])
 
 
-def smem_bytes(s, de, stack):
-    """The gate's measure of the dynamic shared memory a block of the
-    scene's kernels takes at S spectral columns (csrc/bounce.cu): the
-    bounce kernels' staged lane state, [BLOCK, 4 S + 12] floats, with a
-    warp's DE probe slots on a scene with DE shapes, or on a kProg scene the
-    NEE kernel's colour rows, [BLOCK, S] floats; and on a kProg scene
-    (``stack`` values, else 0) the program stack, [stack, BLOCK] float4
-    values. It still counts the staged kProg rows, which the camera walk
-    no longer stages (record_smem_bytes; ROADMAP.md item 7)."""
-    bounce = 4 * BLOCK * (4 * s + 12) + (_DE_SLOT_BYTES if de else 0)
-    return max(bounce, 4 * BLOCK * s) + 16 * BLOCK * stack
+def _own_floats(s, stride=_OWN_STRIDE):
+    """csrc/bounce.cu OWN_FLOATS: the floats of a kProg block's own colour
+    rows a lane, the whole row at S <= GATHER_ROW, a chunk's slot past it."""
+    return s if s <= GATHER_ROW else stride
+
+
+def _stack_bytes(form, stack):
+    """The kProg program stack a block, [stack, BLOCK] float4 (STACK_BYTES)."""
+    return 16 * BLOCK * stack if form == FORM_PROG else 0
+
+
+def _stream_bytes(de, own=0):
+    """csrc/bounce.cu stream_smem_bytes: [BLOCK, 12] floats of vectors, a
+    row op a lane and ``own`` floats a lane, with a warp's DE probe slots."""
+    return 4 * BLOCK * (12 + _ROW_OP_FLOATS + own) + (_DE_SLOT_BYTES if de else 0)
+
+
+def bounce_smem_bytes(s, de, form, stack):
+    """The dynamic shared memory of a block of the simple renderer's bounce
+    kernels at S spectral columns, as their launchers pass it
+    (csrc/bounce.cu BOUNCE_SMEM, plus the program stack): at S <=
+    GATHER_ROW the staged rows, [BLOCK, 4 S + 12] floats; past it the
+    streamed forms, the kProg one with a chunk's slot of its own rows a
+    lane; with a warp's DE probe slots on a scene with DE shapes."""
+    if s > GATHER_ROW and form != FORM_SIMPLE:
+        own = _stream_bytes(de, _OWN_STRIDE if form == FORM_PROG else 0)
+    else:
+        own = 4 * BLOCK * (4 * s + 12) + (_DE_SLOT_BYTES if de else 0)
+    return own + _stack_bytes(form, stack)
+
+
+def nee_smem_bytes(s, form, stack):
+    """The same for the NEE kernels (csrc/bounce.cu NEE_SMEM): on a kProg
+    scene the colour rows, [BLOCK, S] floats at S <= GATHER_ROW and a
+    chunk's slot past it, and the program stack; none elsewhere."""
+    return 4 * BLOCK * _own_floats(s) + _stack_bytes(form, stack) if form == FORM_PROG else 0
 
 
 def record_smem_bytes(s, de, form, stack):
@@ -215,37 +245,55 @@ def record_smem_bytes(s, de, form, stack):
     (csrc/bounce.cu RECORD_SMEM, plus the kProg program stack of ``stack``
     values): every form streams its rows, [BLOCK, 12] floats of vectors
     and a row op a lane, [BLOCK, 12 + 8]; a FORM_PROG scene's block keeps
-    each lane's own colour row besides ([BLOCK, 12 + 8 + S]); with a warp's
-    DE probe slots on a scene with DE shapes."""
-    prog = form == FORM_PROG
-    floats = 12 + _ROW_OP_FLOATS + (s if prog else 0)
-    return 4 * BLOCK * floats + (_DE_SLOT_BYTES if de else 0) + (16 * BLOCK * stack if prog else 0)
+    each lane's own colour row besides, whole at S <= GATHER_ROW ([BLOCK,
+    12 + 8 + S]) and a chunk's slot past it ([BLOCK, 12 + 8 + 129]); with a
+    warp's DE probe slots on a scene with DE shapes."""
+    own = _own_floats(s, _RECORD_STRIDE) if form == FORM_PROG else 0
+    return _stream_bytes(de, own) + _stack_bytes(form, stack)
 
 
-def max_spectrum_samples(de, stack):
-    """The most spectral columns the kernels take on a scene with (``de``)
-    or without DE shapes and a program stack of ``stack`` values (0 on a
-    scene that runs the simple instantiations): smem_bytes within
-    SMEM_PER_BLOCK (110 without either, 102 at a stack of 8)."""
-    s = 0
-    while smem_bytes(s + 1, de, stack) <= SMEM_PER_BLOCK:
-        s += 1
-    return s
+def lamp_smem_bytes(de, form, stack):
+    """The same for the lamp kernels (csrc/bounce.cu lamp_smem_bytes): a
+    warp's DE probe slots and the program stack, whatever S."""
+    return (_DE_SLOT_BYTES if de else 0) + _stack_bytes(form, stack)
+
+
+def launch_smem(widths, de, form, stack, bins=None):
+    """{kernel: bytes}: the most dynamic shared memory each kernel that a
+    scene's renderers launch passes, over the spectral ``widths`` they
+    launch at (S first; the photon renderer's S + G and 1 + B too), the
+    launchers' own measures: the bounce, NEE, kRecord and lamp kernels,
+    program_colors_kernel (its stack and a ring of 64 slots a warp), the
+    draws' camera rows at S (rng.draws_smem_bytes) and, given the photon film's
+    ``bins``, photon_gather_kernel (gather_smem_bytes at K = S). None of
+    them grows with S past a fixed bound."""
+    from .rng import draws_smem_bytes
+
+    out = {
+        "bounce": max(bounce_smem_bytes(w, de, form, stack) for w in widths),
+        "nee": max(nee_smem_bytes(w, form, stack) for w in widths),
+        "record": max(record_smem_bytes(w, de, form, stack) for w in widths),
+        "lamp": lamp_smem_bytes(de, form, stack),
+        "colors": 4 * (BLOCK // 32) * 64 + _stack_bytes(form, stack),
+        "draws": draws_smem_bytes(widths[0]),
+    }
+    if bins is not None:
+        out["gather"] = gather_smem_bytes(bins, widths[0])
+    return out
 
 
 def build_pack(scene, a):
     """Gate + packed scene sheet from the host (numpy) scene arrays ``a``.
 
-    Raises NotImplementedError for what the kernels do not take: a dense
-    scene of no primitive and no DE shape, lamps of an unknown type, more
-    spectrum samples (scene.spectrum_samples) than their shared memory
-    holds (max_spectrum_samples), and more DE shapes than the march
-    kernel's shared memory holds (MAX_DE_SHAPES). On a photon-mapping
-    project it checks the rows that renderer launches
-    (scene.photon_widths): its camera walk's S + G columns and its lamp
-    walk's against max_spectrum_samples, and the film's bins against
-    photon_gather_kernel's shared memory (gather_smem_bytes); these name
-    ROADMAP.md queue 1 item 10. A dense scene (at most
+    Raises NotImplementedError for what the kernels do not take (ROADMAP.md
+    queue 1 item 15): a dense scene of no primitive and no DE shape, lamps
+    of an unknown type, more DE shapes than the march kernel's shared
+    memory holds (MAX_DE_SHAPES) and, on a photon-mapping project, more
+    film bins than photon_gather_kernel's shared memory holds (its row of
+    2 B bins a warp); any spectral width S >= 1 is taken (launch_smem: no
+    kernel's shared memory grows with S past a fixed bound), the photon
+    renderer's S + G camera and 1 + B lamp columns too
+    (scene.photon_widths). A dense scene (at most
     scene.CLUSTER_THRESHOLD = 128 finite primitives) may have no finite
     primitive when it has a DE shape (the JAX package keeps DE scenes out
     of its dense pack and runs them in XLA). A table of more than 128
@@ -253,10 +301,9 @@ def build_pack(scene, a):
     consecutive sheet rows. Returns a dict with the [R, 128] sheet, the row
     indices (``meta``), the lowered programs (``programs``), whether the
     scene runs the kProg instantiations (``prog``), its ``form`` (FORM_*),
-    their program stack
-    (``stack``, values a thread; 0 on the simple ones), the most spectral
-    columns the kernels take (``max_s``) and the device tensors the kernels
-    read."""
+    their program stack (``stack``, values a thread; 0 on the simple
+    ones), each kernel's dynamic shared memory at the scene's widths
+    (``smem``, launch_smem) and the device tensors the kernels read."""
     clusters = scene.use_clusters
     n_de = len(scene.de_shapes)
     if not clusters and not (0 < scene.num_primitives <= 128 or scene.num_primitives == 0 < n_de):
@@ -270,28 +317,21 @@ def build_pack(scene, a):
     programs = exprs.KernelPrograms(scene, scene.resources)
     prog = not programs.simple
     stack = programs.stack_depth if prog else 0
-    max_s = max_spectrum_samples(n_de > 0, stack)
     s = scene.spectrum_samples
-    if not 1 <= s <= max_s:
-        _refuse(f"{s} spectrum samples (the kernels' shared memory holds 1 to {max_s} on this "
-                f"scene)")
+    if s < 1:
+        raise ValueError(f"{s} spectrum samples; a scene takes at least 1")
     if n_de > MAX_DE_SHAPES:
         _refuse(f"{n_de} DE shapes (the march kernel's shared memory holds {MAX_DE_SHAPES})")
-    widest = s
     photon = scene.photon_widths
-    if photon is not None:
-        widest = max(s, photon["camera"], photon["lamp"])
-        if widest > max_s:
-            _refuse(f"photon mapping launches rows of {widest} spectral columns (camera walk "
-                    f"{photon['camera']}, lamp walk {photon['lamp']}; the kernels' shared memory "
-                    f"holds 1 to {max_s} on this scene)", _PHOTON)
-        if gather_smem_bytes(photon["bins"], s) > SMEM_PER_BLOCK:
-            _refuse(f"a photon gather of {photon['bins']} film bins and {s} fresh wavelengths "
-                    "(photon_gather_kernel's shared memory holds "
-                    f"{gather_smem_bytes(photon['bins'], s)} of {SMEM_PER_BLOCK} bytes)", _PHOTON)
-    gate = bool(scene.directional_lamps) or widest > GATHER_ROW or (
+    widths = (s,) if photon is None else (s, photon["camera"], photon["lamp"])
+    gate = bool(scene.directional_lamps) or max(widths) > GATHER_ROW or (
         scene.color_bank_bakeable is not None or scene.prob_bank_bakeable is not None)
     form = FORM_PROG if prog else FORM_GATE if gate else FORM_SIMPLE
+    smem = launch_smem(widths, n_de > 0, form, stack, None if photon is None else photon["bins"])
+    if smem.get("gather", 0) > SMEM_PER_BLOCK:
+        _refuse(f"a photon gather of {photon['bins']} film bins (photon_gather_kernel's shared "
+                f"memory holds {smem['gather']} of {SMEM_PER_BLOCK} bytes)")
+    assert max(smem.values()) <= SMEM_PER_BLOCK, smem  # the stack is exprs.PROG_STACK_MAX's
 
     def row(values):
         out = np.zeros(SHEET_WIDTH, np.float32)
@@ -402,7 +442,7 @@ def build_pack(scene, a):
         "tex_info": torch.as_tensor(info, device=dev),
     }
     return {"sheet": sheet, "meta": meta, "programs": programs, "prog": prog, "form": form,
-            "stack": stack, "max_s": max_s, "tensors": tensors}
+            "stack": stack, "smem": smem, "tensors": tensors}
 
 
 def _primitive_rows(scene, a, row):
@@ -633,10 +673,8 @@ def _device(scene, wavelengths):
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels take CUDA tensors, not {dev}")
     n, s = wavelengths.shape
-    max_s = scene.dense_pack["max_s"]
-    if not 1 <= s <= max_s:
-        raise ValueError(f"{s} spectrum samples; the kernels take 1 to {max_s} on this scene "
-                         "(kernels_dense.max_spectrum_samples)")
+    if s < 1:
+        raise ValueError(f"{s} spectrum samples; the kernels take at least 1")
     return dev, n, s
 
 
@@ -1136,13 +1174,19 @@ def vertex_colors(scene, color_prog, valid, normal, incident, uv, wavelengths, b
 GATHER_WARPS = 4  # csrc/photon.cu GATHER_WARPS: warps a block of photon_gather_kernel
 
 
+FRESH_CHUNK = 64  # csrc/photon.cu FRESH_CHUNK: fresh wavelengths a warp's row holds
+
+
 def gather_smem_bytes(bins, k):
-    """photon_gather_kernel's dynamic shared memory a block: each warp's
-    row of its vertex's B acc bins, B cnt bins and K fresh sums, a batch of
-    32 pairs' K fresh values at a stride of K | 1 and a ring of 64 pairs'
-    photon indices, [GATHER_WARPS, 2 B + K + 32 (K | 1) + 64] 4-byte words
-    (csrc/photon.cu gather_row)."""
-    return 4 * GATHER_WARPS * (2 * bins + k + 32 * (k | 1) + 64)
+    """photon_gather_kernel's dynamic shared memory a block, as its launcher
+    passes it (csrc/photon.cu gather_row): each warp's row of its vertex's
+    B acc bins, B cnt bins and K fresh sums (none past FRESH_CHUNK: the
+    output row's), a batch of 32 pairs' fresh values of a chunk of kc =
+    min(K, FRESH_CHUNK) wavelengths at a stride of kc | 1 and a ring of 64
+    pairs' photon indices, [GATHER_WARPS, 2 B + (K or 0) + 32 (kc | 1) +
+    64] 4-byte words: flat in K past FRESH_CHUNK."""
+    kc = min(k, FRESH_CHUNK)
+    return 4 * GATHER_WARPS * (2 * bins + (k if k <= FRESH_CHUNK else 0) + 32 * (kc | 1) + 64)
 
 
 def photon_gather_args(spec, pm, q):

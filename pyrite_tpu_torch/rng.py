@@ -269,13 +269,23 @@ def _device(device):
     return dev
 
 
-def _camera_buffer(n, s, dev):
-    from .kernels_dense import BLOCK, SMEM_PER_BLOCK
+# csrc/draws.cu CAM_STAGED: the most words of a lane's camera row a block
+# stages (past it, each thread stores the words of a Philox block straight)
+CAM_STAGED = 92
 
-    # csrc/draws.cu stages a block's S + 5 words a lane in shared memory
-    most = SMEM_PER_BLOCK // (4 * BLOCK) - 5
-    if not 1 <= s <= most:
-        raise ValueError(f"{s} spectrum samples; philox_draws_kernel takes 1 to {most}")
+
+def draws_smem_bytes(s):
+    """philox_draws_kernel's dynamic shared memory with camera draws of S
+    columns (csrc/draws.cu stage_bytes): a block's [128, S + 5] camera
+    rows up to CAM_STAGED words, and at least its [128, 3] u_scatter;
+    1,536 bytes past S = 87."""
+    w = s + 5 if s + 5 <= CAM_STAGED else 3
+    return 4 * 128 * max(w, 3)
+
+
+def _camera_buffer(n, s, dev):
+    if s < 1:
+        raise ValueError(f"{s} spectrum samples; the camera draws take at least 1")
     return torch.empty((n, s + 5), dtype=torch.float32, device=dev)
 
 

@@ -472,7 +472,7 @@ def _gate_paths(directory):
     materials_300 and textures_deep at full count, de_130 at 64 x 32, and
     de_520 at 32 x 16: past the 512 shapes the march kernel's shared
     memory holds without opting in), with the flagship at S = 17, 33 and
-    110 (one column past 16 and 32, the gate's ceiling), terrain_24 at S =
+    110 (one column past 16 and 32, the gate's former ceiling), terrain_24 at S =
     32, the julia scene at 32 x 32 and S = 24, and flagship_s24_bdpt."""
     flagship = chip_smoke.scene_paths(directory, width=128, height=64, spectrum_samples=6,
                                       bounces=8)["flagship"]
@@ -584,8 +584,8 @@ def test_cuda_gate_bdpt_matches_plain_version(tmp_path, name):
 
 @pytest.mark.cuda
 def test_cuda_gate_draws_past_16_samples(tmp_path):
-    """philox_draws_kernel at S = 64 (the camera rows staged in shared
-    memory sized by S) bit for bit against the CPU."""
+    """philox_draws_kernel at S = 64 (camera rows of 69 words, staged
+    whole) bit for bit against the CPU."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     path = _gate_paths(str(tmp_path))["flagship_s64"]
@@ -755,3 +755,127 @@ def test_cuda_textures_photon_takes_the_streamed_record_form(tmp_path):
         for de in (0, 1):
             assert _build.load().pyrite_bounce_record_smem(s, de, kd.FORM_PROG) == (
                 kd.record_smem_bytes(s, de, kd.FORM_PROG, 0))
+
+
+# --- spectral widths past the kernels' old ceilings -------------------------------
+
+
+@pytest.fixture(scope="module")
+def wide_paths(tmp_path_factory):
+    """The scenes of chip_smoke.wide_paths, written once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return chip_smoke.wide_paths(str(tmp_path_factory.mktemp("wide")))
+
+
+@pytest.fixture(scope="module")
+def prog_staged(tmp_path_factory):
+    """The library built from csrc/ with the kProg bounce and NEE staged at
+    any S (chip_smoke.PROG_STAGED_FORM: the form the chunks replace past
+    16 columns)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pyrite_tpu_torch import _build
+
+    libs = chip_smoke.build_variants(str(tmp_path_factory.mktemp("prog_staged")),
+                                     {"staged": chip_smoke.PROG_STAGED_FORM}, tag="wide-prog")
+    return dict(libs, build=(_build.load(), _build.build_log))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["textures_s128", "textures_deep_s128"])
+def test_cuda_prog_kernels_past_16_columns_match_plain_version(wide_paths, name):
+    """The kProg bounce and NEE at S = 128 (their chunked forms: a lane's own
+    colour row made and streamed 16 columns at a time) against the plain
+    version (chip_smoke.check_kernels: flags exact, vectors rtol 1e-3 /
+    atol 1e-4, no divergent lane), then at bounces 0 and 1 on the main
+    path's wavefront (chip_smoke.wide_rows_case), whose digests the same
+    launches repeated give again."""
+    worst = chip_smoke.check_kernels(name, wide_paths[name], lanes=8192, bounces=2)
+    assert worst["divergent"] == worst["nee_divergent"] == 0.0
+    for bounce in (0, 1):
+        digests, err = chip_smoke.wide_rows_case(wide_paths[name], bounce)
+        assert err < 1e-3 and chip_smoke.wide_rows_case(wide_paths[name], bounce)[0] == digests
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [24, 64])
+def test_cuda_prog_chunks_bit_equal_to_the_staged_form(tmp_path, prog_staged, s):
+    """The kProg bounce and NEE past 16 columns (chunks) against the same
+    kernels staged at [BLOCK, S] (the form they replace, PROG_STAGED_FORM) on
+    the textures scene at 256 x 192, bounces 0 and 1: every output bit for
+    bit (chip_smoke._prog_libs' digests)."""
+    path = chip_smoke.write_textures_scene(str(tmp_path), 256, 192, s, 4, spp=2)
+    for bounce in (0, 1):
+        digests, _ = chip_smoke._prog_libs(f"textures_s{s}", path, prog_staged, ["staged", "build"],
+                                           "card", bounce)
+        bad = [k for k, v in digests["build"].items() if digests["staged"][k] != v]
+        assert not bad, f"S = {s} bounce {bounce}: {bad} differ from the staged form"
+
+
+@pytest.mark.cuda
+def test_cuda_draws_at_512_columns_match_cpu(wide_paths):
+    """philox_draws_kernel at S = 512 (camera rows of 517 words, staged 92
+    at a time) in both modes bit for bit against the CPU
+    (chip_smoke.check_draws)."""
+    assert chip_smoke.check_draws("flagship_s512_small", wide_paths["flagship_s512_small"]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["flagship_photon_s512_small", "textures_photon_512_small"])
+def test_cuda_photon_past_the_old_ceilings_matches_plain_version(wide_paths, name):
+    """chip_smoke.check_photon past the old ceilings: the gather at K = 512
+    fresh wavelengths (flagship_photon at S = 512, exact mode: its sums out
+    of the warp's row, its values 64 wavelengths at a time), and A's kProg
+    form at S + G = 518 columns with the lamp walk at 513
+    (textures_photon at 512 bins): counts equal, bins within rtol 1e-5,
+    the record fields and lamp vertices within rtol 1e-3 / atol 1e-4."""
+    checked = chip_smoke.check_photon(name, wide_paths[name])
+    assert checked["worst"]["gather"] < 1.0 and checked["worst"]["record"] < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_gate_measures_equal_the_launchers():
+    """kernels_dense's measures of each kernel's dynamic shared memory (the
+    gate's) against what the launchers pass, at S from 1 to 4,096, in each
+    form, with and without DE shapes: the bounce, kRecord and NEE kernels,
+    the draws' camera rows and the gather at film bins and fresh
+    wavelengths on both sides of FRESH_CHUNK."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from pyrite_tpu_torch import _build, kernels_dense as kd, rng
+
+    lib = _build.load()
+    for s in (1, 6, 16, 17, 64, 87, 88, 102, 128, 449, 512, 4096):
+        assert lib.pyrite_draws_smem(s) == rng.draws_smem_bytes(s), s
+        for form in (kd.FORM_SIMPLE, kd.FORM_PROG, kd.FORM_GATE):
+            stack = 8 if form == kd.FORM_PROG else 0
+            extra = kd._stack_bytes(form, stack)
+            assert lib.pyrite_nee_smem(s, form) + extra * (form == kd.FORM_PROG) == (
+                kd.nee_smem_bytes(s, form, stack)), (s, form)
+            for de in (0, 1):
+                assert lib.pyrite_bounce_smem(s, de, form) + extra == kd.bounce_smem_bytes(
+                    s, de, form, stack), (s, de, form)
+                assert lib.pyrite_bounce_record_smem(s, de, form) + extra == kd.record_smem_bytes(
+                    s, de, form, stack), (s, de, form)
+    for bins in (64, 512, 7085):
+        for k in (1, 6, 64, 65, 512):
+            assert lib.pyrite_gather_smem(bins, k) == kd.gather_smem_bytes(bins, k), (bins, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["textures_s512", "textures_deep_s128", "flagship_s512",
+                                  "textures_photon_512", "flagship_bdpt_s128"])
+def test_cuda_wide_renders_take_the_kernels(wide_paths, tmp_path, name):
+    """The five renders of chip_smoke.wide_step from .lua to PNG on the
+    card, every bounce through the scene's kernels, the launchers' shared
+    memory the gate's (chip_smoke.check_launch_smem)."""
+    assert chip_smoke.check_launch_smem({name: wide_paths[name]}) > 0
+    if name == "textures_photon_512":
+        launches = chip_smoke.render_photon(wide_paths[name], 1, "card", str(tmp_path))[0]
+        assert launches["dense_bounce_kernel<record,prog>"] > 0 and launches["photon_gather_kernel"] > 0
+    elif name == "flagship_bdpt_s128":
+        launches = chip_smoke.render_bdpt(wide_paths[name], 1, "card", str(tmp_path))[0]
+        assert launches["dense_bounce_kernel<record>"] > 0
+    else:
+        assert chip_smoke.render_end_to_end(wide_paths[name], 1, "card", str(tmp_path))["bounces"] > 0

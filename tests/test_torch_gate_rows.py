@@ -274,22 +274,27 @@ def test_long_program_split_equals_one_stream_and_jax(paths):
 
 
 def test_gate_refuses_past_shared_memory(paths, tmp_path):
-    """A ceiling left: the kernels' shared memory at S spectral
-    columns (kernels_dense.smem_bytes within SMEM_PER_BLOCK). A flagship at
-    the most S it takes builds, one more is refused naming ROADMAP.md item
-    7, before any render starts."""
-    most = kd.max_spectrum_samples(False, 0)
-    assert kd.smem_bytes(most, False, 0) <= kd.SMEM_PER_BLOCK < kd.smem_bytes(most + 1, False, 0)
-    assert most >= 64 and kd.max_spectrum_samples(True, 12) >= 64
+    """No spectral ceiling is left: no kernel's shared memory grows with S
+    past a fixed bound (kernels_dense.launch_smem, the launchers' own
+    measures), so the flagship at 110 columns (the most the gate took
+    before), 111 and 512 builds with the same dynamic shared memory a block
+    at each and no most S in its pack, and at 111 renders from .lua to PNG
+    on the CPU."""
     text = open(paths["flagship_s24"]).read()
-    for s, ok in ((most, True), (most + 1, False)):
+    smem = {}
+    for s in (110, 111, 512):
         path = tmp_path / f"s{s}.lua"
         path.write_text(text.replace("spectrum_samples = 24", f"spectrum_samples = {s}"))
-        if ok:
-            assert torch_build(torch_load(str(path)), "cpu").dense_pack["max_s"] == most
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
-                cli.main([str(path), "--device", "cpu", "--samples", "1"])
+        pack = torch_build(torch_load(str(path)), "cpu").dense_pack
+        assert "max_s" not in pack and pack["form"] == kd.FORM_GATE
+        smem[s] = pack["smem"]
+        if s == 111:
+            out = str(tmp_path / "s111.png")
+            assert cli.main([str(path), "--device", "cpu", "--samples", "1", "--output", out]) == 0
+            with Image.open(out) as img:
+                assert np.asarray(img).max() > 0
+    assert smem[110] == smem[111] == smem[512]
+    assert max(smem[512].values()) <= kd.SMEM_PER_BLOCK
 
 
 def test_gate_refuses_past_de_shapes(tmp_path):
@@ -297,7 +302,7 @@ def test_gate_refuses_past_de_shapes(tmp_path):
     shared memory (kernels_dense.MAX_DE_SHAPES of DE_SHAPE_BYTES within
     SMEM_PER_BLOCK). The julia scene's pack with its shape repeated to the
     ceiling builds, its DE table in ceil(n / 128) consecutive rows; one
-    more shape is refused naming ROADMAP.md item 7."""
+    more shape is refused naming ROADMAP.md item 15."""
     import copy
 
     most = kd.MAX_DE_SHAPES
@@ -313,7 +318,7 @@ def test_gate_refuses_past_de_shapes(tmp_path):
     rows = sorted(meta[f"de_{field}"] for field in kd.DE_FIELDS)
     assert np.diff(rows).tolist() == [-(-most // kd.SHEET_WIDTH)] * (len(rows) - 1)
     many.de_shapes = list(st.de_shapes) * (most + 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
         kd.build_pack(many, a)
 
 
@@ -356,7 +361,7 @@ def test_gate_takes_photon_bins_the_gather_holds(tmp_path):
     (kernels_dense.gather_smem_bytes), so the gate takes a photon project
     of 512 film bins at S = 6 (past the 447 of a row a thread) and every
     bin count up to the most that a block's shared memory holds; one more
-    is refused naming ROADMAP.md item 10, before any render starts. The
+    is refused naming ROADMAP.md item 15, before any render starts. The
     project is flagship_photon at its CPU size (exact mode: camera rows of
     S, lamp rows of one column); at 512 bins it renders through the CLI."""
     most = max(b for b in range(1, 20000) if kd.gather_smem_bytes(b, 6) <= kd.SMEM_PER_BLOCK)
@@ -372,5 +377,5 @@ def test_gate_takes_photon_bins_the_gather_holds(tmp_path):
                 assert cli.main([path, "--device", "cpu", "--samples", "1", "--output", out]) == 0
                 assert np.asarray(Image.open(out)).max() > 0
         else:
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
                 cli.main([path, "--device", "cpu", "--samples", "1"])

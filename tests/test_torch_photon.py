@@ -314,23 +314,28 @@ def test_cli_renders_a_photon_project(paths, tmp_path):
 
 
 def test_gate_refuses_photon_rows_past_shared_memory(paths, tmp_path, monkeypatch):
-    """The gate checks the rows the photon renderer launches when the scene
-    is built: at S = 6 and 128 film bins, interpolation mode's camera walk
-    takes S + G = 134 columns, past the kernels' 110 on this scene, and is
-    refused naming ROADMAP.md item 10; exact mode (S = 6, one lamp column)
-    builds, as does interpolation mode at 64 bins, in the kGate form that
-    its 70 columns need."""
+    """The gate no longer refuses photon mapping's rows: at S = 6 and 128
+    film bins, interpolation mode's camera walk takes S + G = 134 columns
+    and its lamp walk 129, past the 110 the kernels' shared memory held
+    before, and the scene builds in the kGate form (past 16 columns its
+    kernels stream their rows), every kernel's shared memory as at 64 bins'
+    70 columns but the gather's (its 2 B bins); exact mode (S = 6, one lamp
+    column) builds in the simple form."""
     text = open(paths["spheres"]).read().replace("spectrum_samples = 4", "spectrum_samples = 6")
     wide = tmp_path / "wide.lua"
     wide.write_text(text.replace("radius = 0.4", "radius = 0.4, spectrum_resolution = 128"))
     monkeypatch.setenv("PYRITE_TPU_PHOTON_EXACT", "0")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        torch_build(torch_load(str(wide)), "cpu")
+    st_wide = torch_build(torch_load(str(wide)), "cpu")
+    assert st_wide.photon_widths == {"exact": False, "camera": 134, "lamp": 129, "bins": 128}
+    assert st_wide.dense_pack["form"] == kd.FORM_GATE
     narrow = tmp_path / "narrow.lua"
     narrow.write_text(text)
     st = torch_build(torch_load(str(narrow)), "cpu")
     assert st.photon_widths == {"exact": False, "camera": 70, "lamp": 65, "bins": 64}
     assert st.dense_pack["form"] == kd.FORM_GATE
+    held = {k: v for k, v in st.dense_pack["smem"].items() if k != "gather"}
+    assert {k: v for k, v in st_wide.dense_pack["smem"].items() if k != "gather"} == held
+    assert st_wide.dense_pack["smem"]["gather"] == kd.gather_smem_bytes(128, 6)
     monkeypatch.setenv("PYRITE_TPU_PHOTON_EXACT", "1")
     st = torch_build(torch_load(str(wide)), "cpu")
     assert st.photon_widths == {"exact": True, "camera": 6, "lamp": 1, "bins": 128}

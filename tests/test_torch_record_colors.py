@@ -184,21 +184,28 @@ _SOURCE = os.path.join(os.path.dirname(kd.__file__), "csrc", "bounce.cu")
 def test_record_smem_mirror_follows_the_source():
     """record_smem_bytes' constants are the source's: a RowOp is a pointer
     and five 4-byte fields (32 bytes, 8-aligned), and the kRecord launchers
-    pass stream_smem_bytes, with each lane's own colour row (S floats) on a
-    kProg scene."""
+    pass stream_smem_bytes, with each lane's own colour row on a kProg
+    scene (OWN_FLOATS: S floats at S <= 16, a chunk's slot of RECORD_STRIDE
+    = 129 past it)."""
     with open(_SOURCE) as fh:
         src = fh.read()
     fields = re.search(r"struct RowOp \{(.*?)\};", src, re.S).group(1)
     assert len(re.findall(r"^\s+const float\* src;", fields, re.M)) == 1
     assert len(re.findall(r"^\s+(?:float|int) \w+;", fields, re.M)) == 5
     assert kd._ROW_OP_FLOATS * 4 == 32
-    assert "#define RECORD_SMEM stream_smem_bytes(n_de > 0, form == FORM_PROG ? s : 0)" in src
+    assert ("#define RECORD_SMEM stream_smem_bytes(n_de > 0, form == FORM_PROG ? "
+            "OWN_FLOATS(RECORD_STRIDE) : 0)") in src
+    assert "#define OWN_FLOATS(STRIDE) (WIDE ? (STRIDE) : s)" in src and "#define WIDE (s > MAX_ROW)" in src
+    for chunk, stride, n in (("ROW_CHUNK", "OWN_STRIDE", 16), ("RECORD_CHUNK", "RECORD_STRIDE", 128)):
+        assert f"constexpr int {chunk} = {n};" in src and f"constexpr int {stride} = {chunk} + 1;" in src
+    assert (kd._OWN_STRIDE, kd._RECORD_STRIDE, kd.GATHER_ROW) == (17, 129, 16)
     assert "return sizeof(float) * ((size_t)BLOCK * (12 + ROW_OP_FLOATS + own) +" in src
 
 
 # S: bytes of a kRecord block (the kProg camera walk with a program stack of
 # 8 and no DE shapes; the gate form with DE shapes; the simple form)
-_RECORD_SMEM = {s: (4 * 128 * (12 + 8 + s) + 16 * 128 * 8, 4 * 128 * 20 + 5120, 4 * 128 * 20)
+_RECORD_SMEM = {s: (4 * 128 * (12 + 8 + (s if s <= 16 else 129)) + 16 * 128 * 8,
+                    4 * 128 * 20 + 5120, 4 * 128 * 20)
                 for s in (6, 16, 17, 70, 102)}
 
 
@@ -207,16 +214,15 @@ def test_record_smem_bytes(s):
     """A's shared memory a block at S columns: every form streams its
     rows, [BLOCK, 12 + 8] floats (vectors and a row op a lane), 5,120 B of
     DE probe slots where the scene has DE shapes, and the kProg camera walk
-    one own colour row a lane ([BLOCK, 12 + 8 + S]) beside its program
-    stack. At S + G = 70 the kProg block takes 62,464 B, under 70 KB, where
-    the staged form took 165,888 B (which the gate's smem_bytes still
-    counts)."""
+    one own colour row a lane beside its program stack, whole at S <= 16
+    ([BLOCK, 12 + 8 + S]) and past it a chunk's slot of 129 floats. At S +
+    G = 70 the kProg block takes 92,672 B, as at any S past 16, where whole
+    own rows took 62,464 B and the staged form 165,888 B."""
     prog, gate_de, simple = _RECORD_SMEM[s]
     assert kd._DE_SLOT_BYTES == 5120
     assert kd.record_smem_bytes(s, False, kd.FORM_PROG, 8) == prog
     assert kd.record_smem_bytes(s, True, kd.FORM_GATE, 0) == gate_de
     assert kd.record_smem_bytes(s, False, kd.FORM_SIMPLE, 0) == simple
     if s == 70:
-        assert prog == 62464 < 70 * 1024
-        assert kd.smem_bytes(70, False, 8) == 165888
+        assert prog == 92672 == kd.record_smem_bytes(512, False, kd.FORM_PROG, 8)
     assert prog <= kd.SMEM_PER_BLOCK

@@ -259,7 +259,7 @@ def test_program_limits_raise_naming_roadmap():
     deep = C("fresnel", {"ior": 1.5, "env_ior": 1.0})
     for _ in range(TE.PROG_STACK_MAX):
         deep = C("binary", {"operator": "add", "lhs": 0.01, "rhs": deep})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
         lowered(deep)
 
 
