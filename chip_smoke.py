@@ -114,6 +114,14 @@ and exits non-zero on any failure:
    zero, its wall and peak memory and the merges' bytes and ms a call (not
    a scaling figure: both ranks on one card, the merge through the host).
 
+10. the gate's last refusals (gate_last_step): a scene of planes alone, a
+   textures scene whose colour program needs 80 values in the expression's
+   order (lowered in Sethi-Ullman order), 2,411 DE shapes (march_de_kernel
+   reads each from the sheet) and flagship_photon at 7,086 and 10,000 film
+   bins (photon_gather_kernel's <out_row> form): each changed kernel against
+   its plain version at a small wavefront, each new form against its parent
+   form at a size both run, bit for bit, then the CLI renders.
+
 The rest of the scene gate (gate_paths: directional lamps, S = 24, 32 and
 64, 300 materials through the baked colour table, 150 lamps and 130
 planes, an 82-instruction program at stack depth 12, 130 DE shapes) runs
@@ -142,6 +150,12 @@ bank (measure_bank). ``--record-rows [PARENT_CSRC [OUT.json]]`` runs
 measure_record_rows alone. ``--prog`` runs the measurements of the kProg
 instantiations, with builds of csrc/bounce.cu that each remove or move one
 cost (measure_prog).
+``python3 chip_smoke.py --gate-last [PARENT_CSRC [OUT.json]]`` times phase
+10's new forms against their parent forms at a size both run
+(measure_gate_last: the march passes at 1, 130 and 2,410 DE shapes, the gather
+at 7,085 bins, the kProg bounce and NEE kernels at stacks 8 and 48),
+given PARENT_CSRC also through a parent checkout's csrc/ built beside this
+build, in the order parent, build, build, parent.
 ``python3 chip_smoke.py --photon`` runs phase 7's gather alone
 (photon_step: check_photon and time_photon on flagship_photon and
 textures_photon, then profile_photon's 2-spp walls).
@@ -618,19 +632,20 @@ UNTEXTURED = {"sky": "0.1", "checker": "rgb(0.6, 0.5, 0.4)", "bumps": "nil",
               "fresnel": "rgb(0.9, 0.75, 0.3)", "mask": "0.5", "lamp": "rgb(1, 0.9, 0.8)"}
 
 
-def deep_expression(core, chain=8, nest=9):
+def deep_expression(core, chain=8, nest=9, subtract=False):
     """A colour expression past the old program form's limits around
     ``core`` (an rgb expression that reads the ray): ``chain`` steps of
     (x * 1.01 - 0.005) that keep the stack shallow and lengthen the code,
     under ``nest`` levels of (0.004 + (...)) that each hold one more value
-    on the stack. The textures scene's fresnel colour so wrapped
-    (textures_deep) lowers to 82 instructions at stack depth 12
-    (exprs.KernelPrograms)."""
+    on the stack, with ``subtract`` every second one (1.004 - (...)), whose
+    operands Sethi-Ullman order takes reversed (a SWAP). The textures
+    scene's fresnel colour so wrapped (textures_deep) lowers to 82
+    instructions at stack depth 12 (exprs.KernelPrograms)."""
     expr = core
     for _ in range(chain):
         expr = f"({expr} * 1.01 - 0.005)"
-    for _ in range(nest):
-        expr = f"(0.004 + {expr})"
+    for level in range(nest):
+        expr = f"(1.004 - {expr})" if subtract and level % 2 else f"(0.004 + {expr})"
     return expr
 
 
@@ -706,8 +721,9 @@ def write_textures_scene(directory, width=64, height=48, spectrum_samples=4, bou
     (16, 16) 512, which the wide BVH takes. ``texture_size`` (a multiple of
     1024) writes write_texture_images' large images, and "_1k" (or "_2k",
     ...) ends the name. ``deep`` wraps the fresnel sphere's colour in
-    deep_expression (DEEP; the name "textures_deep"). A photon-mapping
-    project takes ``photon``'s (photons, photon_bounces, photon_passes,
+    deep_expression (DEEP; the name "textures_deep"), or with a number in
+    that many levels of nesting, every second one a subtraction (the name
+    "textures_deep<number>"). A photon-mapping project takes ``photon``'s (photons, photon_bounces, photon_passes,
     radius). Returns the .lua path."""
     os.makedirs(directory, exist_ok=True)
     cols, rows = tiles
@@ -717,9 +733,14 @@ def write_textures_scene(directory, width=64, height=48, spectrum_samples=4, bou
     write_texture_images(directory, size=texture_size)
     extra = (f"\n        light_bounces = {light_bounces}," if renderer == "bidirectional" else
              "\n        " + PHOTON_EXTRA % photon if renderer == "photon_mapping" else "")
-    values = dict(DEEP if deep else TEXTURED if textured else UNTEXTURED, w=width, h=height,
-                  s=spectrum_samples, b=bounces, spp=spp, renderer=renderer, extra=extra, obj=obj)
-    name = ("textures" if textured else "untextured") + ("_deep" if deep else "") + (
+    nested = deep and deep is not True and deep_expression(TEXTURED["fresnel"], nest=deep,
+                                                           subtract=True)
+    expressions = DEEP if deep is True else dict(TEXTURED, fresnel=nested) if deep else (
+        TEXTURED if textured else UNTEXTURED)
+    values = dict(expressions, w=width, h=height, s=spectrum_samples, b=bounces, spp=spp,
+                  renderer=renderer, extra=extra, obj=obj)
+    name = ("textures" if textured else "untextured") + (
+        "_deep" + ("" if deep is True else str(deep)) if deep else "") + (
         {"simple": "", "bidirectional": "_bdpt", "photon_mapping": "_photon"}[renderer]) + (
         "" if tiles == (3, 2) else f"_{2 * cols * rows}") + (
         f"_{texture_size // 1024}k" if texture_size else "")
@@ -883,6 +904,76 @@ def write_de_many_scene(directory, count=130, width=128, height=64, spectrum_sam
     path = os.path.join(directory, f"de_{count}.lua")
     with open(path, "w") as fh:
         fh.write(text)
+    return path
+
+
+def write_de_repeated_scene(directory, count, width=8, height=4, spectrum_samples=4, bounces=2,
+                            spp=1):
+    """write_de_many_scene's scene of one shape with that shape repeated
+    ``count`` times in one place (one Lua object, one material, appended
+    ``count`` times by a loop): a scene of ``count`` DE shapes whose closest
+    hit is always the first copy, so that its film is the one shape's.
+    Returns the .lua path, de_repeated_<count>.lua."""
+    with open(write_de_many_scene(directory, 1, width, height, spectrum_samples, bounces)) as fh:
+        text = fh.read().replace("pixel_samples = 64", f"pixel_samples = {spp}")
+    start = text.index("            shape.ray_marched {")
+    end = text.index("            shape.plane {")
+    shape = text[start:end].strip().rstrip(",")
+    text = (f"local julia = {shape}\nlocal scene = " + text[:start].replace("return {", "{", 1)
+            .lstrip() + text[end:].rstrip()
+            + f"\nfor i = 1, {count} do scene.world.objects[#scene.world.objects + 1] = julia end"
+            + "\nreturn scene\n")
+    path = os.path.join(directory, f"de_repeated_{count}.lua")
+    with open(path, "w") as fh:
+        fh.write(text)
+    return path
+
+
+PLANES_SCENE = """
+return {
+    image = {width = %(w)d, height = %(h)d},
+    renderer = renderer.%(renderer)s {
+        pixel_samples = %(spp)d, spectrum_samples = %(s)d, light_samples = 2, bounces = %(b)d,%(extra)s
+    },
+    camera = camera.perspective {
+        fov = 60,
+        transform = transform.look_at {from = vector(0, 1.5, -4), to = vector(0, 0.8, 4)},
+    },
+    world = {
+        sky = light_source.d65 * 0.3,
+        objects = {
+            %(sun)s
+            shape.plane {
+                origin = vector(0, 0, 0), normal = vector(0, 1, 0),
+                material = {surface = material.diffuse {color = rgb(0.7, 0.65, 0.5)}},
+            },
+            shape.plane {
+                origin = vector(0, 0, 6), normal = vector(0.3, 0.2, -1),
+                material = {surface = mix(material.mirror {color = 0.9},
+                                          material.diffuse {color = rgb(0.2, 0.4, 0.7)}, 0.3)},
+            },
+            light.point {position = vector(-2, 3, 1), color = light_source.d65 * 40},
+        },
+    },
+}
+"""
+
+
+def write_planes_scene(directory, width=64, height=32, spectrum_samples=4, bounces=3, spp=4,
+                       renderer="simple", light_bounces=3):
+    """A dense scene of planes alone: no finite primitive and no DE shape
+    (the JAX package keeps it out of its dense pack and sweeps it in XLA).
+    A ground plane and a tilted plane of a mirror-diffuse mix, a point lamp,
+    a directional lamp (SUN) and a D65 sky; ``renderer`` "simple" or
+    "bidirectional" (``light_bounces``). Returns the .lua path, planes.lua
+    or planes_bdpt.lua."""
+    os.makedirs(directory, exist_ok=True)
+    extra = f"\n        light_bounces = {light_bounces}," if renderer == "bidirectional" else ""
+    name = "planes" + ("_bdpt" if renderer == "bidirectional" else "")
+    path = os.path.join(directory, f"{name}.lua")
+    with open(path, "w") as fh:
+        fh.write(PLANES_SCENE % dict(w=width, h=height, s=spectrum_samples, b=bounces, spp=spp,
+                                     renderer=renderer, extra=extra, sun=SUN))
     return path
 
 
@@ -2687,7 +2778,7 @@ def render_end_to_end(path, samples, card, out_dir, passes=False, which="regen",
     assert launches["de_march_pass"] == launches["de_shadow_pass"] == marches, launches
     r = cli.load_project(path).project.renderer
     pix = film.width * film.height
-    lane_bytes = simple.lane_bytes(scene, r.spectrum_samples)
+    lane_bytes = simple.lane_bytes(scene, r.spectrum_samples, r.light_samples)
     if which == "regen":
         assert launches["regen_iterations"] == bounces > 0, launches
         assert launches["philox_draws_kernel"] == bounces, launches
@@ -4307,7 +4398,9 @@ def render_photon(path, samples, card, out_dir):
     assert launches[bounce_k] == 0, launches
     assert maps == samples * r.photon_passes, launches
     assert launches[kd._lamp_name(scene)] == maps + launches["lamp_bounces"] > maps, launches
-    assert launches["photon_gather_kernel"] == launches["gathers"] == cam * r.photon_passes, launches
+    gather = "photon_gather_kernel" + (
+        "<out_row>" if kd.gather_out_row(r.spectrum_bins, r.spectrum_samples) else "")
+    assert launches[gather] == launches["gathers"] == cam * r.photon_passes, launches
     for k in ("bounce_core", "lamp_start", "lamp_bounce_step", "intersect_shadow"):
         assert launches[k] == 0, (k, launches)
     print(
@@ -5144,14 +5237,17 @@ def _kernel_label(mangled):
     camera walk's with its whole own rows at S <= 16:
     <record><prog><stream>), <chunks> for the kProg ones past 16 columns
     that make their own rows in chunks (and photon_gather_kernel's past 64
-    fresh wavelengths, philox_draws_kernel's past 92 camera words); None for
-    a function that is none of KERNEL_NAMES."""
+    fresh wavelengths, philox_draws_kernel's past 92 camera words) and
+    <out_row> for photon_gather_kernel's bins in its output row; None for a
+    function that is none of KERNEL_NAMES."""
     name = next((k for k in KERNEL_NAMES if k in mangled), None)
     if name is None:
         return None
     flags = re.search(r"I((?:Lb[01]E)+)E", mangled)
-    if flags and name in ("photon_gather_kernel", "philox_draws_kernel"):  # their kChunks
-        return name + ("<chunks>" if flags.group(1) == "Lb1E" else "")
+    if flags and name in ("photon_gather_kernel", "philox_draws_kernel"):  # kChunks, kOutRow
+        bits = re.findall(r"Lb([01])E", flags.group(1))
+        return name + ("<chunks>" if bits[0] == "1" else "") + (
+            "<out_row>" if bits[1:2] == ["1"] else "")
     if flags:  # <kDE>, the bounce kernels' kRecord, then kProg, kGate, kStream and kWhole
         bits = re.findall(r"Lb([01])E", flags.group(1))
         name += "<true>" if bits[0] == "1" else "<false>"
@@ -6253,7 +6349,9 @@ def check_launch_smem(paths):
             "draws": lib.pyrite_draws_smem(scene.spectrum_samples),
         }
         if photon is not None:
-            want["gather"] = lib.pyrite_gather_smem(photon["bins"], scene.spectrum_samples)
+            k = scene.spectrum_samples
+            want["gather"] = lib.pyrite_gather_smem(photon["bins"], k,
+                                                    int(kd.gather_out_row(photon["bins"], k)))
         got = {k: pack["smem"][k] for k in want}
         assert got == want, f"{name}: the gate's shared memory {got}, the launchers' {want}"
         held += len(want)
@@ -6299,6 +6397,421 @@ def wide_step(directory, card):
     print(f"[phase] spectral widths past the old ceilings (phase 9): "
           f"{time.perf_counter() - started:.1f} s")
     return worst, runs
+
+
+# --- phase 10: the gate's last refusals ---------------------------------------------
+
+
+def gate_last_paths(directory):
+    """Phase 10's scenes, each of a kind the gate refused before:
+    planes (write_planes_scene at 512 x 256, S = 6, 8 bounces) and its
+    bidirectional twin (4 + 4 bounces); textures_deep80 (the textures
+    scene at 256 x 192, S = 6, 4 bounces, its fresnel sphere's colour nested
+    77 levels, every second a subtraction: a stack of 80 values in the
+    expression's order, past exprs.PROG_STACK_MAX = 48, so lowered in
+    Sethi-Ullman order) and its bidirectional twin (256 x 128, 4 + 4
+    bounces); textures_deep48 (nested 45 levels: a stack of 48 values in the
+    expression's order, the deepest lowered so: --gate-last's); de_1, de_130,
+    de_2410 and de_2411 (write_de_many_scene at 128 x 64, S = 4, 3 bounces:
+    one shape, the gate's scene, the most shapes a block's shared memory
+    staged before march_de_kernel read them from the sheet, and one more);
+    flagship_photon at 7,086 and 10,000 film bins (photon_bins_scene at the
+    CLI's size: the gather's <out_row> form) and at 7,085 (the most its row
+    form holds), and the same three small (photon_scene_paths(small=True):
+    the checks and the renders, whose exposures take one scatter a film bin
+    and column, ~40 and ~60 s a render at the CLI's size on an H100).
+    Returns {name: .lua path}."""
+    sub = lambda name: os.path.join(directory, name)  # noqa: E731
+    deep = lambda nest, **kw: write_textures_scene(sub(f"deep{nest + 3}"), **kw, deep=nest)  # noqa: E731
+    size = dict(width=256, height=192, spectrum_samples=6, bounces=4, spp=4)
+    out = {
+        "planes": write_planes_scene(sub("planes"), 512, 256, 6, 8, spp=4),
+        "planes_bdpt": write_planes_scene(sub("planes"), 512, 256, 6, 4, spp=2,
+                                          renderer="bidirectional", light_bounces=4),
+        "textures_deep80": deep(77, **size),
+        "textures_deep80_bdpt": deep(77, width=256, height=128, spectrum_samples=6, bounces=4,
+                                     spp=2, renderer="bidirectional"),
+        "textures_deep48": deep(45, **size),
+    }
+    for count in (1, 130, 2410, 2411):
+        out[f"de_{count}"] = write_de_many_scene(directory, count)
+    photon = photon_scene_paths(sub("photon"))["flagship_photon"]
+    small = photon_scene_paths(sub("photon_small"), small=True)["flagship_photon"]
+    for bins in (7085, 7086, 10000):
+        out[f"flagship_photon_{bins}"] = photon_bins_scene(photon, bins)
+        out[f"flagship_photon_{bins}_small"] = photon_bins_scene(small, bins)
+    return out
+
+
+def _natural_scene(path):
+    """_gpu_scene of ``path`` with its programs lowered in the expression's
+    order whatever their depth (exprs.PROG_STACK_MAX lifted), cached under
+    the path with "#natural"."""
+    from pyrite_tpu_torch import exprs
+
+    key = path + "#natural"
+    if key not in _SCENES:
+        saved = exprs.PROG_STACK_MAX
+        exprs.PROG_STACK_MAX = 10 ** 6
+        try:
+            _SCENES[key] = load_scene(path)
+        finally:
+            exprs.PROG_STACK_MAX = saved
+    return _SCENES[key]
+
+
+def hold_stack_orders(name, path, lanes=8192, bounces=2, seed=0):
+    """The kProg bounce and NEE kernels (kernels_dense.bounce_dense) on a
+    scene whose colour program is lowered in Sethi-Ullman order (SWAPs, a
+    stack of a few values) and on the same scene lowered in the
+    expression's order (a stack of the program's own depth), from the same
+    wavefront and draws for ``bounces`` bounces: every output bit for bit.
+    Returns the two stacks."""
+    import torch
+
+    from pyrite_tpu_torch import exprs, kernels_dense as kd, tracer
+
+    found = []
+    for scene, film, camera, cfg in (_gpu_scene(path), _natural_scene(path)):
+        origin, direction, wl, keyed = _wavefront(film, camera, cfg, seed, lanes)
+        state = tracer.initial_state(origin, direction, wl.shape[1])
+        bank = kd.precompute_bank_values(scene, wl)
+        states = []
+        for b in range(bounces):
+            draws = tracer.draw_bounce_uniforms(scene, cfg, origin.shape[0], keyed, b, "cuda")
+            state = kd.bounce_dense(scene, cfg, wl, state, draws, bank)
+            states.append(state)
+        found.append((scene.dense_pack["stack"], states))
+    torch.cuda.synchronize()
+    (su, ours), (natural, theirs) = found
+    swaps = sum(op == exprs.OP_SWAP for op, _, _ in _gpu_scene(path)[0].dense_pack["programs"].code)
+    assert su < natural and swaps > 0, (su, natural, swaps)
+    for b, (x, y) in enumerate(zip(ours, theirs)):
+        for k in x:
+            bad = int(_bits_differ(x[k], y[k]).sum())
+            assert bad == 0, f"{name} bounce {b}: {k} differs on {bad} entries between the orders"
+    print(f"[gate-last] {name}: the kProg bounce and NEE kernels with the colour program in "
+          f"Sethi-Ullman order ({swaps} SWAPs, stack {su}) and in the expression's order (stack "
+          f"{natural}), {bounces} bounces of {lanes} lanes: every output bit-equal")
+    return su, natural
+
+
+def _spread(n, lanes):
+    """``lanes`` indices spread evenly over n: rays from the whole film."""
+    import torch
+
+    return torch.linspace(0, n - 1, lanes, device="cuda").long()
+
+
+def _many_shape_rays(path, lanes, seed=0):
+    """``lanes`` rays of a DE scene's camera wavefront (_spread), with the
+    bounce kernel's outputs after the march pass and bounce 0's draws:
+    (scene, cfg, state, out, ctx, draws)."""
+    from pyrite_tpu_torch import kernels_dense as kd, tracer
+
+    scene, film, camera, cfg = _gpu_scene(path)
+    origin, direction, wl, keyed = _wavefront(film, camera, cfg, seed)
+    pick = _spread(origin.shape[0], lanes)
+    origin, direction, wl = origin[pick], direction[pick], wl[pick]
+    state = tracer.initial_state(origin, direction, wl.shape[1])
+    draws = tracer.draw_bounce_uniforms(scene, cfg, lanes, keyed, 0, "cuda")
+    bank = kd.precompute_bank_values(scene, wl)
+    out, ctx = kd.launch_bounce_kernel(scene, cfg, wl, state, draws, bank,
+                                       kd.march_pass(scene, cfg, state))
+    return scene, cfg, state, out, ctx, draws
+
+
+def _query_rays(scene, out, ctx, draws):
+    """A query batch: the NEE lanes' shadow rays of light sample 0, capped
+    at the lamp, live where cast (as kernels_dense.shadow_query takes a
+    batch)."""
+    from pyrite_tpu_torch import kernels_dense as kd
+
+    d, dist, cast = kd.shadow_rays(scene, out, ctx, draws, 0)
+    return out["origin"], d.contiguous(), dist.contiguous(), cast
+
+
+def check_march_shapes(name, path, lanes=512, seed=0):
+    """march_de_kernel on ``lanes`` camera rays (_spread) of a scene of
+    many DE shapes against the plain version on the card: the bounce pass
+    against tracer.de_hits, the shadow pass against
+    kernels_dense.shadow_pass_plain, the query pass on the shadow rays
+    against de_hits capped at the lamp; t bit-equal on every (shape, ray).
+    Returns the largest t error."""
+    import torch
+
+    from pyrite_tpu_torch import kernels_dense as kd, tracer
+
+    scene, cfg, state, out, ctx, draws = _many_shape_rays(path, lanes, seed)
+    origin, direction, dist, live = _query_rays(scene, out, ctx, draws)
+    pairs = {
+        "bounce": (kd.march_pass(scene, cfg, state), tracer.de_hits(
+            scene, state["origin"], state["direction"], cfg.max_de_steps, live=state["alive"])),
+        "shadow": (kd.shadow_pass(scene, cfg, out, ctx, draws),
+                   kd.shadow_pass_plain(scene, cfg, out, ctx, draws)),
+    }
+    args, t_q = kd.query_pass_args(scene, cfg, origin, direction, dist, live)
+    kd._launch("de_query_pass", args)
+    pairs["query"] = (t_q, tracer.de_hits(scene, origin, direction, cfg.max_de_steps, t_cap=dist,
+                                           live=live))
+    torch.cuda.synchronize()
+    worst = 0.0
+    for what, (got, plain) in pairs.items():
+        bad = int(_bits_differ(got, plain).sum())
+        assert bad == 0, f"{name}: the {what} pass's t differs on {bad} of {got.numel()}"
+        worst = max(worst, _max_abs_err(got, plain))
+        print(f"[gate-last] {name}: march_de_kernel {what} pass, {lanes} rays x "
+              f"{len(scene.de_shapes)} DE shapes: t bit-equal to the plain version on "
+              f"{got.numel()}/{got.numel()}, {int(torch.isfinite(plain).sum())} hits")
+    return worst
+
+
+def hold_gather_forms(name, path):
+    """photon_gather_kernel's <out_row> form against its row form at a bin
+    count both run, on one camera bounce's query against pass 0's map of
+    ``path``: every output bit-equal. Returns the number of entries held."""
+    import torch
+
+    from pyrite_tpu_torch import _build, kernels_dense as kd
+
+    spec, pm, q = _gather_inputs(path)
+    assert not kd.gather_out_row(spec.bins, spec.spectrum_samples), f"{name}: past the row form"
+    lib = _build.load()
+    found = []
+    for out_row in (False, True):
+        args, out = kd.photon_gather_args(spec, pm, q, out_row)
+        assert lib.pyrite_photon_gather(*args) == 0, f"{name} out_row={out_row}"
+        found.append(out)
+    torch.cuda.synchronize()
+    held = 0
+    for k, got in found[1].items():
+        bad = int(_bits_differ(got, found[0][k]).sum())
+        assert bad == 0, f"{name}: the gather's {k} differs between its forms on {bad} entries"
+        held += got.numel()
+    print(f"[gate-last] {name}: photon_gather_kernel<out_row> bit-equal to the row form at "
+          f"B={spec.bins}, {q['position'].shape[0]} lanes, {pm['keys'].shape[0]} map entries: "
+          f"{held} entries, {int(found[0]['cnt_bins'].sum())} pairs")
+    return held
+
+
+def check_out_row_gather(name, path):
+    """photon_gather_kernel's <out_row> form (past the row form's bins)
+    against renderers.photon.gather_plain on one camera bounce's query
+    against pass 0's map, as _hold_gather holds them. Returns the largest
+    error."""
+    from pyrite_tpu_torch import kernels_dense as kd
+    from pyrite_tpu_torch.renderers import photon as ph
+
+    spec, pm, q = _gather_inputs(path)
+    assert kd.gather_out_row(spec.bins, spec.spectrum_samples), f"{name}: within the row form"
+    err, same = _hold_gather(f"{name} <out_row> gather", kd.photon_gather(spec, pm, q),
+                             ph.gather_plain(spec, pm, q))
+    print(f"[gate-last] {name}: photon_gather_kernel<out_row> at B={spec.bins}, "
+          f"{q['position'].shape[0]} lanes against the plain version: largest error {err}; "
+          f"{_bit_equal(same)}")
+    return err
+
+
+def time_out_row_gather(path, card):
+    """photon_gather_kernel's <out_row> form at the CLI's chunk of a
+    project past the row form's bins (camera bounce 0 against pass 0's
+    map), two windows of 20 launches, and its plain version (one call),
+    with _gather_work's bytes and operations. Returns
+    {"photon_gather_kernel<out_row>": (kernel ms, plain ms, bytes,
+    operations)}."""
+    import torch
+
+    from pyrite_tpu_torch import _build, kernels_dense as kd
+    from pyrite_tpu_torch.renderers import photon as ph
+
+    spec, pm, q = _gather_inputs(path)
+    args, _ = kd.photon_gather_args(spec, pm, q)
+    lib = _build.load()
+    run = lambda: lib.pyrite_photon_gather(*args)  # noqa: E731
+    for _ in range(2):
+        run()
+    torch.cuda.synchronize()
+    k1, k2 = _event_ms(run, 20), _event_ms(run, 20)
+    ref = ph.gather_plain(spec, pm, q)
+    plain_ms = _once_ms(lambda: ph.gather_plain(spec, pm, q))
+    size, ops = _gather_work(spec, pm, q, ref)
+    print(f"[times] photon_gather_kernel<out_row>: kernel {k1:.4f} / {k2:.4f} ms, plain "
+          f"{plain_ms:.4f} ms (one call), {q['position'].shape[0]} lanes, {pm['keys'].shape[0]} map "
+          f"entries, B={spec.bins}, K={spec.spectrum_samples} ({card})")
+    result = {"photon_gather_kernel<out_row>": ((k1 + k2) / 2, plain_ms, size, ops)}
+    _print_bounds("gate-last", result)
+    return result
+
+
+def gate_last_step(directory, card):
+    """Phase 10: the four kinds of scene the gate refused last, on the card.
+    Each changed kernel against its plain version at a small wavefront: the
+    dense bounce and NEE kernels on planes alone (check_kernels), the kProg
+    ones with a program in Sethi-Ullman order (check_kernels; A, B and
+    program_colors_kernel through check_bdpt) and bit for bit against the
+    expression's order (hold_stack_orders), march_de_kernel at 1, 130 and
+    2,411 shapes (check_march_shapes: t bit-equal) and photon_gather's
+    <out_row> form at 7,086 and 10,000 bins (check_out_row_gather: counts
+    exact) and bit for bit against its row form at 7,085 bins
+    (hold_gather_forms); the gate's measures against the launchers'
+    (check_launch_smem); the <out_row> gather's time; then the renders
+    through the CLI, each with the
+    counts zeroed just before and read just after: planes through regen,
+    one-shot and BDPT, textures_deep80 through the simple renderer and
+    BDPT, de_2411, flagship_photon at 7,086 and 10,000 bins (small). Returns
+    ({check: largest error}, {render: launch counts}, {kernel: times})."""
+    started = time.perf_counter()
+    paths = gate_last_paths(directory)
+    worst = {}
+    planes = check_kernels("planes", paths["planes"], lanes=16384)
+    deep = check_kernels("textures_deep80", paths["textures_deep80"], lanes=8192, bounces=2)
+    for what, w in (("planes", planes), ("textures_deep80", deep)):
+        assert not (w["divergent"] or w["nee_divergent"]), f"{what}: the kernels diverge {w}"
+    worst["dense"], worst["dense_nee"] = max(planes["bounce"], planes["brightness"]), planes["nee"]
+    worst["prog"], worst["prog_nee"] = max(deep["bounce"], deep["brightness"]), deep["nee"]
+    hold_stack_orders("textures_deep80", paths["textures_deep80"])
+    bdpt = check_bdpt("textures_deep80_bdpt", paths["textures_deep80_bdpt"])["worst"]
+    for key in ("record", "lamp", "colors"):
+        worst[key] = bdpt[key]
+    worst["march"] = max(check_march_shapes(f"de_{n}", paths[f"de_{n}"]) for n in (1, 130, 2411))
+    worst["out_row"] = max(check_out_row_gather(f"flagship_photon_{b}_small",
+                                                paths[f"flagship_photon_{b}_small"])
+                           for b in (7086, 10000))
+    hold_gather_forms("flagship_photon_7085_small", paths["flagship_photon_7085_small"])
+    check_launch_smem({k: paths[k] for k in (
+        "planes", "textures_deep80", "de_2411", "flagship_photon_7086", "flagship_photon_10000")})
+    times = time_out_row_gather(paths["flagship_photon_10000"], card)
+    runs = {
+        "planes": render_end_to_end(paths["planes"], 4, card, directory),
+        "planes_one_shot": render_end_to_end(paths["planes"], 4, card, directory, which="one-shot"),
+        "textures_deep80": render_end_to_end(paths["textures_deep80"], 4, card, directory),
+        "de_2411": render_end_to_end(paths["de_2411"], 2, card, directory, passes=True),
+    }
+    for name in ("planes_bdpt", "textures_deep80_bdpt"):
+        runs[name] = render_bdpt(paths[name], 2, card, directory)[0]
+    for bins in (7086, 10000):  # the small projects: see gate_last_paths
+        runs[f"flagship_photon_{bins}"] = render_photon(paths[f"flagship_photon_{bins}_small"], 1,
+                                                        card, directory)[0]
+    print(f"[gate-last] the gate's last refusals, largest errors against the plain version {worst}")
+    print(f"[phase] the gate's last refusals (phase 10): {time.perf_counter() - started:.1f} s")
+    return worst, runs, times
+
+
+# where a parent checkout's photon gather launcher lacks the form argument
+_GATHER_FORM_ARG = 43
+
+
+def _parent_abi(lib):
+    """A parent checkout's library, whose gather launcher takes no form
+    argument: its argument types without it."""
+    from pyrite_tpu_torch import _build
+
+    sig = list(_build._SIGNATURES["pyrite_photon_gather"])
+    del sig[_GATHER_FORM_ARG]
+    lib.pyrite_photon_gather.argtypes = sig
+    return lib
+
+
+def measure_gate_last(card, parent_csrc=None, save=None):
+    """``--gate-last [PARENT_CSRC [OUT.json]]``: each changed kernel timed
+    against its parent's form at a size both run, in one process, through
+    this build and (given PARENT_CSRC, another checkout's csrc/, built
+    here) the parent's library, in the order parent, build, build, parent:
+    the march passes (bounce and shadow) at 1 (fractal.lua), 130 and 2,410
+    DE shapes (the parent staged every shape in shared memory, this build
+    reads each from the sheet); the gather at 7,085 bins in its row form,
+    this build's also in its <out_row> form; the kProg bounce and NEE
+    kernels at stacks 8 (textures) and 48 (textures_deep48, the deepest
+    lowered in the expression's order), and this build's also on
+    textures_deep80 (Sethi-Ullman order); each with its outputs' digests,
+    which must agree where the forms compute the same; A, B, C and D
+    (time_bdpt) on textures_bdpt through each library and on
+    textures_deep80_bdpt through this build. Prints the kProg kernels'
+    resident blocks at those stacks. Saves the times to OUT.json."""
+    import torch
+
+    from pyrite_tpu_torch import _build, exprs, kernels_dense as kd
+
+    libs = {"build": (_build.load(), _build.build_log)}
+    with tempfile.TemporaryDirectory() as tmp:
+        if parent_csrc:
+            built = build_variants(tmp, {"parent": parent_csrc}, tag="gate-last")
+            libs["parent"] = (_parent_abi(built["parent"][0]), built["parent"][1])
+            print(f"[gate-last] parent {parent_csrc}: registers and spill stores / loads: " + "; ".join(
+                f"{k} {r}, {st}/{ld} B" for k, (r, st, ld) in sorted(
+                    kernel_registers(built["parent"][1]).items())))
+        order = ["parent", "build", "build", "parent"] if parent_csrc else ["build", "build"]
+        paths = gate_last_paths(tmp)
+        paths["fractal"] = os.path.join(ROOT, "examples", "fractal.lua")
+        paths["textures"] = write_textures_scene(os.path.join(tmp, "textures"), 256, 192, 6, 4,
+                                                 spp=4)
+        found = {"card": card, "march": {}, "gather": {}, "prog": {}}
+        for name in ("fractal", "de_130", "de_2410"):
+            scene, cfg, wl, state, draws = _bounce_inputs(paths[name], 1, 0)
+            bank = kd.precompute_bank_values(scene, wl)
+            out, ctx = kd.launch_bounce_kernel(scene, cfg, wl, state, draws, bank,
+                                               kd.march_pass(scene, cfg, state))
+            for what, (args, t), launcher in (
+                    ("bounce", kd.march_pass_args(scene, cfg, state), "pyrite_de_march_bounce"),
+                    ("shadow", kd.shadow_pass_args(scene, cfg, out, ctx, draws),
+                     "pyrite_de_march_shadow")):
+                digests, times = {}, {}
+                for lib in order:
+                    run = lambda: getattr(libs[lib][0], launcher)(*args)  # noqa: E731
+                    assert run() == 0, f"{name} {what} {lib}: launch failed"
+                    torch.cuda.synchronize()
+                    digests.setdefault(lib, _digests({"t": t})["t"])
+                    k1, k2 = _event_ms(run, 20), _event_ms(run, 20)
+                    times.setdefault(lib, []).append((k1 + k2) / 2)
+                    print(f"[gate-last] {name} {what} pass {lib}: {k1:.4f} / {k2:.4f} ms per launch, "
+                          f"{state['origin'].shape[0]} lanes x {len(scene.de_shapes)} DE shapes ({card})")
+                assert len(set(digests.values())) == 1, f"{name} {what}: the forms differ {digests}"
+                found["march"][f"{name} {what}"] = times
+        spec, pm, q = _gather_inputs(paths["flagship_photon_7085"])
+        row, out_row = (kd.photon_gather_args(spec, pm, q, form) for form in (False, True))
+        parent_row = row[0][:_GATHER_FORM_ARG] + row[0][_GATHER_FORM_ARG + 1:]
+        runs = {lib: (lambda lib=lib: getattr(libs[lib][0], "pyrite_photon_gather")(
+            *(parent_row if lib == "parent" else row[0]))) for lib in libs}
+        runs["build <out_row>"] = lambda: libs["build"][0].pyrite_photon_gather(*out_row[0])
+        digests, times = {}, {}
+        for lib in order + ["build <out_row>", "build <out_row>"]:
+            assert runs[lib]() == 0, f"gather {lib}: launch failed"
+            torch.cuda.synchronize()
+            digests.setdefault(lib, _digests(out_row[1] if "out_row" in lib else row[1]))
+            k1, k2 = _event_ms(runs[lib], 20), _event_ms(runs[lib], 20)
+            times.setdefault(lib, []).append((k1 + k2) / 2)
+            print(f"[gate-last] flagship_photon_7085 gather {lib}: {k1:.4f} / {k2:.4f} ms per launch, "
+                  f"{q['position'].shape[0]} lanes, {pm['keys'].shape[0]} map entries, "
+                  f"B={spec.bins} ({card})")
+        assert all(d == digests["build"] for d in digests.values()), f"gather forms differ {digests}"
+        found["gather"]["flagship_photon_7085"] = times
+        for name in ("textures", "textures_deep48"):
+            digests, times = _prog_libs(name, paths[name], libs, order, card, 0)
+            assert all(d == digests["build"] for d in digests.values()), f"{name}: {digests}"
+            found["prog"][f"{name} stack {_gpu_scene(paths[name])[0].dense_pack['stack']}"] = times
+        _, times = _prog_libs("textures_deep80", paths["textures_deep80"], {"build": libs["build"]},
+                              ["build", "build"], card, 0)
+        stack = _gpu_scene(paths["textures_deep80"])[0].dense_pack["stack"]
+        found["prog"][f"textures_deep80 stack {stack}"] = times
+        # A, B, C and D on the textures BDPT scene (stack 8) through each
+        # library, and on textures_deep80_bdpt (Sethi-Ullman) through this build
+        found["bdpt"] = {}
+        tex_bdpt = write_textures_scene(os.path.join(tmp, "textures_bdpt"), 512, 256, 6, 4, spp=2,
+                                        renderer="bidirectional")
+        for name, path, runs in (("textures_bdpt", tex_bdpt, order),
+                                 ("textures_deep80_bdpt", paths["textures_deep80_bdpt"],
+                                  ["build", "build"])):
+            checked = check_bdpt(name, path)
+            for lib in runs:
+                found["bdpt"].setdefault(name, {}).setdefault(lib, []).append(
+                    time_bdpt(checked, card, variant=(f"{name} {lib}", libs[lib][0])))
+        for stack in (exprs.PROG_STACK, exprs.PROG_STACK_MAX):
+            found[f"occupancy stack {stack}"] = print_occupancy(6, stack)
+    if save:
+        with open(save, "w") as fh:
+            json.dump(found, fh, indent=1)
+        print(f"[gate-last] times saved to {save}")
+    return found
 
 
 # csrc/draws.cu edited for --wide-prog's probe draws_staged: camera rows of
@@ -6744,6 +7257,9 @@ def main(argv=None):
     if argv[:1] == ["--wide-prog"] and len(argv) <= 3:
         measure_wide_prog(smi, *argv[1:])
         return 0
+    if argv[:1] == ["--gate-last"] and len(argv) <= 3:
+        measure_gate_last(smi, *argv[1:])
+        return 0
     if argv[:1] in (["--record-rows"], ["--rows"]) and len(argv) <= 3:
         parent, save = (argv[1:] + [None, None])[:2]
     if argv[:1] == ["--record-rows"] and len(argv) <= 3:
@@ -6867,6 +7383,8 @@ def main(argv=None):
         multi_runs = multi_device_step(paths["flagship"], bdpt["flagship_bdpt_deep"],
                                        photon["flagship_photon"], smi, tmp)
         wide_worst, wide_runs = wide_step(os.path.join(tmp, "wide"), smi)
+        last_worst, last_runs, last_times = gate_last_step(os.path.join(tmp, "gate_last"), smi)
+        times.update(last_times)
 
     def kernel(name, source, replaces, launches, err):
         ms, plain_ms, size, ops = times[name]
@@ -6884,17 +7402,18 @@ def main(argv=None):
     # in dense_total and, for the kernels only BDPT and photon run, in
     # multi_total
     wide_simple = [wide_runs[k] for k in ("textures_s512", "textures_deep_s128", "flagship_s512")]
+    last = list(last_runs.values())  # phase 10's renders, each kind of scene
     photon_runs = photon_runs + [wide_runs["textures_photon_512"]]
     bdpt_runs = bdpt_runs + [wide_runs["flagship_bdpt_s128"]]
     dense_total = lambda key: sum(run[key] for run in dense_runs + de_runs + gate_runs + multi_runs
-                                  + wide_simple)
+                                  + wide_simple + last)
     multi_total = lambda *keys: sum(run[k] for run in multi_runs for k in keys)
     tex_total = lambda key: sum(run[key] for run in tex_runs + [tex_bdpt_run] + gate_runs
-                                + photon_runs + wide_simple)
+                                + photon_runs + wide_simple + last)
     tex_err = lambda w: max(w["bounce"], w["brightness"])
     photon_record = sum(run["dense_bounce_kernel<record,prog>"] for run in photon_runs)
     bdpt_total = lambda *keys: sum(run[k] for run in bdpt_runs + gate_bdpt_runs + photon_runs
-                                   for k in keys)
+                                   + last for k in keys)
     wide_total = lambda key: sum(run[key] for run in [mesh_run] + gate_runs)
     passes = ("de_march_pass", "de_shadow_pass", "de_query_pass")
     rendered = dense_runs + de_runs + [mesh_run] + gate_runs + wide_simple
@@ -6909,15 +7428,16 @@ def main(argv=None):
     kernels = [
         kernel("dense_bounce_kernel", "bounce.cu", "pyrite_tpu/kernels_dense.py:717",
                dense_total("dense_bounce_kernel"),
-               max(max(w["bounce"], w["brightness"]) for w in checked)),
+               max(max(max(w["bounce"], w["brightness"]) for w in checked), last_worst["dense"])),
         kernel("dense_nee_kernel", "bounce.cu", "pyrite_tpu/kernels_dense.py:909",
                dense_total("dense_nee_kernel") + bdpt_total("dense_nee_kernel"),
-               max(w["nee"] for w in checked)),
+               max(max(w["nee"] for w in checked), last_worst["dense_nee"])),
         kernel("march_de_kernel", "march_de.cuh", "pyrite_tpu/kernels.py:907",
                march_run["march_de_kernel"] + sum(
                    run["de_march_pass"] + run["de_shadow_pass"] for run in de_runs)
                + bdpt_total(*passes),
-               max(max(m["err"] for m in marched.values()), max(shadowed.values()))),
+               max(max(m["err"] for m in marched.values()), max(shadowed.values()),
+                   last_worst["march"])),
         kernel("wide_closest_kernel", "wide_bvh.cu", "pyrite_tpu/kernels.py:541",
                query_run["wide_closest_kernel"], max(q["closest"] for q in queried)),
         kernel("wide_shadow_kernel", "wide_bvh.cu", "pyrite_tpu/kernels.py:593",
@@ -6956,18 +7476,20 @@ def main(argv=None):
         kernel("dense_bounce_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels_dense.py:717",
                tex_total("dense_bounce_kernel<prog>"),
                max(max(tex_err(w) for w in (tex_worst["textures"], tex_worst["textures_1k"],
-                                            gate_worst["textures_deep"])), wide_worst["prog"])),
+                                            gate_worst["textures_deep"])), wide_worst["prog"],
+                   last_worst["prog"])),
         kernel("dense_nee_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels_dense.py:909",
                tex_total("dense_nee_kernel<prog>"),
                max(max(w["nee"] for w in (tex_worst["textures"], tex_worst["textures_1k"],
-                                          gate_worst["textures_deep"])), wide_worst["prog_nee"])),
+                                          gate_worst["textures_deep"])), wide_worst["prog_nee"],
+                   last_worst["prog_nee"])),
         kernel("wide_bounce_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels.py:125",
                tex_total("wide_bounce_kernel<prog>"), tex_err(tex_worst["textures_512"])),
         kernel("wide_nee_kernel<prog>", "bounce.cu", "pyrite_tpu/kernels.py:337",
                tex_total("wide_nee_kernel<prog>"), tex_worst["textures_512"]["nee"]),
         dict(kernel("dense_bounce_kernel<record,prog>", "bounce.cu", None,
                     tex_total("dense_bounce_kernel<record,prog>") - photon_record,
-                    max(tex_bdpt_worst["record"], tex_bdpt_worst["brightness"])),
+                    max(tex_bdpt_worst["record"], tex_bdpt_worst["brightness"], last_worst["record"])),
              replaces="none: XLA, pyrite_tpu/tracer.py:1585 bounce_core's info"),
         # the kProg form at the photon renderer's S + G columns (textures_photon's
         # camera walk: 70, and 518 at 512 bins in phase 9), its launches there
@@ -6975,16 +7497,21 @@ def main(argv=None):
                     max(photon_checked["textures_photon"]["worst"]["record"], wide_worst["record"])),
              replaces="none: XLA, pyrite_tpu/tracer.py:1585 bounce_core's info"),
         dict(kernel("dense_lamp_kernel<prog>", "bounce.cu", None,
-                    tex_total("dense_lamp_kernel<prog>"), max(tex_bdpt_worst["lamp"], wide_worst["lamp"])),
+                    tex_total("dense_lamp_kernel<prog>"), max(tex_bdpt_worst["lamp"], wide_worst["lamp"],
+                                                              last_worst["lamp"])),
              replaces="none: XLA, pyrite_tpu/tracer.py:1953 lamp_bounce_step"),
         dict(kernel("program_colors_kernel", "bounce.cu", None, tex_total("program_colors_kernel"),
-                    max(tex_bdpt_worst["colors"], tex_bdpt_worst["color_edges"])),
+                    max(tex_bdpt_worst["colors"], tex_bdpt_worst["color_edges"], last_worst["colors"])),
              replaces="none: XLA, pyrite_tpu/renderers/bidirectional.py:73 _lamp_path_factors"),
         # the photon renderer's gather ports no TPU kernel either
         dict(kernel("photon_gather_kernel", "photon.cu", None,
                     sum(run["photon_gather_kernel"] for run in photon_runs + multi_runs),
                     max(max(c["worst"]["gather"] for c in photon_checked.values()), edge_err,
                         wide_worst["gather"])),
+             replaces="none: XLA, pyrite_tpu/renderers/photon.py:310 _gather"),
+        # phase 10's new form: the gather past its row form's bins
+        dict(kernel("photon_gather_kernel<out_row>", "photon.cu", None,
+                    sum(run["photon_gather_kernel<out_row>"] for run in last), last_worst["out_row"]),
              replaces="none: XLA, pyrite_tpu/renderers/photon.py:310 _gather"),
     ]
     assert all(k["launches"] > 0 for k in kernels), kernels

@@ -82,8 +82,8 @@ _SIGNATURES = {
     "pyrite_bounce_record_smem": [_I, _I, _I],
     "pyrite_nee_smem": [_I, _I],
     "pyrite_draws_smem": [_I],
-    "pyrite_gather_smem": [_I, _I],
-    "pyrite_photon_gather": [_P] * 33 + [_I] * 10 + [_F] * 6 + [_P],
+    "pyrite_gather_smem": [_I, _I, _I],
+    "pyrite_photon_gather": [_P] * 33 + [_I] * 11 + [_F] * 6 + [_P],
 }
 
 

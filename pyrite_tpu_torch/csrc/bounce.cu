@@ -50,7 +50,7 @@ constexpr int PROG_STACK = 8;  // exprs.PROG_STACK: the simple instantiations' s
 enum Op {
   OP_CONST, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MIX, OP_CLAMP, OP_FRESNEL, OP_VEC, OP_LEAF,
   OP_LEAF4, OP_TEX_COLOR, OP_TEX_MONO, OP_SPLAT_RGB, OP_SPLAT_VEC, OP_RGB_TO_VEC, OP_TO_NUMBER,
-  OP_RGB, OP_VECTOR, OP_SLOT
+  OP_RGB, OP_VECTOR, OP_SLOT, OP_SWAP
 };
 
 enum { BSDF_EMISSIVE = 0, BSDF_DIFFUSE = 1, BSDF_MIRROR = 2, BSDF_REFRACTIVE = 3 };
@@ -527,6 +527,12 @@ __device__ __forceinline__ float4 eval_program(const Programs& pr, const ProgArg
         case OP_CONST: st[sp++] = f4(pr.code_val[i]); break;
         case OP_VEC: st[sp++] = load4(pa.vecs, arg); break;
         case OP_SLOT: st[sp] = st[arg]; ++sp; break;
+        case OP_SWAP: {  // the top value and the one `arg` below it change places
+          const float4 top = st[sp - 1];
+          st[sp - 1] = st[sp - 1 - arg];
+          st[sp - 1 - arg] = top;
+          break;
+        }
         case OP_LEAF: st[sp++] = f4(pa.leaves[(size_t)arg * n * s + cell]); break;
         case OP_LEAF4: st[sp++] = load4(pa.leaves + (size_t)arg * n * s, (int)cell); break;
         case OP_TEX_COLOR:

@@ -62,7 +62,6 @@ struct DeShape {
   V3 a, b, center;  // box min / max, or sphere center / (radius, 0, 0); local origin
   int mat;
 };
-static_assert(sizeof(DeShape) == 96, "kernels_dense.DE_SHAPE_BYTES");
 
 // A DeShape from its fields in kernels_dense.DE_FIELDS order (host or device).
 __host__ __device__ __forceinline__ DeShape de_shape(const float* f) {
@@ -309,6 +308,12 @@ __device__ __forceinline__ float march_t(const March& m) {
 // no cap; see launch_march). Item i (64-bit) is (shape i / per_shape, ray
 // i % per_shape), and each source stores item i's result at index i.
 //
+// A lane reads its item's shape from the sheet into registers as it fetches
+// the item (rays.shape(j)), so no shared memory grows with the shape count
+// and a scene of any number of shapes runs. (Staging every shape in shared
+// memory first, 96 bytes a shape, held at most 2,410 a block, left one block
+// a SM at that count and was no faster at 1 or 130 shapes: PERF.md row 3.)
+//
 // Every thread of the grid runs the loop to the end, so the warp operations
 // (the ballot, the shuffle, the vote) are reached by all 32 threads: each
 // branch between two of them is an `if` that reconverges, and the loops
@@ -321,16 +326,13 @@ template <class Rays>
 __global__ void __launch_bounds__(BLOCK)
     march_de_kernel(const Rays rays, int n_shapes, int per_shape, int max_steps, float omega,
                     unsigned long long* __restrict__ next) {
-  extern __shared__ DeShape shapes[];
-  for (int j = threadIdx.x; j < n_shapes; j += blockDim.x) shapes[j] = rays.shape(j);
-  __syncthreads();
   const long long items = (long long)n_shapes * per_shape;
   const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
   March m = no_march();
   Orbit o = {};
   V3 p = {0.f, 0.f, 0.f};
   long long item = 0;
-  int j = 0;
+  DeShape s = {};  // the shape of the lane's item
   bool active = false, drained = false;
   for (;;) {
     for (;;) {
@@ -345,12 +347,13 @@ __global__ void __launch_bounds__(BLOCK)
         if (item >= items) {
           drained = true;
         } else {
-          j = (int)(item / per_shape);
-          m = rays.begin(shapes[j], (int)(item - (long long)j * per_shape));
+          const int j = (int)(item / per_shape);
+          s = rays.shape(j);
+          m = rays.begin(s, (int)(item - (long long)j * per_shape));
           active = marching(m, max_steps);
           if (active) {
             p = march_point(m);
-            o = orbit_start(shapes[j], p);
+            o = orbit_start(s, p);
           } else {
             rays.end(item, m);
           }
@@ -359,7 +362,6 @@ __global__ void __launch_bounds__(BLOCK)
     }
     if (!__any_sync(FULL_WARP, active)) break;
     if (active) {
-      const DeShape& s = shapes[j];
       if (orbit_step(s, p, o)) {
         march_step(m, orbit_distance(s, o), omega);
         active = marching(m, max_steps);
@@ -380,9 +382,8 @@ __global__ void __launch_bounds__(BLOCK)
 // where that is set (no more blocks than items fill). `next` is the
 // caller's 8-byte counter in device memory, zeroed here on the stream before
 // the launch, so a launch repeated with the same arguments marches every item
-// again. The kernel stages every shape in dynamic shared memory, opting in
-// past the 48 KiB a block gets by default (kernels_dense.MAX_DE_SHAPES is
-// the gate's ceiling). Returns the first CUDA error (0 on success).
+// again. The kernel takes no dynamic shared memory. Returns the first CUDA
+// error (0 on success).
 //
 // Why the cap: the pass ends with its longest rays, each a chain of
 // iterations in one thread (~0.9 us per Mandelbulb iteration for a warp
@@ -397,23 +398,19 @@ __global__ void __launch_bounds__(BLOCK)
 template <class Rays>
 int launch_march(const Rays& rays, int n_shapes, int per_shape, int max_steps, float omega,
                  unsigned long long* next, cudaStream_t stream) {
-  const size_t smem = sizeof(DeShape) * (size_t)n_shapes;
+  const auto kernel = march_de_kernel<Rays>;
   int device = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&device);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (e == cudaSuccess && smem > 48 * 1024)
-    e = cudaFuncSetAttribute(march_de_kernel<Rays>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
   if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, march_de_kernel<Rays>, BLOCK, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, BLOCK, 0);
   if (e == cudaSuccess) e = cudaMemsetAsync(next, 0, sizeof(*next), stream);
   if (e != cudaSuccess) return (int)e;
   if (Rays::kBlocksPerSm > 0 && per_sm > Rays::kBlocksPerSm) per_sm = Rays::kBlocksPerSm;
   const long long fill = ((long long)n_shapes * per_shape + BLOCK - 1) / BLOCK;
   const long long resident = (long long)sms * per_sm;
   const int grid = (int)(fill < resident ? (fill > 0 ? fill : 1) : (resident > 0 ? resident : 1));
-  march_de_kernel<Rays><<<grid, BLOCK, smem, stream>>>(rays, n_shapes, per_shape, max_steps, omega,
-                                                        next);
+  kernel<<<grid, BLOCK, 0, stream>>>(rays, n_shapes, per_shape, max_steps, omega, next);
   return (int)cudaGetLastError();
 }
 

@@ -53,6 +53,11 @@
 //   warp in dynamic shared memory (gather_row), each entry touched only by
 //   the lane that owns it, written out as coalesced runs; a warp whose
 //   vertex is not valid writes its zeros and ends;
+// - past what a block's shared memory holds of such rows (7,085 bins at K
+//   = 6: kernels_dense.gather_out_row), the <out_row> form keeps the B acc
+//   and cnt bins in the vertex's output row in device memory instead, each
+//   entry zeroed and added to by the lane that owns it, in the same order,
+//   so its bins are the row form's bit for bit and no row grows with B;
 // - past FRESH_CHUNK fresh wavelengths the row holds no fresh sums: the
 //   owning lanes add into the vertex's row of fresh_psum in device memory
 //   (zeroed first, each entry by its owner, so the adds keep their order),
@@ -173,19 +178,20 @@ constexpr int PAIR_RING = 64;
 constexpr int FRESH_CHUNK = 64;
 
 // 4-byte words of a warp's row in dynamic shared memory: B acc bins, B
-// cnt bins, K fresh sums (none past FRESH_CHUNK), CELL_CAP pairs' fresh
-// values of a chunk of kc = min(K, FRESH_CHUNK) wavelengths at a stride of
-// kc | 1 and the ring of PAIR_RING photon indices
-// (kernels_dense.gather_smem_bytes).
+// cnt bins (bins = 0 in the <out_row> form), K fresh sums (none past
+// FRESH_CHUNK), CELL_CAP pairs' fresh values of a chunk of kc = min(K,
+// FRESH_CHUNK) wavelengths at a stride of kc | 1 and the ring of PAIR_RING
+// photon indices (kernels_dense.gather_smem_bytes).
 __host__ __device__ __forceinline__ size_t gather_row(int bins, int k) {
   const int kc = k < FRESH_CHUNK ? k : FRESH_CHUNK;
   return 2 * (size_t)bins + (k <= FRESH_CHUNK ? k : 0) + (size_t)CELL_CAP * (kc | 1) + PAIR_RING;
 }
 
 // kChunks: past FRESH_CHUNK fresh wavelengths (the output row's sums, the
-// values a chunk at a time); an instantiation of its own, so that the
-// other keeps its registers (64, no spill).
-template <bool kChunks>
+// values a chunk at a time); kOutRow: the bins in the output row (the
+// <out_row> form); each an instantiation of its own, so that the others
+// keep their registers (64, no spill).
+template <bool kChunks, bool kOutRow>
 __global__ void __launch_bounds__(32 * GATHER_WARPS, GATHER_MIN_BLOCKS)
     photon_gather_kernel(const GatherArgs a) {
   extern __shared__ __align__(16) float gather_smem[];
@@ -214,10 +220,12 @@ __global__ void __launch_bounds__(32 * GATHER_WARPS, GATHER_MIN_BLOCKS)
   // fresh pair at r * ks (ks odd: no bank conflict); a ring of PAIR_RING
   // pairs' photon indices in scan order
   const int kc = kChunks ? FRESH_CHUNK : k, ks = kc | 1;
-  float* const acc = gather_smem + (size_t)w * gather_row(bins, k);
-  float* const cnt = acc + bins;
-  float* const fr = kChunks ? out_fr : cnt + bins;
-  float* const fs = cnt + bins + (kChunks ? 0 : k);
+  const int row_bins = kOutRow ? 0 : bins;
+  float* const row = gather_smem + (size_t)w * gather_row(row_bins, k);
+  float* const acc = kOutRow ? out_acc : row;
+  float* const cnt = kOutRow ? out_cnt : row + bins;
+  float* const fr = kChunks ? out_fr : row + 2 * row_bins;
+  float* const fs = row + 2 * row_bins + (kChunks ? 0 : k);
   int* const ring = (int*)(fs + CELL_CAP * ks);
   for (int j = l; j < bins; j += 32) {
     acc[j] = 0.0f;
@@ -372,10 +380,11 @@ __global__ void __launch_bounds__(32 * GATHER_WARPS, GATHER_MIN_BLOCKS)
     a.fresh_cnt[v] = fcnt;
   }
   // the row out as coalesced runs, each entry by the lane that wrote it
-  for (int jj = l; jj < bins; jj += 32) {
-    out_acc[jj] = acc[jj];
-    out_cnt[jj] = cnt[jj];
-  }
+  if (!kOutRow)
+    for (int jj = l; jj < bins; jj += 32) {
+      out_acc[jj] = acc[jj];
+      out_cnt[jj] = cnt[jj];
+    }
   if (!kChunks)
     for (int jj = l; jj < k; jj += 32) out_fr[jj] = fr[jj];
 }
@@ -385,14 +394,16 @@ __global__ void __launch_bounds__(32 * GATHER_WARPS, GATHER_MIN_BLOCKS)
 extern "C" {
 
 // The dynamic shared memory a launch of `bins` film bins and `k` fresh
-// wavelengths passes (kernels_dense.gather_smem_bytes mirrors it).
-int pyrite_gather_smem(int bins, int k) {
-  return (int)(sizeof(float) * GATHER_WARPS * gather_row(bins, k));
+// wavelengths passes, in the row form or the <out_row> form
+// (kernels_dense.gather_smem_bytes mirrors it).
+int pyrite_gather_smem(int bins, int k, int out_row) {
+  return (int)(sizeof(float) * GATHER_WARPS * gather_row(out_row ? 0 : bins, k));
 }
 
 // photon_gather_kernel over `n` camera vertices against a map of `p`
 // photons (GatherArgs, in its order), one warp a vertex in blocks of
-// GATHER_WARPS warps; returns cudaGetLastError().
+// GATHER_WARPS warps, in the <out_row> form where `out_row`
+// (kernels_dense.gather_out_row); returns cudaGetLastError().
 int pyrite_photon_gather(
     const int* keys, const float* p_pos, const uint8_t* p_valid, const float* p_inc,
     const float* p_power, const float* p_lam, const uint8_t* p_disp, const float* p_counts,
@@ -402,8 +413,8 @@ int pyrite_photon_gather(
     const float* q_counts, const float* q_scalar, const float* logf0, const float* negf0,
     const float* zerof0, const float* logff, const float* negff, const float* zeroff,
     float* acc_bins, float* cnt_bins, int* num, float* fresh_psum, int* fresh_cnt, int n, int p,
-    int m, int k, int bins, int cols, int s, int g, int exact, int pcols, float radius,
-    float rr, float lo, float bin_scale, float d_film, float d_grid, void* stream) {
+    int m, int k, int bins, int cols, int s, int g, int exact, int pcols, int out_row,
+    float radius, float rr, float lo, float bin_scale, float d_film, float d_grid, void* stream) {
   const GatherArgs a = {keys,     p_pos,    p_valid, p_inc,  p_power, p_lam,      p_disp,
                         p_counts, p_scalar, p_logf,  p_negf, p_zerof, q_pos,      q_normal,
                         q_inc,    q_valid,  q_disp,  q_r,    lam0,    lam_f,      q_counts,
@@ -413,8 +424,11 @@ int pyrite_photon_gather(
                         exact,    pcols,    radius,  rr,     lo,      bin_scale,  d_film,
                         d_grid};
   if (n <= 0) return (int)cudaGetLastError();
-  const size_t smem = pyrite_gather_smem(bins, k);
-  const auto kernel = k > FRESH_CHUNK ? photon_gather_kernel<true> : photon_gather_kernel<false>;
+  const size_t smem = pyrite_gather_smem(bins, k, out_row);
+  const auto kernel = k > FRESH_CHUNK ? (out_row ? photon_gather_kernel<true, true>
+                                                 : photon_gather_kernel<true, false>)
+                                      : (out_row ? photon_gather_kernel<false, true>
+                                                 : photon_gather_kernel<false, false>);
   if (smem > 48 * 1024)
     cudaFuncSetAttribute((const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   kernel<<<(n + GATHER_WARPS - 1) / GATHER_WARPS, 32 * GATHER_WARPS, smem, (cudaStream_t)stream>>>(a);

@@ -497,20 +497,31 @@ def texture_key(kind, fields):
 #   SLOT pushes slot ``arg`` again.
 # The same ops run on the same values, so each value is the one stream's,
 # bit for bit, and a texture is sampled once per lane, not once per column.
-# The opcodes are mirrored in csrc/bounce.cu. A program has no length limit;
-# the simple instantiations' stack holds PROG_STACK values, the kProg ones'
+# The opcodes are mirrored in csrc/bounce.cu. A program has no length or
+# depth limit. It is lowered with its operands in the order the expression
+# gives them, unless that needs a stack deeper than PROG_STACK_MAX values:
+# then in Sethi-Ullman order (Sethi and Ullman, "The generation of optimal
+# code for arithmetic expressions", JACM 1970), each node's operands from
+# the one that needs the deepest stack to the one that needs the least,
+#   SWAP exchanging the top value and the one ``arg`` below it,
+# so that every op finds its operands in their order again (ADD and MUL
+# take them as they come: an IEEE sum or product does not depend on the
+# order): each op gets the same operand values, so each output is
+# bit-equal to the expression's order, and the stack grows with the
+# logarithm of the program's size. The
+# simple instantiations' stack holds PROG_STACK values, the kProg ones'
 # the scene's deepest program (KernelPrograms.stack_depth, at least
 # PROG_STACK), in shared memory sized per launch.
 
 (OP_CONST, OP_ADD, OP_SUB, OP_MUL, OP_DIV, OP_MIX, OP_CLAMP, OP_FRESNEL, OP_VEC, OP_LEAF,
  OP_LEAF4, OP_TEX_COLOR, OP_TEX_MONO, OP_SPLAT_RGB, OP_SPLAT_VEC, OP_RGB_TO_VEC, OP_TO_NUMBER,
- OP_RGB, OP_VECTOR, OP_SLOT) = range(20)
+ OP_RGB, OP_VECTOR, OP_SLOT, OP_SWAP) = range(21)
 SIMPLE_OPS = frozenset(range(OP_FRESNEL + 1))  # the simple kernels' form
 TEXTURE_OPS = frozenset((OP_TEX_COLOR, OP_TEX_MONO))
 COLUMN_OPS = frozenset((OP_LEAF, OP_LEAF4, OP_TO_NUMBER))  # read the lane's spectral column
 PROG_STACK = 8  # the kernels' least stack depth, values (a program's depth may pass it)
-PROG_STACK_MAX = 48  # the deepest stack a program may need (96 KiB of shared memory a block)
-# the operands each opcode pops (the others pop none)
+PROG_STACK_MAX = 48  # the deepest stack a program is lowered to (96 KiB of shared memory a block)
+# the operands each opcode pops (the others pop none; SWAP moves two)
 _POPS = {OP_ADD: 2, OP_SUB: 2, OP_MUL: 2, OP_DIV: 2, OP_MIX: 3, OP_CLAMP: 3, OP_FRESNEL: 2,
          OP_SPLAT_RGB: 1, OP_SPLAT_VEC: 1, OP_RGB_TO_VEC: 1, OP_TO_NUMBER: 1, OP_RGB: 3,
          OP_VECTOR: 4}
@@ -520,9 +531,23 @@ def _depth(code, base=0):
     """The deepest stack ``code`` reaches from ``base`` values."""
     sp = deepest = base
     for op, _, _ in code:
-        sp += 1 - _POPS.get(op, 0)
+        sp += 0 if op == OP_SWAP else 1 - _POPS.get(op, 0)
         deepest = max(deepest, sp)
     return deepest
+
+
+def _swaps(order):
+    """The SWAP arguments that put operands pushed in ``order`` (their
+    places in the op's order, bottom first) back in the op's order."""
+    cur, top, out = list(order), len(order) - 1, []
+    for place in range(top):
+        if cur[place] == place:
+            continue
+        at = cur.index(place)
+        for p in ((at,) if at != top else ()) + (place,):
+            out.append(top - p)
+            cur[top], cur[p] = cur[p], cur[top]
+    return out
 
 
 def split_code(code):
@@ -533,13 +558,18 @@ def split_code(code):
     depth where that is deeper; each replaced by SLOT in the column code."""
     limit = max(PROG_STACK, _depth(code))
     start, column, parent, stack = [], [], [None] * len(code), []
-    for i, (op, _, _) in enumerate(code):
+    for i, (op, _, arg) in enumerate(code):
+        if op == OP_SWAP:  # part of the op it precedes, never hoisted alone
+            stack[-1], stack[-1 - arg] = stack[-1 - arg], stack[-1]
+            start.append(i)
+            column.append(True)
+            continue
         pops = _POPS.get(op, 0)
         operands = stack[len(stack) - pops:] if pops else []
         del stack[len(stack) - len(operands):]
         for j in operands:
             parent[j] = i
-        start.append(start[operands[0]] if operands else i)
+        start.append(min(start[j] for j in operands) if operands else i)
         column.append(op in COLUMN_OPS or any(column[j] for j in operands))
         stack.append(i)
     hoisted = []
@@ -572,7 +602,6 @@ def _column_part(code, start, hoisted):
 
 _BINARY_OPS = {"add": OP_ADD, "sub": OP_SUB, "mul": OP_MUL, "div": OP_DIV}
 _PROMOTE = {(NUMBER, RGB): OP_SPLAT_RGB, (NUMBER, VECTOR): OP_SPLAT_VEC, (RGB, VECTOR): OP_RGB_TO_VEC}
-PROGRAMS_NOT_PORTED = "(ROADMAP.md queue 1 item 15: the gate's last refusals)"
 
 
 def _inline_number(node):
@@ -662,12 +691,57 @@ class KernelPrograms:
         return self.leaf_base[self._basis]
 
     def _lower(self, expr, output_type):
-        code, depth = [], [0, 0]
+        """Append ``expr``'s code: its operands in the expression's order,
+        or in Sethi-Ullman order where that needs a stack deeper than
+        PROG_STACK_MAX values (see the comment above OP_CONST)."""
+        code, depth, needs = [], [0, 0], {}
 
         def push(op, value=0.0, arg=0, pops=0):
             depth[0] += 1 - pops
             depth[1] = max(depth[1], depth[0])
             code.append((op, float(value), int(arg)))
+
+        def leaf(node):
+            """Whether ``node`` is one value pushed by one instruction (a
+            constant, a leaf, a vector constant, a texture)."""
+            return isinstance(node, float) or node.kind in ("color_texture", "mono_texture") or (
+                not expr_uses_ray_inputs(node)
+                and not (_static_type(node)[0] == NUMBER and _inline_number(node)))
+
+        def operands(node):
+            """``node``'s operands in its op's order, each (subtree, emit):
+            emit leaves the operand's value as the op takes it."""
+            t, f = _static_type(node)[0], node.fields
+            if node.kind in ("binary", "mix"):
+                out = [(f[side], lambda side=side: convert(f[side], t)) for side in ("lhs", "rhs")]
+                return out + ([(f["amount"], lambda: number(f["amount"]))] if node.kind == "mix"
+                              else [])
+            keys = {"clamp": ("value", "min", "max"), "fresnel": ("ior", "env_ior"),
+                    "rgb": ("red", "green", "blue"), "vector": "xyzw"}.get(node.kind)
+            if keys is None:
+                raise ir.ProjectError(f"unknown expression kind {node.kind!r}")
+            return [(f[k], lambda k=k: number(f[k])) for k in keys]
+
+        def need(node, ordered):
+            """The stack ``node``'s code reaches, its operands in the
+            expression's order or (``ordered``) from the deepest need."""
+            key = (id(node), ordered)
+            if key not in needs:
+                if leaf(node):
+                    needs[key] = 1
+                else:
+                    sub = [need(n, ordered) for n, _ in operands(node)]
+                    sub = sorted(sub, reverse=True) if ordered else sub
+                    needs[key] = max(n + i for i, n in enumerate(sub))
+            return needs[key]
+
+        reorder = need(expr, False) > PROG_STACK_MAX
+
+        def convert(node, t):
+            st = _static_type(node)[0]
+            emit(node)
+            if st != t:
+                push(_PROMOTE[(st, t)], pops=1)
 
         def number(node):
             if emit(node) == RGB:
@@ -682,48 +756,36 @@ class KernelPrograms:
                 push(OP_CONST, node)
                 return NUMBER
             f = node.fields
-            if not expr_uses_ray_inputs(node) and not (t == NUMBER and _inline_number(node)):
-                if node.kind in ("rgb", "vector") and all(
-                        isinstance(v, float) for v in f.values()):
-                    keys = ("red", "green", "blue") if node.kind == "rgb" else "xyzw"
-                    vals = [f[k] for k in keys] + ([1.0] if node.kind == "rgb" else [])
-                    self.vecs.append(tuple(vals))
-                    push(OP_VEC, arg=len(self.vecs) - 1)
-                else:
-                    leaf = self._leaf(node, 1 if t == NUMBER else 4)
-                    push(OP_LEAF if t == NUMBER else OP_LEAF4, arg=self.leaf_base[leaf])
-                return t
             kind = node.kind
-            if kind in ("binary", "mix"):
-                lt, rt = _static_type(f["lhs"])[0], _static_type(f["rhs"])[0]
-                for side, st in (("lhs", lt), ("rhs", rt)):
-                    emit(f[side])
-                    if st != t:
-                        push(_PROMOTE[(st, t)], pops=1)
-                if kind == "mix":
-                    number(f["amount"])
-                    push(OP_MIX, pops=3)
-                else:
-                    push(_BINARY_OPS[f["operator"]], pops=2)
-            elif kind == "clamp":
-                for k in ("value", "min", "max"):
-                    number(f[k])
-                push(OP_CLAMP, pops=3)
-            elif kind == "fresnel":
-                number(f["ior"])
-                number(f["env_ior"])
-                push(OP_FRESNEL, pops=2)
-            elif kind in ("color_texture", "mono_texture"):
+            if kind in ("color_texture", "mono_texture"):
                 key = texture_key("color" if kind == "color_texture" else "mono", f)
                 push(OP_TEX_COLOR if kind == "color_texture" else OP_TEX_MONO,
                      arg=self.textures.index(key))
-            elif kind in ("rgb", "vector"):
-                keys = ("red", "green", "blue") if kind == "rgb" else "xyzw"
-                for k in keys:
-                    number(f[k])
-                push(OP_RGB if kind == "rgb" else OP_VECTOR, pops=len(keys))
+                return t
+            if leaf(node):
+                if kind in ("rgb", "vector") and all(isinstance(v, float) for v in f.values()):
+                    keys = ("red", "green", "blue") if kind == "rgb" else "xyzw"
+                    vals = [f[k] for k in keys] + ([1.0] if kind == "rgb" else [])
+                    self.vecs.append(tuple(vals))
+                    push(OP_VEC, arg=len(self.vecs) - 1)
+                else:
+                    leaf_id = self._leaf(node, 1 if t == NUMBER else 4)
+                    push(OP_LEAF if t == NUMBER else OP_LEAF4, arg=self.leaf_base[leaf_id])
+                return t
+            ops = operands(node)
+            order = list(range(len(ops)))
+            if reorder:
+                order.sort(key=lambda i: -need(ops[i][0], True))
+            for i in order:
+                ops[i][1]()
+            commutes = kind == "binary" and f["operator"] in ("add", "mul")
+            for arg in [] if commutes else _swaps(order):
+                push(OP_SWAP, arg=arg, pops=1)  # moves two values, pushes none
+            if kind in ("binary", "mix"):
+                push(OP_MIX if kind == "mix" else _BINARY_OPS[f["operator"]], pops=len(ops))
             else:
-                raise ir.ProjectError(f"unknown expression kind {kind!r}")
+                push({"clamp": OP_CLAMP, "fresnel": OP_FRESNEL, "rgb": OP_RGB,
+                      "vector": OP_VECTOR}[kind], pops=len(ops))
             return t
 
         if output_type == NUMBER:
@@ -732,11 +794,7 @@ class KernelPrograms:
             t = emit(expr)
             if t != VECTOR:
                 push(_PROMOTE[(t, VECTOR)], pops=1)
-        if depth[1] > PROG_STACK_MAX:
-            raise NotImplementedError(
-                f"a program that reads the ray needs stack depth {depth[1]}; the kernels take "
-                f"{PROG_STACK_MAX} {PROGRAMS_NOT_PORTED}"
-            )
+        assert depth[1] == need(expr, reorder) <= PROG_STACK_MAX, (depth[1], need(expr, reorder))
         self.code.extend(code)
 
     def leaf_values(self, wavelengths):
@@ -798,6 +856,8 @@ class KernelPrograms:
                 stack.append(torch.tensor(self.vecs[arg], device=dev).expand(m, 4))
             elif op == OP_SLOT:
                 stack.append(slots[arg])
+            elif op == OP_SWAP:
+                stack[-1], stack[-1 - arg] = stack[-1 - arg], stack[-1]
             elif op in (OP_LEAF, OP_LEAF4):
                 stack.append(leaf(arg, 1 if op == OP_LEAF else 4))
             elif op == OP_TEX_COLOR:

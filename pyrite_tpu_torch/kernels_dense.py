@@ -76,15 +76,13 @@ FORM_SIMPLE, FORM_PROG, FORM_GATE = 0, 1, 2
 # The shared memory one block may take on an H100 once the launcher opts in
 # (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KiB), less 1 KiB for the
 # kernels' static arrays. No kernel's dynamic shared memory grows with S
-# past a fixed bound (launch_smem: the launchers' own measures); it grows
-# with the program stack, the photon film's bins and the DE shapes, which
-# the gate refuses past what a block holds.
+# past a fixed bound (launch_smem: the launchers' own measures). The kProg
+# program stack grows with a program's depth up to exprs.PROG_STACK_MAX,
+# which every launcher holds at any S (a deeper program is lowered in
+# Sethi-Ullman order, exprs.KernelPrograms); march_de_kernel reads each DE
+# shape from the sheet and takes none; past what a block holds, the photon
+# film's bins live in the gather's output row (gather_out_row).
 SMEM_PER_BLOCK = 227 * 1024 - 1024
-# march_de_kernel stages every DE shape of the scene in its dynamic shared
-# memory (csrc/march_de.cuh, sizeof(DeShape) bytes a shape; launch_march
-# opts in past 48 KiB): the gate refuses a scene of more shapes.
-DE_SHAPE_BYTES = 96
-MAX_DE_SHAPES = SMEM_PER_BLOCK // DE_SHAPE_BYTES
 _DE_SLOT_BYTES = 4 * (BLOCK // 32) * (32 * 3 + 32 + 32 * 6)  # csrc/bounce.cu DE_SLOT_FLOATS
 _ROW_OP_FLOATS = 8  # csrc/bounce.cu sizeof(RowOp) / 4 (a pointer and five words, 8-aligned)
 # csrc/bounce.cu OWN_STRIDE and RECORD_STRIDE: a kProg block's slot a lane
@@ -147,6 +145,8 @@ _LAUNCHERS = {
     "program_colors_kernel": "pyrite_program_colors",
     "photon_gather_kernel": "pyrite_photon_gather",
 }
+# past a block's shared memory the gather's <out_row> form: the same launcher
+_LAUNCHERS["photon_gather_kernel<out_row>"] = _LAUNCHERS["photon_gather_kernel"]
 
 
 def prog_name(name):
@@ -167,14 +167,9 @@ _LAUNCHERS.update({prog_name(k): _LAUNCHERS[k] for k in (
 # instantiations ("<record>"), the lamp kernels, dense_shadow_kernel and
 # program_colors_kernel (its lamp vertices' colors on a scene whose color
 # programs read the ray); the photon renderer's, the same and
-# photon_gather_kernel. The kProg instantiations count apart.
+# photon_gather_kernel. The kProg instantiations count apart, and so does
+# the gather's <out_row> form.
 launches = dict.fromkeys(_LAUNCHERS, 0)
-
-_GATE = exprs.PROGRAMS_NOT_PORTED  # ROADMAP.md queue 1 item 15: the gate's last refusals
-
-
-def _refuse(what):
-    raise NotImplementedError(f"{what}: not ported to pyrite_tpu_torch yet {_GATE}")
 
 
 def estimator_fields(est):
@@ -265,8 +260,8 @@ def launch_smem(widths, de, form, stack, bins=None):
     launchers' own measures: the bounce, NEE, kRecord and lamp kernels,
     program_colors_kernel (its stack and a ring of 64 slots a warp), the
     draws' camera rows at S (rng.draws_smem_bytes) and, given the photon film's
-    ``bins``, photon_gather_kernel (gather_smem_bytes at K = S). None of
-    them grows with S past a fixed bound."""
+    ``bins``, photon_gather_kernel (gather_smem_bytes at K = S, in the form
+    gather_out_row picks). None of them grows with S past a fixed bound."""
     from .rng import draws_smem_bytes
 
     out = {
@@ -278,59 +273,46 @@ def launch_smem(widths, de, form, stack, bins=None):
         "draws": draws_smem_bytes(widths[0]),
     }
     if bins is not None:
-        out["gather"] = gather_smem_bytes(bins, widths[0])
+        out["gather"] = gather_smem_bytes(bins, widths[0], gather_out_row(bins, widths[0]))
     return out
 
 
 def build_pack(scene, a):
     """Gate + packed scene sheet from the host (numpy) scene arrays ``a``.
 
-    Raises NotImplementedError for what the kernels do not take (ROADMAP.md
-    queue 1 item 15): a dense scene of no primitive and no DE shape, lamps
-    of an unknown type, more DE shapes than the march kernel's shared
-    memory holds (MAX_DE_SHAPES) and, on a photon-mapping project, more
-    film bins than photon_gather_kernel's shared memory holds (its row of
-    2 B bins a warp); any spectral width S >= 1 is taken (launch_smem: no
-    kernel's shared memory grows with S past a fixed bound), the photon
-    renderer's S + G camera and 1 + B lamp columns too
-    (scene.photon_widths). A dense scene (at most
-    scene.CLUSTER_THRESHOLD = 128 finite primitives) may have no finite
-    primitive when it has a DE shape (the JAX package keeps DE scenes out
-    of its dense pack and runs them in XLA). A table of more than 128
-    entries (materials, components, lamps, planes, DE shapes) takes
-    consecutive sheet rows. Returns a dict with the [R, 128] sheet, the row
-    indices (``meta``), the lowered programs (``programs``), whether the
-    scene runs the kProg instantiations (``prog``), its ``form`` (FORM_*),
-    their program stack (``stack``, values a thread; 0 on the simple
-    ones), each kernel's dynamic shared memory at the scene's widths
-    (``smem``, launch_smem) and the device tensors the kernels read."""
+    The gate takes every scene the JAX package builds: any spectral width S
+    >= 1 (launch_smem: no kernel's shared memory grows with S past a fixed
+    bound), the photon renderer's S + G camera and 1 + B lamp columns too
+    (scene.photon_widths); a dense scene (at most scene.CLUSTER_THRESHOLD =
+    128 finite primitives) of no finite primitive, beside DE shapes or
+    planes alone (the JAX package keeps both out of its dense pack and runs
+    them in XLA); any number of DE shapes (march_de_kernel reads each from
+    the sheet) and photon film bins (gather_out_row); programs of any depth (exprs.KernelPrograms). A table
+    of more than 128 entries (materials, components, lamps, planes, DE
+    shapes) takes consecutive sheet rows. Returns a dict with the [R, 128]
+    sheet, the row indices (``meta``), the lowered programs
+    (``programs``), whether the scene runs the kProg instantiations
+    (``prog``), its ``form`` (FORM_*), their program stack (``stack``,
+    values a thread; 0 on the simple ones), each kernel's dynamic shared
+    memory at the scene's widths (``smem``, launch_smem) and the device
+    tensors the kernels read."""
     clusters = scene.use_clusters
     n_de = len(scene.de_shapes)
-    if not clusters and not (0 < scene.num_primitives <= 128 or scene.num_primitives == 0 < n_de):
-        _refuse(
-            f"a dense scene with {scene.num_primitives} finite primitives (the kernels "
-            "sweep 1 to 128, or none beside a DE shape; more take the wide BVH)"
-        )
+    assert clusters or scene.num_primitives <= 128, scene.num_primitives  # scene.CLUSTER_THRESHOLD
     lamp_types = set(a["lamp_type"].tolist()) if scene.num_lamps else set()
-    if not lamp_types <= {LAMP_DIRECTIONAL, LAMP_POINT, LAMP_SPHERE, LAMP_TRIANGLE}:
-        _refuse(f"lamp types {sorted(lamp_types)}")
+    assert lamp_types <= {LAMP_DIRECTIONAL, LAMP_POINT, LAMP_SPHERE, LAMP_TRIANGLE}, lamp_types
     programs = exprs.KernelPrograms(scene, scene.resources)
     prog = not programs.simple
     stack = programs.stack_depth if prog else 0
     s = scene.spectrum_samples
     if s < 1:
         raise ValueError(f"{s} spectrum samples; a scene takes at least 1")
-    if n_de > MAX_DE_SHAPES:
-        _refuse(f"{n_de} DE shapes (the march kernel's shared memory holds {MAX_DE_SHAPES})")
     photon = scene.photon_widths
     widths = (s,) if photon is None else (s, photon["camera"], photon["lamp"])
     gate = bool(scene.directional_lamps) or max(widths) > GATHER_ROW or (
         scene.color_bank_bakeable is not None or scene.prob_bank_bakeable is not None)
     form = FORM_PROG if prog else FORM_GATE if gate else FORM_SIMPLE
     smem = launch_smem(widths, n_de > 0, form, stack, None if photon is None else photon["bins"])
-    if smem.get("gather", 0) > SMEM_PER_BLOCK:
-        _refuse(f"a photon gather of {photon['bins']} film bins (photon_gather_kernel's shared "
-                f"memory holds {smem['gather']} of {SMEM_PER_BLOCK} bytes)")
     assert max(smem.values()) <= SMEM_PER_BLOCK, smem  # the stack is exprs.PROG_STACK_MAX's
 
     def row(values):
@@ -1177,24 +1159,36 @@ GATHER_WARPS = 4  # csrc/photon.cu GATHER_WARPS: warps a block of photon_gather_
 FRESH_CHUNK = 64  # csrc/photon.cu FRESH_CHUNK: fresh wavelengths a warp's row holds
 
 
-def gather_smem_bytes(bins, k):
+def gather_smem_bytes(bins, k, out_row=False):
     """photon_gather_kernel's dynamic shared memory a block, as its launcher
     passes it (csrc/photon.cu gather_row): each warp's row of its vertex's
-    B acc bins, B cnt bins and K fresh sums (none past FRESH_CHUNK: the
+    B acc bins and B cnt bins (none in the <out_row> form, which keeps them
+    in the warp's output row), K fresh sums (none past FRESH_CHUNK: the
     output row's), a batch of 32 pairs' fresh values of a chunk of kc =
     min(K, FRESH_CHUNK) wavelengths at a stride of kc | 1 and a ring of 64
     pairs' photon indices, [GATHER_WARPS, 2 B + (K or 0) + 32 (kc | 1) +
-    64] 4-byte words: flat in K past FRESH_CHUNK."""
+    64] 4-byte words: flat in K past FRESH_CHUNK, and in B in the
+    <out_row> form."""
     kc = min(k, FRESH_CHUNK)
-    return 4 * GATHER_WARPS * (2 * bins + (k if k <= FRESH_CHUNK else 0) + 32 * (kc | 1) + 64)
+    row_bins = 0 if out_row else bins
+    return 4 * GATHER_WARPS * (2 * row_bins + (k if k <= FRESH_CHUNK else 0) + 32 * (kc | 1) + 64)
 
 
-def photon_gather_args(spec, pm, q):
+def gather_out_row(bins, k):
+    """Whether photon_gather_kernel keeps a vertex's bins in its output row
+    (the <out_row> form), where its row form's shared memory
+    (gather_smem_bytes) passes what a block holds: past 7,085 bins at K =
+    6. Both forms make the same adds in the same order."""
+    return gather_smem_bytes(bins, k) > SMEM_PER_BLOCK
+
+
+def photon_gather_args(spec, pm, q, out_row=None):
     """Checked arguments of one photon_gather_kernel launch, with the
     outputs it writes: (ctypes arguments, {acc_bins, cnt_bins,
     num_neighbors, fresh_psum, fresh_cnt}). ``spec`` is a
     renderers.photon.GatherSpec, ``pm`` a photon map (build_map) and ``q``
-    one camera bounce's query (gather_query)."""
+    one camera bounce's query (gather_query); ``out_row`` picks the
+    kernel's form (gather_out_row's by default)."""
     dev = q["position"].device
     if dev.type != "cuda":
         raise ValueError(f"photon_gather_kernel takes CUDA tensors, not {dev}")
@@ -1245,7 +1239,8 @@ def photon_gather_args(spec, pm, q):
     ] + [out[key].data_ptr() for key in (
         "acc_bins", "cnt_bins", "num_neighbors", "fresh_psum", "fresh_cnt")] + [
         n, p, m, k, b, cols, s, g, int(spec.exact), spec.power_cols,
-        spec.radius, spec.radius * spec.radius, lo, b / (hi - lo), (hi - lo) / b,
+        int(gather_out_row(b, k) if out_row is None else out_row), spec.radius,
+        spec.radius * spec.radius, lo, b / (hi - lo), (hi - lo) / b,
         (hi - lo) / g if g else 1.0, torch.cuda.current_stream(dev).cuda_stream,
     ]
     return args, out
@@ -1265,5 +1260,6 @@ def photon_gather(spec, pm, q):
 
         return gather_plain(spec, pm, q)
     args, out = photon_gather_args(spec, pm, q)
-    _launch("photon_gather_kernel", args)
+    out_row = gather_out_row(spec.bins, spec.spectrum_samples)
+    _launch("photon_gather_kernel<out_row>" if out_row else "photon_gather_kernel", args)
     return out

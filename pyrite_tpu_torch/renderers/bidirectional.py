@@ -63,7 +63,7 @@ from ..scene import CameraModel, Scene, camera_inverse_project
 from ..tracer import DIST_EPSILON, TraceConfig, initial_state, trace_lamp_path
 from .simple import (RenderProgress, _accumulate_lane_bins, _HostCount, _uniform_lanes,
                      _uniform_start, camera_rays, camera_wavelengths, chunk_rays, regen_enabled)
-from .simple import lane_bytes as camera_lane_bytes
+from .simple import DE_T_BYTES, lane_bytes as camera_lane_bytes
 
 # Work of the renders since a caller last zeroed them: chunk steps (one-shot),
 # lamp traces (one lamp start launch each: a chunk step's, or a regen
@@ -418,6 +418,15 @@ _STEP_BYTES = 8 << 30
 def _slot_bytes(light_bounces: int, spectrum_samples: int) -> int:
     """Bytes a lane's lamp slots take in a chunk step (_STEP_BYTES)."""
     return (light_bounces + 1) * (160 + 20 * spectrum_samples)
+
+
+def lane_bytes(scene: Scene, cfg: TraceConfig, light_bounces: int) -> int:
+    """Bytes a lane's camera walk takes in a chunk step beside its slots:
+    simple.lane_bytes, and on a scene with DE shapes the query march pass's
+    t of each lamp slot's connection or splat ray (DE_T_BYTES a shape)."""
+    slots = light_bounces + 1
+    return (camera_lane_bytes(scene, cfg.spectrum_samples, cfg.light_samples)
+            + DE_T_BYTES * len(scene.de_shapes) * slots)
 
 
 def pick_rows_per_chunk(film: Film, light_bounces: int, spectrum_samples: int,
@@ -799,7 +808,7 @@ def render_sharded(project_data, scene: Scene, mesh, seed: int = 0, on_progress=
                       spectrum_samples=settings.spectrum_samples)
     light_bounces = settings.light_bounces
     rows = pick_rows_per_chunk(film, light_bounces, cfg.spectrum_samples, scene.texture_bytes,
-                               lane_bytes=camera_lane_bytes(scene, cfg.spectrum_samples))
+                               lane_bytes=lane_bytes(scene, cfg, light_bounces))
     acc, wt = device_film_buffers(film, mesh, resume)
     start = _uniform_start(resume, film)
     total = settings.pixel_samples if max_samples is None else min(settings.pixel_samples,

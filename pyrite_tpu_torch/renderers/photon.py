@@ -60,7 +60,7 @@ from ..scene import CameraModel, Scene, exact_chain_mode  # noqa: F401 (the JAX 
 from ..tracer import TraceConfig, initial_state, trace_lamp_path
 from .bidirectional import _effective_brdf, _lamp_path_factors
 from .simple import RenderProgress, _uniform_lanes, _uniform_start, chunk_rays
-from .simple import lane_bytes as camera_lane_bytes
+from .simple import DE_T_BYTES, lane_bytes as camera_lane_bytes
 
 _CELL_CAP = 32  # the most photons a query takes from one grid cell
 _HASH = (73856093, 19349663, 83492791)  # the JAX package's cell-key multipliers
@@ -327,6 +327,18 @@ def photon_batch(scene, photon_cfg, draws, lam_p, spec: GatherSpec, bin_centers)
     return out
 
 
+def shoot_photons(scene, photon_cfg, draws, count, spec: GatherSpec, bin_centers, chunk):
+    """A photon pass's ``count`` photons (photon_batch), traced ``chunk`` at
+    a time (photon_chunk). The keyed ``draws`` take the photon index in the
+    pixel word, so each chunk's photons are the whole batch's, in order."""
+    lam_p = rng.photon_wavelengths(draws, count, spec.span, scene.device)
+    parts = [photon_batch(scene, photon_cfg, replace(draws, pixel0=draws.pixel0 + c),
+                          lam_p[c:c + chunk], spec, bin_centers) for c in range(0, count, chunk)]
+    if len(parts) == 1:
+        return parts[0]
+    return {k: torch.cat([part[k] for part in parts]) for k in parts[0]}
+
+
 def build_map(scene, photons, spec: GatherSpec):
     """A photon map: the photons in cell order (grid_sort_photons), each
     field gathered into that order once, and in exact mode every color
@@ -515,7 +527,8 @@ def lane_bytes(scene, settings, spec: GatherSpec) -> int:
     k = spec.spectrum_samples
     vertex = 4 * (9 + cols + 1) + 2 + (4 * (m + 1) if spec.exact else 0)
     gather = 4 * (3 * k * m + 3 * m + 2 * k + 2 + 6 * spec.bins)
-    return camera_lane_bytes(scene, cols) + settings.bounces * vertex + gather
+    return (camera_lane_bytes(scene, cols, settings.light_samples) + settings.bounces * vertex
+            + gather)
 
 
 def map_bytes(settings, spec: GatherSpec, m_count) -> int:
@@ -525,6 +538,22 @@ def map_bytes(settings, spec: GatherSpec, m_count) -> int:
     twice that while a map is sorted."""
     per = 4 * (1 + 3 + 3 + spec.power_cols + 1) + 2 + (4 * (4 * m_count + 1) if spec.exact else 0)
     return 2 * settings.photon_passes * settings.photons * (settings.photon_bounces + 1) * per
+
+
+# the fewest photons a lamp walk traces at once (photon_chunk)
+_MIN_WALK = 1024
+
+
+def photon_chunk(scene, settings, held: int = 0) -> int:
+    """Photons a lamp walk traces at once: all of a pass's, unless its march
+    passes' t rows (DE_T_BYTES a DE shape for each photon's ray, the part
+    of the walk that grows with the scene's shapes) pass _STEP_BYTES beside
+    ``held`` bytes (textures and photon maps); then as many as fit, at
+    least _MIN_WALK."""
+    per = DE_T_BYTES * len(scene.de_shapes)
+    if per == 0:
+        return settings.photons
+    return min(settings.photons, max(max(_STEP_BYTES - held, 0) // per, _MIN_WALK))
 
 
 def pick_rows_per_chunk(film: Film, per_lane: int, held: int = 0) -> int:
@@ -599,7 +628,7 @@ def render(project_data, scene: Scene, seed: int = 0, on_progress=None, max_samp
            resume=None):
     """Render the project with progressive photon mapping on the scene's
     device; returns (film, acc, wt). Per sample: every photon pass's map
-    (photon_batch, build_map), then per chunk of camera rows
+    (shoot_photons, build_map), then per chunk of camera rows
     (pick_rows_per_chunk under lane_bytes) the camera pass and its gather
     against each map in pass order. ``resume`` (a checkpoint) starts from
     its film at its samples_done; the draws are keyed by the global sample,
@@ -620,6 +649,7 @@ def render_sharded(project_data, scene: Scene, mesh, seed: int = 0, on_progress=
      bin_centers) = _build_parts(project_data, scene)
     held = scene.texture_bytes + map_bytes(settings, spec, len(scene.color_programs))
     rows = pick_rows_per_chunk(film, lane_bytes(scene, settings, spec), held)
+    walk = photon_chunk(scene, settings, held)
     acc, wt = device_film_buffers(film, mesh, resume)
     start = _uniform_start(resume, film)
     total = settings.pixel_samples if max_samples is None else min(settings.pixel_samples,
@@ -630,10 +660,9 @@ def render_sharded(project_data, scene: Scene, mesh, seed: int = 0, on_progress=
         for i in range(first, first + count):
             base = i * (1 + passes)
             photon_draws = [KeyedDraws(seed, sample0=base + 1 + p) for p in range(passes)]
-            maps = [build_map(scene, photon_batch(
-                scene, photon_cfg, d,
-                rng.photon_wavelengths(d, settings.photons, spec.span, scene.device), spec,
-                bin_centers), spec) for d in photon_draws]
+            maps = [build_map(scene, shoot_photons(scene, photon_cfg, d, settings.photons, spec,
+                                                   bin_centers, walk), spec)
+                    for d in photon_draws]
             for row0 in range(0, film.height, rows):
                 acc, wt, vertices, positions, wl_cam = camera_pass(
                     scene, film, camera, cfg, spec, grid_centers, KeyedDraws(seed, sample0=base),

@@ -113,28 +113,35 @@ def chunk_rays(film: Film, camera: CameraModel, cfg: TraceConfig, rng, row0=0, r
 # value: the values, their stacked copy and a temporary (lane_bytes; the
 # "[memory]" lines on an NVIDIA H100 80GB HBM3: 5,305.7 B at S = 32 and
 # 9,021.7 B at S = 64 on the flagship, 65,733.6 B on 300 materials with
-# their 581 colour programs as a per-launch bank at S = 10).
+# their 581 colour programs as a per-launch bank at S = 10). On a scene
+# with DE shapes the march passes' t rows take DE_T_BYTES a shape for each
+# bounce ray and each of its shadow rays (kernels_dense.march_pass's [n_de,
+# N] and shadow_pass's [n_de, light samples, N], f32), which LANE_BYTES,
+# measured on one shape, does not grow with.
 WAVEFRONT_BYTES = 8 << 30
 LANE_BYTES = 2048
 COLUMN_BYTES = 96
 BANK_BYTES = 12
+DE_T_BYTES = 4
 
 
-def lane_bytes(scene: Scene, spectrum_samples: int) -> int:
-    """Bytes a lane of ``scene``'s wavefront takes at S spectral columns:
-    LANE_BYTES, COLUMN_BYTES for each column past 8, and BANK_BYTES for
-    each value of the launch's program bank
-    (kernels_dense.precompute_bank_values): S values a lane for each color
-    program not baked into a table, for the sky and each directional lamp
-    and for each leaf float of the kProg programs, one for each
-    probability program not baked."""
+def lane_bytes(scene: Scene, spectrum_samples: int, light_samples: int) -> int:
+    """Bytes a lane of ``scene``'s wavefront takes at S spectral columns and
+    ``light_samples`` shadow rays a bounce: LANE_BYTES, COLUMN_BYTES for
+    each column past 8, BANK_BYTES for each value of the launch's program
+    bank (kernels_dense.precompute_bank_values): S values a lane for each
+    color program not baked into a table, for the sky and each directional
+    lamp and for each leaf float of the kProg programs, one for each
+    probability program not baked; and DE_T_BYTES for each DE shape and
+    each of the lane's bounce and shadow rays (the march passes' t)."""
     s = spectrum_samples
     color = 0 if scene.color_bank_bakeable is not None else len(scene.color_programs)
     prob = 0 if scene.prob_bank_bakeable is not None else len(scene.prob_programs)
     pack = scene.dense_pack
     leaves = sum(w for _, w in pack["programs"].leaves) if pack and pack["prog"] else 0
     rows = color + 1 + len(scene.directional_lamps) + leaves
-    return LANE_BYTES + COLUMN_BYTES * max(s - 8, 0) + BANK_BYTES * (s * rows + prob)
+    marched = DE_T_BYTES * len(scene.de_shapes) * (1 + light_samples)
+    return LANE_BYTES + COLUMN_BYTES * max(s - 8, 0) + BANK_BYTES * (s * rows + prob) + marched
 
 
 def lane_budget(texture_bytes: int = 0, lane_bytes: int = LANE_BYTES) -> int:
@@ -433,7 +440,7 @@ def _render_regen(scene, film, camera, cfg, acc, wt, seed, resume, total, on_pro
     mesh = local_mesh(scene.device) if mesh is None else mesh
     if planes is None:
         planes = _regen_planes(film, scene.texture_bytes,
-                               lane_bytes=lane_bytes(scene, cfg.spectrum_samples))
+                               lane_bytes=lane_bytes(scene, cfg.spectrum_samples, cfg.light_samples))
     pix = film.height * film.width
     n = pix * planes
     d, r = mesh.size, mesh.rank
@@ -775,7 +782,7 @@ def render_sharded(project_data, scene: Scene, mesh, seed: int = 0, on_progress=
                               mesh=mesh)
 
     batch = pick_sample_batch(film, scene.texture_bytes,
-                              lane_bytes=lane_bytes(scene, cfg.spectrum_samples))
+                              lane_bytes=lane_bytes(scene, cfg.spectrum_samples, cfg.light_samples))
 
     def step(acc, wt, first, count):
         draws = KeyedDraws(seed, sample0=first, samples=count)

@@ -344,7 +344,7 @@ def photon_widths(project, exact) -> dict:
 def build_scene(project_data, device="cuda") -> Scene:
     """Build the scene's tables on ``device``, the card unless the caller
     asks for the CPU (device="cpu"); a CUDA device without one raises.
-    Raises NotImplementedError for scenes outside the ported path."""
+    Every scene the JAX package builds is taken (kernels_dense.build_pack)."""
     project = project_data.project
     resources = exprs.Resources(texture_loader=project_data.textures)
     scene = Scene(require_device(device, "build_scene"))

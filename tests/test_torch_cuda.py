@@ -858,9 +858,11 @@ def test_cuda_gate_measures_equal_the_launchers():
                     s, de, form, stack), (s, de, form)
                 assert lib.pyrite_bounce_record_smem(s, de, form) + extra == kd.record_smem_bytes(
                     s, de, form, stack), (s, de, form)
-    for bins in (64, 512, 7085):
+    for bins in (64, 512, 7085, 7086, 10000):
         for k in (1, 6, 64, 65, 512):
-            assert lib.pyrite_gather_smem(bins, k) == kd.gather_smem_bytes(bins, k), (bins, k)
+            for out_row in (0, 1):
+                assert lib.pyrite_gather_smem(bins, k, out_row) == kd.gather_smem_bytes(
+                    bins, k, out_row), (bins, k, out_row)
 
 
 @pytest.mark.cuda
@@ -879,3 +881,80 @@ def test_cuda_wide_renders_take_the_kernels(wide_paths, tmp_path, name):
         assert launches["dense_bounce_kernel<record>"] > 0
     else:
         assert chip_smoke.render_end_to_end(wide_paths[name], 1, "card", str(tmp_path))["bounces"] > 0
+
+
+# --- the gate's last refusals -------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def gate_last_paths(tmp_path_factory):
+    """The scenes of chip_smoke.gate_last_paths, written once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return chip_smoke.gate_last_paths(str(tmp_path_factory.mktemp("gate_last")))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["planes", "textures_deep80"])
+def test_cuda_gate_last_kernels_match_plain_version(gate_last_paths, name):
+    """The dense bounce and NEE kernels on a scene of planes alone (no
+    primitive, no DE shape) and the kProg ones on a colour program lowered
+    in Sethi-Ullman order against the plain version (chip_smoke
+    check_kernels: flags exact, vectors rtol 1e-3 / atol 1e-4, no divergent
+    lane); the Sethi-Ullman order's outputs bit-equal to the expression's
+    order's (chip_smoke.hold_stack_orders)."""
+    worst = chip_smoke.check_kernels(name, gate_last_paths[name], lanes=8192, bounces=2)
+    assert worst["divergent"] == worst["nee_divergent"] == 0.0
+    if name == "textures_deep80":
+        su, natural = chip_smoke.hold_stack_orders(name, gate_last_paths[name], lanes=4096)
+        assert su < natural
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("count", [1, 130, 2411])
+def test_cuda_march_matches_plain_at_any_shape_count(gate_last_paths, count):
+    """march_de_kernel, each item's shape read from the sheet, at 1, 130
+    and 2,411 DE shapes: the bounce, shadow and query passes' t bit-equal
+    to the plain version (chip_smoke.check_march_shapes)."""
+    from pyrite_tpu_torch import kernels_dense as kd
+
+    before = kd.launches["de_query_pass"]
+    name = f"de_{count}"
+    assert chip_smoke.check_march_shapes(name, gate_last_paths[name], lanes=256) == 0.0
+    assert kd.launches["de_query_pass"] > before
+
+
+@pytest.mark.cuda
+def test_cuda_out_row_gather_matches_plain_and_row_forms(gate_last_paths):
+    """photon_gather_kernel's <out_row> form at 7,086 and 10,000 bins
+    against the plain version (counts exact, bins rtol 1e-5), and at 7,085
+    bins bit-equal to the row form (chip_smoke.check_out_row_gather,
+    hold_gather_forms)."""
+    for bins in (7086, 10000):
+        name = f"flagship_photon_{bins}_small"
+        assert chip_smoke.check_out_row_gather(name, gate_last_paths[name]) < 1e-3
+    assert chip_smoke.hold_gather_forms("flagship_photon_7085_small",
+                                        gate_last_paths["flagship_photon_7085_small"]) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["planes", "planes_bdpt", "textures_deep80",
+                                  "textures_deep80_bdpt", "de_2411", "flagship_photon_7086_small"])
+def test_cuda_gate_last_renders_take_the_kernels(gate_last_paths, tmp_path, name):
+    """Phase 10's renders from .lua to PNG on the card, every bounce
+    through the scene's kernels (the march passes on de_2411, the gather's
+    <out_row> form past 7,085 bins), the launchers' shared memory the
+    gate's (chip_smoke.check_launch_smem)."""
+    path = gate_last_paths[name]
+    assert chip_smoke.check_launch_smem({name: path}) > 0
+    if name.startswith("flagship_photon"):
+        launches = chip_smoke.render_photon(path, 1, "card", str(tmp_path))[0]
+        assert launches["photon_gather_kernel<out_row>"] > 0 == launches["photon_gather_kernel"]
+    elif name.endswith("_bdpt"):
+        assert chip_smoke.render_bdpt(path, 1, "card", str(tmp_path))[0]["camera_bounces"] > 0
+    else:
+        launches = chip_smoke.render_end_to_end(path, 1, "card", str(tmp_path),
+                                                passes=name == "de_2411")
+        assert launches["bounces"] > 0
+        if name == "de_2411":
+            assert launches["de_march_pass"] > 0

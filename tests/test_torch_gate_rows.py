@@ -297,29 +297,27 @@ def test_gate_refuses_past_shared_memory(paths, tmp_path):
     assert max(smem[512].values()) <= kd.SMEM_PER_BLOCK
 
 
-def test_gate_refuses_past_de_shapes(tmp_path):
-    """The other ceiling: march_de_kernel stages every DE shape in its
-    shared memory (kernels_dense.MAX_DE_SHAPES of DE_SHAPE_BYTES within
-    SMEM_PER_BLOCK). The julia scene's pack with its shape repeated to the
-    ceiling builds, its DE table in ceil(n / 128) consecutive rows; one
-    more shape is refused naming ROADMAP.md item 15."""
+def test_gate_takes_de_shapes_past_the_old_ceiling(tmp_path):
+    """march_de_kernel reads each DE shape from the sheet, so the gate
+    takes any number of them (staging every shape in shared memory held
+    2,410). The julia scene's pack with its shape repeated 2,410 and 2,411
+    times builds, its DE table in ceil(n / 128) consecutive rows, and no
+    launcher's shared memory grows with the count."""
     import copy
 
-    most = kd.MAX_DE_SHAPES
-    assert most * kd.DE_SHAPE_BYTES <= kd.SMEM_PER_BLOCK < (most + 1) * kd.DE_SHAPE_BYTES
-    assert most > 512  # past the 48 KiB a block gets without opting in
     st = torch_build(torch_load(chip_smoke.write_julia_scene(str(tmp_path), 8, 4)), "cpu")
     a = {k: v.numpy() for k, v in st.arrays.items()}
     many = copy.copy(st)
-    many.de_shapes = list(st.de_shapes) * most
-    pack = kd.build_pack(many, a)
-    meta = pack["meta"]
-    assert meta["n_de"] == most
-    rows = sorted(meta[f"de_{field}"] for field in kd.DE_FIELDS)
-    assert np.diff(rows).tolist() == [-(-most // kd.SHEET_WIDTH)] * (len(rows) - 1)
-    many.de_shapes = list(st.de_shapes) * (most + 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
-        kd.build_pack(many, a)
+    smem = []
+    for count in (2410, 2411):
+        many.de_shapes = list(st.de_shapes) * count
+        pack = kd.build_pack(many, a)
+        meta = pack["meta"]
+        assert meta["n_de"] == count
+        rows = sorted(meta[f"de_{field}"] for field in kd.DE_FIELDS)
+        assert np.diff(rows).tolist() == [-(-count // kd.SHEET_WIDTH)] * (len(rows) - 1)
+        smem.append(pack["smem"])
+    assert smem[0] == smem[1] == st.dense_pack["smem"]
 
 
 @pytest.mark.parametrize("which", ["regen", "pool", "one-shot", "bidirectional"])
@@ -356,26 +354,26 @@ def test_cli_renders_what_the_gate_refused(paths, tmp_path, name):
         assert np.asarray(img).max() > 0
 
 
-def test_gate_takes_photon_bins_the_gather_holds(tmp_path):
-    """photon_gather_kernel keeps one row of 2 B + K floats a warp
-    (kernels_dense.gather_smem_bytes), so the gate takes a photon project
-    of 512 film bins at S = 6 (past the 447 of a row a thread) and every
-    bin count up to the most that a block's shared memory holds; one more
-    is refused naming ROADMAP.md item 15, before any render starts. The
-    project is flagship_photon at its CPU size (exact mode: camera rows of
-    S, lamp rows of one column); at 512 bins it renders through the CLI."""
+def test_gate_takes_photon_bins_in_either_gather_form(tmp_path):
+    """photon_gather_kernel's row form keeps one row of 2 B + K floats a
+    warp (kernels_dense.gather_smem_bytes), so it takes a photon project of
+    512 film bins at S = 6 (past the 447 of a row a thread) and every bin
+    count up to the most that a block's shared memory holds; one more bin
+    takes the <out_row> form (gather_out_row), whose shared memory does not
+    grow with B. The project is flagship_photon at its CPU size (exact
+    mode: camera rows of S, lamp rows of one column); at 512 bins and at one
+    past the row form's most it renders through the CLI."""
     most = max(b for b in range(1, 20000) if kd.gather_smem_bytes(b, 6) <= kd.SMEM_PER_BLOCK)
     assert most > 4 * 512 and kd.gather_smem_bytes(most + 1, 6) > kd.SMEM_PER_BLOCK
     flagship = chip_smoke.photon_scene_paths(str(tmp_path), small=True)["flagship_photon"]
-    for bins, ok in ((512, True), (most, True), (most + 1, False)):
+    for bins, out_row in ((512, False), (most, False), (most + 1, True)):
         path = chip_smoke.photon_bins_scene(flagship, bins)
-        if ok:
-            st = torch_build(torch_load(path), "cpu")
-            assert st.photon_widths == {"exact": True, "camera": 6, "lamp": 1, "bins": bins}
-            if bins == 512:
-                out = str(tmp_path / "bins_512.png")
-                assert cli.main([path, "--device", "cpu", "--samples", "1", "--output", out]) == 0
-                assert np.asarray(Image.open(out)).max() > 0
-        else:
-            with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
-                cli.main([path, "--device", "cpu", "--samples", "1"])
+        st = torch_build(torch_load(path), "cpu")
+        assert st.photon_widths == {"exact": True, "camera": 6, "lamp": 1, "bins": bins}
+        assert kd.gather_out_row(bins, 6) == out_row
+        assert st.dense_pack["smem"]["gather"] == kd.gather_smem_bytes(bins, 6, out_row)
+        assert st.dense_pack["smem"]["gather"] <= kd.SMEM_PER_BLOCK
+        if bins != most:
+            out = str(tmp_path / f"bins_{bins}.png")
+            assert cli.main([path, "--device", "cpu", "--samples", "1", "--output", out]) == 0
+            assert np.asarray(Image.open(out)).max() > 0

@@ -236,12 +236,14 @@ def test_simple_form_keeps_the_simple_kernels(paths, tmp_path):
     assert kd.kernel_names(tt) == ("dense_bounce_kernel<prog>", "dense_nee_kernel<prog>")
 
 
-def test_program_limits_raise_naming_roadmap():
+def test_program_past_the_stack_cap_lowers_in_sethi_ullman_order():
     """A program whose stack passes what the kernels' shared memory holds
-    (exprs.PROG_STACK_MAX values) raises NotImplementedError naming
-    ROADMAP.md, never a silent truncation; one past the old form's 64
-    instructions lowers whole, and a probability program of the simple
-    form keeps the simple instantiations at any length."""
+    (exprs.PROG_STACK_MAX values) is lowered in Sethi-Ullman order, its
+    deepest operand first and SWAPs where an op's operands come out of
+    order, within the cap and bit-equal to the expression's order, never a
+    silent truncation; one past the old form's 64 instructions lowers
+    whole, and a probability program of the simple form keeps the simple
+    instantiations at any length."""
     C = TIR.ComplexExpression
     sky = TE.compile_program(0.0, TE.Resources())
 
@@ -258,9 +260,23 @@ def test_program_limits_raise_naming_roadmap():
     assert len(kp.program_code(0)) > 64 and kp.stack_depth == TE.PROG_STACK and kp.simple
     deep = C("fresnel", {"ior": 1.5, "env_ior": 1.0})
     for _ in range(TE.PROG_STACK_MAX):
-        deep = C("binary", {"operator": "add", "lhs": 0.01, "rhs": deep})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 15"):
-        lowered(deep)
+        deep = C("binary", {"operator": "sub", "lhs": 0.01, "rhs": deep})
+    kp = lowered(deep)
+    code = kp.program_code(0)
+    assert TE._depth(code) <= TE.PROG_STACK < TE.PROG_STACK_MAX and not kp.simple
+    assert sum(op == TE.OP_SWAP for op, _, _ in code) == TE.PROG_STACK_MAX
+    n = 16
+    gen = torch.Generator().manual_seed(0)
+    normal = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=1)
+    incident = torch.nn.functional.normalize(torch.randn(n, 3, generator=gen), dim=1)
+    args = (torch.arange(n), n, 1, kp.leaf_values(torch.full((n, 1), 550.0)), [], normal,
+            incident, torch.zeros(n, 2))
+    got = kp.run(0, 0, *args, split=False)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(TE, "PROG_STACK_MAX", 10 ** 6)
+        natural = lowered(deep)
+    assert TE._depth(natural.program_code(0)) == TE.PROG_STACK_MAX + 2
+    assert torch.equal(got, natural.run(0, 0, *args, split=False))
 
 
 # --- the two-part program form (lane code once per lane, column code per column) -----
